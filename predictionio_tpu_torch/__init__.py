@@ -1,0 +1,18 @@
+"""PredictionIO on PyTorch and CUDA: the port of ``predictionio_tpu``.
+
+A second package beside the JAX one, module for module: the same DASE
+engine contracts, model file format, storage layout and HTTP serving,
+with device work in PyTorch and hand-written CUDA kernels for an NVIDIA
+Hopper card (H100). The JAX package stays the reference; this package
+imports nothing from it and never imports ``jax``.
+
+Entry points run on CUDA unless the caller asks for the CPU
+(``device="cpu"``), where every kernel's plain PyTorch version runs
+instead (:mod:`predictionio_tpu_torch.utils.device`).
+
+Ported so far: ALS recommendation serving, from ``deploy`` to
+``POST /queries.json``, on the fused gather -> score -> top-k kernel
+(``csrc/topk.cu``). Training is the next slice.
+"""
+
+__version__ = "0.1.0"

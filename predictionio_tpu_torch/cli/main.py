@@ -1,0 +1,135 @@
+"""Command line of the port: the ``deploy`` verb.
+
+    python -m predictionio_tpu_torch.cli.main deploy \\
+        [--engine-instance-id ID | --variant engine.json] \\
+        [--ip 0.0.0.0] [--port 8000] [--device cuda|cpu]
+
+Port of ``predictionio_tpu/cli/main.py`` ``cmd_deploy`` (:1053-1092).
+The instance is resolved as there: by id, or as the latest COMPLETED
+instance of the variant's (id, version, file-name label). The engine
+factory comes from the variant's ``engineFactory``, else from the
+instance's recorded ``engine_factory``, else the port's recommendation
+template; a JAX-package factory name maps to the port module of the same
+path (core/engine.py ``port_factory_name``). Storage is configured by the
+same ``PIO_*`` environment as the JAX package. Scoring runs on CUDA
+unless ``--device cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+
+from predictionio_tpu_torch.core.engine import (
+    DEFAULT_ENGINE_FACTORY,
+    resolve_engine_factory,
+)
+from predictionio_tpu_torch.core.workflow import load_variant
+from predictionio_tpu_torch.data.storage import get_storage
+from predictionio_tpu_torch.server.engine_server import EngineServer
+
+
+def _engine_identity(args, variant: dict) -> tuple[str, str, str]:
+    """(engine_id, version, variant label) -- the instance lookup key, as
+    the JAX CLI computes it: an id-less variant falls back to the real
+    path of its directory; the label is the variant file's name."""
+    engine_id = variant.get("id")
+    if not engine_id:
+        engine_id = (
+            os.path.dirname(os.path.realpath(args.variant)) if args.variant
+            else "default"
+        )
+    label = os.path.basename(args.variant or "") or "default"
+    return engine_id, variant.get("version", "0"), label
+
+
+def deploy_server(args) -> EngineServer:
+    """Resolve the engine and instance from ``args`` and build the
+    server (models loaded to the device, not yet warmed or bound).
+    Raises LookupError when no instance matches."""
+    variant = load_variant(args.variant) if args.variant else {}
+    storage = get_storage()
+    instances = storage.get_metadata_engine_instances()
+    if args.engine_instance_id:
+        instance = instances.get(args.engine_instance_id)
+        if instance is None:
+            raise LookupError(f"engine instance {args.engine_instance_id} not found")
+    else:
+        engine_id, engine_version, label = _engine_identity(args, variant)
+        instance = instances.get_latest_completed(engine_id, engine_version, label)
+        if instance is None and args.variant:
+            # instances trained before the basename-label change carry
+            # the as-typed path as their label
+            instance = instances.get_latest_completed(
+                variant.get("id", "default"), engine_version, args.variant
+            )
+        if instance is None:
+            raise LookupError(
+                "No valid engine instance found for this engine; "
+                "have you run `pio train` yet?"
+            )
+    factory = (
+        variant.get("engineFactory") or instance.engine_factory
+        or DEFAULT_ENGINE_FACTORY
+    )
+    engine = resolve_engine_factory(factory)
+    return EngineServer(
+        engine, instance, storage=storage, host=args.ip, port=args.port,
+        device=args.device,
+    )
+
+
+def cmd_deploy(args) -> int:
+    try:
+        server = deploy_server(args)
+    except LookupError as e:
+        print(e, file=sys.stderr)
+        return 1
+    if not args.no_warmup:
+        server.warmup()
+    try:
+        server.start(background=False)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop()
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m predictionio_tpu_torch.cli.main",
+        description="PredictionIO on PyTorch/CUDA",
+    )
+    sub = p.add_subparsers(dest="command", required=True)
+    d = sub.add_parser("deploy", help="serve an engine instance over HTTP")
+    d.add_argument("--engine-instance-id")
+    d.add_argument("--variant", help="engine.json of the instance to deploy")
+    d.add_argument("--ip", default="0.0.0.0")
+    d.add_argument("--port", type=int, default=8000)
+    d.add_argument(
+        "--device", default=None,
+        help="torch device to score on (default: cuda; cpu runs the "
+        "kernels' plain versions)",
+    )
+    d.add_argument(
+        "--no-warmup", action="store_true",
+        help="skip the warmup query scored before the port binds",
+    )
+    d.set_defaults(fn=cmd_deploy)
+    return p
+
+
+def main(argv: list[str] | None = None) -> int:
+    logging.basicConfig(
+        level=os.environ.get("PIO_LOG_LEVEL", "INFO"),
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
+    )
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

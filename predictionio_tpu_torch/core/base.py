@@ -1,0 +1,126 @@
+"""DASE component contracts: DataSource, Preparator, Algorithm, Serving.
+
+Port of ``predictionio_tpu/core/base.py``, the contracts the serving
+slice needs. One difference: an ``Algorithm`` carries the
+``torch.device`` it scores on (``device``), set by the deploy path from
+the run's WorkflowContext; ``None`` means CUDA (utils/device.py).
+"""
+
+from __future__ import annotations
+
+import abc
+import inspect
+from typing import Any, Generic, Sequence, TypeVar
+
+import torch
+
+from predictionio_tpu_torch.core.context import WorkflowContext
+from predictionio_tpu_torch.core.params import EmptyParams, Params
+
+TD = TypeVar("TD")  # training data
+PD = TypeVar("PD")  # prepared data
+Q = TypeVar("Q")  # query
+P = TypeVar("P")  # predicted result
+A = TypeVar("A")  # actual result
+M = TypeVar("M")  # model
+
+
+class Component:
+    """Common base: every DASE component is constructed with a Params
+    instance available as ``self.params`` (reference AbstractDoer)."""
+
+    params_class: type[Params] = EmptyParams
+
+    def __init__(self, params: Params | None = None):
+        self.params = params if params is not None else self.params_class()
+
+
+def doer(cls: type, params: Params | None = None) -> Any:
+    """Instantiate a DASE component with params, tolerating zero-arg
+    constructors (reference core/AbstractDoer.scala ``object Doer``)."""
+    try:
+        sig = inspect.signature(cls.__init__)
+        takes_params = len(sig.parameters) > 1  # beyond self
+    except (TypeError, ValueError):
+        takes_params = True
+    if takes_params:
+        return cls(params) if params is not None else cls()
+    return cls()
+
+
+class DataSource(Component, Generic[TD, Q, A], abc.ABC):
+    """Reads training data from the event store."""
+
+    @abc.abstractmethod
+    def read_training(self, ctx: WorkflowContext) -> TD: ...
+
+
+class Preparator(Component, Generic[TD, PD], abc.ABC):
+    """TD -> PD transformation (reference BasePreparator.prepareBase)."""
+
+    @abc.abstractmethod
+    def prepare(self, ctx: WorkflowContext, training_data: TD) -> PD: ...
+
+
+class Algorithm(Component, Generic[PD, M, Q, P], abc.ABC):
+    """Train a model from prepared data; score queries against it.
+
+    ``query_class`` is used by the query server to deserialize JSON
+    queries (dict passthrough when None); ``device`` is where scoring
+    runs (None = CUDA)."""
+
+    query_class: type | None = None
+    device: torch.device | None = None
+
+    @abc.abstractmethod
+    def train(self, ctx: WorkflowContext, prepared_data: PD) -> M: ...
+
+    @abc.abstractmethod
+    def predict(self, model: M, query: Q) -> P: ...
+
+    def batch_predict(self, model: M, queries: Sequence[tuple[int, Q]]) -> list[tuple[int, P]]:
+        """Bulk scoring. Default: loop ``predict``; engines override with
+        one batched device call."""
+        return [(ix, self.predict(model, q)) for ix, q in queries]
+
+    def warmup_query(self, model: M) -> Q | None:
+        """A throwaway query scored once at deploy before the port binds
+        (the first real query then finds the kernels built and the
+        tables on the device), or None to skip. Default: a zero-arg
+        ``query_class()`` when that constructs."""
+        if self.query_class is None:
+            return None
+        try:
+            return self.query_class()
+        except TypeError:
+            return None
+
+    def make_persistent_model(self, model: M) -> Any:
+        """The object to persist for this model: the model itself (model
+        file), a PersistentModel, or None ("retrain on deploy")."""
+        return model
+
+
+class Serving(Component, Generic[Q, P], abc.ABC):
+    """Combines per-algorithm predictions into one response."""
+
+    def supplement(self, query: Q) -> Q:
+        return query
+
+    @abc.abstractmethod
+    def serve(self, query: Q, predictions: Sequence[P]) -> P: ...
+
+
+class FirstServing(Serving[Q, P]):
+    """Serve the first algorithm's prediction (reference LFirstServing:28)."""
+
+    def serve(self, query: Q, predictions: Sequence[P]) -> P:
+        return predictions[0]
+
+
+class SanityCheck(abc.ABC):
+    """Optional self-check run on TrainingData / PreparedData / models
+    during training unless skipped (reference controller/SanityCheck.scala)."""
+
+    @abc.abstractmethod
+    def sanity_check(self) -> None: ...

@@ -1,0 +1,117 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for Hopper (``sm_90a``)
+into a shared library with a plain C interface and loaded with
+``ctypes`` -- no PyTorch headers, so a build takes seconds. The build
+runs at first use, from the sources in the package, into ``_build/``
+beside them (listed in ``.gitignore``). The library's name carries a
+hash of its source, so an edited kernel is rebuilt and a stale one is
+never loaded. A failed build raises; there is no fallback.
+
+Nothing here runs at import: the CPU tests import every module, and a
+machine without a GPU has no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+#: per kernel source: {"seconds": build wall time, "log": nvcc's output}
+build_info: dict[str, dict] = {}
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused a kernel source."""
+
+
+class LaunchCount:
+    """Launches of one kernel wrapper: a plain integer, thread-safe (the
+    engine server scores on several request threads)."""
+
+    def __init__(self) -> None:
+        self._n = 0
+        self._lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = 0
+
+    @property
+    def value(self) -> int:
+        return self._n
+
+
+def nvcc_path() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise KernelBuildError(
+        "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels build "
+        "from source at first use"
+    )
+
+
+def _compile(src: Path, out: Path) -> dict:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}.{threading.get_ident()}")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise KernelBuildError(
+            f"nvcc failed ({proc.returncode}) on {src.name}:\n{log}"
+        )
+    os.replace(tmp, out)
+    return {"seconds": seconds, "log": log, "cached": False}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        src = CSRC / f"{name}.cu"
+        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+        out = BUILD_DIR / f"lib{name}-{digest}.so"
+        if out.exists():
+            build_info[name] = {"seconds": 0.0, "log": "", "cached": True}
+        else:
+            build_info[name] = _compile(src, out)
+        lib = ctypes.CDLL(str(out))
+        _libs[name] = lib
+        return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a nonzero ``cudaError_t`` returned by a C entry point."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")

@@ -1,0 +1,516 @@
+"""The ``PIOMODF1`` model file: flat, versioned, checksummed, mmap-served.
+
+Byte-compatible with ``predictionio_tpu/models/modelfile.py``: a file
+either package writes, the other reads. Layout: MAGIC, an 8-byte
+little-endian header length, a crc32 of the header, a JSON header that
+describes each entry's fields and the 64-byte-aligned array blocks, then
+the raw array bytes. Loading is ``mmap`` + ``np.frombuffer`` read-only
+views, so a load costs the pages it touches.
+
+Entry kinds: ``arrays`` (a dataclass of numpy arrays / dense BiMaps /
+JSON values -- the ALS model), ``persistent`` and ``retrain`` (markers,
+core/persistence.py). A ``pickle`` entry is decoded to its bytes; the
+persistence layer refuses to unpickle it.
+
+Differences that keep the port apart from the JAX package:
+
+- Class names. A file records the model class by qualified name
+  (``predictionio_tpu.models.recommendation.ALSModel`` when the JAX
+  package wrote it). Names are resolved through a fixed table to the
+  port's classes, or taken as they are when they already name a
+  ``predictionio_tpu_torch`` class; anything else is refused. The port
+  writes its own qualified names.
+- bfloat16. numpy has no bfloat16 of its own, and the port does not
+  depend on ``ml_dtypes``. A bfloat16 block decodes to
+  :data:`BFLOAT16`, a structured dtype over one little-endian uint16
+  (the bf16 bits), which is written back under the ``bfloat16`` tag;
+  :func:`numpy_to_tensor` views it as ``torch.bfloat16``.
+
+Integrity: the header crc is always checked; per-block crc32s are
+checked under ``PIO_MODEL_VERIFY=1``. Truncation is caught by block
+bounds checks. Every validation failure raises :class:`ModelFileError`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+import io
+import json
+import logging
+import mmap
+import os
+import threading
+import zlib
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+import torch
+
+from predictionio_tpu_torch.data.bimap import BiMap
+
+logger = logging.getLogger(__name__)
+
+MAGIC = b"PIOMODF1"
+VERSION = 1
+_ALIGN = 64
+_HDR_FIXED = len(MAGIC) + 8 + 4  # magic + header length + header crc32
+
+#: bfloat16 on the host: one little-endian uint16 of bf16 bits per element
+BFLOAT16 = np.dtype([("bfloat16", "<u2")])
+
+_PORT = "predictionio_tpu_torch"
+# JAX-package model classes -> their port counterparts (module, qualname)
+_PORTED_CLASSES = {
+    "predictionio_tpu.models.recommendation.ALSModel":
+        (f"{_PORT}.models.recommendation", "ALSModel"),
+}
+
+
+class ModelFileError(RuntimeError):
+    """The model file is corrupt, truncated, or structurally invalid."""
+
+
+def mmap_enabled() -> bool:
+    """``PIO_MODEL_MMAP=0`` loads model files by a byte read, not mmap."""
+    return os.environ.get("PIO_MODEL_MMAP", "1").strip().lower() not in (
+        "0", "false", "no", "off",
+    )
+
+
+def is_modelfile(blob: bytes) -> bool:
+    return blob[: len(MAGIC)] == MAGIC
+
+
+# --------------------------------------------------------------------------
+# bfloat16 and tensors
+# --------------------------------------------------------------------------
+
+
+def host_array(a: np.ndarray) -> np.ndarray:
+    """A bfloat16 array of any origin (``ml_dtypes``) as :data:`BFLOAT16`;
+    anything else unchanged."""
+    if isinstance(a, np.ndarray) and a.dtype.name == "bfloat16":
+        return a.view(np.uint16).view(BFLOAT16)
+    return a
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """Host numpy copy of a tensor; bfloat16 becomes :data:`BFLOAT16`."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BFLOAT16)
+    return t.numpy()
+
+
+def numpy_to_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Copy a host array (incl. :data:`BFLOAT16`) to a tensor on ``device``."""
+    a = host_array(a)
+    if a.dtype == BFLOAT16:
+        return torch.from_numpy(np.array(a.view(np.int16))).view(
+            torch.bfloat16
+        ).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _dtype_tag(dt: np.dtype) -> str:
+    if dt == BFLOAT16 or dt.name == "bfloat16":
+        return "bfloat16"
+    return dt.str
+
+
+def _tag_dtype(tag: str) -> np.dtype:
+    if tag == "bfloat16":
+        return BFLOAT16
+    try:
+        return np.dtype(tag)
+    except TypeError as e:
+        raise ModelFileError(f"unknown dtype tag {tag!r}") from e
+
+
+# --------------------------------------------------------------------------
+# class names
+# --------------------------------------------------------------------------
+
+
+def resolve_class(module: str, qualname: str) -> type:
+    """A recorded ``(module, qualname)`` -> the port's class. JAX-package
+    names go through the table of ported classes; port names import as
+    they are; anything else raises :class:`ModelFileError`."""
+    mapped = _PORTED_CLASSES.get(f"{module}.{qualname}")
+    if mapped is not None:
+        module, qualname = mapped
+    elif module != _PORT and not module.startswith(_PORT + "."):
+        raise ModelFileError(
+            f"model class {module}.{qualname} has no counterpart in the "
+            "PyTorch port"
+        )
+    try:
+        obj: Any = importlib.import_module(module)
+        for part in qualname.split("."):
+            obj = getattr(obj, part)
+    except (ImportError, AttributeError) as e:
+        raise ModelFileError(f"cannot resolve {module}.{qualname}: {e}") from e
+    return obj
+
+
+# --------------------------------------------------------------------------
+# encode
+# --------------------------------------------------------------------------
+
+
+def _dense_ids(bm) -> list[str] | None:
+    """The id list when the BiMap is exactly str -> dense 0..n-1 (what
+    every template index is), else None."""
+    n = len(bm)
+    ids: list[Any] = [None] * n
+    for k, v in bm.items():
+        if not isinstance(v, int) or isinstance(v, bool) or not (0 <= v < n):
+            return None
+        if not isinstance(k, str) or ids[v] is not None:
+            return None
+        ids[v] = k
+    return ids
+
+
+def _json_ok(v: Any) -> bool:
+    try:
+        json.dumps(v)
+        return True
+    except (TypeError, ValueError):
+        return False
+
+
+def can_encode(model: Any) -> bool:
+    """True when ``model`` is a dataclass whose fields are all numpy
+    arrays, dense BiMaps, None, or JSON values."""
+    if not dataclasses.is_dataclass(model) or isinstance(model, type):
+        return False
+    for f in dataclasses.fields(model):
+        v = getattr(model, f.name)
+        if isinstance(v, np.ndarray):
+            continue
+        if isinstance(v, BiMap):
+            if _dense_ids(v) is None:
+                return False
+            continue
+        if v is None or _json_ok(v):
+            continue
+        return False
+    return True
+
+
+def _encode_ids(ids: list[str]) -> tuple[np.ndarray, np.ndarray]:
+    """utf-8 blob + [n+1] int64 offsets for one string dictionary."""
+    enc = [s.encode("utf-8") for s in ids]
+    offs = np.zeros(len(enc) + 1, dtype=np.int64)
+    if enc:
+        np.cumsum([len(b) for b in enc], out=offs[1:])
+    blob = np.frombuffer(b"".join(enc), dtype=np.uint8).copy()
+    return blob, offs
+
+
+def serialize(entries: list[tuple[str, Any]], model_id: str) -> bytes:
+    """Encode manifest entries to the flat format.
+
+    ``entries`` is a list of ``(kind, payload)``: ``("arrays", model)``
+    with ``can_encode(model)`` true, ``("persistent", (module,
+    qualname))``, or ``("retrain", None)``."""
+    arrays: list[tuple[str, np.ndarray]] = []
+    header_entries: list[dict] = []
+
+    def _block(name: str, arr: np.ndarray) -> str:
+        arrays.append((name, np.ascontiguousarray(arr)))
+        return name
+
+    for i, (kind, payload) in enumerate(entries):
+        if kind == "arrays":
+            cls = type(payload)
+            fields: dict[str, dict] = {}
+            for f in dataclasses.fields(payload):
+                v = getattr(payload, f.name)
+                if isinstance(v, np.ndarray):
+                    fields[f.name] = {
+                        "t": "array",
+                        "block": _block(f"e{i}.{f.name}", v),
+                        "shape": list(v.shape),
+                    }
+                elif isinstance(v, BiMap):
+                    ids = _dense_ids(v)
+                    if ids is None:
+                        raise ModelFileError(
+                            f"entry {i} field {f.name}: BiMap is not dense"
+                        )
+                    blob, offs = _encode_ids(ids)
+                    fields[f.name] = {
+                        "t": "bimap",
+                        "blob": _block(f"e{i}.{f.name}.blob", blob),
+                        "offs": _block(f"e{i}.{f.name}.offs", offs),
+                    }
+                elif v is None:
+                    fields[f.name] = {"t": "none"}
+                else:
+                    fields[f.name] = {"t": "json", "v": v}
+            header_entries.append({
+                "kind": "arrays",
+                "cls": [cls.__module__, cls.__qualname__],
+                "fields": fields,
+            })
+        elif kind == "persistent":
+            header_entries.append({"kind": "persistent", "cls": list(payload)})
+        elif kind == "retrain":
+            header_entries.append({"kind": "retrain"})
+        else:
+            raise ModelFileError(f"unknown entry kind {kind!r}")
+
+    header: dict = {
+        "version": VERSION,
+        "model_id": model_id,
+        "entries": header_entries,
+        "blocks": {},
+    }
+    offset = 0
+
+    def _aligned(off: int) -> int:
+        return (off + _ALIGN - 1) // _ALIGN * _ALIGN
+
+    layout: list[tuple[str, np.ndarray, int]] = []
+    for name, arr in arrays:
+        offset = _aligned(offset)
+        layout.append((name, arr, offset))
+        offset += arr.nbytes
+    for name, arr, off in layout:
+        header["blocks"][name] = {
+            "dtype": _dtype_tag(arr.dtype),
+            "count": int(arr.size),
+            "offset": off,  # relative; absolute = payload_base + offset
+            "crc32": zlib.crc32(arr.tobytes()) & 0xFFFFFFFF,
+        }
+    hdr = json.dumps(header, sort_keys=True).encode("utf-8")
+    payload_base = _aligned(_HDR_FIXED + len(hdr))
+    buf = io.BytesIO()
+    buf.write(MAGIC)
+    buf.write(len(hdr).to_bytes(8, "little"))
+    buf.write((zlib.crc32(hdr) & 0xFFFFFFFF).to_bytes(4, "little"))
+    buf.write(hdr)
+    for name, arr, off in layout:
+        buf.seek(payload_base + off)
+        buf.write(arr.tobytes())
+    # pad to the full payload extent so truncation checks are exact
+    end = payload_base + offset
+    if buf.tell() < end:
+        buf.seek(end - 1)
+        buf.write(b"\0")
+    return buf.getvalue()
+
+
+# --------------------------------------------------------------------------
+# decode
+# --------------------------------------------------------------------------
+
+
+def _parse_header(buf) -> tuple[dict, int]:
+    """Validate magic / length / crc and return (header, payload_base)."""
+    total = len(buf)
+    if total < _HDR_FIXED or bytes(buf[: len(MAGIC)]) != MAGIC:
+        raise ModelFileError("bad magic: not a model file")
+    hlen = int.from_bytes(buf[len(MAGIC): len(MAGIC) + 8], "little")
+    if hlen <= 0 or _HDR_FIXED + hlen > total:
+        raise ModelFileError(f"header length {hlen} out of bounds ({total})")
+    hcrc = int.from_bytes(buf[len(MAGIC) + 8: _HDR_FIXED], "little")
+    hdr_bytes = bytes(buf[_HDR_FIXED: _HDR_FIXED + hlen])
+    if (zlib.crc32(hdr_bytes) & 0xFFFFFFFF) != hcrc:
+        raise ModelFileError("header checksum mismatch")
+    try:
+        header = json.loads(hdr_bytes)
+    except ValueError as e:
+        raise ModelFileError(f"header is not JSON: {e}") from e
+    if header.get("version") != VERSION:
+        raise ModelFileError(f"unsupported version {header.get('version')!r}")
+    payload_base = (_HDR_FIXED + hlen + _ALIGN - 1) // _ALIGN * _ALIGN
+    for name, spec in header.get("blocks", {}).items():
+        dt = _tag_dtype(spec["dtype"])
+        end = payload_base + spec["offset"] + spec["count"] * dt.itemsize
+        if spec["offset"] < 0 or end > total:
+            raise ModelFileError(
+                f"block {name} [{end} bytes] exceeds file size {total}: "
+                "truncated model file"
+            )
+    return header, payload_base
+
+
+def _verify_blocks() -> bool:
+    return os.environ.get("PIO_MODEL_VERIFY", "").strip() == "1"
+
+
+class _LazyDenseBiMap(BiMap):
+    """A BiMap over an encoded dense id dictionary, decoded on first
+    dictionary access instead of at load (a million-id index costs two
+    array views at load). Never calls ``BiMap.__init__``; ``_m`` and
+    ``_inverse`` are materializing properties, so every inherited
+    accessor works once touched."""
+
+    def __init__(self, blob: np.ndarray, offs: np.ndarray):
+        self._blob = blob
+        self._offs = offs
+        self._fwd: dict | None = None
+        self._inv: BiMap | None = None
+
+    def _ids(self) -> list[str]:
+        raw = self._blob.tobytes()
+        offs = self._offs
+        return [
+            raw[offs[j]: offs[j + 1]].decode("utf-8")
+            for j in range(len(offs) - 1)
+        ]
+
+    @property
+    def _m(self) -> dict:
+        if self._fwd is None:
+            self._fwd = {k: i for i, k in enumerate(self._ids())}
+        return self._fwd
+
+    @property
+    def _inverse(self) -> BiMap:
+        if self._inv is None:
+            self._inv = BiMap(
+                {i: k for k, i in self._m.items()}, _inverse=self
+            )
+        return self._inv
+
+    def __len__(self) -> int:  # cheap without decoding
+        return len(self._offs) - 1
+
+    def __reduce__(self):
+        return (BiMap, (self._m,))
+
+
+class ModelFile:
+    """A parsed model file over an mmap (or bytes) buffer. Arrays are
+    read-only zero-copy views; the buffer must outlive them."""
+
+    def __init__(self, buf, *, source: str = "<bytes>"):
+        self._buf = buf
+        self._source = source
+        self._header, self._base = _parse_header(buf)
+        if _verify_blocks():
+            self._verify()
+
+    @property
+    def model_id(self) -> str:
+        return self._header.get("model_id", "")
+
+    def _arr(self, name: str) -> np.ndarray:
+        spec = self._header["blocks"][name]
+        return np.frombuffer(
+            self._buf,
+            dtype=_tag_dtype(spec["dtype"]),
+            count=spec["count"],
+            offset=self._base + spec["offset"],
+        )
+
+    def _verify(self) -> None:
+        for name, spec in self._header["blocks"].items():
+            got = zlib.crc32(self._arr(name).tobytes()) & 0xFFFFFFFF
+            if got != spec["crc32"]:
+                raise ModelFileError(
+                    f"block {name} checksum mismatch in {self._source}"
+                )
+
+    def entries(self) -> list[tuple[str, Any]]:
+        """Decode to persistence-manifest shape: ``(kind, payload)`` with
+        ``arrays`` payloads built as the port's model objects over views
+        of this buffer."""
+        out: list[tuple[str, Any]] = []
+        for i, ent in enumerate(self._header["entries"]):
+            kind = ent["kind"]
+            if kind == "arrays":
+                cls = resolve_class(*ent["cls"])
+                if not (isinstance(cls, type) and dataclasses.is_dataclass(cls)):
+                    raise ModelFileError(
+                        f"entry {i}: {ent['cls']} is not a model dataclass"
+                    )
+                kwargs: dict[str, Any] = {}
+                for fname, fs in ent["fields"].items():
+                    t = fs["t"]
+                    if t == "array":
+                        a = self._arr(fs["block"])
+                        shape = fs.get("shape")
+                        kwargs[fname] = a.reshape(shape) if shape is not None else a
+                    elif t == "bimap":
+                        kwargs[fname] = _LazyDenseBiMap(
+                            self._arr(fs["blob"]), self._arr(fs["offs"])
+                        )
+                    elif t == "none":
+                        kwargs[fname] = None
+                    elif t == "json":
+                        kwargs[fname] = fs["v"]
+                    else:
+                        raise ModelFileError(
+                            f"entry {i} field {fname}: unknown type {t!r}"
+                        )
+                try:
+                    out.append(("arrays", cls(**kwargs)))
+                except TypeError as e:
+                    raise ModelFileError(
+                        f"entry {i}: {cls.__qualname__}(**fields) failed: {e}"
+                    ) from e
+            elif kind == "pickle":
+                out.append(("pickle", self._arr(ent["block"]).tobytes()))
+            elif kind == "persistent":
+                out.append(("persistent", tuple(ent["cls"])))
+            elif kind == "retrain":
+                out.append(("retrain", None))
+            else:
+                raise ModelFileError(f"entry {i}: unknown kind {kind!r}")
+        return out
+
+
+def deserialize(blob: bytes) -> list[tuple[str, Any]]:
+    """Decode an in-memory model-file blob."""
+    return ModelFile(blob).entries()
+
+
+def load_path(path: str | os.PathLike) -> ModelFile:
+    """mmap a model file read-only and parse it; an OS error on the
+    mapping falls back to reading the bytes. Validation failures raise
+    :class:`ModelFileError` either way."""
+    p = Path(path)
+    try:
+        with open(p, "rb") as f:
+            mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+        return ModelFile(mm, source=str(p))
+    except ModelFileError:
+        raise
+    except (OSError, ValueError) as e:
+        logger.warning("mmap of %s failed (%s); reading bytes", p, e)
+        return ModelFile(p.read_bytes(), source=str(p))
+
+
+# One mapping + one decoded entry list per on-disk file, process-wide
+_shared_lock = threading.Lock()
+_shared: dict[tuple[str, int, int], tuple[ModelFile, list]] = {}
+_SHARED_MAX = 8
+
+
+def shared_entries(path: str | os.PathLike) -> list[tuple[str, Any]]:
+    """Decoded entries for ``path``, shared across every caller mapping
+    the same (realpath, mtime_ns, size); a bounded FIFO cache."""
+    p = Path(path)
+    st = p.stat()
+    key = (str(p.resolve()), st.st_mtime_ns, st.st_size)
+    with _shared_lock:
+        hit = _shared.get(key)
+        if hit is not None:
+            return hit[1]
+    mf = load_path(p)
+    entries = mf.entries()
+    with _shared_lock:
+        hit = _shared.get(key)
+        if hit is not None:
+            return hit[1]
+        _shared[key] = (mf, entries)
+        while len(_shared) > _SHARED_MAX:
+            _shared.pop(next(iter(_shared)))
+    return entries

@@ -1,0 +1,249 @@
+"""Scoring + top-k for serving: K2, the fused gather -> score -> top-k.
+
+Port of ``predictionio_tpu/ops/topk.py:90 gather_top_k_batch``: gather B
+user rows by index from the device-resident user table, dequantize,
+score them against the whole item catalog, mask excluded items, and
+take the top k. On a CUDA tensor the wrapper launches the hand-written
+kernel ``csrc/topk.cu``; on a CPU tensor it runs the plain PyTorch
+version beside it (``gather_top_k_batch_reference``). There is no
+fallback from one to the other.
+
+Order contract (``jax.lax.top_k``'s): descending by the order-preserving
+int key of the f32 score -- ``bits < 0 ? bits ^ 0x7FFFFFFF : bits``, so
+NaN ranks above +inf and +0.0 above -0.0 -- and the lower index first on
+equal keys. ``torch.topk`` does not keep that order on ties, and a float
+sort does not separate signed zeros; both versions here rank by the key.
+
+Batch invariance: a row's scores and ids do not depend on the batch size
+-- both versions sum each (b, i) on its own, in the fixed order
+d = 0..D-1 -- so a query answered alone is byte-identical to the same
+query inside a batch. The two versions also agree with each other bit
+for bit: the kernel rounds each product and partial sum as the plain
+version's elementwise ops do (no FMA).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from predictionio_tpu_torch.kernels import _build
+
+NEG_INF = -1e30
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_SIGN_FLIP = 0x7FFFFFFF
+
+
+def catalog_rows(item_factors) -> int:
+    """Row count of a factor table in either representation: a dense
+    [I, D] tensor, or the int8 (values [I, D], per-row f32 scales [I])
+    pair (ops/als.py quantize_rows)."""
+    table = item_factors[0] if isinstance(item_factors, tuple) else item_factors
+    return table.shape[0]
+
+
+def order_key(scores: torch.Tensor) -> torch.Tensor:
+    """int32 key whose integer order is the f32 total order of
+    ``scores`` (NaN above +inf, +0.0 above -0.0)."""
+    bits = scores.contiguous().view(torch.int32)
+    return torch.where(bits < 0, bits ^ _SIGN_FLIP, bits)
+
+
+def top_k_rows_reference(scores: torch.Tensor, k: int):
+    """Plain top-k of each row of a [B, I] f32 score matrix in
+    ``lax.top_k`` order: a stable descending sort on :func:`order_key`."""
+    k = min(int(k), scores.shape[-1])
+    order = torch.sort(order_key(scores), dim=-1, descending=True, stable=True)
+    ids = order.indices[..., :k]
+    return torch.gather(scores, -1, ids), ids.to(torch.int32)
+
+
+def _dense_rows(table, ixs: torch.Tensor) -> torch.Tensor:
+    """``table[ixs]`` as f32, dequantizing an int8 pair after the gather."""
+    if isinstance(table, tuple):
+        q, s = table
+        return q[ixs].to(torch.float32) * s[ixs][:, None]
+    return table[ixs].to(torch.float32)
+
+
+def gather_top_k_batch_reference(user_ixs, user_factors, item_factors, k: int,
+                                 exclude_mask=None):
+    """The plain PyTorch version of K2, same contract as
+    :func:`gather_top_k_batch`: gather, dequantize, score in f32,
+    multiply by the int8 item scale after the product, mask to
+    ``NEG_INF``, stable descending sort on the order key.
+
+    The score is the kernel's arithmetic: ``sum_d u_d * v_d`` over d =
+    0..D-1 in order, each product and each partial sum rounded to f32 (no
+    FMA), starting from +0.0. Elementwise, so a row's bits do not depend
+    on the batch size, and equal to the kernel's bit for bit."""
+    values = item_factors[0] if isinstance(item_factors, tuple) else item_factors
+    ixs = torch.as_tensor(user_ixs, device=values.device).to(torch.int64)
+    users = _dense_rows(user_factors, ixs)  # [B, D]
+    items = values.to(torch.float32)  # [I, D]
+    scores = users.new_zeros((users.shape[0], items.shape[0]))
+    for d in range(items.shape[1]):
+        scores = scores + users[:, d, None] * items[None, :, d]
+    if isinstance(item_factors, tuple):
+        scores = scores * item_factors[1][None, :]
+    if exclude_mask is not None:
+        mask = torch.as_tensor(exclude_mask, device=values.device).to(torch.bool)
+        scores = torch.where(mask[None, :], NEG_INF, scores)
+    return top_k_rows_reference(scores, k)
+
+
+# -- the CUDA kernel ---------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("topk")
+    if not getattr(lib, "_pio_typed", False):
+        lib.pio_k2_gather_top_k.argtypes = [
+            _P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+        ]
+        lib.pio_k2_gather_top_k.restype = _I
+        lib.pio_k2_select.argtypes = [_P, _I, _I, _I, _P, _P, _P, _P]
+        lib.pio_k2_select.restype = _I
+        lib._pio_typed = True
+    return lib
+
+
+def _split(table, name: str):
+    """(values, scales or None, dtype code), checked for the kernel."""
+    values, scales = table if isinstance(table, tuple) else (table, None)
+    code = _DTYPE_CODE.get(values.dtype)
+    if code is None or values.dim() != 2 or not values.is_contiguous():
+        raise ValueError(
+            f"{name}: expected a contiguous [N, D] float32/bfloat16/int8 "
+            f"tensor, got {values.dtype} {tuple(values.shape)}"
+        )
+    if (code == 2) != (scales is not None):
+        raise ValueError(f"{name}: int8 values come with f32 scales, others without")
+    if scales is not None and (
+        scales.dtype != torch.float32 or scales.shape != values.shape[:1]
+        or not scales.is_contiguous()
+    ):
+        raise ValueError(f"{name}: scales must be contiguous float32 [N]")
+    return values, scales, code
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _on(device: torch.device, *tensors) -> None:
+    for t in tensors:
+        if t is not None and t.device != device:
+            raise ValueError(f"tensor on {t.device}, expected {device}")
+
+
+def _user_ixs(user_ixs, num_users: int, device: torch.device) -> torch.Tensor:
+    """int32 [B] index tensor on ``device``. Host indices are range-checked
+    here; device indices are the caller's to keep in range."""
+    if isinstance(user_ixs, torch.Tensor) and user_ixs.device.type == "cuda":
+        return user_ixs.to(torch.int32).contiguous()
+    ixs = np.asarray(
+        user_ixs.cpu() if isinstance(user_ixs, torch.Tensor) else user_ixs,
+        dtype=np.int64,
+    ).reshape(-1)
+    if ixs.size and (ixs.min() < 0 or ixs.max() >= num_users):
+        raise IndexError(f"user index out of range [0, {num_users})")
+    return torch.from_numpy(ixs.astype(np.int32)).to(device)
+
+
+def gather_top_k_batch(user_ixs, user_factors, item_factors, k: int,
+                       exclude_mask=None):
+    """Fused gather + score + top-k: the serving path's one device call.
+
+    ``user_ixs``: [B] indices into ``user_factors``; ``user_factors`` and
+    ``item_factors``: dense float32/bfloat16 [N, D] tensors or int8
+    ``(values [N, D], scales float32 [N])`` pairs, all on one device;
+    ``exclude_mask``: optional [I] bool, masked items score ``NEG_INF``.
+    ``k`` is capped at the catalog size. Returns ``([B, k] f32 scores,
+    [B, k] int32 ids)``.
+
+    CPU tensors take :func:`gather_top_k_batch_reference`; CUDA tensors
+    launch the kernel (``csrc/topk.cu``) or raise."""
+    item_values = item_factors[0] if isinstance(item_factors, tuple) else item_factors
+    device = item_values.device
+    k = min(int(k), catalog_rows(item_factors))
+    if device.type == "cpu":
+        return gather_top_k_batch_reference(
+            user_ixs, user_factors, item_factors, k, exclude_mask
+        )
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    u_vals, u_scales, u_code = _split(user_factors, "user_factors")
+    v_vals, v_scales, v_code = _split(item_factors, "item_factors")
+    _on(device, u_vals, u_scales, v_scales)
+    if u_vals.shape[1] != v_vals.shape[1]:
+        raise ValueError("user and item factors differ in rank")
+    num_items, rank = v_vals.shape
+    ixs = _user_ixs(user_ixs, u_vals.shape[0], device)
+    batch = ixs.shape[0]
+    mask = None
+    if exclude_mask is not None:
+        mask = torch.as_tensor(exclude_mask, device=device).to(torch.bool).contiguous()
+        if mask.shape != (num_items,):
+            raise ValueError(f"exclude_mask must be [{num_items}] bool")
+    scores = torch.empty((batch, k), dtype=torch.float32, device=device)
+    ids = torch.empty((batch, k), dtype=torch.int32, device=device)
+    if batch == 0 or k == 0:
+        return scores, ids
+    scratch = torch.empty((batch, num_items), dtype=torch.float32, device=device)
+    cand = torch.empty((batch, k), dtype=torch.int64, device=device)
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.pio_k2_gather_top_k(
+            ixs.data_ptr(), batch,
+            u_vals.data_ptr(), u_code, _ptr(u_scales),
+            v_vals.data_ptr(), v_code, _ptr(v_scales),
+            _ptr(mask), num_items, rank, k,
+            scratch.data_ptr(), cand.data_ptr(),
+            scores.data_ptr(), ids.data_ptr(), stream,
+        )
+    _build.check(err, "gather_top_k_batch kernel launch")
+    gather_top_k_batch.launches.add()
+    return scores, ids
+
+
+gather_top_k_batch.launches = _build.LaunchCount()
+
+
+def top_k_rows(scores: torch.Tensor, k: int):
+    """Top-k of each row of a [B, I] f32 score matrix in ``lax.top_k``
+    order: ``([B, k] scores, [B, k] int32 ids)``. K2's selection stage
+    alone (the kernel's second launch), for scores computed elsewhere.
+    CPU tensors take :func:`top_k_rows_reference`."""
+    k = min(int(k), scores.shape[-1])
+    if scores.device.type == "cpu":
+        return top_k_rows_reference(scores, k)
+    if scores.dtype != torch.float32 or scores.dim() != 2:
+        raise ValueError("top_k_rows takes a [B, I] float32 tensor")
+    scores = scores.contiguous()
+    batch, num_items = scores.shape
+    out = torch.empty((batch, k), dtype=torch.float32, device=scores.device)
+    ids = torch.empty((batch, k), dtype=torch.int32, device=scores.device)
+    if batch == 0 or k == 0:
+        return out, ids
+    cand = torch.empty((batch, k), dtype=torch.int64, device=scores.device)
+    lib = _lib()
+    with torch.cuda.device(scores.device):
+        stream = torch.cuda.current_stream(scores.device).cuda_stream
+        err = lib.pio_k2_select(
+            scores.data_ptr(), batch, num_items, k, cand.data_ptr(),
+            out.data_ptr(), ids.data_ptr(), stream,
+        )
+    _build.check(err, "top_k_rows kernel launch")
+    top_k_rows.launches.add()
+    return out, ids
+
+
+top_k_rows.launches = _build.LaunchCount()
