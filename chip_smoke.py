@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases k2,k1,serve,lifecycle,train,times,k1times]
 
 Run from the root of a checkout, on a machine with a CUDA card, ``nvcc``
 and PyTorch built for CUDA. It imports nothing of JAX and nothing of the
@@ -9,39 +9,57 @@ JAX package (``predictionio_tpu``). Phases:
 
 1. environment: torch/CUDA versions, the card, ``nvidia-smi`` name and
    power limit, ``nvcc`` release, ``triton`` version or ``absent``;
-2. build ``predictionio_tpu_torch/csrc/topk.cu`` (K2) with ``nvcc`` for
-   ``sm_90a``;
-3. K2 against its plain PyTorch version on the card at the ML-20M shape
-   (U = 138,493 users, I = 26,744 items): D = 20 with every f32/bf16/int8
-   storage pair, D = 128 with each storage dtype, both at B in {1, 64},
-   and D = 50 at B = 17 (partial factor chunk and batch tile); k in {4,
-   16, 128, I}, with and without an exclude mask: bit for bit on exact (small-integer)
-   inputs, within rtol=1e-5/atol=1e-6 on random-normal ones (ids equal
-   outside runs of near-tied scores, where the id sets must match), and
-   row b of a B=64 call bit for bit equal to the B=1 call for that user;
-   the selection stage alone on rows of ties, signed zeros, NaN and inf;
-4. the slice: f32 and int8 models at full width (D = 20) saved through
-   the port's storage as COMPLETED engine instances, deployed through
-   the ``deploy`` entry point on 127.0.0.1, answering ``POST
-   /queries.json`` (checked against the plain version), with K2's launch
-   count read around the run, then one 64-query ``batch_predict``;
-5. times: K2, the plain version and a ``torch.topk(u @ V.T)`` yardstick
-   at D = 20 for f32 and int8, B in {1, 64} -- per call (median of CUDA
-   event pairs around one call, launch gaps included) and on the device
-   (``torch.profiler`` kernel time per call, K2 split into its two
-   launches) -- beside the bound ``max(bytes / memory rate, FP32
-   operations / FP32 rate)`` of the card named in phase 1; the HTTP p50
-   of ``/queries.json``.
+2. build ``predictionio_tpu_torch/csrc/topk.cu`` (K2) and
+   ``csrc/als_solve.cu`` (K1) with ``nvcc`` for ``sm_90a``, one ``nvcc``
+   per source, started together;
+3. k2: K2 against its plain PyTorch version on the card at the ML-20M
+   shape (U = 138,493 users, I = 26,744 items): D = 20 with every
+   f32/bf16/int8 storage pair, D = 128 with each storage dtype, both at B
+   in {1, 64}, and D = 50 at B = 17; k in {4, 16, 128, I}, with and
+   without an exclude mask: bit for bit on exact (small-integer) inputs,
+   within rtol=1e-5/atol=1e-6 on random-normal ones (ids equal outside
+   runs of near-tied scores, where the id sets must match), and row b of
+   a B=64 call bit for bit equal to the B=1 call for that user; the
+   selection stage alone on rows of ties, signed zeros, NaN and inf;
+4. k1: K1 against its plain version: storage {f32, bf16, int8} x compute
+   {f32, bf16} x D {1, 10, 20, 30, 40, 64, 80, 128} x width {8, 2048},
+   unsegmented and segmented (1 and 33 segments), with rows of n = 0;
+   each solve within atol=1e-5 + rtol=1e-4 * max|x| of its row of the
+   plain version and of a float64 solve, the written-back table bit for
+   bit;
+5. serve: f32 and int8 models at full width (D = 20) saved through the
+   port's storage, deployed through ``deploy`` on 127.0.0.1, answering
+   ``POST /queries.json`` (checked against the plain version) -- K2's
+   launch count is reset before and read after: its main-path count;
+6. lifecycle: ML-100K-shaped ratings written as ``rate`` events into the
+   port's sqlite store, ``cli.main train`` then ``deploy`` on the card,
+   queries POSTed; train RMSE against the same training on the CPU;
+7. train: ML-20M-shaped ratings, rank 20, 2 iterations through
+   ``run_train`` (K1's launch count reset before and read after: its
+   main-path count), persisted, deployed, queried; then 1 iteration with
+   K1 against 1 with its plain version from the same init;
+8. times: K2, its plain version and a ``torch.topk(u @ V.T)`` yardstick
+   at D = 20 for f32 and int8, B in {1, 64}; the HTTP p50;
+9. k1times: K1 per bucket at ML-20M rank 20, f32 and int8 storage, with
+   its plain version and a torch gather + bmm + cholesky yardstick, and
+   one iteration's wall time. Device times are ``torch.profiler`` kernel
+   time per call; per-call times the median of CUDA event pairs; bounds
+   ``max(bytes / memory rate, FP32 operations / FP32 rate)`` of the card
+   named in phase 1, computed from this run's inputs.
 
-Every phase prints its results; any failure makes the exit code 1 and
-suppresses the result lines. Without CUDA, or without the package beside
-the script, it exits 2 and prints no result. The last line is
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``,
-the one before it the ``{"kernels": [...]}`` summary.
+Every phase prints its results and seconds; any failure makes the exit
+code 1 and suppresses the result lines. Without CUDA, or without the
+package beside the script, it exits 2 and prints no result. A run of a
+subset of the phases (``--phases``, for development) prints no result.
+The last line is ``{"ok": true, "device": {"platform": "gpu", "kind":
+..., "count": 1}}``, the one before it the ``{"kernels": [...]}``
+summary, and the one before that the ``nvidia-smi`` name and power limit.
 """
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import http.client
 import json
 import os
@@ -127,16 +145,20 @@ def environment(torch):
 # -- phase 2 -----------------------------------------------------------------
 
 
+KERNEL_SOURCES = ("topk", "als_solve")
+
+
 @phase("build")
 def build():
     from predictionio_tpu_torch.kernels import _build
 
-    _build.load("topk")
-    info = _build.build_info["topk"]
-    log(f"built csrc/topk.cu in {info['seconds']:.2f}s (cached={info['cached']})")
-    for ln in info["log"].splitlines():
-        if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
-            log("  ptxas: " + ln.strip())
+    _build.load_all(KERNEL_SOURCES)  # one nvcc per source, started together
+    for name in KERNEL_SOURCES:
+        info = _build.build_info[name]
+        log(f"built csrc/{name}.cu in {info['seconds']:.2f}s (cached={info['cached']})")
+        for ln in info["log"].splitlines():
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
+                log("  ptxas: " + ln.strip())
 
 
 # -- inputs ------------------------------------------------------------------
@@ -280,6 +302,168 @@ def kernel_vs_plain(torch, device, stats):
                                                     sp.view(torch.int32))):
             raise AssertionError(f"top_k_rows not bitwise equal at k={k}")
     log("selection stage bitwise equal on tie / signed-zero / NaN / inf rows")
+
+
+# -- K1 vs plain ---------------------------------------------------------------
+
+# per solve (normwise over a solved row), f32 and bf16 compute alike
+K1_RTOL, K1_ATOL = 1e-4, 1e-5
+# the ranks in use (10-128) and each register-tile size of the kernel
+# (1, 2, 4, 9, 17 and 33 owned entries a thread: D = 20, 30, 40, 64, 80, 128)
+K1_RANKS = (1, 10, 20, 30, 40, 64, 80, 128)
+K1_WIDTHS = (8, 2048)
+K1_REG = 0.05
+
+
+def k1_bucket(torch, rng, counts, K: int, n_other: int, device):
+    """(col_ids, ratings, mask, seg_start) of a bucket whose solved row r
+    has ``counts[r]`` entries, packed to the front of ceil(n / K) >= 1
+    consecutive table rows of width K."""
+    nseg = [max(1, -(-n // K)) for n in counts]
+    seg_start = np.concatenate([[0], np.cumsum(nseg)]).astype(np.int32)
+    B = int(seg_start[-1])
+    col = np.zeros((B * K,), np.int32)
+    rat = np.zeros((B * K,), np.float32)
+    msk = np.zeros((B * K,), np.float32)
+    for r, n in enumerate(counts):
+        base = int(seg_start[r]) * K
+        for s0 in range(0, n, K):  # segment by segment, packed to the front
+            m = min(K, n - s0)
+            lo = base + s0
+            col[lo:lo + m] = rng.integers(0, n_other, m)
+            rat[lo:lo + m] = rng.integers(1, 11, m) / 2.0
+            msk[lo:lo + m] = 1.0
+    put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return (put(col.reshape(B, K)), put(rat.reshape(B, K)), put(msk.reshape(B, K)),
+            put(seg_start))
+
+
+def solve_float64(torch, other, col, rat, msk, seg_row, R: int, reg: float,
+                  weighted: bool, compute: str):
+    """The bucket's systems solved in float64 from the inputs as K1 rounds
+    them (the gathered values, w and r in the compute dtype)."""
+    from predictionio_tpu_torch.ops import als
+
+    dt = getattr(torch, compute)
+    g = als._read_rows(other, col.long(), dt).double()
+    w = msk.to(dt).double()
+    r = (rat * msk).to(dt).double()
+    A = torch.bmm((g * w[..., None]).transpose(1, 2), g)
+    b = torch.bmm(r[:, None, :], g)[:, 0]
+    n = msk.double().sum(1)
+    if seg_row is not None:
+        A = torch.zeros((R,) + A.shape[1:], dtype=A.dtype, device=A.device).index_add_(
+            0, seg_row, A)
+        b = torch.zeros((R, b.shape[1]), dtype=b.dtype, device=b.device).index_add_(
+            0, seg_row, b)
+        n = torch.zeros((R,), dtype=n.dtype, device=n.device).index_add_(0, seg_row, n)
+    lam = torch.where(n > 0, reg * (n if weighted else torch.ones_like(n)),
+                      torch.ones_like(n))
+    A = A + lam[:, None, None] * torch.eye(A.shape[1], dtype=A.dtype, device=A.device)
+    return torch.linalg.solve(A, b)
+
+
+def per_solve_ok(torch, x, ref) -> bool:
+    """Every solved row of ``x`` within atol + rtol * max|ref row| of
+    ``ref``, normwise: a component much smaller than its row is as
+    uncertain as the row's largest, by the system's conditioning."""
+    err = (x.double() - ref.double()).abs().amax(dim=1)
+    scale = ref.double().abs().amax(dim=1)
+    return bool((err <= K1_ATOL + K1_RTOL * scale).all())
+
+
+@phase("K1 vs plain")
+def k1_vs_plain(torch, device, stats):
+    """K1 (csrc/als_solve.cu) against its plain version on the same CUDA
+    tensors: storage {f32, bf16, int8} x compute {f32, bf16} x D {1, 10,
+    20, 30, 40, 64, 80, 128} x width {8, 2048}, each as an unsegmented
+    bucket (with one row of n = 0) and a segmented one (rows of 1 and 33
+    segments and one of n = 0). Each solve's x within atol 1e-5 + rtol
+    1e-4 * max|x| of its row (normwise per solve) of the plain version,
+    and of a float64 solve of the same rounded inputs, at both compute
+    dtypes: both versions gather and round the same values at the same
+    points (bf16 compute included), so only the f32 summation order and
+    the Cholesky algorithm differ, and the buckets hold rows with fewer
+    entries than D (rank-deficient Gramians lifted by the regularizer),
+    where a small component of x is as uncertain as the row's largest.
+    Empty rows must solve to exact zeros. The written-back storage table
+    must equal the plain _scatter_rows of the kernel's own x, bit for bit."""
+    from predictionio_tpu_torch.ops import als
+
+    rng = np.random.default_rng(SEED + 2)
+    n_other = 4096
+    configs = 0
+    worst = worst_rel_plain = worst_rel_k = worst_rel_p = 0.0
+    for D in K1_RANKS:
+        base = torch.from_numpy(
+            (rng.standard_normal((n_other, D)) / np.sqrt(D)).astype(np.float32)
+        ).to(device)
+        for storage in DTYPES:
+            other = als.to_storage(base, storage)
+            for compute in ("float32", "bfloat16"):
+                for K in K1_WIDTHS:
+                    R = 64 if K == 8 else 8
+                    plain = [int(rng.integers(1, K + 1)) for _ in range(R)]
+                    plain[1] = 0
+                    segmented = list(plain)
+                    segmented[0] = int(rng.integers(1, K + 1))  # 1 segment
+                    segmented[1] = 32 * K + int(rng.integers(1, K + 1))  # 33
+                    segmented[2] = 0
+                    weighted = (compute == "float32") != (K == 8)
+                    for kind, counts in (("plain", plain), ("segmented", segmented)):
+                        col, rat, msk, seg_start = k1_bucket(
+                            torch, rng, counts, K, n_other, device)
+                        row_ids = torch.from_numpy(
+                            rng.permutation(2 * R)[:R].astype(np.int32)).to(device)
+                        target = als.to_storage(
+                            torch.zeros((2 * R, D), device=device), storage)
+                        xk = als.solve_bucket(
+                            other, col, rat, msk, seg_start, K1_REG,
+                            weighted_reg=weighted, compute_dtype=compute,
+                            target=target, row_ids=row_ids)
+                        seg_row = als.seg_rows(seg_start, col.shape[0])
+                        xp = als.solve_bucket_reference(
+                            other, col, rat, msk, K1_REG, seg_row, R,
+                            weighted_reg=weighted, compute_dtype=compute)
+                        x64 = solve_float64(torch, other, col, rat, msk, seg_row, R,
+                                            K1_REG, weighted, compute)
+                        torch.cuda.synchronize()
+                        what = (f"D={D} storage={storage} compute={compute} K={K} "
+                                f"{kind} weighted={weighted}")
+                        if not bool(torch.isfinite(xk).all()):
+                            raise AssertionError(f"non-finite x: {what}")
+                        err = float((xk - xp).abs().max())
+                        worst = max(worst, err)
+                        scale = x64.abs().amax(dim=1).clamp_min(1e-30)
+                        worst_rel_plain = max(worst_rel_plain, float(
+                            ((xk.double() - xp.double()).abs().amax(dim=1) / scale).max()))
+                        worst_rel_k = max(worst_rel_k, float(
+                            ((xk.double() - x64).abs().amax(dim=1) / scale).max()))
+                        worst_rel_p = max(worst_rel_p, float(
+                            ((xp.double() - x64).abs().amax(dim=1) / scale).max()))
+                        if not per_solve_ok(torch, xk, xp):
+                            raise AssertionError(f"x differs from the plain version "
+                                                 f"(max abs {err}): {what}")
+                        if not per_solve_ok(torch, xk, x64):
+                            raise AssertionError(f"x differs from the float64 solve: {what}")
+                        empty = [r for r, n in enumerate(counts) if n == 0]
+                        if not bool((xk[empty] == 0).all()):
+                            raise AssertionError(f"an empty row did not solve to 0: {what}")
+                        want = als.to_storage(torch.zeros((2 * R, D), device=device),
+                                              storage)
+                        als._scatter_rows(want, row_ids, xk)
+                        got_t = target if isinstance(target, tuple) else (target,)
+                        want_t = want if isinstance(want, tuple) else (want,)
+                        for g, w in zip(got_t, want_t):
+                            if not torch.equal(g.view(torch.uint8), w.view(torch.uint8)):
+                                raise AssertionError(f"write-back not bit-equal: {what}")
+                        configs += 1
+    stats["k1_max_abs_err"] = worst
+    log(f"{configs} K1-vs-plain configurations agree (each solve within atol "
+        f"{K1_ATOL} + rtol {K1_RTOL} * max|x| of the plain version and of a float64 "
+        f"solve; worst abs diff to the plain version {worst:.3g}; worst per-solve "
+        f"relative diff {worst_rel_plain:.3g} to the plain version, {worst_rel_k:.3g} "
+        f"kernel to float64, {worst_rel_p:.3g} plain to float64; write-back bit-equal)")
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -435,6 +619,287 @@ def the_slice(torch, device, stats):
                     "predict_p50_ms": stats["predict_p50_ms"]}))
 
 
+# -- training: data ------------------------------------------------------------
+
+# bench.py:53-59 SCALES and SEED: users, items, ratings, max user degree,
+# max item degree (the real MovieLens datasets' degree maxima)
+ML_SCALES = {
+    "100k": (943, 1682, 100_000, 737, 583),
+    "20m": (138_493, 26_744, 20_000_000, 9_254, 67_310),
+}
+ML_SEED = 42
+TRAIN_REG = 0.05
+
+
+def make_ml_shaped(scale: str):
+    """bench.py:95-122 ``make_ml_shaped``, copied: MovieLens-shaped
+    ratings (Pareto popularity tails capped at the real degree maxima,
+    half-star-free 1..5 ratings from a rank-8 ground truth plus noise).
+    Returns (rows, cols, vals, num_users, num_items)."""
+    num_users, num_items, num_ratings, max_u, max_i = ML_SCALES[scale]
+    rng = np.random.default_rng(ML_SEED)
+
+    def capped(weights, cap):
+        p = weights / weights.sum()
+        for _ in range(16):  # cap-and-renormalize to a fixed point
+            p = np.minimum(p, cap)
+            p /= p.sum()
+            if p.max() <= cap * 1.001:
+                break
+        return p
+
+    user_p = capped(rng.pareto(1.2, num_users) + 1, max_u / num_ratings)
+    item_p = capped(rng.pareto(1.1, num_items) + 1, max_i / num_ratings)
+    rows = rng.choice(num_users, num_ratings, p=user_p).astype(np.int32)
+    cols = rng.choice(num_items, num_ratings, p=item_p).astype(np.int32)
+    gt_rank = 8
+    U = (rng.normal(size=(num_users, gt_rank)) / np.sqrt(gt_rank)).astype(np.float32)
+    V = (rng.normal(size=(num_items, gt_rank)) / np.sqrt(gt_rank)).astype(np.float32)
+    vals = np.empty(num_ratings, np.float32)
+    chunk = 2_000_000  # bound peak memory of the gather at large scales
+    for lo in range(0, num_ratings, chunk):
+        hi = min(lo + chunk, num_ratings)
+        raw = (U[rows[lo:hi]] * V[cols[lo:hi]]).sum(1)
+        raw += 0.3 * rng.standard_normal(hi - lo).astype(np.float32)
+        vals[lo:hi] = np.clip(np.round(3.0 + 1.5 * raw), 1, 5)
+    return rows, cols, vals, num_users, num_items
+
+
+def plain_iteration(torch, data, params, device):
+    """One ALS iteration with K1's plain version on the card, from the
+    cold init ``als_train`` draws for ``params.seed``."""
+    from predictionio_tpu_torch.ops import als
+
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(int(params.seed))
+    U = als.to_storage(als.init_factors(data.num_rows, params.rank, gen, device),
+                       params.storage_dtype)
+    V = als.to_storage(als.init_factors(data.num_cols, params.rank, gen, device),
+                       params.storage_dtype)
+    for target, other, buckets in ((U, V, data.row_buckets), (V, U, data.col_buckets)):
+        for b in als.device_buckets(buckets, device):
+            x = als.solve_bucket_reference(
+                other, b.col_ids, b.ratings, b.mask, params.reg,
+                als.seg_rows(b.seg_start, b.col_ids.shape[0]), b.row_ids.shape[0],
+                params.weighted_reg, params.compute_dtype, params.gather_chunk_bytes)
+            als._scatter_rows(target, b.row_ids, x)
+    return U, V
+
+
+@contextlib.contextmanager
+def storage_env(basedir: str):
+    """The PIO_* environment of a store under ``basedir``, as the CLI
+    reads it, restored afterwards."""
+    from predictionio_tpu_torch.data import storage as st
+
+    saved = {k: v for k, v in os.environ.items()
+             if k.startswith("PIO_STORAGE_") or k in ("PIO_FS_BASEDIR",)}
+    for k in saved:
+        del os.environ[k]
+    os.environ["PIO_FS_BASEDIR"] = basedir
+    st.set_storage(None)
+    try:
+        yield
+    finally:
+        st.get_storage().close()
+        st.set_storage(None)
+        os.environ.pop("PIO_FS_BASEDIR", None)
+        os.environ.update(saved)
+
+
+# -- phase: the training lifecycle through the CLI ------------------------------
+
+
+@phase("lifecycle: events -> train -> deploy (ML-100K shape, CLI)")
+def lifecycle(torch, device, stats):
+    """ML-100K-shaped ratings as ``rate`` events in the port's sqlite
+    store, ``cli.main train`` then ``deploy`` on the card, POSTed
+    queries. The trained model's train RMSE must be within 1e-3
+    relative of the same training run on the CPU with K1's plain
+    version (the same init and data; float32 sums in another order over
+    10 iterations), and both launch counters must move."""
+    from predictionio_tpu_torch.cli import main as cli
+    from predictionio_tpu_torch.data import store
+    from predictionio_tpu_torch.data import storage as st
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.ops import als, topk
+
+    rows, cols, vals, _, _ = make_ml_shaped("100k")
+    basedir = tempfile.mkdtemp(prefix="pio_chip_smoke_ml100k_")
+    variant_path = os.path.join(basedir, "engine.json")
+    params = {"rank": 10, "numIterations": 10, "lambda": TRAIN_REG, "seed": 3}
+    with open(variant_path, "w") as f:
+        json.dump({"id": "chip-smoke-ml100k",
+                   "engineFactory": "predictionio_tpu_torch.models.recommendation.engine",
+                   "datasource": {"params": {"appName": "ML100K"}},
+                   "algorithms": [{"name": "als", "params": params}]}, f)
+    server = None
+    try:
+        with storage_env(basedir):
+            storage = st.get_storage()
+            app_id = storage.get_metadata_apps().insert(st.App(0, "ML100K"))
+            t0 = time.perf_counter()
+            storage.get_events().batch_insert([
+                Event(event="rate", entity_type="user", entity_id=f"u{r}",
+                      target_entity_type="item", target_entity_id=f"i{c}",
+                      properties={"rating": float(v)})
+                for r, c, v in zip(rows.tolist(), cols.tolist(), vals.tolist())
+            ], app_id)
+            log(f"wrote {len(vals)} rate events in {time.perf_counter() - t0:.1f}s")
+            als.solve_bucket.launches.reset()
+            topk.gather_top_k_batch.launches.reset()
+            t0 = time.perf_counter()
+            if cli.main(["train", "--variant", variant_path]) != 0:
+                raise AssertionError("cli train failed")
+            train_s = time.perf_counter() - t0
+            k1 = als.solve_bucket.launches.value
+            server = cli.deploy_server(cli.build_parser().parse_args([
+                "deploy", "--variant", variant_path, "--ip", "127.0.0.1",
+                "--port", "0"]))
+            server.warmup()
+            port = server.start(background=True)
+            model = server.models[0]
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            queries = [{"user": "u0", "num": 4}, {"user": "u17", "num": 10},
+                       {"user": "u942", "num": 1}, {"user": "nobody", "num": 4}]
+            for q, (exp_items, exp_scores) in zip(
+                    queries, expected_items(torch, model, device, queries)):
+                got = post(conn, q)["itemScores"]
+                check_answer([x["item"] for x in got], [x["score"] for x in got],
+                             exp_items, exp_scores, model, f"ml100k {q}")
+                log(f"ml100k {json.dumps(q)} -> {json.dumps(got[:4])}")
+            conn.close()
+            k2 = topk.gather_top_k_batch.launches.value
+            batch = store.find_ratings(
+                "ML100K", event_names=["rate", "buy"], entity_type="user",
+                target_entity_type="item", override_ratings={"buy": 4.0})
+        if k1 <= 0 or k2 <= 0:
+            raise AssertionError(f"launch counters did not move: K1 {k1}, K2 {k2}")
+        U, V = model.device_factors(device)
+        e_gpu = als.rmse(U, V, batch.rows, batch.cols, batch.vals)
+        data = als.build_ratings_data(batch.rows, batch.cols, batch.vals,
+                                      len(batch.entity_ids), len(batch.target_ids))
+        Uc, Vc = als.als_train(data, als.ALSParams(rank=10, iterations=10, reg=TRAIN_REG,
+                                                   seed=3), device="cpu")
+        e_cpu = als.rmse(Uc, Vc, batch.rows, batch.cols, batch.vals)
+        if not (np.isfinite(e_gpu) and abs(e_gpu - e_cpu) <= 1e-3 * e_cpu):
+            raise AssertionError(f"train RMSE {e_gpu} on the card vs {e_cpu} on the CPU")
+    finally:
+        if server is not None:
+            server.stop()
+        shutil.rmtree(basedir, ignore_errors=True)
+    stats["lifecycle"] = {"train_s": train_s, "rmse": e_gpu, "rmse_cpu": e_cpu,
+                          "k1_launches": k1, "k2_launches": k2}
+    log(json.dumps({"lifecycle": "ml100k", **stats["lifecycle"]}))
+
+
+# -- phase: full width -------------------------------------------------------------
+
+
+@phase("train at full width: ML-20M shape, rank 20, run_train -> deploy")
+def full_width(torch, device, stats):
+    """The generated ML-20M-shaped ratings through ``run_train`` (2
+    iterations, f32 storage) -- K1's counter reset just before and read
+    just after: the main path's launches -- persisted, deployed and
+    queried. Then 1 iteration with K1 against 1 with its plain version
+    from the same init: factors within rtol 5e-4 / atol 5e-5
+    (tests/test_als.py:188) and train RMSE within 1e-4 relative."""
+    from predictionio_tpu_torch.cli import main as cli
+    from predictionio_tpu_torch.core import DataSource, Engine, FirstServing
+    from predictionio_tpu_torch.core.context import WorkflowContext
+    from predictionio_tpu_torch.core.workflow import run_train
+    from predictionio_tpu_torch.data import storage as st
+    from predictionio_tpu_torch.models import recommendation as rec
+    from predictionio_tpu_torch.ops import als
+
+    t0 = time.perf_counter()
+    rows, cols, vals, nu, ni = make_ml_shaped("20m")
+    log(f"generated {len(vals)} ML-20M-shaped ratings in {time.perf_counter() - t0:.1f}s")
+    td = rec.TrainingData(user_ids=[f"u{j}" for j in range(nu)],
+                          item_ids=[f"i{j}" for j in range(ni)],
+                          rows=rows, cols=cols, ratings=vals)
+
+    class GeneratedSource(DataSource):
+        params_class = rec.DataSourceParams
+
+        def read_training(self, ctx):
+            return td
+
+    engine = Engine(GeneratedSource, rec.RecommendationPreparator,
+                    {"als": rec.ALSAlgorithm}, FirstServing)
+    ep = engine.params_from_variant({
+        "datasource": {"params": {"appName": "ML20M"}},
+        "algorithms": [{"name": "als", "params": {
+            "rank": 20, "numIterations": 2, "lambda": TRAIN_REG, "seed": 3}}]})
+    basedir = tempfile.mkdtemp(prefix="pio_chip_smoke_ml20m_")
+    storage = st.Storage(env={"PIO_FS_BASEDIR": basedir})
+    st.set_storage(storage)
+    server = None
+    try:
+        als.solve_bucket.launches.reset()  # the main path starts here
+        t0 = time.perf_counter()
+        iid = run_train(engine, ep, engine_id="chip-smoke-ml20m",
+                        engine_factory="predictionio_tpu_torch.models.recommendation.engine",
+                        storage=storage, ctx=WorkflowContext(mode="Training", device="cuda"))
+        train_s = time.perf_counter() - t0
+        stats["k1_launches"] = als.solve_bucket.launches.value  # main path read
+        server = cli.deploy_server(cli.build_parser().parse_args([
+            "deploy", "--engine-instance-id", iid, "--ip", "127.0.0.1", "--port", "0"]))
+        server.warmup()
+        port = server.start(background=True)
+        model = server.models[0]
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        queries = [{"user": "u0", "num": 4}, {"user": "u138492", "num": 20},
+                   {"user": "u4242", "num": 4}]
+        for q, (exp_items, exp_scores) in zip(
+                queries, expected_items(torch, model, device, queries)):
+            got = post(conn, q)["itemScores"]
+            check_answer([x["item"] for x in got], [x["score"] for x in got],
+                         exp_items, exp_scores, model, f"ml20m {q}")
+        conn.close()
+        U, V = model.device_factors(device)
+        rmse_2 = als.rmse(U, V, rows, cols, vals)
+    finally:
+        if server is not None:
+            server.stop()
+        st.set_storage(None)
+        storage.close()
+        shutil.rmtree(basedir, ignore_errors=True)
+
+    t0 = time.perf_counter()
+    data = als.build_ratings_data(rows, cols, vals, nu, ni)
+    log(f"bucket layout in {time.perf_counter() - t0:.1f}s: " + ", ".join(
+        f"{side} K={b.width} B={b.col_ids.shape[0]} R={len(b.row_ids)}"
+        for side, bs in (("user", data.row_buckets), ("item", data.col_buckets))
+        for b in bs))
+    per_iter = len(data.row_buckets) + len(data.col_buckets)
+    if stats["k1_launches"] != 2 * per_iter:
+        raise AssertionError(f"K1 launched {stats['k1_launches']} times on the main "
+                             f"path, expected 2 iterations x {per_iter} buckets")
+    params = als.ALSParams(rank=20, iterations=1, reg=TRAIN_REG, seed=3)
+    Uk, Vk = als.als_train(data, params, device=device)
+    Up, Vp = plain_iteration(torch, data, params, device)
+    torch.cuda.synchronize()
+    diffs = {}
+    for name, a, b in (("U", Uk, Up), ("V", Vk, Vp)):
+        err = float((a - b).abs().max())
+        diffs[f"{name}_max_abs_diff"] = err
+        diffs[f"{name}_rows_bit_equal"] = float((a == b).all(dim=1).float().mean())
+        stats["k1_max_abs_err"] = max(stats.get("k1_max_abs_err", 0.0), err)
+        if not torch.allclose(a, b, rtol=5e-4, atol=5e-5):
+            raise AssertionError(f"1 iteration: {name} differs from the plain "
+                                 f"version (max abs {err})")
+    e_k = als.rmse(Uk, Vk, rows, cols, vals)
+    e_p = als.rmse(Up, Vp, rows, cols, vals)
+    if abs(e_k - e_p) > 1e-4 * e_p:
+        raise AssertionError(f"1 iteration: train RMSE {e_k} vs plain {e_p}")
+    stats["ml20m"] = data
+    stats["full_width"] = {"train_s": train_s, "iterations": 2, "rmse_2_iterations": rmse_2,
+                           "rmse_1_iteration": e_k, "rmse_1_iteration_plain": e_p,
+                           "k1_launches": stats["k1_launches"], **diffs}
+    log(json.dumps({"full_width": "ml20m rank 20 f32", **stats["full_width"]}))
+
+
 # -- phase 5 -----------------------------------------------------------------
 
 
@@ -461,19 +926,22 @@ def device_ms(torch, fn, runs: int = 50) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if "CUDA" not in str(e.device_type):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us:
-            out[e.key] = us / runs / 1e3
+    out: dict = {}
+    for _ in range(3):  # a trace now and then comes back without device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if "CUDA" not in str(e.device_type):
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            if us:
+                out[e.key] = us / runs / 1e3
+        if out:
+            break
     return out
 
 
@@ -552,6 +1020,139 @@ def timings(torch, device, stats):
     stats["timings"] = rows
 
 
+def library_solve(torch, other, b, seg_row, reg: float):
+    """The library yardstick for one K1 bucket (timed here, never called
+    by the port): torch gather + bmm + torch.linalg.cholesky +
+    cholesky_solve, in f32, without the write-back."""
+    ids = b.col_ids.long()
+    if isinstance(other, tuple):
+        vg = other[0][ids].float() * other[1][ids][..., None]
+    else:
+        vg = other[ids].float()
+    A = torch.bmm((vg * b.mask[..., None]).transpose(1, 2), vg)
+    rhs = torch.bmm((b.ratings * b.mask)[:, None, :], vg)[:, 0]
+    n = b.mask.sum(1)
+    if seg_row is not None:
+        R = b.row_ids.shape[0]
+        A = torch.zeros((R,) + A.shape[1:], device=A.device).index_add_(0, seg_row, A)
+        rhs = torch.zeros((R, rhs.shape[1]), device=A.device).index_add_(0, seg_row, rhs)
+        n = torch.zeros((R,), device=A.device).index_add_(0, seg_row, n)
+    lam = torch.where(n > 0, reg * n, torch.ones_like(n))
+    A.diagonal(dim1=1, dim2=2).add_(lam[:, None])
+    return torch.cholesky_solve(rhs[..., None], torch.linalg.cholesky(A))[..., 0]
+
+
+@phase("K1 times")
+def k1_timings(torch, device, stats):
+    """K1 per bucket at ML-20M rank 20, f32 and int8 storage: device time
+    per launch (torch.profiler), its plain version (solve + _scatter_rows)
+    and the library yardstick, beside the bound max(bytes / memory rate,
+    FP32 operations / FP32 rate) computed from this run's buckets; then
+    the wall time of one iteration (7 launches, host clock around
+    synchronize)."""
+    from predictionio_tpu_torch.ops import als
+
+    mem_rate, fp32_rate = peaks(stats["device_name"])
+    data = stats["ml20m"]
+    D = 20
+    rows = []
+    iteration_ms = {}
+    for storage in ("float32", "int8"):
+        params = als.ALSParams(rank=D, iterations=1, reg=TRAIN_REG, seed=3,
+                               storage_dtype=storage)
+        gen = torch.Generator(device="cpu")
+        gen.manual_seed(3)
+        U = als.to_storage(als.init_factors(data.num_rows, D, gen, device), storage)
+        V = als.to_storage(als.init_factors(data.num_cols, D, gen, device), storage)
+        rb = als.device_buckets(data.row_buckets, device)
+        cb = als.device_buckets(data.col_buckets, device)
+        elem, scale_bytes = (1, 4) if storage == "int8" else (4, 0)
+        for side, target, other, buckets in (("user", U, V, rb), ("item", V, U, cb)):
+            for b in buckets:
+                R, (B, K) = b.row_ids.shape[0], b.col_ids.shape
+                seg_row = als.seg_rows(b.seg_start, b.col_ids.shape[0])
+
+                def kernel():
+                    als.solve_bucket(other, b.col_ids, b.ratings, b.mask, b.seg_start,
+                                     TRAIN_REG, target=target, row_ids=b.row_ids,
+                                     return_x=False)
+
+                def plain():
+                    als._scatter_rows(target, b.row_ids, als.solve_bucket_reference(
+                        other, b.col_ids, b.ratings, b.mask, TRAIN_REG, seg_row, R))
+
+                def library():
+                    return library_solve(torch, other, b, seg_row, TRAIN_REG)
+
+                live = b.mask > 0
+                n_live = int(live.sum())
+                n_other = int(torch.unique(b.col_ids[live]).numel())
+                nbytes = (B * K * 12 + (R + 1) * 4 + R * 4  # bucket arrays, offsets, ids
+                          + n_other * (D * elem + scale_bytes)  # rows gathered, once
+                          + R * (D * elem + scale_bytes))  # rows written back
+                flops = n_live * (D * (D + 1) + 2 * D) + R * (D ** 3 / 3 + 2 * D * D)
+                row = {"timing": "solve_bucket", "storage": storage, "side": side,
+                       "K": K, "B": B, "R": R, "live": n_live,
+                       "kernel_ms": cuda_median_ms(torch, kernel, runs=5, warmup=2),
+                       "kernel_device_ms": _total(device_ms(torch, kernel, runs=5)),
+                       "plain_device_ms": _total(device_ms(torch, plain, runs=2)),
+                       "library_device_ms": _total(device_ms(torch, library, runs=2)),
+                       "bytes": nbytes, "flops": flops,
+                       "bound_ms": max(nbytes / mem_rate, flops / fp32_rate) * 1e3,
+                       "bound_by": ("bytes" if nbytes / mem_rate >= flops / fp32_rate
+                                    else "operations")}
+                rows.append(row)
+                log(json.dumps(row))
+
+        def iteration():
+            als._half_step(U, V, rb, params)
+            als._half_step(V, U, cb, params)
+
+        iteration()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            iteration()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        iteration_ms[storage] = statistics.median(walls)
+        per = [r for r in rows if r["storage"] == storage]
+        log(json.dumps({"timing": "iteration", "storage": storage,
+                        "wall_ms": iteration_ms[storage], "launches": len(per),
+                        "kernel_device_ms": sum(r["kernel_device_ms"] or 0 for r in per),
+                        "bound_ms": sum(r["bound_ms"] for r in per)}))
+    stats["k1_timings"] = rows
+    stats["iteration_ms"] = iteration_ms
+
+
+def k1_summary(stats) -> dict:
+    """K1's line of the kernels summary: one iteration at ML-20M rank 20,
+    f32 storage (the sum over its 7 launches)."""
+    per = [r for r in stats["k1_timings"] if r["storage"] == "float32"]
+
+    def total(key):
+        vals = [r[key] for r in per]
+        return None if None in vals else sum(vals)
+
+    nbytes = sum(r["bytes"] for r in per)
+    flops = sum(r["flops"] for r in per)
+    mem_rate, fp32_rate = peaks(stats["device_name"])
+    return {
+        "name": "solve_bucket",
+        "route": "cuda",
+        "source": "predictionio_tpu_torch/csrc/als_solve.cu",
+        "replaces": "predictionio_tpu/ops/als.py:772",
+        "launches": stats["k1_launches"],
+        "max_abs_err": stats["k1_max_abs_err"],
+        "ms": total("kernel_device_ms") or sum(r["kernel_ms"] for r in per),
+        "plain_ms": total("plain_device_ms"),
+        "bound_ms": sum(r["bound_ms"] for r in per),
+        "bound_by": "bytes" if nbytes / mem_rate >= flops / fp32_rate else "operations",
+        "library_ms": total("library_device_ms"),
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -570,18 +1171,40 @@ def main() -> int:
     from predictionio_tpu_torch.utils.device import resolve_device
 
     device = resolve_device("cuda")
-    stats = {"max_abs_err": 0.0, "launches": 0}
+    stats = {"max_abs_err": 0.0, "launches": 0,
+             "device_name": torch.cuda.get_device_name(0)}
+    steps = {
+        "k2": lambda: kernel_vs_plain(torch, device, stats),
+        "k1": lambda: k1_vs_plain(torch, device, stats),
+        "serve": lambda: the_slice(torch, device, stats),
+        "lifecycle": lambda: lifecycle(torch, device, stats),
+        "train": lambda: full_width(torch, device, stats),
+        "times": lambda: timings(torch, device, stats),
+        "k1times": lambda: k1_timings(torch, device, stats),
+    }
+    args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    args.add_argument(
+        "--phases", default=",".join(steps),
+        help="comma list of phases to run after environment and build "
+        f"(default: all of {','.join(steps)}); a partial run prints no result")
+    chosen = args.parse_args().phases.split(",")
+    unknown = sorted(set(chosen) - set(steps))
+    if unknown:
+        print(f"chip_smoke: unknown phases {unknown}", file=sys.stderr)
+        return 2
     t0 = time.perf_counter()
     smi = environment(torch)
     build()
-    if not failures:
-        kernel_vs_plain(torch, device, stats)
-        the_slice(torch, device, stats)
-        timings(torch, device, stats)
+    for name in steps:
+        if name in chosen and not failures:
+            steps[name]()
     log(f"total {time.perf_counter() - t0:.1f}s")
     if failures:
         log(f"chip_smoke FAILED phases: {failures}")
         return 1
+    if set(chosen) != set(steps):
+        log(f"partial run ({','.join(chosen)}): no result lines")
+        return 0
     rep = stats["timings"][0]  # f32, B = 1: the per-request serving call
     # device time when the profiler measured it (the kernels' own time);
     # else the per-call CUDA-event time, which includes launch gaps
@@ -600,7 +1223,7 @@ def main() -> int:
         "bound_ms": rep["bound_ms"],
         "bound_by": rep["bound_by"],
         "library_ms": rep["library_device_ms"] if dev else rep["library_ms"],
-    }]}))
+    }, k1_summary(stats)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

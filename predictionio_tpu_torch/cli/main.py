@@ -1,18 +1,26 @@
-"""Command line of the port: the ``deploy`` verb.
+"""Command line of the port: the ``train`` and ``deploy`` verbs.
 
+    python -m predictionio_tpu_torch.cli.main train --variant engine.json \\
+        [--engine-id ID] [--engine-version V] [--batch LABEL] \\
+        [--skip-sanity-check] [--stop-after-read] [--stop-after-prepare] \\
+        [--warm-start] [--tol T] [--device cuda|cpu]
     python -m predictionio_tpu_torch.cli.main deploy \\
         [--engine-instance-id ID | --variant engine.json] \\
         [--ip 0.0.0.0] [--port 8000] [--device cuda|cpu]
 
-Port of ``predictionio_tpu/cli/main.py`` ``cmd_deploy`` (:1053-1092).
-The instance is resolved as there: by id, or as the latest COMPLETED
-instance of the variant's (id, version, file-name label). The engine
-factory comes from the variant's ``engineFactory``, else from the
-instance's recorded ``engine_factory``, else the port's recommendation
-template; a JAX-package factory name maps to the port module of the same
-path (core/engine.py ``port_factory_name``). Storage is configured by the
-same ``PIO_*`` environment as the JAX package. Scoring runs on CUDA
-unless ``--device cpu`` is given.
+Port of ``predictionio_tpu/cli/main.py`` ``cmd_train`` (:843-894) and
+``cmd_deploy`` (:1053-1092). ``train`` records an engine instance under
+the variant's (id, version, file-name label), as the JAX CLI does, so
+``deploy`` of either package finds it; ``--warm-start`` starts from the
+latest COMPLETED instance of that identity, whichever package trained
+it. The JAX CLI's checkpoint, mesh, multi-host, profiler and prep-cache
+flags belong to later slices and are not accepted. The engine factory
+comes from the variant's ``engineFactory`` (for ``deploy``, else from
+the instance's recorded ``engine_factory``), else the port's
+recommendation template; a JAX-package factory name maps to the port
+module of the same path (core/engine.py ``port_factory_name``). Storage
+is configured by the same ``PIO_*`` environment as the JAX package.
+Training and scoring run on CUDA unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -22,11 +30,13 @@ import logging
 import os
 import sys
 
+from predictionio_tpu_torch.core.context import WorkflowContext
 from predictionio_tpu_torch.core.engine import (
     DEFAULT_ENGINE_FACTORY,
+    WorkflowParams,
     resolve_engine_factory,
 )
-from predictionio_tpu_torch.core.workflow import load_variant
+from predictionio_tpu_torch.core.workflow import load_variant, run_train
 from predictionio_tpu_torch.data.storage import get_storage
 from predictionio_tpu_torch.server.engine_server import EngineServer
 
@@ -35,14 +45,49 @@ def _engine_identity(args, variant: dict) -> tuple[str, str, str]:
     """(engine_id, version, variant label) -- the instance lookup key, as
     the JAX CLI computes it: an id-less variant falls back to the real
     path of its directory; the label is the variant file's name."""
-    engine_id = variant.get("id")
+    engine_id = getattr(args, "engine_id", None) or variant.get("id")
     if not engine_id:
         engine_id = (
             os.path.dirname(os.path.realpath(args.variant)) if args.variant
             else "default"
         )
     label = os.path.basename(args.variant or "") or "default"
-    return engine_id, variant.get("version", "0"), label
+    version = getattr(args, "engine_version", None) or variant.get("version", "0")
+    return engine_id, version, label
+
+
+def cmd_train(args) -> int:
+    """Train the variant's engine and record a COMPLETED instance."""
+    variant = load_variant(args.variant) if args.variant else {}
+    factory = variant.get("engineFactory") or DEFAULT_ENGINE_FACTORY
+    engine = resolve_engine_factory(factory)
+    runtime_conf: dict = {}
+    if args.warm_start:
+        runtime_conf["warm_start"] = True
+    if args.tol is not None:
+        runtime_conf["tol"] = args.tol
+    wp = WorkflowParams(
+        batch=args.batch,
+        skip_sanity_check=args.skip_sanity_check,
+        stop_after_read=args.stop_after_read,
+        stop_after_prepare=args.stop_after_prepare,
+        runtime_conf=runtime_conf,
+    )
+    ctx = WorkflowContext(mode="Training", batch=wp.batch,
+                          runtime_conf=wp.runtime_conf, device=args.device)
+    engine_id, engine_version, label = _engine_identity(args, variant)
+    instance_id = run_train(
+        engine,
+        engine.params_from_variant(variant),
+        engine_id=engine_id,
+        engine_version=engine_version,
+        engine_variant=label,
+        engine_factory=factory,
+        workflow_params=wp,
+        ctx=ctx,
+    )
+    print(f"Training completed. Engine instance ID: {instance_id}")
+    return 0
 
 
 def deploy_server(args) -> EngineServer:
@@ -104,6 +149,34 @@ def build_parser() -> argparse.ArgumentParser:
         description="PredictionIO on PyTorch/CUDA",
     )
     sub = p.add_subparsers(dest="command", required=True)
+    t = sub.add_parser("train", help="train an engine and record an instance")
+    t.add_argument("--variant", help="engine.json (engineFactory, params, id)")
+    t.add_argument("--engine-id", help="instance engine id (default: the "
+                   "variant's id, else its directory)")
+    t.add_argument("--engine-version", help="instance engine version "
+                   "(default: the variant's version, else 0)")
+    t.add_argument("--batch", default="", help="batch label of the instance")
+    t.add_argument("--skip-sanity-check", action="store_true")
+    t.add_argument("--stop-after-read", action="store_true")
+    t.add_argument("--stop-after-prepare", action="store_true")
+    t.add_argument(
+        "--warm-start", action="store_true",
+        help="start from the latest COMPLETED instance's model of this "
+        "engine identity instead of random factors (an incompatible "
+        "model -- changed rank or storage dtype -- falls back to a cold "
+        "start with a warning)",
+    )
+    t.add_argument(
+        "--tol", type=float, metavar="T",
+        help="stop iterating when the per-iteration train RMSE improves "
+        "by less than T",
+    )
+    t.add_argument(
+        "--device", default=None,
+        help="torch device to train on (default: cuda; cpu runs the "
+        "kernels' plain versions)",
+    )
+    t.set_defaults(fn=cmd_train)
     d = sub.add_parser("deploy", help="serve an engine instance over HTTP")
     d.add_argument("--engine-instance-id")
     d.add_argument("--variant", help="engine.json of the instance to deploy")

@@ -1,30 +1,84 @@
-"""Engine: named DASE component classes; variant JSON -> EngineParams.
+"""Engine: named DASE component classes; train; variant -> EngineParams.
 
-Port of ``predictionio_tpu/core/engine.py`` for serving: component
-registries keyed by name, instantiation, engine-params extraction from a
-variant (jValueToEngineParams, Engine.scala:357-420), and engine factory
-resolution. Training (``Engine.train``) is the next slice.
+Port of ``predictionio_tpu/core/engine.py``: component registries keyed
+by name, instantiation, ``train`` = read -> sanity-check -> prepare ->
+per-algorithm train (Engine.scala:625-729), engine-params extraction
+from a variant (jValueToEngineParams, Engine.scala:357-420), and engine
+factory resolution. Evaluation (``Engine.eval``) is a later slice.
 """
 
 from __future__ import annotations
 
 import importlib
-from typing import Any, Generic, Mapping, TypeVar
+import logging
+from dataclasses import dataclass, field
+from typing import Any, Generic, Mapping, Sequence, TypeVar
 
 from predictionio_tpu_torch.core.base import (
     Algorithm,
     DataSource,
     Preparator,
+    SanityCheck,
     Serving,
     doer,
 )
+from predictionio_tpu_torch.core.context import WorkflowContext
 from predictionio_tpu_torch.core.params import EngineParams, Params
+
+logger = logging.getLogger(__name__)
 
 TD = TypeVar("TD")
 PD = TypeVar("PD")
 Q = TypeVar("Q")
 P = TypeVar("P")
 A = TypeVar("A")
+
+@dataclass
+class WorkflowParams:
+    """Train run options (reference workflow/WorkflowParams.scala), the
+    JAX package's fields. ``profile_dir`` (a JAX profiler trace) and
+    ``mesh_axes`` (a device mesh) have no counterpart on one card yet:
+    setting either raises."""
+
+    batch: str = ""
+    verbose: int = 0
+    save_model: bool = True
+    skip_sanity_check: bool = False
+    stop_after_read: bool = False
+    stop_after_prepare: bool = False
+    runtime_conf: dict[str, Any] = field(default_factory=dict)
+    profile_dir: str | None = None
+    mesh_axes: list[tuple[str, int]] | None = None
+
+    def __post_init__(self):
+        if self.profile_dir:
+            raise NotImplementedError(
+                "WorkflowParams.profile_dir: training traces are a later "
+                "slice of the PyTorch port"
+            )
+        if self.mesh_axes:
+            raise NotImplementedError(
+                "WorkflowParams.mesh_axes: device meshes are the multi-GPU "
+                "slice of the PyTorch port"
+            )
+
+
+class StopAfterReadInterruption(Exception):
+    pass
+
+
+class StopAfterPrepareInterruption(Exception):
+    pass
+
+
+def _sanity(obj: Any, what: str, skip: bool) -> None:
+    if skip:
+        return
+    if isinstance(obj, SanityCheck):
+        logger.info("%s: sanity check starting", what)
+        obj.sanity_check()
+        logger.info("%s: sanity check passed", what)
+
 
 _PORT = "predictionio_tpu_torch"
 _JAX_PACKAGE = "predictionio_tpu"
@@ -72,6 +126,51 @@ class Engine(Generic[TD, PD, Q, P, A]):
 
     def make_serving(self, ep: EngineParams) -> Serving:
         return self._make(self.serving_classes, "serving", *ep.serving)
+
+    def train(
+        self,
+        ctx: WorkflowContext,
+        engine_params: EngineParams,
+        workflow_params: WorkflowParams | None = None,
+        algorithms: Sequence[Algorithm] | None = None,
+    ) -> list[Any]:
+        """Train all algorithms (object Engine.train, Engine.scala:625-729).
+        Pass ``algorithms`` to reuse instances: the persistence path must
+        serialize models through the instances that trained them. Each
+        algorithm trains on its ``device``, else on ``ctx.device``."""
+        wp = workflow_params or WorkflowParams()
+        datasource = self.make_datasource(engine_params)
+        preparator = self.make_preparator(engine_params)
+        if algorithms is None:
+            algorithms = self.make_algorithms(engine_params)
+        if not algorithms:
+            raise ValueError("engine has no algorithms configured")
+
+        td = datasource.read_training(ctx)
+        _sanity(td, "TrainingData", wp.skip_sanity_check)
+        if wp.stop_after_read:
+            raise StopAfterReadInterruption()
+
+        pd = preparator.prepare(ctx, td)
+        _sanity(pd, "PreparedData", wp.skip_sanity_check)
+        if wp.stop_after_prepare:
+            raise StopAfterPrepareInterruption()
+
+        # warm starts ride runtime_conf: the workflow driver resolves the
+        # previous instance's models into "warm_start_models" (aligned
+        # with the algorithms) and each algorithm sees its own slot
+        warm = ctx.runtime_conf.get("warm_start_models")
+        models = []
+        for i, algo in enumerate(algorithms):
+            if warm is not None:
+                ctx.runtime_conf["warm_start_model"] = (
+                    warm[i] if i < len(warm) else None
+                )
+            models.append(algo.train(ctx, pd))
+        ctx.runtime_conf.pop("warm_start_model", None)
+        for i, m in enumerate(models):
+            _sanity(m, f"Model {i}", wp.skip_sanity_check)
+        return models
 
     def params_from_variant(self, variant: Mapping[str, Any]) -> EngineParams:
         def one(slot: str, registry: Mapping[str, type]) -> tuple[str, Params]:

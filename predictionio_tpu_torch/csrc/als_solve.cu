@@ -1,0 +1,369 @@
+// K1: the fused ALS bucket solve with its write-back, for Hopper (sm_90a).
+//
+// Replaces predictionio_tpu/ops/als.py:772 _solve_bucket_inline (the XLA
+// program gather -> _gramian_rhs -> segment add -> regularize ->
+// _psd_solve, with :486 _gramian_rhs_gathered, :530 _gramian_rhs, :570
+// _psd_solve, :808 _bucket_weights, :823 _finish_bucket_solve) and its
+// epilogue :657 _scatter_rows + :591 quantize_rows; and the op the
+// deleted Pallas kernel ops/als_pallas.py::_gramian_rhs_kernel covered.
+//
+// What it computes, for solved row r of one bucket (explicit feedback):
+//   for every entry t of r's table rows seg_start[r] .. seg_start[r+1]-1:
+//     g_t  = other[col_ids[t]] in the compute dtype: a cast for dense
+//            tables; for int8, q * s taken in the compute dtype (bf16
+//            compute: bf16(q) * bf16(s), rounded to bf16)
+//     w_t  = cdt(mask_t), r_t = cdt(rating_t * mask_t)  (cdt: round to
+//            the compute dtype)
+//     A   += cdt(w_t * g_t) g_t^T,  b += r_t g_t,  n += mask_t   (float32)
+//   A += (n > 0 ? reg * (weighted ? n : 1) : 1) * I
+//   x  = A^-1 b by Cholesky (forward, then backward substitution)
+//   x -> x_out[r] (optional), and -> target[row_ids[r]] (optional): a
+//   copy for f32, __float2bfloat16_rn for bf16, and for int8
+//   scale = max|x| / 127 (1 where that is not > 0),
+//   q = rintf(x / scale) -- half to even with a true division, as
+//   jnp.round(x / scale) does. The build uses no --use_fast_math.
+//
+// The target table is never the table being read in the same launch:
+// a half-step solves U from V (or V from U), so the in-place write-back
+// races with no read. Buckets of one side hold disjoint rows.
+//
+// What bounds it on an H100, at ML-20M (138,493 x 26,744, 20 M ratings)
+// rank 20 f32, per iteration (7 buckets): 40 M real entries of
+// D(D+1) + 2D = 460 FP32 operations (the symmetric Gramian and the rhs)
+// = 18.4 GFLOP, 0.27 ms at 67 TFLOP/s; the bucket arrays, 854 MB, are
+// 0.25 ms at 3.35 TB/s; both factor tables (11.1 MB and 2.1 MB) fit in
+// the 50 MB L2. So about 0.3 ms, bound by operations and bytes alike.
+//
+// Design (the simple, correct first version):
+//   one 256-thread block per solved row; segment offsets come from the
+//   host, so a hot row's segments (consecutive table rows) are summed in
+//   one block, in a fixed order, with no atomics. Entries are staged 32
+//   at a time: the entries' rows are gathered straight from the factor
+//   table into shared memory, dequantized and rounded there ([B, K, D]
+//   never exists anywhere); a tile whose entries are all padding is
+//   skipped (rows are packed to the front, so a row's trailing padding
+//   costs one check per tile). Each thread owns a fixed set of the
+//   D(D+1)/2 lower-triangle entries of A and of the D entries of b, held
+//   in registers and summed over the entries in order, a tile's 32
+//   products into a partial first. The Cholesky factorization runs
+//   column by column on those registers (2 block barriers a column), L
+//   goes to shared memory, and one warp does both substitutions and the
+//   write-back. Dynamic shared memory: about
+//   100 KB at D = 128 (cudaFuncSetAttribute past 48 KB).
+//   Later work: several rows per block for the narrow buckets, mma.sync
+//   or wgmma for the Gramian at high rank, splitting 33-segment rows.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int TILE_K = 32;  // entries staged per step: one per lane of warp 0
+constexpr int MAX_D = 128;
+
+enum DType { F32 = 0, BF16 = 1, I8 = 2 };
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// one gathered factor value in the compute dtype (as a float)
+__device__ __forceinline__ float gathered(const float* t, const float*, size_t i,
+                                          size_t, bool bf16c) {
+  const float v = t[i];
+  return bf16c ? bf16_round(v) : v;
+}
+__device__ __forceinline__ float gathered(const __nv_bfloat16* t, const float*,
+                                          size_t i, size_t, bool) {
+  return __bfloat162float(t[i]);
+}
+__device__ __forceinline__ float gathered(const int8_t* t, const float* s,
+                                          size_t i, size_t row, bool bf16c) {
+  const float q = (float)t[i];
+  if (bf16c) return bf16_round(__fmul_rn(q, bf16_round(s[row])));
+  return __fmul_rn(q, s[row]);
+}
+
+// max that propagates NaN, as jnp.max does
+__device__ __forceinline__ float nanmax(float a, float b) {
+  return (a != a || b != b) ? a + b : fmaxf(a, b);
+}
+
+template <typename T, int P>
+__global__ void __launch_bounds__(THREADS)
+solve_kernel(const T* __restrict__ other, const float* __restrict__ other_scales,
+             const int* __restrict__ col_ids, const float* __restrict__ ratings,
+             const float* __restrict__ mask, const int* __restrict__ seg_start,
+             int K, int D, float reg, int weighted, int bf16c,
+             float* __restrict__ x_out, void* __restrict__ target, int target_code,
+             float* __restrict__ target_scales, const int* __restrict__ row_ids) {
+  extern __shared__ float smem[];
+  __shared__ int s_col[TILE_K];
+  __shared__ float s_w[TILE_K];
+  __shared__ float s_diag;
+  __shared__ float s_n;
+
+  const int S = 2 * D + 2;      // tile row: w*g [D] | g [D] | r | 0
+  const int ZERO = 2 * D + 1;   // a column held at 0 for idle owners
+  const int LD = D + 1;         // stride of L in shared memory
+  float* tile = smem;                 // [TILE_K][S]
+  float* Ls = tile + TILE_K * S;      // [D][D + 1], lower triangle of L
+  float* sb = Ls + D * LD;            // [D]: b, then y, then x
+  const int tid = threadIdx.x;
+  const int r = blockIdx.x;
+  const int NT = D * (D + 1) / 2;
+
+  // the entries this thread owns: A[i][k] (k <= i) as tile columns
+  // (i, D + k); b[i] as (D + i, 2D); past the end, the zero column
+  int xo[P], yo[P];
+  float acc[P];
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    const int p = tid + q * THREADS;
+    acc[q] = 0.0f;
+    if (p < NT) {
+      int i = (int)((sqrtf(8.0f * (float)p + 1.0f) - 1.0f) * 0.5f);
+      while (i * (i + 1) / 2 > p) --i;
+      while ((i + 1) * (i + 2) / 2 <= p) ++i;
+      xo[q] = i;
+      yo[q] = D + (p - i * (i + 1) / 2);
+    } else if (p < NT + D) {
+      xo[q] = D + (p - NT);
+      yo[q] = 2 * D;
+    } else {
+      xo[q] = ZERO;
+      yo[q] = ZERO;
+    }
+  }
+  for (int k = tid; k < TILE_K; k += THREADS) tile[k * S + ZERO] = 0.0f;
+
+  const long long base = (long long)seg_start[r] * K;
+  const long long total = (long long)(seg_start[r + 1] - seg_start[r]) * K;
+  float n_acc = 0.0f;  // mask sum, kept by thread 0
+  for (long long t0 = 0; t0 < total; t0 += TILE_K) {
+    int live = 0;
+    if (tid < TILE_K) {
+      const long long t = t0 + tid;
+      int c = -1;
+      float m = 0.0f, rt = 0.0f;
+      if (t < total) {
+        c = col_ids[base + t];
+        m = mask[base + t];
+        rt = ratings[base + t];
+      }
+      float w = m, rr = __fmul_rn(rt, m);
+      if (bf16c) {
+        w = bf16_round(w);
+        rr = bf16_round(rr);
+      }
+      s_col[tid] = c;
+      s_w[tid] = w;
+      tile[tid * S + 2 * D] = rr;
+      live = (m != 0.0f) || (rr != 0.0f);
+      float msum = m;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        msum += __shfl_xor_sync(0xffffffffu, msum, off);
+      if (tid == 0) n_acc += msum;
+    }
+    if (!__syncthreads_or(live)) continue;  // all padding: adds exact zeros
+    for (int e = tid; e < TILE_K * D; e += THREADS) {
+      const int k = e / D;
+      const int d = e - k * D;
+      const int c = s_col[k];
+      float g = 0.0f;
+      if (c >= 0) g = gathered(other, other_scales, (size_t)c * D + d, (size_t)c, bf16c);
+      float wg = __fmul_rn(s_w[k], g);
+      if (bf16c) wg = bf16_round(wg);
+      tile[k * S + d] = wg;
+      tile[k * S + D + d] = g;
+    }
+    __syncthreads();
+    // each owned entry sums the tile's 32 products into a partial, then
+    // adds it to its running sum: a hot row's ~67,000 entries take ~2,100
+    // long additions instead of 67,000, which keeps the f32 rounding of
+    // the sum near that of a blocked (cuBLAS) sum
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      const float* xs = tile + xo[q];
+      const float* ys = tile + yo[q];
+      float t = 0.0f;
+#pragma unroll 8
+      for (int k = 0; k < TILE_K; ++k) t = fmaf(xs[k * S], ys[k * S], t);
+      acc[q] += t;
+    }
+    __syncthreads();
+  }
+
+  // regularize: reg * (n or 1) on the diagonal, the identity when n == 0
+  if (tid == 0) s_n = n_acc;
+  __syncthreads();
+  const float n = s_n;
+  float lam = weighted ? __fmul_rn(reg, n) : reg;
+  if (!(n > 0.0f)) lam = 1.0f;
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    if (xo[q] < D && xo[q] == yo[q] - D) acc[q] = __fadd_rn(acc[q], lam);
+    if (yo[q] == 2 * D) sb[xo[q] - D] = acc[q];
+  }
+
+  // Cholesky, column j at a time, on the owners' registers
+  for (int j = 0; j < D; ++j) {
+#pragma unroll
+    for (int q = 0; q < P; ++q)
+      if (xo[q] == j && yo[q] == D + j) s_diag = acc[q];
+    __syncthreads();
+    const float dj = sqrtf(s_diag);
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      if (xo[q] < D && yo[q] == D + j) {
+        const int i = xo[q];
+        if (i == j) {
+          Ls[j * LD + j] = dj;
+        } else {
+          acc[q] = acc[q] / dj;
+          Ls[i * LD + j] = acc[q];
+        }
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      const int k = yo[q] - D;
+      if (xo[q] < D && k > j)
+        acc[q] = fmaf(-Ls[xo[q] * LD + j], Ls[k * LD + j], acc[q]);
+    }
+  }
+  __syncthreads();
+
+  if (tid >= 32) return;
+  const int lane = tid;
+  // L y = b
+  for (int j = 0; j < D; ++j) {
+    const float yj = sb[j] / Ls[j * LD + j];
+    __syncwarp();
+    if (lane == 0) sb[j] = yj;
+    for (int i = j + 1 + lane; i < D; i += 32) sb[i] = fmaf(-Ls[i * LD + j], yj, sb[i]);
+    __syncwarp();
+  }
+  // L^T x = y
+  for (int j = D - 1; j >= 0; --j) {
+    const float xj = sb[j] / Ls[j * LD + j];
+    __syncwarp();
+    if (lane == 0) sb[j] = xj;
+    for (int i = lane; i < j; i += 32) sb[i] = fmaf(-Ls[j * LD + i], xj, sb[i]);
+    __syncwarp();
+  }
+
+  if (x_out != nullptr)
+    for (int d = lane; d < D; d += 32) x_out[(size_t)r * D + d] = sb[d];
+  if (target == nullptr) return;
+  const size_t row = (size_t)row_ids[r];
+  if (target_code == F32) {
+    float* tt = (float*)target + row * D;
+    for (int d = lane; d < D; d += 32) tt[d] = sb[d];
+  } else if (target_code == BF16) {
+    __nv_bfloat16* tt = (__nv_bfloat16*)target + row * D;
+    for (int d = lane; d < D; d += 32) tt[d] = __float2bfloat16_rn(sb[d]);
+  } else {
+    float m = 0.0f;
+    for (int d = lane; d < D; d += 32) m = nanmax(m, fabsf(sb[d]));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      m = nanmax(m, __shfl_xor_sync(0xffffffffu, m, off));
+    float scale = __fdiv_rn(m, 127.0f);
+    if (!(scale > 0.0f)) scale = 1.0f;
+    int8_t* tt = (int8_t*)target + row * D;
+    for (int d = lane; d < D; d += 32)
+      tt[d] = (int8_t)(int)rintf(__fdiv_rn(sb[d], scale));
+    if (lane == 0) target_scales[row] = scale;
+  }
+}
+
+template <typename T, int P>
+cudaError_t launch(const void* other, const float* other_scales, const int* col_ids,
+                   const float* ratings, const float* mask, const int* seg_start,
+                   int R, int K, int D, float reg, int weighted, int bf16c,
+                   float* x_out, void* target, int target_code, float* target_scales,
+                   const int* row_ids, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * ((size_t)TILE_K * (2 * D + 2) + (size_t)D * (D + 1) + D);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        solve_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  solve_kernel<T, P><<<R, THREADS, smem, stream>>>(
+      (const T*)other, other_scales, col_ids, ratings, mask, seg_start, K, D, reg,
+      weighted, bf16c, x_out, target, target_code, target_scales, row_ids);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const void* other, const float* other_scales, const int* col_ids,
+                     const float* ratings, const float* mask, const int* seg_start,
+                     int R, int K, int D, float reg, int weighted, int bf16c,
+                     float* x_out, void* target, int target_code, float* target_scales,
+                     const int* row_ids, cudaStream_t stream) {
+  // owned entries per thread: ceil((D(D+1)/2 + D) / THREADS)
+  const int need = (D * (D + 3) / 2 + THREADS - 1) / THREADS;
+#define PIO_K1_LAUNCH(PV)                                                          \
+  return launch<T, PV>(other, other_scales, col_ids, ratings, mask, seg_start, R, \
+                       K, D, reg, weighted, bf16c, x_out, target, target_code,    \
+                       target_scales, row_ids, stream)
+  if (need <= 1) PIO_K1_LAUNCH(1);
+  if (need <= 2) PIO_K1_LAUNCH(2);
+  if (need <= 4) PIO_K1_LAUNCH(4);
+  if (need <= 9) PIO_K1_LAUNCH(9);
+  if (need <= 17) PIO_K1_LAUNCH(17);
+  PIO_K1_LAUNCH(33);
+#undef PIO_K1_LAUNCH
+}
+
+}  // namespace
+
+// Solve one bucket. Pointers are device pointers; other_scales and
+// target_scales are NULL unless the table is int8; x_out and target may
+// each be NULL. Returns cudaGetLastError() after the launch (or the
+// error of a refused argument: cudaErrorInvalidValue).
+extern "C" int pio_k1_solve_bucket(const void* other, int other_code,
+                                   const float* other_scales, const int* col_ids,
+                                   const float* ratings, const float* mask,
+                                   const int* seg_start, int R, int K, int D,
+                                   float reg, int weighted, int bf16_compute,
+                                   float* x_out, void* target, int target_code,
+                                   float* target_scales, const int* row_ids,
+                                   void* stream) {
+  if (R <= 0) return 0;
+  if (D < 1 || D > MAX_D || K < 1) return (int)cudaErrorInvalidValue;
+  if ((other_code == I8) != (other_scales != nullptr)) return (int)cudaErrorInvalidValue;
+  if (target != nullptr &&
+      ((target_code == I8) != (target_scales != nullptr) || row_ids == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  switch (other_code) {
+    case F32:
+      err = dispatch<float>(other, other_scales, col_ids, ratings, mask, seg_start, R,
+                            K, D, reg, weighted, bf16_compute, x_out, target,
+                            target_code, target_scales, row_ids, s);
+      break;
+    case BF16:
+      err = dispatch<__nv_bfloat16>(other, other_scales, col_ids, ratings, mask,
+                                    seg_start, R, K, D, reg, weighted, bf16_compute,
+                                    x_out, target, target_code, target_scales,
+                                    row_ids, s);
+      break;
+    case I8:
+      err = dispatch<int8_t>(other, other_scales, col_ids, ratings, mask, seg_start,
+                             R, K, D, reg, weighted, bf16_compute, x_out, target,
+                             target_code, target_scales, row_ids, s);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)err;
+}

@@ -11,10 +11,13 @@ find the same database and model directory:
 - zero-config default: sqlite ``pio.db`` + localfs ``models/`` under
   ``PIO_FS_BASEDIR`` (default ``~/.pio_tpu``).
 
-The port's backends so far: sqlite, localfs and memory, for the engine
-instance and model DAOs that deploy reads. Other backend types parse
-(their capabilities steer the default bindings exactly as in the JAX
-package) but raise :class:`StorageError` when a DAO is asked of them.
+The port's backends so far: sqlite and memory (apps, channels, engine
+instances, models, events) and localfs (models). Other backend types --
+jsonl, partitioned, postgres, http, search, hdfs, s3 -- parse (their
+capabilities steer the default bindings exactly as in the JAX package)
+but raise :class:`StorageError`, naming the type, when a DAO is asked of
+them: an EVENTDATA repository bound to one of them cannot be read by the
+port yet.
 """
 
 from __future__ import annotations
@@ -24,11 +27,17 @@ import threading
 from typing import Any, Callable
 
 from predictionio_tpu_torch.data.storage.base import (  # noqa: F401 (public re-exports)
+    App,
+    Apps,
+    Channel,
+    Channels,
     EngineInstance,
     EngineInstanceStatus,
     EngineInstances,
+    Events,
     Model,
     Models,
+    RatingsBatch,
 )
 
 METADATA = "METADATA"
@@ -59,8 +68,11 @@ def _sqlite_backend() -> _Backend:
     return _Backend(
         client_factory=lambda cfg: sq.SQLiteStorageClient(cfg),
         daos={
+            "Apps": sq.SQLiteApps,
+            "Channels": sq.SQLiteChannels,
             "EngineInstances": sq.SQLiteEngineInstances,
             "Models": sq.SQLiteModels,
+            "Events": sq.SQLiteEvents,
         },
     )
 
@@ -71,8 +83,11 @@ def _memory_backend() -> _Backend:
     return _Backend(
         client_factory=lambda cfg: mem.MemoryStorageClient(cfg),
         daos={
+            "Apps": mem.MemoryApps,
+            "Channels": mem.MemoryChannels,
             "EngineInstances": mem.MemoryEngineInstances,
             "Models": mem.MemoryModels,
+            "Events": mem.MemoryEvents,
         },
     )
 
@@ -222,6 +237,15 @@ class Storage:
                 f"does not support {dao_name}"
             )
         return backend.daos[dao_name](self._client(source_name))
+
+    def get_metadata_apps(self) -> Apps:
+        return self._dao(METADATA, "Apps")
+
+    def get_metadata_channels(self) -> Channels:
+        return self._dao(METADATA, "Channels")
+
+    def get_events(self) -> Events:
+        return self._dao(EVENTDATA, "Events")
 
     def get_metadata_engine_instances(self) -> EngineInstances:
         return self._dao(METADATA, "EngineInstances")

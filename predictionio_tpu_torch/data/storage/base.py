@@ -1,16 +1,51 @@
-"""Storage records and DAO contracts for engine instances and models.
+"""Storage records and DAO contracts.
 
-Port of the serving subset of ``predictionio_tpu/data/storage/base.py``:
-the ``EngineInstance`` and ``Model`` records and their two DAO contracts
-(reference EngineInstances.scala:46, Models.scala:33). Apps, access
-keys, channels and events come with the training slice.
+Port of ``predictionio_tpu/data/storage/base.py``: the ``App``,
+``Channel``, ``EngineInstance`` and ``Model`` records, the columnar
+``RatingsBatch``, and the DAO contracts the train and deploy paths use
+(reference Apps.scala:32, Channels.scala:32, EngineInstances.scala:46,
+Models.scala:33, LEvents.scala:40). Access keys, evaluation instances
+and the event-server side of ``Events`` (tails, change tokens, property
+aggregation) come with later slices.
 """
 
 from __future__ import annotations
 
 import abc
+import re
 from dataclasses import dataclass, field
 from datetime import datetime
+from typing import Any, Iterable, Sequence
+
+import numpy as np
+
+from predictionio_tpu_torch.data.event import Event
+
+
+@dataclass
+class App:
+    """An application namespace for events (reference Apps.scala:32-44)."""
+
+    id: int
+    name: str
+    description: str | None = None
+
+
+CHANNEL_NAME_RE = re.compile(r"^[a-zA-Z0-9-]{1,16}$")
+
+
+@dataclass
+class Channel:
+    """A named sub-stream of an app's events (reference Channels.scala:32-45);
+    names are 1-16 alphanumeric or '-' characters."""
+
+    id: int
+    name: str
+    appid: int
+
+    @staticmethod
+    def is_valid_name(name: str) -> bool:
+        return bool(CHANNEL_NAME_RE.match(name))
 
 
 class EngineInstanceStatus:
@@ -94,3 +129,177 @@ class Models(abc.ABC):
         as a plain local file (localfs), else None. The deploy path maps
         such files in place instead of copying the bytes."""
         return None
+
+
+class Apps(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, app: App) -> int | None:
+        """Insert; app.id == 0 means auto-assign. Returns the assigned id,
+        or None when the id or name is taken."""
+
+    @abc.abstractmethod
+    def get(self, app_id: int) -> App | None: ...
+
+    @abc.abstractmethod
+    def get_by_name(self, name: str) -> App | None: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> list[App]: ...
+
+    @abc.abstractmethod
+    def update(self, app: App) -> bool: ...
+
+    @abc.abstractmethod
+    def delete(self, app_id: int) -> bool: ...
+
+
+class Channels(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, channel: Channel) -> int | None:
+        """Insert; channel.id == 0 means auto-assign. Returns the id."""
+
+    @abc.abstractmethod
+    def get(self, channel_id: int) -> Channel | None: ...
+
+    @abc.abstractmethod
+    def get_by_appid(self, appid: int) -> list[Channel]: ...
+
+    @abc.abstractmethod
+    def delete(self, channel_id: int) -> bool: ...
+
+
+@dataclass
+class RatingsBatch:
+    """Columnar (entity, target, value) training triples with dense ids:
+    ``entity_ids[rows[i]] -> target_ids[cols[i]]`` carries ``vals[i]``;
+    the id lists double as the BiMap (dense index = list position)."""
+
+    entity_ids: list[str]
+    target_ids: list[str]
+    rows: Any  # np.ndarray [N] int32
+    cols: Any  # np.ndarray [N] int32
+    vals: Any  # np.ndarray [N] float32
+
+    def __len__(self) -> int:
+        return len(self.vals)
+
+    @staticmethod
+    def empty() -> "RatingsBatch":
+        return RatingsBatch(
+            [], [],
+            np.empty(0, np.int32), np.empty(0, np.int32), np.empty(0, np.float32),
+        )
+
+
+class Events(abc.ABC):
+    """Event CRUD and queries for one backend (reference LEvents.scala:
+    40-513, PEvents.scala:38-188): point operations and ``find``, and
+    ``scan_ratings``, the columnar bulk read training uses."""
+
+    @abc.abstractmethod
+    def init(self, app_id: int, channel_id: int | None = None) -> bool:
+        """Create the backing table/namespace for an (app, channel)."""
+
+    @abc.abstractmethod
+    def remove(self, app_id: int, channel_id: int | None = None) -> bool:
+        """Drop all events of an (app, channel)."""
+
+    @abc.abstractmethod
+    def insert(self, event: Event, app_id: int, channel_id: int | None = None) -> str:
+        """Insert one event, returning its event id. The (app, channel)
+        namespace is created on first insert, and an existing
+        ``event_id`` is replaced."""
+
+    @abc.abstractmethod
+    def get(
+        self, event_id: str, app_id: int, channel_id: int | None = None
+    ) -> Event | None: ...
+
+    @abc.abstractmethod
+    def delete(
+        self, event_id: str, app_id: int, channel_id: int | None = None
+    ) -> bool: ...
+
+    @abc.abstractmethod
+    def find(
+        self,
+        app_id: int,
+        channel_id: int | None = None,
+        start_time: datetime | None = None,
+        until_time: datetime | None = None,
+        entity_type: str | None = None,
+        entity_id: str | None = None,
+        event_names: Sequence[str] | None = None,
+        target_entity_type: str | None | type(...) = ...,
+        target_entity_id: str | None | type(...) = ...,
+        limit: int | None = None,
+        reversed_order: bool = False,
+    ) -> list[Event]:
+        """Query events. ``target_entity_type``/``target_entity_id`` take
+        ``...`` for "don't care" and ``None`` for "must be absent"
+        (LEvents.scala:282-313). ``limit=None`` or ``-1`` means all."""
+
+    def batch_insert(
+        self, events: Iterable[Event], app_id: int, channel_id: int | None = None
+    ) -> list[str]:
+        return [self.insert(e, app_id, channel_id) for e in events]
+
+    def scan_ratings(
+        self,
+        app_id: int,
+        channel_id: int | None = None,
+        *,
+        event_names: Sequence[str] | None = None,
+        entity_type: str | None = None,
+        target_entity_type: str | None = None,
+        rating_key: str | None = "rating",
+        default_ratings: dict[str, float] | None = None,
+        override_ratings: dict[str, float] | None = None,
+    ) -> RatingsBatch:
+        """Columnar bulk read of (entity -> target, value) training data,
+        dense-indexed in scan order. ``default_ratings`` maps event names
+        to values used when the ``rating_key`` property is absent or not
+        a number; ``override_ratings`` maps event names to FORCED values
+        (the reference's ``case "buy" => 4.0``, DataSource.scala:55);
+        ``rating_key=None`` takes every event's name default. Backends
+        override this with a columnar read; this walks ``find``."""
+        user_map: dict[str, int] = {}
+        item_map: dict[str, int] = {}
+        rows: list[int] = []
+        cols: list[int] = []
+        vals: list[float] = []
+        for e in self.find(
+            app_id,
+            channel_id,
+            entity_type=entity_type,
+            event_names=list(event_names) if event_names is not None else None,
+            target_entity_type=(
+                target_entity_type if target_entity_type is not None else ...
+            ),
+        ):
+            if e.target_entity_id is None:
+                continue
+            v = (override_ratings or {}).get(e.event)
+            if v is None:
+                v = (
+                    e.properties.to_dict().get(rating_key)
+                    if rating_key is not None
+                    else None
+                )
+                if not isinstance(v, (int, float)) or isinstance(v, bool):
+                    v = (default_ratings or {}).get(e.event)
+            if v is None:
+                continue
+            rows.append(user_map.setdefault(e.entity_id, len(user_map)))
+            cols.append(item_map.setdefault(e.target_entity_id, len(item_map)))
+            vals.append(float(v))
+        return RatingsBatch(
+            entity_ids=list(user_map),
+            target_ids=list(item_map),
+            rows=np.asarray(rows, dtype=np.int32),
+            cols=np.asarray(cols, dtype=np.int32),
+            vals=np.asarray(vals, dtype=np.float32),
+        )
+
+    def close(self) -> None:
+        """Release backend resources."""

@@ -1,11 +1,19 @@
-"""In-memory backend (test mode): engine instances and models in dicts."""
+"""In-memory backend (test mode): every DAO a dict behind a lock.
+
+Port of ``predictionio_tpu/data/storage/memory.py`` for the DAOs the port
+has: apps, channels, engine instances, models and events.
+"""
 
 from __future__ import annotations
 
 import copy
+import itertools
 import threading
 import uuid
+from datetime import datetime
+from typing import Sequence
 
+from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.data.storage import base
 
 
@@ -15,8 +23,93 @@ class MemoryStorageClient:
     def __init__(self, config: dict | None = None):
         self.config = config or {}
         self.lock = threading.RLock()
+        self.apps: dict[int, base.App] = {}
+        self.channels: dict[int, base.Channel] = {}
         self.engine_instances: dict[str, base.EngineInstance] = {}
         self.models: dict[str, base.Model] = {}
+        # (app_id, channel_id) -> event_id -> Event
+        self.events: dict[tuple[int, int | None], dict[str, Event]] = {}
+        self._app_seq = itertools.count(1)
+        self._channel_seq = itertools.count(1)
+        self._event_seq = itertools.count(1)
+
+
+class MemoryApps(base.Apps):
+    def __init__(self, client: MemoryStorageClient):
+        self._c = client
+
+    def insert(self, app: base.App) -> int | None:
+        with self._c.lock:
+            if app.id != 0:
+                app_id = app.id
+            else:
+                app_id = next(self._c._app_seq)
+                while app_id in self._c.apps:
+                    app_id = next(self._c._app_seq)
+            if app_id in self._c.apps or self.get_by_name(app.name) is not None:
+                return None
+            self._c.apps[app_id] = base.App(app_id, app.name, app.description)
+            return app_id
+
+    def get(self, app_id: int) -> base.App | None:
+        with self._c.lock:
+            return self._c.apps.get(app_id)
+
+    def get_by_name(self, name: str) -> base.App | None:
+        with self._c.lock:
+            return next((a for a in self._c.apps.values() if a.name == name), None)
+
+    def get_all(self) -> list[base.App]:
+        with self._c.lock:
+            return sorted(self._c.apps.values(), key=lambda a: a.id)
+
+    def update(self, app: base.App) -> bool:
+        with self._c.lock:
+            if app.id not in self._c.apps:
+                return False
+            self._c.apps[app.id] = app
+            return True
+
+    def delete(self, app_id: int) -> bool:
+        with self._c.lock:
+            return self._c.apps.pop(app_id, None) is not None
+
+
+class MemoryChannels(base.Channels):
+    def __init__(self, client: MemoryStorageClient):
+        self._c = client
+
+    def insert(self, channel: base.Channel) -> int | None:
+        if not base.Channel.is_valid_name(channel.name):
+            return None
+        with self._c.lock:
+            for ch in self._c.channels.values():
+                if ch.appid == channel.appid and ch.name == channel.name:
+                    return None
+            if channel.id != 0:
+                channel_id = channel.id
+            else:
+                channel_id = next(self._c._channel_seq)
+                while channel_id in self._c.channels:
+                    channel_id = next(self._c._channel_seq)
+            if channel_id in self._c.channels:
+                return None
+            self._c.channels[channel_id] = base.Channel(
+                channel_id, channel.name, channel.appid
+            )
+            return channel_id
+
+    def get(self, channel_id: int) -> base.Channel | None:
+        with self._c.lock:
+            return self._c.channels.get(channel_id)
+
+    def get_by_appid(self, appid: int) -> list[base.Channel]:
+        with self._c.lock:
+            return [c for c in self._c.channels.values() if c.appid == appid]
+
+    def delete(self, channel_id: int) -> bool:
+        with self._c.lock:
+            return self._c.channels.pop(channel_id, None) is not None
 
 
 class MemoryEngineInstances(base.EngineInstances):
@@ -84,3 +177,73 @@ class MemoryModels(base.Models):
     def delete(self, model_id: str) -> bool:
         with self._c.lock:
             return self._c.models.pop(model_id, None) is not None
+
+
+class MemoryEvents(base.Events):
+    def __init__(self, client: MemoryStorageClient):
+        self._c = client
+
+    def init(self, app_id: int, channel_id: int | None = None) -> bool:
+        with self._c.lock:
+            self._c.events.setdefault((app_id, channel_id), {})
+            return True
+
+    def remove(self, app_id: int, channel_id: int | None = None) -> bool:
+        with self._c.lock:
+            return self._c.events.pop((app_id, channel_id), None) is not None
+
+    def insert(self, event: Event, app_id: int, channel_id: int | None = None) -> str:
+        with self._c.lock:
+            table = self._c.events.setdefault((app_id, channel_id), {})
+            event_id = event.event_id or f"{next(self._c._event_seq):012x}"
+            table[event_id] = event.with_event_id(event_id)
+            return event_id
+
+    def get(
+        self, event_id: str, app_id: int, channel_id: int | None = None
+    ) -> Event | None:
+        with self._c.lock:
+            return self._c.events.get((app_id, channel_id), {}).get(event_id)
+
+    def delete(
+        self, event_id: str, app_id: int, channel_id: int | None = None
+    ) -> bool:
+        with self._c.lock:
+            table = self._c.events.get((app_id, channel_id), {})
+            return table.pop(event_id, None) is not None
+
+    def find(
+        self,
+        app_id: int,
+        channel_id: int | None = None,
+        start_time: datetime | None = None,
+        until_time: datetime | None = None,
+        entity_type: str | None = None,
+        entity_id: str | None = None,
+        event_names: Sequence[str] | None = None,
+        target_entity_type=...,
+        target_entity_id=...,
+        limit: int | None = None,
+        reversed_order: bool = False,
+    ) -> list[Event]:
+        """Filter, then a stable sort by event time (LEvents.futureFind)."""
+        with self._c.lock:
+            events = list(self._c.events.get((app_id, channel_id), {}).values())
+
+        def keep(e: Event) -> bool:
+            return (
+                (start_time is None or e.event_time >= start_time)
+                and (until_time is None or e.event_time < until_time)
+                and (entity_type is None or e.entity_type == entity_type)
+                and (entity_id is None or e.entity_id == entity_id)
+                and (event_names is None or e.event in event_names)
+                and (target_entity_type is ...
+                     or e.target_entity_type == target_entity_type)
+                and (target_entity_id is ... or e.target_entity_id == target_entity_id)
+            )
+
+        out = sorted(filter(keep, events), key=lambda e: e.event_time,
+                     reverse=reversed_order)
+        if limit is not None and limit >= 0:
+            out = out[:limit]
+        return out

@@ -1,11 +1,13 @@
-"""SQLite backend: the engine-instance and model tables.
+"""SQLite backend: apps, channels, engine instances, models and events.
 
-Port of the serving subset of ``predictionio_tpu/data/storage/sqlite.py``
-with the same schema for ``pio_engine_instances`` and ``pio_models``
-(sqlite.py:82-120), so an instance the JAX package trained deploys on
-the port and one the port writes reads back in the JAX package. The
-other tables (apps, keys, channels, events) are created by whichever
-package first needs them.
+Port of ``predictionio_tpu/data/storage/sqlite.py`` with the same schema
+and table names (``pio_apps``, ``pio_channels``, ``pio_engine_instances``,
+``pio_models``, and per-(app, channel) event tables
+``pio_event_<appId>[_<channelId>]``; sqlite.py:69-120, 485-540), so an
+instance or an event either package writes reads back in the other. The
+client creates every metadata table the JAX package creates, access keys
+and evaluation instances included, though the port has no DAO for those
+two yet.
 """
 
 from __future__ import annotations
@@ -14,9 +16,14 @@ import json
 import sqlite3
 import threading
 import uuid
-from datetime import datetime, timezone
+from datetime import datetime, timedelta, timezone
 from pathlib import Path
+from typing import Sequence
 
+import numpy as np
+
+from predictionio_tpu_torch.data.datamap import DataMap
+from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.data.storage import base
 
 
@@ -26,6 +33,10 @@ def _ts(dt: datetime) -> float:
 
 def _from_ts(ts: float) -> datetime:
     return datetime.fromtimestamp(ts, tz=timezone.utc)
+
+
+def _is_missing_table(err: sqlite3.OperationalError) -> bool:
+    return "no such table" in str(err)
 
 
 class SQLiteStorageClient:
@@ -42,6 +53,19 @@ class SQLiteStorageClient:
         with self.lock, self.conn:
             self.conn.executescript(
                 """
+                CREATE TABLE IF NOT EXISTS pio_apps (
+                  id INTEGER PRIMARY KEY AUTOINCREMENT,
+                  name TEXT NOT NULL UNIQUE,
+                  description TEXT);
+                CREATE TABLE IF NOT EXISTS pio_access_keys (
+                  accesskey TEXT PRIMARY KEY,
+                  appid INTEGER NOT NULL,
+                  events TEXT NOT NULL);
+                CREATE TABLE IF NOT EXISTS pio_channels (
+                  id INTEGER PRIMARY KEY AUTOINCREMENT,
+                  name TEXT NOT NULL,
+                  appid INTEGER NOT NULL,
+                  UNIQUE(name, appid));
                 CREATE TABLE IF NOT EXISTS pio_engine_instances (
                   id TEXT PRIMARY KEY,
                   status TEXT NOT NULL,
@@ -58,6 +82,19 @@ class SQLiteStorageClient:
                   preparatorparams TEXT,
                   algorithmsparams TEXT,
                   servingparams TEXT);
+                CREATE TABLE IF NOT EXISTS pio_evaluation_instances (
+                  id TEXT PRIMARY KEY,
+                  status TEXT NOT NULL,
+                  starttime REAL NOT NULL,
+                  endtime REAL NOT NULL,
+                  evaluationclass TEXT,
+                  engineparamsgeneratorclass TEXT,
+                  batch TEXT,
+                  env TEXT,
+                  runtimeconf TEXT,
+                  evaluatorresults TEXT,
+                  evaluatorresultshtml TEXT,
+                  evaluatorresultsjson TEXT);
                 CREATE TABLE IF NOT EXISTS pio_models (
                   id TEXT PRIMARY KEY,
                   models BLOB NOT NULL);
@@ -76,6 +113,102 @@ class SQLiteStorageClient:
     def close(self) -> None:
         with self.lock:
             self.conn.close()
+
+
+class SQLiteApps(base.Apps):
+    def __init__(self, client: SQLiteStorageClient):
+        self._c = client
+
+    def insert(self, app: base.App) -> int | None:
+        with self._c.lock:
+            try:
+                with self._c.conn:
+                    if app.id != 0:
+                        cur = self._c.conn.execute(
+                            "INSERT INTO pio_apps (id, name, description) VALUES (?,?,?)",
+                            (app.id, app.name, app.description),
+                        )
+                    else:
+                        cur = self._c.conn.execute(
+                            "INSERT INTO pio_apps (name, description) VALUES (?,?)",
+                            (app.name, app.description),
+                        )
+                    return cur.lastrowid
+            except sqlite3.IntegrityError:
+                return None
+
+    def get(self, app_id: int) -> base.App | None:
+        row = self._c.query_one(
+            "SELECT id, name, description FROM pio_apps WHERE id=?", (app_id,)
+        )
+        return base.App(*row) if row else None
+
+    def get_by_name(self, name: str) -> base.App | None:
+        row = self._c.query_one(
+            "SELECT id, name, description FROM pio_apps WHERE name=?", (name,)
+        )
+        return base.App(*row) if row else None
+
+    def get_all(self) -> list[base.App]:
+        rows = self._c.query("SELECT id, name, description FROM pio_apps ORDER BY id")
+        return [base.App(*r) for r in rows]
+
+    def update(self, app: base.App) -> bool:
+        with self._c.lock, self._c.conn:
+            cur = self._c.conn.execute(
+                "UPDATE pio_apps SET name=?, description=? WHERE id=?",
+                (app.name, app.description, app.id),
+            )
+            return cur.rowcount > 0
+
+    def delete(self, app_id: int) -> bool:
+        with self._c.lock, self._c.conn:
+            cur = self._c.conn.execute("DELETE FROM pio_apps WHERE id=?", (app_id,))
+            return cur.rowcount > 0
+
+
+class SQLiteChannels(base.Channels):
+    def __init__(self, client: SQLiteStorageClient):
+        self._c = client
+
+    def insert(self, channel: base.Channel) -> int | None:
+        if not base.Channel.is_valid_name(channel.name):
+            return None
+        with self._c.lock:
+            try:
+                with self._c.conn:
+                    if channel.id != 0:
+                        cur = self._c.conn.execute(
+                            "INSERT INTO pio_channels (id, name, appid) VALUES (?,?,?)",
+                            (channel.id, channel.name, channel.appid),
+                        )
+                    else:
+                        cur = self._c.conn.execute(
+                            "INSERT INTO pio_channels (name, appid) VALUES (?,?)",
+                            (channel.name, channel.appid),
+                        )
+                    return cur.lastrowid
+            except sqlite3.IntegrityError:
+                return None
+
+    def get(self, channel_id: int) -> base.Channel | None:
+        row = self._c.query_one(
+            "SELECT id, name, appid FROM pio_channels WHERE id=?", (channel_id,)
+        )
+        return base.Channel(*row) if row else None
+
+    def get_by_appid(self, appid: int) -> list[base.Channel]:
+        rows = self._c.query(
+            "SELECT id, name, appid FROM pio_channels WHERE appid=?", (appid,)
+        )
+        return [base.Channel(*r) for r in rows]
+
+    def delete(self, channel_id: int) -> bool:
+        with self._c.lock, self._c.conn:
+            cur = self._c.conn.execute(
+                "DELETE FROM pio_channels WHERE id=?", (channel_id,)
+            )
+            return cur.rowcount > 0
 
 
 class SQLiteEngineInstances(base.EngineInstances):
@@ -207,3 +340,276 @@ class SQLiteModels(base.Models):
             )
             return cur.rowcount > 0
 
+
+
+class SQLiteEvents(base.Events):
+    """Per-(app, channel) event tables ``pio_event_<appId>[_<ch>]``
+    (reference JDBCLEvents.scala:37), in the JAX package's schema."""
+
+    def __init__(self, client: SQLiteStorageClient):
+        self._c = client
+
+    @staticmethod
+    def _table(app_id: int, channel_id: int | None) -> str:
+        suffix = f"_{int(channel_id)}" if channel_id is not None else ""
+        return f"pio_event_{int(app_id)}{suffix}"
+
+    def init(self, app_id: int, channel_id: int | None = None) -> bool:
+        t = self._table(app_id, channel_id)
+        with self._c.lock, self._c.conn:
+            self._c.conn.executescript(
+                f"""
+                CREATE TABLE IF NOT EXISTS {t} (
+                  id TEXT PRIMARY KEY,
+                  event TEXT NOT NULL,
+                  entitytype TEXT NOT NULL,
+                  entityid TEXT NOT NULL,
+                  targetentitytype TEXT,
+                  targetentityid TEXT,
+                  properties TEXT,
+                  eventtime REAL NOT NULL,
+                  eventtimezone TEXT,
+                  tags TEXT,
+                  prid TEXT,
+                  creationtime REAL NOT NULL);
+                CREATE INDEX IF NOT EXISTS {t}_time ON {t} (eventtime);
+                CREATE INDEX IF NOT EXISTS {t}_entity ON {t} (entitytype, entityid);
+                """
+            )
+        return True
+
+    def remove(self, app_id: int, channel_id: int | None = None) -> bool:
+        t = self._table(app_id, channel_id)
+        with self._c.lock, self._c.conn:
+            self._c.conn.execute(f"DROP TABLE IF EXISTS {t}")
+        return True
+
+    @staticmethod
+    def _to_row(event: Event, event_id: str) -> tuple:
+        off = event.event_time.utcoffset()
+        return (
+            event_id,
+            event.event,
+            event.entity_type,
+            event.entity_id,
+            event.target_entity_type,
+            event.target_entity_id,
+            event.properties.to_json(),
+            _ts(event.event_time),
+            str(int(off.total_seconds()) if off is not None else 0),
+            json.dumps(list(event.tags)),
+            event.pr_id,
+            _ts(event.creation_time),
+        )
+
+    @staticmethod
+    def _parse(row) -> Event:
+        try:
+            tz = timezone(timedelta(seconds=int(row[8])))
+        except (TypeError, ValueError):
+            tz = timezone.utc
+        return Event(
+            event_id=row[0],
+            event=row[1],
+            entity_type=row[2],
+            entity_id=row[3],
+            target_entity_type=row[4],
+            target_entity_id=row[5],
+            properties=DataMap.from_json(row[6] or "{}"),
+            event_time=_from_ts(row[7]).astimezone(tz),
+            tags=tuple(json.loads(row[9] or "[]")),
+            pr_id=row[10],
+            creation_time=_from_ts(row[11]),
+        )
+
+    def insert(self, event: Event, app_id: int, channel_id: int | None = None) -> str:
+        return self.batch_insert([event], app_id, channel_id)[0]
+
+    def batch_insert(
+        self, events, app_id: int, channel_id: int | None = None
+    ) -> list[str]:
+        """One transaction; the table is created on first insert and an
+        existing event id is replaced."""
+        t = self._table(app_id, channel_id)
+        rows, ids = [], []
+        for event in events:
+            event_id = event.event_id or uuid.uuid4().hex
+            ids.append(event_id)
+            rows.append(self._to_row(event, event_id))
+        sql = f"INSERT OR REPLACE INTO {t} VALUES (?,?,?,?,?,?,?,?,?,?,?,?)"
+        with self._c.lock:
+            try:
+                with self._c.conn:
+                    self._c.conn.executemany(sql, rows)
+            except sqlite3.OperationalError as err:
+                if not _is_missing_table(err):
+                    raise
+                self.init(app_id, channel_id)
+                with self._c.conn:
+                    self._c.conn.executemany(sql, rows)
+        return ids
+
+    def get(
+        self, event_id: str, app_id: int, channel_id: int | None = None
+    ) -> Event | None:
+        t = self._table(app_id, channel_id)
+        try:
+            row = self._c.query_one(f"SELECT * FROM {t} WHERE id=?", (event_id,))
+        except sqlite3.OperationalError as err:
+            if _is_missing_table(err):
+                return None
+            raise
+        return self._parse(row) if row else None
+
+    def delete(
+        self, event_id: str, app_id: int, channel_id: int | None = None
+    ) -> bool:
+        t = self._table(app_id, channel_id)
+        with self._c.lock, self._c.conn:
+            try:
+                cur = self._c.conn.execute(f"DELETE FROM {t} WHERE id=?", (event_id,))
+            except sqlite3.OperationalError as err:
+                if _is_missing_table(err):
+                    return False
+                raise
+            return cur.rowcount > 0
+
+    @staticmethod
+    def _rating_value_col(rating_key: str) -> str:
+        """SELECT expression extracting the numeric rating from the
+        properties JSON with json1. JSON booleans extract as 1/0 in
+        sqlite, but the other backends take a boolean for "no rating"
+        (the event-name default), so only integers and reals count."""
+        if '"' in rating_key:
+            raise ValueError("rating_key must not contain double quotes")
+        path_expr = f"properties, '$.\"{rating_key}\"'"
+        return (
+            f"CASE WHEN json_type({path_expr}) IN ('integer', 'real') "
+            f"THEN json_extract({path_expr}) ELSE NULL END"
+        )
+
+    def scan_ratings(
+        self,
+        app_id: int,
+        channel_id: int | None = None,
+        *,
+        event_names=None,
+        entity_type: str | None = None,
+        target_entity_type: str | None = None,
+        rating_key: str | None = "rating",
+        default_ratings: dict[str, float] | None = None,
+        override_ratings: dict[str, float] | None = None,
+    ) -> base.RatingsBatch:
+        """Columnar read: a 4-column SQL projection with json1 extracting
+        the rating; Python only dense-indexes ids, in fetchmany batches,
+        with no Event objects (reference JDBCPEvents.scala:91)."""
+        t = self._table(app_id, channel_id)
+        clauses, params = ["targetentityid IS NOT NULL"], []
+        if entity_type is not None:
+            clauses.append("entitytype = ?")
+            params.append(entity_type)
+        if target_entity_type is not None:
+            clauses.append("targetentitytype = ?")
+            params.append(target_entity_type)
+        if event_names is not None:
+            event_names = list(event_names)
+            if not event_names:
+                return base.RatingsBatch.empty()
+            clauses.append("event IN (" + ",".join("?" * len(event_names)) + ")")
+            params.extend(event_names)
+        value_col = "NULL" if rating_key is None else self._rating_value_col(rating_key)
+        sql = (
+            f"SELECT entityid, targetentityid, event, {value_col} "
+            f"FROM {t} WHERE " + " AND ".join(clauses)
+        )
+        user_map: dict[str, int] = {}
+        item_map: dict[str, int] = {}
+        rows: list[int] = []
+        cols: list[int] = []
+        vals: list[float] = []
+        defaults = default_ratings or {}
+        forced = override_ratings or {}
+        with self._c.lock:
+            try:
+                cur = self._c.conn.execute(sql, params)
+            except sqlite3.OperationalError as err:
+                if not _is_missing_table(err):
+                    raise
+                cur = None
+            while cur is not None:
+                batch = cur.fetchmany(65536)
+                if not batch:
+                    break
+                for u, it, ev, v in batch:
+                    fv = forced.get(ev)
+                    if fv is not None:
+                        v = fv
+                    elif not isinstance(v, (int, float)) or isinstance(v, bool):
+                        v = defaults.get(ev)
+                        if v is None:
+                            continue
+                    rows.append(user_map.setdefault(u, len(user_map)))
+                    cols.append(item_map.setdefault(it, len(item_map)))
+                    vals.append(float(v))
+        return base.RatingsBatch(
+            entity_ids=list(user_map),
+            target_ids=list(item_map),
+            rows=np.asarray(rows, dtype=np.int32),
+            cols=np.asarray(cols, dtype=np.int32),
+            vals=np.asarray(vals, dtype=np.float32),
+        )
+
+    def find(
+        self,
+        app_id: int,
+        channel_id: int | None = None,
+        start_time: datetime | None = None,
+        until_time: datetime | None = None,
+        entity_type: str | None = None,
+        entity_id: str | None = None,
+        event_names: Sequence[str] | None = None,
+        target_entity_type=...,
+        target_entity_id=...,
+        limit: int | None = None,
+        reversed_order: bool = False,
+    ) -> list[Event]:
+        t = self._table(app_id, channel_id)
+        clauses, params = [], []
+        if start_time is not None:
+            clauses.append("eventtime >= ?")
+            params.append(_ts(start_time))
+        if until_time is not None:
+            clauses.append("eventtime < ?")
+            params.append(_ts(until_time))
+        if entity_type is not None:
+            clauses.append("entitytype = ?")
+            params.append(entity_type)
+        if entity_id is not None:
+            clauses.append("entityid = ?")
+            params.append(entity_id)
+        if event_names is not None:
+            if not event_names:
+                return []  # an empty name filter matches nothing
+            clauses.append("event IN (" + ",".join("?" * len(event_names)) + ")")
+            params.extend(event_names)
+        for col, want in (("targetentitytype", target_entity_type),
+                          ("targetentityid", target_entity_id)):
+            if want is ...:
+                continue
+            if want is None:
+                clauses.append(f"{col} IS NULL")
+            else:
+                clauses.append(f"{col} = ?")
+                params.append(want)
+        where = (" WHERE " + " AND ".join(clauses)) if clauses else ""
+        order = "DESC" if reversed_order else "ASC"
+        sql = f"SELECT * FROM {t}{where} ORDER BY eventtime {order}"
+        if limit is not None and limit >= 0:
+            sql += f" LIMIT {int(limit)}"
+        try:
+            rows = self._c.query(sql, params)
+        except sqlite3.OperationalError as err:
+            if _is_missing_table(err):
+                return []
+            raise
+        return [self._parse(r) for r in rows]

@@ -1,0 +1,99 @@
+"""Engine-facing event store facade: app-name-based reads.
+
+Port of ``predictionio_tpu/data/store.py`` (:27-154; reference
+store/PEventStore.scala:35-121, Common.scala:24-53): (appName,
+channelName) resolve to ids through the metadata store, then the event
+DAO answers. Templates read events through this module only.
+"""
+
+from __future__ import annotations
+
+from datetime import datetime
+from typing import Sequence
+
+from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.data.storage import RatingsBatch, Storage, get_storage
+
+
+class EventStoreError(RuntimeError):
+    pass
+
+
+def app_name_to_id(
+    app_name: str, channel_name: str | None = None, storage: Storage | None = None
+) -> tuple[int, int | None]:
+    """Resolve (appName, channelName) -> (appId, channelId)."""
+    storage = storage or get_storage()
+    app = storage.get_metadata_apps().get_by_name(app_name)
+    if app is None:
+        raise EventStoreError(
+            f"Invalid app name {app_name}. Please use valid app name."
+        )
+    if channel_name is None:
+        return app.id, None
+    for ch in storage.get_metadata_channels().get_by_appid(app.id):
+        if ch.name == channel_name:
+            return app.id, ch.id
+    raise EventStoreError(
+        f"Invalid channel name {channel_name} for app {app_name}."
+    )
+
+
+def find(
+    app_name: str,
+    channel_name: str | None = None,
+    start_time: datetime | None = None,
+    until_time: datetime | None = None,
+    entity_type: str | None = None,
+    entity_id: str | None = None,
+    event_names: Sequence[str] | None = None,
+    target_entity_type=...,
+    target_entity_id=...,
+    limit: int | None = None,
+    reversed_order: bool = False,
+    storage: Storage | None = None,
+) -> list[Event]:
+    """Query events by app name (PEventStore.find / LEventStore.find)."""
+    storage = storage or get_storage()
+    app_id, channel_id = app_name_to_id(app_name, channel_name, storage)
+    return storage.get_events().find(
+        app_id=app_id,
+        channel_id=channel_id,
+        start_time=start_time,
+        until_time=until_time,
+        entity_type=entity_type,
+        entity_id=entity_id,
+        event_names=event_names,
+        target_entity_type=target_entity_type,
+        target_entity_id=target_entity_id,
+        limit=limit,
+        reversed_order=reversed_order,
+    )
+
+
+def find_ratings(
+    app_name: str,
+    channel_name: str | None = None,
+    event_names: Sequence[str] | None = None,
+    entity_type: str | None = None,
+    target_entity_type: str | None = None,
+    rating_key: str | None = "rating",
+    default_ratings: dict[str, float] | None = None,
+    override_ratings: dict[str, float] | None = None,
+    storage: Storage | None = None,
+) -> RatingsBatch:
+    """Columnar bulk training read: dense-indexed (rows, cols, vals)
+    arrays plus the id lists, with no per-event Python objects on the
+    columnar backends (see ``Events.scan_ratings``)."""
+    storage = storage or get_storage()
+    app_id, channel_id = app_name_to_id(app_name, channel_name, storage)
+    return storage.get_events().scan_ratings(
+        app_id,
+        channel_id,
+        event_names=event_names,
+        entity_type=entity_type,
+        target_entity_type=target_entity_type,
+        rating_key=rating_key,
+        default_ratings=default_ratings,
+        override_ratings=override_ratings,
+    )

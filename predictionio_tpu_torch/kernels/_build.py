@@ -34,6 +34,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_name_locks: dict[str, threading.Lock] = {}
 #: per kernel source: {"seconds": build wall time, "log": nvcc's output}
 build_info: dict[str, dict] = {}
 
@@ -94,21 +95,50 @@ def _compile(src: Path, out: Path) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library for ``csrc/<name>.cu``, built on first use.
+    Different sources build concurrently (one lock per source)."""
     with _lock:
         lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
+        with _lock:
+            lib = _libs.get(name)
         if lib is not None:
             return lib
         src = CSRC / f"{name}.cu"
         digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
         out = BUILD_DIR / f"lib{name}-{digest}.so"
         if out.exists():
-            build_info[name] = {"seconds": 0.0, "log": "", "cached": True}
+            info = {"seconds": 0.0, "log": "", "cached": True}
         else:
-            build_info[name] = _compile(src, out)
+            info = _compile(src, out)
         lib = ctypes.CDLL(str(out))
-        _libs[name] = lib
+        with _lock:
+            build_info[name] = info
+            _libs[name] = lib
         return lib
+
+
+def load_all(names) -> None:
+    """Build and load several kernel sources at once: one ``nvcc`` per
+    source, all started together. Raises the first build error."""
+    errors: list[BaseException] = []
+
+    def one(name: str) -> None:
+        try:
+            load(name)
+        except BaseException as e:  # re-raised below, in the caller
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(n,)) for n in names]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
 
 
 def check(err: int, what: str) -> None:

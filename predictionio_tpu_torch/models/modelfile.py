@@ -18,8 +18,10 @@ Differences that keep the port apart from the JAX package:
   (``predictionio_tpu.models.recommendation.ALSModel`` when the JAX
   package wrote it). Names are resolved through a fixed table to the
   port's classes, or taken as they are when they already name a
-  ``predictionio_tpu_torch`` class; anything else is refused. The port
-  writes its own qualified names.
+  ``predictionio_tpu_torch`` class; anything else is refused. For a class
+  in that table the port writes the JAX package's name, so a model the
+  port trained deploys on either package (the fields are the same); any
+  other class is recorded by its own qualified name.
 - bfloat16. numpy has no bfloat16 of its own, and the port does not
   depend on ``ml_dtypes``. A bfloat16 block decodes to
   :data:`BFLOAT16`, a structured dtype over one little-endian uint16
@@ -65,6 +67,10 @@ _PORT = "predictionio_tpu_torch"
 _PORTED_CLASSES = {
     "predictionio_tpu.models.recommendation.ALSModel":
         (f"{_PORT}.models.recommendation", "ALSModel"),
+}
+# and back: the name the port records for each of those classes
+_RECORDED_NAMES = {
+    port: jax_name.rsplit(".", 1) for jax_name, port in _PORTED_CLASSES.items()
 }
 
 
@@ -254,7 +260,10 @@ def serialize(entries: list[tuple[str, Any]], model_id: str) -> bytes:
                     fields[f.name] = {"t": "json", "v": v}
             header_entries.append({
                 "kind": "arrays",
-                "cls": [cls.__module__, cls.__qualname__],
+                "cls": list(_RECORDED_NAMES.get(
+                    (cls.__module__, cls.__qualname__),
+                    (cls.__module__, cls.__qualname__),
+                )),
                 "fields": fields,
             })
         elif kind == "persistent":

@@ -1,26 +1,35 @@
-"""Recommendation engine template (explicit-feedback ALS): serving half.
+"""Recommendation engine template: explicit-feedback ALS.
 
-Port of ``predictionio_tpu/models/recommendation.py`` for deploy: the
-query and result shapes, the params, the ALS model, and scoring through
-K2, the fused gather -> score -> top-k (``ops/topk.py``, kernel
-``csrc/topk.cu``).
+Port of ``predictionio_tpu/models/recommendation.py`` (reference
+``examples/scala-parallel-recommendation/custom-prepartor``):
+
+- the DataSource reads ``rate`` and ``buy`` events from the event store,
+  ``buy`` forced to ``buy_rating`` (DataSource.scala:35-60);
+- ALSAlgorithm trains ALS at the configured rank/iterations/lambda
+  (``ops/als.py`` ``als_train``, one K1 launch per bucket, kernel
+  ``csrc/als_solve.cu``) on the algorithm's device, optionally warm
+  started from the previous instance's model;
+- predict scores through K2, the fused gather -> score -> top-k
+  (``ops/topk.py``, kernel ``csrc/topk.cu``).
 
 Queries/results use the reference template's JSON shape:
 ``{"user": "1", "num": 4}`` -> ``{"itemScores": [{"item": ..., "score": ...}]}``.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-answered another way: training (``ALSAlgorithm.train``,
-``read_training``; the next slice), ``sharded_serving=True`` (ring
-top-k over several cards), and catalogs large enough for two-stage
-retrieval (``PIO_RETRIEVAL_THRESHOLD`` rows and up, same knobs and
-defaults as the JAX package).
+answered another way: ``sharded_train`` / ``sharded_serving`` (several
+cards), catalogs large enough for two-stage retrieval
+(``PIO_RETRIEVAL_THRESHOLD`` rows and up, same knobs and defaults as the
+JAX package), ``read_eval`` and ``train_sweep`` (evaluation), and the
+packed-prep cache (``TrainingData.prep`` stays None).
 """
 
 from __future__ import annotations
 
+import logging
 import math
 import os
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Sequence
 
@@ -34,15 +43,21 @@ from predictionio_tpu_torch.core import (
     FirstServing,
     Params,
     Preparator,
+    SanityCheck,
     WorkflowContext,
 )
+from predictionio_tpu_torch.data import store
 from predictionio_tpu_torch.data.bimap import BiMap
-from predictionio_tpu_torch.models.modelfile import host_array, numpy_to_tensor
+from predictionio_tpu_torch.models.modelfile import (
+    BFLOAT16,
+    host_array,
+    numpy_to_tensor,
+)
 from predictionio_tpu_torch.ops import als as als_ops
 from predictionio_tpu_torch.ops.topk import gather_top_k_batch
 from predictionio_tpu_torch.utils.device import resolve_device
 
-_TRAINING = "training is the next slice of the PyTorch port"
+logger = logging.getLogger(__name__)
 
 
 # -- query / result wire shapes --------------------------------------------
@@ -77,11 +92,57 @@ class DataSourceParams(Params):
     eval_seed: int = 42
 
 
+@dataclass
+class TrainingData(SanityCheck):
+    """Columnar ratings: dense-indexed COO triples plus id lists.
+    ``user_ids[rows[i]]`` rated ``item_ids[cols[i]]`` with ``ratings[i]``.
+    ``prep`` is the JAX package's packed-prep cache handle; the port has
+    no prep cache yet, so it is always None here."""
+
+    user_ids: list[str] = field(default_factory=list)
+    item_ids: list[str] = field(default_factory=list)
+    rows: np.ndarray = field(default_factory=lambda: np.empty(0, np.int32))
+    cols: np.ndarray = field(default_factory=lambda: np.empty(0, np.int32))
+    ratings: np.ndarray = field(default_factory=lambda: np.empty(0, np.float32))
+    prep: object = field(default=None, repr=False, compare=False)
+
+    def sanity_check(self) -> None:
+        if len(self.ratings) == 0:
+            raise ValueError(
+                "TrainingData has no ratings; check event store contents "
+                "and the datasource appName"
+            )
+
+
 class RecommendationDataSource(DataSource):
     params_class = DataSourceParams
 
-    def read_training(self, ctx: WorkflowContext):
-        raise NotImplementedError(_TRAINING)
+    def read_training(self, ctx: WorkflowContext) -> TrainingData:
+        # buy is FORCED to buy_rating, beating any rating property (the
+        # reference ignores properties for buy events, DataSource.scala:55)
+        t0 = time.perf_counter()
+        batch = store.find_ratings(
+            app_name=self.params.app_name,
+            entity_type="user",
+            event_names=list(self.params.event_names),
+            target_entity_type="item",
+            rating_key="rating",
+            override_ratings={"buy": self.params.buy_rating},
+        )
+        logger.info("read_training: %d rating rows in %.3fs",
+                    len(batch.vals), time.perf_counter() - t0)
+        return TrainingData(
+            user_ids=batch.entity_ids,
+            item_ids=batch.target_ids,
+            rows=batch.rows,
+            cols=batch.cols,
+            ratings=batch.vals,
+        )
+
+    def read_eval(self, ctx: WorkflowContext):
+        raise NotImplementedError(
+            "read_eval (k-fold evaluation) is a later slice of the PyTorch port"
+        )
 
 
 class RecommendationPreparator(Preparator):
@@ -187,8 +248,126 @@ class ALSAlgorithm(Algorithm):
     params_class = ALSAlgorithmParams
     query_class = Query
 
-    def train(self, ctx: WorkflowContext, td) -> ALSModel:
-        raise NotImplementedError(_TRAINING)
+    def train(self, ctx: WorkflowContext, td: TrainingData) -> ALSModel:
+        if len(td.ratings) == 0:
+            raise ValueError("cannot train ALS on zero ratings")
+        if self.params.sharded_train:
+            raise NotImplementedError(
+                "sharded_train (factors sharded over several cards) is the "
+                "multi-GPU slice of the PyTorch port"
+            )
+        device = resolve_device(
+            self.device if self.device is not None
+            else (ctx.device if ctx is not None else None)
+        )
+        # ids arrive dense-indexed from the columnar read; the BiMap is a
+        # view over the id lists
+        user_index = BiMap.from_dense(td.user_ids)
+        item_index = BiMap.from_dense(td.item_ids)
+        rows, cols = td.rows, td.cols
+        vals = np.asarray(td.ratings, dtype=np.float32)
+        data = als_ops.build_ratings_data(
+            rows, cols, vals, len(user_index), len(item_index),
+            bucket_widths=tuple(self.params.bucket_widths),
+        )
+        params = als_ops.ALSParams(
+            rank=self.params.rank,
+            iterations=self.params.num_iterations,
+            reg=self.params.lambda_,
+            seed=self.params.seed,
+            compute_dtype=self.params.compute_dtype,
+            storage_dtype=self.params.storage_dtype,
+            **als_ops.sharded_budget_kwarg(self.params.sharded_gather_budget_bytes),
+        )
+        warm = self._resolve_warm_start(ctx, td)
+        try:
+            tol = float(os.environ.get("PIO_TOL", "") or (
+                ctx.runtime_conf.get("tol", 0.0) if ctx is not None else 0.0
+            ) or 0.0)
+        except ValueError:
+            tol = 0.0
+        U, V = als_ops.als_train(data, params, warm_start=warm, tol=tol, device=device)
+        logger.info(
+            "ALS trained: %d users x %d items, rank %d, train RMSE %.4f",
+            len(user_index), len(item_index), self.params.rank,
+            als_ops.rmse(U, V, rows, cols, vals),
+        )
+        uf, us = als_ops.host_factors(U)
+        vf, vs = als_ops.host_factors(V)
+        return ALSModel(
+            user_index=user_index,
+            item_index=item_index,
+            user_factors=uf,
+            item_factors=vf,
+            user_scales=us,
+            item_scales=vs,
+        )
+
+    def train_sweep(self, ctx: WorkflowContext, td: TrainingData, params_list):
+        raise NotImplementedError(
+            "train_sweep (stacked evaluation candidates, als_train_sweep) is "
+            "a later slice of the PyTorch port"
+        )
+
+    def _resolve_warm_start(self, ctx, td: TrainingData):
+        """Previous model -> iteration-0 factor carry, or None for cold.
+
+        The model arrives via ``ctx.runtime_conf["warm_start_model"]``
+        (core/workflow.py resolves ``--warm-start`` to the latest
+        COMPLETED instance's model, which either package may have
+        trained). An incompatible model -- another type, rank or storage
+        dtype -- falls back to a cold start with a named warning. Rows
+        are re-aligned id by id; entities the previous model lacks keep
+        NaN, which the trainer replaces with the cold draw."""
+        prev = ctx.runtime_conf.get("warm_start_model") if ctx is not None else None
+        if prev is None:
+            return None
+        if not isinstance(prev, ALSModel):
+            logger.warning(
+                "warm-start: previous model is %s, not ALSModel; cold start",
+                type(prev).__name__,
+            )
+            return None
+        prev_rank = int(prev.user_factors.shape[1])
+        if prev_rank != int(self.params.rank):
+            logger.warning(
+                "warm-start: rank mismatch (previous model %d, params %d); "
+                "cold start", prev_rank, self.params.rank,
+            )
+            return None
+        prev_dtype = (
+            "int8" if prev.user_scales is not None
+            else "bfloat16" if prev.user_factors.dtype == BFLOAT16
+            else str(prev.user_factors.dtype)
+        )
+        if prev_dtype != self.params.storage_dtype:
+            logger.warning(
+                "warm-start: storage dtype mismatch (previous model %s, "
+                "params %s); cold start", prev_dtype, self.params.storage_dtype,
+            )
+            return None
+
+        def rows_f32(values, scales, ixs):
+            x = numpy_to_tensor(values[ixs], torch.device("cpu")).float().numpy()
+            return x * scales[ixs][:, None] if scales is not None else x
+
+        def align(ids, index, values, scales):
+            out = np.full((len(ids), prev_rank), np.nan, np.float32)
+            ix = np.fromiter((index.get(i, -1) for i in ids), np.int64, len(ids))
+            m = ix >= 0
+            if m.any():
+                out[np.flatnonzero(m)] = rows_f32(values, scales, ix[m])
+            return out
+
+        U0 = align(td.user_ids, prev.user_index, prev.user_factors, prev.user_scales)
+        V0 = align(td.item_ids, prev.item_index, prev.item_factors, prev.item_scales)
+        logger.info(
+            "warm-start: carrying %d/%d user and %d/%d item factor rows "
+            "from previous model",
+            int(np.isfinite(U0[:, 0]).sum()), len(td.user_ids),
+            int(np.isfinite(V0[:, 0]).sum()), len(td.item_ids),
+        )
+        return U0, V0
 
     def warmup_query(self, model: ALSModel) -> Query | None:
         """A known user, so the warmup takes the device path."""

@@ -1,31 +1,287 @@
-"""ALS factor tables: int8 storage and the table helpers serving needs.
+"""Alternating Least Squares on PyTorch + CUDA: explicit feedback.
 
-The serving subset of ``predictionio_tpu/ops/als.py:591-645``. A factor
-table is either a dense ``[N, D]`` tensor (float32 or bfloat16) or, for
-``storage_dtype="int8"``, the pair ``(values int8 [N, D], scales
-float32 [N])`` with ``row_f32 = values * scales[:, None]`` -- per-row
-max-abs/127 symmetric quantization. The arithmetic is the JAX package's,
-operation for operation, so both packages quantize to the same bytes.
+Port of ``predictionio_tpu/ops/als.py`` (single card, explicit ALS):
 
-Training (bucket layout, solves, ``als_train``) is the next slice.
+- host layout: ratings -> degree-bucketed padded neighbour lists
+  (:func:`build_padded_buckets`, :func:`build_ratings_data`), numpy code
+  copied operation for operation, so both packages build the same bytes;
+- factor tables: dense ``[N, D]`` float32/bfloat16 tensors or, for
+  ``storage_dtype="int8"``, the pair ``(values int8 [N, D], scales
+  float32 [N])`` with ``row = values * scale`` (per-row max-abs/127);
+- K1, the fused bucket solve (:func:`solve_bucket`): gather the
+  opposite factor rows a bucket names, accumulate ``A = sum w v v^T``
+  and ``b = sum r v`` in float32, add a hot row's segments, regularize,
+  Cholesky-solve, and write the solved rows back into the storage table.
+  On CUDA tensors it launches the hand-written kernel
+  ``csrc/als_solve.cu``; on CPU tensors it runs the plain PyTorch version
+  beside it (:func:`solve_bucket_reference` + :func:`_scatter_rows`).
+  There is no fallback from one to the other;
+- :func:`als_train`: iterations -> half-steps -> one K1 launch per
+  bucket, with the bucket arrays uploaded once and the factor tables
+  updated in place.
+
+The random init cannot reproduce ``jax.random``'s bits: parity runs feed
+both packages the same initial factors through ``warm_start``.
+The implicit solve, ``compute_gram``, the parameter sweep, the prep
+cache's ``splice_padded_buckets`` and checkpointing are later slices.
 """
 
 from __future__ import annotations
 
+import ctypes
+import logging
+import os
+import time
+from dataclasses import dataclass, field
+from typing import Sequence
+
 import numpy as np
 import torch
 
+from predictionio_tpu_torch.kernels import _build
 from predictionio_tpu_torch.models.modelfile import tensor_to_numpy
+from predictionio_tpu_torch.utils.device import resolve_device
+
+logger = logging.getLogger(__name__)
 
 # ops/als.py DEFAULT_BUCKETS: the template's ``bucket_widths`` default
 DEFAULT_BUCKETS = (8, 32, 128, 512, 2048)
+#: the largest rank K1 solves (ranks 10-128 are in use)
+MAX_RANK = 128
+
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_STORAGE_DTYPES = ("float32", "bfloat16", "int8")
+
+
+# ---------------------------------------------------------------------------
+# Host-side layout: COO ratings -> degree-bucketed padded neighbour lists
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class PaddedBucket:
+    """One degree bucket of padded per-row neighbour lists (static shapes).
+
+    When ``seg_row`` is None each table row solves one matrix row
+    (``B == len(row_ids)``). Otherwise the bucket is **segmented**: rows
+    whose degree exceeds the bucket width are split across several
+    consecutive table rows, ``seg_row[i]`` maps table row i to its index
+    in ``row_ids``, and the solve sums the segments' normal equations
+    before solving -- hot rows train on all their ratings."""
+
+    row_ids: np.ndarray  # [R] int32 -- which row (user/item) each entry solves
+    col_ids: np.ndarray  # [B, K] int32 -- rated column indices, 0-padded
+    ratings: np.ndarray  # [B, K] float32 -- rating values, 0-padded
+    mask: np.ndarray  # [B, K] float32 -- 1 for real entries, 0 for padding
+    seg_row: np.ndarray | None = None  # [B] int32 into row_ids, or None
+
+    @property
+    def width(self) -> int:
+        return self.col_ids.shape[1]
+
+
+@dataclass
+class RatingsData:
+    """COO ratings plus both row-major layouts, ready for ALS."""
+
+    rows: np.ndarray  # [N] int32 user indices
+    cols: np.ndarray  # [N] int32 item indices
+    vals: np.ndarray  # [N] float32 ratings
+    num_rows: int
+    num_cols: int
+    row_buckets: list[PaddedBucket] = field(default_factory=list)
+    col_buckets: list[PaddedBucket] = field(default_factory=list)
+
+
+def build_padded_buckets(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    bucket_widths: Sequence[int] = DEFAULT_BUCKETS,
+    segment: bool = True,
+) -> list[PaddedBucket]:
+    """Group rows by degree into padded buckets.
+
+    Rows whose degree exceeds the largest width are segmented across
+    several table rows of the largest bucket (exact training).
+    ``segment=False`` is the opt-in lossy cap: such rows keep their
+    ``width`` highest-|rating| entries. Buckets are ordered by width,
+    rows by id."""
+    if len(rows) == 0:
+        return []
+    order = np.argsort(rows, kind="stable")
+    rows_s, cols_s, vals_s = rows[order], cols[order], vals[order]
+    uniq, starts, counts = np.unique(rows_s, return_index=True, return_counts=True)
+    # within-row rank of every entry (entry index - row start)
+    rank = np.arange(len(rows_s)) - np.repeat(starts, counts)
+    inv = np.repeat(np.arange(len(uniq)), counts)  # entry -> uniq row index
+
+    max_width = int(max(bucket_widths))
+    n_over = int((counts > max_width).sum())
+    if n_over and not segment:
+        logger.warning(
+            "ALS bucketing: %d rows exceed max degree %d; keeping the "
+            "%d highest-|rating| entries for those rows (segment=False)",
+            n_over, max_width, max_width,
+        )
+        # per-row descending-|rating| order: sort by (row, -|val|), then
+        # recompute ranks; entries ranked past the width are dropped
+        order2 = np.lexsort((-np.abs(vals_s), rows_s))
+        rows_s, cols_s, vals_s = rows_s[order2], cols_s[order2], vals_s[order2]
+        rank = np.arange(len(rows_s)) - np.repeat(starts, counts)
+        inv = np.repeat(np.arange(len(uniq)), counts)
+        keep = rank < max_width
+        rows_s, cols_s, vals_s = rows_s[keep], cols_s[keep], vals_s[keep]
+        rank, inv = rank[keep], inv[keep]
+        counts = np.minimum(counts, max_width)
+
+    buckets: list[PaddedBucket] = []
+    widths = sorted(set(int(w) for w in bucket_widths))
+    for wi, width in enumerate(widths):
+        lo = widths[wi - 1] if wi > 0 else 0
+        last = wi == len(widths) - 1
+        sel = (counts > lo) if last else (counts > lo) & (counts <= width)
+        idx = np.nonzero(sel)[0]
+        if len(idx) == 0:
+            continue
+        buckets.append(
+            _fill_bucket_class(width, last, counts, uniq, idx, rank, inv, cols_s, vals_s)
+        )
+    return buckets
+
+
+def _fill_bucket_class(
+    width: int,
+    last: bool,
+    counts: np.ndarray,
+    uniq: np.ndarray,
+    idx: np.ndarray,
+    rank: np.ndarray,
+    inv: np.ndarray,
+    cols_s: np.ndarray,
+    vals_s: np.ndarray,
+) -> PaddedBucket:
+    """Materialize one width class from row-sorted entry arrays.
+
+    ``counts``/``uniq`` describe the distinct rows of the entry set;
+    ``idx`` selects this class's rows within ``uniq``; ``rank`` is each
+    entry's within-row rank and ``inv`` its ``uniq`` index; ``cols_s``/
+    ``vals_s`` are the entries sorted stably by row. A hot row's
+    segments take consecutive table rows, so ``seg_row`` never
+    decreases -- what lets K1 give one block to each solved row."""
+    R = len(idx)
+    # per selected row: number of width-sized segments (1 unless hot)
+    nseg = (
+        np.maximum(1, -(-counts[idx] // width)) if last else np.ones(R, np.int64)
+    )
+    seg_base = np.concatenate([[0], np.cumsum(nseg)])
+    B = int(seg_base[-1])
+
+    # entry -> (segment table row, within-segment position)
+    rowpos = np.full(len(uniq), -1, np.int64)
+    rowpos[idx] = np.arange(R)
+    pos = rowpos[inv]
+    m = pos >= 0
+    seg_of_entry = seg_base[pos[m]] + rank[m] // width
+    within = rank[m] % width
+
+    col_ids = np.zeros((B, width), dtype=np.int32)
+    ratings = np.zeros((B, width), dtype=np.float32)
+    mask = np.zeros((B, width), dtype=np.float32)
+    col_ids[seg_of_entry, within] = cols_s[m]
+    ratings[seg_of_entry, within] = vals_s[m]
+    mask[seg_of_entry, within] = 1.0
+
+    seg_row = None
+    if last and B > R:
+        seg_row = np.repeat(np.arange(R, dtype=np.int32), nseg)
+    return PaddedBucket(
+        row_ids=uniq[idx].astype(np.int32),
+        col_ids=col_ids,
+        ratings=ratings,
+        mask=mask,
+        seg_row=seg_row,
+    )
+
+
+def build_ratings_data(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    num_rows: int | None = None,
+    num_cols: int | None = None,
+    bucket_widths: Sequence[int] = DEFAULT_BUCKETS,
+    segment: bool = True,
+) -> RatingsData:
+    rows = np.asarray(rows, dtype=np.int32)
+    cols = np.asarray(cols, dtype=np.int32)
+    vals = np.asarray(vals, dtype=np.float32)
+    num_rows = int(num_rows if num_rows is not None else rows.max() + 1)
+    num_cols = int(num_cols if num_cols is not None else cols.max() + 1)
+    return RatingsData(
+        rows=rows,
+        cols=cols,
+        vals=vals,
+        num_rows=num_rows,
+        num_cols=num_cols,
+        row_buckets=build_padded_buckets(rows, cols, vals, bucket_widths, segment),
+        col_buckets=build_padded_buckets(cols, rows, vals, bucket_widths, segment),
+    )
+
+
+def segment_offsets(seg_row, num_solved_rows: int, num_table_rows: int) -> np.ndarray:
+    """``[R + 1]`` int32 offsets: solved row r sums table rows
+    ``[off[r], off[r + 1])``. ``seg_row=None`` means one table row per
+    solved row. Raises ValueError unless the segments of each solved row
+    are consecutive table rows (``seg_row`` never decreases) -- the
+    layout :func:`_fill_bucket_class` builds and K1 relies on."""
+    R = int(num_solved_rows)
+    if seg_row is None:
+        if num_table_rows != R:
+            raise ValueError(
+                f"an unsegmented bucket solves each of its {num_table_rows} "
+                f"table rows, not {R}"
+            )
+        return np.arange(R + 1, dtype=np.int32)
+    seg = np.asarray(seg_row, dtype=np.int64).reshape(-1)
+    if seg.shape[0] != num_table_rows:
+        raise ValueError(f"seg_row has {seg.shape[0]} entries for {num_table_rows} table rows")
+    if seg.size and (seg.min() < 0 or seg.max() >= R):
+        raise ValueError(f"seg_row out of range [0, {R})")
+    if np.any(np.diff(seg) < 0):
+        raise ValueError(
+            "seg_row decreases: K1 sums the segments of a solved row from "
+            "consecutive table rows"
+        )
+    counts = np.bincount(seg, minlength=R)
+    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+
+def seg_rows(seg_start: torch.Tensor, num_table_rows: int) -> torch.Tensor | None:
+    """The inverse of :func:`segment_offsets`: int64 ``seg_row [B]`` on
+    the offsets' device, or None when every solved row is one table row."""
+    R = seg_start.shape[0] - 1
+    counts = (seg_start[1:] - seg_start[:-1]).to(torch.int64)
+    if num_table_rows == R and bool((counts == 1).all()):
+        return None
+    return torch.repeat_interleave(torch.arange(R, device=seg_start.device), counts)
+
+
+# ---------------------------------------------------------------------------
+# Factor tables: dense or the int8 (values, per-row scales) pair
+# ---------------------------------------------------------------------------
 
 
 def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """f32 factors ``[..., N, D]`` -> ``(int8 [..., N, D], f32 [..., N])``
-    per-row scales. All-zero rows get scale 1 (quantize to exact zeros)."""
+    per-row scales. All-zero rows get scale 1 (quantize to exact zeros).
+    ``torch.round`` rounds half to even, as ``jnp.round`` does. Both
+    divisions are true divisions: PyTorch's CUDA ``div`` by a Python
+    scalar multiplies by its reciprocal, which rounds differently, so the
+    127 is a tensor here."""
     x = x.to(torch.float32)
-    scale = x.abs().amax(dim=-1) / 127.0
+    m = x.abs().amax(dim=-1)
+    scale = m / torch.full_like(m, 127.0)
     scale = torch.where(scale > 0, scale, torch.ones_like(scale))
     q = torch.round(x / scale[..., None]).to(torch.int8)
     return q, scale
@@ -33,8 +289,25 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def dequantize_rows(q: torch.Tensor, scale: torch.Tensor,
                     dt: torch.dtype = torch.float32) -> torch.Tensor:
-    """Inverse of :func:`quantize_rows` in dtype ``dt``."""
+    """Inverse of :func:`quantize_rows` in dtype ``dt`` (the product is
+    taken in ``dt``, as the JAX package takes it)."""
     return q.to(dt) * scale[..., None].to(dt)
+
+
+def to_storage(x: torch.Tensor, storage_dtype: str):
+    """f32 factors -> their storage representation (tensor or int8 pair)."""
+    if storage_dtype == "int8":
+        return quantize_rows(x)
+    if storage_dtype not in _STORAGE_DTYPES:
+        raise ValueError(f"storage_dtype must be one of {_STORAGE_DTYPES}")
+    return x.to(getattr(torch, storage_dtype))
+
+
+def dense_factors(table, dt: torch.dtype = torch.float32) -> torch.Tensor:
+    """A whole factor table as a dense tensor of dtype ``dt``."""
+    if isinstance(table, tuple):
+        return dequantize_rows(table[0], table[1], dt)
+    return table.to(dt)
 
 
 def host_factors(table) -> tuple[np.ndarray, np.ndarray | None]:
@@ -55,3 +328,485 @@ def table_rows(table) -> int:
 def table_dim(table) -> int:
     """Factor dimension (rank) of a table in either representation."""
     return (table[0] if isinstance(table, tuple) else table).shape[1]
+
+
+def slice_rows(table, n: int):
+    """First ``n`` rows of a factor table, preserving representation."""
+    if isinstance(table, tuple):
+        return (table[0][:n], table[1][:n])
+    return table[:n]
+
+
+def _read_rows(table, ids: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """Gather ``table[ids]`` as dtype ``dt``, dequantizing int8 tables in
+    ``dt`` after the gather."""
+    if isinstance(table, tuple):
+        q, s = table
+        return dequantize_rows(q[ids], s[ids], dt)
+    return table[ids].to(dt)
+
+
+def _scatter_rows(target, row_ids: torch.Tensor, x: torch.Tensor) -> None:
+    """Write freshly solved f32 rows ``x`` into the storage-format table,
+    requantizing for int8 storage -- K1's write-back, in plain PyTorch.
+    In place (the JAX package returns new arrays): the solve of one
+    half-step reads the other table only."""
+    ids = row_ids.to(torch.int64)
+    if isinstance(target, tuple):
+        tq, ts = target
+        q, s = quantize_rows(x)
+        tq.index_copy_(0, ids, q)
+        ts.index_copy_(0, ids, s)
+        return
+    target.index_copy_(0, ids, x.to(target.dtype))
+
+
+# ---------------------------------------------------------------------------
+# K1: the fused bucket solve -- plain version and kernel wrapper
+# ---------------------------------------------------------------------------
+
+
+def _bucket_weights(ratings: torch.Tensor, mask: torch.Tensor, dt: torch.dtype):
+    """Per-entry Gramian weight ``w = mask`` and rhs weight ``r = rating *
+    mask``, each rounded to the compute dtype (explicit feedback)."""
+    return mask.to(dt), (ratings * mask).to(dt)
+
+
+def solve_bucket_reference(
+    other,
+    col_ids: torch.Tensor,
+    ratings: torch.Tensor,
+    mask: torch.Tensor,
+    reg: float,
+    seg_row: torch.Tensor | None = None,
+    num_solved_rows: int | None = None,
+    weighted_reg: bool = True,
+    compute_dtype: str = "float32",
+    gather_chunk_bytes: int = 2 << 30,
+) -> torch.Tensor:
+    """The plain PyTorch version of K1: ``x [R, D]`` float32.
+
+    Gathers ``other[col_ids]`` (dequantizing int8 in ``compute_dtype``),
+    builds ``A = (v*w)^T v`` and ``b = r^T v`` with ``bmm`` in float32,
+    index-adds the segments of hot rows, adds ``reg * (n or 1) * I``
+    (the identity where ``n == 0``) and solves by Cholesky. The
+    ``[B, K, D]`` gather is taken in chunks of at most
+    ``gather_chunk_bytes`` (``_gramian_rhs_gathered``)."""
+    dt = _COMPUTE_DTYPES[compute_dtype]
+    B, K = col_ids.shape
+    D = table_dim(other)
+    device = col_ids.device
+    w, r = _bucket_weights(ratings, mask, dt)
+    itemsize = torch.empty((), dtype=dt).element_size()
+    if B * K * D * itemsize <= gather_chunk_bytes or B <= 1:
+        chunk = max(B, 1)
+    else:
+        chunk = max(1, gather_chunk_bytes // (K * D * itemsize))
+    A = torch.empty((B, D, D), dtype=torch.float32, device=device)
+    b = torch.empty((B, D), dtype=torch.float32, device=device)
+    ids = col_ids.to(torch.int64)
+    for lo in range(0, B, chunk):
+        hi = min(B, lo + chunk)
+        vg = _read_rows(other, ids[lo:hi], dt)  # [c, K, D]
+        vw = (vg * w[lo:hi, :, None]).to(torch.float32)
+        vg = vg.to(torch.float32)
+        A[lo:hi] = torch.bmm(vw.transpose(1, 2), vg)
+        b[lo:hi] = torch.bmm(r[lo:hi, None, :].to(torch.float32), vg)[:, 0]
+    n = mask.sum(dim=1)
+    if seg_row is not None:
+        R = int(num_solved_rows)
+        seg = seg_row.to(torch.int64)
+        A = torch.zeros((R, D, D), dtype=A.dtype, device=device).index_add_(0, seg, A)
+        b = torch.zeros((R, D), dtype=b.dtype, device=device).index_add_(0, seg, b)
+        n = torch.zeros((R,), dtype=n.dtype, device=device).index_add_(0, seg, n)
+    lam = reg * n if weighted_reg else torch.full_like(n, reg)
+    lam = torch.where(n > 0, lam, torch.ones_like(lam))
+    A = A + lam[:, None, None] * torch.eye(D, dtype=torch.float32, device=device)
+    L = torch.linalg.cholesky(A)
+    return torch.cholesky_solve(b[:, :, None], L)[:, :, 0]
+
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("als_solve")
+    if not getattr(lib, "_pio_typed", False):
+        lib.pio_k1_solve_bucket.argtypes = [
+            _P, _I, _P,  # other values, dtype code, scales
+            _P, _P, _P, _P,  # col_ids, ratings, mask, seg_start
+            _I, _I, _I,  # R, K, D
+            ctypes.c_float, _I, _I,  # reg, weighted, bf16 compute
+            _P,  # x out (or NULL)
+            _P, _I, _P, _P,  # target values, dtype code, scales, row_ids
+            _P,  # stream
+        ]
+        lib.pio_k1_solve_bucket.restype = _I
+        lib._pio_typed = True
+    return lib
+
+
+def _split_table(table, name: str):
+    """(values, scales or None, dtype code), checked for the kernel."""
+    values, scales = table if isinstance(table, tuple) else (table, None)
+    code = _DTYPE_CODE.get(values.dtype)
+    if code is None or values.dim() != 2 or not values.is_contiguous():
+        raise ValueError(
+            f"{name}: expected a contiguous [N, D] float32/bfloat16/int8 "
+            f"tensor, got {values.dtype} {tuple(values.shape)}"
+        )
+    if (code == 2) != (scales is not None):
+        raise ValueError(f"{name}: int8 values come with f32 scales, others without")
+    if scales is not None and (
+        scales.dtype != torch.float32 or scales.shape != values.shape[:1]
+        or not scales.is_contiguous()
+    ):
+        raise ValueError(f"{name}: scales must be contiguous float32 [N]")
+    return values, scales, code
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
+           device: torch.device) -> None:
+    if (t.dtype != dtype or tuple(t.shape) != shape or t.device != device
+            or not t.is_contiguous()):
+        raise ValueError(
+            f"{name}: expected contiguous {dtype} {shape} on {device}, got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+
+
+def solve_bucket(
+    other,
+    col_ids: torch.Tensor,
+    ratings: torch.Tensor,
+    mask: torch.Tensor,
+    seg_start: torch.Tensor,
+    reg: float,
+    weighted_reg: bool = True,
+    compute_dtype: str = "float32",
+    target=None,
+    row_ids: torch.Tensor | None = None,
+    return_x: bool = True,
+    gather_chunk_bytes: int = 2 << 30,
+):
+    """K1: one bucket's explicit-feedback solve, with its write-back.
+
+    ``other``: the opposite factor table (dense f32/bf16 ``[N, D]`` or the
+    int8 pair), D <= 128. ``col_ids`` int32, ``ratings``/``mask`` float32
+    ``[B, K]``; ``seg_start`` int32 ``[R + 1]`` from
+    :func:`segment_offsets` (solved row r sums table rows ``seg_start[r]``
+    to ``seg_start[r + 1]``). With ``target`` (a storage table of the
+    solved side) and ``row_ids`` (int32 ``[R]``), solved row r is written
+    into ``target[row_ids[r]]`` in place: a cast for f32/bf16, the
+    per-row max-abs/127 requantize for int8. ``target`` must not be
+    ``other`` (U is solved from V and V from U). Returns ``x [R, D]``
+    float32 when ``return_x``, else None.
+
+    CPU tensors take :func:`solve_bucket_reference` + :func:`_scatter_rows`;
+    CUDA tensors launch the kernel (``csrc/als_solve.cu``) or raise. As
+    with K2's device indices, the values of ``col_ids``, ``seg_start``
+    and ``row_ids`` on the card are the caller's to keep in range:
+    :func:`device_buckets` builds them from checked host arrays."""
+    if compute_dtype not in _COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {sorted(_COMPUTE_DTYPES)}")
+    if target is not None and row_ids is None:
+        raise ValueError("a write-back target needs row_ids")
+    device = col_ids.device
+    R = seg_start.shape[0] - 1
+    if device.type == "cpu":
+        x = solve_bucket_reference(
+            other, col_ids, ratings, mask, reg,
+            seg_rows(seg_start, col_ids.shape[0]), R, weighted_reg,
+            compute_dtype, gather_chunk_bytes,
+        )
+        if target is not None:
+            _scatter_rows(target, row_ids, x)
+        return x if return_x else None
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+
+    o_vals, o_scales, o_code = _split_table(other, "other")
+    B, K = col_ids.shape
+    D = o_vals.shape[1]
+    if not 1 <= D <= MAX_RANK:
+        raise ValueError(f"K1 solves ranks 1..{MAX_RANK}, got {D}")
+    for t, name in ((o_vals, "other"), (o_scales, "other scales")):
+        if t is not None and t.device != device:
+            raise ValueError(f"{name} on {t.device}, expected {device}")
+    _check(col_ids, "col_ids", torch.int32, (B, K), device)
+    _check(ratings, "ratings", torch.float32, (B, K), device)
+    _check(mask, "mask", torch.float32, (B, K), device)
+    _check(seg_start, "seg_start", torch.int32, (R + 1,), device)
+    t_vals = t_scales = None
+    t_code = 0
+    if target is not None:
+        t_vals, t_scales, t_code = _split_table(target, "target")
+        if t_vals.shape[1] != D:
+            raise ValueError("target and other differ in rank")
+        for t, name in ((t_vals, "target"), (t_scales, "target scales")):
+            if t is not None and t.device != device:
+                raise ValueError(f"{name} on {t.device}, expected {device}")
+        if t_vals.data_ptr() == o_vals.data_ptr():
+            raise ValueError("K1 cannot write back into the table it reads")
+        _check(row_ids, "row_ids", torch.int32, (R,), device)
+    x = torch.empty((R, D), dtype=torch.float32, device=device) if return_x else None
+    if R == 0:
+        return x
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.pio_k1_solve_bucket(
+            o_vals.data_ptr(), o_code,
+            None if o_scales is None else o_scales.data_ptr(),
+            col_ids.data_ptr(), ratings.data_ptr(), mask.data_ptr(),
+            seg_start.data_ptr(), R, K, D,
+            float(reg), int(bool(weighted_reg)), int(compute_dtype == "bfloat16"),
+            None if x is None else x.data_ptr(),
+            None if t_vals is None else t_vals.data_ptr(), t_code,
+            None if t_scales is None else t_scales.data_ptr(),
+            None if target is None else row_ids.data_ptr(),
+            stream,
+        )
+    _build.check(err, "solve_bucket kernel launch")
+    solve_bucket.launches.add()
+    return x
+
+
+solve_bucket.launches = _build.LaunchCount()
+
+
+def solve_bucket_explicit(
+    factors_other,
+    col_ids,
+    ratings,
+    mask,
+    reg: float,
+    weighted_reg: bool = True,
+    compute_dtype: str = "float32",
+) -> torch.Tensor:
+    """Solve one padded, unsegmented bucket's normal equations:
+    ``A_u = sum v v^T + reg * (n_u if weighted_reg else 1) * I``,
+    ``b_u = sum r v``; returns ``x [B, D]`` float32 on the table's
+    device (the public single-bucket solve, through K1)."""
+    values = factors_other[0] if isinstance(factors_other, tuple) else factors_other
+    device = values.device
+    col_ids = torch.as_tensor(col_ids, device=device).to(torch.int32).contiguous()
+    ratings = torch.as_tensor(ratings, device=device).to(torch.float32).contiguous()
+    mask = torch.as_tensor(mask, device=device).to(torch.float32).contiguous()
+    B = col_ids.shape[0]
+    seg_start = torch.arange(B + 1, dtype=torch.int32, device=device)
+    return solve_bucket(
+        factors_other, col_ids, ratings, mask, seg_start, reg,
+        weighted_reg=weighted_reg, compute_dtype=compute_dtype,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Training loop
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ALSParams:
+    """The JAX package's ``ALSParams``, every field kept so variants and
+    persisted params read the same. ``implicit`` and the sharded-trainer
+    budget belong to later slices; ``als_train`` refuses ``implicit``."""
+
+    rank: int = 10
+    iterations: int = 10
+    reg: float = 0.01
+    implicit: bool = False
+    alpha: float = 1.0
+    weighted_reg: bool = True  # explicit path: ALS-WR reg * n_u scaling
+    implicit_weighted_reg: bool = False  # implicit path default: plain reg*I
+    seed: int = 7
+    compute_dtype: str = "float32"
+    # dtype the factor tables are stored in between solves; every solve
+    # accumulates and solves in float32
+    storage_dtype: str = "float32"
+    bucket_widths: tuple[int, ...] = DEFAULT_BUCKETS
+    # bound on the plain version's [B, K, D] gather temp (K1 itself never
+    # materializes it)
+    gather_chunk_bytes: int = 2 << 30
+    sharded_gather_budget_bytes: int = 8 << 30
+
+
+def sharded_budget_kwarg(value: int | None) -> dict:
+    """ALSParams kwargs fragment the templates use: include
+    ``sharded_gather_budget_bytes`` only when engine params override it."""
+    return {} if value is None else {"sharded_gather_budget_bytes": int(value)}
+
+
+def init_factors(num: int, rank: int, generator: torch.Generator,
+                 device: torch.device | str = "cpu",
+                 scale: float | None = None) -> torch.Tensor:
+    """``scale * N(0, 1)`` factors ``[num, rank]`` float32, scale
+    ``1/sqrt(rank)`` by default, drawn from ``generator`` on its own
+    device and moved to ``device``."""
+    scale = scale if scale is not None else 1.0 / np.sqrt(rank)
+    x = torch.randn((num, rank), generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return (x * scale).to(device)
+
+
+def _warm_init(cold: torch.Tensor, warm) -> torch.Tensor:
+    """Merge a warm-start factor table into the cold init: ``warm`` is a
+    full-size float32 array with NaN rows marking "no prior factors --
+    keep the cold draw"."""
+    if warm is None:
+        return cold
+    warm = torch.as_tensor(np.asarray(warm, dtype=np.float32), device=cold.device)
+    if warm.shape != cold.shape:
+        raise ValueError(f"warm start shape {tuple(warm.shape)} != {tuple(cold.shape)}")
+    return torch.where(torch.isnan(warm), cold, warm)
+
+
+@dataclass
+class DeviceBucket:
+    """One bucket's arrays on the device, uploaded once per training."""
+
+    row_ids: torch.Tensor  # [R] int32
+    col_ids: torch.Tensor  # [B, K] int32
+    ratings: torch.Tensor  # [B, K] float32
+    mask: torch.Tensor  # [B, K] float32
+    seg_start: torch.Tensor  # [R + 1] int32
+
+
+def device_buckets(buckets: Sequence[PaddedBucket],
+                   device: torch.device) -> list[DeviceBucket]:
+    """Upload bucket arrays once, with each bucket's segment offsets."""
+    out = []
+    for b in buckets:
+        seg_start = segment_offsets(b.seg_row, len(b.row_ids), b.col_ids.shape[0])
+        out.append(DeviceBucket(*(
+            torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (b.row_ids, b.col_ids, b.ratings, b.mask, seg_start)
+        )))
+    return out
+
+
+def _half_step(target, other, buckets: Sequence[DeviceBucket], params: ALSParams) -> None:
+    """Solve every bucket of one side from ``other`` and write the rows
+    into ``target`` in place: one K1 launch per bucket."""
+    for b in buckets:
+        solve_bucket(
+            other, b.col_ids, b.ratings, b.mask, b.seg_start, params.reg,
+            weighted_reg=params.weighted_reg, compute_dtype=params.compute_dtype,
+            target=target, row_ids=b.row_ids, return_x=False,
+            gather_chunk_bytes=params.gather_chunk_bytes,
+        )
+
+
+# Diagnostics of the most recent als_train run in this process:
+# {"iterations_run", "early_stopped", "final_rmse", "warm_start"}. A
+# test/bench hook, not an API -- read it right after the call.
+LAST_TRAIN_INFO: dict = {}
+
+
+def _checkpoints_requested() -> bool:
+    """Would the JAX package checkpoint this run (core/checkpoint.py
+    ``from_env``)?"""
+    try:
+        every = int(os.environ.get("PIO_CHECKPOINT_EVERY", "0").strip() or 0)
+    except ValueError:
+        every = 0
+    resume = os.environ.get("PIO_RESUME", "").strip().lower() in (
+        "1", "true", "yes", "on",
+    )
+    return every > 0 or resume
+
+
+def als_train(
+    data: RatingsData,
+    params: ALSParams,
+    warm_start=None,
+    tol: float = 0.0,
+    device: str | torch.device | None = None,
+):
+    """Run ALS on ``device`` (CUDA unless the CPU is asked for); returns
+    ``(user_factors, item_factors)`` in storage form.
+
+    The cold init draws U then V from one CPU ``torch.Generator`` seeded
+    with ``params.seed``, so the CPU and a card start from the same
+    factors. ``warm_start`` is an optional ``(U0, V0)`` pair of full-size
+    float32 arrays; NaN rows keep the cold draw. ``tol > 0`` stops when
+    the per-iteration train RMSE improves by less than ``tol``.
+    Checkpointing (``PIO_CHECKPOINT_EVERY`` / ``PIO_RESUME``) is a later
+    slice of the port and raises."""
+    if params.implicit:
+        raise NotImplementedError(
+            "implicit ALS (solve_bucket_implicit, compute_gram) is a later "
+            "slice of the PyTorch port"
+        )
+    if _checkpoints_requested():
+        raise NotImplementedError(
+            "PIO_CHECKPOINT_EVERY / PIO_RESUME: checkpointing (core/"
+            "checkpoint.py) is a later slice of the PyTorch port"
+        )
+    device = resolve_device(device)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(int(params.seed))
+    U0 = init_factors(data.num_rows, params.rank, gen, device)
+    V0 = init_factors(data.num_cols, params.rank, gen, device)
+    U0 = _warm_init(U0, warm_start[0] if warm_start is not None else None)
+    V0 = _warm_init(V0, warm_start[1] if warm_start is not None else None)
+    U = to_storage(U0, params.storage_dtype)
+    V = to_storage(V0, params.storage_dtype)
+    row_buckets = device_buckets(data.row_buckets, device)
+    col_buckets = device_buckets(data.col_buckets, device)
+
+    t0 = time.perf_counter()
+    final_rmse = None
+    prev_rmse = None
+    it = 0
+    while it < params.iterations:
+        _half_step(U, V, row_buckets, params)
+        _half_step(V, U, col_buckets, params)
+        it += 1
+        if tol > 0.0:
+            final_rmse = rmse(U, V, data.rows, data.cols, data.vals)
+            if prev_rmse is not None and abs(prev_rmse - final_rmse) < tol:
+                logger.info(
+                    "ALS early stop at iteration %d/%d: RMSE plateau "
+                    "|%.6f - %.6f| < tol=%g",
+                    it, params.iterations, prev_rmse, final_rmse, tol,
+                )
+                break
+            prev_rmse = final_rmse
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    LAST_TRAIN_INFO.clear()
+    LAST_TRAIN_INFO.update(
+        iterations_run=it,
+        early_stopped=it < params.iterations,
+        final_rmse=final_rmse,
+        warm_start=warm_start is not None,
+    )
+    logger.debug("ALS %d iterations in %.3fs", it, time.perf_counter() - t0)
+    return U, V
+
+
+def predict_pairs(U, V, rows, cols) -> torch.Tensor:
+    """Scores for explicit (row, col) pairs: ``sum(U[r] * V[c], -1)`` in
+    float32 (int8 tables dequantize at the gather)."""
+    device = (U[0] if isinstance(U, tuple) else U).device
+    r = torch.as_tensor(np.asarray(rows), device=device).to(torch.int64)
+    c = torch.as_tensor(np.asarray(cols), device=device).to(torch.int64)
+    u = _read_rows(U, r, torch.float32)
+    v = _read_rows(V, c, torch.float32)
+    return (u * v).sum(dim=-1)
+
+
+def rmse(U, V, rows, cols, vals, chunk: int = 4_000_000) -> float:
+    """Train RMSE over the COO ratings, chunked over the pairs."""
+    device = (U[0] if isinstance(U, tuple) else U).device
+    n = len(vals)
+    total = 0.0
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        pred = predict_pairs(U, V, rows[lo:hi], cols[lo:hi])
+        want = torch.as_tensor(np.asarray(vals[lo:hi], np.float32), device=device)
+        total += float(((pred - want) ** 2).sum())
+    return float(np.sqrt(total / n))

@@ -1,0 +1,357 @@
+"""The port's ALS ops (``predictionio_tpu_torch.ops.als``) against the JAX
+package's, on the CPU.
+
+On CPU tensors K1's wrapper runs its plain PyTorch version
+(``solve_bucket_reference`` + ``_scatter_rows``), which is what the CUDA
+kernel is held to on the card (chip_smoke.py). Both packages get the
+same numpy inputs. Tolerances and their reasons:
+
+- bucket layouts: bit-identical (the same numpy operations);
+- one bucket's solve: rtol=2e-4, atol=2e-5 (the bar of
+  ``tests/test_als.py::test_solve_matches_numpy_reference``): the two
+  packages sum the normal equations and factor them in different orders;
+  bf16 compute rounds the same values at the same points in both, so it
+  is held to the same bar (int8 storage at bf16 compute: see
+  ``test_solve_bucket_explicit_matches_jax``);
+- ``quantize_rows`` / ``_scatter_rows`` on the same f32 rows: bit for bit;
+- a whole training from the same injected init: f32 factors within
+  rtol=5e-4, atol=5e-5 (``tests/test_als.py:188``); with int8 or bf16
+  storage a last-bit difference can flip a quantization step, so those
+  are held by train RMSE within ``e_jax * 1.01 + 0.01``.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from predictionio_tpu.ops import als as jals
+from predictionio_tpu_torch.models.modelfile import tensor_to_numpy
+from predictionio_tpu_torch.ops import als as tals
+
+SMALL_WIDTHS = (2, 4, 8)  # small enough that a few rows segment
+
+
+def _coo(seed: int, n_rows: int, n_cols: int, nnz: int, hot: bool = True):
+    """Random COO ratings (unique pairs, half-star values); with ``hot``,
+    row 0 and column 1 take many more entries than the widest bucket."""
+    rng = np.random.default_rng(seed)
+    pairs = rng.choice(n_rows * n_cols, size=nnz, replace=False)
+    rows, cols = (pairs // n_cols).astype(np.int32), (pairs % n_cols).astype(np.int32)
+    if hot:
+        extra_c = np.setdiff1d(np.arange(n_cols), cols[rows == 0])
+        extra_r = np.setdiff1d(np.arange(1, n_rows), rows[cols == 1])
+        rows = np.concatenate([rows, np.zeros(len(extra_c), np.int32),
+                               extra_r.astype(np.int32)])
+        cols = np.concatenate([cols, extra_c.astype(np.int32),
+                               np.ones(len(extra_r), np.int32)])
+    vals = (rng.integers(1, 11, len(rows)) / 2.0).astype(np.float32)
+    return rows, cols, vals
+
+
+def _same_buckets(jb, tb):
+    assert len(jb) == len(tb)
+    for a, b in zip(jb, tb):
+        for name in ("row_ids", "col_ids", "ratings", "mask"):
+            x, y = getattr(a, name), getattr(b, name)
+            assert x.dtype == y.dtype and np.array_equal(x, y), name
+        assert (a.seg_row is None) == (b.seg_row is None)
+        if a.seg_row is not None:
+            assert a.seg_row.dtype == b.seg_row.dtype
+            assert np.array_equal(a.seg_row, b.seg_row)
+
+
+@pytest.mark.parametrize("segment", [True, False])
+@pytest.mark.parametrize("widths", [SMALL_WIDTHS, jals.DEFAULT_BUCKETS])
+def test_build_padded_buckets_bit_identical(segment, widths):
+    rows, cols, vals = _coo(0, 40, 30, 300)
+    jb = jals.build_padded_buckets(rows, cols, vals, widths, segment)
+    tb = tals.build_padded_buckets(rows, cols, vals, widths, segment)
+    _same_buckets(jb, tb)
+    if segment and widths == SMALL_WIDTHS:
+        assert any(b.seg_row is not None for b in tb)
+
+
+def test_build_ratings_data_bit_identical():
+    rows, cols, vals = _coo(1, 25, 35, 200)
+    jd = jals.build_ratings_data(rows, cols, vals, 27, 36, SMALL_WIDTHS)
+    td = tals.build_ratings_data(rows, cols, vals, 27, 36, SMALL_WIDTHS)
+    assert (jd.num_rows, jd.num_cols) == (td.num_rows, td.num_cols) == (27, 36)
+    for name in ("rows", "cols", "vals"):
+        assert np.array_equal(getattr(jd, name), getattr(td, name))
+    _same_buckets(jd.row_buckets, td.row_buckets)
+    _same_buckets(jd.col_buckets, td.col_buckets)
+    assert tals.build_padded_buckets(rows[:0], cols[:0], vals[:0]) == []
+
+
+def test_segment_offsets():
+    assert tals.segment_offsets(None, 3, 3).tolist() == [0, 1, 2, 3]
+    seg = np.array([0, 0, 0, 1, 2, 2], np.int32)
+    assert tals.segment_offsets(seg, 3, 6).tolist() == [0, 3, 4, 6]
+    # a solved row with no table rows gets an empty range
+    assert tals.segment_offsets(np.array([0, 2], np.int32), 3, 2).tolist() == [0, 1, 1, 2]
+    with pytest.raises(ValueError, match="decreases"):
+        tals.segment_offsets(np.array([0, 1, 0], np.int32), 2, 3)
+    with pytest.raises(ValueError, match="out of range"):
+        tals.segment_offsets(np.array([0, 3], np.int32), 2, 2)
+    with pytest.raises(ValueError):
+        tals.segment_offsets(None, 2, 3)
+
+
+def _tables(x: np.ndarray, storage: str):
+    """(jax table, torch table) holding the same bits."""
+    jx = jals.to_storage(jnp.asarray(x), storage)
+    if storage == "int8":
+        q, s = (np.asarray(a) for a in jx)
+        return jx, (torch.from_numpy(q.copy()), torch.from_numpy(s.copy()))
+    if storage == "bfloat16":
+        bits = np.asarray(jx).view(np.int16).copy()
+        return jx, torch.from_numpy(bits).view(torch.bfloat16)
+    return jx, torch.from_numpy(x.copy())
+
+
+def _bucket(rng, n_other: int, B: int, K: int, empty_row: bool = True):
+    """A padded bucket: each row rates 1..K distinct columns, packed to
+    the front; row 1 (with ``empty_row``) rates nothing."""
+    col = np.zeros((B, K), np.int32)
+    rat = np.zeros((B, K), np.float32)
+    msk = np.zeros((B, K), np.float32)
+    for b in range(B):
+        n = 0 if (empty_row and b == 1) else int(rng.integers(1, K + 1))
+        col[b, :n] = rng.choice(n_other, n, replace=False)
+        rat[b, :n] = rng.integers(1, 11, n) / 2.0
+        msk[b, :n] = 1.0
+    return col, rat, msk
+
+
+def _bf16(a) -> np.ndarray:
+    """bf16 rounding (to nearest even) of float32 values, as float64."""
+    return torch.from_numpy(np.asarray(a, np.float32)).bfloat16().double().numpy()
+
+
+def _solve_float64(gw, g, rat, msk, reg, weighted):
+    """Explicit normal equations ``A = sum (w*gw) g^T`` (its lower
+    triangle, as a Cholesky reads it) and ``b = sum bf16(r) g`` of
+    gathered rows ``[B, K, D]``, solved in float64."""
+    A = np.tril(np.einsum("bki,bkj->bij", gw * msk[..., None], g))
+    A = A + np.swapaxes(A, 1, 2) - A * np.eye(g.shape[-1])
+    b = np.einsum("bk,bki->bi", _bf16(rat * msk), g)
+    n = msk.sum(axis=1)
+    lam = np.where(n > 0, reg * (n if weighted else 1.0), 1.0)
+    A += lam[:, None, None] * np.eye(g.shape[-1])
+    return np.linalg.solve(A, b[..., None])[..., 0]
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("rank", [4, 20])
+def test_solve_bucket_explicit_matches_jax(rank, storage, compute):
+    """Every storage dtype, at f32 and bf16 compute, against the JAX
+    package -- except int8 storage at bf16 compute. There the JAX program
+    states ``g = bf16(bf16(q) * bf16(s))`` (ops/als.py _read_rows), which
+    the port computes, but XLA's CPU compiler drops that last rounding on
+    the right operand of both products: it computes ``A = sum bf16(g') w
+    g'^T`` and ``b = sum r g'`` with ``g' = q * bf16(s)`` unrounded (its
+    optimized HLO; the results differ by bf16 rounding times the
+    condition number, up to 6% here). So in that case the JAX result is
+    held to a float64 restatement of what XLA computes, and the port to
+    a float64 restatement of the stated program, both at the 2e-4 bar."""
+    rng = np.random.default_rng(rank)
+    other = (rng.standard_normal((30, rank)) / np.sqrt(rank)).astype(np.float32)
+    jt, tt = _tables(other, storage)
+    col, rat, msk = _bucket(rng, 30, 12, 16)
+    for weighted in (True, False):
+        want = np.asarray(jals.solve_bucket_explicit(
+            jt, jnp.asarray(col), jnp.asarray(rat), jnp.asarray(msk), 0.1,
+            weighted_reg=weighted, compute_dtype=compute))
+        got = tals.solve_bucket_explicit(
+            tt, col, rat, msk, 0.1, weighted_reg=weighted, compute_dtype=compute)
+        assert np.all(got[1].numpy() == 0.0)  # the empty row solves to 0
+        if storage == "int8" and compute == "bfloat16":
+            q, s = (np.asarray(a) for a in jt)
+            raw = q[col].astype(np.float64) * _bf16(s[col])[..., None]
+            stated = _solve_float64(_bf16(raw), _bf16(raw), rat, msk, 0.1, weighted)
+            xla_cpu = _solve_float64(_bf16(raw), raw, rat, msk, 0.1, weighted)
+            np.testing.assert_allclose(got.numpy(), stated, rtol=2e-4, atol=2e-5)
+            np.testing.assert_allclose(want, xla_cpu, rtol=2e-4, atol=2e-5)
+        else:
+            np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
+def test_segmented_bucket_solve_and_write_back(storage):
+    """A hot row split over 3 table rows, a plain row and a row with no
+    ratings; written back into a storage table as the trainer does."""
+    rank = 6
+    rng = np.random.default_rng(7)
+    other = (rng.standard_normal((40, rank)) / np.sqrt(rank)).astype(np.float32)
+    jt, tt = _tables(other, storage)
+    col, rat, msk = _bucket(rng, 40, 6, 8, empty_row=False)
+    msk[4:] = 0.0  # solved row 2 (table rows 4, 5) has no ratings at all
+    rat[4:] = 0.0
+    seg_row = np.array([0, 0, 0, 1, 2, 2], np.int32)
+    params = jals.ALSParams(rank=rank, reg=0.05, compute_dtype="float32",
+                            storage_dtype=storage)
+    want = np.asarray(jals._solve_bucket_step(
+        jt, None, jnp.asarray(col), jnp.asarray(rat), jnp.asarray(msk),
+        jnp.asarray(seg_row), params, 3))
+    seg_start = torch.from_numpy(tals.segment_offsets(seg_row, 3, 6))
+    row_ids = torch.tensor([4, 0, 2], dtype=torch.int32)
+    target = tals.to_storage(torch.zeros((5, rank)), storage)
+    x = tals.solve_bucket(
+        tt, torch.from_numpy(col), torch.from_numpy(rat), torch.from_numpy(msk),
+        seg_start, 0.05, target=target, row_ids=row_ids)
+    np.testing.assert_allclose(x.numpy(), want, rtol=2e-4, atol=2e-5)
+    assert np.all(x[2].numpy() == 0.0)
+    # the write-back is _scatter_rows of x, in the JAX package's bits too
+    jtarget = jals._scatter_rows(
+        jals.to_storage(jnp.zeros((5, rank)), storage), jnp.asarray(row_ids.numpy()),
+        jnp.asarray(x.numpy()))
+    got = tals.host_factors(target)
+    exp = jals.host_factors(jtarget)
+    assert np.array_equal(_bits(got[0]), _bits(exp[0]))
+    if storage == "int8":
+        assert np.array_equal(got[1], exp[1])
+
+
+def _bits(a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(a).view(np.uint8)
+
+
+def test_quantize_rows_ties_round_half_to_even():
+    s = np.float32(2.0 ** -3)
+    row = np.array([127, 0.5, 1.5, 2.5, -0.5, -2.5, 126.5, -3.5], np.float32) * s
+    x = np.stack([row, np.zeros(8, np.float32), -row[::-1]])
+    jq, js = jals.quantize_rows(jnp.asarray(x))
+    tq, ts = tals.quantize_rows(torch.from_numpy(x))
+    assert np.array_equal(tq.numpy(), np.asarray(jq))
+    assert np.array_equal(ts.numpy(), np.asarray(js))
+    assert tq[0].tolist() == [127, 0, 2, 2, 0, -2, 126, -4]
+    assert ts[1].item() == 1.0  # an all-zero row gets scale 1
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
+def test_scatter_rows_bit_equal(storage):
+    rng = np.random.default_rng(3)
+    base = rng.standard_normal((9, 5)).astype(np.float32)
+    x = rng.standard_normal((4, 5)).astype(np.float32) * 3
+    ids = np.array([8, 0, 3, 5], np.int32)
+    jt, tt = _tables(base, storage)
+    tals._scatter_rows(tt, torch.from_numpy(ids), torch.from_numpy(x))
+    jt = jals._scatter_rows(jt, jnp.asarray(ids), jnp.asarray(x))
+    got, exp = tals.host_factors(tt), jals.host_factors(jt)
+    assert np.array_equal(_bits(got[0]), _bits(exp[0]))
+    if storage == "int8":
+        assert np.array_equal(got[1], exp[1])
+
+
+def _train_both(storage: str, iterations: int = 3, tol: float = 0.0):
+    rows, cols, vals = _coo(11, 30, 24, 260)
+    n_rows, n_cols, rank = 30, 24, 6
+    rng = np.random.default_rng(5)
+    U0 = (rng.standard_normal((n_rows, rank)) / np.sqrt(rank)).astype(np.float32)
+    V0 = (rng.standard_normal((n_cols, rank)) / np.sqrt(rank)).astype(np.float32)
+    kw = dict(rank=rank, iterations=iterations, reg=0.05, storage_dtype=storage,
+              bucket_widths=SMALL_WIDTHS)
+    jd = jals.build_ratings_data(rows, cols, vals, n_rows, n_cols, SMALL_WIDTHS)
+    JU, JV = jals.als_train(jd, jals.ALSParams(**kw), warm_start=(U0, V0), tol=tol)
+    jinfo = dict(jals.LAST_TRAIN_INFO)
+    td = tals.build_ratings_data(rows, cols, vals, n_rows, n_cols, SMALL_WIDTHS)
+    TU, TV = tals.als_train(td, tals.ALSParams(**kw), warm_start=(U0, V0), tol=tol,
+                            device="cpu")
+    tinfo = dict(tals.LAST_TRAIN_INFO)
+    e_jax = jals.rmse(JU, JV, rows, cols, vals)
+    e_port = tals.rmse(TU, TV, rows, cols, vals)
+    return (JU, JV), (TU, TV), e_jax, e_port, jinfo, tinfo
+
+
+def test_als_train_f32_matches_jax_from_the_same_init():
+    (JU, JV), (TU, TV), e_jax, e_port, _, info = _train_both("float32")
+    np.testing.assert_allclose(TU.numpy(), np.asarray(JU), rtol=5e-4, atol=5e-5)
+    np.testing.assert_allclose(TV.numpy(), np.asarray(JV), rtol=5e-4, atol=5e-5)
+    assert abs(e_port - e_jax) <= 1e-4 * e_jax
+    assert info == {"iterations_run": 3, "early_stopped": False,
+                    "final_rmse": None, "warm_start": True}
+
+
+@pytest.mark.parametrize("storage", ["bfloat16", "int8"])
+def test_als_train_reduced_storage_rmse_matches_jax(storage):
+    (JU, _), (TU, _), e_jax, e_port, _, _ = _train_both(storage)
+    assert e_port < e_jax * 1.01 + 0.01
+    assert e_jax < e_port * 1.01 + 0.01
+    assert (TU[0] if storage == "int8" else TU).dtype == getattr(torch, storage)
+
+
+def test_als_train_tol_stops_where_jax_stops():
+    *_, e_jax, e_port, jinfo, tinfo = _train_both("float32", iterations=12, tol=2e-2)
+    assert jinfo["early_stopped"] and tinfo["early_stopped"]
+    assert tinfo["iterations_run"] == jinfo["iterations_run"] < 12
+    assert tinfo["final_rmse"] == pytest.approx(jinfo["final_rmse"], rel=1e-4)
+    assert e_port == pytest.approx(e_jax, rel=1e-4)
+
+
+def test_warm_start_nan_rows_keep_the_cold_draw():
+    rows, cols, vals = _coo(2, 10, 8, 40, hot=False)
+    data = tals.build_ratings_data(rows, cols, vals, 10, 8)
+    p = tals.ALSParams(rank=3, iterations=0, seed=9)
+    U_cold, V_cold = tals.als_train(data, p, device="cpu")
+    warm_u = np.full((10, 3), np.nan, np.float32)
+    warm_u[4] = [1.0, 2.0, 3.0]
+    U, V = tals.als_train(data, p, warm_start=(warm_u, np.full((8, 3), np.nan)),
+                          device="cpu")
+    assert U[4].tolist() == [1.0, 2.0, 3.0]
+    keep = np.arange(10) != 4
+    assert torch.equal(U[keep], U_cold[keep]) and torch.equal(V, V_cold)
+    # the cold draw is the seed's, scale 1/sqrt(rank)
+    gen = torch.Generator().manual_seed(9)
+    assert torch.equal(U_cold, tals.init_factors(10, 3, gen))
+
+
+def test_rmse_and_predict_pairs_match_jax():
+    rng = np.random.default_rng(4)
+    U = rng.standard_normal((7, 5)).astype(np.float32)
+    V = rng.standard_normal((6, 5)).astype(np.float32)
+    rows = rng.integers(0, 7, 50).astype(np.int32)
+    cols = rng.integers(0, 6, 50).astype(np.int32)
+    vals = rng.standard_normal(50).astype(np.float32)
+    for storage in ("float32", "int8"):
+        (ju, tu), (jv, tv) = _tables(U, storage), _tables(V, storage)
+        np.testing.assert_allclose(
+            tals.predict_pairs(tu, tv, rows, cols).numpy(),
+            np.asarray(jals.predict_pairs(ju, jv, rows, cols)), rtol=1e-5, atol=1e-6)
+        assert tals.rmse(tu, tv, rows, cols, vals, chunk=16) == pytest.approx(
+            jals.rmse(ju, jv, rows, cols, vals), rel=1e-5)
+
+
+def test_unported_training_options_raise(monkeypatch):
+    rows, cols, vals = _coo(3, 6, 5, 12, hot=False)
+    data = tals.build_ratings_data(rows, cols, vals)
+    with pytest.raises(NotImplementedError, match="implicit"):
+        tals.als_train(data, tals.ALSParams(implicit=True), device="cpu")
+    monkeypatch.setenv("PIO_CHECKPOINT_EVERY", "2")
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        tals.als_train(data, tals.ALSParams(), device="cpu")
+    monkeypatch.delenv("PIO_CHECKPOINT_EVERY")
+    monkeypatch.setenv("PIO_RESUME", "1")
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        tals.als_train(data, tals.ALSParams(), device="cpu")
+
+
+def test_solve_bucket_checks_its_arguments():
+    t = torch.zeros((4, 3))
+    col = torch.zeros((2, 2), dtype=torch.int32)
+    r = torch.zeros((2, 2))
+    with pytest.raises(ValueError, match="compute_dtype"):
+        tals.solve_bucket(t, col, r, r, torch.arange(3, dtype=torch.int32), 0.1,
+                          compute_dtype="float16")
+    with pytest.raises(ValueError, match="row_ids"):
+        tals.solve_bucket(t, col, r, r, torch.arange(3, dtype=torch.int32), 0.1,
+                          target=torch.zeros((4, 3)))
+    # ALSParams keeps every field of the JAX package's, with its defaults
+    jfields = jals.ALSParams.__dataclass_fields__
+    tfields = tals.ALSParams.__dataclass_fields__
+    assert list(tfields) == list(jfields)
+    assert all(tfields[f].default == jfields[f].default for f in jfields)
+    assert tensor_to_numpy(tals.dense_factors(tals.to_storage(t, "int8"))).shape == (4, 3)

@@ -107,11 +107,19 @@ def test_jax_reads_port_written_file(storage):
 
 
 def test_port_writes_its_own_class_name():
+    """A ported model class is recorded under the JAX package's name, so
+    the JAX package deploys a port-trained model as its own ALSModel;
+    the port reads that name back as its own class."""
     tm = trec.model_from_numpy(["a"], ["x"], np.ones((1, 2), np.float32),
                                np.ones((1, 2), np.float32))
-    mf = tmf.ModelFile(tmf.serialize([("arrays", tm)], "m"))
+    blob = tmf.serialize([("arrays", tm)], "m")
+    mf = tmf.ModelFile(blob)
     assert mf._header["entries"][0]["cls"] == [
-        "predictionio_tpu_torch.models.recommendation", "ALSModel"]
+        "predictionio_tpu.models.recommendation", "ALSModel"]
+    [(_, back)] = tmf.deserialize(blob)
+    assert type(back) is trec.ALSModel
+    [(_, jback)] = jmf.deserialize(blob)
+    assert type(jback) is jrec.ALSModel
 
 
 def test_mmap_deploy_path(tmp_path):
@@ -182,8 +190,10 @@ def test_tensor_fields_are_pulled_to_the_host():
     tm = dataclasses.replace(
         tm, user_factors=torch.full((2, 3), 1.5, dtype=torch.bfloat16))
     blob = tpersist.serialize_models([_Algo()], [tm], "m")
-    [(_, back)] = jmf.deserialize(blob)
-    assert back.user_factors.dtype == tmf.BFLOAT16  # via the port's class
+    [(_, back)] = tmf.deserialize(blob)
+    assert back.user_factors.dtype == tmf.BFLOAT16  # the port's host bf16
+    [(_, jback)] = jmf.deserialize(blob)
+    assert jback.user_factors.dtype.name == "bfloat16"  # the JAX package's
     assert jmf.ModelFile(blob)._arr("e0.user_factors").dtype.name == "bfloat16"
     np.testing.assert_array_equal(
         np.asarray(jmf.ModelFile(blob)._arr("e0.user_factors"), np.float32), 1.5)

@@ -29,10 +29,12 @@ from predictionio_tpu.models import modelfile as jmf
 from predictionio_tpu.models import recommendation as jrec
 from predictionio_tpu.server.engine_server import EngineServer as JaxEngineServer
 from predictionio_tpu_torch.cli import main as tcli
+from predictionio_tpu_torch.core.context import WorkflowContext
 from predictionio_tpu_torch.core.engine import resolve_engine_factory
 from predictionio_tpu_torch.core.workflow import save_instance
 from predictionio_tpu_torch.data import storage as tstorage
 from predictionio_tpu_torch.models import recommendation as trec
+from predictionio_tpu_torch.ops import als as tals
 from predictionio_tpu_torch.server.engine_server import EngineServer
 
 N_USERS, N_ITEMS = 60, 40
@@ -205,7 +207,23 @@ def test_unported_paths_raise(servers, monkeypatch):
     sharded = trec.ALSAlgorithm(trec.ALSAlgorithmParams(sharded_serving=True))
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         sharded.batch_predict(model, q)
-    with pytest.raises(NotImplementedError, match="training"):
-        algo.train(None, None)
+    td = trec.TrainingData(user_ids=["a"], item_ids=["x"],
+                           rows=np.zeros(1, np.int32), cols=np.zeros(1, np.int32),
+                           ratings=np.ones(1, np.float32))
+    ctx = WorkflowContext(device="cpu")
+    sharded_train = trec.ALSAlgorithm(trec.ALSAlgorithmParams(sharded_train=True))
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        sharded_train.train(ctx, td)
+    with pytest.raises(NotImplementedError, match="implicit"):
+        tals.als_train(tals.build_ratings_data(td.rows, td.cols, td.ratings),
+                       tals.ALSParams(implicit=True), device="cpu")
+    monkeypatch.setenv("PIO_CHECKPOINT_EVERY", "1")
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        algo.train(ctx, td)
+    monkeypatch.delenv("PIO_CHECKPOINT_EVERY")
+    with pytest.raises(NotImplementedError, match="train_sweep"):
+        algo.train_sweep(ctx, td, [algo.params, algo.params])
+    with pytest.raises(NotImplementedError, match="read_eval"):
+        trec.RecommendationDataSource().read_eval(ctx)
     with pytest.raises(ValueError, match="not ported"):
         resolve_engine_factory("predictionio_tpu.models.classification.engine")
