@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases k2,k1,serve,lifecycle,train,times,k1times]
+    python3 chip_smoke.py [--phases k2,k1,k1i,k2s,serve,lifecycle,simlife,train,
+                                    simtrain,times,k1times,simtimes]
 
 Run from the root of a checkout, on a machine with a CUDA card, ``nvcc``
 and PyTorch built for CUDA. It imports nothing of JAX and nothing of the
@@ -46,6 +47,32 @@ JAX package (``predictionio_tpu``). Phases:
    time per call; per-call times the median of CUDA event pairs; bounds
    ``max(bytes / memory rate, FP32 operations / FP32 rate)`` of the card
    named in phase 1, computed from this run's inputs.
+
+The similar-product slice adds (run in this order among the above:
+k1i and k2s after k1, simlife after lifecycle, simtrain after train,
+simtimes last):
+
+- k1i: K1's implicit mode against its plain version: storage x compute
+  x D {1, 10, 20, 64, 128} x width {8, 2048}, unsegmented and segmented,
+  alpha {1, 40}, implicit_weighted_reg both ways, an indefinite row that
+  both must solve to NaN; the same per-solve bars and bit-equal
+  write-back as k1;
+- k2s: K2's summed-rows mode against its plain version at I = 26,744:
+  f32 and int8 catalogs, D {10, 20, 128}, B {1, 64}, L {1, 4, 16}, k
+  {4, 16, 128}, with and without a mask, bit for bit on exact inputs,
+  rtol 1e-5 / atol 1e-6 on random ones; batch and padding invariance;
+- simlife: similar-product events (~1,000 users x 300 items) in sqlite,
+  ``cli.main train`` of als + likealgo, ``deploy``, POSTed queries
+  against the plain path; factors against the same training on the CPU;
+- simtrain: the ML-20M-shaped pairs as 20 M view events through
+  ``run_train`` at the template's defaults (rank 10, 20 iterations),
+  K1's counter reset before and read after (iterations x buckets),
+  deployed and queried (K2's summed-rows counter); 1 implicit
+  iteration with K1 against its plain version;
+- simtimes: K1 implicit per bucket with plain, library yardstick,
+  compute_gram and iteration wall time; K2 summed rows at B = 1 and 64
+  with a ``torch.topk(q @ V.T)`` yardstick; the similar-product HTTP p50
+  comes from simtrain.
 
 Every phase prints its results and seconds; any failure makes the exit
 code 1 and suppresses the result lines. Without CUDA, or without the
@@ -304,6 +331,108 @@ def kernel_vs_plain(torch, device, stats):
     log("selection stage bitwise equal on tie / signed-zero / NaN / inf rows")
 
 
+# -- K2 summed rows vs plain ------------------------------------------------------
+
+K2S_RANKS = (10, 20, 128)
+K2S_WIDTHS = (1, 4, 16)
+
+
+def normalized_catalog(torch, dtype: str, rank: int, gen, device):
+    """A random catalog as the cosine templates deploy it
+    (models/filters.py normalized_device_factors): f32 unit rows, or the
+    int8 pair (values, 1/||values||)."""
+    from predictionio_tpu_torch.models.filters import normalized_device_factors
+    from predictionio_tpu_torch.ops.als import quantize_rows
+
+    x = torch.randn((I_ROWS, rank), generator=gen, device=device)
+    if dtype == "int8":
+        q, s = quantize_rows(x)
+        return normalized_device_factors(host(q), host(s), device)[0]
+    return normalized_device_factors(host(x), None, device)[0]
+
+
+def query_rows(torch, rng, batch: int, width: int, device):
+    """[B, L] lists of 1..L distinct catalog rows, right-padded with
+    weight-0 copies of row 0 (models/similarproduct.py's padding)."""
+    ixs = np.zeros((batch, width), np.int32)
+    w = np.zeros((batch, width), np.float32)
+    for b in range(batch):
+        n = int(rng.integers(1, width + 1))
+        ixs[b, :n] = rng.choice(I_ROWS, n, replace=False)
+        w[b, :n] = 1.0
+    return torch.from_numpy(ixs).to(device), torch.from_numpy(w).to(device)
+
+
+@phase("K2 summed rows vs plain")
+def k2_sum_rows_vs_plain(torch, device, stats):
+    """K2's summed-rows mode (ops/topk.py sum_rows_top_k_batch) against its
+    plain version at the ML-20M catalog (I = 26,744): f32 and int8
+    catalogs x D {10, 20, 128} x B {1, 64} x L {1, 4, 16} x k {4, 16,
+    128}, with and without an exclude mask: bit for bit on exact
+    (small-integer) catalogs, within rtol 1e-5 / atol 1e-6 on normalized
+    random ones with ids equal outside runs of near-tied scores. Then the
+    two invariances the template promises, bit for bit: row b of a B=64
+    call equals the same query alone, and a query padded from L to 2L
+    with weight-0 copies of row 0 equals itself unpadded."""
+    from predictionio_tpu_torch.ops import topk
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 7)
+    rng = np.random.default_rng(SEED + 7)
+    mask = torch.rand(I_ROWS, generator=gen, device=device) < 0.1
+    checks = 0
+    worst = 0.0
+    for rank in K2S_RANKS:
+        for dtype in ("float32", "int8"):
+            for exact in (True, False):
+                items = (make_table(torch, dtype, I_ROWS, rank, True, gen, device) if exact
+                         else normalized_catalog(torch, dtype, rank, gen, device))
+                for batch in BATCHES:
+                    for width in K2S_WIDTHS:
+                        ixs, w = query_rows(torch, rng, batch, width, device)
+                        for k in (4, 16, 128):
+                            for m in (None, mask):
+                                sk, ik = topk.sum_rows_top_k_batch(ixs, w, items, k, m)
+                                sp, ip = topk.sum_rows_top_k_batch_reference(
+                                    ixs, w, items, k, m)
+                                torch.cuda.synchronize()
+                                what = (f"D={rank} {dtype} exact={exact} B={batch} "
+                                        f"L={width} k={k} mask={m is not None}")
+                                if exact:
+                                    if not (torch.equal(ik, ip) and same_bits(torch, sk, sp)):
+                                        raise AssertionError(f"not bitwise equal: {what}")
+                                else:
+                                    hk, hp = host(sk), host(sp)
+                                    err = float(np.max(np.abs(hk - hp), initial=0.0))
+                                    worst = max(worst, err)
+                                    if not np.allclose(hk, hp, rtol=RTOL, atol=ATOL):
+                                        raise AssertionError(
+                                            f"scores differ (max abs {err}): {what}")
+                                    ids_k, ids_p = host(ik), host(ip)
+                                    for r in range(batch):
+                                        if not near_tie_ids_ok(ids_k[r], ids_p[r], hp[r]):
+                                            raise AssertionError(f"ids differ row {r}: {what}")
+                                checks += 1
+                        if batch > 1 and not exact:  # the two invariances
+                            sk, ik = topk.sum_rows_top_k_batch(ixs, w, items, 16, mask)
+                            pad_i = torch.cat([ixs, torch.zeros_like(ixs)], 1)
+                            pad_w = torch.cat([w, torch.zeros_like(w)], 1)
+                            s2, i2 = topk.sum_rows_top_k_batch(pad_i, pad_w, items, 16, mask)
+                            if not (torch.equal(i2, ik) and same_bits(torch, s2, sk)):
+                                raise AssertionError(f"L -> 2L padding changed bits: "
+                                                     f"D={rank} {dtype} L={width}")
+                            for r in range(batch):
+                                s1, i1 = topk.sum_rows_top_k_batch(
+                                    ixs[r:r + 1], w[r:r + 1], items, 16, mask)
+                                if not (torch.equal(i1[0], ik[r])
+                                        and same_bits(torch, s1[0], sk[r])):
+                                    raise AssertionError(f"row {r} differs from its B=1 "
+                                                         f"call: D={rank} {dtype} L={width}")
+    stats["k2s_max_abs_err"] = worst
+    log(f"{checks} summed-rows kernel-vs-plain configurations agree (worst abs diff "
+        f"{worst:.3g}); batch and padding invariance bit for bit")
+
+
 # -- K1 vs plain ---------------------------------------------------------------
 
 # per solve (normwise over a solved row), f32 and bf16 compute alike
@@ -339,16 +468,22 @@ def k1_bucket(torch, rng, counts, K: int, n_other: int, device):
 
 
 def solve_float64(torch, other, col, rat, msk, seg_row, R: int, reg: float,
-                  weighted: bool, compute: str):
+                  weighted: bool, compute: str, implicit: bool = False,
+                  alpha: float = 1.0, gram=None):
     """The bucket's systems solved in float64 from the inputs as K1 rounds
-    them (the gathered values, w and r in the compute dtype)."""
+    them: the gathered values, the weights w and r (explicit: the mask
+    and rating * mask; implicit: alpha r m and (1 + alpha r) m) and w g
+    in the compute dtype; for the implicit form the float32 Gramian; the
+    lower triangle of A (in bf16 compute w g is rounded before the
+    product, so A's two triangles can differ)."""
     from predictionio_tpu_torch.ops import als
 
     dt = getattr(torch, compute)
-    g = als._read_rows(other, col.long(), dt).double()
-    w = msk.to(dt).double()
-    r = (rat * msk).to(dt).double()
-    A = torch.bmm((g * w[..., None]).transpose(1, 2), g)
+    g = als._read_rows(other, col.long(), dt)
+    w, r = als._bucket_weights(rat, msk, dt, implicit, alpha)
+    wg = (g * w[..., None]).double()
+    g, r = g.double(), r.double()
+    A = torch.bmm(wg.transpose(1, 2), g)
     b = torch.bmm(r[:, None, :], g)[:, 0]
     n = msk.double().sum(1)
     if seg_row is not None:
@@ -360,7 +495,10 @@ def solve_float64(torch, other, col, rat, msk, seg_row, R: int, reg: float,
     lam = torch.where(n > 0, reg * (n if weighted else torch.ones_like(n)),
                       torch.ones_like(n))
     A = A + lam[:, None, None] * torch.eye(A.shape[1], dtype=A.dtype, device=A.device)
-    return torch.linalg.solve(A, b)
+    if implicit:
+        A = A + gram.double()[None]
+    A = torch.tril(A)
+    return torch.linalg.solve(A + A.tril(-1).transpose(1, 2), b)
 
 
 def per_solve_ok(torch, x, ref) -> bool:
@@ -463,6 +601,138 @@ def k1_vs_plain(torch, device, stats):
         f"{K1_ATOL} + rtol {K1_RTOL} * max|x| of the plain version and of a float64 "
         f"solve; worst abs diff to the plain version {worst:.3g}; worst per-solve "
         f"relative diff {worst_rel_plain:.3g} to the plain version, {worst_rel_k:.3g} "
+        f"kernel to float64, {worst_rel_p:.3g} plain to float64; write-back bit-equal)")
+
+
+# -- K1 implicit vs plain ------------------------------------------------------
+
+K1I_RANKS = (1, 10, 20, 64, 128)
+K1I_BAD = 100  # entries of the crafted indefinite row (one column, r = -1)
+
+
+@phase("K1 implicit vs plain")
+def k1_implicit_vs_plain(torch, device, stats):
+    """K1's implicit mode against its plain version on the same CUDA
+    tensors: storage {f32, bf16, int8} x compute {f32, bf16} x D {1, 10,
+    20, 64, 128} x width {8, 2048}, each as an unsegmented bucket and a
+    segmented one (rows of 1 and 33 segments), with rows of n = 0; alpha
+    1 at width 8 and 40 at width 2048, implicit_weighted_reg on at f32
+    compute and off at bf16, so each pair of the two occurs. At alpha
+    40 one crafted row rates one column 100 times with r = -1 (a
+    dislike): its A is indefinite, and both versions must solve it to
+    an all-NaN x (its int8 write-back: zeros, scale 1). Every other solve
+    within atol 1e-5 + rtol 1e-4 * max|x| of its row of the plain version
+    and of a float64 solve of the same rounded inputs; written-back
+    tables bit for bit equal to the plain _scatter_rows of the kernel's x."""
+    from predictionio_tpu_torch.ops import als
+
+    rng = np.random.default_rng(SEED + 5)
+    n_other = 4096
+    configs = nan_rows = 0
+    worst = worst_rel_k = worst_rel_p = 0.0
+    for D in K1I_RANKS:
+        base_np = (rng.standard_normal((n_other, D)) / np.sqrt(D)).astype(np.float32)
+        heavy = int(np.argmax((base_np ** 2).sum(1)))  # the disliked column
+        base = torch.from_numpy(base_np).to(device)
+        for storage in DTYPES:
+            other = als.to_storage(base, storage)
+            for compute in ("float32", "bfloat16"):
+                gram = als.compute_gram(other, compute)
+                weighted = compute == "float32"
+                for K in K1_WIDTHS:
+                    alpha = 1.0 if K == 8 else 40.0
+                    R = 64 if K == 8 else 8
+                    plain = [int(rng.integers(1, K + 1)) for _ in range(R)]
+                    plain[1] = 0
+                    segmented = list(plain)
+                    segmented[0] = int(rng.integers(1, K + 1))  # 1 segment
+                    segmented[1] = 32 * K + int(rng.integers(1, K + 1))  # 33
+                    segmented[2] = 0
+                    for kind, counts in (("plain", plain), ("segmented", segmented)):
+                        col, rat, msk, seg_start = k1_bucket(
+                            torch, rng, counts, K, n_other, device)
+                        rat = rat * 2  # counts 1..10
+                        bad = []
+                        if alpha == 40.0:  # row 3: K1I_BAD dislikes of one column
+                            r3 = int(seg_start[3]) * K
+                            flat_c, flat_r, flat_m = (t.view(-1) for t in (col, rat, msk))
+                            flat_m[r3:r3 + K] = 0
+                            flat_r[r3:r3 + K] = 0
+                            flat_c[r3:r3 + K] = 0
+                            m = min(K1I_BAD, K)
+                            flat_c[r3:r3 + m] = heavy
+                            flat_r[r3:r3 + m] = -1.0
+                            flat_m[r3:r3 + m] = 1.0
+                            counts = list(counts)
+                            counts[3] = m
+                            bad = [3]
+                        row_ids = torch.from_numpy(
+                            rng.permutation(2 * R)[:R].astype(np.int32)).to(device)
+                        target = als.to_storage(
+                            torch.zeros((2 * R, D), device=device), storage)
+                        xk = als.solve_bucket(
+                            other, col, rat, msk, seg_start, K1_REG,
+                            weighted_reg=weighted, compute_dtype=compute,
+                            target=target, row_ids=row_ids,
+                            implicit=True, alpha=alpha, gram=gram)
+                        seg_row = als.seg_rows(seg_start, col.shape[0])
+                        xp = als.solve_bucket_reference(
+                            other, col, rat, msk, K1_REG, seg_row, R,
+                            weighted_reg=weighted, compute_dtype=compute,
+                            implicit=True, alpha=alpha, gram=gram)
+                        x64 = solve_float64(
+                            torch, other, col, rat, msk, seg_row, R, K1_REG,
+                            weighted, compute, implicit=True, alpha=alpha, gram=gram)
+                        torch.cuda.synchronize()
+                        what = (f"D={D} storage={storage} compute={compute} K={K} "
+                                f"{kind} weighted={weighted} alpha={alpha}")
+                        nan_k = torch.isnan(xk).any(dim=1)
+                        want_nan = torch.zeros_like(nan_k)
+                        want_nan[bad] = True
+                        if not (torch.equal(nan_k, want_nan)
+                                and torch.equal(torch.isnan(xk), torch.isnan(xp))
+                                and bool(torch.isnan(xk[bad]).all())):
+                            raise AssertionError(f"NaN rows differ (kernel "
+                                                 f"{nan_k.nonzero().tolist()}, want {bad}): "
+                                                 f"{what}")
+                        nan_rows += len(bad)
+                        ok = ~nan_k
+                        if not bool(torch.isfinite(xk[ok]).all()):
+                            raise AssertionError(f"non-finite x: {what}")
+                        err = float((xk[ok] - xp[ok]).abs().max())
+                        worst = max(worst, err)
+                        scale = x64[ok].abs().amax(dim=1).clamp_min(1e-30)
+                        worst_rel_k = max(worst_rel_k, float(
+                            ((xk[ok].double() - x64[ok]).abs().amax(dim=1) / scale).max()))
+                        worst_rel_p = max(worst_rel_p, float(
+                            ((xp[ok].double() - x64[ok]).abs().amax(dim=1) / scale).max()))
+                        if not per_solve_ok(torch, xk[ok], xp[ok]):
+                            raise AssertionError(f"x differs from the plain version "
+                                                 f"(max abs {err}): {what}")
+                        if not per_solve_ok(torch, xk[ok], x64[ok]):
+                            raise AssertionError(f"x differs from the float64 solve: {what}")
+                        empty = [r for r, n in enumerate(counts) if n == 0]
+                        if not bool((xk[empty] == 0).all()):
+                            raise AssertionError(f"an empty row did not solve to 0: {what}")
+                        want = als.to_storage(torch.zeros((2 * R, D), device=device),
+                                              storage)
+                        als._scatter_rows(want, row_ids, xk)
+                        got_t = target if isinstance(target, tuple) else (target,)
+                        want_t = want if isinstance(want, tuple) else (want,)
+                        for g, w in zip(got_t, want_t):
+                            if not torch.equal(g.view(torch.uint8), w.view(torch.uint8)):
+                                raise AssertionError(f"write-back not bit-equal: {what}")
+                        if bad and storage == "int8":
+                            rows = row_ids[bad].long()
+                            if not (bool((target[0][rows] == 0).all())
+                                    and bool((target[1][rows] == 1).all())):
+                                raise AssertionError(f"int8 NaN row not q=0/scale 1: {what}")
+                        configs += 1
+    stats["k1i_max_abs_err"] = worst
+    log(f"{configs} K1-implicit-vs-plain configurations agree ({nan_rows} indefinite "
+        f"rows NaN in both; each other solve within atol {K1_ATOL} + rtol {K1_RTOL} * "
+        f"max|x| of the plain version and of a float64 solve; worst abs diff to the "
+        f"plain version {worst:.3g}; worst per-solve relative diff {worst_rel_k:.3g} "
         f"kernel to float64, {worst_rel_p:.3g} plain to float64; write-back bit-equal)")
 
 
@@ -666,8 +936,8 @@ def make_ml_shaped(scale: str):
 
 
 def plain_iteration(torch, data, params, device):
-    """One ALS iteration with K1's plain version on the card, from the
-    cold init ``als_train`` draws for ``params.seed``."""
+    """One ALS iteration (explicit or implicit) with K1's plain version on
+    the card, from the cold init ``als_train`` draws for ``params.seed``."""
     from predictionio_tpu_torch.ops import als
 
     gen = torch.Generator(device="cpu")
@@ -676,12 +946,15 @@ def plain_iteration(torch, data, params, device):
                        params.storage_dtype)
     V = als.to_storage(als.init_factors(data.num_cols, params.rank, gen, device),
                        params.storage_dtype)
+    weighted = params.implicit_weighted_reg if params.implicit else params.weighted_reg
     for target, other, buckets in ((U, V, data.row_buckets), (V, U, data.col_buckets)):
+        gram = als.compute_gram(other, params.compute_dtype) if params.implicit else None
         for b in als.device_buckets(buckets, device):
             x = als.solve_bucket_reference(
                 other, b.col_ids, b.ratings, b.mask, params.reg,
                 als.seg_rows(b.seg_start, b.col_ids.shape[0]), b.row_ids.shape[0],
-                params.weighted_reg, params.compute_dtype, params.gather_chunk_bytes)
+                weighted, params.compute_dtype, params.gather_chunk_bytes,
+                params.implicit, params.alpha, gram)
             als._scatter_rows(target, b.row_ids, x)
     return U, V
 
@@ -813,7 +1086,7 @@ def full_width(torch, device, stats):
     from predictionio_tpu_torch.ops import als
 
     t0 = time.perf_counter()
-    rows, cols, vals, nu, ni = make_ml_shaped("20m")
+    rows, cols, vals, nu, ni = stats["ml20m_arrays"] = make_ml_shaped("20m")
     log(f"generated {len(vals)} ML-20M-shaped ratings in {time.perf_counter() - t0:.1f}s")
     td = rec.TrainingData(user_ids=[f"u{j}" for j in range(nu)],
                           item_ids=[f"i{j}" for j in range(ni)],
@@ -898,6 +1171,367 @@ def full_width(torch, device, stats):
                            "rmse_1_iteration": e_k, "rmse_1_iteration_plain": e_p,
                            "k1_launches": stats["k1_launches"], **diffs}
     log(json.dumps({"full_width": "ml20m rank 20 f32", **stats["full_width"]}))
+
+
+# -- the similar-product template ------------------------------------------------
+
+SIM_USERS, SIM_ITEMS, SIM_GROUPS = 1000, 300, 5
+SIM_FACTORY = "predictionio_tpu_torch.models.similarproduct.engine"
+
+
+def similar_events(Event, rng) -> list:
+    """The similar-product template's events: items ``$set`` with two
+    categories each (a taste group and a parity), users ``$set``, and per
+    user ~20 views, 5 likes and 1 dislike, mostly inside the user's
+    taste group; event times increase."""
+    from datetime import datetime, timedelta, timezone
+
+    t0 = datetime(2024, 1, 1, tzinfo=timezone.utc)
+    out = []
+
+    def at(n):
+        return t0 + timedelta(seconds=n)
+
+    for j in range(SIM_ITEMS):
+        out.append(Event(event="$set", entity_type="item", entity_id=f"i{j}",
+                         properties={"categories": [f"c{j % SIM_GROUPS}",
+                                                    "odd" if j % 2 else "even"]},
+                         event_time=at(len(out))))
+    groups = [np.arange(g, SIM_ITEMS, SIM_GROUPS) for g in range(SIM_GROUPS)]
+    for u in range(SIM_USERS):
+        out.append(Event(event="$set", entity_type="user", entity_id=f"u{u}",
+                         properties={}, event_time=at(len(out))))
+        own = groups[u % SIM_GROUPS]
+        views = np.where(rng.random(20) < 0.8, rng.choice(own, 20),
+                         rng.integers(0, SIM_ITEMS, 20))
+        signals = [("view", int(i)) for i in views]
+        signals += [("like", int(i)) for i in rng.choice(own, 5)]
+        signals.append(("dislike", int(rng.integers(0, SIM_ITEMS))))
+        for name, i in signals:
+            out.append(Event(event=name, entity_type="user", entity_id=f"u{u}",
+                             target_entity_type="item", target_entity_id=f"i{i}",
+                             event_time=at(len(out))))
+    return out
+
+
+def plain_similar(torch, server, q: dict):
+    """What the deployed engine must answer: each algorithm's model scored
+    on the CPU through the template's own batch scorer, where K2 runs its
+    plain version, then the engine's serving."""
+    from predictionio_tpu_torch.models import similarproduct as sim
+
+    query = sim.Query(**q)
+    preds = [sim._score_similar_batch(m, [query], torch.device("cpu"))[0]
+             for m in server.models]
+    return server.serving.serve(query, preds)
+
+
+def check_similar(got: list, want, model, what: str) -> None:
+    """HTTP itemScores against the plain path's PredictedResult: the same
+    length, scores within rtol/atol (NaN where NaN), the same items
+    outside runs of near-tied scores."""
+    exp_items = [x.item for x in want.itemScores]
+    exp_scores = np.asarray([x.score for x in want.itemScores], np.float32)
+    items = [x["item"] for x in got]
+    scores = np.asarray([np.nan if x["score"] is None else x["score"] for x in got],
+                        np.float32)
+    if len(items) != len(exp_items):
+        raise AssertionError(f"{what}: {len(items)} items, expected {len(exp_items)}")
+    if not np.allclose(scores, exp_scores, rtol=RTOL, atol=ATOL, equal_nan=True):
+        raise AssertionError(f"{what}: scores {scores} vs {exp_scores}")
+    idx = model.item_index
+    if not near_tie_ids_ok(np.asarray([idx[x] for x in items]),
+                           np.asarray([idx[x] for x in exp_items]), exp_scores):
+        raise AssertionError(f"{what}: items {items} vs {exp_items}")
+
+
+def same_factors(torch, a: np.ndarray, b: np.ndarray, what: str) -> float:
+    """Host factor tables equal in NaN pattern and within rtol 5e-4 /
+    atol 5e-5 elsewhere; returns the largest finite difference."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    if not np.array_equal(np.isnan(a), np.isnan(b)):
+        raise AssertionError(f"{what}: NaN rows differ")
+    ok = ~np.isnan(a)
+    if not np.allclose(a[ok], b[ok], rtol=5e-4, atol=5e-5):
+        raise AssertionError(f"{what}: factors differ (max abs "
+                             f"{np.abs(a[ok] - b[ok]).max()})")
+    return float(np.abs(a[ok] - b[ok]).max(initial=0.0))
+
+
+@phase("similar-product lifecycle: events -> train -> deploy (CLI, sqlite)")
+def similar_lifecycle(torch, device, stats):
+    """~1,000 users x 300 items of similar-product events (``$set`` items
+    with categories, users, views, likes, dislikes) in the port's sqlite
+    store; ``cli.main train`` of both algorithms (als on view counts,
+    likealgo on like = 1 / dislike = -1) on the card, ``deploy``, and
+    POSTed queries (simple, blackList, categories, an unknown item), each
+    answered as the plain path answers it. The trained item factors must
+    match the same trainings on the CPU (rtol 5e-4 / atol 5e-5, NaN rows
+    where NaN), and K1's and K2's counters must move."""
+    from predictionio_tpu_torch.cli import main as cli
+    from predictionio_tpu_torch.core.context import WorkflowContext
+    from predictionio_tpu_torch.data import storage as st
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.models import similarproduct as sim
+    from predictionio_tpu_torch.ops import als, topk
+
+    rng = np.random.default_rng(SEED + 11)
+    basedir = tempfile.mkdtemp(prefix="pio_chip_smoke_sim_")
+    variant_path = os.path.join(basedir, "engine.json")
+    algos = [{"name": name, "params": {"rank": 10, "numIterations": 10, "lambda": 0.01,
+                                       "alpha": 1.0, "seed": 3}}
+             for name in ("als", "likealgo")]
+    with open(variant_path, "w") as f:
+        json.dump({"id": "chip-smoke-sim", "engineFactory": SIM_FACTORY,
+                   "datasource": {"params": {"appName": "SimApp"}},
+                   "algorithms": algos}, f)
+    server = None
+    try:
+        with storage_env(basedir):
+            storage = st.get_storage()
+            app_id = storage.get_metadata_apps().insert(st.App(0, "SimApp"))
+            events = similar_events(Event, rng)
+            storage.get_events().batch_insert(events, app_id)
+            log(f"wrote {len(events)} similar-product events")
+            als.solve_bucket.launches.reset()
+            topk.sum_rows_top_k_batch.launches.reset()
+            t0 = time.perf_counter()
+            if cli.main(["train", "--variant", variant_path]) != 0:
+                raise AssertionError("cli train failed")
+            train_s = time.perf_counter() - t0
+            k1 = als.solve_bucket.launches.value
+            server = cli.deploy_server(cli.build_parser().parse_args([
+                "deploy", "--variant", variant_path, "--ip", "127.0.0.1", "--port", "0"]))
+            server.warmup()
+            port = server.start(background=True)
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            queries = [{"items": ["i3"], "num": 5},
+                       {"items": ["i3", "i10"], "num": 8, "blackList": ["i8", "i13"]},
+                       {"items": ["i7"], "num": 6, "categories": ["c2"]},
+                       {"items": ["nope"], "num": 4}]
+            for q in queries:
+                got = post(conn, q)["itemScores"]
+                check_similar(got, plain_similar(torch, server, q), server.models[0],
+                              f"similar {q}")
+                log(f"similar {json.dumps(q)} -> {json.dumps(got[:3])}")
+            conn.close()
+            k2 = topk.sum_rows_top_k_batch.launches.value
+            td = sim.SimilarProductDataSource(
+                sim.DataSourceParams(app_name="SimApp")).read_training(None)
+        if k1 <= 0 or k2 <= 0:
+            raise AssertionError(f"launch counters did not move: K1 {k1}, K2 {k2}")
+        cpu = WorkflowContext(mode="Training", device="cpu")
+        diffs = {}
+        for algo, model in zip(server.algorithms, server.models):
+            name = type(algo).__name__
+            cpu_model = type(algo)(algo.params).train(cpu, td)
+            diffs[name] = same_factors(
+                torch, model.item_factors, cpu_model.item_factors,
+                f"{name} factors, card vs CPU")
+            diffs[name + "_nan_rows"] = int(np.isnan(model.item_factors).any(1).sum())
+    finally:
+        if server is not None:
+            server.stop()
+        shutil.rmtree(basedir, ignore_errors=True)
+    stats["similar_lifecycle"] = {"train_s": train_s, "k1_launches": k1,
+                                  "k2s_launches": k2, "max_abs_diff_vs_cpu": diffs}
+    log(json.dumps({"lifecycle": "similar-product", **stats["similar_lifecycle"]}))
+
+
+SIM_TRAIN = {"rank": 10, "numIterations": 20, "lambda": 0.01, "alpha": 1.0, "seed": 3}
+
+
+def rowwise_rel(torch, x, ref) -> float:
+    """The largest per-row error of ``x`` against ``ref``, over that row's
+    largest |ref| value (normwise)."""
+    err = (x.double() - ref.double()).abs().amax(dim=1)
+    return float((err / ref.double().abs().amax(dim=1).clamp_min(1e-30)).max())
+
+
+def rows_within(torch, x, ref, rtol: float, atol: float) -> bool:
+    """Every row of ``x`` within atol + rtol * max|row of ref| of ``ref``."""
+    err = (x.double() - ref.double()).abs().amax(dim=1)
+    return bool((err <= atol + rtol * ref.double().abs().amax(dim=1)).all())
+
+
+def float64_implicit_iteration(torch, data, params, device):
+    """One implicit ALS iteration in float64 from the cold init
+    ``als_train`` draws: each bucket's systems built from the gathered
+    rows and solved by ``torch.linalg.solve`` (the reference the kernel
+    and its plain version are both held to)."""
+    from predictionio_tpu_torch.ops import als
+
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(int(params.seed))
+    U = als.init_factors(data.num_rows, params.rank, gen, device).double()
+    V = als.init_factors(data.num_cols, params.rank, gen, device).double()
+    eye = torch.eye(params.rank, dtype=torch.float64, device=device)
+    for target, other, buckets in ((U, V, data.row_buckets), (V, U, data.col_buckets)):
+        gram = other.T @ other
+        for b in als.device_buckets(buckets, device):
+            R = b.row_ids.shape[0]
+            seg_row = als.seg_rows(b.seg_start, b.col_ids.shape[0])
+            A = torch.empty((b.col_ids.shape[0],) + gram.shape, dtype=torch.float64,
+                            device=device)
+            rhs = torch.empty((b.col_ids.shape[0], params.rank), dtype=torch.float64,
+                              device=device)
+            for lo in range(0, b.col_ids.shape[0], 2048):
+                g = other[b.col_ids[lo:lo + 2048].long()]
+                rat, msk = b.ratings[lo:lo + 2048].double(), b.mask[lo:lo + 2048].double()
+                A[lo:lo + 2048] = torch.bmm(
+                    (g * (params.alpha * rat * msk)[..., None]).transpose(1, 2), g)
+                rhs[lo:lo + 2048] = torch.bmm(((1 + params.alpha * rat) * msk)[:, None],
+                                              g)[:, 0]
+            n = b.mask.double().sum(1)
+            if seg_row is not None:
+                A = torch.zeros((R,) + gram.shape, dtype=A.dtype, device=device
+                                ).index_add_(0, seg_row, A)
+                rhs = torch.zeros((R, params.rank), dtype=A.dtype, device=device
+                                  ).index_add_(0, seg_row, rhs)
+                n = torch.zeros((R,), dtype=A.dtype, device=device).index_add_(0, seg_row, n)
+            lam = torch.where(n > 0, params.reg, 1.0)
+            A = A + lam[:, None, None] * eye + gram
+            target[b.row_ids.long()] = torch.linalg.solve(A, rhs)
+    return U, V
+
+
+@phase("similar-product at full width: ML-20M-shaped views, rank 10, run_train")
+def similar_full_width(torch, device, stats):
+    """The ML-20M-shaped (user, item) pairs of the train phase as 20 M
+    view events of the similar-product template, through ``run_train``
+    at the template's defaults (rank 10, 20 iterations, lambda 0.01,
+    alpha 1.0, f32): views -> per-pair counts -> implicit ALS on K1, K1's
+    counter reset just before and read just after (the main path's
+    launches; it must equal iterations x buckets); persisted, deployed,
+    queried over HTTP against the plain path (K2's summed-rows counter:
+    the serving main path's launches). Then 1 implicit iteration with K1
+    against 1 with its plain version and 1 in float64, from the same
+    init: each factor row within atol 5e-5 + rtol 5e-4 * its largest
+    |value| of both. The rows are held normwise, as K1's per-solve check
+    holds them: a hot item's row reaches |x| ~ 10^2 here, and f32 sums
+    of ~67,000 entries then leave its small components an absolute error
+    near 10^-4 in any f32 solver (the elementwise count is reported)."""
+    from predictionio_tpu_torch.cli import main as cli
+    from predictionio_tpu_torch.core import DataSource, Engine, IdentityPreparator
+    from predictionio_tpu_torch.core.context import WorkflowContext
+    from predictionio_tpu_torch.core.workflow import run_train
+    from predictionio_tpu_torch.data import storage as st
+    from predictionio_tpu_torch.models import similarproduct as sim
+    from predictionio_tpu_torch.models.columnar import aggregate_counts
+    from predictionio_tpu_torch.ops import als, topk
+
+    if "ml20m_arrays" not in stats:
+        stats["ml20m_arrays"] = make_ml_shaped("20m")
+    rows, cols, vals, nu, ni = stats["ml20m_arrays"]
+    views = st.RatingsBatch([f"u{j}" for j in range(nu)], [f"i{j}" for j in range(ni)],
+                            rows, cols, np.ones(len(rows), np.float32))
+    td = sim.TrainingData(users=views.entity_ids, items={}, view_events=views)
+
+    class GeneratedViews(DataSource):
+        params_class = sim.DataSourceParams
+
+        def read_training(self, ctx):
+            return td
+
+    engine = Engine(GeneratedViews, IdentityPreparator, {"als": sim.ALSAlgorithm},
+                    sim.SumScoreServing)
+    ep = engine.params_from_variant({
+        "datasource": {"params": {"appName": "ML20M"}},
+        "algorithms": [{"name": "als", "params": SIM_TRAIN}]})
+    basedir = tempfile.mkdtemp(prefix="pio_chip_smoke_sim20m_")
+    storage = st.Storage(env={"PIO_FS_BASEDIR": basedir})
+    st.set_storage(storage)
+    server = None
+    try:
+        als.solve_bucket.launches.reset()  # the main path starts here
+        t0 = time.perf_counter()
+        iid = run_train(engine, ep, engine_id="chip-smoke-sim20m", engine_factory=SIM_FACTORY,
+                        storage=storage, ctx=WorkflowContext(mode="Training", device="cuda"))
+        train_s = time.perf_counter() - t0
+        stats["k1i_launches"] = als.solve_bucket.launches.value  # main path read
+        server = cli.deploy_server(cli.build_parser().parse_args([
+            "deploy", "--engine-instance-id", iid, "--ip", "127.0.0.1", "--port", "0"]))
+        server.warmup()
+        port = server.start(background=True)
+        model = server.models[0]
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        topk.sum_rows_top_k_batch.launches.reset()  # the serving main path starts here
+        queries = [{"items": ["i0"], "num": 4},
+                   {"items": ["i5", "i77", "i26743"], "num": 10, "blackList": ["i1"]},
+                   {"items": ["i42"], "num": 20}, {"items": ["nope"], "num": 4}]
+        for q in queries:
+            got = post(conn, q)["itemScores"]
+            check_similar(got, plain_similar(torch, server, q), model, f"sim20m {q}")
+        stats["k2s_launches"] = topk.sum_rows_top_k_batch.launches.value  # main path read
+        times = []
+        for _ in range(60):
+            t0 = time.perf_counter()
+            post(conn, {"items": ["i42"], "num": 4})
+            times.append(time.perf_counter() - t0)
+        stats["sim_http_p50_ms"] = statistics.median(times[10:]) * 1e3
+        # the same query without HTTP: the query path's share
+        algo, q = server.algorithms[0], sim.Query(items=["i42"], num=4)
+        times = []
+        for _ in range(60):
+            t0 = time.perf_counter()
+            algo.predict(model, q)
+            times.append(time.perf_counter() - t0)
+        stats["sim_predict_p50_ms"] = statistics.median(times[10:]) * 1e3
+        conn.close()
+        nan_rows = int(np.isnan(np.asarray(model.item_factors, np.float32)).any(1).sum())
+    finally:
+        if server is not None:
+            server.stop()
+        st.set_storage(None)
+        storage.close()
+        shutil.rmtree(basedir, ignore_errors=True)
+    if stats["k2s_launches"] <= 0:
+        raise AssertionError("the HTTP queries did not launch the summed-rows K2")
+
+    t0 = time.perf_counter()
+    r = aggregate_counts(views)
+    data = als.build_ratings_data(r.rows, r.cols, r.vals, nu, ni)
+    log(f"view counts and bucket layout in {time.perf_counter() - t0:.1f}s: "
+        f"{len(r.vals)} pairs; " + ", ".join(
+            f"{side} K={b.width} B={b.col_ids.shape[0]} R={len(b.row_ids)}"
+            for side, bs in (("user", data.row_buckets), ("item", data.col_buckets))
+            for b in bs))
+    per_iter = len(data.row_buckets) + len(data.col_buckets)
+    if stats["k1i_launches"] != SIM_TRAIN["numIterations"] * per_iter:
+        raise AssertionError(f"K1 launched {stats['k1i_launches']} times on the main "
+                             f"path, expected {SIM_TRAIN['numIterations']} iterations x "
+                             f"{per_iter} buckets")
+    params = als.ALSParams(rank=10, iterations=1, reg=0.01, implicit=True, alpha=1.0,
+                           seed=3)
+    Uk, Vk = als.als_train(data, params, device=device)
+    Up, Vp = plain_iteration(torch, data, params, device)
+    U64, V64 = float64_implicit_iteration(torch, data, params, device)
+    torch.cuda.synchronize()
+    diffs = {}
+    for name, a, b, x64 in (("U", Uk, Up, U64), ("V", Vk, Vp, V64)):
+        err = float((a - b).abs().max())
+        diffs[f"{name}_max_abs_diff"] = err
+        diffs[f"{name}_max_abs"] = float(b.abs().max())
+        diffs[f"{name}_elementwise_outside"] = int(
+            ((a - b).abs() > 5e-5 + 5e-4 * b.abs()).sum())
+        diffs[f"{name}_rel_kernel_f64"] = rowwise_rel(torch, a, x64)
+        diffs[f"{name}_rel_plain_f64"] = rowwise_rel(torch, b, x64)
+        stats["k1i_max_abs_err"] = max(stats.get("k1i_max_abs_err", 0.0), err)
+        if not rows_within(torch, a, b, rtol=5e-4, atol=5e-5):
+            raise AssertionError(f"1 implicit iteration: {name} differs from the plain "
+                                 f"version (max abs {err})")
+        if not rows_within(torch, a, x64, rtol=5e-4, atol=5e-5):
+            raise AssertionError(f"1 implicit iteration: {name} differs from the float64 "
+                                 f"iteration")
+    stats["sim20m"] = data
+    stats["similar_full_width"] = {
+        "train_s": train_s, "iterations": SIM_TRAIN["numIterations"],
+        "k1_launches": stats["k1i_launches"], "k2s_launches": stats["k2s_launches"],
+        "pairs": int(len(r.vals)), "nan_item_rows": nan_rows,
+        "http_p50_ms": stats["sim_http_p50_ms"],
+        "predict_p50_ms": stats["sim_predict_p50_ms"], **diffs}
+    log(json.dumps({"full_width": "similar-product ml20m rank 10 implicit f32",
+                    **stats["similar_full_width"]}))
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -1020,25 +1654,32 @@ def timings(torch, device, stats):
     stats["timings"] = rows
 
 
-def library_solve(torch, other, b, seg_row, reg: float):
-    """The library yardstick for one K1 bucket (timed here, never called
-    by the port): torch gather + bmm + torch.linalg.cholesky +
-    cholesky_solve, in f32, without the write-back."""
+def library_solve(torch, other, b, seg_row, reg: float, implicit: bool = False,
+                  alpha: float = 1.0, gram=None):
+    """The library yardstick for one K1 bucket (timed here, never called by
+    the port): torch gather + bmm (+ the Gramian for the implicit form) +
+    torch.linalg.cholesky + cholesky_solve, in f32, without the
+    write-back. Explicit: ALS-WR reg * n; implicit: plain reg."""
     ids = b.col_ids.long()
     if isinstance(other, tuple):
         vg = other[0][ids].float() * other[1][ids][..., None]
     else:
         vg = other[ids].float()
-    A = torch.bmm((vg * b.mask[..., None]).transpose(1, 2), vg)
-    rhs = torch.bmm((b.ratings * b.mask)[:, None, :], vg)[:, 0]
+    w, r = ((alpha * b.ratings * b.mask, (1.0 + alpha * b.ratings) * b.mask) if implicit
+            else (b.mask, b.ratings * b.mask))
+    A = torch.bmm((vg * w[..., None]).transpose(1, 2), vg)
+    rhs = torch.bmm(r[:, None, :], vg)[:, 0]
     n = b.mask.sum(1)
     if seg_row is not None:
         R = b.row_ids.shape[0]
         A = torch.zeros((R,) + A.shape[1:], device=A.device).index_add_(0, seg_row, A)
         rhs = torch.zeros((R, rhs.shape[1]), device=A.device).index_add_(0, seg_row, rhs)
         n = torch.zeros((R,), device=A.device).index_add_(0, seg_row, n)
-    lam = torch.where(n > 0, reg * n, torch.ones_like(n))
+    lam = torch.where(n > 0, reg * (torch.ones_like(n) if implicit else n),
+                      torch.ones_like(n))
     A.diagonal(dim1=1, dim2=2).add_(lam[:, None])
+    if implicit:
+        A += gram
     return torch.cholesky_solve(rhs[..., None], torch.linalg.cholesky(A))[..., 0]
 
 
@@ -1084,13 +1725,7 @@ def k1_timings(torch, device, stats):
                 def library():
                     return library_solve(torch, other, b, seg_row, TRAIN_REG)
 
-                live = b.mask > 0
-                n_live = int(live.sum())
-                n_other = int(torch.unique(b.col_ids[live]).numel())
-                nbytes = (B * K * 12 + (R + 1) * 4 + R * 4  # bucket arrays, offsets, ids
-                          + n_other * (D * elem + scale_bytes)  # rows gathered, once
-                          + R * (D * elem + scale_bytes))  # rows written back
-                flops = n_live * (D * (D + 1) + 2 * D) + R * (D ** 3 / 3 + 2 * D * D)
+                n_live, nbytes, flops = k1_bound(torch, b, D, elem, scale_bytes)
                 row = {"timing": "solve_bucket", "storage": storage, "side": side,
                        "K": K, "B": B, "R": R, "live": n_live,
                        "kernel_ms": cuda_median_ms(torch, kernel, runs=5, warmup=2),
@@ -1124,6 +1759,193 @@ def k1_timings(torch, device, stats):
                         "bound_ms": sum(r["bound_ms"] for r in per)}))
     stats["k1_timings"] = rows
     stats["iteration_ms"] = iteration_ms
+
+
+def k1_bound(torch, b, D: int, elem: int, scale_bytes: int, implicit: bool = False):
+    """(bytes, FP32 operations) K1 needs for one bucket of this run: the
+    bucket arrays, offsets and ids, each distinct gathered row once, the
+    rows written, and for the implicit form the [D, D] Gramian read;
+    D(D+1) + 2D operations per live entry (the symmetric Gramian and the
+    rhs) and D^3/3 + 2 D^2 per solved row (Cholesky and substitutions),
+    plus D(D+1)/2 per row to add the Gramian."""
+    R, (B, K) = b.row_ids.shape[0], b.col_ids.shape
+    live = b.mask > 0
+    n_live = int(live.sum())
+    n_other = int(torch.unique(b.col_ids[live]).numel())
+    nbytes = (B * K * 12 + (R + 1) * 4 + R * 4 + n_other * (D * elem + scale_bytes)
+              + R * (D * elem + scale_bytes) + (D * D * 4 if implicit else 0))
+    flops = n_live * (D * (D + 1) + 2 * D) + R * (D ** 3 / 3 + 2 * D * D)
+    if implicit:
+        flops += R * D * (D + 1) / 2
+    return n_live, nbytes, flops
+
+
+@phase("similar-product times")
+def similar_timings(torch, device, stats):
+    """K1's implicit mode per bucket at ML-20M-shaped view counts, rank 10
+    f32 (the similar-product defaults), beside its plain version, the
+    library yardstick and the bound of this run's buckets; compute_gram
+    and one iteration's wall time. Then K2's summed-rows mode at B = 1
+    and B = 64 (L = 4, k = 4) on a normalized f32 rank-10 catalog of the
+    ML-20M item count, beside its plain version, a ``torch.topk(q @
+    V.T)`` yardstick and its bound."""
+    from predictionio_tpu_torch.ops import als, topk
+
+    mem_rate, fp32_rate = peaks(stats["device_name"])
+    data = stats["sim20m"]
+    D, reg, alpha = 10, 0.01, 1.0
+    params = als.ALSParams(rank=D, iterations=1, reg=reg, implicit=True, alpha=alpha,
+                           seed=3)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(3)
+    U = als.init_factors(data.num_rows, D, gen, device)
+    V = als.init_factors(data.num_cols, D, gen, device)
+    rb = als.device_buckets(data.row_buckets, device)
+    cb = als.device_buckets(data.col_buckets, device)
+    rows = []
+    gram_ms = {}
+    for side, target, other, buckets in (("user", U, V, rb), ("item", V, U, cb)):
+        gram = als.compute_gram(other)
+        gram_ms[side] = _total(device_ms(torch, lambda: als.compute_gram(other), runs=20))
+        for b in buckets:
+            R, (B, K) = b.row_ids.shape[0], b.col_ids.shape
+            seg_row = als.seg_rows(b.seg_start, b.col_ids.shape[0])
+
+            def kernel():
+                als.solve_bucket(other, b.col_ids, b.ratings, b.mask, b.seg_start, reg,
+                                 weighted_reg=False, target=target, row_ids=b.row_ids,
+                                 return_x=False, implicit=True, alpha=alpha, gram=gram)
+
+            def plain():
+                als._scatter_rows(target, b.row_ids, als.solve_bucket_reference(
+                    other, b.col_ids, b.ratings, b.mask, reg, seg_row, R, False,
+                    implicit=True, alpha=alpha, gram=gram))
+
+            def library():
+                return library_solve(torch, other, b, seg_row, reg, implicit=True,
+                                     alpha=alpha, gram=gram)
+
+            n_live, nbytes, flops = k1_bound(torch, b, D, 4, 0, implicit=True)
+            row = {"timing": "solve_bucket implicit", "storage": "float32", "side": side,
+                   "K": K, "B": B, "R": R, "live": n_live,
+                   "kernel_ms": cuda_median_ms(torch, kernel, runs=5, warmup=2),
+                   "kernel_device_ms": _total(device_ms(torch, kernel, runs=5)),
+                   "plain_device_ms": _total(device_ms(torch, plain, runs=2)),
+                   "library_device_ms": _total(device_ms(torch, library, runs=2)),
+                   "bytes": nbytes, "flops": flops,
+                   "bound_ms": max(nbytes / mem_rate, flops / fp32_rate) * 1e3,
+                   "bound_by": ("bytes" if nbytes / mem_rate >= flops / fp32_rate
+                                else "operations")}
+            rows.append(row)
+            log(json.dumps(row))
+
+    def iteration():
+        als._half_step(U, V, rb, params)
+        als._half_step(V, U, cb, params)
+
+    iteration()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        iteration()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    stats["k1i_timings"] = rows
+    stats["k1i_iteration_ms"] = statistics.median(walls)
+    log(json.dumps({"timing": "implicit iteration", "storage": "float32", "rank": D,
+                    "wall_ms": stats["k1i_iteration_ms"], "launches": len(rows),
+                    "kernel_device_ms": sum(r["kernel_device_ms"] or 0 for r in rows),
+                    "compute_gram_device_ms": gram_ms,
+                    "bound_ms": sum(r["bound_ms"] for r in rows)}))
+
+    # K2 summed rows at the similar-product serving shape
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 13)
+    rng = np.random.default_rng(SEED + 13)
+    items = normalized_catalog(torch, "float32", D, gen, device)
+    width, k = 4, 4
+    k2s = []
+    for batch in BATCHES:
+        ixs = torch.from_numpy(rng.integers(0, I_ROWS, (batch, width)).astype(
+            np.int32)).to(device)
+        w = torch.ones((batch, width), device=device)
+
+        def library():
+            q = (items[ixs.long()] * w[..., None]).sum(1)
+            return torch.topk(q @ items.T, k)
+
+        call = lambda: topk.sum_rows_top_k_batch(ixs, w, items, k)  # noqa: E731
+        ref = lambda: topk.sum_rows_top_k_batch_reference(ixs, w, items, k)  # noqa: E731
+        dev = device_ms(torch, call)
+        nbytes = (I_ROWS * D * 4  # the catalog, read once (query rows are part of it)
+                  + batch * width * 8  # row ids and weights
+                  + batch * k * 8)  # scores + ids out
+        flops = 2 * batch * width * D + 2 * batch * I_ROWS * D
+        row = {"timing": "sum_rows_top_k_batch", "dtype": "float32", "B": batch,
+               "L": width, "D": D, "k": k, "I": I_ROWS,
+               "kernel_ms": cuda_median_ms(torch, call),
+               "plain_ms": cuda_median_ms(torch, ref, runs=20),
+               "library_ms": cuda_median_ms(torch, library),
+               "kernel_device_ms": _total(dev),
+               "sum_rows_device_ms": _total(dev, "sum_rows_kernel"),
+               "score_device_ms": _total(dev, "score_kernel"),
+               "select_device_ms": _total(dev, "select_kernel"),
+               "plain_device_ms": _total(device_ms(torch, ref, runs=20)),
+               "library_device_ms": _total(device_ms(torch, library)),
+               "bound_ms": max(nbytes / mem_rate, flops / fp32_rate) * 1e3,
+               "bound_by": "bytes" if nbytes / mem_rate >= flops / fp32_rate
+               else "operations", "bytes": nbytes, "flops": flops}
+        k2s.append(row)
+        log(json.dumps(row))
+    stats["k2s_timings"] = k2s
+
+
+def k1i_summary(stats) -> dict:
+    """K1 implicit's line of the kernels summary: one iteration at the
+    ML-20M-shaped view counts, rank 10 f32 (the sum over its launches)."""
+    per = stats["k1i_timings"]
+
+    def total(key):
+        vals = [r[key] for r in per]
+        return None if None in vals else sum(vals)
+
+    nbytes = sum(r["bytes"] for r in per)
+    flops = sum(r["flops"] for r in per)
+    mem_rate, fp32_rate = peaks(stats["device_name"])
+    return {
+        "name": "solve_bucket (implicit)",
+        "route": "cuda",
+        "source": "predictionio_tpu_torch/csrc/als_solve.cu",
+        "replaces": "predictionio_tpu/ops/als.py:457",
+        "launches": stats["k1i_launches"],
+        "max_abs_err": stats["k1i_max_abs_err"],
+        "ms": total("kernel_device_ms") or sum(r["kernel_ms"] for r in per),
+        "plain_ms": total("plain_device_ms"),
+        "bound_ms": sum(r["bound_ms"] for r in per),
+        "bound_by": "bytes" if nbytes / mem_rate >= flops / fp32_rate else "operations",
+        "library_ms": total("library_device_ms"),
+    }
+
+
+def k2s_summary(stats) -> dict:
+    """K2 summed rows' line: one served query (B = 1, L = 4, k = 4)."""
+    rep = stats["k2s_timings"][0]
+    dev = None not in (rep["kernel_device_ms"], rep["plain_device_ms"],
+                       rep["library_device_ms"])
+    return {
+        "name": "sum_rows_top_k_batch",
+        "route": "cuda",
+        "source": "predictionio_tpu_torch/csrc/topk.cu",
+        "replaces": "predictionio_tpu/ops/topk.py:135",
+        "launches": stats["k2s_launches"],
+        "max_abs_err": stats["k2s_max_abs_err"],
+        "ms": rep["kernel_device_ms"] if dev else rep["kernel_ms"],
+        "plain_ms": rep["plain_device_ms"] if dev else rep["plain_ms"],
+        "bound_ms": rep["bound_ms"],
+        "bound_by": rep["bound_by"],
+        "library_ms": rep["library_device_ms"] if dev else rep["library_ms"],
+    }
 
 
 def k1_summary(stats) -> dict:
@@ -1176,11 +1998,16 @@ def main() -> int:
     steps = {
         "k2": lambda: kernel_vs_plain(torch, device, stats),
         "k1": lambda: k1_vs_plain(torch, device, stats),
+        "k1i": lambda: k1_implicit_vs_plain(torch, device, stats),
+        "k2s": lambda: k2_sum_rows_vs_plain(torch, device, stats),
         "serve": lambda: the_slice(torch, device, stats),
         "lifecycle": lambda: lifecycle(torch, device, stats),
+        "simlife": lambda: similar_lifecycle(torch, device, stats),
         "train": lambda: full_width(torch, device, stats),
+        "simtrain": lambda: similar_full_width(torch, device, stats),
         "times": lambda: timings(torch, device, stats),
         "k1times": lambda: k1_timings(torch, device, stats),
+        "simtimes": lambda: similar_timings(torch, device, stats),
     }
     args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     args.add_argument(
@@ -1223,7 +2050,7 @@ def main() -> int:
         "bound_ms": rep["bound_ms"],
         "bound_by": rep["bound_by"],
         "library_ms": rep["library_device_ms"] if dev else rep["library_ms"],
-    }, k1_summary(stats)]}))
+    }, k1_summary(stats), k1i_summary(stats), k2s_summary(stats)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

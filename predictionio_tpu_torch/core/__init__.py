@@ -5,6 +5,7 @@ from predictionio_tpu_torch.core.base import (
     Algorithm,
     DataSource,
     Preparator,
+    IdentityPreparator,
     Serving,
     FirstServing,
     SanityCheck,
@@ -20,6 +21,7 @@ __all__ = [
     "Algorithm",
     "DataSource",
     "Preparator",
+    "IdentityPreparator",
     "Serving",
     "FirstServing",
     "SanityCheck",

@@ -62,6 +62,13 @@ class Preparator(Component, Generic[TD, PD], abc.ABC):
     def prepare(self, ctx: WorkflowContext, training_data: TD) -> PD: ...
 
 
+class IdentityPreparator(Preparator[TD, TD]):
+    """PD = TD passthrough (reference controller/IdentityPreparator.scala)."""
+
+    def prepare(self, ctx: WorkflowContext, training_data: TD) -> TD:
+        return training_data
+
+
 class Algorithm(Component, Generic[PD, M, Q, P], abc.ABC):
     """Train a model from prepared data; score queries against it.
 

@@ -7,21 +7,39 @@
 // epilogue :657 _scatter_rows + :591 quantize_rows; and the op the
 // deleted Pallas kernel ops/als_pallas.py::_gramian_rhs_kernel covered.
 //
-// What it computes, for solved row r of one bucket (explicit feedback):
+// What it computes, for solved row r of one bucket:
 //   for every entry t of r's table rows seg_start[r] .. seg_start[r+1]-1:
 //     g_t  = other[col_ids[t]] in the compute dtype: a cast for dense
 //            tables; for int8, q * s taken in the compute dtype (bf16
 //            compute: bf16(q) * bf16(s), rounded to bf16)
-//     w_t  = cdt(mask_t), r_t = cdt(rating_t * mask_t)  (cdt: round to
-//            the compute dtype)
+//     explicit: w_t = cdt(mask_t), r_t = cdt(rating_t * mask_t)
+//     implicit (Hu-Koren-Volinsky, :808 _bucket_weights):
+//               w_t = cdt((alpha * rating_t) * mask_t),
+//               r_t = cdt((1 + alpha * rating_t) * mask_t)
+//            (cdt: round to the compute dtype; each product and sum
+//            rounded, no FMA)
 //     A   += cdt(w_t * g_t) g_t^T,  b += r_t g_t,  n += mask_t   (float32)
 //   A += (n > 0 ? reg * (weighted ? n : 1) : 1) * I
-//   x  = A^-1 b by Cholesky (forward, then backward substitution)
+//   implicit: A += gram (Y^T Y of the whole opposite table, :667
+//            compute_gram, passed in), after the regularizer, as
+//            :823 _finish_bucket_solve adds them
+//   x  = A^-1 b by Cholesky (forward, then backward substitution); a
+//   pivot that is not > 0 (an indefinite A: implicit dislikes weigh
+//   alpha * r < 0; or a NaN) makes the whole x NaN, as the JAX package's
+//   failed Cholesky does -- no clamp, no trap
 //   x -> x_out[r] (optional), and -> target[row_ids[r]] (optional): a
 //   copy for f32, __float2bfloat16_rn for bf16, and for int8
-//   scale = max|x| / 127 (1 where that is not > 0),
+//   scale = max|x| / 127 (1 where that is not > 0, NaN included),
 //   q = rintf(x / scale) -- half to even with a true division, as
-//   jnp.round(x / scale) does. The build uses no --use_fast_math.
+//   jnp.round(x / scale) does -- and q = 0 for a NaN, as XLA converts
+//   it. The build uses no --use_fast_math.
+//
+// Padding entries (mask 0) gather their column with weight 0 in the JAX
+// program, which adds exact zeros unless that factor row is not finite
+// (0 * inf and 0 * NaN are NaN, and a NaN diagonal fails the Cholesky).
+// The kernel skips a tile of padding only: where it skipped one, it reads
+// the padding's factor row once and fails the solve if that row is not
+// finite, which is what the skipped products would have done.
 //
 // The target table is never the table being read in the same launch:
 // a half-step solves U from V (or V from U), so the in-place write-back
@@ -33,6 +51,12 @@
 // = 18.4 GFLOP, 0.27 ms at 67 TFLOP/s; the bucket arrays, 854 MB, are
 // 0.25 ms at 3.35 TB/s; both factor tables (11.1 MB and 2.1 MB) fit in
 // the 50 MB L2. So about 0.3 ms, bound by operations and bytes alike.
+// The implicit form adds one [D, D] Gramian read per solved row. At the
+// similar-product defaults (rank 10; 20 M view events counted to 16.8 M
+// pairs, 33.6 M live entries per iteration) D(D+1) + 2D = 130 operations
+// an entry make it bound by bytes: 0.236 ms per iteration, computed by
+// chip_smoke.py from the buckets of a run on an NVIDIA H100 80GB HBM3
+// at 700.00 W.
 //
 // Design (the simple, correct first version):
 //   one 256-thread block per solved row; segment offsets come from the
@@ -97,7 +121,8 @@ __global__ void __launch_bounds__(THREADS)
 solve_kernel(const T* __restrict__ other, const float* __restrict__ other_scales,
              const int* __restrict__ col_ids, const float* __restrict__ ratings,
              const float* __restrict__ mask, const int* __restrict__ seg_start,
-             int K, int D, float reg, int weighted, int bf16c,
+             int K, int D, float reg, int weighted, int bf16c, int implicit,
+             float alpha, const float* __restrict__ gram,
              float* __restrict__ x_out, void* __restrict__ target, int target_code,
              float* __restrict__ target_scales, const int* __restrict__ row_ids) {
   extern __shared__ float smem[];
@@ -143,23 +168,33 @@ solve_kernel(const T* __restrict__ other, const float* __restrict__ other_scales
   const long long base = (long long)seg_start[r] * K;
   const long long total = (long long)(seg_start[r + 1] - seg_start[r]) * K;
   float n_acc = 0.0f;  // mask sum, kept by thread 0
+  bool skipped = false;  // a tile of padding was skipped (block-uniform)
+  int pad_col = 0;       // the first skipped padding entry's column (thread 0)
   for (long long t0 = 0; t0 < total; t0 += TILE_K) {
     int live = 0;
+    int ec = -1;  // this thread's entry's column (-1 past the row's end)
     if (tid < TILE_K) {
       const long long t = t0 + tid;
-      int c = -1;
       float m = 0.0f, rt = 0.0f;
       if (t < total) {
-        c = col_ids[base + t];
+        ec = col_ids[base + t];
         m = mask[base + t];
         rt = ratings[base + t];
       }
-      float w = m, rr = __fmul_rn(rt, m);
+      float w, rr;
+      if (implicit) {
+        const float ar = __fmul_rn(alpha, rt);
+        w = __fmul_rn(ar, m);
+        rr = __fmul_rn(__fadd_rn(1.0f, ar), m);
+      } else {
+        w = m;
+        rr = __fmul_rn(rt, m);
+      }
       if (bf16c) {
         w = bf16_round(w);
         rr = bf16_round(rr);
       }
-      s_col[tid] = c;
+      s_col[tid] = ec;
       s_w[tid] = w;
       tile[tid * S + 2 * D] = rr;
       live = (m != 0.0f) || (rr != 0.0f);
@@ -169,7 +204,11 @@ solve_kernel(const T* __restrict__ other, const float* __restrict__ other_scales
         msum += __shfl_xor_sync(0xffffffffu, msum, off);
       if (tid == 0) n_acc += msum;
     }
-    if (!__syncthreads_or(live)) continue;  // all padding: adds exact zeros
+    if (!__syncthreads_or(live)) {  // all padding: adds exact zeros
+      if (tid == 0 && !skipped) pad_col = ec;
+      skipped = true;
+      continue;
+    }
     for (int e = tid; e < TILE_K * D; e += THREADS) {
       const int k = e / D;
       const int d = e - k * D;
@@ -199,23 +238,44 @@ solve_kernel(const T* __restrict__ other, const float* __restrict__ other_scales
   }
 
   // regularize: reg * (n or 1) on the diagonal, the identity when n == 0
-  if (tid == 0) s_n = n_acc;
+  if (tid == 0) {
+    s_n = n_acc;
+    s_col[0] = pad_col;
+  }
   __syncthreads();
   const float n = s_n;
+  // the skipped padding's factor row: a value that is not finite fails
+  // the solve, as its zero-weight products would have (see the header)
+  bool bad = false;
+  if (skipped) {
+    int nonfinite = 0;
+    for (int d = tid; d < D; d += THREADS) {
+      const float g =
+          gathered(other, other_scales, (size_t)s_col[0] * D + d, (size_t)s_col[0], bf16c);
+      nonfinite |= !isfinite(g);
+    }
+    bad = __syncthreads_or(nonfinite);
+  }
   float lam = weighted ? __fmul_rn(reg, n) : reg;
   if (!(n > 0.0f)) lam = 1.0f;
 #pragma unroll
   for (int q = 0; q < P; ++q) {
     if (xo[q] < D && xo[q] == yo[q] - D) acc[q] = __fadd_rn(acc[q], lam);
+    if (implicit && xo[q] < D) acc[q] = __fadd_rn(acc[q], gram[xo[q] * D + yo[q] - D]);
     if (yo[q] == 2 * D) sb[xo[q] - D] = acc[q];
   }
 
-  // Cholesky, column j at a time, on the owners' registers
-  for (int j = 0; j < D; ++j) {
+  // Cholesky, column j at a time, on the owners' registers; a pivot that
+  // is not > 0 stops it (block-uniform: every thread reads s_diag)
+  for (int j = 0; j < D && !bad; ++j) {
 #pragma unroll
     for (int q = 0; q < P; ++q)
       if (xo[q] == j && yo[q] == D + j) s_diag = acc[q];
     __syncthreads();
+    if (!(s_diag > 0.0f)) {
+      bad = true;
+      break;
+    }
     const float dj = sqrtf(s_diag);
 #pragma unroll
     for (int q = 0; q < P; ++q) {
@@ -241,8 +301,12 @@ solve_kernel(const T* __restrict__ other, const float* __restrict__ other_scales
 
   if (tid >= 32) return;
   const int lane = tid;
+  if (bad) {  // a failed factorization: x is NaN, as the JAX package's is
+    for (int d = lane; d < D; d += 32) sb[d] = __int_as_float(0x7fc00000);
+    __syncwarp();
+  }
   // L y = b
-  for (int j = 0; j < D; ++j) {
+  for (int j = 0; j < D && !bad; ++j) {
     const float yj = sb[j] / Ls[j * LD + j];
     __syncwarp();
     if (lane == 0) sb[j] = yj;
@@ -250,7 +314,7 @@ solve_kernel(const T* __restrict__ other, const float* __restrict__ other_scales
     __syncwarp();
   }
   // L^T x = y
-  for (int j = D - 1; j >= 0; --j) {
+  for (int j = D - 1; j >= 0 && !bad; --j) {
     const float xj = sb[j] / Ls[j * LD + j];
     __syncwarp();
     if (lane == 0) sb[j] = xj;
@@ -277,8 +341,10 @@ solve_kernel(const T* __restrict__ other, const float* __restrict__ other_scales
     float scale = __fdiv_rn(m, 127.0f);
     if (!(scale > 0.0f)) scale = 1.0f;
     int8_t* tt = (int8_t*)target + row * D;
-    for (int d = lane; d < D; d += 32)
-      tt[d] = (int8_t)(int)rintf(__fdiv_rn(sb[d], scale));
+    for (int d = lane; d < D; d += 32) {
+      const float v = __fdiv_rn(sb[d], scale);
+      tt[d] = v != v ? (int8_t)0 : (int8_t)(int)rintf(v);  // NaN -> 0, as XLA
+    }
     if (lane == 0) target_scales[row] = scale;
   }
 }
@@ -287,6 +353,7 @@ template <typename T, int P>
 cudaError_t launch(const void* other, const float* other_scales, const int* col_ids,
                    const float* ratings, const float* mask, const int* seg_start,
                    int R, int K, int D, float reg, int weighted, int bf16c,
+                   int implicit, float alpha, const float* gram,
                    float* x_out, void* target, int target_code, float* target_scales,
                    const int* row_ids, cudaStream_t stream) {
   const size_t smem =
@@ -298,7 +365,8 @@ cudaError_t launch(const void* other, const float* other_scales, const int* col_
   }
   solve_kernel<T, P><<<R, THREADS, smem, stream>>>(
       (const T*)other, other_scales, col_ids, ratings, mask, seg_start, K, D, reg,
-      weighted, bf16c, x_out, target, target_code, target_scales, row_ids);
+      weighted, bf16c, implicit, alpha, gram, x_out, target, target_code, target_scales,
+      row_ids);
   return cudaGetLastError();
 }
 
@@ -306,14 +374,15 @@ template <typename T>
 cudaError_t dispatch(const void* other, const float* other_scales, const int* col_ids,
                      const float* ratings, const float* mask, const int* seg_start,
                      int R, int K, int D, float reg, int weighted, int bf16c,
+                     int implicit, float alpha, const float* gram,
                      float* x_out, void* target, int target_code, float* target_scales,
                      const int* row_ids, cudaStream_t stream) {
   // owned entries per thread: ceil((D(D+1)/2 + D) / THREADS)
   const int need = (D * (D + 3) / 2 + THREADS - 1) / THREADS;
 #define PIO_K1_LAUNCH(PV)                                                          \
   return launch<T, PV>(other, other_scales, col_ids, ratings, mask, seg_start, R, \
-                       K, D, reg, weighted, bf16c, x_out, target, target_code,    \
-                       target_scales, row_ids, stream)
+                       K, D, reg, weighted, bf16c, implicit, alpha, gram, x_out,  \
+                       target, target_code, target_scales, row_ids, stream)
   if (need <= 1) PIO_K1_LAUNCH(1);
   if (need <= 2) PIO_K1_LAUNCH(2);
   if (need <= 4) PIO_K1_LAUNCH(4);
@@ -327,18 +396,21 @@ cudaError_t dispatch(const void* other, const float* other_scales, const int* co
 
 // Solve one bucket. Pointers are device pointers; other_scales and
 // target_scales are NULL unless the table is int8; x_out and target may
-// each be NULL. Returns cudaGetLastError() after the launch (or the
+// each be NULL; gram ([D, D] f32, row-major) is read only when implicit
+// is set, and must then be given. Returns cudaGetLastError() after the launch (or the
 // error of a refused argument: cudaErrorInvalidValue).
 extern "C" int pio_k1_solve_bucket(const void* other, int other_code,
                                    const float* other_scales, const int* col_ids,
                                    const float* ratings, const float* mask,
                                    const int* seg_start, int R, int K, int D,
                                    float reg, int weighted, int bf16_compute,
+                                   int implicit, float alpha, const float* gram,
                                    float* x_out, void* target, int target_code,
                                    float* target_scales, const int* row_ids,
                                    void* stream) {
   if (R <= 0) return 0;
   if (D < 1 || D > MAX_D || K < 1) return (int)cudaErrorInvalidValue;
+  if (implicit && gram == nullptr) return (int)cudaErrorInvalidValue;
   if ((other_code == I8) != (other_scales != nullptr)) return (int)cudaErrorInvalidValue;
   if (target != nullptr &&
       ((target_code == I8) != (target_scales != nullptr) || row_ids == nullptr))
@@ -348,19 +420,20 @@ extern "C" int pio_k1_solve_bucket(const void* other, int other_code,
   switch (other_code) {
     case F32:
       err = dispatch<float>(other, other_scales, col_ids, ratings, mask, seg_start, R,
-                            K, D, reg, weighted, bf16_compute, x_out, target,
-                            target_code, target_scales, row_ids, s);
+                            K, D, reg, weighted, bf16_compute, implicit, alpha, gram,
+                            x_out, target, target_code, target_scales, row_ids, s);
       break;
     case BF16:
       err = dispatch<__nv_bfloat16>(other, other_scales, col_ids, ratings, mask,
                                     seg_start, R, K, D, reg, weighted, bf16_compute,
-                                    x_out, target, target_code, target_scales,
-                                    row_ids, s);
+                                    implicit, alpha, gram, x_out, target, target_code,
+                                    target_scales, row_ids, s);
       break;
     case I8:
       err = dispatch<int8_t>(other, other_scales, col_ids, ratings, mask, seg_start,
-                             R, K, D, reg, weighted, bf16_compute, x_out, target,
-                             target_code, target_scales, row_ids, s);
+                             R, K, D, reg, weighted, bf16_compute, implicit, alpha,
+                             gram, x_out, target, target_code, target_scales, row_ids,
+                             s);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -1,7 +1,10 @@
 // K2: fused gather -> score -> top-k for ALS serving, for Hopper (sm_90a).
 //
 // Replaces predictionio_tpu/ops/topk.py:90 gather_top_k_batch (a jax.jit
-// XLA program: row gather, dequantize, [B, I] matmul, mask, lax.top_k).
+// XLA program: row gather, dequantize, [B, I] matmul, mask, lax.top_k),
+// and, in its summed-rows mode (pio_k2_sum_rows_top_k), :135
+// sum_rows_top_k_batch, the cosine templates' query: the weighted sum of
+// several catalog rows, scored against the same catalog.
 //
 // What it computes, per query row b and catalog row i:
 //   u_b      = float(U[ix_b]) (* u_scale[ix_b] for int8 storage)
@@ -13,12 +16,21 @@
 //              key = bits < 0 ? bits ^ 0x7FFFFFFF : bits (IEEE total
 //              order: NaN above +inf, +0 above -0), descending, lower
 //              index first on equal keys -- jax.lax.top_k's order.
+// Summed-rows mode: the query row is not a row of U but
+//   u_bd     = sum_{l=0..L-1} deq(V[ix_bl, d]) * w_bl
+//              (deq: float(q) * v_scale[ix] for int8, a cast otherwise;
+//              each product and partial sum rounded, l in order from
+//              +0.0, zero weights multiplied in, never skipped)
+// and the scores follow as above. One thread sums each (b, d), so a
+// query's bits do not depend on the batch (batch invariance) nor on
+// weight-0 padding of its row list (padding invariance: +0.0 products).
 //
 // What bounds it on an H100: reading the catalog once, I*D*bytes (ML-20M
 // shape, rank 20: 2.14 MB f32, 1.07 MB bf16, 0.53 MB + 0.11 MB scales
 // int8) against 3.35 TB/s, plus 2*B*I*D FP32 operations. The whole catalog
 // fits in the 50 MB L2, so a served query (B = 1) is bound by launch
-// latency, not by bytes.
+// latency, not by bytes. The summed-rows mode reads its B x L query rows
+// from the same catalog and adds 2 * B * L * D operations: the same bound.
 //
 // Design (the simple, correct first version):
 //   launch 1, score_kernel: one block per (128-item tile, 8-query tile).
@@ -35,6 +47,9 @@
 //     winners survive; winners are sorted on the 64-bit composite
 //     (key << 32 | ~index) -- bitonic in shared memory up to 2048, past
 //     that each winner's rank is counted against all the others.
+//   Summed-rows mode adds launch 0, sum_rows_kernel: one block per query
+//   row, one thread per factor dim, writing the [B, D] f32 query rows to
+//   a scratch that launch 1 reads as its U (identity row indices).
 //   Keeping [B, I] out of device memory (per-tile candidate merge) is
 //   later work.
 
@@ -74,7 +89,9 @@ score_kernel(const int* __restrict__ user_ixs, int B,
   const int i0 = blockIdx.x * TILE_I;
   const int b0 = blockIdx.y * TILE_B;
   const int nb = min(TILE_B, B - b0);
-  if (t < TILE_B) rows[t] = t < nb ? user_ixs[b0 + t] : 0;
+  // user_ixs NULL: U holds the query rows themselves, in batch order
+  if (t < TILE_B)
+    rows[t] = t < nb ? (user_ixs != nullptr ? user_ixs[b0 + t] : b0 + t) : 0;
   float acc[TILE_B];
 #pragma unroll
   for (int bb = 0; bb < TILE_B; ++bb) acc[bb] = 0.0f;
@@ -117,6 +134,28 @@ score_kernel(const int* __restrict__ user_ixs, int B,
       const float s = v_scales != nullptr ? acc[bb] * vs : acc[bb];
       scores[(size_t)(b0 + bb) * I + i] = masked ? NEG_INF : s;
     }
+  }
+}
+
+// Launch 0 of the summed-rows mode: q[b, d] = sum_l deq(V[ix[b, l], d]) * w[b, l].
+template <typename TV>
+__global__ void sum_rows_kernel(const int* __restrict__ row_ixs,
+                                const float* __restrict__ row_w, int L,
+                                const TV* __restrict__ V,
+                                const float* __restrict__ v_scales, int D,
+                                float* __restrict__ qvec) {
+  const int b = blockIdx.x;
+  const int* ix = row_ixs + (size_t)b * L;
+  const float* w = row_w + (size_t)b * L;
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float q = 0.0f;
+    for (int l = 0; l < L; ++l) {
+      const int r = ix[l];
+      float v = to_f32(V[(size_t)r * D + d]);
+      if (v_scales != nullptr) v = __fmul_rn(v, v_scales[r]);
+      q = __fadd_rn(q, __fmul_rn(v, w[l]));
+    }
+    qvec[(size_t)b * D + d] = q;
   }
 }
 
@@ -312,6 +351,47 @@ int pio_k2_select(const float* scores, int B, int I, int k, void* cand,
       scores, I, k, static_cast<unsigned long long*>(cand), out_scores,
       out_ids);
   return (int)cudaGetLastError();
+}
+
+// The summed-rows K2 call: sum_rows_kernel into `qvec` ([B, D] f32
+// scratch), score_kernel against V into `scores` ([B, I] f32 scratch),
+// then select_kernel. row_ixs, row_w: [B, L]. v_scales / mask may be
+// null. Returns cudaGetLastError().
+int pio_k2_sum_rows_top_k(const int* row_ixs, const float* row_w, int B, int L,
+                          const void* V, int v_dtype, const float* v_scales,
+                          const uint8_t* mask, int I, int D, int k, float* qvec,
+                          float* scores, void* cand, float* out_scores,
+                          int* out_ids, void* stream) {
+  if (B <= 0 || L < 0 || I <= 0 || D <= 0 || k <= 0 || k > I)
+    return (int)cudaErrorInvalidValue;
+  if ((v_dtype == I8) != (v_scales != nullptr)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int threads = D < 128 ? ((D + 31) / 32) * 32 : 128;
+  switch (v_dtype) {
+    case F32:
+      sum_rows_kernel<float><<<B, threads, 0, s>>>(
+          row_ixs, row_w, L, static_cast<const float*>(V), v_scales, D, qvec);
+      break;
+    case BF16:
+      sum_rows_kernel<__nv_bfloat16><<<B, threads, 0, s>>>(
+          row_ixs, row_w, L, static_cast<const __nv_bfloat16*>(V), v_scales, D, qvec);
+      break;
+    case I8:
+      sum_rows_kernel<int8_t><<<B, threads, 0, s>>>(
+          row_ixs, row_w, L, static_cast<const int8_t*>(V), v_scales, D, qvec);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((I + TILE_I - 1) / TILE_I, (B + TILE_B - 1) / TILE_B);
+  err = launch_score_u<float>(v_dtype, grid, s, nullptr, B, qvec, nullptr, V,
+                              v_scales, mask, I, D, scores);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return pio_k2_select(scores, B, I, k, cand, out_scores, out_ids, stream);
 }
 
 // The fused K2 call: score_kernel into `scores` ([B, I] f32 scratch), then

@@ -4,9 +4,9 @@ Port of ``predictionio_tpu/data/storage/base.py``: the ``App``,
 ``Channel``, ``EngineInstance`` and ``Model`` records, the columnar
 ``RatingsBatch``, and the DAO contracts the train and deploy paths use
 (reference Apps.scala:32, Channels.scala:32, EngineInstances.scala:46,
-Models.scala:33, LEvents.scala:40). Access keys, evaluation instances
-and the event-server side of ``Events`` (tails, change tokens, property
-aggregation) come with later slices.
+Models.scala:33, LEvents.scala:40), with property aggregation. Access
+keys, evaluation instances and the event-server side of ``Events``
+(tails, change tokens) come with later slices.
 """
 
 from __future__ import annotations
@@ -300,6 +300,43 @@ class Events(abc.ABC):
             cols=np.asarray(cols, dtype=np.int32),
             vals=np.asarray(vals, dtype=np.float32),
         )
+
+    def aggregate_properties(
+        self,
+        app_id: int,
+        channel_id: int | None = None,
+        entity_type: str = "",
+        start_time: datetime | None = None,
+        until_time: datetime | None = None,
+        required: Sequence[str] | None = None,
+    ) -> dict[str, Any]:
+        """Aggregated entityId -> PropertyMap view (LEvents.scala:373-418):
+        the entity type's ``$set`` / ``$unset`` / ``$delete`` events
+        replayed in time order (``data/aggregator.py``).
+
+        ``entity_type`` is mandatory (as in the reference API): aggregating
+        across entity types would merge unrelated entities sharing an id.
+        """
+        if not entity_type:
+            raise ValueError("aggregate_properties requires entity_type")
+        from predictionio_tpu_torch.data.aggregator import (
+            AGGREGATOR_EVENT_NAMES,
+            aggregate_properties,
+        )
+
+        events = self.find(
+            app_id=app_id,
+            channel_id=channel_id,
+            start_time=start_time,
+            until_time=until_time,
+            entity_type=entity_type,
+            event_names=list(AGGREGATOR_EVENT_NAMES),
+        )
+        result = aggregate_properties(events)
+        if required:
+            req = set(required)
+            result = {k: v for k, v in result.items() if req.issubset(v.keyset())}
+        return result
 
     def close(self) -> None:
         """Release backend resources."""

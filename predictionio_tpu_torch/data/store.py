@@ -1,6 +1,6 @@
 """Engine-facing event store facade: app-name-based reads.
 
-Port of ``predictionio_tpu/data/store.py`` (:27-154; reference
+Port of ``predictionio_tpu/data/store.py`` (:27-154, :178; reference
 store/PEventStore.scala:35-121, Common.scala:24-53): (appName,
 channelName) resolve to ids through the metadata store, then the event
 DAO answers. Templates read events through this module only.
@@ -96,4 +96,26 @@ def find_ratings(
         rating_key=rating_key,
         default_ratings=default_ratings,
         override_ratings=override_ratings,
+    )
+
+
+def aggregate_properties(
+    app_name: str,
+    entity_type: str,
+    channel_name: str | None = None,
+    start_time: datetime | None = None,
+    until_time: datetime | None = None,
+    required: Sequence[str] | None = None,
+    storage: Storage | None = None,
+):
+    """Aggregated entityId -> PropertyMap (PEventStore.aggregateProperties)."""
+    storage = storage or get_storage()
+    app_id, channel_id = app_name_to_id(app_name, channel_name, storage)
+    return storage.get_events().aggregate_properties(
+        app_id=app_id,
+        channel_id=channel_id,
+        entity_type=entity_type,
+        start_time=start_time,
+        until_time=until_time,
+        required=required,
     )

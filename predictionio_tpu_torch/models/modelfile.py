@@ -67,6 +67,8 @@ _PORT = "predictionio_tpu_torch"
 _PORTED_CLASSES = {
     "predictionio_tpu.models.recommendation.ALSModel":
         (f"{_PORT}.models.recommendation", "ALSModel"),
+    "predictionio_tpu.models.similarproduct.SimilarProductModel":
+        (f"{_PORT}.models.similarproduct", "SimilarProductModel"),
 }
 # and back: the name the port records for each of those classes
 _RECORDED_NAMES = {

@@ -1,6 +1,7 @@
-"""Alternating Least Squares on PyTorch + CUDA: explicit feedback.
+"""Alternating Least Squares on PyTorch + CUDA: explicit and implicit
+feedback.
 
-Port of ``predictionio_tpu/ops/als.py`` (single card, explicit ALS):
+Port of ``predictionio_tpu/ops/als.py`` (single card):
 
 - host layout: ratings -> degree-bucketed padded neighbour lists
   (:func:`build_padded_buckets`, :func:`build_ratings_data`), numpy code
@@ -10,7 +11,8 @@ Port of ``predictionio_tpu/ops/als.py`` (single card, explicit ALS):
   float32 [N])`` with ``row = values * scale`` (per-row max-abs/127);
 - K1, the fused bucket solve (:func:`solve_bucket`): gather the
   opposite factor rows a bucket names, accumulate ``A = sum w v v^T``
-  and ``b = sum r v`` in float32, add a hot row's segments, regularize,
+  and ``b = sum r v`` in float32, add a hot row's segments, regularize
+  (implicit feedback: also add ``Y^T Y``, :func:`compute_gram`),
   Cholesky-solve, and write the solved rows back into the storage table.
   On CUDA tensors it launches the hand-written kernel
   ``csrc/als_solve.cu``; on CPU tensors it runs the plain PyTorch version
@@ -22,8 +24,13 @@ Port of ``predictionio_tpu/ops/als.py`` (single card, explicit ALS):
 
 The random init cannot reproduce ``jax.random``'s bits: parity runs feed
 both packages the same initial factors through ``warm_start``.
-The implicit solve, ``compute_gram``, the parameter sweep, the prep
-cache's ``splice_padded_buckets`` and checkpointing are later slices.
+The parameter sweep, the prep cache's ``splice_padded_buckets`` and
+checkpointing are later slices.
+
+An indefinite system (implicit feedback with negative ratings, e.g. the
+similar-product template's dislikes) solves to an all-NaN row, as the
+JAX package's failed Cholesky gives, and an int8 write-back stores such a
+row as zeros with scale 1. The port reproduces this; it does not fix it.
 """
 
 from __future__ import annotations
@@ -278,12 +285,15 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     ``torch.round`` rounds half to even, as ``jnp.round`` does. Both
     divisions are true divisions: PyTorch's CUDA ``div`` by a Python
     scalar multiplies by its reciprocal, which rounds differently, so the
-    127 is a tensor here."""
+    127 is a tensor here. A NaN row gets scale 1 and quantizes to zeros,
+    as XLA converts NaN to int8 (a NaN cast to int8 is undefined in
+    PyTorch, so it is zeroed first)."""
     x = x.to(torch.float32)
     m = x.abs().amax(dim=-1)
     scale = m / torch.full_like(m, 127.0)
     scale = torch.where(scale > 0, scale, torch.ones_like(scale))
-    q = torch.round(x / scale[..., None]).to(torch.int8)
+    v = torch.round(x / scale[..., None])
+    q = torch.where(torch.isnan(v), torch.zeros_like(v), v).to(torch.int8)
     return q, scale
 
 
@@ -366,10 +376,36 @@ def _scatter_rows(target, row_ids: torch.Tensor, x: torch.Tensor) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _bucket_weights(ratings: torch.Tensor, mask: torch.Tensor, dt: torch.dtype):
-    """Per-entry Gramian weight ``w = mask`` and rhs weight ``r = rating *
-    mask``, each rounded to the compute dtype (explicit feedback)."""
+def _bucket_weights(ratings: torch.Tensor, mask: torch.Tensor, dt: torch.dtype,
+                    implicit: bool = False, alpha: float = 1.0):
+    """Per-entry Gramian weight ``w`` and rhs weight ``r``, each rounded
+    to the compute dtype. Explicit: ``w = mask``, ``r = rating * mask``.
+    Implicit (Hu-Koren-Volinsky confidence ``1 + alpha * r``): ``w =
+    alpha * rating * mask``, ``r = (1 + alpha * rating) * mask``."""
+    if implicit:
+        return ((alpha * ratings) * mask).to(dt), ((1.0 + alpha * ratings) * mask).to(dt)
     return mask.to(dt), (ratings * mask).to(dt)
+
+
+def compute_gram(factors, compute_dtype: str = "float32") -> torch.Tensor:
+    """``Y^T Y`` ``[D, D]`` float32 of a whole factor table, read in the
+    compute dtype (the implicit-feedback term). A bf16 value times a bf16
+    value is exact in float32, so the float32 product of the upcast
+    table is the JAX package's bf16 product with float32 accumulation.
+    A plain matrix product outside any kernel (the JAX package leaves it
+    to XLA): ``torch.matmul``, TF32 off on the card."""
+    y = dense_factors(factors, _COMPUTE_DTYPES[compute_dtype]).to(torch.float32)
+    return y.T @ y
+
+
+def _cholesky_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched SPD solve; a system whose Cholesky fails (a pivot that is
+    not > 0, NaN included) solves to an all-NaN row, as the JAX package's
+    ``cho_factor`` / ``cho_solve`` gives."""
+    L, info = torch.linalg.cholesky_ex(A)
+    x = torch.cholesky_solve(b[:, :, None], L)[:, :, 0]
+    failed = (info > 0) | ~(L.diagonal(dim1=-2, dim2=-1) > 0).all(dim=-1)
+    return torch.where(failed[:, None], torch.full_like(x, float("nan")), x)
 
 
 def solve_bucket_reference(
@@ -383,20 +419,28 @@ def solve_bucket_reference(
     weighted_reg: bool = True,
     compute_dtype: str = "float32",
     gather_chunk_bytes: int = 2 << 30,
+    implicit: bool = False,
+    alpha: float = 1.0,
+    gram: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The plain PyTorch version of K1: ``x [R, D]`` float32.
 
     Gathers ``other[col_ids]`` (dequantizing int8 in ``compute_dtype``),
-    builds ``A = (v*w)^T v`` and ``b = r^T v`` with ``bmm`` in float32,
-    index-adds the segments of hot rows, adds ``reg * (n or 1) * I``
-    (the identity where ``n == 0``) and solves by Cholesky. The
+    builds ``A = (v*w)^T v`` and ``b = r^T v`` with ``bmm`` in float32
+    (``w``, ``r``: :func:`_bucket_weights`), index-adds the segments of
+    hot rows, adds ``reg * (n or 1) * I`` (the identity where ``n ==
+    0``), then with ``implicit`` the ``[D, D]`` ``gram``, in that order
+    (``_finish_bucket_solve``), and solves by Cholesky
+    (:func:`_cholesky_solve`: a failed factorization gives NaN). The
     ``[B, K, D]`` gather is taken in chunks of at most
     ``gather_chunk_bytes`` (``_gramian_rhs_gathered``)."""
     dt = _COMPUTE_DTYPES[compute_dtype]
     B, K = col_ids.shape
     D = table_dim(other)
     device = col_ids.device
-    w, r = _bucket_weights(ratings, mask, dt)
+    if implicit and gram is None:
+        raise ValueError("an implicit solve needs gram (compute_gram of other)")
+    w, r = _bucket_weights(ratings, mask, dt, implicit, alpha)
     itemsize = torch.empty((), dtype=dt).element_size()
     if B * K * D * itemsize <= gather_chunk_bytes or B <= 1:
         chunk = max(B, 1)
@@ -422,8 +466,9 @@ def solve_bucket_reference(
     lam = reg * n if weighted_reg else torch.full_like(n, reg)
     lam = torch.where(n > 0, lam, torch.ones_like(lam))
     A = A + lam[:, None, None] * torch.eye(D, dtype=torch.float32, device=device)
-    L = torch.linalg.cholesky(A)
-    return torch.cholesky_solve(b[:, :, None], L)[:, :, 0]
+    if implicit:
+        A = A + gram.to(torch.float32)[None, :, :]
+    return _cholesky_solve(A, b)
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -439,6 +484,7 @@ def _lib() -> ctypes.CDLL:
             _P, _P, _P, _P,  # col_ids, ratings, mask, seg_start
             _I, _I, _I,  # R, K, D
             ctypes.c_float, _I, _I,  # reg, weighted, bf16 compute
+            _I, ctypes.c_float, _P,  # implicit, alpha, gram (or NULL)
             _P,  # x out (or NULL)
             _P, _I, _P, _P,  # target values, dtype code, scales, row_ids
             _P,  # stream
@@ -490,8 +536,11 @@ def solve_bucket(
     row_ids: torch.Tensor | None = None,
     return_x: bool = True,
     gather_chunk_bytes: int = 2 << 30,
+    implicit: bool = False,
+    alpha: float = 1.0,
+    gram: torch.Tensor | None = None,
 ):
-    """K1: one bucket's explicit-feedback solve, with its write-back.
+    """K1: one bucket's solve, with its write-back.
 
     ``other``: the opposite factor table (dense f32/bf16 ``[N, D]`` or the
     int8 pair), D <= 128. ``col_ids`` int32, ``ratings``/``mask`` float32
@@ -501,8 +550,11 @@ def solve_bucket(
     solved side) and ``row_ids`` (int32 ``[R]``), solved row r is written
     into ``target[row_ids[r]]`` in place: a cast for f32/bf16, the
     per-row max-abs/127 requantize for int8. ``target`` must not be
-    ``other`` (U is solved from V and V from U). Returns ``x [R, D]``
-    float32 when ``return_x``, else None.
+    ``other`` (U is solved from V and V from U). ``implicit`` solves the
+    Hu-Koren-Volinsky system with confidence ``1 + alpha * rating`` and
+    the float32 ``[D, D]`` ``gram`` of ``other`` (:func:`compute_gram`);
+    ``weighted_reg`` is then the caller's ``implicit_weighted_reg``.
+    Returns ``x [R, D]`` float32 when ``return_x``, else None.
 
     CPU tensors take :func:`solve_bucket_reference` + :func:`_scatter_rows`;
     CUDA tensors launch the kernel (``csrc/als_solve.cu``) or raise. As
@@ -513,13 +565,15 @@ def solve_bucket(
         raise ValueError(f"compute_dtype must be one of {sorted(_COMPUTE_DTYPES)}")
     if target is not None and row_ids is None:
         raise ValueError("a write-back target needs row_ids")
+    if implicit and gram is None:
+        raise ValueError("an implicit solve needs gram (compute_gram of other)")
     device = col_ids.device
     R = seg_start.shape[0] - 1
     if device.type == "cpu":
         x = solve_bucket_reference(
             other, col_ids, ratings, mask, reg,
             seg_rows(seg_start, col_ids.shape[0]), R, weighted_reg,
-            compute_dtype, gather_chunk_bytes,
+            compute_dtype, gather_chunk_bytes, implicit, alpha, gram,
         )
         if target is not None:
             _scatter_rows(target, row_ids, x)
@@ -539,6 +593,8 @@ def solve_bucket(
     _check(ratings, "ratings", torch.float32, (B, K), device)
     _check(mask, "mask", torch.float32, (B, K), device)
     _check(seg_start, "seg_start", torch.int32, (R + 1,), device)
+    if implicit:
+        _check(gram, "gram", torch.float32, (D, D), device)
     t_vals = t_scales = None
     t_code = 0
     if target is not None:
@@ -563,6 +619,7 @@ def solve_bucket(
             col_ids.data_ptr(), ratings.data_ptr(), mask.data_ptr(),
             seg_start.data_ptr(), R, K, D,
             float(reg), int(bool(weighted_reg)), int(compute_dtype == "bfloat16"),
+            int(bool(implicit)), float(alpha), gram.data_ptr() if implicit else None,
             None if x is None else x.data_ptr(),
             None if t_vals is None else t_vals.data_ptr(), t_code,
             None if t_scales is None else t_scales.data_ptr(),
@@ -590,17 +647,47 @@ def solve_bucket_explicit(
     ``A_u = sum v v^T + reg * (n_u if weighted_reg else 1) * I``,
     ``b_u = sum r v``; returns ``x [B, D]`` float32 on the table's
     device (the public single-bucket solve, through K1)."""
+    return _solve_unsegmented(factors_other, col_ids, ratings, mask, reg,
+                              weighted_reg=weighted_reg, compute_dtype=compute_dtype)
+
+
+def _solve_unsegmented(factors_other, col_ids, ratings, mask, reg: float, **kwargs):
+    """K1 on one unsegmented bucket given as arrays of any origin: moved to
+    the table's device in K1's dtypes, one table row per solved row."""
     values = factors_other[0] if isinstance(factors_other, tuple) else factors_other
     device = values.device
     col_ids = torch.as_tensor(col_ids, device=device).to(torch.int32).contiguous()
     ratings = torch.as_tensor(ratings, device=device).to(torch.float32).contiguous()
     mask = torch.as_tensor(mask, device=device).to(torch.float32).contiguous()
-    B = col_ids.shape[0]
-    seg_start = torch.arange(B + 1, dtype=torch.int32, device=device)
-    return solve_bucket(
-        factors_other, col_ids, ratings, mask, seg_start, reg,
-        weighted_reg=weighted_reg, compute_dtype=compute_dtype,
-    )
+    seg_start = torch.arange(col_ids.shape[0] + 1, dtype=torch.int32, device=device)
+    return solve_bucket(factors_other, col_ids, ratings, mask, seg_start, reg, **kwargs)
+
+
+def solve_bucket_implicit(
+    factors_other,
+    gram,
+    col_ids,
+    ratings,
+    mask,
+    reg: float,
+    alpha: float,
+    weighted_reg: bool = False,
+    compute_dtype: str = "float32",
+) -> torch.Tensor:
+    """Implicit-feedback solve of one padded, unsegmented bucket
+    (Hu-Koren-Volinsky; MLlib ``trainImplicit``): confidence ``c = 1 +
+    alpha * r``, ``A_u = Y^T Y + sum alpha r v v^T + reg * (n_u if
+    weighted_reg else 1) * I``, ``b_u = sum (1 + alpha r) v``, with
+    ``gram = Y^T Y`` over the whole opposite table (:func:`compute_gram`).
+    Returns ``x [B, D]`` float32 on the table's device, through K1, which
+    adds the regularizer before the Gramian as the training path does
+    (the JAX package's standalone solve adds ``gram + A_c + lam I``: the
+    same sum, rounded in another order)."""
+    values = factors_other[0] if isinstance(factors_other, tuple) else factors_other
+    gram = torch.as_tensor(gram, device=values.device).to(torch.float32).contiguous()
+    return _solve_unsegmented(factors_other, col_ids, ratings, mask, reg,
+                              weighted_reg=weighted_reg, compute_dtype=compute_dtype,
+                              implicit=True, alpha=alpha, gram=gram)
 
 
 # ---------------------------------------------------------------------------
@@ -611,8 +698,8 @@ def solve_bucket_explicit(
 @dataclass(frozen=True)
 class ALSParams:
     """The JAX package's ``ALSParams``, every field kept so variants and
-    persisted params read the same. ``implicit`` and the sharded-trainer
-    budget belong to later slices; ``als_train`` refuses ``implicit``."""
+    persisted params read the same. The sharded-trainer budget belongs to
+    a later slice."""
 
     rank: int = 10
     iterations: int = 10
@@ -689,13 +776,17 @@ def device_buckets(buckets: Sequence[PaddedBucket],
 
 def _half_step(target, other, buckets: Sequence[DeviceBucket], params: ALSParams) -> None:
     """Solve every bucket of one side from ``other`` and write the rows
-    into ``target`` in place: one K1 launch per bucket."""
+    into ``target`` in place: one K1 launch per bucket. Implicit feedback
+    first computes ``other``'s Gramian, once for the half-step."""
+    gram = compute_gram(other, params.compute_dtype) if params.implicit else None
+    weighted = params.implicit_weighted_reg if params.implicit else params.weighted_reg
     for b in buckets:
         solve_bucket(
             other, b.col_ids, b.ratings, b.mask, b.seg_start, params.reg,
-            weighted_reg=params.weighted_reg, compute_dtype=params.compute_dtype,
+            weighted_reg=weighted, compute_dtype=params.compute_dtype,
             target=target, row_ids=b.row_ids, return_x=False,
             gather_chunk_bytes=params.gather_chunk_bytes,
+            implicit=params.implicit, alpha=params.alpha, gram=gram,
         )
 
 
@@ -733,13 +824,9 @@ def als_train(
     factors. ``warm_start`` is an optional ``(U0, V0)`` pair of full-size
     float32 arrays; NaN rows keep the cold draw. ``tol > 0`` stops when
     the per-iteration train RMSE improves by less than ``tol``.
-    Checkpointing (``PIO_CHECKPOINT_EVERY`` / ``PIO_RESUME``) is a later
-    slice of the port and raises."""
-    if params.implicit:
-        raise NotImplementedError(
-            "implicit ALS (solve_bucket_implicit, compute_gram) is a later "
-            "slice of the PyTorch port"
-        )
+    ``params.implicit`` trains Hu-Koren-Volinsky implicit feedback on the
+    same K1 launches. Checkpointing (``PIO_CHECKPOINT_EVERY`` /
+    ``PIO_RESUME``) is a later slice of the port and raises."""
     if _checkpoints_requested():
         raise NotImplementedError(
             "PIO_CHECKPOINT_EVERY / PIO_RESUME: checkpointing (core/"

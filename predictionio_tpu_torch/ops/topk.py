@@ -3,10 +3,12 @@
 Port of ``predictionio_tpu/ops/topk.py:90 gather_top_k_batch``: gather B
 user rows by index from the device-resident user table, dequantize,
 score them against the whole item catalog, mask excluded items, and
-take the top k. On a CUDA tensor the wrapper launches the hand-written
-kernel ``csrc/topk.cu``; on a CPU tensor it runs the plain PyTorch
-version beside it (``gather_top_k_batch_reference``). There is no
-fallback from one to the other.
+take the top k; and of ``:135 sum_rows_top_k_batch``, K2's summed-rows
+mode, whose query row is the weighted sum of several catalog rows (the
+cosine templates: similar products). On a CUDA tensor each wrapper
+launches the hand-written kernel ``csrc/topk.cu``; on a CPU tensor it
+runs the plain PyTorch version beside it (``*_reference``). There is no
+fallback from one to the other. ``catalog_norms`` (``:231``) is plain.
 
 Order contract (``jax.lax.top_k``'s): descending by the order-preserving
 int key of the f32 score -- ``bits < 0 ? bits ^ 0x7FFFFFFF : bits``, so
@@ -19,7 +21,9 @@ Batch invariance: a row's scores and ids do not depend on the batch size
 d = 0..D-1 -- so a query answered alone is byte-identical to the same
 query inside a batch. The two versions also agree with each other bit
 for bit: the kernel rounds each product and partial sum as the plain
-version's elementwise ops do (no FMA).
+version's elementwise ops do (no FMA). A summed-rows query adds its rows
+in the fixed order l = 0..L-1 the same way, multiplying weight-0 padding
+in (exact +0.0), so it is also invariant to the padded width L.
 """
 
 from __future__ import annotations
@@ -65,8 +69,27 @@ def _dense_rows(table, ixs: torch.Tensor) -> torch.Tensor:
     """``table[ixs]`` as f32, dequantizing an int8 pair after the gather."""
     if isinstance(table, tuple):
         q, s = table
-        return q[ixs].to(torch.float32) * s[ixs][:, None]
+        return q[ixs].to(torch.float32) * s[ixs][..., None]
     return table[ixs].to(torch.float32)
+
+
+def _score_top_k_reference(queries: torch.Tensor, item_factors, k: int,
+                           exclude_mask=None):
+    """Score f32 query rows ``[B, D]`` against the catalog and take the
+    top k: the kernel's arithmetic (``sum_d q_d * v_d`` over d = 0..D-1
+    in order, each product and partial sum rounded to f32, from +0.0),
+    times the int8 item scale after the product, masked to ``NEG_INF``."""
+    values = item_factors[0] if isinstance(item_factors, tuple) else item_factors
+    items = values.to(torch.float32)  # [I, D]
+    scores = queries.new_zeros((queries.shape[0], items.shape[0]))
+    for d in range(items.shape[1]):
+        scores = scores + queries[:, d, None] * items[None, :, d]
+    if isinstance(item_factors, tuple):
+        scores = scores * item_factors[1][None, :]
+    if exclude_mask is not None:
+        mask = torch.as_tensor(exclude_mask, device=values.device).to(torch.bool)
+        scores = torch.where(mask[None, :], NEG_INF, scores)
+    return top_k_rows_reference(scores, k)
 
 
 def gather_top_k_batch_reference(user_ixs, user_factors, item_factors, k: int,
@@ -83,16 +106,24 @@ def gather_top_k_batch_reference(user_ixs, user_factors, item_factors, k: int,
     values = item_factors[0] if isinstance(item_factors, tuple) else item_factors
     ixs = torch.as_tensor(user_ixs, device=values.device).to(torch.int64)
     users = _dense_rows(user_factors, ixs)  # [B, D]
-    items = values.to(torch.float32)  # [I, D]
-    scores = users.new_zeros((users.shape[0], items.shape[0]))
-    for d in range(items.shape[1]):
-        scores = scores + users[:, d, None] * items[None, :, d]
-    if isinstance(item_factors, tuple):
-        scores = scores * item_factors[1][None, :]
-    if exclude_mask is not None:
-        mask = torch.as_tensor(exclude_mask, device=values.device).to(torch.bool)
-        scores = torch.where(mask[None, :], NEG_INF, scores)
-    return top_k_rows_reference(scores, k)
+    return _score_top_k_reference(users, item_factors, k, exclude_mask)
+
+
+def sum_rows_top_k_batch_reference(row_ixs, row_weights, item_factors, k: int,
+                                   exclude_mask=None):
+    """The plain PyTorch version of K2's summed-rows mode, same contract
+    as :func:`sum_rows_top_k_batch`: query row ``q_b = sum_l
+    deq(V[ix_bl]) * w_bl`` added in l order from +0.0 (each product and
+    partial sum rounded to f32, weight-0 rows multiplied in), then
+    scored as :func:`gather_top_k_batch_reference` scores."""
+    values = item_factors[0] if isinstance(item_factors, tuple) else item_factors
+    ixs = torch.as_tensor(row_ixs, device=values.device).to(torch.int64)
+    w = torch.as_tensor(row_weights, device=values.device).to(torch.float32)
+    rows = _dense_rows(item_factors, ixs)  # [B, L, D]
+    queries = rows.new_zeros((rows.shape[0], rows.shape[2]))
+    for l in range(rows.shape[1]):
+        queries = queries + rows[:, l] * w[:, l, None]
+    return _score_top_k_reference(queries, item_factors, k, exclude_mask)
 
 
 # -- the CUDA kernel ---------------------------------------------------------
@@ -110,6 +141,10 @@ def _lib() -> ctypes.CDLL:
         lib.pio_k2_gather_top_k.restype = _I
         lib.pio_k2_select.argtypes = [_P, _I, _I, _I, _P, _P, _P, _P]
         lib.pio_k2_select.restype = _I
+        lib.pio_k2_sum_rows_top_k.argtypes = [
+            _P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+        ]
+        lib.pio_k2_sum_rows_top_k.restype = _I
         lib._pio_typed = True
     return lib
 
@@ -143,18 +178,21 @@ def _on(device: torch.device, *tensors) -> None:
             raise ValueError(f"tensor on {t.device}, expected {device}")
 
 
+def _indices(ixs, num_rows: int, device: torch.device) -> torch.Tensor:
+    """int32 index tensor on ``device``, in the shape given. Host indices
+    are range-checked here; device indices are the caller's to keep in
+    range."""
+    if isinstance(ixs, torch.Tensor) and ixs.device.type == "cuda":
+        return ixs.to(torch.int32).contiguous()
+    a = np.asarray(ixs.cpu() if isinstance(ixs, torch.Tensor) else ixs, dtype=np.int64)
+    if a.size and (a.min() < 0 or a.max() >= num_rows):
+        raise IndexError(f"index out of range [0, {num_rows})")
+    return torch.from_numpy(a.astype(np.int32)).to(device)
+
+
 def _user_ixs(user_ixs, num_users: int, device: torch.device) -> torch.Tensor:
-    """int32 [B] index tensor on ``device``. Host indices are range-checked
-    here; device indices are the caller's to keep in range."""
-    if isinstance(user_ixs, torch.Tensor) and user_ixs.device.type == "cuda":
-        return user_ixs.to(torch.int32).contiguous()
-    ixs = np.asarray(
-        user_ixs.cpu() if isinstance(user_ixs, torch.Tensor) else user_ixs,
-        dtype=np.int64,
-    ).reshape(-1)
-    if ixs.size and (ixs.min() < 0 or ixs.max() >= num_users):
-        raise IndexError(f"user index out of range [0, {num_users})")
-    return torch.from_numpy(ixs.astype(np.int32)).to(device)
+    """int32 [B] user index tensor on ``device`` (:func:`_indices`)."""
+    return _indices(user_ixs, num_users, device).reshape(-1)
 
 
 def gather_top_k_batch(user_ixs, user_factors, item_factors, k: int,
@@ -215,6 +253,79 @@ def gather_top_k_batch(user_ixs, user_factors, item_factors, k: int,
 
 
 gather_top_k_batch.launches = _build.LaunchCount()
+
+
+def sum_rows_top_k_batch(row_ixs, row_weights, item_factors, k: int,
+                         exclude_mask=None):
+    """K2's summed-rows mode: the query row of batch row b is the sum of
+    catalog rows ``row_ixs[b]`` weighted by ``row_weights[b]``; it is
+    scored against the same catalog and the top k taken.
+
+    ``row_ixs``: [B, L] int rows of ``item_factors``, right-padded to a
+    shared L; ``row_weights``: [B, L] f32, 1.0 for real rows and 0.0 for
+    padding; ``item_factors``: a dense float32/bfloat16 [I, D] tensor or
+    the int8 ``(values, scales)`` pair (the row-normalized catalog of
+    ``models/filters.py normalized_device_factors``); ``exclude_mask``:
+    optional [I] bool shared by the batch. ``k`` is capped at the catalog
+    size. Returns ``([B, k] f32 scores, [B, k] int32 ids)``.
+
+    CPU tensors take :func:`sum_rows_top_k_batch_reference`; CUDA tensors
+    launch the kernel (``csrc/topk.cu``) or raise."""
+    item_values = item_factors[0] if isinstance(item_factors, tuple) else item_factors
+    device = item_values.device
+    k = min(int(k), catalog_rows(item_factors))
+    if device.type == "cpu":
+        return sum_rows_top_k_batch_reference(
+            row_ixs, row_weights, item_factors, k, exclude_mask
+        )
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    v_vals, v_scales, v_code = _split(item_factors, "item_factors")
+    _on(device, v_scales)
+    num_items, rank = v_vals.shape
+    ixs = _indices(row_ixs, num_items, device)
+    if ixs.dim() != 2:
+        raise ValueError(f"row_ixs must be [B, L], got shape {tuple(ixs.shape)}")
+    batch, width = ixs.shape
+    w = torch.as_tensor(row_weights, device=device).to(torch.float32).contiguous()
+    if tuple(w.shape) != (batch, width):
+        raise ValueError(f"row_weights must be [{batch}, {width}] like row_ixs")
+    mask = None
+    if exclude_mask is not None:
+        mask = torch.as_tensor(exclude_mask, device=device).to(torch.bool).contiguous()
+        if mask.shape != (num_items,):
+            raise ValueError(f"exclude_mask must be [{num_items}] bool")
+    scores = torch.empty((batch, k), dtype=torch.float32, device=device)
+    ids = torch.empty((batch, k), dtype=torch.int32, device=device)
+    if batch == 0 or k == 0:
+        return scores, ids
+    qvec = torch.empty((batch, rank), dtype=torch.float32, device=device)
+    scratch = torch.empty((batch, num_items), dtype=torch.float32, device=device)
+    cand = torch.empty((batch, k), dtype=torch.int64, device=device)
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.pio_k2_sum_rows_top_k(
+            ixs.data_ptr(), w.data_ptr(), batch, width,
+            v_vals.data_ptr(), v_code, _ptr(v_scales),
+            _ptr(mask), num_items, rank, k,
+            qvec.data_ptr(), scratch.data_ptr(), cand.data_ptr(),
+            scores.data_ptr(), ids.data_ptr(), stream,
+        )
+    _build.check(err, "sum_rows_top_k_batch kernel launch")
+    sum_rows_top_k_batch.launches.add()
+    return scores, ids
+
+
+sum_rows_top_k_batch.launches = _build.LaunchCount()
+
+
+def catalog_norms(item_factors) -> torch.Tensor:
+    """Per-row L2 norms ``[I]`` f32 of a catalog's stored values (the int8
+    pair's values, without their scales): computed once at model load and
+    kept on the device beside the table."""
+    values = item_factors[0] if isinstance(item_factors, tuple) else item_factors
+    return torch.linalg.vector_norm(values.to(torch.float32), dim=1)
 
 
 def top_k_rows(scores: torch.Tensor, k: int):

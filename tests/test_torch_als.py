@@ -17,7 +17,16 @@ same numpy inputs. Tolerances and their reasons:
 - a whole training from the same injected init: f32 factors within
   rtol=5e-4, atol=5e-5 (``tests/test_als.py:188``); with int8 or bf16
   storage a last-bit difference can flip a quantization step, so those
-  are held by train RMSE within ``e_jax * 1.01 + 0.01``.
+  are held by train RMSE within ``e_jax * 1.01 + 0.01``;
+- implicit feedback: ``compute_gram`` within rtol=1e-5, atol=1e-6 *
+  max|G| (two float32 matrix products, summed in other orders); an
+  implicit bucket solve and half-step within rtol=5e-4, atol=5e-5
+  (``tests/test_als.py:205``: the port adds the regularizer before the
+  Gramian, as the training path does, the standalone JAX solve after
+  it); an indefinite system is NaN for NaN in both, and its int8
+  write-back zeros with scale 1; a whole implicit training from one
+  init within rtol=5e-4, atol=5e-5 (f32), or per-row cosine >= 0.999
+  with the same NaN rows (bf16 and int8 storage).
 """
 
 from __future__ import annotations
@@ -328,8 +337,9 @@ def test_rmse_and_predict_pairs_match_jax():
 def test_unported_training_options_raise(monkeypatch):
     rows, cols, vals = _coo(3, 6, 5, 12, hot=False)
     data = tals.build_ratings_data(rows, cols, vals)
-    with pytest.raises(NotImplementedError, match="implicit"):
-        tals.als_train(data, tals.ALSParams(implicit=True), device="cpu")
+    # implicit feedback is ported: it trains, and checkpoints still raise
+    U, V = tals.als_train(data, tals.ALSParams(implicit=True, iterations=1), device="cpu")
+    assert bool(torch.isfinite(U).all()) and bool(torch.isfinite(V).all())
     monkeypatch.setenv("PIO_CHECKPOINT_EVERY", "2")
     with pytest.raises(NotImplementedError, match="checkpoint"):
         tals.als_train(data, tals.ALSParams(), device="cpu")
@@ -355,3 +365,233 @@ def test_solve_bucket_checks_its_arguments():
     assert list(tfields) == list(jfields)
     assert all(tfields[f].default == jfields[f].default for f in jfields)
     assert tensor_to_numpy(tals.dense_factors(tals.to_storage(t, "int8"))).shape == (4, 3)
+
+
+# -- implicit feedback (Hu-Koren-Volinsky) ------------------------------------
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
+def test_compute_gram_matches_jax(storage, compute):
+    rng = np.random.default_rng(31)
+    x = (rng.standard_normal((50, 7)) / np.sqrt(7)).astype(np.float32)
+    jt, tt = _tables(x, storage)
+    want = np.asarray(jals.compute_gram(jt, compute))
+    got = tals.compute_gram(tt, compute)
+    assert got.dtype == torch.float32 and got.shape == (7, 7)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-6 * np.abs(want).max())
+
+
+def _implicit_float64(gl, gr, gram, rat, msk, reg, alpha, weighted, round_wg):
+    """The bf16-compute implicit system of gathered rows ``gl``, ``gr``
+    ``[B, K, D]`` (float64) solved in float64: ``A = gram + sum
+    wg gr^T + lam I`` (its lower triangle, as a Cholesky reads it) with
+    ``wg = bf16(alpha r m) gl``, rounded to bf16 when ``round_wg``, and
+    ``b = sum bf16((1 + alpha r) m) gr``."""
+    w = _bf16((np.float32(alpha) * rat) * msk)
+    r = _bf16((np.float32(1.0) + np.float32(alpha) * rat) * msk)
+    wg = w[..., None] * gl
+    A = np.tril(np.einsum("bki,bkj->bij", _bf16(wg) if round_wg else wg, gr))
+    A = A + np.swapaxes(A, 1, 2) - A * np.eye(gr.shape[-1])
+    b = np.einsum("bk,bki->bi", r, gr)
+    n = msk.sum(axis=1)
+    lam = np.where(n > 0, reg * (n if weighted else 1.0), 1.0)
+    A += lam[:, None, None] * np.eye(gr.shape[-1]) + np.asarray(gram, np.float64)
+    return np.linalg.solve(A, b[..., None])[..., 0]
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
+def test_solve_bucket_implicit_matches_jax(storage, compute):
+    """Every storage dtype at f32 and bf16 compute, weighted and plain
+    reg, against the JAX package's standalone implicit solve.
+
+    At bf16 compute each package is held to a float64 restatement of
+    what it computes instead (as in
+    :func:`test_solve_bucket_explicit_matches_jax`). The JAX program
+    states ``vw = vg * w`` in bf16, which the port computes, but XLA's
+    CPU compiler keeps that product unrounded in float32; with the
+    implicit weight ``w = alpha * r`` (not 0/1) the two differ by bf16
+    rounding times the condition number, up to 5% here. With int8
+    storage XLA also leaves the right operand's gather ``q * bf16(s)``
+    unrounded (the explicit case's finding)."""
+    rank = 5
+    rng = np.random.default_rng(41)
+    other = (rng.standard_normal((30, rank)) / np.sqrt(rank)).astype(np.float32)
+    jt, tt = _tables(other, storage)
+    col, rat, msk = _bucket(rng, 30, 12, 16)
+    rat = rat * 2  # view counts 1..10
+    jgram = jals.compute_gram(jt, compute)
+    tgram = tals.compute_gram(tt, compute)
+    for weighted in (False, True):
+        want = np.asarray(jals.solve_bucket_implicit(
+            jt, jgram, jnp.asarray(col), jnp.asarray(rat), jnp.asarray(msk), 0.1, 1.5,
+            weighted_reg=weighted, compute_dtype=compute))
+        got = tals.solve_bucket_implicit(
+            tt, tgram, col, rat, msk, 0.1, 1.5, weighted_reg=weighted,
+            compute_dtype=compute)
+        assert np.all(got[1].numpy() == 0.0)  # the empty row solves to 0
+        if compute == "bfloat16":
+            if storage == "int8":
+                q, s = (np.asarray(a) for a in jt)
+                right = q[col].astype(np.float64) * _bf16(s[col])[..., None]
+                g = _bf16(right)
+            else:
+                g = right = _bf16(tals.dense_factors(tt).numpy()[col])
+            args = (tgram.double().numpy(), rat, msk, 0.1, 1.5, weighted)
+            stated = _implicit_float64(g, g, *args, round_wg=True)
+            xla_cpu = _implicit_float64(g, right, *args, round_wg=False)
+            np.testing.assert_allclose(got.numpy(), stated, rtol=5e-4, atol=5e-5)
+            np.testing.assert_allclose(want, xla_cpu, rtol=5e-4, atol=5e-5)
+        else:
+            np.testing.assert_allclose(got.numpy(), want, rtol=5e-4, atol=5e-5)
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_implicit_segmented_half_step_matches_jax(storage, weighted):
+    """The training path's implicit bucket solve: a hot row over 3 table
+    rows, a plain row and an empty one, the Gramian of the whole other
+    table added after the regularizer (``_finish_bucket_solve``), then
+    the write-back of the solved rows in the JAX package's bits."""
+    rank = 6
+    rng = np.random.default_rng(17)
+    other = (rng.standard_normal((40, rank)) / np.sqrt(rank)).astype(np.float32)
+    jt, tt = _tables(other, storage)
+    col, rat, msk = _bucket(rng, 40, 6, 8, empty_row=False)
+    msk[4:] = 0.0
+    rat[4:] = 0.0
+    seg_row = np.array([0, 0, 0, 1, 2, 2], np.int32)
+    params = jals.ALSParams(rank=rank, reg=0.05, implicit=True, alpha=2.5,
+                            implicit_weighted_reg=weighted, storage_dtype=storage)
+    want = np.asarray(jals._solve_bucket_step(
+        jt, jals.compute_gram(jt), jnp.asarray(col), jnp.asarray(rat),
+        jnp.asarray(msk), jnp.asarray(seg_row), params, 3))
+    seg_start = torch.from_numpy(tals.segment_offsets(seg_row, 3, 6))
+    row_ids = torch.tensor([4, 0, 2], dtype=torch.int32)
+    target = tals.to_storage(torch.zeros((5, rank)), storage)
+    x = tals.solve_bucket(
+        tt, torch.from_numpy(col), torch.from_numpy(rat), torch.from_numpy(msk),
+        seg_start, 0.05, weighted_reg=weighted, target=target, row_ids=row_ids,
+        implicit=True, alpha=2.5, gram=tals.compute_gram(tt))
+    np.testing.assert_allclose(x.numpy(), want, rtol=5e-4, atol=5e-5)
+    jtarget = jals._scatter_rows(
+        jals.to_storage(jnp.zeros((5, rank)), storage), jnp.asarray(row_ids.numpy()),
+        jnp.asarray(x.numpy()))
+    got, exp = tals.host_factors(target), jals.host_factors(jtarget)
+    assert np.array_equal(_bits(got[0]), _bits(exp[0]))
+    if storage == "int8":
+        assert np.array_equal(got[1], exp[1])
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
+def test_indefinite_implicit_row_is_nan_like_jax(storage):
+    """Ratings [-1, -1, -1, 1] at alpha 5 (dislikes) make A indefinite:
+    both packages solve the row to NaN, NaN for NaN, and leave its
+    neighbours finite; an int8 write-back stores q = 0 with scale 1."""
+    other = np.eye(4, dtype=np.float32)
+    jt, tt = _tables(other, storage)
+    col = np.array([[0, 1, 2, 3], [0, 1, 0, 0]], np.int32)
+    rat = np.array([[-1, -1, -1, 1], [3, 1, 0, 0]], np.float32)
+    msk = np.array([[1, 1, 1, 1], [1, 1, 0, 0]], np.float32)
+    want = np.asarray(jals.solve_bucket_implicit(
+        jt, jals.compute_gram(jt), jnp.asarray(col), jnp.asarray(rat),
+        jnp.asarray(msk), 0.01, 5.0))
+    target = tals.to_storage(torch.ones((3, 4)), storage)
+    got = tals.solve_bucket(
+        tt, torch.from_numpy(col), torch.from_numpy(rat), torch.from_numpy(msk),
+        torch.arange(3, dtype=torch.int32), 0.01, weighted_reg=False, target=target,
+        row_ids=torch.tensor([2, 0], dtype=torch.int32), implicit=True, alpha=5.0,
+        gram=tals.compute_gram(tt)).numpy()
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(got[0]).all() and np.isfinite(got[1]).all()
+    np.testing.assert_allclose(got[1], want[1], rtol=5e-4, atol=5e-5)
+    jtarget = jals._scatter_rows(jals.to_storage(jnp.ones((3, 4)), storage),
+                                 jnp.asarray([2, 0], jnp.int32), jnp.asarray(got))
+    (tv, ts), (jv, js) = tals.host_factors(target), jals.host_factors(jtarget)
+    if storage == "int8":
+        assert tv[2].tolist() == np.asarray(jv)[2].tolist() == [0, 0, 0, 0]
+        assert ts[2] == np.asarray(js)[2] == 1.0
+        assert np.array_equal(tv, np.asarray(jv)) and np.array_equal(ts, np.asarray(js))
+    else:
+        t32 = tals.dense_factors(target).numpy()
+        assert np.isnan(t32[2]).all() and np.array_equal(t32[0], got[1].astype(
+            np.float32) if storage == "float32" else t32[0])
+
+
+def _like_coo(seed: int, n_users: int, n_items: int):
+    """Implicit signals: view counts 1..6, and a few dislikes (-1)."""
+    rows, cols, _ = _coo(seed, n_users, n_items, n_users * 6, hot=False)
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(1, 7, len(rows)).astype(np.float32)
+    return rows, cols, vals
+
+
+def _train_implicit_both(storage: str, alpha: float, vals_fn=None, iterations: int = 3):
+    rows, cols, vals = _like_coo(13, 28, 20)
+    if vals_fn is not None:
+        vals = vals_fn(vals)
+    n_rows, n_cols, rank = 28, 20, 5
+    rng = np.random.default_rng(8)
+    U0 = (rng.standard_normal((n_rows, rank)) / np.sqrt(rank)).astype(np.float32)
+    V0 = (rng.standard_normal((n_cols, rank)) / np.sqrt(rank)).astype(np.float32)
+    kw = dict(rank=rank, iterations=iterations, reg=0.05, implicit=True, alpha=alpha,
+              storage_dtype=storage, bucket_widths=SMALL_WIDTHS)
+    jd = jals.build_ratings_data(rows, cols, vals, n_rows, n_cols, SMALL_WIDTHS)
+    JU, JV = jals.als_train(jd, jals.ALSParams(**kw), warm_start=(U0, V0))
+    td = tals.build_ratings_data(rows, cols, vals, n_rows, n_cols, SMALL_WIDTHS)
+    TU, TV = tals.als_train(td, tals.ALSParams(**kw), warm_start=(U0, V0), device="cpu")
+    jx = [np.asarray(jals.dense_factors(t)) for t in (JU, JV)]
+    tx = [tals.dense_factors(t).numpy() for t in (TU, TV)]
+    return jx, tx
+
+
+def test_als_train_implicit_f32_matches_jax_from_the_same_init():
+    (JU, JV), (TU, TV) = _train_implicit_both("float32", alpha=2.0)
+    np.testing.assert_allclose(TU, JU, rtol=5e-4, atol=5e-5)
+    np.testing.assert_allclose(TV, JV, rtol=5e-4, atol=5e-5)
+
+
+def _row_cosines(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return (a * b).sum(1) / np.maximum(
+        np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1), 1e-30)
+
+
+@pytest.mark.parametrize("storage", ["bfloat16", "int8"])
+def test_als_train_implicit_reduced_storage_matches_jax(storage):
+    (JU, JV), (TU, TV) = _train_implicit_both(storage, alpha=2.0)
+    for j, t in ((JU, TU), (JV, TV)):
+        assert np.array_equal(np.isnan(j).any(1), np.isnan(t).any(1))
+        ok = ~np.isnan(j).any(1)
+        assert _row_cosines(j[ok], t[ok]).min() >= 0.999
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
+def test_als_train_implicit_dislikes_nan_rows_like_jax(storage):
+    """Dislikes (-1) at alpha 5 make some users' systems indefinite: one
+    iteration leaves those user rows NaN in both packages, and every
+    solved item row NaN too (the next half-step's Gramian of U is NaN);
+    the other user rows agree as in the other implicit trainings. int8
+    storage writes a NaN row back as zeros with scale 1, so there the
+    same users come back as zero rows and the items stay finite."""
+    def with_dislikes(vals):
+        out = vals.copy()
+        out[::3] = -1.0
+        return out
+
+    (JU, JV), (TU, TV) = _train_implicit_both(storage, alpha=5.0,
+                                              vals_fn=with_dislikes, iterations=1)
+    for j, t in ((JU, TU), (JV, TV)):
+        assert np.array_equal(np.isnan(j), np.isnan(t))
+    if storage == "int8":
+        nan_u = ~TU.any(1)
+        assert np.array_equal(nan_u, ~JU.any(1)) and np.isfinite(TV).all()
+    else:
+        nan_u = np.isnan(TU).any(1)
+        assert np.isnan(TV).all()
+    assert 0 < nan_u.sum() < len(nan_u)
+    if storage == "float32":
+        np.testing.assert_allclose(TU[~nan_u], JU[~nan_u], rtol=5e-4, atol=5e-5)
+    else:
+        assert _row_cosines(JU[~nan_u], TU[~nan_u]).min() >= 0.999

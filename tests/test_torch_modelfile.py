@@ -1,8 +1,9 @@
 """The port's model file reader/writer against the JAX package's.
 
 A model file either package writes, the other reads: the JAX package
-serializes an ALSModel (f32, bf16, int8 storage) and the port loads the
-same arrays and id maps; the port's file reads back in the JAX package.
+serializes an ALSModel or a SimilarProductModel (f32, bf16, int8
+storage) and the port loads the same arrays, id maps and categories; the
+port's file reads back in the JAX package as its own class.
 Class names resolve through the port's fixed table; corrupt files and
 pickled models are refused.
 """
@@ -19,9 +20,11 @@ from predictionio_tpu.core import persistence as jpersist
 from predictionio_tpu.data.bimap import BiMap as JBiMap
 from predictionio_tpu.models import modelfile as jmf
 from predictionio_tpu.models import recommendation as jrec
+from predictionio_tpu.models import similarproduct as jsim
 from predictionio_tpu_torch.core import persistence as tpersist
 from predictionio_tpu_torch.models import modelfile as tmf
 from predictionio_tpu_torch.models import recommendation as trec
+from predictionio_tpu_torch.models import similarproduct as tsim
 
 STORAGE = ("float32", "bfloat16", "int8")
 
@@ -197,3 +200,27 @@ def test_tensor_fields_are_pulled_to_the_host():
     assert jmf.ModelFile(blob)._arr("e0.user_factors").dtype.name == "bfloat16"
     np.testing.assert_array_equal(
         np.asarray(jmf.ModelFile(blob)._arr("e0.user_factors"), np.float32), 1.5)
+
+
+@pytest.mark.parametrize("storage", STORAGE)
+def test_similar_product_model_files_cross(storage):
+    """A JAX-written SimilarProductModel loads as the port's class with the
+    same bits; the port writes it under the JAX package's class name, and
+    the JAX package reads that file back as its own."""
+    jm0 = _jax_model(storage, n_items=11)
+    cats = {f"ié{j}": ["even" if j % 2 == 0 else "odd"] for j in range(0, 11, 3)}
+    jm = jsim.SimilarProductModel(item_index=jm0.item_index, item_factors=jm0.item_factors,
+                                  categories=cats, item_scales=jm0.item_scales)
+    [(_, tm)] = tmf.deserialize(jmf.serialize([("arrays", jm)], "s1"))
+    assert type(tm) is tsim.SimilarProductModel and tm.categories == cats
+    assert tm.item_index.to_dict() == jm.item_index.to_dict()
+    np.testing.assert_array_equal(_bits(tm.item_factors), _bits(jm.item_factors))
+    assert (tm.item_scales is None) == (jm.item_scales is None)
+    if jm.item_scales is not None:
+        np.testing.assert_array_equal(tm.item_scales, jm.item_scales)
+    blob = tpersist.serialize_models([_Algo()], [tm], "s2")
+    assert tmf.ModelFile(blob)._header["entries"][0]["cls"] == [
+        "predictionio_tpu.models.similarproduct", "SimilarProductModel"]
+    [(_, back)] = jmf.deserialize(blob)
+    assert type(back) is jsim.SimilarProductModel and back.categories == cats
+    np.testing.assert_array_equal(_bits(back.item_factors), _bits(jm.item_factors))

@@ -33,7 +33,9 @@ from predictionio_tpu_torch.core.context import WorkflowContext
 from predictionio_tpu_torch.core.engine import resolve_engine_factory
 from predictionio_tpu_torch.core.workflow import save_instance
 from predictionio_tpu_torch.data import storage as tstorage
+from predictionio_tpu_torch.data.bimap import BiMap
 from predictionio_tpu_torch.models import recommendation as trec
+from predictionio_tpu_torch.models import similarproduct as tsim
 from predictionio_tpu_torch.ops import als as tals
 from predictionio_tpu_torch.server.engine_server import EngineServer
 
@@ -214,9 +216,6 @@ def test_unported_paths_raise(servers, monkeypatch):
     sharded_train = trec.ALSAlgorithm(trec.ALSAlgorithmParams(sharded_train=True))
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         sharded_train.train(ctx, td)
-    with pytest.raises(NotImplementedError, match="implicit"):
-        tals.als_train(tals.build_ratings_data(td.rows, td.cols, td.ratings),
-                       tals.ALSParams(implicit=True), device="cpu")
     monkeypatch.setenv("PIO_CHECKPOINT_EVERY", "1")
     with pytest.raises(NotImplementedError, match="checkpoint"):
         algo.train(ctx, td)
@@ -227,3 +226,35 @@ def test_unported_paths_raise(servers, monkeypatch):
         trec.RecommendationDataSource().read_eval(ctx)
     with pytest.raises(ValueError, match="not ported"):
         resolve_engine_factory("predictionio_tpu.models.classification.engine")
+
+
+def _similar_product_refusal(case: str, monkeypatch) -> None:
+    ctx = WorkflowContext(device="cpu")
+    td = tsim.TrainingData(users=["a"], items={"x": []}, view_events=tstorage.RatingsBatch(
+        ["a"], ["x"], np.zeros(1, np.int32), np.zeros(1, np.int32), np.ones(1, np.float32)))
+    if case == "sharded_train":
+        tsim.ALSAlgorithm(tsim.ALSAlgorithmParams(sharded_train=True)).train(ctx, td)
+    elif case == "cosine":
+        engine = tsim.engine()
+        assert "cosine" in engine.algorithm_classes
+        engine.algorithm_classes["cosine"]().train(ctx, td)
+    else:  # a catalog at the two-stage threshold
+        monkeypatch.setenv("PIO_RETRIEVAL_THRESHOLD", "10")
+        algo = tsim.ALSAlgorithm(tsim.ALSAlgorithmParams(rank=2, num_iterations=1))
+        algo.device = ctx.device
+        model = tsim.SimilarProductModel(
+            item_index=BiMap.from_dense([f"i{j}" for j in range(40)]),
+            item_factors=np.ones((40, 2), np.float32), categories={})
+        algo.predict(model, tsim.Query(items=["i0"], num=1))
+
+
+@pytest.mark.parametrize("case,match", [
+    ("sharded_train", "multi-GPU"),
+    ("two_stage", "two-stage"),
+    ("cosine", "cosine_sim"),
+])
+def test_similar_product_unported_paths_raise(case, match, monkeypatch):
+    """The similar-product template refuses what the port does not have
+    yet, naming the later slice, rather than answering another way."""
+    with pytest.raises(NotImplementedError, match=match):
+        _similar_product_refusal(case, monkeypatch)

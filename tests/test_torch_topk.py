@@ -1,5 +1,6 @@
 """The port's K2 (``predictionio_tpu_torch.ops.topk``) against the JAX
-package's ``gather_top_k_batch``, on the CPU.
+package's ``gather_top_k_batch`` and ``sum_rows_top_k_batch`` (K2's
+summed-rows mode), on the CPU.
 
 On CPU tensors the port's wrapper runs its plain PyTorch version, which
 is what the CUDA kernel is held to on the card (chip_smoke.py). Both
@@ -9,6 +10,9 @@ exact f32 sum) must agree bit for bit in ids and scores, ties, signed
 zeros and NaN included; random-normal inputs within rtol=1e-5,
 atol=1e-6 (the two sum the D products in different orders), with ids
 equal outside runs of near-tied scores, where the id sets must match.
+The same bars hold the summed-rows mode on row-normalized catalogs
+(f32 and the int8 pair); within the port, a summed-rows query is bit
+for bit the same alone or in a batch, and at L or 2L weight-0 padding.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from predictionio_tpu.models import filters as jfilters
 from predictionio_tpu.ops import als as jals
 from predictionio_tpu.ops import topk as jtopk
 from predictionio_tpu_torch.ops import als as tals
@@ -235,3 +240,102 @@ def test_kernel_build_needs_nvcc(monkeypatch):
     assert count.value == 2
     count.reset()
     assert count.value == 0
+
+
+# -- K2's summed-rows mode (ops/topk.py:135 sum_rows_top_k_batch) -------------
+
+
+def _catalog(rng, storage: str, exact: bool):
+    """(jax table, torch table): a row-normalized catalog as the cosine
+    templates build it (JAX ``normalized_device_factors``), or for
+    ``exact`` a small-integer f32 catalog whose every score is exact."""
+    if exact:
+        x = rng.integers(-3, 4, (N_ITEMS, 8)).astype(np.float32)
+        return jnp.asarray(x), torch.from_numpy(x.copy())
+    x = rng.standard_normal((N_ITEMS, 8), dtype=np.float32)
+    if storage == "int8":
+        q, s = (np.asarray(a) for a in jals.quantize_rows(jnp.asarray(x)))
+        (jq, js), _ = jfilters.normalized_device_factors(q, s)
+        jq, js = np.asarray(jq), np.asarray(js)
+        return (jnp.asarray(jq), jnp.asarray(js)), (
+            torch.from_numpy(jq.copy()), torch.from_numpy(js.copy()))
+    table, _ = jfilters.normalized_device_factors(x)
+    return table, torch.from_numpy(np.asarray(table).copy())
+
+
+def _query_rows(rng, batch: int, width: int):
+    """[B, L] row lists of 1..L distinct items, right-padded with
+    weight-0 copies of row 0 (the template's padding)."""
+    ixs = np.zeros((batch, width), np.int32)
+    w = np.zeros((batch, width), np.float32)
+    for b in range(batch):
+        n = int(rng.integers(1, width + 1))
+        ixs[b, :n] = rng.choice(N_ITEMS, n, replace=False)
+        w[b, :n] = 1.0
+    return ixs, w
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("storage,exact", [("float32", True), ("float32", False),
+                                           ("int8", False)])
+def test_sum_rows_matches_jax(storage, exact, masked):
+    rng = np.random.default_rng(60 + 2 * DTYPES.index(storage) + exact)
+    jv, tv = _catalog(rng, storage, exact)
+    mask = (rng.random(N_ITEMS) < 0.25) if masked else None
+    for width in (1, 4, 16):
+        ixs, w = _query_rows(rng, 6, width)
+        js, ji = jtopk.sum_rows_top_k_batch(
+            jnp.asarray(ixs), jnp.asarray(w), jv, k=N_ITEMS,
+            exclude_mask=None if mask is None else jnp.asarray(mask))
+        js, ji = np.asarray(js), np.asarray(ji)
+        for k in (4, 16, N_ITEMS):
+            ts, ti = ttopk.sum_rows_top_k_batch(
+                ixs, w, tv, k, None if mask is None else torch.from_numpy(mask))
+            ts, ti = ts.numpy(), ti.numpy()
+            assert ts.shape == ti.shape == (6, k) and ti.dtype == np.int32
+            if exact:
+                np.testing.assert_array_equal(ti, ji[:, :k])
+                assert _same_bits(ts, js[:, :k])
+                continue
+            np.testing.assert_allclose(ts, js[:, :k], rtol=RTOL, atol=ATOL)
+            for r in range(len(ixs)):
+                assert _ids_match_outside_near_ties(ti[r], ji[r, :k], js[r, :k])
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
+def test_sum_rows_batch_and_padding_invariant(storage):
+    """A query's bits alone equal its row in a batch, and padding its row
+    list from L to 2L with weight-0 copies of row 0 changes no bit."""
+    rng = np.random.default_rng(71)
+    _, tv = _tables(rng, storage, N_ITEMS, 12, exact=False)
+    ixs, w = _query_rows(rng, 9, 4)
+    s9, i9 = ttopk.sum_rows_top_k_batch(ixs, w, tv, 16)
+    pad = np.zeros_like(ixs)
+    s2l, i2l = ttopk.sum_rows_top_k_batch(
+        np.concatenate([ixs, pad], 1), np.concatenate([w, pad.astype(np.float32)], 1),
+        tv, 16)
+    assert torch.equal(i2l, i9) and torch.equal(s2l.view(torch.int32), s9.view(torch.int32))
+    for r in (0, 4, 8):
+        s1, i1 = ttopk.sum_rows_top_k_batch(ixs[r:r + 1], w[r:r + 1], tv, 16)
+        assert torch.equal(i1[0], i9[r])
+        assert torch.equal(s1[0].view(torch.int32), s9[r].view(torch.int32))
+
+
+def test_sum_rows_checks_its_arguments():
+    tv = torch.zeros((N_ITEMS, 4))
+    with pytest.raises(IndexError):
+        ttopk._indices([[0, N_ITEMS]], N_ITEMS, torch.device("cpu"))
+    assert ttopk._indices([[1, 2]], N_ITEMS, torch.device("cpu")).shape == (1, 2)
+    s, i = ttopk.sum_rows_top_k_batch(np.zeros((2, 0), np.int32),
+                                      np.zeros((2, 0), np.float32), tv, 3)
+    assert s.shape == (2, 3) and bool((s == 0).all())  # L = 0: a zero query
+
+
+@pytest.mark.parametrize("storage", DTYPES)
+def test_catalog_norms_matches_jax(storage):
+    rng = np.random.default_rng(81)
+    jt, tt = _tables(rng, storage, N_ITEMS, 10, exact=False)
+    got = ttopk.catalog_norms(tt)
+    assert got.dtype == torch.float32 and got.shape == (N_ITEMS,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jtopk.catalog_norms(jt)),
+                               rtol=1e-6, atol=1e-7)
