@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases k2,k1,k1i,k2s,serve,lifecycle,simlife,train,
-                                    simtrain,times,k1times,simtimes]
+    python3 chip_smoke.py [--phases k2,k1,k1i,k1route,k2s,serve,lifecycle,simlife,
+                                    train,simtrain,times,k1times,simtimes]
 
 Run from the root of a checkout, on a machine with a CUDA card, ``nvcc``
 and PyTorch built for CUDA. It imports nothing of JAX and nothing of the
@@ -23,7 +23,7 @@ JAX package (``predictionio_tpu``). Phases:
    a B=64 call bit for bit equal to the B=1 call for that user; the
    selection stage alone on rows of ties, signed zeros, NaN and inf;
 4. k1: K1 against its plain version: storage {f32, bf16, int8} x compute
-   {f32, bf16} x D {1, 10, 20, 30, 40, 64, 80, 128} x width {8, 2048},
+   {f32, bf16} x D {1, 10, 20, 30, 32, 33, 40, 64, 80, 128} x width {8, 2048},
    unsegmented and segmented (1 and 33 segments), with rows of n = 0;
    each solve within atol=1e-5 + rtol=1e-4 * max|x| of its row of the
    plain version and of a float64 solve, the written-back table bit for
@@ -42,8 +42,9 @@ JAX package (``predictionio_tpu``). Phases:
 8. times: K2, its plain version and a ``torch.topk(u @ V.T)`` yardstick
    at D = 20 for f32 and int8, B in {1, 64}; the HTTP p50;
 9. k1times: K1 per bucket at ML-20M rank 20, f32 and int8 storage, with
-   its plain version and a torch gather + bmm + cholesky yardstick, and
-   one iteration's wall time. Device times are ``torch.profiler`` kernel
+   its launches (the warp route: 1, or 2 for a segmented bucket, each
+   timed), the block kernel on the same bucket, its plain version and a
+   torch gather + bmm + cholesky yardstick, and one iteration's wall time. Device times are ``torch.profiler`` kernel
    time per call; per-call times the median of CUDA event pairs; bounds
    ``max(bytes / memory rate, FP32 operations / FP32 rate)`` of the card
    named in phase 1, computed from this run's inputs.
@@ -53,7 +54,7 @@ k1i and k2s after k1, simlife after lifecycle, simtrain after train,
 simtimes last):
 
 - k1i: K1's implicit mode against its plain version: storage x compute
-  x D {1, 10, 20, 64, 128} x width {8, 2048}, unsegmented and segmented,
+  x D {1, 10, 20, 32, 33, 64, 128} x width {8, 2048}, unsegmented and segmented,
   alpha {1, 40}, implicit_weighted_reg both ways, an indefinite row that
   both must solve to NaN; the same per-solve bars and bit-equal
   write-back as k1;
@@ -66,13 +67,23 @@ simtimes last):
   against the plain path; factors against the same training on the CPU;
 - simtrain: the ML-20M-shaped pairs as 20 M view events through
   ``run_train`` at the template's defaults (rank 10, 20 iterations),
-  K1's counter reset before and read after (iterations x buckets),
+  K1's counter reset before and read after (iterations x launches),
   deployed and queried (K2's summed-rows counter); 1 implicit
   iteration with K1 against its plain version;
-- simtimes: K1 implicit per bucket with plain, library yardstick,
-  compute_gram and iteration wall time; K2 summed rows at B = 1 and 64
+- simtimes: K1 implicit per bucket with its launches, the block kernel,
+  plain, library yardstick, compute_gram and iteration wall time; K2 summed rows at B = 1 and 64
   with a ``torch.topk(q @ V.T)`` yardstick; the similar-product HTTP p50
   comes from simtrain.
+
+The K1 redesign (the warp route at D <= 32) adds, run after k1i:
+
+- k1route: the warp route against the block kernel on the same CUDA
+  tensors: D {1, 10, 20, 32} x storage x compute x explicit/implicit x
+  width {8, 2048}, unsegmented (one launch) and segmented (two launches;
+  rows of 1, 2 and 33 segments): every one-segment row's x and written
+  back storage bit-equal to the block kernel's; every multi-segment row
+  within atol 1e-5 + rtol 1e-4 * max|x| of the plain version and of a
+  float64 solve; crafted indefinite rows NaN in both; empty rows zeros.
 
 Every phase prints its results and seconds; any failure makes the exit
 code 1 and suppresses the result lines. Without CUDA, or without the
@@ -437,9 +448,10 @@ def k2_sum_rows_vs_plain(torch, device, stats):
 
 # per solve (normwise over a solved row), f32 and bf16 compute alike
 K1_RTOL, K1_ATOL = 1e-4, 1e-5
-# the ranks in use (10-128) and each register-tile size of the kernel
-# (1, 2, 4, 9, 17 and 33 owned entries a thread: D = 20, 30, 40, 64, 80, 128)
-K1_RANKS = (1, 10, 20, 30, 40, 64, 80, 128)
+# the ranks in use (10-128), each register-tile size of the block kernel
+# (1, 2, 4, 9, 17 and 33 owned entries a thread: D = 20, 30, 40, 64, 80,
+# 128), and the two sides of the warp route's bound (32: warp, 33: block)
+K1_RANKS = (1, 10, 20, 30, 32, 33, 40, 64, 80, 128)
 K1_WIDTHS = (8, 2048)
 K1_REG = 0.05
 
@@ -514,7 +526,7 @@ def per_solve_ok(torch, x, ref) -> bool:
 def k1_vs_plain(torch, device, stats):
     """K1 (csrc/als_solve.cu) against its plain version on the same CUDA
     tensors: storage {f32, bf16, int8} x compute {f32, bf16} x D {1, 10,
-    20, 30, 40, 64, 80, 128} x width {8, 2048}, each as an unsegmented
+    20, 30, 32, 33, 40, 64, 80, 128} x width {8, 2048}, each as an unsegmented
     bucket (with one row of n = 0) and a segmented one (rows of 1 and 33
     segments and one of n = 0). Each solve's x within atol 1e-5 + rtol
     1e-4 * max|x| of its row (normwise per solve) of the plain version,
@@ -606,15 +618,33 @@ def k1_vs_plain(torch, device, stats):
 
 # -- K1 implicit vs plain ------------------------------------------------------
 
-K1I_RANKS = (1, 10, 20, 64, 128)
+K1I_RANKS = (1, 10, 20, 32, 33, 64, 128)
 K1I_BAD = 100  # entries of the crafted indefinite row (one column, r = -1)
+
+
+def craft_dislikes(col, rat, msk, seg_start, K: int, heavy: int, counts, row: int = 3):
+    """Solved row ``row`` (one table row) rates column ``heavy``
+    min(K1I_BAD, K) times with r = -1 (a dislike): its implicit A is
+    indefinite. Edits the bucket in place; returns the new counts."""
+    lo = int(seg_start[row]) * K
+    flat_c, flat_r, flat_m = (t.view(-1) for t in (col, rat, msk))
+    flat_m[lo:lo + K] = 0
+    flat_r[lo:lo + K] = 0
+    flat_c[lo:lo + K] = 0
+    m = min(K1I_BAD, K)
+    flat_c[lo:lo + m] = heavy
+    flat_r[lo:lo + m] = -1.0
+    flat_m[lo:lo + m] = 1.0
+    counts = list(counts)
+    counts[row] = m
+    return counts
 
 
 @phase("K1 implicit vs plain")
 def k1_implicit_vs_plain(torch, device, stats):
     """K1's implicit mode against its plain version on the same CUDA
     tensors: storage {f32, bf16, int8} x compute {f32, bf16} x D {1, 10,
-    20, 64, 128} x width {8, 2048}, each as an unsegmented bucket and a
+    20, 32, 33, 64, 128} x width {8, 2048}, each as an unsegmented bucket and a
     segmented one (rows of 1 and 33 segments), with rows of n = 0; alpha
     1 at width 8 and 40 at width 2048, implicit_weighted_reg on at f32
     compute and off at bf16, so each pair of the two occurs. At alpha
@@ -654,17 +684,7 @@ def k1_implicit_vs_plain(torch, device, stats):
                         rat = rat * 2  # counts 1..10
                         bad = []
                         if alpha == 40.0:  # row 3: K1I_BAD dislikes of one column
-                            r3 = int(seg_start[3]) * K
-                            flat_c, flat_r, flat_m = (t.view(-1) for t in (col, rat, msk))
-                            flat_m[r3:r3 + K] = 0
-                            flat_r[r3:r3 + K] = 0
-                            flat_c[r3:r3 + K] = 0
-                            m = min(K1I_BAD, K)
-                            flat_c[r3:r3 + m] = heavy
-                            flat_r[r3:r3 + m] = -1.0
-                            flat_m[r3:r3 + m] = 1.0
-                            counts = list(counts)
-                            counts[3] = m
+                            counts = craft_dislikes(col, rat, msk, seg_start, K, heavy, counts)
                             bad = [3]
                         row_ids = torch.from_numpy(
                             rng.permutation(2 * R)[:R].astype(np.int32)).to(device)
@@ -734,6 +754,143 @@ def k1_implicit_vs_plain(torch, device, stats):
         f"max|x| of the plain version and of a float64 solve; worst abs diff to the "
         f"plain version {worst:.3g}; worst per-solve relative diff {worst_rel_k:.3g} "
         f"kernel to float64, {worst_rel_p:.3g} plain to float64; write-back bit-equal)")
+
+
+# -- K1's warp route vs its block kernel ------------------------------------------
+
+K1ROUTE_RANKS = (1, 10, 20, 32)
+
+
+def storage_rows(torch, table, rows) -> list:
+    """The bytes of rows ``rows`` of a storage table, values then (int8)
+    scales, as flat uint8 tensors."""
+    parts = table if isinstance(table, tuple) else (table,)
+    return [p[rows].contiguous().view(-1).view(torch.uint8) for p in parts]
+
+
+@phase("K1 warp route vs block kernel")
+def k1_route_vs_block(torch, device, stats):
+    """K1's warp route (ops/als.py k1_route at D <= 32) against its block
+    kernel (_solve_bucket_block) on the same CUDA tensors: D {1, 10, 20,
+    32} x storage {f32, bf16, int8} x compute {f32, bf16} x explicit /
+    implicit x width {8, 2048}, as an unsegmented bucket (the one-launch
+    route) and a segmented one (two launches: rows of 1, 2 and 33
+    segments), with rows of n = 0 and, implicit at alpha 40, a crafted
+    indefinite row. Every row of one segment: x and its written-back
+    storage bit for bit equal to the block kernel's. Every row of several
+    segments (summed in another order): within atol 1e-5 + rtol 1e-4 *
+    max|x| of the plain version and of a float64 solve. Indefinite rows
+    NaN in both; empty rows exact zeros in both; the launches counted
+    as the route says."""
+    from predictionio_tpu_torch.ops import als
+
+    rng = np.random.default_rng(SEED + 19)
+    n_other = 4096
+    configs = bit_rows = multi_rows = nan_rows = 0
+    worst_rel = 0.0
+    for D in K1ROUTE_RANKS:
+        base_np = (rng.standard_normal((n_other, D)) / np.sqrt(D)).astype(np.float32)
+        heavy = int(np.argmax((base_np ** 2).sum(1)))
+        base = torch.from_numpy(base_np).to(device)
+        for storage in DTYPES:
+            other = als.to_storage(base, storage)
+            for compute in ("float32", "bfloat16"):
+                for implicit in (False, True):
+                    gram = als.compute_gram(other, compute) if implicit else None
+                    weighted = (compute == "float32") != implicit
+                    for K in K1_WIDTHS:
+                        alpha = 1.0 if K == 8 else 40.0
+                        R = 64 if K == 8 else 8
+                        plain = [int(rng.integers(1, K + 1)) for _ in range(R)]
+                        plain[1] = 0
+                        segmented = list(plain)
+                        segmented[0] = int(rng.integers(1, K + 1))  # 1 segment
+                        segmented[1] = 32 * K + int(rng.integers(1, K + 1))  # 33
+                        segmented[2] = 0
+                        segmented[4] = K + int(rng.integers(1, K + 1))  # 2
+                        for kind, counts in (("unsegmented", plain), ("segmented", segmented)):
+                            col, rat, msk, seg_start = k1_bucket(
+                                torch, rng, counts, K, n_other, device)
+                            bad = []
+                            if implicit:
+                                rat = rat * 2  # counts 1..10
+                                if alpha == 40.0:
+                                    counts = craft_dislikes(col, rat, msk, seg_start, K,
+                                                            heavy, counts)
+                                    bad = [3]
+                            B = col.shape[0]
+                            route = als.k1_route(D, R, B)
+                            what = (f"D={D} storage={storage} compute={compute} "
+                                    f"implicit={implicit} K={K} {kind} route={route}")
+                            if route != ("warp" if kind == "unsegmented" else "split"):
+                                raise AssertionError(f"unexpected route: {what}")
+                            row_ids = torch.from_numpy(
+                                rng.permutation(2 * R)[:R].astype(np.int32)).to(device)
+                            kw = dict(weighted_reg=weighted, compute_dtype=compute,
+                                      implicit=implicit, alpha=alpha, gram=gram)
+                            tw = als.to_storage(torch.zeros((2 * R, D), device=device), storage)
+                            tb = als.to_storage(torch.zeros((2 * R, D), device=device), storage)
+                            before = als.solve_bucket.launches.value
+                            xw = als.solve_bucket(other, col, rat, msk, seg_start, K1_REG,
+                                                  target=tw, row_ids=row_ids, **kw)
+                            launched = als.solve_bucket.launches.value - before
+                            xb = als._solve_bucket_block(other, col, rat, msk, seg_start,
+                                                         K1_REG, target=tb, row_ids=row_ids,
+                                                         **kw)
+                            torch.cuda.synchronize()
+                            if launched != als.k1_launches(D, R, B):
+                                raise AssertionError(f"{launched} launches: {what}")
+                            nseg = np.diff(host(seg_start))
+                            one = torch.from_numpy(nseg == 1).to(device)
+                            if not same_bits(torch, xw[one], xb[one]):
+                                raise AssertionError(f"one-segment x not bit-equal to the "
+                                                     f"block kernel's: {what}")
+                            rows = row_ids[one].long()
+                            for g, w in zip(storage_rows(torch, tw, rows),
+                                            storage_rows(torch, tb, rows)):
+                                if not torch.equal(g, w):
+                                    raise AssertionError(f"one-segment write-back not "
+                                                         f"bit-equal: {what}")
+                            multi = torch.from_numpy(nseg > 1).to(device)
+                            if bool(multi.any()):
+                                seg_row = als.seg_rows(seg_start, B)
+                                xp = als.solve_bucket_reference(
+                                    other, col, rat, msk, K1_REG, seg_row, R,
+                                    weighted_reg=weighted, compute_dtype=compute,
+                                    implicit=implicit, alpha=alpha, gram=gram)
+                                x64 = solve_float64(torch, other, col, rat, msk, seg_row, R,
+                                                    K1_REG, weighted, compute, implicit,
+                                                    alpha, gram)
+                                if not per_solve_ok(torch, xw[multi], xp[multi]):
+                                    raise AssertionError(f"multi-segment x differs from the "
+                                                         f"plain version: {what}")
+                                if not per_solve_ok(torch, xw[multi], x64[multi]):
+                                    raise AssertionError(f"multi-segment x differs from the "
+                                                         f"float64 solve: {what}")
+                                worst_rel = max(worst_rel, rowwise_rel(torch, xw[multi],
+                                                                       x64[multi]))
+                                multi_rows += int(multi.sum())
+                            want_nan = torch.zeros(R, dtype=torch.bool, device=device)
+                            want_nan[bad] = True
+                            for x in (xw, xb):
+                                if not torch.equal(torch.isnan(x).any(dim=1), want_nan):
+                                    raise AssertionError(f"NaN rows differ: {what}")
+                                if not bool(torch.isnan(x[bad]).all()):
+                                    raise AssertionError(f"indefinite row not all NaN: {what}")
+                            empty = [r for r, n in enumerate(counts) if n == 0]
+                            if not (bool((xw[empty] == 0).all()) and bool((xb[empty] == 0).all())):
+                                raise AssertionError(f"an empty row did not solve to 0: {what}")
+                            bit_rows += int(one.sum())
+                            nan_rows += len(bad)
+                            configs += 1
+    stats["k1route"] = {"configurations": configs, "bit_equal_rows": bit_rows,
+                        "multi_segment_rows": multi_rows, "nan_rows": nan_rows,
+                        "worst_multi_rel_to_float64": worst_rel}
+    log(f"{configs} warp-route-vs-block configurations agree: {bit_rows} one-segment rows "
+        f"bit-equal in x and write-back, {multi_rows} multi-segment rows within atol "
+        f"{K1_ATOL} + rtol {K1_RTOL} * max|x| of the plain version and of float64 (worst "
+        f"per-solve relative to float64 {worst_rel:.3g}), {nan_rows} indefinite rows NaN "
+        f"in both")
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -935,6 +1092,15 @@ def make_ml_shaped(scale: str):
     return rows, cols, vals, num_users, num_items
 
 
+def k1_launches_per_iteration(data, rank: int) -> int:
+    """K1's kernel launches in one iteration over ``data``'s buckets: one
+    per bucket, two for a segmented bucket on the warp route."""
+    from predictionio_tpu_torch.ops import als
+
+    return sum(als.k1_launches(rank, len(b.row_ids), b.col_ids.shape[0])
+               for b in data.row_buckets + data.col_buckets)
+
+
 def plain_iteration(torch, data, params, device):
     """One ALS iteration (explicit or implicit) with K1's plain version on
     the card, from the cold init ``als_train`` draws for ``params.seed``."""
@@ -1073,7 +1239,8 @@ def lifecycle(torch, device, stats):
 def full_width(torch, device, stats):
     """The generated ML-20M-shaped ratings through ``run_train`` (2
     iterations, f32 storage) -- K1's counter reset just before and read
-    just after: the main path's launches -- persisted, deployed and
+    just after: the main path's launches, 2 x the route's launches per
+    iteration (k1_launches_per_iteration) -- persisted, deployed and
     queried. Then 1 iteration with K1 against 1 with its plain version
     from the same init: factors within rtol 5e-4 / atol 5e-5
     (tests/test_als.py:188) and train RMSE within 1e-4 relative."""
@@ -1145,10 +1312,10 @@ def full_width(torch, device, stats):
         f"{side} K={b.width} B={b.col_ids.shape[0]} R={len(b.row_ids)}"
         for side, bs in (("user", data.row_buckets), ("item", data.col_buckets))
         for b in bs))
-    per_iter = len(data.row_buckets) + len(data.col_buckets)
+    per_iter = k1_launches_per_iteration(data, 20)
     if stats["k1_launches"] != 2 * per_iter:
         raise AssertionError(f"K1 launched {stats['k1_launches']} times on the main "
-                             f"path, expected 2 iterations x {per_iter} buckets")
+                             f"path, expected 2 iterations x {per_iter} launches")
     params = als.ALSParams(rank=20, iterations=1, reg=TRAIN_REG, seed=3)
     Uk, Vk = als.als_train(data, params, device=device)
     Up, Vp = plain_iteration(torch, data, params, device)
@@ -1402,7 +1569,8 @@ def similar_full_width(torch, device, stats):
     at the template's defaults (rank 10, 20 iterations, lambda 0.01,
     alpha 1.0, f32): views -> per-pair counts -> implicit ALS on K1, K1's
     counter reset just before and read just after (the main path's
-    launches; it must equal iterations x buckets); persisted, deployed,
+    launches; it must equal iterations x the route's launches per
+    iteration); persisted, deployed,
     queried over HTTP against the plain path (K2's summed-rows counter:
     the serving main path's launches). Then 1 implicit iteration with K1
     against 1 with its plain version and 1 in float64, from the same
@@ -1496,11 +1664,11 @@ def similar_full_width(torch, device, stats):
             f"{side} K={b.width} B={b.col_ids.shape[0]} R={len(b.row_ids)}"
             for side, bs in (("user", data.row_buckets), ("item", data.col_buckets))
             for b in bs))
-    per_iter = len(data.row_buckets) + len(data.col_buckets)
+    per_iter = k1_launches_per_iteration(data, SIM_TRAIN["rank"])
     if stats["k1i_launches"] != SIM_TRAIN["numIterations"] * per_iter:
         raise AssertionError(f"K1 launched {stats['k1i_launches']} times on the main "
                              f"path, expected {SIM_TRAIN['numIterations']} iterations x "
-                             f"{per_iter} buckets")
+                             f"{per_iter} launches")
     params = als.ALSParams(rank=10, iterations=1, reg=0.01, implicit=True, alpha=1.0,
                            seed=3)
     Uk, Vk = als.als_train(data, params, device=device)
@@ -1686,11 +1854,12 @@ def library_solve(torch, other, b, seg_row, reg: float, implicit: bool = False,
 @phase("K1 times")
 def k1_timings(torch, device, stats):
     """K1 per bucket at ML-20M rank 20, f32 and int8 storage: device time
-    per launch (torch.profiler), its plain version (solve + _scatter_rows)
-    and the library yardstick, beside the bound max(bytes / memory rate,
-    FP32 operations / FP32 rate) computed from this run's buckets; then
-    the wall time of one iteration (7 launches, host clock around
-    synchronize)."""
+    per call (torch.profiler) of the route k1_route picks, each of a
+    segmented bucket's two launches apart, the block kernel on the same
+    bucket, its plain version (solve + _scatter_rows) and the library
+    yardstick, beside the bound max(bytes / memory rate, FP32 operations
+    / FP32 rate) computed from this run's buckets; then the wall time of
+    one iteration (host clock around synchronize)."""
     from predictionio_tpu_torch.ops import als
 
     mem_rate, fp32_rate = peaks(stats["device_name"])
@@ -1725,11 +1894,16 @@ def k1_timings(torch, device, stats):
                 def library():
                     return library_solve(torch, other, b, seg_row, TRAIN_REG)
 
+                def block():
+                    als._solve_bucket_block(other, b.col_ids, b.ratings, b.mask,
+                                            b.seg_start, TRAIN_REG, target=target,
+                                            row_ids=b.row_ids, return_x=False)
+
                 n_live, nbytes, flops = k1_bound(torch, b, D, elem, scale_bytes)
                 row = {"timing": "solve_bucket", "storage": storage, "side": side,
                        "K": K, "B": B, "R": R, "live": n_live,
                        "kernel_ms": cuda_median_ms(torch, kernel, runs=5, warmup=2),
-                       "kernel_device_ms": _total(device_ms(torch, kernel, runs=5)),
+                       **route_times(torch, als, kernel, block, D, R, B),
                        "plain_device_ms": _total(device_ms(torch, plain, runs=2)),
                        "library_device_ms": _total(device_ms(torch, library, runs=2)),
                        "bytes": nbytes, "flops": flops,
@@ -1754,11 +1928,32 @@ def k1_timings(torch, device, stats):
         iteration_ms[storage] = statistics.median(walls)
         per = [r for r in rows if r["storage"] == storage]
         log(json.dumps({"timing": "iteration", "storage": storage,
-                        "wall_ms": iteration_ms[storage], "launches": len(per),
+                        "wall_ms": iteration_ms[storage],
+                        "launches": sum(r["launches"] for r in per),
                         "kernel_device_ms": sum(r["kernel_device_ms"] or 0 for r in per),
-                        "bound_ms": sum(r["bound_ms"] for r in per)}))
+                        "block_device_ms": sum(r["block_device_ms"] or 0 for r in per),
+                        "bound_ms": sum(r["bound_ms"] for r in per),
+                        "workspace_bytes": sum(r["workspace_bytes"] for r in per)}))
     stats["k1_timings"] = rows
     stats["iteration_ms"] = iteration_ms
+
+
+def route_times(torch, als, kernel, block, D: int, R: int, B: int) -> dict:
+    """Device times (torch.profiler, per call) of one bucket on the route
+    k1_route picks (``kernel``) -- a segmented bucket's two launches also
+    apart -- and on the block kernel (``block``), with the route's
+    launches and the bytes its workspace takes (written once, read once;
+    the design's own traffic, not part of the bound)."""
+    route = als.k1_route(D, R, B)
+    dev = device_ms(torch, kernel, runs=5)
+    out = {"route": route, "launches": als.k1_launches(D, R, B),
+           "kernel_device_ms": _total(dev)}
+    if route == "split":
+        out["partials_device_ms"] = _total(dev, "warp_partials_kernel")
+        out["finish_device_ms"] = _total(dev, "warp_finish_kernel")
+    out["workspace_bytes"] = 2 * B * (D * (D + 3) // 2 + 2) * 4 if route == "split" else 0
+    out["block_device_ms"] = _total(device_ms(torch, block, runs=5))
+    return out
 
 
 def k1_bound(torch, b, D: int, elem: int, scale_bytes: int, implicit: bool = False):
@@ -1783,8 +1978,9 @@ def k1_bound(torch, b, D: int, elem: int, scale_bytes: int, implicit: bool = Fal
 @phase("similar-product times")
 def similar_timings(torch, device, stats):
     """K1's implicit mode per bucket at ML-20M-shaped view counts, rank 10
-    f32 (the similar-product defaults), beside its plain version, the
-    library yardstick and the bound of this run's buckets; compute_gram
+    f32 (the similar-product defaults), each launch of its route, beside
+    the block kernel, its plain version, the library yardstick and the
+    bound of this run's buckets; compute_gram
     and one iteration's wall time. Then K2's summed-rows mode at B = 1
     and B = 64 (L = 4, k = 4) on a normalized f32 rank-10 catalog of the
     ML-20M item count, beside its plain version, a ``torch.topk(q @
@@ -1825,11 +2021,17 @@ def similar_timings(torch, device, stats):
                 return library_solve(torch, other, b, seg_row, reg, implicit=True,
                                      alpha=alpha, gram=gram)
 
+            def block():
+                als._solve_bucket_block(other, b.col_ids, b.ratings, b.mask, b.seg_start,
+                                        reg, weighted_reg=False, target=target,
+                                        row_ids=b.row_ids, return_x=False, implicit=True,
+                                        alpha=alpha, gram=gram)
+
             n_live, nbytes, flops = k1_bound(torch, b, D, 4, 0, implicit=True)
             row = {"timing": "solve_bucket implicit", "storage": "float32", "side": side,
                    "K": K, "B": B, "R": R, "live": n_live,
                    "kernel_ms": cuda_median_ms(torch, kernel, runs=5, warmup=2),
-                   "kernel_device_ms": _total(device_ms(torch, kernel, runs=5)),
+                   **route_times(torch, als, kernel, block, D, R, B),
                    "plain_device_ms": _total(device_ms(torch, plain, runs=2)),
                    "library_device_ms": _total(device_ms(torch, library, runs=2)),
                    "bytes": nbytes, "flops": flops,
@@ -1854,8 +2056,11 @@ def similar_timings(torch, device, stats):
     stats["k1i_timings"] = rows
     stats["k1i_iteration_ms"] = statistics.median(walls)
     log(json.dumps({"timing": "implicit iteration", "storage": "float32", "rank": D,
-                    "wall_ms": stats["k1i_iteration_ms"], "launches": len(rows),
+                    "wall_ms": stats["k1i_iteration_ms"],
+                    "launches": sum(r["launches"] for r in rows),
                     "kernel_device_ms": sum(r["kernel_device_ms"] or 0 for r in rows),
+                    "block_device_ms": sum(r["block_device_ms"] or 0 for r in rows),
+                    "workspace_bytes": sum(r["workspace_bytes"] for r in rows),
                     "compute_gram_device_ms": gram_ms,
                     "bound_ms": sum(r["bound_ms"] for r in rows)}))
 
@@ -1903,7 +2108,8 @@ def similar_timings(torch, device, stats):
 
 def k1i_summary(stats) -> dict:
     """K1 implicit's line of the kernels summary: one iteration at the
-    ML-20M-shaped view counts, rank 10 f32 (the sum over its launches)."""
+    ML-20M-shaped view counts, rank 10 f32 (the sum over its launches);
+    ``block_ms``: the block kernel on the same buckets in this run."""
     per = stats["k1i_timings"]
 
     def total(key):
@@ -1925,6 +2131,7 @@ def k1i_summary(stats) -> dict:
         "bound_ms": sum(r["bound_ms"] for r in per),
         "bound_by": "bytes" if nbytes / mem_rate >= flops / fp32_rate else "operations",
         "library_ms": total("library_device_ms"),
+        "block_ms": total("block_device_ms"),
     }
 
 
@@ -1950,7 +2157,8 @@ def k2s_summary(stats) -> dict:
 
 def k1_summary(stats) -> dict:
     """K1's line of the kernels summary: one iteration at ML-20M rank 20,
-    f32 storage (the sum over its 7 launches)."""
+    f32 storage (the sum over its launches); ``block_ms``: the block
+    kernel on the same buckets in this run."""
     per = [r for r in stats["k1_timings"] if r["storage"] == "float32"]
 
     def total(key):
@@ -1972,6 +2180,7 @@ def k1_summary(stats) -> dict:
         "bound_ms": sum(r["bound_ms"] for r in per),
         "bound_by": "bytes" if nbytes / mem_rate >= flops / fp32_rate else "operations",
         "library_ms": total("library_device_ms"),
+        "block_ms": total("block_device_ms"),
     }
 
 
@@ -1999,6 +2208,7 @@ def main() -> int:
         "k2": lambda: kernel_vs_plain(torch, device, stats),
         "k1": lambda: k1_vs_plain(torch, device, stats),
         "k1i": lambda: k1_implicit_vs_plain(torch, device, stats),
+        "k1route": lambda: k1_route_vs_block(torch, device, stats),
         "k2s": lambda: k2_sum_rows_vs_plain(torch, device, stats),
         "serve": lambda: the_slice(torch, device, stats),
         "lifecycle": lambda: lifecycle(torch, device, stats),

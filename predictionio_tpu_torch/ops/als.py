@@ -14,13 +14,15 @@ Port of ``predictionio_tpu/ops/als.py`` (single card):
   and ``b = sum r v`` in float32, add a hot row's segments, regularize
   (implicit feedback: also add ``Y^T Y``, :func:`compute_gram`),
   Cholesky-solve, and write the solved rows back into the storage table.
-  On CUDA tensors it launches the hand-written kernel
-  ``csrc/als_solve.cu``; on CPU tensors it runs the plain PyTorch version
-  beside it (:func:`solve_bucket_reference` + :func:`_scatter_rows`).
-  There is no fallback from one to the other;
-- :func:`als_train`: iterations -> half-steps -> one K1 launch per
-  bucket, with the bucket arrays uploaded once and the factor tables
-  updated in place.
+  On CUDA tensors it launches the hand-written kernels of
+  ``csrc/als_solve.cu`` by the route :func:`k1_route` picks (one warp a
+  row at ranks <= :data:`WARP_MAX_RANK`, a segmented bucket in two
+  launches; one block a row above); on CPU tensors it runs the plain
+  PyTorch version beside them (:func:`solve_bucket_reference` +
+  :func:`_scatter_rows`). There is no fallback from one to the other;
+- :func:`als_train`: iterations -> half-steps -> K1 on each bucket, with
+  the bucket arrays uploaded once and the factor tables updated in
+  place.
 
 The random init cannot reproduce ``jax.random``'s bits: parity runs feed
 both packages the same initial factors through ``warm_start``.
@@ -55,6 +57,9 @@ logger = logging.getLogger(__name__)
 DEFAULT_BUCKETS = (8, 32, 128, 512, 2048)
 #: the largest rank K1 solves (ranks 10-128 are in use)
 MAX_RANK = 128
+#: the largest rank K1's warp route takes (csrc/als_solve.cu WARP_MAX_D);
+#: the templates' ranks (10, 20) are below it
+WARP_MAX_RANK = 32
 
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _STORAGE_DTYPES = ("float32", "bfloat16", "int8")
@@ -471,6 +476,33 @@ def solve_bucket_reference(
     return _cholesky_solve(A, b)
 
 
+def k1_route(D: int, R: int, B: int) -> str:
+    """Which of K1's kernels solve a bucket of rank ``D`` with ``R``
+    solved rows over ``B`` table rows: ``"warp"`` (one launch, a warp per
+    solved row) for ``D <= WARP_MAX_RANK`` where ``B <= R`` (every solved
+    row one table row at most, as in an unsegmented bucket); ``"split"``
+    (two launches: a warp per table row writes its partial sums, then a
+    warp per solved row adds its segments' and solves) for ``D <=
+    WARP_MAX_RANK`` where ``B > R``; ``"block"`` (one launch, a
+    256-thread block per solved row) for ``WARP_MAX_RANK < D <=
+    MAX_RANK``."""
+    if not 1 <= D <= MAX_RANK:
+        raise ValueError(f"K1 solves ranks 1..{MAX_RANK}, got {D}")
+    if D > WARP_MAX_RANK:
+        return "block"
+    return "warp" if B <= R else "split"
+
+
+# csrc/als_solve.cu enum Launch: each route's kernels, in launch order
+_LAUNCH_CODES = {"block": (0,), "warp": (1,), "split": (2, 3)}
+
+
+def k1_launches(D: int, R: int, B: int) -> int:
+    """K1's kernel launches for one bucket (:func:`k1_route`): what
+    ``solve_bucket.launches`` counts."""
+    return len(_LAUNCH_CODES[k1_route(D, R, B)])
+
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -480,12 +512,13 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("als_solve")
     if not getattr(lib, "_pio_typed", False):
         lib.pio_k1_solve_bucket.argtypes = [
+            _I,  # launch (_LAUNCH_CODES)
             _P, _I, _P,  # other values, dtype code, scales
             _P, _P, _P, _P,  # col_ids, ratings, mask, seg_start
-            _I, _I, _I,  # R, K, D
+            _I, _I, _I, _I,  # R, B, K, D
             ctypes.c_float, _I, _I,  # reg, weighted, bf16 compute
             _I, ctypes.c_float, _P,  # implicit, alpha, gram (or NULL)
-            _P,  # x out (or NULL)
+            _P, _P,  # workspace (or NULL), x out (or NULL)
             _P, _I, _P, _P,  # target values, dtype code, scales, row_ids
             _P,  # stream
         ]
@@ -557,19 +590,17 @@ def solve_bucket(
     Returns ``x [R, D]`` float32 when ``return_x``, else None.
 
     CPU tensors take :func:`solve_bucket_reference` + :func:`_scatter_rows`;
-    CUDA tensors launch the kernel (``csrc/als_solve.cu``) or raise. As
-    with K2's device indices, the values of ``col_ids``, ``seg_start``
-    and ``row_ids`` on the card are the caller's to keep in range:
+    CUDA tensors launch the kernels of the route :func:`k1_route` picks
+    (``csrc/als_solve.cu``; a segmented bucket on the warp route takes a
+    ``[B, D(D+3)/2 + 2]`` float32 workspace from torch's allocator) or
+    raise. ``solve_bucket.launches`` counts kernel launches. As with K2's
+    device indices, the values of ``col_ids``, ``seg_start`` and
+    ``row_ids`` on the card are the caller's to keep in range:
     :func:`device_buckets` builds them from checked host arrays."""
-    if compute_dtype not in _COMPUTE_DTYPES:
-        raise ValueError(f"compute_dtype must be one of {sorted(_COMPUTE_DTYPES)}")
-    if target is not None and row_ids is None:
-        raise ValueError("a write-back target needs row_ids")
-    if implicit and gram is None:
-        raise ValueError("an implicit solve needs gram (compute_gram of other)")
+    _check_solve_args(compute_dtype, target, row_ids, implicit, gram)
     device = col_ids.device
-    R = seg_start.shape[0] - 1
     if device.type == "cpu":
+        R = seg_start.shape[0] - 1
         x = solve_bucket_reference(
             other, col_ids, ratings, mask, reg,
             seg_rows(seg_start, col_ids.shape[0]), R, weighted_reg,
@@ -578,14 +609,49 @@ def solve_bucket(
         if target is not None:
             _scatter_rows(target, row_ids, x)
         return x if return_x else None
+    return _solve_on_card(None, solve_bucket.launches, other, col_ids, ratings, mask,
+                          seg_start, reg, weighted_reg, compute_dtype, target, row_ids,
+                          return_x, implicit, alpha, gram)
+
+
+def _solve_bucket_block(other, col_ids, ratings, mask, seg_start, reg,
+                        weighted_reg: bool = True, compute_dtype: str = "float32",
+                        target=None, row_ids=None, return_x: bool = True,
+                        implicit: bool = False, alpha: float = 1.0, gram=None):
+    """K1's block kernel at any rank <= 128, whatever :func:`k1_route`
+    picks: the same-run baseline and bit-exact check of the warp route
+    for ``chip_smoke.py``. The port never calls it. CUDA tensors only;
+    counts its launches in ``_solve_bucket_block.launches``."""
+    _check_solve_args(compute_dtype, target, row_ids, implicit, gram)
+    return _solve_on_card("block", _solve_bucket_block.launches, other, col_ids, ratings,
+                          mask, seg_start, reg, weighted_reg, compute_dtype, target,
+                          row_ids, return_x, implicit, alpha, gram)
+
+
+def _check_solve_args(compute_dtype, target, row_ids, implicit, gram) -> None:
+    if compute_dtype not in _COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {sorted(_COMPUTE_DTYPES)}")
+    if target is not None and row_ids is None:
+        raise ValueError("a write-back target needs row_ids")
+    if implicit and gram is None:
+        raise ValueError("an implicit solve needs gram (compute_gram of other)")
+
+
+def _solve_on_card(route, counter, other, col_ids, ratings, mask, seg_start, reg,
+                   weighted_reg, compute_dtype, target, row_ids, return_x, implicit,
+                   alpha, gram):
+    """K1's launches on CUDA tensors: ``route`` (:func:`k1_route`'s pick
+    when None), each launch checked and added to ``counter``."""
+    device = col_ids.device
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-
     o_vals, o_scales, o_code = _split_table(other, "other")
     B, K = col_ids.shape
+    R = seg_start.shape[0] - 1
     D = o_vals.shape[1]
     if not 1 <= D <= MAX_RANK:
         raise ValueError(f"K1 solves ranks 1..{MAX_RANK}, got {D}")
+    route = route or k1_route(D, R, B)
     for t, name in ((o_vals, "other"), (o_scales, "other scales")):
         if t is not None and t.device != device:
             raise ValueError(f"{name} on {t.device}, expected {device}")
@@ -610,28 +676,35 @@ def solve_bucket(
     x = torch.empty((R, D), dtype=torch.float32, device=device) if return_x else None
     if R == 0:
         return x
+    # the split route's partials; freed to torch's allocator after the
+    # launches are queued, reused only by later work on the same stream
+    ws = (torch.empty((B, D * (D + 3) // 2 + 2), dtype=torch.float32, device=device)
+          if route == "split" else None)
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.pio_k1_solve_bucket(
-            o_vals.data_ptr(), o_code,
-            None if o_scales is None else o_scales.data_ptr(),
-            col_ids.data_ptr(), ratings.data_ptr(), mask.data_ptr(),
-            seg_start.data_ptr(), R, K, D,
-            float(reg), int(bool(weighted_reg)), int(compute_dtype == "bfloat16"),
-            int(bool(implicit)), float(alpha), gram.data_ptr() if implicit else None,
-            None if x is None else x.data_ptr(),
-            None if t_vals is None else t_vals.data_ptr(), t_code,
-            None if t_scales is None else t_scales.data_ptr(),
-            None if target is None else row_ids.data_ptr(),
-            stream,
-        )
-    _build.check(err, "solve_bucket kernel launch")
-    solve_bucket.launches.add()
+        for launch in _LAUNCH_CODES[route]:
+            err = lib.pio_k1_solve_bucket(
+                launch, o_vals.data_ptr(), o_code,
+                None if o_scales is None else o_scales.data_ptr(),
+                col_ids.data_ptr(), ratings.data_ptr(), mask.data_ptr(),
+                seg_start.data_ptr(), R, B, K, D,
+                float(reg), int(bool(weighted_reg)), int(compute_dtype == "bfloat16"),
+                int(bool(implicit)), float(alpha), gram.data_ptr() if implicit else None,
+                None if ws is None else ws.data_ptr(),
+                None if x is None else x.data_ptr(),
+                None if t_vals is None else t_vals.data_ptr(), t_code,
+                None if t_scales is None else t_scales.data_ptr(),
+                None if target is None else row_ids.data_ptr(),
+                stream,
+            )
+            _build.check(err, f"solve_bucket kernel launch ({route} route)")
+            counter.add()
     return x
 
 
 solve_bucket.launches = _build.LaunchCount()
+_solve_bucket_block.launches = _build.LaunchCount()
 
 
 def solve_bucket_explicit(
@@ -776,7 +849,7 @@ def device_buckets(buckets: Sequence[PaddedBucket],
 
 def _half_step(target, other, buckets: Sequence[DeviceBucket], params: ALSParams) -> None:
     """Solve every bucket of one side from ``other`` and write the rows
-    into ``target`` in place: one K1 launch per bucket. Implicit feedback
+    into ``target`` in place: K1 on each bucket. Implicit feedback
     first computes ``other``'s Gramian, once for the half-step."""
     gram = compute_gram(other, params.compute_dtype) if params.implicit else None
     weighted = params.implicit_weighted_reg if params.implicit else params.weighted_reg

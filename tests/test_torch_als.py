@@ -26,10 +26,17 @@ same numpy inputs. Tolerances and their reasons:
   it); an indefinite system is NaN for NaN in both, and its int8
   write-back zeros with scale 1; a whole implicit training from one
   init within rtol=5e-4, atol=5e-5 (f32), or per-row cosine >= 0.999
-  with the same NaN rows (bf16 and int8 storage).
+  with the same NaN rows (bf16 and int8 storage);
+- K1's routes on the card: the rule (``k1_route``) and the launches it
+  implies, exactly; the split route's order of sums, stated in plain
+  torch, within atol 1e-5 + rtol 1e-4 * max|x| per solve of the plain
+  version (chip_smoke.py's per-solve bar, where the kernels are run).
 """
 
 from __future__ import annotations
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -595,3 +602,133 @@ def test_als_train_implicit_dislikes_nan_rows_like_jax(storage):
         np.testing.assert_allclose(TU[~nan_u], JU[~nan_u], rtol=5e-4, atol=5e-5)
     else:
         assert _row_cosines(JU[~nan_u], TU[~nan_u]).min() >= 0.999
+
+
+# -- K1's routes on the card (csrc/als_solve.cu): the rule and its sums --------
+
+
+@pytest.mark.parametrize("segmented", [False, True])
+@pytest.mark.parametrize("D", [1, 32, 33, 128])
+def test_k1_route_by_rank_and_bucket_shape(D, segmented):
+    """The warp route up to WARP_MAX_RANK (one launch when every solved
+    row is one table row, two for a segmented bucket); the block kernel,
+    one launch, above it."""
+    R, B = (50, 80) if segmented else (50, 50)
+    want = ("split" if segmented else "warp") if D <= 32 else "block"
+    assert tals.k1_route(D, R, B) == want
+    assert tals.k1_launches(D, R, B) == (2 if want == "split" else 1)
+
+
+def test_k1_route_refuses_ranks_out_of_range():
+    for D in (0, tals.MAX_RANK + 1):
+        with pytest.raises(ValueError, match="ranks"):
+            tals.k1_route(D, 4, 4)
+
+
+def test_k1_route_bound_matches_the_kernel_source():
+    src = (Path(tals.__file__).resolve().parent.parent / "csrc" / "als_solve.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert int(consts["WARP_MAX_D"]) == tals.WARP_MAX_RANK == 32
+    assert int(consts["MAX_D"]) == tals.MAX_RANK
+
+
+@pytest.mark.parametrize("rank", [6, 20, 33])
+def test_k1_launches_per_iteration_of_a_segmented_layout(rank):
+    """One launch per bucket, two for each segmented bucket on the warp
+    route: the count an iteration's ``solve_bucket.launches`` moves by on
+    the card. The layout of ``_train_both`` (hot row 0 and column 1
+    segment over the widest bucket) is the JAX package's too."""
+    rows, cols, vals = _coo(11, 30, 24, 260)
+    td = tals.build_ratings_data(rows, cols, vals, 30, 24, SMALL_WIDTHS)
+    jd = jals.build_ratings_data(rows, cols, vals, 30, 24, SMALL_WIDTHS)
+    buckets = td.row_buckets + td.col_buckets
+    segmented = sum(b.seg_row is not None for b in buckets)
+    assert segmented == 2  # the hot row and the hot column
+    got = sum(tals.k1_launches(rank, len(b.row_ids), b.col_ids.shape[0]) for b in buckets)
+    assert got == len(buckets) + (segmented if rank <= tals.WARP_MAX_RANK else 0)
+    assert got == sum(tals.k1_launches(rank, len(b.row_ids), b.col_ids.shape[0])
+                      for b in jd.row_buckets + jd.col_buckets)
+
+
+def test_block_entry_point_needs_cuda():
+    t = torch.zeros((4, 3))
+    col = torch.zeros((2, 2), dtype=torch.int32)
+    r = torch.zeros((2, 2))
+    with pytest.raises(ValueError, match="device"):
+        tals._solve_bucket_block(t, col, r, r, torch.arange(3, dtype=torch.int32), 0.1)
+
+
+def _segmented_bucket(rng, counts, K: int, n_other: int):
+    """(col, rat, msk, seg_start) of a bucket whose solved row r has
+    ``counts[r]`` entries over ceil(n / K) >= 1 consecutive table rows."""
+    nseg = [max(1, -(-n // K)) for n in counts]
+    seg_start = np.concatenate([[0], np.cumsum(nseg)]).astype(np.int32)
+    B = int(seg_start[-1])
+    col = np.zeros((B * K,), np.int32)
+    rat = np.zeros((B * K,), np.float32)
+    msk = np.zeros((B * K,), np.float32)
+    for r, n in enumerate(counts):
+        for s0 in range(0, n, K):  # each segment packed to its front
+            m = min(K, n - s0)
+            lo = int(seg_start[r]) * K + s0
+            col[lo:lo + m] = rng.integers(0, n_other, m)
+            rat[lo:lo + m] = rng.integers(1, 11, m) / 2.0
+            msk[lo:lo + m] = 1.0
+    return col.reshape(B, K), rat.reshape(B, K), msk.reshape(B, K), seg_start
+
+
+def _split_route_sum(other, col, rat, msk, seg_start, reg, weighted, implicit, alpha, gram):
+    """The warp route's two launches on a segmented bucket, stated in
+    plain torch (f32): each table row's A, b and n, then each solved
+    row's segments summed in segment order starting from the first
+    partial (no +0.0 start), regularized, the Gramian added after the
+    regularizer (implicit), solved by Cholesky."""
+    w, r = tals._bucket_weights(rat, msk, torch.float32, implicit, alpha)
+    g = tals._read_rows(other, col.long(), torch.float32)
+    A_t = torch.bmm((g * w[..., None]).transpose(1, 2), g)
+    b_t = torch.bmm(r[:, None, :], g)[:, 0]
+    n_t = msk.sum(1)
+    R, D = seg_start.shape[0] - 1, g.shape[-1]
+    A, b, n = torch.zeros((R, D, D)), torch.zeros((R, D)), torch.zeros(R)
+    for i in range(R):
+        s0, s1 = int(seg_start[i]), int(seg_start[i + 1])
+        if s1 > s0:
+            A[i], b[i], n[i] = A_t[s0], b_t[s0], n_t[s0]
+        for s in range(s0 + 1, s1):
+            A[i], b[i], n[i] = A[i] + A_t[s], b[i] + b_t[s], n[i] + n_t[s]
+    lam = torch.where(n > 0, reg * n if weighted else torch.full_like(n, reg),
+                      torch.ones_like(n))
+    A = A + lam[:, None, None] * torch.eye(D)
+    if implicit:
+        A = A + gram
+    return tals._cholesky_solve(A, b)
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+def test_split_route_summation_matches_the_plain_version(implicit):
+    """Rows of 1, 2 and 33 segments (and an empty one) at D = 20: the
+    split route's order of sums against ``solve_bucket_reference`` (per
+    table row, then ``index_add_`` over the segments), each solve within
+    atol 1e-5 + rtol 1e-4 * max|x| of its row (normwise, chip_smoke.py's
+    per-solve bar); the empty row exact zeros in both."""
+    D, K = 20, 8
+    rng = np.random.default_rng(23)
+    other = torch.from_numpy(
+        (rng.standard_normal((300, D)) / np.sqrt(D)).astype(np.float32))
+    counts = [5, 12, 33 * K - 3, 0, 7, 2 * K]
+    col, rat, msk, seg_start = (torch.from_numpy(a) for a in
+                                _segmented_bucket(rng, counts, K, 300))
+    assert np.diff(seg_start.numpy()).tolist() == [1, 2, 33, 1, 1, 2]
+    if implicit:
+        rat = rat * 2
+    gram = tals.compute_gram(other) if implicit else None
+    weighted = not implicit
+    got = _split_route_sum(other, col, rat, msk, seg_start, 0.05, weighted, implicit,
+                           1.5, gram)
+    want = tals.solve_bucket_reference(
+        other, col, rat, msk, 0.05, tals.seg_rows(seg_start, col.shape[0]), len(counts),
+        weighted_reg=weighted, implicit=implicit, alpha=1.5, gram=gram)
+    err = (got.double() - want.double()).abs().amax(dim=1)
+    assert bool((err <= 1e-5 + 1e-4 * want.double().abs().amax(dim=1)).all())
+    assert bool((got[3] == 0).all()) and bool((want[3] == 0).all())
+    assert bool(torch.isfinite(got).all())
