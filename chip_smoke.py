@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases k2,k1,k1i,k1route,k2s,serve,lifecycle,simlife,
-                                    train,simtrain,times,k1times,simtimes]
+    python3 chip_smoke.py [--phases k2,k1,k1i,k1route,k2s,k2route,serve,lifecycle,
+                                    simlife,train,simtrain,times,k1times,simtimes]
 
 Run from the root of a checkout, on a machine with a CUDA card, ``nvcc``
 and PyTorch built for CUDA. It imports nothing of JAX and nothing of the
@@ -20,8 +20,10 @@ JAX package (``predictionio_tpu``). Phases:
    without an exclude mask: bit for bit on exact (small-integer) inputs,
    within rtol=1e-5/atol=1e-6 on random-normal ones (ids equal outside
    runs of near-tied scores, where the id sets must match), and row b of
-   a B=64 call bit for bit equal to the B=1 call for that user; the
-   selection stage alone on rows of ties, signed zeros, NaN and inf;
+   a B=64 call bit for bit equal to the B=1 call for that user; each call
+   served by the route ``k2_route`` names (the tile route at k <= 128,
+   the select route at k = I); the selection stage alone on rows of
+   ties, signed zeros, NaN and inf;
 4. k1: K1 against its plain version: storage {f32, bf16, int8} x compute
    {f32, bf16} x D {1, 10, 20, 30, 32, 33, 40, 64, 80, 128} x width {8, 2048},
    unsegmented and segmented (1 and 33 segments), with rows of n = 0;
@@ -31,7 +33,8 @@ JAX package (``predictionio_tpu``). Phases:
 5. serve: f32 and int8 models at full width (D = 20) saved through the
    port's storage, deployed through ``deploy`` on 127.0.0.1, answering
    ``POST /queries.json`` (checked against the plain version) -- K2's
-   launch count is reset before and read after: its main-path count;
+   call and per-route counts are reset before and read after: its
+   main-path count, every call on the tile route;
 6. lifecycle: ML-100K-shaped ratings written as ``rate`` events into the
    port's sqlite store, ``cli.main train`` then ``deploy`` on the card,
    queries POSTed; train RMSE against the same training on the CPU;
@@ -39,8 +42,11 @@ JAX package (``predictionio_tpu``). Phases:
    ``run_train`` (K1's launch count reset before and read after: its
    main-path count), persisted, deployed, queried; then 1 iteration with
    K1 against 1 with its plain version from the same init;
-8. times: K2, its plain version and a ``torch.topk(u @ V.T)`` yardstick
-   at D = 20 for f32 and int8, B in {1, 64}; the HTTP p50;
+8. times: K2 by its route (tile and merge launches apart), the select
+   route on the same inputs, its plain version and a ``torch.topk(u @
+   V.T)`` yardstick at D = 20 for f32 and int8, B in {1, 64}, k = 4; then
+   both routes of both modes at k in {1, 4, 16, 32, 64, 128}, B in {1,
+   64};
 9. k1times: K1 per bucket at ML-20M rank 20, f32 and int8 storage, with
    its launches (the warp route: 1, or 2 for a segmented bucket, each
    timed), the block kernel on the same bucket, its plain version and a
@@ -68,12 +74,16 @@ simtimes last):
 - simtrain: the ML-20M-shaped pairs as 20 M view events through
   ``run_train`` at the template's defaults (rank 10, 20 iterations),
   K1's counter reset before and read after (iterations x launches),
-  deployed and queried (K2's summed-rows counter); 1 implicit
+  deployed and queried (K2's summed-rows counters: every call on the
+  tile route); 1 implicit
   iteration with K1 against its plain version;
 - simtimes: K1 implicit per bucket with its launches, the block kernel,
-  plain, library yardstick, compute_gram and iteration wall time; K2 summed rows at B = 1 and 64
-  with a ``torch.topk(q @ V.T)`` yardstick; the similar-product HTTP p50
-  comes from simtrain.
+  plain, library yardstick, compute_gram and iteration wall time; K2
+  summed rows at B = 1 and 64 by its route, the select route on the same
+  inputs, the query rows summed by a launch of their own instead (the
+  select route's sum_rows_kernel plus the tile route on the sums), and a
+  ``torch.topk(q @ V.T)`` yardstick; the similar-product HTTP p50 comes
+  from simtrain.
 
 The K1 redesign (the warp route at D <= 32) adds, run after k1i:
 
@@ -84,6 +94,15 @@ The K1 redesign (the warp route at D <= 32) adds, run after k1i:
   back storage bit-equal to the block kernel's; every multi-segment row
   within atol 1e-5 + rtol 1e-4 * max|x| of the plain version and of a
   float64 solve; crafted indefinite rows NaN in both; empty rows zeros.
+
+The K2 redesign (the tile route, k <= 128) adds, run after k2s:
+
+- k2route: the tile route against the select route on the same CUDA
+  tensors, both modes: f32/bf16/int8 x I {50, 1,000, 26,744} x B {1, 7,
+  64} x k {1, 4, 128, 129}, unmasked and with all but two items masked,
+  on crafted exact catalogs (ties across tiles, NaN, infinities, signed
+  zeros) and random ones: bit-equal across routes, crafted ones bit-equal
+  to the plain version, B = 64 rows equal to their B = 1 calls.
 
 Every phase prints its results and seconds; any failure makes the exit
 code 1 and suppresses the result lines. Without CUDA, or without the
@@ -293,7 +312,11 @@ def kernel_vs_plain(torch, device, stats):
                                         device=device, dtype=torch.int32)
                     for k in (4, 16, 128, I_ROWS):
                         for m in (None, mask):
+                            route = topk.k2_route(k, I_ROWS, batch).name
+                            before = topk.gather_top_k_batch.routes[route].value
                             sk, ik = topk.gather_top_k_batch(ixs, users, items, k, m)
+                            if topk.gather_top_k_batch.routes[route].value != before + 1:
+                                raise AssertionError(f"k={k} B={batch}: not the {route} route")
                             sp, ip = topk.gather_top_k_batch_reference(
                                 ixs, users, items, k, m)
                             torch.cuda.synchronize()
@@ -403,7 +426,10 @@ def k2_sum_rows_vs_plain(torch, device, stats):
                         ixs, w = query_rows(torch, rng, batch, width, device)
                         for k in (4, 16, 128):
                             for m in (None, mask):
+                                before = topk.sum_rows_top_k_batch.routes["tile"].value
                                 sk, ik = topk.sum_rows_top_k_batch(ixs, w, items, k, m)
+                                if topk.sum_rows_top_k_batch.routes["tile"].value != before + 1:
+                                    raise AssertionError(f"k={k}: not the tile route")
                                 sp, ip = topk.sum_rows_top_k_batch_reference(
                                     ixs, w, items, k, m)
                                 torch.cuda.synchronize()
@@ -442,6 +468,141 @@ def k2_sum_rows_vs_plain(torch, device, stats):
     stats["k2s_max_abs_err"] = worst
     log(f"{checks} summed-rows kernel-vs-plain configurations agree (worst abs diff "
         f"{worst:.3g}); batch and padding invariance bit for bit")
+
+
+# -- K2's two routes against each other ----------------------------------------
+
+K2ROUTE_ITEMS = (50, 1000, I_ROWS)  # below one tile; not multiples of 128
+K2ROUTE_BATCHES = (1, 7, 64)
+K2ROUTE_USERS = 4096
+
+
+def crafted_catalog(torch, dtype: str, rows: int, rank: int, gen, device):
+    """An exact (small-integer) catalog whose scores hold ties across tile
+    and chunk boundaries (rows 120..135 and the last row copy row 0),
+    NaN (int8: from a NaN scale with either sign bit), +inf and -inf, and
+    (int8 only: a zero row times a negative scale) -0.0 beside +0.0.
+    Dense tables carry the specials in their values, the int8 pair in
+    its scales."""
+    table = make_table(torch, dtype, rows, rank, True, gen, device)
+    values = table[0] if isinstance(table, tuple) else table
+    if rows > 136:
+        values[120:136] = values[0]
+        values[rows - 1] = values[0]
+    if isinstance(table, tuple):
+        q, s = table
+        s[3], s[5], s[7] = float("nan"), float("inf"), float("-inf")
+        s[6].view(torch.int32).fill_(-1)  # a NaN with the sign bit set
+        q[9], s[9] = 0, -1.0  # -0.0 for every user
+        q[11], s[11] = 0, 1.0  # +0.0
+        return q, s
+    values[3, 0] = float("nan")
+    values[5, 1] = float("inf")
+    values[7, 0] = float("-inf")
+    values[11] = 0
+    return values
+
+
+@phase("K2 tile route vs select route")
+def k2_route_vs_select(torch, device, stats):
+    """K2's tile route (ops/topk.py k2_route, k <= K2_TILE_MAX_K) against
+    its select route on the same CUDA tensors, in both modes (user rows,
+    and summed catalog rows at L = 4): f32, bf16 and int8 storage x I {50
+    (below one tile), 1,000, 26,744 (not multiples of 128)} x B {1, 7, 64}
+    x k {1, 4, cap, cap + 1}, with no mask and with all but two items
+    masked (so k exceeds the unmasked count), on crafted exact catalogs
+    (ties across tiles, NaN, infinities, signed zeros) and
+    random ones: scores and ids bit-equal across the routes; on the
+    crafted catalogs bit-equal to the plain version too; every row of a
+    B = 64 call bit-equal to its B = 1 call. At k = cap + 1 (the select
+    route) the first cap entries equal the tile route's k = cap answer."""
+    from predictionio_tpu_torch.ops import topk
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 29)
+    rng = np.random.default_rng(SEED + 29)
+    cap = topk.K2_TILE_MAX_K
+    checks = 0
+    routes_seen = set()
+
+    def same(a, b):
+        return torch.equal(a[1], b[1]) and same_bits(torch, a[0], b[0])
+
+    for num_items in K2ROUTE_ITEMS:
+        all_but_two = torch.ones(num_items, dtype=torch.bool, device=device)
+        all_but_two[torch.randperm(num_items, generator=gen, device=device)[:2]] = False
+        for dtype in DTYPES:
+            for crafted in (True, False):
+                if crafted:
+                    items = crafted_catalog(torch, dtype, num_items, 20, gen, device)
+                    users = make_table(torch, dtype, K2ROUTE_USERS, 20, True, gen, device)
+                else:
+                    items = make_table(torch, dtype, num_items, 20, False, gen, device)
+                    users = make_table(torch, dtype, K2ROUTE_USERS, 20, False, gen, device)
+                for batch in K2ROUTE_BATCHES:
+                    uix = torch.randint(0, K2ROUTE_USERS, (batch,), generator=gen,
+                                        device=device, dtype=torch.int32)
+                    rix, w = (torch.from_numpy(a).to(device) for a in (
+                        rng.integers(0, num_items, (batch, 4)).astype(np.int32),
+                        (rng.random((batch, 4)) < 0.8).astype(np.float32)))
+                    for k in (1, 4, cap, cap + 1):
+                        for m in (None, all_but_two):
+                            what = (f"I={num_items} {dtype} crafted={crafted} B={batch} "
+                                    f"k={k} mask={m is not None}")
+                            calls = (
+                                ("gather", lambda f, kk: f(uix, users, items, kk, m),
+                                 topk.gather_top_k_batch, topk._gather_top_k_select,
+                                 topk.gather_top_k_batch_reference),
+                                ("summed", lambda f, kk: f(rix, w, items, kk, m),
+                                 topk.sum_rows_top_k_batch, topk._sum_rows_top_k_select,
+                                 topk.sum_rows_top_k_batch_reference),
+                            )
+                            for mode, call, routed, select, plain in calls:
+                                route = topk.k2_route(min(k, num_items), num_items, batch)
+                                before = routed.routes[route.name].value
+                                kernels = routed.kernel_launches.value
+                                got = call(routed, k)
+                                if routed.routes[route.name].value != before + 1:
+                                    raise AssertionError(f"not served by the {route.name} "
+                                                         f"route: {mode} {what}")
+                                want = topk.k2_launches(min(k, num_items), num_items, batch,
+                                                        mode == "summed")
+                                if routed.kernel_launches.value - kernels != want:
+                                    raise AssertionError(f"not {want} kernel launches: "
+                                                         f"{mode} {what}")
+                                routes_seen.add(route.name)
+                                kernels = select.kernel_launches.value
+                                base = call(select, k)
+                                if select.kernel_launches.value - kernels != (
+                                        3 if mode == "summed" else 2):
+                                    raise AssertionError(f"select route launch count: "
+                                                         f"{mode} {what}")
+                                torch.cuda.synchronize()
+                                if not same(got, base):
+                                    raise AssertionError(f"routes differ: {mode} {what}")
+                                if crafted and not same(got, call(plain, k)):
+                                    raise AssertionError(f"not the plain version's bits: "
+                                                         f"{mode} {what}")
+                                if k == cap + 1 and num_items > cap:
+                                    tile = call(routed, cap)
+                                    if not same(tile, (got[0][:, :cap], got[1][:, :cap])):
+                                        raise AssertionError(f"k=cap differs from the "
+                                                             f"k=cap+1 prefix: {mode} {what}")
+                                if batch == 64 and k in (4, cap):
+                                    for r in range(batch):
+                                        if mode == "gather":
+                                            one = routed(uix[r:r + 1], users, items, k, m)
+                                        else:
+                                            one = routed(rix[r:r + 1], w[r:r + 1], items, k, m)
+                                        if not same((one[0][0], one[1][0]),
+                                                    (got[0][r], got[1][r])):
+                                            raise AssertionError(f"row {r} differs from its "
+                                                                 f"B=1 call: {mode} {what}")
+                                checks += 1
+    if routes_seen != {"tile", "select"}:
+        raise AssertionError(f"routes exercised: {sorted(routes_seen)}")
+    log(f"{checks} route-vs-route configurations bit-equal (both modes; crafted ones "
+        f"also to the plain version); B=64 rows equal their B=1 calls")
 
 
 # -- K1 vs plain ---------------------------------------------------------------
@@ -982,6 +1143,9 @@ def the_slice(torch, device, stats):
     servers = []
     try:
         topk.gather_top_k_batch.launches.reset()  # the main path starts here
+        topk.gather_top_k_batch.kernel_launches.reset()
+        for count in topk.gather_top_k_batch.routes.values():
+            count.reset()
         for name in models:
             args = cli.build_parser().parse_args([
                 "deploy", "--engine-instance-id", ids[name], "--ip", "127.0.0.1",
@@ -1030,6 +1194,8 @@ def the_slice(torch, device, stats):
                 check_answer([x.item for x in r], [x.score for x in r],
                              exp_items, exp_scores, model, f"{name} batch row {j}")
         stats["launches"] = topk.gather_top_k_batch.launches.value  # main path read
+        stats["k2_kernel_launches"] = topk.gather_top_k_batch.kernel_launches.value
+        stats["k2_routes"] = {r: c.value for r, c in topk.gather_top_k_batch.routes.items()}
     finally:
         for s in servers:
             s.stop()
@@ -1038,8 +1204,18 @@ def the_slice(torch, device, stats):
         shutil.rmtree(basedir, ignore_errors=True)
     if launches_queries <= 0 or stats["launches"] <= 0:
         raise AssertionError("the HTTP queries did not launch the K2 kernel")
-    log(f"K2 launches on the main path: {stats['launches']} "
-        f"({launches_queries} during the HTTP queries); "
+    # every serving k (the power of two >= num, num <= 100 here) is on the tile route
+    if stats["k2_routes"] != {"tile": stats["launches"], "select": 0}:
+        raise AssertionError(f"K2 calls by route {stats['k2_routes']}: expected all "
+                             f"{stats['launches']} on the tile route")
+    # the kernels the C entries counted as they launched them: two a tile call
+    if stats["k2_kernel_launches"] != stats["launches"] * topk.k2_launches(4, I_ROWS, 1):
+        raise AssertionError(f"{stats['launches']} K2 calls launched "
+                             f"{stats['k2_kernel_launches']} kernels, expected "
+                             f"{topk.k2_launches(4, I_ROWS, 1)} a call")
+    log(f"K2 calls on the main path: {stats['launches']} "
+        f"({launches_queries} during the HTTP queries), all on the tile route: "
+        f"{stats['k2_kernel_launches']} kernel launches; "
         f"HTTP p50 {stats['http_p50_ms']:.3f} ms")
     log(json.dumps({"timing": "http /queries.json", "model": "f32", "num": 4,
                     "http_p50_ms": stats["http_p50_ms"],
@@ -1624,6 +1800,9 @@ def similar_full_width(torch, device, stats):
         model = server.models[0]
         conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
         topk.sum_rows_top_k_batch.launches.reset()  # the serving main path starts here
+        topk.sum_rows_top_k_batch.kernel_launches.reset()
+        for count in topk.sum_rows_top_k_batch.routes.values():
+            count.reset()
         queries = [{"items": ["i0"], "num": 4},
                    {"items": ["i5", "i77", "i26743"], "num": 10, "blackList": ["i1"]},
                    {"items": ["i42"], "num": 20}, {"items": ["nope"], "num": 4}]
@@ -1631,6 +1810,8 @@ def similar_full_width(torch, device, stats):
             got = post(conn, q)["itemScores"]
             check_similar(got, plain_similar(torch, server, q), model, f"sim20m {q}")
         stats["k2s_launches"] = topk.sum_rows_top_k_batch.launches.value  # main path read
+        stats["k2s_kernel_launches"] = topk.sum_rows_top_k_batch.kernel_launches.value
+        k2s_routes = {r: c.value for r, c in topk.sum_rows_top_k_batch.routes.items()}
         times = []
         for _ in range(60):
             t0 = time.perf_counter()
@@ -1655,6 +1836,14 @@ def similar_full_width(torch, device, stats):
         shutil.rmtree(basedir, ignore_errors=True)
     if stats["k2s_launches"] <= 0:
         raise AssertionError("the HTTP queries did not launch the summed-rows K2")
+    if k2s_routes != {"tile": stats["k2s_launches"], "select": 0}:
+        raise AssertionError(f"summed-rows K2 calls by route {k2s_routes}: expected all "
+                             f"{stats['k2s_launches']} on the tile route")
+    per_call = topk.k2_launches(4, I_ROWS, 1, summed=True)
+    if stats["k2s_kernel_launches"] != stats["k2s_launches"] * per_call:
+        raise AssertionError(f"{stats['k2s_launches']} summed-rows K2 calls launched "
+                             f"{stats['k2s_kernel_launches']} kernels, expected "
+                             f"{per_call} a call")
 
     t0 = time.perf_counter()
     r = aggregate_counts(views)
@@ -1695,6 +1884,7 @@ def similar_full_width(torch, device, stats):
     stats["similar_full_width"] = {
         "train_s": train_s, "iterations": SIM_TRAIN["numIterations"],
         "k1_launches": stats["k1i_launches"], "k2s_launches": stats["k2s_launches"],
+        "k2s_kernel_launches": stats["k2s_kernel_launches"],
         "pairs": int(len(r.vals)), "nan_item_rows": nan_rows,
         "http_p50_ms": stats["sim_http_p50_ms"],
         "predict_p50_ms": stats["sim_predict_p50_ms"], **diffs}
@@ -1759,8 +1949,51 @@ def peaks(name: str):
     return _PEAKS[2][1], _PEAKS[2][2]
 
 
+K2_SWEEP_K = (1, 4, 16, 32, 64, 128)
+
+
+def kernel_launches_of(torch, wrapper, fn) -> int:
+    """Kernels one call of ``fn`` launched, as ``wrapper``'s C entry
+    counted them."""
+    before = wrapper.kernel_launches.value
+    fn()
+    torch.cuda.synchronize()
+    return wrapper.kernel_launches.value - before
+
+
+def k2_route_times(torch, topk, call, select, k: int, batch: int,
+                   summed: bool = False) -> dict:
+    """The route k2_route picks against the select route on the same
+    inputs, in this run: device ms per call and each launch's share."""
+    route = topk.k2_route(k, I_ROWS, batch)
+    counted = topk.sum_rows_top_k_batch if summed else topk.gather_top_k_batch
+    counted_select = topk._sum_rows_top_k_select if summed else topk._gather_top_k_select
+    launches, base_launches = (kernel_launches_of(torch, c, f) for c, f in (
+        (counted, call), (counted_select, select)))
+    dev = device_ms(torch, call)
+    base = device_ms(torch, select)
+    out = {"route": route.name, "tile_width": route.width, "tiles": route.tiles,
+           "launches": launches,
+           "kernel_device_ms": _total(dev),
+           "tile_device_ms": _total(dev, "tile_topk_kernel"),
+           "merge_device_ms": _total(dev, "merge_topk_kernel"),
+           "baseline_route": "select",
+           "baseline_launches": base_launches,
+           "baseline_device_ms": _total(base),
+           "baseline_score_device_ms": _total(base, "score_kernel"),
+           "baseline_select_device_ms": _total(base, "select_kernel")}
+    if summed:
+        out["baseline_sum_rows_device_ms"] = _total(base, "sum_rows_kernel")
+    return out
+
+
 @phase("times")
 def timings(torch, device, stats):
+    """K2 at D = 20, f32 and int8, B in {1, 64}, k = 4: the route
+    k2_route picks (device ms per launch), the select route on the same
+    inputs (``baseline_device_ms``), the plain version, a ``torch.topk(u
+    @ V.T)`` yardstick and the bound. Then, f32, both modes, the device ms
+    of both routes at k in K2_SWEEP_K and B in {1, 64}."""
     from predictionio_tpu_torch.ops import topk
 
     mem_rate, fp32_rate = peaks(torch.cuda.get_device_name(0))
@@ -1785,16 +2018,14 @@ def timings(torch, device, stats):
                 def library():
                     return torch.topk(users[ixs.long()] @ items.T, k)
                 elem = 4
-            kernel_ms = cuda_median_ms(
-                torch, lambda: topk.gather_top_k_batch(ixs, users, items, k))
+            call = lambda: topk.gather_top_k_batch(ixs, users, items, k)  # noqa: E731
+            select = lambda: topk._gather_top_k_select(ixs, users, items, k)  # noqa: E731
+            kernel_ms = cuda_median_ms(torch, call)
+            baseline_ms = cuda_median_ms(torch, select)
             plain_ms = cuda_median_ms(
                 torch, lambda: topk.gather_top_k_batch_reference(ixs, users, items, k),
                 runs=20)
             library_ms = cuda_median_ms(torch, library)
-            # K2's second launch alone, on this call's score matrix
-            scores = topk.gather_top_k_batch_reference(ixs, users, items, I_ROWS)[0]
-            select_ms = cuda_median_ms(torch, lambda: topk.top_k_rows(scores, k))
-            k2_dev = device_ms(torch, lambda: topk.gather_top_k_batch(ixs, users, items, k))
             plain_dev = device_ms(
                 torch, lambda: topk.gather_top_k_batch_reference(ixs, users, items, k),
                 runs=20)
@@ -1808,11 +2039,9 @@ def timings(torch, device, stats):
             bound_by = "bytes" if nbytes / mem_rate >= flops / fp32_rate else "operations"
             row = {"timing": "gather_top_k_batch", "dtype": dtype, "B": batch,
                    "D": rank, "k": k, "I": I_ROWS, "kernel_ms": kernel_ms,
+                   "baseline_ms": baseline_ms,
                    "plain_ms": plain_ms, "library_ms": library_ms,
-                   "select_ms": select_ms,
-                   "kernel_device_ms": _total(k2_dev),
-                   "score_device_ms": _total(k2_dev, "score_kernel"),
-                   "select_device_ms": _total(k2_dev, "select_kernel"),
+                   **k2_route_times(torch, topk, call, select, k, batch),
                    "plain_device_ms": _total(plain_dev),
                    "library_device_ms": _total(library_dev),
                    "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
@@ -1820,6 +2049,36 @@ def timings(torch, device, stats):
             rows.append(row)
             log(json.dumps(row))
     stats["timings"] = rows
+
+    # both routes across k, both modes, f32 (D = 20 user rows; D = 10
+    # normalized catalog, L = 4, for the summed rows)
+    users = make_table(torch, "float32", U_ROWS, rank, False, gen, device)
+    items = make_table(torch, "float32", I_ROWS, rank, False, gen, device)
+    catalog = normalized_catalog(torch, "float32", 10, gen, device)
+    rng = np.random.default_rng(SEED + 2)
+    sweep = []
+    for batch in BATCHES:
+        ixs = torch.randint(0, U_ROWS, (batch,), generator=gen, device=device,
+                            dtype=torch.int32)
+        rix = torch.from_numpy(rng.integers(0, I_ROWS, (batch, 4)).astype(np.int32)).to(device)
+        w = torch.ones((batch, 4), device=device)
+        for kk in K2_SWEEP_K:
+            for mode in ("gather", "summed"):
+                if mode == "gather":
+                    call = lambda: topk.gather_top_k_batch(ixs, users, items, kk)  # noqa: E731
+                    select = lambda: topk._gather_top_k_select(  # noqa: E731
+                        ixs, users, items, kk)
+                else:
+                    call = lambda: topk.sum_rows_top_k_batch(rix, w, catalog, kk)  # noqa: E731
+                    select = lambda: topk._sum_rows_top_k_select(  # noqa: E731
+                        rix, w, catalog, kk)
+                row = {"timing": "k2 routes", "mode": mode, "dtype": "float32",
+                       "B": batch, "k": kk, "D": rank if mode == "gather" else 10,
+                       **k2_route_times(torch, topk, call, select, kk, batch,
+                                        summed=mode == "summed")}
+                sweep.append(row)
+                log(json.dumps(row))
+    stats["k2_sweep"] = sweep
 
 
 def library_solve(torch, other, b, seg_row, reg: float, implicit: bool = False,
@@ -2081,21 +2340,30 @@ def similar_timings(torch, device, stats):
             return torch.topk(q @ items.T, k)
 
         call = lambda: topk.sum_rows_top_k_batch(ixs, w, items, k)  # noqa: E731
+        select = lambda: topk._sum_rows_top_k_select(ixs, w, items, k)  # noqa: E731
         ref = lambda: topk.sum_rows_top_k_batch_reference(ixs, w, items, k)  # noqa: E731
-        dev = device_ms(torch, call)
         nbytes = (I_ROWS * D * 4  # the catalog, read once (query rows are part of it)
                   + batch * width * 8  # row ids and weights
                   + batch * k * 8)  # scores + ids out
         flops = 2 * batch * width * D + 2 * batch * I_ROWS * D
+        routes = k2_route_times(torch, topk, call, select, k, batch, summed=True)
+        # the fold's alternative: the query rows summed by their own launch
+        # (the select route's sum_rows_kernel, timed above), then the tile
+        # route on them as user rows
+        qvec = (items[ixs.long()] * w[..., None]).sum(1).contiguous()
+        qix = torch.arange(batch, dtype=torch.int32, device=device)
+        on_rows = _total(device_ms(
+            torch, lambda: topk.gather_top_k_batch(qix, qvec, items, k)))
+        separate = (None if None in (on_rows, routes["baseline_sum_rows_device_ms"])
+                    else on_rows + routes["baseline_sum_rows_device_ms"])
         row = {"timing": "sum_rows_top_k_batch", "dtype": "float32", "B": batch,
                "L": width, "D": D, "k": k, "I": I_ROWS,
                "kernel_ms": cuda_median_ms(torch, call),
+               "baseline_ms": cuda_median_ms(torch, select),
                "plain_ms": cuda_median_ms(torch, ref, runs=20),
                "library_ms": cuda_median_ms(torch, library),
-               "kernel_device_ms": _total(dev),
-               "sum_rows_device_ms": _total(dev, "sum_rows_kernel"),
-               "score_device_ms": _total(dev, "score_kernel"),
-               "select_device_ms": _total(dev, "select_kernel"),
+               **routes,
+               "separate_sum_device_ms": separate,
                "plain_device_ms": _total(device_ms(torch, ref, runs=20)),
                "library_device_ms": _total(device_ms(torch, library)),
                "bound_ms": max(nbytes / mem_rate, flops / fp32_rate) * 1e3,
@@ -2136,10 +2404,13 @@ def k1i_summary(stats) -> dict:
 
 
 def k2s_summary(stats) -> dict:
-    """K2 summed rows' line: one served query (B = 1, L = 4, k = 4)."""
+    """K2 summed rows' line: one served query (B = 1, L = 4, k = 4);
+    ``k2_route``: the route that served it, ``kernel_launches`` the
+    kernels the main path's calls launched, as the C entry counted them; ``baseline_ms``: the select route on the same
+    inputs in this run."""
     rep = stats["k2s_timings"][0]
     dev = None not in (rep["kernel_device_ms"], rep["plain_device_ms"],
-                       rep["library_device_ms"])
+                       rep["library_device_ms"], rep["baseline_device_ms"])
     return {
         "name": "sum_rows_top_k_batch",
         "route": "cuda",
@@ -2152,6 +2423,9 @@ def k2s_summary(stats) -> dict:
         "bound_ms": rep["bound_ms"],
         "bound_by": rep["bound_by"],
         "library_ms": rep["library_device_ms"] if dev else rep["library_ms"],
+        "k2_route": rep["route"],
+        "kernel_launches": stats["k2s_kernel_launches"],
+        "baseline_ms": rep["baseline_device_ms"] if dev else rep["baseline_ms"],
     }
 
 
@@ -2210,6 +2484,7 @@ def main() -> int:
         "k1i": lambda: k1_implicit_vs_plain(torch, device, stats),
         "k1route": lambda: k1_route_vs_block(torch, device, stats),
         "k2s": lambda: k2_sum_rows_vs_plain(torch, device, stats),
+        "k2route": lambda: k2_route_vs_select(torch, device, stats),
         "serve": lambda: the_slice(torch, device, stats),
         "lifecycle": lambda: lifecycle(torch, device, stats),
         "simlife": lambda: similar_lifecycle(torch, device, stats),
@@ -2246,7 +2521,7 @@ def main() -> int:
     # device time when the profiler measured it (the kernels' own time);
     # else the per-call CUDA-event time, which includes launch gaps
     dev = None not in (rep["kernel_device_ms"], rep["plain_device_ms"],
-                       rep["library_device_ms"])
+                       rep["library_device_ms"], rep["baseline_device_ms"])
     log(smi)
     log(json.dumps({"kernels": [{
         "name": "gather_top_k_batch",
@@ -2260,6 +2535,9 @@ def main() -> int:
         "bound_ms": rep["bound_ms"],
         "bound_by": rep["bound_by"],
         "library_ms": rep["library_device_ms"] if dev else rep["library_ms"],
+        "k2_route": rep["route"],
+        "kernel_launches": stats["k2_kernel_launches"],
+        "baseline_ms": rep["baseline_device_ms"] if dev else rep["baseline_ms"],
     }, k1_summary(stats), k1i_summary(stats), k2s_summary(stats)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -51,9 +51,9 @@ class LaunchCount:
         self._n = 0
         self._lock = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
         with self._lock:
-            self._n += 1
+            self._n += n
 
     def reset(self) -> None:
         with self._lock:

@@ -10,6 +10,18 @@ launches the hand-written kernel ``csrc/topk.cu``; on a CPU tensor it
 runs the plain PyTorch version beside it (``*_reference``). There is no
 fallback from one to the other. ``catalog_norms`` (``:231``) is plain.
 
+On the card each call takes one of two hand-written routes, picked by
+:func:`k2_route` from k and the catalog size: the tile route (k <=
+:data:`K2_TILE_MAX_K`, every serving call) keeps each tile's top k on
+chip and merges the tiles' lists in a second launch, so the ``[B, I]``
+scores never reach device memory; the select route (larger k, and
+:func:`top_k_rows`) writes the scores to a ``[B, I]`` scratch and radix
+selects each row. Both compute every score the same way.
+``launches`` on each wrapper counts calls, ``routes[name]`` the calls
+each route served, and ``kernel_launches`` the kernels those calls
+launched, as the C entry counts them at each launch; :func:`k2_launches`
+is what one call should add there.
+
 Order contract (``jax.lax.top_k``'s): descending by the order-preserving
 int key of the f32 score -- ``bits < 0 ? bits ^ 0x7FFFFFFF : bits``, so
 NaN ranks above +inf and +0.0 above -0.0 -- and the lower index first on
@@ -29,6 +41,7 @@ in (exact +0.0), so it is also invariant to the padded width L.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -36,6 +49,11 @@ import torch
 from predictionio_tpu_torch.kernels import _build
 
 NEG_INF = -1e30
+
+# csrc/topk.cu's constants, repeated (tests hold them equal):
+K2_TILE_MAX_K = 128  # TILE_MAX_K: k up to this takes the tile route
+K2_CHUNK = 128  # TILE_I: items a tile block scores at a time, one a thread
+K2_MERGE_CAP = 16384  # MERGE_CAP: composites one row's merge takes, at most
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _SIGN_FLIP = 0x7FFFFFFF
@@ -54,6 +72,51 @@ def order_key(scores: torch.Tensor) -> torch.Tensor:
     ``scores`` (NaN above +inf, +0.0 above -0.0)."""
     bits = scores.contiguous().view(torch.int32)
     return torch.where(bits < 0, bits ^ _SIGN_FLIP, bits)
+
+
+class K2Route(NamedTuple):
+    """How K2 serves a call on the card (:func:`k2_route`)."""
+
+    name: str  # "tile" or "select"
+    width: int  # tile route: items a tile block keeps the top k of; else 0
+    group: int  # tile route: entries kept a tile, the power of two >= k; else 0
+    tiles: int  # tile route: ceil(I / width) blocks a query row; else 0
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def k2_route(k: int, I: int, B: int) -> K2Route:
+    """K2's route on the card for a call of ``B`` query rows, ``k``
+    winners, an ``I``-item catalog. ``"tile"`` for ``k <=
+    K2_TILE_MAX_K``: each block keeps the top ``group`` of ``width``
+    items, and one block a row merges the ``tiles`` lists; ``width`` is
+    the narrowest multiple of :data:`K2_CHUNK` whose ``tiles`` lists
+    hold at most :data:`K2_MERGE_CAP` entries (narrow tiles fill the
+    card at B = 1; wider ones keep the merge small at large k).
+    ``"select"`` above: a ``[B, I]`` score scratch and a radix select.
+    B does not change the pick: a block serves up to 8 query rows of one
+    tile, so larger B only adds blocks."""
+    if B < 1 or I < 1 or not 1 <= k <= I:
+        raise ValueError(f"K2 takes 1 <= k <= I and B >= 1, got k={k} I={I} B={B}")
+    if k > K2_TILE_MAX_K:
+        return K2Route("select", 0, 0, 0)
+    group = _pow2_at_least(k)
+    width = K2_CHUNK
+    while -(-I // width) * group > K2_MERGE_CAP:
+        width *= 2
+    return K2Route("tile", width, group, -(-I // width))
+
+
+def k2_launches(k: int, I: int, B: int, summed: bool = False) -> int:
+    """Kernel launches one K2 call on the card should add to its
+    wrapper's ``kernel_launches`` (:func:`k2_route`): 2 on the tile route
+    (tile, merge); on the select route 2 (score, select), 3 in
+    summed-rows mode (its query rows summed first)."""
+    if k2_route(k, I, B).name == "tile":
+        return 2
+    return 3 if summed else 2
 
 
 def top_k_rows_reference(scores: torch.Tensor, k: int):
@@ -130,21 +193,30 @@ def sum_rows_top_k_batch_reference(row_ixs, row_weights, item_factors, k: int,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)  # the entries' launch counter
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("topk")
     if not getattr(lib, "_pio_typed", False):
         lib.pio_k2_gather_top_k.argtypes = [
-            _P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+            _P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _IP, _P,
         ]
         lib.pio_k2_gather_top_k.restype = _I
-        lib.pio_k2_select.argtypes = [_P, _I, _I, _I, _P, _P, _P, _P]
+        lib.pio_k2_select.argtypes = [_P, _I, _I, _I, _P, _P, _P, _IP, _P]
         lib.pio_k2_select.restype = _I
         lib.pio_k2_sum_rows_top_k.argtypes = [
-            _P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+            _P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _IP, _P,
         ]
         lib.pio_k2_sum_rows_top_k.restype = _I
+        lib.pio_k2_tile_top_k.argtypes = [
+            _P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _IP, _P,
+        ]
+        lib.pio_k2_tile_top_k.restype = _I
+        lib.pio_k2_tile_sum_rows_top_k.argtypes = [
+            _P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _IP, _P,
+        ]
+        lib.pio_k2_tile_sum_rows_top_k.restype = _I
         lib._pio_typed = True
     return lib
 
@@ -195,6 +267,19 @@ def _user_ixs(user_ixs, num_users: int, device: torch.device) -> torch.Tensor:
     return _indices(user_ixs, num_users, device).reshape(-1)
 
 
+def _mask(exclude_mask, num_items: int, device: torch.device):
+    if exclude_mask is None:
+        return None
+    mask = torch.as_tensor(exclude_mask, device=device).to(torch.bool).contiguous()
+    if mask.shape != (num_items,):
+        raise ValueError(f"exclude_mask must be [{num_items}] bool")
+    return mask
+
+
+def _route_counts() -> dict:
+    return {"tile": _build.LaunchCount(), "select": _build.LaunchCount()}
+
+
 def gather_top_k_batch(user_ixs, user_factors, item_factors, k: int,
                        exclude_mask=None):
     """Fused gather + score + top-k: the serving path's one device call.
@@ -207,16 +292,45 @@ def gather_top_k_batch(user_ixs, user_factors, item_factors, k: int,
     [B, k] int32 ids)``.
 
     CPU tensors take :func:`gather_top_k_batch_reference`; CUDA tensors
-    launch the kernel (``csrc/topk.cu``) or raise."""
+    launch the route :func:`k2_route` picks (``csrc/topk.cu``) or raise."""
     item_values = item_factors[0] if isinstance(item_factors, tuple) else item_factors
-    device = item_values.device
-    k = min(int(k), catalog_rows(item_factors))
-    if device.type == "cpu":
+    if item_values.device.type == "cpu":
+        k = min(int(k), catalog_rows(item_factors))
         return gather_top_k_batch_reference(
             user_ixs, user_factors, item_factors, k, exclude_mask
         )
+    return _gather_on_card(None, gather_top_k_batch, user_ixs, user_factors,
+                           item_factors, k, exclude_mask)
+
+
+gather_top_k_batch.launches = _build.LaunchCount()
+gather_top_k_batch.routes = _route_counts()
+gather_top_k_batch.kernel_launches = _build.LaunchCount()
+
+
+def _gather_top_k_select(user_ixs, user_factors, item_factors, k: int,
+                         exclude_mask=None):
+    """K2's select route at any k, whatever :func:`k2_route` picks: the
+    old route's same-run baseline for chip_smoke.py. CUDA tensors only;
+    counts its calls in its own ``launches``."""
+    return _gather_on_card("select", _gather_top_k_select, user_ixs, user_factors,
+                           item_factors, k, exclude_mask)
+
+
+_gather_top_k_select.launches = _build.LaunchCount()
+_gather_top_k_select.routes = _route_counts()
+_gather_top_k_select.kernel_launches = _build.LaunchCount()
+
+
+def _gather_on_card(route, counter, user_ixs, user_factors, item_factors, k: int,
+                    exclude_mask):
+    """K2 on CUDA tensors by ``route`` ("select", or None: what
+    :func:`k2_route` picks); one call counted on ``counter``."""
+    item_values = item_factors[0] if isinstance(item_factors, tuple) else item_factors
+    device = item_values.device
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
+    k = min(int(k), catalog_rows(item_factors))
     u_vals, u_scales, u_code = _split(user_factors, "user_factors")
     v_vals, v_scales, v_code = _split(item_factors, "item_factors")
     _on(device, u_vals, u_scales, v_scales)
@@ -225,34 +339,45 @@ def gather_top_k_batch(user_ixs, user_factors, item_factors, k: int,
     num_items, rank = v_vals.shape
     ixs = _user_ixs(user_ixs, u_vals.shape[0], device)
     batch = ixs.shape[0]
-    mask = None
-    if exclude_mask is not None:
-        mask = torch.as_tensor(exclude_mask, device=device).to(torch.bool).contiguous()
-        if mask.shape != (num_items,):
-            raise ValueError(f"exclude_mask must be [{num_items}] bool")
+    mask = _mask(exclude_mask, num_items, device)
     scores = torch.empty((batch, k), dtype=torch.float32, device=device)
     ids = torch.empty((batch, k), dtype=torch.int32, device=device)
     if batch == 0 or k == 0:
         return scores, ids
-    scratch = torch.empty((batch, num_items), dtype=torch.float32, device=device)
-    cand = torch.empty((batch, k), dtype=torch.int64, device=device)
+    plan = k2_route(k, num_items, batch)
+    if route is not None:
+        plan = K2Route(route, 0, 0, 0)
+    launched = ctypes.c_int(0)  # the C entry adds each kernel it launches
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.pio_k2_gather_top_k(
-            ixs.data_ptr(), batch,
-            u_vals.data_ptr(), u_code, _ptr(u_scales),
-            v_vals.data_ptr(), v_code, _ptr(v_scales),
-            _ptr(mask), num_items, rank, k,
-            scratch.data_ptr(), cand.data_ptr(),
-            scores.data_ptr(), ids.data_ptr(), stream,
-        )
-    _build.check(err, "gather_top_k_batch kernel launch")
-    gather_top_k_batch.launches.add()
+        if plan.name == "tile":
+            ws = torch.empty((batch, plan.tiles, plan.group), dtype=torch.int64,
+                             device=device)
+            err = lib.pio_k2_tile_top_k(
+                ixs.data_ptr(), batch,
+                u_vals.data_ptr(), u_code, _ptr(u_scales),
+                v_vals.data_ptr(), v_code, _ptr(v_scales),
+                _ptr(mask), num_items, rank, k, plan.width,
+                ws.data_ptr(), scores.data_ptr(), ids.data_ptr(), ctypes.byref(launched),
+                stream,
+            )
+        else:
+            scratch = torch.empty((batch, num_items), dtype=torch.float32, device=device)
+            cand = torch.empty((batch, k), dtype=torch.int64, device=device)
+            err = lib.pio_k2_gather_top_k(
+                ixs.data_ptr(), batch,
+                u_vals.data_ptr(), u_code, _ptr(u_scales),
+                v_vals.data_ptr(), v_code, _ptr(v_scales),
+                _ptr(mask), num_items, rank, k,
+                scratch.data_ptr(), cand.data_ptr(),
+                scores.data_ptr(), ids.data_ptr(), ctypes.byref(launched), stream,
+            )
+    _build.check(err, f"gather_top_k_batch {plan.name} route launch")
+    counter.launches.add()
+    counter.routes[plan.name].add()
+    counter.kernel_launches.add(launched.value)
     return scores, ids
-
-
-gather_top_k_batch.launches = _build.LaunchCount()
 
 
 def sum_rows_top_k_batch(row_ixs, row_weights, item_factors, k: int,
@@ -270,16 +395,45 @@ def sum_rows_top_k_batch(row_ixs, row_weights, item_factors, k: int,
     size. Returns ``([B, k] f32 scores, [B, k] int32 ids)``.
 
     CPU tensors take :func:`sum_rows_top_k_batch_reference`; CUDA tensors
-    launch the kernel (``csrc/topk.cu``) or raise."""
+    launch the route :func:`k2_route` picks (``csrc/topk.cu``) or raise."""
     item_values = item_factors[0] if isinstance(item_factors, tuple) else item_factors
-    device = item_values.device
-    k = min(int(k), catalog_rows(item_factors))
-    if device.type == "cpu":
+    if item_values.device.type == "cpu":
+        k = min(int(k), catalog_rows(item_factors))
         return sum_rows_top_k_batch_reference(
             row_ixs, row_weights, item_factors, k, exclude_mask
         )
+    return _sum_rows_on_card(None, sum_rows_top_k_batch, row_ixs, row_weights,
+                             item_factors, k, exclude_mask)
+
+
+sum_rows_top_k_batch.launches = _build.LaunchCount()
+sum_rows_top_k_batch.routes = _route_counts()
+sum_rows_top_k_batch.kernel_launches = _build.LaunchCount()
+
+
+def _sum_rows_top_k_select(row_ixs, row_weights, item_factors, k: int,
+                           exclude_mask=None):
+    """K2 summed rows by the select route at any k (three launches), for
+    chip_smoke.py's same-run baseline. CUDA tensors only; counts its
+    calls in its own ``launches``."""
+    return _sum_rows_on_card("select", _sum_rows_top_k_select, row_ixs, row_weights,
+                             item_factors, k, exclude_mask)
+
+
+_sum_rows_top_k_select.launches = _build.LaunchCount()
+_sum_rows_top_k_select.routes = _route_counts()
+_sum_rows_top_k_select.kernel_launches = _build.LaunchCount()
+
+
+def _sum_rows_on_card(route, counter, row_ixs, row_weights, item_factors, k: int,
+                      exclude_mask):
+    """K2 summed rows on CUDA tensors by ``route`` ("select", or None:
+    what :func:`k2_route` picks); one call counted on ``counter``."""
+    item_values = item_factors[0] if isinstance(item_factors, tuple) else item_factors
+    device = item_values.device
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
+    k = min(int(k), catalog_rows(item_factors))
     v_vals, v_scales, v_code = _split(item_factors, "item_factors")
     _on(device, v_scales)
     num_items, rank = v_vals.shape
@@ -290,34 +444,44 @@ def sum_rows_top_k_batch(row_ixs, row_weights, item_factors, k: int,
     w = torch.as_tensor(row_weights, device=device).to(torch.float32).contiguous()
     if tuple(w.shape) != (batch, width):
         raise ValueError(f"row_weights must be [{batch}, {width}] like row_ixs")
-    mask = None
-    if exclude_mask is not None:
-        mask = torch.as_tensor(exclude_mask, device=device).to(torch.bool).contiguous()
-        if mask.shape != (num_items,):
-            raise ValueError(f"exclude_mask must be [{num_items}] bool")
+    mask = _mask(exclude_mask, num_items, device)
     scores = torch.empty((batch, k), dtype=torch.float32, device=device)
     ids = torch.empty((batch, k), dtype=torch.int32, device=device)
     if batch == 0 or k == 0:
         return scores, ids
-    qvec = torch.empty((batch, rank), dtype=torch.float32, device=device)
-    scratch = torch.empty((batch, num_items), dtype=torch.float32, device=device)
-    cand = torch.empty((batch, k), dtype=torch.int64, device=device)
+    plan = k2_route(k, num_items, batch)
+    if route is not None:
+        plan = K2Route(route, 0, 0, 0)
+    launched = ctypes.c_int(0)  # the C entry adds each kernel it launches
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.pio_k2_sum_rows_top_k(
-            ixs.data_ptr(), w.data_ptr(), batch, width,
-            v_vals.data_ptr(), v_code, _ptr(v_scales),
-            _ptr(mask), num_items, rank, k,
-            qvec.data_ptr(), scratch.data_ptr(), cand.data_ptr(),
-            scores.data_ptr(), ids.data_ptr(), stream,
-        )
-    _build.check(err, "sum_rows_top_k_batch kernel launch")
-    sum_rows_top_k_batch.launches.add()
+        if plan.name == "tile":
+            ws = torch.empty((batch, plan.tiles, plan.group), dtype=torch.int64,
+                             device=device)
+            err = lib.pio_k2_tile_sum_rows_top_k(
+                ixs.data_ptr(), w.data_ptr(), batch, width,
+                v_vals.data_ptr(), v_code, _ptr(v_scales),
+                _ptr(mask), num_items, rank, k, plan.width,
+                ws.data_ptr(), scores.data_ptr(), ids.data_ptr(), ctypes.byref(launched),
+                stream,
+            )
+        else:
+            qvec = torch.empty((batch, rank), dtype=torch.float32, device=device)
+            scratch = torch.empty((batch, num_items), dtype=torch.float32, device=device)
+            cand = torch.empty((batch, k), dtype=torch.int64, device=device)
+            err = lib.pio_k2_sum_rows_top_k(
+                ixs.data_ptr(), w.data_ptr(), batch, width,
+                v_vals.data_ptr(), v_code, _ptr(v_scales),
+                _ptr(mask), num_items, rank, k,
+                qvec.data_ptr(), scratch.data_ptr(), cand.data_ptr(),
+                scores.data_ptr(), ids.data_ptr(), ctypes.byref(launched), stream,
+            )
+    _build.check(err, f"sum_rows_top_k_batch {plan.name} route launch")
+    counter.launches.add()
+    counter.routes[plan.name].add()
+    counter.kernel_launches.add(launched.value)
     return scores, ids
-
-
-sum_rows_top_k_batch.launches = _build.LaunchCount()
 
 
 def catalog_norms(item_factors) -> torch.Tensor:
@@ -345,15 +509,16 @@ def top_k_rows(scores: torch.Tensor, k: int):
     if batch == 0 or k == 0:
         return out, ids
     cand = torch.empty((batch, k), dtype=torch.int64, device=scores.device)
+    launched = ctypes.c_int(0)
     lib = _lib()
     with torch.cuda.device(scores.device):
         stream = torch.cuda.current_stream(scores.device).cuda_stream
         err = lib.pio_k2_select(
             scores.data_ptr(), batch, num_items, k, cand.data_ptr(),
-            out.data_ptr(), ids.data_ptr(), stream,
+            out.data_ptr(), ids.data_ptr(), ctypes.byref(launched), stream,
         )
     _build.check(err, "top_k_rows kernel launch")
-    top_k_rows.launches.add()
+    top_k_rows.launches.add(launched.value)
     return out, ids
 
 

@@ -11,6 +11,16 @@ Port of the per-request path of ``predictionio_tpu/server/engine_server.py``
 - ``GET /`` -- status JSON: engine info, serving stats and the torch
   device the models score on.
 
+Request framing is checked before a body is read, as the JAX package's
+parser (``predictionio_tpu/server/http.py``) checks it: a
+``Content-Length`` that is not a non-negative integer, or conflicting
+duplicates of it (RFC 9112 section 6.3), get 400; a ``Transfer-Encoding``
+other than ``identity`` gets 501. Each such answer closes the
+connection, so a keep-alive stream never desyncs. A connection whose
+read stalls for ``read_timeout`` seconds (a partial request line or
+headers, a short body, an idle keep-alive) is closed by the stdlib
+handler. More than 100 header lines get the stdlib's own 431.
+
 The micro-batcher, query cache, plugins, feedback loop, SLOs, reload and
 multi-variant mounts are later slices.
 """
@@ -63,7 +73,8 @@ class EngineServer:
     """One deployed engine instance behind an HTTP front end.
 
     ``device`` is where the models score: CUDA unless ``"cpu"`` is asked
-    for (utils/device.py)."""
+    for (utils/device.py). ``read_timeout``: seconds a connection may
+    stall on a read before it is closed (the JAX ``HTTPApp``'s default)."""
 
     def __init__(
         self,
@@ -73,10 +84,12 @@ class EngineServer:
         host: str = "0.0.0.0",
         port: int = 8000,
         device: str | torch.device | None = None,
+        read_timeout: float = 120.0,
     ):
         self.storage = storage or get_storage()
         self.host = host
         self.port = port
+        self.read_timeout = read_timeout
         self.engine = engine
         self.instance = instance
         ctx = WorkflowContext(mode="Serving", batch=instance.batch, device=device)
@@ -182,6 +195,9 @@ class EngineServer:
 def _handler(server: EngineServer) -> type[BaseHTTPRequestHandler]:
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
+        # StreamRequestHandler sets it on the socket; handle_one_request
+        # closes a connection whose read (or write) times out
+        timeout = server.read_timeout
 
         def setup(self):
             super().setup()
@@ -192,15 +208,43 @@ def _handler(server: EngineServer) -> type[BaseHTTPRequestHandler]:
         def log_message(self, fmt, *args):  # route to logging, not stderr
             logger.debug("%s " + fmt, self.address_string(), *args)
 
-        def _send(self, status: int, payload: bytes) -> None:
+        def _send(self, status: int, payload: bytes, close: bool = False) -> None:
             self.send_response(status)
             self.send_header("Content-Type", "application/json; charset=utf-8")
             self.send_header("Content-Length", str(len(payload)))
+            if close:  # also sets close_connection
+                self.send_header("Connection", "close")
             self.end_headers()
             self.wfile.write(payload)
 
-        def _error(self, status: int, message: str) -> None:
-            self._send(status, jsonx.dumps_bytes({"message": message}))
+        def _error(self, status: int, message: str, close: bool = False) -> None:
+            self._send(status, jsonx.dumps_bytes({"message": message}), close)
+
+        def _body_length(self) -> int | None:
+            """The body's length from the framing headers, or None once a
+            framing error has been answered (and the connection marked to
+            close: the unread body must not be parsed as a request)."""
+            # every Transfer-Encoding header, not the first: a chunked one
+            # after an identity one still frames the body
+            for te in self.headers.get_all("Transfer-Encoding") or ():
+                te = te.strip().lower()
+                if te and te != "identity":
+                    self._error(501, f"Transfer-Encoding {te!r} is not supported",
+                                close=True)
+                    return None
+            values = {v.strip() for v in self.headers.get_all("Content-Length") or ()}
+            if len(values) > 1:
+                self._error(400, "conflicting Content-Length headers", close=True)
+                return None
+            try:  # an empty value counts as 0, as in the JAX parser
+                length = int(values.pop() or 0) if values else 0
+            except ValueError:
+                self._error(400, "Content-Length is not an integer", close=True)
+                return None
+            if length < 0:
+                self._error(400, "Content-Length is negative", close=True)
+                return None
+            return length
 
         def do_GET(self):
             if self.path.split("?", 1)[0] == "/":
@@ -209,7 +253,9 @@ def _handler(server: EngineServer) -> type[BaseHTTPRequestHandler]:
                 self._error(404, f"no route for GET {self.path}")
 
         def do_POST(self):
-            length = int(self.headers.get("Content-Length") or 0)
+            length = self._body_length()
+            if length is None:
+                return
             raw = self.rfile.read(length) if length else b""
             if self.path.split("?", 1)[0] != "/queries.json":
                 self._error(404, f"no route for POST {self.path}")

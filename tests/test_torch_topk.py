@@ -17,6 +17,9 @@ for bit the same alone or in a batch, and at L or 2L weight-0 padding.
 
 from __future__ import annotations
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -339,3 +342,366 @@ def test_catalog_norms_matches_jax(storage):
     assert got.dtype == torch.float32 and got.shape == (N_ITEMS,)
     np.testing.assert_allclose(got.numpy(), np.asarray(jtopk.catalog_norms(jt)),
                                rtol=1e-6, atol=1e-7)
+
+
+# -- K2's tile route (csrc/topk.cu tile_topk_kernel + merge_topk_kernel) -------
+#
+# The kernel cannot run here; its selection can. _tile_then_merge states
+# it in plain torch, step for step and lane for lane: a warp's register is
+# a [..., 32] tensor, a shuffle a gather over its last axis (source lanes
+# modulo 32, as __shfl_sync takes them). The same composites; per
+# 128-item chunk, for g <= 32, groups of g sorted, adjacent groups
+# merged and registers packed down to one group, else a full bitonic
+# sort; chunks folded into the tile's list; each tile's top g written;
+# then the merge block's 32 warps (for g <= 32 reading the row's lists in
+# order, 1,024 composites a round; else folding lists w, w + 32, ...)
+# and the warps' lists folded pairwise, halving. Held bit for bit to
+# top_k_rows_reference and to lax.top_k on crafted rows, it checks the
+# networks' masks and shuffle sources and the claim that the top k of the
+# tiles' top k's is the row's top k in lax.top_k order.
+
+_PAD = torch.iinfo(torch.int64).min  # the kernel's composite 0, no item's
+_LANE = torch.arange(32)
+_MERGE_WARPS = 32  # csrc/topk.cu MERGE_WARPS
+_MERGE_LOADS = ttopk.K2_MERGE_CAP // (32 * _MERGE_WARPS)  # LOADS
+_GROUP_MAX_G = 32  # GROUP_MAX_G
+
+
+def _composites(scores: torch.Tensor) -> torch.Tensor:
+    """The kernel's u64 composite ``order_key << 32 | ~i`` minus 2^63, as
+    int64: the same order, and the kernel's 0 becomes int64's minimum."""
+    key = ttopk.order_key(scores).to(torch.int64)
+    i = torch.arange(scores.shape[1], dtype=torch.int64)
+    return key * 2**32 + (2**32 - 1 - i)
+
+
+def _order_key_inverse(keys: torch.Tensor) -> torch.Tensor:
+    """The f32 scores whose ``order_key`` is ``keys`` (int32), as the
+    kernel's composite_score recovers them: the key maps negative floats
+    by ``bits ^ 0x7FFFFFFF``, an involution on them, so it is its own
+    inverse."""
+    keys = keys.to(torch.int32)
+    return torch.where(keys < 0, keys ^ 0x7FFFFFFF, keys).view(torch.float32)
+
+
+def _lane_stage(v, m: int, s: int):
+    o = v[..., _LANE ^ m]
+    return torch.where((_LANE & s) == 0, torch.maximum(v, o), torch.minimum(v, o))
+
+
+def _sort_groups(v, g: int):
+    size = 2
+    while size <= g:
+        v = _lane_stage(v, size - 1, size // 2)
+        s = size // 4
+        while s > 0:
+            v = _lane_stage(v, s, s)
+            s //= 2
+        size *= 2
+    return v
+
+
+def _merge_pairs(v, g: int):
+    v = _lane_stage(v, 2 * g - 1, g)
+    s = g // 2
+    while s > 0:
+        v = _lane_stage(v, s, s)
+        s //= 2
+    return v
+
+
+def _pack_pairs(a, b, g: int):
+    return torch.where((_LANE & g) != 0, b[..., (_LANE - g) % 32], a)
+
+
+def _top_of_groups(v, g: int):
+    n = 32 // g
+    while n > 1:
+        v = _merge_pairs(v, g)
+        if n > 2:
+            v = v[..., (_LANE + (_LANE & ~(g - 1))) % 32]  # compact_pairs
+        n //= 2
+    return v
+
+
+def _fold_group(best, w, g: int):
+    r = torch.maximum(best, w[..., (g - 1 - _LANE) % 32])
+    s = g // 2
+    while s > 0:
+        r = _lane_stage(r, s, s)
+        s //= 2
+    return r
+
+
+def _stage(a, size: int, stride: int):
+    """warp_stage on [..., 32 * E] lists in entry order (x = lane + 32 * e):
+    x and x ^ stride exchange, the lower index ending with the larger
+    where x's ``size`` bit is clear."""
+    x = torch.arange(a.shape[-1])
+    lo = x[(x & stride) == 0]
+    hi = lo + stride
+    desc = (lo & size) == 0
+    u, v = a[..., lo], a[..., hi]
+    big, small = torch.maximum(u, v), torch.minimum(u, v)
+    a[..., lo] = torch.where(desc, big, small)
+    a[..., hi] = torch.where(desc, small, big)
+
+
+def _sort(a):
+    n, size = a.shape[-1], 2
+    while size <= n:
+        stride = size // 2
+        while stride > 0:
+            _stage(a, size, stride)
+            stride //= 2
+        size *= 2
+
+
+def _fold(best, w):
+    """warp_fold: the top n of two sorted lists, sorted."""
+    n = best.shape[-1]
+    best[:] = torch.maximum(best, w.flip(-1))
+    stride = n // 2
+    while stride > 0:
+        _stage(best, 2 * n, stride)
+        stride //= 2
+
+
+def _tile_lists(comp, route) -> list:
+    """Each tile's top g (tile_topk_kernel)."""
+    B, I = comp.shape
+    g, W, C = route.group, route.width, ttopk.K2_CHUNK
+    lists = []
+    for tile in range(route.tiles):
+        best = None
+        for c0 in range(tile * W, min(I, (tile + 1) * W), C):
+            cand = torch.full((B, C), _PAD)
+            n = min(C, I - c0)
+            cand[:, :n] = comp[:, c0:c0 + n]
+            if g <= _GROUP_MAX_G:
+                c = _sort_groups(cand.view(B, 4, 32), g)
+                if g < 32:
+                    c = _merge_pairs(c, g)
+                    two = _merge_pairs(torch.stack(
+                        [_pack_pairs(c[:, 0], c[:, 1], g), _pack_pairs(c[:, 2], c[:, 3], g)],
+                        1), g)
+                    top = _top_of_groups(_pack_pairs(two[:, 0], two[:, 1], g), g)
+                else:
+                    top = _fold_group(_fold_group(c[:, 0], c[:, 1], g),
+                                      _fold_group(c[:, 2], c[:, 3], g), g)
+                best = top if best is None else _fold_group(best, top, g)
+            else:
+                _sort(cand)
+                if best is None:
+                    best = cand
+                else:
+                    _fold(best, cand)
+        lists.append(best[:, :g])
+    return lists
+
+
+def _merge(lists, g: int, k: int):
+    """The row's top k of its tiles' lists (merge_topk_kernel)."""
+    B, T = lists[0].shape[0], len(lists)
+    flat = torch.cat(lists, 1)
+    if g <= 32:
+        loads = torch.full((B, _MERGE_LOADS * 32 * _MERGE_WARPS), _PAD)
+        loads[:, :T * g] = flat
+        loads = loads.view(B, _MERGE_LOADS, _MERGE_WARPS, 32)
+        warps = _top_of_groups(loads[:, 0], g)
+        for r in range(1, _MERGE_LOADS):
+            if r * 32 * _MERGE_WARPS < T * g:
+                warps = _fold_group(warps, _top_of_groups(loads[:, r], g), g)
+        fold = _fold_group
+    else:
+        warps = torch.full((B, _MERGE_WARPS, g), _PAD)
+        for w in range(min(T, _MERGE_WARPS)):
+            warps[:, w] = lists[w]
+            for t in range(w + _MERGE_WARPS, T, _MERGE_WARPS):
+                _fold(warps[:, w], lists[t])
+
+        def fold(a, b, g):
+            a = a.clone()
+            _fold(a, b)
+            return a
+    half = _MERGE_WARPS // 2
+    while half > 0:
+        warps[:, :half] = fold(warps[:, :half], warps[:, half:2 * half], g)
+        half //= 2
+    return warps[:, 0, :k]
+
+
+def _tile_then_merge(scores: torch.Tensor, k: int):
+    """The tile route's selection on a [B, I] f32 score matrix."""
+    B, I = scores.shape
+    route = ttopk.k2_route(k, I, B)
+    assert route.name == "tile"
+    top = _merge(_tile_lists(_composites(scores), route), route.group, k)
+    assert bool((top > _PAD).all()), "a padding composite won"
+    ids = 2**32 - 1 - (top & 0xFFFFFFFF)
+    return _order_key_inverse((top >> 32).to(torch.int32)), ids.to(torch.int32)
+
+
+def _tile_rows(rng, I: int) -> np.ndarray:
+    """Rows of ties across tile boundaries, NaN of both signs, signed
+    zeros, infinities, and masked items (-1e30) outnumbering the rest."""
+    rows = rng.integers(-2, 3, (7, I)).astype(np.float32)
+    rows[0] = 1.0  # one tie over the whole row: the lowest indices win
+    rows[1] = np.resize(np.array([-0.0, 0.0, -0.0], np.float32), I)
+    rows[2, ::7] = np.nan
+    rows[2, 3::11] = np.array([-1], np.int32).view(np.float32)[0]  # -NaN
+    rows[3, ::5] = np.inf
+    rows[3, 2::9] = -np.inf
+    rows[4] = ttopk.NEG_INF  # masked, but for a few
+    rows[4, rng.choice(I, min(I, 3), replace=False)] = 0.5
+    rows[5, 120:136] = 7.0  # a tie straddling the first chunk boundary
+    rows[5, I - 1] = 7.0
+    rows[6] = rng.standard_normal(I).astype(np.float32)
+    return rows
+
+
+@pytest.mark.parametrize("I,k", [
+    (50, 1), (50, 4), (50, 50),  # one tile, partial, k up to the whole row
+    (1000, 1), (1000, 3), (1000, 4), (1000, 16), (1000, 100),  # I % 128 != 0
+    (5000, 9), (5000, 17), (5000, 33), (5000, 65),  # 40 tiles: warps fold two lists each
+    (17000, 128),  # 256-item tiles: two chunks folded a tile
+    (300_000, 16),  # 512-item tiles: chunks folded by groups; 10 merge rounds
+])
+def test_tile_then_merge_matches_the_reference_and_lax(I, k):
+    rng = np.random.default_rng(I * 1000 + k)
+    rows = _tile_rows(rng, I)
+    s, i = _tile_then_merge(torch.from_numpy(rows), k)
+    rs, ri = ttopk.top_k_rows_reference(torch.from_numpy(rows), k)
+    np.testing.assert_array_equal(i.numpy(), ri.numpy())
+    np.testing.assert_array_equal(s.numpy().view(np.int32), rs.numpy().view(np.int32))
+    js, ji = jax.lax.top_k(jnp.asarray(rows), k)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(s.numpy().view(np.int32), np.asarray(js).view(np.int32))
+
+
+def test_tile_then_merge_on_seeded_random_rows():
+    """Seeded rows from a small alphabet (many ties) at random I and k."""
+    rng = np.random.default_rng(11)
+    for _ in range(12):
+        I = int(rng.integers(1, 700))
+        k = int(rng.integers(1, min(I, ttopk.K2_TILE_MAX_K) + 1))
+        alphabet = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1.0, -1.0, 2.5,
+                             ttopk.NEG_INF, 1e-45, -1e-45], np.float32)
+        rows = alphabet[rng.integers(0, len(alphabet), (3, I))]
+        s, i = _tile_then_merge(torch.from_numpy(rows), k)
+        rs, ri = ttopk.top_k_rows_reference(torch.from_numpy(rows), k)
+        assert torch.equal(i, ri), (I, k)
+        assert torch.equal(s.view(torch.int32), rs.view(torch.int32)), (I, k)
+
+
+def test_order_key_inverse_round_trips():
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -np.nan, 1e-45, -1e-45,
+                        1.17e-38, -1.17e-38, ttopk.NEG_INF, 1.0, -1.0,
+                        np.finfo(np.float32).max, -np.finfo(np.float32).max], np.float32)
+    bits = np.concatenate([
+        special.view(np.int32),
+        np.array([-1, 0x7FC00001, 0x7F800001, -0x00000001 - 0x7FFFFF, 1, -0x80000000],
+                 np.int64).astype(np.int32),  # NaN payloads, -0.0's bits, smallest subnormal
+        np.random.default_rng(3).integers(-2**31, 2**31, 4096).astype(np.int32),
+    ])
+    x = torch.from_numpy(bits.copy()).view(torch.float32)
+    back = _order_key_inverse(ttopk.order_key(x))
+    np.testing.assert_array_equal(back.view(torch.int32).numpy(), bits)
+
+
+def test_k2_route_at_the_cap_and_past_it():
+    cap, I = ttopk.K2_TILE_MAX_K, 26_744
+    at = ttopk.k2_route(cap, I, 1)
+    assert at == ttopk.K2Route("tile", 256, 128, 105)
+    assert ttopk.k2_route(cap + 1, I, 1).name == "select"
+    assert ttopk.k2_route(4, I, 1) == ttopk.K2Route("tile", 128, 4, 209)
+    assert ttopk.k2_route(4, I, 64) == ttopk.k2_route(4, I, 1)
+    assert ttopk.k2_launches(4, I, 1) == ttopk.k2_launches(4, I, 1, summed=True) == 2
+    assert ttopk.k2_launches(cap + 1, I, 1) == 2
+    assert ttopk.k2_launches(cap + 1, I, 1, summed=True) == 3
+
+
+def test_k2_route_below_one_tile():
+    assert ttopk.k2_route(4, 50, 1) == ttopk.K2Route("tile", 128, 4, 1)
+    assert ttopk.k2_route(50, 50, 7) == ttopk.K2Route("tile", 128, 64, 1)
+    with pytest.raises(ValueError):
+        ttopk.k2_route(51, 50, 1)
+    with pytest.raises(ValueError):
+        ttopk.k2_route(0, 50, 1)
+
+
+@pytest.mark.parametrize("I", [1, 127, 128, 129, 4096, 26_744, 1_000_003])
+def test_k2_route_width_is_the_narrowest_that_fits_the_merge(I):
+    for k in (1, 2, 3, 4, 16, 17, 32, 64, 100, 128):
+        if k > I:
+            continue
+        r = ttopk.k2_route(k, I, 1)
+        assert r.width % ttopk.K2_CHUNK == 0 and r.tiles == -(-I // r.width)
+        assert r.group >= k and r.group & (r.group - 1) == 0 and r.group < 2 * k
+        assert r.tiles * r.group <= ttopk.K2_MERGE_CAP
+        if r.width > ttopk.K2_CHUNK:
+            assert -(-I // (r.width // 2)) * r.group > ttopk.K2_MERGE_CAP
+
+
+def test_k2_constants_match_the_kernel_source():
+    import re
+    from pathlib import Path
+
+    src = (Path(ttopk.__file__).resolve().parent.parent / "csrc" / "topk.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert int(consts["TILE_MAX_K"]) == ttopk.K2_TILE_MAX_K == 128
+    assert int(consts["TILE_I"]) == ttopk.K2_CHUNK
+    assert int(consts["MERGE_CAP"]) == ttopk.K2_MERGE_CAP
+    assert int(consts["MERGE_THREADS"]) // 32 == _MERGE_WARPS
+    assert int(consts["GROUP_MAX_G"]) == _GROUP_MAX_G
+
+
+def test_select_route_entry_points_need_cuda():
+    items = torch.zeros((5, 2))
+    with pytest.raises(ValueError, match="device"):
+        ttopk._gather_top_k_select([0], items, items, 2)
+    with pytest.raises(ValueError, match="device"):
+        ttopk._sum_rows_top_k_select([[0]], [[1.0]], items, 2)
+    for fn in (ttopk.gather_top_k_batch, ttopk.sum_rows_top_k_batch):
+        assert set(fn.routes) == {"tile", "select"}
+
+
+def test_cpu_calls_launch_no_kernel():
+    """CPU tensors take the plain version: no call is counted on a route,
+    and no kernel launch (the C entries count those as they launch)."""
+    rng = np.random.default_rng(5)
+    items = torch.from_numpy(rng.standard_normal((40, 3)).astype(np.float32))
+    counters = [c for fn in (ttopk.gather_top_k_batch, ttopk.sum_rows_top_k_batch)
+                for c in (fn.launches, fn.kernel_launches, *fn.routes.values())]
+    before = [c.value for c in counters]
+    ttopk.gather_top_k_batch([0, 3], items, items, 4)
+    ttopk.sum_rows_top_k_batch([[0, 1]], [[1.0, 0.0]], items, 4)
+    ttopk.top_k_rows(items, 2)
+    assert [c.value for c in counters] == before
+
+
+def test_cu_entries_count_every_launch():
+    """Each extern "C" entry takes the launch counter, and every kernel
+    launch in csrc/topk.cu is counted: after each ``<<<`` the next
+    ``counted(launched)`` comes before any return but a launch-free
+    branch's, so ``kernel_launches`` moves with what really launched."""
+    src = (Path(ttopk.__file__).parent.parent / "csrc" / "topk.cu").read_text()
+    entries = re.findall(r"^int (pio_k2_\w+)\(([^)]*)\)", src, re.M)
+    assert {name for name, _ in entries} == {
+        "pio_k2_select", "pio_k2_gather_top_k", "pio_k2_sum_rows_top_k",
+        "pio_k2_tile_top_k", "pio_k2_tile_sum_rows_top_k"}
+    for name, params in entries:
+        assert "int* launched, void* stream" in " ".join(params.split()), name
+    body = src[src.index("cudaError_t counted(int* launched)"):]
+    launches = [m.start() for m in re.finditer(r"<<<", body)]
+    assert len(launches) == 11  # tile 1, merge 3, score 3, select 1, sum rows 3
+    step = re.compile(r"return\s+(?:\(int\))?(\w+)|counted\(launched\)")
+    for a in launches:
+        # the first return or count after the launch: a count (or a
+        # return of one), past branches that launched nothing
+        for m in step.finditer(body, a):
+            if m.group(1) != "cudaErrorInvalidValue":
+                assert m.group(1) in (None, "counted"), body[a:m.end()]
+                break
+        else:
+            raise AssertionError(f"uncounted launch: {body[a:a + 80]}")
