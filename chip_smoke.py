@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases k2,k1,k1i,k1route,k2s,k2route,serve,lifecycle,
-                                    simlife,train,simtrain,times,k1times,simtimes]
+    python3 chip_smoke.py [--phases k2,k1,k1i,k1route,k2s,k2route,serve,batchserve,
+                                    lifecycle,simlife,train,simtrain,times,k1times,
+                                    simtimes]
 
 Run from the root of a checkout, on a machine with a CUDA card, ``nvcc``
 and PyTorch built for CUDA. It imports nothing of JAX and nothing of the
@@ -31,10 +32,12 @@ JAX package (``predictionio_tpu``). Phases:
    plain version and of a float64 solve, the written-back table bit for
    bit;
 5. serve: f32 and int8 models at full width (D = 20) saved through the
-   port's storage, deployed through ``deploy`` on 127.0.0.1, answering
-   ``POST /queries.json`` (checked against the plain version) -- K2's
-   call and per-route counts are reset before and read after: its
-   main-path count, every call on the tile route;
+   port's storage, deployed through ``deploy`` on 127.0.0.1 (the port's
+   event-loop front end, ``server/http.py``), answering ``POST
+   /queries.json`` (checked against the plain version) -- K2's call and
+   per-route counts are reset before and read after: its main-path
+   count, every call on the tile route; HTTP and ``predict`` p50 of
+   each model at concurrency 1;
 6. lifecycle: ML-100K-shaped ratings written as ``rate`` events into the
    port's sqlite store, ``cli.main train`` then ``deploy`` on the card,
    queries POSTed; train RMSE against the same training on the CPU;
@@ -54,6 +57,26 @@ JAX package (``predictionio_tpu``). Phases:
    time per call; per-call times the median of CUDA event pairs; bounds
    ``max(bytes / memory rate, FP32 operations / FP32 rate)`` of the card
    named in phase 1, computed from this run's inputs.
+
+The serving-stack slice adds, run after serve:
+
+- batchserve: the serve phase's f32 model at the ML-20M shape (num = 4)
+  deployed by ``cli.main deploy`` in a subprocess, with the
+  micro-batcher on (``--batch-window-ms 2``) and off (``0``); closed-loop
+  keep-alive clients at concurrency 1, 8 and 64, 2,000 queries a level
+  for distinct users from a seed: p50, p99, queries/s, the server's
+  ``pio_batch_size`` histogram and K2 tile-route calls (``/metrics``)
+  per level; every answer byte-identical to the user's solo answer, a
+  sample against the plain version, batches of more than one query at
+  concurrency 64. Then a deploy with ``--query-cache-mb 64``: a repeated
+  query gives the same bytes and no K2 call; ``/metrics`` device-memory
+  gauges live (``supported = 1``, in-use bytes >= the tables);
+  ``POST /profile?seconds=1`` during traffic writes a ``torch.profiler``
+  trace naming ``tile_topk_kernel`` and ``merge_topk_kernel``; ``POST
+  /reload`` onto a newer instance bumps the epoch and answers from the
+  new model; SIGTERM drains with queries in flight (all 200, exit 0).
+  simtrain also deploys through the batcher and sends rounds of 8
+  concurrent queries until K2s runs at B > 1.
 
 The similar-product slice adds (run in this order among the above:
 k1i and k2s after k1, simlife after lifecycle, simtrain after train,
@@ -121,10 +144,13 @@ import http.client
 import json
 import os
 import shutil
+import signal
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 
@@ -1167,21 +1193,23 @@ def the_slice(torch, device, stats):
                 check_answer([x["item"] for x in got], [x["score"] for x in got],
                              exp_items, exp_scores, model, f"{name} {q}")
             launches_queries += topk.gather_top_k_batch.launches.value - launches_before
-            if name == "f32":
-                times = []
-                for _ in range(60):
-                    t0 = time.perf_counter()
-                    post(conn, {"user": "u17", "num": 4})
-                    times.append(time.perf_counter() - t0)
-                stats["http_p50_ms"] = statistics.median(times[10:]) * 1e3
-                # the same query without HTTP: the query path's share
-                algo, q = server.algorithms[0], rec.Query(user="u17", num=4)
-                times = []
-                for _ in range(60):
-                    t0 = time.perf_counter()
-                    algo.predict(model, q)
-                    times.append(time.perf_counter() - t0)
-                stats["predict_p50_ms"] = statistics.median(times[10:]) * 1e3
+            # concurrency 1, in-process: HTTP round trip, then the same
+            # query without HTTP (the query path's share)
+            times = []
+            for _ in range(60):
+                t0 = time.perf_counter()
+                post(conn, {"user": "u17", "num": 4})
+                times.append(time.perf_counter() - t0)
+            http_p50 = statistics.median(times[10:]) * 1e3
+            algo, q = server.algorithms[0], rec.Query(user="u17", num=4)
+            times = []
+            for _ in range(60):
+                t0 = time.perf_counter()
+                algo.predict(model, q)
+                times.append(time.perf_counter() - t0)
+            stats.setdefault("serve_p50_ms", {})[name] = {
+                "http_p50_ms": http_p50,
+                "predict_p50_ms": statistics.median(times[10:]) * 1e3}
             conn.close()
             # one 64-query batch through the algorithm's batch entry point
             algo = server.algorithms[0]
@@ -1194,6 +1222,8 @@ def the_slice(torch, device, stats):
                 check_answer([x.item for x in r], [x.score for x in r],
                              exp_items, exp_scores, model, f"{name} batch row {j}")
         stats["launches"] = topk.gather_top_k_batch.launches.value  # main path read
+        stats["http_p50_ms"] = stats["serve_p50_ms"]["f32"]["http_p50_ms"]
+        stats["predict_p50_ms"] = stats["serve_p50_ms"]["f32"]["predict_p50_ms"]
         stats["k2_kernel_launches"] = topk.gather_top_k_batch.kernel_launches.value
         stats["k2_routes"] = {r: c.value for r, c in topk.gather_top_k_batch.routes.items()}
     finally:
@@ -1217,9 +1247,461 @@ def the_slice(torch, device, stats):
         f"({launches_queries} during the HTTP queries), all on the tile route: "
         f"{stats['k2_kernel_launches']} kernel launches; "
         f"HTTP p50 {stats['http_p50_ms']:.3f} ms")
-    log(json.dumps({"timing": "http /queries.json", "model": "f32", "num": 4,
-                    "http_p50_ms": stats["http_p50_ms"],
-                    "predict_p50_ms": stats["predict_p50_ms"]}))
+    for name, p50 in stats["serve_p50_ms"].items():
+        log(json.dumps({"timing": "http /queries.json", "model": name, "num": 4,
+                        "concurrency": 1, **p50}))
+
+
+# -- phase: batched serving through the deploy CLI --------------------------------
+
+BATCH_LEVELS = (1, 8, 64)  # closed-loop client concurrency
+BATCH_QUERIES = 2000  # queries per level, each for a distinct user
+BATCH_WINDOW_MS = 2.0
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class DeployProcess:
+    """``python -m predictionio_tpu_torch.cli.main deploy`` of one
+    instance in a process of its own (so the clients here do not share
+    its GIL), on 127.0.0.1, ready once ``/readyz`` answers 200. Stopped
+    with SIGTERM: the front end drains, then the command exits."""
+
+    def __init__(self, basedir: str, iid: str, device: str, flags: list[str],
+                 name: str):
+        self.port = free_port()
+        self.log_path = os.path.join(basedir, f"deploy-{name}.log")
+        env = {k: v for k, v in os.environ.items() if not k.startswith("PIO_STORAGE_")}
+        env.update(PIO_FS_BASEDIR=basedir, PIO_RUN_DIR=os.path.join(basedir, "run"),
+                   PYTHONPATH=os.pathsep.join(
+                       p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+        cmd = [sys.executable, "-m", "predictionio_tpu_torch.cli.main", "deploy",
+               "--engine-instance-id", iid, "--ip", "127.0.0.1",
+               "--port", str(self.port), "--device", device, *flags]
+        self._log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=self._log,
+                                     stderr=subprocess.STDOUT)
+        deadline = time.perf_counter() + 180
+        while True:
+            if self.proc.poll() is not None:
+                raise AssertionError(f"deploy {name} exited {self.proc.returncode}:\n"
+                                     + self.log_tail())
+            try:
+                if self.get("/readyz")[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"deploy {name} not ready in 180 s:\n" + self.log_tail())
+            time.sleep(0.2)
+
+    def log_tail(self, n: int = 40) -> str:
+        self._log.flush()
+        with open(self.log_path) as f:
+            return "".join(f.readlines()[-n:])
+
+    def request(self, method: str, path: str, body: bytes | None = None):
+        conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=60)
+        try:
+            conn.request(method, path, body)
+            resp = conn.getresponse()
+            return resp.status, resp.read()
+        finally:
+            conn.close()
+
+    def get(self, path: str):
+        return self.request("GET", path)
+
+    def metrics(self) -> dict:
+        from predictionio_tpu_torch.obs.metrics import parse_prometheus
+
+        status, body = self.get("/metrics")
+        if status != 200:
+            raise AssertionError(f"/metrics answered {status}")
+        return parse_prometheus(body)
+
+    def stop(self) -> int:
+        """SIGTERM (drain) and wait; the exit code."""
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self._log.close()
+        return self.proc.returncode
+
+
+def batch_histogram(m: dict) -> dict:
+    """{upper bound: batches} of ``pio_batch_size`` from parsed
+    /metrics (the cumulative ``le`` buckets, differenced)."""
+    cum = sorted(
+        (float("inf") if k.split('le="')[1].split('"')[0] == "+Inf"
+         else float(k.split('le="')[1].split('"')[0]), v)
+        for k, v in m.items() if k.startswith("pio_batch_size_bucket{"))
+    out, prev = {}, 0.0
+    for le, c in cum:
+        out["+Inf" if le == float("inf") else str(int(le))] = int(c - prev)
+        prev = c
+    return out
+
+
+def hist_delta(after: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items() if v - before.get(k, 0)}
+
+
+def k2_tile_calls(m: dict) -> int:
+    return int(m.get('pio_k2_calls{kernel="gather_top_k_batch",route="tile"}', 0))
+
+
+def closed_loop(port: int, queries: list, concurrency: int) -> dict:
+    """``concurrency`` closed-loop keep-alive clients, each on its own
+    connection, take the next query until none is left. Returns each
+    query's raw answer (by user), the latencies and the wall time."""
+    lock = threading.Lock()
+    todo = iter(queries)
+    answers, lat, errors = {}, [], []
+
+    def client():
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            while True:
+                with lock:
+                    q = next(todo, None)
+                if q is None:
+                    return
+                body = json.dumps(q).encode()
+                t0 = time.perf_counter()
+                conn.request("POST", "/queries.json", body,
+                             {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                data = resp.read()
+                dt = time.perf_counter() - t0
+                with lock:
+                    lat.append(dt)
+                    answers[q["user"]] = data
+                    if resp.status != 200:
+                        errors.append((q, resp.status, data[:200]))
+        except Exception as e:  # reported, then raised by the caller
+            with lock:
+                errors.append(repr(e))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client) for _ in range(concurrency)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"{len(errors)} failed queries at concurrency "
+                             f"{concurrency}, first {errors[0]}")
+    if len(answers) != len(queries):
+        raise AssertionError(f"{len(answers)} answers for {len(queries)} queries")
+    return {"answers": answers, "lat": lat, "wall_s": wall}
+
+
+def sweep(server: DeployProcess, levels: dict) -> dict:
+    """One closed-loop level per concurrency; per level the latencies,
+    throughput, ``pio_batch_size`` histogram and K2 tile-route calls
+    (the server's /metrics before and after)."""
+    out = {}
+    for c, queries in levels.items():
+        m0 = server.metrics()
+        run = closed_loop(server.port, queries, c)
+        m1 = server.metrics()
+        lat = sorted(run["lat"])
+        out[c] = {
+            "answers": run["answers"],
+            "p50_ms": lat[len(lat) // 2] * 1e3,
+            "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))] * 1e3,
+            "qps": len(queries) / run["wall_s"],
+            "batch_sizes": hist_delta(batch_histogram(m1), batch_histogram(m0)),
+            "k2_tile_calls": k2_tile_calls(m1) - k2_tile_calls(m0),
+        }
+    return out
+
+
+def check_device_gauges(m: dict, table_bytes: int) -> dict:
+    """/metrics of a server scoring on the card: the allocator gauges
+    are live and hold at least the factor tables."""
+    sup = m.get('pio_device_memory_stats_supported{device="cuda:0"}')
+    in_use = m.get('pio_device_memory_bytes{device="cuda:0",kind="in_use"}', 0.0)
+    if sup != 1.0 or in_use < table_bytes:
+        raise AssertionError(f"device gauges: supported {sup}, in_use {in_use} "
+                             f"< the tables' {table_bytes} bytes")
+    return {"supported": sup, "in_use_bytes": int(in_use)}
+
+
+def check_k2_calls(levels_out: dict, window: float, per_level: int) -> None:
+    """K2's tile-route calls in the server process, per level: one per
+    batch with the batcher on, one per query with it off."""
+    for c, lv in levels_out.items():
+        want = sum(lv["batch_sizes"].values()) if window else per_level
+        if lv["k2_tile_calls"] != want:
+            raise AssertionError(f"window {window} ms, concurrency {c}: "
+                                 f"{lv['k2_tile_calls']} K2 tile calls, expected {want}")
+
+
+def check_cache_k2(k0: int, k1: int, k2: int) -> None:
+    """A cache miss calls K2 once; the repeated query (a hit) not at all."""
+    if (k1 - k0, k2 - k1) != (1, 0):
+        raise AssertionError(f"K2 tile calls {k0} -> {k1} (miss) -> {k2} (hit)")
+
+
+def check_profile_trace(text: str) -> list:
+    """The capture's Chrome trace names both K2 tile-route kernels."""
+    names = [n for n in ("tile_topk_kernel", "merge_topk_kernel") if n in text]
+    if names != ["tile_topk_kernel", "merge_topk_kernel"]:
+        raise AssertionError(f"the profile trace names {names} of the K2 kernels")
+    return names
+
+
+def trace_kernel_time(text: str, seconds: float) -> dict:
+    """Device kernels in a ``torch.profiler`` Chrome trace: their count,
+    summed duration and share of the capture window (the device's busy
+    share), and the summed duration by kernel name."""
+    events = [e for e in json.loads(text)["traceEvents"] if e.get("cat") == "kernel"]
+    by_name: dict = {}
+    for e in events:
+        # "void (anonymous namespace)::tile_topk_kernel(TileArgs)" -> the name
+        name = e["name"].replace("(anonymous namespace)::", "").split("(")[0]
+        name = name.split("<")[0].split("::")[-1].split(" ")[-1]
+        by_name[name] = by_name.get(name, 0.0) + float(e["dur"]) / 1e3
+    total_ms = sum(by_name.values())
+    return {"kernels": len(events), "kernel_ms": total_ms,
+            "busy_share": total_ms / (seconds * 1e3), "ms_by_name": by_name}
+
+
+@phase("batchserve: deploy --batch-window-ms (subprocess), concurrency 1/8/64")
+def batch_serve(torch, device, stats, users: int = U_ROWS, items: int = I_ROWS,
+                per_level: int = BATCH_QUERIES):
+    """The serve phase's f32 model (ML-20M shape, D = 20, random from the
+    seed) deployed by ``cli.main deploy`` in a subprocess, with the
+    micro-batcher on (``--batch-window-ms 2``) and off (``0``);
+    closed-loop keep-alive clients at concurrency 1, 8 and 64, each level
+    ``per_level`` queries (num = 4) for distinct users drawn from a seed.
+    Every answer of both servers must be byte-identical to the batcher
+    server's solo answer for that user (K2 is batch-invariant bit for
+    bit), a sample must match K2's plain version on the card, and
+    batches of more than one query must form at concurrency 64. Then, on
+    a third deploy with ``--query-cache-mb 64``: a repeated query gives
+    the same bytes and no K2 call; ``/metrics`` carries live device
+    memory gauges holding the tables; ``POST /profile?seconds=1`` during
+    traffic (8 clients) writes a trace naming K2's kernels, whose kernel
+    events give the device's busy share of the window; ``POST /reload`` onto a
+    newer instance bumps the epoch and the next answer is the new
+    model's; SIGTERM drains with queries in flight (every answer 200,
+    exit 0)."""
+    from predictionio_tpu_torch.core.workflow import save_instance
+    from predictionio_tpu_torch.data import storage as st
+    from predictionio_tpu_torch.models import recommendation as rec
+
+    rng = np.random.default_rng(SEED)
+    uf = rng.standard_normal((users, 20), dtype=np.float32)
+    vf = rng.standard_normal((items, 20), dtype=np.float32)
+    user_ids = [f"u{j}" for j in range(users)]
+    item_ids = [f"i{j}" for j in range(items)]
+    model = rec.model_from_numpy(user_ids, item_ids, uf, vf)
+    basedir = tempfile.mkdtemp(prefix="pio_chip_smoke_batch_")
+    storage = st.Storage(env={"PIO_FS_BASEDIR": basedir})
+    engine = rec.engine()
+    ep = engine.params_from_variant({"algorithms": [{"name": "als", "params": {
+        "rank": 20}}]})
+
+    def save(m) -> str:
+        return save_instance(
+            engine, ep, [m], engine_id="chip-smoke-batch", engine_variant="batch",
+            engine_factory="predictionio_tpu_torch.models.recommendation.engine",
+            storage=storage)
+
+    iid = save(model)
+    pick = np.random.default_rng(SEED + 7).permutation(users)
+    n = per_level
+    levels = {c: [{"user": f"u{int(j)}", "num": 4} for j in pick[i * n:(i + 1) * n]]
+              for i, c in enumerate(BATCH_LEVELS)}
+    warm = [{"user": f"u{int(j)}", "num": 4}
+            for j in pick[len(BATCH_LEVELS) * n:len(BATCH_LEVELS) * n + 256]]
+    dev = device.type
+    servers = []
+    result = {}
+    try:
+        for window in (BATCH_WINDOW_MS, 0.0):
+            t0 = time.perf_counter()
+            server = DeployProcess(basedir, iid, dev,
+                                   ["--batch-window-ms", str(window)], f"w{window:g}")
+            servers.append(server)
+            ready_s = time.perf_counter() - t0
+            closed_loop(server.port, warm, 8)
+            levels_out = sweep(server, levels)
+            check_k2_calls(levels_out, window, n)
+            if window:
+                # each user's solo answer: one query at a time
+                solo = dict(levels_out[1]["answers"])
+                for c in BATCH_LEVELS[1:]:
+                    solo.update(closed_loop(server.port, levels[c], 1)["answers"])
+            for c, lv in levels_out.items():
+                same = sum(lv["answers"][u] == solo[u] for u in lv["answers"])
+                if same != len(lv["answers"]):
+                    raise AssertionError(f"window {window} ms, concurrency {c}: "
+                                         f"{len(lv['answers']) - same} answers differ "
+                                         "from the solo answers")
+                lv.pop("answers")
+            result[f"window_{window:g}ms"] = {"ready_s": ready_s, **levels_out}
+            server.stop()
+            log(json.dumps({"batchserve": f"--batch-window-ms {window:g}",
+                            "ready_s": ready_s, **{
+                                f"c{c}": lv for c, lv in levels_out.items()}}))
+        on = result[f"window_{BATCH_WINDOW_MS:g}ms"]
+        big = sum(v for k, v in on[64]["batch_sizes"].items() if k != "1")
+        if big <= 0:
+            raise AssertionError(f"no batch of more than one query at concurrency 64: "
+                                 f"{on[64]['batch_sizes']}")
+        # a sample of the solo answers against K2's plain version on the card
+        sample = levels[64][:64]
+        for q, (exp_items, exp_scores) in zip(
+                sample, expected_items(torch, model, device, sample)):
+            got = json.loads(solo[q["user"]])["itemScores"]
+            check_answer([x["item"] for x in got], [x["score"] for x in got],
+                         exp_items, exp_scores, model, f"batchserve {q}")
+
+        # cache, metrics, profile, reload and drain on one more deploy
+        server = DeployProcess(basedir, iid, dev, [
+            "--batch-window-ms", str(BATCH_WINDOW_MS), "--query-cache-mb", "64"], "cache")
+        servers.append(server)
+        q0 = json.dumps({"user": "u17", "num": 4}).encode()
+        k_miss = k2_tile_calls(server.metrics())
+        s1, b1 = server.request("POST", "/queries.json", q0)
+        k_before = k2_tile_calls(server.metrics())
+        s2, b2 = server.request("POST", "/queries.json", q0)
+        k_after = k2_tile_calls(server.metrics())
+        if (s1, s2) != (200, 200) or b1 != b2:
+            raise AssertionError(f"cache: statuses {s1}/{s2}, same bytes {b1 == b2}")
+        check_cache_k2(k_miss, k_before, k_after)
+        gauges = check_device_gauges(server.metrics(),
+                                     int(uf.nbytes + vf.nbytes))
+
+        stop_traffic = threading.Event()
+        traffic_errors, traffic_answers = [], []
+
+        def traffic():
+            conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=60)
+            r = np.random.default_rng(threading.get_ident() % 2**32)
+            try:
+                while not stop_traffic.is_set():
+                    body = json.dumps({"user": f"u{int(r.integers(users))}",
+                                       "num": 4}).encode()
+                    conn.request("POST", "/queries.json", body)
+                    resp = conn.getresponse()
+                    resp.read()
+                    traffic_answers.append(resp.status)
+                    if resp.status != 200:
+                        traffic_errors.append(resp.status)
+            except Exception as e:
+                traffic_errors.append(repr(e))
+            finally:
+                conn.close()
+
+        clients = [threading.Thread(target=traffic) for _ in range(8)]
+        for t in clients:
+            t.start()
+        trace_dir = os.path.join(basedir, "profile")
+        try:
+            status, body = server.request(
+                "POST", f"/profile?seconds=1&out={trace_dir}", b"")
+        finally:
+            stop_traffic.set()
+            for t in clients:
+                t.join()
+        if status != 200 or traffic_errors:
+            raise AssertionError(f"profile: {status} {body[:300]!r}, traffic errors "
+                                 f"{traffic_errors[:3]}")
+        with open(os.path.join(trace_dir, "trace.json")) as f:
+            text = f.read()
+        named = check_profile_trace(text)
+        busy = trace_kernel_time(text, json.loads(body)["seconds"])
+
+        rng2 = np.random.default_rng(SEED + 1)
+        model2 = rec.model_from_numpy(
+            user_ids, item_ids, rng2.standard_normal((users, 20), dtype=np.float32),
+            rng2.standard_normal((items, 20), dtype=np.float32))
+        iid2 = save(model2)
+        epoch0 = json.loads(server.get("/stats.json")[1])["variants"]["batch"]["epoch"]
+        status, body = server.request("POST", "/reload", b"")
+        doc = json.loads(server.get("/stats.json")[1])
+        epoch1 = doc["variants"]["batch"]["epoch"]
+        s3, b3 = server.request("POST", "/queries.json", q0)
+        if (status, s3) != (200, 200) or epoch1 != epoch0 + 1 \
+                or doc["engineInstanceId"] != iid2 or b3 == b1:
+            raise AssertionError(f"reload: {status} {body[:200]!r}, epoch {epoch0} -> "
+                                 f"{epoch1}, instance {doc['engineInstanceId']}, "
+                                 f"answer changed {b3 != b1}")
+        [(exp_items, exp_scores)] = expected_items(
+            torch, model2, device, [{"user": "u17", "num": 4}])
+        got = json.loads(b3)["itemScores"]
+        check_answer([x["item"] for x in got], [x["score"] for x in got],
+                     exp_items, exp_scores, model2, "after /reload")
+
+        # SIGTERM with queries in flight: every answer 200, a clean exit
+        statuses, closes = [], []
+
+        def drain_client():
+            conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=60)
+            try:
+                while True:
+                    conn.request("POST", "/queries.json", q0)
+                    resp = conn.getresponse()
+                    resp.read()
+                    statuses.append(resp.status)
+                    if (resp.getheader("Connection") or "").lower() == "close":
+                        closes.append(1)
+                        return
+            except (ConnectionError, http.client.HTTPException, OSError):
+                return  # the listener closed: a new request was refused
+            finally:
+                conn.close()
+
+        clients = [threading.Thread(target=drain_client) for _ in range(16)]
+        for t in clients:
+            t.start()
+        time.sleep(0.3)
+        rc = server.stop()
+        for t in clients:
+            t.join(timeout=60)
+        bad = [s for s in statuses if s != 200]
+        if rc != 0 or bad or not closes:
+            raise AssertionError(f"drain: exit {rc}, non-200 {bad[:5]}, "
+                                 f"{len(closes)} answers with Connection: close\n"
+                                 + server.log_tail())
+        result["cache_reload_obs"] = {
+            "cache_hit_same_bytes": True, "k2_calls_on_hit": k_after - k_before,
+            "device_gauges": gauges, "profile_names": named,
+            "profile_window": {"clients": 8, "answers": len(traffic_answers), **busy},
+            "reload_epoch": [epoch0, epoch1],
+            "drain": {"answers": len(statuses), "connection_close": len(closes),
+                      "exit": rc},
+        }
+        log(json.dumps({"batchserve": "cache, reload, obs, drain",
+                        **result["cache_reload_obs"]}))
+    except BaseException:
+        for s in servers:
+            if s.proc.poll() is None:
+                log(s.log_tail())
+        raise
+    finally:
+        for s in servers:
+            if s.proc.poll() is None:
+                s.stop()
+        storage.close()
+        shutil.rmtree(basedir, ignore_errors=True)
+    stats["batchserve"] = result
 
 
 # -- training: data ------------------------------------------------------------
@@ -1794,7 +2276,8 @@ def similar_full_width(torch, device, stats):
         train_s = time.perf_counter() - t0
         stats["k1i_launches"] = als.solve_bucket.launches.value  # main path read
         server = cli.deploy_server(cli.build_parser().parse_args([
-            "deploy", "--engine-instance-id", iid, "--ip", "127.0.0.1", "--port", "0"]))
+            "deploy", "--engine-instance-id", iid, "--ip", "127.0.0.1", "--port", "0",
+            "--batch-window-ms", str(BATCH_WINDOW_MS)]))
         server.warmup()
         port = server.start(background=True)
         model = server.models[0]
@@ -1809,6 +2292,7 @@ def similar_full_width(torch, device, stats):
         for q in queries:
             got = post(conn, q)["itemScores"]
             check_similar(got, plain_similar(torch, server, q), model, f"sim20m {q}")
+        stats["sim_batch_sizes"] = similar_concurrent_round(torch, server, port, model)
         stats["k2s_launches"] = topk.sum_rows_top_k_batch.launches.value  # main path read
         stats["k2s_kernel_launches"] = topk.sum_rows_top_k_batch.kernel_launches.value
         k2s_routes = {r: c.value for r, c in topk.sum_rows_top_k_batch.routes.items()}
@@ -1890,6 +2374,53 @@ def similar_full_width(torch, device, stats):
         "predict_p50_ms": stats["sim_predict_p50_ms"], **diffs}
     log(json.dumps({"full_width": "similar-product ml20m rank 10 implicit f32",
                     **stats["similar_full_width"]}))
+
+
+def similar_concurrent_round(torch, server, port: int, model) -> dict:
+    """Rounds of 8 concurrent similar-product queries (8 keep-alive
+    clients, distinct items) through the micro-batcher, until a round
+    coalesces queries into one K2s call at B > 1 (at most 20 rounds):
+    each answer against the plain path. Returns the rounds' batch-size
+    histogram (``pio_batch_size``, this process's registry)."""
+    from predictionio_tpu_torch.obs import metrics as obs_metrics
+
+    hist = obs_metrics.histogram("pio_batch_size")
+    before = hist.merged()[0]
+    conns = [http.client.HTTPConnection("127.0.0.1", port, timeout=60) for _ in range(8)]
+    answers = {}
+    errors = []
+
+    def one(conn, q):
+        try:
+            answers[json.dumps(q)] = post(conn, q)["itemScores"]
+        except Exception as e:
+            errors.append(repr(e))
+
+    try:
+        for r in range(20):
+            qs = [{"items": [f"i{100 + 8 * r + j}"], "num": 4 + j} for j in range(8)]
+            threads = [threading.Thread(target=one, args=(c, q)) for c, q in zip(conns, qs)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            if errors:
+                raise AssertionError(f"concurrent similar queries: {errors[0]}")
+            after = hist.merged()[0]
+            if sum(after[1:]) > sum(before[1:]):
+                break
+    finally:
+        for c in conns:
+            c.close()
+    counts = [a - b for a, b in zip(hist.merged()[0], before)]
+    if sum(counts[1:]) <= 0:
+        raise AssertionError("20 rounds of 8 concurrent queries formed no batch of "
+                             "more than one query")
+    for key, got in answers.items():
+        q = json.loads(key)
+        check_similar(got, plain_similar(torch, server, q), model, f"sim20m batched {q}")
+    bounds = [str(int(b)) for b in hist.bounds] + ["+Inf"]
+    return {b: c for b, c in zip(bounds, counts) if c}
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -2406,8 +2937,10 @@ def k1i_summary(stats) -> dict:
 def k2s_summary(stats) -> dict:
     """K2 summed rows' line: one served query (B = 1, L = 4, k = 4);
     ``k2_route``: the route that served it, ``kernel_launches`` the
-    kernels the main path's calls launched, as the C entry counted them; ``baseline_ms``: the select route on the same
-    inputs in this run."""
+    kernels the main path's calls launched, as the C entry counted them;
+    ``baseline_ms``: the select route on the same inputs in this run;
+    ``batch_sizes``: simtrain's concurrent rounds through the
+    micro-batcher, batches by size."""
     rep = stats["k2s_timings"][0]
     dev = None not in (rep["kernel_device_ms"], rep["plain_device_ms"],
                        rep["library_device_ms"], rep["baseline_device_ms"])
@@ -2426,6 +2959,7 @@ def k2s_summary(stats) -> dict:
         "k2_route": rep["route"],
         "kernel_launches": stats["k2s_kernel_launches"],
         "baseline_ms": rep["baseline_device_ms"] if dev else rep["baseline_ms"],
+        "batch_sizes": stats["sim_batch_sizes"],
     }
 
 
@@ -2486,6 +3020,7 @@ def main() -> int:
         "k2s": lambda: k2_sum_rows_vs_plain(torch, device, stats),
         "k2route": lambda: k2_route_vs_select(torch, device, stats),
         "serve": lambda: the_slice(torch, device, stats),
+        "batchserve": lambda: batch_serve(torch, device, stats),
         "lifecycle": lambda: lifecycle(torch, device, stats),
         "simlife": lambda: similar_lifecycle(torch, device, stats),
         "train": lambda: full_width(torch, device, stats),
@@ -2538,6 +3073,7 @@ def main() -> int:
         "k2_route": rep["route"],
         "kernel_launches": stats["k2_kernel_launches"],
         "baseline_ms": rep["baseline_device_ms"] if dev else rep["baseline_ms"],
+        "batch_sizes": stats["batchserve"][f"window_{BATCH_WINDOW_MS:g}ms"][64]["batch_sizes"],
     }, k1_summary(stats), k1i_summary(stats), k2s_summary(stats)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

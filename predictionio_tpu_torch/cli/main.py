@@ -6,15 +6,24 @@
         [--warm-start] [--tol T] [--device cuda|cpu]
     python -m predictionio_tpu_torch.cli.main deploy \\
         [--engine-instance-id ID | --variant engine.json] \\
-        [--ip 0.0.0.0] [--port 8000] [--device cuda|cpu]
+        [--ip 0.0.0.0] [--port 8000] [--device cuda|cpu] \\
+        [--feedback --event-server-ip IP --event-server-port P \\
+         --accesskey KEY] [--server-config server.conf] \\
+        [--log-url URL] [--log-prefix P] [--batch-window-ms MS] \\
+        [--reuse-port] [--query-cache-mb MB] [--variants A.json,B.json] \\
+        [--no-warmup]
 
 Port of ``predictionio_tpu/cli/main.py`` ``cmd_train`` (:843-894) and
-``cmd_deploy`` (:1053-1092). ``train`` records an engine instance under
+``cmd_deploy`` (:1053-1207). ``train`` records an engine instance under
 the variant's (id, version, file-name label), as the JAX CLI does, so
 ``deploy`` of either package finds it; ``--warm-start`` starts from the
 latest COMPLETED instance of that identity, whichever package trained
 it. The JAX CLI's checkpoint, mesh, multi-host, profiler and prep-cache
-flags belong to later slices and are not accepted. The engine factory
+flags belong to later slices and are not accepted. ``deploy --workers
+N`` (N > 1) and ``--realtime`` are accepted and raise, naming the later
+slice: each worker process would need a CUDA context and a model copy
+of its own (forking after CUDA started is unsafe), and the speed layer
+is not ported yet. The engine factory
 comes from the variant's ``engineFactory`` (for ``deploy``, else from
 the instance's recorded ``engine_factory``), else the port's
 recommendation template; a JAX-package factory name maps to the port
@@ -30,6 +39,7 @@ import logging
 import os
 import sys
 
+from predictionio_tpu_torch.common import load_server_config
 from predictionio_tpu_torch.core.context import WorkflowContext
 from predictionio_tpu_torch.core.engine import (
     DEFAULT_ENGINE_FACTORY,
@@ -90,10 +100,70 @@ def cmd_train(args) -> int:
     return 0
 
 
+def _load_server_config(args):
+    """server.conf for key auth / SSL: --server-config flag, else the
+    PIO_SERVER_CONF env var, else conf/server.conf when present."""
+    path = (
+        getattr(args, "server_config", None)
+        or os.environ.get("PIO_SERVER_CONF")
+        or "conf/server.conf"
+    )
+    return load_server_config(path=path)
+
+
+def _check_later_slices(args) -> None:
+    """``--workers N`` and ``--realtime`` belong to later slices of the
+    port: raise, naming them, instead of ignoring the flag."""
+    if getattr(args, "workers", 1) > 1:
+        raise NotImplementedError(
+            "--workers N (server processes sharing the port) is a later "
+            "slice of the PyTorch port: each process on one card needs a "
+            "CUDA context and a model copy of its own, and forking after "
+            "CUDA has started is unsafe (ROADMAP.md queue 1)"
+        )
+    if getattr(args, "realtime", 0.0) > 0:
+        raise NotImplementedError(
+            "--realtime (the speed layer) is a later slice of the PyTorch "
+            "port (ROADMAP.md queue 1, item 8)"
+        )
+
+
+def _resolve_extra_variants(args, instances) -> list:
+    """``--variants a.json,b.json`` -> [(mount_name, engine, instance)].
+
+    Each file resolves exactly like a solo ``deploy --variant`` of that
+    path: its own engineFactory (falling back to the primary's), its own
+    (id, version, basename-label) instance lookup. The mount name is the
+    file's basename minus ``.json`` -- the path prefix queries route on
+    (``/<name>/queries.json``). Raises LookupError for a variant with no
+    completed instance."""
+    spec = getattr(args, "variants", None) or ""
+    paths = [p.strip() for p in spec.split(",") if p.strip()]
+    extra = []
+    for path in paths:
+        variant = load_variant(path)
+        factory = variant.get("engineFactory") or DEFAULT_ENGINE_FACTORY
+        engine = resolve_engine_factory(factory)
+        engine_id = variant.get("id") or os.path.dirname(os.path.realpath(path))
+        label = os.path.basename(path)
+        inst = instances.get_latest_completed(
+            engine_id, variant.get("version", "0"), label
+        )
+        if inst is None:
+            raise LookupError(
+                f"no completed engine instance for variant {path} "
+                f"(train it first: train --variant {path})"
+            )
+        name = label[:-5] if label.endswith(".json") else label
+        extra.append((name, engine, inst))
+    return extra
+
+
 def deploy_server(args) -> EngineServer:
     """Resolve the engine and instance from ``args`` and build the
     server (models loaded to the device, not yet warmed or bound).
     Raises LookupError when no instance matches."""
+    _check_later_slices(args)
     variant = load_variant(args.variant) if args.variant else {}
     storage = get_storage()
     instances = storage.get_metadata_engine_instances()
@@ -122,6 +192,19 @@ def deploy_server(args) -> EngineServer:
     engine = resolve_engine_factory(factory)
     return EngineServer(
         engine, instance, storage=storage, host=args.ip, port=args.port,
+        feedback=args.feedback,
+        event_server_url=(
+            f"http://{args.event_server_ip}:{args.event_server_port}"
+            if args.feedback else None
+        ),
+        access_key=args.accesskey,
+        server_config=_load_server_config(args),
+        log_url=args.log_url,
+        log_prefix=args.log_prefix,
+        batch_window_ms=args.batch_window_ms,
+        reuse_port=args.reuse_port,
+        query_cache_mb=args.query_cache_mb,
+        extra_variants=_resolve_extra_variants(args, instances),
         device=args.device,
     )
 
@@ -132,8 +215,12 @@ def cmd_deploy(args) -> int:
     except LookupError as e:
         print(e, file=sys.stderr)
         return 1
+    # warmup BEFORE the port binds: the kernels build and the factor
+    # tables upload here; a failure raises and the server never binds
     if not args.no_warmup:
         server.warmup()
+    # foreground, like the reference: backgrounding is the caller's job.
+    # SIGTERM drains (HTTPApp): in-flight queries finish, then it stops
     try:
         server.start(background=False)
     except KeyboardInterrupt:
@@ -190,6 +277,49 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument(
         "--no-warmup", action="store_true",
         help="skip the warmup query scored before the port binds",
+    )
+    d.add_argument("--feedback", action="store_true",
+                   help="POST a predict event per query back to the event "
+                   "server")
+    d.add_argument("--event-server-ip", default="0.0.0.0")
+    d.add_argument("--event-server-port", type=int, default=7070)
+    d.add_argument("--accesskey", help="event server access key (feedback)")
+    d.add_argument("--server-config", help="server.conf path (key auth / SSL)")
+    d.add_argument("--log-url",
+                   help="POST serving errors to this URL (reference --log-url)")
+    d.add_argument("--log-prefix",
+                   help="prefix prepended to remote log payloads")
+    d.add_argument(
+        "--batch-window-ms", type=float, default=0.0,
+        help="micro-batch concurrent queries into one batched kernel call "
+        "(0 = per-request serving); the window is waited only when a "
+        "measured device round trip costs more than it",
+    )
+    d.add_argument(
+        "--workers", type=int, default=1,
+        help="server processes sharing the port: a later slice of the "
+        "port (N > 1 raises)",
+    )
+    d.add_argument(
+        "--reuse-port", action="store_true",
+        help="bind with SO_REUSEPORT (for an external supervisor running "
+        "several processes)",
+    )
+    d.add_argument(
+        "--query-cache-mb", type=float, default=0.0, metavar="MB",
+        help="cache preserialized query responses in this many MB, "
+        "invalidated exactly on every /reload via the epoch fence "
+        "(0 = disabled); engines opt out per query via cacheable_query",
+    )
+    d.add_argument(
+        "--realtime", type=float, default=0.0, metavar="SECONDS",
+        help="the speed layer: a later slice of the port (> 0 raises)",
+    )
+    d.add_argument(
+        "--variants", metavar="A.JSON,B.JSON",
+        help="mount additional trained engine variants in this process, "
+        "routed by path prefix (/<name>/queries.json, name = file "
+        "basename minus .json) or the X-PIO-Variant header",
     )
     d.set_defaults(fn=cmd_deploy)
     return p

@@ -90,6 +90,17 @@ class Algorithm(Component, Generic[PD, M, Q, P], abc.ABC):
         one batched device call."""
         return [(ix, self.predict(model, q)) for ix, q in queries]
 
+    def cacheable_query(self, query: Q) -> bool:
+        """May the engine server cache this query's response until the
+        next model swap? Default True: a pure function of (model, query)
+        is exactly invalidated by the server's epoch fence -- every
+        ``/reload`` bumps the epoch and retires all cached entries.
+        Return False when the prediction reads MUTABLE state outside the
+        model (live event-store filters, wall-clock time, per-request
+        randomness): the epoch fence cannot see those writes, so a cached
+        result could go stale (server/query_cache.py)."""
+        return True
+
     def warmup_query(self, model: M) -> Q | None:
         """A throwaway query scored once at deploy before the port binds
         (the first real query then finds the kernels built and the
@@ -116,6 +127,13 @@ class Serving(Component, Generic[Q, P], abc.ABC):
 
     @abc.abstractmethod
     def serve(self, query: Q, predictions: Sequence[P]) -> P: ...
+
+    def cacheable_query(self, query: Q) -> bool:
+        """Serving-level veto on query-result caching (the Algorithm
+        hook of the same name, for combine-time state: A/B bucketing by
+        time, randomized tie-breaks). Default True -- ``serve`` is
+        normally a pure join of its inputs."""
+        return True
 
 
 class FirstServing(Serving[Q, P]):

@@ -6,7 +6,8 @@ into a shared library with a plain C interface and loaded with
 runs at first use, from the sources in the package, into ``_build/``
 beside them (listed in ``.gitignore``). The library's name carries a
 hash of its source, so an edited kernel is rebuilt and a stale one is
-never loaded. A failed build raises; there is no fallback.
+never loaded. A failed build raises; there is no fallback. Each build is
+counted in ``obs/device.py`` (``pio_jit_compiles_total{fn}``).
 
 Nothing here runs at import: the CPU tests import every module, and a
 machine without a GPU has no ``nvcc``.
@@ -22,6 +23,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+from predictionio_tpu_torch.obs import device as obs_device
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -118,6 +121,8 @@ def load(name: str) -> ctypes.CDLL:
         with _lock:
             build_info[name] = info
             _libs[name] = lib
+        # pio_jit_compiles_total{fn=name}: flat once every source is loaded
+        obs_device.count_build(name, info["seconds"], not info["cached"])
         return lib
 
 

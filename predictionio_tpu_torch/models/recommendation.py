@@ -53,6 +53,7 @@ from predictionio_tpu_torch.models.modelfile import (
     host_array,
     numpy_to_tensor,
 )
+from predictionio_tpu_torch.obs import device as obs_device
 from predictionio_tpu_torch.ops import als as als_ops
 from predictionio_tpu_torch.ops.topk import gather_top_k_batch
 from predictionio_tpu_torch.utils.device import resolve_device
@@ -206,6 +207,11 @@ class ALSModel:
                 self._device = (device, (
                     put(self.user_factors, self.user_scales),
                     put(self.item_factors, self.item_scales),
+                ))
+                obs_device.count_transfer("h2d", "serve.model_put", sum(
+                    a.nbytes for a in (self.user_factors, self.user_scales,
+                                       self.item_factors, self.item_scales)
+                    if a is not None
                 ))
             return self._device[1]
 

@@ -66,6 +66,7 @@ from predictionio_tpu_torch.models.filters import (
 )
 from predictionio_tpu_torch.models.modelfile import host_array
 from predictionio_tpu_torch.models.recommendation import _pow2, _two_stage
+from predictionio_tpu_torch.obs import device as obs_device
 from predictionio_tpu_torch.ops import als as als_ops
 from predictionio_tpu_torch.ops.topk import sum_rows_top_k_batch
 from predictionio_tpu_torch.utils.device import resolve_device
@@ -178,6 +179,10 @@ class SimilarProductModel:
                     self.item_factors, self.item_scales, device
                 )
                 self._device = (device, table, norms)
+                obs_device.count_transfer("h2d", "serve.model_put", sum(
+                    a.nbytes for a in (self.item_factors, self.item_scales)
+                    if a is not None
+                ))
             return self._device
 
     def device_factors(self, device: torch.device):

@@ -1,0 +1,372 @@
+"""Bounded in-process metrics history: the "what happened before it
+broke" layer.
+
+Every obs endpoint built in PRs 7/9/11 answers "what is true now"; this
+module keeps the last N minutes. A :class:`HistorySampler` walks the
+process metrics :class:`~predictionio_tpu_torch.obs.metrics.Registry` on a
+fixed step (default 5 s, riding the SLO ticker's cadence) and appends
+one point per series into a bounded ring:
+
+- **counters** are stored as per-step *deltas* (a point is "how much did
+  this counter move since the last sample"), so rates fall out of the
+  ring without a baseline subtraction;
+- **gauges** are stored as *samples* of the current value;
+- **histograms** are stored as p50/p99 quantile *samples* plus a
+  ``:count`` delta series (per-step observation rate).
+
+Memory is bounded on both axes: ``PIO_HISTORY_SLOTS`` points per series
+(deque ring, default 360 — 30 minutes at the 5 s step) and
+``PIO_HISTORY_MAX_SERIES`` distinct series (default 1024; overflow is
+counted, not stored). The sampler is tick-driven and never touches a
+request hot path — the ``bench.py obs`` history A/B gate holds the
+serving-sequence overhead under 1%.
+
+Knobs: ``PIO_HISTORY_STEP_S`` (5.0), ``PIO_HISTORY_SLOTS`` (360),
+``PIO_HISTORY_MAX_SERIES`` (1024), ``PIO_HISTORY=0`` disables just the
+history layer, ``PIO_HISTORY_TICK=0`` suppresses the fallback ticker
+thread (evaluation then only happens via :func:`maybe_sample` callers —
+the SLO ticker, tests, bench loops). Under ``PIO_OBS=0`` the module is
+fully inert: no sampler object, no rings, no thread (regression-tested).
+
+Exposure: ``GET /history.json?metric=&since_ms=&step=`` on every server
+(see ``server/http.py:add_obs_routes``), sparklines on the dashboard,
+``pio top`` across live daemons, and the incident bundles written by
+:mod:`predictionio_tpu_torch.obs.incident`. Other bounded time-keyed stores
+(the event server's per-minute ingest buckets in ``server/stats.py``)
+join the same read shape via :func:`register_provider`.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from collections import deque
+
+from predictionio_tpu_torch.obs import metrics as _metrics
+
+__all__ = [
+    "HistorySampler",
+    "sampler",
+    "ensure_ticker",
+    "maybe_sample",
+    "sample_now",
+    "snapshot",
+    "register_provider",
+    "unregister_provider",
+    "reset_for_tests",
+]
+
+
+def _env_float(name: str, default: float) -> float:
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return default
+    try:
+        return float(raw)
+    except ValueError:
+        return default
+
+
+def _env_int(name: str, default: int) -> int:
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return default
+    try:
+        return int(raw)
+    except ValueError:
+        return default
+
+
+# series kinds in the read shape: "delta" points are per-step increments
+# of a cumulative counter; "sample" points are point-in-time values
+DELTA = "delta"
+SAMPLE = "sample"
+
+
+class _Series:
+    __slots__ = ("kind", "points")
+
+    def __init__(self, kind: str, slots: int):
+        self.kind = kind
+        self.points: deque[tuple[float, float]] = deque(maxlen=slots)
+
+
+class HistorySampler:
+    """Ring-buffer time series over a metrics registry.
+
+    Test registries pass their own ``registry`` and ``clock`` and drive
+    :meth:`sample` directly; the process-global sampler (module
+    functions below) is created lazily and only while obs is enabled.
+    """
+
+    def __init__(
+        self,
+        registry: _metrics.Registry | None = None,
+        step_s: float | None = None,
+        slots: int | None = None,
+        max_series: int | None = None,
+        clock=time.time,
+    ):
+        self._registry = registry if registry is not None else _metrics.REGISTRY
+        self.step_s = (
+            _env_float("PIO_HISTORY_STEP_S", 5.0) if step_s is None
+            else float(step_s)
+        )
+        self.slots = (
+            _env_int("PIO_HISTORY_SLOTS", 360) if slots is None else int(slots)
+        )
+        self.max_series = (
+            _env_int("PIO_HISTORY_MAX_SERIES", 1024) if max_series is None
+            else int(max_series)
+        )
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._series: dict[str, _Series] = {}
+        self._cum: dict[str, float] = {}  # last cumulative counter readings
+        self._last_sample = 0.0
+        self.samples_taken = 0
+        self.dropped_series = 0
+        self._ticker: threading.Thread | None = None
+        self._stop = threading.Event()
+
+    # -- writes --------------------------------------------------------------
+    def _append(self, key: str, kind: str, t: float, v: float) -> None:
+        s = self._series.get(key)
+        if s is None:
+            if len(self._series) >= self.max_series:
+                self.dropped_series += 1
+                return
+            s = self._series[key] = _Series(kind, self.slots)
+        s.points.append((t, v))
+
+    def _delta(self, key: str, t: float, cur: float) -> None:
+        """Record a cumulative reading as a per-step delta. The first
+        sight of a key only sets the baseline (no point) so a long-lived
+        counter doesn't open the series with one giant spike."""
+        last = self._cum.get(key)
+        self._cum[key] = cur
+        if last is None:
+            return
+        self._append(key, DELTA, t, max(0.0, cur - last))
+
+    def sample(self, now: float | None = None) -> None:
+        """Take one unconditional sample of every registered metric."""
+        if not _metrics.enabled():
+            return
+        now = self._clock() if now is None else now
+        reg = self._registry
+        with reg._lock:
+            metrics = list(reg._metrics.values())
+        with self._lock:
+            for m in metrics:
+                key = m.name + _metrics._label_str(m.labels)
+                try:
+                    if m.kind == "counter":
+                        self._delta(key, now, float(m.value()))
+                    elif m.kind == "gauge":
+                        self._append(key, SAMPLE, now, float(m.value()))
+                    elif m.kind == "histogram":
+                        counts, _, n = m.merged()
+                        for q, tag in ((0.50, ":p50"), (0.99, ":p99")):
+                            self._append(
+                                key + tag, SAMPLE, now,
+                                _metrics._percentile_from_counts(
+                                    counts, n, q, m.bounds
+                                ),
+                            )
+                        self._delta(key + ":count", now, float(n))
+                except Exception:
+                    continue  # a dead gauge callback must not kill the tick
+            self._last_sample = now
+            self.samples_taken += 1
+
+    def maybe_sample(self, now: float | None = None) -> bool:
+        """Sample when a full step has elapsed; safe to call from
+        several tickers (the SLO loop and the fallback thread both ride
+        this — whoever arrives first past the step boundary samples)."""
+        now = self._clock() if now is None else now
+        if now - self._last_sample < self.step_s * 0.9:
+            return False
+        self.sample(now)
+        return True
+
+    # -- reads ---------------------------------------------------------------
+    def snapshot(
+        self,
+        metric: str | None = None,
+        since_ms: float | None = None,
+        step_s: float | None = None,
+    ) -> dict:
+        """The ``/history.json`` document. ``metric`` is a substring
+        filter on the series key; ``since_ms`` drops older points;
+        ``step_s`` coarsens onto a wider grid (deltas sum, samples keep
+        the last value per cell)."""
+        with self._lock:
+            series = {
+                k: (s.kind, list(s.points)) for k, s in self._series.items()
+            }
+            dropped = self.dropped_series
+            taken = self.samples_taken
+        for name, fn in list(_PROVIDERS.items()):
+            try:
+                for k, doc in fn().items():
+                    series.setdefault(
+                        k,
+                        (
+                            doc.get("kind", SAMPLE),
+                            [(p[0] / 1e3, p[1]) for p in doc.get("points", ())],
+                        ),
+                    )
+            except Exception:
+                continue
+        out: dict[str, dict] = {}
+        for key in sorted(series):
+            kind, points = series[key]
+            if metric and metric not in key:
+                continue
+            if since_ms is not None:
+                points = [p for p in points if p[0] * 1e3 > since_ms]
+            if step_s is not None and step_s > self.step_s:
+                cells: dict[int, float] = {}
+                for t, v in points:
+                    cell = int(t // step_s)
+                    if kind == DELTA:
+                        cells[cell] = cells.get(cell, 0.0) + v
+                    else:
+                        cells[cell] = v
+                points = [
+                    ((c + 1) * step_s, v) for c, v in sorted(cells.items())
+                ]
+            if not points:
+                continue
+            out[key] = {
+                "kind": kind,
+                "points": [[int(t * 1e3), round(v, 6)] for t, v in points],
+            }
+        return {
+            "enabled": True,
+            "step_s": step_s if step_s and step_s > self.step_s else self.step_s,
+            "slots": self.slots,
+            "now_ms": int(self._clock() * 1e3),
+            "samples": taken,
+            "dropped_series": dropped,
+            "series": out,
+        }
+
+    # -- ticker --------------------------------------------------------------
+    def ensure_ticker(self) -> None:
+        """Start the fallback sampling thread once. Skipped when the SLO
+        ticker is already running (its tick loop calls
+        :func:`maybe_sample` — "riding the SLO ticker"), when obs is
+        disabled, or under ``PIO_HISTORY_TICK=0``."""
+        if self._ticker is not None or not _metrics.enabled():
+            return
+        if os.environ.get("PIO_HISTORY_TICK", "1") == "0":
+            return
+        from predictionio_tpu_torch.obs import slo as _slo
+
+        if _slo.REGISTRY._ticker is not None:
+            return
+        with self._lock:
+            if self._ticker is not None:
+                return
+            t = threading.Thread(
+                target=self._tick_loop, name="history-sampler", daemon=True
+            )
+            self._ticker = t
+        t.start()
+
+    def _tick_loop(self) -> None:  # pragma: no cover - timing loop
+        while not self._stop.wait(self.step_s):
+            try:
+                if _metrics.enabled():
+                    self.maybe_sample()
+            except Exception:
+                pass
+
+    def stop(self) -> None:
+        self._stop.set()
+
+
+# -- process-global sampler ---------------------------------------------------
+
+_SAMPLER: HistorySampler | None = None
+_SAMPLER_LOCK = threading.Lock()
+
+# extra read-shaped series merged into snapshots (e.g. the event
+# server's per-minute ingest buckets): name -> fn() -> {key: {kind,
+# points: [[t_ms, v], ...]}}
+_PROVIDERS: dict[str, object] = {}
+
+
+def _history_on() -> bool:
+    return _metrics.enabled() and os.environ.get("PIO_HISTORY", "1") != "0"
+
+
+def sampler() -> HistorySampler | None:
+    """The lazily-created process sampler, or None while obs (or the
+    history layer) is disabled — the inertness contract: no object, no
+    rings, no thread until something observable asks for history."""
+    global _SAMPLER
+    if not _history_on():
+        return None
+    s = _SAMPLER
+    if s is None:
+        with _SAMPLER_LOCK:
+            s = _SAMPLER
+            if s is None:
+                s = _SAMPLER = HistorySampler()
+    return s
+
+
+def ensure_ticker() -> None:
+    s = sampler()
+    if s is not None:
+        s.ensure_ticker()
+
+
+def maybe_sample(now: float | None = None) -> bool:
+    s = sampler()
+    return s.maybe_sample(now) if s is not None else False
+
+
+def sample_now() -> None:
+    """One immediate sample (tests, bench loops, incident capture)."""
+    s = sampler()
+    if s is not None:
+        s.sample()
+
+
+def snapshot(
+    metric: str | None = None,
+    since_ms: float | None = None,
+    step_s: float | None = None,
+) -> dict:
+    s = sampler()
+    if s is None:
+        return {"enabled": False, "series": {}}
+    return s.snapshot(metric=metric, since_ms=since_ms, step_s=step_s)
+
+
+def register_provider(name: str, fn) -> None:
+    """Merge ``fn()``'s read-shaped series dict into every snapshot.
+    Provider keys never shadow sampled series; a raising provider is
+    skipped. Registration is allowed while disabled (it is just a dict
+    entry — nothing is allocated or called until a snapshot is taken)."""
+    _PROVIDERS[name] = fn
+
+
+def unregister_provider(name: str) -> None:
+    _PROVIDERS.pop(name, None)
+
+
+def reset_for_tests() -> None:
+    """Drop the global sampler (stopping its ticker) and providers."""
+    global _SAMPLER
+    with _SAMPLER_LOCK:
+        s = _SAMPLER
+        _SAMPLER = None
+    if s is not None:
+        s.stop()
+    _PROVIDERS.clear()

@@ -1,0 +1,413 @@
+"""Process-global metrics registry: counters, gauges, latency histograms.
+
+Design constraints (module used on every hot path in the framework):
+
+- **dependency-free** — stdlib only, importable before torch/numpy.
+- **lock-cheap updates** — histogram updates go to one of N stripes
+  picked by thread id, so concurrent handler threads almost never
+  contend on a lock; counters take one uncontended lock. No update is
+  ever lost (the test suite hammers 8 threads against one histogram).
+- **fixed log-bucketed histograms** — ~2x buckets from 10 µs to 10 s
+  (22 cells including overflow). Latencies spanning 6 decades fit one
+  fixed layout, every histogram is mergeable with every other, and a
+  bucket index is one C-speed ``bisect``. p50/p90/p99 are read by
+  interpolating exactly within the containing bucket.
+- **always-on, disableable** — ``PIO_OBS=0`` (or ``set_enabled(False)``)
+  turns every update into a flag check + return; the bench ``obs``
+  section measures instrumented vs disabled serving qps and gates the
+  delta at <2%.
+
+Exposure: :func:`render_prometheus` is the ``GET /metrics`` body
+(Prometheus text format 0.0.4); :func:`stats_block` is the compact
+``obs`` object merged into the servers' existing ``/stats.json``.
+"""
+
+from __future__ import annotations
+
+import itertools
+import os
+import threading
+from bisect import bisect_left
+
+__all__ = [
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "Registry",
+    "REGISTRY",
+    "counter",
+    "gauge",
+    "histogram",
+    "enabled",
+    "set_enabled",
+    "render_prometheus",
+    "stats_block",
+    "BUCKET_BOUNDS",
+]
+
+# ~2x log buckets, 10 us .. ~10.5 s; values past the last bound land in
+# the overflow cell. One fixed layout for every latency histogram.
+BUCKET_BOUNDS: tuple[float, ...] = tuple(1e-5 * 2**k for k in range(21))
+_N_CELLS = len(BUCKET_BOUNDS) + 1  # + overflow
+_STRIPES = 8
+
+_enabled = os.environ.get("PIO_OBS", "1") != "0"
+
+# round-robin stripe assignment per thread: pthread idents are aligned
+# addresses whose low bits collide mod small powers of two, so modding
+# the ident would pile every handler thread onto one stripe
+_tls = threading.local()
+_next_stripe = itertools.count()
+
+
+def _stripe_index() -> int:
+    i = getattr(_tls, "stripe", None)
+    if i is None:
+        i = _tls.stripe = next(_next_stripe) % _STRIPES
+    return i
+
+
+def enabled() -> bool:
+    return _enabled
+
+
+def set_enabled(flag: bool) -> None:
+    """Flip instrumentation on/off process-wide (bench A/B + tests).
+    Mirrors the ``PIO_OBS`` env var read at import."""
+    global _enabled
+    _enabled = bool(flag)
+
+
+def _label_str(labels: tuple[tuple[str, str], ...]) -> str:
+    if not labels:
+        return ""
+    inner = ",".join(f'{k}="{v}"' for k, v in labels)
+    return "{" + inner + "}"
+
+
+def _fmt(v: float) -> str:
+    """Prometheus sample value: integers render bare, floats compactly."""
+    if isinstance(v, float) and v.is_integer():
+        return str(int(v))
+    return repr(v) if isinstance(v, float) else str(v)
+
+
+class Counter:
+    """Monotone counter. ``inc`` takes one (rarely contended) lock."""
+
+    kind = "counter"
+    __slots__ = ("name", "help", "labels", "_lock", "_value")
+
+    def __init__(self, name: str, help_: str, labels: tuple = ()):
+        self.name = name
+        self.help = help_
+        self.labels = labels
+        self._lock = threading.Lock()
+        self._value = 0
+
+    def inc(self, n: int = 1) -> None:
+        if not _enabled:
+            return
+        with self._lock:
+            self._value += n
+
+    def value(self) -> int:
+        return self._value
+
+    def samples(self) -> list[tuple[str, float]]:
+        return [(self.name + _label_str(self.labels), float(self._value))]
+
+    def summary(self):
+        return self._value
+
+
+class Gauge:
+    """Last-write-wins value, or a callback evaluated at scrape time
+    (``set_function`` — cache sizes, staleness, queue depths)."""
+
+    kind = "gauge"
+    __slots__ = ("name", "help", "labels", "_value", "_fn")
+
+    def __init__(self, name: str, help_: str, labels: tuple = ()):
+        self.name = name
+        self.help = help_
+        self.labels = labels
+        self._value = 0.0
+        self._fn = None
+
+    def set(self, v: float) -> None:
+        if not _enabled:
+            return
+        self._value = float(v)
+
+    def set_function(self, fn) -> None:
+        """Read ``fn()`` at scrape time instead of a stored value."""
+        self._fn = fn
+
+    def value(self) -> float:
+        if self._fn is not None:
+            try:
+                return float(self._fn() or 0.0)
+            except Exception:
+                return 0.0
+        return self._value
+
+    def samples(self) -> list[tuple[str, float]]:
+        return [(self.name + _label_str(self.labels), self.value())]
+
+    def summary(self):
+        return self.value()
+
+
+class _Stripe:
+    __slots__ = ("lock", "counts", "sum", "count")
+
+    def __init__(self, n_cells: int = _N_CELLS) -> None:
+        self.lock = threading.Lock()
+        self.counts = [0] * n_cells
+        self.sum = 0.0
+        self.count = 0
+
+
+class Histogram:
+    """Fixed log-bucketed latency histogram with striped updates.
+
+    ``observe(seconds)`` costs one bisect + one striped-lock increment;
+    reads merge the stripes. Percentiles interpolate linearly inside the
+    containing bucket, which bounds the estimate to that bucket's [lo,
+    hi) — exact to within one ~2x bucket, and much tighter in practice.
+    """
+
+    kind = "histogram"
+    __slots__ = ("name", "help", "labels", "bounds", "_stripes")
+
+    def __init__(self, name: str, help_: str, labels: tuple = (),
+                 bounds: tuple[float, ...] = BUCKET_BOUNDS):
+        self.name = name
+        self.help = help_
+        self.labels = labels
+        # latency histograms all share the fixed BUCKET_BOUNDS layout;
+        # count-shaped ones (batch sizes) pass their own bounds
+        self.bounds = tuple(bounds)
+        n_cells = len(self.bounds) + 1
+        self._stripes = [_Stripe(n_cells) for _ in range(_STRIPES)]
+
+    def observe(self, value: float, _bisect=bisect_left) -> None:
+        # several calls sit on EVERY request's exit path, so this is
+        # tuned: stripe pick inlined, bisect pre-bound, bare
+        # acquire/release (nothing between them can raise — the bisect
+        # index is always within the counts list)
+        if not _enabled:
+            return
+        v = value if value > 0.0 else 0.0
+        try:
+            idx = _tls.stripe
+        except AttributeError:
+            idx = _tls.stripe = next(_next_stripe) % _STRIPES
+        s = self._stripes[idx]
+        i = _bisect(self.bounds, v)
+        lock = s.lock
+        lock.acquire()
+        s.counts[i] += 1
+        s.sum += v
+        s.count += 1
+        lock.release()
+
+    # -- reads --------------------------------------------------------------
+    def merged(self) -> tuple[list[int], float, int]:
+        counts = [0] * (len(self.bounds) + 1)
+        total = 0.0
+        n = 0
+        for s in self._stripes:
+            with s.lock:
+                for i, c in enumerate(s.counts):
+                    counts[i] += c
+                total += s.sum
+                n += s.count
+        return counts, total, n
+
+    def percentile(self, q: float) -> float:
+        """Interpolated quantile (q in [0, 1]) from the merged buckets."""
+        counts, _, n = self.merged()
+        return _percentile_from_counts(counts, n, q, self.bounds)
+
+    def summary(self) -> dict:
+        counts, total, n = self.merged()
+        b = self.bounds
+        return {
+            "count": n,
+            "sum": round(total, 6),
+            "p50": round(_percentile_from_counts(counts, n, 0.50, b), 6),
+            "p90": round(_percentile_from_counts(counts, n, 0.90, b), 6),
+            "p99": round(_percentile_from_counts(counts, n, 0.99, b), 6),
+        }
+
+    def samples(self) -> list[tuple[str, float]]:
+        counts, total, n = self.merged()
+        base = dict(self.labels)
+        out: list[tuple[str, float]] = []
+        cum = 0
+        for i, b in enumerate(self.bounds):
+            cum += counts[i]
+            lab = tuple({**base, "le": f"{b:.6g}"}.items())
+            out.append((f"{self.name}_bucket" + _label_str(lab), float(cum)))
+        cum += counts[-1]
+        lab = tuple({**base, "le": "+Inf"}.items())
+        out.append((f"{self.name}_bucket" + _label_str(lab), float(cum)))
+        ls = _label_str(self.labels)
+        out.append((f"{self.name}_sum" + ls, total))
+        out.append((f"{self.name}_count" + ls, float(n)))
+        return out
+
+
+def _percentile_from_counts(
+    counts: list[int],
+    n: int,
+    q: float,
+    bounds: tuple[float, ...] = BUCKET_BOUNDS,
+) -> float:
+    if n == 0:
+        return 0.0
+    target = q * n
+    cum = 0.0
+    for i, c in enumerate(counts):
+        if c == 0:
+            continue
+        if cum + c >= target:
+            lo = bounds[i - 1] if 0 < i <= len(bounds) else 0.0
+            hi = bounds[i] if i < len(bounds) else bounds[-1] * 2
+            frac = (target - cum) / c
+            return lo + frac * (hi - lo)
+        cum += c
+    return bounds[-1] * 2
+
+
+class Registry:
+    """Keyed store of metric instances: ``(name, labels)`` -> metric.
+
+    ``counter``/``gauge``/``histogram`` are get-or-create — callers on
+    hot paths hold the returned instance instead of re-resolving it.
+    """
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._metrics: dict[tuple, object] = {}
+
+    def _get(self, cls, name: str, help_: str, labels: dict | None,
+             **kwargs):
+        lab = tuple(sorted((labels or {}).items()))
+        key = (name, lab)
+        m = self._metrics.get(key)
+        if m is None:
+            with self._lock:
+                m = self._metrics.get(key)
+                if m is None:
+                    m = cls(name, help_, lab, **kwargs)
+                    self._metrics[key] = m
+        if not isinstance(m, cls):
+            raise TypeError(
+                f"metric {name} already registered as {type(m).__name__}"
+            )
+        return m
+
+    def counter(self, name: str, help_: str = "", **labels) -> Counter:
+        return self._get(Counter, name, help_, labels)
+
+    def gauge(self, name: str, help_: str = "", **labels) -> Gauge:
+        return self._get(Gauge, name, help_, labels)
+
+    def histogram(
+        self,
+        name: str,
+        help_: str = "",
+        bounds: tuple[float, ...] = BUCKET_BOUNDS,
+        **labels,
+    ) -> Histogram:
+        return self._get(Histogram, name, help_, labels, bounds=bounds)
+
+    def clear(self) -> None:
+        """Drop every registered metric (tests/bench isolation)."""
+        with self._lock:
+            self._metrics.clear()
+
+    # -- exposition ---------------------------------------------------------
+    def render_prometheus(self) -> bytes:
+        """Prometheus text format 0.0.4 over every registered metric,
+        name-sorted, HELP/TYPE emitted once per metric family."""
+        by_name: dict[str, list] = {}
+        with self._lock:
+            metrics = list(self._metrics.values())
+        for m in metrics:
+            by_name.setdefault(m.name, []).append(m)
+        lines: list[str] = []
+        for name in sorted(by_name):
+            family = sorted(by_name[name], key=lambda m: m.labels)
+            first = family[0]
+            if first.help:
+                lines.append(f"# HELP {name} {first.help}")
+            lines.append(f"# TYPE {name} {first.kind}")
+            for m in family:
+                for series, value in m.samples():
+                    lines.append(f"{series} {_fmt(value)}")
+        return ("\n".join(lines) + "\n").encode("utf-8")
+
+    def stats_block(self, prefix: str = "pio_") -> dict:
+        """Compact summaries for ``/stats.json``: histograms as
+        {count, sum, p50, p90, p99}, counters/gauges as scalars. Keyed
+        by ``name{labels}``; only ``prefix``-named metrics (the bench's
+        scratch instruments stay out of server payloads)."""
+        with self._lock:
+            metrics = list(self._metrics.values())
+        out: dict = {}
+        for m in sorted(metrics, key=lambda m: (m.name, m.labels)):
+            if not m.name.startswith(prefix):
+                continue
+            out[m.name + _label_str(m.labels)] = m.summary()
+        return out
+
+
+REGISTRY = Registry()
+
+
+def counter(name: str, help_: str = "", **labels) -> Counter:
+    return REGISTRY.counter(name, help_, **labels)
+
+
+def gauge(name: str, help_: str = "", **labels) -> Gauge:
+    return REGISTRY.gauge(name, help_, **labels)
+
+
+def histogram(
+    name: str,
+    help_: str = "",
+    bounds: tuple[float, ...] = BUCKET_BOUNDS,
+    **labels,
+) -> Histogram:
+    return REGISTRY.histogram(name, help_, bounds=bounds, **labels)
+
+
+def render_prometheus() -> bytes:
+    return REGISTRY.render_prometheus()
+
+
+def parse_prometheus(text: str | bytes) -> dict[str, float]:
+    """Inverse of :func:`render_prometheus` for the CLI/tests: sample
+    series (``name{labels}``) -> value. Comments and malformed lines are
+    skipped."""
+    if isinstance(text, bytes):
+        text = text.decode("utf-8", errors="replace")
+    out: dict[str, float] = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        series, _, value = line.rpartition(" ")
+        try:
+            out[series] = float(value)
+        except ValueError:
+            continue
+    return out
+
+
+def stats_block() -> dict:
+    return REGISTRY.stats_block()

@@ -1,0 +1,270 @@
+"""Request tracing: per-request spans and a slowest-traces ring.
+
+Every HTTP request handled by :mod:`predictionio_tpu_torch.server.http` gets a
+:class:`Trace` — its id honors an incoming ``X-PIO-Trace`` header (so a
+client, a webhook source, or the feedback loop can stitch hops into one
+timeline) and is propagated on outbound framework POSTs. Stage
+boundaries record spans (name + offset + duration tuples, flat list —
+the waterfall IS the nesting for the pipelines traced here), and on
+completion the trace is offered to :data:`TRACES`, a fixed-capacity ring
+that retains the N SLOWEST recent traces: the p99 outliers an operator
+actually wants to dissect survive, uninteresting fast requests fall out
+first. Served as ``GET /traces.json`` on every server and rendered as a
+waterfall table on the dashboard.
+
+The current trace rides a thread-local so instrumented stages deep in a
+handler need no plumbing; work that hops threads (the micro-batch
+worker) carries the Trace object through its queue items instead —
+``add_span`` is safe from any thread.
+"""
+
+from __future__ import annotations
+
+import itertools
+import os
+import threading
+import time
+import uuid
+from heapq import heappush, heapreplace
+
+from predictionio_tpu_torch.obs import metrics as _metrics
+
+__all__ = [
+    "TRACE_HEADER",
+    "Trace",
+    "TraceRing",
+    "TRACES",
+    "current_trace",
+    "set_current_trace",
+    "new_trace_id",
+]
+
+# canonical wire spelling; server/http.py lowercases header keys
+TRACE_HEADER = "X-PIO-Trace"
+
+
+# ids are minted on EVERY request, so uuid4-per-call (an os.urandom
+# syscall) is too dear: a random per-process prefix + an atomic counter
+# gives the same 16-hex wire shape at ~1/10 the cost
+_ID_PREFIX = uuid.uuid4().hex[:8]
+_id_counter = itertools.count(1)
+
+
+def new_trace_id() -> str:
+    return f"{_ID_PREFIX}{next(_id_counter) & 0xFFFFFFFF:08x}"
+
+
+# maps a perf_counter reading to wall time without a time.time() call
+# per trace; the mapping drifts only with NTP slew, irrelevant at the
+# ring's 1 h retention scale
+_EPOCH_OFFSET = time.time() - time.perf_counter()
+
+
+class Trace:
+    """One request's timeline. ``t0`` is a perf_counter anchor; spans are
+    ``(name, offset_s, duration_s)`` tuples relative to it.
+
+    Construction is on every request's entry path, so everything
+    deferrable is deferred: the trace id is minted only when first read
+    (most requests carry no ``X-PIO-Trace`` and never get admitted to
+    the ring), and the wall-clock start is derived from ``t0``."""
+
+    __slots__ = ("_tid", "name", "t0", "spans", "status", "duration_s")
+
+    def __init__(self, name: str, trace_id: str | None = None,
+                 t0: float | None = None):
+        self._tid = trace_id
+        self.name = name
+        self.t0 = time.perf_counter() if t0 is None else t0
+        self.spans: list[tuple[str, float, float]] = []
+        self.status: int | None = None
+        self.duration_s: float = 0.0
+
+    @property
+    def trace_id(self) -> str:
+        tid = self._tid
+        if tid is None:
+            tid = self._tid = new_trace_id()
+        return tid
+
+    @property
+    def wall_start(self) -> float:
+        return _EPOCH_OFFSET + self.t0
+
+    def add_span(self, name: str, start: float, end: float) -> None:
+        """Record a stage from perf_counter timestamps (thread-safe:
+        list.append is atomic under the GIL)."""
+        self.spans.append((name, start - self.t0, end - start))
+
+    def span(self, name: str) -> "_SpanCtx":
+        return _SpanCtx(self, name)
+
+    def finish(self, status: int | None = None) -> None:
+        self.status = status
+        self.duration_s = time.perf_counter() - self.t0
+
+    def to_dict(self) -> dict:
+        return {
+            "traceId": self.trace_id,
+            "name": self.name,
+            "start": round(self.wall_start, 3),
+            "durationMs": round(self.duration_s * 1e3, 3),
+            "status": self.status,
+            "spans": [
+                {
+                    "name": name,
+                    "offsetMs": round(off * 1e3, 3),
+                    "durationMs": round(dur * 1e3, 3),
+                }
+                for name, off, dur in self.spans
+            ],
+        }
+
+
+class _SpanCtx:
+    __slots__ = ("_trace", "_name", "_start")
+
+    def __init__(self, trace: Trace, name: str):
+        self._trace = trace
+        self._name = name
+
+    def __enter__(self):
+        self._start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self._trace.add_span(self._name, self._start, time.perf_counter())
+        return False
+
+
+# -- thread-local current trace ---------------------------------------------
+
+_tls = threading.local()
+
+
+def current_trace() -> Trace | None:
+    return getattr(_tls, "trace", None)
+
+
+def set_current_trace(trace: Trace | None) -> None:
+    _tls.trace = trace
+
+
+# -- retention ---------------------------------------------------------------
+
+
+class TraceRing:
+    """Fixed-capacity retention of the slowest recent traces.
+
+    A min-heap keyed by duration: a finished trace is admitted while
+    there is room, and past capacity only if it is slower than the
+    current fastest retained trace (which it evicts). ``max_age_s``
+    bounds "recent": expired entries are pruned on a ~1 s schedule and
+    on snapshot so one ancient outlier cannot squat the ring forever.
+
+    ``offer`` is on every request's exit path, so its steady-state cost
+    is one lock + one float compare: serialization (``to_dict``) happens
+    only when the trace is actually admitted, and the age prune (a
+    rebuild+sort of the heap list) runs at most once a second.
+    """
+
+    def __init__(self, capacity: int = 64, max_age_s: float = 3600.0):
+        self.capacity = int(capacity)
+        self.max_age_s = float(max_age_s)
+        self._lock = threading.Lock()
+        self._seq = 0  # heap tiebreak: equal durations evict oldest-first
+        self._next_prune = 0.0
+        self._heap: list[tuple[float, int, dict]] = []
+
+    def offer(self, trace: Trace) -> None:
+        if not _metrics.enabled():
+            return
+        d = trace.duration_s
+        heap = self._heap
+        # unlocked peek (GIL-atomic list reads): once the ring is full,
+        # the common case is a trace faster than the retained floor — a
+        # stale read can only skip one borderline admission, which a
+        # diagnostics ring tolerates
+        if (
+            len(heap) >= self.capacity
+            and heap[0][0] >= d
+            and time.time() < self._next_prune
+        ):
+            return
+        with self._lock:
+            now = time.time()
+            if now >= self._next_prune:
+                self._prune_locked(now)
+                self._next_prune = now + 1.0
+            if len(self._heap) < self.capacity:
+                heappush(
+                    self._heap, (d, self._next_seq(), self._admit(trace, d))
+                )
+            elif self._heap and d > self._heap[0][0]:
+                heapreplace(
+                    self._heap, (d, self._next_seq(), self._admit(trace, d))
+                )
+
+    @staticmethod
+    def _admit(trace: Trace, duration_s: float) -> dict:
+        """Serialize an admitted trace, tagging it with the SLOs it is
+        evidence for (currently-violated objectives plus any latency
+        objective this single request blew) so ``/traces.json``'s
+        ``?slo=violated`` filter jumps straight to the bodies."""
+        entry = trace.to_dict()
+        try:
+            from predictionio_tpu_torch.obs import slo as _slo
+
+            tags = _slo.trace_tags(duration_s)
+        except Exception:
+            tags = []
+        if tags:
+            entry["sloViolated"] = tags
+        return entry
+
+    def _next_seq(self) -> int:
+        self._seq += 1
+        return self._seq
+
+    def _prune_locked(self, now: float | None = None) -> None:
+        if self.max_age_s <= 0 or not self._heap:
+            return
+        horizon = (time.time() if now is None else now) - self.max_age_s
+        if all(e[2]["start"] >= horizon for e in self._heap):
+            return  # nothing expired: keep the heap as-is
+        self._heap = [e for e in self._heap if e[2]["start"] >= horizon]
+        self._heap.sort()  # restore heap order (sorted list is a heap)
+
+    def snapshot(self) -> list[dict]:
+        """Retained traces, slowest first."""
+        with self._lock:
+            self._prune_locked()
+            entries = sorted(self._heap, reverse=True)
+        return [e[2] for e in entries]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._heap.clear()
+
+
+def _env_positive(name: str, default: float) -> float:
+    raw = os.environ.get(name, "").strip()
+    if raw:
+        try:
+            v = float(raw)
+            if v > 0:
+                return v
+        except ValueError:
+            pass
+    return default
+
+
+# process-global ring every server serves from (one process == one
+# server role in this framework; the multi-tenant supervisor will hang
+# per-tenant rings off this when it lands). Retention is env-tunable:
+# a debugging session can hold thousands of traces for a day, a tight
+# edge box can shrink to a handful of minutes.
+TRACES = TraceRing(
+    capacity=int(_env_positive("PIO_TRACE_RING_CAPACITY", 64)),
+    max_age_s=_env_positive("PIO_TRACE_RING_MAX_AGE_S", 3600.0),
+)

@@ -20,7 +20,9 @@ selects each row. Both compute every score the same way.
 ``launches`` on each wrapper counts calls, ``routes[name]`` the calls
 each route served, and ``kernel_launches`` the kernels those calls
 launched, as the C entry counts them at each launch; :func:`k2_launches`
-is what one call should add there.
+is what one call should add there. ``/metrics`` reads the same counts at
+scrape time (``pio_k2_calls{kernel,route}``, ``pio_k2_kernel_launches
+{kernel}``), so a server process's K2 work is visible from outside it.
 
 Order contract (``jax.lax.top_k``'s): descending by the order-preserving
 int key of the f32 score -- ``bits < 0 ? bits ^ 0x7FFFFFFF : bits``, so
@@ -47,6 +49,7 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.kernels import _build
+from predictionio_tpu_torch.obs import metrics as obs_metrics
 
 NEG_INF = -1e30
 
@@ -409,6 +412,18 @@ def sum_rows_top_k_batch(row_ixs, row_weights, item_factors, k: int,
 sum_rows_top_k_batch.launches = _build.LaunchCount()
 sum_rows_top_k_batch.routes = _route_counts()
 sum_rows_top_k_batch.kernel_launches = _build.LaunchCount()
+
+for _wrapper in (gather_top_k_batch, sum_rows_top_k_batch):
+    for _route, _count in _wrapper.routes.items():
+        obs_metrics.gauge(
+            "pio_k2_calls", "K2 calls on the card by route, since the "
+            "process started", kernel=_wrapper.__name__, route=_route,
+        ).set_function(lambda c=_count: float(c.value))
+    obs_metrics.gauge(
+        "pio_k2_kernel_launches", "Kernels K2's calls launched on the card, "
+        "as the C entry counts them", kernel=_wrapper.__name__,
+    ).set_function(lambda c=_wrapper.kernel_launches: float(c.value))
+del _wrapper, _route, _count
 
 
 def _sum_rows_top_k_select(row_ixs, row_weights, item_factors, k: int,

@@ -1,55 +1,104 @@
 """Engine Server: deployed-engine query serving (default port 8000).
 
-Port of the per-request path of ``predictionio_tpu/server/engine_server.py``
-(reference CreateServer.scala:105-663) on the stdlib
-``ThreadingHTTPServer``:
+Port of ``predictionio_tpu/server/engine_server.py`` onto the port's own
+HTTP front end (``server/http.py``), with the same structure, routes and
+serving features. Capability parity with the reference CreateServer
+(core/.../workflow/CreateServer.scala:105-663):
 
-- ``POST /queries.json`` -- deserialize the query via the algorithm's
-  query class, ``serving.supplement``, score every algorithm,
-  ``serving.serve``, JSON response. Bad queries get 400, failures 500,
-  both as ``{"message": ...}``.
-- ``GET /`` -- status JSON: engine info, serving stats and the torch
-  device the models score on.
+- ``POST /queries.json`` — deserialize query via the algorithm's query
+  class, ``serving.supplement``, score every algorithm, ``serving.serve``,
+  JSON response (:470-500). Per-request bookkeeping: requestCount,
+  avgServingSec, lastServingSec (:399-403).
+- ``GET /`` — status page with engine info, serving stats and the torch
+  device the models score on; browsers (Accept: text/html) get the HTML
+  render (:443-467), API clients JSON.
+- Serving errors POST ``logPrefix + {engineInstance, message}`` to
+  ``--log-url`` when configured (:422-433, :596-618).
+- ``POST /reload`` — hot-swap to the newest COMPLETED engine instance
+  (:316-342); key-authenticated.
+- ``POST /stop`` — key-authenticated shutdown (:260-285).
+- ``GET /plugins.json`` + output blocker/sniffer plugins (:578-581).
+- Feedback loop (:514-577): when enabled, asynchronously POSTs a
+  ``predict`` event (entityType ``pio_pr``) with query+prediction back to
+  the Event Server, generating/propagating ``prId``.
 
-Request framing is checked before a body is read, as the JAX package's
-parser (``predictionio_tpu/server/http.py``) checks it: a
-``Content-Length`` that is not a non-negative integer, or conflicting
-duplicates of it (RFC 9112 section 6.3), get 400; a ``Transfer-Encoding``
-other than ``identity`` gets 501. Each such answer closes the
-connection, so a keep-alive stream never desyncs. A connection whose
-read stalls for ``read_timeout`` seconds (a partial request line or
-headers, a short body, an idle keep-alive) is closed by the stdlib
-handler. More than 100 header lines get the stdlib's own 431.
+Beyond the reference, as in the JAX server: the micro-batcher
+(``--batch-window-ms``), the query-result cache (``--query-cache-mb``),
+multi-variant mounts (``/<variant>/queries.json``), per-query deadlines
+(``PIO_QUERY_DEADLINE_MS``), drain and readiness (``/readyz``), and the
+obs routes (``/metrics``, ``/traces.json``, ``/slo.json``, ...).
 
-The micro-batcher, query cache, plugins, feedback loop, SLOs, reload and
-multi-variant mounts are later slices.
+Where the device makes the port differ from the JAX server, on purpose:
+the dispatch probe times a CUDA round trip and raises on failure;
+batches are not padded to a power of two (K2 takes any batch size);
+``warmup`` raises instead of logging a failure, so a server that cannot
+score does not start; the speed layer and the two-stage retrieval stage
+split are later slices. Nothing on this path falls back to the CPU or
+to a kernel's plain version: every query scores on ``device``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
-import socket
+import os
+import statistics
 import threading
 import time
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any
+import urllib.request
+import uuid
+from concurrent.futures import InvalidStateError
+from concurrent.futures import TimeoutError as FuturesTimeout
+from typing import Any, NamedTuple
 
 import torch
 
+from predictionio_tpu_torch import faults
+from predictionio_tpu_torch.common import KeyAuthentication
 from predictionio_tpu_torch.core.context import WorkflowContext
 from predictionio_tpu_torch.core.engine import Engine
 from predictionio_tpu_torch.core.workflow import prepare_deploy
 from predictionio_tpu_torch.data.storage import EngineInstance, Storage, get_storage
+from predictionio_tpu_torch.obs import device as obs_device
+from predictionio_tpu_torch.obs import freshness as obs_freshness
+from predictionio_tpu_torch.obs import metrics as obs_metrics
+from predictionio_tpu_torch.obs import slo as obs_slo
+from predictionio_tpu_torch.obs import trace as obs_trace
 from predictionio_tpu_torch.server import jsonx
+from predictionio_tpu_torch.server import plugins as plugin_mod
+from predictionio_tpu_torch.server.http import (
+    HTTPApp,
+    Request,
+    Response,
+    Router,
+    add_obs_routes,
+)
+from predictionio_tpu_torch.server.query_cache import (
+    QueryCache,
+    canonical_query_bytes,
+)
+from predictionio_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
+
+
+class QueryDeadlineExceeded(Exception):
+    """A query overran the configured per-query deadline
+    (PIO_QUERY_DEADLINE_MS); the route maps this to 503 + Retry-After
+    instead of letting the client hang."""
 
 
 def _to_jsonable(obj: Any) -> Any:
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return dataclasses.asdict(obj)
     return obj
+
+
+def _device_name(device: torch.device) -> str:
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return str(device)
 
 
 def _query_from_json(query_class: type | None, data: dict[str, Any]) -> Any:
@@ -63,19 +112,388 @@ def _query_from_json(query_class: type | None, data: dict[str, Any]) -> Any:
     return query_class(**data)
 
 
-def _device_name(device: torch.device) -> str:
-    if device.type == "cuda":
-        return torch.cuda.get_device_name(device)
-    return str(device)
+class _MicroBatcher:
+    """Collects concurrent ``/queries.json`` requests and scores them
+    with ONE ``batch_predict`` call per algorithm — amortizing the fixed
+    per-call host cost of ``predict`` and the kernel launches across
+    requests: N concurrent requests cost one K2 call (two launches on
+    its tile route) instead of N.
+
+    LOAD-AWARE: the batcher is ALWAYS engaged — the engage decision
+    is made per batch, where queue depth is known, not at deploy time
+    (a dispatch-cost floor there disengaged every local attachment and
+    made batching lose):
+
+    - queue depth 1 (idle server): the collected "batch" takes the
+      single-item FAST PATH — straight to ``predict``, no padding, no
+      coalescing — so a lone query pays only the queue hop (~0.1 ms),
+      never the window.
+    - queue depth > 1 (amortization wins by construction): ONE padded
+      ``batch_predict`` per algorithm scores the whole batch. Depth is
+      created by load itself: requests queue behind the in-flight
+      device call and coalesce into the next one.
+    - ``dispatch > window``: the worker additionally waits up to the
+      window to grow the batch — added latency bounded by the window,
+      itself below one dispatch. The probe (:meth:`_measure_dispatch`)
+      times a CUDA round trip; on an H100 that is tens of microseconds,
+      so the window-wait stays off there.
+
+    The port does not pad batches. The JAX server pads to power-of-two
+    sizes because XLA compiles once per shape; the port's K2 and K2s
+    take any batch size, and padding would only add rows of work.
+    Nothing is compiled per shape, so ``pio_jit_compiles_total`` (the
+    kernel builds, obs/device.py) stays flat under load.
+
+    Semantics are identical to per-request serving: every Algorithm has
+    ``batch_predict`` (the default loops ``predict``), and
+    serving/plugins/feedback still run per query. Queries are parsed on
+    their REQUEST thread (a malformed body 400s without occupying a
+    batch slot), and the serving/feedback/plugin tail also runs on the
+    request thread — the worker only collects and dispatches, so the
+    JSON/serving work of batchmates overlaps. A failing batch retries
+    its items individually so one bad query can't poison its
+    batchmates."""
+
+    def __init__(self, server: "EngineServer", window_ms: float,
+                 max_batch: int = 64, dispatch_cost_s: float | None = None):
+        import queue
+
+        self._server = server
+        self._window = window_ms / 1e3
+        self._max = max_batch
+        self._q: "queue.Queue" = queue.Queue()
+        self._stopped = False
+        self._lock = threading.Lock()
+        self.dispatch_cost_s = (
+            self._measure_dispatch(server.device) if dispatch_cost_s is None
+            else dispatch_cost_s
+        )
+        # kept for dashboards/tests: the batcher no longer disengages —
+        # single-item batches bypass the machinery instead
+        self.engaged = True
+        self._window_wait = self.dispatch_cost_s > self._window
+        if not self._window_wait:
+            logger.info(
+                "micro-batch: measured dispatch %.2f ms <= window %.1f ms "
+                "on this attachment; window bypassed (batches form only "
+                "from naturally queued requests)",
+                self.dispatch_cost_s * 1e3,
+                window_ms,
+            )
+        else:
+            logger.info(
+                "micro-batch: measured dispatch %.2f ms > window %.1f ms "
+                "on this attachment; window-waiting to grow batches",
+                self.dispatch_cost_s * 1e3,
+                window_ms,
+            )
+        # the numbers the ROADMAP "make the batcher win" item needs:
+        # where requests wait, how big batches actually get, and what a
+        # dispatch costs
+        self._m_batch_size = obs_metrics.histogram(
+            "pio_batch_size", "Queries coalesced per device dispatch",
+            bounds=(1, 2, 4, 8, 16, 32, 64, 128),
+        )
+        self._m_queue_wait = obs_metrics.histogram(
+            "pio_batch_queue_wait_seconds",
+            "Per-query wait from submit to batch collection",
+        )
+        self._m_dispatch = obs_metrics.histogram(
+            "pio_batch_dispatch_seconds",
+            "batch_predict device-dispatch time per micro-batch",
+        )
+        obs_metrics.gauge(
+            "pio_batch_engaged",
+            "1 when the micro-batcher serves queries, 0 when disengaged",
+        ).set(1.0)
+        obs_metrics.gauge(
+            "pio_batch_dispatch_cost_seconds",
+            "Measured per-device-call dispatch cost at deploy",
+        ).set(self.dispatch_cost_s)
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    @staticmethod
+    def _measure_dispatch(device: torch.device, rounds: int = 5) -> float:
+        """Per-device-call dispatch cost (seconds): the median of a few
+        round trips of a one-element op on ``device``, each waited for
+        with ``torch.cuda.synchronize`` on CUDA. The JAX server times a
+        cached no-op jit instead. A failure raises: a server whose card
+        cannot run one op does not start."""
+        x = torch.zeros((1,), dtype=torch.float32, device=device)
+        times = []
+        for _ in range(rounds + 1):  # the first round warms the stream
+            t0 = time.perf_counter()
+            x.add_(1.0)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times[1:])
+
+    @property
+    def active(self) -> bool:
+        return not self._stopped
+
+    def submit(self, body: dict, variant=None) -> "_Submitted":
+        """Parse on the request thread, enqueue for the worker. Returns
+        the pending future (resolving to the per-algorithm predictions)
+        plus the parsed context the request thread needs to finish the
+        query itself. Parse errors raise here — a malformed body 400s
+        without ever occupying a batch slot."""
+        from concurrent.futures import Future
+
+        server = self._server
+        v = variant if variant is not None else server._default_variant
+        with server._lock:
+            algorithms, serving = v.algorithms, v.serving
+        query, sup = server._parse_query(body, algorithms, serving)
+        f: Future = Future()
+        t0 = time.perf_counter()
+        # the stopped check and the put share stop()'s lock: stop() can
+        # never drain between them and strand this future in a dead queue
+        with self._lock:
+            if self._stopped:
+                raise RuntimeError("server stopping")
+            # the request thread's trace rides the queue item — the
+            # worker thread can't see this thread's thread-local
+            self._q.put((f, t0, obs_trace.current_trace(), sup, v))
+        return _Submitted(f, query, serving, t0)
+
+    def stop(self) -> None:
+        import queue
+
+        with self._lock:
+            if self._stopped:
+                return
+            self._stopped = True
+        # no submit can enqueue past this point (flag is set under the
+        # lock); let the worker finish its in-flight batch, then fail
+        # whatever is still queued rather than leaving clients blocked
+        # on the future timeout
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+        while True:
+            try:
+                f, *_ = self._q.get_nowait()
+            except queue.Empty:
+                break
+            if not f.done():
+                f.set_exception(RuntimeError("server stopping"))
+
+    def _loop(self) -> None:
+        import queue
+
+        while not self._stopped:
+            try:
+                first = self._q.get(timeout=0.2)
+            except queue.Empty:
+                continue
+            batch = [first]
+            deadline = time.perf_counter() + self._window
+            while len(batch) < self._max:
+                try:
+                    batch.append(self._q.get_nowait())
+                    continue
+                except queue.Empty:
+                    pass
+                # queue is empty: idle-wait for more only when a saved
+                # dispatch is worth more than the window
+                if not self._window_wait:
+                    break
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    break
+                try:
+                    batch.append(self._q.get(timeout=remaining))
+                except queue.Empty:
+                    break
+            self._m_batch_size.observe(float(len(batch)))
+            try:
+                self._server._handle_query_batch(batch)
+            except Exception:  # pragma: no cover - worker must survive
+                logger.exception("micro-batch worker failed")
+                for f, *_ in batch:
+                    if not f.done():
+                        f.set_exception(RuntimeError("batch worker failed"))
+
+
+class _Submitted(NamedTuple):
+    """What ``_MicroBatcher.submit`` hands back to the request thread:
+    the pending predictions future plus the context to finish the query
+    (serving/feedback/plugins run on the request thread, not the batch
+    worker)."""
+
+    fut: Any
+    query: Any
+    serving: Any
+    t0: float
+
+
+class _Variant:
+    """One mounted tenant of an EngineServer: its own engine, instance,
+    models, epoch fence and serving bookkeeping — while the HTTP front
+    end, micro-batcher worker, built kernels, and query-cache byte
+    budget stay shared process-wide. (The JAX package's speed layer,
+    which folds events into a mount, is a later slice of the port.)
+
+    ``labeled`` is True on multi-tenant servers: per-tenant metric
+    series ride a ``variant=<name>`` label and ``variant_name`` suffixes
+    the mount's SLO names. Solo deploys stay unlabeled so their metric
+    and SLO names are byte-identical to the pre-multi-tenant server."""
+
+    def __init__(
+        self,
+        server: "EngineServer",
+        name: str,
+        engine: Engine,
+        instance: EngineInstance,
+        labeled: bool,
+    ):
+        self.server = server
+        self.name = name
+        self.engine = engine
+        self._epoch = 0
+        self.request_count = 0
+        self.serving_seconds = 0.0
+        self.last_serving_sec = 0.0
+        self.last_reload_ts = 0.0
+        self.variant_name = name if labeled else None
+        self._m_serving_v = (
+            obs_metrics.histogram(
+                "pio_serving_seconds",
+                "Per-query scoring+serve time (parse through plugins)",
+                variant=name,
+            )
+            if labeled
+            else None
+        )
+        self._m_requests_v = (
+            obs_metrics.counter(
+                "pio_serving_requests_total",
+                "Queries served, per tenant",
+                variant=name,
+            )
+            if labeled
+            else None
+        )
+        self._slos: list = []
+        self._load(instance)
+
+    # -- shared infrastructure ----------------------------------------------
+    @property
+    def _lock(self):
+        return self.server._lock
+
+    @property
+    def storage(self):
+        return self.server.storage
+
+    @property
+    def query_cache(self):
+        return self.server.query_cache
+
+    # -- load / reload ------------------------------------------------------
+    def _load(self, instance: EngineInstance) -> None:
+        # every algorithm scores on the server's device; the factor
+        # tables go up (and count in obs/device.py's serve.model_put)
+        # at each model's first score, which warmup makes happen
+        ctx = WorkflowContext(
+            mode="Serving", batch=instance.batch, device=self.server.device
+        )
+        engine_params, algorithms, models, serving = prepare_deploy(
+            self.engine, instance, self.server.storage, ctx
+        )
+        with self._lock:
+            self.instance = instance
+            self.engine_params = engine_params
+            self.algorithms = algorithms
+            self.models = models
+            self.serving = serving
+            self._epoch += 1
+            epoch = self._epoch
+        # entries under older epochs are unreachable by key the moment
+        # the counter moves; the sweep reclaims their bytes — scoped to
+        # THIS tenant's partition, so reloading one mount never flushes
+        # a co-tenant's cached results
+        if self.query_cache is not None:
+            self.query_cache.sweep(epoch, variant=self.name)
+        # freshness lineage, batch side: events ingested before this
+        # instance's training began are servable NOW — one sample of
+        # (commit - train_start) records the batch-layer staleness floor
+        try:
+            train_start = instance.start_time.timestamp()
+        except (AttributeError, OSError, ValueError):
+            train_start = None
+        obs_freshness.observe_commit(
+            [train_start] if train_start is not None else [],
+            kind="reload",
+            epoch=epoch,
+        )
+        self.last_reload_ts = time.time()
+        if self.variant_name is not None:
+            obs_metrics.gauge(
+                "pio_serving_epoch",
+                "Model swap epoch, per tenant",
+                variant=self.name,
+            ).set(float(epoch))
+        logger.info(
+            "engine instance %s loaded for serving (variant %s)",
+            instance.id,
+            self.name,
+        )
+
+    def reload(self) -> bool:
+        """Swap this mount to its latest completed instance."""
+        latest = self.storage.get_metadata_engine_instances().get_latest_completed(
+            self.instance.engine_id,
+            self.instance.engine_version,
+            self.instance.engine_variant,
+        )
+        if latest is None:
+            return False
+        # prepare_deploy runs OFF the server lock; the swap is atomic —
+        # the old model keeps serving 200s through the whole reload
+        self._load(latest)
+        return True
+
+    # -- observability -------------------------------------------------------
+    def stats(self) -> dict[str, Any]:
+        """One row of the /stats.json ``variants`` block: qps inputs,
+        p99, epoch, freshness, SLO states for this tenant."""
+        with self._lock:
+            avg = (
+                self.serving_seconds / self.request_count
+                if self.request_count
+                else 0.0
+            )
+            d: dict[str, Any] = {
+                "engineInstanceId": self.instance.id,
+                "engineVariant": self.instance.engine_variant,
+                "epoch": self._epoch,
+                "requestCount": self.request_count,
+                "avgServingSec": round(avg, 6),
+                "lastServingSec": round(self.last_serving_sec, 6),
+            }
+        hist = (
+            self._m_serving_v
+            if self._m_serving_v is not None
+            else self.server._m_serving
+        )
+        try:
+            d["p99Ms"] = round(hist.percentile(0.99) * 1e3, 3)
+        except Exception:  # pragma: no cover - stats must never 500
+            d["p99Ms"] = None
+        d["modelAgeSec"] = (
+            round(time.time() - self.last_reload_ts, 1)
+            if self.last_reload_ts
+            else None
+        )
+        if self._slos:
+            d["slo"] = {s.name: s.state for s in self._slos}
+        return d
 
 
 class EngineServer:
-    """One deployed engine instance behind an HTTP front end.
-
-    ``device`` is where the models score: CUDA unless ``"cpu"`` is asked
-    for (utils/device.py). ``read_timeout``: seconds a connection may
-    stall on a read before it is closed (the JAX ``HTTPApp``'s default)."""
-
     def __init__(
         self,
         engine: Engine,
@@ -83,45 +501,680 @@ class EngineServer:
         storage: Storage | None = None,
         host: str = "0.0.0.0",
         port: int = 8000,
+        server_key: str | None = None,
+        feedback: bool = False,
+        event_server_url: str | None = None,
+        access_key: str | None = None,
+        server_config=None,
+        log_url: str | None = None,
+        log_prefix: str | None = None,
+        batch_window_ms: float = 0.0,
+        dispatch_cost_s: float | None = None,
+        reuse_port: bool = False,
+        query_cache_mb: float = 0.0,
+        query_deadline_ms: float | None = None,
+        extra_variants: list[tuple[str, Engine, EngineInstance]] | None = None,
         device: str | torch.device | None = None,
         read_timeout: float = 120.0,
     ):
+        """``device`` is where every mount's models score: CUDA unless
+        ``"cpu"`` is asked for (utils/device.py). ``read_timeout``:
+        seconds a connection may stall on a read before the HTTP front
+        end closes it."""
         self.storage = storage or get_storage()
+        self.device = resolve_device(device)
         self.host = host
-        self.port = port
-        self.read_timeout = read_timeout
-        self.engine = engine
-        self.instance = instance
-        ctx = WorkflowContext(mode="Serving", batch=instance.batch, device=device)
-        self.device = ctx.device
-        (self.engine_params, self.algorithms, self.models,
-         self.serving) = prepare_deploy(engine, instance, self.storage, ctx)
-        self._lock = threading.Lock()
+        # server.conf-style config supplies the control key and TLS
+        # (reference common KeyAuthentication + SSLConfiguration)
+        self.server_config = server_config
+        self.server_key = server_key
+        self.feedback = feedback
+        self.event_server_url = event_server_url
+        self.access_key = access_key
+        # serving errors POST to this URL when set (reference
+        # CreateServer.scala remoteLog, :422-433 + :596-618)
+        self.log_url = log_url
+        self.log_prefix = log_prefix or ""
+        self._lock = threading.RLock()
+        self.query_cache: QueryCache | None = None
+        # set while deploy warmup overlaps live traffic (reuse_port
+        # workers, late warmups): /queries.json answers 503 +
+        # Retry-After instead of waiting on a kernel build it didn't order.
+        # /reload does NOT set this — the old model serves through the
+        # whole swap (prepare_deploy runs off-lock, the swap is atomic)
+        self._swapping = threading.Event()
+        # per-query deadline (PIO_QUERY_DEADLINE_MS or query_deadline_ms
+        # arg): a query that overruns it gets 503 + Retry-After instead
+        # of hanging its connection; None = unbounded (the default)
+        if query_deadline_ms is None:
+            try:
+                query_deadline_ms = float(
+                    os.environ.get("PIO_QUERY_DEADLINE_MS", "0").strip() or 0
+                )
+            except ValueError:
+                logger.warning("ignoring non-numeric PIO_QUERY_DEADLINE_MS")
+                query_deadline_ms = 0.0
+        self.query_deadline_s = (
+            query_deadline_ms / 1e3 if query_deadline_ms > 0 else None
+        )
+        # deadline expiry rides the HTTP front end's timer wheel
+        # (HTTPApp.call_later) — a heap entry per in-flight deadline
+        # query, not the 32-thread watcher pool this replaced. The
+        # unbatched path still needs the scoring off the request thread
+        # to answer 503 AT the deadline; a short-lived thread per query
+        # does that, capped so an overload degrades to inline scoring
+        # with post-hoc shedding instead of unbounded thread spawn.
+        self._ddl_slots = threading.BoundedSemaphore(32)
+
+        # tenant mounts: the primary (engine, instance) is the DEFAULT
+        # variant — bare /queries.json serves it, and every legacy
+        # attribute (engine/instance/models/_epoch/...) delegates to it,
+        # so a solo deploy behaves byte-identically to the
+        # single-tenant server. extra_variants adds co-tenants routed by
+        # /<name>/queries.json or the X-PIO-Variant header; each keeps
+        # its own epoch fence, /reload and query-cache partition while
+        # sharing this process's HTTP front end, micro-batcher, built
+        # kernels (which take any batch size, so no program is
+        # tenant-specific), and query-cache byte budget.
+        default_name = instance.engine_variant or "default"
+        mounts = [(default_name, engine, instance)] + list(extra_variants or [])
+        labeled = len(mounts) > 1
+        self.variants: dict[str, _Variant] = {}
+        for name, eng, inst in mounts:
+            if not name or "/" in name:
+                raise ValueError(f"invalid variant mount name {name!r}")
+            if name in self.variants:
+                raise ValueError(f"duplicate variant mount name {name!r}")
+            self.variants[name] = _Variant(self, name, eng, inst, labeled)
+        self.default_variant_name = default_name
+        self._default_variant = self.variants[default_name]
+
         self.start_time = time.time()
-        self.request_count = 0
-        self.serving_seconds = 0.0
-        self.last_serving_sec = 0.0
-        self._httpd: ThreadingHTTPServer | None = None
-        self._thread: threading.Thread | None = None
-        logger.info(
-            "engine instance %s loaded for serving on %s", instance.id, self.device
+        self._m_serving = obs_metrics.histogram(
+            "pio_serving_seconds",
+            "Per-query scoring+serve time (parse through plugins)",
+        )
+        self._m_cache_lookup = obs_metrics.histogram(
+            "pio_cache_lookup_seconds",
+            "Query-cache canonicalize+lookup time (hits and misses)",
+        )
+        # default objectives: p99 latency, 5xx availability, the
+        # warmup/deadline 503 budget, ingest-to-servable freshness
+        obs_slo.install_engine_slos(self)
+        # multi-tenant servers additionally get one latency objective
+        # per mount (names suffixed [mount]) so one noisy tenant pages
+        # as itself, not as the process aggregate
+        if labeled:
+            for v in self.variants.values():
+                v._slos = obs_slo.install_variant_slos(v)
+
+        self.plugins = plugin_mod.load_plugins(plugin_mod.EngineServerPlugin)
+        self.plugin_context: dict[str, Any] = {"storage": self.storage}
+        for p in self.plugins:
+            p.start(self.plugin_context)
+
+        # query-result cache: preserialized response bytes keyed by
+        # (engine_variant, canonical_query_bytes, epoch) — the epoch
+        # fence gives EXACT invalidation (every /reload bumps it), so a
+        # hit can never be stale with
+        # respect to the served model. Two per-request effects make
+        # caching incorrect, so they disable it outright:
+        if query_cache_mb and query_cache_mb > 0:
+            blockers = [
+                p for p in self.plugins
+                if p.plugin_type == plugin_mod.OUTPUT_BLOCKER
+            ]
+            if feedback:
+                logger.warning(
+                    "query cache disabled: --feedback generates a fresh "
+                    "prId and POSTs a predict event per request"
+                )
+            elif blockers:
+                logger.warning(
+                    "query cache disabled: output-blocker plugin(s) %s "
+                    "rewrite responses per request",
+                    [p.plugin_name for p in blockers],
+                )
+            else:
+                self.query_cache = QueryCache(int(query_cache_mb * 2**20))
+
+        # micro-batched serving: amortize device dispatch across
+        # concurrent requests (0 = per-request, the reference behavior;
+        # dispatch_cost_s overrides the startup probe — tests pin it to
+        # force window/bypass mode deterministically)
+        self.batcher = (
+            _MicroBatcher(self, batch_window_ms, dispatch_cost_s=dispatch_cost_s)
+            if batch_window_ms > 0
+            else None
         )
 
+        self.app = HTTPApp(
+            self._router(),
+            host=host,
+            port=port,
+            ssl_context=(
+                server_config.ssl_context() if server_config is not None else None
+            ),
+            reuse_port=reuse_port,
+            read_timeout=read_timeout,
+            name="engine",
+            ready_check=self._ready_reason,
+        )
+        # drain-time flush: the batcher stops dispatching before the
+        # loop exits
+        self.app.add_shutdown_hook(self._drain_flush)
+
+    # -- default-variant delegation -----------------------------------------
+    # Legacy surface: every pre-multi-tenant attribute reads/writes the
+    # default mount, so the CLI and tests keep working unchanged;
+    # per-tenant state lives on _Variant.
+
+    def _delegate(attr):  # noqa: N805 - descriptor factory, not a method
+        def _get(self):
+            return getattr(self._default_variant, attr)
+
+        def _set(self, value):
+            setattr(self._default_variant, attr, value)
+
+        return property(_get, _set)
+
+    engine = _delegate("engine")
+    instance = _delegate("instance")
+    engine_params = _delegate("engine_params")
+    algorithms = _delegate("algorithms")
+    models = _delegate("models")
+    serving = _delegate("serving")
+    _epoch = _delegate("_epoch")
+    request_count = _delegate("request_count")
+    serving_seconds = _delegate("serving_seconds")
+    last_serving_sec = _delegate("last_serving_sec")
+    del _delegate
+
+    def _load(self, instance: EngineInstance) -> None:
+        self._default_variant._load(instance)
+
+    @property
+    def port(self) -> int:
+        """The bound port once :meth:`start` ran (the constructor's
+        ``port`` before; ``0`` picks a free one)."""
+        return self.app.port
+
     # -- query path --------------------------------------------------------
-    def handle_query(self, body: dict[str, Any]) -> dict[str, Any]:
-        t0 = time.perf_counter()
-        query = _query_from_json(self.algorithms[0].query_class, body)
-        supplemented = self.serving.supplement(query)
-        predictions = [
-            a.predict(m, supplemented) for a, m in zip(self.algorithms, self.models)
-        ]
-        response = _to_jsonable(self.serving.serve(query, predictions))
-        dt = time.perf_counter() - t0
+    def serve_query_bytes(
+        self, body: dict[str, Any], variant: "_Variant | None" = None
+    ) -> bytes:
+        """THE /queries.json read path: preserialized response bytes.
+
+        Cache hit: one canonical-bytes build + one sharded dict lookup —
+        no device dispatch, no serving join, no JSON encode, and the
+        request never enters the micro-batch queue. Miss: the normal
+        scoring path, then the encoded bytes are stored iff every
+        Algorithm and the Serving say the query is cacheable.
+
+        Epoch fencing: the epoch is snapshotted BEFORE scoring, so a
+        model swap landing mid-flight strands the computed result under
+        the pre-swap epoch — it can never be served after the swap. (The
+        reverse order would race: old-model results could be filed under
+        the new epoch.)"""
+        v = variant if variant is not None else self._default_variant
+        cache = self.query_cache
+        key = None
+        if cache is not None:
+            t_c0 = time.perf_counter()
+            with self._lock:
+                epoch = v._epoch
+            try:
+                # keyed by the MOUNT name (not instance.engine_variant):
+                # unique even when several mounts share one instance, so
+                # each tenant keeps its own cache partition
+                key = (v.name, canonical_query_bytes(body), epoch)
+            except (TypeError, ValueError):
+                key = None  # non-canonicalizable body: uncacheable
+            payload = cache.get(key) if key is not None else None
+            t_c1 = time.perf_counter()
+            self._m_cache_lookup.observe(t_c1 - t_c0)
+            tr = obs_trace.current_trace()
+            if tr is not None:
+                tr.add_span(
+                    "cache.hit" if payload is not None else "cache.miss",
+                    t_c0, t_c1,
+                )
+            if payload is not None:
+                # a hit is still a served request; it adds ~0 to
+                # serving_seconds by construction
+                with self._lock:
+                    v.request_count += 1
+                if v._m_requests_v is not None:
+                    v._m_requests_v.inc()
+                return payload
+        if self.batcher is not None and self.batcher.active:
+            try:
+                response_obj = self._serve_batched(body, v)
+            except RuntimeError as e:
+                # batcher INFRASTRUCTURE failure (dead worker / stopping
+                # server), not a query error: degrade to the unbatched
+                # path so the request still serves
+                if str(e) not in ("batch worker failed", "server stopping"):
+                    raise
+                obs_metrics.counter(
+                    "pio_batcher_fallback_total",
+                    "Queries served unbatched after a micro-batcher failure",
+                ).inc()
+                logger.warning(
+                    "micro-batcher unavailable (%s); serving unbatched", e
+                )
+                response_obj = self._query_with_deadline(body, v)
+        else:
+            response_obj = self._query_with_deadline(body, v)
+        payload = jsonx.dumps_bytes(response_obj)
+        if key is not None and self._query_cacheable(body, v):
+            cache.put(key, payload)
+        return payload
+
+    def _query_cacheable(
+        self, body: dict[str, Any], variant: "_Variant | None" = None
+    ) -> bool:
+        """Every Algorithm AND the Serving must consent (core/base.py
+        ``cacheable_query``). Runs on the miss path only."""
+        v = variant if variant is not None else self._default_variant
         with self._lock:
-            self.request_count += 1
-            self.serving_seconds += dt
-            self.last_serving_sec = dt
+            algorithms, serving = v.algorithms, v.serving
+        try:
+            query, supplemented = self._parse_query(body, algorithms, serving)
+        except Exception:
+            return False
+        if not serving.cacheable_query(query):
+            return False
+        return all(a.cacheable_query(supplemented) for a in algorithms)
+
+    def _serve_batched(
+        self, body: dict[str, Any], variant: "_Variant | None" = None
+    ) -> dict[str, Any]:
+        """Score through the micro-batcher. The worker resolves the
+        future with the per-algorithm predictions; serving/feedback/
+        plugins (``_finish_query``) run HERE on the request thread, so
+        batchmates' response tails overlap instead of serializing on
+        the worker. Deadline expiry is a timer-wheel entry that fails
+        the future — the client gets its 503 AT the deadline even while
+        the kernel call is still in flight."""
+        # legacy single-arg call for the default mount (submit defaults
+        # to it): solo-deploy wrappers/stubs of submit keep working
+        if variant is None or variant is self._default_variant:
+            sub = self.batcher.submit(body)
+        else:
+            sub = self.batcher.submit(body, variant)
+        fut = sub.fut
+        handle = None
+        if self.query_deadline_s is not None:
+            handle = self.app.call_later(
+                self.query_deadline_s,
+                lambda: self._expire_future(fut, "batched"),
+            )
+        # with a timer armed, result() only needs a generous backstop;
+        # without one (loop not running, or no deadline) the result
+        # timeout itself enforces the bound
+        if self.query_deadline_s is None:
+            timeout = 60.0
+        elif handle is None:
+            timeout = self.query_deadline_s
+        else:
+            timeout = self.query_deadline_s + 60.0
+        try:
+            predictions = fut.result(timeout=timeout)
+        except FuturesTimeout:
+            self._count_deadline("batched")
+            raise QueryDeadlineExceeded(
+                "query exceeded the per-query deadline"
+            ) from None
+        finally:
+            if handle is not None:
+                handle.cancel()
+        return self._finish_query(
+            body, sub.query, predictions, sub.serving, sub.t0, variant=variant
+        )
+
+    @staticmethod
+    def _count_deadline(path: str) -> None:
+        obs_metrics.counter(
+            "pio_query_deadline_exceeded_total",
+            "Queries 503'd for overrunning PIO_QUERY_DEADLINE_MS",
+            path=path,
+        ).inc()
+
+    def _expire_future(self, fut, path: str) -> None:
+        """Timer-wheel callback: fail a still-pending query future at
+        its deadline. Counts only when this call actually expired it
+        (the scoring path winning the race resolves the future first)."""
+        if fut.done():
+            return
+        try:
+            fut.set_exception(
+                QueryDeadlineExceeded("query exceeded the per-query deadline")
+            )
+        except InvalidStateError:
+            return
+        self._count_deadline(path)
+
+    def _query_with_deadline(
+        self, body: dict[str, Any], variant: "_Variant | None" = None
+    ) -> dict[str, Any]:
+        """Unbatched scoring under the per-query deadline (a plain
+        ``handle_query`` call when no deadline is configured — the
+        zero-cost default path).
+
+        With a deadline: scoring runs on a short-lived thread while a
+        timer-wheel entry arms the 503 — the client is answered AT the
+        deadline and an overrunning call finishes discarded (Python
+        can't preempt it). The thread count is capped; past the cap —
+        or before the HTTP loop starts — scoring runs inline and
+        overruns are shed after the fact (same 503 + Retry-After, the
+        response-freshness guarantee holds, only the early answer is
+        lost)."""
+        if self.query_deadline_s is None:
+            return self.handle_query(body, variant)
+        from concurrent.futures import Future
+
+        fut: Future = Future()
+        handle = self.app.call_later(
+            self.query_deadline_s, lambda: self._expire_future(fut, "unbatched")
+        )
+        if handle is None or not self._ddl_slots.acquire(blocking=False):
+            if handle is not None:
+                handle.cancel()
+            t0 = time.monotonic()
+            result = self.handle_query(body, variant)
+            if time.monotonic() - t0 > self.query_deadline_s:
+                self._count_deadline("unbatched")
+                raise QueryDeadlineExceeded(
+                    "query exceeded the per-query deadline"
+                )
+            return result
+
+        def run() -> None:
+            try:
+                r = self.handle_query(body, variant)
+            except BaseException as e:
+                if not fut.done():
+                    try:
+                        fut.set_exception(e)
+                    except InvalidStateError:
+                        pass
+            else:
+                if not fut.done():
+                    try:
+                        fut.set_result(r)
+                    except InvalidStateError:
+                        pass
+            finally:
+                self._ddl_slots.release()
+
+        threading.Thread(target=run, daemon=True, name="query-ddl").start()
+        try:
+            return fut.result(timeout=self.query_deadline_s + 60.0)
+        except FuturesTimeout:
+            self._count_deadline("unbatched")
+            raise QueryDeadlineExceeded(
+                "query exceeded the per-query deadline"
+            ) from None
+        finally:
+            handle.cancel()
+
+    def handle_query(
+        self, body: dict[str, Any], variant: "_Variant | None" = None
+    ) -> dict[str, Any]:
+        faults.fault_point("serve.query")
+        v = variant if variant is not None else self._default_variant
+        t0 = time.perf_counter()
+        with self._lock:
+            algorithms, models, serving = v.algorithms, v.models, v.serving
+        query, supplemented = self._parse_query(body, algorithms, serving)
+        predictions = [
+            a.predict(m, supplemented) for a, m in zip(algorithms, models)
+        ]
+        return self._finish_query(
+            body, query, predictions, serving, t0, variant=v
+        )
+
+    @staticmethod
+    def _parse_query(body, algorithms, serving):
+        query_class = algorithms[0].query_class
+        query = _query_from_json(query_class, body)
+        return query, serving.supplement(query)
+
+    def _finish_query(
+        self, body, query, predictions, serving, t0, trace=None, variant=None
+    ) -> dict[str, Any]:
+        """Per-query tail shared by the per-request and micro-batched
+        paths: serve, feedback, plugins, bookkeeping. ``trace`` is passed
+        explicitly from the batch worker (whose thread-local is not the
+        request thread's); the per-request path falls back to it."""
+        v = variant if variant is not None else self._default_variant
+        if trace is None:
+            trace = obs_trace.current_trace()
+        result = serving.serve(query, predictions)
+        response = _to_jsonable(result)
+
+        pr_id: str | None = None
+        if self.feedback:
+            pr_id = body.get("prId") or uuid.uuid4().hex[:16]
+            self._send_feedback(body, response, pr_id, trace=trace)
+            if isinstance(response, dict):
+                response = {**response, "prId": pr_id}
+
+        for p in self.plugins:
+            if p.plugin_type == plugin_mod.OUTPUT_BLOCKER:
+                response = p.process(
+                    v.instance.engine_variant, body, response, self.plugin_context
+                )
+            else:
+                p.process(
+                    v.instance.engine_variant, body, response, self.plugin_context
+                )
+
+        t_end = time.perf_counter()
+        dt = t_end - t0
+        self._m_serving.observe(dt)
+        if v._m_serving_v is not None:
+            v._m_serving_v.observe(dt)
+        if v._m_requests_v is not None:
+            v._m_requests_v.inc()
+        if trace is not None:
+            trace.add_span("serve", t0, t_end)
+        with self._lock:
+            v.request_count += 1
+            v.serving_seconds += dt
+            v.last_serving_sec = dt
         return response
+
+    @staticmethod
+    def _resolve(fut, predictions=None, exc=None) -> None:
+        # the deadline timer may have expired the future already —
+        # losing that race is normal, never an error
+        if fut.done():
+            return
+        try:
+            if exc is not None:
+                fut.set_exception(exc)
+            else:
+                fut.set_result(predictions)
+        except InvalidStateError:
+            pass
+
+    def _handle_query_batch(self, items) -> None:
+        """Score one micro-batch, grouped by tenant mount: queries for
+        different variants never share a ``batch_predict`` call (their
+        models differ), but co-tenant queries still coalesce."""
+        groups: dict[int, list] = {}
+        by_id: dict[int, Any] = {}
+        for it in items:
+            v = it[4]
+            groups.setdefault(id(v), []).append(it)
+            by_id[id(v)] = v
+        for vid, group in groups.items():
+            self._score_batch_group(by_id[vid], group)
+
+    def _score_batch_group(self, variant: "_Variant", items) -> None:
+        """Score one tenant's micro-batch: every algorithm runs ONE
+        batch_predict over the whole batch; serving/feedback/plugins run
+        per query on the REQUEST threads (the futures resolve to
+        predictions, not responses). A single-item batch — an idle
+        server's lone query — skips the coalesce machinery and goes
+        straight to ``predict``. A failing batch retries its queries
+        individually, through the same ``predict`` on the same device
+        (the same kernel), so one bad request can't fail its
+        batchmates; the retry never falls back to a plain version."""
+        with self._lock:
+            algorithms, models = variant.algorithms, variant.models
+        batcher = self.batcher
+        t_collect = time.perf_counter()
+        for fut, t0, tr, _, _ in items:
+            if batcher is not None:
+                batcher._m_queue_wait.observe(t_collect - t0)
+            if tr is not None:
+                tr.add_span("batch.queue_wait", t0, t_collect)
+        if len(items) == 1:
+            # FAST PATH: no index plumbing — lone-query
+            # latency matches per-request serving
+            fut, _, _, sup, _ = items[0]
+            try:
+                predictions = [
+                    a.predict(m, sup) for a, m in zip(algorithms, models)
+                ]
+            except Exception as e:
+                self._resolve(fut, exc=e)
+                return
+            self._resolve(fut, predictions)
+            return
+        per_algo: list[dict] | None
+        try:
+            # no padding to a power of two (the JAX server's XLA shape
+            # bucketing): K2 takes any batch size, and pad rows would
+            # only add work to it
+            indexed = [
+                (i, sup) for i, (_, _, _, sup, _) in enumerate(items)
+            ]
+            n_real = len(indexed)
+            t_d0 = time.perf_counter()
+            faults.fault_point("serve.batch_dispatch")
+            per_algo = [
+                dict(a.batch_predict(m, indexed))
+                for a, m in zip(algorithms, models)
+            ]
+            t_d1 = time.perf_counter()
+            if batcher is not None:
+                batcher._m_dispatch.observe(t_d1 - t_d0)
+            for _, _, tr, _, _ in items:
+                if tr is not None:
+                    tr.add_span(f"batch.dispatch[{n_real}]", t_d0, t_d1)
+        except Exception:
+            logger.exception("batched scoring failed; retrying per query")
+            per_algo = None
+        for i, (fut, t0, tr, sup, _) in enumerate(items):
+            if per_algo is None:
+                try:
+                    predictions = [
+                        a.predict(m, sup) for a, m in zip(algorithms, models)
+                    ]
+                except Exception as e:
+                    self._resolve(fut, exc=e)
+                    continue
+            else:
+                predictions = [d[i] for d in per_algo]
+            self._resolve(fut, predictions)
+
+    @staticmethod
+    def _post_async(
+        url: str,
+        payload: bytes,
+        what: str,
+        headers: dict[str, str] | None = None,
+    ) -> None:
+        """Fire-and-forget POST on a daemon thread — failures are logged,
+        never raised (feedback + remote-log transport)."""
+
+        def post():
+            try:
+                req = urllib.request.Request(
+                    url, data=payload, headers=headers or {}
+                )
+                urllib.request.urlopen(req, timeout=10).read()
+            except Exception:
+                logger.exception("%s POST failed", what)
+
+        threading.Thread(target=post, daemon=True).start()
+
+    def _send_feedback(
+        self, query: dict, prediction: Any, pr_id: str, trace=None
+    ) -> None:
+        """Async predict-event POST back to the event server
+        (CreateServer.scala:514-577)."""
+        if not (self.event_server_url and self.access_key):
+            logger.warning("feedback enabled but event server/access key missing")
+            return
+        payload = json.dumps(
+            {
+                "event": "predict",
+                "entityType": "pio_pr",
+                "entityId": pr_id,
+                "properties": {"query": query, "prediction": prediction},
+                "prId": pr_id,
+            }
+        ).encode()
+        url = (
+            f"{self.event_server_url.rstrip('/')}/events.json"
+            f"?accessKey={self.access_key}"
+        )
+        headers = {"Content-Type": "application/json"}
+        if trace is not None:
+            # the event server's ingest hop joins this query's timeline
+            headers[obs_trace.TRACE_HEADER] = trace.trace_id
+        self._post_async(url, payload, "feedback event", headers=headers)
+
+    def _remote_log(self, message: str) -> None:
+        """Best-effort POST of a serving error to ``log_url`` (reference
+        CreateServer.scala:422-433 remoteLog; fired on query failures at
+        :596-618). Body is ``log_prefix`` + JSON {engineInstance,
+        message}, like the reference's logPrefix + write(...)."""
+        if not self.log_url:
+            return
+        payload = (
+            self.log_prefix
+            + json.dumps(
+                {
+                    "engineInstance": {
+                        "id": self.instance.id,
+                        "engineFactory": self.instance.engine_factory,
+                        "engineVariant": self.instance.engine_variant,
+                    },
+                    "message": message,
+                }
+            )
+        ).encode()
+        self._post_async(self.log_url, payload, "remote log")
+
+    # -- control -----------------------------------------------------------
+    def reload(self, variant: "_Variant | None" = None) -> bool:
+        """Swap a mount to its latest completed instance (reference
+        /reload). Defaults to the default mount; the per-variant routes
+        pass their own. Other mounts' epochs and cache partitions are
+        untouched."""
+        v = variant if variant is not None else self._default_variant
+        latest = self.storage.get_metadata_engine_instances().get_latest_completed(
+            v.instance.engine_id,
+            v.instance.engine_version,
+            v.instance.engine_variant,
+        )
+        if latest is None:
+            return False
+        # prepare_deploy runs OFF the server lock; the swap is atomic —
+        # the old model keeps serving 200s through the whole reload. The
+        # default mount goes through the server-level _load hook (tests
+        # and plugins may wrap it); co-tenants load directly.
+        if v is self._default_variant:
+            self._load(latest)
+        else:
+            v._load(latest)
+        return True
 
     def status(self) -> dict[str, Any]:
         with self._lock:
@@ -139,145 +1192,307 @@ class EngineServer:
                 "requestCount": self.request_count,
                 "avgServingSec": round(avg, 6),
                 "lastServingSec": round(self.last_serving_sec, 6),
+                "plugins": [p.plugin_name for p in self.plugins],
                 "device": str(self.device),
                 "deviceName": _device_name(self.device),
             }
 
+    def _status_html(self) -> str:
+        """Minimal render of the reference's HTML status page
+        (CreateServer.scala:443-467, templates html.index): engine info,
+        component params, serving stats."""
+        import html as html_mod
+
+        s = self.status()
+        with self._lock:
+            algo_rows = "".join(
+                f"<tr><td>{html_mod.escape(type(a).__name__)}</td>"
+                f"<td><pre>{html_mod.escape(str(p))}</pre></td></tr>"
+                for a, (_, p) in zip(
+                    self.algorithms, self.engine_params.algorithms
+                )
+            )
+            serving_name = type(self.serving).__name__
+        rows = "".join(
+            f"<tr><th>{html_mod.escape(str(k))}</th>"
+            f"<td>{html_mod.escape(str(v))}</td></tr>"
+            for k, v in s.items()
+        )
+        return (
+            "<!DOCTYPE html><html><head>"
+            "<title>Engine Server at "
+            f"{html_mod.escape(self.host)}</title></head><body>"
+            f"<h1>Engine: {html_mod.escape(s['engineFactory'])}</h1>"
+            f"<table border='1'>{rows}</table>"
+            f"<h2>Algorithms</h2><table border='1'>"
+            f"<tr><th>Class</th><th>Params</th></tr>{algo_rows}</table>"
+            f"<h2>Serving</h2><p>{html_mod.escape(serving_name)}</p>"
+            "</body></html>"
+        )
+
+    # -- routes ------------------------------------------------------------
+    def _router(self) -> Router:
+        router = Router()
+        server = self
+
+        @router.route("GET", "/")
+        def status(request: Request) -> Response:
+            # browsers get the reference's HTML status page
+            # (CreateServer.scala:443-467 renders html.index); API
+            # clients keep the JSON body
+            if "text/html" in request.headers.get("accept", ""):
+                return Response.html(server._status_html())
+            return Response.json(server.status())
+
+        @router.route("GET", "/stats.json")
+        def stats(request: Request) -> Response:
+            body = server.status()
+            cache = server.query_cache
+            body["cache"] = (
+                {"enabled": True, **cache.gauges()}
+                if cache is not None
+                else {"enabled": False}
+            )
+            # per-mount rows: solo deploys get a one-entry block keyed by
+            # the default mount name, so dashboards render one code path
+            body["variants"] = {
+                name: v.stats() for name, v in server.variants.items()
+            }
+            # additive: existing consumers keep their fields untouched
+            body["obs"] = obs_metrics.stats_block()
+            body["device"] = obs_device.device_block()
+            body["freshness"] = obs_freshness.block()
+            return Response.json(body)
+
+        def _resolve_header_variant(request: Request) -> "_Variant | None":
+            """Mount for a BARE-path request: the ``X-PIO-Variant``
+            header when present (None for an unknown name -> 404), else
+            the default mount."""
+            name = request.headers.get("x-pio-variant")
+            if name is None:
+                return server._default_variant
+            return server.variants.get(name)
+
+        def _handle_queries(request: Request, v: "_Variant") -> Response:
+            if server._swapping.is_set():
+                obs_metrics.counter(
+                    "pio_query_unavailable_total",
+                    "Queries 503'd while unavailable",
+                    reason="swap",
+                ).inc()
+                # a 503 burst must be visible in /traces.json, not just
+                # as a counter — mark the request's trace
+                tr = obs_trace.current_trace()
+                if tr is not None:
+                    now = time.perf_counter()
+                    tr.add_span("serve.unavailable", now, now)
+                return Response(
+                    status=503,
+                    body={"message": "model swap in progress; retry shortly"},
+                    headers={"Retry-After": "1"},
+                )
+            body = request.json()
+            if not isinstance(body, dict):
+                return Response.error("request body must be a JSON object", 400)
+            try:
+                return Response.json_bytes(server.serve_query_bytes(body, v))
+            except QueryDeadlineExceeded as e:
+                obs_metrics.counter(
+                    "pio_query_unavailable_total",
+                    "Queries 503'd while unavailable",
+                    reason="deadline",
+                ).inc()
+                # like the swap branch: a deadline 503 burst must be
+                # visible in /traces.json, not just as a counter
+                tr = obs_trace.current_trace()
+                if tr is not None:
+                    now = time.perf_counter()
+                    tr.add_span("serve.unavailable", now, now)
+                return Response(
+                    status=503,
+                    body={"message": str(e)},
+                    headers={"Retry-After": "1"},
+                )
+            except (TypeError, KeyError, ValueError) as e:
+                # reference: MappingException -> 400 + remote log
+                # (CreateServer.scala:596-604)
+                server._remote_log(
+                    f"Query:\n{request.body.decode(errors='replace')}\n\n"
+                    f"Error:\n{e}\n\n"
+                )
+                return Response.error(f"Your query is not valid. {e}", 400)
+            except Exception as e:
+                # reference: Throwable -> 500 + remote log (:605-618)
+                logger.exception("serving failed")
+                server._remote_log(
+                    f"Query:\n{request.body.decode(errors='replace')}\n\n"
+                    f"Error:\n{e}\n\n"
+                )
+                return Response.error(f"serving failed: {e}", 500)
+
+        @router.route("POST", "/queries.json")
+        def queries(request: Request) -> Response:
+            v = _resolve_header_variant(request)
+            if v is None:
+                return Response.error(
+                    "unknown engine variant "
+                    f"{request.headers.get('x-pio-variant')!r}", 404
+                )
+            return _handle_queries(request, v)
+
+        def _handle_reload(request: Request, v: "_Variant") -> Response:
+            if not server._auth_control(request):
+                return Response.error("Invalid accessKey.", 401)
+            ok = server.reload(v)
+            if not ok:
+                return Response.error("no completed engine instance found", 404)
+            return Response.json({"message": "Reloading..."})
+
+        @router.route("POST", "/reload")
+        def reload(request: Request) -> Response:
+            v = _resolve_header_variant(request)
+            if v is None:
+                return Response.error(
+                    "unknown engine variant "
+                    f"{request.headers.get('x-pio-variant')!r}", 404
+                )
+            return _handle_reload(request, v)
+
+        @router.route("POST", "/stop")
+        def stop(request: Request) -> Response:
+            if not server._auth_control(request):
+                return Response.error("Invalid accessKey.", 401)
+            response = Response.json({"message": "Shutting down..."})
+            response.after_send = server.stop  # runs after the bytes flush
+            return response
+
+        @router.route("GET", "/plugins.json")
+        def plugins_route(request: Request) -> Response:
+            return Response.json(
+                {
+                    "plugins": {
+                        p.plugin_name: {
+                            "outputblocker": p.plugin_type
+                            == plugin_mod.OUTPUT_BLOCKER,
+                            "description": p.plugin_description,
+                        }
+                        for p in server.plugins
+                    }
+                }
+            )
+
+        @router.route("GET", "/plugins/<name>.json")
+        def plugin_rest(request: Request) -> Response:
+            name = request.path_params["name"]
+            for p in server.plugins:
+                if p.plugin_name == name:
+                    return Response.json(p.handle_rest(dict(request.query)))
+            return Response.error("plugin not found", 404)
+
+        # path-prefix tenant routing: /<variant>/queries.json is the
+        # load-balancer-friendly form of the X-PIO-Variant header. The
+        # exact routes above win first (registration order), so a mount
+        # can never shadow /plugins.json or /stats.json.
+        @router.route("POST", "/<variant>/queries.json")
+        def variant_queries(request: Request) -> Response:
+            v = server.variants.get(request.path_params["variant"])
+            if v is None:
+                return Response.error(
+                    f"unknown engine variant "
+                    f"{request.path_params['variant']!r}", 404
+                )
+            return _handle_queries(request, v)
+
+        @router.route("POST", "/<variant>/reload")
+        def variant_reload(request: Request) -> Response:
+            v = server.variants.get(request.path_params["variant"])
+            if v is None:
+                return Response.error(
+                    f"unknown engine variant "
+                    f"{request.path_params['variant']!r}", 404
+                )
+            return _handle_reload(request, v)
+
+        add_obs_routes(router)
+        return router
+
+    def _auth_control(self, request: Request) -> bool:
+        """/reload and /stop are guarded by the server key when set
+        (reference common KeyAuthentication). When a ServerConfig is
+        present its enforcement flag decides — an enforced-but-empty key
+        still requires a matching (empty-string) param rather than
+        silently disabling auth."""
+        if self.server_config is not None:
+            allowed = KeyAuthentication(self.server_config).authorized(request.query)
+            if not allowed:
+                return False
+            if self.server_key is None:
+                return True
+        if not self.server_key:
+            return True
+        return request.query.get("accessKey") == self.server_key
+
     # -- lifecycle ---------------------------------------------------------
     def warmup(self) -> int:
-        """Score each algorithm's ``warmup_query`` once before the port
-        binds: the kernels build and the factor tables go up to the
-        device here, not on the first request. A failure raises -- a
-        server that cannot score does not start. Returns how many
-        algorithms were warmed."""
+        """Deploy-time warmup: one throwaway ``batch_predict`` per
+        algorithm of every mount BEFORE the port binds, so the CUDA
+        kernels build and the factor tables go up to the device here,
+        not on the first real query. Queries come from each algorithm's
+        ``warmup_query`` hook. A failure raises — a server that cannot
+        score does not start (the JAX server logs and swallows it).
+        Returns how many algorithms were warmed."""
         warmed = 0
-        for a, m in zip(self.algorithms, self.models):
-            q = a.warmup_query(m)
-            if q is None:
-                continue
-            t0 = time.perf_counter()
-            a.batch_predict(m, [(0, q)])
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            logger.info(
-                "warmup: %s scored in %.3fs", type(a).__name__,
-                time.perf_counter() - t0,
-            )
-            warmed += 1
+        # normally warmup runs before the port binds, but late warmups
+        # can overlap live traffic — those queries get 503 + Retry-After
+        # instead of queueing behind the kernel build
+        self._swapping.set()
+        try:
+            for v in self.variants.values():
+                with self._lock:
+                    algorithms, models = v.algorithms, v.models
+                for a, m in zip(algorithms, models):
+                    q = a.warmup_query(m)
+                    if q is None:
+                        continue
+                    t0 = time.perf_counter()
+                    a.batch_predict(m, [(0, q)])
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    logger.info(
+                        "warmup: %s built+scored in %.3fs",
+                        type(a).__name__, time.perf_counter() - t0,
+                    )
+                    warmed += 1
+        finally:
+            self._swapping.clear()
         return warmed
 
+    def _ready_reason(self) -> str | None:
+        """The engine half of ``/readyz`` (the HTTPApp adds the draining
+        check): warmup/model-swap fencing and a loaded model on every
+        mount."""
+        if self._swapping.is_set():
+            return "model swap/warmup in progress"
+        for v in self.variants.values():
+            if not v.models:
+                return f"no model loaded ({v.name})"
+        return None
+
+    def _drain_flush(self) -> None:
+        if self.batcher is not None:
+            self.batcher.stop()
+
     def start(self, background: bool = True) -> int:
-        """Bind and serve; returns the bound port (``port=0`` picks a
-        free one). ``background=False`` blocks until :meth:`stop`."""
-        self._httpd = ThreadingHTTPServer((self.host, self.port), _handler(self))
-        self._httpd.daemon_threads = True
-        self.port = self._httpd.server_address[1]
-        logger.info("Engine Server listening on %s:%d", self.host, self.port)
-        if background:
-            self._thread = threading.Thread(
-                target=self._httpd.serve_forever, name="engine-server", daemon=True
-            )
-            self._thread.start()
-        else:
-            self._httpd.serve_forever()
-        return self.port
+        port = self.app.start(background=background)
+        logger.info("Engine Server listening on %s:%d", self.host, port)
+        return port
+
+    def drain(self) -> None:
+        """Graceful shutdown: finish in-flight queries, stop the
+        micro-batcher, then stop."""
+        self.app.drain()
 
     def stop(self) -> None:
-        if self._httpd is not None:
-            self._httpd.shutdown()
-            self._httpd.server_close()
-            self._httpd = None
-        if self._thread is not None:
-            self._thread.join(timeout=10)
-            self._thread = None
-
-
-def _handler(server: EngineServer) -> type[BaseHTTPRequestHandler]:
-    class Handler(BaseHTTPRequestHandler):
-        protocol_version = "HTTP/1.1"
-        # StreamRequestHandler sets it on the socket; handle_one_request
-        # closes a connection whose read (or write) times out
-        timeout = server.read_timeout
-
-        def setup(self):
-            super().setup()
-            # headers and body go out as two writes: without NODELAY,
-            # Nagle holds the body for the client's delayed ACK (~40 ms)
-            self.connection.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-
-        def log_message(self, fmt, *args):  # route to logging, not stderr
-            logger.debug("%s " + fmt, self.address_string(), *args)
-
-        def _send(self, status: int, payload: bytes, close: bool = False) -> None:
-            self.send_response(status)
-            self.send_header("Content-Type", "application/json; charset=utf-8")
-            self.send_header("Content-Length", str(len(payload)))
-            if close:  # also sets close_connection
-                self.send_header("Connection", "close")
-            self.end_headers()
-            self.wfile.write(payload)
-
-        def _error(self, status: int, message: str, close: bool = False) -> None:
-            self._send(status, jsonx.dumps_bytes({"message": message}), close)
-
-        def _body_length(self) -> int | None:
-            """The body's length from the framing headers, or None once a
-            framing error has been answered (and the connection marked to
-            close: the unread body must not be parsed as a request)."""
-            # every Transfer-Encoding header, not the first: a chunked one
-            # after an identity one still frames the body
-            for te in self.headers.get_all("Transfer-Encoding") or ():
-                te = te.strip().lower()
-                if te and te != "identity":
-                    self._error(501, f"Transfer-Encoding {te!r} is not supported",
-                                close=True)
-                    return None
-            values = {v.strip() for v in self.headers.get_all("Content-Length") or ()}
-            if len(values) > 1:
-                self._error(400, "conflicting Content-Length headers", close=True)
-                return None
-            try:  # an empty value counts as 0, as in the JAX parser
-                length = int(values.pop() or 0) if values else 0
-            except ValueError:
-                self._error(400, "Content-Length is not an integer", close=True)
-                return None
-            if length < 0:
-                self._error(400, "Content-Length is negative", close=True)
-                return None
-            return length
-
-        def do_GET(self):
-            if self.path.split("?", 1)[0] == "/":
-                self._send(200, jsonx.dumps_bytes(server.status()))
-            else:
-                self._error(404, f"no route for GET {self.path}")
-
-        def do_POST(self):
-            length = self._body_length()
-            if length is None:
-                return
-            raw = self.rfile.read(length) if length else b""
-            if self.path.split("?", 1)[0] != "/queries.json":
-                self._error(404, f"no route for POST {self.path}")
-                return
-            try:
-                body = jsonx.loads(raw) if raw else None
-            except (ValueError, UnicodeDecodeError) as e:
-                self._error(400, f"request body is not JSON: {e}")
-                return
-            if not isinstance(body, dict):
-                self._error(400, "request body must be a JSON object")
-                return
-            try:
-                payload = jsonx.dumps_bytes(server.handle_query(body))
-            except (TypeError, KeyError, ValueError) as e:
-                self._error(400, f"Your query is not valid. {e}")
-                return
-            except Exception as e:
-                logger.exception("serving failed")
-                self._error(500, f"serving failed: {e}")
-                return
-            self._send(200, payload)
-
-    return Handler
-
+        if self.batcher is not None:
+            self.batcher.stop()
+        self.app.stop()

@@ -1,0 +1,1474 @@
+"""Event-loop HTTP server + routing shared by all framework servers.
+
+Plays the role of spray-can/akka-http in the reference (request routing,
+JSON marshalling, access-key auth), with no third-party dependencies.
+
+Concurrency model (the thread-per-connection ``ThreadingHTTPServer`` it
+replaced capped keep-alive concurrency at the thread count):
+
+- ONE selector thread owns the listen socket, every idle keep-alive
+  connection, and a timer wheel (``call_later``). 1k+ idle connections
+  cost file descriptors, not stacks.
+- A readable connection is unregistered and handed to a small worker
+  pool, which runs the ``recv_into`` parser + router dispatch with
+  blocking reads bounded by ``read_timeout`` (the slowloris bound),
+  then hands the connection back to the selector.
+- Low-concurrency latency: when few connections are open, the worker
+  LINGERS briefly on the socket after responding, so a busy keep-alive
+  client keeps its thread-per-connection round-trip time and only pays
+  the selector hop when the server is actually fan-out loaded.
+- The timer wheel doubles as the engine server's query-deadline clock
+  (``HTTPApp.call_later``) — deadline expiry is a heap entry, not a
+  standing watcher pool.
+"""
+
+from __future__ import annotations
+
+import base64
+import collections
+import heapq
+import itertools
+import json
+import logging
+import os
+import re
+import select as select_mod
+import selectors
+import signal as signal_mod
+import socket
+import threading
+import time
+import uuid
+from dataclasses import dataclass, field
+from http.client import responses as _RESPONSES
+from typing import Any, Callable
+from urllib.parse import parse_qs, urlparse
+
+from predictionio_tpu_torch import faults
+from predictionio_tpu_torch.obs import device as obs_device
+from predictionio_tpu_torch.obs import history as obs_history
+from predictionio_tpu_torch.obs import incident as obs_incident
+from predictionio_tpu_torch.obs import metrics as obs_metrics
+from predictionio_tpu_torch.obs import slo as obs_slo
+from predictionio_tpu_torch.obs import trace as obs_trace
+from predictionio_tpu_torch.server import jsonx
+
+logger = logging.getLogger(__name__)
+
+
+@dataclass
+class Request:
+    method: str
+    path: str
+    query: dict[str, str]
+    headers: dict[str, str]
+    body: bytes
+    path_params: dict[str, str] = field(default_factory=dict)
+    # set only for stream routes (Router.add_stream): an incremental
+    # body reader (_BodyStream) handed to the handler BEFORE the body is
+    # read off the socket; ``body`` stays b"" on those requests
+    body_stream: "Any | None" = None
+
+    def json(self) -> Any:
+        if not self.body:
+            return None
+        # orjson when available (event-server ingest parses one body per
+        # request on the hot path), stdlib fallback — server/jsonx.py
+        return jsonx.loads(self.body)
+
+    def form(self) -> dict[str, str]:
+        parsed = parse_qs(self.body.decode("utf-8"), keep_blank_values=True)
+        return {k: v[0] for k, v in parsed.items()}
+
+    @property
+    def access_key(self) -> str | None:
+        """accessKey from query param or HTTP basic auth username
+        (reference EventServer withAccessKeyFromQueryOrBasicAuth,
+        api/EventServer.scala:92-120)."""
+        if "accessKey" in self.query:
+            return self.query["accessKey"]
+        auth = self.headers.get("authorization", "")
+        if auth.lower().startswith("basic "):
+            try:
+                decoded = base64.b64decode(auth[6:]).decode("utf-8")
+                return decoded.split(":", 1)[0] or None
+            except Exception:
+                return None
+        return None
+
+
+@dataclass
+class Response:
+    status: int = 200
+    # JSON-serializable object; or (content_type, bytes); or raw bytes
+    # already JSON-encoded (sent verbatim — the query-cache hit path and
+    # any other preserialized producer skip the re-encode)
+    body: Any = None
+    headers: dict[str, str] = field(default_factory=dict)
+    # invoked after the response bytes are written — lets a /stop route
+    # shut the server down without racing its own response flush
+    after_send: "Callable[[], None] | None" = None
+
+    @staticmethod
+    def json(obj: Any, status: int = 200) -> "Response":
+        return Response(status=status, body=obj)
+
+    @staticmethod
+    def json_bytes(payload: bytes, status: int = 200) -> "Response":
+        """Pre-encoded JSON sent as-is (no dumps on the send path)."""
+        return Response(status=status, body=payload)
+
+    @staticmethod
+    def error(message: str, status: int) -> "Response":
+        return Response(status=status, body={"message": message})
+
+    @staticmethod
+    def html(text: str, status: int = 200) -> "Response":
+        return Response(status=status, body=("text/html; charset=utf-8", text.encode()))
+
+
+Handler = Callable[[Request], Response]
+
+
+_JSON_CT = "application/json; charset=utf-8"
+
+# (status, phrase) -> full response bytes for header-only error replies,
+# and (status, content_type) -> static head prefix up to "Content-Length: ".
+# Built lazily ONCE per distinct shape instead of f-string-assembled per
+# request — the measured per-request floor is dominated by exactly this
+# kind of per-call byte construction.
+_SIMPLE_CACHE: dict[tuple[int, str], bytes] = {}
+_HEAD_CACHE: dict[tuple[int, str], bytes] = {}
+
+
+def _simple_bytes(status: int, phrase: str) -> bytes:
+    # unlike the JAX package's empty body, a parse reject carries the
+    # same {"message": ...} JSON as every other error of the port
+    key = (status, phrase)
+    payload = _SIMPLE_CACHE.get(key)
+    if payload is None:
+        body = jsonx.dumps_bytes({"message": phrase})
+        payload = (
+            f"HTTP/1.1 {status} {phrase}\r\n"
+            "Content-Type: application/json; charset=utf-8\r\n"
+            f"Content-Length: {len(body)}\r\nConnection: close\r\n\r\n"
+        ).encode("latin-1") + body
+        _SIMPLE_CACHE[key] = payload
+    return payload
+
+
+def _static_head(status: int, content_type: str) -> bytes:
+    """Everything before the Content-Length VALUE, precomputed."""
+    key = (status, content_type)
+    head = _HEAD_CACHE.get(key)
+    if head is None:
+        phrase = _RESPONSES.get(status, "")
+        head = (
+            f"HTTP/1.1 {status} {phrase}\r\n"
+            f"Content-Type: {content_type}\r\nContent-Length: "
+        ).encode("latin-1")
+        _HEAD_CACHE[key] = head
+    return head
+
+
+_CORS_ALLOW_HEADERS = (
+    "Origin, X-Requested-With, Content-Type, Accept, Accept-Encoding, "
+    "Accept-Language, Host, Referer, User-Agent"
+)
+
+
+class Router:
+    """Method+path-pattern routing. Patterns use ``<name>`` segments.
+
+    ``cors=True`` answers OPTIONS preflights and stamps
+    ``Access-Control-Allow-Origin: *`` on every response (reference
+    tools/.../dashboard/CorsSupport.scala — AllOrigins)."""
+
+    def __init__(self, cors: bool = False) -> None:
+        self._routes: list[tuple[str, re.Pattern, Handler]] = []
+        # stream routes dispatch BEFORE the body is read: the handler
+        # gets request.body_stream and consumes the body incrementally
+        # (the wire-speed binary ingest path commits frame by frame
+        # instead of materializing the whole body)
+        self._stream_routes: list[tuple[str, re.Pattern, Handler]] = []
+        self.cors = cors
+
+    def add(self, method: str, pattern: str, handler: Handler) -> None:
+        # <name> matches one segment; <name:path> greedily matches the
+        # rest of the path (plugin REST dispatch forwards sub-paths)
+        regex = re.sub(r"<([a-zA-Z_]+):path>", r"(?P<\1>.+)", pattern)
+        # the lookbehind keeps this from rewriting the <name> inside the
+        # (?P<name>...) groups the first pass just emitted
+        regex = re.sub(r"(?<!\(\?P)<([a-zA-Z_]+)>", r"(?P<\1>[^/]+)", regex)
+        self._routes.append((method.upper(), re.compile(f"^{regex}$"), handler))
+
+    def route(self, method: str, pattern: str):
+        def deco(fn: Handler) -> Handler:
+            self.add(method, pattern, fn)
+            return fn
+
+        return deco
+
+    def add_stream(self, method: str, pattern: str, handler: Handler) -> None:
+        """Register a streaming-body route (same pattern syntax as
+        :meth:`add`). Matched requests dispatch with the body still on
+        the socket: ``request.body_stream.read(n)`` pulls it
+        incrementally, ``request.body`` is empty."""
+        regex = re.sub(r"<([a-zA-Z_]+):path>", r"(?P<\1>.+)", pattern)
+        regex = re.sub(r"(?<!\(\?P)<([a-zA-Z_]+)>", r"(?P<\1>[^/]+)", regex)
+        self._stream_routes.append(
+            (method.upper(), re.compile(f"^{regex}$"), handler)
+        )
+
+    def match_stream(
+        self, method: str, path: str
+    ) -> tuple[Handler, dict[str, str]] | None:
+        for m, regex, handler in self._stream_routes:
+            if m != method:
+                continue
+            match = regex.match(path)
+            if match:
+                return handler, match.groupdict()
+        return None
+
+    def dispatch(self, request: Request) -> Response:
+        response = self._dispatch(request)
+        if self.cors:
+            response.headers.setdefault("Access-Control-Allow-Origin", "*")
+        return response
+
+    def _dispatch(self, request: Request) -> Response:
+        path_matched = False
+        allowed: list[str] = []
+        for method, regex, handler in self._routes:
+            m = regex.match(request.path)
+            if not m:
+                continue
+            path_matched = True
+            allowed.append(method)
+            if method != request.method:
+                continue
+            request.path_params = m.groupdict()
+            return handler(request)
+        if path_matched:
+            if self.cors and request.method == "OPTIONS":
+                # preflight for a resource that responds to other methods
+                return Response(
+                    200,
+                    body=("text/plain", b""),
+                    headers={
+                        "Access-Control-Allow-Methods": ", ".join(
+                            ["OPTIONS", *dict.fromkeys(allowed)]
+                        ),
+                        "Access-Control-Allow-Headers": _CORS_ALLOW_HEADERS,
+                        "Access-Control-Max-Age": "1728000",
+                    },
+                )
+            return Response.error("method not allowed", 405)
+        return Response.error("not found", 404)
+
+
+_PROM_CT = "text/plain; version=0.0.4; charset=utf-8"
+
+
+def add_obs_routes(router: Router) -> None:
+    """Mount ``GET /metrics`` (Prometheus text format),
+    ``GET /traces.json`` (slowest recent traces; ``?limit=N`` caps the
+    list, ``?since_ms=`` drops traces that started before the given
+    epoch-milliseconds, ``?slo=violated`` keeps only traces tagged as
+    SLO evidence), ``GET /slo.json`` (objective states, burn rates, and
+    the alert ring), ``GET /history.json`` (bounded metrics history
+    rings; ``?metric=`` substring filter, ``?since_ms=`` cutoff,
+    ``?step=`` re-grids onto a coarser step), ``POST /incident``
+    (on-demand flight-recorder bundle, ``?reason=``/``?note=``), and
+    ``POST /profile`` (bounded on-demand ``torch.profiler`` capture,
+    ``?seconds=``/``?out=``). The GET endpoints are unauthenticated on
+    every server — standard scraper behavior; none exposes event data.
+
+    Mounting also arms the passive obs machinery the routes read from:
+    the history sampler's ticker and the flight recorder's crash/SLO
+    hooks — both no-ops under ``PIO_OBS=0``."""
+    obs_history.ensure_ticker()
+    obs_incident.install_crash_hooks()
+
+    def _metrics_route(_req: Request) -> Response:
+        # Registers the per-device memory gauges on first scrape after
+        # CUDA came up; a no-op (and CUDA-init-free) before that.
+        obs_device.ensure_device_gauges()
+        return Response(200, body=(_PROM_CT, obs_metrics.render_prometheus()))
+
+    def _traces_route(req: Request) -> Response:
+        traces = obs_trace.TRACES.snapshot()
+        slo_filter = req.query.get("slo")
+        if slo_filter is not None:
+            if slo_filter != "violated":
+                return Response.error("slo filter must be 'violated'", 400)
+            traces = [t for t in traces if t.get("sloViolated")]
+        since_ms = req.query.get("since_ms")
+        if since_ms is not None:
+            try:
+                cutoff = float(since_ms)
+            except ValueError:
+                return Response.error("since_ms must be a number", 400)
+            traces = [t for t in traces if t["start"] * 1000.0 >= cutoff]
+        limit = req.query.get("limit")
+        if limit is not None:
+            try:
+                n = int(limit)
+            except ValueError:
+                return Response.error("limit must be an integer", 400)
+            if n < 0:
+                return Response.error("limit must be >= 0", 400)
+            traces = traces[:n]
+        return Response.json({"traces": traces})
+
+    def _profile_route(req: Request) -> Response:
+        try:
+            seconds = float(req.query.get("seconds", "2"))
+        except ValueError:
+            return Response.error("seconds must be a number", 400)
+        try:
+            result = obs_device.profile_capture(
+                seconds, out_dir=req.query.get("out") or None
+            )
+        except RuntimeError as exc:
+            return Response.error(str(exc), 409)
+        except Exception as exc:  # profiler failure
+            return Response.error(f"profile capture failed: {exc}", 500)
+        return Response.json(result)
+
+    def _slo_route(_req: Request) -> Response:
+        return Response.json(obs_slo.document())
+
+    def _history_route(req: Request) -> Response:
+        since_ms = req.query.get("since_ms")
+        cutoff = None
+        if since_ms is not None:
+            try:
+                cutoff = float(since_ms)
+            except ValueError:
+                return Response.error("since_ms must be a number", 400)
+        step = req.query.get("step")
+        step_s = None
+        if step is not None:
+            try:
+                step_s = float(step)
+            except ValueError:
+                return Response.error("step must be a number", 400)
+            if step_s <= 0:
+                return Response.error("step must be > 0", 400)
+        return Response.json(
+            obs_history.snapshot(
+                metric=req.query.get("metric") or None,
+                since_ms=cutoff,
+                step_s=step_s,
+            )
+        )
+
+    def _incident_route(req: Request) -> Response:
+        if not obs_metrics.enabled():
+            return Response.error("observability disabled (PIO_OBS=0)", 503)
+        try:
+            path = obs_incident.record(
+                req.query.get("reason") or "manual",
+                note=req.query.get("note") or None,
+                force=True,
+            )
+        except Exception as exc:
+            return Response.error(f"incident dump failed: {exc}", 500)
+        return Response.json(
+            {
+                "ok": path is not None,
+                "incident": str(path) if path else None,
+                "files": list(obs_incident.BUNDLE_FILES),
+            }
+        )
+
+    router.add("GET", "/metrics", _metrics_route)
+    router.add("GET", "/traces.json", _traces_route)
+    router.add("GET", "/slo.json", _slo_route)
+    router.add("GET", "/history.json", _history_route)
+    router.add("POST", "/incident", _incident_route)
+    router.add("POST", "/profile", _profile_route)
+
+
+class _ConnReader:
+    """Per-connection request reader over ONE reusable ``recv_into``
+    buffer.
+
+    The stdlib path (``socket.makefile`` -> BufferedReader) allocates a
+    fresh 64 KiB buffer per connection and crosses the C/Python boundary
+    once per ``readline`` — ~8 crossings per request (request line + 5-7
+    headers). A keep-alive request usually lands in ONE TCP segment, so
+    one ``recv_into`` into a reused bytearray followed by C-speed
+    ``find(b"\\n")`` scans serves the whole request with a single
+    syscall and zero per-request buffer allocations (only the returned
+    line/body bytes are materialized). Interface matches what
+    ``handle_one_request`` used from ``rfile``: ``readline(limit)``
+    (up to ``limit`` bytes, newline-terminated unless truncated/EOF) and
+    ``read(n)`` (short only at EOF). Works unchanged over TLS —
+    ``SSLSocket.recv_into`` drives the lazy server-side handshake the
+    accept path deferred."""
+
+    __slots__ = ("_sock", "_buf", "_start", "_end")
+
+    def __init__(self, sock, bufsize: int = 65536):
+        self._sock = sock
+        self._buf = bytearray(bufsize)
+        self._start = 0
+        self._end = 0
+
+    def buffered(self) -> int:
+        """Bytes already consumed from the kernel but not yet parsed —
+        the event loop must NOT park a connection with a pipelined
+        request sitting here (the selector can't see user-space bytes)."""
+        return self._end - self._start
+
+    def _fill(self) -> bool:
+        """recv more bytes; False on EOF. Compacts before recv when the
+        tail of the buffer is exhausted."""
+        buf = self._buf
+        if self._start == self._end:
+            self._start = self._end = 0
+        elif self._end == len(buf):
+            n = self._end - self._start
+            buf[:n] = buf[self._start:self._end]
+            self._start, self._end = 0, n
+        with memoryview(buf) as mv:
+            got = self._sock.recv_into(mv[self._end:])
+        if got == 0:
+            return False
+        self._end += got
+        return True
+
+    def readline(self, limit: int) -> bytes:
+        """Up to ``limit`` bytes ending at the first ``\\n``; exactly
+        ``limit`` bytes when no newline fits (caller rejects oversized
+        lines); whatever remains at EOF (b"" when nothing)."""
+        while True:
+            i = self._buf.find(b"\n", self._start, self._end)
+            if i >= 0 and i - self._start < limit:
+                line = bytes(self._buf[self._start:i + 1])
+                self._start = i + 1
+                return line
+            if self._end - self._start >= limit:
+                line = bytes(self._buf[self._start:self._start + limit])
+                self._start += limit
+                return line
+            if not self._fill():
+                line = bytes(self._buf[self._start:self._end])
+                self._start = self._end
+                return line
+
+    def read(self, n: int) -> bytes:
+        """Exactly ``n`` body bytes (fewer only at EOF). Whatever the
+        header recv over-read is consumed from the buffer; any remainder
+        recv_into's DIRECTLY into the result — no double buffering."""
+        have = min(n, self._end - self._start)
+        if have == n:
+            body = bytes(self._buf[self._start:self._start + n])
+            self._start += n
+            return body
+        out = bytearray(n)
+        out[:have] = self._buf[self._start:self._start + have]
+        self._start += have
+        filled = have
+        with memoryview(out) as mv:
+            while filled < n:
+                got = self._sock.recv_into(mv[filled:])
+                if got == 0:
+                    return bytes(out[:filled])
+                filled += got
+        return bytes(out)
+
+
+class _BodyStream:
+    """Incremental request-body reader handed to stream routes
+    (``Router.add_stream``): bounded by Content-Length, so it can never
+    read into the next pipelined request. An ``Expect: 100-continue`` is
+    answered lazily on the FIRST read — a handler that sheds the request
+    (backpressure 429) before touching the body never invites the client
+    to send it."""
+
+    __slots__ = ("_reader", "_sock", "remaining", "_continue_pending")
+
+    def __init__(self, reader, sock, length: int, continue_pending: bool):
+        self._reader = reader
+        self._sock = sock
+        self.remaining = length
+        self._continue_pending = continue_pending
+
+    def read(self, n: int) -> bytes:
+        if n <= 0 or self.remaining <= 0:
+            return b""
+        if self._continue_pending:
+            self._continue_pending = False
+            self._sock.sendall(b"HTTP/1.1 100 Continue\r\n\r\n")
+        data = self._reader.read(min(n, self.remaining))
+        self.remaining -= len(data)
+        if not data:
+            self.remaining = 0  # client EOF mid-body
+        return data
+
+
+class _TimerHandle:
+    """One timer-wheel entry; ``cancel()`` is lazy (the loop skips
+    cancelled entries when they surface at the top of the heap)."""
+
+    __slots__ = ("when", "seq", "fn", "cancelled")
+
+    def __init__(self, when: float, seq: int, fn: Callable[[], None]):
+        self.when = when
+        self.seq = seq
+        self.fn = fn
+        self.cancelled = False
+
+    def cancel(self) -> None:
+        self.cancelled = True
+
+    def __lt__(self, other: "_TimerHandle") -> bool:
+        return (self.when, self.seq) < (other.when, other.seq)
+
+
+class _Connection:
+    """One accepted socket's state: reader, keep-alive flag, idle timer.
+
+    Ownership invariant: a connection is either REGISTERED with the
+    selector (loop thread owns it) or ACTIVE in exactly one worker —
+    never both. The loop unregisters before handing it to the pool and
+    only the owning worker re-registers it, so reads, writes, and
+    ``close`` never race."""
+
+    __slots__ = (
+        "app", "sock", "addr", "reader", "close_connection",
+        "_rfile", "idle_timer",
+    )
+
+    def __init__(self, app: "HTTPApp", sock, addr):
+        self.app = app
+        self.sock = sock
+        self.addr = addr
+        self.reader = None
+        self._rfile = None
+        self.close_connection = False
+        self.idle_timer: _TimerHandle | None = None
+
+    def _ensure_reader(self):
+        r = self.reader
+        if r is None:
+            if self.app.recv_buffer:
+                r = _ConnReader(self.sock)
+            else:
+                # the stdlib rfile exposes the same readline/read shape —
+                # it IS the fallback reader
+                r = self._rfile = self.sock.makefile("rb")
+            self.reader = r
+        return r
+
+    def buffered(self) -> bool:
+        """True when a pipelined request (or part of one) is already in
+        user space — in the reader's buffer or, over TLS, decrypted
+        inside the SSL layer (``pending``). The selector only sees
+        kernel-buffered bytes, so parking a connection with either
+        non-empty would strand the request."""
+        r = self.reader
+        if isinstance(r, _ConnReader) and r.buffered():
+            return True
+        pending = getattr(self.sock, "pending", None)
+        if pending is not None:
+            try:
+                return pending() > 0
+            except (OSError, ValueError):
+                return False
+        return False
+
+    def close(self) -> None:
+        self.app._untrack(self)
+        if self._rfile is not None:
+            try:
+                self._rfile.close()
+            except OSError:
+                pass
+        try:
+            self.sock.close()
+        except OSError:
+            pass
+
+    # -- request cycle (runs in a worker thread) ---------------------------
+
+    def handle_one_request(self) -> None:
+        """Minimal HTTP/1.1 parse+dispatch+respond.
+
+        BaseHTTPRequestHandler routes headers through the email parser
+        and emits each response header as its own write — ~60% of a
+        keep-alive round trip's server cost on the ingest/serving hot
+        paths (measured: ~160 us/request floor). This parses the request
+        line + headers directly and sends each response as ONE buffer.
+        Scope matches what the framework's clients speak: method line,
+        case-insensitive headers, Content-Length bodies,
+        keep-alive/close, Expect: 100-continue; no chunked request
+        bodies (the reference's spray server also buffers full
+        entities)."""
+        app = self.app
+        self.close_connection = True
+        reader = self._ensure_reader()
+        try:
+            faults.fault_point("http.read")
+            line = reader.readline(65537)
+        except OSError:
+            return
+        if not line:
+            return
+        # request clock starts when the first line ARRIVES, so a
+        # keep-alive connection's idle wait never pollutes the
+        # read/parse span
+        t_start = time.perf_counter()
+        if len(line) > 65536:
+            self._send_simple(414, "URI Too Long")
+            return
+        try:
+            method, target, version = (
+                line.decode("latin-1").rstrip("\r\n").split(" ")
+            )
+        except ValueError:
+            self._send_simple(400, "Bad Request")
+            return
+        if not version.startswith("HTTP/"):
+            self._send_simple(400, "Bad Request")
+            return
+        if method not in (
+            "GET", "POST", "DELETE", "PUT", "OPTIONS"
+        ):
+            # a HEAD answered with a body would desync keep-alive
+            self._send_simple(501, "Unsupported method")
+            return
+        headers: dict[str, str] = {}
+        n_lines = 0
+        while True:
+            try:
+                h = reader.readline(65537)
+            except OSError:  # read timeout / client reset
+                return
+            if h in (b"\r\n", b"\n", b""):
+                break
+            n_lines += 1  # count LINES, not dict entries: a
+            # stream of repeated/colon-less lines must still
+            # trip the cap (stdlib _MAXHEADERS analog)
+            if len(h) > 65536 or n_lines > 256:
+                self._send_simple(431, "Header Fields Too Large")
+                return
+            k, sep, v = h.decode("latin-1").partition(":")
+            if sep:
+                key, val = k.strip().lower(), v.strip()
+                if key == "content-length" and headers.get(key, val) != val:
+                    # conflicting duplicate framing headers are
+                    # the classic smuggling vector (RFC 9112
+                    # §6.3): never silently pick one
+                    self._send_simple(400, "Bad Request")
+                    return
+                headers[key] = val
+        conn = headers.get("connection", "").lower()
+        self.close_connection = conn == "close" or (
+            version == "HTTP/1.0" and conn != "keep-alive"
+        )
+        te = headers.get("transfer-encoding", "").lower()
+        if te and te != "identity":
+            # chunked bodies are out of scope; treating them as
+            # body-less would desync the keep-alive stream
+            # (framing bytes parsed as the next request)
+            self._send_simple(501, "Transfer-Encoding unsupported")
+            return
+        expect_continue = (
+            headers.get("expect", "").lower() == "100-continue"
+        )
+        try:
+            length = int(headers.get("content-length") or 0)
+        except ValueError:
+            self._send_simple(400, "Bad Request")
+            return
+        if length < 0:
+            self._send_simple(400, "Bad Request")
+            return
+        parsed = urlparse(target)
+        stream_match = self.app.router.match_stream(method, parsed.path)
+        body_stream: _BodyStream | None = None
+        if stream_match is not None:
+            # stream route: dispatch BEFORE the body read — the handler
+            # pulls bytes incrementally (100-continue deferred to its
+            # first read, see _BodyStream)
+            body = b""
+            body_stream = _BodyStream(
+                reader, self.sock, length, expect_continue
+            )
+        else:
+            if expect_continue:
+                self.sock.sendall(b"HTTP/1.1 100 Continue\r\n\r\n")
+            try:
+                body = reader.read(length) if length > 0 else b""
+            except OSError:  # read timeout mid-body
+                return
+            if length > 0 and len(body) < length:
+                self.close_connection = True
+                return  # client died mid-body
+        q = {
+            k: v[0]
+            for k, v in parse_qs(
+                parsed.query, keep_blank_values=True
+            ).items()
+        }
+        request = Request(
+            method=method,
+            path=parsed.path,
+            query=q,
+            headers=headers,
+            body=body,
+            body_stream=body_stream,
+        )
+        draining = app._draining.is_set()
+        if draining and time.monotonic() >= app._drain_deadline:
+            # past the drain deadline: shed without dispatching (a
+            # stream-route body may still be on the socket — the close
+            # below resynchronizes the stream)
+            self.close_connection = True
+            shed = Response.error("draining", 503)
+            shed.headers["Connection"] = "close"
+            self._send(shed)
+            return
+        tr = None
+        t_parsed = 0.0
+        if obs_metrics.enabled():
+            # trace anchored at first-line arrival; an incoming
+            # X-PIO-Trace id stitches this hop into the caller's
+            # timeline (read/parse happened before the header was
+            # known, so its span is added retroactively)
+            t_parsed = time.perf_counter()
+            tr = obs_trace.Trace(
+                f"{method} {parsed.path}",
+                trace_id=headers.get("x-pio-trace"),
+                t0=t_start,
+            )
+            tr.add_span("http.read_parse", t_start, t_parsed)
+            obs_trace.set_current_trace(tr)
+        try:
+            if stream_match is not None:
+                handler, request.path_params = stream_match
+                response = handler(request)
+            else:
+                response = app.router.dispatch(request)
+        except json.JSONDecodeError:
+            response = Response.error("invalid JSON body", 400)
+        except OSError:
+            if stream_match is not None:
+                # read timeout / client reset while the handler was
+                # consuming the body stream: no usable response
+                self.close_connection = True
+                return
+            logger.exception(
+                "unhandled error on %s %s", method, parsed.path
+            )
+            response = Response.error("internal error", 500)
+        except Exception:
+            logger.exception(
+                "unhandled error on %s %s", method, parsed.path
+            )
+            response = Response.error("internal error", 500)
+        finally:
+            if tr is not None:
+                obs_trace.set_current_trace(None)
+        if body_stream is not None and body_stream.remaining > 0:
+            # the handler left body bytes on the socket (reject/shed):
+            # drain small remainders to preserve keep-alive, give up on
+            # large ones (the response still goes out; the close tells
+            # the client to stop sending)
+            if body_stream.remaining <= 262144 and not body_stream._continue_pending:
+                try:
+                    while body_stream.remaining > 0:
+                        if not body_stream.read(65536):
+                            break
+                except OSError:
+                    self.close_connection = True
+            else:
+                self.close_connection = True
+        if draining or app._draining.is_set():
+            # within the drain window (re-checked at send time: drain
+            # may have begun while this request was in flight): the
+            # request is served normally, but the connection is handed
+            # back to the client closed so its NEXT request reconnects
+            # (and lands on whichever listener still accepts — the
+            # rolling-restart handoff)
+            response.headers.setdefault("Connection", "close")
+            self.close_connection = True
+        if tr is not None:
+            # bookkeeping runs BEFORE the response bytes leave:
+            # once the client unblocks it starts contending for
+            # the GIL, and post-send bookkeeping then costs two
+            # forced thread switches per request — far more than
+            # the few µs of work itself. The measured duration
+            # excludes only the final buffered socket write.
+            t_end = time.perf_counter()
+            tr.add_span("dispatch", t_parsed, t_end)
+            tr.status = response.status
+            tr.duration_s = t_end - t_start
+            app._m_request.observe(t_end - t_start)
+            app._m_read_parse.observe(t_parsed - t_start)
+            app._m_requests.inc()
+            if response.status >= 500:
+                app._m_errors.inc()
+            obs_trace.TRACES.offer(tr)
+        self._send(response)
+
+    def _send_simple(self, status: int, phrase: str) -> None:
+        # cached constant bytes — parse-reject paths pay one
+        # dict lookup, not per-request string assembly
+        self.sock.sendall(_simple_bytes(status, phrase))
+        self.close_connection = True
+
+    def _head(self, response: Response, content_type: str,
+              extra: str) -> bytes:
+        phrase = _RESPONSES.get(response.status, "")
+        head = (
+            f"HTTP/1.1 {response.status} {phrase}\r\n"
+            f"Content-Type: {content_type}\r\n{extra}"
+        )
+        for k, v in response.headers.items():
+            head += f"{k}: {v}\r\n"
+        return (head + "\r\n").encode("latin-1")
+
+    def _send(self, response: Response) -> None:
+        if (
+            isinstance(response.body, tuple)
+            and not isinstance(response.body[1], (bytes, bytearray))
+        ):
+            # streaming body: (content_type, iterator-of-bytes).
+            # No Content-Length; Connection: close delimits the
+            # stream (bulk export of multi-GB logs must not
+            # materialize in server RSS)
+            content_type, chunks = response.body
+            self.sock.sendall(
+                self._head(response, content_type,
+                           "Connection: close\r\n")
+            )
+            for chunk in chunks:
+                if chunk:
+                    self.sock.sendall(chunk)
+            self.close_connection = True
+            if response.after_send is not None:
+                threading.Thread(
+                    target=response.after_send, daemon=True
+                ).start()
+            return
+        if isinstance(response.body, (bytes, bytearray)):
+            # pre-encoded JSON (query-cache hits and any other
+            # preserialized producer): sent verbatim, no dumps
+            content_type, payload = _JSON_CT, response.body
+        elif isinstance(response.body, tuple):
+            content_type, payload = response.body
+        else:
+            content_type = _JSON_CT
+            payload = jsonx.dumps_bytes(
+                response.body if response.body is not None else {}
+            )
+        if response.headers:
+            head = self._head(
+                response, content_type,
+                f"Content-Length: {len(payload)}\r\n",
+            )
+        else:
+            # common case: no custom headers — static prefix +
+            # the length digits, zero per-request f-strings
+            head = (
+                _static_head(response.status, content_type)
+                + b"%d\r\n\r\n" % len(payload)
+            )
+        self.sock.sendall(head + payload)
+        if response.after_send is not None:
+            threading.Thread(
+                target=response.after_send, daemon=True
+            ).start()
+
+
+class _EventLoop:
+    """Selector + timer wheel. Runs in one thread (or inline for
+    ``start(background=False)``); all selector/heap mutation happens on
+    that thread — cross-thread requests arrive via ``_pending`` and a
+    wake pipe."""
+
+    # select timeout floor when no timer is due: bounds stop() latency
+    # even if the wake-pipe write is lost
+    _IDLE_TICK = 5.0
+
+    def __init__(self, app: "HTTPApp", lsock: socket.socket):
+        self.app = app
+        self.lsock = lsock
+        self.selector = selectors.DefaultSelector()
+        self._wake_r, self._wake_w = os.pipe()
+        os.set_blocking(self._wake_r, False)
+        os.set_blocking(self._wake_w, False)
+        self.selector.register(self._wake_r, selectors.EVENT_READ, "wake")
+        self.selector.register(lsock, selectors.EVENT_READ, "accept")
+        self._timers: list[_TimerHandle] = []
+        self._tlock = threading.Lock()
+        self._seq = itertools.count()
+        self._pending: collections.deque[Callable[[], None]] = collections.deque()
+        self._stopping = False
+
+    # -- cross-thread API --------------------------------------------------
+
+    def call_later(self, delay: float, fn: Callable[[], None]) -> _TimerHandle:
+        h = _TimerHandle(time.monotonic() + max(0.0, delay), next(self._seq), fn)
+        with self._tlock:
+            heapq.heappush(self._timers, h)
+        self._wakeup()
+        return h
+
+    def call_soon(self, fn: Callable[[], None]) -> None:
+        self._pending.append(fn)
+        self._wakeup()
+
+    def stop(self) -> None:
+        self._stopping = True
+        self._wakeup()
+
+    def close_listener(self) -> None:
+        """Stop accepting (loop thread only — reach it via
+        ``call_soon``). Parked keep-alive connections stay registered;
+        with ``SO_REUSEPORT`` the kernel routes new connections to the
+        remaining same-port listeners."""
+        try:
+            self.selector.unregister(self.lsock)
+        except (KeyError, ValueError, OSError):
+            pass
+        try:
+            self.lsock.close()
+        except OSError:
+            pass
+
+    def _wakeup(self) -> None:
+        try:
+            os.write(self._wake_w, b"\0")
+        except OSError:
+            pass
+
+    # -- loop body (owning thread only) ------------------------------------
+
+    def run(self) -> None:
+        try:
+            while not self._stopping:
+                try:
+                    events = self.selector.select(self._next_timeout())
+                except OSError:
+                    continue
+                while self._pending:
+                    try:
+                        self._pending.popleft()()
+                    except Exception:
+                        logger.exception("event-loop callback failed")
+                for key, _ in events:
+                    data = key.data
+                    if data == "wake":
+                        try:
+                            while os.read(self._wake_r, 4096):
+                                pass
+                        except OSError:
+                            pass
+                    elif data == "accept":
+                        self._accept()
+                    else:
+                        self._on_readable(data)
+                self._fire_timers()
+        finally:
+            self._teardown()
+
+    def _next_timeout(self) -> float:
+        with self._tlock:
+            while self._timers and self._timers[0].cancelled:
+                heapq.heappop(self._timers)
+            if not self._timers:
+                return self._IDLE_TICK
+            return min(
+                self._IDLE_TICK,
+                max(0.0, self._timers[0].when - time.monotonic()),
+            )
+
+    def _fire_timers(self) -> None:
+        now = time.monotonic()
+        while True:
+            with self._tlock:
+                if not self._timers:
+                    return
+                top = self._timers[0]
+                if top.cancelled:
+                    heapq.heappop(self._timers)
+                    continue
+                if top.when > now:
+                    return
+                heapq.heappop(self._timers)
+            try:
+                top.fn()
+            except Exception:
+                logger.exception("timer callback failed")
+
+    def _accept(self) -> None:
+        # accept in a loop until the backlog drains (edge amortization);
+        # FaultError subclasses OSError, so an injected accept failure
+        # takes the same swallow-and-retry path a real transient accept
+        # error does (the pending connection stays in the backlog)
+        while True:
+            try:
+                faults.fault_point("http.accept")
+                sock, addr = self.lsock.accept()
+            except BlockingIOError:
+                return
+            except OSError:
+                return
+            self.app._setup_conn(sock, addr, self)
+
+    def register_conn(self, conn: _Connection) -> None:
+        """Park a connection with the selector until it turns readable;
+        arm its idle timer. Loop thread only — workers go through
+        ``call_soon``."""
+        try:
+            self.selector.register(conn.sock, selectors.EVENT_READ, conn)
+        except (KeyError, ValueError, OSError):
+            conn.close()
+            return
+        conn.idle_timer = self.call_later(
+            self.app.read_timeout, lambda: self._idle_close(conn)
+        )
+
+    def _idle_close(self, conn: _Connection) -> None:
+        # fires only while the conn is parked: if a worker claimed it the
+        # unregister below raises KeyError and we leave it alone
+        try:
+            self.selector.unregister(conn.sock)
+        except (KeyError, ValueError, OSError):
+            return
+        conn.close()
+
+    def _on_readable(self, conn: _Connection) -> None:
+        try:
+            self.selector.unregister(conn.sock)
+        except (KeyError, ValueError, OSError):
+            return
+        if conn.idle_timer is not None:
+            conn.idle_timer.cancel()
+            conn.idle_timer = None
+        self.app._submit_conn(conn)
+
+    def _teardown(self) -> None:
+        for key in list(self.selector.get_map().values()):
+            if isinstance(key.data, _Connection):
+                key.data.close()
+        try:
+            self.selector.close()
+        except OSError:
+            pass
+        try:
+            self.lsock.close()
+        except OSError:
+            pass
+        for fd in (self._wake_r, self._wake_w):
+            try:
+                os.close(fd)
+            except OSError:
+                pass
+
+
+class HTTPApp:
+    """A router bound to an event-loop front end with start/stop
+    lifecycle. Idle keep-alive connections are selector entries (fds);
+    only in-flight requests occupy worker threads."""
+
+    def __init__(
+        self,
+        router: Router,
+        host: str = "0.0.0.0",
+        port: int = 0,
+        ssl_context=None,
+        reuse_port: bool = False,
+        read_timeout: float = 120.0,
+        recv_buffer: bool = True,
+        name: str = "server",
+        handler_threads: int | None = None,
+        ready_check: "Callable[[], str | None] | None" = None,
+    ):
+        self.router = router
+        self.host = host
+        self.port = port
+        # server role label on this app's request metrics ("eventserver",
+        # "engine", ...) — one process can host several HTTPApps (tests)
+        self.name = name
+        self._m_request = obs_metrics.histogram(
+            "pio_http_request_seconds",
+            "End-to-end request handling time (read+parse+dispatch+send)",
+            server=name,
+        )
+        self._m_read_parse = obs_metrics.histogram(
+            "pio_http_read_parse_seconds",
+            "Request read+parse time, excluding keep-alive idle wait",
+            server=name,
+        )
+        self._m_requests = obs_metrics.counter(
+            "pio_http_requests_total", "Requests handled", server=name
+        )
+        self._m_errors = obs_metrics.counter(
+            "pio_http_errors_total", "Requests answered with 5xx", server=name
+        )
+        self._g_conns = obs_metrics.gauge(
+            "pio_http_open_connections",
+            "Accepted connections currently open (idle + in-flight)",
+            server=name,
+        )
+        # server-side TLS (reference SSLConfiguration sslContext wiring
+        # into spray; here an ssl.SSLContext wrapping the accepted socket)
+        self.ssl_context = ssl_context
+        # per-connection socket timeout: a client that stops sending
+        # mid-request (slowloris) releases its worker thread instead of
+        # pinning it forever; applies to plain TCP and TLS alike
+        self.read_timeout = read_timeout
+        # SO_REUSEPORT: N worker PROCESSES bind the same port and the
+        # kernel load-balances accepts — the multi-process scale-out
+        # path (`--workers`) past the single-interpreter GIL
+        self.reuse_port = reuse_port
+        # False falls back to the stdlib rfile (BufferedReader) request
+        # parse — kept for the bench's before/after http_floor_us
+        # comparison and as an escape hatch. Fallback connections stay
+        # worker-pinned for their whole life: the BufferedReader may
+        # hold pipelined bytes the selector cannot see.
+        self.recv_buffer = recv_buffer
+        # default 16, overridable per-process via PIO_HTTP_HANDLER_THREADS:
+        # the per-replica concurrency cap a scale-out fleet tunes so one
+        # replica's slot count — not the host's core count — bounds how
+        # many dispatch-bound queries it serves at once
+        if handler_threads is None:
+            try:
+                handler_threads = int(
+                    os.environ.get("PIO_HTTP_HANDLER_THREADS", "") or 16
+                )
+            except ValueError:
+                handler_threads = 16
+        self.handler_threads = max(1, int(handler_threads))
+        self._loop: _EventLoop | None = None
+        self._pool = None
+        self._thread: threading.Thread | None = None
+        self._conns: set[_Connection] = set()
+        self._conns_lock = threading.Lock()
+        # -- graceful lifecycle (liveness/readiness + drain) --------------
+        # per-boot identity: lets a health probe tell THIS instance from
+        # a foreign or stale listener on the same port
+        self.instance_id = uuid.uuid4().hex[:12]
+        # returns None when ready, else a human-readable reason — the
+        # server-specific half of /readyz (warmup, model, storage)
+        self.ready_check = ready_check
+        self._draining = threading.Event()
+        self._drain_deadline = float("inf")
+        self._shutdown_hooks: list[Callable[[], None]] = []
+        self._hooks_ran = False
+        self._active = 0  # connections currently inside a worker
+        router.add("GET", "/healthz", self._healthz_route)
+        router.add("GET", "/readyz", self._readyz_route)
+
+    # -- liveness / readiness ----------------------------------------------
+
+    @property
+    def draining(self) -> bool:
+        return self._draining.is_set()
+
+    def _healthz_route(self, _req: Request) -> Response:
+        """Liveness: the process is up and the loop answers. Returns the
+        per-boot instance id so callers can verify WHICH listener
+        answered (fixes the raw-TCP foreign-listener TOCTOU)."""
+        return Response.json({
+            "status": "ok",
+            "server": self.name,
+            "instance": self.instance_id,
+            "pid": os.getpid(),
+            "draining": self._draining.is_set(),
+        })
+
+    def _readyz_route(self, _req: Request) -> Response:
+        """Readiness: warmed up, dependencies reachable, not draining.
+        503 with a reason while not ready — load balancers and the
+        rolling-restart handoff key off this, not /healthz."""
+        reason: str | None = None
+        if self._draining.is_set():
+            reason = "draining"
+        elif self.ready_check is not None:
+            try:
+                reason = self.ready_check()
+            except Exception as exc:
+                reason = f"ready_check failed: {exc}"
+        doc = {
+            "ready": reason is None,
+            "server": self.name,
+            "instance": self.instance_id,
+        }
+        if reason is None:
+            return Response.json(doc)
+        doc["reason"] = reason
+        return Response.json(doc, status=503)
+
+    # -- graceful drain ----------------------------------------------------
+
+    def add_shutdown_hook(self, fn: Callable[[], None]) -> None:
+        """Register a flush hook (group-commit coalescers, tailer
+        cursors, ...) run exactly once after in-flight requests quiesce
+        during :meth:`drain`, before the loop stops."""
+        self._shutdown_hooks.append(fn)
+
+    def _run_shutdown_hooks(self) -> None:
+        with self._conns_lock:
+            if self._hooks_ran:
+                return
+            self._hooks_ran = True
+        for fn in self._shutdown_hooks:
+            try:
+                fn()
+            except Exception:
+                logger.exception("shutdown hook failed")
+
+    def begin_drain(self, timeout: float | None = None) -> float:
+        """Flip into draining (idempotent): stop accepting, fail
+        readiness, answer served requests with ``Connection: close``,
+        and shed everything past the deadline with 503. Returns the
+        monotonic drain deadline; does not block."""
+        if self._draining.is_set():
+            return self._drain_deadline
+        faults.fault_point("http.drain")
+        if timeout is None:
+            try:
+                timeout = float(
+                    os.environ.get("PIO_DRAIN_TIMEOUT_S", "") or 10.0
+                )
+            except ValueError:
+                timeout = 10.0
+        self._drain_deadline = time.monotonic() + max(0.0, timeout)
+        self._draining.set()
+        loop = self._loop
+        if loop is not None:
+            loop.call_soon(loop.close_listener)
+        return self._drain_deadline
+
+    def drain(self, timeout: float | None = None) -> None:
+        """Graceful shutdown: :meth:`begin_drain`, wait (bounded by the
+        deadline) for in-flight and parked keep-alive requests to
+        finish, run the shutdown hooks, then :meth:`stop`."""
+        deadline = self.begin_drain(timeout)
+        while time.monotonic() < deadline:
+            with self._conns_lock:
+                quiesced = self._active == 0 and not self._conns
+            if quiesced:
+                break
+            time.sleep(0.02)
+        self._run_shutdown_hooks()
+        self.stop()
+
+    def _install_signal_drain(self) -> None:
+        """SIGTERM -> drain -> clean loop exit (exit 0). Foreground
+        (main-thread) servers only: signal handlers cannot be installed
+        elsewhere."""
+        if threading.current_thread() is not threading.main_thread():
+            return
+
+        def _on_term(signum, frame):
+            threading.Thread(
+                target=self._drain_for_signal,
+                daemon=True,
+                name=f"pio-drain-{self.name}",
+            ).start()
+
+        try:
+            signal_mod.signal(signal_mod.SIGTERM, _on_term)
+        except (ValueError, OSError):  # pragma: no cover
+            pass
+
+    def _drain_for_signal(self) -> None:
+        try:
+            self.drain()
+        except Exception:
+            logger.exception("graceful drain failed; stopping hard")
+            self.stop()
+
+    # -- timer wheel (shared clock for query deadlines etc.) ---------------
+
+    def call_later(self, delay: float, fn) -> _TimerHandle | None:
+        """Schedule ``fn`` on the event loop's timer wheel. Returns a
+        cancellable handle, or None when the loop isn't running (caller
+        falls back to its own clock)."""
+        loop = self._loop
+        if loop is None or loop._stopping:
+            return None
+        return loop.call_later(delay, fn)
+
+    # -- connection plumbing ----------------------------------------------
+
+    def _track(self, conn: _Connection) -> None:
+        with self._conns_lock:
+            self._conns.add(conn)
+            self._g_conns.set(float(len(self._conns)))
+
+    def _untrack(self, conn: _Connection) -> None:
+        with self._conns_lock:
+            self._conns.discard(conn)
+            self._g_conns.set(float(len(self._conns)))
+
+    def _conn_count(self) -> int:
+        with self._conns_lock:
+            return len(self._conns)
+
+    def _setup_conn(self, sock, addr, loop: _EventLoop) -> None:
+        """Accept-path setup (loop thread): timeouts, TCP_NODELAY, and —
+        with TLS — wrap WITHOUT handshaking: the handshake happens lazily
+        on first read in the worker thread, so a silent client (TCP
+        health probe) can't stall the accept loop."""
+        try:
+            sock.settimeout(self.read_timeout)
+            # TCP_NODELAY: Nagle held small JSON responses back ~5ms a
+            # request (measured 171 -> 1287 rps on keep-alive ingest)
+            try:
+                sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            except OSError:
+                pass
+            if self.ssl_context is not None:
+                sock = self.ssl_context.wrap_socket(
+                    sock, server_side=True, do_handshake_on_connect=False
+                )
+        except OSError:
+            try:
+                sock.close()
+            except OSError:
+                pass
+            return
+        conn = _Connection(self, sock, addr)
+        self._track(conn)
+        loop.register_conn(conn)
+
+    def _submit_conn(self, conn: _Connection) -> None:
+        pool = self._pool
+        if pool is None:
+            conn.close()
+            return
+        try:
+            pool.submit(self._serve_conn, conn)
+        except RuntimeError:  # pool shut down
+            conn.close()
+
+    def _serve_conn(self, conn: _Connection) -> None:
+        """Worker entry: serve requests until the connection closes, a
+        read would block (hand back to the selector), or — for rfile
+        fallback connections — forever (worker-pinned, the old
+        thread-per-connection behavior)."""
+        loop = self._loop
+        with self._conns_lock:
+            self._active += 1
+        try:
+            while True:
+                conn.handle_one_request()
+                if conn.close_connection:
+                    conn.close()
+                    return
+                if not self.recv_buffer:
+                    continue  # worker-pinned fallback
+                if conn.buffered():
+                    continue  # pipelined request already in hand
+                if self._linger(conn):
+                    continue  # next request arrived within the linger
+                if loop is None or loop._stopping:
+                    conn.close()
+                    return
+                loop.call_soon(lambda: loop.register_conn(conn))
+                return
+        except OSError:
+            conn.close()  # client reset / write timeout: routine
+        except Exception:
+            logger.exception("connection worker failed")
+            conn.close()
+        finally:
+            with self._conns_lock:
+                self._active -= 1
+
+    # linger: when the server isn't fan-out loaded, blocking briefly on
+    # the just-served socket keeps a busy keep-alive client at
+    # thread-per-connection latency (no selector hop between requests).
+    # Bounded so at most half the pool can be pinned lingering; past
+    # that connection count the server is in event-driven mode.
+    _LINGER_S = 0.02
+
+    def _linger(self, conn: _Connection) -> bool:
+        if self._conn_count() > max(2, self.handler_threads // 2):
+            return False
+        try:
+            r, _, _ = select_mod.select([conn.sock], [], [], self._LINGER_S)
+        except (OSError, ValueError):
+            return False
+        return bool(r)
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def _bind(self) -> socket.socket:
+        sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        try:
+            sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            if self.reuse_port:
+                try:
+                    # set SO_REUSEPORT explicitly rather than relying on
+                    # socketserver.allow_reuse_port (3.11+ only)
+                    sock.setsockopt(
+                        socket.SOL_SOCKET, socket.SO_REUSEPORT, 1
+                    )
+                except (AttributeError, OSError):  # pragma: no cover
+                    pass  # platform without SO_REUSEPORT
+            sock.bind((self.host, self.port))
+            sock.listen(1024)
+            sock.setblocking(False)
+        except BaseException:
+            sock.close()
+            raise
+        return sock
+
+    def start(self, background: bool = True) -> int:
+        """Bind and serve. Returns the bound port."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        if self.reuse_port and self.port == 0:
+            raise ValueError(
+                "reuse_port workers need an explicit --port (the "
+                "kernel balances accepts across same-port listeners)"
+            )
+        lsock = self._bind()
+        self.port = lsock.getsockname()[1]
+        self._pool = ThreadPoolExecutor(
+            max_workers=self.handler_threads,
+            thread_name_prefix=f"http-{self.name}",
+        )
+        self._loop = _EventLoop(self, lsock)
+        if background:
+            self._thread = threading.Thread(
+                target=self._loop.run, daemon=True, name=f"httploop-{self.name}"
+            )
+            self._thread.start()
+        else:
+            # foreground servers own the process: SIGTERM drains before
+            # the loop exits, so the command returns 0 after a clean
+            # shutdown instead of dying mid-response
+            self._install_signal_drain()
+            try:
+                self._loop.run()
+            except KeyboardInterrupt:
+                pass
+            finally:
+                self.stop()
+        return self.port
+
+    def stop(self) -> None:
+        loop, self._loop = self._loop, None
+        if loop is None:
+            return
+        loop.stop()
+        thread = self._thread
+        if thread is not None and thread is not threading.current_thread():
+            thread.join(timeout=5)
+        self._thread = None
+        pool, self._pool = self._pool, None
+        if pool is not None:
+            pool.shutdown(wait=False)

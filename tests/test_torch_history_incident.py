@@ -1,0 +1,464 @@
+"""The port's flight-recorder layer (``predictionio_tpu_torch/obs/
+history.py`` and ``incident.py``), on the CPU: the bounded metrics
+history sampler (delta/sample/quantile semantics, coarsening, provider
+merge), the /history.json and POST /incident endpoints over a live
+socket on the port's engine server, the atomic incident bundle
+(publish, list, prune, rate limit), the PIO_OBS=0 no-threads/no-rings
+inertness contract, and a kill -9 mid-dump chaos run proving a crash
+never publishes a half bundle.
+
+The port's copy of ``tests/test_history_incident.py``. Its ``pio top``,
+``pio incidents`` and ``pio import --http`` cases drive CLI verbs the
+port does not have yet."""
+
+from __future__ import annotations
+
+import json
+import os
+import signal
+import subprocess
+import sys
+import threading
+import time
+import urllib.error
+import urllib.request
+from pathlib import Path
+
+import pytest
+
+import numpy as np
+
+from predictionio_tpu_torch.core.workflow import save_instance
+from predictionio_tpu_torch.data import storage as tstorage
+from predictionio_tpu_torch.models import recommendation as trec
+from predictionio_tpu_torch.obs import history, incident, metrics, slo
+from predictionio_tpu_torch.obs.metrics import Registry
+from predictionio_tpu_torch.server.engine_server import EngineServer
+
+
+def _get(url: str):
+    with urllib.request.urlopen(url, timeout=10) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def _post(url: str):
+    req = urllib.request.Request(url, data=b"", method="POST")
+    with urllib.request.urlopen(req, timeout=30) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+class _Clock:
+    """Injectable time source so sampler tests are step-exact."""
+
+    def __init__(self, t: float = 1_700_000_000.0):
+        self.now = t
+
+    def __call__(self) -> float:
+        return self.now
+
+
+@pytest.fixture(autouse=True)
+def _fresh_history_providers():
+    """Every test starts without history providers or a process sampler
+    (servers of other tests register providers that merge into every
+    snapshot), so each case passes in any order."""
+    history.reset_for_tests()
+    yield
+    history.reset_for_tests()
+
+
+class TestHistorySampler:
+    def _sampler(self, reg: Registry, clock: _Clock, **kw) -> history.HistorySampler:
+        kw.setdefault("step_s", 5.0)
+        kw.setdefault("slots", 8)
+        return history.HistorySampler(registry=reg, clock=clock, **kw)
+
+    def test_counter_deltas_gauge_samples(self):
+        """Counters land as per-step deltas (first sight = baseline
+        only), gauges as point-in-time samples."""
+        reg = Registry()
+        clock = _Clock()
+        s = self._sampler(reg, clock)
+        c = reg.counter("c_total", "")
+        g = reg.gauge("g_val", "")
+        c.inc(10)
+        g.set(1.0)
+        s.sample()  # baseline: no delta point yet, one gauge sample
+        clock.now += 5.0
+        c.inc(7)
+        g.set(3.5)
+        s.sample()
+        doc = s.snapshot()
+        assert doc["enabled"] is True and doc["samples"] == 2
+        assert doc["series"]["c_total"]["kind"] == "delta"
+        assert [p[1] for p in doc["series"]["c_total"]["points"]] == [7.0]
+        assert doc["series"]["g_val"]["kind"] == "sample"
+        assert [p[1] for p in doc["series"]["g_val"]["points"]] == [1.0, 3.5]
+
+    def test_histogram_quantiles_and_count_delta(self):
+        reg = Registry()
+        clock = _Clock()
+        s = self._sampler(reg, clock)
+        h = reg.histogram("h_seconds", "")
+        s.sample()  # count baseline at 0
+        for _ in range(100):
+            h.observe(0.010)
+        clock.now += 5.0
+        s.sample()
+        doc = s.snapshot()
+        p99 = doc["series"]["h_seconds:p99"]["points"][-1][1]
+        assert 0.004 < p99 < 0.040  # within the ~2x bucket of 10ms
+        assert doc["series"]["h_seconds:count"]["kind"] == "delta"
+        assert doc["series"]["h_seconds:count"]["points"][-1][1] == 100.0
+
+    def test_ring_bounded_and_max_series(self):
+        reg = Registry()
+        clock = _Clock()
+        s = self._sampler(reg, clock, slots=4, max_series=2)
+        reg.gauge("a_val", "").set(1.0)
+        reg.gauge("b_val", "").set(2.0)
+        reg.gauge("z_val", "").set(3.0)  # third series: dropped, counted
+        for _ in range(10):
+            clock.now += 5.0
+            s.sample()
+        doc = s.snapshot()
+        assert len(doc["series"]) == 2
+        assert all(len(v["points"]) == 4 for v in doc["series"].values())
+        assert doc["dropped_series"] > 0
+
+    def test_maybe_sample_respects_step(self):
+        reg = Registry()
+        clock = _Clock()
+        s = self._sampler(reg, clock)
+        assert s.maybe_sample() is True
+        clock.now += 1.0
+        assert s.maybe_sample() is False  # inside the step
+        clock.now += 4.5
+        assert s.maybe_sample() is True
+
+    def test_snapshot_filters_and_coarsening(self):
+        """metric= is a substring filter; step= widens the grid, summing
+        deltas per cell while samples keep the cell's last value."""
+        reg = Registry()
+        clock = _Clock()
+        s = self._sampler(reg, clock, slots=32)
+        c = reg.counter("req_total", "")
+        g = reg.gauge("depth_val", "")
+        s.sample()
+        for i in range(6):
+            clock.now += 5.0
+            c.inc(2)
+            g.set(float(i))
+            s.sample()
+        only = s.snapshot(metric="req_")
+        assert list(only["series"]) == ["req_total"]
+        coarse = s.snapshot(step_s=15.0)
+        deltas = [p[1] for p in coarse["series"]["req_total"]["points"]]
+        assert sum(deltas) == 12.0 and max(deltas) > 2.0  # cells merged
+        last_gauge = coarse["series"]["depth_val"]["points"][-1][1]
+        assert last_gauge == 5.0
+        cutoff = coarse["now_ms"] - 1
+        recent = s.snapshot(since_ms=cutoff)
+        assert all(
+            p[0] > cutoff
+            for v in recent["series"].values()
+            for p in v["points"]
+        )
+
+    def test_provider_merges_without_shadowing(self):
+        reg = Registry()
+        clock = _Clock()
+        s = self._sampler(reg, clock)
+        reg.gauge("shared_val", "").set(9.0)
+        clock.now += 5.0
+        s.sample()
+        history.register_provider(
+            "t", lambda: {
+                "extern_series": {"kind": "delta", "points": [[1000, 3.0]]},
+                "shared_val": {"kind": "sample", "points": [[1000, -1.0]]},
+            }
+        )
+        try:
+            doc = s.snapshot()
+            assert doc["series"]["extern_series"]["points"] == [[1000, 3.0]]
+            # the sampled series wins over the provider's same-named one
+            assert doc["series"]["shared_val"]["points"][-1][1] == 9.0
+        finally:
+            history.unregister_provider("t")
+
+    def test_broken_provider_skipped(self):
+        reg = Registry()
+        s = self._sampler(reg, _Clock())
+
+        def boom():
+            raise RuntimeError("provider died")
+
+        history.register_provider("boom", boom)
+        try:
+            assert s.snapshot()["enabled"] is True
+        finally:
+            history.unregister_provider("boom")
+
+
+@pytest.fixture()
+def incident_dir(tmp_path, monkeypatch):
+    """Point the run-dir (and thus incidents) at a throwaway tree and
+    clear recorder rate-limit state on both sides."""
+    monkeypatch.setenv("PIO_RUN_DIR", str(tmp_path / "run"))
+    incident.reset_for_tests()
+    history.reset_for_tests()
+    yield tmp_path / "run" / "incidents"
+    incident.reset_for_tests()
+    history.reset_for_tests()
+
+
+class TestIncidentBundle:
+    def test_record_publishes_complete_bundle(self, incident_dir):
+        path = incident.record("unit-test", note="hello", force=True)
+        assert path is not None and path.is_dir()
+        assert sorted(p.name for p in path.iterdir()) == sorted(
+            incident.BUNDLE_FILES
+        )
+        meta = json.loads((path / "meta.json").read_text())
+        assert meta["reason"] == "unit-test" and meta["note"] == "hello"
+        loaded = incident.load_incident(path.name)
+        assert set(incident.BUNDLE_FILES) <= set(loaded)
+        assert "slowest" in loaded["traces.json"]
+        assert loaded["history.json"]["enabled"] in (True, False)
+        # config is redacted: no credential-smelling values survive
+        env = loaded["config.json"]["env"]
+        assert all(
+            v == "[redacted]"
+            for k, v in env.items()
+            if any(m in k.upper() for m in ("KEY", "SECRET", "TOKEN"))
+        )
+
+    def test_rate_limit_and_force(self, incident_dir, monkeypatch):
+        monkeypatch.setenv("PIO_INCIDENT_MIN_INTERVAL_S", "3600")
+        assert incident.record("same-reason") is not None
+        assert incident.record("same-reason") is None  # suppressed
+        assert incident.record("same-reason", force=True) is not None
+        assert incident.record("other-reason") is not None
+
+    def test_list_and_prune(self, incident_dir, monkeypatch):
+        monkeypatch.setenv("PIO_INCIDENT_KEEP", "50")
+        names = []
+        for i in range(4):
+            p = incident.record(f"r{i}", force=True)
+            names.append(p.name)
+        listed = incident.list_incidents()
+        assert [e["name"] for e in listed] == sorted(names, reverse=True)
+        assert all(e["files"] == sorted(incident.BUNDLE_FILES) for e in listed)
+        removed = incident.prune(keep=1)
+        assert len(removed) == 3
+        assert len(incident.list_incidents()) == 1
+
+    def test_slo_violation_triggers_bundle(self, incident_dir, monkeypatch):
+        """An SLO transition to violated fires the recorder through the
+        registry callback; delay 0 keeps it synchronous for the test."""
+        monkeypatch.setenv("PIO_INCIDENT_SLO_DELAY_S", "0")
+        reg = slo.SloRegistry()
+        probe_counter = metrics.counter(
+            "pio_test_probe_total", "", probe="incident"
+        )
+        reg.register(
+            slo.ZeroCounterSlo(
+                "test_probe", counter=probe_counter, objective=1.0
+            )
+        )
+        monkeypatch.setattr(slo, "REGISTRY", reg)
+        incident.install_crash_hooks()
+        assert reg.on_violation is not None
+        reg.evaluate_all(time.time())  # baseline tick
+        probe_counter.inc()
+        reg.evaluate_all(time.time() + 1.0)
+        listed = incident.list_incidents()
+        assert listed, "violation did not produce a bundle"
+        assert listed[0]["reason"].startswith("slo-test_probe")
+        bundle = incident.load_incident(listed[0]["name"])
+        assert bundle["meta.json"]["context"]["alert"]["to"] == "violated"
+
+
+def _engine_server(tmp_path) -> EngineServer:
+    """A port engine server on a 6-user, 5-item CPU model."""
+    storage = tstorage.Storage(env={"PIO_FS_BASEDIR": str(tmp_path / "store")})
+    engine = trec.engine()
+    ep = engine.params_from_variant(
+        {"algorithms": [{"name": "als", "params": {"rank": 2}}]}
+    )
+    rng = np.random.default_rng(5)
+    model = trec.model_from_numpy(
+        [f"u{i}" for i in range(6)], [f"i{j}" for j in range(5)],
+        rng.standard_normal((6, 2)).astype(np.float32),
+        rng.standard_normal((5, 2)).astype(np.float32),
+    )
+    iid = save_instance(engine, ep, [model], engine_id="hist", storage=storage)
+    return EngineServer(
+        engine, storage.get_metadata_engine_instances().get(iid),
+        storage=storage, host="127.0.0.1", port=0, device="cpu",
+    )
+
+
+@pytest.fixture()
+def history_engine_server(tmp_path, incident_dir):
+    server = _engine_server(tmp_path)
+    port = server.start()
+    yield f"http://127.0.0.1:{port}"
+    server.stop()
+    server.storage.close()
+
+
+class TestLiveEndpoints:
+    def test_history_json(self, history_engine_server):
+        base = history_engine_server
+        # hit an endpoint so request metrics exist, then force a sample
+        urllib.request.urlopen(f"{base}/slo.json", timeout=10).read()
+        history.sample_now()
+        time.sleep(0.01)
+        history.sample_now()  # second pass so counter deltas materialize
+        status, doc = _get(f"{base}/history.json")
+        assert status == 200
+        assert doc["enabled"] is True and doc["samples"] >= 2
+        assert any(
+            k.startswith("pio_http_request") for k in doc["series"]
+        )
+        status, filtered = _get(f"{base}/history.json?metric=pio_http")
+        assert all(k.startswith("pio_http") for k in filtered["series"])
+        status, _ = _get(f"{base}/history.json?step=30")
+        assert status == 200
+
+    def test_history_json_bad_params(self, history_engine_server):
+        base = history_engine_server
+        for q in ("since_ms=abc", "step=-5", "step=zero"):
+            with pytest.raises(urllib.error.HTTPError) as e:
+                urllib.request.urlopen(f"{base}/history.json?{q}", timeout=10)
+            assert e.value.code == 400
+
+    def test_post_incident_endpoint(self, history_engine_server, incident_dir):
+        base = history_engine_server
+        status, doc = _post(f"{base}/incident?reason=operator-test")
+        assert status == 200 and doc["ok"] is True
+        assert sorted(doc["files"]) == sorted(incident.BUNDLE_FILES)
+        listed = incident.list_incidents()
+        assert listed and listed[0]["reason"] == "operator-test"
+        # the bundle's device block is the port's torch one
+        bundle = incident.load_incident(listed[0]["name"])
+        assert bundle["state.json"]["device"]["torch"]
+
+
+class TestObsDisabledInertness:
+    """PIO_OBS=0 contract: no sampler object, no rings, no threads, no
+    crash hooks, record() -> None. Regression-gates the 'fully inert'
+    guarantee from the issue."""
+
+    def test_everything_inert_when_disabled(self, incident_dir):
+        was_enabled = metrics.enabled()
+        before_excepthook = sys.excepthook
+        before_threads = {t.name for t in threading.enumerate()}
+        metrics.set_enabled(False)
+        try:
+            history.reset_for_tests()
+            incident.reset_for_tests()
+            history.ensure_ticker()
+            history.sample_now()
+            assert history.maybe_sample() is False
+            assert history._SAMPLER is None  # no object, no rings
+            assert history.snapshot() == {"enabled": False, "series": {}}
+            after = {t.name for t in threading.enumerate()} - before_threads
+            assert "history-sampler" not in after
+            assert incident.record("should-not-happen", force=True) is None
+            incident.install_crash_hooks()
+            assert sys.excepthook is before_excepthook
+            assert not incident_dir.exists()
+        finally:
+            metrics.set_enabled(was_enabled)
+            history.reset_for_tests()
+            incident.reset_for_tests()
+
+    def test_history_layer_off_knob(self, monkeypatch):
+        """PIO_HISTORY=0 turns off just the history layer while obs
+        stays up (metrics/traces unaffected)."""
+        monkeypatch.setenv("PIO_HISTORY", "0")
+        history.reset_for_tests()
+        try:
+            assert history.sampler() is None
+            assert history.snapshot()["enabled"] is False
+        finally:
+            history.reset_for_tests()
+
+
+_CHAOS_CHILD = r"""
+import os, sys
+from predictionio_tpu_torch.obs import incident
+print("READY", flush=True)
+path = incident.record("chaos-kill", force=True)
+print(f"PUBLISHED {path}", flush=True)
+"""
+
+
+@pytest.mark.chaos
+class TestKillMidDump:
+    def test_kill9_mid_dump_leaves_no_half_bundle(self, tmp_path):
+        """kill -9 between staged file writes and the publishing rename:
+        only an invisible .tmp husk may remain; list_incidents() stays
+        empty and a later in-process dump publishes cleanly beside it."""
+        run_dir = tmp_path / "run"
+        env = dict(os.environ)
+        env.update(
+            PIO_RUN_DIR=str(run_dir),
+            PIO_OBS="1",
+            # hold 10s after each staged write: the kill lands mid-dump
+            PIO_INCIDENT_TEST_HOLD_S="10",
+            JAX_PLATFORMS="cpu",
+        )
+        child = subprocess.Popen(
+            [sys.executable, "-c", _CHAOS_CHILD],
+            env=env,
+            stdout=subprocess.PIPE,
+            text=True,
+            cwd=str(Path(__file__).resolve().parent.parent),
+        )
+        try:
+            assert child.stdout.readline().strip() == "READY"
+            incidents = run_dir / "incidents"
+            deadline = time.time() + 30
+            tmp_dirs = []
+            while time.time() < deadline:
+                if incidents.is_dir():
+                    tmp_dirs = [
+                        d for d in incidents.iterdir()
+                        if d.name.startswith(".tmp-")
+                    ]
+                    if tmp_dirs and any(tmp_dirs[0].iterdir()):
+                        break
+                time.sleep(0.02)
+            assert tmp_dirs, "staging dir never appeared"
+            os.kill(child.pid, signal.SIGKILL)
+            child.wait(timeout=10)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        # the half-written dump is invisible to every reader
+        assert incident.list_incidents(root=incidents) == []
+        leftovers = list(incidents.iterdir())
+        assert all(d.name.startswith(".tmp-") for d in leftovers)
+        # ...and a healthy dump publishes right beside the husk
+        os.environ["PIO_RUN_DIR"] = str(run_dir)
+        try:
+            incident.reset_for_tests()
+            path = incident.record("post-chaos", force=True)
+            assert path is not None
+            listed = incident.list_incidents(root=incidents)
+            assert [e["reason"] for e in listed] == ["post-chaos"]
+            assert listed[0]["files"] == sorted(incident.BUNDLE_FILES)
+            # prune clears the dead child's husk too
+            incident.prune(keep=10, root=incidents)
+            husks = [
+                d for d in incidents.iterdir()
+                if d.name.startswith(".tmp-")
+            ]
+            assert husks == []
+        finally:
+            os.environ.pop("PIO_RUN_DIR", None)
+            incident.reset_for_tests()

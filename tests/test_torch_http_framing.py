@@ -1,5 +1,6 @@
 """Request framing of the port's engine server
-(``predictionio_tpu_torch/server/engine_server.py``), on the CPU.
+(``predictionio_tpu_torch/server/engine_server.py`` on the port's
+``server/http.py`` front end), on the CPU.
 
 The port's copies of the JAX package's framing tests
 (``tests/test_servers.py::TestHTTPParserFraming`` and the slowloris /
@@ -205,7 +206,7 @@ def test_empty_or_identity_framing_headers_are_no_framing(port, extra):
 
 
 def test_too_many_header_lines_get_431(port):
-    """The stdlib's own cap (100 lines; the JAX parser caps at 256)."""
+    """The JAX parser's cap, which the port's front end copies: 256 lines."""
     sock = _connect(port)
     try:
         sock.sendall(b"POST /queries.json HTTP/1.1\r\n" + b"x: y\r\n" * 300)

@@ -54,14 +54,20 @@ def test_port_imports_without_jax_or_the_jax_package():
     )
     assert proc.returncode == 0, proc.stderr
     walked = set(proc.stdout.split())
-    assert len(walked) >= 32  # every module was walked
-    # the training and similar-product slices' modules among them
+    assert len(walked) >= 50  # every module was walked
+    # the training, similar-product and serving-stack slices' modules
+    # among them
     assert {f"predictionio_tpu_torch.{m}" for m in (
         "data.datamap", "data.event", "data.store", "data.storage.base",
         "data.storage.sqlite", "data.storage.memory", "ops.als",
         "core.engine", "core.workflow", "models.recommendation", "cli.main",
         "data.propertymap", "data.aggregator", "models.columnar",
         "models.filters", "models.similarproduct", "ops.topk",
+        "obs", "obs.metrics", "obs.trace", "obs.freshness", "obs.slo",
+        "obs.progress", "obs.history", "obs.incident", "obs.device",
+        "faults", "faults.inject", "common", "common.server_config",
+        "server", "server.http", "server.query_cache", "server.plugins",
+        "server.engine_server", "server.jsonx",
     )} <= walked
 
 
