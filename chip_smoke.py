@@ -2,8 +2,8 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases k2,k1,k1i,k1route,k2s,k2route,serve,batchserve,
-                                    lifecycle,simlife,train,simtrain,times,k1times,
-                                    simtimes]
+                                    lifecycle,simlife,train,simtrain,eval,times,
+                                    k1times,simtimes]
 
 Run from the root of a checkout, on a machine with a CUDA card, ``nvcc``
 and PyTorch built for CUDA. It imports nothing of JAX and nothing of the
@@ -11,9 +11,9 @@ JAX package (``predictionio_tpu``). Phases:
 
 1. environment: torch/CUDA versions, the card, ``nvidia-smi`` name and
    power limit, ``nvcc`` release, ``triton`` version or ``absent``;
-2. build ``predictionio_tpu_torch/csrc/topk.cu`` (K2) and
-   ``csrc/als_solve.cu`` (K1) with ``nvcc`` for ``sm_90a``, one ``nvcc``
-   per source, started together;
+2. build ``predictionio_tpu_torch/csrc/topk.cu`` (K2),
+   ``csrc/als_solve.cu`` (K1, K1s) and ``csrc/ranking.cu`` (K3) with
+   ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, started together;
 3. k2: K2 against its plain PyTorch version on the card at the ML-20M
    shape (U = 138,493 users, I = 26,744 items): D = 20 with every
    f32/bf16/int8 storage pair, D = 128 with each storage dtype, both at B
@@ -127,6 +127,36 @@ The K2 redesign (the tile route, k <= 128) adds, run after k2s:
   zeros) and random ones: bit-equal across routes, crafted ones bit-equal
   to the plain version, B = 64 rows equal to their B = 1 calls.
 
+The evaluation slice adds (lifecycle also runs ``cli.main eval`` of the
+shipped recommendation sweep on its ML-100K app: an EVALCOMPLETED
+instance and the JAX verb's summary as the last stdout line), run after
+simtrain:
+
+- eval: K3 (``ranking_metrics_batch``, ``csrc/ranking.cu``) against its
+  plain version at an ML-1M fold (Q = 333,334) x P {1, 10} x A {1, 3},
+  k = P and 10, and P = 40: precision and valid equal, ap and ndcg within
+  1e-6; K2 (``gather_top_k_batch``, which ``eval_topk`` calls) against
+  its plain version at an ML-1M fold's B = 333,334 user rows (f32, int8;
+  k 1, 10), and ``top_k_items_batch`` (the dense-row alias over it) at B
+  = 600,000, above the 524,280 rows one launch took (row chunks); K1s at
+  the ML-20M shape, rank 20, a 4-candidate lambda sweep of 2 iterations:
+  each candidate bit-identical to ``als_train`` of it alone, C = 1
+  bit-identical to K1, ranks 10 + 20 split into two groups, ranks
+  10/20/20/20 one padded group (padded columns +0.0 bitwise, real ones
+  equal to rank 10 alone), 1 iteration against the plain version; then
+  ``run_evaluation`` of the shipped sweep (ranks 5/10/10/20, 10
+  iterations, 3 folds) on the ML-1M-shaped ratings, the K1s / K2 / K3
+  counts set to 0 before and read after, every candidate on the fast
+  path, its scores equal to core/ranking.py's per-query functions on the
+  same top-k matrices within 1e-6 (worker processes, stopped after), and
+  each kernel held at the shapes that run gave it: K1s's launches equal
+  to its three groups' (ranks 5, 10 + 10, 20: C = 1, 2, 1), every swept
+  model bit-identical to its candidate's training alone, one iteration
+  of each group against the plain version, every ``eval_topk`` answer (D
+  = 5, 10, 20) against K2's plain version; and the times of K3, K2 at
+  the eval shape and one K1s iteration (against K1 alone x 4) beside
+  their plain versions, yardsticks and bounds.
+
 Every phase prints its results and seconds; any failure makes the exit
 code 1 and suppresses the result lines. Without CUDA, or without the
 package beside the script, it exits 2 and prints no result. A run of a
@@ -228,7 +258,7 @@ def environment(torch):
 # -- phase 2 -----------------------------------------------------------------
 
 
-KERNEL_SOURCES = ("topk", "als_solve")
+KERNEL_SOURCES = ("topk", "als_solve", "ranking")
 
 
 @phase("build")
@@ -1710,6 +1740,7 @@ def batch_serve(torch, device, stats, users: int = U_ROWS, items: int = I_ROWS,
 # max item degree (the real MovieLens datasets' degree maxima)
 ML_SCALES = {
     "100k": (943, 1682, 100_000, 737, 583),
+    "1m": (6_040, 3_706, 1_000_000, 2_314, 3_428),
     "20m": (138_493, 26_744, 20_000_000, 9_254, 67_310),
 }
 ML_SEED = 42
@@ -1814,7 +1845,8 @@ def lifecycle(torch, device, stats):
     queries. The trained model's train RMSE must be within 1e-3
     relative of the same training run on the CPU with K1's plain
     version (the same init and data; float32 sums in another order over
-    10 iterations), and both launch counters must move."""
+    10 iterations), and both launch counters must move. Then ``cli.main
+    eval`` of the shipped recommendation sweep on the same app (eval_cli)."""
     from predictionio_tpu_torch.cli import main as cli
     from predictionio_tpu_torch.data import store
     from predictionio_tpu_torch.data import storage as st
@@ -1870,6 +1902,9 @@ def lifecycle(torch, device, stats):
             batch = store.find_ratings(
                 "ML100K", event_names=["rate", "buy"], entity_type="user",
                 target_entity_type="item", override_ratings={"buy": 4.0})
+            t0 = time.perf_counter()
+            summary = eval_cli(cli, storage, "ML100K")
+            eval_s = time.perf_counter() - t0
         if k1 <= 0 or k2 <= 0:
             raise AssertionError(f"launch counters did not move: K1 {k1}, K2 {k2}")
         U, V = model.device_factors(device)
@@ -1886,7 +1921,9 @@ def lifecycle(torch, device, stats):
             server.stop()
         shutil.rmtree(basedir, ignore_errors=True)
     stats["lifecycle"] = {"train_s": train_s, "rmse": e_gpu, "rmse_cpu": e_cpu,
-                          "k1_launches": k1, "k2_launches": k2}
+                          "k1_launches": k1, "k2_launches": k2, "cli_eval_s": eval_s,
+                          "cli_eval_scores": summary["scores"],
+                          "cli_eval_best_index": summary["best_index"]}
     log(json.dumps({"lifecycle": "ml100k", **stats["lifecycle"]}))
 
 
@@ -2905,6 +2942,740 @@ def similar_timings(torch, device, stats):
     stats["k2s_timings"] = k2s
 
 
+# -- the evaluation slice: K3, K2 at the eval shape, K1s, the shipped sweep ---------
+
+EVAL_Q = 333_334  # eval queries of one ML-1M fold (1,000,000 / 3)
+EVAL_USERS, EVAL_ITEMS = 6_040, 3_706  # ML-1M users and items
+EVAL_RANK = 20  # the sweep's largest rank
+K2_ROW_LIMIT = 65_535 * 8  # rows one K2 launch took before row chunks
+K1S_REGS = (0.02, 0.05, 0.1, 0.2)  # the ML-20M lambda sweep of the K1s check
+
+
+def ranking_case(torch, rng, Q: int, P: int, A: int, device):
+    """K3 inputs: ``[Q, P]`` predicted ids with -1 slots (~10%), ``[Q, A]``
+    sorted actual rows (ACTUAL_PAD-padded) holding a planted hit in
+    about half the rows, codes <= -2 (~5%), and empty rows (count 0,
+    every 17th); ``[Q]`` counts."""
+    from predictionio_tpu_torch.core.ranking import ACTUAL_PAD
+
+    pred = rng.integers(0, EVAL_ITEMS, (Q, P)).astype(np.int32)
+    vals = rng.integers(0, EVAL_ITEMS, (Q, A)).astype(np.int64)
+    plant = rng.random(Q) < 0.5
+    vals[plant, 0] = pred[plant, rng.integers(0, P, int(plant.sum()))]
+    pred[rng.random((Q, P)) < 0.1] = -1
+    codes = rng.random((Q, A)) < 0.05
+    vals[codes] = -2 - rng.integers(0, 50, int(codes.sum()))
+    counts = rng.integers(1, A + 1, Q)
+    counts[::17] = 0
+    vals[np.arange(A)[None, :] >= counts[:, None]] = ACTUAL_PAD
+    actual = np.sort(vals, axis=1).astype(np.int32)
+    return (torch.from_numpy(pred).to(device), torch.from_numpy(actual).to(device),
+            torch.from_numpy(counts.astype(np.int32)).to(device))
+
+
+@phase("eval: K3 (ranking_metrics_batch) vs plain")
+def k3_vs_plain(torch, device, stats):
+    """K3 against its plain version on the same CUDA tensors: an ML-1M
+    fold's Q = 333,334 rows at P in {1, 10} x A in {1, 3} with k = P and
+    k = 10 (the denominators' k past P), and P = 40 (a warp's second
+    group of positions) on 20,000 rows: precision and valid equal, ap and
+    ndcg within 1e-6."""
+    from predictionio_tpu_torch.ops import topk
+
+    rng = np.random.default_rng(SEED)
+    err = 0.0
+    cases = [(EVAL_Q, P, A, k) for P in (1, 10) for A in (1, 3) for k in sorted({P, 10})]
+    cases.append((20_000, 40, 3, 40))
+    for Q, P, A, k in cases:
+        pred, actual, counts = ranking_case(torch, rng, Q, P, A, device)
+        before = topk.ranking_metrics_batch.launches.value
+        got = topk.ranking_metrics_batch(pred, actual, counts, k)
+        if topk.ranking_metrics_batch.launches.value != before + 1:
+            raise AssertionError("K3 did not count its launch")
+        want = topk.ranking_metrics_batch_reference(pred, actual, counts, k)
+        torch.cuda.synchronize()
+        what = f"Q={Q} P={P} A={A} k={k}"
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])):
+            raise AssertionError(f"K3 precision/valid differ from the plain version: {what}")
+        for name, a, b in (("ap", got[1], want[1]), ("ndcg", got[2], want[2])):
+            e = float((a - b).abs().max())
+            err = max(err, e)
+            if not e <= 1e-6:
+                raise AssertionError(f"K3 {name} off by {e}: {what}")
+        hits = int((got[0] > 0).sum())
+        log(f"K3 {what}: equal to plain ({hits} rows with hits, "
+            f"{int((~got[3]).sum())} empty)")
+    stats["k3_max_abs_err"] = err
+
+
+def hold_topk(sk, ik, plain, what: str) -> tuple[float, int]:
+    """``[B, k]`` scores and ids from the card against ``plain(lo, hi)``,
+    the plain version's answer for rows lo..hi, run in chunks of 65,536
+    rows (each row is scored alone): scores within rtol/atol, ids equal
+    outside near ties. Returns (max abs error, rows id-equal)."""
+    err, equal_rows = 0.0, 0
+    for lo in range(0, sk.shape[0], 65_536):
+        hi = min(sk.shape[0], lo + 65_536)
+        sp, ip = plain(lo, hi)
+        hk, hp = host(sk[lo:hi]), host(sp)
+        err = max(err, float(np.max(np.abs(hk - hp), initial=0.0)))
+        if not np.allclose(hk, hp, rtol=RTOL, atol=ATOL):
+            raise AssertionError(f"{what}: scores differ (max abs {err})")
+        ids_k, ids_p = host(ik[lo:hi]), host(ip)
+        same = (ids_k == ids_p).all(axis=1)
+        equal_rows += int(same.sum())
+        for r in np.flatnonzero(~same):
+            if not near_tie_ids_ok(ids_k[r], ids_p[r], hp[r]):
+                raise AssertionError(f"{what}: ids differ in row {lo + r}")
+    return err, equal_rows
+
+
+def k2_eval_check(torch, topk, call, plain, B: int, k: int, what: str) -> float:
+    """One K2 call (``call()``: ``gather_top_k_batch``, or the
+    ``top_k_items_batch`` alias over it) of ``B`` rows on the card: one
+    call and :func:`k2_launches` kernels added to K2's counts, and the
+    answer held against ``plain`` (:func:`hold_topk`)."""
+    calls0 = topk.gather_top_k_batch.launches.value
+    kl0 = topk.gather_top_k_batch.kernel_launches.value
+    sk, ik = call()
+    torch.cuda.synchronize()
+    launched = topk.gather_top_k_batch.kernel_launches.value - kl0
+    if (topk.gather_top_k_batch.launches.value != calls0 + 1
+            or launched != topk.k2_launches(k, EVAL_ITEMS, B)):
+        raise AssertionError(f"{what}: {launched} kernel launches, expected "
+                             f"{topk.k2_launches(k, EVAL_ITEMS, B)}")
+    err, equal_rows = hold_topk(sk, ik, plain, what)
+    log(f"K2 {what}: {equal_rows}/{B} rows id-equal to plain, max abs {err:.3g}, "
+        f"{launched} kernel launches in {len(topk.k2_chunks(k, EVAL_ITEMS, B))} chunks")
+    return err
+
+
+@phase("eval: K2 eval top-k vs plain (ML-1M fold, and above the row limit)")
+def topk_items_vs_plain(torch, device, stats):
+    """K2 at the eval fast path's shape (``eval_topk`` calls
+    ``gather_top_k_batch``) against its plain version: an ML-1M fold's B =
+    333,334 user indices into a 6,040 x 20 user table, scored against the
+    3,706-item catalog, f32 and int8 tables, k in {1, 10}; then
+    ``top_k_items_batch`` (dense query rows through ``arange(B)``) at B =
+    600,000 rows, above the 524,280 rows one K2 launch took, which the
+    wrapper serves in row chunks (k2_chunks)."""
+    from predictionio_tpu_torch.ops import topk
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 1)
+    err = 0.0
+    uixs = torch.randint(0, EVAL_USERS, (EVAL_Q,), generator=gen, device=device,
+                         dtype=torch.int32)
+    for dtype in ("float32", "int8"):
+        users = make_table(torch, dtype, EVAL_USERS, EVAL_RANK, False, gen, device)
+        items = make_table(torch, dtype, EVAL_ITEMS, EVAL_RANK, False, gen, device)
+        for k in (1, 10):
+            err = max(err, k2_eval_check(
+                torch, topk, lambda: topk.gather_top_k_batch(uixs, users, items, k),
+                lambda lo, hi: topk.gather_top_k_batch_reference(
+                    uixs[lo:hi], users, items, k),
+                EVAL_Q, k, f"eval fold B={EVAL_Q} {dtype} k={k}"))
+    items = make_table(torch, "float32", EVAL_ITEMS, EVAL_RANK, False, gen, device)
+    big = torch.randn((600_000, EVAL_RANK), generator=gen, device=device)
+    for k in (1, 10):
+        if len(topk.k2_chunks(k, EVAL_ITEMS, big.shape[0])) < 2:
+            raise AssertionError(f"B=600000 k={k} should take more than one chunk")
+        err = max(err, k2_eval_check(
+            torch, topk, lambda: topk.top_k_items_batch(big, items, k),
+            lambda lo, hi: topk._score_top_k_reference(big[lo:hi], items, k),
+            big.shape[0], k, f"top_k_items_batch B=600000 (> {K2_ROW_LIMIT}) k={k}"))
+    stats["topk_items_max_abs_err"] = err
+
+
+def k1s_params(rank_regs_seeds, iterations: int = 2):
+    from predictionio_tpu_torch.ops import als
+
+    return [als.ALSParams(rank=r, iterations=iterations, reg=reg, seed=s)
+            for r, reg, s in rank_regs_seeds]
+
+
+def same_table(torch, a, b) -> bool:
+    """Bitwise equality of two storage tables of the same representation."""
+    if isinstance(a, tuple):
+        return all(same_bits(torch, x.float(), y.float()) for x, y in zip(a, b))
+    return same_bits(torch, a.float(), b.float())
+
+
+@phase("eval: K1s (the candidate axis) at the ML-20M shape, rank 20")
+def k1s_vs_k1(torch, device, stats):
+    """K1s at the ML-20M shape (the train phase's layout), rank 20 f32, a
+    4-candidate lambda sweep of 2 iterations: one launch per bucket per
+    half-step for all 4 (its counter), each candidate bit-identical to
+    ``als_train`` of that candidate alone from the same init; a
+    one-candidate sweep bit-identical to K1; ranks 10 and 20 split into
+    two groups by the cost model; ranks 10, 20, 20, 20 as one padded
+    group whose rank-10 candidate keeps its padded columns exactly +0.0
+    (bitwise) and its real columns bit-identical to its rank-10 training
+    alone; then 1 iteration of K1s against its plain version on the card
+    (rtol 5e-4 / atol 5e-5, tests/test_als.py:188)."""
+    from predictionio_tpu_torch.ops import als
+
+    data = stats.get("ml20m")
+    if data is None:
+        rows, cols, vals, nu, ni = stats.get("ml20m_arrays") or make_ml_shaped("20m")
+        data = stats["ml20m"] = als.build_ratings_data(rows, cols, vals, nu, ni)
+    per_iter = k1_launches_per_iteration(data, 20)
+    ps = k1s_params([(20, reg, 3 + c) for c, reg in enumerate(K1S_REGS)])
+    als.solve_bucket_sweep.launches.reset()
+    out = als.als_train_sweep(data, ps, device)
+    if als.solve_bucket_sweep.launches.value != 2 * per_iter:
+        raise AssertionError(f"K1s launched {als.solve_bucket_sweep.launches.value} "
+                             f"kernels for 2 iterations, expected 2 x {per_iter}")
+    alone = []
+    for c, p in enumerate(ps):
+        U1, V1 = als.als_train(data, p, device=device)
+        alone.append((U1, V1))
+        if not (same_table(torch, out[c][0], U1) and same_table(torch, out[c][1], V1)):
+            raise AssertionError(f"K1s candidate {c} (reg {p.reg}) is not bit-identical "
+                                 "to als_train of it alone")
+    U0, V0 = als.sweep_init(data, ps[:1], device)
+    Us, Vs = als._train_sweep(data, ps[:1], U0, V0)
+    if not (same_bits(torch, Us[0], alone[0][0]) and same_bits(torch, Vs[0], alone[0][1])):
+        raise AssertionError("K1s at C = 1 is not bit-identical to K1")
+    log(f"K1s: 4 candidates in {2 * per_iter} launches, each bit-identical to its "
+        "training alone; C = 1 bit-identical to K1")
+
+    mixed = k1s_params([(10, 0.05, 3), (20, 0.05, 4)])
+    als.solve_bucket_sweep.launches.reset()
+    als.als_train_sweep(data, mixed, device)
+    groups = als.solve_bucket_sweep.launches.value
+    expect = 2 * (k1_launches_per_iteration(data, 10) + per_iter)
+    if groups != expect:
+        raise AssertionError(f"ranks 10 + 20: {groups} launches, expected two groups' {expect}")
+    padded = k1s_params([(10, 0.05, 3), (20, 0.05, 4), (20, 0.1, 5), (20, 0.2, 6)])
+    U0, V0 = als.sweep_init(data, padded, device)
+    Up, Vp = als._train_sweep(data, padded, U0, V0)
+    for name, t in (("U", Up), ("V", Vp)):
+        if not bool((t[0, :, 10:].contiguous().view(torch.int32) == 0).all()):
+            raise AssertionError(f"rank-10 candidate: padded {name} columns not exactly +0.0")
+    U10, V10 = als.als_train(data, padded[0], device=device)
+    real_equal = (same_bits(torch, Up[0, :, :10].contiguous(), U10)
+                  and same_bits(torch, Vp[0, :, :10].contiguous(), V10))
+    if not real_equal:
+        raise AssertionError("rank-10 candidate of a padded sweep differs from its "
+                             "rank-10 training alone")
+    log("K1s ranks 10 + 20: two groups; ranks 10, 20, 20, 20: one padded group, "
+        "the padded columns +0.0 and the real ones bit-identical to rank 10 alone")
+
+    one = k1s_params([(20, reg, 3 + c) for c, reg in enumerate(K1S_REGS)], iterations=1)
+    err = k1s_iteration_vs_plain(torch, data, one, device)
+    stats["k1s_max_abs_err"] = max(stats.get("k1s_max_abs_err", 0.0), err)
+    log(f"K1s 1 iteration vs plain: max abs {err:.3g}")
+
+
+def k1s_iteration_vs_plain(torch, data, params, device) -> float:
+    """One iteration of K1s over ``data`` for the candidates ``params``
+    (one group, as ``als.sweep_groups`` makes them) against its plain
+    version on the card, from the same stacked init: within rtol 5e-4 /
+    atol 5e-5 (tests/test_als.py:188). Returns the max abs error."""
+    from predictionio_tpu_torch.ops import als
+
+    U0, V0 = als.sweep_init(data, params, device)
+    Uk, Vk = als._train_sweep(data, params, U0, V0)
+    regs = torch.tensor([p.reg for p in params], dtype=torch.float32, device=device)
+    Upl, Vpl = U0.clone(), V0.clone()
+    for target, other, buckets in ((Upl, Vpl, data.row_buckets), (Vpl, Upl, data.col_buckets)):
+        for b in als.device_buckets(buckets, device):
+            als.solve_bucket_sweep_reference(other, b.col_ids, b.ratings, b.mask,
+                                             b.seg_start, regs, target, b.row_ids)
+    torch.cuda.synchronize()
+    err = max(float((Uk - Upl).abs().max()), float((Vk - Vpl).abs().max()))
+    if not (torch.allclose(Uk, Upl, rtol=5e-4, atol=5e-5)
+            and torch.allclose(Vk, Vpl, rtol=5e-4, atol=5e-5)):
+        ranks = [p.rank for p in params]
+        raise AssertionError(f"K1s 1 iteration (ranks {ranks}) differs from its plain "
+                             f"version (max abs {err})")
+    return err
+
+
+def per_query_sums(chunk) -> tuple:
+    """Sums of core/ranking.py's per-query P@K, AP@K and NDCG@K over
+    (predicted ids, actual, k) triples, and the count of scored points
+    (a worker of the eval phase's parity check)."""
+    sys.path.insert(0, ROOT)
+    from predictionio_tpu_torch.core import ranking
+
+    sums, n = [0.0, 0.0, 0.0], 0
+    for pred, actual, k in chunk:
+        vals = (ranking.precision_at_k(pred, actual, k),
+                ranking.average_precision_at_k(pred, actual, k),
+                ranking.ndcg_at_k(pred, actual, k))
+        if vals[0] is None:
+            continue
+        n += 1
+        for j in range(3):
+            sums[j] += vals[j]
+    return sums, n
+
+
+@phase("eval: the shipped recommendation sweep at the ML-1M shape (run_evaluation)")
+def eval_sweep(torch, device, stats):
+    """``run_evaluation`` of the shipped ``recommendation_eval`` sweep
+    (ranks 5/10/10/20, 10 iterations, 3 folds, Precision@1 with MAP@1 and
+    NDCG@1) on the port's recommendation engine, fed by a datasource of
+    the ML-1M-shaped ratings (bench.py:2176 ``bench_eval``'s way):
+    K1s, K2 and K3 counts set to 0 just before and read just after (the
+    main path's), every candidate on the fast path, an EVALCOMPLETED
+    instance, and each candidate's three scores equal to core/ranking.py's
+    per-query functions on the same top-k matrices within 1e-6
+    (tests/test_eval_fast_path.py:98-100).
+
+    Then each kernel is held at the shapes the main path gave it, on what
+    the main path recorded: K1s's launches equal to its groups' (the cost
+    model trains ranks 5, 10 + 10 and 20 as three groups, C = 1, 2, 1),
+    each candidate's factors bit-identical to ``ALSAlgorithm.train`` of
+    it alone on its fold, one iteration of each group against K1s's plain
+    version on the first fold, and each ``eval_topk`` answer (D = 5, 10,
+    20) against K2's plain version on the same user rows."""
+    from predictionio_tpu_torch.core import Engine, FirstServing
+    from predictionio_tpu_torch.core.context import WorkflowContext
+    from predictionio_tpu_torch.core.evaluation import Evaluation, MetricEvaluator
+    from predictionio_tpu_torch.core.params import EngineParamsGenerator
+    from predictionio_tpu_torch.core.ranking import MAPAtK, NDCGAtK, PrecisionAtK
+    from predictionio_tpu_torch.core.workflow_eval import run_evaluation
+    from predictionio_tpu_torch.data import storage as st
+    from predictionio_tpu_torch.models import recommendation as rec
+    from predictionio_tpu_torch.models import recommendation_eval as rec_eval
+    from predictionio_tpu_torch.ops import als, topk
+
+    t0 = time.perf_counter()
+    rows, cols, vals, nu, ni = make_ml_shaped("1m")
+    td = rec.TrainingData(user_ids=[f"u{j}" for j in range(nu)],
+                          item_ids=[f"i{j}" for j in range(ni)],
+                          rows=rows, cols=cols, ratings=vals)
+    log(f"generated {len(vals)} ML-1M-shaped ratings in {time.perf_counter() - t0:.1f}s")
+    # what the datasource and the algorithm handed on
+    folds, sweeps, answers = [], [], []
+
+    class GeneratedSource(rec.RecommendationDataSource):
+        def read_training(self, ctx):
+            return td
+
+        def read_eval(self, ctx):
+            folds[:] = super().read_eval(ctx)
+            return folds
+
+    class RecordingALS(rec.ALSAlgorithm):
+        def train_sweep(self, ctx, fold_td, params_list):
+            out = super().train_sweep(ctx, fold_td, params_list)
+            sweeps.append((fold_td, list(params_list), out))
+            return out
+
+        def eval_topk(self, model, queries, k):
+            out = super().eval_topk(model, queries, k)
+            answers.append((self.params, model, queries, out))
+            return out
+
+    engine = Engine(GeneratedSource, rec.RecommendationPreparator,
+                    {"als": RecordingALS}, FirstServing)
+    grid = EngineParamsGenerator()
+    grid.engine_params_list = [engine.params_from_variant({
+        "datasource": {"params": {"app_name": "ML1M"}},
+        "algorithms": [{"name": "als", "params": {
+            "rank": rank, "lambda": reg, "num_iterations": 10}}]})
+        for rank, reg in rec_eval.SWEEP]
+    evaluation = Evaluation(engine=engine, evaluator=MetricEvaluator(
+        metric=PrecisionAtK(k=rec_eval.K),
+        other_metrics=[MAPAtK(k=rec_eval.K), NDCGAtK(k=rec_eval.K)]))
+    storage = st.Storage(env={"PIO_FS_BASEDIR": tempfile.mkdtemp(prefix="pio_chip_smoke_eval_")})
+    counters = (als.solve_bucket_sweep.launches, topk.gather_top_k_batch.launches,
+                topk.gather_top_k_batch.kernel_launches, topk.ranking_metrics_batch.launches)
+    try:
+        for c in counters:  # the main path starts here
+            c.reset()
+        t0 = time.perf_counter()
+        iid, result = run_evaluation(evaluation, grid, storage=storage,
+                                     ctx=WorkflowContext(mode="Evaluation", device=device))
+        wall = time.perf_counter() - t0
+        k1s, k2_calls, k2_kernels, k3 = (c.value for c in counters)  # main path read
+        inst = storage.get_metadata_evaluation_instances().get(iid)
+    finally:
+        shutil.rmtree(storage.env["PIO_FS_BASEDIR"], ignore_errors=True)
+        storage.close()
+    n_cand = len(rec_eval.SWEEP)
+    if inst is None or inst.status != "EVALCOMPLETED":
+        raise AssertionError(f"evaluation instance {iid}: {inst and inst.status}")
+    if result.fast_path_candidates != n_cand:
+        raise AssertionError(f"{result.fast_path_candidates}/{n_cand} candidates on the fast path")
+    n_folds = len(folds)
+    if min(k1s, k2_calls, k2_kernels, k3) <= 0 or k3 != n_cand * n_folds:
+        raise AssertionError(f"main-path counts: K1s {k1s}, K2 {k2_calls} "
+                             f"({k2_kernels} kernels), K3 {k3}")
+    queries = sum(len(qa) for _, _, qa in folds)
+
+    # parity: the per-query functions on the same top-k matrices
+    by_fold = {id(qa[0][0]): qa for _, _, qa in folds}
+    triples: dict[str, list] = {}
+    for params, _, qs, answer in answers:
+        qa = by_fold[id(qs[0])]
+        inv = answer.index.inverse
+        ids = host(answer.ids)
+        key = json.dumps(params.to_dict(), sort_keys=True)
+        triples.setdefault(key, []).extend(
+            ([inv[int(i)] for i in row if i >= 0], actual, rec_eval.K)
+            for row, (_, actual) in zip(ids, qa))
+    workers = min(8, os.cpu_count() or 1)
+    import multiprocessing
+
+    per_query = {}
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        for key, items in triples.items():
+            step = -(-len(items) // workers)
+            parts = pool.map(per_query_sums, [items[i:i + step]
+                                              for i in range(0, len(items), step)])
+            n = sum(p[1] for p in parts)
+            per_query[key] = [sum(p[0][j] for p in parts) / n for j in range(3)]
+    diff = 0.0
+    for ep, ms in result.engine_params_scores:
+        key = json.dumps(ep.algorithms[0][1].to_dict(), sort_keys=True)
+        for got, want in zip([ms.score, *ms.other_scores], per_query[key]):
+            diff = max(diff, abs(got - want))
+    if not diff <= 1e-6:
+        raise AssertionError(f"fast-path scores differ from the per-query functions by {diff}")
+
+    k1s_err = eval_k1s_holds(torch, device, rec, sweeps, k1s)
+    stats["k1s_max_abs_err"] = max(stats.get("k1s_max_abs_err", 0.0), k1s_err)
+    stats["topk_items_max_abs_err"] = max(stats.get("topk_items_max_abs_err", 0.0),
+                                          eval_topk_holds(torch, device, topk, answers))
+    phases = result.phase_seconds
+    scoring_s = phases.get("predict", 0.0) + phases.get("metric", 0.0)
+    stats["eval_launches"] = {"k1s": k1s, "k2_eval_calls": k2_calls,
+                              "k2_eval_kernels": k2_kernels, "k3": k3}
+    stats["eval"] = {
+        "shape": f"ML-1M {nu} x {ni}, {len(vals)} ratings, {n_folds} folds",
+        "candidates": n_cand, "fast_path_candidates": result.fast_path_candidates,
+        "eval_queries": queries, "wall_s": wall, "phase_seconds": phases,
+        "scores": [ms.score for _, ms in result.engine_params_scores],
+        "best_index": result.best_idx, "per_query_max_abs_diff": diff,
+        "eval_queries_per_s": n_cand * queries / scoring_s if scoring_s else None,
+        "candidates_per_min": 60.0 * n_cand / wall, **stats["eval_launches"]}
+    log(json.dumps({"eval": "recommendation_eval sweep", **stats["eval"]}))
+
+
+def eval_k1s_holds(torch, device, rec, sweeps, k1s: int) -> float:
+    """K1s at the shapes the eval main path gave it, on what it recorded
+    (``sweeps``: each fold's training data, candidate params and swept
+    models): ``k1s`` launches equal to the groups' (``als.sweep_groups``)
+    iterations x K1 launches an iteration; each candidate's factors
+    bit-identical to ``ALSAlgorithm.train`` of it alone on the same fold;
+    one iteration of each group against the plain version on the first
+    fold. Returns the max abs error of the plain comparisons."""
+    from predictionio_tpu_torch.core.context import WorkflowContext
+    from predictionio_tpu_torch.ops import als
+
+    if not sweeps:
+        raise AssertionError("the eval main path made no stacked training")
+    expect, err, shapes = 0, 0.0, []
+    for f, (fold_td, plist, models) in enumerate(sweeps):
+        data = als.build_ratings_data(
+            fold_td.rows, fold_td.cols, np.asarray(fold_td.ratings, np.float32),
+            len(fold_td.user_ids), len(fold_td.item_ids),
+            bucket_widths=tuple(plist[0].bucket_widths))
+        cands = [als.ALSParams(rank=p.rank, iterations=p.num_iterations, reg=p.lambda_,
+                               seed=p.seed, compute_dtype=p.compute_dtype,
+                               storage_dtype=p.storage_dtype) for p in plist]
+        for idx in als.sweep_groups(cands):
+            rank = max(cands[i].rank for i in idx)
+            expect += cands[0].iterations * k1_launches_per_iteration(data, rank)
+            if f == 0:
+                shapes.append(f"rank {rank} C={len(idx)}")
+                one = [als.ALSParams(rank=cands[i].rank, iterations=1, reg=cands[i].reg,
+                                     seed=cands[i].seed) for i in idx]
+                err = max(err, k1s_iteration_vs_plain(torch, data, one, device))
+        for c, (p, model) in enumerate(zip(plist, models)):
+            algo = rec.ALSAlgorithm(p)
+            algo.device = device
+            alone = algo.train(WorkflowContext(mode="Evaluation", device=device), fold_td)
+            for name in ("user_factors", "item_factors", "user_scales", "item_scales"):
+                a, b = getattr(model, name), getattr(alone, name)
+                if (a is None) != (b is None) or (a is not None and a.tobytes() != b.tobytes()):
+                    raise AssertionError(f"fold {f} candidate {c} (rank {p.rank}, lambda "
+                                         f"{p.lambda_}): swept {name} not bit-identical to "
+                                         "its training alone")
+    if k1s != expect:
+        raise AssertionError(f"K1s launched {k1s} kernels on the eval path, its groups "
+                             f"need {expect}")
+    log(f"K1s on the eval path: {k1s} launches as its groups need ({', '.join(shapes)}); "
+        f"{sum(len(m) for _, _, m in sweeps)} candidate models bit-identical to their "
+        f"trainings alone; 1 iteration of each group vs plain: max abs {err:.3g}")
+    return err
+
+
+def eval_topk_holds(torch, device, topk, answers) -> float:
+    """Each ``eval_topk`` answer of the eval main path against K2's plain
+    version on the same model's user rows: the known queries' rows equal
+    to ``gather_top_k_batch_reference`` capped to each query's ``num``
+    (:func:`hold_topk`), the unknown queries' rows all -1. Returns the max
+    abs error."""
+    err, ranks = 0.0, set()
+    for params, model, queries, out in answers:
+        known = [qi for qi, q in enumerate(queries) if q.user in model.user_index]
+        unknown = sorted(set(range(len(queries))) - set(known))
+        if unknown and not bool((out.ids[torch.tensor(unknown, device=device)] == -1).all()):
+            raise AssertionError("eval_topk: an unknown user's row is not empty")
+        U, V = model.device_factors(device)
+        kr = out.ids.shape[1]
+        at = torch.tensor(known, dtype=torch.int64, device=device)
+        uixs = torch.tensor([model.user_index[queries[qi].user] for qi in known],
+                            dtype=torch.int32, device=device)
+        nums = torch.tensor([int(queries[qi].num) for qi in known], device=device)
+        over = torch.arange(kr, device=device)[None, :] >= nums[:, None]
+
+        def plain(lo, hi):
+            s, i = topk.gather_top_k_batch_reference(uixs[lo:hi], U, V, kr)
+            return s.masked_fill(over[lo:hi], 0.0), i.masked_fill(over[lo:hi], -1)
+
+        e, equal = hold_topk(out.scores[at], out.ids[at], plain,
+                             f"eval_topk rank {params.rank} lambda {params.lambda_}")
+        err = max(err, e)
+        ranks.add(params.rank)
+        if equal != len(known):
+            log(f"eval_topk rank {params.rank}: {len(known) - equal} near-tie rows")
+    log(f"eval_topk: {len(answers)} answers (D = {sorted(ranks)}) equal to K2's plain "
+        f"version on the same user rows, max abs {err:.3g}")
+    return err
+
+
+def eval_cli(cli, storage, app: str) -> dict:
+    """``cli.main eval`` of the shipped sweep on ``app`` (its stdout
+    captured): the last line the JAX verb's summary, the instance
+    EVALCOMPLETED, every candidate on the fast path."""
+    import io
+
+    buf = io.StringIO()
+    os.environ["PIO_EVAL_APP_NAME"] = app
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["eval",
+                           "predictionio_tpu_torch.models.recommendation_eval.evaluation",
+                           "predictionio_tpu_torch.models.recommendation_eval.param_grid"])
+    finally:
+        os.environ.pop("PIO_EVAL_APP_NAME", None)
+    lines = buf.getvalue().strip().splitlines()
+    summary = json.loads(lines[-1])
+    keys = {"metric", "best_index", "best_params", "best_scores", "scores", "candidates",
+            "fast_path_candidates", "phase_seconds", "cache", "instance_id"}
+    inst = storage.get_metadata_evaluation_instances().get(summary["instance_id"])
+    if (rc != 0 or set(summary) != keys or inst is None or inst.status != "EVALCOMPLETED"
+            or summary["fast_path_candidates"] != summary["candidates"]):
+        raise AssertionError(f"cli eval: rc {rc}, summary {lines[-1]}, "
+                             f"instance {inst and inst.status}")
+    return summary
+
+
+@phase("eval times")
+def eval_timings(torch, device, stats):
+    """Device time per call (torch.profiler) of K3 at an ML-1M fold (Q =
+    333,334, P = A = 1, k = 1: the shipped sweep's shape; and P = 10, A =
+    3), of K2 at the eval shape (B = 333,334 indices into a 6,040-row
+    user table, D = 20, f32 and int8, k in {1, 10}), and of one K1s
+    iteration at the ML-20M shape, rank 20, C = 4, against K1 alone on
+    the same tables 4 times, each beside its plain version, its library
+    yardstick (``torch.topk(U[ixs] @ V.T)``; K1s: the
+    gather + bmm + cholesky path per bucket and candidate; none for K3)
+    and its bound from this run's inputs."""
+    from predictionio_tpu_torch.ops import als, topk
+
+    mem_rate, fp32_rate = peaks(stats["device_name"])
+
+    def bound(nbytes, flops):
+        by = "bytes" if nbytes / mem_rate >= flops / fp32_rate else "operations"
+        return max(nbytes / mem_rate, flops / fp32_rate) * 1e3, by
+
+    rng = np.random.default_rng(SEED + 2)
+    k3 = []
+    for P, A in ((1, 1), (10, 3)):
+        pred, actual, counts = ranking_case(torch, rng, EVAL_Q, P, A, device)
+        nbytes = EVAL_Q * (P + A + 1) * 4 + EVAL_Q * 13
+        b_ms, b_by = bound(nbytes, 0)
+        dev = device_ms(torch, lambda: topk.ranking_metrics_batch(pred, actual, counts, P))
+        plain = device_ms(torch, lambda: topk.ranking_metrics_batch_reference(
+            pred, actual, counts, P), runs=10)
+        row = {"kernel": "ranking_metrics_batch", "Q": EVAL_Q, "P": P, "A": A, "k": P,
+               "kernel_device_ms": _total(dev), "kernel_ms": cuda_median_ms(
+                   torch, lambda: topk.ranking_metrics_batch(pred, actual, counts, P)),
+               "plain_device_ms": _total(plain), "plain_ms": cuda_median_ms(
+                   torch, lambda: topk.ranking_metrics_batch_reference(
+                       pred, actual, counts, P), runs=10, warmup=3),
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+        k3.append(row)
+        log(json.dumps(row))
+    stats["k3_timings"] = k3
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 3)
+    uixs = torch.randint(0, EVAL_USERS, (EVAL_Q,), generator=gen, device=device,
+                         dtype=torch.int32)
+    items6 = []
+    for dtype in ("float32", "int8"):
+        users = make_table(torch, dtype, EVAL_USERS, EVAL_RANK, False, gen, device)
+        items = make_table(torch, dtype, EVAL_ITEMS, EVAL_RANK, False, gen, device)
+        dense_u, dense = als.dense_factors(users), als.dense_factors(items)
+        row_bytes = EVAL_RANK * (1 if dtype == "int8" else 4) + (4 if dtype == "int8" else 0)
+        for k in (1, 10):
+            nbytes = (EVAL_Q * 4 + (EVAL_USERS + EVAL_ITEMS) * row_bytes + EVAL_Q * k * 8)
+            flops = 2 * EVAL_Q * EVAL_ITEMS * EVAL_RANK
+            b_ms, b_by = bound(nbytes, flops)
+
+            def kernel():
+                topk.gather_top_k_batch(uixs, users, items, k)
+
+            def plain():
+                for lo in range(0, EVAL_Q, 65_536):
+                    topk.gather_top_k_batch_reference(uixs[lo:lo + 65_536], users, items, k)
+
+            def library():
+                torch.topk(dense_u[uixs] @ dense.T, k, dim=1)
+
+            dev = device_ms(torch, kernel, runs=10)
+            row = {"kernel": "gather_top_k_batch (eval)", "B": EVAL_Q, "D": EVAL_RANK,
+                   "U": EVAL_USERS, "I": EVAL_ITEMS, "dtype": dtype, "k": k,
+                   "route": topk.k2_route(k, EVAL_ITEMS, EVAL_Q).name,
+                   "chunks": len(topk.k2_chunks(k, EVAL_ITEMS, EVAL_Q)),
+                   "kernel_device_ms": _total(dev),
+                   "tile_device_ms": _total(dev, "tile_topk_kernel"),
+                   "merge_device_ms": _total(dev, "merge_topk_kernel"),
+                   "kernel_ms": cuda_median_ms(torch, kernel, runs=10),
+                   "plain_ms": cuda_median_ms(torch, plain, runs=2, warmup=1),
+                   "library_device_ms": _total(device_ms(torch, library, runs=10)),
+                   "library_ms": cuda_median_ms(torch, library, runs=10),
+                   "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops}
+            items6.append(row)
+            log(json.dumps(row))
+    stats["topk_items_timings"] = items6
+
+    data = stats["ml20m"]
+    ps = k1s_params([(20, reg, 3 + c) for c, reg in enumerate(K1S_REGS)], iterations=1)
+    C = len(ps)
+    U0, V0 = als.sweep_init(data, ps, device)
+    regs = torch.tensor(K1S_REGS, dtype=torch.float32, device=device)
+    alphas = torch.ones_like(regs)
+    rb = als.device_buckets(data.row_buckets, device)
+    cb = als.device_buckets(data.col_buckets, device)
+    U, V = U0.clone(), V0.clone()
+    def sweep_iteration():
+        als._half_step(U, V, rb, ps[0], regs, alphas)
+        als._half_step(V, U, cb, ps[0], regs, alphas)
+
+    sweep = device_ms(torch, sweep_iteration, runs=5)
+    U1, V1 = U0[0].clone(), V0[0].clone()
+
+    def k1_iteration():
+        als._half_step(U1, V1, rb, ps[0])
+        als._half_step(V1, U1, cb, ps[0])
+
+    alone = device_ms(torch, k1_iteration, runs=5)
+    Up, Vp = U0.clone(), V0.clone()
+
+    def plain_iteration_c():
+        for target, other, buckets in ((Up, Vp, rb), (Vp, Up, cb)):
+            for b in buckets:
+                als.solve_bucket_sweep_reference(other, b.col_ids, b.ratings, b.mask,
+                                                 b.seg_start, regs, target, b.row_ids)
+
+    def library_iteration():
+        for target, other, buckets in ((Up, Vp, rb), (Vp, Up, cb)):
+            for b in buckets:
+                seg = als.seg_rows(b.seg_start, b.col_ids.shape[0])
+                for c in range(C):
+                    library_solve(torch, other[c], b, seg, K1S_REGS[c])
+
+    nbytes = flops = 0
+    for b in rb + cb:
+        _, bb, ff = k1_bound(torch, b, 20, 4, 0)
+        R = b.row_ids.shape[0]
+        n_other = int(torch.unique(b.col_ids[b.mask > 0]).numel())
+        tables = (n_other + R) * 20 * 4
+        nbytes += bb - tables + C * tables
+        flops += C * ff
+    b_ms, b_by = bound(nbytes, flops)
+    stats["k1s_timings"] = {
+        "C": C, "rank": 20, "kernel_device_ms": _total(sweep),
+        "k1_alone_device_ms": _total(alone),
+        "k1_alone_x_C_device_ms": None if _total(alone) is None else C * _total(alone),
+        "kernel_ms": cuda_median_ms(torch, sweep_iteration, runs=5, warmup=2),
+        "plain_ms": cuda_median_ms(torch, plain_iteration_c, runs=2, warmup=1),
+        "library_ms": cuda_median_ms(torch, library_iteration, runs=2, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops}
+    log(json.dumps({"k1s": "one iteration, ML-20M rank 20 f32", **stats["k1s_timings"]}))
+
+
+def eval_phase(torch, device, stats):
+    """The evaluation slice's checks, main path and times, in order."""
+    for step in (k3_vs_plain, topk_items_vs_plain, k1s_vs_k1, eval_sweep, eval_timings):
+        if failures:
+            return
+        step(torch, device, stats)
+
+
+def k3_summary(stats) -> dict:
+    """K3's line: one ML-1M fold of the shipped sweep (Q = 333,334, P = A
+    = k = 1); launches from the sweep's main path."""
+    rep = stats["k3_timings"][0]
+    return {
+        "name": "ranking_metrics_batch",
+        "route": "cuda",
+        "source": "predictionio_tpu_torch/csrc/ranking.cu",
+        "replaces": "predictionio_tpu/ops/topk.py:179",
+        "launches": stats["eval_launches"]["k3"],
+        "max_abs_err": stats["k3_max_abs_err"],
+        "ms": rep["kernel_device_ms"] or rep["kernel_ms"],
+        "plain_ms": rep["plain_device_ms"] or rep["plain_ms"],
+        "bound_ms": rep["bound_ms"],
+        "bound_by": rep["bound_by"],
+        "library_ms": None,
+    }
+
+
+def topk_items_summary(stats) -> dict:
+    """K2's eval line (``eval_topk``'s ``gather_top_k_batch`` calls, the
+    port of the JAX package's ``top_k_items_batch``): one ML-1M fold (B =
+    333,334 user rows, D = 20, f32, k = 1: the shipped sweep's call);
+    launches (calls) and kernel launches from the sweep's main path."""
+    rep = stats["topk_items_timings"][0]
+    return {
+        "name": "gather_top_k_batch (eval top-k)",
+        "route": "cuda",
+        "source": "predictionio_tpu_torch/csrc/topk.cu",
+        "replaces": "predictionio_tpu/ops/topk.py:69",
+        "launches": stats["eval_launches"]["k2_eval_calls"],
+        "max_abs_err": stats["topk_items_max_abs_err"],
+        "ms": rep["kernel_device_ms"] or rep["kernel_ms"],
+        "plain_ms": rep["plain_ms"],
+        "bound_ms": rep["bound_ms"],
+        "bound_by": rep["bound_by"],
+        "library_ms": rep["library_device_ms"] or rep["library_ms"],
+        "k2_route": rep["route"],
+        "kernel_launches": stats["eval_launches"]["k2_eval_kernels"],
+    }
+
+
+def k1s_summary(stats) -> dict:
+    """K1s's line: one iteration of 4 candidates at ML-20M rank 20 f32;
+    launches from the sweep's main path; ``k1_alone_x_C_ms``: K1 on the
+    same tables, one candidate at a time, in this run."""
+    t = stats["k1s_timings"]
+    return {
+        "name": "solve_bucket_sweep",
+        "route": "cuda",
+        "source": "predictionio_tpu_torch/csrc/als_solve.cu",
+        "replaces": "predictionio_tpu/ops/als.py:1088",
+        "launches": stats["eval_launches"]["k1s"],
+        "max_abs_err": stats["k1s_max_abs_err"],
+        "ms": t["kernel_device_ms"] or t["kernel_ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],
+        "k1_alone_x_C_ms": t["k1_alone_x_C_device_ms"],
+    }
+
+
 def k1i_summary(stats) -> dict:
     """K1 implicit's line of the kernels summary: one iteration at the
     ML-20M-shaped view counts, rank 10 f32 (the sum over its launches);
@@ -3025,6 +3796,7 @@ def main() -> int:
         "simlife": lambda: similar_lifecycle(torch, device, stats),
         "train": lambda: full_width(torch, device, stats),
         "simtrain": lambda: similar_full_width(torch, device, stats),
+        "eval": lambda: eval_phase(torch, device, stats),
         "times": lambda: timings(torch, device, stats),
         "k1times": lambda: k1_timings(torch, device, stats),
         "simtimes": lambda: similar_timings(torch, device, stats),
@@ -3074,7 +3846,8 @@ def main() -> int:
         "kernel_launches": stats["k2_kernel_launches"],
         "baseline_ms": rep["baseline_device_ms"] if dev else rep["baseline_ms"],
         "batch_sizes": stats["batchserve"][f"window_{BATCH_WINDOW_MS:g}ms"][64]["batch_sizes"],
-    }, k1_summary(stats), k1i_summary(stats), k2s_summary(stats)]}))
+    }, k1_summary(stats), k1i_summary(stats), k2s_summary(stats),
+        k1s_summary(stats), topk_items_summary(stats), k3_summary(stats)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,4 @@
-"""Command line of the port: the ``train`` and ``deploy`` verbs.
+"""Command line of the port: the ``train``, ``eval`` and ``deploy`` verbs.
 
     python -m predictionio_tpu_torch.cli.main train --variant engine.json \\
         [--engine-id ID] [--engine-version V] [--batch LABEL] \\
@@ -12,9 +12,11 @@
         [--log-url URL] [--log-prefix P] [--batch-window-ms MS] \\
         [--reuse-port] [--query-cache-mb MB] [--variants A.json,B.json] \\
         [--no-warmup]
+    python -m predictionio_tpu_torch.cli.main eval EVALUATION \\
+        [ENGINE_PARAMS_GENERATOR] [--batch LABEL] [--device cuda|cpu]
 
-Port of ``predictionio_tpu/cli/main.py`` ``cmd_train`` (:843-894) and
-``cmd_deploy`` (:1053-1207). ``train`` records an engine instance under
+Port of ``predictionio_tpu/cli/main.py`` ``cmd_train`` (:843-894),
+``cmd_eval`` (:900-934) and ``cmd_deploy`` (:1053-1207). ``train`` records an engine instance under
 the variant's (id, version, file-name label), as the JAX CLI does, so
 ``deploy`` of either package finds it; ``--warm-start`` starts from the
 latest COMPLETED instance of that identity, whichever package trained
@@ -29,12 +31,15 @@ the instance's recorded ``engine_factory``), else the port's
 recommendation template; a JAX-package factory name maps to the port
 module of the same path (core/engine.py ``port_factory_name``). Storage
 is configured by the same ``PIO_*`` environment as the JAX package.
-Training and scoring run on CUDA unless ``--device cpu`` is given.
+Training, evaluation and scoring run on CUDA unless ``--device cpu`` is
+given. ``eval`` records an EvaluationInstance (INIT -> EVALCOMPLETED) and
+prints the JAX verb's lines, its last a JSON summary.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import sys
@@ -47,6 +52,7 @@ from predictionio_tpu_torch.core.engine import (
     resolve_engine_factory,
 )
 from predictionio_tpu_torch.core.workflow import load_variant, run_train
+from predictionio_tpu_torch.core.workflow_eval import run_evaluation
 from predictionio_tpu_torch.data.storage import get_storage
 from predictionio_tpu_torch.server.engine_server import EngineServer
 
@@ -97,6 +103,41 @@ def cmd_train(args) -> int:
         ctx=ctx,
     )
     print(f"Training completed. Engine instance ID: {instance_id}")
+    return 0
+
+
+def cmd_eval(args) -> int:
+    """Run an evaluation sweep and record an EvaluationInstance."""
+    ctx = WorkflowContext(mode="Evaluation", batch=args.batch or "", device=args.device)
+    instance_id, result = run_evaluation(
+        evaluation_class=args.evaluation_class,
+        engine_params_generator_class=args.engine_params_generator_class,
+        batch=args.batch or "",
+        ctx=ctx,
+    )
+    print(result.to_one_liner())
+    print(f"Evaluation completed. Evaluation instance ID: {instance_id}")
+    # a compact machine-readable summary as the last stdout line, the JAX
+    # verb's keys: a caller that keeps only the tail can json.loads it
+    best = result.best_score
+    summary = {
+        "metric": result.metric_header,
+        "best_index": result.best_idx,
+        "best_params": result.best_engine_params.to_jsonable(),
+        "best_scores": {
+            result.metric_header: best.score,
+            **dict(zip(result.other_metric_headers, best.other_scores)),
+        },
+        "scores": [ms.score for _, ms in result.engine_params_scores],
+        "candidates": len(result.engine_params_scores),
+        "fast_path_candidates": result.fast_path_candidates,
+        "phase_seconds": {
+            k: round(v, 3) for k, v in result.phase_seconds.items()
+        },
+        "cache": result.cache_stats,
+        "instance_id": instance_id,
+    }
+    print(json.dumps(summary, sort_keys=True))
     return 0
 
 
@@ -264,6 +305,20 @@ def build_parser() -> argparse.ArgumentParser:
         "kernels' plain versions)",
     )
     t.set_defaults(fn=cmd_train)
+    ev = sub.add_parser("eval", help="run an evaluation sweep and record an "
+                        "evaluation instance")
+    ev.add_argument("evaluation_class",
+                    help="dotted path of an Evaluation (or a factory of one)")
+    ev.add_argument("engine_params_generator_class", nargs="?",
+                    help="dotted path of an EngineParamsGenerator (or a "
+                    "factory of one)")
+    ev.add_argument("--batch", default="", help="batch label of the instance")
+    ev.add_argument(
+        "--device", default=None,
+        help="torch device to evaluate on (default: cuda; cpu runs the "
+        "kernels' plain versions)",
+    )
+    ev.set_defaults(fn=cmd_eval)
     d = sub.add_parser("deploy", help="serve an engine instance over HTTP")
     d.add_argument("--engine-instance-id")
     d.add_argument("--variant", help="engine.json of the instance to deploy")

@@ -4,6 +4,7 @@ from predictionio_tpu_torch.core.params import Params, EmptyParams, EngineParams
 from predictionio_tpu_torch.core.base import (
     Algorithm,
     DataSource,
+    EvalTopK,
     Preparator,
     IdentityPreparator,
     Serving,
@@ -20,6 +21,7 @@ __all__ = [
     "EngineParams",
     "Algorithm",
     "DataSource",
+    "EvalTopK",
     "Preparator",
     "IdentityPreparator",
     "Serving",

@@ -1,7 +1,9 @@
 """DASE component contracts: DataSource, Preparator, Algorithm, Serving.
 
-Port of ``predictionio_tpu/core/base.py``, the contracts the serving
-slice needs. One difference: an ``Algorithm`` carries the
+Port of ``predictionio_tpu/core/base.py``: the serving and training
+contracts, and the evaluation hooks (``DataSource.read_eval``,
+``EvalTopK``, ``Algorithm.eval_topk`` and ``Algorithm.train_sweep``,
+whose defaults decline as the JAX package's do). One difference: an ``Algorithm`` carries the
 ``torch.device`` it scores on (``device``), set by the deploy path from
 the run's WorkflowContext; ``None`` means CUDA (utils/device.py).
 """
@@ -10,6 +12,7 @@ from __future__ import annotations
 
 import abc
 import inspect
+from dataclasses import dataclass
 from typing import Any, Generic, Sequence, TypeVar
 
 import torch
@@ -49,10 +52,23 @@ def doer(cls: type, params: Params | None = None) -> Any:
 
 
 class DataSource(Component, Generic[TD, Q, A], abc.ABC):
-    """Reads training data from the event store."""
+    """Reads training (and evaluation) data from the event store.
+
+    ``read_training`` -> TD; ``read_eval`` -> [(TD, eval_info, [(Q, A)])]
+    for k evaluation sets (reference BaseDataSource.readTrainingBase /
+    readEvalBase).
+    """
 
     @abc.abstractmethod
     def read_training(self, ctx: WorkflowContext) -> TD: ...
+
+    def read_eval(
+        self, ctx: WorkflowContext
+    ) -> list[tuple[TD, Any, list[tuple[Q, A]]]]:
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement read_eval; "
+            "evaluation is unavailable for this data source"
+        )
 
 
 class Preparator(Component, Generic[TD, PD], abc.ABC):
@@ -67,6 +83,26 @@ class IdentityPreparator(Preparator[TD, TD]):
 
     def prepare(self, ctx: WorkflowContext, training_data: TD) -> TD:
         return training_data
+
+
+@dataclass
+class EvalTopK:
+    """Device-shaped evaluation predictions: one candidate's answers to a
+    whole eval split as a padded [Q, P] id/score matrix (the evaluation
+    fast path's interchange type, core/fast_eval.py eval_device).
+
+    ``ids``: int32 [Q, P] ranked predicted item indices in the model's
+    dense id space; -1 marks an empty slot (rows already capped to each
+    query's requested result count, so slicing ``ids[:, :k]`` is exactly
+    the per-query path's ``top[:k]``).
+    ``scores``: float32 [Q, P] matching scores (padding slots are 0).
+    ``index``: the id -> dense-int mapping (``.get``-capable: a BiMap or
+    dict) that encodes actual/relevant ids into the same space.
+    """
+
+    ids: Any
+    scores: Any
+    index: Any
 
 
 class Algorithm(Component, Generic[PD, M, Q, P], abc.ABC):
@@ -112,6 +148,36 @@ class Algorithm(Component, Generic[PD, M, Q, P], abc.ABC):
             return self.query_class()
         except TypeError:
             return None
+
+    def eval_topk(
+        self, model: M, queries: Sequence[Q], k: int
+    ) -> "EvalTopK | None":
+        """Batched device eval scoring, or None when unsupported.
+
+        The evaluation fast path calls this once per eval split with all
+        queries: an implementation returns the whole split's ranked
+        predictions as one padded EvalTopK matrix (one batched top-k
+        device call instead of Q Python predictions). Rows must match
+        what ``predict``/``batch_predict`` would serve -- same ranking,
+        capped to each query's requested result count -- so metric parity
+        with the per-query path holds exactly. Returning None (the
+        default) keeps the candidate on the per-query path.
+        """
+        return None
+
+    def train_sweep(
+        self, ctx: WorkflowContext, prepared_data: PD, params_list: Sequence[Any]
+    ) -> "list[M] | None":
+        """Train MANY param variants of this algorithm at once, or None.
+
+        Evaluation sweeps call this with every candidate's params for one
+        algorithm slot; an implementation that can stack the trainings
+        (a candidate axis on the device, ops/als.py als_train_sweep)
+        returns one model per candidate in order. Returning None (the
+        default) tells the sweep to fall back to one ``train`` call per
+        candidate.
+        """
+        return None
 
     def make_persistent_model(self, model: M) -> Any:
         """The object to persist for this model: the model itself (model

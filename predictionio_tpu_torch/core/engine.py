@@ -1,10 +1,12 @@
-"""Engine: named DASE component classes; train; variant -> EngineParams.
+"""Engine: chains DASE components; train/eval orchestration.
 
 Port of ``predictionio_tpu/core/engine.py``: component registries keyed
 by name, instantiation, ``train`` = read -> sanity-check -> prepare ->
-per-algorithm train (Engine.scala:625-729), engine-params extraction
-from a variant (jValueToEngineParams, Engine.scala:357-420), and engine
-factory resolution. Evaluation (``Engine.eval``) is a later slice.
+per-algorithm train (Engine.scala:625-729), ``eval`` = per-eval-set
+train + batch-predict + serving join (Engine.scala:730-820) and
+``batch_eval`` over candidates, engine-params extraction from a variant
+(jValueToEngineParams, Engine.scala:357-420), and engine factory
+resolution.
 """
 
 from __future__ import annotations
@@ -171,6 +173,56 @@ class Engine(Generic[TD, PD, Q, P, A]):
         for i, m in enumerate(models):
             _sanity(m, f"Model {i}", wp.skip_sanity_check)
         return models
+
+    def eval(
+        self,
+        ctx: WorkflowContext,
+        engine_params: EngineParams,
+        workflow_params: WorkflowParams | None = None,
+    ) -> list[tuple[Any, list[tuple[Q, P, A]]]]:
+        """For each eval set from the datasource: train on its TD, score
+        its (Q, A) pairs through all algorithms + serving (object
+        Engine.eval, Engine.scala:730-820). Returns
+        [(eval_info, [(query, prediction, actual)])]."""
+        wp = workflow_params or WorkflowParams()
+        datasource = self.make_datasource(engine_params)
+        preparator = self.make_preparator(engine_params)
+        serving = self.make_serving(engine_params)
+
+        results = []
+        for td, eval_info, qa_pairs in datasource.read_eval(ctx):
+            _sanity(td, "TrainingData(eval)", wp.skip_sanity_check)
+            pd = preparator.prepare(ctx, td)
+            algorithms = self.make_algorithms(engine_params)
+            for algo in algorithms:  # each scores on the run's device
+                algo.device = ctx.device
+            models = [algo.train(ctx, pd) for algo in algorithms]
+
+            indexed_queries = [
+                (ix, serving.supplement(q)) for ix, (q, _) in enumerate(qa_pairs)
+            ]
+            # per-algorithm batch predict, then join on query index --
+            # the union->groupByKey->sort-by-algo join of Engine.scala:783-814
+            per_algo: list[dict[int, Any]] = []
+            for algo, model in zip(algorithms, models):
+                per_algo.append(dict(algo.batch_predict(model, indexed_queries)))
+            served = []
+            for ix, (q, a) in enumerate(qa_pairs):
+                predictions = [pa[ix] for pa in per_algo]
+                served.append((q, serving.serve(q, predictions), a))
+            results.append((eval_info, served))
+        return results
+
+    def batch_eval(
+        self,
+        ctx: WorkflowContext,
+        engine_params_list: Sequence[EngineParams],
+        workflow_params: WorkflowParams | None = None,
+    ) -> list[tuple[EngineParams, list[tuple[Any, list[tuple[Q, P, A]]]]]]:
+        """Every candidate through :meth:`eval` (BaseEngine.batchEval)."""
+        return [
+            (ep, self.eval(ctx, ep, workflow_params)) for ep in engine_params_list
+        ]
 
     def params_from_variant(self, variant: Mapping[str, Any]) -> EngineParams:
         def one(slot: str, registry: Mapping[str, type]) -> tuple[str, Params]:

@@ -2,8 +2,9 @@
 
 A copy of ``predictionio_tpu/core/params.py`` (reference
 controller/Params.scala:26, EngineParams.scala:35): a ``Params`` marker
-with JSON round-trip and ``EngineParams`` bundling (name, params) per
-DASE slot. Evaluation-sweep generators come with the evaluation slice.
+with JSON round-trip, ``EngineParams`` bundling (name, params) per
+DASE slot, and ``EngineParamsGenerator`` for evaluation sweeps
+(EngineParamsGenerator.scala).
 
 Params classes are plain dataclasses; JSON extraction (the reference's
 json4s/Gson ``JsonExtractor``) becomes dataclass-field-driven coercion.
@@ -127,3 +128,23 @@ class EngineParams:
             "algorithmParamsList": [pair(a) for a in self.algorithms],
             "servingParams": pair(self.serving),
         }
+
+
+class EngineParamsGenerator:
+    """Produces the candidate EngineParams list for a tuning sweep
+    (reference controller/EngineParamsGenerator.scala). Subclasses set
+    ``engine_params_list`` in ``__init__`` or override the property."""
+
+    _engine_params_list: list[EngineParams] | None = None
+
+    @property
+    def engine_params_list(self) -> list[EngineParams]:
+        if self._engine_params_list is None:
+            raise ValueError("engine_params_list is empty")
+        return self._engine_params_list
+
+    @engine_params_list.setter
+    def engine_params_list(self, value: Sequence[EngineParams]) -> None:
+        if self._engine_params_list is not None:
+            raise ValueError("engine_params_list can be set at most once")
+        self._engine_params_list = list(value)

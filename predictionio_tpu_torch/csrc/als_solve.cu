@@ -118,6 +118,23 @@
 //   row's segments run in one chain, and 7 warps wait during the
 //   substitutions: what the warp route removes at D <= 32.
 //
+// K1s, the candidate axis (replaces predictionio_tpu/ops/als.py:1088
+//   _train_fused_sweep, the vmapped program of :1132 als_train_sweep):
+//   every launch above takes C candidates as gridDim.y. Candidate c reads
+//   its own opposite table (and int8 scales), reg, alpha and Gramian and
+//   writes its own target, x and workspace, at a per-candidate stride
+//   (struct Cand); the bucket arrays are shared, so one launch per bucket
+//   per half-step serves all C trainings and reads the bucket once into
+//   L2 for all of them. Each candidate's arithmetic is a one-candidate
+//   launch's, so candidate c of a sweep is bit-identical to its training
+//   alone from the same init. A rank-r candidate padded to the sweep's
+//   rank D with zero columns keeps them exactly zero: its A is
+//   [[A_r, 0], [0, lam I]], every product of a zero column adds +-0, and
+//   the eliminations and substitutions subtract exact zeros from the
+//   real block. Bound: C times K1's, per iteration (about 0.3 ms a
+//   candidate at the ML-20M shape, rank 20), the factor tables of all C
+//   candidates now sharing the 50 MB L2.
+//
 // Later work: fewer shared-memory reads per product (register blocking);
 //   cp.async / TMA prefetch of the next tile, and the gather's loads
 //   issued before their use; registers, the tile width and warps per
@@ -137,8 +154,28 @@ constexpr int MAX_D = 128;
 constexpr int WARP_MAX_D = 32;  // the warp route's largest rank (ops/als.py WARP_MAX_RANK)
 constexpr int WARPS = 8;        // rows (warps) a block of the warp route
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_C = 65535;  // candidates a launch: gridDim.y
 
 enum DType { F32 = 0, BF16 = 1, I8 = 2 };
+
+// The candidate axis (K1s): blockIdx.y is the candidate c of a sweep.
+// Candidate c reads its own opposite table, scales, reg, alpha and
+// Gramian and writes its own target, x and workspace, each c strides on
+// from the first; the bucket arrays (col_ids, ratings, mask, seg_start,
+// row_ids) are shared by every candidate. regs/alphas NULL: the launch's
+// scalar reg/alpha (a one-candidate launch, K1 itself).
+struct Cand {
+  const float* regs;    // [C] or NULL
+  const float* alphas;  // [C] or NULL
+  size_t other_cs;      // bytes between candidates' opposite tables
+  size_t scales_cs;     // floats between their int8 scales
+  size_t target_cs;     // bytes between their target tables
+  size_t tscales_cs;    // floats between their target scales
+  size_t x_cs;          // floats between their x_out blocks (R * D)
+  size_t gram_cs;       // floats between their Gramians (D * D)
+  size_t ws_cs;         // floats between their workspaces (B * (NE + 2))
+  int C;                // candidates: gridDim.y
+};
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -233,9 +270,21 @@ solve_kernel(const T* __restrict__ other, const float* __restrict__ other_scales
              int K, int D, float reg, int weighted, int bf16c, int implicit,
              float alpha, const float* __restrict__ gram,
              float* __restrict__ x_out, void* __restrict__ target, int target_code,
-             float* __restrict__ target_scales, const int* __restrict__ row_ids) {
+             float* __restrict__ target_scales, const int* __restrict__ row_ids,
+             const Cand cand) {
   extern __shared__ float smem[];
   __shared__ int s_col[TILE_K];
+  {  // candidate blockIdx.y: its tables, reg and alpha (Cand)
+    const size_t c = blockIdx.y;
+    other = (const T*)((const char*)other + c * cand.other_cs);
+    if (other_scales != nullptr) other_scales += c * cand.scales_cs;
+    if (cand.regs != nullptr) reg = cand.regs[c];
+    if (cand.alphas != nullptr) alpha = cand.alphas[c];
+    if (gram != nullptr) gram += c * cand.gram_cs;
+    if (x_out != nullptr) x_out += c * cand.x_cs;
+    if (target != nullptr) target = (char*)target + c * cand.target_cs;
+    if (target_scales != nullptr) target_scales += c * cand.tscales_cs;
+  }
   __shared__ float s_w[TILE_K];
   __shared__ float s_diag;
   __shared__ float s_n;
@@ -423,7 +472,7 @@ cudaError_t launch(const void* other, const float* other_scales, const int* col_
                    int R, int K, int D, float reg, int weighted, int bf16c,
                    int implicit, float alpha, const float* gram,
                    float* x_out, void* target, int target_code, float* target_scales,
-                   const int* row_ids, cudaStream_t stream) {
+                   const int* row_ids, const Cand& cand, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)TILE_K * (2 * D + 2) + (size_t)D * (D + 1) + D);
   if (smem > 48 * 1024) {
@@ -431,10 +480,10 @@ cudaError_t launch(const void* other, const float* other_scales, const int* col_
         solve_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  solve_kernel<T, P><<<R, THREADS, smem, stream>>>(
+  solve_kernel<T, P><<<dim3(R, cand.C), THREADS, smem, stream>>>(
       (const T*)other, other_scales, col_ids, ratings, mask, seg_start, K, D, reg,
       weighted, bf16c, implicit, alpha, gram, x_out, target, target_code, target_scales,
-      row_ids);
+      row_ids, cand);
   return cudaGetLastError();
 }
 
@@ -444,13 +493,13 @@ cudaError_t dispatch(const void* other, const float* other_scales, const int* co
                      int R, int K, int D, float reg, int weighted, int bf16c,
                      int implicit, float alpha, const float* gram,
                      float* x_out, void* target, int target_code, float* target_scales,
-                     const int* row_ids, cudaStream_t stream) {
+                     const int* row_ids, const Cand& cand, cudaStream_t stream) {
   // owned entries per thread: ceil((D(D+1)/2 + D) / THREADS)
   const int need = (D * (D + 3) / 2 + THREADS - 1) / THREADS;
 #define PIO_K1_LAUNCH(PV)                                                          \
   return launch<T, PV>(other, other_scales, col_ids, ratings, mask, seg_start, R, \
                        K, D, reg, weighted, bf16c, implicit, alpha, gram, x_out,  \
-                       target, target_code, target_scales, row_ids, stream)
+                       target, target_code, target_scales, row_ids, cand, stream)
   if (need <= 1) PIO_K1_LAUNCH(1);
   if (need <= 2) PIO_K1_LAUNCH(2);
   if (need <= 4) PIO_K1_LAUNCH(4);
@@ -482,7 +531,23 @@ struct Solve {
   float* target_scales;
   const int* row_ids;
   int vec;  // factor rows start 16-byte aligned: gather 16 bytes a lane
+  Cand cand;
 };
+
+// The arguments of candidate c (blockIdx.y) of a sweep (Cand)
+__device__ __forceinline__ Solve for_candidate(Solve a, size_t c) {
+  const Cand& k = a.cand;
+  a.other = (const char*)a.other + c * k.other_cs;
+  if (a.other_scales != nullptr) a.other_scales += c * k.scales_cs;
+  if (k.regs != nullptr) a.reg = k.regs[c];
+  if (k.alphas != nullptr) a.alpha = k.alphas[c];
+  if (a.gram != nullptr) a.gram += c * k.gram_cs;
+  if (a.workspace != nullptr) a.workspace += c * k.ws_cs;
+  if (a.x_out != nullptr) a.x_out += c * k.x_cs;
+  if (a.target != nullptr) a.target = (char*)a.target + c * k.target_cs;
+  if (a.target_scales != nullptr) a.target_scales += c * k.tscales_cs;
+  return a;
+}
 
 // 16 bytes of factor row c (vector v) as gathered() reads each value
 __device__ __forceinline__ void gathered16(const float* t, const float*, size_t c, int D,
@@ -707,8 +772,9 @@ __device__ __forceinline__ void warp_finish(const Solve& a, int r, int lane, flo
 // One warp per row: a solved row's whole range, solved (PARTIALS false),
 // or one table row's partial written to the workspace (PARTIALS true).
 template <typename T, int P, bool PARTIALS>
-__device__ __forceinline__ void warp_rows(const Solve& a) {
+__device__ __forceinline__ void warp_rows(const Solve& a0) {
   extern __shared__ float smem[];
+  const Solve a = for_candidate(a0, blockIdx.y);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int r = blockIdx.x * WARPS + warp;
@@ -748,21 +814,34 @@ __device__ __forceinline__ void warp_rows(const Solve& a) {
   warp_finish<P>(a, r, lane, tile, xo, yo, acc, __shfl_sync(FULL, n_acc, 0), bad);
 }
 
+// Blocks of 8 rows each SM keeps in flight: four at D <= 10 (P <= 3, 64
+// registers a thread), three at D <= 20 (P <= 8, 85). ptxas is held to
+// that budget, since its own choice moves with small changes of the code
+// (int8 at D = 20 went from 80 to 112 registers when the candidate axis
+// was added) and a block's rows in flight go with it; a looser cap lets
+// it spend registers that cost a block (D = 10 took 72 under the D = 20
+// cap).
+constexpr int warp_min_blocks(int P) { return P <= 3 ? 4 : P <= 8 ? 3 : 1; }
+
 template <typename T, int P>
-__global__ void __launch_bounds__(WARPS * 32) warp_solve_kernel(const Solve a) {
+__global__ void __launch_bounds__(WARPS * 32, warp_min_blocks(P))
+warp_solve_kernel(const Solve a) {
   warp_rows<T, P, false>(a);
 }
 
 template <typename T, int P>
-__global__ void __launch_bounds__(WARPS * 32) warp_partials_kernel(const Solve a) {
+__global__ void __launch_bounds__(WARPS * 32, warp_min_blocks(P))
+warp_partials_kernel(const Solve a) {
   warp_rows<T, P, true>(a);
 }
 
 // One warp per solved row of a segmented bucket: its segments' partials
 // summed in segment order from the first partial, then the finish.
 template <int P>
-__global__ void __launch_bounds__(WARPS * 32) warp_finish_kernel(const Solve a) {
+__global__ void __launch_bounds__(WARPS * 32, warp_min_blocks(P))
+warp_finish_kernel(const Solve a0) {
   extern __shared__ float smem[];
+  const Solve a = for_candidate(a0, blockIdx.y);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int r = blockIdx.x * WARPS + warp;
@@ -808,7 +887,7 @@ cudaError_t launch_warp(int launch, const Solve& a, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
   }
   const int rows = launch == WARP_PARTIALS ? a.B : a.R;
-  kernel<<<(rows + WARPS - 1) / WARPS, WARPS * 32, smem, stream>>>(a);
+  kernel<<<dim3((rows + WARPS - 1) / WARPS, a.cand.C), WARPS * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -833,7 +912,10 @@ cudaError_t dispatch_warp(int launch, const Solve& a, cudaStream_t stream) {
 // WARP_MAX_D), or the two launches of a segmented bucket on the warp
 // route: WARP_PARTIALS (one warp per table row, into workspace [B, D(D+3)/2
 // + 2] f32) then WARP_FINISH (one warp per solved row, from workspace).
-// ops/als.py k1_route picks them. Pointers are device pointers;
+// ops/als.py k1_route picks them. C candidates (K1s) run as gridDim.y,
+// candidate c at the strides of n_other / n_target table rows (struct
+// Cand); regs and alphas are [C] device arrays, or NULL for the scalar
+// reg and alpha (C = 1: K1 itself). Pointers are device pointers;
 // other_scales and target_scales are NULL unless the table is int8; x_out
 // and target may each be NULL; gram ([D, D] f32, row-major) is read only
 // when implicit is set, and must then be given. Returns cudaGetLastError()
@@ -847,8 +929,11 @@ extern "C" int pio_k1_solve_bucket(int launch, const void* other, int other_code
                                    int implicit, float alpha, const float* gram,
                                    float* workspace, float* x_out, void* target,
                                    int target_code, float* target_scales,
-                                   const int* row_ids, void* stream) {
+                                   const int* row_ids, int C, const float* regs,
+                                   const float* alphas, int n_other, int n_target,
+                                   void* stream) {
   if (launch < BLOCK || launch > WARP_FINISH) return (int)cudaErrorInvalidValue;
+  if (C < 1 || C > MAX_C || n_other < 0 || n_target < 0) return (int)cudaErrorInvalidValue;
   if ((launch == WARP_PARTIALS ? B : R) <= 0) return 0;
   if (D < 1 || D > (launch == BLOCK ? MAX_D : WARP_MAX_D) || K < 1)
     return (int)cudaErrorInvalidValue;
@@ -861,10 +946,15 @@ extern "C" int pio_k1_solve_bucket(int launch, const void* other, int other_code
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int elem = other_code == F32 ? 4 : other_code == BF16 ? 2 : 1;
+  const int telem = target_code == F32 ? 4 : target_code == BF16 ? 2 : 1;
+  const Cand cand{regs, alphas,
+                  (size_t)n_other * D * elem, (size_t)n_other,
+                  (size_t)n_target * D * telem, (size_t)n_target,
+                  (size_t)R * D, (size_t)D * D, (size_t)B * (D * (D + 3) / 2 + 2), C};
   const Solve a{other, other_scales, col_ids, ratings, mask, seg_start, R, B, K, D, reg,
                 weighted, bf16_compute, implicit, alpha, gram, workspace, x_out, target,
                 target_code, target_scales, row_ids,
-                (int)((uintptr_t)other % 16 == 0 && (D * elem) % 16 == 0)};
+                (int)((uintptr_t)other % 16 == 0 && (D * elem) % 16 == 0), cand};
   cudaError_t err;
   switch (other_code) {
     case F32:
@@ -873,7 +963,7 @@ extern "C" int pio_k1_solve_bucket(int launch, const void* other, int other_code
                 : dispatch<float>(other, other_scales, col_ids, ratings, mask, seg_start,
                                   R, K, D, reg, weighted, bf16_compute, implicit, alpha,
                                   gram, x_out, target, target_code, target_scales,
-                                  row_ids, s);
+                                  row_ids, cand, s);
       break;
     case BF16:
       err = launch != BLOCK
@@ -881,7 +971,8 @@ extern "C" int pio_k1_solve_bucket(int launch, const void* other, int other_code
                 : dispatch<__nv_bfloat16>(other, other_scales, col_ids, ratings, mask,
                                           seg_start, R, K, D, reg, weighted,
                                           bf16_compute, implicit, alpha, gram, x_out,
-                                          target, target_code, target_scales, row_ids, s);
+                                          target, target_code, target_scales, row_ids,
+                                          cand, s);
       break;
     case I8:
       err = launch != BLOCK
@@ -889,7 +980,7 @@ extern "C" int pio_k1_solve_bucket(int launch, const void* other, int other_code
                 : dispatch<int8_t>(other, other_scales, col_ids, ratings, mask,
                                    seg_start, R, K, D, reg, weighted, bf16_compute,
                                    implicit, alpha, gram, x_out, target, target_code,
-                                   target_scales, row_ids, s);
+                                   target_scales, row_ids, cand, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -11,8 +11,8 @@ find the same database and model directory:
 - zero-config default: sqlite ``pio.db`` + localfs ``models/`` under
   ``PIO_FS_BASEDIR`` (default ``~/.pio_tpu``).
 
-The port's backends so far: sqlite and memory (apps, channels, engine
-instances, models, events) and localfs (models). Other backend types --
+The port's backends so far: sqlite and memory (apps, channels, engine and
+evaluation instances, models, events) and localfs (models). Other backend types --
 jsonl, partitioned, postgres, http, search, hdfs, s3 -- parse (their
 capabilities steer the default bindings exactly as in the JAX package)
 but raise :class:`StorageError`, naming the type, when a DAO is asked of
@@ -34,6 +34,9 @@ from predictionio_tpu_torch.data.storage.base import (  # noqa: F401 (public re-
     EngineInstance,
     EngineInstanceStatus,
     EngineInstances,
+    EvaluationInstance,
+    EvaluationInstanceStatus,
+    EvaluationInstances,
     Events,
     Model,
     Models,
@@ -71,6 +74,7 @@ def _sqlite_backend() -> _Backend:
             "Apps": sq.SQLiteApps,
             "Channels": sq.SQLiteChannels,
             "EngineInstances": sq.SQLiteEngineInstances,
+            "EvaluationInstances": sq.SQLiteEvaluationInstances,
             "Models": sq.SQLiteModels,
             "Events": sq.SQLiteEvents,
         },
@@ -86,6 +90,7 @@ def _memory_backend() -> _Backend:
             "Apps": mem.MemoryApps,
             "Channels": mem.MemoryChannels,
             "EngineInstances": mem.MemoryEngineInstances,
+            "EvaluationInstances": mem.MemoryEvaluationInstances,
             "Models": mem.MemoryModels,
             "Events": mem.MemoryEvents,
         },
@@ -249,6 +254,9 @@ class Storage:
 
     def get_metadata_engine_instances(self) -> EngineInstances:
         return self._dao(METADATA, "EngineInstances")
+
+    def get_metadata_evaluation_instances(self) -> EvaluationInstances:
+        return self._dao(METADATA, "EvaluationInstances")
 
     def get_model_data_models(self) -> Models:
         return self._dao(MODELDATA, "Models")

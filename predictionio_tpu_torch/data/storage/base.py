@@ -1,12 +1,13 @@
 """Storage records and DAO contracts.
 
 Port of ``predictionio_tpu/data/storage/base.py``: the ``App``,
-``Channel``, ``EngineInstance`` and ``Model`` records, the columnar
-``RatingsBatch``, and the DAO contracts the train and deploy paths use
-(reference Apps.scala:32, Channels.scala:32, EngineInstances.scala:46,
+``Channel``, ``EngineInstance``, ``EvaluationInstance`` and ``Model``
+records, the columnar ``RatingsBatch``, and the DAO contracts the train,
+deploy and evaluation paths use (reference Apps.scala:32,
+Channels.scala:32, EngineInstances.scala:46, EvaluationInstances.scala:42,
 Models.scala:33, LEvents.scala:40), with property aggregation. Access
-keys, evaluation instances and the event-server side of ``Events``
-(tails, change tokens) come with later slices.
+keys and the event-server side of ``Events`` (tails, change tokens) come
+with later slices.
 """
 
 from __future__ import annotations
@@ -76,6 +77,31 @@ class EngineInstance:
     serving_params: str = "{}"
 
 
+class EvaluationInstanceStatus:
+    INIT = "INIT"
+    EVALUATING = "EVALUATING"
+    EVALCOMPLETED = "EVALCOMPLETED"
+    FAILED = "FAILED"
+
+
+@dataclass
+class EvaluationInstance:
+    """One evaluation run's metadata (reference EvaluationInstances.scala:42-81)."""
+
+    id: str
+    status: str
+    start_time: datetime
+    end_time: datetime
+    evaluation_class: str = ""
+    engine_params_generator_class: str = ""
+    batch: str = ""
+    env: dict[str, str] = field(default_factory=dict)
+    runtime_conf: dict[str, str] = field(default_factory=dict)
+    evaluator_results: str = ""
+    evaluator_results_html: str = ""
+    evaluator_results_json: str = ""
+
+
 @dataclass
 class Model:
     """A serialized trained model blob (reference Models.scala:33-51)."""
@@ -109,6 +135,26 @@ class EngineInstances(abc.ABC):
 
     @abc.abstractmethod
     def update(self, instance: EngineInstance) -> bool: ...
+
+    @abc.abstractmethod
+    def delete(self, instance_id: str) -> bool: ...
+
+
+class EvaluationInstances(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, instance: EvaluationInstance) -> str: ...
+
+    @abc.abstractmethod
+    def get(self, instance_id: str) -> EvaluationInstance | None: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> list[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def get_completed(self) -> list[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def update(self, instance: EvaluationInstance) -> bool: ...
 
     @abc.abstractmethod
     def delete(self, instance_id: str) -> bool: ...

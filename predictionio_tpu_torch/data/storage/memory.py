@@ -1,7 +1,7 @@
 """In-memory backend (test mode): every DAO a dict behind a lock.
 
 Port of ``predictionio_tpu/data/storage/memory.py`` for the DAOs the port
-has: apps, channels, engine instances, models and events.
+has: apps, channels, engine and evaluation instances, models and events.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ class MemoryStorageClient:
         self.apps: dict[int, base.App] = {}
         self.channels: dict[int, base.Channel] = {}
         self.engine_instances: dict[str, base.EngineInstance] = {}
+        self.evaluation_instances: dict[str, base.EvaluationInstance] = {}
         self.models: dict[str, base.Model] = {}
         # (app_id, channel_id) -> event_id -> Event
         self.events: dict[tuple[int, int | None], dict[str, Event]] = {}
@@ -160,6 +161,47 @@ class MemoryEngineInstances(base.EngineInstances):
     def delete(self, instance_id: str) -> bool:
         with self._c.lock:
             return self._c.engine_instances.pop(instance_id, None) is not None
+
+
+class MemoryEvaluationInstances(base.EvaluationInstances):
+    def __init__(self, client: MemoryStorageClient):
+        self._c = client
+
+    def insert(self, instance: base.EvaluationInstance) -> str:
+        with self._c.lock:
+            instance_id = instance.id or uuid.uuid4().hex
+            instance.id = instance_id
+            self._c.evaluation_instances[instance_id] = copy.deepcopy(instance)
+            return instance_id
+
+    def get(self, instance_id: str) -> base.EvaluationInstance | None:
+        with self._c.lock:
+            return copy.deepcopy(self._c.evaluation_instances.get(instance_id))
+
+    def get_all(self) -> list[base.EvaluationInstance]:
+        with self._c.lock:
+            return [copy.deepcopy(i) for i in self._c.evaluation_instances.values()]
+
+    def get_completed(self) -> list[base.EvaluationInstance]:
+        with self._c.lock:
+            instances = [copy.deepcopy(i) for i in self._c.evaluation_instances.values()]
+        out = [
+            i
+            for i in instances
+            if i.status == base.EvaluationInstanceStatus.EVALCOMPLETED
+        ]
+        return sorted(out, key=lambda i: i.start_time, reverse=True)
+
+    def update(self, instance: base.EvaluationInstance) -> bool:
+        with self._c.lock:
+            if instance.id not in self._c.evaluation_instances:
+                return False
+            self._c.evaluation_instances[instance.id] = copy.deepcopy(instance)
+            return True
+
+    def delete(self, instance_id: str) -> bool:
+        with self._c.lock:
+            return self._c.evaluation_instances.pop(instance_id, None) is not None
 
 
 class MemoryModels(base.Models):

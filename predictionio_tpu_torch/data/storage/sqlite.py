@@ -316,6 +316,96 @@ class SQLiteEngineInstances(base.EngineInstances):
             return cur.rowcount > 0
 
 
+class SQLiteEvaluationInstances(base.EvaluationInstances):
+    """``pio_evaluation_instances`` rows as the JAX package writes them
+    (same columns, order and encodings), so either package reads an
+    instance the other wrote."""
+
+    def __init__(self, client: SQLiteStorageClient):
+        self._c = client
+
+    def insert(self, instance: base.EvaluationInstance) -> str:
+        instance_id = instance.id or uuid.uuid4().hex
+        instance.id = instance_id
+        with self._c.lock, self._c.conn:
+            self._c.conn.execute(
+                "INSERT OR REPLACE INTO pio_evaluation_instances VALUES "
+                "(?,?,?,?,?,?,?,?,?,?,?,?)",
+                self._row(instance),
+            )
+        return instance_id
+
+    @staticmethod
+    def _row(i: base.EvaluationInstance):
+        return (
+            i.id,
+            i.status,
+            _ts(i.start_time),
+            _ts(i.end_time),
+            i.evaluation_class,
+            i.engine_params_generator_class,
+            i.batch,
+            json.dumps(i.env),
+            json.dumps(i.runtime_conf),
+            i.evaluator_results,
+            i.evaluator_results_html,
+            i.evaluator_results_json,
+        )
+
+    @staticmethod
+    def _parse(row) -> base.EvaluationInstance:
+        return base.EvaluationInstance(
+            id=row[0],
+            status=row[1],
+            start_time=_from_ts(row[2]),
+            end_time=_from_ts(row[3]),
+            evaluation_class=row[4] or "",
+            engine_params_generator_class=row[5] or "",
+            batch=row[6] or "",
+            env=json.loads(row[7] or "{}"),
+            runtime_conf=json.loads(row[8] or "{}"),
+            evaluator_results=row[9] or "",
+            evaluator_results_html=row[10] or "",
+            evaluator_results_json=row[11] or "",
+        )
+
+    def get(self, instance_id: str) -> base.EvaluationInstance | None:
+        row = self._c.query_one(
+            "SELECT * FROM pio_evaluation_instances WHERE id=?", (instance_id,)
+        )
+        return self._parse(row) if row else None
+
+    def get_all(self) -> list[base.EvaluationInstance]:
+        rows = self._c.query("SELECT * FROM pio_evaluation_instances")
+        return [self._parse(r) for r in rows]
+
+    def get_completed(self) -> list[base.EvaluationInstance]:
+        rows = self._c.query(
+            "SELECT * FROM pio_evaluation_instances WHERE status=? "
+            "ORDER BY starttime DESC",
+            (base.EvaluationInstanceStatus.EVALCOMPLETED,),
+        )
+        return [self._parse(r) for r in rows]
+
+    def update(self, instance: base.EvaluationInstance) -> bool:
+        with self._c.lock, self._c.conn:
+            cur = self._c.conn.execute(
+                "UPDATE pio_evaluation_instances SET status=?, starttime=?, "
+                "endtime=?, evaluationclass=?, engineparamsgeneratorclass=?, "
+                "batch=?, env=?, runtimeconf=?, evaluatorresults=?, "
+                "evaluatorresultshtml=?, evaluatorresultsjson=? WHERE id=?",
+                self._row(instance)[1:] + (instance.id,),
+            )
+            return cur.rowcount > 0
+
+    def delete(self, instance_id: str) -> bool:
+        with self._c.lock, self._c.conn:
+            cur = self._c.conn.execute(
+                "DELETE FROM pio_evaluation_instances WHERE id=?", (instance_id,)
+            )
+            return cur.rowcount > 0
+
+
 class SQLiteModels(base.Models):
     def __init__(self, client: SQLiteStorageClient):
         self._c = client

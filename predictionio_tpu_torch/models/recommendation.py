@@ -10,7 +10,12 @@ Port of ``predictionio_tpu/models/recommendation.py`` (reference
   ``csrc/als_solve.cu``) on the algorithm's device, optionally warm
   started from the previous instance's model;
 - predict scores through K2, the fused gather -> score -> top-k
-  (``ops/topk.py``, kernel ``csrc/topk.cu``).
+  (``ops/topk.py``, kernel ``csrc/topk.cu``);
+- evaluation: ``read_eval`` makes the seeded k-fold splits,
+  ``train_sweep`` trains a sweep's candidates at once (``ops/als.py``
+  ``als_train_sweep``, K1s) and ``eval_topk`` scores a whole split in
+  one batched K2 call (``ops/topk.py gather_top_k_batch``), for
+  core/fast_eval.py.
 
 Queries/results use the reference template's JSON shape:
 ``{"user": "1", "num": 4}`` -> ``{"itemScores": [{"item": ..., "score": ...}]}``.
@@ -19,8 +24,8 @@ Not ported yet, and refused with ``NotImplementedError`` rather than
 answered another way: ``sharded_train`` / ``sharded_serving`` (several
 cards), catalogs large enough for two-stage retrieval
 (``PIO_RETRIEVAL_THRESHOLD`` rows and up, same knobs and defaults as the
-JAX package), ``read_eval`` and ``train_sweep`` (evaluation), and the
-packed-prep cache (``TrainingData.prep`` stays None).
+JAX package), and the packed-prep cache (``TrainingData.prep`` stays
+None).
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from predictionio_tpu_torch.core import (
     Algorithm,
     DataSource,
     Engine,
+    EvalTopK,
     FirstServing,
     Params,
     Preparator,
@@ -89,6 +95,8 @@ class DataSourceParams(Params):
     app_name: str = ""
     event_names: tuple[str, ...] = ("rate", "buy")
     buy_rating: float = 4.0
+    # evaluation split knobs (read_eval): fold count and the seed of the
+    # shuffled fold assignment, so repeated evaluations see the same folds
     eval_folds: int = 3
     eval_seed: int = 42
 
@@ -141,9 +149,45 @@ class RecommendationDataSource(DataSource):
         )
 
     def read_eval(self, ctx: WorkflowContext):
-        raise NotImplementedError(
-            "read_eval (k-fold evaluation) is a later slice of the PyTorch port"
-        )
+        """Seeded k-fold split for evaluation: a shuffled balanced
+        partition from numpy's ``default_rng(eval_seed)``, so the folds
+        are the JAX package's on the same events, and repeated runs see
+        the same splits and scores. Each train fold's id space is
+        compacted to the entities it holds (a user whose every rating fell
+        in the test fold is unknown to that model: an empty prediction,
+        not a score from untrained factors); each held-out rating is one
+        ``num=1`` query."""
+        td = self.read_training(ctx)
+        k = max(1, int(self.params.eval_folds))
+        folds = []
+        n = len(td.ratings)
+        rng = np.random.default_rng(int(self.params.eval_seed))
+        fold_of = np.empty(n, dtype=np.int64)
+        fold_of[rng.permutation(n)] = np.arange(n) % k
+        for fold in range(k):
+            mask = fold_of == fold
+            rows_tr, cols_tr = td.rows[~mask], td.cols[~mask]
+            used_u = np.unique(rows_tr)
+            used_i = np.unique(cols_tr)
+            train = TrainingData(
+                user_ids=[td.user_ids[u] for u in used_u],
+                item_ids=[td.item_ids[i] for i in used_i],
+                rows=np.searchsorted(used_u, rows_tr).astype(np.int32),
+                cols=np.searchsorted(used_i, cols_tr).astype(np.int32),
+                ratings=td.ratings[~mask],
+            )
+            qa = [
+                (
+                    Query(user=td.user_ids[td.rows[i]], num=1),
+                    {
+                        "item": td.item_ids[td.cols[i]],
+                        "rating": float(td.ratings[i]),
+                    },
+                )
+                for i in np.flatnonzero(mask)
+            ]
+            folds.append((train, {"fold": fold}, qa))
+        return folds
 
 
 class RecommendationPreparator(Preparator):
@@ -309,11 +353,76 @@ class ALSAlgorithm(Algorithm):
             item_scales=vs,
         )
 
-    def train_sweep(self, ctx: WorkflowContext, td: TrainingData, params_list):
-        raise NotImplementedError(
-            "train_sweep (stacked evaluation candidates, als_train_sweep) is "
-            "a later slice of the PyTorch port"
+    def train_sweep(
+        self, ctx: WorkflowContext, td: TrainingData, params_list
+    ) -> list[ALSModel] | None:
+        """Stacked candidate trainings for evaluation sweeps: one bucket
+        layout and one K1s launch per bucket per half-step train every
+        reg/seed/rank candidate (``ops/als.py als_train_sweep``: differing
+        ranks ride the candidate axis by exact zero-padding). None -- one
+        ``train`` a candidate -- when the candidates differ in program
+        shape (iterations, dtypes, bucket widths), ask for sharded
+        training, or mix ranks with a lambda <= 0, as the JAX package
+        declines."""
+        if len(td.ratings) == 0 or len(params_list) < 2:
+            return None
+        base = params_list[0]
+        ranks_differ = len({p.rank for p in params_list}) > 1
+        for p in params_list:
+            if (
+                p.num_iterations != base.num_iterations
+                or p.compute_dtype != base.compute_dtype
+                or p.storage_dtype != base.storage_dtype
+                or tuple(p.bucket_widths) != tuple(base.bucket_widths)
+                or p.sharded_train
+                or (ranks_differ and p.lambda_ <= 0)
+            ):
+                return None
+        device = resolve_device(
+            self.device if self.device is not None
+            else (ctx.device if ctx is not None else None)
         )
+        user_index = BiMap.from_dense(td.user_ids)
+        item_index = BiMap.from_dense(td.item_ids)
+        data = als_ops.build_ratings_data(
+            td.rows, td.cols, np.asarray(td.ratings, dtype=np.float32),
+            len(user_index), len(item_index),
+            bucket_widths=tuple(base.bucket_widths),
+        )
+        candidates = [
+            als_ops.ALSParams(
+                rank=p.rank,
+                iterations=p.num_iterations,
+                reg=p.lambda_,
+                seed=p.seed,
+                compute_dtype=p.compute_dtype,
+                storage_dtype=p.storage_dtype,
+            )
+            for p in params_list
+        ]
+        results = als_ops.als_train_sweep(data, candidates, device=device)
+        logger.info(
+            "ALS sweep: %d candidates trained together (%d users x %d items, "
+            "ranks %s)", len(candidates), len(user_index), len(item_index),
+            sorted({p.rank for p in candidates}),
+        )
+        out = []
+        for U, V in results:
+            uf, us = als_ops.host_factors(U)
+            vf, vs = als_ops.host_factors(V)
+            model = ALSModel(
+                user_index=user_index,
+                item_index=item_index,
+                user_factors=uf,
+                item_factors=vf,
+                user_scales=us,
+                item_scales=vs,
+            )
+            # the trained tables stay on the device for eval_topk, which
+            # would otherwise upload the host copy again
+            model._device = (device, (U, V))
+            out.append(model)
+        return out
 
     def _resolve_warm_start(self, ctx, td: TrainingData):
         """Previous model -> iteration-0 factor carry, or None for cold.
@@ -432,6 +541,52 @@ class ALSAlgorithm(Algorithm):
                 ]),
             ))
         return out
+
+
+    def eval_topk(
+        self, model: ALSModel, queries: Sequence[Query], k: int
+    ) -> EvalTopK | None:
+        """Device eval scoring (core/fast_eval.py eval_device): one
+        batched top-k (K2, ``gather_top_k_batch``, the serving path's
+        call) over every known user of the eval split. The ``[Q, k]`` id
+        and score matrices stay on the algorithm's device as torch
+        tensors.
+
+        Parity with the per-query path: the same call on the same tables,
+        a top-k prefix that does not depend on k, all -1 rows for unknown
+        users, and each row capped to its query's ``num`` as ``predict``
+        truncates its result list."""
+        if self.params.sharded_serving:
+            raise NotImplementedError(
+                "sharded_serving (ring top-k over several cards) is the "
+                "multi-GPU slice of the PyTorch port"
+            )
+        num_items = len(model.item_index)
+        if num_items == 0:
+            return None
+        device = resolve_device(self.device)
+        kr = max(1, min(int(k), num_items))
+        qn = len(queries)
+        ids = torch.full((qn, kr), -1, dtype=torch.int32, device=device)
+        scores = torch.zeros((qn, kr), dtype=torch.float32, device=device)
+        known = [qi for qi, q in enumerate(queries) if q.user in model.user_index]
+        if known:
+            uixs = np.asarray(
+                [model.user_index[queries[qi].user] for qi in known], dtype=np.int32
+            )
+            U, V = model.device_factors(device)
+            s, i = gather_top_k_batch(uixs, U, V, kr)
+            at = torch.from_numpy(np.asarray(known, dtype=np.int64)).to(device)
+            ids[at] = i
+            scores[at] = s
+        # cap each row to the query's requested result count, as the
+        # per-query path slices to q.num before metrics see it
+        nums = torch.tensor([int(q.num) for q in queries], dtype=torch.int64,
+                            device=device)
+        over = torch.arange(kr, device=device)[None, :] >= nums[:, None]
+        ids[over] = -1
+        scores[over] = 0.0
+        return EvalTopK(ids=ids, scores=scores, index=model.item_index)
 
 
 def engine() -> Engine:

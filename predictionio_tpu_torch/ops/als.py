@@ -22,12 +22,17 @@ Port of ``predictionio_tpu/ops/als.py`` (single card):
   :func:`_scatter_rows`). There is no fallback from one to the other;
 - :func:`als_train`: iterations -> half-steps -> K1 on each bucket, with
   the bucket arrays uploaded once and the factor tables updated in
-  place.
+  place;
+- K1s and :func:`als_train_sweep`: C candidate trainings (per-candidate
+  reg, alpha, seed and rank, zero-padded to the largest) on stacked
+  ``[C, N, D]`` tables, one K1 launch per bucket per half-step for all of
+  them (:func:`solve_bucket_sweep`, the candidate axis of
+  ``csrc/als_solve.cu``).
 
 The random init cannot reproduce ``jax.random``'s bits: parity runs feed
-both packages the same initial factors through ``warm_start``.
-The parameter sweep, the prep cache's ``splice_padded_buckets`` and
-checkpointing are later slices.
+both packages the same initial factors through ``warm_start`` (or, for a
+sweep, to its device loop ``_train_sweep``). The prep cache's
+``splice_padded_buckets`` and checkpointing are later slices.
 
 An indefinite system (implicit feedback with negative ratings, e.g. the
 similar-product template's dislikes) solves to an all-NaN row, as the
@@ -60,6 +65,8 @@ MAX_RANK = 128
 #: the largest rank K1's warp route takes (csrc/als_solve.cu WARP_MAX_D);
 #: the templates' ranks (10, 20) are below it
 WARP_MAX_RANK = 32
+#: candidates one K1s launch takes (csrc/als_solve.cu MAX_C: gridDim.y)
+MAX_CANDIDATES = 65535
 
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _STORAGE_DTYPES = ("float32", "bfloat16", "int8")
@@ -398,9 +405,11 @@ def compute_gram(factors, compute_dtype: str = "float32") -> torch.Tensor:
     value is exact in float32, so the float32 product of the upcast
     table is the JAX package's bf16 product with float32 accumulation.
     A plain matrix product outside any kernel (the JAX package leaves it
-    to XLA): ``torch.matmul``, TF32 off on the card."""
+    to XLA): ``torch.matmul``, TF32 off on the card. A ``[C, N, D]``
+    stack of candidates' tables gives their ``[C, D, D]`` Gramians in one
+    batched product."""
     y = dense_factors(factors, _COMPUTE_DTYPES[compute_dtype]).to(torch.float32)
-    return y.T @ y
+    return y.transpose(-2, -1) @ y
 
 
 def _cholesky_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -520,6 +529,8 @@ def _lib() -> ctypes.CDLL:
             _I, ctypes.c_float, _P,  # implicit, alpha, gram (or NULL)
             _P, _P,  # workspace (or NULL), x out (or NULL)
             _P, _I, _P, _P,  # target values, dtype code, scales, row_ids
+            _I, _P, _P,  # candidates C, regs [C] (or NULL), alphas [C] (or NULL)
+            _I, _I,  # rows of one candidate's other / target table
             _P,  # stream
         ]
         lib.pio_k1_solve_bucket.restype = _I
@@ -527,22 +538,27 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _split_table(table, name: str):
-    """(values, scales or None, dtype code), checked for the kernel."""
+def _split_table(table, name: str, candidates: int = 0):
+    """(values, scales or None, dtype code), checked for the kernel: an
+    ``[N, D]`` table, or with ``candidates`` C > 0 a ``[C, N, D]`` stack
+    (int8 scales ``[C, N]``)."""
     values, scales = table if isinstance(table, tuple) else (table, None)
     code = _DTYPE_CODE.get(values.dtype)
-    if code is None or values.dim() != 2 or not values.is_contiguous():
+    lead = (candidates,) if candidates else ()
+    if (code is None or values.dim() != 2 + len(lead)
+            or tuple(values.shape[:len(lead)]) != lead or not values.is_contiguous()):
+        shape = "[C, N, D]" if lead else "[N, D]"
         raise ValueError(
-            f"{name}: expected a contiguous [N, D] float32/bfloat16/int8 "
+            f"{name}: expected a contiguous {shape} float32/bfloat16/int8 "
             f"tensor, got {values.dtype} {tuple(values.shape)}"
         )
     if (code == 2) != (scales is not None):
         raise ValueError(f"{name}: int8 values come with f32 scales, others without")
     if scales is not None and (
-        scales.dtype != torch.float32 or scales.shape != values.shape[:1]
+        scales.dtype != torch.float32 or scales.shape != values.shape[:-1]
         or not scales.is_contiguous()
     ):
-        raise ValueError(f"{name}: scales must be contiguous float32 [N]")
+        raise ValueError(f"{name}: scales must be contiguous float32 {tuple(values.shape[:-1])}")
     return values, scales, code
 
 
@@ -639,16 +655,20 @@ def _check_solve_args(compute_dtype, target, row_ids, implicit, gram) -> None:
 
 def _solve_on_card(route, counter, other, col_ids, ratings, mask, seg_start, reg,
                    weighted_reg, compute_dtype, target, row_ids, return_x, implicit,
-                   alpha, gram):
+                   alpha, gram, regs=None, alphas=None):
     """K1's launches on CUDA tensors: ``route`` (:func:`k1_route`'s pick
-    when None), each launch checked and added to ``counter``."""
+    when None), each launch checked and added to ``counter``. With
+    ``regs`` (a ``[C]`` float32 tensor) it is K1s: ``other``, ``target``
+    and ``gram`` carry a leading candidate axis of C, ``alphas`` is
+    ``[C]`` float32, and one launch a kernel serves every candidate."""
     device = col_ids.device
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    o_vals, o_scales, o_code = _split_table(other, "other")
+    C = 1 if regs is None else regs.shape[0]
+    o_vals, o_scales, o_code = _split_table(other, "other", C if regs is not None else 0)
     B, K = col_ids.shape
     R = seg_start.shape[0] - 1
-    D = o_vals.shape[1]
+    D = o_vals.shape[-1]
     if not 1 <= D <= MAX_RANK:
         raise ValueError(f"K1 solves ranks 1..{MAX_RANK}, got {D}")
     route = route or k1_route(D, R, B)
@@ -659,13 +679,19 @@ def _solve_on_card(route, counter, other, col_ids, ratings, mask, seg_start, reg
     _check(ratings, "ratings", torch.float32, (B, K), device)
     _check(mask, "mask", torch.float32, (B, K), device)
     _check(seg_start, "seg_start", torch.int32, (R + 1,), device)
+    lead = () if regs is None else (C,)
+    if regs is not None:
+        if not 1 <= C <= MAX_CANDIDATES:
+            raise ValueError(f"K1s takes 1..{MAX_CANDIDATES} candidates, got {C}")
+        _check(regs, "regs", torch.float32, (C,), device)
+        _check(alphas, "alphas", torch.float32, (C,), device)
     if implicit:
-        _check(gram, "gram", torch.float32, (D, D), device)
+        _check(gram, "gram", torch.float32, lead + (D, D), device)
     t_vals = t_scales = None
     t_code = 0
     if target is not None:
-        t_vals, t_scales, t_code = _split_table(target, "target")
-        if t_vals.shape[1] != D:
+        t_vals, t_scales, t_code = _split_table(target, "target", len(lead) and C)
+        if t_vals.shape[-1] != D:
             raise ValueError("target and other differ in rank")
         for t, name in ((t_vals, "target"), (t_scales, "target scales")):
             if t is not None and t.device != device:
@@ -673,12 +699,13 @@ def _solve_on_card(route, counter, other, col_ids, ratings, mask, seg_start, reg
         if t_vals.data_ptr() == o_vals.data_ptr():
             raise ValueError("K1 cannot write back into the table it reads")
         _check(row_ids, "row_ids", torch.int32, (R,), device)
-    x = torch.empty((R, D), dtype=torch.float32, device=device) if return_x else None
+    x = torch.empty(lead + (R, D), dtype=torch.float32, device=device) if return_x else None
     if R == 0:
         return x
     # the split route's partials; freed to torch's allocator after the
     # launches are queued, reused only by later work on the same stream
-    ws = (torch.empty((B, D * (D + 3) // 2 + 2), dtype=torch.float32, device=device)
+    ws = (torch.empty(lead + (B, D * (D + 3) // 2 + 2), dtype=torch.float32,
+                      device=device)
           if route == "split" else None)
     lib = _lib()
     with torch.cuda.device(device):
@@ -696,6 +723,9 @@ def _solve_on_card(route, counter, other, col_ids, ratings, mask, seg_start, reg
                 None if t_vals is None else t_vals.data_ptr(), t_code,
                 None if t_scales is None else t_scales.data_ptr(),
                 None if target is None else row_ids.data_ptr(),
+                C, None if regs is None else regs.data_ptr(),
+                None if alphas is None else alphas.data_ptr(),
+                o_vals.shape[-2], 0 if t_vals is None else t_vals.shape[-2],
                 stream,
             )
             _build.check(err, f"solve_bucket kernel launch ({route} route)")
@@ -705,6 +735,85 @@ def _solve_on_card(route, counter, other, col_ids, ratings, mask, seg_start, reg
 
 solve_bucket.launches = _build.LaunchCount()
 _solve_bucket_block.launches = _build.LaunchCount()
+
+
+def _candidate(table, c: int, rank: int | None = None):
+    """Candidate ``c``'s ``[N, D]`` table of a ``[C, N, D]`` stack,
+    keeping the representation: a view, or with ``rank`` a contiguous
+    copy of its first ``rank`` columns."""
+    if rank is None:
+        return (table[0][c], table[1][c]) if isinstance(table, tuple) else table[c]
+    if isinstance(table, tuple):
+        return (table[0][c, :, :rank].contiguous(), table[1][c])
+    return table[c, :, :rank].contiguous()
+
+
+def solve_bucket_sweep(
+    other,
+    col_ids: torch.Tensor,
+    ratings: torch.Tensor,
+    mask: torch.Tensor,
+    seg_start: torch.Tensor,
+    regs: torch.Tensor,
+    target,
+    row_ids: torch.Tensor,
+    weighted_reg: bool = True,
+    compute_dtype: str = "float32",
+    gather_chunk_bytes: int = 2 << 30,
+    implicit: bool = False,
+    alphas: torch.Tensor | None = None,
+    gram: torch.Tensor | None = None,
+) -> None:
+    """K1s: one bucket's solve and write-back for C candidates at once.
+
+    ``other`` and ``target``: ``[C, N, D]`` stacks of the candidates'
+    tables (dense, or the int8 pair ``([C, N, D], [C, N])``); ``regs``
+    and ``alphas``: ``[C]`` float32 on the tables' device; ``gram``:
+    ``[C, D, D]`` float32 (implicit). The bucket arrays are
+    :func:`solve_bucket`'s, shared by every candidate. Candidate c's
+    rows are what :func:`solve_bucket` writes for that candidate alone.
+
+    CPU tensors take :func:`solve_bucket_sweep_reference`. CUDA tensors
+    launch the kernels of the route :func:`k1_route` picks once, with the
+    candidates as the grid's second axis, or raise.
+    ``solve_bucket_sweep.launches`` counts kernel launches."""
+    _check_solve_args(compute_dtype, target, row_ids, implicit, gram)
+    if alphas is None:
+        alphas = torch.ones_like(regs)
+    if col_ids.device.type == "cpu":
+        solve_bucket_sweep_reference(
+            other, col_ids, ratings, mask, seg_start, regs, target, row_ids,
+            weighted_reg, compute_dtype, gather_chunk_bytes, implicit, alphas, gram,
+        )
+        return None
+    _solve_on_card(None, solve_bucket_sweep.launches, other, col_ids, ratings, mask,
+                   seg_start, 0.0, weighted_reg, compute_dtype, target, row_ids,
+                   False, implicit, 1.0, gram, regs=regs, alphas=alphas)
+    return None
+
+
+solve_bucket_sweep.launches = _build.LaunchCount()
+
+
+def solve_bucket_sweep_reference(other, col_ids, ratings, mask, seg_start, regs,
+                                 target, row_ids, weighted_reg: bool = True,
+                                 compute_dtype: str = "float32",
+                                 gather_chunk_bytes: int = 2 << 30,
+                                 implicit: bool = False, alphas=None, gram=None) -> None:
+    """The plain PyTorch version of K1s, same contract as
+    :func:`solve_bucket_sweep`: for each candidate in turn,
+    :func:`solve_bucket_reference` on its tables with its reg and alpha,
+    then :func:`_scatter_rows` into its target."""
+    R = seg_start.shape[0] - 1
+    seg = seg_rows(seg_start, col_ids.shape[0])
+    for c in range(regs.shape[0]):
+        x = solve_bucket_reference(
+            _candidate(other, c), col_ids, ratings, mask, float(regs[c]), seg, R,
+            weighted_reg, compute_dtype, gather_chunk_bytes, implicit,
+            1.0 if alphas is None else float(alphas[c]),
+            None if gram is None else gram[c],
+        )
+        _scatter_rows(_candidate(target, c), row_ids, x)
 
 
 def solve_bucket_explicit(
@@ -847,20 +956,32 @@ def device_buckets(buckets: Sequence[PaddedBucket],
     return out
 
 
-def _half_step(target, other, buckets: Sequence[DeviceBucket], params: ALSParams) -> None:
+def _half_step(target, other, buckets: Sequence[DeviceBucket], params: ALSParams,
+               regs: torch.Tensor | None = None, alphas: torch.Tensor | None = None) -> None:
     """Solve every bucket of one side from ``other`` and write the rows
-    into ``target`` in place: K1 on each bucket. Implicit feedback
-    first computes ``other``'s Gramian, once for the half-step."""
+    into ``target`` in place: K1 on each bucket, or K1s when ``regs``
+    (and ``alphas``, ``[C]`` float32) are given and the tables are
+    ``[C, N, D]`` candidate stacks. Implicit feedback first computes
+    ``other``'s Gramian (batched over the candidates), once for the
+    half-step."""
     gram = compute_gram(other, params.compute_dtype) if params.implicit else None
     weighted = params.implicit_weighted_reg if params.implicit else params.weighted_reg
     for b in buckets:
-        solve_bucket(
-            other, b.col_ids, b.ratings, b.mask, b.seg_start, params.reg,
-            weighted_reg=weighted, compute_dtype=params.compute_dtype,
-            target=target, row_ids=b.row_ids, return_x=False,
-            gather_chunk_bytes=params.gather_chunk_bytes,
-            implicit=params.implicit, alpha=params.alpha, gram=gram,
-        )
+        if regs is None:
+            solve_bucket(
+                other, b.col_ids, b.ratings, b.mask, b.seg_start, params.reg,
+                weighted_reg=weighted, compute_dtype=params.compute_dtype,
+                target=target, row_ids=b.row_ids, return_x=False,
+                gather_chunk_bytes=params.gather_chunk_bytes,
+                implicit=params.implicit, alpha=params.alpha, gram=gram,
+            )
+        else:
+            solve_bucket_sweep(
+                other, b.col_ids, b.ratings, b.mask, b.seg_start, regs, target,
+                b.row_ids, weighted_reg=weighted, compute_dtype=params.compute_dtype,
+                gather_chunk_bytes=params.gather_chunk_bytes,
+                implicit=params.implicit, alphas=alphas, gram=gram,
+            )
 
 
 # Diagnostics of the most recent als_train run in this process:
@@ -945,6 +1066,120 @@ def als_train(
         warm_start=warm_start is not None,
     )
     logger.debug("ALS %d iterations in %.3fs", it, time.perf_counter() - t0)
+    return U, V
+
+
+# ALSParams fields a sweep's candidates must share (ops/als.py:1158): the
+# rest -- reg, alpha, seed and rank -- may differ per candidate
+_SWEEP_STATIC = (
+    "iterations", "implicit", "weighted_reg",
+    "implicit_weighted_reg", "compute_dtype", "storage_dtype",
+    "bucket_widths", "gather_chunk_bytes",
+)
+
+
+def als_train_sweep(data: RatingsData, params_list: Sequence[ALSParams],
+                    device: str | torch.device | None = None) -> list:
+    """Train every candidate of ``params_list`` at once on ``device``
+    (CUDA unless the CPU is asked for): K1s, one K1 launch per bucket per
+    half-step for all candidates. Returns per-candidate ``(U, V)`` in
+    storage form at each candidate's own rank.
+
+    The JAX package's rules, kept exactly: candidates must share the
+    static fields (``_SWEEP_STATIC``) or a ValueError names the ones that
+    differ; ``reg``, ``alpha``, ``seed`` and ``rank`` may vary. A rank-r
+    candidate trains inside the largest rank with its columns >= r
+    zero at init, and they stay exactly zero (the regularizer lifts the
+    dead block to ``lam I``, so mixed ranks need ``reg > 0``). When
+    padding every candidate to the largest rank would cost more than 1.5x
+    the exact work (``len(ranks) * rank_max**2 > 1.5 * sum(r**2)``), the
+    candidates split into one sweep per rank.
+
+    Candidate c starts from the factors :func:`als_train` draws for its
+    seed (U then V from one CPU ``torch.Generator``), zero-padded, so on
+    the card candidate c is bit-identical to ``als_train`` of c alone
+    at the same rank."""
+    if not params_list:
+        raise ValueError("params_list must not be empty")
+    base = params_list[0]
+    for p in params_list[1:]:
+        diffs = [f for f in _SWEEP_STATIC if getattr(p, f) != getattr(base, f)]
+        if diffs:
+            raise ValueError(
+                "als_train_sweep candidates must share the static program "
+                f"shape; differing fields: {diffs} (sweep reg/alpha/seed/"
+                "rank instead, or run separate trainings)"
+            )
+    if len({p.rank for p in params_list}) > 1 and any(p.reg <= 0 for p in params_list):
+        # the padded columns' dead block is lifted to lam*I by the
+        # regularizer; reg == 0 would leave it singular
+        raise ValueError(
+            "rank-sweep candidates need reg > 0 (the zero-padded factor "
+            "block is kept solvable by the regularizer)"
+        )
+    device = resolve_device(device)
+    out: list = [None] * len(params_list)
+    for idx in sweep_groups(params_list):
+        group = [params_list[i] for i in idx]
+        U0, V0 = sweep_init(data, group, device)
+        U, V = _train_sweep(data, group, U0, V0)
+        for c, i in enumerate(idx):
+            out[i] = (_candidate(U, c, group[c].rank), _candidate(V, c, group[c].rank))
+    return out
+
+
+def sweep_groups(params_list: Sequence[ALSParams]) -> list[list[int]]:
+    """The candidates' indices, one list per stacked training: all of
+    them, or one list per rank when padding every candidate to the
+    largest rank would cost more than 1.5x the exact work
+    (``len(ranks) * rank_max**2 > 1.5 * sum(r**2)``, the JAX package's
+    cost model)."""
+    ranks = [p.rank for p in params_list]
+    exact = sum(r * r for r in ranks)
+    if len(set(ranks)) > 1 and len(ranks) * max(ranks) ** 2 > 1.5 * exact:
+        return [[i for i, r in enumerate(ranks) if r == rank] for rank in sorted(set(ranks))]
+    return [list(range(len(ranks)))]
+
+
+def sweep_init(data: RatingsData, params_list: Sequence[ALSParams],
+               device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The stacked float32 initial factors ``([C, rows, D], [C, cols,
+    D])`` of a sweep on ``device``: candidate c's :func:`als_train` draw
+    for its seed and rank, zero-padded to the largest rank D."""
+    rank_max = max(p.rank for p in params_list)
+    U0, V0 = [], []
+    for p in params_list:
+        gen = torch.Generator(device="cpu")
+        gen.manual_seed(int(p.seed))
+        pad = (0, rank_max - p.rank)
+        U0.append(torch.nn.functional.pad(init_factors(data.num_rows, p.rank, gen, device), pad))
+        V0.append(torch.nn.functional.pad(init_factors(data.num_cols, p.rank, gen, device), pad))
+    return torch.stack(U0), torch.stack(V0)
+
+
+def _train_sweep(data: RatingsData, params_list: Sequence[ALSParams],
+                 U0: torch.Tensor, V0: torch.Tensor):
+    """The sweep's device loop (``_train_fused_sweep``'s counterpart)
+    from stacked float32 initial factors ``[C, rows, D]`` / ``[C, cols,
+    D]`` on the device it runs on: ``base.iterations`` iterations, each
+    a :func:`_half_step` of U then of V through K1s. Returns the stacked ``(U, V)`` in storage
+    form at the sweep's rank."""
+    base = params_list[0]
+    device = U0.device
+    regs = torch.tensor([p.reg for p in params_list], dtype=torch.float32, device=device)
+    alphas = torch.tensor([p.alpha for p in params_list], dtype=torch.float32,
+                          device=device)
+    # copies: the loop updates the tables in place, and the caller's
+    # initial factors stay as they were
+    U = to_storage(U0.clone(), base.storage_dtype)
+    V = to_storage(V0.clone(), base.storage_dtype)
+    row_buckets = device_buckets(data.row_buckets, device)
+    col_buckets = device_buckets(data.col_buckets, device)
+    for _ in range(base.iterations):
+        _half_step(U, V, row_buckets, base, regs, alphas)
+        _half_step(V, U, col_buckets, base, regs, alphas)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
     return U, V
 
 

@@ -5,10 +5,23 @@ user rows by index from the device-resident user table, dequantize,
 score them against the whole item catalog, mask excluded items, and
 take the top k; and of ``:135 sum_rows_top_k_batch``, K2's summed-rows
 mode, whose query row is the weighted sum of several catalog rows (the
-cosine templates: similar products). On a CUDA tensor each wrapper
-launches the hand-written kernel ``csrc/topk.cu``; on a CPU tensor it
-runs the plain PyTorch version beside it (``*_reference``). There is no
-fallback from one to the other. ``catalog_norms`` (``:231``) is plain.
+cosine templates: similar products); and of ``:69 top_k_items_batch``,
+dense query rows scored through the same wrapper. On
+a CUDA tensor each wrapper launches the hand-written kernel
+``csrc/topk.cu``; on a CPU tensor it runs the plain PyTorch version
+beside it (``*_reference``). There is no fallback from one to the other.
+``catalog_norms`` (``:231``) is plain.
+
+K3, :func:`ranking_metrics_batch` (``:179``), scores a whole eval split's
+top-k id matrix: per query P@K, AP@K and NDCG@K, by sorted membership in
+the query's actual ids (kernel ``csrc/ranking.cu``, plain version
+:func:`ranking_metrics_batch_reference`).
+
+A call of more rows than one launch takes -- 65,535 x 8 query rows
+(``K2_TILE_B`` rows a block, gridDim.y blocks) -- or than
+:data:`K2_SCRATCH_BYTES` of per-call scratch, is served in row chunks
+(:func:`k2_chunks`); each row is scored alone, so the answer does not
+change. Serving batches are one chunk.
 
 On the card each call takes one of two hand-written routes, picked by
 :func:`k2_route` from k and the catalog size: the tile route (k <=
@@ -57,6 +70,12 @@ NEG_INF = -1e30
 K2_TILE_MAX_K = 128  # TILE_MAX_K: k up to this takes the tile route
 K2_CHUNK = 128  # TILE_I: items a tile block scores at a time, one a thread
 K2_MERGE_CAP = 16384  # MERGE_CAP: composites one row's merge takes, at most
+K2_TILE_B = 8  # TILE_B: query rows a score or tile block serves
+K2_MAX_GRID_Y = 65535  # CUDA's gridDim.y cap: row blocks one launch takes
+#: device scratch one K2 chunk may take: the tile route's [B, T, g] int64
+#: composites, or the select route's [B, I] f32 scores and [B, k] int64
+#: candidates
+K2_SCRATCH_BYTES = 1 << 30
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _SIGN_FLIP = 0x7FFFFFFF
@@ -114,12 +133,32 @@ def k2_route(k: int, I: int, B: int) -> K2Route:
 
 def k2_launches(k: int, I: int, B: int, summed: bool = False) -> int:
     """Kernel launches one K2 call on the card should add to its
-    wrapper's ``kernel_launches`` (:func:`k2_route`): 2 on the tile route
-    (tile, merge); on the select route 2 (score, select), 3 in
-    summed-rows mode (its query rows summed first)."""
+    wrapper's ``kernel_launches`` (:func:`k2_route`), per row chunk
+    (:func:`k2_chunks`): 2 on the tile route (tile, merge); on the
+    select route 2 (score, select), 3 in summed-rows mode (its query rows
+    summed first)."""
+    chunks = len(k2_chunks(k, I, B))
     if k2_route(k, I, B).name == "tile":
-        return 2
-    return 3 if summed else 2
+        return 2 * chunks
+    return (3 if summed else 2) * chunks
+
+
+def k2_chunks(k: int, I: int, B: int) -> list[tuple[int, int]]:
+    """The ``[lo, hi)`` row chunks one K2 call of ``B`` rows is launched
+    in: at most ``K2_MAX_GRID_Y * K2_TILE_B`` rows a chunk (the grid's
+    row blocks), and as many as keep the route's scratch within
+    :data:`K2_SCRATCH_BYTES` (at least one row). The route does not
+    depend on B, so every chunk takes the same route."""
+    return _row_chunks(k2_route(k, I, B), k, I, B)
+
+
+def _row_chunks(plan: K2Route, k: int, I: int, B: int) -> list[tuple[int, int]]:
+    if plan.name == "tile":
+        per_row = plan.tiles * plan.group * 8
+    else:
+        per_row = I * 4 + k * 8
+    rows = min(K2_MAX_GRID_Y * K2_TILE_B, max(1, K2_SCRATCH_BYTES // per_row))
+    return [(lo, min(B, lo + rows)) for lo in range(0, B, rows)]
 
 
 def top_k_rows_reference(scores: torch.Tensor, k: int):
@@ -311,6 +350,18 @@ gather_top_k_batch.routes = _route_counts()
 gather_top_k_batch.kernel_launches = _build.LaunchCount()
 
 
+def top_k_items_batch(user_vectors, item_factors, k: int, exclude_mask=None):
+    """Dense ``[B, D]`` query rows scored against the catalog, top k:
+    ``([B, k] f32 scores, [B, k] int32 ids)``, the JAX package's ``:69``
+    (an int8 catalog scores ``(u . q) * s``). It is
+    :func:`gather_top_k_batch` of the rows as a float32 table read
+    through ``arange(B)``, on that wrapper's launches and counts."""
+    values = item_factors[0] if isinstance(item_factors, tuple) else item_factors
+    queries = torch.as_tensor(user_vectors, device=values.device).to(torch.float32)
+    ixs = torch.arange(queries.shape[0], dtype=torch.int32, device=values.device)
+    return gather_top_k_batch(ixs, queries.contiguous(), item_factors, k, exclude_mask)
+
+
 def _gather_top_k_select(user_ixs, user_factors, item_factors, k: int,
                          exclude_mask=None):
     """K2's select route at any k, whatever :func:`k2_route` picks: the
@@ -354,29 +405,32 @@ def _gather_on_card(route, counter, user_ixs, user_factors, item_factors, k: int
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        if plan.name == "tile":
-            ws = torch.empty((batch, plan.tiles, plan.group), dtype=torch.int64,
-                             device=device)
-            err = lib.pio_k2_tile_top_k(
-                ixs.data_ptr(), batch,
-                u_vals.data_ptr(), u_code, _ptr(u_scales),
-                v_vals.data_ptr(), v_code, _ptr(v_scales),
-                _ptr(mask), num_items, rank, k, plan.width,
-                ws.data_ptr(), scores.data_ptr(), ids.data_ptr(), ctypes.byref(launched),
-                stream,
-            )
-        else:
-            scratch = torch.empty((batch, num_items), dtype=torch.float32, device=device)
-            cand = torch.empty((batch, k), dtype=torch.int64, device=device)
-            err = lib.pio_k2_gather_top_k(
-                ixs.data_ptr(), batch,
-                u_vals.data_ptr(), u_code, _ptr(u_scales),
-                v_vals.data_ptr(), v_code, _ptr(v_scales),
-                _ptr(mask), num_items, rank, k,
-                scratch.data_ptr(), cand.data_ptr(),
-                scores.data_ptr(), ids.data_ptr(), ctypes.byref(launched), stream,
-            )
-    _build.check(err, f"gather_top_k_batch {plan.name} route launch")
+        for lo, hi in _row_chunks(plan, k, num_items, batch):
+            n = hi - lo
+            if plan.name == "tile":
+                ws = torch.empty((n, plan.tiles, plan.group), dtype=torch.int64,
+                                 device=device)
+                err = lib.pio_k2_tile_top_k(
+                    ixs[lo:].data_ptr(), n,
+                    u_vals.data_ptr(), u_code, _ptr(u_scales),
+                    v_vals.data_ptr(), v_code, _ptr(v_scales),
+                    _ptr(mask), num_items, rank, k, plan.width,
+                    ws.data_ptr(), scores[lo:].data_ptr(), ids[lo:].data_ptr(),
+                    ctypes.byref(launched), stream,
+                )
+            else:
+                scratch = torch.empty((n, num_items), dtype=torch.float32, device=device)
+                cand = torch.empty((n, k), dtype=torch.int64, device=device)
+                err = lib.pio_k2_gather_top_k(
+                    ixs[lo:].data_ptr(), n,
+                    u_vals.data_ptr(), u_code, _ptr(u_scales),
+                    v_vals.data_ptr(), v_code, _ptr(v_scales),
+                    _ptr(mask), num_items, rank, k,
+                    scratch.data_ptr(), cand.data_ptr(),
+                    scores[lo:].data_ptr(), ids[lo:].data_ptr(),
+                    ctypes.byref(launched), stream,
+                )
+            _build.check(err, f"{counter.__name__} {plan.name} route launch")
     counter.launches.add()
     counter.routes[plan.name].add()
     counter.kernel_launches.add(launched.value)
@@ -471,28 +525,31 @@ def _sum_rows_on_card(route, counter, row_ixs, row_weights, item_factors, k: int
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        if plan.name == "tile":
-            ws = torch.empty((batch, plan.tiles, plan.group), dtype=torch.int64,
-                             device=device)
-            err = lib.pio_k2_tile_sum_rows_top_k(
-                ixs.data_ptr(), w.data_ptr(), batch, width,
-                v_vals.data_ptr(), v_code, _ptr(v_scales),
-                _ptr(mask), num_items, rank, k, plan.width,
-                ws.data_ptr(), scores.data_ptr(), ids.data_ptr(), ctypes.byref(launched),
-                stream,
-            )
-        else:
-            qvec = torch.empty((batch, rank), dtype=torch.float32, device=device)
-            scratch = torch.empty((batch, num_items), dtype=torch.float32, device=device)
-            cand = torch.empty((batch, k), dtype=torch.int64, device=device)
-            err = lib.pio_k2_sum_rows_top_k(
-                ixs.data_ptr(), w.data_ptr(), batch, width,
-                v_vals.data_ptr(), v_code, _ptr(v_scales),
-                _ptr(mask), num_items, rank, k,
-                qvec.data_ptr(), scratch.data_ptr(), cand.data_ptr(),
-                scores.data_ptr(), ids.data_ptr(), ctypes.byref(launched), stream,
-            )
-    _build.check(err, f"sum_rows_top_k_batch {plan.name} route launch")
+        for lo, hi in _row_chunks(plan, k, num_items, batch):
+            n = hi - lo
+            if plan.name == "tile":
+                ws = torch.empty((n, plan.tiles, plan.group), dtype=torch.int64,
+                                 device=device)
+                err = lib.pio_k2_tile_sum_rows_top_k(
+                    ixs[lo:].data_ptr(), w[lo:].data_ptr(), n, width,
+                    v_vals.data_ptr(), v_code, _ptr(v_scales),
+                    _ptr(mask), num_items, rank, k, plan.width,
+                    ws.data_ptr(), scores[lo:].data_ptr(), ids[lo:].data_ptr(),
+                    ctypes.byref(launched), stream,
+                )
+            else:
+                qvec = torch.empty((n, rank), dtype=torch.float32, device=device)
+                scratch = torch.empty((n, num_items), dtype=torch.float32, device=device)
+                cand = torch.empty((n, k), dtype=torch.int64, device=device)
+                err = lib.pio_k2_sum_rows_top_k(
+                    ixs[lo:].data_ptr(), w[lo:].data_ptr(), n, width,
+                    v_vals.data_ptr(), v_code, _ptr(v_scales),
+                    _ptr(mask), num_items, rank, k,
+                    qvec.data_ptr(), scratch.data_ptr(), cand.data_ptr(),
+                    scores[lo:].data_ptr(), ids[lo:].data_ptr(),
+                    ctypes.byref(launched), stream,
+                )
+            _build.check(err, f"sum_rows_top_k_batch {plan.name} route launch")
     counter.launches.add()
     counter.routes[plan.name].add()
     counter.kernel_launches.add(launched.value)
@@ -538,3 +595,120 @@ def top_k_rows(scores: torch.Tensor, k: int):
 
 
 top_k_rows.launches = _build.LaunchCount()
+
+
+# -- K3: the ranking-metrics kernel --------------------------------------------
+
+
+def _ranking_tables(P: int, k: int, device: torch.device):
+    """(discounts ``[P]``, IDCG prefix ``[k]``) float32: ``1 / log2(r +
+    1)`` for rank r = 1..P, and the running sum of ``1 / log2(r + 1)``
+    over r = 1..k, computed in torch float32 as the JAX package computes
+    them. K3 takes them as inputs, so both versions divide by the same
+    bits."""
+    discounts = 1.0 / torch.log2(torch.arange(2, P + 2, dtype=torch.float32))
+    idcg = torch.cumsum(1.0 / torch.log2(torch.arange(2, k + 2, dtype=torch.float32)), 0)
+    return discounts.to(device), idcg.to(device)
+
+
+def _ranking_inputs(pred_ids, actual_sorted, actual_counts, device):
+    pred = torch.as_tensor(pred_ids, device=device).to(torch.int32).contiguous()
+    actual = torch.as_tensor(actual_sorted, device=device).to(torch.int32).contiguous()
+    counts = torch.as_tensor(actual_counts, device=device).to(torch.int32).contiguous()
+    Q = pred.shape[0]
+    if pred.dim() != 2 or actual.dim() != 2 or actual.shape[0] != Q or counts.shape != (Q,):
+        raise ValueError(
+            "ranking_metrics_batch takes pred_ids [Q, P], actual_sorted [Q, A] "
+            f"and actual_counts [Q]; got {tuple(pred.shape)}, "
+            f"{tuple(actual.shape)}, {tuple(counts.shape)}"
+        )
+    return pred, actual, counts
+
+
+def ranking_metrics_batch_reference(pred_ids, actual_sorted, actual_counts, k: int):
+    """The plain PyTorch version of K3, same contract as
+    :func:`ranking_metrics_batch`, operation for operation the JAX
+    package's: a sorted lookup (``searchsorted``) per rank position, hit
+    prefix sums for the precision-at-hit terms, true divisions."""
+    pred = torch.as_tensor(pred_ids).to(torch.int32)
+    device = pred.device
+    pred, actual, counts = _ranking_inputs(pred, actual_sorted, actual_counts, device)
+    Q, pn = pred.shape
+    if actual.shape[1] == 0:
+        raise ValueError("actual_sorted needs at least one column")
+    pos = torch.searchsorted(actual, pred)
+    clipped = pos.clamp(0, actual.shape[1] - 1)
+    hits = ((pos < counts[:, None]) & (torch.gather(actual, 1, clipped) == pred)
+            & (pred >= 0)).to(torch.float32)
+    kf = torch.full((Q,), float(k), dtype=torch.float32, device=device)
+    precision = hits.sum(dim=1) / kf
+    ranks = torch.arange(1, pn + 1, dtype=torch.float32, device=device)
+    ap_terms = torch.where(hits > 0, torch.cumsum(hits, dim=1) / ranks,
+                           torch.zeros_like(hits))
+    ap_norm = torch.clamp(torch.minimum(kf, counts.to(torch.float32)), min=1.0)
+    ap = ap_terms.sum(dim=1) / ap_norm
+    discounts, idcg = _ranking_tables(pn, k, device)
+    dcg = (hits * discounts).sum(dim=1)
+    ideal_n = torch.clamp(torch.minimum(counts, torch.full_like(counts, k)), 1, k)
+    ndcg = dcg / idcg[(ideal_n - 1).to(torch.int64)]
+    return precision, ap, ndcg, counts > 0
+
+
+def _k3_lib() -> ctypes.CDLL:
+    lib = _build.load("ranking")
+    if not getattr(lib, "_pio_typed", False):
+        lib.pio_k3_ranking_metrics.argtypes = [
+            _P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+        ]
+        lib.pio_k3_ranking_metrics.restype = _I
+        lib._pio_typed = True
+    return lib
+
+
+def ranking_metrics_batch(pred_ids, actual_sorted, actual_counts, k: int):
+    """K3: P@K, AP@K and NDCG@K of every query of an eval split at once.
+
+    ``pred_ids``: ``[Q, P]`` int32 ranked predicted ids, P <= k; -1 marks
+    an empty slot. ``actual_sorted``: ``[Q, A]`` int32 relevant ids per
+    query, sorted ascending and padded with ``ACTUAL_PAD`` (int32 max);
+    relevant ids outside the prediction id space are distinct codes <= -2
+    (core/ranking.py ``encode_actuals``). ``actual_counts``: ``[Q]`` int32
+    true |actual|. ``k``: the metric cutoff; denominators use it even
+    when P < k. Returns ``(precision, ap, ndcg, valid)``, each ``[Q]``
+    (float32, float32, float32, bool); ``valid`` is False where the actual
+    set is empty (the rows the per-query metrics skip).
+
+    Inputs go to the device of ``pred_ids`` when it is a tensor, else
+    the CPU; a CPU tensor takes :func:`ranking_metrics_batch_reference`,
+    a CUDA tensor launches ``csrc/ranking.cu`` (one warp a query) or
+    raises."""
+    device = pred_ids.device if isinstance(pred_ids, torch.Tensor) else torch.device("cpu")
+    if device.type == "cpu":
+        return ranking_metrics_batch_reference(pred_ids, actual_sorted, actual_counts, k)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    k = int(k)
+    pred, actual, counts = _ranking_inputs(pred_ids, actual_sorted, actual_counts, device)
+    Q, pn = pred.shape
+    if k < 1 or actual.shape[1] == 0:
+        raise ValueError(f"K3 takes k >= 1 and A >= 1, got k={k} A={actual.shape[1]}")
+    out = [torch.empty(Q, dtype=torch.float32, device=device) for _ in range(3)]
+    valid = torch.empty(Q, dtype=torch.bool, device=device)
+    if Q == 0:
+        return (*out, valid)
+    discounts, idcg = _ranking_tables(pn, k, device)
+    lib = _k3_lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.pio_k3_ranking_metrics(
+            pred.data_ptr(), Q, pn, actual.data_ptr(), actual.shape[1],
+            counts.data_ptr(), k, discounts.data_ptr() if pn else None,
+            idcg.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            valid.data_ptr(), stream,
+        )
+    _build.check(err, "ranking_metrics_batch kernel launch")
+    ranking_metrics_batch.launches.add()
+    return (*out, valid)
+
+
+ranking_metrics_batch.launches = _build.LaunchCount()

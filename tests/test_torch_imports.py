@@ -54,9 +54,9 @@ def test_port_imports_without_jax_or_the_jax_package():
     )
     assert proc.returncode == 0, proc.stderr
     walked = set(proc.stdout.split())
-    assert len(walked) >= 50  # every module was walked
-    # the training, similar-product and serving-stack slices' modules
-    # among them
+    assert len(walked) >= 56  # every module was walked
+    # the training, similar-product, serving-stack and evaluation slices'
+    # modules among them
     assert {f"predictionio_tpu_torch.{m}" for m in (
         "data.datamap", "data.event", "data.store", "data.storage.base",
         "data.storage.sqlite", "data.storage.memory", "ops.als",
@@ -68,6 +68,8 @@ def test_port_imports_without_jax_or_the_jax_package():
         "faults", "faults.inject", "common", "common.server_config",
         "server", "server.http", "server.query_cache", "server.plugins",
         "server.engine_server", "server.jsonx",
+        "core.metrics", "core.ranking", "core.fast_eval", "core.evaluation",
+        "core.workflow_eval", "models.recommendation_eval",
     )} <= walked
 
 

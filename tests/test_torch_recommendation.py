@@ -220,10 +220,13 @@ def test_unported_paths_raise(servers, monkeypatch):
     with pytest.raises(NotImplementedError, match="checkpoint"):
         algo.train(ctx, td)
     monkeypatch.delenv("PIO_CHECKPOINT_EVERY")
-    with pytest.raises(NotImplementedError, match="train_sweep"):
-        algo.train_sweep(ctx, td, [algo.params, algo.params])
-    with pytest.raises(NotImplementedError, match="read_eval"):
-        trec.RecommendationDataSource().read_eval(ctx)
+    # evaluation is ported: a stacked sweep trains, its multi-card
+    # candidates decline as in the JAX package, and sharded eval scoring
+    # refuses as the other multi-card paths do
+    assert len(algo.train_sweep(ctx, td, [algo.params, algo.params])) == 2
+    assert algo.train_sweep(ctx, td, [algo.params, sharded_train.params]) is None
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        sharded.eval_topk(model, [trec.Query(user="u1", num=4)], 4)
     with pytest.raises(ValueError, match="not ported"):
         resolve_engine_factory("predictionio_tpu.models.classification.engine")
 
