@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases k2,k1,k1i,k1route,k2s,k2route,serve,batchserve,
-                                    lifecycle,simlife,train,simtrain,eval,times,
-                                    k1times,simtimes]
+    python3 chip_smoke.py [--phases k2,k1,k1i,k1route,k2s,k2route,k4,k5,serve,
+                                    batchserve,lifecycle,simlife,train,simtrain,eval,
+                                    retrieval,times,k1times,simtimes,retimes]
 
 Run from the root of a checkout, on a machine with a CUDA card, ``nvcc``
 and PyTorch built for CUDA. It imports nothing of JAX and nothing of the
@@ -12,8 +12,9 @@ JAX package (``predictionio_tpu``). Phases:
 1. environment: torch/CUDA versions, the card, ``nvidia-smi`` name and
    power limit, ``nvcc`` release, ``triton`` version or ``absent``;
 2. build ``predictionio_tpu_torch/csrc/topk.cu`` (K2),
-   ``csrc/als_solve.cu`` (K1, K1s) and ``csrc/ranking.cu`` (K3) with
-   ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, started together;
+   ``csrc/als_solve.cu`` (K1, K1s), ``csrc/ranking.cu`` (K3) and
+   ``csrc/retrieval.cu`` (K4, K5) with ``nvcc`` for ``sm_90a``, one
+   ``nvcc`` per source, started together;
 3. k2: K2 against its plain PyTorch version on the card at the ML-20M
    shape (U = 138,493 users, I = 26,744 items): D = 20 with every
    f32/bf16/int8 storage pair, D = 128 with each storage dtype, both at B
@@ -157,6 +158,39 @@ simtrain:
   the eval shape and one K1s iteration (against K1 alone x 4) beside
   their plain versions, yardsticks and bounds.
 
+The two-stage retrieval slice adds (k4 and k5 after k2route, retrieval
+after eval, retimes last):
+
+- k4: K4 (``ops/retrieval.py coarse_topk``) against its plain version at
+  I = 1,000,000 and 10,000,000, D = 32 (tiles of 2^18, the last padded):
+  modes int8 and int8_dot on an int8 pair, bf16 on a dense table's copy,
+  B {1, 8, 64} x k' {32, 128, 256, 1024} at 1M (a subset at 10M);
+  int8_dot bit for bit, the others within rtol 1e-5 with ids equal
+  outside near ties (bit for bit in practice: same arithmetic); crafted
+  catalogs of exact ties at every k' boundary with a NaN row, k' >= I,
+  and k' above K4_MAX_K refused;
+- k5: K5 (``rescore_top_k``) against its plain version at I = 1,000,000:
+  gather (every user x item storage pair), vectors and summed-rows
+  queries, B {1, 8, 64}, candidates from a K4 shortlist with -1 slots,
+  bit for bit; rows against K2 / K2s on the same pairs (the rest of the
+  catalog masked): scores bit for bit;
+- retrieval: the 1M-item recommendation model (U = 138,493, rank 32; f32
+  and int8, the int8 server probing recall on every dispatch) and a
+  1M-item similar-product model (rank 10) saved through the port's
+  storage and served by ``cli.main deploy`` with the micro-batcher:
+  1,000 distinct users (500 item queries) at concurrency 1 and 8 at num =
+  10, blackList queries deeper than the top 20, categories queries on
+  the exact path: answers against the plain two-stage versions, recall@10
+  >= 0.999 against exact K2 / K2s, K2's scores bit for bit where the
+  shortlist covers the exact top 10, K4 / K5 / K2 calls per dispatch from
+  ``/metrics``, the ``/stats.json`` retrieval block, a traced request's
+  ``dispatch.shortlist`` / ``dispatch.rescore`` spans, ready_s, p50 /
+  p99 / q/s;
+- retimes: K4 per mode and K5 at I = 1M and 10M, D = 32, B = 8, k' = 128,
+  beside their plain versions, bounds and one-call yardsticks; two-stage
+  (K4 + K5) beside the exact path (K2, ``torch.topk(u @ V.T)``) on f32
+  and int8 catalogs.
+
 Every phase prints its results and seconds; any failure makes the exit
 code 1 and suppresses the result lines. Without CUDA, or without the
 package beside the script, it exits 2 and prints no result. A run of a
@@ -258,7 +292,7 @@ def environment(torch):
 # -- phase 2 -----------------------------------------------------------------
 
 
-KERNEL_SOURCES = ("topk", "als_solve", "ranking")
+KERNEL_SOURCES = ("topk", "als_solve", "ranking", "retrieval")
 
 
 @phase("build")
@@ -1302,13 +1336,14 @@ class DeployProcess:
     with SIGTERM: the front end drains, then the command exits."""
 
     def __init__(self, basedir: str, iid: str, device: str, flags: list[str],
-                 name: str):
+                 name: str, env_extra: dict | None = None):
         self.port = free_port()
         self.log_path = os.path.join(basedir, f"deploy-{name}.log")
         env = {k: v for k, v in os.environ.items() if not k.startswith("PIO_STORAGE_")}
         env.update(PIO_FS_BASEDIR=basedir, PIO_RUN_DIR=os.path.join(basedir, "run"),
                    PYTHONPATH=os.pathsep.join(
-                       p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+                       p for p in (ROOT, os.environ.get("PYTHONPATH")) if p),
+                   **(env_extra or {}))
         cmd = [sys.executable, "-m", "predictionio_tpu_torch.cli.main", "deploy",
                "--engine-instance-id", iid, "--ip", "127.0.0.1",
                "--port", str(self.port), "--device", device, *flags]
@@ -1389,10 +1424,11 @@ def k2_tile_calls(m: dict) -> int:
     return int(m.get('pio_k2_calls{kernel="gather_top_k_batch",route="tile"}', 0))
 
 
-def closed_loop(port: int, queries: list, concurrency: int) -> dict:
+def closed_loop(port: int, queries: list, concurrency: int, key=lambda q: q["user"]) -> dict:
     """``concurrency`` closed-loop keep-alive clients, each on its own
     connection, take the next query until none is left. Returns each
-    query's raw answer (by user), the latencies and the wall time."""
+    query's raw answer (by ``key``: the user), the latencies and the wall
+    time."""
     lock = threading.Lock()
     todo = iter(queries)
     answers, lat, errors = {}, [], []
@@ -1414,7 +1450,7 @@ def closed_loop(port: int, queries: list, concurrency: int) -> dict:
                 dt = time.perf_counter() - t0
                 with lock:
                     lat.append(dt)
-                    answers[q["user"]] = data
+                    answers[key(q)] = data
                     if resp.status != 200:
                         errors.append((q, resp.status, data[:200]))
         except Exception as e:  # reported, then raised by the caller
@@ -3613,6 +3649,759 @@ def eval_phase(torch, device, stats):
         step(torch, device, stats)
 
 
+# -- the two-stage retrieval slice --------------------------------------------
+
+RET_D = 32  # the JAX package's retrieval bench rank (bench.py:4957-4963)
+RET_ROWS = (1_000_000, 10_000_000)  # its catalog rungs
+RET_ITEMS = 1_000_000  # the retrieval phase's catalog
+K4_BATCHES = (1, 8, 64)
+K4_KPRIMES = (32, 128, 256, 1024)  # num = 4, 10, 20, 100
+RET_NUM = 10  # serving num: k = 16, k' = 128
+RET_USERS = 1000  # distinct users a concurrency level
+SIM_QUERIES = 500  # similar-product queries a concurrency level
+RET_LEVELS = (1, 8)
+REC_FACTORY = "predictionio_tpu_torch.models.recommendation.engine"
+
+
+def coarse_pair(torch, rows: int, seed: int, device):
+    """The dense f32 ``[rows, 32]`` table from the seed (host) and its int8
+    pair (``quantize_rows`` on the card)."""
+    from predictionio_tpu_torch.ops.als import quantize_rows
+
+    f = np.random.default_rng(seed).standard_normal((rows, RET_D), dtype=np.float32)
+    return f, quantize_rows(torch.from_numpy(f).to(device))
+
+
+def hold_k4(torch, retrieval, cat, q, k: int, mode: str) -> tuple[bool, float]:
+    """K4 against its plain version on the same catalog: int8_dot bit for
+    bit; int8 and bf16 scores within RTOL/ATOL and ids equal outside runs
+    of near ties. (bit-equal, max abs error)."""
+    s_k, i_k = retrieval.coarse_topk(q, cat._tiles, cat._scales, cat.num_rows, k, mode)
+    s_p, i_p = retrieval.coarse_topk_reference(q, cat._tiles, cat._scales, cat.num_rows, k, mode)
+    torch.cuda.synchronize()
+    bitwise = same_bits(torch, s_k, s_p) and bool(torch.equal(i_k, i_p))
+    sk, sp, ik, ip = host(s_k), host(s_p), host(i_k), host(i_p)
+    fin = np.isfinite(sp) & np.isfinite(sk)
+    err = float(np.max(np.abs(sk[fin] - sp[fin]), initial=0.0))
+    what = f"K4 {mode} I={cat.num_rows} B={len(q)} k'={k}"
+    if mode == "int8_dot" and not bitwise:
+        raise AssertionError(f"{what}: not bit-equal to the plain version (max abs {err})")
+    if not bitwise:
+        if not np.allclose(sk, sp, rtol=RTOL, atol=ATOL, equal_nan=True):
+            raise AssertionError(f"{what}: scores off by {err}")
+        for b in range(len(q)):
+            if not near_tie_ids_ok(ik[b], ip[b], sp[b]):
+                raise AssertionError(f"{what}: row {b} ids {ik[b][:8]} vs {ip[b][:8]}")
+    return bitwise, err
+
+
+@phase("k4: coarse shortlist vs plain")
+def k4_vs_plain(torch, device, stats):
+    """K4 against its plain version on the card at the JAX package's
+    retrieval rungs (I = 1,000,000 and 10,000,000, D = 32; tiles of 2^18,
+    the last one padded): every mode (``int8`` and ``int8_dot`` on the
+    int8 pair, ``bf16`` on the dense table's copy), B in {1, 8, 64}, k' in
+    {32, 128, 256, 1024} (all at 1M; k' 128 at every B and 1024 at B = 8
+    at 10M). Then crafted catalogs: 50 distinct rows repeated (exact ties
+    at every k' boundary) with a NaN row (a NaN scale in the int8 pair),
+    k' >= I at I = 200, and k' above K4_MAX_K refused."""
+    from predictionio_tpu_torch.ops import retrieval
+
+    lib = retrieval._lib()
+    for rb, S, D in ((8, 512, 32), (1, 16384, 32), (4, 2048, 10), (2, 4096, 128)):
+        got, want = lib.pio_k4_tile_smem(rb, S, D), retrieval.k4_tile_smem(rb, S, D)
+        if got != want:
+            raise AssertionError(f"k4_tile_smem({rb}, {S}, {D}): C {got}, Python {want}")
+    gen = torch.Generator(device=device).manual_seed(SEED + 30)
+    queries = torch.randn((max(K4_BATCHES), RET_D), generator=gen, device=device)
+    cases = bitwise = 0
+    max_err = 0.0
+    for rows in RET_ROWS:
+        f, pair = coarse_pair(torch, rows, SEED + 31, device)
+        cats = {"int8": retrieval.CoarseCatalog(pair, device=device),
+                "bf16": retrieval.CoarseCatalog(f, device=device)}
+        del f, pair
+        if cats["int8"].mode != "int8" or cats["bf16"].mode != "bf16":
+            raise AssertionError("auto coarse modes: int8 pair -> int8, dense -> bf16")
+        if rows % cats["int8"].tile == 0:
+            raise AssertionError("the rung's tiles should not divide I")
+        grid = [(b, k) for b in K4_BATCHES for k in K4_KPRIMES] if rows == RET_ROWS[0] \
+            else [(b, 128) for b in K4_BATCHES] + [(8, 1024)]
+        for mode in retrieval.MODES:
+            cat = cats["bf16" if mode == "bf16" else "int8"]
+            for b, k in grid:
+                ok, err = hold_k4(torch, retrieval, cat, queries[:b], k, mode)
+                cases, bitwise, max_err = cases + 1, bitwise + ok, max(max_err, err)
+        log(f"K4 I={rows}: {len(grid) * 3} cases held")
+        del cats
+        torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(SEED + 32)
+    base = rng.integers(-3, 4, (50, RET_D)).astype(np.float32)
+    f = base[np.arange(100_000) % 50]
+    vq, vs = quantize_rows_host(torch, f, device)
+    vs[777] = float("nan")
+    f[777, 5] = float("nan")
+    tied = {"int8": retrieval.CoarseCatalog((vq, vs), tile=1 << 15, device=device),
+            "bf16": retrieval.CoarseCatalog(f, tile=1 << 15, device=device)}
+    fs = np.random.default_rng(SEED + 33).standard_normal((200, RET_D), dtype=np.float32)
+    small = {"int8": retrieval.CoarseCatalog(quantize_rows_host(torch, fs, device), tile=256,
+                                             device=device),
+             "bf16": retrieval.CoarseCatalog(fs, tile=256, device=device)}
+    for mode in retrieval.MODES:
+        cat = tied["bf16" if mode == "bf16" else "int8"]
+        for b, k in ((1, 128), (8, 1024), (64, 256)):
+            ok, err = hold_k4(torch, retrieval, cat, queries[:b], k, mode)
+            cases, bitwise, max_err = cases + 1, bitwise + ok, max(max_err, err)
+            if not ok:
+                raise AssertionError(f"K4 {mode}: crafted ties/NaN not bit-equal")
+        cat = small["bf16" if mode == "bf16" else "int8"]
+        s, ids = retrieval.coarse_topk(queries[:8], cat._tiles, cat._scales, 200, 256, mode)
+        ok, _ = hold_k4(torch, retrieval, cat, queries[:8], 256, mode)
+        n_pad = int((ids < 0).sum())
+        if not ok or n_pad != 8 * 56 or bool((s[ids < 0] != -1e30).any()):
+            raise AssertionError(f"K4 {mode} k' >= I: bit-equal {ok}, {n_pad} pad slots")
+        cases, bitwise = cases + 1, bitwise + ok
+    try:
+        retrieval.coarse_topk(queries[:1], small["bf16"]._tiles, None, 200,
+                              retrieval.K4_MAX_K + 1, "bf16")
+    except ValueError as e:
+        if "K4_MAX_K" not in str(e):
+            raise
+    else:
+        raise AssertionError(f"K4 took k' = {retrieval.K4_MAX_K + 1}")
+    stats["k4_max_abs_err"] = max_err
+    log(json.dumps({"k4": {"cases": cases, "bit_equal": bitwise, "max_abs_err": max_err}}))
+
+
+def quantize_rows_host(torch, f: np.ndarray, device):
+    """``quantize_rows`` of a host table on the card, back on the host."""
+    from predictionio_tpu_torch.ops.als import quantize_rows
+
+    q, s = quantize_rows(torch.from_numpy(f).to(device))
+    return host(q), host(s)
+
+
+def storage_forms(torch, f: np.ndarray, device) -> dict:
+    """A host f32 table on the card in each storage dtype."""
+    from predictionio_tpu_torch.ops.als import quantize_rows
+
+    t = torch.from_numpy(f).to(device)
+    return {"float32": t, "bfloat16": t.to(torch.bfloat16), "int8": quantize_rows(t)}
+
+
+def same_as_k2(torch, s5, i5, s2, i2, what: str) -> None:
+    """K5's top list against K2's on the same pairs: scores bit for bit;
+    ids equal, or the same set within a run of equal scores."""
+    if not same_bits(torch, s5, s2):
+        raise AssertionError(f"{what}: K5 scores not bit-equal to K2's")
+    a, b, s = host(i5), host(i2), host(s2)
+    start = 0
+    for j in range(1, len(s) + 1):
+        if j == len(s) or s[j] != s[start]:
+            if set(a[start:j].tolist()) != set(b[start:j].tolist()):
+                raise AssertionError(f"{what}: ids {a[start:j]} vs K2 {b[start:j]}")
+            start = j
+
+
+@phase("k5: shortlist rescore vs plain and K2")
+def k5_vs_plain(torch, device, stats):
+    """K5 against its plain version on the card, at I = 1,000,000, D = 32:
+    each query form (user rows of a 138,493-row table, given vectors,
+    summed catalog rows) with every f32/bf16/int8 storage (user x item
+    for the gather form), B in {1, 8, 64}, candidates from a real K4
+    shortlist (k' = 128) with every 9th slot of odd rows set to -1:
+    scores and ids bit for bit. Then rows 0..7 of each B = 8 call against
+    K2 on the same pairs (K2, or K2's summed-rows mode, over the catalog
+    with everything but the row's candidates masked): every score bit for
+    bit, ids equal outside runs of equal scores."""
+    from predictionio_tpu_torch.ops import retrieval, topk
+
+    rng = np.random.default_rng(SEED + 34)
+    vf = rng.standard_normal((RET_ITEMS, RET_D), dtype=np.float32)
+    uf = rng.standard_normal((U_ROWS, RET_D), dtype=np.float32)
+    Vs, Us = storage_forms(torch, vf, device), storage_forms(torch, uf, device)
+    uixs = torch.from_numpy(rng.choice(U_ROWS, 64, replace=False).astype(np.int32)).to(device)
+    cat = retrieval.CoarseCatalog(vf, device=device)
+    _, cand = retrieval.coarse_topk(Us["float32"][uixs.long()], cat._tiles, None,
+                                    RET_ITEMS, 128, "bf16")
+    cand = cand.clone()
+    cand[1::2, 4::9] = -1
+    vecs = torch.from_numpy(rng.standard_normal((64, RET_D), dtype=np.float32)).to(device)
+    row_ixs = torch.from_numpy(rng.integers(0, RET_ITEMS, (64, 4)).astype(np.int32)).to(device)
+    row_w = torch.ones((64, 4), device=device)
+    row_w[::3, 2:] = 0.0  # weight-0 padding, as the template pads
+    cases = 0
+    for vd, V in Vs.items():
+        forms = [("gather", ud, dict(user_ixs=uixs, user_factors=U)) for ud, U in Us.items()]
+        forms += [("vectors", "-", dict(vectors=vecs)),
+                  ("sum_rows", "-", dict(row_ixs=row_ixs, row_weights=row_w))]
+        for form, ud, args in forms:
+            for b in K4_BATCHES:
+                part = {n: a[:b] if n != "user_factors" else a for n, a in args.items()}
+                s_k, i_k = retrieval.rescore_top_k(form, V, cand[:b], RET_NUM, **part)
+                s_p, i_p = retrieval.rescore_top_k_reference(form, V, cand[:b], RET_NUM, **part)
+                torch.cuda.synchronize()
+                if not (same_bits(torch, s_k, s_p) and torch.equal(i_k, i_p)):
+                    raise AssertionError(f"K5 {form} U {ud} V {vd} B={b}: not bit-equal")
+                cases += 1
+            for r in range(8):
+                ok = cand[r] >= 0
+                kk = int(ok.sum())
+                mask = torch.ones(RET_ITEMS, dtype=torch.bool, device=device)
+                mask[cand[r][ok].long()] = False
+                one = {n: a[r:r + 1] if n != "user_factors" else a for n, a in args.items()}
+                s5, i5 = retrieval.rescore_top_k(form, V, cand[r:r + 1], kk, **one)
+                if form == "gather":
+                    s2, i2 = topk.gather_top_k_batch(one["user_ixs"], one["user_factors"], V,
+                                                     kk, exclude_mask=mask)
+                elif form == "vectors":
+                    s2, i2 = topk.top_k_items_batch(one["vectors"], V, kk, exclude_mask=mask)
+                else:
+                    s2, i2 = topk.sum_rows_top_k_batch(one["row_ixs"], one["row_weights"], V,
+                                                       kk, exclude_mask=mask)
+                same_as_k2(torch, s5[0], i5[0], s2[0], i2[0], f"K5 {form} U {ud} V {vd} row {r}")
+    log(json.dumps({"k5": {"cases": cases, "bit_equal_to_plain": cases,
+                           "rows_bit_equal_to_k2": 8 * 5 * len(Vs)}}))
+    stats["k5_max_abs_err"] = 0.0
+
+
+def metric_delta(after: dict, before: dict, name: str) -> float:
+    return after.get(name, 0.0) - before.get(name, 0.0)
+
+
+def check_warm_k4(m: dict, mode: str, what: str) -> None:
+    """The server's warmup went two-stage: the coarse catalog was built
+    and K4 ran before /readyz answered."""
+    if m.get(K4_CALLS % mode, 0) < 1:
+        raise AssertionError(f"{what}: warmup did not build the coarse catalog and run K4")
+
+
+def check_dispatch_counts(lv: dict, k2: int, what: str) -> None:
+    """Per two-stage dispatch: one K4 call of two launches and one K5
+    call of one launch; K2 (or K2s) ``k2`` calls -- the live probe's."""
+    d = lv["dispatches"]
+    k2_seen = lv.get("k2", lv.get("k2s"))
+    if not (lv["k4"] == lv["k5"] == d and lv["k4_kernels"] == 2 * d
+            and lv["k5_kernels"] == d and k2_seen == k2 and lv.get("probes", k2) == k2):
+        raise AssertionError(f"{what}: counts per dispatch {lv} ({d} dispatches)")
+
+
+def check_exact_round(lv: dict, n: int) -> None:
+    """Queries that stay exact at retrieval scale: no K4, one K2s each."""
+    if lv["k4"] != 0 or lv["k2s"] != n:
+        raise AssertionError(f"exact round: {lv}")
+
+
+def plain_rec_two_stage(torch, retrieval, model, cat, device, uixs: np.ndarray, k: int):
+    """What a two-stage recommendation dispatch must answer, from the
+    plain versions of K4 and K5 on the card: ([B, k] scores, [B, k] ids,
+    [B, k'] shortlist)."""
+    U, V = model.device_factors(device)
+    kp = retrieval.shortlist_k(k, cat.num_rows)
+    q = torch.from_numpy(model.user_rows(uixs)).to(device)
+    _, cand = retrieval.coarse_topk_reference(q, cat._tiles, cat._scales, cat.num_rows, kp,
+                                              cat.mode)
+    s, i = retrieval.rescore_top_k_reference("gather", V, cand, k, user_ixs=uixs,
+                                             user_factors=U)
+    return host(s), host(i), host(cand)
+
+
+def hold_rec_answers(torch, retrieval, topk, model, device, answers: dict, users: list,
+                     what: str) -> dict:
+    """Every answer against the plain two-stage version (ids outside near
+    ties; scores within RTOL) and against exact K2: recall@num over all
+    queries, and where the shortlist holds the exact top num, the answer
+    is K2's, scores bit for bit."""
+    cat = model.coarse_catalog(device)
+    U, V = model.device_factors(device)
+    k = 1 << (RET_NUM - 1).bit_length()
+    hits = covered = 0
+    for lo in range(0, len(users), 50):
+        chunk = users[lo:lo + 50]
+        uixs = np.asarray([model.user_index[u] for u in chunk], np.int32)
+        ps, pi, cand = plain_rec_two_stage(torch, retrieval, model, cat, device, uixs, k)
+        es, ei = topk.gather_top_k_batch(uixs, U, V, k)
+        es, ei = host(es)[:, :RET_NUM], host(ei)[:, :RET_NUM]
+        for b, u in enumerate(chunk):
+            got = json.loads(answers[u])["itemScores"]
+            ids = np.asarray([model.item_index[x["item"]] for x in got])
+            sc = np.asarray([x["score"] for x in got], np.float32)
+            if len(ids) != RET_NUM or not np.allclose(sc, ps[b, :RET_NUM], rtol=RTOL, atol=ATOL) \
+                    or not near_tie_ids_ok(ids, pi[b, :RET_NUM], ps[b, :RET_NUM]):
+                raise AssertionError(f"{what} {u}: {ids} {sc} vs plain {pi[b, :RET_NUM]} "
+                                     f"{ps[b, :RET_NUM]}")
+            hits += len(set(ids.tolist()) & set(ei[b].tolist()))
+            if set(ei[b].tolist()) <= set(cand[b].tolist()):
+                covered += 1
+                if not np.array_equal(sc.view(np.int32), es[b].view(np.int32)) or \
+                        not near_tie_ids_ok(ids, ei[b], es[b]):
+                    raise AssertionError(f"{what} {u}: covered, yet {ids} {sc} vs K2 "
+                                         f"{ei[b]} {es[b]}")
+    recall = hits / (RET_NUM * len(users))
+    if recall < 0.999:
+        raise AssertionError(f"{what}: recall@{RET_NUM} {recall} < 0.999")
+    return {"recall": recall, "covered": covered, "queries": len(users)}
+
+
+def retrieval_round(server, queries: list, concurrency: int, key, kernels: dict) -> dict:
+    """One closed-loop level against a two-stage server: answers,
+    p50/p99/qps, and per-dispatch counts from its /metrics."""
+    m0 = server.metrics()
+    run = closed_loop(server.port, queries, concurrency, key)
+    m1 = server.metrics()
+    lat = sorted(run["lat"])
+    counts = {name: int(metric_delta(m1, m0, metric)) for name, metric in kernels.items()}
+    counts["dispatches"] = int(metric_delta(m1, m0, "pio_batch_size_count"))
+    return {"answers": run["answers"], "p50_ms": lat[len(lat) // 2] * 1e3,
+            "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))] * 1e3,
+            "qps": len(queries) / run["wall_s"], **counts}
+
+
+def check_traced(server, body: dict, trace_id: str) -> list:
+    """A traced two-stage request carries dispatch.shortlist/rescore
+    (sent before the query rounds: /traces.json keeps the slowest recent
+    traces)."""
+    conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=60)
+    try:
+        conn.request("POST", "/queries.json", json.dumps(body).encode(),
+                     {"Content-Type": "application/json", "X-PIO-Trace": trace_id})
+        resp = conn.getresponse()
+        resp.read()
+    finally:
+        conn.close()
+    traces = json.loads(server.get("/traces.json")[1])["traces"]
+    mine = [t for t in traces if t["traceId"] == trace_id]
+    names = [sp["name"] for sp in mine[0]["spans"]] if mine else []
+    if resp.status != 200 or not {"dispatch.shortlist", "dispatch.rescore"} <= set(names):
+        raise AssertionError(f"traced request: HTTP {resp.status}, spans {names}")
+    return names
+
+
+K4_CALLS = 'pio_k4_calls{mode="%s"}'
+K5_CALLS = 'pio_k5_calls{query="%s"}'
+
+
+def rec_retrieval(torch, device, storage, basedir, stats, servers) -> dict:
+    """The recommendation template at U = 138,493, I = 1,000,000, rank 32,
+    f32 (probe off) and int8 (probe every dispatch) storage."""
+    from predictionio_tpu_torch.core.workflow import save_instance
+    from predictionio_tpu_torch.models import recommendation as rec
+    from predictionio_tpu_torch.ops import retrieval, topk
+
+    rng = np.random.default_rng(SEED + 40)
+    uf = rng.standard_normal((U_ROWS, RET_D), dtype=np.float32)
+    vf = rng.standard_normal((RET_ITEMS, RET_D), dtype=np.float32)
+    user_ids = [f"u{j}" for j in range(U_ROWS)]
+    item_ids = [f"i{j}" for j in range(RET_ITEMS)]
+    users = [f"u{int(j)}" for j in rng.permutation(U_ROWS)[:RET_USERS]]
+    queries = [{"user": u, "num": RET_NUM} for u in users]
+    engine = rec.engine()
+    out = {}
+    for dtype, probe in (("float32", 0), ("int8", 1)):
+        if dtype == "int8":
+            (uq, us), (vq, vs) = (quantize_rows_host(torch, a, device) for a in (uf, vf))
+            model = rec.model_from_numpy(user_ids, item_ids, uq, vq, us, vs)
+        else:
+            model = rec.model_from_numpy(user_ids, item_ids, uf, vf)
+        ep = engine.params_from_variant({"algorithms": [{"name": "als", "params": {
+            "rank": RET_D, "storage_dtype": dtype}}]})
+        iid = save_instance(engine, ep, [model], engine_id=f"chip-smoke-ret-{dtype}",
+                            engine_variant="ret", engine_factory=REC_FACTORY, storage=storage)
+        mode = "int8" if dtype == "int8" else "bf16"
+        kernels = {"k4": K4_CALLS % mode, "k5": K5_CALLS % "gather",
+                   "k4_kernels": "pio_k4_kernel_launches", "k5_kernels": "pio_k5_kernel_launches",
+                   "k2": 'pio_k2_calls{kernel="gather_top_k_batch",route="tile"}',
+                   "probes": "pio_retrieval_probes_total"}
+        t0 = time.perf_counter()
+        server = DeployProcess(basedir, iid, device.type, ["--batch-window-ms", str(BATCH_WINDOW_MS)],
+                               f"ret-{dtype}", {"PIO_RETRIEVAL_PROBE_EVERY": str(probe)})
+        servers.append(server)
+        ready_s = time.perf_counter() - t0
+        check_warm_k4(server.metrics(), mode, dtype)
+        # first, while the server's ring of slowest traces has room
+        spans = check_traced(server, queries[0], f"c0ffee00000000{len(out):02d}")
+        levels = {}
+        for c in RET_LEVELS:
+            levels[c] = lv = retrieval_round(server, queries, c, lambda q: q["user"], kernels)
+            check_dispatch_counts(lv, lv["dispatches"] if probe else 0, f"{dtype} c={c}")
+        if levels[1]["answers"] != levels[8]["answers"]:
+            raise AssertionError(f"{dtype}: batched answers differ from solo ones")
+        held = hold_rec_answers(torch, retrieval, topk, model, device, levels[1]["answers"],
+                                users, f"recommendation {dtype}")
+        doc = json.loads(server.get("/stats.json")[1])
+        block = doc.get("retrieval", {})
+        if set(block) != set(retrieval.stats_block()) or \
+                block["two_stage_queries"] < len(RET_LEVELS) * RET_USERS:
+            raise AssertionError(f"{dtype}: /stats.json retrieval block {block}")
+        m = server.metrics()
+        out[dtype] = {"ready_s": ready_s, "coarse_mode": mode, **held,
+                      "probe_recall": m.get("pio_retrieval_probe_recall"),
+                      "stats_block": {k: block[k] for k in ("two_stage_queries", "exact_queries",
+                                                            "probes")},
+                      "trace_spans": spans,
+                      **{f"c{c}": {k: v for k, v in lv.items() if k != "answers"}
+                         for c, lv in levels.items()}}
+        server.stop()
+        log(json.dumps({"retrieval": f"recommendation {dtype}", **out[dtype]}))
+        del model
+    return out
+
+
+def plain_sim(torch, retrieval, topk, model, device, qs: list) -> list:
+    """Each similar-product query alone (k = pow2(num + |excluded|)),
+    from the plain two-stage versions on the card, and from exact K2s:
+    [(plain ids, plain scores, exact ids, exact scores)] after the
+    template's exclusions."""
+    from predictionio_tpu_torch.models.filters import normalized_query_vectors
+
+    V = model.device_factors(device)
+    cat = model.coarse_catalog(device)
+    index = model.item_index
+    out = []
+    for q in qs:
+        known = [index[i] for i in q["items"]]
+        excluded = set(known) | {index[i] for i in q.get("blackList", ())}
+        L = 1 << (len(known) - 1).bit_length()
+        ixs = np.zeros((1, L), np.int32)
+        w = np.zeros((1, L), np.float32)
+        ixs[0, :len(known)] = known
+        w[0, :len(known)] = 1.0
+        k = 1 << (q["num"] + len(excluded) - 1).bit_length()
+        kp = retrieval.shortlist_k(k, RET_ITEMS)
+        qv = torch.from_numpy(normalized_query_vectors(model.item_factors, None, ixs, w)).to(device)
+        _, cand = retrieval.coarse_topk_reference(qv, cat._tiles, None, RET_ITEMS, kp, cat.mode)
+        ps, pi = retrieval.rescore_top_k_reference("sum_rows", V, cand, k, row_ixs=ixs,
+                                                   row_weights=w)
+        es, ei = topk.sum_rows_top_k_batch(ixs, w, V, k)
+        row = []
+        for s, i in ((ps, pi), (es, ei)):
+            keep = [(int(x), float(y)) for y, x in zip(host(s)[0], host(i)[0])
+                    if x >= 0 and int(x) not in excluded][:q["num"]]
+            row += [np.asarray([x for x, _ in keep]), np.asarray([y for _, y in keep], np.float32)]
+        out.append(row)
+    return out
+
+
+def sim_retrieval(torch, device, storage, basedir, stats, servers) -> dict:
+    """The similar-product template at I = 1,000,000, rank 10 (its
+    default), f32: queries of 1-4 items at num = 10 at concurrency 1 and
+    8; then alone: queries whose blackList holds the exact top 20 (their
+    answers come from deeper in a larger shortlist), and queries with
+    ``categories`` (exact masked K2s, counted as exact)."""
+    from predictionio_tpu_torch.core.workflow import save_instance
+    from predictionio_tpu_torch.data.bimap import BiMap
+    from predictionio_tpu_torch.models import similarproduct as sim
+    from predictionio_tpu_torch.ops import retrieval, topk
+
+    rng = np.random.default_rng(SEED + 41)
+    vf = rng.standard_normal((RET_ITEMS, 10), dtype=np.float32)
+    item_ids = [f"i{j}" for j in range(RET_ITEMS)]
+    cats = {f"i{j}": ["c0"] for j in range(0, RET_ITEMS, 10)}
+    model = sim.SimilarProductModel(item_index=BiMap.from_dense(item_ids), item_factors=vf,
+                                    categories=cats)
+    engine = sim.engine()
+    ep = engine.params_from_variant({"algorithms": [{"name": "als", "params": {"rank": 10}}]})
+    iid = save_instance(engine, ep, [model], engine_id="chip-smoke-ret-sim",
+                        engine_variant="ret", engine_factory=SIM_FACTORY, storage=storage)
+    simple = [{"items": [f"i{int(x)}" for x in rng.choice(RET_ITEMS, int(n), replace=False)],
+               "num": RET_NUM} for n in rng.integers(1, 5, SIM_QUERIES)]
+
+    def key(q):
+        return json.dumps(q, sort_keys=True)
+
+    kernels = {"k4": K4_CALLS % "bf16", "k5": K5_CALLS % "sum_rows",
+               "k4_kernels": "pio_k4_kernel_launches", "k5_kernels": "pio_k5_kernel_launches",
+               "k2s": 'pio_k2_calls{kernel="sum_rows_top_k_batch",route="tile"}'}
+    t0 = time.perf_counter()
+    server = DeployProcess(basedir, iid, device.type, ["--batch-window-ms", str(BATCH_WINDOW_MS)],
+                           "ret-sim", {"PIO_RETRIEVAL_PROBE_EVERY": "0"})
+    servers.append(server)
+    ready_s = time.perf_counter() - t0
+    spans = check_traced(server, simple[0], "c0ffee0000000099")
+    levels = {}
+    for c in RET_LEVELS:
+        levels[c] = lv = retrieval_round(server, simple, c, key, kernels)
+        check_dispatch_counts(lv, 0, f"similar c={c}")
+    if levels[1]["answers"] != levels[8]["answers"]:
+        raise AssertionError("similar: batched answers differ from solo ones")
+    expected = plain_sim(torch, retrieval, topk, model, device, simple)
+    black = [{"items": q["items"], "num": RET_NUM, "blackList": [
+        f"i{int(x)}" for x in topk_ids(topk, model, device, q, 20)]} for q in simple[:50]]
+    expected_black = plain_sim(torch, retrieval, topk, model, device, black)
+    solo = retrieval_round(server, black, 1, key, kernels)
+    hits = covered = 0
+    for qs, exp, answers in ((simple, expected, levels[1]["answers"]),
+                             (black, expected_black, solo["answers"])):
+        for q, (pi, ps, ei, es) in zip(qs, exp):
+            got = json.loads(answers[key(q)])["itemScores"]
+            ids = np.asarray([model.item_index[x["item"]] for x in got])
+            sc = np.asarray([x["score"] for x in got], np.float32)
+            if set(q.get("blackList", ())) & {x["item"] for x in got}:
+                raise AssertionError(f"similar {q}: a blackListed item came back")
+            if len(ids) != len(pi) or not np.allclose(sc, ps, rtol=RTOL, atol=ATOL) \
+                    or not near_tie_ids_ok(ids, pi, ps):
+                raise AssertionError(f"similar {q}: {ids} {sc} vs plain {pi} {ps}")
+            hits += len(set(ids.tolist()) & set(ei.tolist()))
+            if set(ids.tolist()) == set(ei.tolist()):
+                covered += 1
+                if not np.array_equal(sc.view(np.int32), es.view(np.int32)):
+                    raise AssertionError(f"similar {q}: scores differ from K2s's")
+    recall = hits / (RET_NUM * (len(simple) + len(black)))
+    if recall < 0.999:
+        raise AssertionError(f"similar: recall@{RET_NUM} {recall} < 0.999")
+    before = json.loads(server.get("/stats.json")[1])["retrieval"]
+    catq = [{"items": q["items"], "num": RET_NUM, "categories": ["c0"]} for q in simple[:5]]
+    cat_round = retrieval_round(server, catq, 1, key, kernels)
+    after = json.loads(server.get("/stats.json")[1])["retrieval"]
+    if after["exact_queries"] - before["exact_queries"] != len(catq):
+        raise AssertionError(f"similar categories: exact queries {before} -> {after}")
+    check_exact_round(cat_round, len(catq))
+    V = model.device_factors(device)
+    for q in catq:
+        got = json.loads(cat_round["answers"][key(q)])["itemScores"]
+        mask = sim._exclude_mask(model.item_index, cats, sim.Query(**q))
+        known = [model.item_index[i] for i in q["items"]]
+        L = 1 << (len(known) - 1).bit_length()
+        ixs = np.zeros((1, L), np.int32)
+        w = np.zeros((1, L), np.float32)
+        ixs[0, :len(known)], w[0, :len(known)] = known, 1.0
+        s, i = topk.sum_rows_top_k_batch_reference(ixs, w, V, 16, exclude_mask=mask)
+        want = [f"i{int(x)}" for x in host(i)[0, :RET_NUM]]
+        if [x["item"] for x in got] != want or any(int(x["item"][1:]) % 10 for x in got):
+            raise AssertionError(f"similar categories {q}: {got} vs {want}")
+    server.stop()
+    out = {"ready_s": ready_s, "recall": recall, "covered": covered,
+           "queries": len(simple) + len(black), "category_queries": len(catq),
+           "exact_queries_counted": after["exact_queries"] - before["exact_queries"],
+           "trace_spans": spans,
+           **{f"c{c}": {k: v for k, v in lv.items() if k != "answers"} for c, lv in levels.items()},
+           "blacklist_solo": {k: v for k, v in solo.items() if k != "answers"}}
+    log(json.dumps({"retrieval": "similar products f32", **out}))
+    return out
+
+
+def topk_ids(topk, model, device, q: dict, n: int) -> np.ndarray:
+    """The exact top n of a similar-product query without exclusions
+    other than its own items (K2s on the card)."""
+    V = model.device_factors(device)
+    known = [model.item_index[i] for i in q["items"]]
+    L = 1 << (len(known) - 1).bit_length()
+    ixs = np.zeros((1, L), np.int32)
+    w = np.zeros((1, L), np.float32)
+    ixs[0, :len(known)], w[0, :len(known)] = known, 1.0
+    k = 1 << (n + len(known) - 1).bit_length()
+    _, i = topk.sum_rows_top_k_batch(ixs, w, V, k)
+    return np.asarray([x for x in host(i)[0] if int(x) not in set(known)][:n])
+
+
+@phase("retrieval: two-stage serving at 1M items through deploy")
+def retrieval_serving(torch, device, stats):
+    """The slice through its entry points: each model saved through the
+    port's storage and served by ``cli.main deploy`` in a subprocess
+    with the micro-batcher on (``--batch-window-ms 2``): the
+    recommendation template (U = 138,493, I = 1,000,000, rank 32; f32 and
+    int8; 1,000 distinct users at num = 10, at concurrency 1 and 8) and
+    the similar-product template (I = 1,000,000, rank 10). Per server:
+    ready_s (process start to /readyz, the coarse build at warmup
+    included: K4 ran before the first query), every answer against the
+    plain two-stage version, recall@num >= 0.999 against exact K2/K2s,
+    answers whose shortlist holds the exact top num equal to K2's with
+    scores bit for bit, batched answers equal to solo ones, K4 / K5 / K2
+    calls per dispatch from /metrics (K2 only for the live probe, which
+    the int8 server runs on every dispatch), the /stats.json retrieval
+    block, a traced request's dispatch.shortlist / dispatch.rescore
+    spans, and HTTP p50 / p99 / queries/s."""
+    from predictionio_tpu_torch.data import storage as st
+
+    basedir = tempfile.mkdtemp(prefix="pio_chip_smoke_retrieval_")
+    storage = st.Storage(env={"PIO_FS_BASEDIR": basedir})
+    servers: list = []
+    try:
+        out = {"recommendation": rec_retrieval(torch, device, storage, basedir, stats, servers),
+               "similar": sim_retrieval(torch, device, storage, basedir, stats, servers)}
+    except BaseException:
+        for s in servers:
+            if s.proc.poll() is None:
+                log(s.log_tail())
+        raise
+    finally:
+        for s in servers:
+            if s.proc.poll() is None:
+                s.stop()
+        storage.close()
+        shutil.rmtree(basedir, ignore_errors=True)
+    main = [out["recommendation"][d][f"c{c}"] for d in out["recommendation"] for c in RET_LEVELS]
+    main += [out["similar"][f"c{c}"] for c in RET_LEVELS] + [out["similar"]["blacklist_solo"]]
+    stats["ret_launches"] = {
+        "k4": sum(lv["k4"] for lv in main), "k5": sum(lv["k5"] for lv in main),
+        "k4_kernels": sum(lv["k4_kernels"] for lv in main),
+        "k5_kernels": sum(lv["k5_kernels"] for lv in main)}
+    stats["retrieval"] = out
+
+
+def two_stage_bound(mem_rate, fp32_rate, nbytes: float, flops: float) -> dict:
+    t_b, t_o = nbytes / mem_rate, flops / fp32_rate
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+@phase("retimes: K4, K5 and exact K2 at 1M and 10M items")
+def retrieval_timings(torch, device, stats):
+    """At I = 1,000,000 and 10,000,000, D = 32, B = 8, num = 10 (k = 16,
+    k' = 128): device time per call (``torch.profiler``) of K4 per mode
+    and of K5, each beside its plain version, its bound and a one-call
+    PyTorch yardstick (``torch.topk`` of the dense product, the int8
+    values cast to f32; ``torch.topk(einsum)`` of the gathered rows for
+    K5); and two-stage (K4 + K5) beside the exact path on the same
+    catalog and batch: K2's tile route and ``torch.topk(u @ V.T)``, f32
+    and int8 tables. Per-call times of whole paths are CUDA-event
+    medians."""
+    from predictionio_tpu_torch.ops import retrieval, topk
+
+    mem_rate, fp32_rate = peaks(stats["device_name"])
+    B, k, kp = 8, 16, 128
+    gen = torch.Generator(device=device).manual_seed(SEED + 50)
+    U = torch.randn((U_ROWS, RET_D), generator=gen, device=device)
+    uixs = torch.arange(B, dtype=torch.int32, device=device) * 17
+    q = U[uixs.long()].contiguous()
+    out = {}
+    for rows in RET_ROWS:
+        f, pair = coarse_pair(torch, rows, SEED + 51, device)
+        V = torch.from_numpy(f).to(device)
+        del f
+        cats = {"int8": retrieval.CoarseCatalog(pair, device=device),
+                "bf16": retrieval.CoarseCatalog(host(V), device=device)}
+        res = {"k4": {}, "k5": {}, "paths": {}}
+        for mode in retrieval.MODES:
+            cat = cats["bf16" if mode == "bf16" else "int8"]
+            vals = cat._tiles.view(-1, RET_D)[:rows]
+            sc = None if cat._scales is None else cat._scales.view(-1)[:rows]
+
+            def call(cat=cat, mode=mode):
+                return retrieval.coarse_topk(q, cat._tiles, cat._scales, rows, kp, mode)
+
+            def plain(cat=cat, mode=mode):
+                return retrieval.coarse_topk_reference(q, cat._tiles, cat._scales, rows, kp, mode)
+
+            if mode == "bf16":
+                def lib(vals=vals):
+                    return torch.topk(q @ vals.float().T, kp)
+            elif mode == "int8":
+                def lib(vals=vals, sc=sc):
+                    return torch.topk((q @ vals.float().T) * sc, kp)
+            else:
+                qi = retrieval.quantize_queries(q)
+
+                def lib(vals=vals, sc=sc, qi=qi):
+                    return torch.topk((qi.float() @ vals.float().T) * sc, kp)
+            dev = device_ms(torch, call, runs=20)
+            lib_dev = device_ms(torch, lib, runs=5)
+            elem = 2 * RET_D if mode == "bf16" else RET_D + 4
+            res["k4"][mode] = {
+                "kernel_device_ms": _total(dev), "tile_device_ms": _total(dev, "coarse_tile"),
+                "merge_device_ms": _total(dev, "coarse_merge"),
+                "plain_ms": cuda_median_ms(torch, plain, runs=3, warmup=1),
+                "library_device_ms": _total(lib_dev),
+                "plan": retrieval.k4_plan(B, rows, RET_D, kp, retrieval._sm_count(device))._asdict(),
+                **two_stage_bound(mem_rate, fp32_rate,
+                                  rows * elem + B * RET_D * 4 + B * kp * 8, 2.0 * B * rows * RET_D)}
+        _, cand = retrieval.coarse_topk(q, cats["bf16"]._tiles, None, rows, kp, "bf16")
+        for name, table in (("float32", V), ("int8", pair)):
+
+            def k5(table=table):
+                return retrieval.rescore_top_k("gather", table, cand, k, user_ixs=uixs,
+                                               user_factors=U)
+
+            def k5_plain(table=table):
+                return retrieval.rescore_top_k_reference("gather", table, cand, k, user_ixs=uixs,
+                                                         user_factors=U)
+
+            def k5_lib(table=table):
+                rows_ = topk._dense_rows(table, cand.long())
+                return torch.topk(torch.einsum("bd,bsd->bs", q, rows_), k)
+
+            elem = RET_D * 4 if name == "float32" else RET_D + 4
+            dev = device_ms(torch, k5)
+            res["k5"][name] = {
+                "kernel_device_ms": _total(dev),
+                "plain_ms": cuda_median_ms(torch, k5_plain, runs=20, warmup=5),
+                "library_device_ms": _total(device_ms(torch, k5_lib)),
+                **two_stage_bound(mem_rate, fp32_rate,
+                                  B * kp * (elem + 4) + B * RET_D * 4 + B * k * 8,
+                                  2.0 * B * kp * RET_D)}
+            cat = cats["bf16" if name == "float32" else "int8"]
+
+            def two_stage(cat=cat, table=table):
+                _, c = retrieval.coarse_topk(q, cat._tiles, cat._scales, rows, kp, cat.mode)
+                return retrieval.rescore_top_k("gather", table, c, k, user_ixs=uixs,
+                                               user_factors=U)
+
+            def exact(table=table):
+                return topk.gather_top_k_batch(uixs, U, table, k)
+
+            def exact_lib(table=table):
+                return torch.topk(q @ topk._dense_rows(table, torch.arange(
+                    rows, device=device)).T, k) if name == "int8" else torch.topk(q @ table.T, k)
+            res["paths"][name] = {
+                "two_stage_ms": cuda_median_ms(torch, two_stage, runs=20, warmup=5),
+                "two_stage_device_ms": _total(device_ms(torch, two_stage, runs=20)),
+                "exact_k2_ms": cuda_median_ms(torch, exact, runs=20, warmup=5),
+                "exact_k2_device_ms": _total(device_ms(torch, exact, runs=20)),
+                "exact_k2_route": topk.k2_route(k, rows, B)._asdict(),
+                "exact_library_device_ms": _total(device_ms(torch, exact_lib, runs=5))}
+        out[str(rows)] = res
+        log(json.dumps({"retimes": rows, **res}))
+        del V, pair, cats, cand
+        torch.cuda.empty_cache()
+    stats["retimes"] = out
+
+
+def k4_summary(stats) -> dict:
+    """K4's line: I = 1,000,000, D = 32, B = 8, k' = 128, bf16 (the coarse
+    mode of the f32 recommendation model the retrieval phase serves);
+    launches: the K4 calls of the retrieval phase's query rounds, from
+    the servers' /metrics."""
+    t = stats["retimes"][str(RET_ITEMS)]["k4"]["bf16"]
+    return {
+        "name": "coarse_topk",
+        "route": "cuda",
+        "source": "predictionio_tpu_torch/csrc/retrieval.cu",
+        "replaces": "predictionio_tpu/ops/retrieval.py:212",
+        "launches": stats["ret_launches"]["k4"],
+        "max_abs_err": stats["k4_max_abs_err"],
+        "ms": t["kernel_device_ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library_device_ms"],
+        "kernel_launches": stats["ret_launches"]["k4_kernels"],
+        "by_mode_ms": {m: r["kernel_device_ms"] for m, r in
+                       stats["retimes"][str(RET_ITEMS)]["k4"].items()},
+    }
+
+
+def k5_summary(stats) -> dict:
+    """K5's line: B = 8, S = k' = 128, k = 16, D = 32, user rows of an
+    f32 table (the f32 recommendation model's call); launches: the K5
+    calls of the retrieval phase's query rounds."""
+    t = stats["retimes"][str(RET_ITEMS)]["k5"]["float32"]
+    return {
+        "name": "rescore_top_k",
+        "route": "cuda",
+        "source": "predictionio_tpu_torch/csrc/retrieval.cu",
+        "replaces": "predictionio_tpu/ops/retrieval.py:375",
+        "launches": stats["ret_launches"]["k5"],
+        "max_abs_err": stats["k5_max_abs_err"],
+        "ms": t["kernel_device_ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library_device_ms"],
+        "kernel_launches": stats["ret_launches"]["k5_kernels"],
+    }
+
+
 def k3_summary(stats) -> dict:
     """K3's line: one ML-1M fold of the shipped sweep (Q = 333,334, P = A
     = k = 1); launches from the sweep's main path."""
@@ -3790,6 +4579,8 @@ def main() -> int:
         "k1route": lambda: k1_route_vs_block(torch, device, stats),
         "k2s": lambda: k2_sum_rows_vs_plain(torch, device, stats),
         "k2route": lambda: k2_route_vs_select(torch, device, stats),
+        "k4": lambda: k4_vs_plain(torch, device, stats),
+        "k5": lambda: k5_vs_plain(torch, device, stats),
         "serve": lambda: the_slice(torch, device, stats),
         "batchserve": lambda: batch_serve(torch, device, stats),
         "lifecycle": lambda: lifecycle(torch, device, stats),
@@ -3797,9 +4588,11 @@ def main() -> int:
         "train": lambda: full_width(torch, device, stats),
         "simtrain": lambda: similar_full_width(torch, device, stats),
         "eval": lambda: eval_phase(torch, device, stats),
+        "retrieval": lambda: retrieval_serving(torch, device, stats),
         "times": lambda: timings(torch, device, stats),
         "k1times": lambda: k1_timings(torch, device, stats),
         "simtimes": lambda: similar_timings(torch, device, stats),
+        "retimes": lambda: retrieval_timings(torch, device, stats),
     }
     args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     args.add_argument(
@@ -3847,7 +4640,8 @@ def main() -> int:
         "baseline_ms": rep["baseline_device_ms"] if dev else rep["baseline_ms"],
         "batch_sizes": stats["batchserve"][f"window_{BATCH_WINDOW_MS:g}ms"][64]["batch_sizes"],
     }, k1_summary(stats), k1i_summary(stats), k2s_summary(stats),
-        k1s_summary(stats), topk_items_summary(stats), k3_summary(stats)]}))
+        k1s_summary(stats), topk_items_summary(stats), k3_summary(stats),
+        k4_summary(stats), k5_summary(stats)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,7 +10,11 @@ Port of ``predictionio_tpu/models/recommendation.py`` (reference
   ``csrc/als_solve.cu``) on the algorithm's device, optionally warm
   started from the previous instance's model;
 - predict scores through K2, the fused gather -> score -> top-k
-  (``ops/topk.py``, kernel ``csrc/topk.cu``);
+  (``ops/topk.py``, kernel ``csrc/topk.cu``); a catalog of
+  ``PIO_RETRIEVAL_THRESHOLD`` rows or more (default 100,000) goes
+  through two-stage retrieval instead (``ops/retrieval.py``): a coarse
+  shortlist over the model's ``CoarseCatalog`` (K4), then the exact
+  rescore of the shortlist (K5), with a live recall probe on K2;
 - evaluation: ``read_eval`` makes the seeded k-fold splits,
   ``train_sweep`` trains a sweep's candidates at once (``ops/als.py``
   ``als_train_sweep``, K1s) and ``eval_topk`` scores a whole split in
@@ -22,16 +26,12 @@ Queries/results use the reference template's JSON shape:
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
 answered another way: ``sharded_train`` / ``sharded_serving`` (several
-cards), catalogs large enough for two-stage retrieval
-(``PIO_RETRIEVAL_THRESHOLD`` rows and up, same knobs and defaults as the
-JAX package), and the packed-prep cache (``TrainingData.prep`` stays
-None).
+cards), and the packed-prep cache (``TrainingData.prep`` stays None).
 """
 
 from __future__ import annotations
 
 import logging
-import math
 import os
 import threading
 import time
@@ -61,6 +61,7 @@ from predictionio_tpu_torch.models.modelfile import (
 )
 from predictionio_tpu_torch.obs import device as obs_device
 from predictionio_tpu_torch.ops import als as als_ops
+from predictionio_tpu_torch.ops import retrieval
 from predictionio_tpu_torch.ops.topk import gather_top_k_batch
 from predictionio_tpu_torch.utils.device import resolve_device
 
@@ -232,7 +233,39 @@ class ALSModel:
         self.user_factors = host_array(self.user_factors)
         self.item_factors = host_array(self.item_factors)
         self._device: tuple[torch.device, tuple] | None = None
+        self._coarse: tuple[torch.device, retrieval.CoarseCatalog] | None = None
         self._device_lock = threading.Lock()
+
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state["_device"] = None
+        state["_coarse"] = None
+        del state["_device_lock"]
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._device_lock = threading.Lock()
+
+    def user_rows(self, ixs) -> np.ndarray:
+        """Dense f32 user vectors for the given indices (dequantizing
+        int8, widening bf16): the shortlist pass's queries, on the host."""
+        rows = numpy_to_tensor(self.user_factors[ixs], torch.device("cpu")).float().numpy()
+        if self.user_scales is not None:
+            return rows * self.user_scales[ixs][..., None]
+        return rows
+
+    def coarse_catalog(self, device: torch.device) -> retrieval.CoarseCatalog:
+        """Tiled coarse copy of the item table on ``device`` for the
+        two-stage shortlist pass, built once a catalog crosses
+        ``PIO_RETRIEVAL_THRESHOLD`` and cached (dropped when pickled; a
+        reload loads a new model)."""
+        with self._device_lock:
+            if self._coarse is None or self._coarse[0] != device:
+                table = self.item_factors if self.item_scales is None else (
+                    self.item_factors, self.item_scales)
+                self._coarse = (device, retrieval.CoarseCatalog(table, device=device))
+            return self._coarse[1]
 
     def device_factors(self, device: torch.device) -> tuple:
         """(U, V) on ``device``, uploaded once and cached; int8 tables stay
@@ -274,24 +307,6 @@ def model_from_numpy(user_ids, item_ids, user_factors, item_factors,
         user_scales=None if user_scales is None else np.asarray(user_scales, np.float32),
         item_scales=None if item_scales is None else np.asarray(item_scales, np.float32),
     )
-
-
-# two-stage retrieval routing knobs (predictionio_tpu/ops/retrieval.py)
-def _pow2(n: int) -> int:
-    return 1 << max(0, n - 1).bit_length()
-
-
-def _two_stage(k: int, num_items: int) -> bool:
-    """Would the JAX package route this request through two-stage
-    retrieval (shortlist + exact rescore)?"""
-    threshold = int(os.environ.get("PIO_RETRIEVAL_THRESHOLD", 100_000))
-    if not (threshold > 0 and num_items >= threshold):
-        return False
-    oversample = float(os.environ.get("PIO_RETRIEVAL_OVERSAMPLE", 8.0))
-    tile = int(os.environ.get("PIO_RETRIEVAL_TILE", 1 << 18))
-    kp = _pow2(int(math.ceil(oversample * _pow2(max(1, k)))))
-    kp = max(1, min(kp, tile, _pow2(num_items)))
-    return k <= kp < num_items
 
 
 class ALSAlgorithm(Algorithm):
@@ -498,8 +513,15 @@ class ALSAlgorithm(Algorithm):
     def batch_predict(
         self, model: ALSModel, queries: Sequence[tuple[int, Query]]
     ) -> list[tuple[int, PredictedResult]]:
-        """One fused gather + score + top-k device call for all known
-        users; unknown users get empty results."""
+        """One fused gather + score + top-k device call (K2) for all known
+        users; unknown users get empty results.
+
+        Catalogs with at least ``PIO_RETRIEVAL_THRESHOLD`` rows route
+        through two-stage retrieval (``ops/retrieval.py``): the coarse
+        shortlist of k' candidates (K4), then the exact rescore of the
+        ``[B, k']`` shortlist (K5), every ``PIO_RETRIEVAL_PROBE_EVERY``-th
+        dispatch probing one query's recall against K2. Below the
+        threshold nothing changes, bit for bit."""
         if self.params.sharded_serving:
             raise NotImplementedError(
                 "sharded_serving (ring top-k over several cards) is the "
@@ -521,15 +543,21 @@ class ALSAlgorithm(Algorithm):
         k = max(int(q.num) for _, q in known)
         k = 1 << max(0, k - 1).bit_length()
         num_items = len(model.item_index)
-        if _two_stage(k, num_items):
-            raise NotImplementedError(
-                f"a {num_items}-item catalog routes to two-stage retrieval "
-                "(PIO_RETRIEVAL_THRESHOLD), a later serving slice of the "
-                "PyTorch port"
-            )
-        U, V = model.device_factors(resolve_device(self.device))
-        scores, ids = gather_top_k_batch(uixs, U, V, k)
-        scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
+        kp = retrieval.shortlist_k(k, num_items) if retrieval.engaged(num_items) else 0
+        two_stage = bool(kp) and k <= kp < num_items
+        device = resolve_device(self.device)
+        U, V = model.device_factors(device)
+        if two_stage:
+            _, cand = model.coarse_catalog(device).shortlist(model.user_rows(uixs), kp)
+            scores, ids = retrieval.rescore_gather_top_k_batch(uixs, U, V, cand, k)
+            if retrieval.probe_due():
+                # live recall probe: the dispatch's first query scored exactly
+                _, exact_ids = gather_top_k_batch(uixs[:1], U, V, k)
+                n0 = int(known[0][1].num)
+                retrieval.probe_recall(ids[0, :n0], exact_ids.cpu().numpy()[0, :n0])
+        else:
+            scores, ids = gather_top_k_batch(uixs, U, V, k)
+            scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
         inv = model.item_index.inverse
         for row, (ix, q) in enumerate(known):
             out.append((

@@ -11,7 +11,11 @@ Port of ``predictionio_tpu/models/similarproduct.py`` (reference
   algorithm's device; candidates score by summed cosine similarity
   against the query items' factor vectors (ALSAlgorithm.scala:147,193,
   244) through K2's summed-rows mode (``ops/topk.py``
-  ``sum_rows_top_k_batch``, kernel ``csrc/topk.cu``);
+  ``sum_rows_top_k_batch``, kernel ``csrc/topk.cu``); a catalog of
+  ``PIO_RETRIEVAL_THRESHOLD`` rows or more (default 100,000) serves its
+  simple queries through two-stage retrieval instead (``ops/retrieval.py``:
+  the coarse shortlist K4, the summed-rows rescore K5), while queries
+  with ``categories`` or a ``whiteList`` stay on K2's masked exact path;
 - LikeAlgorithm (the "multi" variant's second algorithm) trains on
   like=1 / dislike=-1 signals (LikeAlgorithm.scala). With alpha > 0 a
   dislike weighs ``alpha * r < 0``, which can leave a user's system
@@ -24,11 +28,9 @@ Query: ``{"items": [...], "num": N, "categories": [...]?,
 ``{"itemScores": [{"item": ..., "score": ...}]}``.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-answered another way: ``sharded_train`` (several cards), catalogs large
-enough for two-stage retrieval (``PIO_RETRIEVAL_THRESHOLD`` rows and up,
-same knobs and defaults as the JAX package), and CosineAlgorithm (the
-DIMSUM variant, ``ops/cosine_sim.py``), which stays in ``engine()``'s
-map and raises when it trains.
+answered another way: ``sharded_train`` (several cards), and
+CosineAlgorithm (the DIMSUM variant, ``ops/cosine_sim.py``), which stays
+in ``engine()``'s map and raises when it trains.
 """
 
 from __future__ import annotations
@@ -63,11 +65,12 @@ from predictionio_tpu_torch.models.columnar import (
 from predictionio_tpu_torch.models.filters import (
     entity_exclusion_mask,
     normalized_device_factors,
+    normalized_query_vectors,
 )
 from predictionio_tpu_torch.models.modelfile import host_array
-from predictionio_tpu_torch.models.recommendation import _pow2, _two_stage
 from predictionio_tpu_torch.obs import device as obs_device
 from predictionio_tpu_torch.ops import als as als_ops
+from predictionio_tpu_torch.ops import retrieval
 from predictionio_tpu_torch.ops.topk import sum_rows_top_k_batch
 from predictionio_tpu_torch.utils.device import resolve_device
 
@@ -170,6 +173,18 @@ class SimilarProductModel:
     def __post_init__(self):
         self.item_factors = host_array(self.item_factors)
         self._device: tuple[torch.device, object, torch.Tensor] | None = None
+        self._coarse: tuple[torch.device, retrieval.CoarseCatalog] | None = None
+        self._device_lock = threading.Lock()
+
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state["_device"] = None
+        state["_coarse"] = None
+        del state["_device_lock"]
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
         self._device_lock = threading.Lock()
 
     def _on_device(self, device: torch.device):
@@ -196,6 +211,20 @@ class SimilarProductModel:
     def device_norms(self, device: torch.device) -> torch.Tensor:
         """[I] f32 stored-row norms on ``device``, computed once at load."""
         return self._on_device(device)[2]
+
+    def coarse_catalog(self, device: torch.device) -> retrieval.CoarseCatalog:
+        """Tiled coarse copy of the normalized catalog on ``device`` for the
+        two-stage shortlist pass, cached: bf16 of the dense table, or the
+        int8 values with 1/||row|| folded into the scales."""
+        table = self.device_factors(device)
+        with self._device_lock:
+            if self._coarse is None or self._coarse[0] != device:
+                self._coarse = (device, retrieval.CoarseCatalog(table, device=device))
+            return self._coarse[1]
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
 
 
 def _exclude_mask(
@@ -236,7 +265,15 @@ def _score_similar_batch(
     Single-query ``predict`` delegates here with a batch of one, so a
     query's response bytes are identical whether or not it was
     coalesced (query rows pad with weight-0 rows, and a row's scores do
-    not depend on the batch)."""
+    not depend on the batch).
+
+    At ``PIO_RETRIEVAL_THRESHOLD`` catalog rows and more the simple
+    queries go through two-stage retrieval: the shortlist of the host
+    query vectors (``filters.normalized_query_vectors``) over the coarse
+    catalog (K4), then the summed-rows rescore (K5) of the same ``[B,
+    L]`` rows and weights, which rebuilds the query vectors on the device
+    as K2 does; complex queries stay on the exact masked path and are
+    counted (``pio_retrieval_queries_total{path="exact"}``)."""
     index = model.item_index
     inv = index.inverse
     results: list[PredictedResult | None] = [None] * len(queries)
@@ -270,16 +307,18 @@ def _score_similar_batch(
             ixs[row, : len(known)] = known
             weights[row, : len(known)] = 1.0
         k = _pow2(max(num + len(excl) for _, _, excl, num in simple))
-        if _two_stage(k, num_rows):
-            raise NotImplementedError(
-                f"a {num_rows}-item catalog routes to two-stage retrieval "
-                "(PIO_RETRIEVAL_THRESHOLD), a later serving slice of the "
-                "PyTorch port"
-            )
-        scores, ids = sum_rows_top_k_batch(
-            ixs, weights, model.device_factors(device), k=k
-        )
-        scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
+        kp = retrieval.shortlist_k(k, num_rows) if retrieval.engaged(num_rows) else 0
+        V = model.device_factors(device)
+        if kp and k <= kp < num_rows:
+            qv = normalized_query_vectors(model.item_factors, model.item_scales, ixs, weights)
+            _, cand = model.coarse_catalog(device).shortlist(qv, kp)
+            scores, ids = retrieval.rescore_sum_rows_top_k_batch(ixs, weights, V, cand, k)
+            if retrieval.probe_due():
+                _, exact_ids = sum_rows_top_k_batch(ixs[:1], weights[:1], V, k=k)
+                retrieval.probe_recall(ids[0], exact_ids.cpu().numpy()[0])
+        else:
+            scores, ids = sum_rows_top_k_batch(ixs, weights, V, k=k)
+            scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
         for row, (qi, _, excluded, num) in enumerate(simple):
             item_scores: list[ItemScore] = []
             for s, i in zip(scores[row], ids[row]):
@@ -290,6 +329,10 @@ def _score_similar_batch(
                 if len(item_scores) == num:
                     break
             results[qi] = PredictedResult(itemScores=item_scores)
+    if complex_ and retrieval.engaged(num_rows):
+        # category/whiteList filters can mask most of the catalog, so
+        # these stay on the exact masked path even at retrieval scale
+        retrieval.note_exact(len(complex_))
     for qi, known, mask, num in complex_:
         L = _pow2(len(known))
         ixs = np.zeros((1, L), dtype=np.int32)

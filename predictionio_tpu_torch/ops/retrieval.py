@@ -1,0 +1,774 @@
+"""Two-stage catalog retrieval: coarse shortlist (K4) + exact rescore (K5).
+
+Port of ``predictionio_tpu/ops/retrieval.py``. The exact serving ops
+(``ops/topk.py``, K2) score the whole catalog for every query: O(I) a
+query. At catalogs of ``PIO_RETRIEVAL_THRESHOLD`` rows and more (default
+100,000) the templates route ``batch_predict`` through two stages:
+
+1. **Coarse shortlist** (K4, :func:`coarse_topk`, kernel
+   ``csrc/retrieval.cu``): the catalog is held in a coarse form,
+   :class:`CoarseCatalog` -- an int8 catalog as it is stored, a dense one
+   as a bf16 copy (or an int8 copy, when forced) -- and each query's best
+   ``k'`` rows are found without a ``[B, I]`` score matrix in device
+   memory. ``int8`` scores ``(q . values) * scale``; ``int8_dot`` also
+   quantizes the queries and sums int8 x int8 in int32 (exact); ``bf16``
+   scores the bf16 copy in f32.
+2. **Exact rescore** (K5, :func:`rescore_top_k`, the same source): the
+   ``[B, k']`` shortlisted rows are scored against query vectors built as
+   K2 builds them (a user row, given vectors, or summed catalog rows),
+   with K2's arithmetic, so each score equals K2's for the same (query,
+   item) pair bit for bit and the two-stage ranking is the exact ranking
+   restricted to the shortlist. Recall is then only a question of
+   shortlist coverage, which the oversampling ``k' = pow2(oversample *
+   pow2(k))`` buys.
+
+Below the threshold the templates never reach this module: nothing
+changes, bit for bit. Knobs, read per call as in the JAX package
+(``docs/serving.md``): ``PIO_RETRIEVAL_THRESHOLD`` (rows below which
+serving stays exact, default 100000; <= 0 disables two-stage),
+``PIO_RETRIEVAL_OVERSAMPLE`` (default 8), ``PIO_RETRIEVAL_TILE`` (coarse
+tile rows, default 2^18), ``PIO_RETRIEVAL_COARSE`` (``auto``: int8
+catalogs stay ``int8``, dense ones get ``bf16``, as the JAX package
+picks off a TPU; or force ``int8`` / ``int8_dot`` / ``bf16``) and
+``PIO_RETRIEVAL_PROBE_EVERY`` (every Nth two-stage dispatch re-scores one
+query exactly and publishes recall; default 256, 0 disables).
+
+On a CUDA tensor each kernel wrapper launches its kernel or raises; on a
+CPU tensor it runs the plain PyTorch version beside it
+(:func:`coarse_topk_reference`, :func:`rescore_top_k_reference`). K4
+takes ``k'`` up to :data:`K4_MAX_K` on the card and raises above it.
+``coarse_topk.launches`` / ``rescore_top_k.launches`` count calls on the
+card (``modes`` / ``queries`` by form, ``kernel_launches`` the kernels,
+as the C entries count them); ``/metrics`` reads them as ``pio_k4_calls
+{mode}`` and ``pio_k5_calls{query}``.
+
+Observability, as the JAX package's: the ``pio_retrieval_*`` metrics, and
+a thread-local per-dispatch stage split that the engine server turns
+into ``dispatch.shortlist`` / ``dispatch.rescore`` trace spans.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import itertools
+import os
+import threading
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from predictionio_tpu_torch.kernels import _build
+from predictionio_tpu_torch.models.modelfile import BFLOAT16, host_array
+from predictionio_tpu_torch.obs import metrics as obs_metrics
+from predictionio_tpu_torch.ops import topk as topk_ops
+
+NEG_INF = -1e30
+
+# -- knobs (env-read per call: operators flip them on a live server) --------
+
+_DEFAULT_THRESHOLD = 100_000
+_DEFAULT_OVERSAMPLE = 8.0
+_DEFAULT_TILE = 1 << 18
+_DEFAULT_PROBE_EVERY = 256
+
+
+def retrieval_threshold() -> int:
+    return int(os.environ.get("PIO_RETRIEVAL_THRESHOLD", _DEFAULT_THRESHOLD))
+
+
+def oversample() -> float:
+    return float(os.environ.get("PIO_RETRIEVAL_OVERSAMPLE", _DEFAULT_OVERSAMPLE))
+
+
+def tile_size() -> int:
+    return int(os.environ.get("PIO_RETRIEVAL_TILE", _DEFAULT_TILE))
+
+
+def probe_every() -> int:
+    return int(os.environ.get("PIO_RETRIEVAL_PROBE_EVERY", _DEFAULT_PROBE_EVERY))
+
+
+def engaged(num_rows: int) -> bool:
+    """Should serving route this catalog through two-stage retrieval?"""
+    t = retrieval_threshold()
+    return t > 0 and num_rows >= t
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def shortlist_k(k: int, num_rows: int) -> int:
+    """Shortlist size k' for a headroom-k request against ``num_rows``
+    catalog rows: oversample * k, power-of-two bucketed, capped at the
+    tile width and the catalog's power-of-two envelope."""
+    kp = _pow2(int(np.ceil(oversample() * _pow2(max(1, k)))))
+    return max(1, min(kp, tile_size(), _pow2(num_rows)))
+
+
+# -- metrics -----------------------------------------------------------------
+
+_SIZE_BOUNDS = tuple(float(1 << p) for p in range(4, 20, 2))  # 16 .. 262144
+
+_m_two_stage = obs_metrics.counter(
+    "pio_retrieval_queries_total",
+    "serving queries at retrieval scale, by path", path="two_stage",
+)
+_m_exact = obs_metrics.counter(
+    "pio_retrieval_queries_total",
+    "serving queries at retrieval scale, by path", path="exact",
+)
+_m_shortlist_size = obs_metrics.histogram(
+    "pio_retrieval_shortlist_size",
+    "shortlist candidates per query (k')", bounds=_SIZE_BOUNDS,
+)
+_m_shortlist_secs = obs_metrics.histogram(
+    "pio_retrieval_shortlist_seconds", "coarse shortlist pass wall time",
+)
+_m_rescore_secs = obs_metrics.histogram(
+    "pio_retrieval_rescore_seconds", "exact rescore pass wall time",
+)
+_m_probe_recall = obs_metrics.gauge(
+    "pio_retrieval_probe_recall",
+    "recall@num of the most recent exact-rescored probe query",
+)
+_m_probes = obs_metrics.counter(
+    "pio_retrieval_probes_total", "live recall probes run",
+)
+
+_tls = threading.local()
+_probe_clock = itertools.count(1)
+
+
+def note_exact(n: int = 1) -> None:
+    """Count queries that stayed on the exact path at retrieval scale
+    (complex-filtered queries)."""
+    _m_exact.inc(n)
+
+
+def _note_stage(stage: str, seconds: float) -> None:
+    split = getattr(_tls, "split", None)
+    if split is None:
+        split = _tls.split = {}
+    split[stage] = split.get(stage, 0.0) + seconds
+
+
+def take_stage_split() -> dict | None:
+    """Pop this thread's accumulated {shortlist, rescore} seconds since
+    the last call: the engine server drains it after every dispatch and
+    turns it into ``dispatch.shortlist``/``dispatch.rescore`` spans on
+    the request traces it just dispatched."""
+    split = getattr(_tls, "split", None)
+    _tls.split = None
+    return split or None
+
+
+def probe_due() -> bool:
+    """True every ``PIO_RETRIEVAL_PROBE_EVERY``-th two-stage dispatch:
+    the caller should exact-score one query and ``record_probe`` the
+    measured recall."""
+    n = probe_every()
+    return n > 0 and next(_probe_clock) % n == 0
+
+
+def record_probe(recall: float) -> None:
+    _m_probes.inc()
+    _m_probe_recall.set(recall)
+
+
+def probe_recall(two_stage_ids, exact_ids) -> float:
+    """Measure + publish id-set recall of a two-stage result row against
+    its exact-path counterpart (the live recall probe)."""
+    want = {int(i) for i in np.asarray(exact_ids).ravel() if int(i) >= 0}
+    got = {int(i) for i in np.asarray(two_stage_ids).ravel() if int(i) >= 0}
+    recall = len(got & want) / len(want) if want else 1.0
+    record_probe(recall)
+    return recall
+
+
+def stats_block() -> dict:
+    """Compact ``retrieval`` object for the server's ``/stats.json``."""
+    return {
+        "threshold": retrieval_threshold(),
+        "oversample": oversample(),
+        "two_stage_queries": _m_two_stage.value(),
+        "exact_queries": _m_exact.value(),
+        "shortlist_size": _m_shortlist_size.summary(),
+        "shortlist_seconds": _m_shortlist_secs.summary(),
+        "rescore_seconds": _m_rescore_secs.summary(),
+        "probes": _m_probes.value(),
+        "probe_recall": _m_probe_recall.value(),
+    }
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for the device's work on the current stream (the stage
+    seconds are the device's, as the JAX package's host copies make
+    them)."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
+# -- K4: the coarse shortlist ------------------------------------------------
+
+MODES = ("int8", "int8_dot", "bf16")
+_MODE_CODE = {"int8": 0, "int8_dot": 1, "bf16": 2}
+#: csrc/retrieval.cu MAX_K: the largest k' K4 (and shortlist S K5) takes
+K4_MAX_K = 8192
+K4_TILE_THREADS = 256  # TILE_THREADS: rows a coarse block scores a round
+K4_MERGE_THREADS = 1024  # MERGE_THREADS
+K4_SMEM_CAP = 232_448  # shared memory a block may take on an H100 (227 KB)
+K4_MIN_ROWS = 4096  # catalog rows a coarse block streams, at least
+K4_WS_BYTES = 1 << 28  # [B, nblk, K] workspace, at most (unless nblk = 1)
+_SM_COUNT: dict[int, int] = {}
+
+
+def quantize_queries(q: torch.Tensor) -> torch.Tensor:
+    """``int8_dot``'s query quantization, operation for operation the
+    JAX package's: ``qs = max|q| / 127`` per row, ``round(q / max(qs,
+    1e-12))`` half to even, clipped to +-127. Both divisions are by a
+    tensor (a true division; CUDA turns division by a Python scalar into
+    a multiplication by its reciprocal). A NaN quantizes to 0."""
+    qs = q.abs().amax(dim=1, keepdim=True) / torch.full_like(q[:, :1], 127.0)
+    y = torch.round(q / torch.clamp_min(qs, 1e-12))
+    return torch.nan_to_num(y, nan=0.0).clamp(-127, 127).to(torch.int8)
+
+
+def coarse_topk_reference(queries: torch.Tensor, tiles: torch.Tensor, scales,
+                          num_rows: int, k: int, mode: str):
+    """The plain PyTorch version of K4, step for step the JAX package's
+    scan: per tile, the coarse scores (d in order from +0.0, each product
+    and partial sum rounded to f32, times the row scale after the sum;
+    ``int8_dot``: exact int32 sums), pad rows at ``NEG_INF``, the tile's
+    top k, then the top k of the running list followed by the tile's, in
+    ``lax.top_k`` order (:func:`ops.topk.top_k_rows_reference`). Returns
+    ``([B, k] f32 scores, [B, k] int32 ids)``, ``(NEG_INF, -1)`` past the
+    catalog's rows."""
+    q = queries.to(torch.float32)
+    device = q.device
+    batch = q.shape[0]
+    nt, T, D = tiles.shape
+    if mode == "int8_dot":
+        qi = quantize_queries(q).to(torch.int32)
+    best_s = torch.full((batch, k), NEG_INF, dtype=torch.float32, device=device)
+    best_i = torch.full((batch, k), -1, dtype=torch.int32, device=device)
+    for t in range(nt):
+        pos = torch.arange(t * T, (t + 1) * T, device=device)
+        tid = torch.where(pos < num_rows, pos, -1).to(torch.int32)
+        if mode == "int8_dot":
+            v = tiles[t].to(torch.int32)
+            acc = torch.zeros((batch, T), dtype=torch.int32, device=device)
+            for d in range(D):
+                acc = acc + qi[:, d, None] * v[None, :, d]
+            sc = acc.to(torch.float32) * scales[t][None, :]
+        else:
+            v = tiles[t].to(torch.float32)
+            sc = torch.zeros((batch, T), dtype=torch.float32, device=device)
+            for d in range(D):
+                sc = sc + q[:, d, None] * v[None, :, d]
+            if scales is not None:
+                sc = sc * scales[t][None, :]
+        sc = torch.where(tid[None, :] >= 0, sc, NEG_INF)
+        ts, tix = topk_ops.top_k_rows_reference(sc, min(k, T))
+        ti = tid[tix.to(torch.int64)]
+        cs = torch.cat([best_s, ts], dim=1)
+        ci = torch.cat([best_i, ti], dim=1)
+        best_s, ix = topk_ops.top_k_rows_reference(cs, k)
+        best_i = torch.gather(ci, 1, ix.to(torch.int64))
+    return best_s, best_i
+
+
+class K4Plan(NamedTuple):
+    """How K4 runs a call on the card (:func:`k4_plan`)."""
+
+    rb: int  # query rows a coarse block serves: 8, 4, 2 or 1
+    W: int  # catalog rows a coarse block streams (a multiple of 256)
+    nblk: int  # coarse blocks a query row: ceil(num_rows / W)
+    K: int  # the power of two >= k'
+    S: int  # a query's buffer entries in a coarse block
+    S2: int  # the buffer entries of a merge block
+
+
+def k4_tile_smem(rb: int, S: int, D: int) -> int:
+    """Shared-memory bytes of a coarse block (``csrc/retrieval.cu``
+    ``pio_k4_tile_smem``): the buffers, thresholds, counts and per-warp
+    counts of ``rb`` query rows, then the queries in f32 and in int8,
+    ``D`` padded to 16."""
+    stream = (rb * S + rb) * 8 + rb * 4 + rb * (K4_TILE_THREADS // 32 + 1) * 4
+    dp = -(-D // 16) * 16
+    return -(-stream // 16) * 16 + rb * dp * 5
+
+
+def k4_plan(batch: int, num_rows: int, dim: int, k: int, sm_count: int = 132) -> K4Plan:
+    """K4's launch plan for ``batch`` queries, ``k`` winners, a catalog of
+    ``num_rows`` rows of ``dim``: rb as wide as the batch (at most 8) and
+    the shared memory allow; enough coarse blocks to fill the card once
+    (at least :data:`K4_MIN_ROWS` rows each), within :data:`K4_WS_BYTES`
+    of workspace. Raises above :data:`K4_MAX_K`. The answer does not
+    depend on the plan; a block's cost is mostly its selection (its
+    rounds' barriers and its buffer's sorts), so fewer, longer blocks
+    win once the card is full."""
+    if not 1 <= k <= K4_MAX_K:
+        raise ValueError(
+            f"K4 takes 1 <= k' <= {K4_MAX_K} (ops/retrieval.py K4_MAX_K, the "
+            f"largest shortlist one query's buffer holds in shared memory), got {k}"
+        )
+    K = _pow2(k)
+    S, S2 = _pow2(K + K4_TILE_THREADS), _pow2(K + K4_MERGE_THREADS)
+    rb = min(8, _pow2(batch))
+    while rb > 1 and k4_tile_smem(rb, S, dim) > K4_SMEM_CAP:
+        rb //= 2
+    smem = k4_tile_smem(rb, S, dim)
+    if smem > K4_SMEM_CAP:
+        raise ValueError(f"K4: rank {dim} at k' = {k} needs {smem} bytes of shared memory")
+    groups = -(-batch // rb)
+    if groups > 65535:
+        raise ValueError(f"K4 takes at most {65535 * rb} query rows a call, got {batch}")
+    per_sm = max(1, min(2048 // K4_TILE_THREADS, (228 * 1024) // (smem + 1024)))
+    want = -(-sm_count * per_sm // groups)
+    nblk = max(1, min(want, -(-num_rows // K4_MIN_ROWS), K4_WS_BYTES // (batch * K * 8)))
+    W = -(-num_rows // nblk)
+    W = -(-W // K4_TILE_THREADS) * K4_TILE_THREADS
+    return K4Plan(rb, W, -(-num_rows // W), K, S, S2)
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("retrieval")
+    if not getattr(lib, "_pio_typed", False):
+        lib.pio_k4_coarse_top_k.argtypes = [
+            _P, _I, _I, _P, _P, _L, _I, _I, _I, _L, _I, _I, _I, _I, _P, _P, _P, _IP, _P,
+        ]
+        lib.pio_k4_coarse_top_k.restype = _I
+        lib.pio_k4_tile_smem.argtypes = [_I, _I, _I]
+        lib.pio_k4_tile_smem.restype = _L
+        lib.pio_k5_rescore_top_k.argtypes = [
+            _I, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+            _IP, _P,
+        ]
+        lib.pio_k5_rescore_top_k.restype = _I
+        lib._pio_typed = True
+    return lib
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SM_COUNT:
+        _SM_COUNT[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SM_COUNT[index]
+
+
+def coarse_topk(queries: torch.Tensor, tiles: torch.Tensor, scales, num_rows: int,
+                k: int, mode: str):
+    """K4: the best ``k`` coarse scores of each query row over a tiled
+    coarse catalog, and their row ids.
+
+    ``queries``: ``[B, D]`` f32; ``tiles``: ``[NT, T, D]`` int8 (modes
+    ``int8``, ``int8_dot``, with ``scales`` ``[NT, T]`` f32) or bf16 (mode
+    ``bf16``, ``scales`` None), rows from ``num_rows`` on padding.
+    Returns ``([B, k] f32 scores, [B, k] int32 ids)`` in ``lax.top_k``
+    order (score by IEEE total order descending, the lower id first on a
+    tie), ``(NEG_INF, -1)`` where fewer than k rows score above
+    ``NEG_INF``. CPU tensors take :func:`coarse_topk_reference`; CUDA
+    tensors launch ``csrc/retrieval.cu`` (:func:`k4_plan`) or raise."""
+    if mode not in MODES:
+        raise ValueError(f"unknown coarse mode {mode!r}")
+    if tiles.device.type == "cpu":
+        return coarse_topk_reference(queries, tiles, scales, num_rows, k, mode)
+    device = tiles.device
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    want = torch.bfloat16 if mode == "bf16" else torch.int8
+    if tiles.dtype != want or tiles.dim() != 3 or not tiles.is_contiguous():
+        raise ValueError(f"K4 mode {mode} takes contiguous [NT, T, D] {want} tiles")
+    if (scales is None) != (mode == "bf16") or (
+        scales is not None and (scales.dtype != torch.float32 or scales.shape != tiles.shape[:2]
+                                or not scales.is_contiguous() or scales.device != device)
+    ):
+        raise ValueError("K4: the int8 modes take contiguous [NT, T] f32 scales, bf16 none")
+    nt, T, D = tiles.shape
+    if not 1 <= num_rows <= nt * T:
+        raise ValueError(f"num_rows {num_rows} outside the {nt * T} tile rows")
+    q = queries.to(device=device, dtype=torch.float32).contiguous()
+    if q.dim() != 2 or q.shape[1] != D:
+        raise ValueError(f"queries must be [B, {D}]")
+    batch = q.shape[0]
+    k = int(k)
+    plan = k4_plan(max(1, batch), num_rows, D, k, _sm_count(device))
+    scores = torch.empty((batch, k), dtype=torch.float32, device=device)
+    ids = torch.empty((batch, k), dtype=torch.int32, device=device)
+    if batch == 0:
+        return scores, ids
+    ws = torch.empty((batch, plan.nblk, plan.K), dtype=torch.int64, device=device)
+    launched = ctypes.c_int(0)  # the C entry adds each kernel it launches
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.pio_k4_coarse_top_k(
+            q.data_ptr(), batch, D, tiles.data_ptr(), topk_ops._ptr(scales), num_rows,
+            _MODE_CODE[mode], k, plan.rb, plan.W, plan.nblk, plan.K, plan.S, plan.S2,
+            ws.data_ptr(), scores.data_ptr(), ids.data_ptr(), ctypes.byref(launched), stream,
+        )
+    _build.check(err, f"coarse_topk ({mode}) launch")
+    coarse_topk.launches.add()
+    coarse_topk.modes[mode].add()
+    coarse_topk.kernel_launches.add(launched.value)
+    return scores, ids
+
+
+coarse_topk.launches = _build.LaunchCount()
+coarse_topk.modes = {m: _build.LaunchCount() for m in MODES}
+coarse_topk.kernel_launches = _build.LaunchCount()
+
+
+def _host_values(table) -> np.ndarray:
+    """A factor table (numpy, :data:`BFLOAT16` bits, or a tensor on any
+    device) as host numpy: bfloat16 as its exact float32 values."""
+    if isinstance(table, torch.Tensor):
+        t = table.detach().cpu()
+        return (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()
+    a = host_array(np.asarray(table))
+    if a.dtype == BFLOAT16:
+        return (a.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+    return a
+
+
+def _owned(a: np.ndarray) -> np.ndarray:
+    """``a`` contiguous and writable (copied only if it is not), for
+    ``torch.from_numpy``."""
+    return np.require(a, requirements=["C", "W"])
+
+
+class CoarseCatalog:
+    """A catalog staged in tiled coarse form for the shortlist pass.
+
+    Built once per (model, weights, device) from the serving factor
+    table -- a dense ``[I, D]`` table or the int8 ``(values, scales)``
+    pair, as numpy or tensors -- and cached by the templates beside their
+    device tables. As in the JAX package, the tiles are made on the host
+    in numpy and go to ``device`` in one upload: an int8 catalog keeps
+    its quantized values; a dense one gets a bf16 copy (round to nearest
+    even) or, in mode ``int8``, ``s = max|f| / 127`` per row (1 where
+    that is 0) and ``rint(f / s)``. Pad rows past the catalog are zeros
+    with scale 1. The quantization only costs shortlist coverage, never
+    final score accuracy: the rescore reads the original table.
+
+    ``mode`` None reads ``PIO_RETRIEVAL_COARSE``; ``auto`` picks ``int8``
+    for an int8 catalog and ``bf16`` for a dense one (the JAX package's
+    pick on any backend but a TPU). Tiles are ``[NT, T, D]``, ``T =
+    min(tile, pow2(I))``; a row's id is its position, ``-1`` past the
+    catalog (:meth:`ids`)."""
+
+    def __init__(self, item_table, tile: int | None = None, mode: str | None = None,
+                 device: torch.device | str = "cpu"):
+        quantized = isinstance(item_table, tuple)
+        vals = _host_values(item_table[0] if quantized else item_table)
+        self.num_rows = int(vals.shape[0])
+        self.dim = int(vals.shape[1])
+        self.device = torch.device(device)
+        if mode is None:
+            mode = os.environ.get("PIO_RETRIEVAL_COARSE", "auto")
+        if mode == "auto":
+            mode = "int8" if quantized else "bf16"
+        if mode not in MODES:
+            raise ValueError(f"unknown coarse mode {mode!r}")
+        self.mode = mode
+        T = min(int(tile or tile_size()), _pow2(max(1, self.num_rows)))
+        nt = -(-self.num_rows // T)
+        pad = nt * T - self.num_rows
+        self.tile = T
+        if mode == "bf16":
+            if quantized:
+                f = np.asarray(vals, dtype=np.float32) * np.asarray(
+                    _host_values(item_table[1]), np.float32)[:, None]
+            else:
+                f = np.asarray(vals, dtype=np.float32)
+            if pad:
+                f = np.concatenate([f, np.zeros((pad, self.dim), np.float32)])
+            tiles = torch.from_numpy(_owned(f)).to(torch.bfloat16)
+            self._tiles = tiles.reshape(nt, T, self.dim).to(self.device)
+            self._scales = None
+        else:
+            if quantized:
+                vq = np.asarray(vals, dtype=np.int8)
+                vs = np.asarray(_host_values(item_table[1]), dtype=np.float32)
+            else:
+                f = np.asarray(vals, dtype=np.float32)
+                s = np.max(np.abs(f), axis=1) / 127.0
+                s = np.where(s > 0, s, 1.0).astype(np.float32)
+                vq = np.rint(f / s[:, None]).astype(np.int8)
+                vs = s
+            if pad:
+                vq = np.concatenate([vq, np.zeros((pad, self.dim), np.int8)])
+                vs = np.concatenate([vs, np.ones(pad, np.float32)])
+            self._tiles = torch.from_numpy(_owned(vq.reshape(nt, T, self.dim))).to(self.device)
+            self._scales = torch.from_numpy(_owned(vs.reshape(nt, T))).to(self.device)
+
+    def ids(self) -> np.ndarray:
+        """``[NT, T]`` int32 row ids: the position, ``-1`` past the catalog
+        (the JAX package's ``_ids``; the kernel derives them)."""
+        nt, T = self._tiles.shape[:2]
+        ids = np.arange(nt * T, dtype=np.int32)
+        ids[self.num_rows:] = -1
+        return ids.reshape(nt, T)
+
+    def nbytes(self) -> int:
+        """Device-resident coarse bytes (tiles + scales)."""
+        n = self._tiles.numel() * self._tiles.element_size()
+        if self._scales is not None:
+            n += self._scales.numel() * 4
+        return n
+
+    def shortlist(self, queries, k: int):
+        """Coarse top-k' candidate ids for a ``[B, D]`` f32 query batch ->
+        (``[B, k']`` coarse scores, ``[B, k']`` int32 ids, ``-1`` past the
+        catalog), tensors on the catalog's device. k' clamps to the tile
+        width. B is not padded (the JAX package padded it for its compile
+        cache; K4 takes any B, and rows are independent)."""
+        t0 = time.perf_counter()
+        q = torch.as_tensor(np.asarray(queries, dtype=np.float32)
+                            if not isinstance(queries, torch.Tensor) else queries)
+        q = q.to(device=self.device, dtype=torch.float32).contiguous()
+        k = max(1, min(int(k), self.tile))
+        s, ids = coarse_topk(q, self._tiles, self._scales, self.num_rows, k, self.mode)
+        _sync(self.device)
+        dt = time.perf_counter() - t0
+        _m_shortlist_secs.observe(dt)
+        _m_shortlist_size.observe(float(k))
+        _note_stage("shortlist", dt)
+        return s, ids
+
+
+# -- K5: the exact rescore -----------------------------------------------------
+
+QUERY_FORMS = ("gather", "vectors", "sum_rows")
+_QUERY_CODE = {"gather": 0, "vectors": 1, "sum_rows": 2}
+
+
+def _query_vectors_reference(form: str, item_factors, user_ixs, user_factors, vectors,
+                             row_ixs, row_weights) -> torch.Tensor:
+    """``[B, D]`` f32 query vectors as K2's plain version builds them."""
+    values = item_factors[0] if isinstance(item_factors, tuple) else item_factors
+    device = values.device
+    if form == "gather":
+        ixs = torch.as_tensor(user_ixs, device=device).to(torch.int64).reshape(-1)
+        return topk_ops._dense_rows(user_factors, ixs)
+    if form == "vectors":
+        return torch.as_tensor(vectors, device=device).to(torch.float32)
+    ixs = torch.as_tensor(row_ixs, device=device).to(torch.int64)
+    w = torch.as_tensor(row_weights, device=device).to(torch.float32)
+    rows = topk_ops._dense_rows(item_factors, ixs)  # [B, L, D]
+    q = rows.new_zeros((rows.shape[0], rows.shape[2]))
+    for l in range(rows.shape[1]):
+        q = q + rows[:, l] * w[:, l, None]
+    return q
+
+
+def rescore_top_k_reference(form: str, item_factors, cand_ids, k: int, *, user_ixs=None,
+                            user_factors=None, vectors=None, row_ixs=None,
+                            row_weights=None):
+    """The plain PyTorch version of K5, same contract as
+    :func:`rescore_top_k`: K2's query vectors, the ``[B, S]`` candidate
+    rows gathered (a -1 gathers row 0), scored with K2's arithmetic (d in
+    order from +0.0, each product and partial sum rounded, times the int8
+    scale after the sum), -1 slots at ``NEG_INF``, the top k in
+    ``lax.top_k`` order on the row (ties keep shortlist order), ids -1
+    where the score is not above ``NEG_INF / 2``."""
+    values = item_factors[0] if isinstance(item_factors, tuple) else item_factors
+    device = values.device
+    qv = _query_vectors_reference(form, item_factors, user_ixs, user_factors, vectors,
+                                  row_ixs, row_weights)
+    cand = torch.as_tensor(cand_ids, device=device).to(torch.int32)
+    rows_ix = cand.clamp_min(0).to(torch.int64)
+    rows = values[rows_ix].to(torch.float32)  # [B, S, D]
+    sc = rows.new_zeros(cand.shape)
+    for d in range(rows.shape[2]):
+        sc = sc + qv[:, d, None] * rows[:, :, d]
+    if isinstance(item_factors, tuple):
+        sc = sc * item_factors[1][rows_ix]
+    sc = torch.where(cand >= 0, sc, NEG_INF)
+    s, ix = topk_ops.top_k_rows_reference(sc, min(int(k), cand.shape[1]))
+    ids = torch.gather(cand, 1, ix.to(torch.int64))
+    return s, torch.where(s > NEG_INF / 2, ids, -1)
+
+
+def _candidates(cand_ids, num_items: int, device: torch.device) -> torch.Tensor:
+    """``[B, S]`` int32 candidate ids on ``device``; host ids are checked
+    to lie in [-1, I)."""
+    if isinstance(cand_ids, torch.Tensor) and cand_ids.device.type == "cuda":
+        return cand_ids.to(device=device, dtype=torch.int32).contiguous()
+    a = np.asarray(cand_ids.cpu() if isinstance(cand_ids, torch.Tensor) else cand_ids,
+                   dtype=np.int64)
+    if a.ndim != 2:
+        raise ValueError(f"cand_ids must be [B, S], got shape {a.shape}")
+    if a.size and (a.min() < -1 or a.max() >= num_items):
+        raise IndexError(f"candidate id out of range [-1, {num_items})")
+    return torch.from_numpy(a.astype(np.int32)).to(device)
+
+
+def rescore_top_k(form: str, item_factors, cand_ids, k: int, *, user_ixs=None,
+                  user_factors=None, vectors=None, row_ixs=None, row_weights=None):
+    """K5: the best ``k`` of each query row's shortlist by exact score.
+
+    ``form`` names the query: ``"gather"`` (``user_ixs`` [B] rows of
+    ``user_factors``), ``"vectors"`` (``vectors`` [B, D] f32) or
+    ``"sum_rows"`` (``row_ixs`` [B, L] catalog rows weighted by
+    ``row_weights`` [B, L]); tables as :func:`ops.topk.gather_top_k_batch`
+    takes them. ``cand_ids``: [B, S] int ids, -1 for an empty slot. ``k``
+    is capped at S. Returns ``([B, k] f32 scores, [B, k] int32 ids)``.
+    CPU tensors take :func:`rescore_top_k_reference`; CUDA tensors
+    launch ``csrc/retrieval.cu`` (one launch) or raise."""
+    if form not in QUERY_FORMS:
+        raise ValueError(f"unknown query form {form!r}")
+    values = item_factors[0] if isinstance(item_factors, tuple) else item_factors
+    device = values.device
+    if device.type == "cpu":
+        return rescore_top_k_reference(
+            form, item_factors, cand_ids, k, user_ixs=user_ixs, user_factors=user_factors,
+            vectors=vectors, row_ixs=row_ixs, row_weights=row_weights)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    v_vals, v_scales, v_code = topk_ops._split(item_factors, "item_factors")
+    topk_ops._on(device, v_scales)
+    num_items, rank = v_vals.shape
+    cand = _candidates(cand_ids, num_items, device)
+    batch, width = cand.shape
+    if width > K4_MAX_K:
+        raise ValueError(f"K5 takes shortlists of up to {K4_MAX_K} ids, got {width}")
+    ixs = w = u_vals = u_scales = vecs = None
+    u_code, L = 0, 0
+    if form == "gather":
+        u_vals, u_scales, u_code = topk_ops._split(user_factors, "user_factors")
+        topk_ops._on(device, u_vals, u_scales)
+        if u_vals.shape[1] != rank:
+            raise ValueError("user and item factors differ in rank")
+        ixs = topk_ops._user_ixs(user_ixs, u_vals.shape[0], device)
+        rows = ixs.shape[0]
+    elif form == "vectors":
+        vecs = torch.as_tensor(vectors, device=device).to(torch.float32).contiguous()
+        if vecs.dim() != 2 or vecs.shape[1] != rank:
+            raise ValueError(f"vectors must be [B, {rank}]")
+        rows = vecs.shape[0]
+    else:
+        ixs = topk_ops._indices(row_ixs, num_items, device)
+        if ixs.dim() != 2:
+            raise ValueError(f"row_ixs must be [B, L], got shape {tuple(ixs.shape)}")
+        rows, L = ixs.shape
+        w = torch.as_tensor(row_weights, device=device).to(torch.float32).contiguous()
+        if tuple(w.shape) != (rows, L):
+            raise ValueError(f"row_weights must be [{rows}, {L}] like row_ixs")
+    if rows != batch:
+        raise ValueError(f"{rows} queries for {batch} shortlist rows")
+    k = min(int(k), width)
+    scores = torch.empty((batch, k), dtype=torch.float32, device=device)
+    ids = torch.empty((batch, k), dtype=torch.int32, device=device)
+    if batch == 0 or k <= 0:
+        return scores, ids
+    launched = ctypes.c_int(0)
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.pio_k5_rescore_top_k(
+            _QUERY_CODE[form], topk_ops._ptr(ixs), topk_ops._ptr(w), L,
+            topk_ops._ptr(u_vals), u_code, topk_ops._ptr(u_scales), topk_ops._ptr(vecs),
+            v_vals.data_ptr(), v_code, topk_ops._ptr(v_scales), cand.data_ptr(),
+            batch, width, _pow2(width), rank, k, scores.data_ptr(), ids.data_ptr(),
+            ctypes.byref(launched), stream,
+        )
+    _build.check(err, f"rescore_top_k ({form}) launch")
+    rescore_top_k.launches.add()
+    rescore_top_k.queries[form].add()
+    rescore_top_k.kernel_launches.add(launched.value)
+    return scores, ids
+
+
+rescore_top_k.launches = _build.LaunchCount()
+rescore_top_k.queries = {f: _build.LaunchCount() for f in QUERY_FORMS}
+rescore_top_k.kernel_launches = _build.LaunchCount()
+
+for _mode, _count in coarse_topk.modes.items():
+    obs_metrics.gauge(
+        "pio_k4_calls", "K4 (coarse shortlist) calls on the card by mode, since "
+        "the process started", mode=_mode,
+    ).set_function(lambda c=_count: float(c.value))
+for _form, _count in rescore_top_k.queries.items():
+    obs_metrics.gauge(
+        "pio_k5_calls", "K5 (shortlist rescore) calls on the card by query form, "
+        "since the process started", query=_form,
+    ).set_function(lambda c=_count: float(c.value))
+for _name, _wrapper in (("pio_k4_kernel_launches", coarse_topk),
+                        ("pio_k5_kernel_launches", rescore_top_k)):
+    obs_metrics.gauge(
+        _name, "Kernels the wrapper's calls launched on the card, as the C entry "
+        "counts them",
+    ).set_function(lambda c=_wrapper.kernel_launches: float(c.value))
+del _mode, _form, _count, _name, _wrapper
+
+
+def _finish_rescore(t0: float, out, n_queries: int):
+    s, ids = out[0].cpu().numpy(), out[1].cpu().numpy()
+    dt = time.perf_counter() - t0
+    _m_rescore_secs.observe(dt)
+    _note_stage("rescore", dt)
+    _m_two_stage.inc(n_queries)
+    return s, ids
+
+
+def rescore_gather_top_k_batch(user_ixs, user_factors, item_factors, cand_ids, k: int):
+    """Shortlist variant of ``gather_top_k_batch``: [B] user row indices
+    + the device tables + a [B, S] candidate-id matrix instead of the
+    whole catalog. The query vectors are gathered and dequantized as the
+    exact path does, so the ranking equals the exact ranking restricted
+    to the candidates. Returns host ``([B, k] scores, [B, k] ids)``."""
+    t0 = time.perf_counter()
+    out = rescore_top_k("gather", item_factors, cand_ids, k, user_ixs=user_ixs,
+                        user_factors=user_factors)
+    return _finish_rescore(t0, out, len(cand_ids))
+
+
+def rescore_top_k_batch(user_vectors, item_factors, cand_ids, k: int):
+    """Shortlist variant of ``top_k_items_batch``: [B, D] query vectors
+    against a [B, S] candidate-id matrix."""
+    t0 = time.perf_counter()
+    out = rescore_top_k("vectors", item_factors, cand_ids, k, vectors=user_vectors)
+    return _finish_rescore(t0, out, len(cand_ids))
+
+
+def rescore_sum_rows_top_k_batch(row_ixs, row_weights, item_factors, cand_ids, k: int):
+    """Shortlist variant of ``sum_rows_top_k_batch`` for the cosine
+    templates: the query vector is the weighted sum of catalog rows
+    (built on the device as the exact op builds it), scored against the
+    [B, S] candidates only."""
+    t0 = time.perf_counter()
+    out = rescore_top_k("sum_rows", item_factors, cand_ids, k, row_ixs=row_ixs,
+                        row_weights=row_weights)
+    return _finish_rescore(t0, out, len(cand_ids))
+
+
+def rescore_host(query_vectors, values, scales, cand_ids, k: int):
+    """Host-side exact rescore for the mesh path: the ring coarse pass
+    returns [B, S] global candidate ids; the exact factors live host-side
+    in the model, and S is small, so the f32 gather + dot runs in numpy."""
+    t0 = time.perf_counter()
+    cand_ids = np.asarray(cand_ids, dtype=np.int32)
+    cand = np.maximum(cand_ids, 0)
+    rows = np.asarray(values)[cand].astype(np.float32)
+    if scales is not None:
+        rows *= np.asarray(scales, np.float32)[cand][..., None]
+    sc = np.einsum(
+        "bd,bsd->bs", np.asarray(query_vectors, np.float32), rows
+    )
+    sc[cand_ids < 0] = NEG_INF
+    k = min(k, cand_ids.shape[1])
+    order = np.argsort(-sc, axis=1, kind="stable")[:, :k]
+    s = np.take_along_axis(sc, order, axis=1)
+    ids = np.take_along_axis(cand_ids, order, axis=1)
+    ids[s <= NEG_INF / 2] = -1
+    return _finish_rescore(t0, (torch.from_numpy(s), torch.from_numpy(ids)), len(cand_ids))

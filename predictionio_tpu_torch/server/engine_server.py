@@ -32,8 +32,11 @@ Where the device makes the port differ from the JAX server, on purpose:
 the dispatch probe times a CUDA round trip and raises on failure;
 batches are not padded to a power of two (K2 takes any batch size);
 ``warmup`` raises instead of logging a failure, so a server that cannot
-score does not start; the speed layer and the two-stage retrieval stage
-split are later slices. Nothing on this path falls back to the CPU or
+score does not start; the speed layer is a later slice. Two-stage
+retrieval (``ops/retrieval.py``) is served as in the JAX server: its
+stage split is drained after every dispatch (``dispatch.shortlist`` /
+``dispatch.rescore`` spans on traced requests) and ``/stats.json``
+carries its ``retrieval`` block. Nothing on this path falls back to the CPU or
 to a kernel's plain version: every query scores on ``device``.
 """
 
@@ -65,6 +68,7 @@ from predictionio_tpu_torch.obs import freshness as obs_freshness
 from predictionio_tpu_torch.obs import metrics as obs_metrics
 from predictionio_tpu_torch.obs import slo as obs_slo
 from predictionio_tpu_torch.obs import trace as obs_trace
+from predictionio_tpu_torch.ops import retrieval
 from predictionio_tpu_torch.server import jsonx
 from predictionio_tpu_torch.server import plugins as plugin_mod
 from predictionio_tpu_torch.server.http import (
@@ -99,6 +103,21 @@ def _device_name(device: torch.device) -> str:
     if device.type == "cuda":
         return torch.cuda.get_device_name(device)
     return str(device)
+
+
+def _stage_spans(split: dict | None, traces, t0: float) -> None:
+    """The ``dispatch.shortlist`` / ``dispatch.rescore`` spans of a
+    drained two-stage stage split (``ops/retrieval.py``), laid end to end
+    from ``t0``, on each traced request of the dispatch; none when the
+    dispatch stayed on the exact path."""
+    if split is None:
+        return
+    ss = split.get("shortlist", 0.0)
+    rs = split.get("rescore", 0.0)
+    for tr in traces:
+        if tr is not None:
+            tr.add_span("dispatch.shortlist", t0, t0 + ss)
+            tr.add_span("dispatch.rescore", t0 + ss, t0 + ss + rs)
 
 
 def _query_from_json(query_class: type | None, data: dict[str, Any]) -> Any:
@@ -931,6 +950,10 @@ class EngineServer:
         predictions = [
             a.predict(m, supplemented) for a, m in zip(algorithms, models)
         ]
+        # drain the two-stage stage split unconditionally (the thread-local
+        # must not leak into the next query on this thread); sub-spans on a
+        # traced request
+        _stage_spans(retrieval.take_stage_split(), [obs_trace.current_trace()], t0)
         return self._finish_query(
             body, query, predictions, serving, t0, variant=v
         )
@@ -1035,7 +1058,8 @@ class EngineServer:
         if len(items) == 1:
             # FAST PATH: no index plumbing — lone-query
             # latency matches per-request serving
-            fut, _, _, sup, _ = items[0]
+            fut, _, tr, sup, _ = items[0]
+            t_d0 = time.perf_counter()
             try:
                 predictions = [
                     a.predict(m, sup) for a, m in zip(algorithms, models)
@@ -1043,6 +1067,8 @@ class EngineServer:
             except Exception as e:
                 self._resolve(fut, exc=e)
                 return
+            finally:
+                _stage_spans(retrieval.take_stage_split(), [tr], t_d0)
             self._resolve(fut, predictions)
             return
         per_algo: list[dict] | None
@@ -1063,14 +1089,18 @@ class EngineServer:
             t_d1 = time.perf_counter()
             if batcher is not None:
                 batcher._m_dispatch.observe(t_d1 - t_d0)
-            for _, _, tr, _, _ in items:
+            traces = [tr for _, _, tr, _, _ in items]
+            for tr in traces:
                 if tr is not None:
                     tr.add_span(f"batch.dispatch[{n_real}]", t_d0, t_d1)
+            _stage_spans(retrieval.take_stage_split(), traces, t_d0)
         except Exception:
             logger.exception("batched scoring failed; retrying per query")
+            retrieval.take_stage_split()  # the failed attempt's, dropped
             per_algo = None
         for i, (fut, t0, tr, sup, _) in enumerate(items):
             if per_algo is None:
+                t_d0 = time.perf_counter()
                 try:
                     predictions = [
                         a.predict(m, sup) for a, m in zip(algorithms, models)
@@ -1078,6 +1108,8 @@ class EngineServer:
                 except Exception as e:
                     self._resolve(fut, exc=e)
                     continue
+                finally:
+                    _stage_spans(retrieval.take_stage_split(), [tr], t_d0)
             else:
                 predictions = [d[i] for d in per_algo]
             self._resolve(fut, predictions)
@@ -1262,6 +1294,7 @@ class EngineServer:
             body["obs"] = obs_metrics.stats_block()
             body["device"] = obs_device.device_block()
             body["freshness"] = obs_freshness.block()
+            body["retrieval"] = retrieval.stats_block()
             return Response.json(body)
 
         def _resolve_header_variant(request: Request) -> "_Variant | None":
@@ -1456,6 +1489,7 @@ class EngineServer:
                         continue
                     t0 = time.perf_counter()
                     a.batch_predict(m, [(0, q)])
+                    retrieval.take_stage_split()  # no request to trace
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)
                     logger.info(

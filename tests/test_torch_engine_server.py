@@ -1457,6 +1457,95 @@ class TestRoutingAndIsolation:
                 "engine.latency[c]"} <= names
 
 
+# -- two-stage retrieval ------------------------------------------------------
+
+
+def _two_stage_on(monkeypatch):
+    """Route the 8-item ServeApp catalog through two-stage retrieval: a
+    k' of k (oversample 1) is below the catalog at num <= 4."""
+    monkeypatch.setenv("PIO_RETRIEVAL_THRESHOLD", "1")
+    monkeypatch.setenv("PIO_RETRIEVAL_OVERSAMPLE", "1")
+
+
+def _traced_query(base: str, body: dict, trace_id: str) -> list[str]:
+    """POST a query carrying ``X-PIO-Trace``; its trace's span names. The
+    ring keeps the slowest recent traces, so it is emptied first."""
+    from predictionio_tpu_torch.obs import trace as obs_trace
+
+    obs_trace.TRACES.clear()
+    status, _ = http("POST", base + "/queries.json", body, {"X-PIO-Trace": trace_id})
+    assert status == 200
+    status, body = http("GET", base + "/traces.json")
+    assert status == 200
+    mine = [t for t in body["traces"] if t["traceId"] == trace_id]
+    assert mine, body["traces"]
+    return [sp["name"] for sp in mine[0]["spans"]]
+
+
+class TestTwoStageServing:
+    """The JAX server's two-stage hooks on the port's server: the
+    ``retrieval`` block of /stats.json, the per-dispatch stage split as
+    ``dispatch.shortlist`` / ``dispatch.rescore`` spans, drained on every
+    dispatch so it never leaks into the next request."""
+
+    def test_stats_json_carries_the_retrieval_block(self, deployed_engine):
+        from predictionio_tpu_torch.ops import retrieval
+
+        status, body = http("GET", deployed_engine["base"] + "/stats.json")
+        assert status == 200
+        assert set(body["retrieval"]) == set(retrieval.stats_block())
+        assert body["retrieval"]["threshold"] == retrieval.retrieval_threshold()
+
+    def test_traced_solo_request_carries_the_stage_spans(self, deployed_engine, monkeypatch):
+        from predictionio_tpu_torch.ops import retrieval
+
+        _two_stage_on(monkeypatch)
+        before = retrieval.stats_block()["two_stage_queries"]
+        names = _traced_query(deployed_engine["base"], {"user": "u1", "num": 2},
+                              "5eed000000000001")
+        assert retrieval.stats_block()["two_stage_queries"] == before + 1
+        assert "dispatch.shortlist" in names and "dispatch.rescore" in names
+
+    def test_sub_threshold_request_has_no_stage_spans(self, deployed_engine):
+        names = _traced_query(deployed_engine["base"], {"user": "u1", "num": 2},
+                              "5eed000000000002")
+        assert "serve" in names
+        assert not {"dispatch.shortlist", "dispatch.rescore"} & set(names)
+
+    @pytest.mark.parametrize("size", [1, 3])
+    def test_batched_dispatch_spans_and_no_leak(self, deployed_engine, monkeypatch, size):
+        """A batch (and the lone-query fast path) carries the spans on
+        each traced request; the split is drained on the dispatching
+        thread, so a sub-threshold dispatch after it carries none."""
+        from concurrent.futures import Future
+
+        from predictionio_tpu_torch.obs import trace as obs_trace
+        from predictionio_tpu_torch.ops import retrieval
+
+        server = deployed_engine["server"]
+        variant = server._default_variant
+
+        def dispatch(users):
+            traces = [obs_trace.Trace("test") for _ in users]
+            futs = [Future() for _ in users]
+            server._score_batch_group(variant, [
+                (f, time.perf_counter(), tr, trec.Query(user=u, num=2), variant)
+                for f, tr, u in zip(futs, traces, users)
+            ])
+            for f in futs:
+                assert f.result(timeout=10)[0].itemScores
+            return [{name for name, _, _ in tr.spans} for tr in traces]
+
+        users = ["u1", "u2", "u3"][:size]
+        _two_stage_on(monkeypatch)
+        for names in dispatch(users):
+            assert {"dispatch.shortlist", "dispatch.rescore"} <= names
+        assert retrieval.take_stage_split() is None  # drained by the dispatch
+        monkeypatch.delenv("PIO_RETRIEVAL_THRESHOLD")
+        for names in dispatch(users):
+            assert not {"dispatch.shortlist", "dispatch.rescore"} & names
+
+
 # -- the deploy CLI ------------------------------------------------------------
 
 

@@ -202,9 +202,11 @@ def test_unported_paths_raise(servers, monkeypatch):
     _, port_server = servers
     algo, model = port_server.algorithms[0], port_server.models[0]
     q = [(0, trec.Query(user="u1", num=4))]
-    monkeypatch.setenv("PIO_RETRIEVAL_THRESHOLD", "10")  # 40 items >= 10
-    with pytest.raises(NotImplementedError, match="two-stage"):
-        algo.batch_predict(model, q)
+    # two-stage retrieval is ported: at threshold 10 (40 items >= 10) the
+    # shortlist + rescore answers as the exact path does
+    exact = algo.batch_predict(model, q)
+    monkeypatch.setenv("PIO_RETRIEVAL_THRESHOLD", "10")
+    assert algo.batch_predict(model, q) == exact
     monkeypatch.delenv("PIO_RETRIEVAL_THRESHOLD")
     sharded = trec.ALSAlgorithm(trec.ALSAlgorithmParams(sharded_serving=True))
     with pytest.raises(NotImplementedError, match="multi-GPU"):
@@ -231,7 +233,7 @@ def test_unported_paths_raise(servers, monkeypatch):
         resolve_engine_factory("predictionio_tpu.models.classification.engine")
 
 
-def _similar_product_refusal(case: str, monkeypatch) -> None:
+def _similar_product_refusal(case: str) -> None:
     ctx = WorkflowContext(device="cpu")
     td = tsim.TrainingData(users=["a"], items={"x": []}, view_events=tstorage.RatingsBatch(
         ["a"], ["x"], np.zeros(1, np.int32), np.zeros(1, np.int32), np.ones(1, np.float32)))
@@ -241,14 +243,22 @@ def _similar_product_refusal(case: str, monkeypatch) -> None:
         engine = tsim.engine()
         assert "cosine" in engine.algorithm_classes
         engine.algorithm_classes["cosine"]().train(ctx, td)
-    else:  # a catalog at the two-stage threshold
-        monkeypatch.setenv("PIO_RETRIEVAL_THRESHOLD", "10")
-        algo = tsim.ALSAlgorithm(tsim.ALSAlgorithmParams(rank=2, num_iterations=1))
-        algo.device = ctx.device
-        model = tsim.SimilarProductModel(
-            item_index=BiMap.from_dense([f"i{j}" for j in range(40)]),
-            item_factors=np.ones((40, 2), np.float32), categories={})
-        algo.predict(model, tsim.Query(items=["i0"], num=1))
+
+
+def _similar_product_two_stage(monkeypatch):
+    """A 40-item catalog's answers on the exact path, then at threshold
+    10, where two-stage retrieval serves them."""
+    algo = tsim.ALSAlgorithm(tsim.ALSAlgorithmParams(rank=2, num_iterations=1))
+    algo.device = WorkflowContext(device="cpu").device
+    model = tsim.SimilarProductModel(
+        item_index=BiMap.from_dense([f"i{j}" for j in range(40)]),
+        item_factors=np.random.default_rng(3).standard_normal((40, 2)).astype(np.float32),
+        categories={})
+    queries = [tsim.Query(items=["i0"], num=3), tsim.Query(items=["i1", "i2"], num=4,
+                                                          blackList=["i5"])]
+    exact = [algo.predict(model, q) for q in queries]
+    monkeypatch.setenv("PIO_RETRIEVAL_THRESHOLD", "10")
+    return exact, [algo.predict(model, q) for q in queries]
 
 
 @pytest.mark.parametrize("case,match", [
@@ -258,6 +268,12 @@ def _similar_product_refusal(case: str, monkeypatch) -> None:
 ])
 def test_similar_product_unported_paths_raise(case, match, monkeypatch):
     """The similar-product template refuses what the port does not have
-    yet, naming the later slice, rather than answering another way."""
+    yet, naming the later slice, rather than answering another way. The
+    two-stage case is ported: at threshold 10 the template answers, and
+    as its exact path does."""
+    if case == "two_stage":
+        exact, two = _similar_product_two_stage(monkeypatch)
+        assert all(r.itemScores for r in two) and two == exact
+        return
     with pytest.raises(NotImplementedError, match=match):
-        _similar_product_refusal(case, monkeypatch)
+        _similar_product_refusal(case)
