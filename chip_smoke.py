@@ -161,14 +161,16 @@ simtrain:
 The two-stage retrieval slice adds (k4 and k5 after k2route, retrieval
 after eval, retimes last):
 
-- k4: K4 (``ops/retrieval.py coarse_topk``) against its plain version at
-  I = 1,000,000 and 10,000,000, D = 32 (tiles of 2^18, the last padded):
-  modes int8 and int8_dot on an int8 pair, bf16 on a dense table's copy,
-  B {1, 8, 64} x k' {32, 128, 256, 1024} at 1M (a subset at 10M);
-  int8_dot bit for bit, the others within rtol 1e-5 with ids equal
-  outside near ties (bit for bit in practice: same arithmetic); crafted
-  catalogs of exact ties at every k' boundary with a NaN row, k' >= I,
-  and k' above K4_MAX_K refused;
+- k4: K4 (``ops/retrieval.py coarse_topk``) on both of its routes (the
+  warp route for k' <= 128, the stream route above, and the stream route
+  reached at k' <= 128 through ``_coarse_topk_stream``) against its plain
+  version at I = 1,000,000 and 10,000,000, D = 32 (tiles of 2^18, the
+  last padded): modes int8 and int8_dot on an int8 pair, bf16 on a dense
+  table's copy, B {1, 8, 64} x k' {32, 128, 256, 1024} at 1M (a subset
+  at 10M), bit for bit; crafted catalogs of exact ties at every k'
+  boundary with a NaN row, k' >= I on each route, and k' above K4_MAX_K
+  refused; each route's shared-memory size in C against Python's, and
+  one launch a warp-route call;
 - k5: K5 (``rescore_top_k``) against its plain version at I = 1,000,000:
   gather (every user x item storage pair), vectors and summed-rows
   queries, B {1, 8, 64}, candidates from a K4 shortlist with -1 slots,
@@ -183,13 +185,18 @@ after eval, retimes last):
   the exact path: answers against the plain two-stage versions, recall@10
   >= 0.999 against exact K2 / K2s, K2's scores bit for bit where the
   shortlist covers the exact top 10, K4 / K5 / K2 calls per dispatch from
-  ``/metrics``, the ``/stats.json`` retrieval block, a traced request's
+  ``/metrics`` (every num = 10 dispatch's K4 call on the warp route, one
+  launch; the blackList queries', k' = 512, on the stream route, two),
+  the ``/stats.json`` retrieval block, a traced request's
   ``dispatch.shortlist`` / ``dispatch.rescore`` spans, ready_s, p50 /
   p99 / q/s;
-- retimes: K4 per mode and K5 at I = 1M and 10M, D = 32, B = 8, k' = 128,
-  beside their plain versions, bounds and one-call yardsticks; two-stage
-  (K4 + K5) beside the exact path (K2, ``torch.topk(u @ V.T)``) on f32
-  and int8 catalogs.
+- retimes: K4's warp route against its stream route on the same inputs
+  at I = 1M and 10M, D = 32 (every mode, B = 8 at k' = 32 and 128; at 1M
+  also B = 1 and 64 at k' = 128), each beside its bound (bytes, and the
+  FP32 instructions of the unfused products and sums); K4 per mode and
+  K5 at B = 8, k' = 128, beside their plain versions, bounds and one-call
+  yardsticks; two-stage (K4 + K5) beside the exact path (K2,
+  ``torch.topk(u @ V.T)``) on f32 and int8 catalogs.
 
 Every phase prints its results and seconds; any failure makes the exit
 code 1 and suppresses the result lines. Without CUDA, or without the
@@ -3672,39 +3679,44 @@ def coarse_pair(torch, rows: int, seed: int, device):
     return f, quantize_rows(torch.from_numpy(f).to(device))
 
 
-def hold_k4(torch, retrieval, cat, q, k: int, mode: str) -> tuple[bool, float]:
-    """K4 against its plain version on the same catalog: int8_dot bit for
-    bit; int8 and bf16 scores within RTOL/ATOL and ids equal outside runs
-    of near ties. (bit-equal, max abs error)."""
-    s_k, i_k = retrieval.coarse_topk(q, cat._tiles, cat._scales, cat.num_rows, k, mode)
+def hold_k4(torch, retrieval, cat, q, k: int, mode: str, fn=None) -> float:
+    """K4 (``fn``: ``coarse_topk``, which takes the route ``k4_route``
+    picks, or ``_coarse_topk_stream``) against its plain version on the
+    same catalog, scores and ids bit for bit (the same arithmetic in the
+    same order, and a unique top k' under the composite order). Returns
+    the max abs error of the finite scores (0 when bit-equal)."""
+    fn = fn or retrieval.coarse_topk
+    s_k, i_k = fn(q, cat._tiles, cat._scales, cat.num_rows, k, mode)
     s_p, i_p = retrieval.coarse_topk_reference(q, cat._tiles, cat._scales, cat.num_rows, k, mode)
     torch.cuda.synchronize()
-    bitwise = same_bits(torch, s_k, s_p) and bool(torch.equal(i_k, i_p))
-    sk, sp, ik, ip = host(s_k), host(s_p), host(i_k), host(i_p)
+    sk, sp = host(s_k), host(s_p)
     fin = np.isfinite(sp) & np.isfinite(sk)
     err = float(np.max(np.abs(sk[fin] - sp[fin]), initial=0.0))
-    what = f"K4 {mode} I={cat.num_rows} B={len(q)} k'={k}"
-    if mode == "int8_dot" and not bitwise:
-        raise AssertionError(f"{what}: not bit-equal to the plain version (max abs {err})")
-    if not bitwise:
-        if not np.allclose(sk, sp, rtol=RTOL, atol=ATOL, equal_nan=True):
-            raise AssertionError(f"{what}: scores off by {err}")
-        for b in range(len(q)):
-            if not near_tie_ids_ok(ik[b], ip[b], sp[b]):
-                raise AssertionError(f"{what}: row {b} ids {ik[b][:8]} vs {ip[b][:8]}")
-    return bitwise, err
+    if not (same_bits(torch, s_k, s_p) and bool(torch.equal(i_k, i_p))):
+        route = "stream" if fn is not retrieval.coarse_topk else retrieval.k4_route(k)
+        raise AssertionError(f"K4 {route} route {mode} I={cat.num_rows} B={len(q)} k'={k}: "
+                             f"not bit-equal to the plain version (max abs {err})")
+    return err
 
 
-@phase("k4: coarse shortlist vs plain")
+K4_WARP_SMEM_CASES = ((8, 8, 32, "bf16", 3), (8, 8, 32, "int8", 4), (1, 8, 32, "int8_dot", 4),
+                      (8, 8, 10, "bf16", 4), (8, 5, 128, "bf16", 2), (4, 3, 20, "int8", 3))
+
+
+@phase("k4: coarse shortlist vs plain, both routes")
 def k4_vs_plain(torch, device, stats):
     """K4 against its plain version on the card at the JAX package's
     retrieval rungs (I = 1,000,000 and 10,000,000, D = 32; tiles of 2^18,
     the last one padded): every mode (``int8`` and ``int8_dot`` on the
     int8 pair, ``bf16`` on the dense table's copy), B in {1, 8, 64}, k' in
-    {32, 128, 256, 1024} (all at 1M; k' 128 at every B and 1024 at B = 8
-    at 10M). Then crafted catalogs: 50 distinct rows repeated (exact ties
-    at every k' boundary) with a NaN row (a NaN scale in the int8 pair),
-    k' >= I at I = 200, and k' above K4_MAX_K refused."""
+    {32, 128} (the warp route) and {256, 1024} (the stream route) at 1M;
+    at 10M k' 32 and 128 at every B and 1024 at B = 8. Then crafted
+    catalogs on both routes: 50 distinct rows repeated (exact ties at
+    every k' boundary) with a NaN row (a NaN scale in the int8 pair);
+    k' >= I (I = 100 on the warp route, 200 on the stream route); k'
+    above K4_MAX_K refused. Every case bit for bit. Also: the C entries'
+    shared-memory sizes of both routes against Python's, and one launch a
+    warp-route call."""
     from predictionio_tpu_torch.ops import retrieval
 
     lib = retrieval._lib()
@@ -3712,10 +3724,22 @@ def k4_vs_plain(torch, device, stats):
         got, want = lib.pio_k4_tile_smem(rb, S, D), retrieval.k4_tile_smem(rb, S, D)
         if got != want:
             raise AssertionError(f"k4_tile_smem({rb}, {S}, {D}): C {got}, Python {want}")
+    for rb, nw, D, mode, st in K4_WARP_SMEM_CASES:
+        got = lib.pio_k4_warp_smem(rb, nw, D, retrieval._MODE_CODE[mode], st)
+        want = retrieval.k4_warp_smem(rb, nw, D, mode, st)
+        if got != want:
+            raise AssertionError(f"k4_warp_smem({rb}, {nw}, {D}, {mode}, {st}): C {got}, "
+                                 f"Python {want}")
     gen = torch.Generator(device=device).manual_seed(SEED + 30)
     queries = torch.randn((max(K4_BATCHES), RET_D), generator=gen, device=device)
-    cases = bitwise = 0
+    cases = {"warp": 0, "stream": 0}
     max_err = 0.0
+
+    def held(cat, b, k, mode, fn=None):
+        nonlocal max_err
+        max_err = max(max_err, hold_k4(torch, retrieval, cat, queries[:b], k, mode, fn))
+        cases["stream" if fn is not None else retrieval.k4_route(k)] += 1
+
     for rows in RET_ROWS:
         f, pair = coarse_pair(torch, rows, SEED + 31, device)
         cats = {"int8": retrieval.CoarseCatalog(pair, device=device),
@@ -3726,12 +3750,20 @@ def k4_vs_plain(torch, device, stats):
         if rows % cats["int8"].tile == 0:
             raise AssertionError("the rung's tiles should not divide I")
         grid = [(b, k) for b in K4_BATCHES for k in K4_KPRIMES] if rows == RET_ROWS[0] \
-            else [(b, 128) for b in K4_BATCHES] + [(8, 1024)]
+            else [(b, k) for b in K4_BATCHES for k in K4_KPRIMES[:2]] + [(8, 1024)]
         for mode in retrieval.MODES:
             cat = cats["bf16" if mode == "bf16" else "int8"]
             for b, k in grid:
-                ok, err = hold_k4(torch, retrieval, cat, queries[:b], k, mode)
-                cases, bitwise, max_err = cases + 1, bitwise + ok, max(max_err, err)
+                held(cat, b, k, mode)
+            # one launch a warp-route call, counted on its route
+            w0 = (retrieval.coarse_topk.kernel_launches.value,
+                  retrieval.coarse_topk.routes["warp"].value)
+            retrieval.coarse_topk(queries[:8], cat._tiles, cat._scales, rows, 128, mode)
+            torch.cuda.synchronize()
+            w1 = (retrieval.coarse_topk.kernel_launches.value,
+                  retrieval.coarse_topk.routes["warp"].value)
+            if (w1[0] - w0[0], w1[1] - w0[1]) != (1, 1):
+                raise AssertionError(f"K4 warp route {mode}: launches, calls {w0} -> {w1}")
         log(f"K4 I={rows}: {len(grid) * 3} cases held")
         del cats
         torch.cuda.empty_cache()
@@ -3744,26 +3776,26 @@ def k4_vs_plain(torch, device, stats):
     f[777, 5] = float("nan")
     tied = {"int8": retrieval.CoarseCatalog((vq, vs), tile=1 << 15, device=device),
             "bf16": retrieval.CoarseCatalog(f, tile=1 << 15, device=device)}
-    fs = np.random.default_rng(SEED + 33).standard_normal((200, RET_D), dtype=np.float32)
-    small = {"int8": retrieval.CoarseCatalog(quantize_rows_host(torch, fs, device), tile=256,
-                                             device=device),
-             "bf16": retrieval.CoarseCatalog(fs, tile=256, device=device)}
+    small = {}
+    for n, tile in ((200, 256), (100, 128)):
+        fs = np.random.default_rng(SEED + 33).standard_normal((n, RET_D), dtype=np.float32)
+        small[n] = {"int8": retrieval.CoarseCatalog(quantize_rows_host(torch, fs, device),
+                                                    tile=tile, device=device),
+                    "bf16": retrieval.CoarseCatalog(fs, tile=tile, device=device)}
     for mode in retrieval.MODES:
         cat = tied["bf16" if mode == "bf16" else "int8"]
-        for b, k in ((1, 128), (8, 1024), (64, 256)):
-            ok, err = hold_k4(torch, retrieval, cat, queries[:b], k, mode)
-            cases, bitwise, max_err = cases + 1, bitwise + ok, max(max_err, err)
-            if not ok:
-                raise AssertionError(f"K4 {mode}: crafted ties/NaN not bit-equal")
-        cat = small["bf16" if mode == "bf16" else "int8"]
-        s, ids = retrieval.coarse_topk(queries[:8], cat._tiles, cat._scales, 200, 256, mode)
-        ok, _ = hold_k4(torch, retrieval, cat, queries[:8], 256, mode)
-        n_pad = int((ids < 0).sum())
-        if not ok or n_pad != 8 * 56 or bool((s[ids < 0] != -1e30).any()):
-            raise AssertionError(f"K4 {mode} k' >= I: bit-equal {ok}, {n_pad} pad slots")
-        cases, bitwise = cases + 1, bitwise + ok
+        for b, k in ((1, 128), (8, 32), (64, 128), (8, 1024), (64, 256)):
+            held(cat, b, k, mode)
+            held(cat, b, k, mode, retrieval._coarse_topk_stream)
+        for n, k in ((200, 256), (100, 128)):
+            cat = small[n]["bf16" if mode == "bf16" else "int8"]
+            s, ids = retrieval.coarse_topk(queries[:8], cat._tiles, cat._scales, n, k, mode)
+            held(cat, 8, k, mode)
+            n_pad = int((ids < 0).sum())
+            if n_pad != 8 * (k - n) or bool((s[ids < 0] != -1e30).any()):
+                raise AssertionError(f"K4 {mode} k'={k} >= I={n}: {n_pad} pad slots")
     try:
-        retrieval.coarse_topk(queries[:1], small["bf16"]._tiles, None, 200,
+        retrieval.coarse_topk(queries[:1], small[200]["bf16"]._tiles, None, 200,
                               retrieval.K4_MAX_K + 1, "bf16")
     except ValueError as e:
         if "K4_MAX_K" not in str(e):
@@ -3771,7 +3803,8 @@ def k4_vs_plain(torch, device, stats):
     else:
         raise AssertionError(f"K4 took k' = {retrieval.K4_MAX_K + 1}")
     stats["k4_max_abs_err"] = max_err
-    log(json.dumps({"k4": {"cases": cases, "bit_equal": bitwise, "max_abs_err": max_err}}))
+    log(json.dumps({"k4": {"cases": cases, "bit_equal": sum(cases.values()),
+                           "max_abs_err": max_err}}))
 
 
 def quantize_rows_host(torch, f: np.ndarray, device):
@@ -3877,12 +3910,16 @@ def check_warm_k4(m: dict, mode: str, what: str) -> None:
         raise AssertionError(f"{what}: warmup did not build the coarse catalog and run K4")
 
 
-def check_dispatch_counts(lv: dict, k2: int, what: str) -> None:
-    """Per two-stage dispatch: one K4 call of two launches and one K5
-    call of one launch; K2 (or K2s) ``k2`` calls -- the live probe's."""
+def check_dispatch_counts(lv: dict, k2: int, what: str, route: str = "warp") -> None:
+    """Per two-stage dispatch: one K4 call, on ``route`` by the server's
+    ``pio_k4_route_calls`` (the warp route for k' <= 128, one launch; the
+    stream route above, two), and one K5 call of one launch; K2 (or K2s)
+    ``k2`` calls -- the live probe's."""
     d = lv["dispatches"]
     k2_seen = lv.get("k2", lv.get("k2s"))
-    if not (lv["k4"] == lv["k5"] == d and lv["k4_kernels"] == 2 * d
+    per_call = 1 if route == "warp" else 2
+    if not (lv["k4"] == lv["k5"] == d and lv[f"k4_{route}"] == d
+            and lv["k4_warp"] + lv["k4_stream"] == d and lv["k4_kernels"] == per_call * d
             and lv["k5_kernels"] == d and k2_seen == k2 and lv.get("probes", k2) == k2):
         raise AssertionError(f"{what}: counts per dispatch {lv} ({d} dispatches)")
 
@@ -3979,6 +4016,8 @@ def check_traced(server, body: dict, trace_id: str) -> list:
 
 
 K4_CALLS = 'pio_k4_calls{mode="%s"}'
+K4_ROUTES = {"k4_warp": 'pio_k4_route_calls{route="warp"}',
+             "k4_stream": 'pio_k4_route_calls{route="stream"}'}
 K5_CALLS = 'pio_k5_calls{query="%s"}'
 
 
@@ -4009,7 +4048,7 @@ def rec_retrieval(torch, device, storage, basedir, stats, servers) -> dict:
         iid = save_instance(engine, ep, [model], engine_id=f"chip-smoke-ret-{dtype}",
                             engine_variant="ret", engine_factory=REC_FACTORY, storage=storage)
         mode = "int8" if dtype == "int8" else "bf16"
-        kernels = {"k4": K4_CALLS % mode, "k5": K5_CALLS % "gather",
+        kernels = {"k4": K4_CALLS % mode, "k5": K5_CALLS % "gather", **K4_ROUTES,
                    "k4_kernels": "pio_k4_kernel_launches", "k5_kernels": "pio_k5_kernel_launches",
                    "k2": 'pio_k2_calls{kernel="gather_top_k_batch",route="tile"}',
                    "probes": "pio_retrieval_probes_total"}
@@ -4110,7 +4149,7 @@ def sim_retrieval(torch, device, storage, basedir, stats, servers) -> dict:
     def key(q):
         return json.dumps(q, sort_keys=True)
 
-    kernels = {"k4": K4_CALLS % "bf16", "k5": K5_CALLS % "sum_rows",
+    kernels = {"k4": K4_CALLS % "bf16", "k5": K5_CALLS % "sum_rows", **K4_ROUTES,
                "k4_kernels": "pio_k4_kernel_launches", "k5_kernels": "pio_k5_kernel_launches",
                "k2s": 'pio_k2_calls{kernel="sum_rows_top_k_batch",route="tile"}'}
     t0 = time.perf_counter()
@@ -4130,6 +4169,8 @@ def sim_retrieval(torch, device, storage, basedir, stats, servers) -> dict:
         f"i{int(x)}" for x in topk_ids(topk, model, device, q, 20)]} for q in simple[:50]]
     expected_black = plain_sim(torch, retrieval, topk, model, device, black)
     solo = retrieval_round(server, black, 1, key, kernels)
+    # k = pow2(10 + 21..24 excluded) = 64, k' = 512: the stream route
+    check_dispatch_counts(solo, 0, "similar blackList", route="stream")
     hits = covered = 0
     for qs, exp, answers in ((simple, expected, levels[1]["answers"]),
                              (black, expected_black, solo["answers"])):
@@ -4234,9 +4275,8 @@ def retrieval_serving(torch, device, stats):
     main = [out["recommendation"][d][f"c{c}"] for d in out["recommendation"] for c in RET_LEVELS]
     main += [out["similar"][f"c{c}"] for c in RET_LEVELS] + [out["similar"]["blacklist_solo"]]
     stats["ret_launches"] = {
-        "k4": sum(lv["k4"] for lv in main), "k5": sum(lv["k5"] for lv in main),
-        "k4_kernels": sum(lv["k4_kernels"] for lv in main),
-        "k5_kernels": sum(lv["k5_kernels"] for lv in main)}
+        name: sum(lv[name] for lv in main)
+        for name in ("k4", "k4_warp", "k4_stream", "k5", "k4_kernels", "k5_kernels")}
     stats["retrieval"] = out
 
 
@@ -4246,17 +4286,61 @@ def two_stage_bound(mem_rate, fp32_rate, nbytes: float, flops: float) -> dict:
             "bound_by": "bytes" if t_b >= t_o else "operations"}
 
 
-@phase("retimes: K4, K5 and exact K2 at 1M and 10M items")
+INT8_PEAK = 1979e12  # H100 SXM dense int8 tensor OP/s (NVIDIA data sheet)
+
+
+def k4_bound(mem_rate, fp32_rate, rows: int, B: int, kp: int, mode: str) -> dict:
+    """K4's least time: the bytes (the catalog once, I * 2D for bf16 and
+    I * (D + 4) for int8, the queries, the [B, k'] winners) against the
+    memory rate; and 2 * B * I * D operations -- for int8 and bf16 the
+    products and sums that bit-equality keeps apart (no FMA), FP32
+    instructions at half the FMA peak; for int8_dot int8 x int8 sums, at
+    the int8 tensor rate."""
+    elem = 2 * RET_D if mode == "bf16" else RET_D + 4
+    nbytes = rows * elem + B * RET_D * 4 + B * kp * 8
+    ops = 2.0 * B * rows * RET_D
+    rate = INT8_PEAK if mode == "int8_dot" else fp32_rate / 2
+    t_b, t_o = nbytes / mem_rate, ops / rate
+    return {"bytes": nbytes, "ops": ops, "bytes_ms": t_b * 1e3, "ops_ms": t_o * 1e3,
+            "bound_ms": max(t_b, t_o) * 1e3, "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+def k4_route_times(torch, retrieval, cat, q, rows: int, kp: int, mode: str, bound: dict) -> dict:
+    """The warp route (``coarse_topk`` at k' <= 128) against the stream
+    route (``_coarse_topk_stream``) on the same inputs: their answers bit
+    for bit, then device ms per call in turns (stream, warp, warp,
+    stream), each beside the bound."""
+    def warp():
+        return retrieval.coarse_topk(q, cat._tiles, cat._scales, rows, kp, mode)
+
+    def stream():
+        return retrieval._coarse_topk_stream(q, cat._tiles, cat._scales, rows, kp, mode)
+
+    (sw, iw), (ss, i_s) = warp(), stream()
+    torch.cuda.synchronize()
+    if not (same_bits(torch, sw, ss) and bool(torch.equal(iw, i_s))):
+        raise AssertionError(f"K4 {mode} I={rows} B={len(q)} k'={kp}: routes differ")
+    t = {"stream": [], "warp": []}
+    for name in ("stream", "warp", "warp", "stream"):
+        t[name].append(_total(device_ms(torch, warp if name == "warp" else stream, runs=20)))
+    w, st = statistics.mean(t["warp"]), statistics.mean(t["stream"])
+    return {"warp_ms": w, "stream_ms": st, "warp_runs_ms": t["warp"], "stream_runs_ms": t["stream"],
+            "stream_over_warp": st / w, "warp_over_bound": w / bound["bound_ms"], **bound}
+
+
+@phase("retimes: K4's routes, K5 and exact K2 at 1M and 10M items")
 def retrieval_timings(torch, device, stats):
-    """At I = 1,000,000 and 10,000,000, D = 32, B = 8, num = 10 (k = 16,
-    k' = 128): device time per call (``torch.profiler``) of K4 per mode
-    and of K5, each beside its plain version, its bound and a one-call
-    PyTorch yardstick (``torch.topk`` of the dense product, the int8
-    values cast to f32; ``torch.topk(einsum)`` of the gathered rows for
-    K5); and two-stage (K4 + K5) beside the exact path on the same
-    catalog and batch: K2's tile route and ``torch.topk(u @ V.T)``, f32
-    and int8 tables. Per-call times of whole paths are CUDA-event
-    medians."""
+    """At I = 1,000,000 and 10,000,000, D = 32: K4's warp route against
+    its stream route on the same inputs (every mode, B = 8 at k' = 32 and
+    128; at 1M also B = 1 and 64 at k' = 128), each beside its bound;
+    at B = 8, num = 10 (k = 16, k' = 128): device time per call
+    (``torch.profiler``) of K4 (the warp route) per mode and of K5, each
+    beside its plain version, its bound and a one-call PyTorch yardstick
+    (``torch.topk`` of the dense product, the int8 values cast to f32;
+    ``torch.topk(einsum)`` of the gathered rows for K5); and two-stage
+    (K4 + K5) beside the exact path on the same catalog and batch: K2's
+    tile route and ``torch.topk(u @ V.T)``, f32 and int8 tables. Per-call
+    times of whole paths are CUDA-event medians."""
     from predictionio_tpu_torch.ops import retrieval, topk
 
     mem_rate, fp32_rate = peaks(stats["device_name"])
@@ -4265,6 +4349,7 @@ def retrieval_timings(torch, device, stats):
     U = torch.randn((U_ROWS, RET_D), generator=gen, device=device)
     uixs = torch.arange(B, dtype=torch.int32, device=device) * 17
     q = U[uixs.long()].contiguous()
+    q64 = U[torch.arange(64, device=device) * 17].contiguous()
     out = {}
     for rows in RET_ROWS:
         f, pair = coarse_pair(torch, rows, SEED + 51, device)
@@ -4272,9 +4357,14 @@ def retrieval_timings(torch, device, stats):
         del f
         cats = {"int8": retrieval.CoarseCatalog(pair, device=device),
                 "bf16": retrieval.CoarseCatalog(host(V), device=device)}
-        res = {"k4": {}, "k5": {}, "paths": {}}
+        res = {"k4": {}, "k4_routes": {}, "k5": {}, "paths": {}}
         for mode in retrieval.MODES:
             cat = cats["bf16" if mode == "bf16" else "int8"]
+            cases = [(8, 32), (8, 128)] + ([(1, 128), (64, 128)] if rows == RET_ROWS[0] else [])
+            for b, kk in cases:
+                res["k4_routes"][f"{mode} B={b} k'={kk}"] = k4_route_times(
+                    torch, retrieval, cat, q64[:b], rows, kk, mode,
+                    k4_bound(mem_rate, fp32_rate, rows, b, kk, mode))
             vals = cat._tiles.view(-1, RET_D)[:rows]
             sc = None if cat._scales is None else cat._scales.view(-1)[:rows]
 
@@ -4297,15 +4387,16 @@ def retrieval_timings(torch, device, stats):
                     return torch.topk((qi.float() @ vals.float().T) * sc, kp)
             dev = device_ms(torch, call, runs=20)
             lib_dev = device_ms(torch, lib, runs=5)
-            elem = 2 * RET_D if mode == "bf16" else RET_D + 4
+            route = res["k4_routes"][f"{mode} B={B} k'={kp}"]
             res["k4"][mode] = {
-                "kernel_device_ms": _total(dev), "tile_device_ms": _total(dev, "coarse_tile"),
-                "merge_device_ms": _total(dev, "coarse_merge"),
+                "kernel_device_ms": _total(dev),
+                "warp_kernel_device_ms": _total(dev, "coarse_warp"),
+                "stream_device_ms": route["stream_ms"],
                 "plain_ms": cuda_median_ms(torch, plain, runs=3, warmup=1),
                 "library_device_ms": _total(lib_dev),
-                "plan": retrieval.k4_plan(B, rows, RET_D, kp, retrieval._sm_count(device))._asdict(),
-                **two_stage_bound(mem_rate, fp32_rate,
-                                  rows * elem + B * RET_D * 4 + B * kp * 8, 2.0 * B * rows * RET_D)}
+                "plan": retrieval.k4_plan(B, rows, RET_D, kp, retrieval._sm_count(device),
+                                          mode)._asdict(),
+                **k4_bound(mem_rate, fp32_rate, rows, B, kp, mode)}
         _, cand = retrieval.coarse_topk(q, cats["bf16"]._tiles, None, rows, kp, "bf16")
         for name, table in (("float32", V), ("int8", pair)):
 
@@ -4357,28 +4448,34 @@ def retrieval_timings(torch, device, stats):
     stats["retimes"] = out
 
 
-def k4_summary(stats) -> dict:
-    """K4's line: I = 1,000,000, D = 32, B = 8, k' = 128, bf16 (the coarse
-    mode of the f32 recommendation model the retrieval phase serves);
-    launches: the K4 calls of the retrieval phase's query rounds, from
-    the servers' /metrics."""
-    t = stats["retimes"][str(RET_ITEMS)]["k4"]["bf16"]
-    return {
-        "name": "coarse_topk",
+def k4_summary(stats) -> list:
+    """K4's lines, one a route: I = 1,000,000, D = 32, B = 8, k' = 128,
+    bf16 (the coarse mode of the f32 recommendation model the retrieval
+    phase serves), the two routes on the same inputs, so each has the
+    same plain version, yardstick and bound; launches: the K4 calls on
+    each route of the retrieval phase's query rounds, from the servers'
+    /metrics (the stream route serves its blackList queries, k' = 512)."""
+    t = stats["retimes"][str(RET_ITEMS)]["k4"]
+    b = t["bf16"]
+    common = {
         "route": "cuda",
         "source": "predictionio_tpu_torch/csrc/retrieval.cu",
         "replaces": "predictionio_tpu/ops/retrieval.py:212",
-        "launches": stats["ret_launches"]["k4"],
         "max_abs_err": stats["k4_max_abs_err"],
-        "ms": t["kernel_device_ms"],
-        "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"],
-        "library_ms": t["library_device_ms"],
-        "kernel_launches": stats["ret_launches"]["k4_kernels"],
-        "by_mode_ms": {m: r["kernel_device_ms"] for m, r in
-                       stats["retimes"][str(RET_ITEMS)]["k4"].items()},
+        "plain_ms": b["plain_ms"],
+        "bound_ms": b["bound_ms"],
+        "bound_by": b["bound_by"],
+        "library_ms": b["library_device_ms"],
     }
+    return [
+        {"name": "coarse_topk", "k4_route": "warp", **common,
+         "launches": stats["ret_launches"]["k4_warp"], "ms": b["kernel_device_ms"],
+         "kernel_launches": stats["ret_launches"]["k4_kernels"],
+         "by_mode_ms": {m: r["kernel_device_ms"] for m, r in t.items()}},
+        {"name": "coarse_topk_stream", "k4_route": "stream", **common,
+         "launches": stats["ret_launches"]["k4_stream"], "ms": b["stream_device_ms"],
+         "by_mode_ms": {m: r["stream_device_ms"] for m, r in t.items()}},
+    ]
 
 
 def k5_summary(stats) -> dict:
@@ -4641,7 +4738,7 @@ def main() -> int:
         "batch_sizes": stats["batchserve"][f"window_{BATCH_WINDOW_MS:g}ms"][64]["batch_sizes"],
     }, k1_summary(stats), k1i_summary(stats), k2s_summary(stats),
         k1s_summary(stats), topk_items_summary(stats), k3_summary(stats),
-        k4_summary(stats), k5_summary(stats)]}))
+        *k4_summary(stats), k5_summary(stats)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -22,11 +22,56 @@
 // merge's initial (-1e30, -1) entries), and a row with fewer than k' such
 // rows ends in (-1e30, -1).
 //
-// What bounds K4 on an H100: reading the coarse catalog once, I * (D + 4)
-// bytes for int8 (0.107 ms at I = 10M, D = 32, against 3.35 TB/s) and I *
-// 2D for bf16; the f32 operations, 2 * B * I * D, are below that at the
-// serving batch sizes. Its design keeps the [B, I] scores out of device
-// memory (320 MB at B = 8, I = 10M) and takes any k' up to MAX_K:
+// K4 takes one of two routes, picked per call by ops/retrieval.py
+// k4_route from k':
+//
+// The warp route, k' <= WARP_MAX_K = 128 (every serving call at num <=
+// 16: k' = 32 at the templates' default num = 4, 128 at num = 10), one
+// launch, coarse_warp_kernel. A block of nw warps (8, fewer only when
+// wide rows overflow shared memory) serves RB query rows over W catalog
+// rows, one block an SM. Each warp owns W / nw contiguous rows and keeps,
+// for each of its RB queries, its running best L = max(K, 32) composites
+// in registers (K / 32 u64 a lane, at most 4), sorted descending; their
+// K-th is its admission threshold.
+//   - Rows in flight: a round stages the warp's next 64 rows into its
+//     ring of two stages (cp.async, 16-byte words; rows padded by 16
+//     bytes, so lanes reading their own rows do not conflict) before it
+//     scores this round's.
+//   - Scoring: each lane scores 2 rows against the RB queries, read as
+//     16-byte broadcasts from shared memory and used for both rows, so a
+//     product is one FP32 mul and one add.
+//   - Admission: composites above the threshold go to a per-warp queue
+//     in shared memory (ballot + prefix). Once a queue holds more than
+//     64, the warp sorts it with K2's bitonic networks
+//     (csrc/warp_select.cuh) and folds it into the list. A warp
+//     publishes its K-th to the block (atomicMax in shared memory) and
+//     admits against the largest published: the global K-th is at least
+//     any warp's. No block barrier in the loop: ballots, shuffles and
+//     __syncwarp only.
+//   - Block end: the warps' lists fold once through shared memory into
+//     the block's best K, written to the [B, nblk, K] u64 workspace.
+//   - The merge, in the same launch: each block takes a ticket
+//     (__threadfence, then atomicAdd on its query group's counter, which
+//     the merging block sets back to 0). The last block of a group merges
+//     the group's nblk lists: only entries at or above the largest of the
+//     lists' K-th entries (a bound on the global K-th) enter, column by
+//     column from the lists' heads (mcols columns of every list staged in
+//     shared memory at once), until a column admits nothing.
+// Why: the stream route spends about ten times its scoring on
+// selection (four block barriers and a prefix over 8 warps every round of
+// 256 rows, bitonic sorts of every query's buffer with a barrier a stage,
+// and a merge launch of only B blocks). Here a warp admits about
+// K (1 + ln(rows / K)) of its rows, and only those cost a sort.
+// What bounds it on an H100: the bytes, read once, I * (D + 4) for int8
+// and I * 2D for bf16 (0.019 ms for bf16 at I = 1M, D = 32, against
+// 3.35 TB/s); and the arithmetic that bit-equality fixes, products and
+// sums as separate FP32 instructions, 2 * B * I * D of them at half the
+// 67 TFLOP/s FMA peak (0.015 ms at B = 8, I = 1M; 0.12 ms at B = 64).
+// The admissions' sorts come on top.
+//
+// The stream route, 128 < k' <= MAX_K = 8192 (num > 16), two launches.
+// It keeps the [B, I] scores out of device memory (320 MB at B = 8,
+// I = 10M) at any k' up to MAX_K:
 //   launch 1, coarse_tile_kernel: a 256-thread block per (range of W
 //     catalog rows, RB query rows). Each thread scores one row at a time
 //     against the block's RB queries (kept in shared memory), and the
@@ -69,6 +114,8 @@
 namespace {
 
 typedef unsigned long long u64;
+
+#include "warp_select.cuh"
 
 constexpr float NEG_INF = -1e30f;       // ops/retrieval.py NEG_INF
 constexpr float REPORT_FLOOR = -5e29f;  // NEG_INF / 2: winners at or below report -1
@@ -436,6 +483,600 @@ coarse_merge_kernel(const u64* __restrict__ ws, int nblk, int K, int S, int lg_s
   }
 }
 
+// -- K4's warp route: k' <= WARP_MAX_K (see the note at the top) ------------
+
+constexpr int WARP_THREADS = 256;            // a warp-route block: at most 8 warps
+constexpr int LANE_ROWS = 2;                 // rows a lane scores a round
+constexpr int ROUND_ROWS = 32 * LANE_ROWS;   // rows a warp stages a round
+constexpr int QUEUE = 128;                   // a warp's queue of admissions, per query
+constexpr int WARP_MAX_K = 128;              // ops/retrieval.py K4_WARP_MAX_K
+constexpr int MERGE_MAX_COLS = 8;            // list columns the merge stages a batch
+constexpr int MAX_STAGES = 4;                // a warp's ring: rounds staged ahead + 1
+constexpr int MAX_WARPS = WARP_THREADS / 32;
+
+struct WarpArgs {
+  const float* q;        // [B, D] f32 queries
+  int B, D, Dp;          // Dp: D rounded up to 16
+  const void* V;         // [v_rows, D] int8 or bf16, 16-byte aligned
+  const float* scales;   // [v_rows] (int8 modes), 16-byte aligned, else null
+  long long num_rows;    // rows past it are padding, never read
+  long long v_rows;      // rows of V: staging never reads past them
+  long long W;           // rows a block owns, a multiple of ROUND_ROWS * nw
+  int nblk, nw;          // blocks of a query group (gridDim.x), warps of a block
+  int k, K;              // winners; the power of two >= k
+  int rowbytes;          // D * element size
+  bool vec;              // rows are whole 16-byte words: staged padded, read 16 at a time
+  int rows_bytes, stage_bytes;  // a stage's rows, then its scales
+  int stages;            // a warp's ring: stages - 1 rounds in flight while one is scored
+  int mcols;             // list columns the merge stages a batch
+  u64* ws;               // [B, nblk, K]
+  unsigned* tickets;     // [gridDim.y] arrivals, 0 between calls
+  float* out_scores;     // [B, k]
+  int* out_ids;
+};
+
+// Shared memory of a warp-route block: the queries (f32, then int8); the
+// block's thresholds (u64 [RB]), each warp's published entries (u64
+// [MAX_WARPS][RB]), the int8_dot quantization's divisors and the
+// last-block flag; each warp's queues (QUEUE composites a query); each
+// warp's ring of `stages` stages.
+__host__ __device__ constexpr size_t warp_head_bytes(int rb, int Dp) {
+  return align16((size_t)rb * Dp * 5) +
+         align16((size_t)rb * ((1 + MAX_WARPS) * sizeof(u64) + sizeof(float)) + sizeof(int));
+}
+
+// A stage's rows: padded to rowbytes + 16 a row when vec, else one span
+// with room for its offset from the 16-byte word below it.
+__host__ __device__ constexpr size_t warp_rows_bytes(int D, int elem, bool vec) {
+  return vec ? ROUND_ROWS * ((size_t)D * elem + 16) : align16(ROUND_ROWS * (size_t)D * elem + 32);
+}
+
+// A stage: its rows, then their scales (int8 modes).
+__host__ __device__ constexpr size_t warp_stage_bytes(int D, int elem, bool vec, bool scaled) {
+  return warp_rows_bytes(D, elem, vec) + (scaled ? ROUND_ROWS * sizeof(float) : 0);
+}
+
+__host__ __device__ constexpr size_t warp_smem_bytes(int rb, int nw, int D, int elem, bool vec,
+                                                     bool scaled, int stages) {
+  return warp_head_bytes(rb, (D + 15) / 16 * 16) + (size_t)nw * rb * QUEUE * sizeof(u64) +
+         (size_t)nw * stages * warp_stage_bytes(D, elem, vec, scaled);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most n (< MAX_STAGES) of the thread's groups are pending.
+__device__ __forceinline__ void cp_async_wait_at_most(int n) {
+  switch (n) {
+    case 3: cp_async_wait<3>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 1: cp_async_wait<1>(); break;
+    default: cp_async_wait<0>();
+  }
+}
+
+// Stage the bytes [src, src + n) at dst + (src & 15), 16 at a time from the
+// 16-byte word below src; a word that would reach past `limit` (the end of
+// the array) is copied byte by byte. One warp.
+__device__ __forceinline__ void stage_span(unsigned char* dst, const unsigned char* src, size_t n,
+                                           const unsigned char* limit, int lane) {
+  const uintptr_t a0 = (uintptr_t)src & ~(uintptr_t)15;
+  const int words = (int)(((uintptr_t)src + n - a0 + 15) >> 4);
+  for (int w = lane; w < words; w += 32) {
+    const unsigned char* from = reinterpret_cast<const unsigned char*>(a0) + 16 * w;
+    if (from + 16 <= limit) {
+      cp_async16(dst + 16 * w, from);
+    } else {
+      for (int j = 0; j < 16; ++j) dst[16 * w + j] = from + j < limit ? from[j] : 0;
+    }
+  }
+}
+
+// Stage rows [i0, i0 + nr) (nr <= ROUND_ROWS), and their scales, into a
+// stage: padded to rowbytes + 16 a row when a.vec (16-byte words, no bank
+// conflicts when each lane reads its own row), else as one span.
+__device__ __forceinline__ void stage_rows(const WarpArgs& a, unsigned char* stage, long long i0,
+                                           int nr, int lane) {
+  const unsigned char* V = static_cast<const unsigned char*>(a.V);
+  if (a.vec) {
+    const int cpr = a.rowbytes >> 4, stride = a.rowbytes + 16;
+    const int lg = (cpr & (cpr - 1)) == 0 ? __ffs(cpr) - 1 : -1;  // a shift, not a division
+    const unsigned char* base = V + (size_t)i0 * a.rowbytes;
+    for (int c = lane; c < nr * cpr; c += 32) {
+      const int r = lg >= 0 ? c >> lg : c / cpr, part = c - r * cpr;
+      cp_async16(stage + r * stride + 16 * part, base + (size_t)r * a.rowbytes + 16 * part);
+    }
+  } else {
+    stage_span(stage, V + (size_t)i0 * a.rowbytes, (size_t)nr * a.rowbytes,
+               V + (size_t)a.v_rows * a.rowbytes, lane);
+  }
+  if (a.scales != nullptr) {
+    const unsigned char* sc = reinterpret_cast<const unsigned char*>(a.scales);
+    stage_span(stage + a.rows_bytes, sc + (size_t)i0 * 4, (size_t)nr * 4,
+               sc + (size_t)a.v_rows * 4, lane);  // i0 % ROUND_ROWS == 0: no offset
+  }
+}
+
+// acc = (((acc + q.x v0) + q.y v1) + q.z v2) + q.w v3, each product and sum rounded.
+__device__ __forceinline__ float dot4(float acc, const float4 q, const float (&v)[4]) {
+  acc = __fadd_rn(acc, __fmul_rn(q.x, v[0]));
+  acc = __fadd_rn(acc, __fmul_rn(q.y, v[1]));
+  acc = __fadd_rn(acc, __fmul_rn(q.z, v[2]));
+  return __fadd_rn(acc, __fmul_rn(q.w, v[3]));
+}
+
+// Element e of a staged row (generic layout).
+template <int MODE>
+__device__ __forceinline__ float staged_value(const unsigned char* row, int d) {
+  if constexpr (MODE == BF16)
+    return __uint_as_float((uint32_t)*reinterpret_cast<const unsigned short*>(row + 2 * d) << 16);
+  else
+    return (float)(int8_t)row[d];
+}
+
+// The scores of the lane's LANE_ROWS rows of the stage holding rows from
+// i0 on (staged rows lane + 32 r) against the block's RB queries: the
+// note's arithmetic, d in order. The queries are read as 16-byte
+// broadcasts, each serving LANE_ROWS rows.
+template <int RB, int MODE>
+__device__ __forceinline__ void warp_scores(const WarpArgs& a, const unsigned char* stage,
+                                            long long i0, const float* qf, const int8_t* qb,
+                                            int lane, float (&s)[LANE_ROWS][RB]) {
+  const int D = a.D, Dp = a.Dp;
+  const int shift = (int)(((uintptr_t)a.V + (size_t)i0 * a.rowbytes) & 15);  // stage_span's
+  const unsigned char* row[LANE_ROWS];
+#pragma unroll
+  for (int r = 0; r < LANE_ROWS; ++r)
+    row[r] = a.vec ? stage + (lane + 32 * r) * (a.rowbytes + 16)
+                   : stage + shift + (lane + 32 * r) * a.rowbytes;
+  const float* scl = reinterpret_cast<const float*>(stage + a.rows_bytes);
+  if constexpr (MODE == INT8_DOT) {
+    int acc[LANE_ROWS][RB];
+#pragma unroll
+    for (int r = 0; r < LANE_ROWS; ++r)
+#pragma unroll
+      for (int b = 0; b < RB; ++b) acc[r][b] = 0;
+    if (a.vec) {
+      for (int d0 = 0; d0 < D; d0 += 16) {
+        int4 w[LANE_ROWS];
+#pragma unroll
+        for (int r = 0; r < LANE_ROWS; ++r) w[r] = *reinterpret_cast<const int4*>(row[r] + d0);
+#pragma unroll
+        for (int b = 0; b < RB; ++b) {
+          const int4 qv = *reinterpret_cast<const int4*>(qb + b * Dp + d0);
+#pragma unroll
+          for (int r = 0; r < LANE_ROWS; ++r) {
+            int x = __dp4a(w[r].x, qv.x, acc[r][b]);
+            x = __dp4a(w[r].y, qv.y, x);
+            x = __dp4a(w[r].z, qv.z, x);
+            acc[r][b] = __dp4a(w[r].w, qv.w, x);
+          }
+        }
+      }
+    } else {
+      for (int d = 0; d < D; ++d) {
+        int v[LANE_ROWS];
+#pragma unroll
+        for (int r = 0; r < LANE_ROWS; ++r) v[r] = (int)(int8_t)row[r][d];
+#pragma unroll
+        for (int b = 0; b < RB; ++b) {
+          const int qd = qb[b * Dp + d];
+#pragma unroll
+          for (int r = 0; r < LANE_ROWS; ++r) acc[r][b] += v[r] * qd;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < LANE_ROWS; ++r) {
+      const float sc = scl[lane + 32 * r];
+#pragma unroll
+      for (int b = 0; b < RB; ++b) s[r][b] = __fmul_rn(__int2float_rn(acc[r][b]), sc);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < LANE_ROWS; ++r)
+#pragma unroll
+      for (int b = 0; b < RB; ++b) s[r][b] = 0.0f;
+    if (a.vec) {
+      constexpr int STEP = MODE == BF16 ? 8 : 16;  // the elements of a 16-byte word
+      for (int d0 = 0; d0 < D; d0 += STEP) {
+        uint4 w[LANE_ROWS];
+#pragma unroll
+        for (int r = 0; r < LANE_ROWS; ++r)
+          w[r] = *reinterpret_cast<const uint4*>(row[r] + (MODE == BF16 ? 2 : 1) * d0);
+#pragma unroll
+        for (int g = 0; g < STEP / 4; ++g) {  // four dims at a time
+          float v[LANE_ROWS][4];
+#pragma unroll
+          for (int r = 0; r < LANE_ROWS; ++r) {
+            const uint32_t word[4] = {w[r].x, w[r].y, w[r].z, w[r].w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              if constexpr (MODE == BF16) {
+                const uint32_t x = word[(4 * g + e) >> 1];
+                v[r][e] = __uint_as_float(((4 * g + e) & 1) ? (x & 0xFFFF0000u) : (x << 16));
+              } else {
+                v[r][e] = (float)(int8_t)(word[g] >> (8 * e));
+              }
+            }
+          }
+#pragma unroll
+          for (int b = 0; b < RB; ++b) {
+            const float4 qv = *reinterpret_cast<const float4*>(qf + b * Dp + d0 + 4 * g);
+#pragma unroll
+            for (int r = 0; r < LANE_ROWS; ++r) s[r][b] = dot4(s[r][b], qv, v[r]);
+          }
+        }
+      }
+    } else {
+      int d = 0;
+      for (; d + 4 <= D; d += 4) {
+        float v[LANE_ROWS][4];
+#pragma unroll
+        for (int r = 0; r < LANE_ROWS; ++r)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[r][e] = staged_value<MODE>(row[r], d + e);
+#pragma unroll
+        for (int b = 0; b < RB; ++b) {
+          const float4 qv = *reinterpret_cast<const float4*>(qf + b * Dp + d);
+#pragma unroll
+          for (int r = 0; r < LANE_ROWS; ++r) s[r][b] = dot4(s[r][b], qv, v[r]);
+        }
+      }
+      for (; d < D; ++d) {
+        float v[LANE_ROWS];
+#pragma unroll
+        for (int r = 0; r < LANE_ROWS; ++r) v[r] = staged_value<MODE>(row[r], d);
+#pragma unroll
+        for (int b = 0; b < RB; ++b) {
+          const float qd = qf[b * Dp + d];
+#pragma unroll
+          for (int r = 0; r < LANE_ROWS; ++r) s[r][b] = __fadd_rn(s[r][b], __fmul_rn(qd, v[r]));
+        }
+      }
+    }
+    if constexpr (MODE == INT8) {
+#pragma unroll
+      for (int r = 0; r < LANE_ROWS; ++r) {
+        const float sc = scl[lane + 32 * r];
+#pragma unroll
+        for (int b = 0; b < RB; ++b) s[r][b] = __fmul_rn(s[r][b], sc);
+      }
+    }
+  }
+}
+
+// Append the composites above th to a warp's queue q of n entries, in
+// row then lane order (ballot + prefix); n stays the same in every lane.
+__device__ __forceinline__ void queue_offer(const u64 (&c)[LANE_ROWS], u64 th, u64* q, int& n,
+                                            int lane) {
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int r = 0; r < LANE_ROWS; ++r) {
+    const bool in = c[r] > th;
+    const unsigned m = __ballot_sync(0xffffffffu, in);
+    if (in) q[n + __popc(m & below)] = c[r];
+    n += __popc(m);
+  }
+}
+
+// Fold a queue of n <= QUEUE composites into the sorted list `lst` of
+// 32 * EL: the queue is sorted (a bitonic network on as few registers as
+// hold it) and its best 32 * EL folded in (warp_fold: the half-cleaner,
+// then a bitonic merge). The queue may be refilled once it returns.
+template <int EL>
+__device__ __forceinline__ void fold_queue(u64 (&lst)[EL], const u64* q, int n, int lane) {
+  u64 v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = lane + 32 * e < n ? q[lane + 32 * e] : 0ull;
+  __syncwarp();
+  if (n <= 32) {
+    u64 w[1] = {v[0]};
+    warp_sort<1>(w, lane);
+    v[0] = w[0];
+  } else if (n <= 64) {
+    u64 w[2] = {v[0], v[1]};
+    warp_sort<2>(w, lane);
+    v[0] = w[0];
+    v[1] = w[1];
+  } else {
+    warp_sort<4>(v, lane);
+  }
+  u64 w[EL];  // the queue's best 32 * EL
+#pragma unroll
+  for (int e = 0; e < EL; ++e) w[e] = v[e];
+  warp_fold<EL>(lst, w, lane);
+}
+
+// Entry p (< 32 * EL) of a warp's sorted list, in every lane.
+template <int EL>
+__device__ __forceinline__ u64 list_entry(const u64 (&lst)[EL], int p, int lane) {
+  u64 v = lst[0];
+#pragma unroll
+  for (int e = 1; e < EL; ++e)
+    if (p >> 5 == e) v = lst[e];
+  return __shfl_sync(0xffffffffu, v, p & 31);
+}
+
+// Raise each query's admission threshold to what the block knows. Two
+// bounds on the global K-th: the largest K-th a warp published (sthr),
+// and the smallest of the warps' ceil(K / nw)-th entries (pub): all nw
+// warps hold at least that many entries at or above it, K in all. A
+// warp's list only improves, so a stale read is a lower, still valid,
+// bound. The pub minimum takes lane (w, b) = (lane & 7, lane >> 3) and
+// b + 4, then a min over the 8 lanes of each b.
+template <int RB>
+__device__ __forceinline__ void block_thresholds(const u64* sthr, const u64* pub, int lane,
+                                                 u64 (&thr)[RB]) {
+  static_assert(MAX_WARPS == 8 && RB <= 8, "lanes cover [8 warps][8 queries] twice");
+  const volatile u64* vp = pub;
+  const int w = lane & 7, b = lane >> 3;
+  u64 lo = b < RB ? vp[w * RB + b] : ~0ull;
+  u64 hi = b + 4 < RB ? vp[w * RB + b + 4] : ~0ull;
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1) {
+    lo = min64(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    if (RB > 4) hi = min64(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+#pragma unroll
+  for (int q = 0; q < RB; ++q) {
+    const u64 m = __shfl_sync(0xffffffffu, q < 4 ? lo : hi, (q & 3) * 8);
+    thr[q] = max64(thr[q], max64(m, reinterpret_cast<const volatile u64*>(sthr)[q]));
+  }
+}
+
+// K4's warp route, one launch (see the note at the top). Block (x, y)
+// owns catalog rows [x W, (x + 1) W) for query rows [y RB, y RB + RB); its
+// warp w owns a contiguous W / nw of them.
+template <int RB, int EL, int MODE>
+__global__ void __launch_bounds__(WARP_THREADS, 1) coarse_warp_kernel(const WarpArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int b0 = blockIdx.y * RB;
+  const int nb = min(RB, a.B - b0);
+  const int Dp = a.Dp;
+  float* qf = reinterpret_cast<float*>(smem);
+  int8_t* qb = reinterpret_cast<int8_t*>(qf + RB * Dp);
+  u64* sthr = reinterpret_cast<u64*>(smem + align16((size_t)RB * Dp * 5));
+  u64* pub = sthr + RB;  // [MAX_WARPS][RB]
+  float* den = reinterpret_cast<float*>(pub + MAX_WARPS * RB);
+  int* last = reinterpret_cast<int*>(den + RB);
+  u64* queues = reinterpret_cast<u64*>(smem + warp_head_bytes(RB, Dp));
+  unsigned char* rings = reinterpret_cast<unsigned char*>(queues + (size_t)a.nw * RB * QUEUE);
+  u64* queue = queues + (size_t)warp * RB * QUEUE;
+  unsigned char* ring = rings + (size_t)warp * a.stages * a.stage_bytes;
+  const u64 bottom = admit_floor();
+
+  for (int e = t; e < RB * Dp; e += blockDim.x) {
+    const int r = e / Dp, d = e - r * Dp;
+    qf[e] = r < nb && d < a.D ? a.q[(size_t)(b0 + r) * a.D + d] : 0.0f;
+  }
+  if (t < RB) sthr[t] = bottom;
+  if (t < MAX_WARPS * RB) pub[t] = t / RB < a.nw ? bottom : ~0ull;  // absent warps: no bound
+  __syncthreads();
+  if constexpr (MODE == INT8_DOT) {  // the stream route's quantization
+    if (t < RB) {
+      float m = 0.0f;  // max |q|, NaN sticky as jnp.max
+      for (int d = 0; d < a.D; ++d) {
+        const float x = fabsf(qf[t * Dp + d]);
+        m = (x > m || x != x) ? x : m;
+      }
+      const float qs = __fdiv_rn(m, 127.0f);
+      den[t] = qs != qs ? qs : fmaxf(qs, 1e-12f);
+    }
+    __syncthreads();
+    for (int e = t; e < RB * Dp; e += blockDim.x) {
+      const int r = e / Dp, d = e - r * Dp;
+      qb[e] = (int8_t)(d < a.D ? quantize(qf[e], den[r]) : 0);
+    }
+    __syncthreads();
+  }
+
+  // Stream the warp's rows: the next stages - 1 rounds are staged
+  // (cp.async) while this round is scored; no block barrier until the end.
+  u64 list[RB][EL], thr[RB];
+  int cnt[RB];
+#pragma unroll
+  for (int b = 0; b < RB; ++b) {
+#pragma unroll
+    for (int e = 0; e < EL; ++e) list[b][e] = 0ull;
+    thr[b] = bottom;
+    cnt[b] = 0;
+  }
+  const long long wb = (long long)blockIdx.x * a.W + (long long)warp * (a.W / a.nw);
+  const long long we = min(wb + a.W / a.nw, a.num_rows);
+  const int rounds = wb < we ? (int)((we - wb + ROUND_ROWS - 1) / ROUND_ROWS) : 0;
+  const int S = a.stages;
+  const int share_at = (a.K + a.nw - 1) / a.nw;  // the entries each warp vouches for
+  for (int j = 0; j < S - 1; ++j) {  // one group a round, empty past the last
+    const long long i = wb + (long long)j * ROUND_ROWS;
+    if (j < rounds)
+      stage_rows(a, ring + j * a.stage_bytes, i, (int)min((long long)ROUND_ROWS, we - i), lane);
+    cp_async_commit();
+  }
+  for (int j = 0, slot = 0; j < rounds; ++j, slot = slot + 1 == S ? 0 : slot + 1) {
+    const long long i0 = wb + (long long)j * ROUND_ROWS;
+    const int nr = (int)min((long long)ROUND_ROWS, we - i0);
+    const int ahead = j + S - 1;  // into the slot round j - 1 left
+    if (ahead < rounds) {
+      const long long i1 = wb + (long long)ahead * ROUND_ROWS;
+      stage_rows(a, ring + (slot == 0 ? S - 1 : slot - 1) * a.stage_bytes, i1,
+                 (int)min((long long)ROUND_ROWS, we - i1), lane);
+    }
+    cp_async_commit();
+    cp_async_wait_at_most(S - 1);  // round j's group is in
+    __syncwarp();
+    block_thresholds<RB>(sthr, pub, lane, thr);
+    float s[LANE_ROWS][RB];
+    warp_scores<RB, MODE>(a, ring + slot * a.stage_bytes, i0, qf, qb, lane, s);
+#pragma unroll
+    for (int b = 0; b < RB; ++b) {
+      if (b < nb) {
+        u64 c[LANE_ROWS];
+#pragma unroll
+        for (int r = 0; r < LANE_ROWS; ++r) {
+          const int x = lane + 32 * r;
+          c[r] = x < nr ? composite(s[r][b], (uint32_t)(i0 + x)) : 0ull;
+        }
+        queue_offer(c, thr[b], queue + b * QUEUE, cnt[b], lane);
+      }
+    }
+    __syncwarp();  // the stage is scored and the queues written
+    // flush the queues that could not take another round (all, at the end)
+    unsigned need = 0;
+    const bool final_round = j + 1 == rounds;
+#pragma unroll
+    for (int b = 0; b < RB; ++b)
+      need |= (cnt[b] > (final_round ? 0 : QUEUE - ROUND_ROWS) ? 1u : 0u) << b;
+    while (need != 0) {  // warp-uniform; one copy of the flush, b at run time
+      const int fb = __ffs(need) - 1;
+      need &= need - 1;
+      u64 lst[EL];
+      int n = 0;
+#pragma unroll
+      for (int b = 0; b < RB; ++b) {
+        if (b == fb) {
+#pragma unroll
+          for (int e = 0; e < EL; ++e) lst[e] = list[b][e];
+          n = cnt[b];
+        }
+      }
+      fold_queue<EL>(lst, queue + fb * QUEUE, n, lane);
+      const u64 kth = list_entry<EL>(lst, a.K - 1, lane);  // 0 while it holds fewer
+      const u64 share = list_entry<EL>(lst, share_at - 1, lane);
+      if (lane == 0) {  // the bounds the list gives the block; both only rise
+        if (kth > bottom) atomicMax(sthr + fb, kth);
+        if (share > pub[warp * RB + fb]) pub[warp * RB + fb] = share;
+      }
+#pragma unroll
+      for (int b = 0; b < RB; ++b) {
+        if (b == fb) {
+#pragma unroll
+          for (int e = 0; e < EL; ++e) list[b][e] = lst[e];
+          cnt[b] = 0;
+          thr[b] = max64(thr[b], kth);
+        }
+      }
+    }
+  }
+
+  // The block's best K a query: the warps' lists fold through shared
+  // memory, then go to the workspace.
+#pragma unroll
+  for (int b = 0; b < RB; ++b)
+#pragma unroll
+    for (int e = 0; e < EL; ++e) queue[b * QUEUE + lane + 32 * e] = list[b][e];
+  __syncthreads();
+  for (int b = warp; b < nb; b += a.nw) {
+    u64 lst[EL];
+#pragma unroll
+    for (int e = 0; e < EL; ++e) lst[e] = queues[b * QUEUE + lane + 32 * e];
+    for (int w = 1; w < a.nw; ++w) {
+      u64 o[EL];
+#pragma unroll
+      for (int e = 0; e < EL; ++e) o[e] = queues[((size_t)w * RB + b) * QUEUE + lane + 32 * e];
+      warp_fold<EL>(lst, o, lane);
+    }
+    u64* out = a.ws + ((size_t)(b0 + b) * a.nblk + blockIdx.x) * a.K;
+#pragma unroll
+    for (int e = 0; e < EL; ++e)
+      if (lane + 32 * e < a.K) out[lane + 32 * e] = lst[e];
+  }
+
+  // The last block of the query group to arrive merges the group's lists.
+  __threadfence();
+  __syncthreads();
+  if (t == 0) *last = atomicAdd(a.tickets + blockIdx.y, 1u) == (unsigned)(a.nblk - 1);
+  __syncthreads();
+  if (*last == 0) return;
+  __threadfence();
+  if (t == 0) a.tickets[blockIdx.y] = 0u;  // ready for the next call on this stream
+  u64* stg = reinterpret_cast<u64*>(rings);  // [queries][mcols][nblk]: a batch of columns
+  for (int bq0 = 0; bq0 < nb; bq0 += a.nw) {
+    const int nq = min(a.nw, nb - bq0), b = bq0 + warp;
+    const bool mine = warp < nq;  // warp-uniform
+    u64 lst[EL];
+#pragma unroll
+    for (int e = 0; e < EL; ++e) lst[e] = 0ull;
+    int n = 0;
+    u64 th = bottom;
+    bool done = !mine;
+    if (mine) {
+      // the global K-th is at least every list's K-th: only entries at
+      // or above the largest of those enter
+      const u64* src = a.ws + (size_t)(b0 + b) * a.nblk * a.K;
+      u64 bound = 0ull;
+      for (int l = lane; l < a.nblk; l += 32)
+        bound = max64(bound, __ldcg(src + (size_t)l * a.K + a.K - 1));
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) bound = max64(bound, __shfl_xor_sync(0xffffffffu, bound, o));
+      if (bound > bottom) th = bound - 1;
+    }
+    for (int p0 = 0; p0 < a.K; p0 += a.mcols) {
+      const int total = nq * a.mcols * a.nblk;
+#pragma unroll 8
+      for (int e = t; e < total; e += blockDim.x) {
+        const int l = e % a.nblk, qc = e / a.nblk;
+        const int c = qc % a.mcols, qq = qc / a.mcols;
+        stg[e] = __ldcg(a.ws + ((size_t)(b0 + bq0 + qq) * a.nblk + l) * a.K + p0 + c);
+      }
+      __syncthreads();
+      // columns in order, every list's entry p before any list's p + 1;
+      // once a column admits nothing, no later one can (each list
+      // descends and th only rises)
+      for (int c = 0; c < a.mcols && !done; ++c) {
+        const u64* col = stg + ((size_t)warp * a.mcols + c) * a.nblk;
+        bool any = false;
+        for (int l0 = 0; l0 < a.nblk; l0 += ROUND_ROWS) {
+          u64 v[LANE_ROWS];
+#pragma unroll
+          for (int r = 0; r < LANE_ROWS; ++r) {
+            const int l = l0 + lane + 32 * r;
+            v[r] = l < a.nblk ? col[l] : 0ull;
+          }
+          const int before = n;
+          queue_offer(v, th, queue, n, lane);
+          any |= n != before;
+          __syncwarp();
+          if (n > QUEUE - ROUND_ROWS) {
+            fold_queue<EL>(lst, queue, n, lane);
+            th = max64(th, list_entry<EL>(lst, a.K - 1, lane));
+            n = 0;
+          }
+        }
+        done = !any;
+      }
+      if (__syncthreads_and(done)) break;  // also frees the staged batch
+    }
+    if (mine) {
+      __syncwarp();
+      if (n > 0) fold_queue<EL>(lst, queue, n, lane);
+#pragma unroll
+      for (int e = 0; e < EL; ++e) {
+        const int x = lane + 32 * e;
+        if (x < a.k) {
+          const u64 c = lst[e];
+          const size_t o = (size_t)(b0 + b) * a.k + x;
+          a.out_scores[o] = c != 0ull ? composite_score(c) : NEG_INF;
+          a.out_ids[o] = c != 0ull ? (int)composite_pos(c) : -1;
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
 struct RescoreArgs {
   int query;              // GATHER, VECTORS or SUM_ROWS
   const int* ixs;         // [B] user rows (GATHER) or [B, L] catalog rows (SUM_ROWS)
@@ -550,6 +1191,38 @@ cudaError_t launch_tile_rb(int rb, const CoarseArgs& a, cudaStream_t s, int* lau
   }
 }
 
+template <int RB, int EL, int MODE>
+cudaError_t launch_warp(const WarpArgs& a, size_t bytes, cudaStream_t s, int* launched) {
+  cudaError_t err = allow_smem(coarse_warp_kernel<RB, EL, MODE>, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.nblk, (a.B + RB - 1) / RB);
+  coarse_warp_kernel<RB, EL, MODE><<<grid, a.nw * 32, bytes, s>>>(a);
+  return counted(launched);
+}
+
+template <int RB, int MODE>
+cudaError_t launch_warp_el(int el, const WarpArgs& a, size_t bytes, cudaStream_t s,
+                           int* launched) {
+  switch (el) {
+    case 1: return launch_warp<RB, 1, MODE>(a, bytes, s, launched);
+    case 2: return launch_warp<RB, 2, MODE>(a, bytes, s, launched);
+    case 4: return launch_warp<RB, 4, MODE>(a, bytes, s, launched);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int MODE>
+cudaError_t launch_warp_rb(int rb, int el, const WarpArgs& a, size_t bytes, cudaStream_t s,
+                           int* launched) {
+  switch (rb) {
+    case 8: return launch_warp_el<8, MODE>(el, a, bytes, s, launched);
+    case 4: return launch_warp_el<4, MODE>(el, a, bytes, s, launched);
+    case 2: return launch_warp_el<2, MODE>(el, a, bytes, s, launched);
+    case 1: return launch_warp_el<1, MODE>(el, a, bytes, s, launched);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename TV>
 cudaError_t launch_rescore(const RescoreArgs& a, int B, cudaStream_t s, int* launched) {
   const size_t bytes = (size_t)a.S2 * sizeof(u64) + (size_t)a.D * sizeof(float);
@@ -618,6 +1291,60 @@ int pio_k4_coarse_top_k(const float* q, int B, int D, const void* V, const float
   coarse_merge_kernel<<<B, MERGE_THREADS, bytes, s>>>(static_cast<const u64*>(ws), nblk, K,
                                                      S2, lg_s2, k, out_scores, out_ids);
   return (int)counted(launched);
+}
+
+// Shared-memory bytes of a warp-route block of `rb` query rows, `nw`
+// warps and rings of `stages` at query width D in `mode`: ops/retrieval.py
+// k4_warp_plan sizes nw and stages by it. -1 for arguments no block takes.
+long long pio_k4_warp_smem(int rb, int nw, int D, int mode, int stages) {
+  if ((rb != 1 && rb != 2 && rb != 4 && rb != 8) || nw < 1 || nw > MAX_WARPS || D <= 0 ||
+      mode < INT8 || mode > BF16 || stages < 2 || stages > MAX_STAGES)
+    return -1;
+  const int elem = mode == BF16 ? 2 : 1;
+  return (long long)warp_smem_bytes(rb, nw, D, elem, (D * elem) % 16 == 0, mode != BF16, stages);
+}
+
+// K4's warp route (k <= WARP_MAX_K): the best k of each of B query rows
+// over the coarse catalog, in one launch. q, V, scales, num_rows, mode as
+// pio_k4_coarse_top_k; V and scales 16-byte aligned, v_rows the rows V
+// holds. Plan (ops/retrieval.py k4_warp_plan): rb query rows and nw warps
+// a block, W catalog rows a block (a multiple of 64 * nw; nblk =
+// ceil(num_rows / W) blocks a query group), a ring of `stages` a warp,
+// mcols list columns a merge batch. ws: [B, nblk, K] u64 workspace; tickets: [ceil(B / rb)] u32,
+// zero before the first call on a stream (the merging blocks leave them
+// zero). Outputs [B, k] f32 scores and int32 ids.
+int pio_k4_warp_top_k(const float* q, int B, int D, const void* V, const float* scales,
+                      long long num_rows, long long v_rows, int mode, int k, int rb, int nw,
+                      long long W, int nblk, int stages, int mcols, void* ws,
+                      unsigned* tickets, float* out_scores, int* out_ids, int* launched,
+                      void* stream) {
+  int K = 1;
+  while (K < k) K <<= 1;
+  const long long smem = pio_k4_warp_smem(rb, nw, D, mode, stages);
+  if (B <= 0 || num_rows <= 0 || v_rows < num_rows || k <= 0 || k > WARP_MAX_K || smem < 0 ||
+      W <= 0 || W % ((long long)ROUND_ROWS * nw) != 0 || nblk != (int)((num_rows + W - 1) / W) ||
+      mcols <= 0 || (mcols & (mcols - 1)) != 0 || mcols > K || mcols > MERGE_MAX_COLS ||
+      (B + rb - 1) / rb > 65535 || tickets == nullptr || launched == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if ((mode == BF16) != (scales == nullptr) || ((uintptr_t)V & 15u) != 0 ||
+      ((uintptr_t)scales & 15u) != 0)
+    return (int)cudaErrorInvalidValue;
+  const int elem = mode == BF16 ? 2 : 1;
+  const bool vec = (D * elem) % 16 == 0;
+  const size_t stage = warp_stage_bytes(D, elem, vec, mode != BF16);
+  if ((size_t)(nw < rb ? nw : rb) * mcols * nblk * sizeof(u64) > (size_t)nw * stages * stage)
+    return (int)cudaErrorInvalidValue;  // a merge batch must fit the rings
+  const WarpArgs a{q, B, D, (D + 15) / 16 * 16, V, scales, num_rows, v_rows, W, nblk, nw, k, K,
+                   D * elem, vec, (int)warp_rows_bytes(D, elem, vec), (int)stage, stages, mcols,
+                   static_cast<u64*>(ws), tickets, out_scores, out_ids};
+  const int el = K <= 32 ? 1 : K / 32;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case INT8: return (int)launch_warp_rb<INT8>(rb, el, a, (size_t)smem, s, launched);
+    case INT8_DOT: return (int)launch_warp_rb<INT8_DOT>(rb, el, a, (size_t)smem, s, launched);
+    case BF16: return (int)launch_warp_rb<BF16>(rb, el, a, (size_t)smem, s, launched);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // K5: the best k of each query row's shortlist cand [B, S] by exact score,

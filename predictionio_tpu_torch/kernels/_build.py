@@ -5,9 +5,10 @@ into a shared library with a plain C interface and loaded with
 ``ctypes`` -- no PyTorch headers, so a build takes seconds. The build
 runs at first use, from the sources in the package, into ``_build/``
 beside them (listed in ``.gitignore``). The library's name carries a
-hash of its source, so an edited kernel is rebuilt and a stale one is
-never loaded. A failed build raises; there is no fallback. Each build is
-counted in ``obs/device.py`` (``pio_jit_compiles_total{fn}``).
+hash of its source and of the shared headers (``csrc/*.cuh``), so an
+edited kernel is rebuilt and a stale one is never loaded. A failed build
+raises; there is no fallback. Each build is counted in ``obs/device.py``
+(``pio_jit_compiles_total{fn}``).
 
 Nothing here runs at import: the CPU tests import every module, and a
 machine without a GPU has no ``nvcc``.
@@ -97,6 +98,15 @@ def _compile(src: Path, out: Path) -> dict:
     return {"seconds": seconds, "log": log, "cached": False}
 
 
+def _digest(src: Path) -> str:
+    """Hash of a source and of the headers beside it (``csrc/*.cuh``,
+    which sources include), so an edited header rebuilds them."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use.
     Different sources build concurrently (one lock per source)."""
@@ -111,7 +121,7 @@ def load(name: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+        digest = _digest(src)
         out = BUILD_DIR / f"lib{name}-{digest}.so"
         if out.exists():
             info = {"seconds": 0.0, "log": "", "cached": True}

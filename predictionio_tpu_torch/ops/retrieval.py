@@ -36,11 +36,14 @@ query exactly and publishes recall; default 256, 0 disables).
 On a CUDA tensor each kernel wrapper launches its kernel or raises; on a
 CPU tensor it runs the plain PyTorch version beside it
 (:func:`coarse_topk_reference`, :func:`rescore_top_k_reference`). K4
-takes ``k'`` up to :data:`K4_MAX_K` on the card and raises above it.
+takes ``k'`` up to :data:`K4_MAX_K` on the card and raises above it, by
+one of two routes (:func:`k4_route`): the warp route for ``k'`` up to
+:data:`K4_WARP_MAX_K` (one launch), the stream route above (two).
 ``coarse_topk.launches`` / ``rescore_top_k.launches`` count calls on the
-card (``modes`` / ``queries`` by form, ``kernel_launches`` the kernels,
-as the C entries count them); ``/metrics`` reads them as ``pio_k4_calls
-{mode}`` and ``pio_k5_calls{query}``.
+card (``modes`` / ``queries`` by form, ``coarse_topk.routes`` by route,
+``kernel_launches`` the kernels, as the C entries count them);
+``/metrics`` reads them as ``pio_k4_calls{mode}``,
+``pio_k4_route_calls{route}`` and ``pio_k5_calls{query}``.
 
 Observability, as the JAX package's: the ``pio_retrieval_*`` metrics, and
 a thread-local per-dispatch stage split that the engine server turns
@@ -215,12 +218,21 @@ def _sync(device: torch.device) -> None:
 
 MODES = ("int8", "int8_dot", "bf16")
 _MODE_CODE = {"int8": 0, "int8_dot": 1, "bf16": 2}
+ROUTES = ("warp", "stream")
 #: csrc/retrieval.cu MAX_K: the largest k' K4 (and shortlist S K5) takes
 K4_MAX_K = 8192
-K4_TILE_THREADS = 256  # TILE_THREADS: rows a coarse block scores a round
+#: csrc/retrieval.cu WARP_MAX_K: k' up to this takes the warp route
+K4_WARP_MAX_K = 128
+K4_TILE_THREADS = 256  # TILE_THREADS: rows a stream-route block scores a round
 K4_MERGE_THREADS = 1024  # MERGE_THREADS
+K4_WARP_THREADS = 256  # WARP_THREADS: a warp-route block, at most 8 warps
+K4_ROUND_ROWS = 64  # ROUND_ROWS: rows a warp stages and scores a round
+K4_QUEUE = 128  # QUEUE: a warp's queue of admitted composites, per query
+K4_MERGE_MAX_COLS = 8  # MERGE_MAX_COLS: list columns a merge batch stages
+K4_MAX_STAGES = 4  # MAX_STAGES: a warp's ring, at most (rounds staged ahead + 1)
 K4_SMEM_CAP = 232_448  # shared memory a block may take on an H100 (227 KB)
-K4_MIN_ROWS = 4096  # catalog rows a coarse block streams, at least
+K4_MIN_ROWS = 4096  # catalog rows a stream-route block streams, at least
+K4_WARP_ROWS_PER_K = 4  # catalog rows a warp streams, at least, per unit of K
 K4_WS_BYTES = 1 << 28  # [B, nblk, K] workspace, at most (unless nblk = 1)
 _SM_COUNT: dict[int, int] = {}
 
@@ -283,16 +295,35 @@ def coarse_topk_reference(queries: torch.Tensor, tiles: torch.Tensor, scales,
 class K4Plan(NamedTuple):
     """How K4 runs a call on the card (:func:`k4_plan`)."""
 
-    rb: int  # query rows a coarse block serves: 8, 4, 2 or 1
-    W: int  # catalog rows a coarse block streams (a multiple of 256)
-    nblk: int  # coarse blocks a query row: ceil(num_rows / W)
+    route: str  # "warp" or "stream" (:func:`k4_route`)
+    rb: int  # query rows a block serves: 8, 4, 2 or 1
+    W: int  # catalog rows a block owns
+    nblk: int  # blocks a query group: ceil(num_rows / W)
     K: int  # the power of two >= k'
-    S: int  # a query's buffer entries in a coarse block
-    S2: int  # the buffer entries of a merge block
+    S: int  # stream: a query's buffer entries in a tile block; warp: 0
+    S2: int  # stream: the buffer entries of a merge block; warp: 0
+    nw: int  # warp: warps a block; stream: 0
+    stages: int  # warp: a warp's ring of stages (stages - 1 rounds in flight); stream: 0
+    mcols: int  # warp: list columns the merge stages a batch; stream: 0
+    smem: int  # dynamic shared memory of the route's main block, bytes
+
+
+def k4_route(k: int) -> str:
+    """K4's route on the card for ``k`` winners: ``"warp"`` for ``k <=``
+    :data:`K4_WARP_MAX_K` (every serving call at ``num`` <= 16: each warp
+    keeps its running best in registers, one launch), ``"stream"`` above
+    (shared-memory buffers, two launches). Raises above
+    :data:`K4_MAX_K`."""
+    if not 1 <= k <= K4_MAX_K:
+        raise ValueError(
+            f"K4 takes 1 <= k' <= {K4_MAX_K} (ops/retrieval.py K4_MAX_K, the "
+            f"largest shortlist one query's buffer holds in shared memory), got {k}"
+        )
+    return "warp" if k <= K4_WARP_MAX_K else "stream"
 
 
 def k4_tile_smem(rb: int, S: int, D: int) -> int:
-    """Shared-memory bytes of a coarse block (``csrc/retrieval.cu``
+    """Shared-memory bytes of a stream-route block (``csrc/retrieval.cu``
     ``pio_k4_tile_smem``): the buffers, thresholds, counts and per-warp
     counts of ``rb`` query rows, then the queries in f32 and in int8,
     ``D`` padded to 16."""
@@ -301,20 +332,100 @@ def k4_tile_smem(rb: int, S: int, D: int) -> int:
     return -(-stream // 16) * 16 + rb * dp * 5
 
 
-def k4_plan(batch: int, num_rows: int, dim: int, k: int, sm_count: int = 132) -> K4Plan:
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _warp_stage_bytes(D: int, mode: str) -> int:
+    """A warp's ring stage: ``K4_ROUND_ROWS`` rows, padded to ``rowbytes +
+    16`` when rows are whole 16-byte words (else one span and its offset),
+    then their scales in the int8 modes."""
+    rowbytes = D * (2 if mode == "bf16" else 1)
+    if rowbytes % 16 == 0:
+        rows = K4_ROUND_ROWS * (rowbytes + 16)
+    else:
+        rows = _align16(K4_ROUND_ROWS * rowbytes + 32)
+    return rows + (K4_ROUND_ROWS * 4 if mode != "bf16" else 0)
+
+
+def k4_warp_smem(rb: int, nw: int, D: int, mode: str, stages: int) -> int:
+    """Shared-memory bytes of a warp-route block (``csrc/retrieval.cu``
+    ``pio_k4_warp_smem``): the queries of ``rb`` rows in f32 and in int8,
+    the block's thresholds, the 8 warps' published entries, the int8_dot
+    divisors and the last-block flag, then for each of ``nw`` warps its
+    queues (:data:`K4_QUEUE` composites a query) and its ring of
+    ``stages``."""
+    head = _align16(rb * _align16(D) * 5) + _align16(rb * (9 * 8 + 4) + 4)
+    return head + nw * rb * K4_QUEUE * 8 + nw * stages * _warp_stage_bytes(D, mode)
+
+
+def k4_plan(batch: int, num_rows: int, dim: int, k: int, sm_count: int = 132,
+            mode: str = "bf16", route: str | None = None) -> K4Plan:
     """K4's launch plan for ``batch`` queries, ``k`` winners, a catalog of
-    ``num_rows`` rows of ``dim``: rb as wide as the batch (at most 8) and
-    the shared memory allow; enough coarse blocks to fill the card once
-    (at least :data:`K4_MIN_ROWS` rows each), within :data:`K4_WS_BYTES`
-    of workspace. Raises above :data:`K4_MAX_K`. The answer does not
-    depend on the plan; a block's cost is mostly its selection (its
-    rounds' barriers and its buffer's sorts), so fewer, longer blocks
-    win once the card is full."""
-    if not 1 <= k <= K4_MAX_K:
-        raise ValueError(
-            f"K4 takes 1 <= k' <= {K4_MAX_K} (ops/retrieval.py K4_MAX_K, the "
-            f"largest shortlist one query's buffer holds in shared memory), got {k}"
-        )
+    ``num_rows`` rows of ``dim`` in coarse ``mode``, on ``route`` (None:
+    :func:`k4_route`'s pick). The answer does not depend on the plan.
+    Raises above :data:`K4_MAX_K`, and for the warp route above
+    :data:`K4_WARP_MAX_K`."""
+    pick = k4_route(k)
+    route = route or pick
+    if route == "warp":
+        if pick != "warp":
+            raise ValueError(f"K4's warp route takes k' <= {K4_WARP_MAX_K}, got {k}")
+        return _k4_warp_plan(batch, num_rows, dim, k, sm_count, mode)
+    if route != "stream":
+        raise ValueError(f"unknown K4 route {route!r}")
+    return _k4_stream_plan(batch, num_rows, dim, k, sm_count)
+
+
+def _k4_warp_plan(batch: int, num_rows: int, dim: int, k: int, sm_count: int,
+                  mode: str) -> K4Plan:
+    """The warp route: rb as wide as the batch (at most 8); nw warps a
+    block, 8 unless the rings of wide rows overflow shared memory, and
+    rings as deep as the rest of shared memory allows (up to
+    :data:`K4_MAX_STAGES`: the rows in flight hide the memory's
+    latency); one block an SM (the card filled once, in one wave:
+    ``sm_count // groups`` blocks a query group), but each warp at least
+    ``K4_WARP_ROWS_PER_K * K`` rows, since a warp admits about ``K * (1 +
+    ln(rows / K))`` of its rows on its own (fewer as the block's shared
+    bounds rise); W a multiple of ``K4_ROUND_ROWS * nw``, so each warp
+    owns whole rounds. The merge stages ``mcols`` columns of every list
+    of ``min(nw, rb)`` queries at once in the rings. Workspace: ``batch *
+    nblk * K * 8`` bytes, at most ``(8 * sm_count + batch) * K * 8`` (1.1
+    MB at B = 64, K = 128)."""
+    K = _pow2(k)
+    rb = min(8, _pow2(batch))
+    groups = -(-batch // rb)
+    if groups > 65535:
+        raise ValueError(f"K4 takes at most {65535 * rb} query rows a call, got {batch}")
+    fits = [(nw, st) for nw in range(K4_WARP_THREADS // 32, 0, -1)
+            for st in range(K4_MAX_STAGES, 1, -1)
+            if k4_warp_smem(rb, nw, dim, mode, st) <= K4_SMEM_CAP]
+    if not fits:
+        raise ValueError(f"K4: rank {dim} needs {k4_warp_smem(rb, 1, dim, mode, 2)} bytes of "
+                         "shared memory a warp-route block")
+    nw, stages = fits[0]
+    smem = k4_warp_smem(rb, nw, dim, mode, stages)
+    unit = K4_ROUND_ROWS * nw
+    rings = nw * stages * _warp_stage_bytes(dim, mode)
+    nq = min(nw, rb)
+    nblk = max(1, min(sm_count // groups,
+                      -(-num_rows // max(unit, nw * K4_WARP_ROWS_PER_K * K)),
+                      rings // (nq * 8)))
+    W = -(-(-(-num_rows // nblk)) // unit) * unit  # ceil(ceil(I / nblk) / unit) * unit
+    nblk = -(-num_rows // W)
+    mcols = min(K, K4_MERGE_MAX_COLS)
+    while mcols > 1 and nq * mcols * nblk * 8 > rings:
+        mcols //= 2
+    return K4Plan("warp", rb, W, nblk, K, 0, 0, nw, stages, mcols, smem)
+
+
+def _k4_stream_plan(batch: int, num_rows: int, dim: int, k: int, sm_count: int) -> K4Plan:
+    """The stream route: rb as wide as the batch (at most 8) and the
+    shared memory allow; enough coarse blocks to fill the card once (at
+    least :data:`K4_MIN_ROWS` rows each), within :data:`K4_WS_BYTES` of
+    workspace. A block's cost is mostly its selection (its rounds'
+    barriers and its buffer's sorts), so fewer, longer blocks win once
+    the card is full."""
     K = _pow2(k)
     S, S2 = _pow2(K + K4_TILE_THREADS), _pow2(K + K4_MERGE_THREADS)
     rb = min(8, _pow2(batch))
@@ -331,7 +442,7 @@ def k4_plan(batch: int, num_rows: int, dim: int, k: int, sm_count: int = 132) ->
     nblk = max(1, min(want, -(-num_rows // K4_MIN_ROWS), K4_WS_BYTES // (batch * K * 8)))
     W = -(-num_rows // nblk)
     W = -(-W // K4_TILE_THREADS) * K4_TILE_THREADS
-    return K4Plan(rb, W, -(-num_rows // W), K, S, S2)
+    return K4Plan("stream", rb, W, -(-num_rows // W), K, S, S2, 0, 0, 0, smem)
 
 
 _P = ctypes.c_void_p
@@ -349,6 +460,12 @@ def _lib() -> ctypes.CDLL:
         lib.pio_k4_coarse_top_k.restype = _I
         lib.pio_k4_tile_smem.argtypes = [_I, _I, _I]
         lib.pio_k4_tile_smem.restype = _L
+        lib.pio_k4_warp_top_k.argtypes = [
+            _P, _I, _I, _P, _P, _L, _L, _I, _I, _I, _I, _L, _I, _I, _I, _P, _P, _P, _P, _IP, _P,
+        ]
+        lib.pio_k4_warp_top_k.restype = _I
+        lib.pio_k4_warp_smem.argtypes = [_I, _I, _I, _I, _I]
+        lib.pio_k4_warp_smem.restype = _L
         lib.pio_k5_rescore_top_k.argtypes = [
             _I, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P,
             _IP, _P,
@@ -377,11 +494,58 @@ def coarse_topk(queries: torch.Tensor, tiles: torch.Tensor, scales, num_rows: in
     order (score by IEEE total order descending, the lower id first on a
     tie), ``(NEG_INF, -1)`` where fewer than k rows score above
     ``NEG_INF``. CPU tensors take :func:`coarse_topk_reference`; CUDA
-    tensors launch ``csrc/retrieval.cu`` (:func:`k4_plan`) or raise."""
+    tensors launch the route :func:`k4_route` picks (``csrc/retrieval.cu``,
+    :func:`k4_plan`) or raise."""
     if mode not in MODES:
         raise ValueError(f"unknown coarse mode {mode!r}")
     if tiles.device.type == "cpu":
         return coarse_topk_reference(queries, tiles, scales, num_rows, k, mode)
+    return _coarse_on_card(None, coarse_topk, queries, tiles, scales, num_rows, k, mode)
+
+
+def _coarse_topk_stream(queries: torch.Tensor, tiles: torch.Tensor, scales,
+                        num_rows: int, k: int, mode: str):
+    """K4's stream route at any k' <= :data:`K4_MAX_K`, whatever
+    :func:`k4_route` picks: the warp route's same-run baseline for
+    chip_smoke.py. CUDA tensors only; counts its calls on itself."""
+    if mode not in MODES:
+        raise ValueError(f"unknown coarse mode {mode!r}")
+    return _coarse_on_card("stream", _coarse_topk_stream, queries, tiles, scales, num_rows,
+                           k, mode)
+
+
+def _count_calls(fn) -> None:
+    fn.launches = _build.LaunchCount()
+    fn.modes = {m: _build.LaunchCount() for m in MODES}
+    fn.routes = {r: _build.LaunchCount() for r in ROUTES}
+    fn.kernel_launches = _build.LaunchCount()
+
+
+_count_calls(coarse_topk)
+_count_calls(_coarse_topk_stream)
+
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+_tickets_lock = threading.Lock()
+
+
+def _tickets(device: torch.device, stream: int, groups: int, counter) -> torch.Tensor:
+    """The warp route's arrival tickets, one a query group, for calls on
+    ``stream``: zeroed once when made (a launch, counted on ``counter``),
+    then left zero by each call's merging blocks. Calls on one stream run
+    in order, so they share them."""
+    key = (device.index, stream)
+    with _tickets_lock:
+        t = _TICKETS.get(key)
+        if t is None or t.numel() < groups:
+            t = torch.zeros(max(groups, 64), dtype=torch.int32, device=device)
+            counter.kernel_launches.add()
+            _TICKETS[key] = t
+        return t
+
+
+def _coarse_on_card(route, counter, queries, tiles, scales, num_rows: int, k: int, mode: str):
+    """K4 on CUDA tensors by ``route`` ("stream", or None: what
+    :func:`k4_route` picks); one call counted on ``counter``."""
     device = tiles.device
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
@@ -401,7 +565,7 @@ def coarse_topk(queries: torch.Tensor, tiles: torch.Tensor, scales, num_rows: in
         raise ValueError(f"queries must be [B, {D}]")
     batch = q.shape[0]
     k = int(k)
-    plan = k4_plan(max(1, batch), num_rows, D, k, _sm_count(device))
+    plan = k4_plan(max(1, batch), num_rows, D, k, _sm_count(device), mode, route)
     scores = torch.empty((batch, k), dtype=torch.float32, device=device)
     ids = torch.empty((batch, k), dtype=torch.int32, device=device)
     if batch == 0:
@@ -411,21 +575,37 @@ def coarse_topk(queries: torch.Tensor, tiles: torch.Tensor, scales, num_rows: in
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.pio_k4_coarse_top_k(
-            q.data_ptr(), batch, D, tiles.data_ptr(), topk_ops._ptr(scales), num_rows,
-            _MODE_CODE[mode], k, plan.rb, plan.W, plan.nblk, plan.K, plan.S, plan.S2,
-            ws.data_ptr(), scores.data_ptr(), ids.data_ptr(), ctypes.byref(launched), stream,
-        )
-    _build.check(err, f"coarse_topk ({mode}) launch")
-    coarse_topk.launches.add()
-    coarse_topk.modes[mode].add()
-    coarse_topk.kernel_launches.add(launched.value)
+        if plan.route == "warp":
+            for name, t in (("tiles", tiles), ("scales", scales)):
+                if t is not None and t.data_ptr() % 16:
+                    raise ValueError(f"K4's warp route takes 16-byte aligned {name}")
+            tickets = _tickets(device, stream, -(-batch // plan.rb), counter)
+            err = lib.pio_k4_warp_top_k(
+                q.data_ptr(), batch, D, tiles.data_ptr(), topk_ops._ptr(scales), num_rows,
+                nt * T, _MODE_CODE[mode], k, plan.rb, plan.nw, plan.W, plan.nblk, plan.stages,
+                plan.mcols, ws.data_ptr(), tickets.data_ptr(), scores.data_ptr(),
+                ids.data_ptr(), ctypes.byref(launched), stream,
+            )
+        else:
+            err = lib.pio_k4_coarse_top_k(
+                q.data_ptr(), batch, D, tiles.data_ptr(), topk_ops._ptr(scales), num_rows,
+                _MODE_CODE[mode], k, plan.rb, plan.W, plan.nblk, plan.K, plan.S, plan.S2,
+                ws.data_ptr(), scores.data_ptr(), ids.data_ptr(), ctypes.byref(launched), stream,
+            )
+    _build.check(err, f"coarse_topk ({mode}, {plan.route} route) launch")
+    counter.launches.add()
+    counter.modes[mode].add()
+    counter.routes[plan.route].add()
+    counter.kernel_launches.add(launched.value)
     return scores, ids
 
 
-coarse_topk.launches = _build.LaunchCount()
-coarse_topk.modes = {m: _build.LaunchCount() for m in MODES}
-coarse_topk.kernel_launches = _build.LaunchCount()
+def k4_launches(k: int) -> int:
+    """Kernel launches one K4 call on the card adds to its wrapper's
+    ``kernel_launches`` once its stream's tickets exist: 1 on the warp
+    route (scoring, selection and merge in one launch), 2 on the stream
+    route (tile, merge)."""
+    return 1 if k4_route(k) == "warp" else 2
 
 
 def _host_values(table) -> np.ndarray:
@@ -698,6 +878,11 @@ for _mode, _count in coarse_topk.modes.items():
         "pio_k4_calls", "K4 (coarse shortlist) calls on the card by mode, since "
         "the process started", mode=_mode,
     ).set_function(lambda c=_count: float(c.value))
+for _route, _count in coarse_topk.routes.items():
+    obs_metrics.gauge(
+        "pio_k4_route_calls", "K4 (coarse shortlist) calls on the card by route, "
+        "since the process started", route=_route,
+    ).set_function(lambda c=_count: float(c.value))
 for _form, _count in rescore_top_k.queries.items():
     obs_metrics.gauge(
         "pio_k5_calls", "K5 (shortlist rescore) calls on the card by query form, "
@@ -709,7 +894,7 @@ for _name, _wrapper in (("pio_k4_kernel_launches", coarse_topk),
         _name, "Kernels the wrapper's calls launched on the card, as the C entry "
         "counts them",
     ).set_function(lambda c=_wrapper.kernel_launches: float(c.value))
-del _mode, _form, _count, _name, _wrapper
+del _mode, _route, _form, _count, _name, _wrapper
 
 
 def _finish_rescore(t0: float, out, n_queries: int):

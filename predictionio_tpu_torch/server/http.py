@@ -1074,6 +1074,10 @@ class _EventLoop:
                 pass
 
 
+# the HTTPApp whose request this worker thread is serving, if any
+_worker = threading.local()
+
+
 class HTTPApp:
     """A router bound to an event-loop front end with start/stop
     lifecycle. Idle keep-alive connections are selector entries (fds);
@@ -1153,6 +1157,8 @@ class HTTPApp:
         self._thread: threading.Thread | None = None
         self._conns: set[_Connection] = set()
         self._conns_lock = threading.Lock()
+        # notified whenever a worker leaves: stop() waits on it
+        self._workers_left = threading.Condition(self._conns_lock)
         # -- graceful lifecycle (liveness/readiness + drain) --------------
         # per-boot identity: lets a health probe tell THIS instance from
         # a foreign or stale listener on the same port
@@ -1361,21 +1367,26 @@ class HTTPApp:
         loop = self._loop
         with self._conns_lock:
             self._active += 1
+        _worker.app = self
         try:
             while True:
                 conn.handle_one_request()
                 if conn.close_connection:
                     conn.close()
                     return
-                if not self.recv_buffer:
-                    continue  # worker-pinned fallback
-                if conn.buffered():
-                    continue  # pipelined request already in hand
-                if self._linger(conn):
-                    continue  # next request arrived within the linger
+                again = (
+                    not self.recv_buffer  # worker-pinned fallback
+                    or conn.buffered()  # pipelined request already in hand
+                    or self._linger(conn)  # next request within the linger
+                )
                 if loop is None or loop._stopping:
+                    # a stopped app starts no further request cycle (nor
+                    # reaches its fault points): a worker outlives stop()
+                    # only to finish the request in hand
                     conn.close()
                     return
+                if again:
+                    continue
                 loop.call_soon(lambda: loop.register_conn(conn))
                 return
         except OSError:
@@ -1384,8 +1395,10 @@ class HTTPApp:
             logger.exception("connection worker failed")
             conn.close()
         finally:
+            _worker.app = None
             with self._conns_lock:
                 self._active -= 1
+                self._workers_left.notify_all()
 
     # linger: when the server isn't fan-out loaded, blocking briefly on
     # the just-served socket keeps a busy keep-alive client at
@@ -1472,3 +1485,10 @@ class HTTPApp:
         pool, self._pool = self._pool, None
         if pool is not None:
             pool.shutdown(wait=False)
+        # give the workers a moment to leave (a lingering one sees the
+        # stop at once; a handler that never returns cannot hold stop()
+        # long), not counting the caller's own request when a handler
+        # stops its app
+        own = 1 if getattr(_worker, "app", None) is self else 0
+        with self._workers_left:
+            self._workers_left.wait_for(lambda: self._active <= own, timeout=0.5)

@@ -515,17 +515,261 @@ def test_rescore_forms_match_the_jax_package(storage):
 
 
 def test_k4_plan():
-    plan = retrieval.k4_plan(8, 10_000_000, 32, 128, sm_count=132)
-    assert (plan.rb, plan.K, plan.S, plan.S2) == (8, 128, 512, 2048)
+    # the stream route, reached at any k' <= K4_MAX_K
+    plan = retrieval.k4_plan(8, 10_000_000, 32, 128, sm_count=132, route="stream")
+    assert (plan.route, plan.rb, plan.K, plan.S, plan.S2) == ("stream", 8, 128, 512, 2048)
     assert plan.W % retrieval.K4_TILE_THREADS == 0
     assert plan.nblk == -(-10_000_000 // plan.W) and plan.nblk * plan.W >= 10_000_000
     # a wide shortlist narrows the block's query rows to fit shared memory
     big = retrieval.k4_plan(64, 1_000_000, 32, retrieval.K4_MAX_K, sm_count=132)
-    assert big.rb == 1 and big.S == 16384
+    assert big.route == "stream" and big.rb == 1 and big.S == 16384
     assert retrieval.k4_tile_smem(big.rb, big.S, 32) <= retrieval.K4_SMEM_CAP
     assert retrieval.k4_plan(1, 300, 8, 256).nblk == 1
     with pytest.raises(ValueError, match="K4_MAX_K"):
         retrieval.k4_plan(1, 10**6, 32, retrieval.K4_MAX_K + 1)
+    # the warp route: one block an SM over the query groups, whole rounds a
+    # warp, every warp at least 4 K rows, the workspace O(B * nblk * K)
+    for B, I, k, groups in ((1, 10**6, 128, 1), (8, 10**6, 32, 1), (8, 10**7, 128, 1),
+                            (64, 10**6, 128, 8), (64, 10**7, 32, 8)):
+        for mode in retrieval.MODES:
+            w = retrieval.k4_plan(B, I, 32, k, sm_count=132, mode=mode)
+            assert (w.route, w.rb, w.K, w.nw) == ("warp", min(8, B), k, 8)
+            assert w.nblk * groups <= 132 and w.nblk == -(-I // w.W)  # one wave
+            assert w.W % (retrieval.K4_ROUND_ROWS * w.nw) == 0
+            assert w.W // w.nw >= min(4 * k, -(-I // w.nw))
+            assert w.smem == retrieval.k4_warp_smem(w.rb, w.nw, 32, mode, w.stages)
+            assert w.smem <= retrieval.K4_SMEM_CAP and 2 <= w.stages <= retrieval.K4_MAX_STAGES
+            assert B * w.nblk * w.K * 8 <= (8 * 132 + B) * w.K * 8
+            stage = retrieval._warp_stage_bytes(32, mode)
+            assert min(w.nw, w.rb) * w.mcols * w.nblk * 8 <= w.nw * w.stages * stage
+    # 1M rows at B = 8: 131 blocks of 8 warps, 960 rows a warp
+    w = retrieval.k4_plan(8, 10**6, 32, 128, sm_count=132)
+    assert (w.nblk, w.W, w.nw, w.mcols) == (131, 7680, 8, 8)
+    # wide rows take fewer warps, so that the rings fit shared memory
+    assert retrieval.k4_plan(8, 10**6, 128, 128, sm_count=132).nw == 5
+    assert retrieval.k4_plan(1, 200, 32, 128).nblk == 1
+    with pytest.raises(ValueError, match="warp route"):
+        retrieval.k4_plan(1, 10**6, 32, 256, route="warp")
+
+
+@pytest.mark.parametrize("k, route", [(1, "warp"), (32, "warp"), (128, "warp"),
+                                      (129, "stream"), (256, "stream"), (1024, "stream"),
+                                      (8192, "stream")])
+def test_k4_route(k, route):
+    """k' <= K4_WARP_MAX_K takes the warp route (one launch), larger k'
+    the stream route (two), and k' above K4_MAX_K is refused."""
+    assert retrieval.k4_route(k) == route
+    assert retrieval.k4_launches(k) == (1 if route == "warp" else 2)
+
+
+@pytest.mark.parametrize("k", [0, retrieval.K4_MAX_K + 1])
+def test_k4_route_refuses(k):
+    with pytest.raises(ValueError, match="K4_MAX_K"):
+        retrieval.k4_route(k)
+
+
+def test_k4_constants_match_the_kernel_source():
+    import re
+    from pathlib import Path
+
+    src = (Path(retrieval.__file__).resolve().parent.parent / "csrc" / "retrieval.cu").read_text()
+    consts = {n: int(v) for n, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert consts["MAX_K"] == retrieval.K4_MAX_K
+    assert consts["WARP_MAX_K"] == retrieval.K4_WARP_MAX_K
+    assert consts["WARP_THREADS"] == retrieval.K4_WARP_THREADS
+    assert 32 * consts["LANE_ROWS"] == retrieval.K4_ROUND_ROWS
+    assert consts["QUEUE"] == retrieval.K4_QUEUE
+    assert consts["MERGE_MAX_COLS"] == retrieval.K4_MERGE_MAX_COLS
+    assert consts["MAX_STAGES"] == retrieval.K4_MAX_STAGES
+    assert consts["TILE_THREADS"] == retrieval.K4_TILE_THREADS
+
+
+def test_k4_cpu_calls_launch_no_kernel():
+    """CPU tensors take the plain version: no call is counted on a mode,
+    a route or the kernel launches; the stream-route baseline needs CUDA."""
+    cat = CoarseCatalog(_dense(300, 8), tile=128, mode="bf16")
+    counters = [retrieval.coarse_topk.launches, retrieval.coarse_topk.kernel_launches,
+                *retrieval.coarse_topk.modes.values(), *retrieval.coarse_topk.routes.values()]
+    before = [c.value for c in counters]
+    cat.shortlist(_dense(2, 8, seed=1), 16)
+    assert [c.value for c in counters] == before
+    assert set(retrieval.coarse_topk.routes) == {"warp", "stream"}
+    with pytest.raises(ValueError, match="device"):
+        retrieval._coarse_topk_stream(torch.zeros((1, 8)), cat._tiles, None, 300, 16, "bf16")
+
+
+# -- a numpy model of K4's warp route, held to the plain version --------------------
+
+
+def _keys(s: np.ndarray) -> np.ndarray:
+    """order_key's unsigned image of f32 scores, as uint64."""
+    b = np.ascontiguousarray(s, dtype=np.float32).view(np.int32).astype(np.int64)
+    key = np.where(b < 0, b ^ 0x7FFFFFFF, b)
+    return ((key & 0xFFFFFFFF) ^ 0x80000000).astype(np.uint64)
+
+
+def _composites(s: np.ndarray) -> list:
+    """``order_key(s) << 32 | ~i`` for each row's scores, as Python ints."""
+    i = np.arange(s.shape[-1], dtype=np.uint64)
+    c = (_keys(s) << np.uint64(32)) | (~i & np.uint64(0xFFFFFFFF))
+    return [[int(x) for x in row] for row in c]
+
+
+def _score_of(c: int) -> float:
+    key = ((c >> 32) ^ 0x80000000) & 0xFFFFFFFF
+    key = key - (1 << 32) if key >= 1 << 31 else key
+    bits = key ^ 0x7FFFFFFF if key < 0 else key
+    return float(np.array([bits], np.int32).view(np.float32)[0])
+
+
+def _model_scores(q, tiles, scales, num_rows, mode) -> np.ndarray:
+    """The plain version's coarse scores of every catalog row, op for op
+    (d in order, each product and partial sum rounded; int8_dot exact
+    int32 sums), ``[B, num_rows]``."""
+    D = tiles.shape[2]
+    v = tiles.reshape(-1, D)[:num_rows]
+    if mode == "int8_dot":
+        qi = retrieval.quantize_queries(q).to(torch.int32)
+        vi = v.to(torch.int32)
+        acc = torch.zeros((q.shape[0], num_rows), dtype=torch.int32)
+        for d in range(D):
+            acc = acc + qi[:, d, None] * vi[None, :, d]
+        sc = acc.to(torch.float32) * scales.reshape(-1)[:num_rows][None, :]
+    else:
+        vf = v.to(torch.float32)
+        sc = torch.zeros((q.shape[0], num_rows), dtype=torch.float32)
+        for d in range(D):
+            sc = sc + q[:, d, None] * vf[None, :, d]
+        if scales is not None:
+            sc = sc * scales.reshape(-1)[:num_rows][None, :]
+    return sc.numpy()
+
+
+def _flush(lst, queue, L):
+    return sorted(lst + queue, reverse=True)[:L]
+
+
+def _kth(lst, K) -> int:
+    return lst[K - 1] if len(lst) >= K else 0
+
+
+def _model_warp_route(comps, plan, num_rows: int, k: int) -> list:
+    """One query through the warp route as the kernel runs it: each block's
+    warps stream their rows 64 a round (round-robin over the warps, one
+    schedule of many) and admit composites above their threshold into a
+    queue flushed past 64 entries (and at its last round) into a list of
+    L = max(K, 32). The threshold: the list's K-th, the largest K-th any
+    warp of the block published, and the smallest of the warps' ceil(K /
+    nw)-th entries. The block keeps the top K of its warps' lists; the
+    merge admits entries at or above the largest list K-th, column by
+    column in batches of mcols, until a column admits nothing."""
+    K, L, nw, R = plan.K, max(plan.K, 32), plan.nw, retrieval.K4_ROUND_ROWS
+    floor = (int(_keys(np.float32([retrieval.NEG_INF]))[0]) << 32) | 0xFFFFFFFF
+    share = -(-K // nw)
+    blocks = []
+    for x in range(plan.nblk):
+        shared, pub = floor, [floor] * nw
+        ranges = [(x * plan.W + w * (plan.W // nw), min(x * plan.W + (w + 1) * (plan.W // nw),
+                                                        num_rows)) for w in range(nw)]
+        state = [{"lst": [], "q": [], "th": floor} for _ in range(nw)]
+        rounds = max(-(-(e - b) // R) if e > b else 0 for b, e in ranges)
+        for j in range(rounds):
+            for w, (b, e) in enumerate(ranges):
+                st, i0 = state[w], b + j * R
+                if i0 >= e:
+                    continue
+                st["th"] = max(st["th"], shared, min(pub))
+                st["q"] += [c for c in comps[i0:min(i0 + R, e)] if c > st["th"]]
+                if len(st["q"]) > retrieval.K4_QUEUE - R or (i0 + R >= e and st["q"]):
+                    st["lst"] = _flush(st["lst"], st["q"], L)
+                    kth = _kth(st["lst"], K)
+                    st["q"], st["th"] = [], max(st["th"], kth)
+                    if kth > floor:
+                        shared = max(shared, kth)
+                    if len(st["lst"]) >= share:
+                        pub[w] = max(pub[w], st["lst"][share - 1])
+        best = sorted(sum((st["lst"] for st in state), []), reverse=True)[:K]
+        blocks.append(best + [0] * (K - len(best)))
+    bound = max(b[K - 1] for b in blocks)
+    th = bound - 1 if bound > floor else floor
+    lst, queue, done = [], [], False
+    for p0 in range(0, K, plan.mcols):
+        for p in range(p0, p0 + plan.mcols):
+            col = [b[p] for b in blocks]
+            any_in = False
+            for l0 in range(0, len(col), R):
+                got = [c for c in col[l0:l0 + R] if c > th]
+                queue += got
+                any_in |= bool(got)
+                if len(queue) > retrieval.K4_QUEUE - R:
+                    lst, queue = _flush(lst, queue, L), []
+                    th = max(th, _kth(lst, K))
+            if not any_in:
+                done = True
+                break
+        if done:
+            break
+    lst = _flush(lst, queue, L)[:k]
+    return lst + [0] * (k - len(lst))
+
+
+def _crafted_catalogs(mode: str):
+    """(catalog, num_rows) cases: 50 distinct integer rows repeated (exact
+    ties at every k' boundary) with a NaN row (row 777) and rows scoring
+    at or below -1e30 (against the positive queries of the test); and 100
+    random rows, 3 of them at or below -1e30, for k' >= I."""
+    rng = np.random.default_rng(40)
+    base = rng.integers(-3, 4, (50, 8)).astype(np.float32)
+    out = []
+    for f, low, tile in ((base[np.arange(5000) % 50], [11, 2047, 4990], 1024),
+                         (_dense(100, 8, seed=42), [5, 50, 99], 64)):
+        if mode == "bf16":
+            f[low] = 0.0
+            f[low, 0] = -3e33
+            if len(f) > 777:
+                f[777, 5] = np.nan
+            out.append((CoarseCatalog(f, tile=tile, mode="bf16"), len(f)))
+        else:
+            vq = np.clip(np.rint(f * 30), -127, 127).astype(np.int8)
+            vs = np.full(len(f), 0.5, np.float32)
+            vq[low] = 0
+            vq[low, 0] = -127
+            vs[low] = 1e30
+            if len(f) > 777:
+                vs[777] = np.nan
+            out.append((CoarseCatalog((vq, vs), tile=tile, mode=mode), len(f)))
+    return out
+
+
+@pytest.mark.parametrize("mode", ["int8", "int8_dot", "bf16"])
+@pytest.mark.parametrize("B", [1, 8, 64])
+def test_warp_route_model_bit_equal_to_the_plain_version(mode, B):
+    """The warp route's partition (blocks, warps, rounds), its admission
+    against shared thresholds and its pruned column merge give the plain
+    version's answer bit for bit: ties at every k' boundary, a NaN row,
+    rows at or below -1e30, k' >= I, at the plans k4_plan makes."""
+    q = torch.from_numpy(np.abs(_dense(B, 8, seed=43)) + 0.25)
+    for cat, n in _crafted_catalogs(mode):
+        for k in (1, 17, 32, 100, 128):
+            plan = retrieval.k4_plan(B, n, 8, k, sm_count=132, mode=mode)
+            assert plan.route == "warp"
+            s_p, i_p = retrieval.coarse_topk_reference(q, cat._tiles, cat._scales, n, k, mode)
+            comps = _composites(_model_scores(q, cat._tiles, cat._scales, n, mode))
+            for b in range(B):
+                got = _model_warp_route(comps[b], plan, n, k)
+                ids = [~c & 0xFFFFFFFF if c else -1 for c in got]
+                sc = np.float32([_score_of(c) if c else retrieval.NEG_INF for c in got])
+                np.testing.assert_array_equal(np.int32(ids), i_p[b].numpy(), err_msg=f"{k} {b}")
+                np.testing.assert_array_equal(sc.view(np.int32), s_p[b].numpy().view(np.int32))
+            # the crafted rows are in play: a NaN scale gives a NaN score,
+            # first; the bf16 copy of a NaN value is a negative NaN (0xFFFF),
+            # whose score sorts below -1e30 and never enters; nor do the
+            # low rows
+            ids = i_p.numpy()
+            if n == 5000:
+                assert (ids[:, 0] == 777).all() if mode != "bf16" else (ids != 777).all()
+            elif k >= n:
+                assert ((ids == -1).sum(axis=1) == k - 97).all()
 
 
 def test_coarse_catalog_caches_drop_when_pickled():
