@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases k2,k1,k1i,k1route,k2s,k2route,k4,k5,serve,
-                                    batchserve,lifecycle,simlife,train,simtrain,eval,
-                                    retrieval,times,k1times,simtimes,retimes]
+    python3 chip_smoke.py [--phases k2,k1,k1i,k1route,k2s,k2route,k4,k5,k6,k2cos,
+                                    serve,batchserve,lifecycle,simlife,templife,train,
+                                    simtrain,templates,eval,retrieval,times,k1times,
+                                    simtimes,retimes]
 
 Run from the root of a checkout, on a machine with a CUDA card, ``nvcc``
 and PyTorch built for CUDA. It imports nothing of JAX and nothing of the
@@ -12,9 +13,9 @@ JAX package (``predictionio_tpu``). Phases:
 1. environment: torch/CUDA versions, the card, ``nvidia-smi`` name and
    power limit, ``nvcc`` release, ``triton`` version or ``absent``;
 2. build ``predictionio_tpu_torch/csrc/topk.cu`` (K2),
-   ``csrc/als_solve.cu`` (K1, K1s), ``csrc/ranking.cu`` (K3) and
-   ``csrc/retrieval.cu`` (K4, K5) with ``nvcc`` for ``sm_90a``, one
-   ``nvcc`` per source, started together;
+   ``csrc/als_solve.cu`` (K1, K1s), ``csrc/ranking.cu`` (K3),
+   ``csrc/retrieval.cu`` (K4, K5) and ``csrc/cosine_sim.cu`` (K6) with
+   ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, started together;
 3. k2: K2 against its plain PyTorch version on the card at the ML-20M
    shape (U = 138,493 users, I = 26,744 items): D = 20 with every
    f32/bf16/int8 storage pair, D = 128 with each storage dtype, both at B
@@ -64,7 +65,7 @@ The serving-stack slice adds, run after serve:
 - batchserve: the serve phase's f32 model at the ML-20M shape (num = 4)
   deployed by ``cli.main deploy`` in a subprocess, with the
   micro-batcher on (``--batch-window-ms 2``) and off (``0``); closed-loop
-  keep-alive clients at concurrency 1, 8 and 64, 2,000 queries a level
+  keep-alive clients at concurrency 1, 8 and 64, 1,000 queries a level
   for distinct users from a seed: p50, p99, queries/s, the server's
   ``pio_batch_size`` histogram and K2 tile-route calls (``/metrics``)
   per level; every answer byte-identical to the user's solo answer, a
@@ -180,7 +181,7 @@ after eval, retimes last):
   and int8, the int8 server probing recall on every dispatch) and a
   1M-item similar-product model (rank 10) saved through the port's
   storage and served by ``cli.main deploy`` with the micro-batcher:
-  1,000 distinct users (500 item queries) at concurrency 1 and 8 at num =
+  500 distinct users (500 item queries) at concurrency 1 and 8 at num =
   10, blackList queries deeper than the top 20, categories queries on
   the exact path: answers against the plain two-stage versions, recall@10
   >= 0.999 against exact K2 / K2s, K2's scores bit for bit where the
@@ -198,6 +199,39 @@ after eval, retimes last):
   yardsticks; two-stage (K4 + K5) beside the exact path (K2,
   ``torch.topk(u @ V.T)``) on f32 and int8 catalogs.
 
+The other ALS templates' slice adds (k6 and k2cos after k5, templife
+after simlife, templates after simtrain; retrieval serves two more
+templates):
+
+- k6: K6 (``ops/cosine_sim.py item_similarity_topn``,
+  ``csrc/cosine_sim.cu``) against its plain version (the JAX program in
+  torch: dense user-chunk tiles, ``tile_b^T @ tile``, the masks, a stable
+  sort on the order key): integer view counts bit for bit (ids of -inf
+  padding included), fractional values within atol 1e-5; ML-100K (with
+  37 empty items; top_n 1, 20, 128) and ML-1M views in full (also in
+  forced column passes), I = 100 at top_n = 99, I = 120,000 (three
+  column passes; three blocks held), the ML-20M views at top_n = 20 (the
+  kernel on every row, the plain version on every block, timed); K6's
+  device time, the heaviest row's block alone, the bound;
+- k2cos: ``top_k_similar`` (K2's cosine mode) against its plain version
+  at I {50, 26,744, 1M} x f32/bf16/int8 x norms given or not x masked or
+  not x k {4, 128, 300}, crafted ties and a zero row (ids equal, scores
+  rtol 1e-5), ``top_k_items`` bit for bit; their times at I = 26,744;
+- templife: recommended-user, e-commerce and the cosine similar-product
+  engine from ML-100K-shaped events in sqlite through ``cli.main train``
+  and ``deploy``, queries against the plain path on the same model;
+- templates: the three engines at the ML-20M shape and their defaults
+  through ``run_train`` (K6's counter reset before the cosine training
+  and read after: the main path's launch), saved, deployed in
+  subprocesses with the batcher, 500 distinct queries at concurrency 1
+  and 8: answers against the plain path, ready_s, p50 / p99 / q/s, K2 /
+  K2s calls per dispatch from /metrics, the e-commerce live-filter cache
+  (one store read per user per change token, dropped after a write);
+- retrieval also serves a 1M-row recommended-user model and a 1M-item
+  e-commerce model (rank 32) two-stage: recall@10 >= 0.999 against exact
+  K2s / K2, answers against the plain two-stage versions, one warp-route
+  K4 launch per dispatch.
+
 Every phase prints its results and seconds; any failure makes the exit
 code 1 and suppresses the result lines. Without CUDA, or without the
 package beside the script, it exits 2 and prints no result. A run of a
@@ -211,6 +245,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import http.client
 import json
 import os
@@ -299,7 +334,7 @@ def environment(torch):
 # -- phase 2 -----------------------------------------------------------------
 
 
-KERNEL_SOURCES = ("topk", "als_solve", "ranking", "retrieval")
+KERNEL_SOURCES = ("topk", "als_solve", "ranking", "retrieval", "cosine_sim")
 
 
 @phase("build")
@@ -1326,7 +1361,7 @@ def the_slice(torch, device, stats):
 # -- phase: batched serving through the deploy CLI --------------------------------
 
 BATCH_LEVELS = (1, 8, 64)  # closed-loop client concurrency
-BATCH_QUERIES = 2000  # queries per level, each for a distinct user
+BATCH_QUERIES = 1000  # queries per level, each for a distinct user
 BATCH_WINDOW_MS = 2.0
 
 
@@ -1991,8 +2026,10 @@ def full_width(torch, device, stats):
     from predictionio_tpu_torch.ops import als
 
     t0 = time.perf_counter()
-    rows, cols, vals, nu, ni = stats["ml20m_arrays"] = make_ml_shaped("20m")
-    log(f"generated {len(vals)} ML-20M-shaped ratings in {time.perf_counter() - t0:.1f}s")
+    if "ml20m_arrays" not in stats:  # the k6 phase may have drawn them
+        stats["ml20m_arrays"] = make_ml_shaped("20m")
+    rows, cols, vals, nu, ni = stats["ml20m_arrays"]
+    log(f"ML-20M-shaped ratings ready ({len(vals)}) in {time.perf_counter() - t0:.1f}s")
     td = rec.TrainingData(user_ids=[f"u{j}" for j in range(nu)],
                           item_ids=[f"i{j}" for j in range(ni)],
                           rows=rows, cols=cols, ratings=vals)
@@ -3664,7 +3701,7 @@ RET_ITEMS = 1_000_000  # the retrieval phase's catalog
 K4_BATCHES = (1, 8, 64)
 K4_KPRIMES = (32, 128, 256, 1024)  # num = 4, 10, 20, 100
 RET_NUM = 10  # serving num: k = 16, k' = 128
-RET_USERS = 1000  # distinct users a concurrency level
+RET_USERS = 500  # distinct users a concurrency level
 SIM_QUERIES = 500  # similar-product queries a concurrency level
 RET_LEVELS = (1, 8)
 REC_FACTORY = "predictionio_tpu_torch.models.recommendation.engine"
@@ -3990,6 +4027,7 @@ def retrieval_round(server, queries: list, concurrency: int, key, kernels: dict)
     lat = sorted(run["lat"])
     counts = {name: int(metric_delta(m1, m0, metric)) for name, metric in kernels.items()}
     counts["dispatches"] = int(metric_delta(m1, m0, "pio_batch_size_count"))
+    counts["k2cos"] = k2cos_served(m1, m0)
     return {"answers": run["answers"], "p50_ms": lat[len(lat) // 2] * 1e3,
             "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))] * 1e3,
             "qps": len(queries) / run["wall_s"], **counts}
@@ -4016,6 +4054,15 @@ def check_traced(server, body: dict, trace_id: str) -> list:
 
 
 K4_CALLS = 'pio_k4_calls{mode="%s"}'
+K2COS_CALLS = tuple(f'pio_k2_calls{{kernel="top_k_similar",route="{r}"}}'
+                    for r in ("tile", "select"))
+
+
+def k2cos_served(after: dict, before: dict) -> int:
+    """``top_k_similar`` (K2's cosine mode) calls a deployed server made
+    between two /metrics reads."""
+    return int(sum(metric_delta(after, before, name) for name in K2COS_CALLS))
+
 K4_ROUTES = {"k4_warp": 'pio_k4_route_calls{route="warp"}',
              "k4_stream": 'pio_k4_route_calls{route="stream"}'}
 K5_CALLS = 'pio_k5_calls{query="%s"}'
@@ -4087,19 +4134,23 @@ def rec_retrieval(torch, device, storage, basedir, stats, servers) -> dict:
     return out
 
 
-def plain_sim(torch, retrieval, topk, model, device, qs: list) -> list:
+def plain_sim(torch, retrieval, topk, model, device, qs: list, index=None, factors=None,
+              field: str = "items") -> list:
     """Each similar-product query alone (k = pow2(num + |excluded|)),
     from the plain two-stage versions on the card, and from exact K2s:
     [(plain ids, plain scores, exact ids, exact scores)] after the
-    template's exclusions."""
+    template's exclusions. ``index``, ``factors`` and ``field`` name the
+    catalog of another cosine template (recommended-user: the followed
+    users, queried by ``users``)."""
     from predictionio_tpu_torch.models.filters import normalized_query_vectors
 
     V = model.device_factors(device)
     cat = model.coarse_catalog(device)
-    index = model.item_index
+    index = model.item_index if index is None else index
+    factors = model.item_factors if factors is None else factors
     out = []
     for q in qs:
-        known = [index[i] for i in q["items"]]
+        known = [index[i] for i in q[field]]
         excluded = set(known) | {index[i] for i in q.get("blackList", ())}
         L = 1 << (len(known) - 1).bit_length()
         ixs = np.zeros((1, L), np.int32)
@@ -4108,7 +4159,7 @@ def plain_sim(torch, retrieval, topk, model, device, qs: list) -> list:
         w[0, :len(known)] = 1.0
         k = 1 << (q["num"] + len(excluded) - 1).bit_length()
         kp = retrieval.shortlist_k(k, RET_ITEMS)
-        qv = torch.from_numpy(normalized_query_vectors(model.item_factors, None, ixs, w)).to(device)
+        qv = torch.from_numpy(normalized_query_vectors(factors, None, ixs, w)).to(device)
         _, cand = retrieval.coarse_topk_reference(qv, cat._tiles, None, RET_ITEMS, kp, cat.mode)
         ps, pi = retrieval.rescore_top_k_reference("sum_rows", V, cand, k, row_ixs=ixs,
                                                    row_weights=w)
@@ -4242,7 +4293,7 @@ def retrieval_serving(torch, device, stats):
     port's storage and served by ``cli.main deploy`` in a subprocess
     with the micro-batcher on (``--batch-window-ms 2``): the
     recommendation template (U = 138,493, I = 1,000,000, rank 32; f32 and
-    int8; 1,000 distinct users at num = 10, at concurrency 1 and 8) and
+    int8; 500 distinct users at num = 10, at concurrency 1 and 8) and
     the similar-product template (I = 1,000,000, rank 10). Per server:
     ready_s (process start to /readyz, the coarse build at warmup
     included: K4 ran before the first query), every answer against the
@@ -4254,13 +4305,18 @@ def retrieval_serving(torch, device, stats):
     block, a traced request's dispatch.shortlist / dispatch.rescore
     spans, and HTTP p50 / p99 / queries/s."""
     from predictionio_tpu_torch.data import storage as st
+    from predictionio_tpu_torch.ops import topk
 
     basedir = tempfile.mkdtemp(prefix="pio_chip_smoke_retrieval_")
     storage = st.Storage(env={"PIO_FS_BASEDIR": basedir})
     servers: list = []
+    topk.top_k_similar.launches.reset()  # the main path's K2 cosine calls, read below
     try:
         out = {"recommendation": rec_retrieval(torch, device, storage, basedir, stats, servers),
-               "similar": sim_retrieval(torch, device, storage, basedir, stats, servers)}
+               "similar": sim_retrieval(torch, device, storage, basedir, stats, servers),
+               "recommended_user": ru_retrieval(torch, device, storage, basedir, stats,
+                                                servers),
+               "ecommerce": ec_retrieval(torch, device, storage, basedir, stats, servers)}
     except BaseException:
         for s in servers:
             if s.proc.poll() is None:
@@ -4274,9 +4330,12 @@ def retrieval_serving(torch, device, stats):
         shutil.rmtree(basedir, ignore_errors=True)
     main = [out["recommendation"][d][f"c{c}"] for d in out["recommendation"] for c in RET_LEVELS]
     main += [out["similar"][f"c{c}"] for c in RET_LEVELS] + [out["similar"]["blacklist_solo"]]
+    main += [out[t][f"c{c}"] for t in ("recommended_user", "ecommerce") for c in RET_LEVELS]
     stats["ret_launches"] = {
         name: sum(lv[name] for lv in main)
         for name in ("k4", "k4_warp", "k4_stream", "k5", "k4_kernels", "k5_kernels")}
+    stats["k2cos_launches"] = (stats.get("k2cos_launches", 0) + topk.top_k_similar.launches.value
+                               + sum(lv["k2cos"] for lv in main))
     stats["retrieval"] = out
 
 
@@ -4446,6 +4505,972 @@ def retrieval_timings(torch, device, stats):
         del V, pair, cats, cand
         torch.cuda.empty_cache()
     stats["retimes"] = out
+
+
+# -- the other ALS templates' slice: K6, K2's cosine mode, three templates ---------
+
+K6_TOP_N = 20  # CosineAlgorithmParams' default top_n
+K6_PASSES_I = 120_000  # a catalog wider than one shared-memory pass (57,344 columns)
+K6_WIDE_USERS, K6_WIDE_NNZ = 30_000, 1_500_000  # its sparse draw
+K2COS_ROWS = (50, I_ROWS, 1_000_000)  # catalog sizes of the k2cos phase
+RU_FACTORY = "predictionio_tpu_torch.models.recommendeduser.engine"
+EC_FACTORY = "predictionio_tpu_torch.models.ecommerce.engine"
+TEMPLATE_USERS = 500  # distinct queried users (or items) a concurrency level
+TEMPLATE_LEVELS = (1, 8)
+
+
+def ml_views(stats, scale: str):
+    """An ML-shaped draw's (user, item) pairs as views (value 1 each;
+    repeated pairs sum to counts): (rows, cols, vals, U, I)."""
+    if scale == "20m":
+        if "ml20m_arrays" not in stats:
+            stats["ml20m_arrays"] = make_ml_shaped("20m")
+        rows, cols, _, nu, ni = stats["ml20m_arrays"]
+    else:
+        rows, cols, _, nu, ni = make_ml_shaped(scale)
+    return rows, cols, np.ones(len(rows), np.float32), nu, ni
+
+
+def k6_inputs(cs, device, rows, cols, vals, nu: int, ni: int) -> dict:
+    """Deduped triples, host norms, K6's layout and its upload."""
+    r, c, v = cs._dedupe(rows, cols, vals, nu, ni)
+    norms = cs.column_norms(c, v, ni)
+    lay = cs.cosine_layout(r, c, v, nu, ni)
+    return {"trip": (r, c, v), "norms": norms, "lay": lay, "nu": nu, "ni": ni,
+            "dev": cs.upload_layout(lay, norms, device)}
+
+
+def k6_blocks(torch, cs, device, inp: dict, top_n: int, starts, ks, ki, what: str) -> dict:
+    """K6's answer (``ks``, ``ki``: host [I, n]) against the plain version
+    on the item blocks starting at ``starts`` (256 rows each, the JAX
+    package's block): the atomic route (integer values) bit for bit, ids
+    of -inf padding included; the ordered route within atol 1e-5, ids
+    equal outside near ties. Returns the rows checked and the largest
+    finite difference."""
+    r, c, v = inp["trip"]
+    ni = inp["ni"]
+    chunk_r, chunk_c, chunk_v, chunk, block = cs.plain_inputs(r, c, v, inp["nu"], ni, 256,
+                                                              1024, device)
+    nd = torch.from_numpy(inp["norms"]).to(device)
+    exact = inp["lay"].route == "atomic"
+    worst, checked = 0.0, 0
+    for start in starts:
+        first = min(start, max(0, ni - block))
+        ps, pi = cs.plain_block_topn(chunk_r, chunk_c, chunk_v, nd, first, ni, chunk, block,
+                                     top_n)
+        ps, pi = host(ps), host(pi)
+        a, b = ks[first:first + block], ki[first:first + block]
+        fin = np.isfinite(ps)
+        if not np.array_equal(np.isfinite(a), fin):
+            raise AssertionError(f"k6 {what}: -inf pattern differs at rows from {first}")
+        diff = np.abs(a[fin] - ps[fin]).max(initial=0.0)
+        worst = max(worst, float(diff))
+        if exact:
+            bad = (a.view(np.int32) != ps.view(np.int32)).any(1) | (b != pi).any(1)
+            if bad.any():
+                raise AssertionError(f"k6 {what}: rows {first + np.nonzero(bad)[0][:5]} differ "
+                                     "from the plain version")
+        else:
+            if diff > 1e-5:
+                raise AssertionError(f"k6 {what}: scores differ by {diff} > 1e-5")
+            for row in range(a.shape[0]):
+                if not near_tie_ids_ok(b[row], pi[row], ps[row]):
+                    raise AssertionError(f"k6 {what}: row {first + row} ids {b[row]} vs "
+                                         f"{pi[row]}")
+        checked += a.shape[0]
+    return {"rows_checked": checked, "max_abs_err": worst}
+
+
+def k6_case(torch, cs, device, inp: dict, top_n: int, what: str, starts=None,
+            pass_cols=None) -> dict:
+    """One K6 launch over every row, held to the plain version (every
+    block, or the blocks at ``starts``)."""
+    ni = inp["ni"]
+    tn = cs.clamp_top_n(top_n, ni)
+    kw = {} if pass_cols is None else {"pass_cols": pass_cols}
+    ks, ki = cs.cosine_topn_kernel(inp["dev"], ni, tn, inp["lay"].route, **kw)
+    torch.cuda.synchronize()
+    ks, ki = host(ks), host(ki)
+    if starts is None:
+        starts = range(0, ni, 256)
+    held = k6_blocks(torch, cs, device, inp, tn, starts, ks, ki, what)
+    res = {"case": what, "route": inp["lay"].route, "I": ni, "top_n": tn,
+           "passes": -(-ni // min(pass_cols or cs.K6_PASS_COLS, ni)), **held}
+    log(json.dumps({"k6": res}))
+    return res
+
+
+def k6_bound(mem_rate, fp32_rate, inp: dict, top_n: int) -> dict:
+    """The least time for K6's work: its inputs read once (CSR and CSC
+    pointers, ids and values, norms, the row order) and its [I, n] f32 +
+    int32 outputs written once, against the multiply-adds the data needs
+    (sum_u deg(u)^2, 2 FLOP each) at the FP32 peak."""
+    lay, ni = inp["lay"], inp["ni"]
+    nnz = len(lay.user_items)
+    nbytes = (8 * (len(lay.user_ptr) + len(lay.item_ptr)) + 16 * nnz + 8 * ni
+              + 8 * ni * top_n)
+    flops = 2.0 * float(lay.work.sum())
+    t_b, t_o = nbytes / mem_rate, flops / fp32_rate
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+@phase("k6: item-item cosine top-n vs plain")
+def k6_vs_plain(torch, device, stats):
+    """K6 (``ops/cosine_sim.py``, ``csrc/cosine_sim.cu``) against its plain
+    version (the JAX program stated in torch: dense user-chunk tiles,
+    ``tile_b^T @ tile`` with TF32 off, the masks, a stable sort on the
+    order key) on the card. Integer view counts (the atomic route) bit
+    for bit, ids of -inf padding included; fractional values (the
+    ordered route) within atol 1e-5. ML-100K and ML-1M views in full
+    (top_n 1, 20, 128; 1M also in forced column passes), with 37 empty
+    items; I = 100 at top_n = I - 1; the ML-20M views (16.8 M distinct
+    pairs) at top_n = 20, the kernel on every row and the plain version
+    on every block (timed: its wall time is plain_ms); I = 120,000 on a
+    sparse draw (three column passes), the plain version on the first,
+    middle and last blocks. Then K6's device time at 20m
+    (``torch.profiler``), the heaviest row's block alone, and the bound."""
+    from predictionio_tpu_torch.ops import cosine_sim as cs
+
+    cases = []
+    rows, cols, vals, nu, ni = ml_views(stats, "100k")
+    inp = k6_inputs(cs, device, rows, cols, vals, nu, ni + 37)
+    if len(inp["trip"][0]) >= len(rows):
+        raise AssertionError("the 100k views hold no repeated pair to sum")
+    for tn in (1, K6_TOP_N, 128):
+        cases.append(k6_case(torch, cs, device, inp, tn, f"100k views top_n={tn}"))
+    rng = np.random.default_rng(SEED + 60)
+    frac = rng.random(len(rows)).astype(np.float32) * 3.0
+    fin = k6_inputs(cs, device, rows, cols, frac, nu, ni + 37)
+    if fin["lay"].route != "ordered":
+        raise AssertionError("fractional values did not take the ordered route")
+    cases.append(k6_case(torch, cs, device, fin, K6_TOP_N, "100k fractional"))
+    cases.append(k6_case(torch, cs, device, fin, 128, "100k fractional"))
+    rows, cols, vals, nu, ni = ml_views(stats, "1m")
+    inp = k6_inputs(cs, device, rows, cols, vals, nu, ni)
+    cases.append(k6_case(torch, cs, device, inp, K6_TOP_N, "1m views"))
+    cases.append(k6_case(torch, cs, device, inp, K6_TOP_N, "1m views, passes of 1,000",
+                         pass_cols=1000))
+    frac = (vals * 0.5 + rng.random(len(vals)).astype(np.float32)).astype(np.float32)
+    cases.append(k6_case(torch, cs, device, k6_inputs(cs, device, rows, cols, frac, nu, ni),
+                         64, "1m fractional, passes of 1,000", pass_cols=1000))
+    small = k6_inputs(cs, device, rng.integers(0, 300, 4000), rng.integers(0, 97, 4000),
+                      rng.integers(1, 4, 4000).astype(np.float32), 300, 100)
+    cases.append(k6_case(torch, cs, device, small, 99, "I=100 top_n=I-1"))
+    # a catalog wider than one shared-memory pass: three column passes
+    wide = k6_inputs(cs, device, rng.integers(0, K6_WIDE_USERS, K6_WIDE_NNZ),
+                     rng.integers(0, K6_PASSES_I, K6_WIDE_NNZ),
+                     rng.integers(1, 4, K6_WIDE_NNZ).astype(np.float32), K6_WIDE_USERS,
+                     K6_PASSES_I)
+    cases.append(k6_case(torch, cs, device, wide, K6_TOP_N, "I=120,000 sparse",
+                         starts=(0, K6_PASSES_I // 2, K6_PASSES_I - 1)))
+    del wide, small, fin
+    # the ML-20M views: every row by the kernel, every block by the plain version
+    rows, cols, vals, nu, ni = ml_views(stats, "20m")
+    t0 = time.perf_counter()
+    inp = k6_inputs(cs, device, rows, cols, vals, nu, ni)
+    layout_s = time.perf_counter() - t0
+    lay = inp["lay"]
+    ks, ki = cs.cosine_topn_kernel(inp["dev"], ni, K6_TOP_N, lay.route)
+    torch.cuda.synchronize()
+    ks, ki = host(ks), host(ki)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    held = k6_blocks(torch, cs, device, inp, K6_TOP_N, range(0, ni, 256), ks, ki, "20m views")
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    hot = int(np.argmax(np.diff(lay.item_ptr)))
+    cases.append({"case": "20m views (every block)", "route": lay.route, "I": ni,
+                  "top_n": K6_TOP_N, "passes": 1, **held})
+    log(json.dumps({"k6": cases[-1]}))
+
+    def call():
+        cs.cosine_topn_kernel(inp["dev"], ni, K6_TOP_N, lay.route)
+
+    def heaviest():
+        cs.cosine_topn_kernel(inp["dev"], ni, K6_TOP_N, lay.route, rows=1)
+
+    # the ordered route on the same integer views: every sum is exact on
+    # both routes, so the same bits; its time beside the atomic route's
+    def ordered():
+        return cs.cosine_topn_kernel(inp["dev"], ni, K6_TOP_N, "ordered")
+
+    def ordered_heaviest():
+        cs.cosine_topn_kernel(inp["dev"], ni, K6_TOP_N, "ordered", rows=1)
+
+    os_, oi = ordered()
+    torch.cuda.synchronize()
+    if not (np.array_equal(host(os_).view(np.int32), ks.view(np.int32))
+            and np.array_equal(host(oi), ki)):
+        raise AssertionError("k6 20m views: the ordered route differs from the atomic route")
+    del os_, oi
+    mem_rate, fp32_rate = peaks(stats["device_name"])
+    bound = k6_bound(mem_rate, fp32_rate, inp, K6_TOP_N)
+    timing = {
+        "kernel_ms": cuda_median_ms(torch, call, runs=5, warmup=2),
+        "kernel_device_ms": _total(device_ms(torch, call, runs=3)),
+        "slowest_block_ms": _total(device_ms(torch, heaviest, runs=3)),
+        "ordered_device_ms": _total(device_ms(torch, ordered, runs=3)),
+        "ordered_slowest_block_ms": _total(device_ms(torch, ordered_heaviest, runs=3)),
+        "plain_ms": plain_ms, "library_ms": None, **bound,
+        "pairs": int(len(lay.user_items)), "sum_deg_sq": int(lay.work.sum()),
+        "hottest_item_users": int(np.diff(lay.item_ptr)[hot]),
+        "heaviest_row_work": int(lay.work[lay.row_order[0]]), "layout_s": layout_s,
+    }
+    stats["k6_20m"] = (ks, ki)
+    stats["k6_max_abs_err"] = max(c["max_abs_err"] for c in cases)
+    stats["k6"] = {"cases": cases, "timing": timing}
+    log(json.dumps({"k6 timing": timing}))
+
+
+@phase("k2cos: K2's cosine mode (top_k_similar) and top_k_items vs plain")
+def k2_cosine_vs_plain(torch, device, stats):
+    """``top_k_similar`` (K2's cosine mode: scores divided by max(norms
+    x ||v||, 1e-12), int8 values without scales) against its plain
+    version: f32, bf16 and int8 catalogs at I in {50, 26,744, 1M}, D = 10,
+    with and without precomputed norms, masked and unmasked, k 4 and 128
+    (the tile route) and 300 (the select route), on random rows with
+    crafted exact ties and a zero row: ids equal, scores within rtol 1e-5.
+    ``top_k_items`` (K2 at B = 1, row 0) against the plain gather version
+    bit for bit. Then their times at the similar-product shape (I =
+    26,744, D = 10, f32, k = 4) beside the plain versions, a
+    ``cosine_similarity`` + ``topk`` yardstick and the bound."""
+    import torch.nn.functional as F
+
+    from predictionio_tpu_torch.ops import topk
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 61)
+    worst, calls = 0.0, 0
+    topk.top_k_similar.launches.reset()
+    for I in K2COS_ROWS:
+        for dtype in DTYPES:
+            table = make_table(torch, dtype, I, 10, False, gen, device)
+            vals = table[0] if isinstance(table, tuple) else table
+            vals[3:6] = vals[7]  # exact ties with row 7 (the query)
+            vals[9] = 0  # a zero row: its divisor is max(0, 1e-12)
+            if isinstance(table, tuple):
+                table[1][3:6] = table[1][7]
+            query = vals[7].to(torch.float32)
+            for with_norms in (False, True):
+                norms = topk.catalog_norms(table) if with_norms else None
+                for masked in (False, True):
+                    mask = (torch.rand(I, generator=gen, device=device) < 0.3) if masked else None
+                    for k in (4, 128, 300):
+                        k = min(k, I)
+                        ks, ki = topk.top_k_similar(query, table, k, mask, norms)
+                        ps, pi = topk.top_k_similar_reference(query, table, k, mask, norms)
+                        calls += 1
+                        if not torch.equal(ki, pi) or not torch.allclose(
+                                ks, ps, rtol=RTOL, atol=0.0):
+                            raise AssertionError(f"top_k_similar {dtype} I={I} k={k} "
+                                                 f"norms={with_norms} masked={masked}")
+                        worst = max(worst, float((ks - ps).abs().max()))
+                    u = torch.randn(10, generator=gen, device=device)
+                    ks, ki = topk.top_k_items(u, table, 16, mask)
+                    ps, pi = topk.gather_top_k_batch_reference([0], u[None], table, 16, mask)
+                    if not (same_bits(torch, ks, ps[0]) and torch.equal(ki, pi[0])):
+                        raise AssertionError(f"top_k_items {dtype} I={I} masked={masked}")
+            del table, vals
+    if topk.top_k_similar.launches.value != calls:
+        raise AssertionError(f"{calls} top_k_similar calls launched "
+                             f"{topk.top_k_similar.launches.value} times")
+    torch.cuda.empty_cache()
+    # times at the similar-product catalog's shape
+    V = torch.randn((I_ROWS, 10), generator=gen, device=device)
+    norms = topk.catalog_norms(V)
+    q = V[42].clone()
+
+    def kernel():
+        topk.top_k_similar(q, V, 4, norms=norms)
+
+    def plain():
+        topk.top_k_similar_reference(q, V, 4, norms=norms)
+
+    def library():
+        torch.topk(F.cosine_similarity(V, q[None], dim=1), 4)
+
+    mem_rate, fp32_rate = peaks(stats["device_name"])
+    nbytes = I_ROWS * 10 * 4 + I_ROWS * 4 + 10 * 4 + 4 * 8
+    flops = 2.0 * I_ROWS * 10 + 2.0 * I_ROWS  # the dots, then a product and a divide
+    t_b, t_o = nbytes / mem_rate, flops / fp32_rate
+    stats["k2cos"] = {
+        "calls_checked": calls, "max_abs_err": worst,
+        "route": topk.k2_route(4, I_ROWS, 1)._asdict(),
+        "kernel_ms": cuda_median_ms(torch, kernel),
+        "kernel_device_ms": _total(device_ms(torch, kernel)),
+        "plain_ms": cuda_median_ms(torch, plain, runs=20, warmup=5),
+        "plain_device_ms": _total(device_ms(torch, plain, runs=20)),
+        "library_ms": cuda_median_ms(torch, library),
+        "library_device_ms": _total(device_ms(torch, library)),
+        "bytes": nbytes, "flops": flops, "bound_ms": max(t_b, t_o) * 1e3,
+        "bound_by": "bytes" if t_b >= t_o else "operations"}
+    log(json.dumps({"k2cos": stats["k2cos"]}))
+
+
+# -- the templates through the CLI at the ML-100K shape ----------------------------
+
+
+def template_events(Event, kind: str, rows, cols, rng) -> list:
+    """ML-100K-shaped pairs as one template's events: follows (user ->
+    user) for recommended-user; items ``$set`` with a category each,
+    users ``$set``, views, a buy per tenth pair and one ``$set
+    unavailableItems`` for e-commerce; items, users and views for the
+    similar-product cosine algorithm."""
+    from datetime import datetime, timedelta, timezone
+
+    t0 = datetime(2024, 1, 1, tzinfo=timezone.utc)
+    out = []
+
+    def add(**kw):
+        out.append(Event(event_time=t0 + timedelta(seconds=len(out)), **kw))
+
+    for u in range(int(rows.max()) + 1):
+        add(event="$set", entity_type="user", entity_id=f"u{u}", properties={})
+    if kind == "recuser":
+        for r, c in zip(rows.tolist(), cols.tolist()):
+            add(event="follow", entity_type="user", entity_id=f"u{r}",
+                target_entity_type="user", target_entity_id=f"u{c}")
+        return out
+    for j in range(int(cols.max()) + 1):
+        add(event="$set", entity_type="item", entity_id=f"i{j}",
+            properties={"categories": [f"c{j % 5}"]})
+    for n, (r, c) in enumerate(zip(rows.tolist(), cols.tolist())):
+        add(event="view", entity_type="user", entity_id=f"u{r}",
+            target_entity_type="item", target_entity_id=f"i{c}")
+        if kind == "ecommerce" and n % 10 == 0:
+            add(event="buy", entity_type="user", entity_id=f"u{r}",
+                target_entity_type="item", target_entity_id=f"i{c}")
+    if kind == "ecommerce":
+        add(event="$set", entity_type="constraint", entity_id="unavailableItems",
+            properties={"items": [f"i{int(j)}" for j in rng.choice(int(cols.max()), 20)]})
+    return out
+
+
+TEMPLIFE = {
+    "recuser": ("predictionio_tpu.models.recommendeduser.engine",
+                [{"name": "als", "params": {"rank": 10, "numIterations": 10}}],
+                [{"users": ["u0"], "num": 4}, {"users": ["u17", "u3"], "num": 10},
+                 {"users": ["u5"], "num": 6, "blackList": ["u1", "u2"]},
+                 {"users": ["u7"], "num": 5, "whiteList": [f"u{j}" for j in range(0, 400, 7)]},
+                 {"users": ["nobody"], "num": 4}]),
+    "ecommerce": ("predictionio_tpu.models.ecommerce.engine",
+                  [{"name": "als", "params": {"appName": "TPL", "rank": 10,
+                                              "numIterations": 10, "unseenOnly": True}}],
+                  [{"user": "u0", "num": 4}, {"user": "u17", "num": 10},
+                   {"user": "u5", "num": 6, "categories": ["c1", "c3"]},
+                   {"user": "u7", "num": 5, "whiteList": [f"i{j}" for j in range(0, 600, 7)]},
+                   {"user": "u9", "num": 4, "blackList": ["i0", "i1"]},
+                   {"user": "nobody", "num": 4}]),
+    "cosine": ("predictionio_tpu.models.similarproduct.engine",
+               [{"name": "cosine", "params": {"topN": K6_TOP_N}}],
+               [{"items": ["i0"], "num": 4}, {"items": ["i17", "i3"], "num": 10},
+                {"items": ["i5"], "num": 6, "categories": ["c1"]},
+                {"items": ["i7"], "num": 5, "blackList": ["i1", "i2"]},
+                {"items": ["nothing"], "num": 4}]),
+}
+
+
+def plain_answer(torch, server, q: dict) -> dict:
+    """What the deployed engine must answer: each algorithm's model
+    scored on the CPU (K2 and K2s run their plain versions there; the
+    cosine algorithm's host loop is the same code), then its serving."""
+    algos = [cpu_algorithm(torch, type(a), a.params) for a in server.algorithms]
+    query = server.algorithms[0].query_class(**q)
+    preds = [a.predict(m, query) for a, m in zip(algos, server.models)]
+    return json.loads(json.dumps(dataclasses.asdict(server.serving.serve(query, preds))))
+
+
+def check_template_answer(got: dict, want: dict, what: str) -> None:
+    """Served JSON against the plain path's: the same entries (ids
+    outside runs of near ties), scores within rtol 1e-5."""
+    (key, g), = got.items()
+    (_, w), = want.items()
+    name = "user" if key == "userScores" else "item"
+    gs = np.asarray([x["score"] for x in g], np.float32)
+    ws = np.asarray([x["score"] for x in w], np.float32)
+    if len(g) != len(w) or not np.allclose(gs, ws, rtol=RTOL, atol=ATOL):
+        raise AssertionError(f"{what}: {g} vs plain {w}")
+    ids = {x[name]: n for n, x in enumerate(w)}
+    gi = np.asarray([ids.get(x[name], -1 - n) for n, x in enumerate(g)])
+    if not near_tie_ids_ok(gi, np.arange(len(w)), ws):
+        raise AssertionError(f"{what}: entries {g} vs plain {w}")
+
+
+@phase("templates lifecycle: events -> train -> deploy (CLI, sqlite, ML-100K shape)")
+def templates_lifecycle(torch, device, stats):
+    """Each of the three engines -- recommended-user (follows), e-commerce
+    (views, buys, an unavailableItems constraint; unseen only) and the
+    similar-product template's cosine algorithm (views) -- from
+    ML-100K-shaped events in the port's sqlite store through ``cli.main
+    train`` (its variant names the JAX package's factory) and ``deploy``
+    on the card, queries POSTed and held to the plain path on the same
+    model. The cosine model's neighbor tables against the plain version
+    bit for bit; K1 (implicit), K2, K2s and K6 launch counters move."""
+    from predictionio_tpu_torch.cli import main as cli
+    from predictionio_tpu_torch.data import storage as st
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.models import similarproduct as sim
+    from predictionio_tpu_torch.ops import als, topk
+    from predictionio_tpu_torch.ops import cosine_sim as cs
+
+    rows, cols, _, _, _ = make_ml_shaped("100k")
+    rng = np.random.default_rng(SEED + 62)
+    out = {}
+    topk.top_k_similar.launches.reset()  # the main path's K2 cosine calls, read below
+    for kind, (factory, algos, queries) in TEMPLIFE.items():
+        basedir = tempfile.mkdtemp(prefix=f"pio_chip_smoke_tpl_{kind}_")
+        variant_path = os.path.join(basedir, "engine.json")
+        with open(variant_path, "w") as f:
+            json.dump({"id": f"chip-smoke-{kind}", "engineFactory": factory,
+                       "datasource": {"params": {"appName": "TPL"}}, "algorithms": algos}, f)
+        server = None
+        try:
+            with storage_env(basedir):
+                storage = st.get_storage()
+                app_id = storage.get_metadata_apps().insert(st.App(0, "TPL"))
+                storage.get_events().batch_insert(
+                    template_events(Event, kind, rows, cols, rng), app_id)
+                counters = (als.solve_bucket.launches, topk.gather_top_k_batch.launches,
+                            topk.sum_rows_top_k_batch.launches, cs.item_similarity_topn.launches)
+                before = [c.value for c in counters]
+                t0 = time.perf_counter()
+                flags = ["--device", device.type]
+                if cli.main(["train", "--variant", variant_path, *flags]) != 0:
+                    raise AssertionError(f"{kind}: cli train failed")
+                train_s = time.perf_counter() - t0
+                server = cli.deploy_server(cli.build_parser().parse_args([
+                    "deploy", "--variant", variant_path, "--ip", "127.0.0.1", "--port", "0",
+                    *flags]))
+                server.warmup()
+                port = server.start(background=True)
+                conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+                for q in queries:
+                    got = post(conn, q)
+                    check_template_answer(got, plain_answer(torch, server, q),
+                                          f"{kind} {q}")
+                    log(f"{kind} {json.dumps(q)[:80]} -> {json.dumps(got)[:160]}")
+                conn.close()
+                moved = [c.value - b for c, b in zip(counters, before)]
+                model = server.models[0]
+                if kind == "cosine":
+                    r = sim._view_counts(sim.SimilarProductDataSource(
+                        sim.DataSourceParams(app_name="TPL")).read_training(None))
+                    ps, pi = cs.item_similarity_topn_reference(
+                        r.rows, r.cols, r.vals, len(r.user_index), len(r.item_index),
+                        top_n=K6_TOP_N, device=device)
+                    if not (np.array_equal(model.sim_scores.view(np.int32), ps.view(np.int32))
+                            and np.array_equal(model.sim_ids, pi)):
+                        raise AssertionError("cosine: trained tables differ from the plain "
+                                             "version")
+        finally:
+            if server is not None:
+                server.stop()
+            shutil.rmtree(basedir, ignore_errors=True)
+        check_template_launches(kind, moved)
+        out[kind] = {"train_s": train_s, "launches_k1_k2_k2s_k6": moved}
+        log(json.dumps({"templife": kind, **out[kind]}))
+    stats["k2cos_launches"] = stats.get("k2cos_launches", 0) + topk.top_k_similar.launches.value
+    stats["templife"] = out
+
+
+def check_template_launches(kind: str, moved: list) -> None:
+    """The engine's kernels ran on the card: K1 and K2s for
+    recommended-user, K1 and K2 for e-commerce, K6 for the cosine
+    algorithm (``moved``: K1, K2, K2s, K6 calls during train + queries)."""
+    need = {"recuser": (0, 2), "ecommerce": (0, 1), "cosine": (3,)}[kind]
+    if any(moved[j] <= 0 for j in need):
+        raise AssertionError(f"{kind}: launch counters (K1, K2, K2s, K6) moved {moved}")
+
+
+# -- the templates at full width -----------------------------------------------
+
+
+def level_stats(run: dict, n: int) -> dict:
+    lat = sorted(run["lat"])
+    return {"p50_ms": lat[len(lat) // 2] * 1e3,
+            "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))] * 1e3,
+            "qps": n / run["wall_s"]}
+
+
+def serve_levels(server, queries: list, key, kernel: str) -> dict:
+    """Closed-loop rounds at concurrency 1 and 8: the answers (equal at
+    both levels), p50 / p99 / q/s, and the K2 wrapper ``kernel``'s calls
+    by route from the server's /metrics."""
+    levels = {}
+    for c in TEMPLATE_LEVELS:
+        m0 = server.metrics()
+        run = closed_loop(server.port, queries, c, key)
+        m1 = server.metrics()
+        calls = {r: int(metric_delta(m1, m0, f'pio_k2_calls{{kernel="{kernel}",route="{r}"}}'))
+                 for r in ("tile", "select")}
+        levels[c] = {"answers": run["answers"], **level_stats(run, len(queries)),
+                     "kernel_calls": sum(calls.values()), "k2_routes": calls,
+                     "dispatches": int(metric_delta(m1, m0, "pio_batch_size_count")),
+                     "k2cos": k2cos_served(m1, m0)}
+    if levels[1]["answers"] != levels[8]["answers"]:
+        raise AssertionError("batched answers differ from solo ones")
+    return levels
+
+
+def check_serving_calls(levels: dict, what: str) -> None:
+    """Every dispatch of simple queries is one K2 (or K2s) call, by the
+    server's /metrics: on the tile route at k <= 128, on the select route
+    when a user's seen items push k = pow2(num + |excluded|) past it."""
+    for c, lv in levels.items():
+        if lv["kernel_calls"] != lv["dispatches"] or lv["dispatches"] <= 0:
+            raise AssertionError(f"{what} c={c}: {lv['kernel_calls']} kernel calls for "
+                                 f"{lv['dispatches']} dispatches")
+
+
+def hold_sample(answers: dict, queries: list, key, expected, what: str) -> int:
+    """The first 200 answers against ``expected(q)`` (the plain path)."""
+    for q in queries[:200]:
+        check_template_answer(json.loads(answers[key(q)]), expected(q), f"{what} {q}")
+    return min(200, len(queries))
+
+
+def cpu_algorithm(torch, cls, params):
+    """A copy of an algorithm that scores on the CPU: its kernels' plain
+    versions."""
+    algo = cls(params)
+    algo.device = torch.device("cpu")
+    return algo
+
+
+def generated_engine(module, td, algo_name: str, algo_cls, serving):
+    """The template's engine with a data source that returns ``td``."""
+    from predictionio_tpu_torch.core import DataSource, Engine, IdentityPreparator
+
+    class Generated(DataSource):
+        params_class = module.DataSourceParams
+
+        def read_training(self, ctx):
+            return td
+
+    return Engine(Generated, IdentityPreparator, {algo_name: algo_cls}, serving)
+
+
+@phase("templates at full width: recommended-user, e-commerce, cosine (ML-20M shape)")
+def templates_full_width(torch, device, stats):
+    """The three engines at their defaults (rank 10, 20 iterations,
+    implicit, f32; the cosine algorithm at top_n = 20) through
+    ``run_train`` on ML-20M-shaped data, the model saved, then ``deploy``
+    in a subprocess with the batcher (``--batch-window-ms 2``) and
+    ``POST /queries.json`` at concurrency 1 and 8 (500 distinct query
+    entities a level): recommended-user on a follow graph (138,493
+    followers, 26,744 followed, the 20 M draws), e-commerce on the views
+    (its sqlite store holds the view and buy events of the 500 queried
+    users and one ``$set unavailableItems``; its live-filter cache read
+    once per user per token and dropped after a write), the
+    similar-product template's cosine algorithm on the views (K6's
+    counter reset just before ``run_train`` and read just after: the main
+    path's launch). Answers held to the plain path on the same model;
+    ready_s, p50 / p99, q/s and K2 / K2s calls from /metrics."""
+    from predictionio_tpu_torch.core import FirstServing
+    from predictionio_tpu_torch.core.context import WorkflowContext
+    from predictionio_tpu_torch.core.workflow import prepare_deploy, run_train
+    from predictionio_tpu_torch.data import storage as st
+    from predictionio_tpu_torch.data import store
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.models import ecommerce as ec
+    from predictionio_tpu_torch.models import recommendeduser as ru
+    from predictionio_tpu_torch.models import similarproduct as sim
+    from predictionio_tpu_torch.ops import als, topk
+    from predictionio_tpu_torch.ops import cosine_sim as cs
+
+    rows, cols, _, nu, ni = ml_views(stats, "20m")
+    rng = np.random.default_rng(SEED + 63)
+    topk.top_k_similar.launches.reset()  # the main path's K2 cosine calls, read below
+    users = [f"u{j}" for j in range(nu)]
+    basedir = tempfile.mkdtemp(prefix="pio_chip_smoke_templates_")
+    storage = st.Storage(env={"PIO_FS_BASEDIR": basedir})
+    st.set_storage(storage)
+    ctx = WorkflowContext(mode="Training", device=device)
+    servers, out = [], {}
+    try:
+        # recommended-user: u{r} follows u{c}
+        follows = st.RatingsBatch(users, [f"u{j}" for j in range(ni)], rows, cols,
+                                  np.ones(len(rows), np.float32))
+        engine = generated_engine(ru, ru.TrainingData(users=[], follow_events=follows), "als",
+                                  ru.ALSAlgorithm, FirstServing)
+        ep = engine.params_from_variant({"algorithms": [{"name": "als", "params": {}}]})
+        als.solve_bucket.launches.reset()
+        t0 = time.perf_counter()
+        iid = run_train(engine, ep, engine_id="chip-smoke-ru20m", engine_factory=RU_FACTORY,
+                        storage=storage, ctx=ctx)
+        train_s = time.perf_counter() - t0
+        k1 = als.solve_bucket.launches.value
+        t0 = time.perf_counter()
+        server = DeployProcess(basedir, iid, device.type,
+                               ["--batch-window-ms", str(BATCH_WINDOW_MS)], "ru20m")
+        servers.append(server)
+        ready_s = time.perf_counter() - t0
+        followed = [f"u{int(j)}" for j in rng.permutation(np.unique(cols))[:TEMPLATE_USERS]]
+        queries = [{"users": [u], "num": 4} for u in followed]
+        levels = serve_levels(server, queries, lambda q: q["users"][0], "sum_rows_top_k_batch")
+        check_serving_calls(levels, "recommended-user 20m")
+        inst = storage.get_metadata_engine_instances().get(iid)
+        _, [algo], [model], _ = prepare_deploy(engine, inst, storage=storage, ctx=ctx)
+        cpu = cpu_algorithm(torch, ru.ALSAlgorithm, algo.params)
+        held = hold_sample(levels[1]["answers"], queries, lambda q: q["users"][0],
+                           lambda q: dataclasses.asdict(cpu.predict(model, ru.Query(**q))),
+                           "recommended-user 20m")
+        out["recommended_user"] = {"train_s": train_s, "k1_launches": k1, "ready_s": ready_s,
+                                   "held": held, **{f"c{c}": {k: v for k, v in lv.items()
+                                                             if k != "answers"}
+                                                    for c, lv in levels.items()}}
+        server.stop()
+        log(json.dumps({"templates": "recommended-user 20m", **out["recommended_user"]}))
+        del model
+        # e-commerce: views, live filters from the sqlite store
+        views = st.RatingsBatch(users, [f"i{j}" for j in range(ni)], rows, cols,
+                                np.ones(len(rows), np.float32))
+        engine = generated_engine(ec, ec.TrainingData(users=[], items={}, view_events=views),
+                                  "als", ec.ECommAlgorithm, FirstServing)
+        ep = engine.params_from_variant({"algorithms": [{"name": "als", "params": {
+            "appName": "EC20M", "unseenOnly": True}}]})
+        queried = rng.permutation(np.unique(rows))[:TEMPLATE_USERS]
+        app_id = storage.get_metadata_apps().insert(st.App(0, "EC20M"))
+        pick = np.isin(rows, queried)  # each seen (user, item) pair once
+        seen = np.unique(rows[pick].astype(np.int64) * ni + cols[pick])
+        evs = [Event(event="view", entity_type="user", entity_id=f"u{r}",
+                     target_entity_type="item", target_entity_id=f"i{c}")
+               for r, c in zip((seen // ni).tolist(), (seen % ni).tolist())]
+        evs += [Event(event="buy", entity_type="user", entity_id=f"u{u}",
+                      target_entity_type="item", target_entity_id=f"i{int(rng.integers(ni))}")
+                for u in queried.tolist()]
+        popular = np.argsort(-np.bincount(cols, minlength=ni))[:50]
+        evs.append(Event(event="$set", entity_type="constraint", entity_id="unavailableItems",
+                         properties={"items": [f"i{int(j)}" for j in popular]}))
+        t0 = time.perf_counter()
+        storage.get_events().batch_insert(evs, app_id)
+        insert_s = time.perf_counter() - t0
+        als.solve_bucket.launches.reset()
+        t0 = time.perf_counter()
+        iid = run_train(engine, ep, engine_id="chip-smoke-ec20m", engine_factory=EC_FACTORY,
+                        storage=storage, ctx=ctx)
+        train_s = time.perf_counter() - t0
+        k1 = als.solve_bucket.launches.value
+        t0 = time.perf_counter()
+        server = DeployProcess(basedir, iid, device.type,
+                               ["--batch-window-ms", str(BATCH_WINDOW_MS)], "ec20m")
+        servers.append(server)
+        ready_s = time.perf_counter() - t0
+        queries = [{"user": f"u{int(u)}", "num": 4} for u in queried]
+        levels = serve_levels(server, queries, lambda q: q["user"], "gather_top_k_batch")
+        check_serving_calls(levels, "e-commerce 20m")
+        inst = storage.get_metadata_engine_instances().get(iid)
+        _, [algo], [model], _ = prepare_deploy(engine, inst, storage=storage, ctx=ctx)
+        cpu = cpu_algorithm(torch, ec.ECommAlgorithm, algo.params)
+        held = hold_sample(levels[1]["answers"], queries, lambda q: q["user"],
+                           lambda q: dataclasses.asdict(cpu.predict(model, ec.Query(**q))),
+                           "e-commerce 20m")
+        banned = {f"i{int(j)}" for j in popular}
+        for a in levels[1]["answers"].values():
+            if banned & {x["item"] for x in json.loads(a)["itemScores"]}:
+                raise AssertionError("e-commerce 20m: an unavailable item was served")
+        cache = filter_cache_reads(store, storage, app_id, cpu, model, queries[:100], ec, Event)
+        out["ecommerce"] = {"train_s": train_s, "k1_launches": k1, "ready_s": ready_s,
+                            "held": held, "store_events": len(evs), "insert_s": insert_s,
+                            "filter_cache": cache,
+                            **{f"c{c}": {k: v for k, v in lv.items() if k != "answers"}
+                               for c, lv in levels.items()}}
+        server.stop()
+        log(json.dumps({"templates": "e-commerce 20m", **out["ecommerce"]}))
+        del model
+        # the similar-product template's cosine algorithm on the views
+        engine = generated_engine(sim, sim.TrainingData(users=[], items={}, view_events=views),
+                                  "cosine", sim.CosineAlgorithm, sim.SumScoreServing)
+        ep = engine.params_from_variant({"algorithms": [{"name": "cosine", "params": {}}]})
+        cs.item_similarity_topn.launches.reset()  # the main path starts here
+        t0 = time.perf_counter()
+        iid = run_train(engine, ep, engine_id="chip-smoke-cos20m", engine_factory=SIM_FACTORY,
+                        storage=storage, ctx=ctx)
+        train_s = time.perf_counter() - t0
+        stats["k6_launches"] = cs.item_similarity_topn.launches.value  # main path read
+        if stats["k6_launches"] != 1:
+            raise AssertionError(f"cosine training launched K6 {stats['k6_launches']} times")
+        inst = storage.get_metadata_engine_instances().get(iid)
+        _, [algo], [model], serving = prepare_deploy(engine, inst, storage=storage, ctx=ctx)
+        if "k6_20m" in stats:  # the k6 phase's launch on the same views
+            ks, ki = stats["k6_20m"]
+            if not (np.array_equal(model.sim_scores.view(np.int32), ks.view(np.int32))
+                    and np.array_equal(model.sim_ids, ki)):
+                raise AssertionError("cosine 20m: the trained tables differ from the k6 "
+                                     "phase's, which the plain version held")
+        t0 = time.perf_counter()
+        server = DeployProcess(basedir, iid, device.type,
+                               ["--batch-window-ms", str(BATCH_WINDOW_MS)], "cos20m")
+        servers.append(server)
+        ready_s = time.perf_counter() - t0
+        items = [f"i{int(j)}" for j in rng.permutation(np.unique(cols))[:TEMPLATE_USERS]]
+        queries = [{"items": [i], "num": 4} for i in items]
+        levels = serve_levels(server, queries, lambda q: q["items"][0], "sum_rows_top_k_batch")
+        cpu = cpu_algorithm(torch, sim.CosineAlgorithm, algo.params)
+        for q in queries:  # the host loop: the same bytes
+            want = serving.serve(sim.Query(**q), [cpu.predict(model, sim.Query(**q))])
+            if json.loads(levels[1]["answers"][q["items"][0]]) != json.loads(
+                    json.dumps(dataclasses.asdict(want))):
+                raise AssertionError(f"cosine 20m {q}: served answer differs")
+        out["cosine"] = {"train_s": train_s, "k6_launches": stats["k6_launches"],
+                         "ready_s": ready_s, "held": len(queries),
+                         **{f"c{c}": {k: v for k, v in lv.items() if k != "answers"}
+                            for c, lv in levels.items()}}
+        server.stop()
+        log(json.dumps({"templates": "cosine 20m", **out["cosine"]}))
+        served = sum(out[t][f"c{c}"]["k2cos"] for t in out for c in TEMPLATE_LEVELS)
+        stats["k2cos_launches"] = (stats.get("k2cos_launches", 0)
+                                   + topk.top_k_similar.launches.value + served)
+    except BaseException:
+        for s in servers:
+            if s.proc.poll() is None:
+                log(s.log_tail())
+        raise
+    finally:
+        for s in servers:
+            if s.proc.poll() is None:
+                s.stop()
+        st.set_storage(None)
+        storage.close()
+        shutil.rmtree(basedir, ignore_errors=True)
+    stats["templates"] = out
+
+
+def filter_cache_reads(store, storage, app_id, algo, model, queries, ec, Event) -> dict:
+    """The e-commerce live filters' store reads, counted around the
+    template's ``store.find_by_entity``: a first round reads each user's
+    seen events once (and the constraint once), a second round reads
+    nothing, and after a write the next query reads again."""
+    calls = []
+    real = store.find_by_entity
+
+    def counting(*a, **kw):
+        calls.append(kw.get("entity_type"))
+        return real(*a, **kw)
+
+    store.find_by_entity = counting
+    try:
+        algo._filters = None  # a fresh cache
+        for q in queries:
+            algo.predict(model, ec.Query(**q))
+        first = list(calls)
+        del calls[:]
+        for q in queries:
+            algo.predict(model, ec.Query(**q))
+        second = list(calls)
+        storage.get_events().insert(Event(event="view", entity_type="user",
+                                          entity_id="u0", target_entity_type="item",
+                                          target_entity_id="i1"), app_id)
+        del calls[:]
+        algo.predict(model, ec.Query(**queries[0]))
+        after = list(calls)
+    finally:
+        store.find_by_entity = real
+    if first.count("user") != len(queries) or first.count("constraint") != 1 or second \
+            or not after:
+        raise AssertionError(f"filter cache reads: first {len(first)}, second {second}, "
+                             f"after a write {after}")
+    return {"first_round_reads": len(first), "second_round_reads": len(second),
+            "reads_after_write": len(after)}
+
+
+# -- two-stage branches of the recommended-user and e-commerce templates -----------
+
+
+def hold_cosine_two_stage(model_index, qs: list, exp: list, answers: dict, key, field: str,
+                          what: str) -> dict:
+    """Served cosine-template answers against the plain two-stage version
+    (ids outside near ties, scores within RTOL) and recall@num against
+    exact K2s; answers equal to K2s's where they hold its ids, scores bit
+    for bit."""
+    name = "user" if field == "users" else "item"
+    hits = covered = 0
+    for q, (pi, ps, ei, es) in zip(qs, exp):
+        got = json.loads(answers[key(q)])[f"{name}Scores"]
+        ids = np.asarray([model_index[x[name]] for x in got])
+        sc = np.asarray([x["score"] for x in got], np.float32)
+        if set(q.get("blackList", ())) & {x[name] for x in got}:
+            raise AssertionError(f"{what} {q}: a blackListed entry came back")
+        if len(ids) != len(pi) or not np.allclose(sc, ps, rtol=RTOL, atol=ATOL) \
+                or not near_tie_ids_ok(ids, pi, ps):
+            raise AssertionError(f"{what} {q}: {ids} {sc} vs plain {pi} {ps}")
+        hits += len(set(ids.tolist()) & set(ei.tolist()))
+        if set(ids.tolist()) == set(ei.tolist()):
+            covered += 1
+            if not np.array_equal(sc.view(np.int32), es.view(np.int32)):
+                raise AssertionError(f"{what} {q}: scores differ from K2s's")
+    recall = hits / (RET_NUM * len(qs))
+    if recall < 0.999:
+        raise AssertionError(f"{what}: recall@{RET_NUM} {recall} < 0.999")
+    return {"recall": recall, "covered": covered, "queries": len(qs)}
+
+
+def ru_retrieval(torch, device, storage, basedir, stats, servers) -> dict:
+    """The recommended-user template at 1,000,000 followed users, rank 32,
+    f32: queries of 1-3 users at num = 10, at concurrency 1 and 8."""
+    from predictionio_tpu_torch.core.workflow import save_instance
+    from predictionio_tpu_torch.data.bimap import BiMap
+    from predictionio_tpu_torch.models import recommendeduser as ru
+    from predictionio_tpu_torch.ops import retrieval, topk
+
+    rng = np.random.default_rng(SEED + 42)
+    vf = rng.standard_normal((RET_ITEMS, RET_D), dtype=np.float32)
+    model = ru.RecommendedUserModel(
+        followed_index=BiMap.from_dense([f"u{j}" for j in range(RET_ITEMS)]),
+        followed_factors=vf)
+    engine = ru.engine()
+    ep = engine.params_from_variant({"algorithms": [{"name": "als", "params": {"rank": RET_D}}]})
+    iid = save_instance(engine, ep, [model], engine_id="chip-smoke-ret-ru",
+                        engine_variant="ret", engine_factory=RU_FACTORY, storage=storage)
+    queries = [{"users": [f"u{int(x)}" for x in rng.choice(RET_ITEMS, int(n), replace=False)],
+                "num": RET_NUM} for n in rng.integers(1, 4, SIM_QUERIES)]
+
+    def key(q):
+        return json.dumps(q, sort_keys=True)
+
+    kernels = {"k4": K4_CALLS % "bf16", "k5": K5_CALLS % "sum_rows", **K4_ROUTES,
+               "k4_kernels": "pio_k4_kernel_launches", "k5_kernels": "pio_k5_kernel_launches",
+               "k2s": 'pio_k2_calls{kernel="sum_rows_top_k_batch",route="tile"}'}
+    t0 = time.perf_counter()
+    server = DeployProcess(basedir, iid, device.type, ["--batch-window-ms", str(BATCH_WINDOW_MS)],
+                           "ret-ru", {"PIO_RETRIEVAL_PROBE_EVERY": "0"})
+    servers.append(server)
+    ready_s = time.perf_counter() - t0
+    check_warm_k4(server.metrics(), "bf16", "recommended-user")
+    levels = {}
+    for c in RET_LEVELS:
+        levels[c] = lv = retrieval_round(server, queries, c, key, kernels)
+        check_dispatch_counts(lv, 0, f"recommended-user c={c}")
+    if levels[1]["answers"] != levels[8]["answers"]:
+        raise AssertionError("recommended-user: batched answers differ from solo ones")
+    expected = plain_sim(torch, retrieval, topk, model, device, queries,
+                         index=model.followed_index, factors=model.followed_factors,
+                         field="users")
+    held = hold_cosine_two_stage(model.followed_index, queries, expected, levels[1]["answers"],
+                                 key, "users", "recommended-user 1M")
+    server.stop()
+    out = {"ready_s": ready_s, **held,
+           **{f"c{c}": {k: v for k, v in lv.items() if k != "answers"} for c, lv in levels.items()}}
+    log(json.dumps({"retrieval": "recommended-user f32", **out}))
+    return out
+
+
+def ec_retrieval(torch, device, storage, basedir, stats, servers) -> dict:
+    """The e-commerce template at U = 138,493, I = 1,000,000, rank 32, f32
+    (its app in the store, no events: unseen-only filters read and cached
+    empty): 500 distinct users at num = 10, at concurrency 1 and 8."""
+    from predictionio_tpu_torch.core.workflow import save_instance
+    from predictionio_tpu_torch.data import storage as st
+    from predictionio_tpu_torch.data.bimap import BiMap
+    from predictionio_tpu_torch.models import ecommerce as ec
+    from predictionio_tpu_torch.ops import retrieval, topk
+
+    rng = np.random.default_rng(SEED + 43)
+    uf = rng.standard_normal((U_ROWS, RET_D), dtype=np.float32)
+    vf = rng.standard_normal((RET_ITEMS, RET_D), dtype=np.float32)
+    model = ec.ECommModel(user_index=BiMap.from_dense([f"u{j}" for j in range(U_ROWS)]),
+                          item_index=BiMap.from_dense([f"i{j}" for j in range(RET_ITEMS)]),
+                          user_factors=uf, item_factors=vf, categories={})
+    storage.get_metadata_apps().insert(st.App(0, "EC1M"))
+    engine = ec.engine()
+    ep = engine.params_from_variant({"algorithms": [{"name": "als", "params": {
+        "appName": "EC1M", "rank": RET_D}}]})
+    iid = save_instance(engine, ep, [model], engine_id="chip-smoke-ret-ec",
+                        engine_variant="ret", engine_factory=EC_FACTORY, storage=storage)
+    users = [f"u{int(j)}" for j in rng.permutation(U_ROWS)[:RET_USERS]]
+    queries = [{"user": u, "num": RET_NUM} for u in users]
+    kernels = {"k4": K4_CALLS % "bf16", "k5": K5_CALLS % "vectors", **K4_ROUTES,
+               "k4_kernels": "pio_k4_kernel_launches", "k5_kernels": "pio_k5_kernel_launches",
+               "k2": 'pio_k2_calls{kernel="gather_top_k_batch",route="tile"}'}
+    t0 = time.perf_counter()
+    server = DeployProcess(basedir, iid, device.type, ["--batch-window-ms", str(BATCH_WINDOW_MS)],
+                           "ret-ec", {"PIO_RETRIEVAL_PROBE_EVERY": "0"})
+    servers.append(server)
+    ready_s = time.perf_counter() - t0
+    check_warm_k4(server.metrics(), "bf16", "e-commerce")
+    levels = {}
+    for c in RET_LEVELS:
+        levels[c] = lv = retrieval_round(server, queries, c, lambda q: q["user"], kernels)
+        check_dispatch_counts(lv, 0, f"e-commerce c={c}")
+    if levels[1]["answers"] != levels[8]["answers"]:
+        raise AssertionError("e-commerce: batched answers differ from solo ones")
+    V = torch.from_numpy(vf).to(device)
+    cat = retrieval.CoarseCatalog(V, device=device)
+    k = 1 << (RET_NUM - 1).bit_length()
+    kp = retrieval.shortlist_k(k, RET_ITEMS)
+    exp = []
+    for lo in range(0, len(users), 50):
+        uixs = np.asarray([model.user_index[u] for u in users[lo:lo + 50]])
+        q = torch.from_numpy(model.user_rows(uixs)).to(device)
+        _, cand = retrieval.coarse_topk_reference(q, cat._tiles, cat._scales, RET_ITEMS, kp,
+                                                  cat.mode)
+        ps, pi = retrieval.rescore_top_k_reference("vectors", V, cand, k, vectors=q)
+        es, ei = topk.top_k_items_batch(q, V, k)
+        for b in range(len(uixs)):
+            exp.append((host(pi)[b, :RET_NUM], host(ps)[b, :RET_NUM],
+                        host(ei)[b, :RET_NUM], host(es)[b, :RET_NUM]))
+    held = hold_cosine_two_stage(model.item_index, queries, exp, levels[1]["answers"],
+                                 lambda q: q["user"], "items", "e-commerce 1M")
+    server.stop()
+    out = {"ready_s": ready_s, **held,
+           **{f"c{c}": {k: v for k, v in lv.items() if k != "answers"} for c, lv in levels.items()}}
+    log(json.dumps({"retrieval": "e-commerce f32", **out}))
+    return out
+
+
+# -- summary lines -------------------------------------------------------------------
+
+
+def k6_summary(stats) -> dict:
+    """K6's line: the ML-20M views at top_n = 20, one launch over every
+    row; launches: the cosine template's run_train in the templates
+    phase (the main path); ``slowest_block_ms``: the heaviest row's block
+    launched alone; ``ordered_ms``: the ordered route on the same integer
+    views. No single PyTorch call computes it: library_ms null."""
+    t = stats["k6"]["timing"]
+    return {
+        "name": "item_similarity_topn",
+        "route": "cuda",
+        "source": "predictionio_tpu_torch/csrc/cosine_sim.cu",
+        "replaces": "predictionio_tpu/ops/cosine_sim.py:73",
+        "launches": stats["k6_launches"],
+        "max_abs_err": stats["k6_max_abs_err"],
+        "ms": t["kernel_device_ms"] or t["kernel_ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": None,
+        "slowest_block_ms": t["slowest_block_ms"],
+        "ordered_ms": t["ordered_device_ms"],
+    }
+
+
+def k2cos_summary(stats) -> dict:
+    """K2's cosine mode (``top_k_similar``): one query against the
+    similar-product catalog's shape (I = 26,744, D = 10, f32, k = 4);
+    launches: its calls on the three templates' main path (templife,
+    templates, retrieval: in this process, counter set to 0 before each
+    and read after, and the deployed servers' /metrics), 0 while no
+    template calls it; ``checked_calls``: the k2cos phase's calls, each
+    held to the plain version."""
+    t = stats["k2cos"]
+    dev = None not in (t["kernel_device_ms"], t["plain_device_ms"], t["library_device_ms"])
+    return {
+        "name": "top_k_similar",
+        "route": "cuda",
+        "source": "predictionio_tpu_torch/csrc/topk.cu",
+        "replaces": "predictionio_tpu/ops/topk.py:247",
+        "launches": stats["k2cos_launches"],
+        "max_abs_err": t["max_abs_err"],
+        "ms": t["kernel_device_ms"] if dev else t["kernel_ms"],
+        "plain_ms": t["plain_device_ms"] if dev else t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library_device_ms"] if dev else t["library_ms"],
+        "k2_route": t["route"],
+        "checked_calls": t["calls_checked"],
+    }
 
 
 def k4_summary(stats) -> list:
@@ -4678,12 +5703,16 @@ def main() -> int:
         "k2route": lambda: k2_route_vs_select(torch, device, stats),
         "k4": lambda: k4_vs_plain(torch, device, stats),
         "k5": lambda: k5_vs_plain(torch, device, stats),
+        "k6": lambda: k6_vs_plain(torch, device, stats),
+        "k2cos": lambda: k2_cosine_vs_plain(torch, device, stats),
         "serve": lambda: the_slice(torch, device, stats),
         "batchserve": lambda: batch_serve(torch, device, stats),
         "lifecycle": lambda: lifecycle(torch, device, stats),
         "simlife": lambda: similar_lifecycle(torch, device, stats),
+        "templife": lambda: templates_lifecycle(torch, device, stats),
         "train": lambda: full_width(torch, device, stats),
         "simtrain": lambda: similar_full_width(torch, device, stats),
+        "templates": lambda: templates_full_width(torch, device, stats),
         "eval": lambda: eval_phase(torch, device, stats),
         "retrieval": lambda: retrieval_serving(torch, device, stats),
         "times": lambda: timings(torch, device, stats),
@@ -4738,7 +5767,7 @@ def main() -> int:
         "batch_sizes": stats["batchserve"][f"window_{BATCH_WINDOW_MS:g}ms"][64]["batch_sizes"],
     }, k1_summary(stats), k1i_summary(stats), k2s_summary(stats),
         k1s_summary(stats), topk_items_summary(stats), k3_summary(stats),
-        *k4_summary(stats), k5_summary(stats)]}))
+        *k4_summary(stats), k5_summary(stats), k6_summary(stats), k2cos_summary(stats)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

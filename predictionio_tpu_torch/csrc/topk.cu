@@ -89,6 +89,17 @@
 // Both routes compute every score with the same operations in the same
 // order, so they agree with each other and with the plain version bit
 // for bit.
+//
+// Cosine mode (pio_k2_cosine_top_k; ops/topk.py top_k_similar, replacing
+// predictionio_tpu/ops/topk.py:247): dense f32 query rows, and each score
+// divided by a per-item divisor before ordering,
+//   s_bi     = s_bi / max(norms[i] * qnorms[b], 1e-12)
+// (one rounded product, fmaxf, one IEEE division: __fdiv_rn, never a
+// reciprocal multiply), the int8 values read without their scales
+// (cosine drops a positive per-row scale), masked to -1e30 after the
+// division. Both routes take it: the tile route at k <= 128, score_kernel
+// + select_kernel above. The existing modes pass null norms and compute
+// exactly what they did.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -120,12 +131,20 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 }
 __device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 
+// The cosine mode's score: the dot over max(||v_i|| * ||q_b||, 1e-12),
+// each operation rounded once (jnp's `(f32 @ v) / jnp.maximum(denom,
+// 1e-12)`).
+__device__ __forceinline__ float cosine_div(float dot, float norm, float qnorm) {
+  return __fdiv_rn(dot, fmaxf(__fmul_rn(norm, qnorm), 1e-12f));
+}
+
 template <typename TU, typename TV>
 __global__ void __launch_bounds__(TILE_I)
 score_kernel(const int* __restrict__ user_ixs, int B,
              const TU* __restrict__ U, const float* __restrict__ u_scales,
              const TV* __restrict__ V, const float* __restrict__ v_scales,
              const uint8_t* __restrict__ mask, int I, int D,
+             const float* __restrict__ norms, const float* __restrict__ qnorms,
              float* __restrict__ scores) {
   __shared__ float su[TILE_B][CHUNK_D];
   __shared__ float sv[CHUNK_D][TILE_I + 1];  // +1: conflict-free staging
@@ -173,10 +192,12 @@ score_kernel(const int* __restrict__ user_ixs, int B,
   if (i >= I) return;
   const bool masked = mask != nullptr && mask[i] != 0;
   const float vs = v_scales != nullptr ? v_scales[i] : 1.0f;
+  const float nrm = norms != nullptr ? norms[i] : 0.0f;
 #pragma unroll
   for (int bb = 0; bb < TILE_B; ++bb) {
     if (bb < nb) {
-      const float s = v_scales != nullptr ? acc[bb] * vs : acc[bb];
+      float s = v_scales != nullptr ? acc[bb] * vs : acc[bb];
+      if (norms != nullptr) s = cosine_div(s, nrm, qnorms[b0 + bb]);
       scores[(size_t)(b0 + bb) * I + i] = masked ? NEG_INF : s;
     }
   }
@@ -396,6 +417,8 @@ struct TileArgs {
   int W;               // items a block keeps the top g of
   int g;               // power of two >= k, <= TILE_MAX_K
   u64* ws;             // [B, T, g] composites, T = gridDim.x
+  const float* norms;  // cosine mode: [I] item norms, else null
+  const float* qnorms; // cosine mode: [B] query norms
 };
 
 // e / d for 0 <= e < 2^16 and 1 <= d <= CHUNK_D by a multiply, with
@@ -496,10 +519,12 @@ __global__ void __launch_bounds__(TILE_I, 8) tile_topk_kernel(const TileArgs a) 
     const int i = c0 + t;
     const bool masked = i < I && a.mask != nullptr && a.mask[i] != 0;
     const float vs = i < I && a.v_scales != nullptr ? a.v_scales[i] : 1.0f;
+    const float nrm = i < I && a.norms != nullptr ? a.norms[i] : 0.0f;
 #pragma unroll
     for (int bb = 0; bb < TILE_B; ++bb) {
       if (bb < nb) {
-        const float s = a.v_scales != nullptr ? acc[bb] * vs : acc[bb];
+        float s = a.v_scales != nullptr ? acc[bb] * vs : acc[bb];
+        if (a.norms != nullptr) s = cosine_div(s, nrm, a.qnorms[b0 + bb]);
         cand[bb][t] = i < I ? composite(masked ? NEG_INF : s, i) : 0ull;
       }
     }
@@ -695,21 +720,24 @@ cudaError_t launch_score_u(int v_dtype, dim3 grid, cudaStream_t stream,
                            const int* ixs, int B, const void* U,
                            const float* us, const void* V, const float* vs,
                            const uint8_t* mask, int I, int D, float* scores,
-                           int* launched) {
+                           int* launched, const float* norms = nullptr,
+                           const float* qnorms = nullptr) {
   const TU* u = static_cast<const TU*>(U);
   switch (v_dtype) {
     case F32:
       score_kernel<TU, float><<<grid, TILE_I, 0, stream>>>(
-          ixs, B, u, us, static_cast<const float*>(V), vs, mask, I, D, scores);
+          ixs, B, u, us, static_cast<const float*>(V), vs, mask, I, D, norms, qnorms,
+          scores);
       return counted(launched);
     case BF16:
       score_kernel<TU, __nv_bfloat16><<<grid, TILE_I, 0, stream>>>(
-          ixs, B, u, us, static_cast<const __nv_bfloat16*>(V), vs, mask, I, D,
-          scores);
+          ixs, B, u, us, static_cast<const __nv_bfloat16*>(V), vs, mask, I, D, norms,
+          qnorms, scores);
       return counted(launched);
     case I8:
       score_kernel<TU, int8_t><<<grid, TILE_I, 0, stream>>>(
-          ixs, B, u, us, static_cast<const int8_t*>(V), vs, mask, I, D, scores);
+          ixs, B, u, us, static_cast<const int8_t*>(V), vs, mask, I, D, norms, qnorms,
+          scores);
       return counted(launched);
     default:
       return cudaErrorInvalidValue;
@@ -861,6 +889,39 @@ int pio_k2_tile_sum_rows_top_k(const int* row_ixs, const float* row_w, int B, in
   }
   if (err != cudaSuccess) return (int)err;
   return (int)launch_merge(a, T, k, out_scores, out_ids, s, launched);
+}
+
+// The cosine-mode K2 call (ops/topk.py top_k_similar): dense f32 query
+// rows Q ([B, D], read through `ixs`), V values without scales (an int8
+// catalog's values alone), each score divided by max(norms[i] * qnorms[b],
+// 1e-12). W > 0: the tile route (ws as pio_k2_tile_top_k); W == 0: the
+// select route (scores [B, I] f32 and cand [B, k] u64 scratch). mask may
+// be null.
+int pio_k2_cosine_top_k(const int* ixs, int B, const float* Q, const void* V,
+                        int v_dtype, const float* norms, const float* qnorms,
+                        const uint8_t* mask, int I, int D, int k, int W, void* ws,
+                        float* scores, void* cand, float* out_scores, int* out_ids,
+                        int* launched, void* stream) {
+  if (norms == nullptr || qnorms == nullptr || launched == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (W > 0) {
+    int g = 0;
+    const int T = tile_count(B, I, D, k, W, &g);
+    if (T == 0) return (int)cudaErrorInvalidValue;
+    const TileArgs a{ixs, nullptr, 0, B, Q, nullptr, V, nullptr, mask, I, D, W, g,
+                     static_cast<u64*>(ws), norms, qnorms};
+    const cudaError_t err = launch_tile_u<float>(v_dtype, a, T, s, launched);
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_merge(a, T, k, out_scores, out_ids, s, launched);
+  }
+  if (B <= 0 || I <= 0 || D <= 0 || k <= 0 || k > I) return (int)cudaErrorInvalidValue;
+  const dim3 grid((I + TILE_I - 1) / TILE_I, (B + TILE_B - 1) / TILE_B);
+  const cudaError_t err = launch_score_u<float>(v_dtype, grid, s, ixs, B, Q, nullptr, V,
+                                                nullptr, mask, I, D, scores, launched,
+                                                norms, qnorms);
+  if (err != cudaSuccess) return (int)err;
+  return pio_k2_select(scores, B, I, k, cand, out_scores, out_ids, launched, stream);
 }
 
 }  // extern "C"

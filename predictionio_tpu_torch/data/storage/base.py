@@ -6,8 +6,8 @@ records, the columnar ``RatingsBatch``, and the DAO contracts the train,
 deploy and evaluation paths use (reference Apps.scala:32,
 Channels.scala:32, EngineInstances.scala:46, EvaluationInstances.scala:42,
 Models.scala:33, LEvents.scala:40), with property aggregation. Access
-keys and the event-server side of ``Events`` (tails, change tokens) come
-with later slices.
+keys and the event-server side of ``Events`` (tails) come with later
+slices; ``Events.change_token`` and ``entity_indexed`` are here.
 """
 
 from __future__ import annotations
@@ -289,6 +289,29 @@ class Events(abc.ABC):
         self, events: Iterable[Event], app_id: int, channel_id: int | None = None
     ) -> list[str]:
         return [self.insert(e, app_id, channel_id) for e in events]
+
+    # True when find(entity_id=...) is served by an index (SQL btree,
+    # server-side filter) rather than a full replay+filter. Serving-time
+    # caches use this to choose between per-entity reads (indexed) and
+    # one bulk scan that amortizes across entities (replay backends,
+    # where a filtered read costs a full replay anyway).
+    entity_indexed = False
+
+    def change_token(
+        self, app_id: int, channel_id: int | None = None
+    ) -> object | None:
+        """Cheap opaque token that changes whenever this (app, channel)'s
+        event set may have changed; compare tokens with ``!=`` only.
+
+        ``None`` means the backend cannot provide one cheaply -- callers
+        must then re-read instead of caching. Serving-time business-rule
+        caches (the e-commerce template's live seen/unavailable filters)
+        key on this so a static store serves from memory while any write
+        -- including cross-process ones, for the sqlite backend -- is
+        seen immediately. Tokens may over-invalidate (e.g. one app's
+        write bumping another's token); they must never under-invalidate.
+        """
+        return None
 
     def scan_ratings(
         self,

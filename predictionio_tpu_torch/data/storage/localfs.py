@@ -11,6 +11,7 @@ import os
 from pathlib import Path
 from urllib.parse import quote
 
+from predictionio_tpu_torch import faults
 from predictionio_tpu_torch.data.storage import base
 
 
@@ -38,7 +39,9 @@ class LocalFSModels(base.Models):
         with open(tmp, "wb") as f:
             f.write(model.models)
             f.flush()
+            faults.fault_point("storage.fsync")
             os.fsync(f.fileno())
+        faults.fault_point("storage.rename")
         tmp.replace(path)
 
     def get(self, model_id: str) -> base.Model | None:

@@ -30,6 +30,8 @@ class MemoryStorageClient:
         self.models: dict[str, base.Model] = {}
         # (app_id, channel_id) -> event_id -> Event
         self.events: dict[tuple[int, int | None], dict[str, Event]] = {}
+        # (app_id, channel_id) -> write counter (Events.change_token)
+        self.events_version: dict[tuple[int, int | None], int] = {}
         self._app_seq = itertools.count(1)
         self._channel_seq = itertools.count(1)
         self._event_seq = itertools.count(1)
@@ -232,13 +234,19 @@ class MemoryEvents(base.Events):
 
     def remove(self, app_id: int, channel_id: int | None = None) -> bool:
         with self._c.lock:
+            self._bump_locked(app_id, channel_id)
             return self._c.events.pop((app_id, channel_id), None) is not None
+
+    def _bump_locked(self, app_id: int, channel_id: int | None) -> None:
+        key = (app_id, channel_id)
+        self._c.events_version[key] = self._c.events_version.get(key, 0) + 1
 
     def insert(self, event: Event, app_id: int, channel_id: int | None = None) -> str:
         with self._c.lock:
             table = self._c.events.setdefault((app_id, channel_id), {})
             event_id = event.event_id or f"{next(self._c._event_seq):012x}"
             table[event_id] = event.with_event_id(event_id)
+            self._bump_locked(app_id, channel_id)
             return event_id
 
     def get(
@@ -252,7 +260,14 @@ class MemoryEvents(base.Events):
     ) -> bool:
         with self._c.lock:
             table = self._c.events.get((app_id, channel_id), {})
+            self._bump_locked(app_id, channel_id)
             return table.pop(event_id, None) is not None
+
+    def change_token(
+        self, app_id: int, channel_id: int | None = None
+    ) -> object | None:
+        with self._c.lock:
+            return self._c.events_version.get((app_id, channel_id), 0)
 
     def find(
         self,

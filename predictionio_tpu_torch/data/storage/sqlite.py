@@ -22,6 +22,7 @@ from typing import Sequence
 
 import numpy as np
 
+from predictionio_tpu_torch import faults
 from predictionio_tpu_torch.data.datamap import DataMap
 from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.data.storage import base
@@ -50,6 +51,9 @@ class SQLiteStorageClient:
         self.lock = threading.RLock()
         self.conn = sqlite3.connect(path, check_same_thread=False)
         self.conn.execute("PRAGMA journal_mode=WAL")
+        # counts writes total_changes can't see (DROP TABLE in remove());
+        # part of the events change_token
+        self.ddl_bump = 0
         with self.lock, self.conn:
             self.conn.executescript(
                 """
@@ -436,6 +440,8 @@ class SQLiteEvents(base.Events):
     """Per-(app, channel) event tables ``pio_event_<appId>[_<ch>]``
     (reference JDBCLEvents.scala:37), in the JAX package's schema."""
 
+    entity_indexed = True  # (entitytype, entityid) btree index per table
+
     def __init__(self, client: SQLiteStorageClient):
         self._c = client
 
@@ -472,7 +478,24 @@ class SQLiteEvents(base.Events):
         t = self._table(app_id, channel_id)
         with self._c.lock, self._c.conn:
             self._c.conn.execute(f"DROP TABLE IF EXISTS {t}")
+            # DROP TABLE bumps neither total_changes nor our own
+            # connection's data_version; the token must still change
+            self._c.ddl_bump += 1
         return True
+
+    def change_token(
+        self, app_id: int, channel_id: int | None = None
+    ) -> object | None:
+        """(data_version, total_changes, ddl_bump): ``PRAGMA
+        data_version`` bumps when ANOTHER connection commits,
+        ``total_changes`` counts this connection's row writes, and
+        ``ddl_bump`` covers this connection's DROP TABLEs (remove()) --
+        together any write to the database changes the triple.
+        Database-wide, so it may over-invalidate across apps (allowed by
+        the contract)."""
+        with self._c.lock:
+            dv = self._c.conn.execute("PRAGMA data_version").fetchone()[0]
+            return (dv, self._c.conn.total_changes, self._c.ddl_bump)
 
     @staticmethod
     def _to_row(event: Event, event_id: str) -> tuple:
@@ -528,6 +551,7 @@ class SQLiteEvents(base.Events):
             rows.append(self._to_row(event, event_id))
         sql = f"INSERT OR REPLACE INTO {t} VALUES (?,?,?,?,?,?,?,?,?,?,?,?)"
         with self._c.lock:
+            faults.fault_point("storage.sqlite.commit")
             try:
                 with self._c.conn:
                     self._c.conn.executemany(sql, rows)

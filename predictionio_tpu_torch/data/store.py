@@ -1,6 +1,7 @@
 """Engine-facing event store facade: app-name-based reads.
 
-Port of ``predictionio_tpu/data/store.py`` (:27-154, :178; reference
+Port of ``predictionio_tpu/data/store.py`` (:27-154, :178; with
+``change_token`` :80 and ``find_by_entity`` :93; reference
 store/PEventStore.scala:35-121, Common.scala:24-53): (appName,
 channelName) resolve to ids through the metadata store, then the event
 DAO answers. Templates read events through this module only.
@@ -68,6 +69,51 @@ def find(
         target_entity_id=target_entity_id,
         limit=limit,
         reversed_order=reversed_order,
+    )
+
+
+def change_token(
+    app_name: str,
+    channel_name: str | None = None,
+    storage: Storage | None = None,
+) -> object | None:
+    """Cheap change token for an app's event set (``None`` = backend
+    can't provide one; see ``base.Events.change_token``). Serving-time
+    caches key on this to skip re-reading a store that hasn't changed."""
+    storage = storage or get_storage()
+    app_id, channel_id = app_name_to_id(app_name, channel_name, storage)
+    return storage.get_events().change_token(app_id, channel_id)
+
+
+def find_by_entity(
+    app_name: str,
+    entity_type: str,
+    entity_id: str,
+    channel_name: str | None = None,
+    event_names: Sequence[str] | None = None,
+    target_entity_type=...,
+    target_entity_id=...,
+    start_time: datetime | None = None,
+    until_time: datetime | None = None,
+    limit: int | None = None,
+    latest: bool = True,
+    storage: Storage | None = None,
+) -> list[Event]:
+    """Serving-time point query (LEventStore.findByEntity:33-97) -- the path
+    e-commerce-style business rules use per request."""
+    return find(
+        app_name=app_name,
+        channel_name=channel_name,
+        start_time=start_time,
+        until_time=until_time,
+        entity_type=entity_type,
+        entity_id=entity_id,
+        event_names=event_names,
+        target_entity_type=target_entity_type,
+        target_entity_id=target_entity_id,
+        limit=limit,
+        reversed_order=latest,
+        storage=storage,
     )
 
 

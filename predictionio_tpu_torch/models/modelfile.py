@@ -50,6 +50,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from predictionio_tpu_torch import faults
 from predictionio_tpu_torch.data.bimap import BiMap
 
 logger = logging.getLogger(__name__)
@@ -69,6 +70,12 @@ _PORTED_CLASSES = {
         (f"{_PORT}.models.recommendation", "ALSModel"),
     "predictionio_tpu.models.similarproduct.SimilarProductModel":
         (f"{_PORT}.models.similarproduct", "SimilarProductModel"),
+    "predictionio_tpu.models.similarproduct.CosineModel":
+        (f"{_PORT}.models.similarproduct", "CosineModel"),
+    "predictionio_tpu.models.recommendeduser.RecommendedUserModel":
+        (f"{_PORT}.models.recommendeduser", "RecommendedUserModel"),
+    "predictionio_tpu.models.ecommerce.ECommModel":
+        (f"{_PORT}.models.ecommerce", "ECommModel"),
 }
 # and back: the name the port records for each of those classes
 _RECORDED_NAMES = {
@@ -483,12 +490,29 @@ def deserialize(blob: bytes) -> list[tuple[str, Any]]:
     return ModelFile(blob).entries()
 
 
+_m_fallback = None  # lazy: obs counter for mmap -> bytes fallbacks
+
+
+def _count_fallback() -> None:
+    global _m_fallback
+    if _m_fallback is None:
+        from predictionio_tpu_torch.obs import metrics as obs_metrics
+
+        _m_fallback = obs_metrics.counter(
+            "pio_model_mmap_fallback_total",
+            "model file loads that fell back from mmap to a byte read",
+        )
+    _m_fallback.inc()
+
+
 def load_path(path: str | os.PathLike) -> ModelFile:
-    """mmap a model file read-only and parse it; an OS error on the
-    mapping falls back to reading the bytes. Validation failures raise
-    :class:`ModelFileError` either way."""
+    """mmap a model file read-only and parse it. The ``serve.model_mmap``
+    fault point guards the mapping attempt; an OS error there falls back
+    to reading the bytes (counted in ``pio_model_mmap_fallback_total``).
+    Validation failures raise :class:`ModelFileError` either way."""
     p = Path(path)
     try:
+        faults.fault_point("serve.model_mmap")
         with open(p, "rb") as f:
             mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
         return ModelFile(mm, source=str(p))
@@ -496,6 +520,7 @@ def load_path(path: str | os.PathLike) -> ModelFile:
         raise
     except (OSError, ValueError) as e:
         logger.warning("mmap of %s failed (%s); reading bytes", p, e)
+        _count_fallback()
         return ModelFile(p.read_bytes(), source=str(p))
 
 

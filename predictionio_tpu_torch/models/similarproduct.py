@@ -20,6 +20,12 @@ Port of ``predictionio_tpu/models/similarproduct.py`` (reference
   like=1 / dislike=-1 signals (LikeAlgorithm.scala). With alpha > 0 a
   dislike weighs ``alpha * r < 0``, which can leave a user's system
   indefinite: such rows train to NaN, as in the JAX package;
+- CosineAlgorithm covers the experimental DIMSUM variant
+  (examples/experimental/scala-parallel-similarproduct-dimsum): exact
+  top-N item-item cosine from raw view counts, computed at train time
+  by K6 (``ops/cosine_sim.py``, kernel ``csrc/cosine_sim.cu``) on the
+  algorithm's device, served by the JAX package's host loop over the
+  stored neighbor tables;
 - Serving sums per-item scores across algorithms and re-ranks (the
   multi variant's Serving.scala).
 
@@ -28,9 +34,7 @@ Query: ``{"items": [...], "num": N, "categories": [...]?,
 ``{"itemScores": [{"item": ..., "score": ...}]}``.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-answered another way: ``sharded_train`` (several cards), and
-CosineAlgorithm (the DIMSUM variant, ``ops/cosine_sim.py``), which stays
-in ``engine()``'s map and raises when it trains.
+answered another way: ``sharded_train`` (several cards).
 """
 
 from __future__ import annotations
@@ -71,6 +75,7 @@ from predictionio_tpu_torch.models.modelfile import host_array
 from predictionio_tpu_torch.obs import device as obs_device
 from predictionio_tpu_torch.ops import als as als_ops
 from predictionio_tpu_torch.ops import retrieval
+from predictionio_tpu_torch.ops.cosine_sim import item_similarity_topn
 from predictionio_tpu_torch.ops.topk import sum_rows_top_k_batch
 from predictionio_tpu_torch.utils.device import resolve_device
 
@@ -446,24 +451,56 @@ class CosineAlgorithmParams(Params):
     top_n: int = 20  # neighbors kept per item (dimsum threshold analog)
 
 
+@dataclass
+class CosineModel:
+    item_index: BiMap
+    sim_scores: np.ndarray  # [I, N] cosine of the N nearest items
+    sim_ids: np.ndarray  # [I, N] their item indices
+    categories: dict[str, list[str]]
+
+
 class CosineAlgorithm(Algorithm):
     """Precomputed exact item-item cosine neighbors from view counts
-    (the DIMSUM variant): its device program, ``ops/cosine_sim.py``, is
-    a later slice of the port, so it raises when it trains."""
+    (DIMSUM-variant parity; see ops/cosine_sim.py): K6 on the
+    algorithm's device at train time, a host loop at serve time."""
 
     params_class = CosineAlgorithmParams
     query_class = Query
 
-    def train(self, ctx: WorkflowContext, td: TrainingData):
-        raise NotImplementedError(
-            "CosineAlgorithm (ops/cosine_sim.py, DIMSUM item similarity) is "
-            "a later slice of the PyTorch port"
+    def train(self, ctx: WorkflowContext, td: TrainingData) -> CosineModel:
+        device = resolve_device(
+            self.device if self.device is not None
+            else (ctx.device if ctx is not None else None)
+        )
+        r = _view_counts(td)
+        scores, ids = item_similarity_topn(
+            r.rows, r.cols, r.vals, len(r.user_index), len(r.item_index),
+            top_n=self.params.top_n, device=device,
+        )
+        return CosineModel(
+            item_index=r.item_index,
+            sim_scores=scores,
+            sim_ids=ids,
+            categories=dict(td.items),
         )
 
-    def predict(self, model, query: Query) -> PredictedResult:
-        raise NotImplementedError(
-            "CosineAlgorithm (ops/cosine_sim.py, DIMSUM item similarity) is "
-            "a later slice of the PyTorch port"
+    def predict(self, model: CosineModel, query: Query) -> PredictedResult:
+        known = [model.item_index[i] for i in query.items if i in model.item_index]
+        if not known:
+            return PredictedResult(itemScores=[])
+        combined: dict[int, float] = defaultdict(float)
+        for ix in known:
+            for score, jx in zip(model.sim_scores[ix], model.sim_ids[ix]):
+                if np.isfinite(score):
+                    combined[int(jx)] += float(score)
+        mask = _exclude_mask(model.item_index, model.categories, query)
+        inv = model.item_index.inverse
+        ranked = sorted(
+            ((jx, s) for jx, s in combined.items() if not mask[jx]),
+            key=lambda kv: -kv[1],
+        )[: int(query.num)]
+        return PredictedResult(
+            itemScores=[ItemScore(item=inv[jx], score=s) for jx, s in ranked]
         )
 
 

@@ -52,6 +52,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from predictionio_tpu_torch import faults
 from predictionio_tpu_torch.kernels import _build
 from predictionio_tpu_torch.models.modelfile import tensor_to_numpy
 from predictionio_tpu_torch.utils.device import resolve_device
@@ -1042,7 +1043,14 @@ def als_train(
     final_rmse = None
     prev_rmse = None
     it = 0
+    # where the JAX package dispatches its fused program: once for the
+    # whole training (even at 0 iterations), or once an iteration when
+    # tol > 0 asks for per-iteration segments
+    if tol <= 0.0:
+        faults.fault_point("device.dispatch")
     while it < params.iterations:
+        if tol > 0.0:
+            faults.fault_point("device.dispatch")
         _half_step(U, V, row_buckets, params)
         _half_step(V, U, col_buckets, params)
         it += 1

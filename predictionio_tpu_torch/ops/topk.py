@@ -6,11 +6,15 @@ score them against the whole item catalog, mask excluded items, and
 take the top k; and of ``:135 sum_rows_top_k_batch``, K2's summed-rows
 mode, whose query row is the weighted sum of several catalog rows (the
 cosine templates: similar products); and of ``:69 top_k_items_batch``,
-dense query rows scored through the same wrapper. On
+dense query rows scored through the same wrapper; and of ``:34
+top_k_items`` (one dense query: that wrapper at B = 1, row 0) and ``:247
+top_k_similar``, K2's cosine mode: one query's scores divided by
+``max(norms * ||v||, 1e-12)`` before ordering, an int8 catalog read
+without its scales. On
 a CUDA tensor each wrapper launches the hand-written kernel
 ``csrc/topk.cu``; on a CPU tensor it runs the plain PyTorch version
 beside it (``*_reference``). There is no fallback from one to the other.
-``catalog_norms`` (``:231``) is plain.
+``catalog_norms`` (``:231``) and the cosine query's norm are plain.
 
 K3, :func:`ranking_metrics_batch` (``:179``), scores a whole eval split's
 top-k id matrix: per query P@K, AP@K and NDCG@K, by sorted membership in
@@ -179,17 +183,22 @@ def _dense_rows(table, ixs: torch.Tensor) -> torch.Tensor:
 
 
 def _score_top_k_reference(queries: torch.Tensor, item_factors, k: int,
-                           exclude_mask=None):
+                           exclude_mask=None, norms=None, qnorms=None):
     """Score f32 query rows ``[B, D]`` against the catalog and take the
     top k: the kernel's arithmetic (``sum_d q_d * v_d`` over d = 0..D-1
     in order, each product and partial sum rounded to f32, from +0.0),
-    times the int8 item scale after the product, masked to ``NEG_INF``."""
+    times the int8 item scale after the product, masked to ``NEG_INF``.
+    With ``norms`` ([I]) and ``qnorms`` ([B]), the cosine mode: int8
+    values without their scales, each score divided by ``max(norms[i] *
+    qnorms[b], 1e-12)`` before the mask."""
     values = item_factors[0] if isinstance(item_factors, tuple) else item_factors
     items = values.to(torch.float32)  # [I, D]
     scores = queries.new_zeros((queries.shape[0], items.shape[0]))
     for d in range(items.shape[1]):
         scores = scores + queries[:, d, None] * items[None, :, d]
-    if isinstance(item_factors, tuple):
+    if norms is not None:
+        scores = scores / torch.clamp(norms[None, :] * qnorms[:, None], min=1e-12)
+    elif isinstance(item_factors, tuple):
         scores = scores * item_factors[1][None, :]
     if exclude_mask is not None:
         mask = torch.as_tensor(exclude_mask, device=values.device).to(torch.bool)
@@ -259,6 +268,10 @@ def _lib() -> ctypes.CDLL:
             _P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _IP, _P,
         ]
         lib.pio_k2_tile_sum_rows_top_k.restype = _I
+        lib.pio_k2_cosine_top_k.argtypes = [
+            _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _IP, _P,
+        ]
+        lib.pio_k2_cosine_top_k.restype = _I
         lib._pio_typed = True
     return lib
 
@@ -360,6 +373,106 @@ def top_k_items_batch(user_vectors, item_factors, k: int, exclude_mask=None):
     queries = torch.as_tensor(user_vectors, device=values.device).to(torch.float32)
     ixs = torch.arange(queries.shape[0], dtype=torch.int32, device=values.device)
     return gather_top_k_batch(ixs, queries.contiguous(), item_factors, k, exclude_mask)
+
+
+def top_k_items(user_vector, item_factors, k: int, exclude_mask=None):
+    """One dense query ``[D]`` scored against the catalog, top k:
+    ``([k] f32 scores, [k] int32 ids)``, the JAX package's ``:34`` (an
+    int8 catalog scores ``(u . q) * s``). Row 0 of
+    :func:`top_k_items_batch` at B = 1: K2 on the card, its plain version
+    on the CPU."""
+    values = item_factors[0] if isinstance(item_factors, tuple) else item_factors
+    query = torch.as_tensor(user_vector, device=values.device).to(torch.float32)
+    scores, ids = top_k_items_batch(query.reshape(1, -1), item_factors, k, exclude_mask)
+    return scores[0], ids[0]
+
+
+def _cosine_inputs(item_vector, item_factors, norms):
+    """(the f32 ``[1, D]`` query, the ``[I]`` catalog norms, the ``[1]``
+    query norm as ``jnp.linalg.norm`` states it: an f32 sum of squares,
+    then the square root)."""
+    values = item_factors[0] if isinstance(item_factors, tuple) else item_factors
+    device = values.device
+    query = torch.as_tensor(item_vector, device=device).to(torch.float32).reshape(1, -1)
+    if norms is None:
+        norms = catalog_norms(item_factors)
+    norms = torch.as_tensor(norms, device=device).to(torch.float32).contiguous()
+    if norms.shape != values.shape[:1]:
+        raise ValueError(f"norms must be [{values.shape[0]}] like the catalog's rows")
+    return query.contiguous(), norms, torch.sqrt((query * query).sum()).reshape(1)
+
+
+def top_k_similar_reference(item_vector, item_factors, k: int, exclude_mask=None,
+                            norms=None):
+    """The plain PyTorch version of K2's cosine mode, same contract as
+    :func:`top_k_similar`: the kernel's dot products (d in order, each
+    product and partial sum rounded), divided by ``max(norms *
+    ||v||, 1e-12)``, masked to ``NEG_INF``, stable descending sort on the
+    order key."""
+    k = min(int(k), catalog_rows(item_factors))
+    query, norms, qnorm = _cosine_inputs(item_vector, item_factors, norms)
+    scores, ids = _score_top_k_reference(query, item_factors, k, exclude_mask,
+                                         norms=norms, qnorms=qnorm)
+    return scores[0], ids[0]
+
+
+def top_k_similar(item_vector, item_factors, k: int, exclude_mask=None, norms=None):
+    """Cosine top-k of one item vector ``[D]`` against the catalog, the
+    JAX package's ``:247``: ``(f32(V) @ v) / max(norms * ||v||, 1e-12)``
+    (an int8 pair's values alone: the positive per-row scale drops out of
+    a cosine), masked to ``NEG_INF``, top k in ``lax.top_k`` order.
+    ``norms``: optional precomputed :func:`catalog_norms` ``[I]``; without
+    it every call reduces the catalog first. Returns ``([k] f32 scores,
+    [k] int32 ids)``, k capped at the catalog size.
+
+    CPU tensors take :func:`top_k_similar_reference`; CUDA tensors launch
+    K2's cosine mode (``csrc/topk.cu``, the route :func:`k2_route` picks)
+    or raise."""
+    values = item_factors[0] if isinstance(item_factors, tuple) else item_factors
+    if values.device.type == "cpu":
+        return top_k_similar_reference(item_vector, item_factors, k, exclude_mask, norms)
+    device = values.device
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    k = min(int(k), catalog_rows(item_factors))
+    query, norms, qnorm = _cosine_inputs(item_vector, item_factors, norms)
+    v_vals, _, v_code = _split(item_factors, "item_factors")
+    num_items, rank = v_vals.shape
+    if query.shape[1] != rank:
+        raise ValueError("the query vector and the catalog differ in rank")
+    mask = _mask(exclude_mask, num_items, device)
+    scores = torch.empty((1, k), dtype=torch.float32, device=device)
+    ids = torch.empty((1, k), dtype=torch.int32, device=device)
+    if k == 0:
+        return scores[0], ids[0]
+    plan = k2_route(k, num_items, 1)
+    ixs = torch.zeros(1, dtype=torch.int32, device=device)
+    ws = scratch = cand = None
+    if plan.name == "tile":
+        ws = torch.empty((1, plan.tiles, plan.group), dtype=torch.int64, device=device)
+    else:
+        scratch = torch.empty((1, num_items), dtype=torch.float32, device=device)
+        cand = torch.empty((1, k), dtype=torch.int64, device=device)
+    launched = ctypes.c_int(0)
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.pio_k2_cosine_top_k(
+            ixs.data_ptr(), 1, query.data_ptr(), v_vals.data_ptr(), v_code,
+            norms.data_ptr(), qnorm.data_ptr(), _ptr(mask), num_items, rank, k,
+            plan.width, _ptr(ws), _ptr(scratch), _ptr(cand),
+            scores.data_ptr(), ids.data_ptr(), ctypes.byref(launched), stream,
+        )
+    _build.check(err, f"top_k_similar {plan.name} route launch")
+    top_k_similar.launches.add()
+    top_k_similar.routes[plan.name].add()
+    top_k_similar.kernel_launches.add(launched.value)
+    return scores[0], ids[0]
+
+
+top_k_similar.launches = _build.LaunchCount()
+top_k_similar.routes = _route_counts()
+top_k_similar.kernel_launches = _build.LaunchCount()
 
 
 def _gather_top_k_select(user_ixs, user_factors, item_factors, k: int,
@@ -467,7 +580,7 @@ sum_rows_top_k_batch.launches = _build.LaunchCount()
 sum_rows_top_k_batch.routes = _route_counts()
 sum_rows_top_k_batch.kernel_launches = _build.LaunchCount()
 
-for _wrapper in (gather_top_k_batch, sum_rows_top_k_batch):
+for _wrapper in (gather_top_k_batch, sum_rows_top_k_batch, top_k_similar):
     for _route, _count in _wrapper.routes.items():
         obs_metrics.gauge(
             "pio_k2_calls", "K2 calls on the card by route, since the "

@@ -142,17 +142,13 @@ _HEAD_CACHE: dict[tuple[int, str], bytes] = {}
 
 
 def _simple_bytes(status: int, phrase: str) -> bytes:
-    # unlike the JAX package's empty body, a parse reject carries the
-    # same {"message": ...} JSON as every other error of the port
     key = (status, phrase)
     payload = _SIMPLE_CACHE.get(key)
     if payload is None:
-        body = jsonx.dumps_bytes({"message": phrase})
         payload = (
             f"HTTP/1.1 {status} {phrase}\r\n"
-            "Content-Type: application/json; charset=utf-8\r\n"
-            f"Content-Length: {len(body)}\r\nConnection: close\r\n\r\n"
-        ).encode("latin-1") + body
+            "Content-Length: 0\r\nConnection: close\r\n\r\n"
+        ).encode("latin-1")
         _SIMPLE_CACHE[key] = payload
     return payload
 

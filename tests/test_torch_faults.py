@@ -147,3 +147,123 @@ class TestActivation:
         with faults.injected("obs.probe:times=1:sleep=0"):
             faults.fault_point("obs.probe")
         assert c.value() == before + 1
+
+
+class TestPortFaultPoints:
+    """Every fault point the JAX package reaches in a ported module is
+    reached by the port's copy too: a ``PIO_FAULTS`` plan naming it fires
+    (the single-process cases of ``tests/test_modelfile.py`` and
+    ``tests/test_storage.py``'s fault matrix)."""
+
+    def test_env_plan_fires_in_a_ported_module(self, monkeypatch, tmp_path):
+        from predictionio_tpu_torch.data.storage import base, localfs
+
+        monkeypatch.setenv("PIO_FAULTS", "storage.rename:nth=1:raise=OSError")
+        faults.install(faults.plan_from_env())
+        models = localfs.LocalFSModels(
+            localfs.LocalFSStorageClient({"path": str(tmp_path)}))
+        with pytest.raises(OSError):
+            models.insert(base.Model("m", b"payload"))
+        assert faults.active_plan().fire_count("storage.rename") == 1
+
+    def test_mmap_fault_falls_back_to_bytes(self, tmp_path):
+        import numpy as np
+
+        from predictionio_tpu_torch.models import modelfile
+        from predictionio_tpu_torch.models.recommendation import model_from_numpy
+        from predictionio_tpu_torch.obs import metrics as obs_metrics
+
+        rng = np.random.default_rng(7)
+        m = model_from_numpy([f"u{i}" for i in range(40)], [f"i{i}" for i in range(16)],
+                             rng.normal(size=(40, 4)).astype(np.float32),
+                             rng.normal(size=(16, 4)).astype(np.float32))
+        p = tmp_path / "model.bin"
+        p.write_bytes(modelfile.serialize([("arrays", m)], "t"))
+        ctr = obs_metrics.counter(
+            "pio_model_mmap_fallback_total",
+            "model file loads that fell back from mmap to a byte read",
+        )
+        before = ctr.value()
+        with faults.injected("serve.model_mmap:nth=1:raise=OSError") as plan:
+            mf = modelfile.load_path(p)
+        assert plan.fire_count("serve.model_mmap") == 1
+        assert ctr.value() == before + 1
+        np.testing.assert_array_equal(mf.entries()[0][1].user_factors, m.user_factors)
+        modelfile.load_path(p)  # no plan: mmap, not counted
+        assert ctr.value() == before + 1
+
+    @pytest.mark.parametrize("point", ["storage.fsync", "storage.rename"])
+    def test_localfs_publish_fault_leaves_no_model(self, tmp_path, point):
+        from predictionio_tpu_torch.data.storage import base, localfs
+
+        models = localfs.LocalFSModels(
+            localfs.LocalFSStorageClient({"path": str(tmp_path)}))
+        models.insert(base.Model("m", b"old"))
+        with faults.injected(f"{point}:nth=1:raise=OSError") as plan:
+            with pytest.raises(OSError):
+                models.insert(base.Model("m", b"new"))
+        assert plan.fire_count(point) == 1
+        assert models.get("m").models == b"old"  # the publish never tore it
+        models.insert(base.Model("m", b"new"))
+        assert models.get("m").models == b"new"
+
+    def test_sqlite_commit_fault_inserts_nothing(self, tmp_path):
+        from predictionio_tpu_torch.data.event import Event
+        from predictionio_tpu_torch.data.storage import sqlite
+
+        client = sqlite.SQLiteStorageClient({"path": str(tmp_path / "e.db")})
+        events = sqlite.SQLiteEvents(client)
+        ev = [Event(event="rate", entity_type="user", entity_id=f"u{n}",
+                    target_entity_type="item", target_entity_id="i",
+                    properties={"rating": 1.0}) for n in range(3)]
+        with faults.injected("storage.sqlite.commit:nth=2") as plan:
+            events.batch_insert(ev[:1], 1)
+            with pytest.raises(faults.FaultError):
+                events.batch_insert(ev[1:], 1)
+        assert plan.fire_count("storage.sqlite.commit") == 1
+        assert [e.entity_id for e in events.find(1)] == ["u0"]
+        client.close()
+
+    @pytest.mark.parametrize("tol,nth,fires", [(0.0, 1, 1), (0.0, 2, 0), (1e-12, 3, 1)])
+    def test_device_dispatch_fires_in_als_train(self, tol, nth, fires):
+        """Once a training (the JAX package's one fused dispatch), or once
+        an iteration when ``tol > 0`` asks for per-iteration segments."""
+        import numpy as np
+
+        from predictionio_tpu_torch.ops import als
+
+        rng = np.random.default_rng(3)
+        rows = rng.integers(0, 12, 60).astype(np.int32)
+        cols = rng.integers(0, 9, 60).astype(np.int32)
+        vals = rng.integers(1, 6, 60).astype(np.float32)
+        data = als.build_ratings_data(rows, cols, vals, 12, 9)
+        params = als.ALSParams(rank=3, iterations=4, reg=0.1, seed=1)
+        with faults.injected(f"device.dispatch:nth={nth}") as plan:
+            if fires:
+                with pytest.raises(faults.FaultError):
+                    als.als_train(data, params, tol=tol, device="cpu")
+            else:
+                als.als_train(data, params, tol=tol, device="cpu")
+        assert plan.fire_count("device.dispatch") == fires
+
+    @pytest.mark.parametrize("tol,fires", [(0.0, 1), (1e-12, 0)])
+    def test_device_dispatch_at_zero_iterations(self, tol, fires):
+        """At ``iterations=0`` the JAX package still dispatches its fused
+        program once when ``tol <= 0``, and no segment when ``tol > 0``."""
+        import numpy as np
+
+        from predictionio_tpu_torch.ops import als
+
+        rng = np.random.default_rng(4)
+        rows = rng.integers(0, 12, 60).astype(np.int32)
+        cols = rng.integers(0, 9, 60).astype(np.int32)
+        vals = rng.integers(1, 6, 60).astype(np.float32)
+        data = als.build_ratings_data(rows, cols, vals, 12, 9)
+        params = als.ALSParams(rank=3, iterations=0, reg=0.1, seed=1)
+        with faults.injected("device.dispatch:nth=1") as plan:
+            if fires:
+                with pytest.raises(faults.FaultError):
+                    als.als_train(data, params, tol=tol, device="cpu")
+            else:
+                als.als_train(data, params, tol=tol, device="cpu")
+        assert plan.fire_count("device.dispatch") == fires

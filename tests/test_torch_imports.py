@@ -54,9 +54,9 @@ def test_port_imports_without_jax_or_the_jax_package():
     )
     assert proc.returncode == 0, proc.stderr
     walked = set(proc.stdout.split())
-    assert len(walked) >= 57  # every module was walked
-    # the training, similar-product, serving-stack, evaluation and
-    # two-stage retrieval slices' modules among them
+    assert len(walked) >= 60  # every module was walked
+    # the training, similar-product, serving-stack, evaluation, two-stage
+    # retrieval and other-ALS-template slices' modules among them
     assert {f"predictionio_tpu_torch.{m}" for m in (
         "data.datamap", "data.event", "data.store", "data.storage.base",
         "data.storage.sqlite", "data.storage.memory", "ops.als",
@@ -70,6 +70,7 @@ def test_port_imports_without_jax_or_the_jax_package():
         "server.engine_server", "server.jsonx",
         "core.metrics", "core.ranking", "core.fast_eval", "core.evaluation",
         "core.workflow_eval", "models.recommendation_eval", "ops.retrieval",
+        "ops.cosine_sim", "models.recommendeduser", "models.ecommerce",
     )} <= walked
 
 

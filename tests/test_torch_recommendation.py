@@ -245,6 +245,19 @@ def _similar_product_refusal(case: str) -> None:
         engine.algorithm_classes["cosine"]().train(ctx, td)
 
 
+def _similar_product_cosine():
+    """The engine's cosine algorithm trained on three items (a user views
+    x and y, another x and z) and asked for x's neighbor outside z."""
+    ctx = WorkflowContext(device="cpu")
+    td = tsim.TrainingData(users=["a", "b"], items={"x": [], "y": [], "z": []},
+                           view_events=tstorage.RatingsBatch(
+                               ["a", "b"], ["x", "y", "z"], np.array([0, 0, 1, 1], np.int32),
+                               np.array([0, 1, 0, 2], np.int32), np.ones(4, np.float32)))
+    algo = tsim.engine().algorithm_classes["cosine"]()
+    model = algo.train(ctx, td)
+    return model, algo.predict(model, tsim.Query(items=["x"], num=3, blackList=["z"]))
+
+
 def _similar_product_two_stage(monkeypatch):
     """A 40-item catalog's answers on the exact path, then at threshold
     10, where two-stage retrieval serves them."""
@@ -270,10 +283,16 @@ def test_similar_product_unported_paths_raise(case, match, monkeypatch):
     """The similar-product template refuses what the port does not have
     yet, naming the later slice, rather than answering another way. The
     two-stage case is ported: at threshold 10 the template answers, and
-    as its exact path does."""
+    as its exact path does. So is the cosine algorithm (ops/cosine_sim.py):
+    it trains and answers on the CPU."""
     if case == "two_stage":
         exact, two = _similar_product_two_stage(monkeypatch)
         assert all(r.itemScores for r in two) and two == exact
+        return
+    if case == "cosine":
+        model, answer = _similar_product_cosine()
+        assert isinstance(model, tsim.CosineModel) and model.sim_ids.shape == (3, 2)
+        assert [s.item for s in answer.itemScores] == ["y"]
         return
     with pytest.raises(NotImplementedError, match=match):
         _similar_product_refusal(case)

@@ -671,12 +671,15 @@ def test_cpu_calls_launch_no_kernel():
     and no kernel launch (the C entries count those as they launch)."""
     rng = np.random.default_rng(5)
     items = torch.from_numpy(rng.standard_normal((40, 3)).astype(np.float32))
-    counters = [c for fn in (ttopk.gather_top_k_batch, ttopk.sum_rows_top_k_batch)
+    counters = [c for fn in (ttopk.gather_top_k_batch, ttopk.sum_rows_top_k_batch,
+                             ttopk.top_k_similar)
                 for c in (fn.launches, fn.kernel_launches, *fn.routes.values())]
     before = [c.value for c in counters]
     ttopk.gather_top_k_batch([0, 3], items, items, 4)
     ttopk.sum_rows_top_k_batch([[0, 1]], [[1.0, 0.0]], items, 4)
     ttopk.top_k_rows(items, 2)
+    ttopk.top_k_items(items[0], items, 3)
+    ttopk.top_k_similar(items[1], items, 3)
     assert [c.value for c in counters] == before
 
 
@@ -689,7 +692,7 @@ def test_cu_entries_count_every_launch():
     entries = re.findall(r"^int (pio_k2_\w+)\(([^)]*)\)", src, re.M)
     assert {name for name, _ in entries} == {
         "pio_k2_select", "pio_k2_gather_top_k", "pio_k2_sum_rows_top_k",
-        "pio_k2_tile_top_k", "pio_k2_tile_sum_rows_top_k"}
+        "pio_k2_tile_top_k", "pio_k2_tile_sum_rows_top_k", "pio_k2_cosine_top_k"}
     for name, params in entries:
         assert "int* launched, void* stream" in " ".join(params.split()), name
     body = src[src.index("cudaError_t counted(int* launched)"):]
@@ -705,3 +708,138 @@ def test_cu_entries_count_every_launch():
                 break
         else:
             raise AssertionError(f"uncounted launch: {body[a:a + 80]}")
+
+
+# -- top_k_items and top_k_similar (K2 at B = 1, and K2's cosine mode) ---------
+
+
+def test_top_k_items_matches_jax():
+    """tests/test_als.py:409-421 on both packages."""
+    V = np.diag([1.0, 2.0, 3.0, 4.0]).astype(np.float32)
+    u = np.ones(4, np.float32)
+    js, ji = jtopk.top_k_items(jnp.asarray(u), jnp.asarray(V), k=2)
+    ts, ti = ttopk.top_k_items(torch.from_numpy(u), torch.from_numpy(V), 2)
+    assert ti.tolist() == [3, 2] == np.asarray(ji).tolist()
+    assert ts.tolist() == [4.0, 3.0] == np.asarray(js).tolist()
+    mask = np.array([0, 0, 0, 1])
+    _, ti = ttopk.top_k_items(torch.from_numpy(u), torch.from_numpy(V), 2,
+                              exclude_mask=torch.from_numpy(mask))
+    assert 3 not in ti.tolist()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+def test_top_k_items_on_every_catalog_form(dtype, exact, masked):
+    rng = np.random.default_rng(31)
+    jt, tt = _tables(rng, dtype, N_ITEMS, 6, exact)
+    u = (rng.integers(-3, 4, 6) if exact else rng.standard_normal(6)).astype(np.float32)
+    mask = (rng.random(N_ITEMS) < 0.3) if masked else None
+    n = N_ITEMS
+    js, ji = jtopk.top_k_items(jnp.asarray(u), jt, k=n,
+                               exclude_mask=None if mask is None else jnp.asarray(mask))
+    ts, ti = ttopk.top_k_items(torch.from_numpy(u), tt, n,
+                               exclude_mask=None if mask is None else torch.from_numpy(mask))
+    js, ji = np.asarray(js), np.asarray(ji)
+    # row 0 of the batched wrapper, bit for bit
+    bs, bi = ttopk.top_k_items_batch(torch.from_numpy(u)[None], tt, n,
+                                     exclude_mask=None if mask is None else
+                                     torch.from_numpy(mask))
+    assert _same_bits(ts.numpy(), bs[0].numpy()) and ti.tolist() == bi[0].tolist()
+    if exact:
+        assert _same_bits(ts.numpy(), js) and ti.numpy().tolist() == ji.tolist()
+    else:
+        np.testing.assert_allclose(ts.numpy(), js, rtol=RTOL, atol=ATOL)
+        assert _ids_match_outside_near_ties(ti.numpy(), ji, js)
+
+
+def _cosine_stated(v: np.ndarray, values: np.ndarray, norms, mask, k: int):
+    """K2's cosine mode stated in plain torch, operation by operation as
+    csrc/topk.cu computes it: each dot product over d = 0..D-1 in order
+    (every product and partial sum rounded, from +0.0), the query norm as
+    an f32 sum of squares then sqrt, one rounded product norm_i * ||v||,
+    max with 1e-12, one IEEE division, the mask to -1e30, a stable sort
+    on the order key."""
+    V = torch.from_numpy(values.astype(np.float32))
+    q = torch.from_numpy(v.astype(np.float32))
+    dots = torch.zeros(V.shape[0])
+    for d in range(V.shape[1]):
+        dots = dots + V[:, d] * q[d]
+    qn = torch.sqrt((q * q).sum())
+    n = torch.linalg.vector_norm(V, dim=1) if norms is None else torch.from_numpy(norms)
+    s = dots / torch.clamp(n * qn, min=1e-12)
+    if mask is not None:
+        s = torch.where(torch.from_numpy(mask).bool(), torch.tensor(-1e30), s)
+    keys = ttopk.order_key(s)
+    order = torch.sort(keys, descending=True, stable=True).indices[:k]
+    return s[order], order.to(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("with_norms", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_top_k_similar_matches_jax_and_its_stated_arithmetic(dtype, with_norms, masked):
+    """tests/test_als.py:428 and tests/test_retrieval.py:200 on both
+    packages, every catalog form: ids equal outside near ties and scores
+    within rtol 1e-5 of the JAX package's; bit for bit equal to the
+    arithmetic csrc/topk.cu states."""
+    rng = np.random.default_rng(32)
+    jt, tt = _tables(rng, dtype, N_ITEMS, 8, exact=False)
+    tvals = (tt[0] if dtype == "int8" else tt).to(torch.float32)
+    v = tvals[3].numpy().copy()
+    v_j = np.asarray((jt[0] if dtype == "int8" else jt)[3]).astype(np.float32)
+    assert np.array_equal(v, v_j)
+    mask = np.zeros(N_ITEMS, np.bool_)
+    if masked:
+        mask[[3, 7, 11]] = True
+    tn = ttopk.catalog_norms(tt) if with_norms else None
+    jn = jtopk.catalog_norms(jt) if with_norms else None
+    js, ji = jtopk.top_k_similar(jnp.asarray(v), jt, N_ITEMS,
+                                 exclude_mask=jnp.asarray(mask) if masked else None,
+                                 norms=jn)
+    ts, ti = ttopk.top_k_similar(torch.from_numpy(v), tt, N_ITEMS,
+                                 exclude_mask=torch.from_numpy(mask) if masked else None,
+                                 norms=tn)
+    js, ji = np.asarray(js), np.asarray(ji)
+    np.testing.assert_allclose(ts.numpy(), js, rtol=RTOL, atol=ATOL)
+    assert _ids_match_outside_near_ties(ti.numpy(), ji, js)
+    ss, si = _cosine_stated(v, tvals.numpy(), None if tn is None else tn.numpy(),
+                            mask if masked else None, N_ITEMS)
+    assert _same_bits(ts.numpy(), ss.numpy()) and ti.tolist() == si.tolist()
+    if masked:
+        assert not set(ti[:N_ITEMS - 3].tolist()) & {3, 7, 11}
+    assert (ts[ts > -1e29] <= 1.0 + 1e-5).all()
+
+
+def test_top_k_similar_excludes_self_and_zero_rows():
+    """tests/test_als.py:428 (self excluded by the mask, scores <= 1),
+    plus a zero row and a zero query: max(norm * ||v||, 1e-12) keeps
+    every score finite, and crafted exact ties keep lax.top_k's order."""
+    rng = np.random.default_rng(6)
+    V = rng.normal(size=(8, 4)).astype(np.float32)
+    V[5] = 0.0
+    V[6] = V[1] * 2.0  # the same direction as row 1
+    mask = np.zeros(8, np.float32)
+    mask[2] = 1
+    js, ji = jtopk.top_k_similar(jnp.asarray(V[2]), jnp.asarray(V), k=8,
+                                 exclude_mask=jnp.asarray(mask))
+    ts, ti = ttopk.top_k_similar(torch.from_numpy(V[2]), torch.from_numpy(V), 8,
+                                 exclude_mask=torch.from_numpy(mask))
+    assert 2 not in ti.tolist()[:7] and ti.tolist() == np.asarray(ji).tolist()
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=RTOL, atol=ATOL)
+    zs, zi = ttopk.top_k_similar(torch.zeros(4), torch.from_numpy(V), 8)
+    assert torch.isfinite(zs).all() and zi.tolist() == list(range(8))  # all +0.0: index order
+
+
+def test_top_k_similar_precomputed_norms():
+    """tests/test_retrieval.py:200 on the port."""
+    v = np.random.default_rng(18).normal(size=(80, 8)).astype(np.float32)
+    t = torch.from_numpy(v)
+    norms = ttopk.catalog_norms(t)
+    np.testing.assert_allclose(norms.numpy(), np.linalg.norm(v, axis=1), rtol=1e-6)
+    s0, i0 = ttopk.top_k_similar(t[3], t, 8)
+    s1, i1 = ttopk.top_k_similar(t[3], t, 8, norms=norms)
+    assert i0.tolist() == i1.tolist()
+    np.testing.assert_allclose(s0.numpy(), s1.numpy(), rtol=1e-6)
+    with pytest.raises(ValueError, match="norms"):
+        ttopk.top_k_similar(t[3], t, 8, norms=norms[:5])
