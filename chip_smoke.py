@@ -204,15 +204,23 @@ after simlife, templates after simtrain; retrieval serves two more
 templates):
 
 - k6: K6 (``ops/cosine_sim.py item_similarity_topn``,
-  ``csrc/cosine_sim.cu``) against its plain version (the JAX program in
-  torch: dense user-chunk tiles, ``tile_b^T @ tile``, the masks, a stable
-  sort on the order key): integer view counts bit for bit (ids of -inf
-  padding included), fractional values within atol 1e-5; ML-100K (with
-  37 empty items; top_n 1, 20, 128) and ML-1M views in full (also in
-  forced column passes), I = 100 at top_n = 99, I = 120,000 (three
-  column passes; three blocks held), the ML-20M views at top_n = 20 (the
-  kernel on every row, the plain version on every block, timed); K6's
-  device time, the heaviest row's block alone, the bound;
+  ``csrc/cosine_sim.cu``: the dense stage ``gram_s8_kernel`` for the
+  heavy users where the layout splits them off, the sparse stage
+  ``cosine_topn_kernel``, K2's ``select_kernel`` above top_n 128) against
+  its plain version (the JAX program in torch: dense user-chunk tiles,
+  ``tile_b^T @ tile``, the masks, a stable sort on the order key):
+  integer view counts bit for bit (ids of -inf padding included),
+  fractional values within atol 1e-5; every case on the layout's design
+  and with H = 0. ML-100K (with 37 empty items; top_n 1, 20, 128, 129,
+  256, I - 1) and ML-1M views in full (top_n 20, 129, 256, I - 1; also
+  in forced column passes), T forced to 0, to the cost model's pick and
+  above the largest degree on both, I = 100 at top_n = 99, I = 120,000
+  (three column passes; three blocks held), the ML-20M views at top_n =
+  20 (the kernels on every row, the plain version on every block,
+  timed); the dense stage alone bit for bit against its plain version
+  (at 100k and 20m); at 20m each stage's device time, the heaviest row's
+  block alone, the H = 0 and ordered-route times, the function's bound
+  and each stage's;
 - k2cos: ``top_k_similar`` (K2's cosine mode) against its plain version
   at I {50, 26,744, 1M} x f32/bf16/int8 x norms given or not x masked or
   not x k {4, 128, 300}, crafted ties and a zero row (ids equal, scores
@@ -221,8 +229,9 @@ templates):
   engine from ML-100K-shaped events in sqlite through ``cli.main train``
   and ``deploy``, queries against the plain path on the same model;
 - templates: the three engines at the ML-20M shape and their defaults
-  through ``run_train`` (K6's counter reset before the cosine training
-  and read after: the main path's launch), saved, deployed in
+  through ``run_train`` (K6's counters reset before the cosine training
+  and read after: the main path's launches, by stage; the dense stage
+  must have run), saved, deployed in
   subprocesses with the batcher, 500 distinct queries at concurrency 1
   and 8: answers against the plain path, ready_s, p50 / p99 / q/s, K2 /
   K2s calls per dispatch from /metrics, the e-commerce live-filter cache
@@ -4531,11 +4540,12 @@ def ml_views(stats, scale: str):
     return rows, cols, np.ones(len(rows), np.float32), nu, ni
 
 
-def k6_inputs(cs, device, rows, cols, vals, nu: int, ni: int) -> dict:
-    """Deduped triples, host norms, K6's layout and its upload."""
+def k6_inputs(cs, device, rows, cols, vals, nu: int, ni: int, threshold=None) -> dict:
+    """Deduped triples, host norms, K6's layout (``threshold``: None for
+    the cost model's T, else that T forced) and its upload."""
     r, c, v = cs._dedupe(rows, cols, vals, nu, ni)
     norms = cs.column_norms(c, v, ni)
-    lay = cs.cosine_layout(r, c, v, nu, ni)
+    lay = cs.cosine_layout(r, c, v, nu, ni, threshold=threshold)
     return {"trip": (r, c, v), "norms": norms, "lay": lay, "nu": nu, "ni": ni,
             "dev": cs.upload_layout(lay, norms, device)}
 
@@ -4581,23 +4591,51 @@ def k6_blocks(torch, cs, device, inp: dict, top_n: int, starts, ks, ki, what: st
     return {"rows_checked": checked, "max_abs_err": worst}
 
 
+def k6_stage_counts(cs) -> dict:
+    return {k: c.value for k, c in cs.item_similarity_topn.stages.items()}
+
+
 def k6_case(torch, cs, device, inp: dict, top_n: int, what: str, starts=None,
-            pass_cols=None) -> dict:
-    """One K6 launch over every row, held to the plain version (every
-    block, or the blocks at ``starts``)."""
-    ni = inp["ni"]
+            pass_cols=None, both: bool = True) -> list:
+    """K6 over every row, held to the plain version (every block, or the
+    blocks at ``starts``): on the layout's design (the dense stage when
+    it has heavy users) and, with ``both``, again with ``H = 0``
+    (``dense=False``) where the layout has heavy users -- that run held
+    bit for bit to the first (the atomic route's sums are exact), so to
+    the plain version too. The stages each run launched are recorded."""
+    ni, lay = inp["ni"], inp["lay"]
     tn = cs.clamp_top_n(top_n, ni)
     kw = {} if pass_cols is None else {"pass_cols": pass_cols}
-    ks, ki = cs.cosine_topn_kernel(inp["dev"], ni, tn, inp["lay"].route, **kw)
-    torch.cuda.synchronize()
-    ks, ki = host(ks), host(ki)
     if starts is None:
         starts = range(0, ni, 256)
-    held = k6_blocks(torch, cs, device, inp, tn, starts, ks, ki, what)
-    res = {"case": what, "route": inp["lay"].route, "I": ni, "top_n": tn,
-           "passes": -(-ni // min(pass_cols or cs.K6_PASS_COLS, ni)), **held}
-    log(json.dumps({"k6": res}))
-    return res
+    out, first = [], None
+    for dense in ((True, False) if both and len(lay.heavy) else (True,)):
+        before = k6_stage_counts(cs)
+        ks, ki = cs.cosine_topn_kernel(inp["dev"], ni, tn, lay.route, dense=dense, **kw)
+        torch.cuda.synchronize()
+        stages = {k: v - before[k] for k, v in k6_stage_counts(cs).items()}
+        ks, ki = host(ks), host(ki)
+        if dense and len(lay.heavy) and lay.route == "atomic" and stages["dense"] == 0:
+            raise AssertionError(f"k6 {what}: the layout has heavy users, no dense launch")
+        if not dense and stages["dense"]:
+            raise AssertionError(f"k6 {what}: H = 0 launched the dense stage")
+        if tn > cs.K6_SELECT_MAX_N and stages["select"] == 0:
+            raise AssertionError(f"k6 {what}: top_n {tn} launched no selection")
+        if first is None:
+            held = k6_blocks(torch, cs, device, inp, tn, starts, ks, ki, f"{what} (H="
+                             f"{len(lay.heavy)})")
+            first = (ks, ki, held)
+        elif not (np.array_equal(ks.view(np.int32), first[0].view(np.int32))
+                  and np.array_equal(ki, first[1])):
+            raise AssertionError(f"k6 {what}: H = 0 differs from the dense design")
+        else:
+            held = first[2]
+        res = {"case": what, "route": lay.route, "I": ni, "top_n": tn, "T": lay.threshold,
+               "H": len(lay.heavy) if dense else 0, "stages": stages,
+               "passes": -(-ni // min(pass_cols or cs.K6_PASS_COLS, ni)), **held}
+        log(json.dumps({"k6": res}))
+        out.append(res)
+    return out
 
 
 def k6_bound(mem_rate, fp32_rate, inp: dict, top_n: int) -> dict:
@@ -4615,6 +4653,100 @@ def k6_bound(mem_rate, fp32_rate, inp: dict, top_n: int) -> dict:
             "bound_by": "bytes" if t_b >= t_o else "operations"}
 
 
+INT8_TENSOR_PEAK = 1979e12  # H100 SXM dense int8 tensor-core operations a second
+
+
+def k6_stage_bounds(cs, mem_rate, fp32_rate, inp: dict, top_n: int) -> dict:
+    """Each stage's own least time. Dense: 2 I I_pad H_pad s8 operations
+    at the int8 tensor peak against its operand read once and the [I, I]
+    f32 Gram written once. Sparse: the light users' multiply-adds (2 FLOP
+    each) at the FP32 peak against the light CSC, the CSR, the Gram read
+    back once and the [I, n] outputs."""
+    lay, ni = inp["lay"], inp["ni"]
+    i_pad = -(-ni // cs.K6_DENSE_TILE) * cs.K6_DENSE_TILE
+    h_pad = -(-len(lay.heavy) // cs.K6_DENSE_K) * cs.K6_DENSE_K
+    d_ops = 2.0 * ni * i_pad * h_pad
+    d_bytes = i_pad * h_pad + 4.0 * ni * ni
+    s_flops = 2.0 * float(lay.light_work.sum())
+    s_bytes = (8 * (len(lay.user_ptr) + len(lay.light_ptr)) + 8 * len(lay.user_items)
+               + 8 * len(lay.light_users) + 4.0 * ni * ni * (h_pad > 0) + 8 * ni * top_n)
+
+    def bound(t_b, t_o):
+        return {"bound_ms": max(t_b, t_o) * 1e3, "bound_by": "bytes" if t_b >= t_o
+                else "operations"}
+
+    return {"dense": {"ops": d_ops, "bytes": d_bytes, **bound(d_bytes / mem_rate,
+                                                              d_ops / INT8_TENSOR_PEAK)},
+            "sparse": {"flops": s_flops, "bytes": s_bytes, **bound(s_bytes / mem_rate,
+                                                                   s_flops / fp32_rate)}}
+
+
+def k6_dense_check(torch, cs, inp: dict) -> dict:
+    """The dense stage alone on the 20m layout's first chunk (the
+    heaviest rows): bit for bit against gram_s8_reference, its device time
+    over every chunk, the plain version's and one ``torch._int_mm`` call's
+    (the yardstick: an int32 product of the same operands)."""
+    dev, ni = inp["dev"], inp["ni"]
+    a, order = dev["heavy_a"], dev["light_order"]
+    chunk = cs.k6_chunk_rows(ni)
+    part = order[:chunk]
+    scratch = torch.empty((chunk, ni), dtype=torch.float32, device=a.device)
+
+    def dense_all():
+        for r0 in range(0, ni, chunk):
+            cs.gram_s8(a, order[r0:r0 + chunk], ni, scratch)
+
+    dense_all()  # leaves the last chunk; the first is checked below
+    cs.gram_s8(a, part, ni, scratch)
+    torch.cuda.synchronize()
+    want = cs.gram_s8_reference(a, part, ni)
+    err = float((scratch - want).abs().max())
+    if not torch.equal(scratch.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"gram_s8 differs from its plain version (max {err})")
+    del want
+
+    def plain_all():
+        for r0 in range(0, ni, chunk):
+            cs.gram_s8_reference(a, order[r0:r0 + chunk], ni)
+
+    at = a.t()
+    gathered = [a[order[r0:r0 + chunk].long()] for r0 in range(0, ni, chunk)]
+
+    def library_all():
+        for rows_a in gathered:
+            torch._int_mm(rows_a, at)
+
+    try:
+        library_all()
+        library_ms = cuda_median_ms(torch, library_all, runs=3, warmup=1)
+    except RuntimeError as e:  # a yardstick only: the port never calls it
+        log(f"k6 dense: torch._int_mm unavailable here: {e}")
+        library_ms = None
+    times = device_ms(torch, dense_all, runs=3)
+    return {"max_abs_err": err, "dense_device_ms": _total(times, "gram_s8"),
+            "dense_event_ms": cuda_median_ms(torch, dense_all, runs=3, warmup=1),
+            "plain_ms": cuda_median_ms(torch, plain_all, runs=3, warmup=1),
+            "library_ms": library_ms, "chunks": -(-ni // chunk),
+            "rate_ops_per_s": 2.0 * ni * a.shape[0] * a.shape[1]
+            / max(1e-9, (_total(times, "gram_s8") or 1e9) * 1e-3)}
+
+
+def k6_times(torch, fn, runs: int = 3) -> dict:
+    """``fn``'s CUDA-event median (``event_ms``) and its device time by
+    kernel from ``torch.profiler`` (``kernels``), the trace taken again
+    (up to three times) while its total reads below 0.75x the event time:
+    a trace now and then records only some of the runs. ``device_ms`` is
+    the trace's total, or the event time when no trace was whole
+    (``traced`` False)."""
+    event = cuda_median_ms(torch, fn, runs=runs, warmup=1)
+    for _ in range(3):
+        kernels = device_ms(torch, fn, runs=runs)
+        total = _total(kernels)
+        if total is not None and total >= 0.75 * event:
+            return {"event_ms": event, "kernels": kernels, "device_ms": total, "traced": True}
+    return {"event_ms": event, "kernels": {}, "device_ms": event, "traced": False}
+
+
 @phase("k6: item-item cosine top-n vs plain")
 def k6_vs_plain(torch, device, stats):
     """K6 (``ops/cosine_sim.py``, ``csrc/cosine_sim.cu``) against its plain
@@ -4622,14 +4754,19 @@ def k6_vs_plain(torch, device, stats):
     ``tile_b^T @ tile`` with TF32 off, the masks, a stable sort on the
     order key) on the card. Integer view counts (the atomic route) bit
     for bit, ids of -inf padding included; fractional values (the
-    ordered route) within atol 1e-5. ML-100K and ML-1M views in full
-    (top_n 1, 20, 128; 1M also in forced column passes), with 37 empty
-    items; I = 100 at top_n = I - 1; the ML-20M views (16.8 M distinct
-    pairs) at top_n = 20, the kernel on every row and the plain version
-    on every block (timed: its wall time is plain_ms); I = 120,000 on a
-    sparse draw (three column passes), the plain version on the first,
-    middle and last blocks. Then K6's device time at 20m
-    (``torch.profiler``), the heaviest row's block alone, and the bound."""
+    ordered route) within atol 1e-5. Every case runs on the layout's
+    design (the dense stage for the heavy users when the cost model
+    splits them off) and with ``H = 0``. ML-100K views (37 empty items;
+    top_n 1, 20, 128, and 129, 256, I - 1 on the scores route) and ML-1M
+    views in full (also in forced column passes; top_n 129, 256, I - 1),
+    T forced to 0, to the cost model's pick and above the largest degree
+    on both; fractional values; I = 100 at top_n = I - 1; I = 120,000 on
+    a sparse draw (three column passes; the first, middle and last blocks
+    held); the ML-20M views at top_n = 20 (every row by the kernels, every
+    block by the plain version, timed), the dense stage alone against its
+    plain version. Then at 20m: each stage's device time
+    (``torch.profiler``), the heaviest row's block alone, the H = 0 and
+    ordered-route times, the bounds."""
     from predictionio_tpu_torch.ops import cosine_sim as cs
 
     cases = []
@@ -4637,42 +4774,64 @@ def k6_vs_plain(torch, device, stats):
     inp = k6_inputs(cs, device, rows, cols, vals, nu, ni + 37)
     if len(inp["trip"][0]) >= len(rows):
         raise AssertionError("the 100k views hold no repeated pair to sum")
+    # the cost model's T forced: a layout with heavy users at this size too
+    split = k6_inputs(cs, device, rows, cols, vals, nu, ni + 37,
+                      threshold=cs.k6_threshold(ni + 37))
     for tn in (1, K6_TOP_N, 128):
-        cases.append(k6_case(torch, cs, device, inp, tn, f"100k views top_n={tn}"))
+        cases += k6_case(torch, cs, device, inp, tn, f"100k views top_n={tn}")
+    for tn in (K6_TOP_N, 129, 256, ni + 36):
+        cases += k6_case(torch, cs, device, split, tn, f"100k views T=cost model top_n={tn}")
+    for t, name in ((0, "T=0"), (10 ** 9, "T>max deg")):
+        forced = k6_inputs(cs, device, rows, cols, vals, nu, ni + 37, threshold=t)
+        cases += k6_case(torch, cs, device, forced, K6_TOP_N, f"100k views {name}", both=False)
+    small_dense = k6_dense_check(torch, cs, split)  # a launch's fixed cost, at a small shape
+    log(json.dumps({"k6 dense stage, 100k views": small_dense}))
     rng = np.random.default_rng(SEED + 60)
     frac = rng.random(len(rows)).astype(np.float32) * 3.0
     fin = k6_inputs(cs, device, rows, cols, frac, nu, ni + 37)
     if fin["lay"].route != "ordered":
         raise AssertionError("fractional values did not take the ordered route")
-    cases.append(k6_case(torch, cs, device, fin, K6_TOP_N, "100k fractional"))
-    cases.append(k6_case(torch, cs, device, fin, 128, "100k fractional"))
+    for tn in (K6_TOP_N, 128, 129):
+        cases += k6_case(torch, cs, device, fin, tn, "100k fractional")
     rows, cols, vals, nu, ni = ml_views(stats, "1m")
     inp = k6_inputs(cs, device, rows, cols, vals, nu, ni)
-    cases.append(k6_case(torch, cs, device, inp, K6_TOP_N, "1m views"))
-    cases.append(k6_case(torch, cs, device, inp, K6_TOP_N, "1m views, passes of 1,000",
-                         pass_cols=1000))
+    split = k6_inputs(cs, device, rows, cols, vals, nu, ni, threshold=cs.k6_threshold(ni))
+    cases += k6_case(torch, cs, device, inp, K6_TOP_N, f"1m views top_n={K6_TOP_N}")
+    cases += k6_case(torch, cs, device, inp, K6_TOP_N, "1m views, passes of 1,000",
+                     pass_cols=1000)
+    for tn in (K6_TOP_N, 129, 256, ni - 1):
+        cases += k6_case(torch, cs, device, split, tn, f"1m views T=cost model top_n={tn}")
+    cases += k6_case(torch, cs, device, split, K6_TOP_N, "1m views T=cost model, passes of "
+                     "1,000", pass_cols=1000)
+    for t, name in ((0, "T=0"), (10 ** 9, "T>max deg")):
+        forced = k6_inputs(cs, device, rows, cols, vals, nu, ni, threshold=t)
+        cases += k6_case(torch, cs, device, forced, K6_TOP_N, f"1m views {name}", both=False)
     frac = (vals * 0.5 + rng.random(len(vals)).astype(np.float32)).astype(np.float32)
-    cases.append(k6_case(torch, cs, device, k6_inputs(cs, device, rows, cols, frac, nu, ni),
-                         64, "1m fractional, passes of 1,000", pass_cols=1000))
+    cases += k6_case(torch, cs, device, k6_inputs(cs, device, rows, cols, frac, nu, ni),
+                     64, "1m fractional, passes of 1,000", pass_cols=1000)
     small = k6_inputs(cs, device, rng.integers(0, 300, 4000), rng.integers(0, 97, 4000),
                       rng.integers(1, 4, 4000).astype(np.float32), 300, 100)
-    cases.append(k6_case(torch, cs, device, small, 99, "I=100 top_n=I-1"))
+    cases += k6_case(torch, cs, device, small, 99, "I=100 top_n=I-1")
     # a catalog wider than one shared-memory pass: three column passes
     wide = k6_inputs(cs, device, rng.integers(0, K6_WIDE_USERS, K6_WIDE_NNZ),
                      rng.integers(0, K6_PASSES_I, K6_WIDE_NNZ),
                      rng.integers(1, 4, K6_WIDE_NNZ).astype(np.float32), K6_WIDE_USERS,
                      K6_PASSES_I)
-    cases.append(k6_case(torch, cs, device, wide, K6_TOP_N, "I=120,000 sparse",
-                         starts=(0, K6_PASSES_I // 2, K6_PASSES_I - 1)))
-    del wide, small, fin
-    # the ML-20M views: every row by the kernel, every block by the plain version
+    cases += k6_case(torch, cs, device, wide, K6_TOP_N, "I=120,000 sparse",
+                     starts=(0, K6_PASSES_I // 2, K6_PASSES_I - 1))
+    del wide, small, fin, forced, split
+    # the ML-20M views: every row by the kernels, every block by the plain version
     rows, cols, vals, nu, ni = ml_views(stats, "20m")
     t0 = time.perf_counter()
     inp = k6_inputs(cs, device, rows, cols, vals, nu, ni)
     layout_s = time.perf_counter() - t0
     lay = inp["lay"]
+    if not len(lay.heavy):
+        raise AssertionError("k6 20m views: the cost model split off no heavy user")
+    before = k6_stage_counts(cs)
     ks, ki = cs.cosine_topn_kernel(inp["dev"], ni, K6_TOP_N, lay.route)
     torch.cuda.synchronize()
+    stages = {k: v - before[k] for k, v in k6_stage_counts(cs).items()}
     ks, ki = host(ks), host(ki)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4681,7 +4840,8 @@ def k6_vs_plain(torch, device, stats):
     plain_ms = (time.perf_counter() - t0) * 1e3
     hot = int(np.argmax(np.diff(lay.item_ptr)))
     cases.append({"case": "20m views (every block)", "route": lay.route, "I": ni,
-                  "top_n": K6_TOP_N, "passes": 1, **held})
+                  "top_n": K6_TOP_N, "T": lay.threshold, "H": len(lay.heavy),
+                  "stages": stages, "passes": 1, **held})
     log(json.dumps({"k6": cases[-1]}))
 
     def call():
@@ -4689,6 +4849,12 @@ def k6_vs_plain(torch, device, stats):
 
     def heaviest():
         cs.cosine_topn_kernel(inp["dev"], ni, K6_TOP_N, lay.route, rows=1)
+
+    def flat():  # H = 0: the same kernel without a dense stage
+        return cs.cosine_topn_kernel(inp["dev"], ni, K6_TOP_N, lay.route, dense=False)
+
+    def flat_heaviest():
+        cs.cosine_topn_kernel(inp["dev"], ni, K6_TOP_N, lay.route, rows=1, dense=False)
 
     # the ordered route on the same integer views: every sum is exact on
     # both routes, so the same bits; its time beside the atomic route's
@@ -4698,28 +4864,50 @@ def k6_vs_plain(torch, device, stats):
     def ordered_heaviest():
         cs.cosine_topn_kernel(inp["dev"], ni, K6_TOP_N, "ordered", rows=1)
 
-    os_, oi = ordered()
-    torch.cuda.synchronize()
-    if not (np.array_equal(host(os_).view(np.int32), ks.view(np.int32))
-            and np.array_equal(host(oi), ki)):
-        raise AssertionError("k6 20m views: the ordered route differs from the atomic route")
-    del os_, oi
+    for name, fn in (("H = 0", flat), ("the ordered route", ordered)):
+        os_, oi = fn()
+        torch.cuda.synchronize()
+        if not (np.array_equal(host(os_).view(np.int32), ks.view(np.int32))
+                and np.array_equal(host(oi), ki)):
+            raise AssertionError(f"k6 20m views: {name} differs from the dense design")
+        del os_, oi
+    dense = k6_dense_check(torch, cs, inp)
+    log(json.dumps({"k6 dense stage": dense}))
     mem_rate, fp32_rate = peaks(stats["device_name"])
     bound = k6_bound(mem_rate, fp32_rate, inp, K6_TOP_N)
+    stage_bounds = k6_stage_bounds(cs, mem_rate, fp32_rate, inp, K6_TOP_N)
+    t_call = k6_times(torch, call)
+    t_flat = k6_times(torch, flat)
+    t_heavy = k6_times(torch, heaviest)
+    t_ordered = k6_times(torch, ordered)
+    light_adds = float(lay.light_work.sum())
+    sparse_ms = _total(t_call["kernels"], "cosine_topn")
     timing = {
-        "kernel_ms": cuda_median_ms(torch, call, runs=5, warmup=2),
-        "kernel_device_ms": _total(device_ms(torch, call, runs=3)),
-        "slowest_block_ms": _total(device_ms(torch, heaviest, runs=3)),
-        "ordered_device_ms": _total(device_ms(torch, ordered, runs=3)),
-        "ordered_slowest_block_ms": _total(device_ms(torch, ordered_heaviest, runs=3)),
-        "plain_ms": plain_ms, "library_ms": None, **bound,
+        "kernel_ms": t_call["event_ms"], "kernel_device_ms": t_call["device_ms"],
+        "traced": {"call": t_call["traced"], "h0": t_flat["traced"],
+                   "heaviest": t_heavy["traced"], "ordered": t_ordered["traced"]},
+        "dense_ms": _total(t_call["kernels"], "gram_s8"), "sparse_ms": sparse_ms,
+        "select_ms": _total(t_call["kernels"], "select_kernel"),
+        "slowest_block_ms": _total(t_heavy["kernels"], "cosine_topn") or t_heavy["device_ms"],
+        "h0_ms": t_flat["device_ms"], "h0_kernel_ms": t_flat["event_ms"],
+        "h0_slowest_block_ms": k6_times(torch, flat_heaviest)["device_ms"],
+        "ordered_device_ms": t_ordered["device_ms"], "ordered_event_ms": t_ordered["event_ms"],
+        "ordered_slowest_block_ms": k6_times(torch, ordered_heaviest)["device_ms"],
+        "plain_ms": plain_ms, "library_ms": None, **bound, "stage_bounds": stage_bounds,
+        "T": lay.threshold, "H": len(lay.heavy), "stages": stages,
         "pairs": int(len(lay.user_items)), "sum_deg_sq": int(lay.work.sum()),
+        "light_sum_deg_sq": int(light_adds),
+        "sparse_rate_adds_per_s": light_adds / max(1e-9, (sparse_ms or 1e9) * 1e-3),
+        "h0_rate_adds_per_s": float(lay.work.sum()) / max(1e-9, t_flat["device_ms"] * 1e-3),
         "hottest_item_users": int(np.diff(lay.item_ptr)[hot]),
-        "heaviest_row_work": int(lay.work[lay.row_order[0]]), "layout_s": layout_s,
+        "heaviest_row_work": int(lay.work[lay.row_order[0]]),
+        "heaviest_light_row_work": int(lay.light_work[lay.light_order[0]]),
+        "layout_s": layout_s,
     }
     stats["k6_20m"] = (ks, ki)
     stats["k6_max_abs_err"] = max(c["max_abs_err"] for c in cases)
-    stats["k6"] = {"cases": cases, "timing": timing}
+    stats["k6"] = {"cases": cases, "timing": timing, "dense": dense,
+                   "dense_100k": small_dense}
     log(json.dumps({"k6 timing": timing}))
 
 
@@ -5184,13 +5372,18 @@ def templates_full_width(torch, device, stats):
                                   "cosine", sim.CosineAlgorithm, sim.SumScoreServing)
         ep = engine.params_from_variant({"algorithms": [{"name": "cosine", "params": {}}]})
         cs.item_similarity_topn.launches.reset()  # the main path starts here
+        for c in cs.item_similarity_topn.stages.values():
+            c.reset()
         t0 = time.perf_counter()
         iid = run_train(engine, ep, engine_id="chip-smoke-cos20m", engine_factory=SIM_FACTORY,
                         storage=storage, ctx=ctx)
         train_s = time.perf_counter() - t0
         stats["k6_launches"] = cs.item_similarity_topn.launches.value  # main path read
-        if stats["k6_launches"] != 1:
-            raise AssertionError(f"cosine training launched K6 {stats['k6_launches']} times")
+        stats["k6_stages"] = k6_stage_counts(cs)
+        if stats["k6_stages"]["dense"] < 1 or stats["k6_stages"]["sparse"] < 1 or (
+                stats["k6_launches"] != sum(stats["k6_stages"].values())):
+            raise AssertionError(f"cosine training launched K6 {stats['k6_launches']} times, "
+                                 f"by stage {stats['k6_stages']}: no dense stage")
         inst = storage.get_metadata_engine_instances().get(iid)
         _, [algo], [model], serving = prepare_deploy(engine, inst, storage=storage, ctx=ctx)
         if "k6_20m" in stats:  # the k6 phase's launch on the same views
@@ -5214,6 +5407,7 @@ def templates_full_width(torch, device, stats):
                     json.dumps(dataclasses.asdict(want))):
                 raise AssertionError(f"cosine 20m {q}: served answer differs")
         out["cosine"] = {"train_s": train_s, "k6_launches": stats["k6_launches"],
+                         "k6_stages": stats["k6_stages"],
                          "ready_s": ready_s, "held": len(queries),
                          **{f"c{c}": {k: v for k, v in lv.items() if k != "answers"}
                             for c, lv in levels.items()}}
@@ -5423,11 +5617,14 @@ def ec_retrieval(torch, device, storage, basedir, stats, servers) -> dict:
 
 
 def k6_summary(stats) -> dict:
-    """K6's line: the ML-20M views at top_n = 20, one launch over every
-    row; launches: the cosine template's run_train in the templates
-    phase (the main path); ``slowest_block_ms``: the heaviest row's block
-    launched alone; ``ordered_ms``: the ordered route on the same integer
-    views. No single PyTorch call computes it: library_ms null."""
+    """K6's line: the ML-20M views at top_n = 20, every row (the dense
+    stage's chunks, then the sparse stage's); launches: every K6 launch of
+    the cosine template's run_train in the templates phase (the main
+    path), ``stages`` by stage; ``ms`` the stages' device time together;
+    ``slowest_block_ms``: the heaviest row's sparse block launched alone;
+    ``h0_ms``: the same views with H = 0 (no dense stage), same run;
+    ``ordered_ms``: the ordered route on the same integer views. No single
+    PyTorch call computes it: library_ms null."""
     t = stats["k6"]["timing"]
     return {
         "name": "item_similarity_topn",
@@ -5436,13 +5633,40 @@ def k6_summary(stats) -> dict:
         "replaces": "predictionio_tpu/ops/cosine_sim.py:73",
         "launches": stats["k6_launches"],
         "max_abs_err": stats["k6_max_abs_err"],
-        "ms": t["kernel_device_ms"] or t["kernel_ms"],
+        "ms": t["kernel_device_ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": None,
+        "stages": stats["k6_stages"],
+        "dense_ms": t["dense_ms"],
+        "sparse_ms": t["sparse_ms"],
+        "sparse_bound_ms": t["stage_bounds"]["sparse"]["bound_ms"],
         "slowest_block_ms": t["slowest_block_ms"],
+        "h0_ms": t["h0_ms"],
         "ordered_ms": t["ordered_device_ms"],
+    }
+
+
+def k6_dense_summary(stats) -> dict:
+    """K6's dense stage (``gram_s8_kernel``): the heavy users' Gram of the
+    ML-20M views, every chunk; launches: the cosine template's run_train
+    (the main path); held bit for bit to ``gram_s8_reference`` (the f32
+    product of the same operand) on the first chunk; library_ms: one
+    ``torch._int_mm`` a chunk on the same operands."""
+    d, t = stats["k6"]["dense"], stats["k6"]["timing"]
+    return {
+        "name": "gram_s8 (K6 dense stage)",
+        "route": "cuda",
+        "source": "predictionio_tpu_torch/csrc/cosine_sim.cu",
+        "replaces": "predictionio_tpu/ops/cosine_sim.py:91",
+        "launches": stats["k6_stages"]["dense"],
+        "max_abs_err": d["max_abs_err"],
+        "ms": d["dense_device_ms"] or d["dense_event_ms"],
+        "plain_ms": d["plain_ms"],
+        "bound_ms": t["stage_bounds"]["dense"]["bound_ms"],
+        "bound_by": t["stage_bounds"]["dense"]["bound_by"],
+        "library_ms": d["library_ms"],
     }
 
 
@@ -5767,7 +5991,8 @@ def main() -> int:
         "batch_sizes": stats["batchserve"][f"window_{BATCH_WINDOW_MS:g}ms"][64]["batch_sizes"],
     }, k1_summary(stats), k1i_summary(stats), k2s_summary(stats),
         k1s_summary(stats), topk_items_summary(stats), k3_summary(stats),
-        *k4_summary(stats), k5_summary(stats), k6_summary(stats), k2cos_summary(stats)]}))
+        *k4_summary(stats), k5_summary(stats), k6_summary(stats), k6_dense_summary(stats),
+        k2cos_summary(stats)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -677,22 +677,22 @@ def catalog_norms(item_factors) -> torch.Tensor:
     return torch.linalg.vector_norm(values.to(torch.float32), dim=1)
 
 
-def top_k_rows(scores: torch.Tensor, k: int):
-    """Top-k of each row of a [B, I] f32 score matrix in ``lax.top_k``
-    order: ``([B, k] scores, [B, k] int32 ids)``. K2's selection stage
-    alone (the kernel's second launch), for scores computed elsewhere.
-    CPU tensors take :func:`top_k_rows_reference`."""
-    k = min(int(k), scores.shape[-1])
-    if scores.device.type == "cpu":
-        return top_k_rows_reference(scores, k)
+def select_rows(scores: torch.Tensor, k: int):
+    """K2's selection stage alone (``select_kernel``, one launch) on a
+    ``[B, I]`` f32 CUDA tensor, any ``k <= I``: ``([B, k] scores, [B, k]
+    int32 ids, kernels launched)`` in ``lax.top_k`` order. For callers that
+    count the launch as their own (K6's scores route); others call
+    :func:`top_k_rows`."""
     if scores.dtype != torch.float32 or scores.dim() != 2:
-        raise ValueError("top_k_rows takes a [B, I] float32 tensor")
+        raise ValueError("select_rows takes a [B, I] float32 tensor")
+    if not 0 <= k <= scores.shape[-1]:
+        raise ValueError(f"select_rows takes 0 <= k <= I = {scores.shape[-1]}, got {k}")
     scores = scores.contiguous()
     batch, num_items = scores.shape
     out = torch.empty((batch, k), dtype=torch.float32, device=scores.device)
     ids = torch.empty((batch, k), dtype=torch.int32, device=scores.device)
     if batch == 0 or k == 0:
-        return out, ids
+        return out, ids, 0
     cand = torch.empty((batch, k), dtype=torch.int64, device=scores.device)
     launched = ctypes.c_int(0)
     lib = _lib()
@@ -702,8 +702,20 @@ def top_k_rows(scores: torch.Tensor, k: int):
             scores.data_ptr(), batch, num_items, k, cand.data_ptr(),
             out.data_ptr(), ids.data_ptr(), ctypes.byref(launched), stream,
         )
-    _build.check(err, "top_k_rows kernel launch")
-    top_k_rows.launches.add(launched.value)
+    _build.check(err, "select_rows kernel launch")
+    return out, ids, launched.value
+
+
+def top_k_rows(scores: torch.Tensor, k: int):
+    """Top-k of each row of a [B, I] f32 score matrix in ``lax.top_k``
+    order: ``([B, k] scores, [B, k] int32 ids)``. K2's selection stage
+    alone (the kernel's second launch), for scores computed elsewhere.
+    CPU tensors take :func:`top_k_rows_reference`."""
+    k = min(int(k), scores.shape[-1])
+    if scores.device.type == "cpu":
+        return top_k_rows_reference(scores, k)
+    out, ids, launched = select_rows(scores, k)
+    top_k_rows.launches.add(launched)
     return out, ids
 
 
