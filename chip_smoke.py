@@ -241,6 +241,34 @@ templates):
   K2s / K2, answers against the plain two-stage versions, one warp-route
   K4 launch per dispatch.
 
+The two-stage redesign (K4's stream route one launch, K5 the epilogue
+of K4's merge: every two-stage call one launch) changes three phases:
+
+- k4 also holds the stream route at k' in {129, 256, 512, 2048, 8192}
+  (and B = 64 at 512 and 8192), the pair it replaced (two launches, the
+  baseline) on the crafted catalogs, one launch a call on either route,
+  the C entries' shared-memory sizes of both routes fused and alone,
+  and the fused call (``two_stage_top_k``) at 1M: every coarse mode x
+  item-table dtype x query form at (B, k', k) = (1, 32, 4), (8, 128,
+  16), (8, 512, 64) and (64, 256, 32), bit for bit against the composed
+  plain versions and against K4 then the standalone K5, one launch each
+  and no standalone K5 launch; and past small catalogs (-1 slots);
+- retrieval checks every two-stage dispatch of the four templates is
+  one fused call of one launch (``pio_two_stage_calls{route}``,
+  ``pio_k4_kernel_launches``; ``pio_k5_kernel_launches`` stays 0), the
+  warp route at num = 10 and the stream route for the similar-product
+  blackList queries (k' = 512) and for e-commerce users whose exact top
+  20 are seen (k = 32, k' = 256; their seen items never come back), and
+  a traced request's ``dispatch.shortlist`` / ``dispatch.rescore``
+  spans on each template's server;
+- retimes times K4's three routes (warp, stream, pair) on the same
+  inputs at k' = 32, 128 and 512, K4 at k' = 128 and 512 beside its plain
+  version and ``torch.topk(q @ V.float().T, k')``, and the serving
+  call's paths at B in {1, 8}, (k', k) = (128, 16) and (512, 64): the
+  fused call, the two-wrapper path it replaced, K4 then K5 back to back,
+  exact K2 and ``torch.topk(q @ V.T, k)``, by ``torch.profiler`` and by
+  CUDA events; and the card's ``%globaltimer`` tick.
+
 Every phase prints its results and seconds; any failure makes the exit
 code 1 and suppresses the result lines. Without CUDA, or without the
 package beside the script, it exits 2 and prints no result. A run of a
@@ -2570,7 +2598,10 @@ def cuda_median_ms(torch, fn, runs: int = 50, warmup: int = 20) -> float:
 
 def device_ms(torch, fn, runs: int = 50) -> dict:
     """Device time per call from ``torch.profiler`` (CUPTI): {kernel or
-    copy name: ms per call}; empty when the profiler saw no device work."""
+    copy name: ms per call}; empty when the profiler saw no device work.
+    A name's time is its traced total over the launches the trace holds,
+    times its launches a call (rounded, at least 1): a trace now and then
+    records only some of the runs."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2588,7 +2619,8 @@ def device_ms(torch, fn, runs: int = 50) -> dict:
             if us is None:
                 us = e.self_cuda_time_total
             if us:
-                out[e.key] = us / runs / 1e3
+                n = getattr(e, "count", 0) or runs
+                out[e.key] = us / n * max(1, round(n / runs)) / 1e3
         if out:
             break
     return out
@@ -3727,7 +3759,8 @@ def coarse_pair(torch, rows: int, seed: int, device):
 
 def hold_k4(torch, retrieval, cat, q, k: int, mode: str, fn=None) -> float:
     """K4 (``fn``: ``coarse_topk``, which takes the route ``k4_route``
-    picks, or ``_coarse_topk_stream``) against its plain version on the
+    picks, ``_coarse_topk_stream`` or ``_coarse_topk_pair``, the
+    two-launch baseline) against its plain version on the
     same catalog, scores and ids bit for bit (the same arithmetic in the
     same order, and a unique top k' under the composite order). Returns
     the max abs error of the finite scores (0 when bit-equal)."""
@@ -3739,30 +3772,45 @@ def hold_k4(torch, retrieval, cat, q, k: int, mode: str, fn=None) -> float:
     fin = np.isfinite(sp) & np.isfinite(sk)
     err = float(np.max(np.abs(sk[fin] - sp[fin]), initial=0.0))
     if not (same_bits(torch, s_k, s_p) and bool(torch.equal(i_k, i_p))):
-        route = "stream" if fn is not retrieval.coarse_topk else retrieval.k4_route(k)
+        route = {retrieval._coarse_topk_stream: "stream",
+                 retrieval._coarse_topk_pair: "pair"}.get(fn, retrieval.k4_route(k))
         raise AssertionError(f"K4 {route} route {mode} I={cat.num_rows} B={len(q)} k'={k}: "
                              f"not bit-equal to the plain version (max abs {err})")
     return err
 
 
-K4_WARP_SMEM_CASES = ((8, 8, 32, "bf16", 3), (8, 8, 32, "int8", 4), (1, 8, 32, "int8_dot", 4),
-                      (8, 8, 10, "bf16", 4), (8, 5, 128, "bf16", 2), (4, 3, 20, "int8", 3))
+K4_SMEM_CASES = (("warp", 8, 8, 32, "bf16", 3, 128, -1), ("warp", 8, 8, 32, "int8", 4, 32, -1),
+                  ("warp", 1, 8, 32, "int8_dot", 4, 128, 0), ("warp", 8, 8, 10, "bf16", 4, 64, 1),
+                  ("warp", 8, 5, 128, "bf16", 2, 128, 2), ("warp", 4, 3, 20, "int8", 3, 17, 0),
+                  ("stream", 8, 8, 32, "bf16", 2, 512, -1), ("stream", 1, 8, 32, "int8", 2, 8192, 0),
+                  ("stream", 4, 8, 10, "int8_dot", 3, 1024, 1), ("stream", 2, 4, 128, "bf16", 2, 2048, 2),
+                  ("stream", 8, 8, 32, "bf16", 3, 129, 0))
+K4_STREAM_KPRIMES = (129, 256, 512, 2048, 8192)  # the stream route's k' held at 1M
 
 
-@phase("k4: coarse shortlist vs plain, both routes")
+@phase("k4: coarse shortlist vs plain, both routes, and the fused two-stage call")
 def k4_vs_plain(torch, device, stats):
     """K4 against its plain version on the card at the JAX package's
     retrieval rungs (I = 1,000,000 and 10,000,000, D = 32; tiles of 2^18,
     the last one padded): every mode (``int8`` and ``int8_dot`` on the
     int8 pair, ``bf16`` on the dense table's copy), B in {1, 8, 64}, k' in
-    {32, 128} (the warp route) and {256, 1024} (the stream route) at 1M;
-    at 10M k' 32 and 128 at every B and 1024 at B = 8. Then crafted
-    catalogs on both routes: 50 distinct rows repeated (exact ties at
-    every k' boundary) with a NaN row (a NaN scale in the int8 pair);
-    k' >= I (I = 100 on the warp route, 200 on the stream route); k'
-    above K4_MAX_K refused. Every case bit for bit. Also: the C entries'
-    shared-memory sizes of both routes against Python's, and one launch a
-    warp-route call."""
+    {32, 128} (the warp route) and {129, 256, 512, 1024, 2048, 8192} (the
+    stream route) at 1M; at 10M k' 32 and 128 at every B and 512, 1024
+    and 8192 at B = 8. Then crafted catalogs on both routes and on the
+    pair (the two-launch baseline): 50 distinct rows repeated (exact ties
+    at every k' boundary) with a NaN row (a NaN scale in the int8 pair);
+    k' >= I (I = 100 on the warp route, 200 on the stream route); k' above
+    K4_MAX_K refused. Every case bit for bit. Also: the C entries'
+    shared-memory sizes of both routes (K4 alone and fused) against
+    Python's, and one launch a call on either route. Then the fused
+    two-stage call (``two_stage_top_k``, K5 as the epilogue of K4's
+    merge) at 1M: every mode x every item-table dtype (f32, bf16, int8
+    pair) x every query form, at (B, k', k) = (1, 32, 4), (8, 128, 16)
+    (the warp route), (8, 512, 64) and (64, 256, 32) (the stream route),
+    bit for bit against the composed plain versions and against K4 then
+    the standalone K5 on the card, one launch a call and no standalone
+    K5 launch; and on catalogs of 100 and 200 rows at k' past them (-1
+    shortlist slots)."""
     from predictionio_tpu_torch.ops import retrieval
 
     lib = retrieval._lib()
@@ -3770,48 +3818,56 @@ def k4_vs_plain(torch, device, stats):
         got, want = lib.pio_k4_tile_smem(rb, S, D), retrieval.k4_tile_smem(rb, S, D)
         if got != want:
             raise AssertionError(f"k4_tile_smem({rb}, {S}, {D}): C {got}, Python {want}")
-    for rb, nw, D, mode, st in K4_WARP_SMEM_CASES:
-        got = lib.pio_k4_warp_smem(rb, nw, D, retrieval._MODE_CODE[mode], st)
-        want = retrieval.k4_warp_smem(rb, nw, D, mode, st)
+    for route, rb, nw, D, mode, st, kp, vd in K4_SMEM_CASES:
+        got = lib.pio_k4_smem(retrieval._ROUTE_CODE[route], rb, nw, D, retrieval._MODE_CODE[mode],
+                              st, kp, vd)
+        want = retrieval.k4_smem(route, rb, nw, D, mode, st, kp, vd)
         if got != want:
-            raise AssertionError(f"k4_warp_smem({rb}, {nw}, {D}, {mode}, {st}): C {got}, "
-                                 f"Python {want}")
+            raise AssertionError(f"k4_smem({route}, {rb}, {nw}, {D}, {mode}, {st}, {kp}, {vd}): "
+                                 f"C {got}, Python {want}")
     gen = torch.Generator(device=device).manual_seed(SEED + 30)
     queries = torch.randn((max(K4_BATCHES), RET_D), generator=gen, device=device)
-    cases = {"warp": 0, "stream": 0}
+    cases = {"warp": 0, "stream": 0, "pair": 0}
     max_err = 0.0
 
     def held(cat, b, k, mode, fn=None):
         nonlocal max_err
         max_err = max(max_err, hold_k4(torch, retrieval, cat, queries[:b], k, mode, fn))
-        cases["stream" if fn is not None else retrieval.k4_route(k)] += 1
+        cases[{None: retrieval.k4_route(k), retrieval._coarse_topk_stream: "stream",
+               retrieval._coarse_topk_pair: "pair"}[fn]] += 1
 
+    fused = {"cases": 0, "launches": 0}
     for rows in RET_ROWS:
         f, pair = coarse_pair(torch, rows, SEED + 31, device)
         cats = {"int8": retrieval.CoarseCatalog(pair, device=device),
                 "bf16": retrieval.CoarseCatalog(f, device=device)}
-        del f, pair
         if cats["int8"].mode != "int8" or cats["bf16"].mode != "bf16":
             raise AssertionError("auto coarse modes: int8 pair -> int8, dense -> bf16")
         if rows % cats["int8"].tile == 0:
             raise AssertionError("the rung's tiles should not divide I")
-        grid = [(b, k) for b in K4_BATCHES for k in K4_KPRIMES] if rows == RET_ROWS[0] \
-            else [(b, k) for b in K4_BATCHES for k in K4_KPRIMES[:2]] + [(8, 1024)]
+        grid = [(b, k) for b in K4_BATCHES for k in (32, 128, 256, 1024)] \
+            + [(8, k) for k in K4_STREAM_KPRIMES] + [(1, 512), (64, 512), (64, 8192)] \
+            if rows == RET_ROWS[0] else \
+            [(b, k) for b in K4_BATCHES for k in (32, 128)] + [(8, 512), (8, 1024), (8, 8192)]
         for mode in retrieval.MODES:
             cat = cats["bf16" if mode == "bf16" else "int8"]
             for b, k in grid:
                 held(cat, b, k, mode)
-            # one launch a warp-route call, counted on its route
-            w0 = (retrieval.coarse_topk.kernel_launches.value,
-                  retrieval.coarse_topk.routes["warp"].value)
-            retrieval.coarse_topk(queries[:8], cat._tiles, cat._scales, rows, 128, mode)
-            torch.cuda.synchronize()
-            w1 = (retrieval.coarse_topk.kernel_launches.value,
-                  retrieval.coarse_topk.routes["warp"].value)
-            if (w1[0] - w0[0], w1[1] - w0[1]) != (1, 1):
-                raise AssertionError(f"K4 warp route {mode}: launches, calls {w0} -> {w1}")
+            # one launch a call on either route, counted on its route
+            for k in (128, 512):
+                route = retrieval.k4_route(k)
+                w0 = (retrieval.coarse_topk.kernel_launches.value,
+                      retrieval.coarse_topk.routes[route].value)
+                retrieval.coarse_topk(queries[:8], cat._tiles, cat._scales, rows, k, mode)
+                torch.cuda.synchronize()
+                w1 = (retrieval.coarse_topk.kernel_launches.value,
+                      retrieval.coarse_topk.routes[route].value)
+                if (w1[0] - w0[0], w1[1] - w0[1]) != (1, 1):
+                    raise AssertionError(f"K4 {route} route {mode}: launches, calls {w0} -> {w1}")
         log(f"K4 I={rows}: {len(grid) * 3} cases held")
-        del cats
+        if rows == RET_ROWS[0]:
+            fused = k45_fused_vs_plain(torch, retrieval, device, f, pair, cats, fused)
+        del f, pair, cats
         torch.cuda.empty_cache()
 
     rng = np.random.default_rng(SEED + 32)
@@ -3827,12 +3883,14 @@ def k4_vs_plain(torch, device, stats):
         fs = np.random.default_rng(SEED + 33).standard_normal((n, RET_D), dtype=np.float32)
         small[n] = {"int8": retrieval.CoarseCatalog(quantize_rows_host(torch, fs, device),
                                                     tile=tile, device=device),
-                    "bf16": retrieval.CoarseCatalog(fs, tile=tile, device=device)}
+                    "bf16": retrieval.CoarseCatalog(fs, tile=tile, device=device),
+                    "table": torch.from_numpy(fs).to(device)}
     for mode in retrieval.MODES:
         cat = tied["bf16" if mode == "bf16" else "int8"]
-        for b, k in ((1, 128), (8, 32), (64, 128), (8, 1024), (64, 256)):
+        for b, k in ((1, 128), (8, 32), (64, 128), (8, 1024), (64, 256), (8, 129), (8, 8192)):
             held(cat, b, k, mode)
             held(cat, b, k, mode, retrieval._coarse_topk_stream)
+            held(cat, b, k, mode, retrieval._coarse_topk_pair)
         for n, k in ((200, 256), (100, 128)):
             cat = small[n]["bf16" if mode == "bf16" else "int8"]
             s, ids = retrieval.coarse_topk(queries[:8], cat._tiles, cat._scales, n, k, mode)
@@ -3840,6 +3898,20 @@ def k4_vs_plain(torch, device, stats):
             n_pad = int((ids < 0).sum())
             if n_pad != 8 * (k - n) or bool((s[ids < 0] != -1e30).any()):
                 raise AssertionError(f"K4 {mode} k'={k} >= I={n}: {n_pad} pad slots")
+            # the fused call past the catalog: -1 slots in the shortlist
+            table = small[n]["table"]
+            cm = retrieval.CoarseCatalog(host(table), tile=cat.tile, mode=mode, device=device)
+            got = retrieval.two_stage_top_k(cm, queries[:8], k, k, "vectors", table,
+                                            vectors=queries[:8])
+            _, cand = retrieval.coarse_topk_reference(queries[:8], cm._tiles, cm._scales, n, k,
+                                                      mode)
+            ps, pi = retrieval.rescore_top_k_reference("vectors", table, cand, k,
+                                                       vectors=queries[:8])
+            if not (np.array_equal(got[0].view(np.int32), host(ps).view(np.int32))
+                    and np.array_equal(got[1], host(pi)) and (got[1][:, n:] == -1).all()):
+                raise AssertionError(f"two_stage_top_k {mode} k'={k} >= I={n}: not the plain "
+                                     "answer")
+            fused["cases"] += 1
     try:
         retrieval.coarse_topk(queries[:1], small[200]["bf16"]._tiles, None, 200,
                               retrieval.K4_MAX_K + 1, "bf16")
@@ -3849,8 +3921,84 @@ def k4_vs_plain(torch, device, stats):
     else:
         raise AssertionError(f"K4 took k' = {retrieval.K4_MAX_K + 1}")
     stats["k4_max_abs_err"] = max_err
+    stats["k45_max_abs_err"] = 0.0
+    stats["k45_cases"] = fused["cases"]
     log(json.dumps({"k4": {"cases": cases, "bit_equal": sum(cases.values()),
-                           "max_abs_err": max_err}}))
+                           "max_abs_err": max_err},
+                    "two_stage": {"cases": fused["cases"], "bit_equal": fused["cases"],
+                                  "launches_per_call": 1}}))
+
+
+K45_CASES = ((1, 32, 4), (8, 128, 16), (8, 512, 64), (64, 256, 32))  # (B, k', k)
+
+
+def k45_fused_vs_plain(torch, retrieval, device, f: np.ndarray, pair, cats: dict,
+                       fused: dict) -> dict:
+    """The fused two-stage call at one rung: every coarse mode x item-table
+    dtype x query form x K45_CASES, bit for bit against the composed
+    plain versions (coarse_topk_reference, then rescore_top_k_reference)
+    and against K4 then the standalone K5 on the card; each call one
+    launch on K4's counter, none on K5's, one K4 and one K5 call."""
+    rng = np.random.default_rng(SEED + 35)
+    rows = f.shape[0]
+    V = torch.from_numpy(f).to(device)
+    tables = {"float32": V, "bfloat16": V.to(torch.bfloat16), "int8": pair}
+    uf = torch.from_numpy(rng.standard_normal((U_ROWS, RET_D), dtype=np.float32)).to(device)
+    users = storage_forms(torch, host(uf), device)
+    B = max(b for b, _, _ in K45_CASES)
+    uixs = torch.from_numpy(rng.choice(U_ROWS, B, replace=False).astype(np.int32)).to(device)
+    vecs = torch.from_numpy(rng.standard_normal((B, RET_D), dtype=np.float32)).to(device)
+    row_ixs = torch.from_numpy(rng.integers(0, rows, (B, 4)).astype(np.int32)).to(device)
+    row_w = torch.ones((B, 4), device=device)
+    row_w[::3, 2:] = 0.0  # weight-0 padding, as the templates pad
+    coarse = {"int8": cats["int8"], "bf16": cats["bf16"],
+              "int8_dot": retrieval.CoarseCatalog(pair, mode="int8_dot", device=device)}
+    counters = (retrieval.coarse_topk.kernel_launches, retrieval.rescore_top_k.kernel_launches,
+                retrieval.coarse_topk.launches, retrieval.rescore_top_k.launches)
+    for mode, cat in coarse.items():
+        for vd, table in tables.items():
+            for form in retrieval.QUERY_FORMS:
+                U = users[vd]
+                for b, kp, k in K45_CASES:
+                    if form == "gather":
+                        args = dict(user_ixs=uixs[:b], user_factors=U)
+                        q = topk_dense_rows(torch, U, uixs[:b])
+                    elif form == "vectors":
+                        args = dict(vectors=vecs[:b])
+                        q = vecs[:b]
+                    else:
+                        args = dict(row_ixs=row_ixs[:b], row_weights=row_w[:b])
+                        q = (topk_dense_rows(torch, table, row_ixs[:b]) * row_w[:b, :, None]).sum(1)
+                    before = [c.value for c in counters]
+                    s, i = retrieval.two_stage_top_k(cat, q, kp, k, form, table, **args)
+                    moved = [c.value - v for c, v in zip(counters, before)]
+                    if moved != [1, 0, 1, 1]:
+                        raise AssertionError(f"two_stage_top_k {mode} {vd} {form} B={b} "
+                                             f"k'={kp}: K4/K5 launches, calls moved {moved}")
+                    _, cand = retrieval.coarse_topk_reference(q, cat._tiles, cat._scales, rows,
+                                                              kp, mode)
+                    ps, pi = retrieval.rescore_top_k_reference(form, table, cand, k, **args)
+                    _, c2 = retrieval.coarse_topk(q, cat._tiles, cat._scales, rows, kp, mode)
+                    s2, i2 = retrieval.rescore_top_k(form, table, c2, k, **args)
+                    for what, (ws, wi) in (("the composed plain versions", (ps, pi)),
+                                           ("K4 then the standalone K5", (s2, i2))):
+                        if not (np.array_equal(s.view(np.int32), host(ws).view(np.int32))
+                                and np.array_equal(i, host(wi))):
+                            bad = np.nonzero(i != host(wi))
+                            raise AssertionError(
+                                f"two_stage_top_k {mode} {vd} {form} B={b} k'={kp} k={k}: not "
+                                f"bit-equal to {what} (ids differ at {list(zip(*bad))[:4]})")
+                    fused["cases"] += 1
+                    fused["launches"] += moved[0]
+    log(f"two-stage fused at I={rows}: {fused['cases']} cases held, one launch each")
+    return fused
+
+
+def topk_dense_rows(torch, table, ixs):
+    """``table[ixs]`` as f32 (an int8 pair dequantized after the gather)."""
+    from predictionio_tpu_torch.ops import topk
+
+    return topk._dense_rows(table, ixs.long())
 
 
 def quantize_rows_host(torch, f: np.ndarray, device):
@@ -3957,16 +4105,18 @@ def check_warm_k4(m: dict, mode: str, what: str) -> None:
 
 
 def check_dispatch_counts(lv: dict, k2: int, what: str, route: str = "warp") -> None:
-    """Per two-stage dispatch: one K4 call, on ``route`` by the server's
-    ``pio_k4_route_calls`` (the warp route for k' <= 128, one launch; the
-    stream route above, two), and one K5 call of one launch; K2 (or K2s)
-    ``k2`` calls -- the live probe's."""
+    """Per two-stage dispatch: one fused call (``pio_two_stage_calls``),
+    one launch (``pio_k4_kernel_launches``: K5 runs as the epilogue of
+    K4's merge) on ``route`` (the warp route for k' <= 128, the stream
+    route above), counted as one K4 call (``pio_k4_calls``,
+    ``pio_k4_route_calls``) and one K5 call (``pio_k5_calls``), with no
+    standalone K5 launch; K2 (or K2s) ``k2`` calls -- the live probe's."""
     d = lv["dispatches"]
     k2_seen = lv.get("k2", lv.get("k2s"))
-    per_call = 1 if route == "warp" else 2
-    if not (lv["k4"] == lv["k5"] == d and lv[f"k4_{route}"] == d
-            and lv["k4_warp"] + lv["k4_stream"] == d and lv["k4_kernels"] == per_call * d
-            and lv["k5_kernels"] == d and k2_seen == k2 and lv.get("probes", k2) == k2):
+    if not (d > 0 and lv["k4"] == lv["k5"] == d and lv[f"k4_{route}"] == d
+            and lv["k4_warp"] + lv["k4_stream"] == d and lv[f"two_stage_{route}"] == d
+            and lv["two_stage_warp"] + lv["two_stage_stream"] == d and lv["k4_kernels"] == d
+            and lv["k5_kernels"] == 0 and k2_seen == k2 and lv.get("probes", k2) == k2):
         raise AssertionError(f"{what}: counts per dispatch {lv} ({d} dispatches)")
 
 
@@ -4073,7 +4223,9 @@ def k2cos_served(after: dict, before: dict) -> int:
     return int(sum(metric_delta(after, before, name) for name in K2COS_CALLS))
 
 K4_ROUTES = {"k4_warp": 'pio_k4_route_calls{route="warp"}',
-             "k4_stream": 'pio_k4_route_calls{route="stream"}'}
+             "k4_stream": 'pio_k4_route_calls{route="stream"}',
+             "two_stage_warp": 'pio_two_stage_calls{route="warp"}',
+             "two_stage_stream": 'pio_two_stage_calls{route="stream"}'}
 K5_CALLS = 'pio_k5_calls{query="%s"}'
 
 
@@ -4340,9 +4492,16 @@ def retrieval_serving(torch, device, stats):
     main = [out["recommendation"][d][f"c{c}"] for d in out["recommendation"] for c in RET_LEVELS]
     main += [out["similar"][f"c{c}"] for c in RET_LEVELS] + [out["similar"]["blacklist_solo"]]
     main += [out[t][f"c{c}"] for t in ("recommended_user", "ecommerce") for c in RET_LEVELS]
+    main += [out["ecommerce"]["seen_solo"]]
     stats["ret_launches"] = {
         name: sum(lv[name] for lv in main)
-        for name in ("k4", "k4_warp", "k4_stream", "k5", "k4_kernels", "k5_kernels")}
+        for name in ("k4", "k4_warp", "k4_stream", "k5", "k4_kernels", "k5_kernels",
+                     "two_stage_warp", "two_stage_stream", "dispatches")}
+    got = stats["ret_launches"]
+    if not (got["two_stage_warp"] > 0 and got["two_stage_stream"] > 0
+            and got["k4_kernels"] == got["dispatches"] == got["k4"] == got["k5"]
+            and got["k5_kernels"] == 0):
+        raise AssertionError(f"the main path's two-stage dispatches: {got}")
     stats["k2cos_launches"] = (stats.get("k2cos_launches", 0) + topk.top_k_similar.launches.value
                                + sum(lv["k2cos"] for lv in main))
     stats["retrieval"] = out
@@ -4374,51 +4533,91 @@ def k4_bound(mem_rate, fp32_rate, rows: int, B: int, kp: int, mode: str) -> dict
 
 
 def k4_route_times(torch, retrieval, cat, q, rows: int, kp: int, mode: str, bound: dict) -> dict:
-    """The warp route (``coarse_topk`` at k' <= 128) against the stream
-    route (``_coarse_topk_stream``) on the same inputs: their answers bit
-    for bit, then device ms per call in turns (stream, warp, warp,
-    stream), each beside the bound."""
-    def warp():
-        return retrieval.coarse_topk(q, cat._tiles, cat._scales, rows, kp, mode)
-
-    def stream():
-        return retrieval._coarse_topk_stream(q, cat._tiles, cat._scales, rows, kp, mode)
-
-    (sw, iw), (ss, i_s) = warp(), stream()
+    """K4's routes on the same inputs: the warp route (``coarse_topk``,
+    k' <= 128), the stream route (``_coarse_topk_stream``) and the pair it
+    replaced (``_coarse_topk_pair``, two launches): their answers bit for
+    bit, then device ms per call (``torch.profiler``) in turns (pair,
+    stream, warp, warp, stream, pair) and CUDA-event ms per call, each
+    beside the bound."""
+    fns = {"pair": retrieval._coarse_topk_pair, "stream": retrieval._coarse_topk_stream}
+    if kp <= retrieval.K4_WARP_MAX_K:
+        fns["warp"] = retrieval.coarse_topk
+    calls = {name: (lambda fn=fn: fn(q, cat._tiles, cat._scales, rows, kp, mode))
+             for name, fn in fns.items()}
+    outs = {name: call() for name, call in calls.items()}
     torch.cuda.synchronize()
-    if not (same_bits(torch, sw, ss) and bool(torch.equal(iw, i_s))):
-        raise AssertionError(f"K4 {mode} I={rows} B={len(q)} k'={kp}: routes differ")
-    t = {"stream": [], "warp": []}
-    for name in ("stream", "warp", "warp", "stream"):
-        t[name].append(_total(device_ms(torch, warp if name == "warp" else stream, runs=20)))
-    w, st = statistics.mean(t["warp"]), statistics.mean(t["stream"])
-    return {"warp_ms": w, "stream_ms": st, "warp_runs_ms": t["warp"], "stream_runs_ms": t["stream"],
-            "stream_over_warp": st / w, "warp_over_bound": w / bound["bound_ms"], **bound}
+    s0, i0 = outs["pair"]
+    for name, (sx, ix) in outs.items():
+        if not (same_bits(torch, sx, s0) and bool(torch.equal(ix, i0))):
+            raise AssertionError(f"K4 {mode} I={rows} B={len(q)} k'={kp}: {name} differs")
+    order = list(calls)
+    t = {name: [] for name in order}
+    for name in order + order[::-1]:
+        t[name].append(_total(device_ms(torch, calls[name], runs=20)))
+    out = {f"{name}_ms": statistics.mean(v) for name, v in t.items()}
+    out.update({f"{name}_event_ms": cuda_median_ms(torch, calls[name], runs=20, warmup=5)
+                for name in order})
+    out["pair_over_stream"] = out["pair_ms"] / out["stream_ms"]
+    if "warp" in out:
+        out["stream_over_warp"] = out["stream_ms"] / out["warp_ms"]
+        out["warp_over_bound"] = out["warp_ms"] / bound["bound_ms"]
+    out["stream_over_bound"] = out["stream_ms"] / bound["bound_ms"]
+    return {**out, **bound}
 
 
-@phase("retimes: K4's routes, K5 and exact K2 at 1M and 10M items")
+def two_stage_bytes(rows: int, B: int, kp: int, k: int, mode: str, v_elem: int) -> float:
+    """The fused call's bytes, each read or written once: the coarse
+    catalog, the queries, the [B, k'] shortlist's item rows (and int8
+    scales), the [B, k] answers."""
+    elem = 2 * RET_D if mode == "bf16" else RET_D + 4
+    return (rows * elem + B * RET_D * 4 + B * kp * (RET_D * v_elem + (4 if v_elem == 1 else 0))
+            + B * k * 8)
+
+
+def fused_bound(mem_rate, fp32_rate, rows: int, B: int, kp: int, k: int, mode: str,
+                v_elem: int) -> dict:
+    """The fused call's least time: its bytes (two_stage_bytes) against
+    the memory rate, and its operations -- K4's (k4_bound's rule) and
+    K5's 2 * B * k' * D products and sums as separate FP32 instructions
+    at half the FMA peak -- one after the other."""
+    nbytes = two_stage_bytes(rows, B, kp, k, mode, v_elem)
+    k4 = k4_bound(mem_rate, fp32_rate, rows, B, kp, mode)
+    t_b = nbytes / mem_rate
+    t_o = k4["ops_ms"] / 1e3 + 2.0 * B * kp * RET_D / (fp32_rate / 2)
+    return {"bytes": nbytes, "ops": k4["ops"] + 2.0 * B * kp * RET_D,
+            "bound_ms": max(t_b, t_o) * 1e3, "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+@phase("retimes: K4's routes, the fused two-stage call, K5 and exact K2 at 1M and 10M items")
 def retrieval_timings(torch, device, stats):
-    """At I = 1,000,000 and 10,000,000, D = 32: K4's warp route against
-    its stream route on the same inputs (every mode, B = 8 at k' = 32 and
-    128; at 1M also B = 1 and 64 at k' = 128), each beside its bound;
-    at B = 8, num = 10 (k = 16, k' = 128): device time per call
-    (``torch.profiler``) of K4 (the warp route) per mode and of K5, each
-    beside its plain version, its bound and a one-call PyTorch yardstick
-    (``torch.topk`` of the dense product, the int8 values cast to f32;
-    ``torch.topk(einsum)`` of the gathered rows for K5); and two-stage
-    (K4 + K5) beside the exact path on the same catalog and batch: K2's
-    tile route and ``torch.topk(u @ V.T)``, f32 and int8 tables. Per-call
-    times of whole paths are CUDA-event medians."""
+    """At I = 1,000,000 and 10,000,000, D = 32: K4's three routes on the
+    same inputs (the warp route at k' <= 128, the stream route and the
+    pair it replaced; every mode at B = 8, k' 32, 128 and 512, and B = 1
+    at k' 128 and 512; at 1M also B = 64 at 128), each beside its bound; K4
+    per mode at B = 8, k' = 128 (the warp route) and 512 (the stream
+    route), beside its plain version and ``torch.topk(q @ V.float().T
+    [* s], k')``; the standalone K5 at B = 8, k' = 128, k = 16; and the
+    serving call's paths on the same catalog at B in {1, 8}, (k', k) =
+    (128, 16) and (512, 64), f32 and int8 tables: the fused call
+    (``two_stage_top_k``, one launch, host answers), the two-wrapper path
+    it replaced (``CoarseCatalog.shortlist`` then
+    ``rescore_gather_top_k_batch``), K4 then K5 launched back to back
+    without a host step, exact K2 (``gather_top_k_batch``, host answers)
+    and ``torch.topk(q @ V.T, k)``; device time by ``torch.profiler``,
+    call time by CUDA events. Also the card's ``%globaltimer`` tick, the
+    resolution of the fused call's stage split."""
     from predictionio_tpu_torch.ops import retrieval, topk
 
     mem_rate, fp32_rate = peaks(stats["device_name"])
     B, k, kp = 8, 16, 128
     gen = torch.Generator(device=device).manual_seed(SEED + 50)
     U = torch.randn((U_ROWS, RET_D), generator=gen, device=device)
-    uixs = torch.arange(B, dtype=torch.int32, device=device) * 17
+    uixs64 = torch.arange(64, dtype=torch.int32, device=device) * 17
+    uixs = uixs64[:B]
     q = U[uixs.long()].contiguous()
-    q64 = U[torch.arange(64, device=device) * 17].contiguous()
-    out = {}
+    q64 = U[uixs64.long()].contiguous()
+    out = {"globaltimer_tick_ns": retrieval.globaltimer_tick(device)}
+    log(json.dumps({"retimes": "globaltimer", "tick_ns": out["globaltimer_tick_ns"]}))
     for rows in RET_ROWS:
         f, pair = coarse_pair(torch, rows, SEED + 51, device)
         V = torch.from_numpy(f).to(device)
@@ -4428,43 +4627,43 @@ def retrieval_timings(torch, device, stats):
         res = {"k4": {}, "k4_routes": {}, "k5": {}, "paths": {}}
         for mode in retrieval.MODES:
             cat = cats["bf16" if mode == "bf16" else "int8"]
-            cases = [(8, 32), (8, 128)] + ([(1, 128), (64, 128)] if rows == RET_ROWS[0] else [])
+            if mode == "int8_dot":
+                cat = retrieval.CoarseCatalog(pair, mode="int8_dot", device=device)
+            cases = [(8, 32), (8, 128), (8, 512), (1, 128), (1, 512)]
+            cases += [(64, 128)] if rows == RET_ROWS[0] else []
             for b, kk in cases:
                 res["k4_routes"][f"{mode} B={b} k'={kk}"] = k4_route_times(
                     torch, retrieval, cat, q64[:b], rows, kk, mode,
                     k4_bound(mem_rate, fp32_rate, rows, b, kk, mode))
             vals = cat._tiles.view(-1, RET_D)[:rows]
             sc = None if cat._scales is None else cat._scales.view(-1)[:rows]
+            for kk in (kp, 512):
+                def plain(cat=cat, mode=mode, kk=kk):
+                    return retrieval.coarse_topk_reference(q, cat._tiles, cat._scales, rows, kk,
+                                                           mode)
 
-            def call(cat=cat, mode=mode):
-                return retrieval.coarse_topk(q, cat._tiles, cat._scales, rows, kp, mode)
+                if mode == "bf16":
+                    def lib(vals=vals, kk=kk):
+                        return torch.topk(q @ vals.float().T, kk)
+                elif mode == "int8":
+                    def lib(vals=vals, sc=sc, kk=kk):
+                        return torch.topk((q @ vals.float().T) * sc, kk)
+                else:
+                    qi = retrieval.quantize_queries(q)
 
-            def plain(cat=cat, mode=mode):
-                return retrieval.coarse_topk_reference(q, cat._tiles, cat._scales, rows, kp, mode)
-
-            if mode == "bf16":
-                def lib(vals=vals):
-                    return torch.topk(q @ vals.float().T, kp)
-            elif mode == "int8":
-                def lib(vals=vals, sc=sc):
-                    return torch.topk((q @ vals.float().T) * sc, kp)
-            else:
-                qi = retrieval.quantize_queries(q)
-
-                def lib(vals=vals, sc=sc, qi=qi):
-                    return torch.topk((qi.float() @ vals.float().T) * sc, kp)
-            dev = device_ms(torch, call, runs=20)
-            lib_dev = device_ms(torch, lib, runs=5)
-            route = res["k4_routes"][f"{mode} B={B} k'={kp}"]
-            res["k4"][mode] = {
-                "kernel_device_ms": _total(dev),
-                "warp_kernel_device_ms": _total(dev, "coarse_warp"),
-                "stream_device_ms": route["stream_ms"],
-                "plain_ms": cuda_median_ms(torch, plain, runs=3, warmup=1),
-                "library_device_ms": _total(lib_dev),
-                "plan": retrieval.k4_plan(B, rows, RET_D, kp, retrieval._sm_count(device),
-                                          mode)._asdict(),
-                **k4_bound(mem_rate, fp32_rate, rows, B, kp, mode)}
+                    def lib(vals=vals, sc=sc, qi=qi, kk=kk):
+                        return torch.topk((qi.float() @ vals.float().T) * sc, kk)
+                route = res["k4_routes"][f"{mode} B={B} k'={kk}"]
+                res["k4"][f"{mode} k'={kk}"] = {
+                    "route": retrieval.k4_route(kk),
+                    "kernel_device_ms": route["warp_ms" if kk <= 128 else "stream_ms"],
+                    "stream_device_ms": route["stream_ms"],
+                    "pair_device_ms": route["pair_ms"],
+                    "plain_ms": cuda_median_ms(torch, plain, runs=3, warmup=1),
+                    "library_device_ms": _total(device_ms(torch, lib, runs=5)),
+                    "plan": retrieval.k4_plan(B, rows, RET_D, kk, retrieval._sm_count(device),
+                                              mode)._asdict(),
+                    **k4_bound(mem_rate, fp32_rate, rows, B, kk, mode)}
         _, cand = retrieval.coarse_topk(q, cats["bf16"]._tiles, None, rows, kp, "bf16")
         for name, table in (("float32", V), ("int8", pair)):
 
@@ -4490,30 +4689,75 @@ def retrieval_timings(torch, device, stats):
                                   B * kp * (elem + 4) + B * RET_D * 4 + B * k * 8,
                                   2.0 * B * kp * RET_D)}
             cat = cats["bf16" if name == "float32" else "int8"]
-
-            def two_stage(cat=cat, table=table):
-                _, c = retrieval.coarse_topk(q, cat._tiles, cat._scales, rows, kp, cat.mode)
-                return retrieval.rescore_top_k("gather", table, c, k, user_ixs=uixs,
-                                               user_factors=U)
-
-            def exact(table=table):
-                return topk.gather_top_k_batch(uixs, U, table, k)
-
-            def exact_lib(table=table):
-                return torch.topk(q @ topk._dense_rows(table, torch.arange(
-                    rows, device=device)).T, k) if name == "int8" else torch.topk(q @ table.T, k)
-            res["paths"][name] = {
-                "two_stage_ms": cuda_median_ms(torch, two_stage, runs=20, warmup=5),
-                "two_stage_device_ms": _total(device_ms(torch, two_stage, runs=20)),
-                "exact_k2_ms": cuda_median_ms(torch, exact, runs=20, warmup=5),
-                "exact_k2_device_ms": _total(device_ms(torch, exact, runs=20)),
-                "exact_k2_route": topk.k2_route(k, rows, B)._asdict(),
-                "exact_library_device_ms": _total(device_ms(torch, exact_lib, runs=5))}
+            for b, kpp, kk in ((8, 128, 16), (1, 128, 16), (8, 512, 64), (1, 512, 64)):
+                qb, ub = q64[:b], uixs64[:b]
+                res["paths"][f"{name} B={b} k'={kpp}"] = path_times(
+                    torch, retrieval, topk, cat, qb, ub, U, table, rows, kpp, kk, name,
+                    mem_rate, fp32_rate)
         out[str(rows)] = res
         log(json.dumps({"retimes": rows, **res}))
         del V, pair, cats, cand
         torch.cuda.empty_cache()
     stats["retimes"] = out
+
+
+def path_times(torch, retrieval, topk, cat, q, uixs, U, table, rows: int, kp: int, k: int,
+               name: str, mem_rate, fp32_rate) -> dict:
+    """One serving call's paths on the same inputs, answers held equal:
+    the fused call, the two-wrapper path it replaced, K4 then K5 back to
+    back (device only), exact K2 and its one-call yardstick; device ms
+    (``torch.profiler``: kernels and copies) and CUDA-event ms per call;
+    the fused call's bound and plain version (K4's then K5's plain
+    versions)."""
+    def fused():
+        return retrieval.two_stage_top_k(cat, q, kp, k, "gather", table, user_ixs=uixs,
+                                         user_factors=U)
+
+    def old():
+        _, c = cat.shortlist(q, kp)
+        return retrieval.rescore_gather_top_k_batch(uixs, U, table, c, k)
+
+    def k4_k5():
+        _, c = retrieval.coarse_topk(q, cat._tiles, cat._scales, rows, kp, cat.mode)
+        return retrieval.rescore_top_k("gather", table, c, k, user_ixs=uixs, user_factors=U)
+
+    def plain():
+        _, c = retrieval.coarse_topk_reference(q, cat._tiles, cat._scales, rows, kp, cat.mode)
+        return retrieval.rescore_top_k_reference("gather", table, c, k, user_ixs=uixs,
+                                                 user_factors=U)
+
+    def exact():
+        s, i = topk.gather_top_k_batch(uixs, U, table, k)
+        return s.cpu().numpy(), i.cpu().numpy()
+
+    def exact_lib():
+        return torch.topk(q @ topk._dense_rows(table, torch.arange(rows, device=q.device)).T, k) \
+            if name == "int8" else torch.topk(q @ table.T, k)
+
+    (fs, fi), (os_, oi) = fused(), old()
+    if not (np.array_equal(fs.view(np.int32), os_.view(np.int32)) and np.array_equal(fi, oi)):
+        raise AssertionError(f"fused vs two-wrapper path {name} I={rows} B={len(q)} k'={kp}")
+    retrieval.take_stage_split()
+    fused()
+    split = retrieval.take_stage_split()
+    t = {"fused": [], "old": []}
+    for which in ("old", "fused", "fused", "old"):
+        t[which].append(cuda_median_ms(torch, fused if which == "fused" else old, runs=20,
+                                       warmup=5))
+    bound = fused_bound(mem_rate, fp32_rate, rows, len(q), kp, k, cat.mode,
+                        4 if name == "float32" else 1)
+    return {"fused_ms": statistics.mean(t["fused"]), "old_ms": statistics.mean(t["old"]),
+            "fused_runs_ms": t["fused"], "old_runs_ms": t["old"],
+            "fused_device_ms": _total(device_ms(torch, fused, runs=20)),
+            "fused_kernel_device_ms": _total(device_ms(torch, fused, runs=20), "coarse_"),
+            "old_device_ms": _total(device_ms(torch, old, runs=20)),
+            "k4_k5_ms": cuda_median_ms(torch, k4_k5, runs=20, warmup=5),
+            "k4_k5_device_ms": _total(device_ms(torch, k4_k5, runs=20)),
+            "exact_k2_ms": cuda_median_ms(torch, exact, runs=20, warmup=5),
+            "exact_k2_device_ms": _total(device_ms(torch, exact, runs=20)),
+            "exact_library_device_ms": _total(device_ms(torch, exact_lib, runs=5)),
+            "plain_ms": cuda_median_ms(torch, plain, runs=3, warmup=1),
+            "route": retrieval.k4_route(kp), "stage_split_s": split, **bound}
 
 
 # -- the other ALS templates' slice: K6, K2's cosine mode, three templates ---------
@@ -5532,6 +5776,7 @@ def ru_retrieval(torch, device, storage, basedir, stats, servers) -> dict:
     servers.append(server)
     ready_s = time.perf_counter() - t0
     check_warm_k4(server.metrics(), "bf16", "recommended-user")
+    spans = check_traced(server, queries[0], "c0ffee00000000a1")
     levels = {}
     for c in RET_LEVELS:
         levels[c] = lv = retrieval_round(server, queries, c, key, kernels)
@@ -5544,16 +5789,67 @@ def ru_retrieval(torch, device, storage, basedir, stats, servers) -> dict:
     held = hold_cosine_two_stage(model.followed_index, queries, expected, levels[1]["answers"],
                                  key, "users", "recommended-user 1M")
     server.stop()
-    out = {"ready_s": ready_s, **held,
+    out = {"ready_s": ready_s, **held, "trace_spans": spans,
            **{f"c{c}": {k: v for k, v in lv.items() if k != "answers"} for c, lv in levels.items()}}
     log(json.dumps({"retrieval": "recommended-user f32", **out}))
     return out
 
 
+EC_SEEN_USERS = 50  # e-commerce users with seen items, served alone
+EC_SEEN = 20  # their seen items: their exact top 20, so k = 32 and k' = 256
+
+
+def ec_seen_events(torch, topk, model, device, V, storage, app_id: int, users: list) -> dict:
+    """``view`` events of each user's exact top EC_SEEN items into the
+    app (before the server starts): {user: seen item ids}."""
+    from datetime import datetime, timezone
+
+    from predictionio_tpu_torch.data.event import Event
+
+    events = storage.get_events()
+    events.init(app_id)
+    uixs = np.asarray([model.user_index[u] for u in users])
+    q = torch.from_numpy(model.user_rows(uixs)).to(device)
+    _, top = topk.top_k_items_batch(q, V, EC_SEEN)
+    seen = {u: [int(x) for x in row] for u, row in zip(users, host(top))}
+    t0 = datetime(2024, 1, 1, tzinfo=timezone.utc)
+    for u, items in seen.items():
+        for j in items:
+            events.insert(Event(event="view", entity_type="user", entity_id=u,
+                                target_entity_type="item", target_entity_id=f"i{j}",
+                                event_time=t0), app_id)
+    return seen
+
+
+def ec_seen_expected(torch, retrieval, topk, model, device, V, cat, seen: dict) -> list:
+    """What the e-commerce server must answer users with seen items: k =
+    pow2(num + |seen|), the plain two-stage top k without the seen items,
+    its first num; and exact K2 with the seen items masked."""
+    out = []
+    for u, items in seen.items():
+        q = torch.from_numpy(model.user_rows(np.asarray([model.user_index[u]]))).to(device)
+        k = 1 << (RET_NUM + len(items) - 1).bit_length()
+        kp = retrieval.shortlist_k(k, RET_ITEMS)
+        _, cand = retrieval.coarse_topk_reference(q, cat._tiles, cat._scales, RET_ITEMS, kp,
+                                                  cat.mode)
+        ps, pi = retrieval.rescore_top_k_reference("vectors", V, cand, k, vectors=q)
+        keep = [(int(i), float(x)) for x, i in zip(host(ps)[0], host(pi)[0])
+                if i >= 0 and int(i) not in set(items)][:RET_NUM]
+        mask = torch.zeros(RET_ITEMS, dtype=torch.bool, device=device)
+        mask[torch.tensor(items, device=device)] = True
+        es, ei = topk.top_k_items_batch(q, V, 16, exclude_mask=mask)
+        out.append((np.asarray([i for i, _ in keep]), np.asarray([x for _, x in keep], np.float32),
+                    host(ei)[0, :RET_NUM], host(es)[0, :RET_NUM]))
+    return out
+
+
 def ec_retrieval(torch, device, storage, basedir, stats, servers) -> dict:
     """The e-commerce template at U = 138,493, I = 1,000,000, rank 32, f32
-    (its app in the store, no events: unseen-only filters read and cached
-    empty): 500 distinct users at num = 10, at concurrency 1 and 8."""
+    (its app in the store): 500 distinct users without events (unseen-only
+    filters read and cached empty) at num = 10, at concurrency 1 and 8 --
+    k = 16, k' = 128, the warp route; then, alone, 50 users whose exact
+    top 20 are seen (``view`` events written before the deploy): k = 32,
+    k' = 256, the stream route, the seen items never returned."""
     from predictionio_tpu_torch.core.workflow import save_instance
     from predictionio_tpu_torch.data import storage as st
     from predictionio_tpu_torch.data.bimap import BiMap
@@ -5566,14 +5862,18 @@ def ec_retrieval(torch, device, storage, basedir, stats, servers) -> dict:
     model = ec.ECommModel(user_index=BiMap.from_dense([f"u{j}" for j in range(U_ROWS)]),
                           item_index=BiMap.from_dense([f"i{j}" for j in range(RET_ITEMS)]),
                           user_factors=uf, item_factors=vf, categories={})
-    storage.get_metadata_apps().insert(st.App(0, "EC1M"))
+    app_id = storage.get_metadata_apps().insert(st.App(0, "EC1M"))
     engine = ec.engine()
     ep = engine.params_from_variant({"algorithms": [{"name": "als", "params": {
         "appName": "EC1M", "rank": RET_D}}]})
     iid = save_instance(engine, ep, [model], engine_id="chip-smoke-ret-ec",
                         engine_variant="ret", engine_factory=EC_FACTORY, storage=storage)
-    users = [f"u{int(j)}" for j in rng.permutation(U_ROWS)[:RET_USERS]]
+    perm = rng.permutation(U_ROWS)
+    users = [f"u{int(j)}" for j in perm[:RET_USERS]]
     queries = [{"user": u, "num": RET_NUM} for u in users]
+    V = torch.from_numpy(vf).to(device)
+    seen = ec_seen_events(torch, topk, model, device, V, storage, app_id,
+                          [f"u{int(j)}" for j in perm[RET_USERS:RET_USERS + EC_SEEN_USERS]])
     kernels = {"k4": K4_CALLS % "bf16", "k5": K5_CALLS % "vectors", **K4_ROUTES,
                "k4_kernels": "pio_k4_kernel_launches", "k5_kernels": "pio_k5_kernel_launches",
                "k2": 'pio_k2_calls{kernel="gather_top_k_batch",route="tile"}'}
@@ -5583,13 +5883,21 @@ def ec_retrieval(torch, device, storage, basedir, stats, servers) -> dict:
     servers.append(server)
     ready_s = time.perf_counter() - t0
     check_warm_k4(server.metrics(), "bf16", "e-commerce")
+    spans = check_traced(server, queries[0], "c0ffee00000000e1")
     levels = {}
     for c in RET_LEVELS:
         levels[c] = lv = retrieval_round(server, queries, c, lambda q: q["user"], kernels)
         check_dispatch_counts(lv, 0, f"e-commerce c={c}")
     if levels[1]["answers"] != levels[8]["answers"]:
         raise AssertionError("e-commerce: batched answers differ from solo ones")
-    V = torch.from_numpy(vf).to(device)
+    seen_queries = [{"user": u, "num": RET_NUM} for u in seen]
+    solo = retrieval_round(server, seen_queries, 1, lambda q: q["user"], kernels)
+    # k = pow2(10 + 20 seen) = 32, k' = 256: the stream route, one launch
+    check_dispatch_counts(solo, 0, "e-commerce seen items", route="stream")
+    for q in seen_queries:
+        got = {x["item"] for x in json.loads(solo["answers"][q["user"]])["itemScores"]}
+        if got & {f"i{j}" for j in seen[q["user"]]}:
+            raise AssertionError(f"e-commerce {q}: a seen item came back")
     cat = retrieval.CoarseCatalog(V, device=device)
     k = 1 << (RET_NUM - 1).bit_length()
     kp = retrieval.shortlist_k(k, RET_ITEMS)
@@ -5606,9 +5914,14 @@ def ec_retrieval(torch, device, storage, basedir, stats, servers) -> dict:
                         host(ei)[b, :RET_NUM], host(es)[b, :RET_NUM]))
     held = hold_cosine_two_stage(model.item_index, queries, exp, levels[1]["answers"],
                                  lambda q: q["user"], "items", "e-commerce 1M")
+    held_seen = hold_cosine_two_stage(
+        model.item_index, seen_queries,
+        ec_seen_expected(torch, retrieval, topk, model, device, V, cat, seen), solo["answers"],
+        lambda q: q["user"], "items", "e-commerce 1M seen items")
     server.stop()
-    out = {"ready_s": ready_s, **held,
-           **{f"c{c}": {k: v for k, v in lv.items() if k != "answers"} for c, lv in levels.items()}}
+    out = {"ready_s": ready_s, **held, "seen": held_seen, "trace_spans": spans,
+           **{f"c{c}": {k: v for k, v in lv.items() if k != "answers"} for c, lv in levels.items()},
+           "seen_solo": {k: v for k, v in solo.items() if k != "answers"}}
     log(json.dumps({"retrieval": "e-commerce f32", **out}))
     return out
 
@@ -5698,39 +6011,50 @@ def k2cos_summary(stats) -> dict:
 
 
 def k4_summary(stats) -> list:
-    """K4's lines, one a route: I = 1,000,000, D = 32, B = 8, k' = 128,
-    bf16 (the coarse mode of the f32 recommendation model the retrieval
-    phase serves), the two routes on the same inputs, so each has the
-    same plain version, yardstick and bound; launches: the K4 calls on
-    each route of the retrieval phase's query rounds, from the servers'
-    /metrics (the stream route serves its blackList queries, k' = 512)."""
-    t = stats["retimes"][str(RET_ITEMS)]["k4"]
-    b = t["bf16"]
-    common = {
-        "route": "cuda",
-        "source": "predictionio_tpu_torch/csrc/retrieval.cu",
-        "replaces": "predictionio_tpu/ops/retrieval.py:212",
-        "max_abs_err": stats["k4_max_abs_err"],
-        "plain_ms": b["plain_ms"],
-        "bound_ms": b["bound_ms"],
-        "bound_by": b["bound_by"],
-        "library_ms": b["library_device_ms"],
-    }
-    return [
-        {"name": "coarse_topk", "k4_route": "warp", **common,
-         "launches": stats["ret_launches"]["k4_warp"], "ms": b["kernel_device_ms"],
-         "kernel_launches": stats["ret_launches"]["k4_kernels"],
-         "by_mode_ms": {m: r["kernel_device_ms"] for m, r in t.items()}},
-        {"name": "coarse_topk_stream", "k4_route": "stream", **common,
-         "launches": stats["ret_launches"]["k4_stream"], "ms": b["stream_device_ms"],
-         "by_mode_ms": {m: r["stream_device_ms"] for m, r in t.items()}},
-    ]
+    """K4's lines and the fused call's, one a route, at I = 1,000,000, D =
+    32, B = 8, bf16 coarse (the f32 recommendation model's): the warp
+    route at k' = 128 (every num = 10 dispatch), the stream route at k' =
+    512 (the blackList queries; the pair it replaced on the same inputs
+    beside it), each with its own plain version, bound and
+    ``torch.topk(q @ V.float().T, k')``; the fused two-stage call at (k',
+    k) = (128, 16) and (512, 64) on the f32 table (kernel device time;
+    its plain version K4's then K5's; no one PyTorch call computes it).
+    Launches: the retrieval phase's query rounds, from the servers'
+    /metrics -- every dispatch one fused call, counted as one K4 call on
+    its route."""
+    t = stats["retimes"][str(RET_ITEMS)]
+    launches = stats["ret_launches"]
+    common = {"route": "cuda", "source": "predictionio_tpu_torch/csrc/retrieval.cu",
+              "max_abs_err": stats["k4_max_abs_err"]}
+    rows = []
+    for name, route, kp in (("coarse_topk", "warp", 128), ("coarse_topk_stream", "stream", 512)):
+        r = t["k4"][f"bf16 k'={kp}"]
+        rows.append({"name": name, "k4_route": route, **common,
+                     "replaces": "predictionio_tpu/ops/retrieval.py:212",
+                     "launches": launches[f"k4_{route}"], "ms": r["kernel_device_ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": r["library_device_ms"],
+                     "k_prime": kp, "pair_ms": r["pair_device_ms"],
+                     "by_mode_ms": {m: t["k4"][f"{m} k'={kp}"]["kernel_device_ms"]
+                                    for m in ("int8", "int8_dot", "bf16")}})
+    rows[0]["kernel_launches"] = launches["k4_kernels"]
+    for route, kp, k in (("warp", 128, 16), ("stream", 512, 64)):
+        r = t["paths"][f"float32 B=8 k'={kp}"]
+        rows.append({"name": "two_stage_top_k", "k4_route": route, **common,
+                     "max_abs_err": stats["k45_max_abs_err"],
+                     "replaces": "predictionio_tpu/ops/retrieval.py:212 + :375",
+                     "launches": launches[f"two_stage_{route}"], "ms": r["fused_kernel_device_ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": None, "k_prime": kp, "k": k,
+                     "call_ms": r["fused_ms"], "old_call_ms": r["old_ms"]})
+    return rows
 
 
 def k5_summary(stats) -> dict:
-    """K5's line: B = 8, S = k' = 128, k = 16, D = 32, user rows of an
-    f32 table (the f32 recommendation model's call); launches: the K5
-    calls of the retrieval phase's query rounds."""
+    """K5's line: the standalone kernel at B = 8, S = k' = 128, k = 16, D =
+    32, user rows of an f32 table. Launches: the K5 calls of the retrieval
+    phase's query rounds, every one fused into K4's launch
+    (``kernel_launches``: the standalone kernel's launches there, 0)."""
     t = stats["retimes"][str(RET_ITEMS)]["k5"]["float32"]
     return {
         "name": "rescore_top_k",

@@ -610,9 +610,11 @@ class ECommAlgorithm(Algorithm):
             kp = retrieval.shortlist_k(k, n_items) if retrieval.engaged(n_items) else 0
             if kp and k <= kp < n_items:
                 # two-stage: coarse shortlist over the weighted catalog,
-                # exact rescore of the [B, S] candidates (ops/retrieval.py)
-                _, cand = self._coarse_catalog(model, device).shortlist(batch, kp)
-                scores, ids = retrieval.rescore_top_k_batch(batch, V, cand, k)
+                # exact rescore of the [B, S] candidates, one launch on the
+                # card (ops/retrieval.py)
+                scores, ids = retrieval.two_stage_top_k(
+                    self._coarse_catalog(model, device), batch, kp, k, "vectors", V,
+                    vectors=batch)
                 if retrieval.probe_due():
                     _, exact_ids = top_k_items_batch(batch[:1], V, k=k)
                     retrieval.probe_recall(ids[0], exact_ids.cpu().numpy()[0])

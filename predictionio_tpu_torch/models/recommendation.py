@@ -519,7 +519,8 @@ class ALSAlgorithm(Algorithm):
         Catalogs with at least ``PIO_RETRIEVAL_THRESHOLD`` rows route
         through two-stage retrieval (``ops/retrieval.py``): the coarse
         shortlist of k' candidates (K4), then the exact rescore of the
-        ``[B, k']`` shortlist (K5), every ``PIO_RETRIEVAL_PROBE_EVERY``-th
+        ``[B, k']`` shortlist (K5), one ``two_stage_top_k`` call (one
+        launch on the card), every ``PIO_RETRIEVAL_PROBE_EVERY``-th
         dispatch probing one query's recall against K2. Below the
         threshold nothing changes, bit for bit."""
         if self.params.sharded_serving:
@@ -548,8 +549,9 @@ class ALSAlgorithm(Algorithm):
         device = resolve_device(self.device)
         U, V = model.device_factors(device)
         if two_stage:
-            _, cand = model.coarse_catalog(device).shortlist(model.user_rows(uixs), kp)
-            scores, ids = retrieval.rescore_gather_top_k_batch(uixs, U, V, cand, k)
+            scores, ids = retrieval.two_stage_top_k(
+                model.coarse_catalog(device), model.user_rows(uixs), kp, k, "gather", V,
+                user_ixs=uixs, user_factors=U)
             if retrieval.probe_due():
                 # live recall probe: the dispatch's first query scored exactly
                 _, exact_ids = gather_top_k_batch(uixs[:1], U, V, k)

@@ -295,12 +295,13 @@ def _score_users_batch(
         V = model.device_factors(device)
         if kp and k <= kp < num_rows:
             # two-stage: coarse shortlist, exact rescore of [B, S]
-            # candidates (see models/similarproduct.py)
+            # candidates, one launch on the card (ops/retrieval.py)
             qv = normalized_query_vectors(
                 model.followed_factors, model.followed_scales, ixs, weights
             )
-            _, cand = model.coarse_catalog(device).shortlist(qv, kp)
-            scores, ids = retrieval.rescore_sum_rows_top_k_batch(ixs, weights, V, cand, k)
+            scores, ids = retrieval.two_stage_top_k(
+                model.coarse_catalog(device), qv, kp, k, "sum_rows", V, row_ixs=ixs,
+                row_weights=weights)
             if retrieval.probe_due():
                 _, exact_ids = sum_rows_top_k_batch(ixs[:1], weights[:1], V, k=k)
                 retrieval.probe_recall(ids[0], exact_ids.cpu().numpy()[0])

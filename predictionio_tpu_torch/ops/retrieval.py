@@ -37,13 +37,21 @@ On a CUDA tensor each kernel wrapper launches its kernel or raises; on a
 CPU tensor it runs the plain PyTorch version beside it
 (:func:`coarse_topk_reference`, :func:`rescore_top_k_reference`). K4
 takes ``k'`` up to :data:`K4_MAX_K` on the card and raises above it, by
-one of two routes (:func:`k4_route`): the warp route for ``k'`` up to
-:data:`K4_WARP_MAX_K` (one launch), the stream route above (two).
+one of two routes (:func:`k4_route`), each one launch: the warp route
+for ``k'`` up to :data:`K4_WARP_MAX_K` (lists in registers), the stream
+route above (lists in shared memory). The serving path calls
+:func:`two_stage_top_k`: the shortlist and its rescore in ONE launch on
+the card (K5 is the epilogue of K4's merge), with no host step between
+the stages; the standalone K5 (:func:`rescore_top_k`) and the three
+``rescore_*_top_k_batch`` forms mirror the JAX package's functions.
 ``coarse_topk.launches`` / ``rescore_top_k.launches`` count calls on the
 card (``modes`` / ``queries`` by form, ``coarse_topk.routes`` by route,
-``kernel_launches`` the kernels, as the C entries count them);
-``/metrics`` reads them as ``pio_k4_calls{mode}``,
-``pio_k4_route_calls{route}`` and ``pio_k5_calls{query}``.
+``kernel_launches`` the kernels, as the C entries count them); a fused
+call counts one K4 call and one K5 call, and its one launch on K4's
+``kernel_launches``. ``/metrics`` reads them as ``pio_k4_calls{mode}``,
+``pio_k4_route_calls{route}``, ``pio_k5_calls{query}``,
+``pio_k4_kernel_launches`` and ``pio_k5_kernel_launches`` (standalone K5
+launches only).
 
 Observability, as the JAX package's: the ``pio_retrieval_*`` metrics, and
 a thread-local per-dispatch stage split that the engine server turns
@@ -53,6 +61,7 @@ into ``dispatch.shortlist`` / ``dispatch.rescore`` trace spans.
 from __future__ import annotations
 
 import ctypes
+import functools
 import itertools
 import os
 import threading
@@ -219,19 +228,21 @@ def _sync(device: torch.device) -> None:
 MODES = ("int8", "int8_dot", "bf16")
 _MODE_CODE = {"int8": 0, "int8_dot": 1, "bf16": 2}
 ROUTES = ("warp", "stream")
+_ROUTE_CODE = {"warp": 0, "stream": 1}
 #: csrc/retrieval.cu MAX_K: the largest k' K4 (and shortlist S K5) takes
 K4_MAX_K = 8192
 #: csrc/retrieval.cu WARP_MAX_K: k' up to this takes the warp route
 K4_WARP_MAX_K = 128
-K4_TILE_THREADS = 256  # TILE_THREADS: rows a stream-route block scores a round
-K4_MERGE_THREADS = 1024  # MERGE_THREADS
-K4_WARP_THREADS = 256  # WARP_THREADS: a warp-route block, at most 8 warps
+K4_TILE_THREADS = 256  # TILE_THREADS: rows a block of the pair's tile launch scores a round
+K4_MERGE_THREADS = 1024  # MERGE_THREADS: the pair's merge block
+K4_WARP_THREADS = 256  # WARP_THREADS: a warp- or stream-route block, at most 8 warps
 K4_ROUND_ROWS = 64  # ROUND_ROWS: rows a warp stages and scores a round
 K4_QUEUE = 128  # QUEUE: a warp's queue of admitted composites, per query
 K4_MERGE_MAX_COLS = 8  # MERGE_MAX_COLS: list columns a merge batch stages
 K4_MAX_STAGES = 4  # MAX_STAGES: a warp's ring, at most (rounds staged ahead + 1)
+K4_RADIX = 256  # RADIX: bins of the stream route's exact cut (8 bits a pass)
 K4_SMEM_CAP = 232_448  # shared memory a block may take on an H100 (227 KB)
-K4_MIN_ROWS = 4096  # catalog rows a stream-route block streams, at least
+K4_MIN_ROWS = 4096  # catalog rows a block of the pair's tile launch streams, at least
 K4_WARP_ROWS_PER_K = 4  # catalog rows a warp streams, at least, per unit of K
 K4_WS_BYTES = 1 << 28  # [B, nblk, K] workspace, at most (unless nblk = 1)
 _SM_COUNT: dict[int, int] = {}
@@ -295,24 +306,24 @@ def coarse_topk_reference(queries: torch.Tensor, tiles: torch.Tensor, scales,
 class K4Plan(NamedTuple):
     """How K4 runs a call on the card (:func:`k4_plan`)."""
 
-    route: str  # "warp" or "stream" (:func:`k4_route`)
+    route: str  # "warp", "stream" or "pair" (:func:`k4_route`; "pair": the old stream route)
     rb: int  # query rows a block serves: 8, 4, 2 or 1
     W: int  # catalog rows a block owns
     nblk: int  # blocks a query group: ceil(num_rows / W)
     K: int  # the power of two >= k'
-    S: int  # stream: a query's buffer entries in a tile block; warp: 0
-    S2: int  # stream: the buffer entries of a merge block; warp: 0
-    nw: int  # warp: warps a block; stream: 0
-    stages: int  # warp: a warp's ring of stages (stages - 1 rounds in flight); stream: 0
-    mcols: int  # warp: list columns the merge stages a batch; stream: 0
+    S: int  # stream: a query's buffer entries; pair: a tile block's; warp: 0
+    S2: int  # pair: the buffer entries of a merge block; else 0
+    nw: int  # warps a block (warp, stream); pair: 0
+    stages: int  # a warp's ring of stages (stages - 1 rounds in flight); pair: 0
+    mcols: int  # list columns the merge stages a batch; pair: 0
     smem: int  # dynamic shared memory of the route's main block, bytes
 
 
 def k4_route(k: int) -> str:
     """K4's route on the card for ``k`` winners: ``"warp"`` for ``k <=``
     :data:`K4_WARP_MAX_K` (every serving call at ``num`` <= 16: each warp
-    keeps its running best in registers, one launch), ``"stream"`` above
-    (shared-memory buffers, two launches). Raises above
+    keeps its running best in registers), ``"stream"`` above (the block's
+    lists in shared memory); one launch either way. Raises above
     :data:`K4_MAX_K`."""
     if not 1 <= k <= K4_MAX_K:
         raise ValueError(
@@ -323,10 +334,10 @@ def k4_route(k: int) -> str:
 
 
 def k4_tile_smem(rb: int, S: int, D: int) -> int:
-    """Shared-memory bytes of a stream-route block (``csrc/retrieval.cu``
-    ``pio_k4_tile_smem``): the buffers, thresholds, counts and per-warp
-    counts of ``rb`` query rows, then the queries in f32 and in int8,
-    ``D`` padded to 16."""
+    """Shared-memory bytes of a block of the pair's tile launch
+    (``csrc/retrieval.cu`` ``pio_k4_tile_smem``): the buffers, thresholds,
+    counts and per-warp counts of ``rb`` query rows, then the queries in
+    f32 and in int8, ``D`` padded to 16."""
     stream = (rb * S + rb) * 8 + rb * 4 + rb * (K4_TILE_THREADS // 32 + 1) * 4
     dp = -(-D // 16) * 16
     return -(-stream // 16) * 16 + rb * dp * 5
@@ -334,6 +345,9 @@ def k4_tile_smem(rb: int, S: int, D: int) -> int:
 
 def _align16(n: int) -> int:
     return -(-n // 16) * 16
+
+
+_DTYPE_BYTES = {0: 4, 1: 2, 2: 1}  # csrc/retrieval.cu DType codes (f32, bf16, int8)
 
 
 def _warp_stage_bytes(D: int, mode: str) -> int:
@@ -348,37 +362,80 @@ def _warp_stage_bytes(D: int, mode: str) -> int:
     return rows + (K4_ROUND_ROWS * 4 if mode != "bf16" else 0)
 
 
-def k4_warp_smem(rb: int, nw: int, D: int, mode: str, stages: int) -> int:
-    """Shared-memory bytes of a warp-route block (``csrc/retrieval.cu``
-    ``pio_k4_warp_smem``): the queries of ``rb`` rows in f32 and in int8,
-    the block's thresholds, the 8 warps' published entries, the int8_dot
-    divisors and the last-block flag, then for each of ``nw`` warps its
-    queues (:data:`K4_QUEUE` composites a query) and its ring of
-    ``stages``."""
-    head = _align16(rb * _align16(D) * 5) + _align16(rb * (9 * 8 + 4) + 4)
-    return head + nw * rb * K4_QUEUE * 8 + nw * stages * _warp_stage_bytes(D, mode)
+def k5_epilogue_bytes(D: int, v_dtype: int) -> int:
+    """Shared memory the fused K5 epilogue takes a warp, at least
+    (``csrc/retrieval.cu`` ``epi_bytes``): a query of ``D`` f32, the warp
+    route's :data:`K4_WARP_MAX_K` rescore composites and shortlist ids,
+    then 32 staged item-table rows, each in a slot of an odd number of
+    16-byte words with room for its offset (more groups of 32 go in
+    flight at once where the warp's share of the rings holds them)."""
+    rowbytes = D * _DTYPE_BYTES[v_dtype]
+    return (_align16(D * 4) + K4_WARP_MAX_K * 12
+            + 32 * (((rowbytes + 30) // 16) | 1) * 16)
 
 
+def _k4_ring(D: int, mode: str, stages: int, v_dtype: int) -> int:
+    """A warp's share of the rings: its stages, or the fused epilogue's
+    need (``v_dtype`` -1: K4 alone)."""
+    ring = stages * _warp_stage_bytes(D, mode)
+    return max(ring, k5_epilogue_bytes(D, v_dtype)) if v_dtype >= 0 else ring
+
+
+def k4_stream_cap(K: int) -> int:
+    """A stream-route query's buffer entries (``stream_cap``): K kept and
+    room for max(K, :data:`K4_QUEUE`) more."""
+    return K + max(K, K4_QUEUE)
+
+
+def k4_smem(route: str, rb: int, nw: int, D: int, mode: str, stages: int, k: int,
+            v_dtype: int = -1) -> int:
+    """Shared-memory bytes of a warp- or stream-route block
+    (``csrc/retrieval.cu`` ``pio_k4_smem``) for ``k`` winners; ``v_dtype``
+    the item table's dtype code of a fused call, -1 for K4 alone.
+
+    Warp route: the queries of ``rb`` rows in f32 and in int8, the block's
+    thresholds, the 8 warps' published entries, the int8_dot divisors and
+    the last-block flag, then for each of ``nw`` warps its queues
+    (:data:`K4_QUEUE` composites a query) and its share of the rings.
+    Stream route: the queries; each query's threshold, count, lock and
+    divisor and the last-block flag; each query's buffer
+    (:func:`k4_stream_cap`); each warp's queues, radix histogram and share
+    of the rings."""
+    ring = _k4_ring(D, mode, stages, v_dtype)
+    queries = _align16(rb * _align16(D) * 5)
+    if route == "warp":
+        return (queries + _align16(rb * (9 * 8 + 4) + 4) + nw * rb * K4_QUEUE * 8
+                + nw * ring)
+    return (queries + _align16(rb * 20 + 4) + _align16(rb * k4_stream_cap(_pow2(k)) * 8)
+            + nw * rb * K4_QUEUE * 8 + nw * K4_RADIX * 4 + nw * ring)
+
+
+@functools.lru_cache(maxsize=1024)
 def k4_plan(batch: int, num_rows: int, dim: int, k: int, sm_count: int = 132,
-            mode: str = "bf16", route: str | None = None) -> K4Plan:
+            mode: str = "bf16", route: str | None = None, v_dtype: int = -1) -> K4Plan:
     """K4's launch plan for ``batch`` queries, ``k`` winners, a catalog of
     ``num_rows`` rows of ``dim`` in coarse ``mode``, on ``route`` (None:
-    :func:`k4_route`'s pick). The answer does not depend on the plan.
-    Raises above :data:`K4_MAX_K`, and for the warp route above
-    :data:`K4_WARP_MAX_K`."""
+    :func:`k4_route`'s pick; ``"pair"``: the two-launch baseline), for K4
+    alone (``v_dtype`` -1) or fused with K5 on an item table of dtype code
+    ``v_dtype``. The answer does not depend on the plan. Raises above
+    :data:`K4_MAX_K`, and for the warp route above
+    :data:`K4_WARP_MAX_K`. Plans are cached: a serving call asks for the
+    same few again and again."""
     pick = k4_route(k)
     route = route or pick
     if route == "warp":
         if pick != "warp":
             raise ValueError(f"K4's warp route takes k' <= {K4_WARP_MAX_K}, got {k}")
-        return _k4_warp_plan(batch, num_rows, dim, k, sm_count, mode)
-    if route != "stream":
+        return _k4_warp_plan(batch, num_rows, dim, k, sm_count, mode, v_dtype)
+    if route == "stream":
+        return _k4_stream_plan(batch, num_rows, dim, k, sm_count, mode, v_dtype)
+    if route != "pair":
         raise ValueError(f"unknown K4 route {route!r}")
-    return _k4_stream_plan(batch, num_rows, dim, k, sm_count)
+    return _k4_pair_plan(batch, num_rows, dim, k, sm_count)
 
 
 def _k4_warp_plan(batch: int, num_rows: int, dim: int, k: int, sm_count: int,
-                  mode: str) -> K4Plan:
+                  mode: str, v_dtype: int) -> K4Plan:
     """The warp route: rb as wide as the batch (at most 8); nw warps a
     block, 8 unless the rings of wide rows overflow shared memory, and
     rings as deep as the rest of shared memory allows (up to
@@ -399,14 +456,14 @@ def _k4_warp_plan(batch: int, num_rows: int, dim: int, k: int, sm_count: int,
         raise ValueError(f"K4 takes at most {65535 * rb} query rows a call, got {batch}")
     fits = [(nw, st) for nw in range(K4_WARP_THREADS // 32, 0, -1)
             for st in range(K4_MAX_STAGES, 1, -1)
-            if k4_warp_smem(rb, nw, dim, mode, st) <= K4_SMEM_CAP]
+            if k4_smem("warp", rb, nw, dim, mode, st, k, v_dtype) <= K4_SMEM_CAP]
     if not fits:
-        raise ValueError(f"K4: rank {dim} needs {k4_warp_smem(rb, 1, dim, mode, 2)} bytes of "
-                         "shared memory a warp-route block")
+        raise ValueError(f"K4: rank {dim} needs {k4_smem('warp', rb, 1, dim, mode, 2, k, v_dtype)} "
+                         "bytes of shared memory a warp-route block")
     nw, stages = fits[0]
-    smem = k4_warp_smem(rb, nw, dim, mode, stages)
+    smem = k4_smem("warp", rb, nw, dim, mode, stages, k, v_dtype)
     unit = K4_ROUND_ROWS * nw
-    rings = nw * stages * _warp_stage_bytes(dim, mode)
+    rings = nw * _k4_ring(dim, mode, stages, v_dtype)
     nq = min(nw, rb)
     nblk = max(1, min(sm_count // groups,
                       -(-num_rows // max(unit, nw * K4_WARP_ROWS_PER_K * K)),
@@ -419,8 +476,48 @@ def _k4_warp_plan(batch: int, num_rows: int, dim: int, k: int, sm_count: int,
     return K4Plan("warp", rb, W, nblk, K, 0, 0, nw, stages, mcols, smem)
 
 
-def _k4_stream_plan(batch: int, num_rows: int, dim: int, k: int, sm_count: int) -> K4Plan:
-    """The stream route: rb as wide as the batch (at most 8) and the
+def _k4_stream_plan(batch: int, num_rows: int, dim: int, k: int, sm_count: int,
+                    mode: str, v_dtype: int) -> K4Plan:
+    """The stream route: 8 warps a block unless nothing fits (wide rows);
+    then rb as wide as the batch (at most 8) and rings as deep as 227 KB
+    allow beside rb buffers of :func:`k4_stream_cap` entries (rb 8 up to
+    k' = 512 at D = 32, 1 at 8,192). One block an SM over the query
+    groups: a block appends about ``K * (1 + ln(rows / K))`` of its rows
+    and cuts its buffers about ``1 + ln(rows / K)`` times, so long blocks
+    cost little more than short ones, while the last block's merge reads
+    ``nblk`` lists. Each warp stages the merge's ``mcols`` columns of
+    ``nblk`` lists in its share of the rings. Workspace ``batch * nblk *
+    K * 8`` bytes: 8 MB at B = 8 or 64, k' = 8,192."""
+    K = _pow2(k)
+    rb0 = min(8, _pow2(batch))
+    fits = [(nw, rb, st) for nw in range(K4_WARP_THREADS // 32, 0, -1)
+            for rb in (8, 4, 2, 1) if rb <= rb0
+            for st in range(K4_MAX_STAGES, 1, -1)
+            if k4_smem("stream", rb, nw, dim, mode, st, K, v_dtype) <= K4_SMEM_CAP]
+    if not fits:
+        raise ValueError(f"K4: rank {dim} at k' = {k} needs "
+                         f"{k4_smem('stream', 1, 1, dim, mode, 2, K, v_dtype)} bytes of "
+                         "shared memory a stream-route block")
+    nw, rb, stages = fits[0]
+    groups = -(-batch // rb)
+    if groups > 65535:
+        raise ValueError(f"K4 takes at most {65535 * rb} query rows a call, got {batch}")
+    unit = K4_ROUND_ROWS * nw
+    ring = _k4_ring(dim, mode, stages, v_dtype)
+    nblk = max(1, min(sm_count // groups, -(-num_rows // unit), ring // 8,
+                      K4_WS_BYTES // (batch * K * 8)))
+    W = -(-(-(-num_rows // nblk)) // unit) * unit
+    nblk = -(-num_rows // W)
+    mcols = min(K, K4_MERGE_MAX_COLS)
+    while mcols > 1 and mcols * nblk * 8 > ring:
+        mcols //= 2
+    smem = k4_smem("stream", rb, nw, dim, mode, stages, K, v_dtype)
+    return K4Plan("stream", rb, W, nblk, K, k4_stream_cap(K), 0, nw, stages, mcols, smem)
+
+
+def _k4_pair_plan(batch: int, num_rows: int, dim: int, k: int, sm_count: int) -> K4Plan:
+    """The pair (the stream route before the one-launch design, the
+    same-run baseline): rb as wide as the batch (at most 8) and the
     shared memory allow; enough coarse blocks to fill the card once (at
     least :data:`K4_MIN_ROWS` rows each), within :data:`K4_WS_BYTES` of
     workspace. A block's cost is mostly its selection (its rounds'
@@ -442,13 +539,16 @@ def _k4_stream_plan(batch: int, num_rows: int, dim: int, k: int, sm_count: int) 
     nblk = max(1, min(want, -(-num_rows // K4_MIN_ROWS), K4_WS_BYTES // (batch * K * 8)))
     W = -(-num_rows // nblk)
     W = -(-W // K4_TILE_THREADS) * K4_TILE_THREADS
-    return K4Plan("stream", rb, W, -(-num_rows // W), K, S, S2, 0, 0, 0, smem)
+    return K4Plan("pair", rb, W, -(-num_rows // W), K, S, S2, 0, 0, 0, smem)
 
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
+
+
+_K4_ARGS = [_I, _P, _I, _I, _P, _P, _L, _L, _I, _I, _I, _I, _L, _I, _I, _I, _P, _P]
 
 
 def _lib() -> ctypes.CDLL:
@@ -460,17 +560,21 @@ def _lib() -> ctypes.CDLL:
         lib.pio_k4_coarse_top_k.restype = _I
         lib.pio_k4_tile_smem.argtypes = [_I, _I, _I]
         lib.pio_k4_tile_smem.restype = _L
-        lib.pio_k4_warp_top_k.argtypes = [
-            _P, _I, _I, _P, _P, _L, _L, _I, _I, _I, _I, _L, _I, _I, _I, _P, _P, _P, _P, _IP, _P,
+        lib.pio_k4_smem.argtypes = [_I, _I, _I, _I, _I, _I, _I, _I]
+        lib.pio_k4_smem.restype = _L
+        lib.pio_k4_top_k.argtypes = [*_K4_ARGS, _P, _P, _IP, _P]
+        lib.pio_k4_top_k.restype = _I
+        lib.pio_k4_two_stage.argtypes = [
+            *_K4_ARGS, _I, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _L, _I, _P, _P, _P, _IP, _P,
         ]
-        lib.pio_k4_warp_top_k.restype = _I
-        lib.pio_k4_warp_smem.argtypes = [_I, _I, _I, _I, _I]
-        lib.pio_k4_warp_smem.restype = _L
+        lib.pio_k4_two_stage.restype = _I
         lib.pio_k5_rescore_top_k.argtypes = [
             _I, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P,
             _IP, _P,
         ]
         lib.pio_k5_rescore_top_k.restype = _I
+        lib.pio_globaltimer_tick.argtypes = [_I, _P, _IP, _P]
+        lib.pio_globaltimer_tick.restype = _I
         lib._pio_typed = True
     return lib
 
@@ -506,7 +610,7 @@ def coarse_topk(queries: torch.Tensor, tiles: torch.Tensor, scales, num_rows: in
 def _coarse_topk_stream(queries: torch.Tensor, tiles: torch.Tensor, scales,
                         num_rows: int, k: int, mode: str):
     """K4's stream route at any k' <= :data:`K4_MAX_K`, whatever
-    :func:`k4_route` picks: the warp route's same-run baseline for
+    :func:`k4_route` picks: the warp route's same-run comparison in
     chip_smoke.py. CUDA tensors only; counts its calls on itself."""
     if mode not in MODES:
         raise ValueError(f"unknown coarse mode {mode!r}")
@@ -514,25 +618,38 @@ def _coarse_topk_stream(queries: torch.Tensor, tiles: torch.Tensor, scales,
                            k, mode)
 
 
-def _count_calls(fn) -> None:
+def _coarse_topk_pair(queries: torch.Tensor, tiles: torch.Tensor, scales,
+                      num_rows: int, k: int, mode: str):
+    """K4's pair, the two-launch stream route this design replaced
+    (``coarse_tile_kernel`` + ``coarse_merge_kernel``), at any k' <=
+    :data:`K4_MAX_K`: the same-run baseline of chip_smoke.py; nothing on
+    the serving path calls it. CUDA tensors only; counts its calls on
+    itself."""
+    if mode not in MODES:
+        raise ValueError(f"unknown coarse mode {mode!r}")
+    return _coarse_on_card("pair", _coarse_topk_pair, queries, tiles, scales, num_rows, k, mode)
+
+
+def _count_calls(fn, routes=ROUTES) -> None:
     fn.launches = _build.LaunchCount()
     fn.modes = {m: _build.LaunchCount() for m in MODES}
-    fn.routes = {r: _build.LaunchCount() for r in ROUTES}
+    fn.routes = {r: _build.LaunchCount() for r in routes}
     fn.kernel_launches = _build.LaunchCount()
 
 
 _count_calls(coarse_topk)
 _count_calls(_coarse_topk_stream)
+_count_calls(_coarse_topk_pair, routes=("pair",))
 
 _TICKETS: dict[tuple[int, int], torch.Tensor] = {}
 _tickets_lock = threading.Lock()
 
 
 def _tickets(device: torch.device, stream: int, groups: int, counter) -> torch.Tensor:
-    """The warp route's arrival tickets, one a query group, for calls on
-    ``stream``: zeroed once when made (a launch, counted on ``counter``),
-    then left zero by each call's merging blocks. Calls on one stream run
-    in order, so they share them."""
+    """The one-launch routes' arrival tickets, one a query group, for
+    calls on ``stream``: zeroed once when made (a launch, counted on
+    ``counter``), then left zero by each call's merging blocks. Calls on
+    one stream run in order, so they share them."""
     key = (device.index, stream)
     with _tickets_lock:
         t = _TICKETS.get(key)
@@ -543,9 +660,8 @@ def _tickets(device: torch.device, stream: int, groups: int, counter) -> torch.T
         return t
 
 
-def _coarse_on_card(route, counter, queries, tiles, scales, num_rows: int, k: int, mode: str):
-    """K4 on CUDA tensors by ``route`` ("stream", or None: what
-    :func:`k4_route` picks); one call counted on ``counter``."""
+def _k4_checked(queries, tiles, scales, num_rows: int, mode: str):
+    """K4's inputs on the card, checked: (device, [B, D] f32 queries)."""
     device = tiles.device
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
@@ -563,7 +679,26 @@ def _coarse_on_card(route, counter, queries, tiles, scales, num_rows: int, k: in
     q = queries.to(device=device, dtype=torch.float32).contiguous()
     if q.dim() != 2 or q.shape[1] != D:
         raise ValueError(f"queries must be [B, {D}]")
-    batch = q.shape[0]
+    return device, q
+
+
+def _k4_plan_args(plan: K4Plan, q, tiles, scales, num_rows: int, mode: str, k: int,
+                  ws, tickets) -> list:
+    """The arguments pio_k4_top_k and pio_k4_two_stage share."""
+    for name, t in (("tiles", tiles), ("scales", scales)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"K4's one-launch routes take 16-byte aligned {name}")
+    nt, T, D = tiles.shape
+    return [_ROUTE_CODE[plan.route], q.data_ptr(), q.shape[0], D, tiles.data_ptr(),
+            topk_ops._ptr(scales), num_rows, nt * T, _MODE_CODE[mode], k, plan.rb, plan.nw,
+            plan.W, plan.nblk, plan.stages, plan.mcols, ws.data_ptr(), tickets.data_ptr()]
+
+
+def _coarse_on_card(route, counter, queries, tiles, scales, num_rows: int, k: int, mode: str):
+    """K4 on CUDA tensors by ``route`` ("stream", "pair", or None: what
+    :func:`k4_route` picks); one call counted on ``counter``."""
+    device, q = _k4_checked(queries, tiles, scales, num_rows, mode)
+    batch, D = q.shape
     k = int(k)
     plan = k4_plan(max(1, batch), num_rows, D, k, _sm_count(device), mode, route)
     scores = torch.empty((batch, k), dtype=torch.float32, device=device)
@@ -575,22 +710,17 @@ def _coarse_on_card(route, counter, queries, tiles, scales, num_rows: int, k: in
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        if plan.route == "warp":
-            for name, t in (("tiles", tiles), ("scales", scales)):
-                if t is not None and t.data_ptr() % 16:
-                    raise ValueError(f"K4's warp route takes 16-byte aligned {name}")
-            tickets = _tickets(device, stream, -(-batch // plan.rb), counter)
-            err = lib.pio_k4_warp_top_k(
-                q.data_ptr(), batch, D, tiles.data_ptr(), topk_ops._ptr(scales), num_rows,
-                nt * T, _MODE_CODE[mode], k, plan.rb, plan.nw, plan.W, plan.nblk, plan.stages,
-                plan.mcols, ws.data_ptr(), tickets.data_ptr(), scores.data_ptr(),
-                ids.data_ptr(), ctypes.byref(launched), stream,
-            )
-        else:
+        if plan.route == "pair":
             err = lib.pio_k4_coarse_top_k(
                 q.data_ptr(), batch, D, tiles.data_ptr(), topk_ops._ptr(scales), num_rows,
                 _MODE_CODE[mode], k, plan.rb, plan.W, plan.nblk, plan.K, plan.S, plan.S2,
                 ws.data_ptr(), scores.data_ptr(), ids.data_ptr(), ctypes.byref(launched), stream,
+            )
+        else:
+            tickets = _tickets(device, stream, -(-batch // plan.rb), counter)
+            err = lib.pio_k4_top_k(
+                *_k4_plan_args(plan, q, tiles, scales, num_rows, mode, k, ws, tickets),
+                scores.data_ptr(), ids.data_ptr(), ctypes.byref(launched), stream,
             )
     _build.check(err, f"coarse_topk ({mode}, {plan.route} route) launch")
     counter.launches.add()
@@ -601,11 +731,13 @@ def _coarse_on_card(route, counter, queries, tiles, scales, num_rows: int, k: in
 
 
 def k4_launches(k: int) -> int:
-    """Kernel launches one K4 call on the card adds to its wrapper's
-    ``kernel_launches`` once its stream's tickets exist: 1 on the warp
-    route (scoring, selection and merge in one launch), 2 on the stream
-    route (tile, merge)."""
-    return 1 if k4_route(k) == "warp" else 2
+    """Kernel launches one K4 call on the card (alone, or fused with K5
+    in :func:`two_stage_top_k`) adds to its wrapper's ``kernel_launches``
+    once its stream's tickets exist: 1 on either route (scoring,
+    selection and the merge -- and the rescore, fused -- in one
+    launch). Raises above :data:`K4_MAX_K`."""
+    k4_route(k)
+    return 1
 
 
 def _host_values(table) -> np.ndarray:
@@ -793,35 +925,38 @@ def _candidates(cand_ids, num_items: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a.astype(np.int32)).to(device)
 
 
-def rescore_top_k(form: str, item_factors, cand_ids, k: int, *, user_ixs=None,
-                  user_factors=None, vectors=None, row_ixs=None, row_weights=None):
-    """K5: the best ``k`` of each query row's shortlist by exact score.
+class _Form(NamedTuple):
+    """A K5 query form on the card, checked (the C entries' arguments)."""
 
-    ``form`` names the query: ``"gather"`` (``user_ixs`` [B] rows of
-    ``user_factors``), ``"vectors"`` (``vectors`` [B, D] f32) or
-    ``"sum_rows"`` (``row_ixs`` [B, L] catalog rows weighted by
-    ``row_weights`` [B, L]); tables as :func:`ops.topk.gather_top_k_batch`
-    takes them. ``cand_ids``: [B, S] int ids, -1 for an empty slot. ``k``
-    is capped at S. Returns ``([B, k] f32 scores, [B, k] int32 ids)``.
-    CPU tensors take :func:`rescore_top_k_reference`; CUDA tensors
-    launch ``csrc/retrieval.cu`` (one launch) or raise."""
+    code: int
+    ixs: torch.Tensor | None
+    w: torch.Tensor | None
+    L: int
+    u_vals: torch.Tensor | None
+    u_code: int
+    u_scales: torch.Tensor | None
+    vecs: torch.Tensor | None
+    v_vals: torch.Tensor
+    v_code: int
+    v_scales: torch.Tensor | None
+    rows: int  # query rows
+
+    def args(self) -> list:
+        return [self.code, topk_ops._ptr(self.ixs), topk_ops._ptr(self.w), self.L,
+                topk_ops._ptr(self.u_vals), self.u_code, topk_ops._ptr(self.u_scales),
+                topk_ops._ptr(self.vecs), self.v_vals.data_ptr(), self.v_code,
+                topk_ops._ptr(self.v_scales)]
+
+
+def _k5_form(form: str, item_factors, device: torch.device, user_ixs, user_factors, vectors,
+             row_ixs, row_weights) -> _Form:
+    """K5's query form and item table on ``device``, checked as
+    :func:`rescore_top_k` takes them."""
     if form not in QUERY_FORMS:
         raise ValueError(f"unknown query form {form!r}")
-    values = item_factors[0] if isinstance(item_factors, tuple) else item_factors
-    device = values.device
-    if device.type == "cpu":
-        return rescore_top_k_reference(
-            form, item_factors, cand_ids, k, user_ixs=user_ixs, user_factors=user_factors,
-            vectors=vectors, row_ixs=row_ixs, row_weights=row_weights)
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
     v_vals, v_scales, v_code = topk_ops._split(item_factors, "item_factors")
-    topk_ops._on(device, v_scales)
+    topk_ops._on(device, v_vals, v_scales)
     num_items, rank = v_vals.shape
-    cand = _candidates(cand_ids, num_items, device)
-    batch, width = cand.shape
-    if width > K4_MAX_K:
-        raise ValueError(f"K5 takes shortlists of up to {K4_MAX_K} ids, got {width}")
     ixs = w = u_vals = u_scales = vecs = None
     u_code, L = 0, 0
     if form == "gather":
@@ -844,8 +979,43 @@ def rescore_top_k(form: str, item_factors, cand_ids, k: int, *, user_ixs=None,
         w = torch.as_tensor(row_weights, device=device).to(torch.float32).contiguous()
         if tuple(w.shape) != (rows, L):
             raise ValueError(f"row_weights must be [{rows}, {L}] like row_ixs")
-    if rows != batch:
-        raise ValueError(f"{rows} queries for {batch} shortlist rows")
+    return _Form(_QUERY_CODE[form], ixs, w, L, u_vals, u_code, u_scales, vecs, v_vals, v_code,
+                 v_scales, rows)
+
+
+def rescore_top_k(form: str, item_factors, cand_ids, k: int, *, user_ixs=None,
+                  user_factors=None, vectors=None, row_ixs=None, row_weights=None):
+    """K5: the best ``k`` of each query row's shortlist by exact score.
+
+    ``form`` names the query: ``"gather"`` (``user_ixs`` [B] rows of
+    ``user_factors``), ``"vectors"`` (``vectors`` [B, D] f32) or
+    ``"sum_rows"`` (``row_ixs`` [B, L] catalog rows weighted by
+    ``row_weights`` [B, L]); tables as :func:`ops.topk.gather_top_k_batch`
+    takes them. ``cand_ids``: [B, S] int ids, -1 for an empty slot. ``k``
+    is capped at S. Returns ``([B, k] f32 scores, [B, k] int32 ids)``.
+    CPU tensors take :func:`rescore_top_k_reference`; CUDA tensors
+    launch ``csrc/retrieval.cu`` (one launch, ``rescore_kernel``) or
+    raise. The serving path runs the same arithmetic fused into K4
+    (:func:`two_stage_top_k`)."""
+    if form not in QUERY_FORMS:
+        raise ValueError(f"unknown query form {form!r}")
+    values = item_factors[0] if isinstance(item_factors, tuple) else item_factors
+    device = values.device
+    if device.type == "cpu":
+        return rescore_top_k_reference(
+            form, item_factors, cand_ids, k, user_ixs=user_ixs, user_factors=user_factors,
+            vectors=vectors, row_ixs=row_ixs, row_weights=row_weights)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    f = _k5_form(form, item_factors, device, user_ixs, user_factors, vectors, row_ixs,
+                 row_weights)
+    num_items, rank = f.v_vals.shape
+    cand = _candidates(cand_ids, num_items, device)
+    batch, width = cand.shape
+    if width > K4_MAX_K:
+        raise ValueError(f"K5 takes shortlists of up to {K4_MAX_K} ids, got {width}")
+    if f.rows != batch:
+        raise ValueError(f"{f.rows} queries for {batch} shortlist rows")
     k = min(int(k), width)
     scores = torch.empty((batch, k), dtype=torch.float32, device=device)
     ids = torch.empty((batch, k), dtype=torch.int32, device=device)
@@ -856,11 +1026,8 @@ def rescore_top_k(form: str, item_factors, cand_ids, k: int, *, user_ixs=None,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.pio_k5_rescore_top_k(
-            _QUERY_CODE[form], topk_ops._ptr(ixs), topk_ops._ptr(w), L,
-            topk_ops._ptr(u_vals), u_code, topk_ops._ptr(u_scales), topk_ops._ptr(vecs),
-            v_vals.data_ptr(), v_code, topk_ops._ptr(v_scales), cand.data_ptr(),
-            batch, width, _pow2(width), rank, k, scores.data_ptr(), ids.data_ptr(),
-            ctypes.byref(launched), stream,
+            *f.args(), cand.data_ptr(), batch, width, _pow2(width), rank, k, scores.data_ptr(),
+            ids.data_ptr(), ctypes.byref(launched), stream,
         )
     _build.check(err, f"rescore_top_k ({form}) launch")
     rescore_top_k.launches.add()
@@ -895,6 +1062,138 @@ for _name, _wrapper in (("pio_k4_kernel_launches", coarse_topk),
         "counts them",
     ).set_function(lambda c=_wrapper.kernel_launches: float(c.value))
 del _mode, _route, _form, _count, _name, _wrapper
+
+
+# -- the two stages in one call: the serving path ---------------------------------
+
+
+def two_stage_top_k(catalog: CoarseCatalog, queries, kp: int, k: int, form: str,
+                    item_factors, *, user_ixs=None, user_factors=None, vectors=None,
+                    row_ixs=None, row_weights=None):
+    """Two-stage retrieval of a query batch: K4's shortlist of ``kp``
+    (k') candidates of ``catalog`` for the ``[B, D]`` coarse ``queries``,
+    then K5's best ``k`` of them by exact score, the query in ``form``
+    and the item table as :func:`rescore_top_k` takes them. Returns host
+    ``([B, k] f32 scores, [B, k] int32 ids)``, as the shortlist followed
+    by ``rescore_*_top_k_batch`` does. k' clamps to the catalog's tile
+    width and k to k'.
+
+    On the card it is ONE launch (``pio_k4_two_stage``: K5 runs as the
+    epilogue of K4's merge, no host step between the stages), counted as
+    one K4 call (``coarse_topk``'s mode and route) and one K5 call
+    (``rescore_top_k.queries``), its launch on ``coarse_topk``'s
+    ``kernel_launches``; the merging blocks time their epilogue on the
+    card, so the stage split reads rescore = the largest query group's
+    epilogue and shortlist = the call's host wall minus it. On the CPU it
+    is :func:`coarse_topk_reference` then :func:`rescore_top_k_reference`,
+    each timed. Either way the call counts
+    ``pio_retrieval_queries_total{path="two_stage"}``, observes both
+    stages' seconds and the shortlist size, and notes the split for the
+    engine server's ``dispatch.shortlist`` / ``dispatch.rescore`` spans."""
+    if form not in QUERY_FORMS:
+        raise ValueError(f"unknown query form {form!r}")
+    t0 = time.perf_counter()
+    q = torch.as_tensor(np.asarray(queries, dtype=np.float32)
+                        if not isinstance(queries, torch.Tensor) else queries)
+    q = q.to(device=catalog.device, dtype=torch.float32).contiguous()
+    kp = max(1, min(int(kp), catalog.tile))
+    k = max(1, min(int(k), kp))
+    query = dict(user_ixs=user_ixs, user_factors=user_factors, vectors=vectors,
+                 row_ixs=row_ixs, row_weights=row_weights)
+    if catalog.device.type == "cpu":
+        _, cand = coarse_topk_reference(q, catalog._tiles, catalog._scales, catalog.num_rows,
+                                        kp, catalog.mode)
+        t1 = time.perf_counter()
+        s, ids = rescore_top_k_reference(form, item_factors, cand, k, **query)
+        s, ids = s.numpy(), ids.numpy()
+        rescore = time.perf_counter() - t1
+        shortlist = t1 - t0
+    else:
+        s, ids, epi_ns = _two_stage_on_card(catalog, q, kp, k, form, item_factors, query)
+        rescore = epi_ns * 1e-9
+        shortlist = max(0.0, time.perf_counter() - t0 - rescore)
+    _m_shortlist_secs.observe(shortlist)
+    _m_shortlist_size.observe(float(kp))
+    _note_stage("shortlist", shortlist)
+    _m_rescore_secs.observe(rescore)
+    _note_stage("rescore", rescore)
+    _m_two_stage.inc(len(s))
+    return s, ids
+
+
+two_stage_top_k.launches = _build.LaunchCount()  # fused calls on the card
+two_stage_top_k.routes = {r: _build.LaunchCount() for r in ROUTES}
+for _route, _count in two_stage_top_k.routes.items():
+    obs_metrics.gauge(
+        "pio_two_stage_calls", "two-stage calls on the card (K4 with K5 as its epilogue, one "
+        "launch) by K4's route, since the process started", route=_route,
+    ).set_function(lambda c=_count: float(c.value))
+del _route, _count
+
+
+def _two_stage_on_card(catalog: CoarseCatalog, q: torch.Tensor, kp: int, k: int, form: str,
+                       item_factors, query: dict):
+    """:func:`two_stage_top_k` on the card: host (scores, ids) and the
+    largest query group's epilogue in nanoseconds. The outputs and the
+    groups' timers share one buffer, so one copy brings them back."""
+    device, q = _k4_checked(q, catalog._tiles, catalog._scales, catalog.num_rows, catalog.mode)
+    f = _k5_form(form, item_factors, device, **query)
+    batch, D = q.shape
+    num_items = f.v_vals.shape[0]
+    if f.v_vals.shape[1] != D:
+        raise ValueError(f"the item table's rank {f.v_vals.shape[1]} is not the catalog's {D}")
+    if catalog.num_rows > num_items:
+        raise ValueError(f"a catalog of {catalog.num_rows} rows over {num_items} items")
+    if f.rows != batch:
+        raise ValueError(f"{f.rows} queries for {batch} coarse query rows")
+    mode = catalog.mode
+    plan = k4_plan(max(1, batch), catalog.num_rows, D, kp, _sm_count(device), mode,
+                   v_dtype=f.v_code)
+    groups = -(-batch // plan.rb)
+    out = torch.empty(2 * batch * k + 2 * groups, dtype=torch.int32, device=device)
+    if batch == 0:
+        empty = np.zeros((0, k), np.float32)
+        return empty, empty.astype(np.int32), 0
+    ws = torch.empty((batch, plan.nblk, plan.K), dtype=torch.int64, device=device)
+    launched = ctypes.c_int(0)
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        tickets = _tickets(device, stream, groups, coarse_topk)
+        base = out.data_ptr()
+        err = lib.pio_k4_two_stage(
+            *_k4_plan_args(plan, q, catalog._tiles, catalog._scales, catalog.num_rows, mode, kp,
+                           ws, tickets),
+            *f.args(), num_items, k, base, base + 4 * batch * k, base + 8 * batch * k,
+            ctypes.byref(launched), stream,
+        )
+    _build.check(err, f"two_stage_top_k ({mode}, {form}, {plan.route} route) launch")
+    coarse_topk.launches.add()
+    coarse_topk.modes[mode].add()
+    coarse_topk.routes[plan.route].add()
+    coarse_topk.kernel_launches.add(launched.value)
+    rescore_top_k.launches.add()
+    rescore_top_k.queries[form].add()
+    two_stage_top_k.launches.add()
+    two_stage_top_k.routes[plan.route].add()
+    host = out.cpu().numpy()
+    n = batch * k
+    scores = host[:n].view(np.float32).reshape(batch, k)
+    ids = host[n:2 * n].reshape(batch, k)
+    return scores, ids, int(host[2 * n:].copy().view(np.int64).max())
+
+
+def globaltimer_tick(device: torch.device, samples: int = 4096) -> int:
+    """The smallest step of the card's ``%globaltimer`` one thread sees
+    in ``samples`` reads, in nanoseconds: the resolution of the fused
+    call's stage split."""
+    out = torch.zeros(1, dtype=torch.int64, device=device)
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = _lib().pio_globaltimer_tick(samples, out.data_ptr(), ctypes.byref(launched),
+                                          torch.cuda.current_stream(device).cuda_stream)
+    _build.check(err, "globaltimer_tick launch")
+    return int(out.item())
 
 
 def _finish_rescore(t0: float, out, n_queries: int):

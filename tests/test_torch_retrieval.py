@@ -515,15 +515,20 @@ def test_rescore_forms_match_the_jax_package(storage):
 
 
 def test_k4_plan():
-    # the stream route, reached at any k' <= K4_MAX_K
-    plan = retrieval.k4_plan(8, 10_000_000, 32, 128, sm_count=132, route="stream")
-    assert (plan.route, plan.rb, plan.K, plan.S, plan.S2) == ("stream", 8, 128, 512, 2048)
+    # the pair (the two-launch baseline), reached at any k' <= K4_MAX_K
+    plan = retrieval.k4_plan(8, 10_000_000, 32, 128, sm_count=132, route="pair")
+    assert (plan.route, plan.rb, plan.K, plan.S, plan.S2) == ("pair", 8, 128, 512, 2048)
     assert plan.W % retrieval.K4_TILE_THREADS == 0
     assert plan.nblk == -(-10_000_000 // plan.W) and plan.nblk * plan.W >= 10_000_000
     # a wide shortlist narrows the block's query rows to fit shared memory
+    big = retrieval.k4_plan(64, 1_000_000, 32, retrieval.K4_MAX_K, sm_count=132, route="pair")
+    assert big.route == "pair" and big.rb == 1 and big.S == 16384
+    assert retrieval.k4_tile_smem(big.rb, big.S, 32) <= retrieval.K4_SMEM_CAP
+    assert retrieval.k4_plan(1, 300, 8, 256, route="pair").nblk == 1
+    # so does the stream route's: one query row a block at k' = 8,192
     big = retrieval.k4_plan(64, 1_000_000, 32, retrieval.K4_MAX_K, sm_count=132)
     assert big.route == "stream" and big.rb == 1 and big.S == 16384
-    assert retrieval.k4_tile_smem(big.rb, big.S, 32) <= retrieval.K4_SMEM_CAP
+    assert big.smem <= retrieval.K4_SMEM_CAP
     assert retrieval.k4_plan(1, 300, 8, 256).nblk == 1
     with pytest.raises(ValueError, match="K4_MAX_K"):
         retrieval.k4_plan(1, 10**6, 32, retrieval.K4_MAX_K + 1)
@@ -537,7 +542,7 @@ def test_k4_plan():
             assert w.nblk * groups <= 132 and w.nblk == -(-I // w.W)  # one wave
             assert w.W % (retrieval.K4_ROUND_ROWS * w.nw) == 0
             assert w.W // w.nw >= min(4 * k, -(-I // w.nw))
-            assert w.smem == retrieval.k4_warp_smem(w.rb, w.nw, 32, mode, w.stages)
+            assert w.smem == retrieval.k4_smem("warp", w.rb, w.nw, 32, mode, w.stages, k)
             assert w.smem <= retrieval.K4_SMEM_CAP and 2 <= w.stages <= retrieval.K4_MAX_STAGES
             assert B * w.nblk * w.K * 8 <= (8 * 132 + B) * w.K * 8
             stage = retrieval._warp_stage_bytes(32, mode)
@@ -556,10 +561,10 @@ def test_k4_plan():
                                       (129, "stream"), (256, "stream"), (1024, "stream"),
                                       (8192, "stream")])
 def test_k4_route(k, route):
-    """k' <= K4_WARP_MAX_K takes the warp route (one launch), larger k'
-    the stream route (two), and k' above K4_MAX_K is refused."""
+    """k' <= K4_WARP_MAX_K takes the warp route, larger k' the stream
+    route, each one launch, and k' above K4_MAX_K is refused."""
     assert retrieval.k4_route(k) == route
-    assert retrieval.k4_launches(k) == (1 if route == "warp" else 2)
+    assert retrieval.k4_launches(k) == 1
 
 
 @pytest.mark.parametrize("k", [0, retrieval.K4_MAX_K + 1])
@@ -582,6 +587,7 @@ def test_k4_constants_match_the_kernel_source():
     assert consts["MERGE_MAX_COLS"] == retrieval.K4_MERGE_MAX_COLS
     assert consts["MAX_STAGES"] == retrieval.K4_MAX_STAGES
     assert consts["TILE_THREADS"] == retrieval.K4_TILE_THREADS
+    assert consts["RADIX"] == retrieval.K4_RADIX
 
 
 def test_k4_cpu_calls_launch_no_kernel():
