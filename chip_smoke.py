@@ -269,6 +269,28 @@ of K4's merge: every two-stage call one launch) changes three phases:
   exact K2 and ``torch.topk(q @ V.T, k)``, by ``torch.profiler`` and by
   CUDA events; and the card's ``%globaltimer`` tick.
 
+The K1s and K3 redesign (K1s: entry-major stacks, a warp a table row for
+a chunk of candidates with register-blocked products, then the finish a
+thread a system or a warp a row; K3: lanes a query sized to the cutoff)
+changes the eval phase:
+
+- K3 and its earlier one-warp design against the plain version at P in
+  {1, 3, 10, 32, 33, 40, 100}, across the lane groups' sizes;
+- K1s's launch counts are its own (two a bucket up to rank 32), on the
+  ML-20M sweeps and the eval path;
+- every bucket of the ML-20M layout (rank 20 at C = 4, and ranks 10/20/20
+  padded to 20) and of the eval path's first fold (its groups: ranks 5 C
+  = 1, 10 C = 2, 20 C = 1), for f32, bf16 and int8 storage, explicit and
+  implicit: the redesigned kernels, the earlier design
+  (``_solve_bucket_sweep_grid``) and K1 alone for each candidate write
+  bit-identical tables, and the C entry's plan is ``k1s_plan``'s;
+- eval times: K3 beside its earlier design (in turns); one K1s iteration
+  at ML-20M C = 4 beside the earlier design and K1 alone x 4, and at each
+  eval group beside the earlier design, on three clocks (CUDA events as
+  enqueued, events behind a queued ``torch.cuda._sleep`` -- device time
+  without host gaps -- and ``torch.profiler`` with the launches its
+  trace held against those made) and the host's enqueue time.
+
 Every phase prints its results and seconds; any failure makes the exit
 code 1 and suppresses the result lines. Without CUDA, or without the
 package beside the script, it exits 2 and prints no result. A run of a
@@ -1905,6 +1927,15 @@ def k1_launches_per_iteration(data, rank: int) -> int:
                for b in data.row_buckets + data.col_buckets)
 
 
+def k1s_launches_per_iteration(data, rank: int) -> int:
+    """K1s's kernel launches in one iteration over ``data``'s buckets
+    (``als.k1s_launches``: two a bucket up to rank 32, one above)."""
+    from predictionio_tpu_torch.ops import als
+
+    return sum(als.k1s_launches(rank, len(b.row_ids), b.col_ids.shape[0])
+               for b in data.row_buckets + data.col_buckets)
+
+
 def plain_iteration(torch, data, params, device):
     """One ALS iteration (explicit or implicit) with K1's plain version on
     the card, from the cold init ``als_train`` draws for ``params.seed``."""
@@ -2596,17 +2627,19 @@ def cuda_median_ms(torch, fn, runs: int = 50, warmup: int = 20) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def device_ms(torch, fn, runs: int = 50) -> dict:
-    """Device time per call from ``torch.profiler`` (CUPTI): {kernel or
-    copy name: ms per call}; empty when the profiler saw no device work.
-    A name's time is its traced total over the launches the trace holds,
-    times its launches a call (rounded, at least 1): a trace now and then
-    records only some of the runs."""
+def device_trace(torch, fn, runs: int = 50) -> tuple[dict, dict]:
+    """``torch.profiler`` (CUPTI) over ``runs`` calls of ``fn``: ({kernel
+    or copy name: ms per call}, {name: launches the trace holds}); empty
+    when the profiler saw no device work. A name's time is its traced
+    total over the launches the trace holds, times its launches a call
+    (rounded, at least 1): a trace now and then records only some of the
+    runs."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     out: dict = {}
+    held: dict = {}
     for _ in range(3):  # a trace now and then comes back without device events
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
@@ -2621,9 +2654,57 @@ def device_ms(torch, fn, runs: int = 50) -> dict:
             if us:
                 n = getattr(e, "count", 0) or runs
                 out[e.key] = us / n * max(1, round(n / runs)) / 1e3
+                held[e.key] = n
         if out:
             break
-    return out
+    return out, held
+
+
+def device_ms(torch, fn, runs: int = 50) -> dict:
+    """Device time per call from ``torch.profiler``: :func:`device_trace`'s
+    {name: ms per call}."""
+    return device_trace(torch, fn, runs)[0]
+
+
+def clock_readings(torch, fn, launches: int, runs: int = 5) -> dict:
+    """One call of ``fn`` (``launches`` kernel launches) on every clock
+    this script has, from the same runs' kind of work:
+
+    - ``events_ms``: CUDA events around the call as enqueued (median), the
+      card's idle time between launches included;
+    - ``queued_ms``: the same with the call queued behind a 50 ms
+      ``torch.cuda._sleep``, so every launch is on the card before the
+      first event fires: device time with no host gaps;
+    - ``host_ms``: the host's time to enqueue the call (perf_counter, no
+      synchronize; median);
+    - ``device_ms``: ``torch.profiler``'s kernel time per call, with the
+      launches its trace holds beside the ``runs x launches`` made."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    events, queued, host = [], [], []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        events.append(a.elapsed_time(b))
+        torch.cuda._sleep(100_000_000)  # ~50 ms of cycles: the launches queue up
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+        b.record()
+        torch.cuda.synchronize()
+        queued.append(a.elapsed_time(b))
+    dev, held = device_trace(torch, fn, runs)
+    return {"events_ms": statistics.median(events), "queued_ms": statistics.median(queued),
+            "host_ms": statistics.median(host), "device_ms": _total(dev),
+            "launches_held": sum(held.values()), "launches_made": runs * launches}
 
 
 def _total(times: dict, part: str = ""):
@@ -3096,35 +3177,40 @@ def ranking_case(torch, rng, Q: int, P: int, A: int, device):
 
 @phase("eval: K3 (ranking_metrics_batch) vs plain")
 def k3_vs_plain(torch, device, stats):
-    """K3 against its plain version on the same CUDA tensors: an ML-1M
-    fold's Q = 333,334 rows at P in {1, 10} x A in {1, 3} with k = P and
-    k = 10 (the denominators' k past P), and P = 40 (a warp's second
-    group of positions) on 20,000 rows: precision and valid equal, ap and
-    ndcg within 1e-6."""
+    """K3 (``k3_group(P)`` lanes a query row) against its plain version on
+    the same CUDA tensors: an ML-1M fold's Q = 333,334 rows at P in {1,
+    10} x A in {1, 3} with k = P and k = 10 (the denominators' k past P),
+    and on 20,000 rows P in {3, 32, 33, 40, 100} (A = 3, k = P), across
+    the lane groups' sizes (1, 4, 16, 32, and a warp's second group of
+    positions): precision and valid equal, ap and ndcg within 1e-6; the
+    earlier one-warp design (``_ranking_metrics_warp``) held the same way
+    on every case."""
     from predictionio_tpu_torch.ops import topk
 
     rng = np.random.default_rng(SEED)
     err = 0.0
     cases = [(EVAL_Q, P, A, k) for P in (1, 10) for A in (1, 3) for k in sorted({P, 10})]
-    cases.append((20_000, 40, 3, 40))
+    cases += [(20_000, P, 3, P) for P in (3, 32, 33, 40, 100)]
     for Q, P, A, k in cases:
         pred, actual, counts = ranking_case(torch, rng, Q, P, A, device)
-        before = topk.ranking_metrics_batch.launches.value
-        got = topk.ranking_metrics_batch(pred, actual, counts, k)
-        if topk.ranking_metrics_batch.launches.value != before + 1:
-            raise AssertionError("K3 did not count its launch")
         want = topk.ranking_metrics_batch_reference(pred, actual, counts, k)
-        torch.cuda.synchronize()
-        what = f"Q={Q} P={P} A={A} k={k}"
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])):
-            raise AssertionError(f"K3 precision/valid differ from the plain version: {what}")
-        for name, a, b in (("ap", got[1], want[1]), ("ndcg", got[2], want[2])):
-            e = float((a - b).abs().max())
-            err = max(err, e)
-            if not e <= 1e-6:
-                raise AssertionError(f"K3 {name} off by {e}: {what}")
+        for fn in (topk.ranking_metrics_batch, topk._ranking_metrics_warp):
+            before = fn.launches.value
+            got = fn(pred, actual, counts, k)
+            if fn.launches.value != before + 1:
+                raise AssertionError(f"{fn.__name__} did not count its launch")
+            torch.cuda.synchronize()
+            what = f"{fn.__name__} Q={Q} P={P} A={A} k={k}"
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])):
+                raise AssertionError(f"K3 precision/valid differ from the plain version: {what}")
+            for name, a, b in (("ap", got[1], want[1]), ("ndcg", got[2], want[2])):
+                e = float((a - b).abs().max())
+                err = max(err, e)
+                if not e <= 1e-6:
+                    raise AssertionError(f"K3 {name} off by {e}: {what}")
         hits = int((got[0] > 0).sum())
-        log(f"K3 {what}: equal to plain ({hits} rows with hits, "
+        log(f"K3 Q={Q} P={P} A={A} k={k} ({topk.k3_group(P)} lanes a row): equal to plain, "
+            f"and so is the one-warp design ({hits} rows with hits, "
             f"{int((~got[3]).sum())} empty)")
     stats["k3_max_abs_err"] = err
 
@@ -3225,8 +3311,8 @@ def same_table(torch, a, b) -> bool:
 @phase("eval: K1s (the candidate axis) at the ML-20M shape, rank 20")
 def k1s_vs_k1(torch, device, stats):
     """K1s at the ML-20M shape (the train phase's layout), rank 20 f32, a
-    4-candidate lambda sweep of 2 iterations: one launch per bucket per
-    half-step for all 4 (its counter), each candidate bit-identical to
+    4-candidate lambda sweep of 2 iterations: K1s's launches of a bucket
+    serving all 4 (its counter), each candidate bit-identical to
     ``als_train`` of that candidate alone from the same init; a
     one-candidate sweep bit-identical to K1; ranks 10 and 20 split into
     two groups by the cost model; ranks 10, 20, 20, 20 as one padded
@@ -3240,7 +3326,7 @@ def k1s_vs_k1(torch, device, stats):
     if data is None:
         rows, cols, vals, nu, ni = stats.get("ml20m_arrays") or make_ml_shaped("20m")
         data = stats["ml20m"] = als.build_ratings_data(rows, cols, vals, nu, ni)
-    per_iter = k1_launches_per_iteration(data, 20)
+    per_iter = k1s_launches_per_iteration(data, 20)
     ps = k1s_params([(20, reg, 3 + c) for c, reg in enumerate(K1S_REGS)])
     als.solve_bucket_sweep.launches.reset()
     out = als.als_train_sweep(data, ps, device)
@@ -3265,7 +3351,7 @@ def k1s_vs_k1(torch, device, stats):
     als.solve_bucket_sweep.launches.reset()
     als.als_train_sweep(data, mixed, device)
     groups = als.solve_bucket_sweep.launches.value
-    expect = 2 * (k1_launches_per_iteration(data, 10) + per_iter)
+    expect = 2 * (k1s_launches_per_iteration(data, 10) + per_iter)
     if groups != expect:
         raise AssertionError(f"ranks 10 + 20: {groups} launches, expected two groups' {expect}")
     padded = k1s_params([(10, 0.05, 3), (20, 0.05, 4), (20, 0.1, 5), (20, 0.2, 6)])
@@ -3312,6 +3398,107 @@ def k1s_iteration_vs_plain(torch, data, params, device) -> float:
         raise AssertionError(f"K1s 1 iteration (ranks {ranks}) differs from its plain "
                              f"version (max abs {err})")
     return err
+
+
+K1S_FORMS = (  # (storage, compute) of the bucket-level K1s checks
+    ("float32", "float32"), ("bfloat16", "bfloat16"), ("int8", "float32"))
+
+
+def k1s_buckets_hold(torch, device, data, group, what: str) -> int:
+    """K1s on every bucket of ``data`` (both sides) for the candidates
+    ``group`` (ALSParams: rank, reg; a candidate below the group's rank D
+    zero-padded to it), for each storage of :data:`K1S_FORMS`, explicit
+    and implicit (alpha 1, 40, 3, ...), from random entry-major stacks:
+    the redesigned kernel (``solve_bucket_sweep``), the earlier design
+    (``_solve_bucket_sweep_grid``, K1's launches on the candidate axis, on
+    contiguous copies) and K1 alone for each candidate (``solve_bucket``)
+    write bit-identical tables; the C entry's plan is ``k1s_plan``'s.
+    Returns the buckets held."""
+    from predictionio_tpu_torch.ops import als
+
+    C, D = len(group), max(p.rank for p in group)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 7)
+    regs = torch.tensor([p.reg for p in group], dtype=torch.float32, device=device)
+    alphas = torch.tensor([1.0, 40.0, 3.0, 0.5][:C] + [2.0] * max(0, C - 4),
+                          dtype=torch.float32, device=device)
+    cols = torch.arange(D, device=device)
+    live = torch.stack([(cols < p.rank).float() for p in group])[:, None, :]  # padding
+
+    held = 0
+    for storage, compute in K1S_FORMS:
+        for implicit in (False, True):
+            weighted = not implicit
+            for nt, no, buckets in ((data.num_rows, data.num_cols, data.row_buckets),
+                                    (data.num_cols, data.num_rows, data.col_buckets)):
+                O = torch.randn((C, no, D), generator=gen, device=device) / D ** 0.5 * live
+                T0 = torch.randn((C, nt, D), generator=gen, device=device) * live
+                other = als.entry_major(als.to_storage(O, storage))
+                other_g = (tuple(t.contiguous() for t in other) if isinstance(other, tuple)
+                           else other.contiguous())
+                gram = als.compute_gram(other, compute) if implicit else None
+                for b in als.device_buckets(buckets, device):
+                    new = als.entry_major(als.to_storage(T0.clone(), storage))
+                    old = als.to_storage(T0.clone(), storage)
+                    n0 = als.solve_bucket_sweep.launches.value
+                    als.solve_bucket_sweep(other, b.col_ids, b.ratings, b.mask, b.seg_start,
+                                           regs, new, b.row_ids, weighted_reg=weighted,
+                                           compute_dtype=compute, implicit=implicit,
+                                           alphas=alphas, gram=gram)
+                    R, B = b.row_ids.shape[0], b.col_ids.shape[0]
+                    if als.solve_bucket_sweep.launches.value - n0 != als.k1s_launches(D, R, B):
+                        raise AssertionError(f"{what}: K1s launch count")
+                    plan = als.solve_bucket_sweep.last_plan
+                    if plan != als.k1s_plan(C, D):
+                        raise AssertionError(f"{what}: the C plan {plan} is not "
+                                             f"k1s_plan's {als.k1s_plan(C, D)}")
+                    als._solve_bucket_sweep_grid(other_g, b.col_ids, b.ratings, b.mask,
+                                                 b.seg_start, regs, old, b.row_ids,
+                                                 weighted_reg=weighted, compute_dtype=compute,
+                                                 implicit=implicit, alphas=alphas, gram=gram)
+                    for c in range(C):
+                        alone = als.to_storage(T0[c].clone(), storage)
+                        als.solve_bucket(als._candidate(other_g, c, D), b.col_ids, b.ratings,
+                                         b.mask, b.seg_start, float(regs[c]),
+                                         weighted_reg=weighted, compute_dtype=compute,
+                                         target=alone, row_ids=b.row_ids, return_x=False,
+                                         implicit=implicit, alpha=float(alphas[c]),
+                                         gram=None if gram is None else gram[c].contiguous())
+                        mine = als._candidate(new, c, D)
+                        if not (same_table(torch, mine, alone)
+                                and same_table(torch, als._candidate(old, c, D), alone)):
+                            raise AssertionError(
+                                f"{what} {storage}/{compute} implicit={implicit} bucket K="
+                                f"{b.col_ids.shape[1]} candidate {c}: the new K1s, the earlier "
+                                "design and K1 alone differ")
+                    held += 1
+    torch.cuda.synchronize()
+    return held
+
+
+@phase("eval: K1s redesigned vs the earlier design and K1 alone (bucket level)")
+def k1s_new_vs_old(torch, device, stats):
+    """:func:`k1s_buckets_hold` at the ML-20M shape (rank 20, the C = 4
+    lambda sweep; ranks 10 + 20 + 20 padded to 20) and at the eval main
+    path's shapes (the first ML-1M fold's buckets and its groups: ranks 5
+    C = 1, 10 C = 2, 20 C = 1): every bucket, segmented ones included, bit
+    for bit across the three."""
+    from predictionio_tpu_torch.ops import als
+
+    data = stats["ml20m"]
+    ps = k1s_params([(20, reg, 3 + c) for c, reg in enumerate(K1S_REGS)])
+    padded = k1s_params([(10, 0.05, 3), (20, 0.1, 4), (20, 0.2, 5)])
+    held = k1s_buckets_hold(torch, device, data, ps, "ML-20M rank 20 C=4")
+    held += k1s_buckets_hold(torch, device, data, padded, "ML-20M ranks 10/20/20")
+    fold, groups = stats["eval_fold"]
+    for g in groups:
+        held += k1s_buckets_hold(torch, device, fold, g,
+                                 f"ML-1M fold rank {max(p.rank for p in g)} C={len(g)}")
+    plans = {f"rank {max(p.rank for p in g)} C={len(g)}": dataclasses.asdict(
+        als.k1s_plan(len(g), max(p.rank for p in g))) for g in [ps, *groups]}
+    stats["k1s_plans"] = plans
+    log(f"K1s: {held} bucket solves bit-identical across the redesign, the earlier design "
+        f"and K1 alone ({len(K1S_FORMS)} storages x explicit/implicit); plans {plans}")
 
 
 def per_query_sums(chunk) -> tuple:
@@ -3459,7 +3646,7 @@ def eval_sweep(torch, device, stats):
     if not diff <= 1e-6:
         raise AssertionError(f"fast-path scores differ from the per-query functions by {diff}")
 
-    k1s_err = eval_k1s_holds(torch, device, rec, sweeps, k1s)
+    k1s_err = eval_k1s_holds(torch, device, rec, sweeps, k1s, stats)
     stats["k1s_max_abs_err"] = max(stats.get("k1s_max_abs_err", 0.0), k1s_err)
     stats["topk_items_max_abs_err"] = max(stats.get("topk_items_max_abs_err", 0.0),
                                           eval_topk_holds(torch, device, topk, answers))
@@ -3478,14 +3665,15 @@ def eval_sweep(torch, device, stats):
     log(json.dumps({"eval": "recommendation_eval sweep", **stats["eval"]}))
 
 
-def eval_k1s_holds(torch, device, rec, sweeps, k1s: int) -> float:
+def eval_k1s_holds(torch, device, rec, sweeps, k1s: int, stats) -> float:
     """K1s at the shapes the eval main path gave it, on what it recorded
     (``sweeps``: each fold's training data, candidate params and swept
     models): ``k1s`` launches equal to the groups' (``als.sweep_groups``)
     iterations x K1 launches an iteration; each candidate's factors
     bit-identical to ``ALSAlgorithm.train`` of it alone on the same fold;
     one iteration of each group against the plain version on the first
-    fold. Returns the max abs error of the plain comparisons."""
+    fold, whose layout and groups go to ``stats["eval_fold"]``. Returns
+    the max abs error of the plain comparisons."""
     from predictionio_tpu_torch.core.context import WorkflowContext
     from predictionio_tpu_torch.ops import als
 
@@ -3500,9 +3688,12 @@ def eval_k1s_holds(torch, device, rec, sweeps, k1s: int) -> float:
         cands = [als.ALSParams(rank=p.rank, iterations=p.num_iterations, reg=p.lambda_,
                                seed=p.seed, compute_dtype=p.compute_dtype,
                                storage_dtype=p.storage_dtype) for p in plist]
+        if f == 0:
+            stats["eval_fold"] = (data, [[cands[i] for i in idx]
+                                         for idx in als.sweep_groups(cands)])
         for idx in als.sweep_groups(cands):
             rank = max(cands[i].rank for i in idx)
-            expect += cands[0].iterations * k1_launches_per_iteration(data, rank)
+            expect += cands[0].iterations * k1s_launches_per_iteration(data, rank)
             if f == 0:
                 shapes.append(f"rank {rank} C={len(idx)}")
                 one = [als.ALSParams(rank=cands[i].rank, iterations=1, reg=cands[i].reg,
@@ -3593,13 +3784,16 @@ def eval_cli(cli, storage, app: str) -> dict:
 def eval_timings(torch, device, stats):
     """Device time per call (torch.profiler) of K3 at an ML-1M fold (Q =
     333,334, P = A = 1, k = 1: the shipped sweep's shape; and P = 10, A =
-    3), of K2 at the eval shape (B = 333,334 indices into a 6,040-row
-    user table, D = 20, f32 and int8, k in {1, 10}), and of one K1s
-    iteration at the ML-20M shape, rank 20, C = 4, against K1 alone on
-    the same tables 4 times, each beside its plain version, its library
-    yardstick (``torch.topk(U[ixs] @ V.T)``; K1s: the
-    gather + bmm + cholesky path per bucket and candidate; none for K3)
-    and its bound from this run's inputs."""
+    3) beside its earlier one-warp design, of K2 at the eval shape (B =
+    333,334 indices into a 6,040-row user table, D = 20, f32 and int8, k
+    in {1, 10}), and of one K1s iteration at the ML-20M shape, rank 20, C
+    = 4, beside its earlier design and K1 alone on the same tables 4
+    times, on every clock (:func:`k1s_clocks`), and at the eval path's
+    shapes (the first ML-1M fold's groups) beside its earlier design;
+    each beside its plain version, its library yardstick
+    (``torch.topk(U[ixs] @ V.T)``; K1s: the gather + bmm + cholesky path
+    per bucket and candidate; none for K3) and its bound from this run's
+    inputs."""
     from predictionio_tpu_torch.ops import als, topk
 
     mem_rate, fp32_rate = peaks(stats["device_name"])
@@ -3614,12 +3808,25 @@ def eval_timings(torch, device, stats):
         pred, actual, counts = ranking_case(torch, rng, EVAL_Q, P, A, device)
         nbytes = EVAL_Q * (P + A + 1) * 4 + EVAL_Q * 13
         b_ms, b_by = bound(nbytes, 0)
-        dev = device_ms(torch, lambda: topk.ranking_metrics_batch(pred, actual, counts, P))
+
+        def kernel():
+            topk.ranking_metrics_batch(pred, actual, counts, P)
+
+        def warp():  # the earlier design, one warp a row: the same-run baseline
+            topk._ranking_metrics_warp(pred, actual, counts, P)
+
+        # the two designs in turns: new, old, old, new
+        dev = [_total(device_ms(torch, fn)) for fn in (kernel, warp, warp, kernel)]
         plain = device_ms(torch, lambda: topk.ranking_metrics_batch_reference(
             pred, actual, counts, P), runs=10)
         row = {"kernel": "ranking_metrics_batch", "Q": EVAL_Q, "P": P, "A": A, "k": P,
-               "kernel_device_ms": _total(dev), "kernel_ms": cuda_median_ms(
-                   torch, lambda: topk.ranking_metrics_batch(pred, actual, counts, P)),
+               "group": topk.k3_group(P),
+               "kernel_device_ms": None if None in dev else (dev[0] + dev[3]) / 2,
+               "kernel_device_ms_runs": [dev[0], dev[3]],
+               "kernel_ms": cuda_median_ms(torch, kernel),
+               "baseline_device_ms": None if None in dev else (dev[1] + dev[2]) / 2,
+               "baseline_device_ms_runs": [dev[1], dev[2]],
+               "baseline_ms": cuda_median_ms(torch, warp),
                "plain_device_ms": _total(plain), "plain_ms": cuda_median_ms(
                    torch, lambda: topk.ranking_metrics_batch_reference(
                        pred, actual, counts, P), runs=10, warmup=3),
@@ -3670,27 +3877,15 @@ def eval_timings(torch, device, stats):
             log(json.dumps(row))
     stats["topk_items_timings"] = items6
 
+    mem_rate, fp32_rate = peaks(stats["device_name"])
     data = stats["ml20m"]
     ps = k1s_params([(20, reg, 3 + c) for c, reg in enumerate(K1S_REGS)], iterations=1)
     C = len(ps)
-    U0, V0 = als.sweep_init(data, ps, device)
-    regs = torch.tensor(K1S_REGS, dtype=torch.float32, device=device)
-    alphas = torch.ones_like(regs)
     rb = als.device_buckets(data.row_buckets, device)
     cb = als.device_buckets(data.col_buckets, device)
-    U, V = U0.clone(), V0.clone()
-    def sweep_iteration():
-        als._half_step(U, V, rb, ps[0], regs, alphas)
-        als._half_step(V, U, cb, ps[0], regs, alphas)
-
-    sweep = device_ms(torch, sweep_iteration, runs=5)
-    U1, V1 = U0[0].clone(), V0[0].clone()
-
-    def k1_iteration():
-        als._half_step(U1, V1, rb, ps[0])
-        als._half_step(V1, U1, cb, ps[0])
-
-    alone = device_ms(torch, k1_iteration, runs=5)
+    clocks = k1s_clocks(torch, als, data, ps, rb, cb, runs=5, alone=True)
+    regs = torch.tensor(K1S_REGS, dtype=torch.float32, device=device)
+    U0, V0 = als.sweep_init(data, ps, device)
     Up, Vp = U0.clone(), V0.clone()
 
     def plain_iteration_c():
@@ -3706,29 +3901,113 @@ def eval_timings(torch, device, stats):
                 for c in range(C):
                     library_solve(torch, other[c], b, seg, K1S_REGS[c])
 
-    nbytes = flops = 0
-    for b in rb + cb:
-        _, bb, ff = k1_bound(torch, b, 20, 4, 0)
-        R = b.row_ids.shape[0]
-        n_other = int(torch.unique(b.col_ids[b.mask > 0]).numel())
-        tables = (n_other + R) * 20 * 4
-        nbytes += bb - tables + C * tables
-        flops += C * ff
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by, nbytes, flops = k1s_iteration_bound(torch, rb + cb, 20, C, mem_rate, fp32_rate)
     stats["k1s_timings"] = {
-        "C": C, "rank": 20, "kernel_device_ms": _total(sweep),
-        "k1_alone_device_ms": _total(alone),
-        "k1_alone_x_C_device_ms": None if _total(alone) is None else C * _total(alone),
-        "kernel_ms": cuda_median_ms(torch, sweep_iteration, runs=5, warmup=2),
+        "C": C, "rank": 20, "plan": dataclasses.asdict(als.k1s_plan(C, 20)), **clocks,
         "plain_ms": cuda_median_ms(torch, plain_iteration_c, runs=2, warmup=1),
         "library_ms": cuda_median_ms(torch, library_iteration, runs=2, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops}
     log(json.dumps({"k1s": "one iteration, ML-20M rank 20 f32", **stats["k1s_timings"]}))
 
+    # the eval main path's shapes: the first fold's buckets, its groups
+    fold, groups = stats["eval_fold"]
+    frb = als.device_buckets(fold.row_buckets, device)
+    fcb = als.device_buckets(fold.col_buckets, device)
+    rows = []
+    for g in groups:
+        D, Cg = max(p.rank for p in g), len(g)
+        one = [dataclasses.replace(p, iterations=1) for p in g]
+        row = {"rank": D, "C": Cg, "plan": dataclasses.asdict(als.k1s_plan(Cg, D)),
+               **k1s_clocks(torch, als, fold, one, frb, fcb, runs=20, alone=False)}
+        row["bound_ms"], row["bound_by"], _, _ = k1s_iteration_bound(
+            torch, frb + fcb, D, Cg, mem_rate, fp32_rate)
+        rows.append(row)
+        log(json.dumps({"k1s": "one iteration, an ML-1M fold (eval path)", **row}))
+    stats["k1s_eval_timings"] = rows
+
+
+def k1s_iteration_bound(torch, buckets, D: int, C: int, mem_rate, fp32_rate):
+    """(bound ms, what bounds it, bytes, FP32 operations) of one K1s
+    iteration of C candidates at rank D over ``buckets`` (f32 tables):
+    :func:`k1_bound` of each bucket, its tables' bytes and its operations
+    taken C times."""
+    nbytes = flops = 0
+    for b in buckets:
+        _, bb, ff = k1_bound(torch, b, D, 4, 0)
+        R = b.row_ids.shape[0]
+        n_other = int(torch.unique(b.col_ids[b.mask > 0]).numel())
+        tables = (n_other + R) * D * 4
+        nbytes += bb - tables + C * tables
+        flops += C * ff
+    by = "bytes" if nbytes / mem_rate >= flops / fp32_rate else "operations"
+    return max(nbytes / mem_rate, flops / fp32_rate) * 1e3, by, nbytes, flops
+
+
+def k1s_clocks(torch, als, data, params, rb, cb, runs: int, alone: bool) -> dict:
+    """One K1s iteration (f32, explicit) of the candidates ``params`` on
+    :func:`clock_readings`' clocks: the redesigned kernel
+    (``solve_bucket_sweep`` through ``_half_step``), the earlier design on
+    contiguous stacks (``_solve_bucket_sweep_grid``) and, with ``alone``,
+    K1 on each candidate's table in turn -- in turns new, old, [alone,]
+    old, new, from the same init. ``ms``/``baseline_ms``/``k1_alone_ms``:
+    the mean of the readings on the queued-events clock (device time with
+    no host gaps), the clock every K1s and K1 time is stated on: a
+    profiler trace now and then holds only some of an iteration's
+    launches (``launches_held`` against ``launches_made``), and its
+    per-launch mean times the launches a call then reads low;
+    ``device_ms`` (torch.profiler) stays beside it."""
+    device = rb[0].col_ids.device
+    C, D = len(params), max(p.rank for p in params)
+    per = k1s_launches_per_iteration(data, D)
+    per_k1 = k1_launches_per_iteration(data, D)  # the earlier design's, and K1's
+    regs = torch.tensor([p.reg for p in params], dtype=torch.float32, device=device)
+    alphas = torch.ones_like(regs)
+    U0, V0 = als.sweep_init(data, params, device)
+    U, V = U0.clone(), V0.clone()
+    Ug, Vg = U0.contiguous(), V0.contiguous()
+    U1 = [U0[c].contiguous() for c in range(C)]
+    V1 = [V0[c].contiguous() for c in range(C)]
+
+    def new():
+        als._half_step(U, V, rb, params[0], regs, alphas)
+        als._half_step(V, U, cb, params[0], regs, alphas)
+
+    def old():
+        for target, other, buckets in ((Ug, Vg, rb), (Vg, Ug, cb)):
+            for b in buckets:
+                als._solve_bucket_sweep_grid(other, b.col_ids, b.ratings, b.mask, b.seg_start,
+                                             regs, target, b.row_ids, alphas=alphas)
+
+    def k1_alone():
+        for c in range(C):
+            als._half_step(U1[c], V1[c], rb, params[c])
+            als._half_step(V1[c], U1[c], cb, params[c])
+
+    order = [("new", new, per), ("old", old, per_k1)]
+    if alone:
+        order.append(("k1_alone", k1_alone, C * per_k1))
+    order += [("old", old, per_k1), ("new", new, per)]
+    read: dict = {}
+    for name, fn, n in order:
+        read.setdefault(name, []).append(clock_readings(torch, fn, n, runs=runs))
+    out: dict = {}
+    for name, rs in read.items():
+        dev = [r["device_ms"] for r in rs]
+        out[name] = {"queued_ms": sum(r["queued_ms"] for r in rs) / len(rs),
+                     "device_ms": None if None in dev else sum(dev) / len(dev),
+                     "launches_held": [r["launches_held"] for r in rs],
+                     "launches_made": [r["launches_made"] for r in rs], "readings": rs}
+    return {"clock": "queued CUDA events", "ms": out["new"]["queued_ms"],
+            "baseline_ms": out["old"]["queued_ms"],
+            "k1_alone_ms": out["k1_alone"]["queued_ms"] if alone else None,
+            "launches_per_iteration": per, "baseline_launches_per_iteration": per_k1,
+            "clocks": out}
+
 
 def eval_phase(torch, device, stats):
     """The evaluation slice's checks, main path and times, in order."""
-    for step in (k3_vs_plain, topk_items_vs_plain, k1s_vs_k1, eval_sweep, eval_timings):
+    for step in (k3_vs_plain, topk_items_vs_plain, k1s_vs_k1, eval_sweep, k1s_new_vs_old,
+                 eval_timings):
         if failures:
             return
         step(torch, device, stats)
@@ -6074,8 +6353,11 @@ def k5_summary(stats) -> dict:
 
 def k3_summary(stats) -> dict:
     """K3's line: one ML-1M fold of the shipped sweep (Q = 333,334, P = A
-    = k = 1); launches from the sweep's main path."""
+    = k = 1), lanes sized to the cutoff; launches from the sweep's main
+    path; ``baseline_ms``: the earlier one-warp-a-row design on the same
+    inputs in this run."""
     rep = stats["k3_timings"][0]
+    dev = None not in (rep["kernel_device_ms"], rep["baseline_device_ms"])
     return {
         "name": "ranking_metrics_batch",
         "route": "cuda",
@@ -6083,11 +6365,13 @@ def k3_summary(stats) -> dict:
         "replaces": "predictionio_tpu/ops/topk.py:179",
         "launches": stats["eval_launches"]["k3"],
         "max_abs_err": stats["k3_max_abs_err"],
-        "ms": rep["kernel_device_ms"] or rep["kernel_ms"],
+        "ms": rep["kernel_device_ms"] if dev else rep["kernel_ms"],
         "plain_ms": rep["plain_device_ms"] or rep["plain_ms"],
         "bound_ms": rep["bound_ms"],
         "bound_by": rep["bound_by"],
         "library_ms": None,
+        "design": f"lanes a query row: {rep['group']}",
+        "baseline_ms": rep["baseline_device_ms"] if dev else rep["baseline_ms"],
     }
 
 
@@ -6115,9 +6399,12 @@ def topk_items_summary(stats) -> dict:
 
 
 def k1s_summary(stats) -> dict:
-    """K1s's line: one iteration of 4 candidates at ML-20M rank 20 f32;
-    launches from the sweep's main path; ``k1_alone_x_C_ms``: K1 on the
-    same tables, one candidate at a time, in this run."""
+    """K1s's line: one iteration of 4 candidates at ML-20M rank 20 f32
+    (device ms on the queued-events clock, :func:`k1s_clocks`); launches
+    from the sweep's main path; ``baseline_ms``: the earlier design (K1's
+    launches on the candidate axis) and ``k1_alone_x_C_ms``: K1 on the
+    same tables, one candidate at a time, both in this run on the same
+    clock; ``eval_groups``: the same at the eval path's shapes."""
     t = stats["k1s_timings"]
     return {
         "name": "solve_bucket_sweep",
@@ -6126,12 +6413,18 @@ def k1s_summary(stats) -> dict:
         "replaces": "predictionio_tpu/ops/als.py:1088",
         "launches": stats["eval_launches"]["k1s"],
         "max_abs_err": stats["k1s_max_abs_err"],
-        "ms": t["kernel_device_ms"] or t["kernel_ms"],
+        "ms": t["ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
-        "k1_alone_x_C_ms": t["k1_alone_x_C_device_ms"],
+        "baseline_ms": t["baseline_ms"],
+        "k1_alone_x_C_ms": t["k1_alone_ms"],
+        "clock": t["clock"],
+        "plan": t["plan"],
+        "eval_groups": [{k: g[k] for k in ("rank", "C", "ms", "baseline_ms", "bound_ms",
+                                           "launches_per_iteration")}
+                        for g in stats["k1s_eval_timings"]],
     }
 
 

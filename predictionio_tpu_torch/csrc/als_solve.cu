@@ -119,25 +119,81 @@
 //   substitutions: what the warp route removes at D <= 32.
 //
 // K1s, the candidate axis (replaces predictionio_tpu/ops/als.py:1088
-//   _train_fused_sweep, the vmapped program of :1132 als_train_sweep):
-//   every launch above takes C candidates as gridDim.y. Candidate c reads
-//   its own opposite table (and int8 scales), reg, alpha and Gramian and
-//   writes its own target, x and workspace, at a per-candidate stride
-//   (struct Cand); the bucket arrays are shared, so one launch per bucket
-//   per half-step serves all C trainings and reads the bucket once into
-//   L2 for all of them. Each candidate's arithmetic is a one-candidate
-//   launch's, so candidate c of a sweep is bit-identical to its training
-//   alone from the same init. A rank-r candidate padded to the sweep's
-//   rank D with zero columns keeps them exactly zero: its A is
-//   [[A_r, 0], [0, lam I]], every product of a zero column adds +-0, and
-//   the eliminations and substitutions subtract exact zeros from the
-//   real block. Bound: C times K1's, per iteration (about 0.3 ms a
-//   candidate at the ML-20M shape, rank 20), the factor tables of all C
-//   candidates now sharing the 50 MB L2.
+//   _train_fused_sweep, the vmapped program of :1132 als_train_sweep): C
+//   candidate trainings with their own reg, alpha, init and rank (zero-
+//   padded to the sweep's rank D) on the same buckets, the launches of a
+//   bucket's half-step serving all of them (pio_k1s_sweep). Candidate c's
+//   every operation is K1 alone's, in
+//   its order, so its tables are bit-identical to its training alone. A
+//   rank-r candidate padded to D keeps its padded columns exactly zero:
+//   its A is [[A_r, 0], [0, lam I]], every product of a zero column adds
+//   +-0, and the eliminations and substitutions subtract exact zeros from
+//   the real block.
 //
-// Later work: fewer shared-memory reads per product (register blocking);
-//   cp.async / TMA prefetch of the next tile, and the gather's loads
-//   issued before their use; registers, the tile width and warps per
+//   Layout: the sweep keeps its stacks entry-major, [N, C, D] (int8
+//   scales [N, C]), so one entry's C candidate rows are C * D contiguous
+//   values: a warp gathers a chunk of them 16 bytes a lane.
+//
+//   Design, D <= WARP_MAX_D (ops/als.py k1s_route): two launches a
+//   bucket, the accumulation into a workspace (sweep_kernel), then the
+//   finish -- a thread a system (sweep_system_kernel) where the systems
+//   (solved rows x candidates) are K1S_THREAD_SYSTEMS or more, a warp a
+//   row (sweep_row_kernel) where they are fewer. (The accumulation and a
+//   warp-a-row finish fused in one launch for unsegmented buckets
+//   measured slower on an H100 at every eval-sweep group, and the finish
+//   fused into the accumulating warp slower at the ML-20M shape: the
+//   finish's latency and registers held the accumulation's warps.)
+//   - The accumulation: one warp a table row for a chunk of cw candidates
+//     (k1s_plan; chunks on gridDim.y only where cw < C). The warp reads a
+//     tile's 32 entries (col, mask, rating) once, a tile ahead, computes
+//     each candidate's weights (alpha differs in implicit mode), and
+//     stages, per entry and candidate, X = [w*g, r] and Y = g in shared
+//     memory, a lane's loads of the entries' rows in flight together
+//     (GATHER_BATCH). Each candidate's sums form a (D + 1) x D lower
+//     trapezoid: A's lower triangle, then b as the row X = r. A lane owns
+//     up to K1S_MAX_NB blocks of S x S of the chunk's trapezoids (S = 1,
+//     2 or 4 by the plan's cost model): a tile entry reads S values of X
+//     and S of Y and makes S * S products, so a product costs 2 / S
+//     shared-memory words -- 0.5 at S = 4, the plan's choice from rank 10
+//     up (ML-20M C = 4; the eval sweep's rank-10 and rank-20 groups),
+//     against 2 in K1's one entry a lane; S = 1 only where 4 x 4 blocks
+//     would leave most lanes idle (rank 5, C = 1: 20 sums a row). Every
+//     sum is K1's: a tile's 32 products of an entry with fmaf in entry
+//     order from 0.0f, then added to its running sum. Each candidate's
+//     sums, n and flag go to the workspace [C, B, D(D+3)/2 + 2], as K1's
+//     warp_partials_kernel writes them.
+//   - The finish, a warp a row: each candidate D lanes, lane i holding
+//     row i, the Cholesky left-looking (row i's entry k takes its fmaf
+//     chain over j < k in order, then sqrtf or / L[k][k]: the chain K1's
+//     right-looking updates make). Its latency is a warp's D column steps
+//     and 2D substitution steps a pass of 32 / D candidates.
+//   - The finish, a thread a system: one thread a (solved row, candidate), 32 of them
+//     a warp in shared memory, entry-major (no bank conflicts): the
+//     segments' partials summed in segment order from the first, then
+//     K1's warp_finish entry by entry, in its order (regularizer,
+//     Gramian, Cholesky column by column, both substitutions, the
+//     write-back). A warp a system spent a warp instruction on each of a
+//     system's O(D^3) steps, most lanes masked; a warp of 32 systems
+//     spends one on 32, with no shuffle or barrier; but one thread's
+//     O(D^3) chain is long, so it serves buckets with systems enough to
+//     fill the card. The split route's
+//     cost: the sums go through the workspace (D(D+3)/2 + 2 floats a
+//     table row and candidate, written once, read once).
+//   Ranks 33 .. MAX_D take the block kernel with the candidates on
+//   gridDim.y, at the entry-major row strides (Cand.ld, .sld, .tld,
+//   .tsld).
+//
+//   Bound: C times K1's, per iteration: at ML-20M rank 20, C = 4, 1.13 ms
+//   by operations (chip_smoke.py). The earlier design -- K1's launches with
+//   the candidates on gridDim.y, each reading the row's entries and its
+//   own [N, D] table, two shared words a product -- stays reachable only
+//   as chip_smoke.py's same-run baseline (ops/als.py
+//   _solve_bucket_sweep_grid).
+//
+// Later work: K1's own products register-blocked and its finish a
+//   thread a system, as K1s's are; cp.async / TMA prefetch of the next
+//   tile, and the gather's loads issued before their use (K1s batches
+//   them); registers, the tile width and warps per
 //   block; the warp route's design for D > 32 (several warps a row,
 //   split hot rows); mma.sync or wgmma for the Gramian at high rank.
 
@@ -175,6 +231,11 @@ struct Cand {
   size_t gram_cs;       // floats between their Gramians (D * D)
   size_t ws_cs;         // floats between their workspaces (B * (NE + 2))
   int C;                // candidates: gridDim.y
+  // rows of the tables (the block kernel): elements between two rows of
+  // the opposite table and of the target, and floats between two rows'
+  // int8 scales. D, 1, D, 1 for [N, D] tables; C * D, C, C * D, C for
+  // the entry-major [N, C, D] stacks of a sweep
+  size_t ld, sld, tld, tsld;
 };
 
 __device__ __forceinline__ float bf16_round(float x) {
@@ -230,20 +291,17 @@ __device__ __forceinline__ void owned_entries(int o, int stride, int D, int* xo,
   }
 }
 
-// x (sb[0 .. D-1], shared) -> x_out[r] and target[row_ids[r]], by the 32
-// lanes of one warp
-__device__ __forceinline__ void write_back(const float* sb, int lane, int D, int r,
-                                           float* x_out, void* target, int target_code,
-                                           float* target_scales, const int* row_ids) {
-  if (x_out != nullptr)
-    for (int d = lane; d < D; d += 32) x_out[(size_t)r * D + d] = sb[d];
-  if (target == nullptr) return;
-  const size_t row = (size_t)row_ids[r];
+// x (sb[0 .. D-1], shared) -> target row `row` in its storage dtype, by
+// the 32 lanes of one warp; the row starts at row * ld elements, its
+// int8 scale at target_scales[row * sld]
+__device__ __forceinline__ void write_row(const float* sb, int lane, int D, size_t row,
+                                          void* target, int target_code,
+                                          float* target_scales, size_t ld, size_t sld) {
   if (target_code == F32) {
-    float* tt = (float*)target + row * D;
+    float* tt = (float*)target + row * ld;
     for (int d = lane; d < D; d += 32) tt[d] = sb[d];
   } else if (target_code == BF16) {
-    __nv_bfloat16* tt = (__nv_bfloat16*)target + row * D;
+    __nv_bfloat16* tt = (__nv_bfloat16*)target + row * ld;
     for (int d = lane; d < D; d += 32) tt[d] = __float2bfloat16_rn(sb[d]);
   } else {
     float m = 0.0f;
@@ -253,13 +311,25 @@ __device__ __forceinline__ void write_back(const float* sb, int lane, int D, int
       m = nanmax(m, __shfl_xor_sync(FULL, m, off));
     float scale = __fdiv_rn(m, 127.0f);
     if (!(scale > 0.0f)) scale = 1.0f;
-    int8_t* tt = (int8_t*)target + row * D;
+    int8_t* tt = (int8_t*)target + row * ld;
     for (int d = lane; d < D; d += 32) {
       const float v = __fdiv_rn(sb[d], scale);
       tt[d] = v != v ? (int8_t)0 : (int8_t)(int)rintf(v);  // NaN -> 0, as XLA
     }
-    if (lane == 0) target_scales[row] = scale;
+    if (lane == 0) target_scales[row * sld] = scale;
   }
+}
+
+// x (sb[0 .. D-1], shared) -> x_out[r] and target[row_ids[r]], by the 32
+// lanes of one warp (write_row)
+__device__ __forceinline__ void write_back(const float* sb, int lane, int D, int r,
+                                           float* x_out, void* target, int target_code,
+                                           float* target_scales, const int* row_ids,
+                                           size_t ld, size_t sld) {
+  if (x_out != nullptr)
+    for (int d = lane; d < D; d += 32) x_out[(size_t)r * D + d] = sb[d];
+  if (target == nullptr) return;
+  write_row(sb, lane, D, (size_t)row_ids[r], target, target_code, target_scales, ld, sld);
 }
 
 template <typename T, int P>
@@ -355,7 +425,8 @@ solve_kernel(const T* __restrict__ other, const float* __restrict__ other_scales
       const int d = e - k * D;
       const int c = s_col[k];
       float g = 0.0f;
-      if (c >= 0) g = gathered(other, other_scales, (size_t)c * D + d, (size_t)c, bf16c);
+      if (c >= 0)
+        g = gathered(other, other_scales, (size_t)c * cand.ld + d, (size_t)c * cand.sld, bf16c);
       float wg = __fmul_rn(s_w[k], g);
       if (bf16c) wg = bf16_round(wg);
       tile[k * S + d] = wg;
@@ -391,8 +462,8 @@ solve_kernel(const T* __restrict__ other, const float* __restrict__ other_scales
   if (skipped) {
     int nonfinite = 0;
     for (int d = tid; d < D; d += THREADS) {
-      const float g =
-          gathered(other, other_scales, (size_t)s_col[0] * D + d, (size_t)s_col[0], bf16c);
+      const float g = gathered(other, other_scales, (size_t)s_col[0] * cand.ld + d,
+                               (size_t)s_col[0] * cand.sld, bf16c);
       nonfinite |= !isfinite(g);
     }
     bad = __syncthreads_or(nonfinite);
@@ -463,7 +534,8 @@ solve_kernel(const T* __restrict__ other, const float* __restrict__ other_scales
     __syncwarp();
   }
 
-  write_back(sb, lane, D, r, x_out, target, target_code, target_scales, row_ids);
+  write_back(sb, lane, D, r, x_out, target, target_code, target_scales, row_ids, cand.tld,
+             cand.tsld);
 }
 
 template <typename T, int P>
@@ -766,7 +838,8 @@ __device__ __forceinline__ void warp_finish(const Solve& a, int r, int lane, flo
   }
   if (lane < D) sb[lane] = x;
   __syncwarp();
-  write_back(sb, lane, D, r, a.x_out, a.target, a.target_code, a.target_scales, a.row_ids);
+  write_back(sb, lane, D, r, a.x_out, a.target, a.target_code, a.target_scales, a.row_ids, D,
+             1);
 }
 
 // One warp per row: a solved row's whole range, solved (PARTIALS false),
@@ -905,6 +978,831 @@ cudaError_t dispatch_warp(int launch, const Solve& a, cudaStream_t stream) {
   return launch_warp<T, 18>(launch, a, stream);
 }
 
+// -- K1s: the candidate axis, one warp a row for a chunk of candidates ------------
+
+constexpr int K1S_MAX_NB = 4;         // register blocks a lane owns at most (ops/als.py)
+constexpr int K1S_WARP_SMEM = 49152;  // bytes of one warp's tile at most
+constexpr int K1S_BLOCK_SMEM = 49152; // bytes of a block's tiles at most
+constexpr int K1S_MAX_WARPS = 8;      // warps (rows) a block at most
+// systems (solved row, candidate) from which the finish takes a thread a
+// system; below, a warp a row (ops/als.py K1S_THREAD_SYSTEMS)
+constexpr int K1S_THREAD_SYSTEMS = 16384;
+
+__host__ __device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
+__host__ __device__ __forceinline__ int imin(int x, int y) { return x < y ? x : y; }
+__host__ __device__ __forceinline__ int imax(int x, int y) { return x > y ? x : y; }
+
+// S x S blocks over the (D + 1) x D lower trapezoid of one candidate's
+// sums: row i < D holds A[i][k] for k <= i, row D holds b[k]. Row block I
+// (rows I*S .. I*S + S - 1) takes column blocks 0 .. k1s_row_blocks - 1.
+__host__ __device__ inline int k1s_row_blocks(int S, int D, int I) {
+  const int NJ = (D + S - 1) / S;
+  const int last = imin(I * S + S - 1, D) / S;
+  return imin(NJ, last + 1);
+}
+__host__ __device__ inline int k1s_blocks(int S, int D) {
+  int n = 0;
+  for (int I = 0; I < (D + S) / S; ++I) n += k1s_row_blocks(S, D, I);
+  return n;
+}
+
+// One entry's record for one candidate in the tile: X = wg[0 .. D-1], r
+// (padded to a multiple of 4), then Y = g[0 .. D-1] (padded to a multiple
+// of S). Where D is a multiple of 4 every record and both halves start
+// 16-byte aligned, and the gather writes 4 values a store.
+__host__ __device__ inline int k1s_lx(int, int D) { return round_up(D + 1, 4); }
+__host__ __device__ inline int k1s_record(int S, int D) {
+  return k1s_lx(S, D) + round_up(D, S);
+}
+// one warp's shared floats: the tile, then the weights w and the int8
+// scales, [32][cw] each
+__host__ __device__ inline int k1s_warp_floats(int S, int D, int cw) {
+  return 32 * cw * k1s_record(S, D) + 64 * cw;
+}
+// the finish's shared floats: a warp of 32 systems of D(D+3)/2 sums,
+// entry-major; or, a warp a row, cw candidates' D + 1 rows of lda floats
+__host__ __device__ inline int k1s_system_floats(int D) { return 32 * (D * (D + 3) / 2); }
+__host__ __device__ inline int k1s_lda(int D) { return round_up(D + 1, 4); }
+__host__ __device__ inline int k1s_row_floats(int D, int cw) { return cw * (D + 1) * k1s_lda(D); }
+
+// The plan of a sweep of C candidates at rank D (ops/als.py k1s_plan is
+// the same formula): for each block side S in {1, 2, 4}, the most
+// candidates a warp takes (cw, at most 32) with at most K1S_MAX_NB blocks
+// a lane and a warp's tile of at most K1S_WARP_SMEM bytes; the candidates
+// split into chunks of equal size (gridDim.y); an entry costs NB * max(S
+// * S, 8 * S) a chunk -- a lane's NB blocks of S * S FMAs (an SM issues 4
+// warp FMAs a clock) against their 2S shared words (one 32-word wavefront
+// a clock), whichever is larger -- times the chunks. The cheapest S wins,
+// the larger on a tie. warps: table rows a block, as many as
+// K1S_BLOCK_SMEM holds (at most K1S_MAX_WARPS).
+struct K1sPlan {
+  int cw, chunks, S, nb, warps;
+};
+__host__ inline K1sPlan k1s_plan(int C, int D) {
+  K1sPlan best{0, 0, 0, 0, 0};
+  long long best_cost = -1;
+  for (int S = 1; S <= 4; S *= 2) {
+    const int nblk = k1s_blocks(S, D);
+    int cw = imin(imin(C, 32), 32 * K1S_MAX_NB / nblk);
+    while (cw > 0 && 4 * k1s_warp_floats(S, D, cw) > K1S_WARP_SMEM) --cw;
+    if (cw == 0) continue;
+    const int chunks = (C + cw - 1) / cw;
+    cw = (C + chunks - 1) / chunks;
+    const int nb = (cw * nblk + 31) / 32;
+    const long long cost = (long long)nb * imax(S * S, 8 * S) * chunks;
+    if (best_cost < 0 || cost <= best_cost) {
+      best_cost = cost;
+      best = K1sPlan{cw, chunks, S, nb, 0};
+    }
+  }
+  best.warps = imax(1, imin(K1S_MAX_WARPS,
+                          K1S_BLOCK_SMEM / (4 * k1s_warp_floats(best.S, D, best.cw))));
+  return best;
+}
+
+// A sweep launch's arguments. The stacks are entry-major: candidate c's
+// row n of the opposite table starts at other[(n * C + c) * D] (its int8
+// scale at other_scales[n * C + c]), and the same for the target.
+struct Sweep {
+  const void* other;
+  const float* other_scales;
+  const int* col_ids;
+  const float* ratings;
+  const float* mask;
+  const int* seg_start;
+  int R, B, K, D, C;
+  int weighted, bf16c, implicit;
+  const float* regs;    // [C]
+  const float* alphas;  // [C]
+  const float* gram;    // [C, D, D] (implicit) or NULL
+  float* workspace;     // [C, B, D(D+3)/2 + 2]: a segmented bucket's partials
+  void* target;
+  int target_code;
+  float* target_scales;
+  const int* row_ids;
+  int vec;          // every chunk of an entry's rows 16-byte aligned: 16 bytes a lane
+  int cw, S, nblk;  // the plan (k1s_plan)
+  int warp_floats;  // a warp's shared floats
+};
+
+// x / d for 0 <= x < 2^16 and d <= 2^10, as (x * m) >> 32 with m = ceil(2^32 / d)
+__host__ __device__ __forceinline__ unsigned long long div_magic(int d) {
+  return ((1ull << 32) + d - 1) / d;
+}
+__device__ __forceinline__ int div_by(int x, unsigned long long m) {
+  return (int)(((unsigned long long)x * m) >> 32);
+}
+
+// 16 bytes of a factor table (as loaded) as floats, before any scale or
+// rounding; and one value's bits
+template <typename T>
+__device__ __forceinline__ void unpack16(const uint4& q, float* v);
+template <>
+__device__ __forceinline__ void unpack16<float>(const uint4& q, float* v) {
+  v[0] = __uint_as_float(q.x);
+  v[1] = __uint_as_float(q.y);
+  v[2] = __uint_as_float(q.z);
+  v[3] = __uint_as_float(q.w);
+}
+template <>
+__device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4& q, float* v) {
+  const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {  // a bf16 is the high half of its float
+    v[2 * j] = __uint_as_float(w[j] << 16);
+    v[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+  }
+}
+template <>
+__device__ __forceinline__ void unpack16<int8_t>(const uint4& q, float* v) {
+  const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) v[j] = (float)((int)(w[j >> 2] << (24 - 8 * (j & 3))) >> 24);
+}
+__device__ __forceinline__ unsigned raw_bits(const float* p) { return __float_as_uint(*p); }
+__device__ __forceinline__ unsigned raw_bits(const __nv_bfloat16* p) {
+  return (unsigned)*reinterpret_cast<const unsigned short*>(p) << 16;
+}
+__device__ __forceinline__ unsigned raw_bits(const int8_t* p) { return (unsigned)(int)*p; }
+template <typename T>
+__device__ __forceinline__ float unpack1(unsigned b);
+template <>
+__device__ __forceinline__ float unpack1<float>(unsigned b) { return __uint_as_float(b); }
+template <>
+__device__ __forceinline__ float unpack1<__nv_bfloat16>(unsigned b) { return __uint_as_float(b); }
+template <>
+__device__ __forceinline__ float unpack1<int8_t>(unsigned b) { return (float)(int)b; }
+// a raw value as gathered() gives it in the compute dtype (sc: its int8 scale)
+__device__ __forceinline__ float cooked(const float*, float v, float, bool bf16c) {
+  return bf16c ? bf16_round(v) : v;
+}
+__device__ __forceinline__ float cooked(const __nv_bfloat16*, float v, float, bool) {
+  return v;
+}
+__device__ __forceinline__ float cooked(const int8_t*, float q, float sc, bool bf16c) {
+  return bf16c ? bf16_round(__fmul_rn(q, bf16_round(sc))) : __fmul_rn(q, sc);
+}
+
+// Stage one tile: for entry k (0..31) and candidate c of the chunk, X =
+// w * g (rounded as K1 rounds it) and Y = g into the record at tile[(k *
+// cw + c) * SR], from the chunk's cn * D values of row col_k, which the
+// entry-major table keeps contiguous: 16 bytes a lane where a.vec, else
+// one value a lane, lanes on neighbouring values. A lane issues the loads
+// of GATHER_BATCH of its pieces before it uses the first, so a tile waits
+// for ceil(pieces / 32 / GATHER_BATCH) round trips to memory, not one a
+// piece; int8 scales are staged first (ssc, one round). An entry past the
+// row's end (col -1) has g = 0, as in K1.
+constexpr int GATHER_BATCH = 8;
+
+// A warp's gather constants, made once before its tiles: the magic
+// numbers of the divisions by D and by the pieces an entry takes (a
+// 64-bit division each, too slow for every tile).
+struct GatherShape {
+  int per, NV;  // values a piece, pieces an entry
+  unsigned long long mD, mV;
+};
+template <typename T>
+__device__ __forceinline__ GatherShape gather_shape(const Sweep& a, int cn) {
+  const int per = a.vec ? 16 / (int)sizeof(T) : 1;
+  const int NV = cn * a.D / per;
+  return GatherShape{per, NV, div_magic(a.D), div_magic(NV)};
+}
+
+template <typename T>
+__device__ __forceinline__ void sweep_gather(const Sweep& a, const GatherShape& gs, int c0,
+                                             int cn, float* tile, int ec, int lane) {
+  float* sw = tile + a.warp_floats - 64 * a.cw;  // w [32][cw]
+  float* ssc = sw + 32 * a.cw;                   // int8 scales [32][cw]
+  const int D = a.D, cw = a.cw;
+  const int SR = k1s_record(a.S, D);
+  const int LX = k1s_lx(a.S, D);
+  const unsigned long long mD = gs.mD;
+  const T* other = (const T*)a.other;
+  const bool bf16c = a.bf16c;
+  if (a.other_scales != nullptr) {  // lane k: its entry's scales, loads in flight together
+#pragma unroll 4
+    for (int c = 0; c < cn; ++c)
+      ssc[lane * cw + c] = ec >= 0 ? a.other_scales[(size_t)ec * a.C + c0 + c] : 0.0f;
+    __syncwarp();
+  }
+  constexpr int EPV = 16 / sizeof(T);
+  const int per = gs.per;  // values a lane takes at once
+  const bool quads = a.vec && D % 4 == 0;
+  const int NV = gs.NV;  // pieces of an entry
+  const unsigned long long mV = gs.mV;
+  for (int it0 = 0; it0 < NV; it0 += GATHER_BATCH) {
+    uint4 raw[GATHER_BATCH];
+    int ks[GATHER_BATCH], cols[GATHER_BATCH], f0s[GATHER_BATCH];
+#pragma unroll
+    for (int j = 0; j < GATHER_BATCH; ++j) {  // the batch's loads, all in flight
+      const int it = it0 + j;                 // warp-uniform: every lane shuffles
+      if (it < NV) {
+        const int e = it * 32 + lane;
+        const int k = div_by(e, mV);  // the entry
+        ks[j] = k;
+        f0s[j] = (e - k * NV) * per;  // the first value's place in the chunk
+        cols[j] = __shfl_sync(FULL, ec, k);
+        const T* p = other + ((size_t)cols[j] * a.C + c0) * D + f0s[j];
+        if (cols[j] < 0)
+          raw[j] = make_uint4(0u, 0u, 0u, 0u);
+        else if (a.vec)
+          raw[j] = *reinterpret_cast<const uint4*>(p);
+        else
+          raw[j].x = raw_bits(p);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < GATHER_BATCH; ++j) {
+      if (it0 + j < NV) {
+        float v[EPV];
+        if (a.vec)
+          unpack16<T>(raw[j], v);
+        else
+          v[0] = unpack1<T>(raw[j].x);
+        const int k = ks[j];
+        int c = div_by(f0s[j], mD);
+        int d = f0s[j] - c * D;
+        if (quads) {  // each 4 values one candidate's, 16-byte aligned: one store each
+#pragma unroll
+          for (int q = 0; q < EPV; q += 4) {
+            const float sc = a.other_scales != nullptr ? ssc[k * cw + c] : 0.0f;
+            const float w = sw[k * cw + c];
+            float4 g4, wg4;
+            float* g = &g4.x;
+            float* wg = &wg4.x;
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              g[u] = cols[j] >= 0 ? cooked(other, v[q + u], sc, bf16c) : 0.0f;
+              wg[u] = __fmul_rn(w, g[u]);
+              if (bf16c) wg[u] = bf16_round(wg[u]);
+            }
+            float* rec = tile + (k * cw + c) * SR;
+            *reinterpret_cast<float4*>(rec + d) = wg4;
+            *reinterpret_cast<float4*>(rec + LX + d) = g4;
+            d += 4;
+            if (d == D) {
+              d = 0;
+              ++c;
+            }
+          }
+          continue;
+        }
+#pragma unroll
+        for (int q = 0; q < EPV; ++q) {
+          if (q < per) {
+            const float sc = a.other_scales != nullptr ? ssc[k * cw + c] : 0.0f;
+            const float g = cols[j] >= 0 ? cooked(other, v[q], sc, bf16c) : 0.0f;
+            float wg = __fmul_rn(sw[k * cw + c], g);
+            if (bf16c) wg = bf16_round(wg);
+            float* rec = tile + (k * cw + c) * SR;
+            rec[d] = wg;
+            rec[LX + d] = g;
+            if (++d == D) {
+              d = 0;
+              ++c;
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// Block q of a lane: u = lane + 32 q over the chunk's cn * nblk blocks,
+// candidate after candidate, each candidate's row blocks I in order and
+// their column blocks J in order. c = -1: the lane has no block q.
+__device__ __forceinline__ void sweep_block(int u, int cn, int nblk, int S, int D, int& c,
+                                            int& i0, int& j0) {
+  c = -1;
+  i0 = j0 = 0;
+  if (u >= cn * nblk) return;
+  c = u / nblk;
+  int b = u - c * nblk;
+  int I = 0;
+  for (int n = k1s_row_blocks(S, D, 0); b >= n; n = k1s_row_blocks(S, D, ++I)) b -= n;
+  i0 = I * S;
+  j0 = b * S;
+}
+
+// S floats of shared memory at p (S-aligned) into v
+template <int S>
+__device__ __forceinline__ void lds(const float* p, float* v) {
+  if (S == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else if (S == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+  } else {
+    v[0] = p[0];
+  }
+}
+
+// One warp per table row for the chunk's candidates, each candidate's
+// partial sums written to the workspace (as K1's warp_partials_kernel
+// writes them). The accumulation is K1's warp_accumulate, per candidate,
+// with the row's entries read once: the same weights, the same gathered
+// values, each tile's 32 products of an entry of A or b into a partial
+// with fmaf in entry order from 0.0f, then added to its running sum; a
+// tile whose entries are all padding is skipped for the candidates it is
+// padding for. A lane owns NB blocks of S x S entries (sweep_block); for
+// each it reads S values of X and S of Y a tile entry and makes S * S
+// products: 2 / S shared words a product.
+template <typename T, int S, int NB>
+__global__ void __launch_bounds__(K1S_MAX_WARPS * 32)
+sweep_kernel(const Sweep a) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int r = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (r >= a.B) return;
+  const int D = a.D, cw = a.cw;
+  const int c0 = blockIdx.y * cw;
+  const int cn = imin(cw, a.C - c0);
+  const int off = warp * a.warp_floats;
+  float* tile = smem + off;
+  float* sw = tile + a.warp_floats - 64 * cw;
+  const int SR = k1s_record(S, D);
+  const int LX = k1s_lx(S, D);
+  const int step = cw * SR;  // floats between two entries' records of a candidate
+  const GatherShape gs = gather_shape<T>(a, cn);
+
+  int bc[NB], bx[NB], by[NB];  // each block's candidate, X offset, Y offset
+  float acc[NB][S][S];
+#pragma unroll
+  for (int q = 0; q < NB; ++q) {
+    int i0, j0;
+    sweep_block(lane + 32 * q, cn, a.nblk, S, D, bc[q], i0, j0);
+    bx[q] = bc[q] * SR + i0;
+    by[q] = bc[q] * SR + LX + j0;
+#pragma unroll
+    for (int x = 0; x < S; ++x)
+#pragma unroll
+      for (int y = 0; y < S; ++y) acc[q][x][y] = 0.0f;
+  }
+
+  const long long base = (long long)r * a.K;  // table row r
+  const long long total = a.K;
+  const unsigned all = cn == 32 ? FULL : (1u << cn) - 1u;
+  float n_acc = 0.0f;
+  unsigned skipped = 0;  // candidates that skipped a tile of padding (warp-uniform)
+  int pad_col = 0;       // lane c: candidate c's first skipped padding entry's column
+  int nec = -1;  // the next tile's entry of this lane, loaded a tile ahead
+  float nm = 0.0f, nrt = 0.0f;
+  if (lane < total) {
+    nec = a.col_ids[base + lane];
+    nm = a.mask[base + lane];
+    nrt = a.ratings[base + lane];
+  }
+  for (long long t0 = 0; t0 < total; t0 += TILE_K) {
+    const int ec = nec;
+    const float m = nm, rt = nrt;
+    nec = -1;
+    nm = nrt = 0.0f;
+    if (t0 + TILE_K + lane < total) {
+      const long long t = base + t0 + TILE_K + lane;
+      nec = a.col_ids[t];
+      nm = a.mask[t];
+      nrt = a.ratings[t];
+    }
+    float msum = m;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) msum += __shfl_xor_sync(FULL, msum, o);
+    n_acc += msum;
+    unsigned live = 0;
+    for (int c = 0; c < cn; ++c) {
+      float w, rr;
+      if (a.implicit) {
+        const float ar = __fmul_rn(a.alphas[c0 + c], rt);
+        w = __fmul_rn(ar, m);
+        rr = __fmul_rn(__fadd_rn(1.0f, ar), m);
+      } else {
+        w = m;
+        rr = __fmul_rn(rt, m);
+      }
+      if (a.bf16c) {
+        w = bf16_round(w);
+        rr = bf16_round(rr);
+      }
+      sw[lane * cw + c] = w;
+      tile[(lane * cw + c) * SR + D] = rr;  // X[D]: the rhs weight
+      if (__any_sync(FULL, (m != 0.0f) || (rr != 0.0f))) live |= 1u << c;
+    }
+    if (live != all) {  // padding for some candidates: exact zeros for them
+      const int first = __shfl_sync(FULL, ec, 0);
+      const unsigned now = all & ~live & ~skipped;
+      if ((now >> lane) & 1u) pad_col = first;
+      skipped |= now;
+      if (live == 0) continue;
+    }
+    __syncwarp();
+    sweep_gather<T>(a, gs, c0, cn, tile, ec, lane);
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < NB; ++q) {
+      if (bc[q] >= 0 && ((live >> bc[q]) & 1u)) {
+        const float* xs = tile + bx[q];
+        const float* ys = tile + by[q];
+        float s[S][S];
+#pragma unroll
+        for (int x = 0; x < S; ++x)
+#pragma unroll
+          for (int y = 0; y < S; ++y) s[x][y] = 0.0f;
+#pragma unroll 4
+        for (int k = 0; k < TILE_K; ++k) {
+          float xv[S], yv[S];
+          lds<S>(xs + k * step, xv);
+          lds<S>(ys + k * step, yv);
+#pragma unroll
+          for (int x = 0; x < S; ++x)
+#pragma unroll
+            for (int y = 0; y < S; ++y) s[x][y] = fmaf(xv[x], yv[y], s[x][y]);
+        }
+#pragma unroll
+        for (int x = 0; x < S; ++x)
+#pragma unroll
+          for (int y = 0; y < S; ++y) acc[q][x][y] += s[x][y];
+      }
+    }
+    __syncwarp();
+  }
+
+  // the skipped padding rows: a value that is not finite fails the solve
+  unsigned bad = 0;
+  for (int c = 0; c < cn; ++c) {
+    if (!((skipped >> c) & 1u)) continue;
+    const int pc = __shfl_sync(FULL, pad_col, c);
+    const size_t prow = (size_t)pc * a.C + c0 + c;
+    int nf = 0;
+    if (lane < D) nf = !isfinite(gathered((const T*)a.other, a.other_scales, prow * D + lane,
+                                          prow, a.bf16c));
+    if (__any_sync(FULL, nf)) bad |= 1u << c;
+  }
+  const float n = __shfl_sync(FULL, n_acc, 0);
+
+  const int NT = D * (D + 1) / 2;
+  const int NE = NT + D;
+  // each needed entry of a lane's blocks, to its candidate's partials
+#pragma unroll
+  for (int q = 0; q < NB; ++q) {
+    if (bc[q] < 0) continue;
+    const int i0 = bx[q] - bc[q] * SR;
+    const int j0 = by[q] - bc[q] * SR - LX;
+    float* w = a.workspace + ((size_t)(c0 + bc[q]) * a.B + r) * (NE + 2);
+#pragma unroll
+    for (int x = 0; x < S; ++x) {
+#pragma unroll
+      for (int y = 0; y < S; ++y) {
+        const int i = i0 + x, k = j0 + y;
+        if (i <= D && k < D && k <= i) w[i < D ? i * (i + 1) / 2 + k : NT + k] = acc[q][x][y];
+      }
+    }
+  }
+  if (lane < cn) {
+    float* w = a.workspace + ((size_t)(c0 + lane) * a.B + r) * (NE + 2);
+    w[NE] = n;
+    w[NE + 1] = ((bad >> lane) & 1u) ? 1.0f : 0.0f;
+  }
+}
+
+// The finish, one thread a system (solved row r, candidate c): its
+// segments' partials summed in segment order from the first (as K1's
+// warp_finish_kernel sums them), then every operation of K1's
+// warp_finish on each entry, in its order: A[i][i] + lam (reg * n, or
+// reg; 1 where n is not > 0), then + the Gramian (implicit), A[i][k] +
+// the Gramian; Cholesky column by column (pivot, sqrtf, L[i][j] = A[i][j]
+// / L[j][j], A[i][k] = fmaf(-L[i][j], L[k][j], A[i][k])); both
+// substitutions; a pivot that is not > 0 or a flagged segment makes x
+// NaN; write_row's write-back. A warp holds 32 systems in shared memory,
+// entry-major (entry e of thread t at e * 32 + t: no bank conflicts),
+// so each thread runs its own O(D^3) elimination with no shuffle, no
+// barrier and no lane idle: where a warp a system spent a warp
+// instruction on each of a system's steps, a warp of systems spends one
+// on 32.
+__global__ void __launch_bounds__(32) sweep_system_kernel(const Sweep a) {
+  extern __shared__ float smem[];
+  const int t = threadIdx.x;
+  const long long sys = (long long)blockIdx.x * 32 + t;
+  if (sys >= (long long)a.R * a.C) return;  // no warp-wide step follows
+  const int c = (int)(sys / a.R);
+  const int r = (int)(sys - (long long)c * a.R);
+  const int D = a.D;
+  const int NT = D * (D + 1) / 2;
+  const int NE = NT + D;
+  float* M = smem + t;  // entry e at M[e * 32]; A[i][k] is entry i(i+1)/2 + k, b[i] NT + i
+  const float* w = a.workspace + (size_t)c * a.B * (NE + 2);
+  const int s0 = a.seg_start[r], s1 = a.seg_start[r + 1];
+  float n = 0.0f;
+  bool bad = false;
+  for (int s = s0; s < s1; ++s) {
+    const float* ws = w + (size_t)s * (NE + 2);
+#pragma unroll 8
+    for (int e = 0; e < NE; ++e) M[e * 32] = s == s0 ? ws[e] : __fadd_rn(M[e * 32], ws[e]);
+    n = s == s0 ? ws[NE] : __fadd_rn(n, ws[NE]);
+    bad |= ws[NE + 1] != 0.0f;
+  }
+  const float reg = a.regs[c];
+  float lam = a.weighted ? __fmul_rn(reg, n) : reg;
+  if (!(n > 0.0f)) lam = 1.0f;
+  const float* gram = a.implicit ? a.gram + (size_t)c * D * D : nullptr;
+  for (int i = 0, e = 0; i < D; ++i) {
+    for (int k = 0; k <= i; ++k, ++e) {
+      float v = M[e * 32];
+      if (k == i) v = __fadd_rn(v, lam);
+      if (gram != nullptr) v = __fadd_rn(v, gram[i * D + k]);
+      M[e * 32] = v;
+    }
+  }
+  // Cholesky, column j at a time, right-looking. The loops take 4 rows at
+  // a time, their loads before their stores: the compiler cannot tell
+  // that a store to column k does not feed the next row's load of column
+  // j, and would otherwise wait out every load.
+  for (int j = 0; j < D && !bad; ++j) {
+    const int jj = j * (j + 1) / 2 + j;
+    const float diag = M[jj * 32];
+    if (!(diag > 0.0f)) {
+      bad = true;
+      break;
+    }
+    const float dj = sqrtf(diag);
+    M[jj * 32] = dj;
+    int i = j + 1;
+    for (; i + 4 <= D; i += 4) {
+      float v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = M[((i + u) * (i + u + 1) / 2 + j) * 32];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) M[((i + u) * (i + u + 1) / 2 + j) * 32] = v[u] / dj;
+    }
+    for (; i < D; ++i) {
+      const int ij = i * (i + 1) / 2 + j;
+      M[ij * 32] = M[ij * 32] / dj;
+    }
+    for (int k = j + 1; k < D; ++k) {
+      const float lkj = M[(k * (k + 1) / 2 + j) * 32];
+      int i = k;
+      for (; i + 4 <= D; i += 4) {
+        float l[4], v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int row = (i + u) * (i + u + 1) / 2;
+          l[u] = M[(row + j) * 32];
+          v[u] = M[(row + k) * 32];
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          M[((i + u) * (i + u + 1) / 2 + k) * 32] = fmaf(-l[u], lkj, v[u]);
+      }
+      for (; i < D; ++i) {
+        const int row = i * (i + 1) / 2;
+        M[(row + k) * 32] = fmaf(-M[(row + j) * 32], lkj, M[(row + k) * 32]);
+      }
+    }
+  }
+  float* x = M + NT * 32;  // b, then y, then x: x[i] at x[i * 32]
+  if (bad) {  // a failed factorization: x is NaN, as K1's is
+    for (int i = 0; i < D; ++i) x[i * 32] = __int_as_float(0x7fc00000);
+  } else {
+    for (int j = 0; j < D; ++j) {  // L y = b
+      const float yj = x[j * 32] / M[(j * (j + 1) / 2 + j) * 32];
+      x[j * 32] = yj;
+      int i = j + 1;
+      for (; i + 4 <= D; i += 4) {
+        float l[4], v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          l[u] = M[((i + u) * (i + u + 1) / 2 + j) * 32];
+          v[u] = x[(i + u) * 32];
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) x[(i + u) * 32] = fmaf(-l[u], yj, v[u]);
+      }
+      for (; i < D; ++i) x[i * 32] = fmaf(-M[(i * (i + 1) / 2 + j) * 32], yj, x[i * 32]);
+    }
+    for (int j = D - 1; j >= 0; --j) {  // L^T x = y
+      const int row = j * (j + 1) / 2;
+      const float xj = x[j * 32] / M[(row + j) * 32];
+      x[j * 32] = xj;
+      int i = 0;
+      for (; i + 4 <= j; i += 4) {
+        float l[4], v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          l[u] = M[(row + i + u) * 32];
+          v[u] = x[(i + u) * 32];
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) x[(i + u) * 32] = fmaf(-l[u], xj, v[u]);
+      }
+      for (; i < j; ++i) x[i * 32] = fmaf(-M[(row + i) * 32], xj, x[i * 32]);
+    }
+  }
+  // write_row's write-back, by one thread
+  const size_t at = (size_t)a.row_ids[r] * a.C + c;  // (row, candidate) of the target
+  if (a.target_code == F32) {
+    float* tt = (float*)a.target + at * D;
+    for (int d = 0; d < D; ++d) tt[d] = x[d * 32];
+  } else if (a.target_code == BF16) {
+    __nv_bfloat16* tt = (__nv_bfloat16*)a.target + at * D;
+    for (int d = 0; d < D; ++d) tt[d] = __float2bfloat16_rn(x[d * 32]);
+  } else {
+    float m = 0.0f;
+    for (int d = 0; d < D; ++d) m = nanmax(m, fabsf(x[d * 32]));
+    float scale = __fdiv_rn(m, 127.0f);
+    if (!(scale > 0.0f)) scale = 1.0f;
+    int8_t* tt = (int8_t*)a.target + at * D;
+    for (int d = 0; d < D; ++d) {
+      const float v = __fdiv_rn(x[d * 32], scale);
+      tt[d] = v != v ? (int8_t)0 : (int8_t)(int)rintf(v);  // NaN -> 0, as XLA
+    }
+    a.target_scales[at] = scale;
+  }
+}
+
+// The finish of a bucket with few systems, where a thread a system
+// would leave the card idle and wait out one thread's O(D^3) chain: one
+// warp a solved row r for the chunk's candidates [c0, c0 + cn), each
+// candidate D lanes
+// (32 / D candidates a pass), lane i holding row i of A. The arithmetic of
+// each entry is sweep_system_kernel's, in its order: the segments'
+// partials summed from the first, A[i][i] + lam, + the Gramian; Cholesky
+// left-looking (row i's entry k takes fmaf(-L[i][j], L[k][j], .) for j =
+// 0 .. k-1 in order, then sqrtf or / L[k][k], the chain the right-looking
+// updates make), L's rows to shared memory as they are made; both
+// substitutions with lane i holding x[i]; write_row. Lanes off the pass
+// take no square root or division (their garbage would take the slow
+// paths). The sums come from the workspace's partials of the row's
+// segments, summed from the first; n and the flags too. Shared memory: a
+// warp's candidates' D + 1 rows of lda floats (L's rows; x in row D).
+__global__ void __launch_bounds__(K1S_MAX_WARPS * 32) sweep_row_kernel(const Sweep a) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int r = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (r >= a.R) return;
+  const int c0 = blockIdx.y * a.cw;
+  const int cn = imin(a.cw, a.C - c0);
+  const int D = a.D;
+  const int lda = k1s_lda(D);
+  float* As = smem + warp * k1s_row_floats(D, a.cw);
+  const int NT = D * (D + 1) / 2;
+  const int NE = NT + D;
+  const int CPP = 32 / D;  // candidates a pass
+  const int s0 = a.seg_start[r], s1 = a.seg_start[r + 1];
+  float n = 0.0f;
+  {
+    const float* w0 = a.workspace + (size_t)c0 * a.B * (NE + 2);
+    for (int s = s0; s < s1; ++s) {
+      const float v = w0[(size_t)s * (NE + 2) + NE];
+      n = s == s0 ? v : __fadd_rn(n, v);
+    }
+  }
+  const size_t row_out = (size_t)a.row_ids[r];
+  const int telem = a.target_code == F32 ? 4 : a.target_code == BF16 ? 2 : 1;
+  for (int p0 = 0; p0 < cn; p0 += CPP) {
+    const int cs = lane / D;
+    const int i = lane - cs * D;
+    const int c = p0 + cs;
+    const bool on = cs < CPP && c < cn;
+    const int cc = on ? c : 0;  // lanes off the pass read candidate 0 and write nothing
+    const int cg = c0 + cc;
+    float* Ac = As + (size_t)cc * (D + 1) * lda;
+    const int src = cs * D;  // the pass's lane of row 0 of this candidate
+    const float reg = a.regs[cg];
+    float lam = a.weighted ? __fmul_rn(reg, n) : reg;
+    if (!(n > 0.0f)) lam = 1.0f;
+    bool bad = false;
+    float x = 0.0f;  // b[i], then y, then x
+    float row[32];   // row i of A, then of L
+#pragma unroll
+    for (int k = 0; k < 32; ++k) row[k] = 0.0f;
+    const float* wrow = a.workspace + (size_t)cg * a.B * (NE + 2);
+    for (int s = s0; s < s1; ++s) {  // each segment's row in one go: its loads in flight
+      const float* w = wrow + (size_t)s * (NE + 2);
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        if (k < D && on && k <= i) {
+          const float v = w[i * (i + 1) / 2 + k];
+          row[k] = s == s0 ? v : __fadd_rn(row[k], v);
+        }
+      }
+      if (on) {
+        x = s == s0 ? w[NT + i] : __fadd_rn(x, w[NT + i]);
+        bad |= w[NE + 1] != 0.0f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      if (k < D && on && k <= i) {
+        if (k == i) row[k] = __fadd_rn(row[k], lam);
+        if (a.implicit) row[k] = __fadd_rn(row[k], a.gram[(size_t)cg * D * D + i * D + k]);
+      }
+    }
+    // Cholesky: column k of L, left-looking
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      if (k < D) {
+        const float* Lk = Ac + k * lda;  // row k of L: its entries j < k are made
+#pragma unroll
+        for (int j = 0; j < k; ++j)
+          if (i >= k) row[k] = fmaf(-row[j], Lk[j], row[k]);
+        const float diag = __shfl_sync(FULL, row[k], src + k);
+        if (on) {
+          bad |= !(diag > 0.0f);
+          if (i >= k) {
+            const float dk = sqrtf(diag);
+            row[k] = i == k ? dk : row[k] / dk;
+            Ac[i * lda + k] = row[k];
+          }
+        }
+        __syncwarp();
+      }
+    }
+    // L y = b, then L^T x = y (lane i holds x[i])
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      if (j < D) {
+        const float xj = __shfl_sync(FULL, x, src + j);
+        if (on && i >= j) {
+          const float yj = xj / Ac[j * lda + j];
+          x = i == j ? yj : fmaf(-row[j], yj, x);
+        }
+      }
+    }
+    for (int j = D - 1; j >= 0; --j) {
+      const float yj = __shfl_sync(FULL, x, src + j);
+      if (on && i <= j) {
+        const float xj = yj / Ac[j * lda + j];
+        x = i == j ? xj : fmaf(-Ac[j * lda + i], xj, x);
+      }
+    }
+    if (bad) x = __int_as_float(0x7fc00000);  // a failed factorization: NaN, as K1
+    if (on) Ac[D * lda + i] = x;
+    __syncwarp();
+    for (int q = 0; q < CPP && p0 + q < cn; ++q) {
+      const int cq = c0 + p0 + q;
+      write_row(As + (size_t)(p0 + q) * (D + 1) * lda + D * lda, lane, D, row_out,
+                (char*)a.target + (size_t)cq * D * telem, a.target_code,
+                a.target_scales == nullptr ? nullptr : a.target_scales + cq,
+                (size_t)a.C * D, (size_t)a.C);
+    }
+    __syncwarp();
+  }
+}
+
+enum SweepLaunch { SWEEP_PARTIALS = 0, SWEEP_FINISH = 1, SWEEP_BLOCK = 2 };
+
+template <typename T, int S, int NB>
+cudaError_t launch_sweep(const Sweep& a, const K1sPlan& p, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * p.warps * a.warp_floats;
+  sweep_kernel<T, S, NB><<<dim3((a.B + p.warps - 1) / p.warps, p.chunks), p.warps * 32, smem,
+                           stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int S>
+cudaError_t dispatch_sweep_nb(const Sweep& a, const K1sPlan& p, cudaStream_t st) {
+  switch (p.nb) {
+    case 1: return launch_sweep<T, S, 1>(a, p, st);
+    case 2: return launch_sweep<T, S, 2>(a, p, st);
+    case 3: return launch_sweep<T, S, 3>(a, p, st);
+    default: return launch_sweep<T, S, 4>(a, p, st);
+  }
+}
+
+// The finish of a split bucket: a thread a system from K1S_THREAD_SYSTEMS
+// systems up, else a warp a row
+cudaError_t launch_finish(const Sweep& a, const K1sPlan& p, cudaStream_t st) {
+  if ((long long)a.R * a.C < K1S_THREAD_SYSTEMS) {
+    const int warps =
+        imax(1, imin(K1S_MAX_WARPS, K1S_BLOCK_SMEM / (4 * k1s_row_floats(a.D, a.cw))));
+    sweep_row_kernel<<<dim3((a.R + warps - 1) / warps, p.chunks), warps * 32,
+                       sizeof(float) * warps * k1s_row_floats(a.D, a.cw), st>>>(a);
+    return cudaGetLastError();
+  }
+  const size_t smem = sizeof(float) * k1s_system_floats(a.D);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        sweep_system_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const long long systems = (long long)a.R * a.C;
+  sweep_system_kernel<<<(unsigned)((systems + 31) / 32), 32, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_sweep(int launch, const Sweep& a, const K1sPlan& p, cudaStream_t st) {
+  if (launch == SWEEP_FINISH) return launch_finish(a, p, st);
+  if (p.S == 1) return dispatch_sweep_nb<T, 1>(a, p, st);
+  if (p.S == 2) return dispatch_sweep_nb<T, 2>(a, p, st);
+  return dispatch_sweep_nb<T, 4>(a, p, st);
+}
+
 }  // namespace
 
 // One launch of K1 on one bucket. launch: BLOCK (the block kernel, one
@@ -950,7 +1848,8 @@ extern "C" int pio_k1_solve_bucket(int launch, const void* other, int other_code
   const Cand cand{regs, alphas,
                   (size_t)n_other * D * elem, (size_t)n_other,
                   (size_t)n_target * D * telem, (size_t)n_target,
-                  (size_t)R * D, (size_t)D * D, (size_t)B * (D * (D + 3) / 2 + 2), C};
+                  (size_t)R * D, (size_t)D * D, (size_t)B * (D * (D + 3) / 2 + 2), C,
+                  (size_t)D, 1, (size_t)D, 1};
   const Solve a{other, other_scales, col_ids, ratings, mask, seg_start, R, B, K, D, reg,
                 weighted, bf16_compute, implicit, alpha, gram, workspace, x_out, target,
                 target_code, target_scales, row_ids,
@@ -984,6 +1883,86 @@ extern "C" int pio_k1_solve_bucket(int launch, const void* other, int other_code
       break;
     default:
       return (int)cudaErrorInvalidValue;
+  }
+  return (int)err;
+}
+
+// One launch of K1s, the candidate axis of a sweep, on one bucket: C
+// candidates' entry-major [N, C, D] opposite tables (int8 scales [N, C])
+// and targets, regs and alphas [C], gram [C, D, D] (implicit). launch, at
+// D <= WARP_MAX_D: SWEEP_PARTIALS (one warp a table row for a chunk of
+// candidates, into workspace [C, B, D(D+3)/2 + 2] f32) then SWEEP_FINISH
+// (a thread a system, or a warp a row, by the systems R * C);
+// SWEEP_BLOCK: ranks 33 .. MAX_D, the block kernel with the candidates
+// on gridDim.y. ops/als.py k1s_route picks them. The target is written in
+// place (row_ids[r]).
+// plan_out (5 ints, or NULL): the plan's cw, chunks, S, nb, warps.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
+// for a refused argument.
+extern "C" int pio_k1s_sweep(int launch, const void* other, int other_code,
+                             const float* other_scales, const int* col_ids,
+                             const float* ratings, const float* mask, const int* seg_start,
+                             int R, int B, int K, int D, int C, int weighted,
+                             int bf16_compute, int implicit, const float* regs,
+                             const float* alphas, const float* gram, float* workspace,
+                             void* target, int target_code, float* target_scales,
+                             const int* row_ids, int* plan_out, void* stream) {
+  if (launch < SWEEP_PARTIALS || launch > SWEEP_BLOCK) return (int)cudaErrorInvalidValue;
+  if (C < 1 || C > MAX_C || K < 1 || R < 0 || B < 0) return (int)cudaErrorInvalidValue;
+  if (D < 1 || D > (launch == SWEEP_BLOCK ? MAX_D : WARP_MAX_D)) return (int)cudaErrorInvalidValue;
+  if (regs == nullptr || alphas == nullptr || target == nullptr || row_ids == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (implicit && gram == nullptr) return (int)cudaErrorInvalidValue;
+  if ((other_code == I8) != (other_scales != nullptr)) return (int)cudaErrorInvalidValue;
+  if ((target_code == I8) != (target_scales != nullptr)) return (int)cudaErrorInvalidValue;
+  if ((launch == SWEEP_PARTIALS || launch == SWEEP_FINISH) && workspace == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (other_code < F32 || other_code > I8 || target_code < F32 || target_code > I8)
+    return (int)cudaErrorInvalidValue;
+  const K1sPlan p = launch == SWEEP_BLOCK ? K1sPlan{1, C, 0, 0, 0} : k1s_plan(C, D);
+  if (plan_out != nullptr) {
+    const int v[5] = {p.cw, p.chunks, p.S, p.nb, p.warps};
+    for (int j = 0; j < 5; ++j) plan_out[j] = v[j];
+  }
+  if ((launch == SWEEP_PARTIALS ? B : R) <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int elem = other_code == F32 ? 4 : other_code == BF16 ? 2 : 1;
+  const int telem = target_code == F32 ? 4 : target_code == BF16 ? 2 : 1;
+  if (launch == SWEEP_BLOCK) {  // the entry-major stacks at the block kernel's row strides
+    const Cand cand{regs, alphas, (size_t)D * elem, 1, (size_t)D * telem, 1, 0,
+                    (size_t)D * D, 0, C, (size_t)C * D, (size_t)C, (size_t)C * D, (size_t)C};
+    cudaError_t err;
+    switch (other_code) {
+      case F32:
+        err = dispatch<float>(other, other_scales, col_ids, ratings, mask, seg_start, R, K, D,
+                              0.0f, weighted, bf16_compute, implicit, 1.0f, gram, nullptr,
+                              target, target_code, target_scales, row_ids, cand, s);
+        break;
+      case BF16:
+        err = dispatch<__nv_bfloat16>(other, other_scales, col_ids, ratings, mask, seg_start,
+                                      R, K, D, 0.0f, weighted, bf16_compute, implicit, 1.0f,
+                                      gram, nullptr, target, target_code, target_scales,
+                                      row_ids, cand, s);
+        break;
+      default:
+        err = dispatch<int8_t>(other, other_scales, col_ids, ratings, mask, seg_start, R, K,
+                               D, 0.0f, weighted, bf16_compute, implicit, 1.0f, gram,
+                               nullptr, target, target_code, target_scales, row_ids, cand, s);
+    }
+    return (int)err;
+  }
+  const int last = C - (p.chunks - 1) * p.cw;  // candidates of the last chunk
+  const int vec = (uintptr_t)other % 16 == 0 && (C * D * elem) % 16 == 0 &&
+                  (p.cw * D * elem) % 16 == 0 && (last * D * elem) % 16 == 0;
+  const Sweep a{other, other_scales, col_ids, ratings, mask, seg_start, R, B, K, D, C,
+                weighted, bf16_compute, implicit, regs, alphas, gram, workspace, target,
+                target_code, target_scales, row_ids, vec, p.cw, p.S, k1s_blocks(p.S, D),
+                k1s_warp_floats(p.S, D, p.cw)};
+  cudaError_t err;
+  switch (other_code) {
+    case F32: err = dispatch_sweep<float>(launch, a, p, s); break;
+    case BF16: err = dispatch_sweep<__nv_bfloat16>(launch, a, p, s); break;
+    default: err = dispatch_sweep<int8_t>(launch, a, p, s); break;
   }
   return (int)err;
 }

@@ -372,7 +372,7 @@ class ALSAlgorithm(Algorithm):
         self, ctx: WorkflowContext, td: TrainingData, params_list
     ) -> list[ALSModel] | None:
         """Stacked candidate trainings for evaluation sweeps: one bucket
-        layout and one K1s launch per bucket per half-step train every
+        layout and K1s's launches of each bucket's half-step train every
         reg/seed/rank candidate (``ops/als.py als_train_sweep``: differing
         ranks ride the candidate axis by exact zero-padding). None -- one
         ``train`` a candidate -- when the candidates differ in program

@@ -25,9 +25,12 @@ Port of ``predictionio_tpu/ops/als.py`` (single card):
   place;
 - K1s and :func:`als_train_sweep`: C candidate trainings (per-candidate
   reg, alpha, seed and rank, zero-padded to the largest) on stacked
-  ``[C, N, D]`` tables, one K1 launch per bucket per half-step for all of
-  them (:func:`solve_bucket_sweep`, the candidate axis of
-  ``csrc/als_solve.cu``).
+  tables kept entry-major (``[N, C, D]`` in memory, seen as ``[C, N, D]``
+  views), each bucket's launches of a half-step serving all of them
+  (:func:`solve_bucket_sweep`: one warp a table row for a chunk of
+  candidates with register-blocked products, :func:`k1s_plan`, into a
+  workspace; then the solve, a thread a system or a warp a row,
+  :func:`k1s_finish`).
 
 The random init cannot reproduce ``jax.random``'s bits: parity runs feed
 both packages the same initial factors through ``warm_start`` (or, for a
@@ -66,8 +69,19 @@ MAX_RANK = 128
 #: the largest rank K1's warp route takes (csrc/als_solve.cu WARP_MAX_D);
 #: the templates' ranks (10, 20) are below it
 WARP_MAX_RANK = 32
-#: candidates one K1s launch takes (csrc/als_solve.cu MAX_C: gridDim.y)
+#: candidates one K1s launch takes (csrc/als_solve.cu MAX_C)
 MAX_CANDIDATES = 65535
+#: K1s's plan (csrc/als_solve.cu, the same names): register blocks a lane
+#: owns at most, the block sides tried, a warp's and a block's shared bytes
+#: at most, and warps (rows) a block at most
+K1S_MAX_NB = 4
+K1S_SHAPES = (1, 2, 4)
+K1S_WARP_SMEM = 49152
+K1S_BLOCK_SMEM = 49152
+K1S_MAX_WARPS = 8
+#: systems (solved row, candidate) of a bucket from which K1s's finish
+#: takes a thread a system; below, a warp a row (csrc/als_solve.cu)
+K1S_THREAD_SYSTEMS = 16384
 
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _STORAGE_DTYPES = ("float32", "bfloat16", "int8")
@@ -513,6 +527,118 @@ def k1_launches(D: int, R: int, B: int) -> int:
     return len(_LAUNCH_CODES[k1_route(D, R, B)])
 
 
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def k1s_row_blocks(S: int, D: int, I: int) -> int:
+    """Column blocks of row block ``I`` in K1s's ``S x S`` blocking of one
+    candidate's sums: rows 0 .. D-1 hold A's lower triangle (``k <= i``),
+    row D holds b (csrc/als_solve.cu ``k1s_row_blocks``)."""
+    return min(-(-D // S), min(I * S + S - 1, D) // S + 1)
+
+
+def k1s_blocks(S: int, D: int) -> int:
+    """``S x S`` blocks covering one candidate's ``(D + 1) x D`` lower
+    trapezoid of sums (``csrc/als_solve.cu k1s_blocks``)."""
+    return sum(k1s_row_blocks(S, D, I) for I in range(-(-(D + 1) // S)))
+
+
+def _k1s_record(S: int, D: int) -> int:
+    return _round_up(D + 1, 4) + _round_up(D, S)
+
+
+def k1s_warp_floats(S: int, D: int, cw: int) -> int:
+    """A K1s warp's shared floats: its tile of 32 entries' records, then
+    the weights and the int8 scales, ``[32, cw]`` each."""
+    return 32 * cw * _k1s_record(S, D) + 64 * cw
+
+
+@dataclass(frozen=True)
+class K1sPlan:
+    """K1s's plan of a sweep's accumulation (csrc/als_solve.cu
+    ``k1s_plan``): a warp sums one table row for ``cw`` candidates,
+    ``chunks`` chunks of them on the grid's second axis; each lane owns
+    ``nb`` blocks of ``S x S`` sums; ``warps`` table rows a block."""
+
+    cw: int
+    chunks: int
+    S: int
+    nb: int
+    warps: int
+
+
+def k1s_plan(C: int, D: int) -> K1sPlan:
+    """The plan of a sweep of ``C`` candidates at rank ``D <= 32``, the
+    formula of csrc/als_solve.cu ``k1s_plan``: for each block side S in
+    :data:`K1S_SHAPES`, the most candidates a warp takes (at most 32) with
+    at most :data:`K1S_MAX_NB` blocks a lane and a tile within
+    :data:`K1S_WARP_SMEM` bytes, split into chunks of equal size; an entry
+    costs ``nb * max(S * S, 8 * S)`` a chunk (a lane's S*S FMAs a block,
+    four warp FMAs an SM clock, against its 2S shared words, one 32-word
+    wavefront a clock) times the chunks. The cheapest S wins, the larger
+    on a tie."""
+    if not 1 <= D <= WARP_MAX_RANK or C < 1:
+        raise ValueError(f"K1s plans C >= 1 candidates at ranks 1..{WARP_MAX_RANK}")
+    best, best_cost = None, None
+    for S in K1S_SHAPES:
+        nblk = k1s_blocks(S, D)
+        cw = min(C, 32, 32 * K1S_MAX_NB // nblk)
+        while cw > 0 and 4 * k1s_warp_floats(S, D, cw) > K1S_WARP_SMEM:
+            cw -= 1
+        if cw == 0:
+            continue
+        chunks = -(-C // cw)
+        cw = -(-C // chunks)
+        nb = -(-(cw * nblk) // 32)
+        cost = nb * max(S * S, 8 * S) * chunks
+        if best_cost is None or cost <= best_cost:
+            best, best_cost = (cw, chunks, S, nb), cost
+    cw, chunks, S, nb = best
+    warps = max(1, min(K1S_MAX_WARPS, K1S_BLOCK_SMEM // (4 * k1s_warp_floats(S, D, cw))))
+    return K1sPlan(cw, chunks, S, nb, warps)
+
+
+def k1s_lane_blocks(plan: K1sPlan, D: int, cn: int) -> list[list[tuple[int, int, int]]]:
+    """For each lane of a K1s warp serving ``cn`` candidates, its blocks
+    ``(candidate, i0, j0)`` in the order it owns them: block ``u = lane +
+    32 q`` of the chunk's blocks, candidate after candidate, each
+    candidate's row blocks in order (csrc/als_solve.cu ``sweep_block``)."""
+    S, nblk = plan.S, k1s_blocks(plan.S, D)
+    lanes = []
+    for lane in range(32):
+        owned = []
+        for q in range(plan.nb):
+            u = lane + 32 * q
+            if u >= cn * nblk:
+                continue
+            c, b = divmod(u, nblk)
+            I = 0
+            while b >= k1s_row_blocks(S, D, I):
+                b -= k1s_row_blocks(S, D, I)
+                I += 1
+            owned.append((c, I * S, b * S))
+        lanes.append(owned)
+    return lanes
+
+
+def entry_major(table):
+    """A stacked table ``[C, N, D]`` (int8 pair: ``([C, N, D], [C, N])``)
+    as K1s keeps it: ``[N, C, D]`` in memory (scales ``[N, C]``), so one
+    entry's C candidate rows are contiguous, seen through a ``[C, N, D]``
+    view. A copy unless the table is laid out so already."""
+    if isinstance(table, tuple):
+        return entry_major(table[0]), table[1].t().contiguous().t()
+    return table.transpose(0, 1).contiguous().transpose(0, 1)
+
+
+def is_entry_major(table) -> bool:
+    """Is the ``[C, N, D]`` stack (or int8 pair) K1s's layout?"""
+    if isinstance(table, tuple):
+        return is_entry_major(table[0]) and table[1].t().is_contiguous()
+    return table.dim() == 3 and table.transpose(0, 1).is_contiguous()
+
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -535,6 +661,18 @@ def _lib() -> ctypes.CDLL:
             _P,  # stream
         ]
         lib.pio_k1_solve_bucket.restype = _I
+        lib.pio_k1s_sweep.argtypes = [
+            _I,  # launch (_SWEEP_CODES)
+            _P, _I, _P,  # other values, dtype code, scales
+            _P, _P, _P, _P,  # col_ids, ratings, mask, seg_start
+            _I, _I, _I, _I, _I,  # R, B, K, D, C
+            _I, _I, _I,  # weighted, bf16 compute, implicit
+            _P, _P, _P, _P,  # regs [C], alphas [C], gram (or NULL), workspace (or NULL)
+            _P, _I, _P, _P,  # target values, dtype code, scales, row_ids
+            _P,  # plan out: 5 ints (or NULL)
+            _P,  # stream
+        ]
+        lib.pio_k1s_sweep.restype = _I
         lib._pio_typed = True
     return lib
 
@@ -741,12 +879,43 @@ _solve_bucket_block.launches = _build.LaunchCount()
 def _candidate(table, c: int, rank: int | None = None):
     """Candidate ``c``'s ``[N, D]`` table of a ``[C, N, D]`` stack,
     keeping the representation: a view, or with ``rank`` a contiguous
-    copy of its first ``rank`` columns."""
+    copy of its first ``rank`` columns (and of its int8 scales)."""
     if rank is None:
         return (table[0][c], table[1][c]) if isinstance(table, tuple) else table[c]
     if isinstance(table, tuple):
-        return (table[0][c, :, :rank].contiguous(), table[1][c])
+        return (table[0][c, :, :rank].contiguous(), table[1][c].contiguous())
     return table[c, :, :rank].contiguous()
+
+
+def k1s_route(D: int, R: int, B: int) -> str:
+    """Which of K1s's kernels solve a sweep's bucket of rank ``D`` (with
+    ``R`` solved rows over ``B`` table rows): ``"split"`` up to rank 32
+    (two launches: a warp per table row writes each candidate's partial
+    sums, then the finish, :func:`k1s_finish`); ``"block"`` (K1's block
+    kernel with the candidates on the grid's second axis, one launch) for
+    ``WARP_MAX_RANK < D <= MAX_RANK``."""
+    if not 1 <= D <= MAX_RANK:
+        raise ValueError(f"K1s solves ranks 1..{MAX_RANK}, got {D}")
+    return "split" if D <= WARP_MAX_RANK else "block"
+
+
+# csrc/als_solve.cu enum SweepLaunch: each K1s route's kernels, in launch order
+_SWEEP_CODES = {"split": (0, 1), "block": (2,)}
+
+
+def k1s_finish(R: int, C: int) -> str:
+    """Which kernel finishes a K1s bucket of ``R`` solved rows for ``C``
+    candidates: ``"thread"`` (a thread a system, 32 systems a warp: the
+    throughput of many systems) from :data:`K1S_THREAD_SYSTEMS` systems
+    up, else ``"warp"`` (a warp a row, D lanes a candidate: the latency of
+    few)."""
+    return "thread" if R * C >= K1S_THREAD_SYSTEMS else "warp"
+
+
+def k1s_launches(D: int, R: int, B: int) -> int:
+    """K1s's kernel launches for one bucket (:func:`k1s_route`): what
+    ``solve_bucket_sweep.launches`` counts."""
+    return len(_SWEEP_CODES[k1s_route(D, R, B)])
 
 
 def solve_bucket_sweep(
@@ -774,10 +943,13 @@ def solve_bucket_sweep(
     :func:`solve_bucket`'s, shared by every candidate. Candidate c's
     rows are what :func:`solve_bucket` writes for that candidate alone.
 
-    CPU tensors take :func:`solve_bucket_sweep_reference`. CUDA tensors
-    launch the kernels of the route :func:`k1_route` picks once, with the
-    candidates as the grid's second axis, or raise.
-    ``solve_bucket_sweep.launches`` counts kernel launches."""
+    CPU tensors take :func:`solve_bucket_sweep_reference` (any layout).
+    CUDA tensors must be entry-major stacks (:func:`entry_major`, as
+    :func:`sweep_init` makes them) and launch the kernels of the route
+    :func:`k1s_route` picks, once for all candidates, or raise.
+    ``solve_bucket_sweep.launches`` counts kernel launches;
+    ``solve_bucket_sweep.last_plan`` is the C entry's :class:`K1sPlan` of
+    the latest launch at ``D <= WARP_MAX_RANK``."""
     _check_solve_args(compute_dtype, target, row_ids, implicit, gram)
     if alphas is None:
         alphas = torch.ones_like(regs)
@@ -787,13 +959,118 @@ def solve_bucket_sweep(
             weighted_reg, compute_dtype, gather_chunk_bytes, implicit, alphas, gram,
         )
         return None
-    _solve_on_card(None, solve_bucket_sweep.launches, other, col_ids, ratings, mask,
-                   seg_start, 0.0, weighted_reg, compute_dtype, target, row_ids,
-                   False, implicit, 1.0, gram, regs=regs, alphas=alphas)
+    _sweep_on_card(other, col_ids, ratings, mask, seg_start, regs, alphas, target, row_ids,
+                   weighted_reg, compute_dtype, implicit, gram)
     return None
 
 
 solve_bucket_sweep.launches = _build.LaunchCount()
+solve_bucket_sweep.last_plan = None
+
+
+def _sweep_on_card(other, col_ids, ratings, mask, seg_start, regs, alphas, target, row_ids,
+                   weighted_reg, compute_dtype, implicit, gram) -> None:
+    """K1s's launches on CUDA tensors (:func:`k1s_route`), each checked
+    and counted in ``solve_bucket_sweep.launches``."""
+    device = col_ids.device
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    C = regs.shape[0]
+    if not 1 <= C <= MAX_CANDIDATES:
+        raise ValueError(f"K1s takes 1..{MAX_CANDIDATES} candidates, got {C}")
+    o_vals, o_scales, o_code = _sweep_table(other, "other", C)
+    t_vals, t_scales, t_code = _sweep_table(target, "target", C)
+    B, K = col_ids.shape
+    R = seg_start.shape[0] - 1
+    D = o_vals.shape[-1]
+    if not 1 <= D <= MAX_RANK:
+        raise ValueError(f"K1s solves ranks 1..{MAX_RANK}, got {D}")
+    if t_vals.shape[-1] != D:
+        raise ValueError("target and other differ in rank")
+    if t_vals.data_ptr() == o_vals.data_ptr():
+        raise ValueError("K1s cannot write back into the table it reads")
+    for t, name in ((o_vals, "other"), (o_scales, "other scales"), (t_vals, "target"),
+                    (t_scales, "target scales")):
+        if t is not None and t.device != device:
+            raise ValueError(f"{name} on {t.device}, expected {device}")
+    _check(col_ids, "col_ids", torch.int32, (B, K), device)
+    _check(ratings, "ratings", torch.float32, (B, K), device)
+    _check(mask, "mask", torch.float32, (B, K), device)
+    _check(seg_start, "seg_start", torch.int32, (R + 1,), device)
+    _check(row_ids, "row_ids", torch.int32, (R,), device)
+    _check(regs, "regs", torch.float32, (C,), device)
+    _check(alphas, "alphas", torch.float32, (C,), device)
+    if implicit:
+        _check(gram, "gram", torch.float32, (C, D, D), device)
+    if R == 0:
+        return
+    route = k1s_route(D, R, B)
+    # the split route's partials; freed to torch's allocator after the
+    # launches are queued, reused only by later work on the same stream
+    ws = (torch.empty((C, B, D * (D + 3) // 2 + 2), dtype=torch.float32, device=device)
+          if route == "split" else None)
+    plan = (ctypes.c_int * 5)()
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for launch in _SWEEP_CODES[route]:
+            err = lib.pio_k1s_sweep(
+                launch, o_vals.data_ptr(), o_code,
+                None if o_scales is None else o_scales.data_ptr(),
+                col_ids.data_ptr(), ratings.data_ptr(), mask.data_ptr(),
+                seg_start.data_ptr(), R, B, K, D, C,
+                int(bool(weighted_reg)), int(compute_dtype == "bfloat16"), int(bool(implicit)),
+                regs.data_ptr(), alphas.data_ptr(), gram.data_ptr() if implicit else None,
+                None if ws is None else ws.data_ptr(),
+                t_vals.data_ptr(), t_code, None if t_scales is None else t_scales.data_ptr(),
+                row_ids.data_ptr(), plan, stream,
+            )
+            _build.check(err, f"solve_bucket_sweep kernel launch ({route} route)")
+            solve_bucket_sweep.launches.add()
+    if route != "block":
+        solve_bucket_sweep.last_plan = K1sPlan(*plan)
+
+
+def _sweep_table(table, name: str, C: int):
+    """(values, scales or None, dtype code) of an entry-major ``[C, N, D]``
+    stack (:func:`entry_major`), checked for K1s."""
+    values, scales = table if isinstance(table, tuple) else (table, None)
+    code = _DTYPE_CODE.get(values.dtype)
+    if (code is None or values.dim() != 3 or values.shape[0] != C
+            or not values.transpose(0, 1).is_contiguous()):
+        raise ValueError(
+            f"{name}: expected an entry-major [C, N, D] float32/bfloat16/int8 stack "
+            f"(ops/als.py entry_major) with C = {C}, got {values.dtype} "
+            f"{tuple(values.shape)} strides {values.stride()}"
+        )
+    if (code == 2) != (scales is not None):
+        raise ValueError(f"{name}: int8 values come with f32 scales, others without")
+    if scales is not None and (
+        scales.dtype != torch.float32 or scales.shape != values.shape[:-1]
+        or not scales.t().is_contiguous()
+    ):
+        raise ValueError(f"{name}: scales must be entry-major float32 {tuple(values.shape[:-1])}")
+    return values, scales, code
+
+
+def _solve_bucket_sweep_grid(other, col_ids, ratings, mask, seg_start, regs, target, row_ids,
+                             weighted_reg: bool = True, compute_dtype: str = "float32",
+                             implicit: bool = False, alphas=None, gram=None) -> None:
+    """K1s's earlier design: K1's launches (:func:`k1_route`) with the
+    candidates on the grid's second axis, on contiguous ``[C, N, D]``
+    stacks -- the same-run baseline and bit-exact check of
+    :func:`solve_bucket_sweep` for ``chip_smoke.py``. The port never calls
+    it. CUDA tensors only; counts its launches in
+    ``_solve_bucket_sweep_grid.launches``."""
+    _check_solve_args(compute_dtype, target, row_ids, implicit, gram)
+    if alphas is None:
+        alphas = torch.ones_like(regs)
+    _solve_on_card(None, _solve_bucket_sweep_grid.launches, other, col_ids, ratings, mask,
+                   seg_start, 0.0, weighted_reg, compute_dtype, target, row_ids,
+                   False, implicit, 1.0, gram, regs=regs, alphas=alphas)
+
+
+_solve_bucket_sweep_grid.launches = _build.LaunchCount()
 
 
 def solve_bucket_sweep_reference(other, col_ids, ratings, mask, seg_start, regs,
@@ -1089,8 +1366,8 @@ _SWEEP_STATIC = (
 def als_train_sweep(data: RatingsData, params_list: Sequence[ALSParams],
                     device: str | torch.device | None = None) -> list:
     """Train every candidate of ``params_list`` at once on ``device``
-    (CUDA unless the CPU is asked for): K1s, one K1 launch per bucket per
-    half-step for all candidates. Returns per-candidate ``(U, V)`` in
+    (CUDA unless the CPU is asked for): K1s, each bucket's launches of a
+    half-step serving all candidates. Returns per-candidate ``(U, V)`` in
     storage form at each candidate's own rank.
 
     The JAX package's rules, kept exactly: candidates must share the
@@ -1152,8 +1429,9 @@ def sweep_groups(params_list: Sequence[ALSParams]) -> list[list[int]]:
 def sweep_init(data: RatingsData, params_list: Sequence[ALSParams],
                device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """The stacked float32 initial factors ``([C, rows, D], [C, cols,
-    D])`` of a sweep on ``device``: candidate c's :func:`als_train` draw
-    for its seed and rank, zero-padded to the largest rank D."""
+    D])`` of a sweep on ``device``, entry-major (:func:`entry_major`):
+    candidate c's :func:`als_train` draw for its seed and rank,
+    zero-padded to the largest rank D."""
     rank_max = max(p.rank for p in params_list)
     U0, V0 = [], []
     for p in params_list:
@@ -1162,7 +1440,7 @@ def sweep_init(data: RatingsData, params_list: Sequence[ALSParams],
         pad = (0, rank_max - p.rank)
         U0.append(torch.nn.functional.pad(init_factors(data.num_rows, p.rank, gen, device), pad))
         V0.append(torch.nn.functional.pad(init_factors(data.num_cols, p.rank, gen, device), pad))
-    return torch.stack(U0), torch.stack(V0)
+    return torch.stack(U0, dim=1).transpose(0, 1), torch.stack(V0, dim=1).transpose(0, 1)
 
 
 def _train_sweep(data: RatingsData, params_list: Sequence[ALSParams],
@@ -1170,8 +1448,9 @@ def _train_sweep(data: RatingsData, params_list: Sequence[ALSParams],
     """The sweep's device loop (``_train_fused_sweep``'s counterpart)
     from stacked float32 initial factors ``[C, rows, D]`` / ``[C, cols,
     D]`` on the device it runs on: ``base.iterations`` iterations, each
-    a :func:`_half_step` of U then of V through K1s. Returns the stacked ``(U, V)`` in storage
-    form at the sweep's rank."""
+    a :func:`_half_step` of U then of V through K1s. Returns the stacked
+    ``(U, V)`` in storage form at the sweep's rank, entry-major
+    (:func:`entry_major`)."""
     base = params_list[0]
     device = U0.device
     regs = torch.tensor([p.reg for p in params_list], dtype=torch.float32, device=device)
@@ -1179,8 +1458,8 @@ def _train_sweep(data: RatingsData, params_list: Sequence[ALSParams],
                           device=device)
     # copies: the loop updates the tables in place, and the caller's
     # initial factors stay as they were
-    U = to_storage(U0.clone(), base.storage_dtype)
-    V = to_storage(V0.clone(), base.storage_dtype)
+    U = entry_major(to_storage(U0.clone(), base.storage_dtype))
+    V = entry_major(to_storage(V0.clone(), base.storage_dtype))
     row_buckets = device_buckets(data.row_buckets, device)
     col_buckets = device_buckets(data.col_buckets, device)
     for _ in range(base.iterations):

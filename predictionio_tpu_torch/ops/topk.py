@@ -779,11 +779,30 @@ def ranking_metrics_batch_reference(pred_ids, actual_sorted, actual_counts, k: i
     return precision, ap, ndcg, counts > 0
 
 
+#: lanes K3 gives a query row at most (csrc/ranking.cu K3_MAX_GROUP): a warp
+K3_MAX_GROUP = 32
+#: rank positions a K3 lane takes at most below K3_MAX_GROUP lanes a row
+#: (csrc/ranking.cu K3_POSITIONS)
+K3_POSITIONS = 16
+
+
+def k3_group(P: int) -> int:
+    """Lanes K3 gives a query row of ``P`` rank positions (csrc/ranking.cu
+    ``k3_group``): the fewest, a power of two, that leave a lane at most
+    :data:`K3_POSITIONS` positions, at most :data:`K3_MAX_GROUP`; one
+    thread a row at the evaluation's P <= 16. A warp serves ``32 //
+    k3_group(P)`` rows."""
+    g = 1
+    while g < K3_MAX_GROUP and P > K3_POSITIONS * g:
+        g *= 2
+    return g
+
+
 def _k3_lib() -> ctypes.CDLL:
     lib = _build.load("ranking")
     if not getattr(lib, "_pio_typed", False):
         lib.pio_k3_ranking_metrics.argtypes = [
-            _P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+            _P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P,
         ]
         lib.pio_k3_ranking_metrics.restype = _I
         lib._pio_typed = True
@@ -805,11 +824,28 @@ def ranking_metrics_batch(pred_ids, actual_sorted, actual_counts, k: int):
 
     Inputs go to the device of ``pred_ids`` when it is a tensor, else
     the CPU; a CPU tensor takes :func:`ranking_metrics_batch_reference`,
-    a CUDA tensor launches ``csrc/ranking.cu`` (one warp a query) or
-    raises."""
+    a CUDA tensor launches ``csrc/ranking.cu`` (:func:`k3_group` lanes a
+    query) or raises."""
     device = pred_ids.device if isinstance(pred_ids, torch.Tensor) else torch.device("cpu")
     if device.type == "cpu":
         return ranking_metrics_batch_reference(pred_ids, actual_sorted, actual_counts, k)
+    return _ranking_on_card(pred_ids, actual_sorted, actual_counts, k, device, 0,
+                            ranking_metrics_batch.launches)
+
+
+def _ranking_metrics_warp(pred_ids, actual_sorted, actual_counts, k: int):
+    """K3's earlier design, one warp a query row whatever P (the kernel
+    at 32 lanes a row): chip_smoke.py's same-run baseline. The port never
+    calls it. CUDA tensors only; counts its launches in
+    ``_ranking_metrics_warp.launches``."""
+    return _ranking_on_card(pred_ids, actual_sorted, actual_counts, k, pred_ids.device,
+                            K3_MAX_GROUP, _ranking_metrics_warp.launches)
+
+
+def _ranking_on_card(pred_ids, actual_sorted, actual_counts, k: int, device, group: int,
+                     counter):
+    """One K3 launch at ``group`` lanes a row (0: :func:`k3_group`),
+    added to ``counter``."""
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     k = int(k)
@@ -829,11 +865,12 @@ def ranking_metrics_batch(pred_ids, actual_sorted, actual_counts, k: int):
             pred.data_ptr(), Q, pn, actual.data_ptr(), actual.shape[1],
             counts.data_ptr(), k, discounts.data_ptr() if pn else None,
             idcg.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            valid.data_ptr(), stream,
+            valid.data_ptr(), group, stream,
         )
     _build.check(err, "ranking_metrics_batch kernel launch")
-    ranking_metrics_batch.launches.add()
+    counter.add()
     return (*out, valid)
 
 
 ranking_metrics_batch.launches = _build.LaunchCount()
+_ranking_metrics_warp.launches = _build.LaunchCount()

@@ -126,12 +126,18 @@ def test_encode_actuals_equal_jax(seed):
 
 
 @pytest.mark.parametrize("seed,k,width", [(0, 8, 8), (1, 8, 3), (2, 1, 1), (3, 40, 40),
-                                          (4, 10, 1)])
+                                          (4, 10, 1), (5, 2, 2), (6, 3, 3), (7, 10, 10),
+                                          (8, 31, 31), (9, 32, 32), (10, 33, 33),
+                                          (11, 128, 100)])
 def test_ranking_metrics_plain_equals_jax(seed, k, width):
     """Held to the JAX package's ``ranking_metrics_batch`` on the cases of
     tests/test_eval_fast_path.py:79-125: -1 slots, codes <= -2, empty
-    actual rows, and a prediction width below k."""
-    pred, actuals, index = _random_eval_points(seed, 300, 60, k)
+    actual rows, and a prediction width below k; and at widths on both
+    sides of each of K3's lane-group sizes (1, 2, 3, 10, 31, 32, 33,
+    100: ``k3_group``). Width 100 runs at k = 128:
+    :func:`test_ranking_precision_is_a_true_division` pins what differs at
+    k = 100."""
+    pred, actuals, index = _random_eval_points(seed, 300, max(60, k), k)
     enc, counts = tranking.encode_actuals(actuals, index)
     pred = np.ascontiguousarray(pred[:, :width])
     port = [r.numpy() for r in ttopk.ranking_metrics_batch(pred, enc, counts, k)]
@@ -180,6 +186,59 @@ def test_ranking_metrics_empty_and_refusals():
     with pytest.raises(ValueError, match="pred_ids"):
         ttopk.ranking_metrics_batch(np.zeros((3, 4), np.int32),
                                     np.zeros((2, 1), np.int32), np.zeros(3, np.int32), 4)
+
+
+def test_ranking_precision_is_a_true_division():
+    """A known difference from the JAX package, kept: the port's precision
+    is ``hits / k`` rounded once (K3 divides with ``__fdiv_rn``, its plain
+    version by a tensor), while XLA compiles the JAX package's ``hits /
+    float(k)`` to ``hits * fl(1 / k)``, which rounds twice. The two agree
+    where ``1 / k`` is exact (k a power of two) and within one ulp
+    elsewhere: at k = 100, 30 of the hit counts 0..100 differ."""
+    k = 100
+    Q = k + 1
+    pred = np.tile(np.arange(k, dtype=np.int32), (Q, 1))
+    actual = np.full((Q, k), tranking.ACTUAL_PAD, np.int32)
+    for q in range(Q):  # row q hits its first q positions
+        actual[q, :q] = np.arange(q)
+    counts = np.maximum(np.arange(Q), 1).astype(np.int32)
+    port = ttopk.ranking_metrics_batch(pred, actual, counts, k)[0].numpy()
+    ref = np.asarray(jtopk.ranking_metrics_batch(pred, actual, counts, k=k)[0])
+    hits = np.arange(Q, dtype=np.float32)
+    assert np.array_equal(port, hits / np.float32(k))
+    assert np.array_equal(ref, hits * (np.float32(1) / np.float32(k)))
+    ulp = np.spacing(np.maximum(np.abs(port), np.abs(ref)))
+    assert (np.abs(port - ref) <= ulp).all() and int((port != ref).sum()) == 30
+    for k2 in (1, 8, 32, 128):  # 1 / k exact: the same bits
+        p2 = ttopk.ranking_metrics_batch(pred[:, :1], actual, counts, k2)[0].numpy()
+        r2 = np.asarray(jtopk.ranking_metrics_batch(pred[:, :1], actual, counts, k=k2)[0])
+        assert np.array_equal(p2, r2)
+
+
+@pytest.mark.parametrize("P", [0, 1, 2, 3, 10, 31, 32, 33, 100])
+def test_k3_group_matches_the_cu(P):
+    """K3's lanes a query row (ops/topk.py ``k3_group``) are the kernel's
+    own choice (csrc/ranking.cu ``k3_group``: a chain of ``P <= n ? g``),
+    a power of two from 1 to K3_MAX_GROUP, the fewest that leave a lane
+    at most K3_POSITIONS rank positions."""
+    import re
+    from pathlib import Path
+
+    src = (Path(ttopk.__file__).resolve().parent.parent / "csrc" / "ranking.cu").read_text()
+    assert int(re.search(r"constexpr int K3_MAX_GROUP = (\d+);", src).group(1)) == \
+        ttopk.K3_MAX_GROUP
+    assert int(re.search(r"constexpr int K3_POSITIONS = (\d+);", src).group(1)) == \
+        ttopk.K3_POSITIONS
+    body = src[src.index("int k3_group(int P)"):]
+    body = body[body.index("return") + len("return"):body.index(";")]
+    steps = [(int(n), int(g)) for n, g in re.findall(r"P <= (\d+) \? (\d+)", body)]
+    last = int(body.rsplit(":", 1)[1])
+    cu = next((g for n, g in steps if P <= n), last)
+    g = ttopk.k3_group(P)
+    assert g == cu
+    assert g & (g - 1) == 0 and 1 <= g <= ttopk.K3_MAX_GROUP
+    assert g == ttopk.K3_MAX_GROUP or P <= ttopk.K3_POSITIONS * g
+    assert g == 1 or P > ttopk.K3_POSITIONS * (g // 2)
 
 
 def test_ranking_cpu_calls_launch_no_kernel():
