@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--phases k2,k1,k1i,k1route,k2s,k2route,k4,k5,k6,k2cos,
                                     serve,batchserve,lifecycle,simlife,templife,train,
-                                    simtrain,templates,eval,retrieval,times,k1times,
-                                    simtimes,retimes]
+                                    ckpt,realtime,simtrain,templates,eval,retrieval,
+                                    times,k1times,simtimes,retimes]
 
 Run from the root of a checkout, on a machine with a CUDA card, ``nvcc``
 and PyTorch built for CUDA. It imports nothing of JAX and nothing of the
@@ -290,6 +290,26 @@ changes the eval phase:
   enqueued, events behind a queued ``torch.cuda._sleep`` -- device time
   without host gaps -- and ``torch.profiler`` with the launches its
   trace held against those made) and the host's enqueue time.
+
+The checkpointed-training and speed-layer slice adds (ckpt and
+realtime after train):
+
+- ckpt: ``als_train`` on the train phase's ML-20M layout, rank 20, 4
+  iterations, f32 and int8 storage: one shot, checkpointed every
+  iteration, checkpointed every 2 (the iteration-2 snapshot) and resumed
+  from it -- tables bit for bit on the card; the checkpoint write
+  seconds and file bytes;
+- realtime: the ckpt phase's f32 model in a sqlite store holding 50
+  known users' histories (the heaviest with 9,254 distinct items),
+  ``cli.main deploy --realtime 0.5`` in a subprocess; 200 new users x 20
+  ratings, 5 new ratings for each known user and ratings of 10 unseen
+  items in one commit, folded (``/stats.json`` foldin epoch, nothing
+  behind) in one fold whose K1 launches the server's ``/metrics`` counts;
+  each folded user's answer against K1's fold plus the plain top-k; each
+  fold group's K1 against its plain version, the grouped layout bit for
+  bit against K1 on one padded bucket (256 x 16,384); the fold cycle's
+  seconds, K1 per fold and the K = 16,384 group alone against bound,
+  plain and library; HTTP p50 at concurrency 1 idle and while folding.
 
 Every phase prints its results and seconds; any failure makes the exit
 code 1 and suppresses the result lines. Without CUDA, or without the
@@ -2183,6 +2203,396 @@ def full_width(torch, device, stats):
     log(json.dumps({"full_width": "ml20m rank 20 f32", **stats["full_width"]}))
 
 
+# -- the checkpointed training and the speed layer ------------------------------
+
+
+def same_storage_table(torch, a, b) -> bool:
+    """Two storage-form tables (a tensor or the int8 pair) bit for bit."""
+    if isinstance(a, tuple) != isinstance(b, tuple):
+        return False
+    if isinstance(a, tuple):
+        return bool(torch.equal(a[0], b[0])) and same_bits(torch, a[1], b[1])
+    return same_bits(torch, a, b)
+
+
+@phase("ckpt: checkpointed training at ML-20M shape, rank 20")
+def checkpointed(torch, device, stats):
+    """``als_train`` on the train phase's ML-20M layout at rank 20, 4
+    iterations, f32 and int8 storage: one shot, checkpointed every
+    iteration, and checkpointed every 2 (which leaves the iteration-2
+    snapshot) then resumed from it to 4. All four runs' tables bit for
+    bit on the card; the checkpoint write seconds
+    (``pio_checkpoint_write_seconds``) and bytes."""
+    from predictionio_tpu_torch.core import checkpoint as ckpt
+    from predictionio_tpu_torch.obs import metrics as obs_metrics
+    from predictionio_tpu_torch.ops import als
+
+    data = stats["ml20m"]
+    hist = obs_metrics.histogram("pio_checkpoint_write_seconds",
+                                 "Wall time of one checkpoint write")
+    out = {}
+    for storage in ("float32", "int8"):
+        params = als.ALSParams(rank=20, iterations=4, reg=TRAIN_REG, seed=3,
+                               storage_dtype=storage)
+        basedir = tempfile.mkdtemp(prefix="pio_chip_smoke_ckpt_")
+        try:
+            def cfg(**kw):
+                return ckpt.CheckpointConfig(directory=basedir, **kw)
+
+            t0 = time.perf_counter()
+            U0, V0 = als.als_train(data, params, device=device, checkpoint_cfg=cfg())
+            one_shot_s = time.perf_counter() - t0
+            _, s0, n0 = hist.merged()
+            t0 = time.perf_counter()
+            U1, V1 = als.als_train(data, params, device=device, checkpoint_cfg=cfg(every=1))
+            every1_s = time.perf_counter() - t0
+            _, s1, n1 = hist.merged()
+            if n1 - n0 != 3:
+                raise AssertionError(f"{storage}: {n1 - n0} checkpoint writes, expected 3")
+            U2, V2 = als.als_train(data, params, device=device, checkpoint_cfg=cfg(every=2))
+            fp = ckpt.data_fingerprint(data.rows, data.cols, data.vals, params)
+            snap = ckpt.load_checkpoint(cfg(), fp)
+            if snap is None or snap.iteration != 2:
+                raise AssertionError(f"{storage}: no iteration-2 snapshot ({snap})")
+            nbytes = os.path.getsize(ckpt.checkpoint_path(cfg(), fp))
+            t0 = time.perf_counter()
+            U3, V3 = als.als_train(data, params, device=device,
+                                   checkpoint_cfg=cfg(resume=True))
+            resume_s = time.perf_counter() - t0
+            if als.LAST_TRAIN_INFO["iterations_run"] != 2:
+                raise AssertionError(f"{storage}: resumed {als.LAST_TRAIN_INFO}")
+        finally:
+            shutil.rmtree(basedir, ignore_errors=True)
+        for what, (U, V) in (("every 1", (U1, V1)), ("every 2", (U2, V2)),
+                             ("resumed from 2", (U3, V3))):
+            if not (same_storage_table(torch, U, U0) and same_storage_table(torch, V, V0)):
+                raise AssertionError(f"{storage}: {what} differs from the one-shot run")
+        out[storage] = {"one_shot_s": one_shot_s, "every1_s": every1_s, "resume_s": resume_s,
+                        "write_s_mean": (s1 - s0) / (n1 - n0), "file_bytes": nbytes,
+                        "bit_identical": True}
+        if storage == "float32":
+            stats["ckpt_tables"] = (als.host_factors(U0)[0], als.host_factors(V0)[0])
+    stats["ckpt"] = out
+    log(json.dumps({"ckpt": "ml20m rank 20, 4 iterations", **out}))
+
+
+RT_NEW_USERS, RT_NEW_RATINGS = 200, 20  # new users x ratings each
+RT_KNOWN = 50  # known users with new ratings, the heaviest among them
+RT_COLD = 10  # unseen items rated
+RT_INTERVAL = 0.5  # deploy --realtime SECONDS
+RT_P50_QUERIES = 600
+RT_HEAVY = ML_SCALES["20m"][3]  # MovieLens-20M's heaviest user: 9,254 items
+
+
+def realtime_events(Event, rng, nu: int, ni: int, known: list, t0: float) -> list:
+    """The phase's new events: RT_NEW_USERS new users x RT_NEW_RATINGS
+    ratings of known items, 5 new ratings for each of ``known``, and
+    ratings of RT_COLD unseen items (some by new, some by known users)."""
+    out = []
+
+    def rate(u, i, v):
+        out.append(Event(event="rate", entity_type="user", entity_id=u,
+                         target_entity_type="item", target_entity_id=i,
+                         properties={"rating": float(v)}))
+
+    for j in range(RT_NEW_USERS):
+        for i in rng.choice(ni, size=RT_NEW_RATINGS, replace=False):
+            rate(f"new{j}", f"i{int(i)}", rng.integers(1, 6))
+    for u in known:
+        for i in rng.choice(ni, size=5, replace=False):
+            rate(f"u{u}", f"i{int(i)}", rng.integers(1, 6))
+    for c in range(RT_COLD):
+        rate(f"new{c}", f"cold{c}", 5)
+        rate(f"u{known[c]}", f"cold{c}", 4)
+    return out
+
+
+def rt_stats(server) -> dict:
+    status, body = server.get("/stats.json")
+    if status != 200:
+        raise AssertionError(f"/stats.json answered {status}")
+    return json.loads(body)
+
+
+def wait_folded(server, epoch: int, what: str, timeout: float = 120.0) -> dict:
+    """/stats.json until the fold-in epoch passed ``epoch`` and nothing is
+    behind."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        rt = rt_stats(server)["realtime"]
+        if rt["foldin_epoch"] > epoch and rt["events_behind"] == 0:
+            return rt
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"{what}: not folded in {timeout} s: {rt}\n"
+                                 + server.log_tail())
+        time.sleep(0.1)
+
+
+def fold_k1_checks(torch, als, foldin_mod, V, pairs, reg: float, stats) -> dict:
+    """K1 on every group of the fold's grouped layout against its plain
+    version (per_solve_ok), the grouped rows bit for bit against K1 on the
+    JAX package's one padded bucket, and times: K1 on all groups (one
+    fold's launches, queued CUDA events), each group alone, the heaviest
+    group, the plain version and the library yardstick, beside the bound."""
+    import types
+
+    mem_rate, fp32_rate = peaks(stats["device_name"])
+    D = als.table_dim(V)
+    groups = []
+    for rows, c, r, m in foldin_mod.grouped_buckets(pairs):
+        b = types.SimpleNamespace(
+            col_ids=torch.from_numpy(c).to(device=V.device),
+            ratings=torch.from_numpy(r).to(device=V.device),
+            mask=torch.from_numpy(m).to(device=V.device),
+            row_ids=torch.arange(len(rows), dtype=torch.int32, device=V.device))
+        groups.append((rows, b))
+    x_group, err = {}, 0.0
+    for rows, b in groups:
+        x = als.solve_bucket_explicit(V, b.col_ids, b.ratings, b.mask, reg)
+        ref = als.solve_bucket_reference(V, b.col_ids, b.ratings, b.mask, reg)
+        if not per_solve_ok(torch, x, ref):
+            raise AssertionError(f"fold group K={b.col_ids.shape[1]}: K1 vs plain "
+                                 f"{float((x - ref).abs().max())}")
+        err = max(err, float((x - ref).abs().max()))
+        x_group[b.col_ids.shape[1]] = (rows, x)
+    c, r, m = (torch.from_numpy(a).to(V.device) for a in foldin_mod.padded_bucket(pairs))
+    x_pad = als.solve_bucket_explicit(V, c, r, m, reg)
+    for K, (rows, x) in x_group.items():
+        if not same_bits(torch, x, x_pad[torch.from_numpy(rows).to(V.device)]):
+            raise AssertionError(f"fold group K={K}: not bit-equal to the padded bucket")
+    padded_shape = tuple(c.shape)
+    del c, r, m, x_pad
+
+    def kernel_all():
+        for _, b in groups:
+            als.solve_bucket_explicit(V, b.col_ids, b.ratings, b.mask, reg)
+
+    def plain_all():
+        for _, b in groups:
+            als.solve_bucket_reference(V, b.col_ids, b.ratings, b.mask, reg)
+
+    def library_all():
+        for _, b in groups:
+            library_solve(torch, V, b, None, reg)
+
+    launches = sum(als.k1_launches(D, len(rows), len(rows)) for rows, _ in groups)
+    clocks = clock_readings(torch, kernel_all, launches)
+    per_group = []
+    nbytes = flops = 0
+    for rows, b in groups:
+        _, nb, fl = k1_bound(torch, b, D, 4, 0)
+        nbytes += nb
+        flops += fl
+
+        def one(b=b):
+            als.solve_bucket_explicit(V, b.col_ids, b.ratings, b.mask, reg)
+
+        per_group.append({"K": b.col_ids.shape[1], "rows": len(rows),
+                          "live": int(b.mask.sum()),
+                          "ms": cuda_median_ms(torch, one, runs=10, warmup=3),
+                          "bound_ms": max(nb / mem_rate, fl / fp32_rate) * 1e3})
+    return {
+        "groups": per_group, "launches_per_fold": launches, "max_abs_err": err,
+        "padded_shape": padded_shape, "grouped_bit_equal_padded": True,
+        "ms": clocks["queued_ms"], "events_ms": clocks["events_ms"],
+        "profiler_ms": clocks["device_ms"], "host_ms": clocks["host_ms"],
+        "plain_ms": cuda_median_ms(torch, plain_all, runs=5, warmup=2),
+        "library_ms": cuda_median_ms(torch, library_all, runs=5, warmup=2),
+        "bound_ms": max(nbytes / mem_rate, flops / fp32_rate) * 1e3,
+        "bound_by": "bytes" if nbytes / mem_rate >= flops / fp32_rate else "operations",
+        "heavy_ms": per_group[-1]["ms"], "heavy_K": per_group[-1]["K"],
+    }
+
+
+@phase("realtime: deploy --realtime on sqlite, fold-in on K1 (ML-20M shape)")
+def realtime_serving(torch, device, stats):
+    """The ckpt phase's f32 ML-20M rank-20 model saved in a sqlite store
+    whose app holds the histories of RT_KNOWN known users (the heaviest,
+    9,254 ratings, among them), deployed by ``cli.main deploy --realtime
+    0.5`` in a subprocess. Then, in one sqlite commit, RT_NEW_USERS new
+    users x RT_NEW_RATINGS ratings, 5 new ratings for each known user and
+    ratings of RT_COLD unseen items (the heaviest user's history holds
+    RT_HEAVY distinct items): ``/stats.json`` must show the fold-in
+    epoch advanced with nothing behind. Each new and touched user's
+    ``POST /queries.json`` answer must equal K1's fold of the user (held
+    to the plain fold by the per-solve bar) plus the plain top-k; the
+    fold's K1 launches are read from the server's ``/metrics``
+    (``pio_k1_kernel_launches``, 0 at its start: the main path's count)
+    and must be one fold's grouped launches; every group's K1 is held
+    against its plain version and the grouped layout bit for bit against
+    K1 on the JAX package's one padded bucket (the heaviest user makes K =
+    16,384). Times: ``pio_foldin_solve_seconds`` per fold, K1 per fold
+    against its bound, plain version and library yardstick, the heaviest
+    group alone, and HTTP p50 at concurrency 1 idle (before the new
+    events, and again after the busy window) and with the speed layer
+    folding a trickle of events."""
+    from predictionio_tpu_torch.core.workflow import save_instance
+    from predictionio_tpu_torch.data import storage as st
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.models import recommendation as rec
+    from predictionio_tpu_torch.ops import als, topk
+    from predictionio_tpu_torch.realtime import foldin as foldin_mod
+
+    rows, cols, vals, nu, ni = stats["ml20m_arrays"]
+    uf, vf = stats["ckpt_tables"]
+    model = rec.model_from_numpy([f"u{j}" for j in range(nu)], [f"i{j}" for j in range(ni)],
+                                 uf, vf)
+    rng = np.random.default_rng(SEED + 15)
+    deg = np.bincount(rows, minlength=nu)
+    heavy = int(np.argmax(deg))
+    known = [heavy] + [int(u) for u in rng.choice(np.flatnonzero((deg > 0) & (deg < 2048)),
+                                                  size=RT_KNOWN - 1, replace=False)]
+    basedir = tempfile.mkdtemp(prefix="pio_chip_smoke_rt_")
+    storage = st.Storage(env={"PIO_FS_BASEDIR": basedir})
+    server = None
+    try:
+        app_id = storage.get_metadata_apps().insert(st.App(0, "ML20M"))
+        events = storage.get_events()
+        events.init(app_id)
+        order = np.argsort(rows, kind="stable")
+        starts = np.searchsorted(rows[order], known)
+        ends = np.searchsorted(rows[order], known, side="right")
+        history = [Event(event="rate", entity_type="user", entity_id=f"u{u}",
+                         target_entity_type="item", target_entity_id=f"i{int(cols[k])}",
+                         properties={"rating": float(vals[k])})
+                   for u, a, b in zip(known, starts, ends) for k in order[a:b]]
+        # the generator draws ratings with replacement, so the heaviest
+        # user's 9,497 ratings name ~4,900 distinct items: topped up here
+        # to MovieLens-20M's 9,254 distinct ones, its fold row is K = 16,384
+        seen = {int(cols[k]) for k in order[starts[0]:ends[0]]}
+        extra = rng.choice(np.setdiff1d(np.arange(ni), list(seen)),
+                           size=max(0, RT_HEAVY - len(seen)), replace=False)
+        history += [Event(event="rate", entity_type="user", entity_id=f"u{heavy}",
+                          target_entity_type="item", target_entity_id=f"i{int(i)}",
+                          properties={"rating": float(rng.integers(1, 6))})
+                    for i in extra]
+        events.batch_insert(history, app_id)
+        engine = rec.engine()
+        ep = engine.params_from_variant({
+            "datasource": {"params": {"appName": "ML20M"}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": 20, "numIterations": 4, "lambda": TRAIN_REG, "seed": 3}}]})
+        iid = save_instance(engine, ep, [model], engine_id="chip-smoke-rt",
+                            engine_variant="rt",
+                            engine_factory="predictionio_tpu_torch.models.recommendation.engine",
+                            storage=storage)
+        server = DeployProcess(basedir, iid, device.type,
+                               ["--realtime", str(RT_INTERVAL), "--realtime-cursor",
+                                os.path.join(basedir, "cursor.json")], "realtime")
+        pick = rng.permutation(nu)[:RT_P50_QUERIES]
+        idle = closed_loop(server.port, [{"user": f"u{int(j)}", "num": 10} for j in pick], 1)
+        m0 = server.metrics()
+        rt0 = rt_stats(server)["realtime"]
+        if rt0["mode"] != "seq" or rt0["foldin_epoch"] != 0:
+            raise AssertionError(f"speed layer not attached on sqlite: {rt0}")
+        new = realtime_events(Event, rng, nu, ni, known, time.time())
+        t_ins = time.perf_counter()
+        events.batch_insert(new, app_id)
+        rt1 = wait_folded(server, 0, "the new events")
+        visible_s = time.perf_counter() - t_ins
+        m1 = server.metrics()
+        k1_main = int(metric_delta(m1, m0, "pio_k1_kernel_launches"))
+        folds = rt1["foldin_epoch"]
+        fold_n = metric_delta(m1, m0, "pio_foldin_solve_seconds_count")
+        fold_s = metric_delta(m1, m0, "pio_foldin_solve_seconds_sum")
+
+        # the fold as the server ran it, here: its users and rows
+        from predictionio_tpu_torch.realtime import ALSFoldIn, FoldInConfig
+
+        fold = ALSFoldIn(events, app_id, config=FoldInConfig(reg=TRAIN_REG), device=device)
+        fstats = foldin_mod.FoldInStats()
+        touched: list = []
+        fold._collect_events(model, new, fstats, touched, set())
+        users, pairs = fold.touched_pairs(model, touched, fstats)
+        if rt1["users_added"] != RT_NEW_USERS or rt1["cold_start_items"] != RT_COLD:
+            raise AssertionError(f"fold stats {rt1}")
+        if len(users) != RT_NEW_USERS + RT_KNOWN or max(map(len, pairs)) < RT_HEAVY:
+            raise AssertionError(f"{len(users)} users, widest {max(map(len, pairs))}")
+        V = model.device_factors(device)[1]
+        k1 = fold_k1_checks(torch, als, foldin_mod, V, pairs, TRAIN_REG, stats)
+        if folds != 1 or k1_main != k1["launches_per_fold"]:
+            raise AssertionError(f"{folds} folds, {k1_main} K1 launches on the main path, "
+                                 f"expected 1 fold of {k1['launches_per_fold']}")
+        # every new and touched user's answer: K1's fold + the plain top-k
+        x = torch.empty((len(pairs), 20), dtype=torch.float32, device=device)
+        for rws, c, r, m in foldin_mod.grouped_buckets(pairs):
+            x[torch.from_numpy(rws).to(device)] = als.solve_bucket_explicit(
+                V, c, r, m, TRAIN_REG)
+        s_exp, i_exp = topk.gather_top_k_batch_reference(
+            torch.arange(len(users), device=device), x, V, 16)
+        s_exp, i_exp = host(s_exp)[:, :10], host(i_exp)[:, :10]
+        conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=60)
+        inv = model.item_index.inverse
+        try:
+            for j, u in enumerate(users):
+                got = post(conn, {"user": u, "num": 10})["itemScores"]
+                check_answer([g["item"] for g in got], [g["score"] for g in got],
+                             [inv[int(i)] for i in i_exp[j]], s_exp[j], model,
+                             f"folded user {u}")
+        finally:
+            conn.close()
+
+        # HTTP p50 with the layer folding a trickle of new users' events
+        stop = threading.Event()
+
+        def trickle():
+            k = 0
+            while not stop.is_set():
+                events.batch_insert([
+                    Event(event="rate", entity_type="user", entity_id=f"new{k % RT_NEW_USERS}",
+                          target_entity_type="item", target_entity_id=f"i{int(i)}",
+                          properties={"rating": 4.0})
+                    for i in rng.choice(ni, size=4, replace=False)], app_id)
+                k += 1
+                stop.wait(0.1)
+
+        writer = threading.Thread(target=trickle)
+        epoch0 = rt_stats(server)["realtime"]["foldin_epoch"]
+        writer.start()
+        try:
+            busy = closed_loop(server.port,
+                               [{"user": f"u{int(j)}", "num": 10} for j in pick], 1)
+        finally:
+            stop.set()
+            writer.join()
+        rt2 = wait_folded(server, rt_stats(server)["realtime"]["foldin_epoch"] - 1,
+                          "the trickle")
+        folds_busy = rt2["foldin_epoch"] - epoch0
+        if folds_busy < 1:
+            raise AssertionError("no fold ran during the busy p50 window")
+        m2 = server.metrics()
+        # idle again, now that the server is as warm as in the busy window
+        idle_after = closed_loop(server.port,
+                                 [{"user": f"u{int(j)}", "num": 10} for j in pick], 1)
+        code = server.stop()
+        server = None
+        if code != 0:
+            raise AssertionError(f"deploy --realtime exited {code}")
+    finally:
+        if server is not None:
+            server.stop()
+        storage.close()
+        shutil.rmtree(basedir, ignore_errors=True)
+
+    def p50(run):
+        lat = sorted(run["lat"])
+        return lat[len(lat) // 2] * 1e3
+
+    out = {
+        "events": len(new), "users_folded": len(users), "users_added": rt1["users_added"],
+        "cold_items": rt1["cold_start_items"], "folds": folds, "widest_history": max(map(len, pairs)),
+        "k1_launches_main_path": k1_main, "visible_s": visible_s,
+        "fold_cycle_s": fold_s / fold_n if fold_n else None,
+        "fold_cycles_s_all": (metric_delta(m2, m0, "pio_foldin_solve_seconds_sum")
+                              / max(1.0, metric_delta(m2, m0, "pio_foldin_solve_seconds_count"))),
+        "http_p50_ms_idle_first": p50(idle), "http_p50_ms_folding": p50(busy),
+        "http_p50_ms_idle": p50(idle_after),
+        "folds_during_busy_window": folds_busy, "k1": k1,
+    }
+    stats["realtime"] = out
+    log(json.dumps({"realtime": "ml20m rank 20 f32, sqlite", **out}))
+
+
 # -- the similar-product template ------------------------------------------------
 
 SIM_USERS, SIM_ITEMS, SIM_GROUPS = 1000, 300, 5
@@ -2640,7 +3050,7 @@ def device_trace(torch, fn, runs: int = 50) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     out: dict = {}
     held: dict = {}
-    for _ in range(3):  # a trace now and then comes back without device events
+    for _ in range(5):  # a trace now and then comes back without device events
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
                 fn()
@@ -4833,7 +5243,12 @@ def k4_route_times(torch, retrieval, cat, q, rows: int, kp: int, mode: str, boun
     t = {name: [] for name in order}
     for name in order + order[::-1]:
         t[name].append(_total(device_ms(torch, calls[name], runs=20)))
-    out = {f"{name}_ms": statistics.mean(v) for name, v in t.items()}
+    # the mean of the readings whose trace held device events (a trace now
+    # and then comes back without any); at least one a route
+    if not all(any(x is not None for x in v) for v in t.values()):
+        raise AssertionError(f"K4 {mode} k'={kp}: no profiler reading for a route: {t}")
+    out = {f"{name}_ms": statistics.mean(x for x in v if x is not None)
+           for name, v in t.items()}
     out.update({f"{name}_event_ms": cuda_median_ms(torch, calls[name], runs=20, warmup=5)
                 for name in order})
     out["pair_over_stream"] = out["pair_ms"] / out["stream_ms"]
@@ -6515,6 +6930,29 @@ def k1_summary(stats) -> dict:
     }
 
 
+def foldin_k1_summary(stats) -> dict:
+    """K1 on the fold-in path (the realtime phase): one fold's grouped
+    buckets at the ML-20M shape, on the queued-events clock; ``launches``
+    the server's count over the phase's fold, read from its /metrics."""
+    rt = stats["realtime"]
+    k1 = rt["k1"]
+    return {
+        "name": "solve_bucket_explicit (fold-in)",
+        "route": "cuda",
+        "source": "predictionio_tpu_torch/csrc/als_solve.cu",
+        "replaces": "predictionio_tpu/ops/als.py:424",
+        "launches": rt["k1_launches_main_path"],
+        "max_abs_err": k1["max_abs_err"],
+        "ms": k1["ms"],
+        "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"],
+        "library_ms": k1["library_ms"],
+        "heavy_K": k1["heavy_K"],
+        "heavy_ms": k1["heavy_ms"],
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -6552,6 +6990,8 @@ def main() -> int:
         "simlife": lambda: similar_lifecycle(torch, device, stats),
         "templife": lambda: templates_lifecycle(torch, device, stats),
         "train": lambda: full_width(torch, device, stats),
+        "ckpt": lambda: checkpointed(torch, device, stats),
+        "realtime": lambda: realtime_serving(torch, device, stats),
         "simtrain": lambda: similar_full_width(torch, device, stats),
         "templates": lambda: templates_full_width(torch, device, stats),
         "eval": lambda: eval_phase(torch, device, stats),
@@ -6609,7 +7049,7 @@ def main() -> int:
     }, k1_summary(stats), k1i_summary(stats), k2s_summary(stats),
         k1s_summary(stats), topk_items_summary(stats), k3_summary(stats),
         *k4_summary(stats), k5_summary(stats), k6_summary(stats), k6_dense_summary(stats),
-        k2cos_summary(stats)]}))
+        k2cos_summary(stats), foldin_k1_summary(stats)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

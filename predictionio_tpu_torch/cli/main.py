@@ -3,7 +3,8 @@
     python -m predictionio_tpu_torch.cli.main train --variant engine.json \\
         [--engine-id ID] [--engine-version V] [--batch LABEL] \\
         [--skip-sanity-check] [--stop-after-read] [--stop-after-prepare] \\
-        [--warm-start] [--tol T] [--device cuda|cpu]
+        [--warm-start] [--tol T] [--checkpoint-every N] [--resume] \\
+        [--checkpoint-dir DIR] [--device cuda|cpu]
     python -m predictionio_tpu_torch.cli.main deploy \\
         [--engine-instance-id ID | --variant engine.json] \\
         [--ip 0.0.0.0] [--port 8000] [--device cuda|cpu] \\
@@ -11,7 +12,7 @@
          --accesskey KEY] [--server-config server.conf] \\
         [--log-url URL] [--log-prefix P] [--batch-window-ms MS] \\
         [--reuse-port] [--query-cache-mb MB] [--variants A.json,B.json] \\
-        [--no-warmup]
+        [--no-warmup] [--realtime SECONDS [--realtime-cursor PATH]]
     python -m predictionio_tpu_torch.cli.main eval EVALUATION \\
         [ENGINE_PARAMS_GENERATOR] [--batch LABEL] [--device cuda|cpu]
 
@@ -20,12 +21,18 @@ Port of ``predictionio_tpu/cli/main.py`` ``cmd_train`` (:843-894),
 the variant's (id, version, file-name label), as the JAX CLI does, so
 ``deploy`` of either package finds it; ``--warm-start`` starts from the
 latest COMPLETED instance of that identity, whichever package trained
-it. The JAX CLI's checkpoint, mesh, multi-host, profiler and prep-cache
-flags belong to later slices and are not accepted. ``deploy --workers
-N`` (N > 1) and ``--realtime`` are accepted and raise, naming the later
-slice: each worker process would need a CUDA context and a model copy
-of its own (forking after CUDA started is unsafe), and the speed layer
-is not ported yet. The engine factory
+it. ``--checkpoint-every N``, ``--resume`` and ``--checkpoint-dir DIR``
+set ``PIO_CHECKPOINT_EVERY``, ``PIO_RESUME`` and ``PIO_CHECKPOINT_DIR``
+as the JAX CLI does (``core/checkpoint.py``; the files are the JAX
+package's, so either package resumes the other's). The JAX CLI's mesh,
+multi-host, profiler and prep-cache flags belong to later slices and are
+not accepted. ``deploy --realtime SECONDS`` runs the speed layer
+(``realtime/``), one per mounted variant, folding tailed rating events
+into the served model every SECONDS; its cursor is
+``--realtime-cursor`` or ``~/.pio_tpu/realtime/cursor_<engine>_<port>
+.json``. ``deploy --workers N`` (N > 1) is accepted and raises, naming
+the later slice: each worker process would need a CUDA context and a
+model copy of its own (forking after CUDA started is unsafe). The engine factory
 comes from the variant's ``engineFactory`` (for ``deploy``, else from
 the instance's recorded ``engine_factory``), else the port's
 recommendation template; a JAX-package factory name maps to the port
@@ -74,6 +81,14 @@ def _engine_identity(args, variant: dict) -> tuple[str, str, str]:
 
 def cmd_train(args) -> int:
     """Train the variant's engine and record a COMPLETED instance."""
+    # the checkpoint flags reach als_train through the environment, as in
+    # the JAX CLI
+    if args.checkpoint_every:
+        os.environ["PIO_CHECKPOINT_EVERY"] = str(args.checkpoint_every)
+    if args.resume:
+        os.environ["PIO_RESUME"] = "1"
+    if args.checkpoint_dir:
+        os.environ["PIO_CHECKPOINT_DIR"] = args.checkpoint_dir
     variant = load_variant(args.variant) if args.variant else {}
     factory = variant.get("engineFactory") or DEFAULT_ENGINE_FACTORY
     engine = resolve_engine_factory(factory)
@@ -153,8 +168,8 @@ def _load_server_config(args):
 
 
 def _check_later_slices(args) -> None:
-    """``--workers N`` and ``--realtime`` belong to later slices of the
-    port: raise, naming them, instead of ignoring the flag."""
+    """``--workers N`` belongs to a later slice of the port: raise,
+    naming it, instead of ignoring the flag."""
     if getattr(args, "workers", 1) > 1:
         raise NotImplementedError(
             "--workers N (server processes sharing the port) is a later "
@@ -162,11 +177,34 @@ def _check_later_slices(args) -> None:
             "CUDA context and a model copy of its own, and forking after "
             "CUDA has started is unsafe (ROADMAP.md queue 1)"
         )
-    if getattr(args, "realtime", 0.0) > 0:
-        raise NotImplementedError(
-            "--realtime (the speed layer) is a later slice of the PyTorch "
-            "port (ROADMAP.md queue 1, item 8)"
-        )
+
+
+def start_speed_layers(server: EngineServer, args) -> list:
+    """``deploy --realtime SECONDS``: one started speed layer per mounted
+    variant, each tailing its own app into its own mount behind that
+    mount's epoch fence (the JAX CLI's cursor paths)."""
+    if not getattr(args, "realtime", 0.0) or args.realtime <= 0:
+        return []
+    from pathlib import Path
+
+    from predictionio_tpu_torch.realtime import SpeedLayer
+
+    run = Path("~/.pio_tpu").expanduser() / "realtime"
+    layers = [SpeedLayer(
+        server, interval=args.realtime,
+        cursor_path=args.realtime_cursor
+        or str(run / f"cursor_{server.instance.engine_id}_{args.port}.json"),
+    )]
+    for name, v in server.variants.items():
+        if v is server._default_variant:
+            continue
+        layers.append(SpeedLayer(
+            v, interval=args.realtime,
+            cursor_path=str(run / f"cursor_{v.instance.engine_id}_{args.port}_{name}.json"),
+        ))
+    for layer in layers:
+        layer.start()
+    return layers
 
 
 def _resolve_extra_variants(args, instances) -> list:
@@ -260,6 +298,7 @@ def cmd_deploy(args) -> int:
     # tables upload here; a failure raises and the server never binds
     if not args.no_warmup:
         server.warmup()
+    start_speed_layers(server, args)
     # foreground, like the reference: backgrounding is the caller's job.
     # SIGTERM drains (HTTPApp): in-flight queries finish, then it stops
     try:
@@ -298,6 +337,23 @@ def build_parser() -> argparse.ArgumentParser:
         "--tol", type=float, metavar="T",
         help="stop iterating when the per-iteration train RMSE improves "
         "by less than T",
+    )
+    t.add_argument(
+        "--checkpoint-every", type=int, metavar="N",
+        help="snapshot the ALS factor carry atomically every N "
+        "iterations so a killed run can resume (sets "
+        "PIO_CHECKPOINT_EVERY)",
+    )
+    t.add_argument(
+        "--resume", action="store_true",
+        help="restore the latest checkpoint whose data fingerprint "
+        "matches this run and continue bit-identically from its "
+        "iteration (sets PIO_RESUME=1; no-op when none matches)",
+    )
+    t.add_argument(
+        "--checkpoint-dir", metavar="DIR",
+        help="where checkpoints live (sets PIO_CHECKPOINT_DIR; "
+        "default ~/.pio_tpu/checkpoints)",
     )
     t.add_argument(
         "--device", default=None,
@@ -368,7 +424,14 @@ def build_parser() -> argparse.ArgumentParser:
     )
     d.add_argument(
         "--realtime", type=float, default=0.0, metavar="SECONDS",
-        help="the speed layer: a later slice of the port (> 0 raises)",
+        help="enable the speed layer: tail the app's event stream every "
+        "SECONDS and fold new rating events into the live model between "
+        "retrains (0 = batch-only serving)",
+    )
+    d.add_argument(
+        "--realtime-cursor",
+        help="durable tailer cursor file (default: "
+        "~/.pio_tpu/realtime/cursor_<engine>_<port>.json)",
     )
     d.add_argument(
         "--variants", metavar="A.JSON,B.JSON",

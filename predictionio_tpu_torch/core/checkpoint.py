@@ -1,0 +1,275 @@
+"""Crash-safe ALS training checkpoints.
+
+Port of ``predictionio_tpu/core/checkpoint.py``; the file format is the
+JAX package's, so a checkpoint either package wrote resumes in the
+other. ``ops/als.py als_train`` launches K1 one iteration at a time, so a
+run of N iterations dispatched as segments of ``every`` iterations makes
+the same launches in the same order as one run: bit-identical. This
+module persists the (U, V) carry at each segment boundary:
+
+- snapshot contents: both factor tables in their storage representation
+  (a dense array, or the int8 ``(values, scales)`` pair — exact either
+  way), the iteration counter, the init seed, and a **data fingerprint**
+  (blake2b over the COO ratings + the iteration-normalized ALSParams +
+  a mesh descriptor). Resume refuses a checkpoint whose fingerprint
+  doesn't match the current run, so stale snapshots can never leak
+  factors across datasets, hyperparameters, or mesh shapes.
+- atomicity: tmp write + flush + fsync + ``os.replace`` — a kill-9 at
+  any byte leaves either the previous checkpoint or the new one, never
+  a torn file; ``load_checkpoint`` treats any unreadable/mismatched file
+  as absent (warn + counter), so a torn tmp or corrupt npz degrades to
+  a from-scratch run, not a crash.
+
+Tables are torch tensors (or int8 ``(values, scales)`` pairs of them) on
+the training device; saving copies them to the host. bfloat16 values are
+written as the JAX package writes them, two raw bytes an element (numpy's
+``|V2``), and read back as ``torch.bfloat16``.
+
+Activation: ``pio train --checkpoint-every N [--resume]``, or the
+``PIO_CHECKPOINT_EVERY`` / ``PIO_RESUME`` / ``PIO_CHECKPOINT_DIR`` env
+vars (the CLI flags just set these — the config threads through the
+workflow to the trainers without touching every signature en route).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import logging
+import os
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from predictionio_tpu_torch import faults
+from predictionio_tpu_torch.obs import device as obs_device
+from predictionio_tpu_torch.obs import metrics as obs_metrics
+
+logger = logging.getLogger(__name__)
+
+FORMAT_VERSION = 1
+DEFAULT_DIR = os.path.join(os.path.expanduser("~"), ".pio_tpu", "checkpoints")
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointConfig:
+    every: int = 0          # iterations per segment; 0 = no periodic saves
+    directory: str = DEFAULT_DIR
+    resume: bool = False
+
+    @property
+    def active(self) -> bool:
+        return self.every > 0 or self.resume
+
+
+def from_env() -> CheckpointConfig | None:
+    """CheckpointConfig from PIO_CHECKPOINT_EVERY / PIO_RESUME /
+    PIO_CHECKPOINT_DIR, or None when neither knob is set."""
+    try:
+        every = int(os.environ.get("PIO_CHECKPOINT_EVERY", "0").strip() or 0)
+    except ValueError:
+        logger.warning("ignoring non-integer PIO_CHECKPOINT_EVERY")
+        every = 0
+    resume = os.environ.get("PIO_RESUME", "").strip().lower() in (
+        "1", "true", "yes", "on",
+    )
+    if every <= 0 and not resume:
+        return None
+    directory = os.environ.get("PIO_CHECKPOINT_DIR", "").strip() or DEFAULT_DIR
+    return CheckpointConfig(every=max(0, every), directory=directory, resume=resume)
+
+
+def data_fingerprint(rows, cols, vals, params, mesh: str = "single") -> str:
+    """Identity of a training run: the exact COO ratings, the ALSParams
+    with ``iterations`` normalized out (a 6-iteration run must resume
+    the checkpoints of its killed 10-iteration twin), and a mesh
+    descriptor (a single-chip snapshot must not restore into a sharded
+    layout or vice versa — the sharded carry is layout-permuted)."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(np.ascontiguousarray(rows).tobytes())
+    h.update(np.ascontiguousarray(cols).tobytes())
+    h.update(np.ascontiguousarray(vals).tobytes())
+    h.update(repr(dataclasses.replace(params, iterations=0)).encode())
+    h.update(mesh.encode())
+    return h.hexdigest()
+
+
+@dataclasses.dataclass
+class Snapshot:
+    U: object  # np array, or (values, scales) pair for int8 storage
+    V: object
+    iteration: int
+    seed: int
+    fingerprint: str
+    mesh: str
+
+
+def checkpoint_path(cfg: CheckpointConfig, fingerprint: str) -> Path:
+    return Path(cfg.directory) / f"als-{fingerprint}.npz"
+
+
+def _host(a) -> np.ndarray:
+    """Host array of one stored table part: a tensor is copied off its
+    device, bfloat16 becoming the JAX package's ``|V2`` bytes."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().contiguous()
+        if a.dtype == torch.bfloat16:
+            return a.view(torch.int16).numpy().view("V2")
+        return a.numpy()
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16" or a.dtype.fields is not None:
+        return a.view("V2")
+    return a
+
+
+def _pack_table(prefix: str, table, out: dict) -> None:
+    if isinstance(table, tuple):
+        out[f"{prefix}_values"] = _host(table[0])
+        out[f"{prefix}_scales"] = _host(table[1])
+    else:
+        out[f"{prefix}_values"] = _host(table)
+
+
+def _unpack_table(prefix: str, npz):
+    values = npz[f"{prefix}_values"]
+    scales_key = f"{prefix}_scales"
+    if scales_key in npz.files:
+        return values, npz[scales_key]
+    return values
+
+
+def table_to_device(table, device) -> object:
+    """A snapshot table (numpy, or the int8 pair) as the storage-form
+    tensor(s) ``als_train`` carries, on ``device``: ``|V2`` bytes become
+    ``torch.bfloat16``."""
+    if isinstance(table, tuple):
+        return tuple(table_to_device(t, device) for t in table)
+    a = np.ascontiguousarray(table)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def save_checkpoint(
+    cfg: CheckpointConfig,
+    fingerprint: str,
+    U,
+    V,
+    iteration: int,
+    seed: int,
+    mesh: str = "single",
+) -> bool:
+    """Atomically persist the carry at an iteration boundary. Best-effort:
+    a failed write warns + counts but never aborts training (losing a
+    checkpoint costs re-doing a segment on the next resume, nothing
+    else). One file per fingerprint; the latest snapshot wins."""
+    t0 = time.perf_counter()
+    path = checkpoint_path(cfg, fingerprint)
+    tmp = path.with_name(path.name + ".tmp")
+    try:
+        faults.fault_point("train.checkpoint")
+        path.parent.mkdir(parents=True, exist_ok=True)
+        arrays: dict = {}
+        _pack_table("U", U, arrays)
+        _pack_table("V", V, arrays)
+        # _pack_table copied the carry off the device
+        obs_device.count_transfer(
+            "d2h", "checkpoint", sum(a.nbytes for a in arrays.values())
+        )
+        with open(tmp, "wb") as f:
+            np.savez(
+                f,
+                version=np.int64(FORMAT_VERSION),
+                iteration=np.int64(iteration),
+                seed=np.int64(seed),
+                fingerprint=np.array(fingerprint),
+                mesh=np.array(mesh),
+                **arrays,
+            )
+            f.flush()
+            faults.fault_point("storage.fsync")
+            os.fsync(f.fileno())
+        faults.fault_point("storage.rename")
+        os.replace(tmp, path)
+    except OSError as exc:
+        logger.warning(
+            "checkpoint write failed at iteration %d (%s): %s",
+            iteration, path, exc,
+        )
+        obs_metrics.counter(
+            "pio_checkpoint_writes_total", "ALS checkpoint snapshot writes",
+            outcome="error",
+        ).inc()
+        return False
+    dt = time.perf_counter() - t0
+    obs_metrics.counter(
+        "pio_checkpoint_writes_total", "ALS checkpoint snapshot writes",
+        outcome="ok",
+    ).inc()
+    obs_metrics.histogram(
+        "pio_checkpoint_write_seconds", "Wall time of one checkpoint write",
+    ).observe(dt)
+    logger.info(
+        "checkpoint: iteration %d -> %s (%.1f ms)", iteration, path, dt * 1e3
+    )
+    return True
+
+
+def load_checkpoint(cfg: CheckpointConfig, fingerprint: str) -> Snapshot | None:
+    """Latest snapshot for this run identity, or None (absent, corrupt,
+    or fingerprint mismatch — all degrade to a from-scratch run)."""
+    path = checkpoint_path(cfg, fingerprint)
+    if not path.exists():
+        obs_metrics.counter(
+            "pio_checkpoint_restores_total", "ALS checkpoint restore attempts",
+            outcome="miss",
+        ).inc()
+        return None
+    try:
+        with np.load(path, allow_pickle=False) as npz:
+            if int(npz["version"]) != FORMAT_VERSION:
+                raise ValueError(f"unsupported checkpoint version {npz['version']}")
+            found = str(np.asarray(npz["fingerprint"]).item())
+            if found != fingerprint:
+                logger.warning(
+                    "checkpoint %s fingerprint mismatch (stale data/params); "
+                    "training from scratch", path,
+                )
+                obs_metrics.counter(
+                    "pio_checkpoint_restores_total",
+                    "ALS checkpoint restore attempts",
+                    outcome="mismatch",
+                ).inc()
+                return None
+            snap = Snapshot(
+                U=_unpack_table("U", npz),
+                V=_unpack_table("V", npz),
+                iteration=int(npz["iteration"]),
+                seed=int(npz["seed"]),
+                fingerprint=found,
+                mesh=str(np.asarray(npz["mesh"]).item()),
+            )
+    except Exception as exc:
+        logger.warning(
+            "ignoring corrupt checkpoint %s (%s); training from scratch",
+            path, exc,
+        )
+        obs_metrics.counter(
+            "pio_checkpoint_restores_total", "ALS checkpoint restore attempts",
+            outcome="corrupt",
+        ).inc()
+        return None
+    obs_metrics.counter(
+        "pio_checkpoint_restores_total", "ALS checkpoint restore attempts",
+        outcome="ok",
+    ).inc()
+    logger.info(
+        "checkpoint: resuming from iteration %d (%s)", snap.iteration, path
+    )
+    return snap
+
+
+def clear_checkpoint(cfg: CheckpointConfig, fingerprint: str) -> None:
+    checkpoint_path(cfg, fingerprint).unlink(missing_ok=True)

@@ -297,6 +297,33 @@ class Events(abc.ABC):
     # where a filtered read costs a full replay anyway).
     entity_indexed = False
 
+    def tail_events(
+        self,
+        app_id: int,
+        channel_id: int | None = None,
+        after: object | None = None,
+        limit: int | None = None,
+    ) -> tuple[list[Event], object] | None:
+        """Incremental seq-ordered tail: events appended after cursor
+        ``after`` in a backend-defined total order, plus the new cursor.
+
+        ``None`` (the default) means the backend has no cheap seq-ordered
+        tail, and the realtime tailer falls back to ``change_token``-gated
+        full reads. ``after=None`` starts from the beginning of the
+        stream. The cursor is opaque to callers (compare/persist only); a
+        backend MAY re-deliver events at the cursor boundary -- consumers
+        must dedupe by ``event_id``.
+        """
+        return None
+
+    def tail_end(
+        self, app_id: int, channel_id: int | None = None
+    ) -> object | None:
+        """Current end-of-stream cursor for :meth:`tail_events` (what a
+        tailer resets to when it wants "only events from now on"), or
+        ``None`` when the backend has no seq-ordered tail."""
+        return None
+
     def change_token(
         self, app_id: int, channel_id: int | None = None
     ) -> object | None:

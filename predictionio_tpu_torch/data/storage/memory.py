@@ -32,6 +32,9 @@ class MemoryStorageClient:
         self.events: dict[tuple[int, int | None], dict[str, Event]] = {}
         # (app_id, channel_id) -> write counter (Events.change_token)
         self.events_version: dict[tuple[int, int | None], int] = {}
+        # (app_id, channel_id) -> [(seq, event_id)] insertion log, seq =
+        # the events_version at insert time (Events.tail_events cursor)
+        self.tail_logs: dict[tuple[int, int | None], list[tuple[int, str]]] = {}
         self._app_seq = itertools.count(1)
         self._channel_seq = itertools.count(1)
         self._event_seq = itertools.count(1)
@@ -235,6 +238,7 @@ class MemoryEvents(base.Events):
     def remove(self, app_id: int, channel_id: int | None = None) -> bool:
         with self._c.lock:
             self._bump_locked(app_id, channel_id)
+            self._c.tail_logs.pop((app_id, channel_id), None)
             return self._c.events.pop((app_id, channel_id), None) is not None
 
     def _bump_locked(self, app_id: int, channel_id: int | None) -> None:
@@ -247,6 +251,9 @@ class MemoryEvents(base.Events):
             event_id = event.event_id or f"{next(self._c._event_seq):012x}"
             table[event_id] = event.with_event_id(event_id)
             self._bump_locked(app_id, channel_id)
+            self._c.tail_logs.setdefault((app_id, channel_id), []).append(
+                (self._c.events_version[(app_id, channel_id)], event_id)
+            )
             return event_id
 
     def get(
@@ -268,6 +275,38 @@ class MemoryEvents(base.Events):
     ) -> object | None:
         with self._c.lock:
             return self._c.events_version.get((app_id, channel_id), 0)
+
+    def tail_end(
+        self, app_id: int, channel_id: int | None = None
+    ) -> object | None:
+        with self._c.lock:
+            return self._c.events_version.get((app_id, channel_id), 0)
+
+    def tail_events(
+        self,
+        app_id: int,
+        channel_id: int | None = None,
+        after: object | None = None,
+        limit: int | None = None,
+    ) -> tuple[list[Event], object]:
+        """Replay the insertion log past ``after`` (an events_version
+        value). Deleted events are skipped; replaced events are returned
+        in their CURRENT state (last write wins, like the stores)."""
+        cursor = int(after or 0)
+        out: list[Event] = []
+        with self._c.lock:
+            log = self._c.tail_logs.get((app_id, channel_id), [])
+            table = self._c.events.get((app_id, channel_id), {})
+            for seq, event_id in log:
+                if seq <= cursor:
+                    continue
+                cursor = seq
+                e = table.get(event_id)
+                if e is not None:
+                    out.append(e)
+                if limit is not None and limit > 0 and len(out) >= limit:
+                    break
+        return out, cursor
 
     def find(
         self,

@@ -497,6 +497,48 @@ class SQLiteEvents(base.Events):
             dv = self._c.conn.execute("PRAGMA data_version").fetchone()[0]
             return (dv, self._c.conn.total_changes, self._c.ddl_bump)
 
+    def tail_end(
+        self, app_id: int, channel_id: int | None = None
+    ) -> object | None:
+        t = self._table(app_id, channel_id)
+        try:
+            row = self._c.query_one(f"SELECT COALESCE(MAX(rowid), 0) FROM {t}")
+        except sqlite3.OperationalError as err:
+            if _is_missing_table(err):
+                return 0
+            raise
+        return int(row[0]) if row and row[0] is not None else 0
+
+    def tail_events(
+        self,
+        app_id: int,
+        channel_id: int | None = None,
+        after: object | None = None,
+        limit: int | None = None,
+    ) -> tuple[list[Event], object]:
+        """Max-rowid cursor: rowids are monotone for appends, so
+        ``rowid > after`` is exactly the events inserted since the
+        cursor (INSERT OR REPLACE assigns a fresh rowid -- a replaced
+        event re-delivers in its new state, deduped by the consumer).
+        The table's schema is the JAX package's, so events either
+        package wrote tail the same way."""
+        t = self._table(app_id, channel_id)
+        cursor = int(after or 0)
+        lim = int(limit) if limit is not None and limit > 0 else -1
+        try:
+            rows = self._c.query(
+                f"SELECT rowid, * FROM {t} WHERE rowid > ? "
+                f"ORDER BY rowid LIMIT ?",
+                (cursor, lim),
+            )
+        except sqlite3.OperationalError as err:
+            if _is_missing_table(err):
+                return [], cursor
+            raise
+        if rows:
+            cursor = int(rows[-1][0])
+        return [self._parse(r[1:]) for r in rows], cursor
+
     @staticmethod
     def _to_row(event: Event, event_id: str) -> tuple:
         off = event.event_time.utcoffset()

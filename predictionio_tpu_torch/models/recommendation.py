@@ -272,18 +272,9 @@ class ALSModel:
         (values, scales) pairs on the device."""
         with self._device_lock:
             if self._device is None or self._device[0] != device:
-
-                def put(values, scales):
-                    if scales is not None:
-                        return (
-                            numpy_to_tensor(values, device),
-                            numpy_to_tensor(scales, device),
-                        )
-                    return numpy_to_tensor(values, device)
-
                 self._device = (device, (
-                    put(self.user_factors, self.user_scales),
-                    put(self.item_factors, self.item_scales),
+                    _put(self.user_factors, self.user_scales, device),
+                    _put(self.item_factors, self.item_scales, device),
                 ))
                 obs_device.count_transfer("h2d", "serve.model_put", sum(
                     a.nbytes for a in (self.user_factors, self.user_scales,
@@ -291,6 +282,26 @@ class ALSModel:
                     if a is not None
                 ))
             return self._device[1]
+
+    def carry_device(self, old: "ALSModel", device: torch.device) -> None:
+        """Adopt ``old``'s item table on ``device`` and its coarse catalog,
+        and upload this model's user table: for a fold-in patch, which
+        shares ``old``'s item arrays. The speed layer calls it in its own
+        thread, so the served swap uploads nothing and no request pays
+        for it (``apply_patch`` counts the patch's bytes)."""
+        item = old.device_factors(device)[1]
+        user = _put(self.user_factors, self.user_scales, device)
+        with self._device_lock:
+            self._device = (device, (user, item))
+            self._coarse = old._coarse
+
+
+def _put(values: np.ndarray, scales: np.ndarray | None, device: torch.device):
+    """One factor table on ``device``: a tensor, or the int8 (values,
+    scales) pair."""
+    if scales is not None:
+        return numpy_to_tensor(values, device), numpy_to_tensor(scales, device)
+    return numpy_to_tensor(values, device)
 
 
 def model_from_numpy(user_ids, item_ids, user_factors, item_factors,

@@ -47,17 +47,19 @@ from __future__ import annotations
 
 import ctypes
 import logging
-import os
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Sequence
 
 import numpy as np
 import torch
 
 from predictionio_tpu_torch import faults
+from predictionio_tpu_torch.core import checkpoint as ckpt
 from predictionio_tpu_torch.kernels import _build
 from predictionio_tpu_torch.models.modelfile import tensor_to_numpy
+from predictionio_tpu_torch.obs import metrics as obs_metrics
+from predictionio_tpu_torch.obs import progress as obs_progress
 from predictionio_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -874,6 +876,10 @@ def _solve_on_card(route, counter, other, col_ids, ratings, mask, seg_start, reg
 
 solve_bucket.launches = _build.LaunchCount()
 _solve_bucket_block.launches = _build.LaunchCount()
+obs_metrics.gauge(
+    "pio_k1_kernel_launches", "Kernels K1's solves launched on the card, "
+    "since the process started",
+).set_function(lambda: float(solve_bucket.launches.value))
 
 
 def _candidate(table, c: int, rank: int | None = None):
@@ -1268,24 +1274,20 @@ def _half_step(target, other, buckets: Sequence[DeviceBucket], params: ALSParams
 LAST_TRAIN_INFO: dict = {}
 
 
-def _checkpoints_requested() -> bool:
-    """Would the JAX package checkpoint this run (core/checkpoint.py
-    ``from_env``)?"""
-    try:
-        every = int(os.environ.get("PIO_CHECKPOINT_EVERY", "0").strip() or 0)
-    except ValueError:
-        every = 0
-    resume = os.environ.get("PIO_RESUME", "").strip().lower() in (
-        "1", "true", "yes", "on",
-    )
-    return every > 0 or resume
+def _iterate(U, V, row_buckets, col_buckets, params: ALSParams, n: int) -> None:
+    """``n`` ALS iterations in place: a half-step of U, then one of V."""
+    for _ in range(n):
+        _half_step(U, V, row_buckets, params)
+        _half_step(V, U, col_buckets, params)
 
 
 def als_train(
     data: RatingsData,
     params: ALSParams,
+    checkpoint_cfg=None,
     warm_start=None,
     tol: float = 0.0,
+    progress_extra: dict | None = None,
     device: str | torch.device | None = None,
 ):
     """Run ALS on ``device`` (CUDA unless the CPU is asked for); returns
@@ -1295,15 +1297,20 @@ def als_train(
     with ``params.seed``, so the CPU and a card start from the same
     factors. ``warm_start`` is an optional ``(U0, V0)`` pair of full-size
     float32 arrays; NaN rows keep the cold draw. ``tol > 0`` stops when
-    the per-iteration train RMSE improves by less than ``tol``.
+    the per-segment train RMSE improves by less than ``tol``.
     ``params.implicit`` trains Hu-Koren-Volinsky implicit feedback on the
-    same K1 launches. Checkpointing (``PIO_CHECKPOINT_EVERY`` /
-    ``PIO_RESUME``) is a later slice of the port and raises."""
-    if _checkpoints_requested():
-        raise NotImplementedError(
-            "PIO_CHECKPOINT_EVERY / PIO_RESUME: checkpointing (core/"
-            "checkpoint.py) is a later slice of the PyTorch port"
-        )
+    same K1 launches.
+
+    Checkpointing (``checkpoint_cfg``, else the ``PIO_CHECKPOINT_*`` /
+    ``PIO_RESUME`` env vars; ``core/checkpoint.py``): the iterations run
+    as segments of ``every``, and the storage-form (U, V) is saved
+    atomically after each segment but the last. K1 runs one iteration at
+    a time either way, so a segmented run makes the launches of a
+    one-shot run in the same order: bit-identical. ``resume`` loads the
+    latest fingerprint-matched snapshot onto ``device`` and continues
+    from its iteration. Each segment publishes the train progress file
+    (``obs/progress.py``), with its RMSE when ``tol > 0`` or the
+    publisher is enabled."""
     device = resolve_device(device)
     gen = torch.Generator(device="cpu")
     gen.manual_seed(int(params.seed))
@@ -1316,41 +1323,90 @@ def als_train(
     row_buckets = device_buckets(data.row_buckets, device)
     col_buckets = device_buckets(data.col_buckets, device)
 
+    cfg = checkpoint_cfg if checkpoint_cfg is not None else ckpt.from_env()
+    start_iter = 0
+    fingerprint = None
+    if cfg is not None and cfg.active:
+        fingerprint = ckpt.data_fingerprint(data.rows, data.cols, data.vals,
+                                            replace(params, iterations=0), mesh="single")
+        if cfg.resume:
+            snap = ckpt.load_checkpoint(cfg, fingerprint)
+            if snap is not None and snap.iteration <= params.iterations:
+                U = ckpt.table_to_device(snap.U, device)
+                V = ckpt.table_to_device(snap.V, device)
+                start_iter = snap.iteration
+
+    nnz = len(data.vals)
+    prog = obs_progress.ProgressPublisher(
+        params.iterations, tol=tol, mesh="single", trainer="single",
+        warm_start=warm_start is not None, **(progress_extra or {}),
+    )
     t0 = time.perf_counter()
     final_rmse = None
-    prev_rmse = None
-    it = 0
-    # where the JAX package dispatches its fused program: once for the
-    # whole training (even at 0 iterations), or once an iteration when
-    # tol > 0 asks for per-iteration segments
-    if tol <= 0.0:
+    ckpt_every = cfg.every if (cfg is not None and cfg.every > 0) else 0
+    prog.publish(start_iter)
+    if tol <= 0.0 and ckpt_every <= 0:
+        # where the JAX package dispatches its fused program once for the
+        # whole training (even at 0 iterations)
         faults.fault_point("device.dispatch")
-    while it < params.iterations:
-        if tol > 0.0:
+        _iterate(U, V, row_buckets, col_buckets, params, params.iterations - start_iter)
+        it = params.iterations
+    else:
+        # segments of the checkpoint cadence, or of one iteration when
+        # only the tol early stop asks for them; one dispatch each
+        every = ckpt_every or 1
+        it = start_iter
+        epochs = 0
+        prev_rmse = None
+        while it < params.iterations:
+            seg = min(every, params.iterations - it)
             faults.fault_point("device.dispatch")
-        _half_step(U, V, row_buckets, params)
-        _half_step(V, U, col_buckets, params)
-        it += 1
-        if tol > 0.0:
-            final_rmse = rmse(U, V, data.rows, data.cols, data.vals)
-            if prev_rmse is not None and abs(prev_rmse - final_rmse) < tol:
-                logger.info(
-                    "ALS early stop at iteration %d/%d: RMSE plateau "
-                    "|%.6f - %.6f| < tol=%g",
-                    it, params.iterations, prev_rmse, final_rmse, tol,
-                )
-                break
-            prev_rmse = final_rmse
+            t_seg = time.perf_counter()
+            _iterate(U, V, row_buckets, col_buckets, params, seg)
+            it += seg
+            if ckpt_every > 0 and it < params.iterations:
+                ckpt.save_checkpoint(cfg, fingerprint, U, V, it, params.seed,
+                                     mesh="single")
+                epochs += 1
+            seg_wall = time.perf_counter() - t_seg
+            seg_rmse = (rmse(U, V, data.rows, data.cols, data.vals)
+                        if (tol > 0.0 or prog.enabled) else None)
+            if seg_rmse is not None:
+                final_rmse = seg_rmse
+            prog.publish(
+                it, rmse=seg_rmse,
+                events_per_s=nnz * seg / seg_wall if seg_wall > 0 else None,
+                segment_wall_s=seg_wall, checkpoint_epoch=epochs,
+            )
+            if tol > 0.0 and final_rmse is not None:
+                if prev_rmse is not None and abs(prev_rmse - final_rmse) < tol:
+                    logger.info(
+                        "ALS early stop at iteration %d/%d: RMSE plateau "
+                        "|%.6f - %.6f| < tol=%g",
+                        it, params.iterations, prev_rmse, final_rmse, tol,
+                    )
+                    break
+                prev_rmse = final_rmse
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    prog.done(it, early_stopped=it < params.iterations)
     LAST_TRAIN_INFO.clear()
     LAST_TRAIN_INFO.update(
-        iterations_run=it,
+        iterations_run=it - start_iter,
         early_stopped=it < params.iterations,
         final_rmse=final_rmse,
         warm_start=warm_start is not None,
     )
-    logger.debug("ALS %d iterations in %.3fs", it, time.perf_counter() - t0)
+    total = time.perf_counter() - t0
+    obs_metrics.histogram(
+        "pio_als_train_seconds", "Whole-run ALS training time", path="single",
+    ).observe(total)
+    if it > start_iter:
+        obs_metrics.histogram(
+            "pio_als_halfstep_seconds",
+            "Derived per-half-step time of the fused sharded ALS loop",
+            mode="single",
+        ).observe(total / (2 * (it - start_iter)))
     return U, V
 
 

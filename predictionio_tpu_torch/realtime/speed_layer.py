@@ -1,0 +1,366 @@
+"""SpeedLayer: the loop that ties tailer + fold-in to a deployed server.
+
+Port of ``predictionio_tpu/realtime/speed_layer.py``, on the port's
+engine server; the fold runs K1 on the server's device.
+
+One background thread per deployed engine server: every ``interval``
+seconds it polls the event tailer, folds tailed rating events into the
+served ALS model, and hot-patches the server's model list under the
+epoch fence. The invariants (docs/realtime.md):
+
+- **retrain wins** — a ``/reload`` to a NEW engine instance supersedes
+  all fold-in state: the tailer cursor resets to the new instance's
+  train watermark (its events are in the retrain) and pending patches
+  are dropped. A reload of the SAME instance likewise discards applied
+  patches (the epoch fence rejects them); folded events are served
+  again only after the next retrain covers them.
+- **at-most-once serving staleness** — gauges (`events_behind`,
+  `seconds_behind`, `foldin_epoch`) ride the engine server's
+  ``/stats.json`` so operators can alert on a stuck speed layer
+  (the staleness-as-first-class-metric argument of arxiv 2501.10546).
+- the fold thread NEVER holds the server lock across a solve: it
+  snapshots, folds off-lock, and compare-and-swaps by epoch.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+
+from predictionio_tpu_torch import faults
+from predictionio_tpu_torch.common.breaker import CircuitBreaker
+from predictionio_tpu_torch.data import store
+from predictionio_tpu_torch.obs import freshness as obs_freshness
+from predictionio_tpu_torch.obs import metrics as obs_metrics
+from predictionio_tpu_torch.obs import slo as obs_slo
+from predictionio_tpu_torch.obs import trace as obs_trace
+from predictionio_tpu_torch.realtime.foldin import ALSFoldIn, FoldInConfig
+from predictionio_tpu_torch.realtime.tailer import EventTailer
+
+logger = logging.getLogger(__name__)
+
+_m_fold = obs_metrics.histogram(
+    "pio_foldin_solve_seconds",
+    "Fold+patch time per speed-layer cycle that saw events",
+)
+_m_poll = obs_metrics.histogram(
+    "pio_tailer_poll_seconds", "Event-tailer poll time per cycle"
+)
+_m_tailed = obs_metrics.counter(
+    "pio_tailer_events_total", "Events returned by tailer polls"
+)
+
+
+def _is_als_model(m) -> bool:
+    return all(
+        hasattr(m, a)
+        for a in ("user_index", "item_index", "user_factors", "item_factors")
+    )
+
+
+class SpeedLayer:
+    """Tail the deployed app's event stream and fold into the live model.
+
+    Derives its fold-in config from the server's deployed EngineParams
+    (datasource app/event names + the algorithm's regularization), so the
+    incremental solve matches the batch trainer's problem exactly.
+    """
+
+    def __init__(
+        self,
+        server,
+        interval: float = 5.0,
+        cursor_path=None,
+        batch_limit: int = 5000,
+        breaker: CircuitBreaker | None = None,
+    ):
+        self.server = server
+        self.interval = float(interval)
+        # trips after repeated fold-in failures so a broken fold path
+        # stops consuming events (poll is gated on allow(), so events
+        # stay in the log, not tailed-and-dropped); the engine keeps
+        # serving the last good epoch-fenced model while open
+        self.breaker = breaker or CircuitBreaker(
+            "foldin", failure_threshold=3, base_backoff_s=2.0,
+            max_backoff_s=60.0,
+        )
+        ds_params = server.engine_params.datasource[1]
+        algo_params = server.engine_params.algorithms[0][1]
+        self._config = FoldInConfig(
+            event_names=tuple(ds_params.event_names),
+            rating_key="rating",
+            override_ratings={"buy": ds_params.buy_rating},
+            reg=getattr(algo_params, "lambda_", 0.01),
+            weighted_reg=True,
+        )
+        app_id, channel_id = store.app_name_to_id(
+            ds_params.app_name, None, server.storage
+        )
+        events = server.storage.get_events()
+        # PIO_TAIL_COLUMNAR (the JAX package's columnar tail preference)
+        # is read nowhere: on the port's seq and generic stores the JAX
+        # tailer delivers Event objects too
+        self.tailer = EventTailer(
+            events,
+            app_id,
+            channel_id,
+            cursor_path=cursor_path,
+            batch_limit=batch_limit,
+        )
+        # the fold runs K1 on the server's device, on a stream of its own
+        self.foldin = ALSFoldIn(events, app_id, channel_id, config=self._config,
+                                device=server.device)
+        # the instance this layer's fold-in state belongs to; a snapshot
+        # naming a different instance means a retrain superseded us
+        self._instance_id = server.instance.id
+        self._caught_up_at = time.time()
+        self._last_fold_s = 0.0
+        self.events_folded = 0
+        self.users_touched = 0
+        self.users_added = 0
+        # each successful patch bumps the server epoch, which retires
+        # every cached query result (server/query_cache.py) — operators
+        # watch this against cache_hit_rate: a fold interval shorter
+        # than the traffic's repeat window makes the cache useless
+        self.cache_invalidations = 0
+        self._last_fold_trace: str | None = None
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        server.speed_layer = self
+        # staleness as real Prometheus gauges, not just /stats.json:
+        # scrape-time callbacks read this layer's live state (the newest
+        # layer wins the registration — one layer per server process per
+        # SERIES; multi-tenant mounts each get their own variant= series)
+        vn = getattr(server, "variant_name", None)
+        labels = {"variant": vn} if vn else {}
+        obs_metrics.gauge(
+            "pio_realtime_events_behind",
+            "Events in the log the speed layer has not folded yet",
+            **labels,
+        ).set_function(lambda: float(self.tailer.events_behind() or 0))
+        obs_metrics.gauge(
+            "pio_realtime_seconds_behind",
+            "Seconds since the speed layer was last caught up",
+            **labels,
+        ).set_function(lambda: float(self.gauges()["seconds_behind"]))
+        obs_metrics.gauge(
+            "pio_realtime_foldin_epoch",
+            "Fold-in patches applied since the last full reload",
+            **labels,
+        ).set_function(lambda: float(self.server._foldin_epoch))
+        # default objectives: bounded staleness + breaker open budget
+        obs_slo.install_speed_layer_slos(self)
+
+    # -- one fold cycle -----------------------------------------------------
+
+    def step(self) -> str:
+        """One poll+fold+patch cycle; returns what happened (for tests
+        and logs): "superseded" | "idle" | "patched" | "fenced" |
+        "skipped" | "breaker_open" | "fold_failed".
+
+        Each cycle that reaches the fold carries a ``speedlayer.fold``
+        trace (spans: tail.poll, foldin.fold, server.patch) offered to
+        the slow-trace ring, and the trace id is exported in
+        :meth:`gauges` — fold latency visible in /traces.json is
+        attributable to the exact cycle /stats.json reported."""
+        tr = (
+            obs_trace.Trace("speedlayer.fold")
+            if obs_metrics.enabled()
+            else None
+        )
+        prev = obs_trace.current_trace()
+        obs_trace.set_current_trace(tr)
+        try:
+            outcome = self._step(tr)
+        finally:
+            obs_trace.set_current_trace(prev)
+        if tr is not None and outcome in ("patched", "fold_failed", "fenced"):
+            tr.finish(200 if outcome == "patched" else 500)
+            obs_trace.TRACES.offer(tr)
+            self._last_fold_trace = tr.trace_id
+        return outcome
+
+    def _step(self, tr) -> str:
+        inst_id, models, epoch = self.server.model_snapshot()
+        if inst_id != self._instance_id:
+            # retrain won: the new instance's training read covered the
+            # log up to its own watermark — restart tailing from now
+            logger.info(
+                "speed layer superseded by instance %s (was %s); "
+                "resetting cursor to the new train watermark",
+                inst_id,
+                self._instance_id,
+            )
+            self._instance_id = inst_id
+            self.tailer.reset()
+            self.foldin.cold_items.clear()
+            self._caught_up_at = time.time()
+            return "superseded"
+
+        if not self.breaker.allow():
+            # open breaker: don't poll — a poll persists the cursor, so
+            # tailing events we then can't fold would silently drop them
+            return "breaker_open"
+
+        t_p0 = time.perf_counter()
+        batch = self.tailer.poll_columnar()
+        t_p1 = time.perf_counter()
+        _m_poll.observe(t_p1 - t_p0)
+        if tr is not None:
+            tr.add_span("tail.poll", t_p0, t_p1)
+        n_events = batch.n_events
+        if not n_events:
+            if (self.tailer.events_behind() or 0) == 0:
+                self._caught_up_at = time.time()
+            return "idle"
+        _m_tailed.inc(n_events)
+
+        t0 = time.perf_counter()
+        for _attempt in range(3):
+            patched_any = False
+            new_models = []
+            stats = None
+            for m in models:
+                if _is_als_model(m):
+                    try:
+                        faults.fault_point("foldin.fold")
+                        t_f0 = time.perf_counter()
+                        patched, stats = self.foldin.fold_in_columnar(
+                            m, batch
+                        )
+                        if tr is not None:
+                            tr.add_span(
+                                "foldin.fold", t_f0, time.perf_counter()
+                            )
+                    except Exception:
+                        # the poll already persisted the cursor, so this
+                        # batch is lost to fold-in (at-most-once; the
+                        # next retrain covers it) — count the failure
+                        # and let the breaker decide whether to keep
+                        # attempting future batches
+                        self.breaker.record_failure()
+                        self._last_fold_s = time.perf_counter() - t0
+                        logger.exception(
+                            "fold-in failed (%d events not folded; "
+                            "breaker %s)", n_events, self.breaker.state,
+                        )
+                        return "fold_failed"
+                    if patched is not None:
+                        new_models.append(patched)
+                        patched_any = True
+                        continue
+                new_models.append(m)
+            self.breaker.record_success()
+            if not patched_any:
+                self._last_fold_s = time.perf_counter() - t0
+                return "skipped"  # no foldable events for any model
+            t_a0 = time.perf_counter()
+            applied = self.server.apply_patch(new_models, epoch)
+            if tr is not None:
+                tr.add_span("server.patch", t_a0, time.perf_counter())
+            if applied:
+                # the epoch bump just swept the query cache (the
+                # fold-in hook mirrors /reload exactly)
+                if self.server.query_cache is not None:
+                    self.cache_invalidations += 1
+                self._last_fold_s = time.perf_counter() - t0
+                _m_fold.observe(self._last_fold_s)
+                # freshness lineage: these events are servable as of
+                # THIS fenced commit — ingest stamp to now is the true
+                # ingest-to-servable latency (an event that waited out a
+                # breaker or lost fences shows every second of it)
+                with self.server._lock:
+                    foldin_epoch = self.server._foldin_epoch
+                obs_freshness.observe_commit(
+                    batch.creation_timestamps(),
+                    kind="patch",
+                    epoch=epoch + 1,
+                    foldin_epoch=foldin_epoch,
+                )
+                if stats is not None:
+                    self.events_folded += stats.rating_events
+                    self.users_touched += stats.users_touched
+                    self.users_added += stats.users_added
+                if (self.tailer.events_behind() or 0) == 0:
+                    self._caught_up_at = time.time()
+                return "patched"
+            # fence lost: someone swapped models since our snapshot
+            inst_id, models, epoch = self.server.model_snapshot()
+            if inst_id != self._instance_id:
+                # a retrain landed mid-fold: ITS training read already
+                # covers these events — drop the batch, reset forward
+                self._instance_id = inst_id
+                self.tailer.reset()
+                self.foldin.cold_items.clear()
+                self._last_fold_s = time.perf_counter() - t0
+                return "superseded"
+            # same instance (another patch or same-instance reload):
+            # re-fold this batch against the fresh models
+        self._last_fold_s = time.perf_counter() - t0
+        _m_fold.observe(self._last_fold_s)
+        logger.warning("speed layer lost the epoch fence 3 times; retrying next poll")
+        return "fenced"
+
+    # -- gauges -------------------------------------------------------------
+
+    def gauges(self) -> dict:
+        behind = self.tailer.events_behind()
+        with self.server._lock:
+            foldin_epoch = self.server._foldin_epoch
+        return {
+            "enabled": True,
+            "interval": self.interval,
+            "mode": self.tailer.mode,
+            "foldin_epoch": foldin_epoch,
+            "events_behind": behind,
+            "seconds_behind": (
+                0.0 if behind == 0 else round(time.time() - self._caught_up_at, 3)
+            ),
+            "events_folded": self.events_folded,
+            "users_touched": self.users_touched,
+            "users_added": self.users_added,
+            "cold_start_items": len(self.foldin.cold_items),
+            "last_fold_s": round(self._last_fold_s, 6),
+            "last_fold_trace": self._last_fold_trace,
+            "query_cache_invalidations": self.cache_invalidations,
+            "breaker": self.breaker.snapshot(),
+        }
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def start(self) -> None:
+        if self._thread is not None:
+            return
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._loop, name="speed-layer", daemon=True
+        )
+        self._thread.start()
+        logger.info(
+            "speed layer started: interval %.1fs, tail mode %s",
+            self.interval,
+            self.tailer.mode,
+        )
+
+    def stop(self) -> None:
+        self._stop.set()
+        t = self._thread
+        self._thread = None
+        if t is not None and t.is_alive():
+            t.join(timeout=10)
+        # graceful-drain contract: the cursor must be on disk before the
+        # process exits so the replacement instance re-attaches exactly
+        # where this one left off
+        try:
+            self.tailer.persist()
+        except OSError:  # pragma: no cover - disk error at exit
+            logger.exception("tailer cursor persist on stop failed")
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                self.step()
+            except Exception:  # pragma: no cover - loop must survive
+                logger.exception("speed layer fold cycle failed")
+            self._stop.wait(self.interval)

@@ -32,7 +32,11 @@ Where the device makes the port differ from the JAX server, on purpose:
 the dispatch probe times a CUDA round trip and raises on failure;
 batches are not padded to a power of two (K2 takes any batch size);
 ``warmup`` raises instead of logging a failure, so a server that cannot
-score does not start; the speed layer is a later slice. Two-stage
+score does not start. The speed layer (``realtime/``, ``deploy
+--realtime``) hot-patches a mount's models under its epoch fence
+(``model_snapshot`` / ``apply_patch``), its fold's K1 launches on a
+stream of its own; ``/stats.json`` carries its ``realtime`` block and
+each mount's ``foldinEpoch`` / ``secondsBehind``. Two-stage
 retrieval (``ops/retrieval.py``) is served as in the JAX server: its
 stage split is drained after every dispatch (``dispatch.shortlist`` /
 ``dispatch.rescore`` spans on traced requests) and ``/stats.json``
@@ -55,6 +59,7 @@ from concurrent.futures import InvalidStateError
 from concurrent.futures import TimeoutError as FuturesTimeout
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from predictionio_tpu_torch import faults
@@ -118,6 +123,27 @@ def _stage_spans(split: dict | None, traces, t0: float) -> None:
         if tr is not None:
             tr.add_span("dispatch.shortlist", t0, t0 + ss)
             tr.add_span("dispatch.rescore", t0 + ss, t0 + ss + rs)
+
+
+def _model_bytes(obj: Any, _depth: int = 0) -> int:
+    """Total ``nbytes`` of the host arrays reachable from a deployed model
+    list -- the JAX server's byte size of a model put/patch for the
+    device transfer accounting. Walks containers and public object
+    attributes a few levels deep (an ALS model holds factor arrays or
+    int8 (values, scales) pairs); private attributes (the port's device
+    copies and caches) and anything unrecognized count as 0."""
+    if _depth > 3:
+        return 0
+    if isinstance(obj, np.ndarray):
+        return obj.nbytes
+    if isinstance(obj, (list, tuple)):
+        return sum(_model_bytes(o, _depth + 1) for o in obj)
+    if isinstance(obj, dict):
+        return sum(_model_bytes(o, _depth + 1) for o in obj.values())
+    if hasattr(obj, "__dict__"):
+        return sum(_model_bytes(v, _depth + 1) for k, v in vars(obj).items()
+                   if not k.startswith("_"))
+    return 0
 
 
 def _query_from_json(query_class: type | None, data: dict[str, Any]) -> Any:
@@ -352,8 +378,13 @@ class _Variant:
     """One mounted tenant of an EngineServer: its own engine, instance,
     models, epoch fence and serving bookkeeping — while the HTTP front
     end, micro-batcher worker, built kernels, and query-cache byte
-    budget stay shared process-wide. (The JAX package's speed layer,
-    which folds events into a mount, is a later slice of the port.)
+    budget stay shared process-wide, and (optionally) its speed layer.
+
+    Duck-types the surface ``realtime.SpeedLayer`` expects from a
+    "server" (engine_params / storage / instance / device /
+    model_snapshot / apply_patch / query_cache / _lock / _foldin_epoch /
+    speed_layer), so a layer constructed with a mount folds into exactly
+    that tenant.
 
     ``labeled`` is True on multi-tenant servers: per-tenant metric
     series ride a ``variant=<name>`` label and ``variant_name`` suffixes
@@ -372,6 +403,8 @@ class _Variant:
         self.name = name
         self.engine = engine
         self._epoch = 0
+        self._foldin_epoch = 0
+        self.speed_layer = None  # attached by realtime.SpeedLayer
         self.request_count = 0
         self.serving_seconds = 0.0
         self.last_serving_sec = 0.0
@@ -411,6 +444,10 @@ class _Variant:
     def query_cache(self):
         return self.server.query_cache
 
+    @property
+    def device(self):
+        return self.server.device
+
     # -- load / reload ------------------------------------------------------
     def _load(self, instance: EngineInstance) -> None:
         # every algorithm scores on the server's device; the factor
@@ -428,7 +465,10 @@ class _Variant:
             self.algorithms = algorithms
             self.models = models
             self.serving = serving
+            # retrain wins: a reload supersedes any applied fold-in
+            # patches (the new instance was trained on the full log)
             self._epoch += 1
+            self._foldin_epoch = 0
             epoch = self._epoch
         # entries under older epochs are unreachable by key the moment
         # the counter moves; the sweep reclaims their bytes — scoped to
@@ -475,6 +515,38 @@ class _Variant:
         self._load(latest)
         return True
 
+    # -- speed-layer hot patching -------------------------------------------
+    def model_snapshot(self):
+        """(instance_id, models, epoch) under the lock -- the fenced read
+        a fold-in starts from."""
+        with self._lock:
+            return self.instance.id, self.models, self._epoch
+
+    def apply_patch(self, models, expected_epoch: int) -> bool:
+        """Epoch-fenced swap of this mount's model list. The patched
+        models' tables are already on the device (the fold uploaded them
+        off the lock); the count is the JAX server's, the models' host
+        bytes."""
+        with self._lock:
+            if expected_epoch != self._epoch:
+                return False
+            self.models = models
+            self._epoch += 1
+            self._foldin_epoch += 1
+            epoch = self._epoch
+        obs_device.count_transfer(
+            "h2d", "serve.model_patch", _model_bytes(models)
+        )
+        if self.query_cache is not None:
+            self.query_cache.sweep(epoch, variant=self.name)
+        if self.variant_name is not None:
+            obs_metrics.gauge(
+                "pio_serving_epoch",
+                "Model swap epoch, per tenant",
+                variant=self.name,
+            ).set(float(epoch))
+        return True
+
     # -- observability -------------------------------------------------------
     def stats(self) -> dict[str, Any]:
         """One row of the /stats.json ``variants`` block: qps inputs,
@@ -489,6 +561,7 @@ class _Variant:
                 "engineInstanceId": self.instance.id,
                 "engineVariant": self.instance.engine_variant,
                 "epoch": self._epoch,
+                "foldinEpoch": self._foldin_epoch,
                 "requestCount": self.request_count,
                 "avgServingSec": round(avg, 6),
                 "lastServingSec": round(self.last_serving_sec, 6),
@@ -506,6 +579,10 @@ class _Variant:
             round(time.time() - self.last_reload_ts, 1)
             if self.last_reload_ts
             else None
+        )
+        layer = self.speed_layer
+        d["secondsBehind"] = (
+            layer.gauges().get("seconds_behind") if layer is not None else None
         )
         if self._slos:
             d["slo"] = {s.name: s.state for s in self._slos}
@@ -704,6 +781,8 @@ class EngineServer:
     models = _delegate("models")
     serving = _delegate("serving")
     _epoch = _delegate("_epoch")
+    _foldin_epoch = _delegate("_foldin_epoch")
+    speed_layer = _delegate("speed_layer")
     request_count = _delegate("request_count")
     serving_seconds = _delegate("serving_seconds")
     last_serving_sec = _delegate("last_serving_sec")
@@ -1208,6 +1287,20 @@ class EngineServer:
             v._load(latest)
         return True
 
+    # -- speed-layer hot patching -------------------------------------------
+    def model_snapshot(self):
+        """(instance_id, models, epoch) of the DEFAULT mount under the
+        lock -- the fenced read a fold-in starts from (multi-tenant speed
+        layers hold their _Variant directly)."""
+        return self._default_variant.model_snapshot()
+
+    def apply_patch(self, models, expected_epoch: int) -> bool:
+        """Epoch-fenced swap of the default mount's model list
+        (speed-layer hot patch). Returns False without touching anything
+        when the epoch moved since the snapshot -- the caller re-reads
+        and re-folds."""
+        return self._default_variant.apply_patch(models, expected_epoch)
+
     def status(self) -> dict[str, Any]:
         with self._lock:
             avg = (
@@ -1279,6 +1372,10 @@ class EngineServer:
         @router.route("GET", "/stats.json")
         def stats(request: Request) -> Response:
             body = server.status()
+            layer = server.speed_layer
+            body["realtime"] = (
+                layer.gauges() if layer is not None else {"enabled": False}
+            )
             cache = server.query_cache
             body["cache"] = (
                 {"enabled": True, **cache.gauges()}
@@ -1512,7 +1609,13 @@ class EngineServer:
                 return f"no model loaded ({v.name})"
         return None
 
+    def _stop_speed_layers(self) -> None:
+        for v in self.variants.values():
+            if v.speed_layer is not None:
+                v.speed_layer.stop()
+
     def _drain_flush(self) -> None:
+        self._stop_speed_layers()
         if self.batcher is not None:
             self.batcher.stop()
 
@@ -1522,11 +1625,12 @@ class EngineServer:
         return port
 
     def drain(self) -> None:
-        """Graceful shutdown: finish in-flight queries, stop the
-        micro-batcher, then stop."""
+        """Graceful shutdown: finish in-flight queries, flush the speed
+        layer's cursor, stop the micro-batcher, then stop."""
         self.app.drain()
 
     def stop(self) -> None:
+        self._stop_speed_layers()
         if self.batcher is not None:
             self.batcher.stop()
         self.app.stop()

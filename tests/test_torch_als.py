@@ -341,19 +341,25 @@ def test_rmse_and_predict_pairs_match_jax():
             jals.rmse(ju, jv, rows, cols, vals), rel=1e-5)
 
 
-def test_unported_training_options_raise(monkeypatch):
+def test_unported_training_options_raise(monkeypatch, tmp_path):
     rows, cols, vals = _coo(3, 6, 5, 12, hot=False)
     data = tals.build_ratings_data(rows, cols, vals)
-    # implicit feedback is ported: it trains, and checkpoints still raise
+    # implicit feedback is ported: it trains
     U, V = tals.als_train(data, tals.ALSParams(implicit=True, iterations=1), device="cpu")
     assert bool(torch.isfinite(U).all()) and bool(torch.isfinite(V).all())
+    # so is checkpointing (core/checkpoint.py): the env vars no longer
+    # raise; they checkpoint and resume, bit-identical to a plain run
+    U0, V0 = tals.als_train(data, tals.ALSParams(iterations=4), device="cpu")
+    monkeypatch.setenv("PIO_CHECKPOINT_DIR", str(tmp_path))
     monkeypatch.setenv("PIO_CHECKPOINT_EVERY", "2")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        tals.als_train(data, tals.ALSParams(), device="cpu")
+    U1, V1 = tals.als_train(data, tals.ALSParams(iterations=4), device="cpu")
+    assert len(list(tmp_path.glob("als-*.npz"))) == 1
     monkeypatch.delenv("PIO_CHECKPOINT_EVERY")
     monkeypatch.setenv("PIO_RESUME", "1")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        tals.als_train(data, tals.ALSParams(), device="cpu")
+    U2, V2 = tals.als_train(data, tals.ALSParams(iterations=4), device="cpu")
+    assert tals.LAST_TRAIN_INFO["iterations_run"] == 2
+    for a, b in ((U0, U1), (V0, V1), (U0, U2), (V0, V2)):
+        assert torch.equal(a, b)
 
 
 def test_solve_bucket_checks_its_arguments():

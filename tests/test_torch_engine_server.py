@@ -1551,7 +1551,8 @@ class TestTwoStageServing:
 
 def test_deploy_flags_reach_the_server(store, serve_iid, monkeypatch, tmp_path):
     """``deploy``'s serving flags build the server they name; --workers
-    and --realtime raise, naming their later slice."""
+    raises, naming its later slice; --realtime is ported (the speed
+    layer, started by ``cmd_deploy``) and builds the server as well."""
     from predictionio_tpu_torch.cli import main as tcli
 
     monkeypatch.setenv("PIO_FS_BASEDIR", store.env["PIO_FS_BASEDIR"])
@@ -1573,9 +1574,11 @@ def test_deploy_flags_reach_the_server(store, serve_iid, monkeypatch, tmp_path):
             assert server.device.type == "cpu"
         finally:
             server.stop()
-        for flag, value in (("--workers", "2"), ("--realtime", "1")):
-            with pytest.raises(NotImplementedError, match="later slice"):
-                tcli.deploy_server(tcli.build_parser().parse_args(base + [flag, value]))
+        with pytest.raises(NotImplementedError, match="later slice"):
+            tcli.deploy_server(tcli.build_parser().parse_args(base + ["--workers", "2"]))
+        server = tcli.deploy_server(tcli.build_parser().parse_args(
+            base + ["--realtime", "1"]))
+        server.stop()
     finally:
         tstorage.get_storage().close()
         tstorage.set_storage(None)

@@ -56,7 +56,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     walked = set(proc.stdout.split())
     assert len(walked) >= 60  # every module was walked
     # the training, similar-product, serving-stack, evaluation, two-stage
-    # retrieval and other-ALS-template slices' modules among them
+    # retrieval, other-ALS-template and speed-layer slices' modules among them
     assert {f"predictionio_tpu_torch.{m}" for m in (
         "data.datamap", "data.event", "data.store", "data.storage.base",
         "data.storage.sqlite", "data.storage.memory", "ops.als",
@@ -71,6 +71,8 @@ def test_port_imports_without_jax_or_the_jax_package():
         "core.metrics", "core.ranking", "core.fast_eval", "core.evaluation",
         "core.workflow_eval", "models.recommendation_eval", "ops.retrieval",
         "ops.cosine_sim", "models.recommendeduser", "models.ecommerce",
+        "core.checkpoint", "common.breaker", "realtime", "realtime.tailer",
+        "realtime.foldin", "realtime.speed_layer",
     )} <= walked
 
 

@@ -198,7 +198,7 @@ def test_port_written_instance_reads_in_the_jax_package(tmp_path):
     ts.close()
 
 
-def test_unported_paths_raise(servers, monkeypatch):
+def test_unported_paths_raise(servers, monkeypatch, tmp_path):
     _, port_server = servers
     algo, model = port_server.algorithms[0], port_server.models[0]
     q = [(0, trec.Query(user="u1", num=4))]
@@ -218,10 +218,12 @@ def test_unported_paths_raise(servers, monkeypatch):
     sharded_train = trec.ALSAlgorithm(trec.ALSAlgorithmParams(sharded_train=True))
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         sharded_train.train(ctx, td)
+    # checkpointing is ported (core/checkpoint.py): the env var trains
     monkeypatch.setenv("PIO_CHECKPOINT_EVERY", "1")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        algo.train(ctx, td)
+    monkeypatch.setenv("PIO_CHECKPOINT_DIR", str(tmp_path / "ckpt"))
+    assert algo.train(ctx, td).user_factors.shape[0] == 1
     monkeypatch.delenv("PIO_CHECKPOINT_EVERY")
+    monkeypatch.delenv("PIO_CHECKPOINT_DIR")
     # evaluation is ported: a stacked sweep trains, its multi-card
     # candidates decline as in the JAX package, and sharded eval scoring
     # refuses as the other multi-card paths do

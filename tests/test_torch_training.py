@@ -312,5 +312,13 @@ def test_cli_train_needs_cuda_unless_asked_for_the_cpu(cold_store, tmp_path, pio
     pio_env(base)
     with pytest.raises(RuntimeError, match="CUDA"):
         tcli.main(["train", "--variant", str(base / "engine.json")])
-    with pytest.raises(SystemExit):  # the JAX CLI's checkpoint flags are refused
-        tcli.main(["train", "--variant", str(base / "engine.json"), "--resume"])
+    with pytest.raises(SystemExit):  # the JAX CLI's mesh flags are refused
+        tcli.main(["train", "--variant", str(base / "engine.json"), "--mesh", "data=8"])
+    # its checkpoint flags are ported: parsed, then training needs CUDA
+    try:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tcli.main(["train", "--variant", str(base / "engine.json"), "--resume",
+                       "--checkpoint-dir", str(tmp_path / "ckpt")])
+    finally:  # the CLI sets these in os.environ, as the JAX CLI does
+        for k in ("PIO_RESUME", "PIO_CHECKPOINT_DIR"):
+            os.environ.pop(k, None)
