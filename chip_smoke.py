@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases k2,k1,k1i,k1route,k2s,k2route,k4,k5,k6,k2cos,
-                                    serve,batchserve,lifecycle,simlife,templife,train,
+                                    serve,batchserve,lifecycle,ingest,simlife,templife,train,
                                     ckpt,realtime,simtrain,templates,eval,retrieval,
                                     times,k1times,simtimes,retimes]
 
@@ -311,6 +311,29 @@ realtime after train):
   seconds, K1 per fold and the K = 16,384 group alone against bound,
   plain and library; HTTP p50 at concurrency 1 idle and while folding.
 
+The ingest-front slice adds (ingest after lifecycle):
+
+- ingest: the quickstart through ``cli.main`` on a fresh sqlite store.
+  Beside the build and the kernel checks (``IngestPrep``, processes of
+  their own, no device; the first phase that times host work waits for
+  it):
+  the ML-1M-shaped ratings (1,000,000 ``rate`` events) written as JSON
+  lines, ``app new ML1M`` (the access key from stdout), ``import`` with
+  ``version`` and ``status`` beside it (the native event codec must have
+  loaded, from ``predictionio_tpu_torch/_build/``), then ``export`` (as
+  many lines as events) with the imported ratings read back by
+  ``find_ratings`` beside it (equal to the generated ones as multisets).
+  Then ``eventserver --stats`` in a process of its own: 1,000 single
+  ``POST /events.json``, 100 batches of 50, 20,000 events by
+  ``import --http`` (binary frames), a Segment.io and a MailChimp
+  webhook, reads, a delete, and ``/stats.json``'s counts (its device
+  block shows CUDA never initialised); ``train`` at rank 20, 10
+  iterations, and ``deploy`` in this process with K1's and K2's counts
+  reset before and read after, queries against K2's plain version, and
+  ``undeploy``, which must close the server's port. It prints import
+  and export events/s, each endpoint's events/s and the p50 of one
+  ``POST /events.json`` beside the card's name and power limit.
+
 Every phase prints its results and seconds; any failure makes the exit
 code 1 and suppresses the result lines. Without CUDA, or without the
 package beside the script, it exits 2 and prints no result. A run of a
@@ -326,6 +349,7 @@ import argparse
 import contextlib
 import dataclasses
 import http.client
+import io
 import json
 import os
 import shutil
@@ -338,6 +362,7 @@ import tempfile
 import threading
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -1450,6 +1475,16 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def cli_env(basedir: str) -> dict:
+    """The environment of a ``cli.main`` process on the store under
+    ``basedir``."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PIO_STORAGE_")}
+    env.update(PIO_FS_BASEDIR=basedir, PIO_RUN_DIR=os.path.join(basedir, "run"),
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    return env
+
+
 class DeployProcess:
     """``python -m predictionio_tpu_torch.cli.main deploy`` of one
     instance in a process of its own (so the clients here do not share
@@ -1458,23 +1493,26 @@ class DeployProcess:
 
     def __init__(self, basedir: str, iid: str, device: str, flags: list[str],
                  name: str, env_extra: dict | None = None):
+        self._spawn(basedir, ["deploy", "--engine-instance-id", iid, "--device", device,
+                              *flags], f"deploy-{name}", env_extra)
+
+    def _spawn(self, basedir: str, args: list[str], name: str,
+               env_extra: dict | None = None) -> None:
+        """``cli.main ARGS --ip 127.0.0.1 --port P``, logged to
+        ``basedir/NAME.log``; returns once ``/readyz`` answers 200."""
         self.port = free_port()
-        self.log_path = os.path.join(basedir, f"deploy-{name}.log")
-        env = {k: v for k, v in os.environ.items() if not k.startswith("PIO_STORAGE_")}
-        env.update(PIO_FS_BASEDIR=basedir, PIO_RUN_DIR=os.path.join(basedir, "run"),
-                   PYTHONPATH=os.pathsep.join(
-                       p for p in (ROOT, os.environ.get("PYTHONPATH")) if p),
-                   **(env_extra or {}))
-        cmd = [sys.executable, "-m", "predictionio_tpu_torch.cli.main", "deploy",
-               "--engine-instance-id", iid, "--ip", "127.0.0.1",
-               "--port", str(self.port), "--device", device, *flags]
+        self.log_path = os.path.join(basedir, f"{name}.log")
+        env = cli_env(basedir)
+        env.update(env_extra or {})
+        cmd = [sys.executable, "-m", "predictionio_tpu_torch.cli.main", *args,
+               "--ip", "127.0.0.1", "--port", str(self.port)]
         self._log = open(self.log_path, "w")
         self.proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=self._log,
                                      stderr=subprocess.STDOUT)
         deadline = time.perf_counter() + 180
         while True:
             if self.proc.poll() is not None:
-                raise AssertionError(f"deploy {name} exited {self.proc.returncode}:\n"
+                raise AssertionError(f"{name} exited {self.proc.returncode}:\n"
                                      + self.log_tail())
             try:
                 if self.get("/readyz")[0] == 200:
@@ -1482,7 +1520,7 @@ class DeployProcess:
             except OSError:
                 pass
             if time.perf_counter() > deadline:
-                raise AssertionError(f"deploy {name} not ready in 180 s:\n" + self.log_tail())
+                raise AssertionError(f"{name} not ready in 180 s:\n" + self.log_tail())
             time.sleep(0.2)
 
     def log_tail(self, n: int = 40) -> str:
@@ -2091,6 +2129,373 @@ def lifecycle(torch, device, stats):
                           "cli_eval_scores": summary["scores"],
                           "cli_eval_best_index": summary["best_index"]}
     log(json.dumps({"lifecycle": "ml100k", **stats["lifecycle"]}))
+
+
+# -- phase: the quickstart's ingest front ---------------------------------------
+
+INGEST_SINGLE = 1_000  # POST /events.json, one event a request
+INGEST_BATCHES = 100  # POST /batch/events.json of INGEST_BATCH events
+INGEST_BATCH = 50
+INGEST_HTTP = 20_000  # events through import --http (/batch/events.bin)
+INGEST_RANK = 20
+INGEST_ITERATIONS = 10
+INGEST_TIME = "2020-01-01T00:00:00.000Z"
+
+
+def rate_lines(rows, cols, vals) -> str:
+    """``rate`` events as JSON lines, the import file format."""
+    return "".join(
+        '{"event":"rate","entityType":"user","entityId":"u%d","targetEntityType":'
+        '"item","targetEntityId":"i%d","properties":{"rating":%.1f},'
+        '"eventTime":"%s"}\n' % (r, c, v, INGEST_TIME)
+        for r, c, v in zip(rows.tolist(), cols.tolist(), vals.tolist()))
+
+
+def cli_run(basedir: str, *args, timeout: float = 900) -> tuple[str, float]:
+    """``python -m predictionio_tpu_torch.cli.main ARGS`` in a process of
+    its own: (stdout, wall seconds, interpreter start included)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "predictionio_tpu_torch.cli.main", *args],
+        cwd=ROOT, env=cli_env(basedir), capture_output=True, text=True,
+        timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cli {' '.join(args)} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return proc.stdout, wall
+
+
+#: phases that may run while IngestPrep imports: checks against the plain
+#: versions, whose times (where they print any) are device times
+BESIDE_PREP = ("k2", "k1", "k1i", "k1route", "k2s", "k2route", "k4", "k5", "k6", "k2cos")
+
+
+class IngestPrep(threading.Thread):
+    """The ingest phase's host-only start, run beside the kernels' build
+    and the checks of BESIDE_PREP (it touches no device; the first other
+    phase waits for it): the ML-1M-shaped ratings as a JSON-lines
+    file, then ``cli.main`` processes on a fresh sqlite store -- ``app
+    new ML1M`` (the access key from stdout), ``import`` with ``version``
+    and ``status`` (which event codec runs) beside it, then ``export``
+    with the imported ratings read back by ``find_ratings`` beside it."""
+
+    def __init__(self):
+        super().__init__(name="ingest-prep", daemon=True)
+        self.basedir = tempfile.mkdtemp(prefix="pio_chip_smoke_ingest_")
+        self.out: dict = {}
+        self.error: str | None = None
+        self.started = self.done = 0.0
+
+    def run(self):
+        self.started = time.perf_counter()
+        try:
+            self.out = self.prep()
+        except Exception:
+            self.error = traceback.format_exc()
+        self.done = time.perf_counter()
+
+    def prep(self) -> dict:
+        from predictionio_tpu_torch.data import store
+        from predictionio_tpu_torch.data.storage import Storage
+
+        rows, cols, vals, nu, ni = make_ml_shaped("1m")
+        path = os.path.join(self.basedir, "ml1m.jsonl")
+        t0 = time.perf_counter()
+        with open(path, "w") as f:
+            for lo in range(0, len(vals), 100_000):
+                f.write(rate_lines(rows[lo:lo + 100_000], cols[lo:lo + 100_000],
+                                   vals[lo:lo + 100_000]))
+        write_s = time.perf_counter() - t0
+        out, _ = cli_run(self.basedir, "app", "new", "ML1M")
+        key = next(ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                   if ln.startswith("Access Key:"))
+        # version and status run beside the import, off its path
+        with ThreadPoolExecutor(2) as side:
+            version = side.submit(cli_run, self.basedir, "version")
+            status = side.submit(cli_run, self.basedir, "status")
+            out, import_s = cli_run(self.basedir, "import", "--appid-or-name", "ML1M",
+                                    "--input", path)
+            if f"Imported {len(vals)} events." not in out:
+                raise AssertionError(f"import printed {out!r}")
+            version, status = version.result()[0], status.result()[0]
+        codec = json.loads(status[:status.rindex("}") + 1])["event_codec"]
+        export = os.path.join(self.basedir, "export.jsonl")
+        # beside the export: the imported ratings read back through
+        # find_ratings (as training reads them), equal to the generated
+        # ones as multisets
+        with ThreadPoolExecutor(1) as side:
+            exporting = side.submit(cli_run, self.basedir, "export", "--appid-or-name",
+                                    "ML1M", "--output", export)
+            storage = Storage(env=cli_env(self.basedir))
+            try:
+                batch = store.find_ratings("ML1M", event_names=["rate"], storage=storage)
+            finally:
+                storage.close()
+            users = np.asarray([int(u[1:]) for u in batch.entity_ids])[batch.rows]
+            items = np.asarray([int(i[1:]) for i in batch.target_ids])[batch.cols]
+            imported_equal = np.array_equal(ingest_triples(users, items, batch.vals),
+                                            ingest_triples(rows, cols, vals))
+            out, export_s = exporting.result()
+        with open(export, "rb") as f:
+            exported = sum(1 for _ in f)
+        os.unlink(export)
+        os.unlink(path)
+        return {"rows": rows, "cols": cols, "vals": vals, "num_users": nu,
+                "num_items": ni, "key": key, "codec": codec,
+                "version": version.strip(), "write_s": write_s, "import_s": import_s,
+                "export_s": export_s, "exported": exported,
+                "export_printed": out.strip(), "imported_equal": imported_equal}
+
+
+def ingest_triples(users, items, vals):
+    """Rows of (user, item, rating) in one canonical order: a multiset."""
+    order = np.lexsort((vals, items, users))
+    return np.stack([users[order].astype(np.float64), items[order].astype(np.float64),
+                     vals[order].astype(np.float64)])
+
+
+class EventServerProcess(DeployProcess):
+    """``cli.main eventserver --stats`` on the store under ``basedir``, in
+    a process of its own, ready once ``/readyz`` answers 200."""
+
+    def __init__(self, basedir: str):
+        self._spawn(basedir, ["eventserver", "--stats"], "eventserver")
+
+
+def http_json(conn, method: str, path: str, body=None, ctype="application/json"):
+    """(status, parsed body) of one request on a keep-alive connection."""
+    data = body if isinstance(body, (bytes, type(None))) else json.dumps(body).encode()
+    conn.request(method, path, data, {"Content-Type": ctype} if data else {})
+    resp = conn.getresponse()
+    raw = resp.read()
+    return resp.status, json.loads(raw) if raw else None
+
+
+def event_server_drive(es, key: str, rng, nu: int, ni: int) -> dict:
+    """The event server's routes under load, on one keep-alive
+    connection: single events, batches, webhooks, reads and a delete;
+    ``import --http`` (binary frames) in this process. Returns the
+    throughputs and the counts /stats.json must show."""
+    from urllib.parse import urlencode
+
+    from predictionio_tpu_torch.cli import main as cli
+
+    conn = http.client.HTTPConnection("127.0.0.1", es.port, timeout=60)
+    q = f"accessKey={key}"
+
+    def events(n):
+        r = rng.integers(0, nu, n)
+        c = rng.integers(0, ni, n)
+        v = rng.integers(1, 6, n)
+        return [{"event": "rate", "entityType": "user", "entityId": f"u{a}",
+                 "targetEntityType": "item", "targetEntityId": f"i{b}",
+                 "properties": {"rating": float(x)}, "eventTime": INGEST_TIME}
+                for a, b, x in zip(r.tolist(), c.tolist(), v.tolist())]
+
+    out = {}
+    singles = events(INGEST_SINGLE)
+    lat, ids = [], []
+    t0 = time.perf_counter()
+    for e in singles:
+        t1 = time.perf_counter()
+        status, body = http_json(conn, "POST", f"/events.json?{q}", e)
+        lat.append(time.perf_counter() - t1)
+        if status != 201:
+            raise AssertionError(f"POST /events.json answered {status}: {body}")
+        ids.append(body["eventId"])
+    wall = time.perf_counter() - t0
+    out["events_json"] = {"events": len(singles), "wall_s": wall,
+                          "events_per_s": len(singles) / wall,
+                          "p50_ms": 1e3 * statistics.median(lat),
+                          "p99_ms": 1e3 * float(np.quantile(lat, 0.99))}
+    batches = [events(INGEST_BATCH) for _ in range(INGEST_BATCHES)]
+    t0 = time.perf_counter()
+    for b in batches:
+        status, body = http_json(conn, "POST", f"/batch/events.json?{q}", b)
+        if status != 200 or [r["status"] for r in body] != [201] * len(b):
+            raise AssertionError(f"POST /batch/events.json answered {status}: {body}")
+    wall = time.perf_counter() - t0
+    n = INGEST_BATCHES * INGEST_BATCH
+    out["batch_json"] = {"events": n, "requests": INGEST_BATCHES, "wall_s": wall,
+                         "events_per_s": n / wall}
+    path = os.path.join(tempfile.mkdtemp(prefix="pio_chip_smoke_bin_"), "http.jsonl")
+    with open(path, "w") as f:
+        f.writelines(json.dumps(e) + "\n" for e in events(INGEST_HTTP))
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(["import", "--appid-or-name", "ML1M", "--input", path,
+                       "--http", f"http://127.0.0.1:{es.port}", "--access-key", key])
+    wall = time.perf_counter() - t0
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    if rc != 0 or f"Imported {INGEST_HTTP} events." not in printed.getvalue():
+        raise AssertionError(f"import --http: rc {rc}, printed {printed.getvalue()!r}")
+    out["batch_bin"] = {"events": INGEST_HTTP, "wall_s": wall,
+                        "events_per_s": INGEST_HTTP / wall}
+    seg = {"version": "2", "type": "track", "userId": "sio-user", "event": "Signed Up",
+           "properties": {"plan": "Pro"}, "timestamp": "2020-01-02T03:04:05.000Z"}
+    status, body = http_json(conn, "POST", f"/webhooks/segmentio.json?{q}", seg)
+    if status != 201:
+        raise AssertionError(f"segmentio webhook answered {status}: {body}")
+    form = urlencode({"type": "subscribe", "fired_at": "2009-03-26 21:35:57",
+                      "data[id]": "mc-user", "data[list_id]": "a6b5da1054",
+                      "data[email]": "api@mailchimp.com"}).encode()
+    status, body = http_json(conn, "POST", f"/webhooks/mailchimp.form?{q}", form,
+                             "application/x-www-form-urlencoded")
+    if status != 201:
+        raise AssertionError(f"mailchimp webhook answered {status}: {body}")
+    for user, name in (("sio-user", "track"), ("mc-user", "subscribe")):
+        status, body = http_json(conn, "GET", f"/events.json?{q}&entityId={user}")
+        if status != 200 or [e["event"] for e in body] != [name]:
+            raise AssertionError(f"GET /events.json for {user}: {status} {body}")
+    status, body = http_json(conn, "GET", f"/events.json?{q}&limit=5")
+    if status != 200 or len(body) != 5:
+        raise AssertionError(f"GET /events.json?limit=5: {status} {body}")
+    status, body = http_json(conn, "GET", f"/events/{ids[0]}.json?{q}")
+    if status != 200 or body["entityId"] != singles[0]["entityId"]:
+        raise AssertionError(f"GET /events/{ids[0]}.json: {status} {body}")
+    status, body = http_json(conn, "DELETE", f"/events/{ids[0]}.json?{q}")
+    if status != 200:
+        raise AssertionError(f"DELETE /events/{ids[0]}.json: {status} {body}")
+    status, _ = http_json(conn, "GET", f"/events/{ids[0]}.json?{q}")
+    if status != 404:
+        raise AssertionError(f"a deleted event answered {status}")
+    status, st = http_json(conn, "GET", f"/stats.json?{q}")
+    conn.close()
+    rates = INGEST_SINGLE + n + INGEST_HTTP
+    counts = st["eventCount"]
+    if (counts.get("rate"), counts.get("track"), counts.get("subscribe")) != (rates, 1, 1):
+        raise AssertionError(f"/stats.json eventCount {counts}, expected rate {rates}")
+    if st["statusCount"].get("201") != rates + 2:
+        raise AssertionError(f"/stats.json statusCount {st['statusCount']}")
+    if st["ingest"]["frames_total"] < INGEST_HTTP // 2000:
+        raise AssertionError(f"/stats.json ingest {st['ingest']}")
+    # the event server is host code: CUDA was never initialised in it
+    if any(d["memory"] is not None for d in st["device"]["devices"]):
+        raise AssertionError(f"the event server initialised CUDA: {st['device']}")
+    out["stats"] = {"eventCount": counts, "frames_total": st["ingest"]["frames_total"]}
+    out["stored_rates"] = rates - 1  # one deleted
+    return out
+
+
+@phase("ingest: app new -> import -> export -> eventserver -> train -> deploy -> "
+       "undeploy (ML-1M shape, CLI, sqlite)")
+def ingest(torch, device, stats, prep: IngestPrep):
+    """The quickstart through the port's CLI on a sqlite store: ``app
+    new``, ``import`` and ``export`` of the ML-1M-shaped ratings (run
+    beside the build by IngestPrep; the native codec must have loaded;
+    the imported ratings, read back by ``find_ratings``, equal to the
+    generated ones as multisets);
+    then ``eventserver --stats`` in a process of its own, driven by
+    single events, batches, ``import --http``, two webhooks, reads and a
+    delete, its /stats.json counts checked; then ``train`` (rank 20, 10
+    iterations) and ``deploy`` in this process with K1's and K2's counts
+    reset before and read after, queries against K2's plain version, and
+    ``undeploy``, which must stop the server."""
+    from predictionio_tpu_torch import native
+    from predictionio_tpu_torch.cli import main as cli
+    from predictionio_tpu_torch.data import store
+    from predictionio_tpu_torch.ops import als, topk
+
+    prep.join(timeout=900)
+    if prep.is_alive():
+        raise AssertionError("the ingest preparation did not finish")
+    if prep.error:
+        raise AssertionError(f"ingest preparation failed:\n{prep.error}")
+    p = prep.out
+    basedir = prep.basedir
+    lib = native.library_path()
+    if p["codec"]["path"] != "native" or lib is None:
+        raise AssertionError(f"the native event codec did not load: status said "
+                             f"{p['codec']}, this process {lib}")
+    if not str(lib).startswith(os.path.join(ROOT, "predictionio_tpu_torch", "_build")):
+        raise AssertionError(f"the native codec loaded from {lib}")
+    n = len(p["vals"])
+    if not p["imported_equal"]:
+        raise AssertionError("the imported ratings differ from the generated ones")
+    if p["exported"] != n or p["export_printed"] != (
+            f"Exported {n} events to {os.path.join(basedir, 'export.jsonl')}."):
+        raise AssertionError(f"export wrote {p['exported']} lines, printed "
+                             f"{p['export_printed']!r}; expected {n}")
+    variant_path = os.path.join(basedir, "engine.json")
+    with open(variant_path, "w") as f:
+        json.dump({"id": "chip-smoke-ml1m", "engineFactory": REC_FACTORY,
+                   "datasource": {"params": {"appName": "ML1M"}},
+                   "algorithms": [{"name": "als", "params": {
+                       "rank": INGEST_RANK, "numIterations": INGEST_ITERATIONS,
+                       "lambda": TRAIN_REG, "seed": 3}}]}, f)
+    server = es = None
+    try:
+        es = EventServerProcess(basedir)
+        drive = event_server_drive(es, p["key"], np.random.default_rng(ML_SEED + 1),
+                                   p["num_users"], p["num_items"])
+        if es.stop() != 0:
+            raise AssertionError("eventserver did not exit 0 on SIGTERM:\n" + es.log_tail())
+        es = None
+        with storage_env(basedir):
+            als.solve_bucket.launches.reset()  # the main path starts here
+            topk.gather_top_k_batch.launches.reset()
+            topk.gather_top_k_batch.kernel_launches.reset()
+            t0 = time.perf_counter()
+            if cli.main(["train", "--variant", variant_path]) != 0:
+                raise AssertionError("cli train failed")
+            train_s = time.perf_counter() - t0
+            k1 = als.solve_bucket.launches.value
+            server = cli.deploy_server(cli.build_parser().parse_args([
+                "deploy", "--variant", variant_path, "--ip", "127.0.0.1",
+                "--port", "0"]))
+            server.warmup()
+            port = server.start(background=True)
+            model = server.models[0]
+            if len(model.user_index) != p["num_users"]:
+                raise AssertionError(f"{len(model.user_index)} users trained")
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            queries = [{"user": "u0", "num": 4}, {"user": "u17", "num": 10},
+                       {"user": "u6039", "num": 1}, {"user": "nobody", "num": 4}]
+            for q, (exp_items, exp_scores) in zip(
+                    queries, expected_items(torch, model, device, queries)):
+                got = post(conn, q)["itemScores"]
+                check_answer([x["item"] for x in got], [x["score"] for x in got],
+                             exp_items, exp_scores, model, f"ml1m {q}")
+            conn.close()
+            k2 = topk.gather_top_k_batch.launches.value  # read just after
+            k2_kernels = topk.gather_top_k_batch.kernel_launches.value
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                rc = cli.main(["undeploy", "--ip", "127.0.0.1", "--port", str(port)])
+            if rc != 0 or printed.getvalue().strip() != "Undeployed.":
+                raise AssertionError(f"undeploy: rc {rc}, printed {printed.getvalue()!r}")
+            deadline = time.perf_counter() + 10
+            while True:
+                try:
+                    socket.create_connection(("127.0.0.1", port), timeout=1).close()
+                except OSError:
+                    break  # the port is closed: the server stopped
+                if time.perf_counter() > deadline:
+                    raise AssertionError("the server still answers after undeploy")
+                time.sleep(0.1)
+        if k1 <= 0 or k2 <= 0:
+            raise AssertionError(f"launch counters did not move: K1 {k1}, K2 {k2}")
+    finally:
+        if es is not None:
+            es.stop()
+        if server is not None:
+            server.stop()
+        shutil.rmtree(basedir, ignore_errors=True)
+    stats["ingest"] = {
+        "card": stats.get("smi"), "codec": p["codec"], "version": p["version"],
+        "prep_s": prep.done - prep.started,
+        "prep_done_after_build_s": prep.done - stats.get("build_done", prep.done),
+        "events": n, "write_file_s": p["write_s"],
+        "import_s": p["import_s"], "import_events_per_s": n / p["import_s"],
+        "export_s": p["export_s"], "export_events_per_s": n / p["export_s"],
+        "events_json": drive["events_json"], "batch_json": drive["batch_json"],
+        "batch_bin": drive["batch_bin"], "stats": drive["stats"],
+        "train_s": train_s, "trained_ratings": n + drive["stored_rates"],
+        "k1_launches": k1, "k2_launches": k2, "k2_kernel_launches": k2_kernels,
+    }
+    log(json.dumps({"ingest": "ml1m sqlite", **stats["ingest"]}))
 
 
 # -- phase: full width -------------------------------------------------------------
@@ -6987,6 +7392,7 @@ def main() -> int:
         "serve": lambda: the_slice(torch, device, stats),
         "batchserve": lambda: batch_serve(torch, device, stats),
         "lifecycle": lambda: lifecycle(torch, device, stats),
+        "ingest": lambda: ingest(torch, device, stats, prep),
         "simlife": lambda: similar_lifecycle(torch, device, stats),
         "templife": lambda: templates_lifecycle(torch, device, stats),
         "train": lambda: full_width(torch, device, stats),
@@ -7013,10 +7419,28 @@ def main() -> int:
         return 2
     t0 = time.perf_counter()
     smi = environment(torch)
+    stats["smi"] = smi
+    # the ingest phase's host-only start (files, import, export) runs
+    # beside the build and the kernel checks: it touches no device
+    prep = IngestPrep() if "ingest" in chosen else None
+    if prep is not None:
+        prep.start()
     build()
+    stats["build_done"] = time.perf_counter()
     for name in steps:
         if name in chosen and not failures:
+            if prep is not None and name not in BESIDE_PREP and prep.is_alive():
+                # the phases from here on time host work: none of them
+                # shares the CPU with the ingest phase's import
+                t1 = time.perf_counter()
+                prep.join(timeout=900)
+                log(f"waited {time.perf_counter() - t1:.1f}s for the ingest preparation")
             steps[name]()
+    if prep is not None:
+        # when a phase failed before ingest, its import and export
+        # processes still end, and its store goes, before the script does
+        prep.join()
+        shutil.rmtree(prep.basedir, ignore_errors=True)
     log(f"total {time.perf_counter() - t0:.1f}s")
     if failures:
         log(f"chip_smoke FAILED phases: {failures}")

@@ -1,5 +1,20 @@
-"""Command line of the port: the ``train``, ``eval`` and ``deploy`` verbs.
+"""Command line of the port: the quickstart's verbs.
 
+    python -m predictionio_tpu_torch.cli.main version
+    python -m predictionio_tpu_torch.cli.main status
+    python -m predictionio_tpu_torch.cli.main app \\
+        {new NAME [--id N] [--description D] [--access-key K] | list |
+         show NAME | delete NAME | data-delete NAME [--channel C] |
+         channel-new NAME CHANNEL | channel-delete NAME CHANNEL}
+    python -m predictionio_tpu_torch.cli.main accesskey \\
+        {new APP [--event E ...] | list [APP] | delete KEY}
+    python -m predictionio_tpu_torch.cli.main eventserver \\
+        [--ip 0.0.0.0] [--port 7070] [--stats] [--reuse-port]
+    python -m predictionio_tpu_torch.cli.main import --appid-or-name APP \\
+        --input FILE [--channel C] [--jobs N] \\
+        [--http URL --access-key KEY]
+    python -m predictionio_tpu_torch.cli.main export --appid-or-name APP \\
+        --output FILE [--channel C]
     python -m predictionio_tpu_torch.cli.main train --variant engine.json \\
         [--engine-id ID] [--engine-version V] [--batch LABEL] \\
         [--skip-sanity-check] [--stop-after-read] [--stop-after-prepare] \\
@@ -13,11 +28,26 @@
         [--log-url URL] [--log-prefix P] [--batch-window-ms MS] \\
         [--reuse-port] [--query-cache-mb MB] [--variants A.json,B.json] \\
         [--no-warmup] [--realtime SECONDS [--realtime-cursor PATH]]
+    python -m predictionio_tpu_torch.cli.main undeploy [--ip IP] [--port P]
     python -m predictionio_tpu_torch.cli.main eval EVALUATION \\
         [ENGINE_PARAMS_GENERATOR] [--batch LABEL] [--device cuda|cpu]
 
-Port of ``predictionio_tpu/cli/main.py`` ``cmd_train`` (:843-894),
-``cmd_eval`` (:900-934) and ``cmd_deploy`` (:1053-1207). ``train`` records an engine instance under
+Port of ``predictionio_tpu/cli/main.py`` ``cmd_version`` (:106),
+``cmd_status`` (:111), ``cmd_app`` (:755), ``cmd_accesskey`` (:799),
+``cmd_train`` (:843-894), ``cmd_eval`` (:900-934), ``cmd_deploy``
+(:1053-1207), ``cmd_undeploy`` (:1210), ``cmd_eventserver`` (:1223),
+``cmd_export`` (:1308) and ``cmd_import`` (:1323), with the JAX verbs'
+flags and printed lines. The app, access-key, import, export and
+event-server verbs are host code (``cli/commands.py``,
+``server/event_server.py``) and start no device; they write records and
+events that the JAX package reads, and the reverse. ``status`` prints
+the storage bindings, the torch devices, which event codec runs (the
+native library or the pure-Python one) and a live training's progress
+line; the JAX verb's daemon, SLO, variant and replica lines need the
+daemon pid files of a later slice. ``undeploy`` POSTs ``/stop`` to a
+deployed engine server.
+
+``train`` records an engine instance under
 the variant's (id, version, file-name label), as the JAX CLI does, so
 ``deploy`` of either package finds it; ``--warm-start`` starts from the
 latest COMPLETED instance of that identity, whichever package trained
@@ -30,9 +60,10 @@ not accepted. ``deploy --realtime SECONDS`` runs the speed layer
 (``realtime/``), one per mounted variant, folding tailed rating events
 into the served model every SECONDS; its cursor is
 ``--realtime-cursor`` or ``~/.pio_tpu/realtime/cursor_<engine>_<port>
-.json``. ``deploy --workers N`` (N > 1) is accepted and raises, naming
-the later slice: each worker process would need a CUDA context and a
-model copy of its own (forking after CUDA started is unsafe). The engine factory
+.json``. Flags that need a later slice are accepted and raise
+``NotImplementedError`` naming it (``_check_later_slices``), never
+ignored: ``deploy --workers N`` and ``eventserver --workers N`` (N > 1),
+``import --warm-cache`` and ``status --json``. The engine factory
 comes from the variant's ``engineFactory`` (for ``deploy``, else from
 the instance's recorded ``engine_factory``), else the port's
 recommendation template; a JAX-package factory name maps to the port
@@ -51,6 +82,7 @@ import logging
 import os
 import sys
 
+from predictionio_tpu_torch import __version__
 from predictionio_tpu_torch.common import load_server_config
 from predictionio_tpu_torch.core.context import WorkflowContext
 from predictionio_tpu_torch.core.engine import (
@@ -62,6 +94,179 @@ from predictionio_tpu_torch.core.workflow import load_variant, run_train
 from predictionio_tpu_torch.core.workflow_eval import run_evaluation
 from predictionio_tpu_torch.data.storage import get_storage
 from predictionio_tpu_torch.server.engine_server import EngineServer
+
+
+def cmd_version(args) -> int:
+    print(__version__)
+    return 0
+
+
+def _training_line() -> str | None:
+    """Human one-liner for ``status`` when a checkpointed ``train`` is
+    publishing its progress: "training: iter 7/20, ETA 41s"."""
+    from predictionio_tpu_torch.obs import progress as obs_progress
+
+    doc = obs_progress.read_progress()
+    if not obs_progress.is_live(doc):
+        return None
+    # under --tol the iteration count is an upper bound
+    bound = "<=" if doc.get("eta_is_bound") else ""
+    parts = [f"iter {doc.get('iteration')}/{bound}{doc.get('total_iterations')}"]
+    if doc.get("eta_s") is not None:
+        parts.append(f"ETA {bound}{round(doc['eta_s'])}s")
+    rmse = doc.get("rmse")
+    if rmse:
+        parts.append(f"RMSE {rmse[-1]:.4f}")
+    if doc.get("events_per_s"):
+        parts.append(f"{doc['events_per_s']:,.0f} events/s")
+    return "training: " + ", ".join(parts)
+
+
+def cmd_status(args) -> int:
+    from predictionio_tpu_torch.cli import commands
+
+    _check_later_slices(args)
+    info = commands.status()
+    print(json.dumps(info, indent=2))
+    print("(sanity check) All storage repositories verified.")
+    line = _training_line()
+    if line:
+        print(line)
+    return 0
+
+
+def cmd_app(args) -> int:
+    from predictionio_tpu_torch.cli import commands
+
+    try:
+        if args.app_command == "new":
+            info = commands.app_new(
+                args.name, app_id=args.id or 0, description=args.description,
+                access_key=args.access_key or "",
+            )
+            print("Created a new app:")
+            print(f"      Name: {info['name']}")
+            print(f"        ID: {info['id']}")
+            print(f"Access Key: {info['access_key']}")
+        elif args.app_command == "list":
+            for a in commands.app_list():
+                print(f"{a['id']:>6} | {a['name']} | {a['access_key']}")
+        elif args.app_command == "show":
+            info = commands.app_show(args.name)
+            print(json.dumps(info, indent=2))
+        elif args.app_command == "delete":
+            commands.app_delete(args.name)
+            print(f"Deleted app {args.name}.")
+        elif args.app_command == "data-delete":
+            commands.app_data_delete(args.name, channel=args.channel)
+            print(f"Deleted data of app {args.name}.")
+        elif args.app_command == "channel-new":
+            info = commands.channel_new(args.name, args.channel)
+            print(f"Created channel {info['name']} (id {info['id']}).")
+        elif args.app_command == "channel-delete":
+            commands.channel_delete(args.name, args.channel)
+            print(f"Deleted channel {args.channel}.")
+        else:
+            print(
+                "usage: pio app "
+                "{new,list,show,delete,data-delete,channel-new,channel-delete}",
+                file=sys.stderr,
+            )
+            return 1
+        return 0
+    except commands.CommandError as e:
+        print(str(e), file=sys.stderr)
+        return 1
+
+
+def cmd_accesskey(args) -> int:
+    from predictionio_tpu_torch.cli import commands
+
+    try:
+        if args.ak_command == "new":
+            key = commands.accesskey_new(args.app_name, events=args.event or [])
+            print(f"Created new access key: {key}")
+        elif args.ak_command == "list":
+            for k in commands.accesskey_list(args.app_name):
+                print(f"{k['key']} | app {k['app_id']} | events {k['events'] or 'ALL'}")
+        elif args.ak_command == "delete":
+            commands.accesskey_delete(args.key)
+            print(f"Deleted access key {args.key}.")
+        else:
+            print("usage: pio accesskey {new,list,delete}", file=sys.stderr)
+            return 1
+        return 0
+    except commands.CommandError as e:
+        print(str(e), file=sys.stderr)
+        return 1
+
+
+def cmd_undeploy(args) -> int:
+    """POST ``/stop`` to the engine server at ``--ip``:``--port``."""
+    import urllib.request
+
+    url = f"http://{args.ip}:{args.port}/stop"
+    try:
+        urllib.request.urlopen(urllib.request.Request(url, data=b""), timeout=10)
+        print("Undeployed.")
+        return 0
+    except Exception as e:
+        print(f"undeploy failed: {e}", file=sys.stderr)
+        return 1
+
+
+def cmd_eventserver(args) -> int:
+    """Serve the event API in the foreground; no device is touched."""
+    from predictionio_tpu_torch.server.event_server import EventServer
+
+    _check_later_slices(args)
+    server = EventServer(
+        host=args.ip, port=args.port, stats=args.stats,
+        reuse_port=args.reuse_port,
+    )
+    server.start(background=False)
+    return 0
+
+
+def cmd_export(args) -> int:
+    from predictionio_tpu_torch.cli import commands
+    from predictionio_tpu_torch.data.store import EventStoreError
+
+    try:
+        n = commands.export_events(
+            args.appid_or_name, args.output, channel=args.channel
+        )
+    except (commands.CommandError, EventStoreError) as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    print(f"Exported {n} events to {args.output}.")
+    return 0
+
+
+def cmd_import(args) -> int:
+    from predictionio_tpu_torch.cli import commands
+    from predictionio_tpu_torch.data.store import EventStoreError
+
+    _check_later_slices(args)
+    try:
+        if args.http:
+            if not args.access_key:
+                print("--http requires --access-key", file=sys.stderr)
+                return 1
+            n = commands.import_events_http(
+                args.input, args.http, args.access_key,
+                channel=args.channel,
+            )
+        else:
+            n = commands.import_events(
+                args.appid_or_name, args.input,
+                channel=args.channel, jobs=args.jobs,
+            )
+    except (commands.CommandError, EventStoreError) as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    print(f"Imported {n} events.")
+    return 0
 
 
 def _engine_identity(args, variant: dict) -> tuple[str, str, str]:
@@ -168,14 +373,33 @@ def _load_server_config(args):
 
 
 def _check_later_slices(args) -> None:
-    """``--workers N`` belongs to a later slice of the port: raise,
-    naming it, instead of ignoring the flag."""
+    """Flags that belong to a later slice of the port raise, naming it,
+    instead of being ignored."""
     if getattr(args, "workers", 1) > 1:
+        if getattr(args, "command", None) == "eventserver":
+            raise NotImplementedError(
+                "eventserver --workers N (ingest processes sharing the port "
+                "by SO_REUSEPORT, supervised by the daemon tooling) is a "
+                "later slice of the PyTorch port (ROADMAP.md queue 1, item "
+                "10: the CLI and the remaining host servers)"
+            )
         raise NotImplementedError(
             "--workers N (server processes sharing the port) is a later "
             "slice of the PyTorch port: each process on one card needs a "
             "CUDA context and a model copy of its own, and forking after "
             "CUDA has started is unsafe (ROADMAP.md queue 1)"
+        )
+    if getattr(args, "warm_cache", False):
+        raise NotImplementedError(
+            "import --warm-cache (the columnar segment cache) is a later "
+            "slice of the PyTorch port: it comes with the jsonl and "
+            "partitioned stores (ROADMAP.md queue 1, item 5b)"
+        )
+    if getattr(args, "command", None) == "status" and getattr(args, "json", False):
+        raise NotImplementedError(
+            "status --json (merging /metrics and /stats.json of the running "
+            "daemons found by their pid files) is a later slice of the "
+            "PyTorch port (ROADMAP.md queue 1, item 10: cli/daemon.py)"
         )
 
 
@@ -316,6 +540,94 @@ def build_parser() -> argparse.ArgumentParser:
         description="PredictionIO on PyTorch/CUDA",
     )
     sub = p.add_subparsers(dest="command", required=True)
+    sub.add_parser("version", help="print the package version").set_defaults(fn=cmd_version)
+    st = sub.add_parser("status", help="storage, devices and the event codec")
+    st.add_argument(
+        "--json", action="store_true",
+        help="one compact JSON line merging /metrics + /stats.json from "
+        "running daemons: a later slice of the port (raises)",
+    )
+    st.set_defaults(fn=cmd_status)
+
+    a = sub.add_parser("app", help="manage apps and their channels")
+    asub = a.add_subparsers(dest="app_command")
+    for name in ("new", "show", "delete", "data-delete"):
+        ap = asub.add_parser(name)
+        ap.add_argument("name")
+        if name == "new":
+            ap.add_argument("--id", type=int, default=0)
+            ap.add_argument("--description")
+            ap.add_argument("--access-key", default="")
+        if name == "data-delete":
+            ap.add_argument("--channel")
+    asub.add_parser("list")
+    for name in ("channel-new", "channel-delete"):
+        cp = asub.add_parser(name)
+        cp.add_argument("name")
+        cp.add_argument("channel")
+    a.set_defaults(fn=cmd_app)
+
+    ak = sub.add_parser("accesskey", help="manage access keys")
+    aksub = ak.add_subparsers(dest="ak_command")
+    akn = aksub.add_parser("new")
+    akn.add_argument("app_name")
+    akn.add_argument("--event", action="append")
+    akl = aksub.add_parser("list")
+    akl.add_argument("app_name", nargs="?")
+    akd = aksub.add_parser("delete")
+    akd.add_argument("key")
+    ak.set_defaults(fn=cmd_accesskey)
+
+    es = sub.add_parser("eventserver", help="serve the event API")
+    es.add_argument("--ip", default="0.0.0.0")
+    es.add_argument("--port", type=int, default=7070)
+    es.add_argument("--stats", action="store_true",
+                    help="serve /stats.json (ingest counts per app)")
+    es.add_argument(
+        "--workers", type=int, default=1,
+        help="ingest processes sharing the port: a later slice of the "
+        "port (N > 1 raises)",
+    )
+    es.add_argument("--reuse-port", action="store_true")
+    es.set_defaults(fn=cmd_eventserver)
+
+    ex = sub.add_parser("export", help="write an app's events as JSON lines")
+    ex.add_argument("--appid-or-name", required=True)
+    ex.add_argument("--output", required=True)
+    ex.add_argument("--channel")
+    ex.set_defaults(fn=cmd_export)
+
+    im = sub.add_parser("import", help="load JSON-lines events into an app")
+    im.add_argument("--appid-or-name", required=True)
+    im.add_argument("--input", required=True)
+    im.add_argument("--channel")
+    im.add_argument(
+        "--jobs", type=int, default=None,
+        help="decode/append worker threads for the bulk import "
+        "(default: PIO_IMPORT_JOBS env or min(4, cpus); 1 = sequential)",
+    )
+    im.add_argument(
+        "--warm-cache", action="store_true",
+        help="build the columnar segment cache after the import: a later "
+        "slice of the port (raises)",
+    )
+    im.add_argument(
+        "--http", metavar="URL", default=None,
+        help="import over the wire: POST the file as binary frames to "
+        "URL/batch/events.bin on a live event server instead of writing "
+        "storage directly (requires --access-key)",
+    )
+    im.add_argument(
+        "--access-key", default=None,
+        help="access key for --http mode (the target app's key)",
+    )
+    im.set_defaults(fn=cmd_import)
+
+    u = sub.add_parser("undeploy", help="stop a deployed engine server")
+    u.add_argument("--ip", default="0.0.0.0")
+    u.add_argument("--port", type=int, default=8000)
+    u.set_defaults(fn=cmd_undeploy)
+
     t = sub.add_parser("train", help="train an engine and record an instance")
     t.add_argument("--variant", help="engine.json (engineFactory, params, id)")
     t.add_argument("--engine-id", help="instance engine id (default: the "

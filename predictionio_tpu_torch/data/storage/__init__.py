@@ -11,8 +11,9 @@ find the same database and model directory:
 - zero-config default: sqlite ``pio.db`` + localfs ``models/`` under
   ``PIO_FS_BASEDIR`` (default ``~/.pio_tpu``).
 
-The port's backends so far: sqlite and memory (apps, channels, engine and
-evaluation instances, models, events) and localfs (models). Other backend types --
+The port's backends so far: sqlite and memory (apps, access keys,
+channels, engine and evaluation instances, models, events) and localfs
+(models). Other backend types --
 jsonl, partitioned, postgres, http, search, hdfs, s3 -- parse (their
 capabilities steer the default bindings exactly as in the JAX package)
 but raise :class:`StorageError`, naming the type, when a DAO is asked of
@@ -27,6 +28,8 @@ import threading
 from typing import Any, Callable
 
 from predictionio_tpu_torch.data.storage.base import (  # noqa: F401 (public re-exports)
+    AccessKey,
+    AccessKeys,
     App,
     Apps,
     Channel,
@@ -41,6 +44,7 @@ from predictionio_tpu_torch.data.storage.base import (  # noqa: F401 (public re-
     Model,
     Models,
     RatingsBatch,
+    generate_access_key,
 )
 
 METADATA = "METADATA"
@@ -72,6 +76,7 @@ def _sqlite_backend() -> _Backend:
         client_factory=lambda cfg: sq.SQLiteStorageClient(cfg),
         daos={
             "Apps": sq.SQLiteApps,
+            "AccessKeys": sq.SQLiteAccessKeys,
             "Channels": sq.SQLiteChannels,
             "EngineInstances": sq.SQLiteEngineInstances,
             "EvaluationInstances": sq.SQLiteEvaluationInstances,
@@ -88,6 +93,7 @@ def _memory_backend() -> _Backend:
         client_factory=lambda cfg: mem.MemoryStorageClient(cfg),
         daos={
             "Apps": mem.MemoryApps,
+            "AccessKeys": mem.MemoryAccessKeys,
             "Channels": mem.MemoryChannels,
             "EngineInstances": mem.MemoryEngineInstances,
             "EvaluationInstances": mem.MemoryEvaluationInstances,
@@ -246,6 +252,9 @@ class Storage:
     def get_metadata_apps(self) -> Apps:
         return self._dao(METADATA, "Apps")
 
+    def get_metadata_access_keys(self) -> AccessKeys:
+        return self._dao(METADATA, "AccessKeys")
+
     def get_metadata_channels(self) -> Channels:
         return self._dao(METADATA, "Channels")
 
@@ -260,6 +269,22 @@ class Storage:
 
     def get_model_data_models(self) -> Models:
         return self._dao(MODELDATA, "Models")
+
+    def verify_all_data_objects(self) -> bool:
+        """Instantiate every repository's DAOs (Storage.scala:341-363)."""
+        self.get_metadata_apps()
+        self.get_metadata_access_keys()
+        self.get_metadata_channels()
+        self.get_metadata_engine_instances()
+        self.get_metadata_evaluation_instances()
+        self.get_events()
+        self.get_model_data_models()
+        return True
+
+    def repository_source(self, repo: str) -> tuple[str, str]:
+        """(source name, backend type) bound to a repository."""
+        src = self._repo_to_source[repo]
+        return src, self._source_types[src]
 
     def close(self) -> None:
         with self._lock:

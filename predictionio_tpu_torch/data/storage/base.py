@@ -1,19 +1,20 @@
 """Storage records and DAO contracts.
 
 Port of ``predictionio_tpu/data/storage/base.py``: the ``App``,
-``Channel``, ``EngineInstance``, ``EvaluationInstance`` and ``Model``
-records, the columnar ``RatingsBatch``, and the DAO contracts the train,
-deploy and evaluation paths use (reference Apps.scala:32,
+``AccessKey``, ``Channel``, ``EngineInstance``, ``EvaluationInstance``
+and ``Model`` records, the columnar ``RatingsBatch``, and the DAO
+contracts (reference Apps.scala:32, AccessKeys.scala:35,
 Channels.scala:32, EngineInstances.scala:46, EvaluationInstances.scala:42,
-Models.scala:33, LEvents.scala:40), with property aggregation. Access
-keys and the event-server side of ``Events`` (tails) come with later
-slices; ``Events.change_token`` and ``entity_indexed`` are here.
+Models.scala:33, LEvents.scala:40), with property aggregation,
+``Events.change_token``, ``entity_indexed`` and the tails.
 """
 
 from __future__ import annotations
 
 import abc
+import base64
 import re
+import secrets
 from dataclasses import dataclass, field
 from datetime import datetime
 from typing import Any, Iterable, Sequence
@@ -30,6 +31,26 @@ class App:
     id: int
     name: str
     description: str | None = None
+
+
+@dataclass
+class AccessKey:
+    """Event-server credential, scoped to an app and optionally to specific
+    event names (reference AccessKeys.scala:35-50)."""
+
+    key: str
+    appid: int
+    events: list[str] = field(default_factory=list)
+
+
+def generate_access_key() -> str:
+    """64 random bytes, URL-safe base64 (reference AccessKeys.generateKey).
+    Keys never start with ``-``, so they stay safe to pass as positional
+    CLI arguments."""
+    while True:
+        key = base64.urlsafe_b64encode(secrets.token_bytes(48)).decode("ascii").rstrip("=")
+        if not key.startswith("-"):
+            return key
 
 
 CHANNEL_NAME_RE = re.compile(r"^[a-zA-Z0-9-]{1,16}$")
@@ -197,6 +218,28 @@ class Apps(abc.ABC):
 
     @abc.abstractmethod
     def delete(self, app_id: int) -> bool: ...
+
+
+class AccessKeys(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, access_key: AccessKey) -> str | None:
+        """Insert; an empty key means generate one. Returns the key, or
+        None when it is taken."""
+
+    @abc.abstractmethod
+    def get(self, key: str) -> AccessKey | None: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> list[AccessKey]: ...
+
+    @abc.abstractmethod
+    def get_by_appid(self, appid: int) -> list[AccessKey]: ...
+
+    @abc.abstractmethod
+    def update(self, access_key: AccessKey) -> bool: ...
+
+    @abc.abstractmethod
+    def delete(self, key: str) -> bool: ...
 
 
 class Channels(abc.ABC):

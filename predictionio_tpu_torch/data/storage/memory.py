@@ -1,7 +1,7 @@
 """In-memory backend (test mode): every DAO a dict behind a lock.
 
-Port of ``predictionio_tpu/data/storage/memory.py`` for the DAOs the port
-has: apps, channels, engine and evaluation instances, models and events.
+Port of ``predictionio_tpu/data/storage/memory.py``: apps, access keys,
+channels, engine and evaluation instances, models and events.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ class MemoryStorageClient:
         self.config = config or {}
         self.lock = threading.RLock()
         self.apps: dict[int, base.App] = {}
+        self.access_keys: dict[str, base.AccessKey] = {}
         self.channels: dict[int, base.Channel] = {}
         self.engine_instances: dict[str, base.EngineInstance] = {}
         self.evaluation_instances: dict[str, base.EvaluationInstance] = {}
@@ -79,6 +80,44 @@ class MemoryApps(base.Apps):
     def delete(self, app_id: int) -> bool:
         with self._c.lock:
             return self._c.apps.pop(app_id, None) is not None
+
+
+class MemoryAccessKeys(base.AccessKeys):
+    def __init__(self, client: MemoryStorageClient):
+        self._c = client
+
+    def insert(self, access_key: base.AccessKey) -> str | None:
+        with self._c.lock:
+            key = access_key.key or base.generate_access_key()
+            if key in self._c.access_keys:
+                return None
+            self._c.access_keys[key] = base.AccessKey(
+                key, access_key.appid, list(access_key.events)
+            )
+            return key
+
+    def get(self, key: str) -> base.AccessKey | None:
+        with self._c.lock:
+            return self._c.access_keys.get(key)
+
+    def get_all(self) -> list[base.AccessKey]:
+        with self._c.lock:
+            return list(self._c.access_keys.values())
+
+    def get_by_appid(self, appid: int) -> list[base.AccessKey]:
+        with self._c.lock:
+            return [k for k in self._c.access_keys.values() if k.appid == appid]
+
+    def update(self, access_key: base.AccessKey) -> bool:
+        with self._c.lock:
+            if access_key.key not in self._c.access_keys:
+                return False
+            self._c.access_keys[access_key.key] = access_key
+            return True
+
+    def delete(self, key: str) -> bool:
+        with self._c.lock:
+            return self._c.access_keys.pop(key, None) is not None
 
 
 class MemoryChannels(base.Channels):

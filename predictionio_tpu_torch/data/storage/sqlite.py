@@ -1,13 +1,12 @@
-"""SQLite backend: apps, channels, engine instances, models and events.
+"""SQLite backend: apps, access keys, channels, engine and evaluation
+instances, models and events.
 
 Port of ``predictionio_tpu/data/storage/sqlite.py`` with the same schema
-and table names (``pio_apps``, ``pio_channels``, ``pio_engine_instances``,
-``pio_models``, and per-(app, channel) event tables
-``pio_event_<appId>[_<channelId>]``; sqlite.py:69-120, 485-540), so an
-instance or an event either package writes reads back in the other. The
-client creates every metadata table the JAX package creates, access keys
-and evaluation instances included, though the port has no DAO for those
-two yet.
+and table names (``pio_apps``, ``pio_access_keys``, ``pio_channels``,
+``pio_engine_instances``, ``pio_evaluation_instances``, ``pio_models``,
+and per-(app, channel) event tables ``pio_event_<appId>[_<channelId>]``;
+sqlite.py:69-120, 485-540), so a record or an event either package
+writes reads back in the other.
 """
 
 from __future__ import annotations
@@ -168,6 +167,60 @@ class SQLiteApps(base.Apps):
     def delete(self, app_id: int) -> bool:
         with self._c.lock, self._c.conn:
             cur = self._c.conn.execute("DELETE FROM pio_apps WHERE id=?", (app_id,))
+            return cur.rowcount > 0
+
+
+class SQLiteAccessKeys(base.AccessKeys):
+    """``pio_access_keys`` rows (key, app id, the event allow-list as a
+    JSON array), as the JAX package writes them."""
+
+    def __init__(self, client: SQLiteStorageClient):
+        self._c = client
+
+    def insert(self, access_key: base.AccessKey) -> str | None:
+        key = access_key.key or base.generate_access_key()
+        with self._c.lock:
+            try:
+                with self._c.conn:
+                    self._c.conn.execute(
+                        "INSERT INTO pio_access_keys (accesskey, appid, events) VALUES (?,?,?)",
+                        (key, access_key.appid, json.dumps(access_key.events)),
+                    )
+                return key
+            except sqlite3.IntegrityError:
+                return None
+
+    def get(self, key: str) -> base.AccessKey | None:
+        row = self._c.query_one(
+            "SELECT accesskey, appid, events FROM pio_access_keys WHERE accesskey=?",
+            (key,),
+        )
+        return base.AccessKey(row[0], row[1], json.loads(row[2])) if row else None
+
+    def get_all(self) -> list[base.AccessKey]:
+        rows = self._c.query("SELECT accesskey, appid, events FROM pio_access_keys")
+        return [base.AccessKey(r[0], r[1], json.loads(r[2])) for r in rows]
+
+    def get_by_appid(self, appid: int) -> list[base.AccessKey]:
+        rows = self._c.query(
+            "SELECT accesskey, appid, events FROM pio_access_keys WHERE appid=?",
+            (appid,),
+        )
+        return [base.AccessKey(r[0], r[1], json.loads(r[2])) for r in rows]
+
+    def update(self, access_key: base.AccessKey) -> bool:
+        with self._c.lock, self._c.conn:
+            cur = self._c.conn.execute(
+                "UPDATE pio_access_keys SET appid=?, events=? WHERE accesskey=?",
+                (access_key.appid, json.dumps(access_key.events), access_key.key),
+            )
+            return cur.rowcount > 0
+
+    def delete(self, key: str) -> bool:
+        with self._c.lock, self._c.conn:
+            cur = self._c.conn.execute(
+                "DELETE FROM pio_access_keys WHERE accesskey=?", (key,)
+            )
             return cur.rowcount > 0
 
 

@@ -1,0 +1,737 @@
+"""Event Server: REST ingestion API (default port 7070).
+
+Capability parity with the reference Event Server
+(data/.../api/EventServer.scala:54-663):
+
+- ``GET /``                       welcome status
+- ``POST /events.json``           single event, 201 Created + eventId
+- ``GET /events.json``            query (startTime/untilTime/entityType/
+                                  entityId/event/targetEntityType/
+                                  targetEntityId/limit/reversed)
+- ``GET|DELETE /events/<id>.json`` point read/delete
+- ``POST /batch/events.json``     at most **50** events per request
+                                  (:376-390), per-event status list
+- ``GET /stats.json``             ingestion stats (when enabled)
+- ``GET /plugins.json``           loaded plugin inventory (:156-177)
+- ``GET|POST /plugins/<type>/<name>/<args...>`` plugin REST dispatch
+                                  (:178-196, PluginsActor.scala)
+- ``POST /webhooks/<name>.json``  JSON webhooks; ``.form`` form flavor
+- ``GET /webhooks/<name>.json``   connector presence check
+
+Auth mirrors the reference: per-app ``accessKey`` via query param or
+HTTP basic username, optional ``channel`` query param resolved against
+the app's channels, per-key event-name allowlists
+(api/EventServer.scala:92-150). Input blocker/sniffer plugins intercept
+ingestion.
+
+Port of ``predictionio_tpu/server/event_server.py``: the same routes,
+auth, allow-lists, bodies and backpressure, so a client sees the same
+bytes from either package's server. The event server is host code and
+touches no device: nothing on its path initialises CUDA (``/stats.json``
+reads the device block without starting it), so server processes can be
+spawned from it.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import threading
+import time
+from dataclasses import dataclass
+from datetime import datetime, timezone
+from typing import Any
+
+from predictionio_tpu_torch.data.event import (
+    Event,
+    EventValidationError,
+    format_time,
+    parse_time,
+    validate,
+)
+from predictionio_tpu_torch.data.storage import AccessKey, Storage, get_storage
+from predictionio_tpu_torch.data.storage import frame as frame_mod
+from predictionio_tpu_torch.obs import device as obs_device
+from predictionio_tpu_torch.obs import history as obs_history
+from predictionio_tpu_torch.obs import metrics as obs_metrics
+from predictionio_tpu_torch.obs import slo as obs_slo
+from predictionio_tpu_torch.obs import trace as obs_trace
+from predictionio_tpu_torch.server import plugins as plugin_mod
+from predictionio_tpu_torch.server.http import (
+    HTTPApp,
+    Request,
+    Response,
+    Router,
+    add_obs_routes,
+)
+from predictionio_tpu_torch.server.stats import Stats
+from predictionio_tpu_torch.server.webhooks import (
+    ConnectorError,
+    FormConnector,
+    JsonConnector,
+    default_connectors,
+)
+
+logger = logging.getLogger(__name__)
+
+MAX_BATCH_SIZE = 50  # reference EventServer.scala:70
+
+
+def _batch_max_events() -> int:
+    """``PIO_BATCH_MAX_EVENTS`` knob for ``POST /batch/events.json``
+    (default keeps the reference-compatible 50)."""
+    raw = os.environ.get("PIO_BATCH_MAX_EVENTS", "").strip()
+    try:
+        return max(1, int(raw)) if raw else MAX_BATCH_SIZE
+    except ValueError:
+        return MAX_BATCH_SIZE
+
+
+class _InflightBudget:
+    """Bounded in-flight ingest bytes (``PIO_INGEST_MAX_INFLIGHT_MB``).
+
+    Admission control for the batch endpoints: a request acquires its
+    Content-Length before its body is processed (for the binary stream
+    route, before the body is even READ off the socket) and releases it
+    when done. A request that doesn't fit is shed with 429+Retry-After —
+    explicit backpressure instead of an unbounded group-commit queue.
+    An oversized request is still admitted when the budget is idle, so
+    a single body larger than the whole budget stays servable."""
+
+    def __init__(self, max_bytes: int):
+        self.max_bytes = max(1, int(max_bytes))
+        self.in_flight = 0
+        self._lock = threading.Lock()
+
+    def try_acquire(self, n: int) -> bool:
+        with self._lock:
+            if self.in_flight > 0 and self.in_flight + n > self.max_bytes:
+                return False
+            self.in_flight += n
+            return True
+
+    def release(self, n: int) -> None:
+        with self._lock:
+            self.in_flight = max(0, self.in_flight - n)
+
+    def utilization(self) -> float:
+        with self._lock:
+            return self.in_flight / self.max_bytes
+
+
+@dataclass
+class AuthData:
+    app_id: int
+    channel_id: int | None
+    events: list[str]
+
+
+class EventServer:
+    def __init__(
+        self,
+        storage: Storage | None = None,
+        host: str = "0.0.0.0",
+        port: int = 7070,
+        stats: bool = False,
+        connectors: dict | None = None,
+        reuse_port: bool = False,
+    ):
+        self.storage = storage or get_storage()
+        self.stats_enabled = stats
+        self.stats = Stats()
+        self.connectors = (
+            connectors if connectors is not None else default_connectors()
+        )
+        self.plugins = plugin_mod.load_plugins(plugin_mod.EventServerPlugin)
+        self.plugin_context: dict[str, Any] = {"storage": self.storage}
+        for p in self.plugins:
+            p.start(self.plugin_context)
+        self._m_validate = obs_metrics.histogram(
+            "pio_ingest_validate_seconds",
+            "Per-event plugin+parse+validate time",
+        )
+        self._m_append = obs_metrics.histogram(
+            "pio_ingest_append_seconds",
+            "Single-event storage insert time (row log write + fsync)",
+        )
+        self._m_group_commit = obs_metrics.histogram(
+            "pio_ingest_group_commit_seconds",
+            "Batch storage insert time (one lock+append+fsync per request)",
+        )
+        self._m_accepted = obs_metrics.counter(
+            "pio_ingest_events_total", "Events ingested", result="created"
+        )
+        self._m_rejected = obs_metrics.counter(
+            "pio_ingest_events_total", "Events ingested", result="rejected"
+        )
+        # wire-speed binary ingest (/batch/events.bin): per-request
+        # in-flight-bytes budget + the pio_ingest_* backpressure family
+        self.batch_max_events = _batch_max_events()
+        try:
+            inflight_mb = float(
+                os.environ.get("PIO_INGEST_MAX_INFLIGHT_MB", "64") or 64
+            )
+        except ValueError:
+            inflight_mb = 64.0
+        self._budget = _InflightBudget(int(inflight_mb * (1 << 20)))
+        self._g_inflight = obs_metrics.gauge(
+            "pio_ingest_inflight_bytes",
+            "Request body bytes admitted and not yet committed",
+        )
+        self._g_inflight.set_function(lambda: float(self._budget.in_flight))
+        self._g_queue_depth = obs_metrics.gauge(
+            "pio_ingest_queue_depth",
+            "Group-commit appends flushed but not yet fsync-covered",
+        )
+        self._g_queue_depth.set_function(self._queue_depth)
+        self._m_shed = obs_metrics.counter(
+            "pio_ingest_shed_total",
+            "Batch requests shed with 429 by the in-flight-bytes budget",
+        )
+        self._m_frames = obs_metrics.counter(
+            "pio_ingest_frames_total", "Binary ingest frames committed"
+        )
+        # default objectives: ingest availability + group-commit latency
+        # + backpressure-budget headroom (registered after _budget exists)
+        obs_slo.install_event_server_slos(self)
+        # minute-bucket ingest counts join /history.json's read shape
+        obs_history.register_provider("ingest_stats", self.stats.history_series)
+        self.app = HTTPApp(
+            self._router(),
+            host=host,
+            port=port,
+            reuse_port=reuse_port,
+            name="eventserver",
+            ready_check=self._ready_reason,
+        )
+        # drain-time flush: force-fsync the group-commit coalescers so
+        # every acked event is durable before the process exits
+        self.app.add_shutdown_hook(self._drain_flush)
+
+    # -- auth --------------------------------------------------------------
+    def _auth(self, request: Request) -> AuthData | Response:
+        key = request.access_key
+        if not key:
+            return Response.error("Missing accessKey.", 401)
+        access_key: AccessKey | None = self.storage.get_metadata_access_keys().get(key)
+        if access_key is None:
+            return Response.error("Invalid accessKey.", 401)
+        channel_id: int | None = None
+        if "channel" in request.query:
+            channels = self.storage.get_metadata_channels().get_by_appid(
+                access_key.appid
+            )
+            match = [c for c in channels if c.name == request.query["channel"]]
+            if not match:
+                return Response.error("Invalid channel.", 401)
+            channel_id = match[0].id
+        return AuthData(access_key.appid, channel_id, access_key.events)
+
+    def _check_event_allowed(self, auth: AuthData, event_name: str) -> bool:
+        return not auth.events or event_name in auth.events
+
+    # -- event ingestion ---------------------------------------------------
+    def _prepare_one(
+        self, auth: AuthData, event_json: dict
+    ) -> Event | tuple[int, dict]:
+        """Plugins + parse + validate + allowlist for one event; returns
+        the Event ready to insert, or the (status, body) error — shared
+        by the single, batch, and webhook paths so semantics match."""
+        try:
+            for p in self.plugins:
+                if p.plugin_type == plugin_mod.INPUT_BLOCKER:
+                    event_json = p.process(event_json, self.plugin_context) or event_json
+                else:
+                    p.process(dict(event_json), self.plugin_context)
+            event = Event.from_dict(event_json)
+            validate(event)
+        except (EventValidationError, KeyError, TypeError, ValueError) as e:
+            return 400, {"message": str(e)}
+        if not self._check_event_allowed(auth, event.event):
+            return 403, {
+                "message": f"event {event.event} is not allowed by this access key"
+            }
+        return event
+
+    def _ingest_one(self, auth: AuthData, event_json: dict) -> tuple[int, dict]:
+        """Returns (status_code, body) per event."""
+        t0 = time.perf_counter()
+        prepared = self._prepare_one(auth, event_json)
+        t1 = time.perf_counter()
+        self._m_validate.observe(t1 - t0)
+        if not isinstance(prepared, Event):
+            self._m_rejected.inc()
+            return prepared
+        event_id = self.storage.get_events().insert(
+            prepared, auth.app_id, auth.channel_id
+        )
+        t2 = time.perf_counter()
+        self._m_append.observe(t2 - t1)
+        self._m_accepted.inc()
+        tr = obs_trace.current_trace()
+        if tr is not None:
+            tr.add_span("ingest.validate", t0, t1)
+            tr.add_span("ingest.append", t1, t2)
+        if self.stats_enabled:
+            self.stats.update(
+                auth.app_id, 201, prepared.event, prepared.entity_type
+            )
+        return 201, {"eventId": event_id}
+
+    def _ingest_batch(self, auth: AuthData, body: list) -> list[dict]:
+        """Bulk import: validate every item first, then write all valid
+        events with ONE ``batch_insert`` — one lock + append + fsync for
+        the request instead of up to MAX_BATCH_SIZE of each (the row log
+        is still written before any 201 is returned, so per-event
+        durability is exactly the single-insert path's). The response
+        keeps the reference's per-event status list, in request order."""
+        t0 = time.perf_counter()
+        results: list[dict | None] = [None] * len(body)
+        events: list[Event] = []
+        slots: list[int] = []
+        for i, item in enumerate(body):
+            if not isinstance(item, dict):
+                results[i] = {"status": 400, "message": "not a JSON object"}
+                continue
+            prepared = self._prepare_one(auth, item)
+            if isinstance(prepared, Event):
+                events.append(prepared)
+                slots.append(i)
+            else:
+                status, payload = prepared
+                results[i] = {"status": status, **payload}
+        t1 = time.perf_counter()
+        self._m_validate.observe(t1 - t0)
+        n_rejected = len(body) - len(events)
+        if n_rejected:
+            self._m_rejected.inc(n_rejected)
+        if events:
+            ids = self.storage.get_events().batch_insert(
+                events, auth.app_id, auth.channel_id
+            )
+            t2 = time.perf_counter()
+            self._m_group_commit.observe(t2 - t1)
+            self._m_accepted.inc(len(events))
+            tr = obs_trace.current_trace()
+            if tr is not None:
+                tr.add_span(f"ingest.validate[{len(body)}]", t0, t1)
+                tr.add_span(f"ingest.group_commit[{len(events)}]", t1, t2)
+            for i, event, event_id in zip(slots, events, ids):
+                results[i] = {"status": 201, "eventId": event_id}
+                if self.stats_enabled:
+                    self.stats.update(
+                        auth.app_id, 201, event.event, event.entity_type
+                    )
+        return results
+
+    # -- health/drain -------------------------------------------------------
+    def _ready_reason(self) -> str | None:
+        """Readiness gate: the event server is ready iff its events
+        backend answers (storage reachable)."""
+        try:
+            self.storage.get_events()
+        except Exception as exc:  # pragma: no cover - backend-specific
+            return f"storage unreachable: {exc}"
+        return None
+
+    def _drain_flush(self) -> None:
+        """Graceful-shutdown hook: force-fsync any group-commit backlog
+        so every acked event is durable before the process exits."""
+        try:
+            fn = getattr(self.storage.get_events(), "sync_commits", None)
+            if fn is not None:
+                fn()
+        except Exception:  # pragma: no cover - disk error at exit
+            logger.exception("drain-time event flush failed")
+
+    # -- wire-speed binary ingest -------------------------------------------
+    def _queue_depth(self) -> float:
+        """Group-commit backlog of the events backend (0.0 when the
+        backend has no coalescer, e.g. sqlite/memory)."""
+        try:
+            fn = getattr(self.storage.get_events(), "commit_backlog", None)
+            return float(fn()) if fn is not None else 0.0
+        except Exception:
+            return 0.0
+
+    def ingest_stats(self) -> dict[str, Any]:
+        """Backpressure block for ``/stats.json``."""
+        return {
+            "inflight_bytes": self._budget.in_flight,
+            "max_inflight_bytes": self._budget.max_bytes,
+            "utilization": round(self._budget.utilization(), 4),
+            "queue_depth": int(self._queue_depth()),
+            "shed_total": int(self._m_shed.value()),
+            "frames_total": int(self._m_frames.value()),
+            "batch_max_events": self.batch_max_events,
+        }
+
+    def _shed(self) -> Response:
+        self._m_shed.inc()
+        return Response(
+            status=429,
+            body={
+                "error": "IngestBackpressure",
+                "message": "in-flight ingest budget exhausted; retry",
+            },
+            headers={"Retry-After": "1"},
+        )
+
+    def _ingest_frames(self, auth: AuthData, stream) -> Response:
+        """Decode + validate + commit binary frames incrementally off the
+        request body. Each frame is all-or-nothing and durably committed
+        (one lock+append+fsync) before the next frame is read; a framing
+        or validation error rejects the REST of the request with 400 but
+        reports how many frames/events were already committed."""
+        allowed = frozenset(auth.events) if auth.events else None
+        events_dao = self.storage.get_events()
+        # the splice-through exit renders storage-format JSONL and skips
+        # the Event-object round trip; input-blocker plugins must see
+        # per-event dicts, so a plugin-loaded server takes the dict path
+        splice = getattr(events_dao, "append_jsonl", None)
+        stamp_iso = format_time(datetime.now(tz=timezone.utc), "us")
+        accepted = 0
+        frames = 0
+        t_start = time.perf_counter()
+        try:
+            for payload in frame_mod.read_frames(stream):
+                t0 = time.perf_counter()
+                batch = frame_mod.decode_frame(payload)
+                if self.plugins:
+                    events, _ = batch.to_events(allowed, stamp_iso)
+                    prepared: list[Event] = []
+                    for e in events:
+                        p = self._prepare_one(auth, e.to_dict(for_api=False))
+                        if not isinstance(p, Event):
+                            _status, payload = p
+                            raise frame_mod.FrameError(
+                                "InvalidEvent",
+                                payload.get("message", "rejected"),
+                            )
+                        prepared.append(p)
+                    if prepared:
+                        events_dao.batch_insert(
+                            prepared, auth.app_id, auth.channel_id
+                        )
+                    accepted += len(prepared)
+                    frames += 1
+                    self._m_accepted.inc(len(prepared))
+                    self._m_frames.inc()
+                    continue
+                if splice is not None:
+                    blob, _ids, _ = batch.render_jsonl(allowed, stamp_iso)
+                    t1 = time.perf_counter()
+                    self._m_validate.observe(t1 - t0)
+                    if blob:
+                        splice(blob, auth.app_id, auth.channel_id)
+                        self._m_group_commit.observe(time.perf_counter() - t1)
+                else:
+                    events, _ids = batch.to_events(allowed, stamp_iso)
+                    t1 = time.perf_counter()
+                    self._m_validate.observe(t1 - t0)
+                    if events:
+                        events_dao.batch_insert(
+                            events, auth.app_id, auth.channel_id
+                        )
+                        self._m_group_commit.observe(time.perf_counter() - t1)
+                accepted += batch.n
+                frames += 1
+                self._m_accepted.inc(batch.n)
+                self._m_frames.inc()
+                if self.stats_enabled:
+                    for ev, et in zip(
+                        batch.column_str(frame_mod.COL_EVENT),
+                        batch.column_str(frame_mod.COL_ENTITY_TYPE),
+                    ):
+                        self.stats.update(auth.app_id, 201, ev, et)
+        except frame_mod.FrameError as e:
+            self._m_rejected.inc()
+            return Response.json(
+                {
+                    "error": e.code,
+                    "message": str(e),
+                    "accepted": accepted,
+                    "frames": frames,
+                },
+                status=400,
+            )
+        # one span covering the whole framed body: with the client
+        # minting X-PIO-Trace (pio import --http / batch_insert HTTP
+        # paths), the stitched server-side trace carries the ingest
+        # stage alongside the request envelope
+        tr = obs_trace.current_trace()
+        if tr is not None:
+            tr.add_span(
+                f"ingest.frames[{frames}x{accepted}]",
+                t_start,
+                time.perf_counter(),
+            )
+        return Response.json({"accepted": accepted, "frames": frames})
+
+    # -- routes ------------------------------------------------------------
+    def _router(self) -> Router:
+        router = Router()
+        server = self
+
+        @router.route("GET", "/")
+        def welcome(request: Request) -> Response:
+            return Response.json({"status": "alive"})
+
+        @router.route("POST", "/events.json")
+        def create_event(request: Request) -> Response:
+            auth = server._auth(request)
+            if isinstance(auth, Response):
+                return auth
+            body = request.json()
+            if not isinstance(body, dict):
+                return Response.error("request body must be a JSON object", 400)
+            status, payload = server._ingest_one(auth, body)
+            return Response.json(payload, status=status)
+
+        @router.route("GET", "/events.json")
+        def find_events(request: Request) -> Response:
+            auth = server._auth(request)
+            if isinstance(auth, Response):
+                return auth
+            q = request.query
+            try:
+                limit = int(q.get("limit", 20))
+                events = server.storage.get_events().find(
+                    app_id=auth.app_id,
+                    channel_id=auth.channel_id,
+                    start_time=parse_time(q["startTime"]) if q.get("startTime") else None,
+                    until_time=parse_time(q["untilTime"]) if q.get("untilTime") else None,
+                    entity_type=q.get("entityType"),
+                    entity_id=q.get("entityId"),
+                    event_names=[q["event"]] if q.get("event") else None,
+                    target_entity_type=q.get("targetEntityType", ...),
+                    target_entity_id=q.get("targetEntityId", ...),
+                    limit=None if limit == -1 else limit,
+                    reversed_order=q.get("reversed") == "true",
+                )
+            except (EventValidationError, ValueError) as e:
+                return Response.error(str(e), 400)
+            if not events:
+                return Response.error("Not Found", 404)
+            return Response.json([e.to_dict() for e in events])
+
+        @router.route("GET", "/events/<event_id>.json")
+        def get_event(request: Request) -> Response:
+            auth = server._auth(request)
+            if isinstance(auth, Response):
+                return auth
+            event = server.storage.get_events().get(
+                request.path_params["event_id"], auth.app_id, auth.channel_id
+            )
+            if event is None:
+                return Response.error("Not Found", 404)
+            return Response.json(event.to_dict())
+
+        @router.route("DELETE", "/events/<event_id>.json")
+        def delete_event(request: Request) -> Response:
+            auth = server._auth(request)
+            if isinstance(auth, Response):
+                return auth
+            found = server.storage.get_events().delete(
+                request.path_params["event_id"], auth.app_id, auth.channel_id
+            )
+            if not found:
+                return Response.error("Not Found", 404)
+            return Response.json({"message": "Found"})
+
+        @router.route("POST", "/batch/events.json")
+        def batch_events(request: Request) -> Response:
+            auth = server._auth(request)
+            if isinstance(auth, Response):
+                return auth
+            body = request.json()
+            if not isinstance(body, list):
+                return Response.error("request body must be a JSON array", 400)
+            if len(body) > server.batch_max_events:
+                return Response.json(
+                    {
+                        "error": "BatchTooLarge",
+                        "message": (
+                            f"Batch request must have less than or equal "
+                            f"to {server.batch_max_events} events "
+                            f"(PIO_BATCH_MAX_EVENTS)"
+                        ),
+                    },
+                    status=413,
+                )
+            n_bytes = len(request.body)
+            if not server._budget.try_acquire(n_bytes):
+                return server._shed()
+            try:
+                return Response.json(server._ingest_batch(auth, body))
+            finally:
+                server._budget.release(n_bytes)
+
+        def batch_events_bin(request: Request) -> Response:
+            """Wire-speed framed binary batch ingest: frames decode
+            straight into the columnar group-commit path, streamed off
+            the socket (data/storage/frame.py). Backpressure: the
+            request's Content-Length must fit the in-flight budget or it
+            is shed with 429 BEFORE the body is read."""
+            auth = server._auth(request)
+            if isinstance(auth, Response):
+                return auth
+            stream = request.body_stream
+            total = stream.remaining if stream is not None else 0
+            if total <= 0:
+                return Response.json(
+                    {
+                        "error": "EmptyBody",
+                        "message": "framed binary body required "
+                                   "(Content-Length > 0)",
+                    },
+                    status=400,
+                )
+            if not server._budget.try_acquire(total):
+                return server._shed()
+            try:
+                return server._ingest_frames(auth, stream)
+            finally:
+                server._budget.release(total)
+
+        router.add_stream("POST", "/batch/events.bin", batch_events_bin)
+
+        @router.route("GET", "/stats.json")
+        def stats(request: Request) -> Response:
+            auth = server._auth(request)
+            if isinstance(auth, Response):
+                return auth
+            if not server.stats_enabled:
+                return Response.error(
+                    "To see stats, launch Event Server with --stats argument.", 404
+                )
+            payload = server.stats.get(auth.app_id)
+            # additive: existing consumers keep their fields untouched
+            payload["obs"] = obs_metrics.stats_block()
+            payload["device"] = obs_device.device_block()
+            payload["ingest"] = server.ingest_stats()
+            return Response.json(payload)
+
+        @router.route("GET", "/plugins.json")
+        def plugins_json(request: Request) -> Response:
+            """Loaded plugin inventory grouped by interception type
+            (reference EventServer.scala:156-177)."""
+            def group(ptype: str) -> dict:
+                return {
+                    p.plugin_name: {
+                        "name": p.plugin_name,
+                        "description": p.plugin_description,
+                        "class": type(p).__module__ + "." + type(p).__qualname__,
+                    }
+                    for p in server.plugins
+                    if p.plugin_type == ptype
+                }
+
+            return Response.json(
+                {
+                    "plugins": {
+                        "inputblockers": group(plugin_mod.INPUT_BLOCKER),
+                        "inputsniffers": group(plugin_mod.INPUT_SNIFFER),
+                    }
+                }
+            )
+
+        @router.route("GET", "/plugins/<ptype>/<name>")
+        @router.route("POST", "/plugins/<ptype>/<name>")
+        @router.route("GET", "/plugins/<ptype>/<name>/<rest:path>")
+        @router.route("POST", "/plugins/<ptype>/<name>/<rest:path>")
+        def plugin_rest(request: Request) -> Response:
+            """Dispatch ``/plugins/<type>/<name>/<args...>`` to the named
+            plugin's ``handle_rest`` behind access-key auth (reference
+            EventServer.scala:178-196 + PluginsActor.scala)."""
+            return server._plugin_rest(request)
+
+        @router.route("POST", "/webhooks/<name>.json")
+        def webhook_json(request: Request) -> Response:
+            return server._webhook(request, form=False)
+
+        @router.route("POST", "/webhooks/<name>.form")
+        def webhook_form(request: Request) -> Response:
+            return server._webhook(request, form=True)
+
+        @router.route("GET", "/webhooks/<name>.json")
+        def webhook_check_json(request: Request) -> Response:
+            return server._webhook_check(request, JsonConnector)
+
+        @router.route("GET", "/webhooks/<name>.form")
+        def webhook_check_form(request: Request) -> Response:
+            return server._webhook_check(request, FormConnector)
+
+        add_obs_routes(router)
+        return router
+
+    def _webhook(self, request: Request, form: bool) -> Response:
+        auth = self._auth(request)
+        if isinstance(auth, Response):
+            return auth
+        name = request.path_params["name"]
+        connector = self.connectors.get(name)
+        want = FormConnector if form else JsonConnector
+        if not isinstance(connector, want):
+            return Response.error(f"webhooks connection for {name} is not supported.", 404)
+        try:
+            data = request.form() if form else request.json()
+            if data is None:
+                return Response.error("empty payload", 400)
+            event_json = connector.to_event_json(data)
+            status, payload = self._ingest_one(auth, event_json)
+        except ConnectorError as e:
+            return Response.error(str(e), 400)
+        return Response.json(payload, status=status)
+
+    def _plugin_rest(self, request: Request) -> Response:
+        auth = self._auth(request)
+        if isinstance(auth, Response):
+            return auth
+        ptype = request.path_params["ptype"]
+        name = request.path_params["name"]
+        if ptype not in (plugin_mod.INPUT_BLOCKER, plugin_mod.INPUT_SNIFFER):
+            return Response.error(f"invalid plugin type {ptype}", 404)
+        for p in self.plugins:
+            if p.plugin_name == name and p.plugin_type == ptype:
+                # the reference hands handleREST the authenticated app +
+                # channel along with the path args; params carries them —
+                # ALWAYS overwritten from auth so a client can't spoof
+                # the authenticated context via query params
+                params = dict(request.query)
+                params["appId"] = str(auth.app_id)
+                params.pop("channelId", None)
+                if auth.channel_id is not None:
+                    params["channelId"] = str(auth.channel_id)
+                try:
+                    result = p.handle_rest(
+                        request.path_params.get("rest", ""), params
+                    )
+                except Exception as e:  # plugin bug must not kill the server
+                    logger.exception("plugin %s handle_rest failed", name)
+                    return Response.error(str(e), 500)
+                return Response.json(result)
+        return Response.error(f"plugin {name} not found", 404)
+
+    def _webhook_check(self, request: Request, want: type) -> Response:
+        auth = self._auth(request)
+        if isinstance(auth, Response):
+            return auth
+        name = request.path_params["name"]
+        if not isinstance(self.connectors.get(name), want):
+            return Response.error(f"webhooks connection for {name} is not supported.", 404)
+        return Response.json({"message": "Ok"})
+
+    # -- lifecycle ---------------------------------------------------------
+    def start(self, background: bool = True) -> int:
+        port = self.app.start(background=background)
+        logger.info("Event Server listening on %s:%d", self.app.host, port)
+        return port
+
+    def stop(self) -> None:
+        self.app.stop()
+
+
+def create_event_server(**kwargs) -> EventServer:
+    """Reference createEventServer (api/EventServer.scala:633)."""
+    return EventServer(**kwargs)

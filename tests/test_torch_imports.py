@@ -73,6 +73,10 @@ def test_port_imports_without_jax_or_the_jax_package():
         "ops.cosine_sim", "models.recommendeduser", "models.ecommerce",
         "core.checkpoint", "common.breaker", "realtime", "realtime.tailer",
         "realtime.foldin", "realtime.speed_layer",
+        "native", "data.storage.colspans", "data.storage.wire",
+        "data.storage.frame", "server.stats", "server.webhooks",
+        "server.webhooks.mailchimp", "server.webhooks.segmentio",
+        "server.event_server", "cli.commands",
     )} <= walked
 
 
@@ -120,3 +124,50 @@ def test_chip_smoke_refuses_to_run_without_cuda():
         text=True, timeout=120, cwd=ROOT,
     )
     assert proc.returncode != 0 and proc.stdout == ""
+
+
+_NATIVE_PROBE = r"""
+import importlib.abc, sys
+sys.modules["jax"] = None
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "predictionio_tpu" or name.startswith("predictionio_tpu."):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+sys.path.insert(0, sys.argv[1])
+from predictionio_tpu_torch import native
+line = b'{"event":"rate","entityType":"user","entityId":"u1","targetEntityType":"item","targetEntityId":"i1","properties":{"rating":4}}\n'
+(event,) = native.parse_events_jsonl(line)
+assert event.entity_id == "u1" and native.native_available()
+print(native.library_path())
+"""
+
+
+def test_native_codec_builds_into_the_port_and_writes_nothing_under_native(tmp_path):
+    """The port's binding compiles ``native/pio_native.cpp`` into
+    ``predictionio_tpu_torch/_build/`` and loads it from there; importing
+    it and decoding a buffer leaves ``native/`` as it was. Run on a copy
+    of the port beside a copy of the C++ source, so no other test's build
+    can touch the listing."""
+    shutil.copytree(PORT, tmp_path / "predictionio_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    (tmp_path / "native").mkdir()
+    shutil.copy(ROOT / "native" / "pio_native.cpp", tmp_path / "native")
+
+    def listing():
+        return sorted((p.name, p.stat().st_size, p.stat().st_mtime_ns)
+                      for p in (tmp_path / "native").iterdir())
+
+    before = listing()
+    proc = subprocess.run(
+        [sys.executable, "-c", _NATIVE_PROBE, str(tmp_path)],
+        capture_output=True, text=True, timeout=300, cwd=tmp_path,
+    )
+    assert proc.returncode == 0, proc.stderr
+    lib = Path(proc.stdout.strip())
+    assert lib.parent == tmp_path / "predictionio_tpu_torch" / "_build"
+    assert lib.name.startswith("libpio_native-") and lib.exists()
+    assert listing() == before
