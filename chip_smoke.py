@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases k2,k1,k1i,k1route,k2s,k2route,k4,k5,k6,k2cos,
-                                    serve,batchserve,lifecycle,ingest,simlife,templife,train,
-                                    ckpt,realtime,simtrain,templates,eval,retrieval,
-                                    times,k1times,simtimes,retimes]
+    python3 chip_smoke.py [--phases k2,k1,k1i,k1route,k2s,k2route,k6,k2cos,k4,k5,
+                                    times,retimes,serve,batchserve,lifecycle,ingest,
+                                    filelog,simlife,templife,train,ckpt,realtime,
+                                    simtrain,templates,eval,retrieval,k1times,simtimes]
 
 Run from the root of a checkout, on a machine with a CUDA card, ``nvcc``
 and PyTorch built for CUDA. It imports nothing of JAX and nothing of the
@@ -16,6 +16,12 @@ JAX package (``predictionio_tpu``). Phases:
    ``csrc/als_solve.cu`` (K1, K1s), ``csrc/ranking.cu`` (K3),
    ``csrc/retrieval.cu`` (K4, K5) and ``csrc/cosine_sim.cu`` (K6) with
    ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, started together;
+   the checks up to k2cos need none of ``csrc/retrieval.cu`` (the
+   longest build), which goes on building beside them; the first phase
+   after them waits for it (``build: the late sources``). The device-only
+   checks and re-timings up to retimes run beside the ingest
+   preparations; every later phase times host work and starts once they
+   are done;
 3. k2: K2 against its plain PyTorch version on the card at the ML-20M
    shape (U = 138,493 users, I = 26,744 items): D = 20 with every
    f32/bf16/int8 storage pair, D = 128 with each storage dtype, both at B
@@ -159,8 +165,8 @@ simtrain:
   the eval shape and one K1s iteration (against K1 alone x 4) beside
   their plain versions, yardsticks and bounds.
 
-The two-stage retrieval slice adds (k4 and k5 after k2route, retrieval
-after eval, retimes last):
+The two-stage retrieval slice adds (k4 and k5 after k2cos, retrieval
+after eval, retimes after times):
 
 - k4: K4 (``ops/retrieval.py coarse_topk``) on both of its routes (the
   warp route for k' <= 128, the stream route above, and the stream route
@@ -318,11 +324,13 @@ The ingest-front slice adds (ingest after lifecycle):
   their own, no device; the first phase that times host work waits for
   it):
   the ML-1M-shaped ratings (1,000,000 ``rate`` events) written as JSON
-  lines, ``app new ML1M`` (the access key from stdout), ``import`` with
-  ``version`` and ``status`` beside it (the native event codec must have
-  loaded, from ``predictionio_tpu_torch/_build/``), then ``export`` (as
-  many lines as events) with the imported ratings read back by
-  ``find_ratings`` beside it (equal to the generated ones as multisets).
+  lines, ``app new ML1M`` (the access key from stdout), ``import`` of the
+  first 500,000 (a Python row an event into sqlite; all of them outlast
+  the build) with ``version`` and ``status`` beside it (the native
+  event codec must have loaded, from ``predictionio_tpu_torch/_build/``),
+  then ``export`` (as many lines as events imported) with the imported
+  ratings read back by ``find_ratings`` beside it (equal to the generated
+  ones as multisets).
   Then ``eventserver --stats`` in a process of its own: 1,000 single
   ``POST /events.json``, 100 batches of 50, 20,000 events by
   ``import --http`` (binary frames), a Segment.io and a MailChimp
@@ -333,6 +341,38 @@ The ingest-front slice adds (ingest after lifecycle):
   ``undeploy``, which must close the server's port. It prints import
   and export events/s, each endpoint's events/s and the p50 of one
   ``POST /events.json`` beside the card's name and power limit.
+
+The file-log slice adds (filelog after ingest, on IngestPrep's file):
+
+- filelog: beside the build (``FilelogPrep``, once IngestPrep's file is
+  written; the first phase that times host work waits for it) ``app
+  new``, then ``import`` of the ML-1M file into a partitioned store (8
+  partitions, 4 MiB segments, ``--warm-cache``) and into a jsonl store,
+  both on the splice route (``import_events`` calls ``append_jsonl`` and
+  never ``insert``/``batch_insert``, checked in process on the first
+  10,000 lines), and ``export`` from both. In the phase: the ratings
+  read back by ``find_ratings`` and ``read_training`` equal to the
+  generated ones as multisets; ``read_training`` cold (no columnar cache)
+  and warm. ``train`` (rank 20, 10 iterations) on the partitioned store,
+  K1's count 10 x the buckets; one ``$set`` through the event server into
+  each partition without an active log (so every partition has one when
+  the tailer attaches; the store keeps one segment size throughout, and a
+  partition that seals while the new events arrive is counted);
+  ``deploy --realtime 0.5`` in a subprocess (files mode), 50 known users
+  against K2's plain version (K2's calls from its /metrics); the deploy
+  stops, the event server takes
+  200 new users x 20 ratings, 5 for each known user (the heaviest among
+  them), 20 of 10 unseen items and 100 ``$set`` lines as PIF1 frames, and
+  the deploy starts again on its cursor and folds them once: columnar +
+  fallback lines = lines posted, the fold's K1 launches (``/metrics``) =
+  one fold's grouped launches, every folded user's answer against K1's
+  fold plus the plain top-k; in this process ``fold_in_columnar`` against
+  ``fold`` on the same lines bit for bit, f32 and int8. Then
+  retrain-on-deploy: ``run_train`` with an algorithm that persists no
+  model, and the engine server's deploy trains (K1 2 x the buckets) and
+  answers against the plain version (K2 counted). It prints import and export
+  events/s, ``read_training`` seconds, the fold's seconds, K1 ms and
+  ``secondsBehind`` beside the card's name and power limit.
 
 Every phase prints its results and seconds; any failure makes the exit
 code 1 and suppresses the result lines. Without CUDA, or without the
@@ -352,6 +392,7 @@ import http.client
 import io
 import json
 import os
+import re
 import shutil
 import signal
 import socket
@@ -439,19 +480,59 @@ def environment(torch):
 
 
 KERNEL_SOURCES = ("topk", "als_solve", "ranking", "retrieval", "cosine_sim")
+#: the sources of the checks before k4 (EARLY_STEPS); the rest, the
+#: longest build among them, go on building beside those checks
+EARLY_SOURCES = ("topk", "als_solve", "ranking", "cosine_sim")
+EARLY_STEPS = ("k2", "k1", "k1i", "k1route", "k2s", "k2route", "k6", "k2cos")
+
+
+class LateBuild(threading.Thread):
+    """The kernel sources outside EARLY_SOURCES, built beside the early
+    checks. ``_build.load`` holds a lock a source, so a call that needs
+    one of them meanwhile waits for its build instead of starting
+    another."""
+
+    def __init__(self):
+        super().__init__(name="late-build", daemon=True)
+        self.names = [n for n in KERNEL_SOURCES if n not in EARLY_SOURCES]
+        self.error: str | None = None
+
+    def run(self):
+        from predictionio_tpu_torch.kernels import _build
+
+        try:
+            _build.load_all(self.names)
+        except Exception:
+            self.error = traceback.format_exc()
+
+
+def log_build(name: str) -> None:
+    from predictionio_tpu_torch.kernels import _build
+
+    info = _build.build_info[name]
+    log(f"built csrc/{name}.cu in {info['seconds']:.2f}s (cached={info['cached']})")
+    for ln in info["log"].splitlines():
+        if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
+            log("  ptxas: " + ln.strip())
 
 
 @phase("build")
-def build():
+def build(late: LateBuild):
     from predictionio_tpu_torch.kernels import _build
 
-    _build.load_all(KERNEL_SOURCES)  # one nvcc per source, started together
-    for name in KERNEL_SOURCES:
-        info = _build.build_info[name]
-        log(f"built csrc/{name}.cu in {info['seconds']:.2f}s (cached={info['cached']})")
-        for ln in info["log"].splitlines():
-            if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
-                log("  ptxas: " + ln.strip())
+    late.start()  # one nvcc per source, all started together
+    _build.load_all(EARLY_SOURCES)
+    for name in EARLY_SOURCES:
+        log_build(name)
+
+
+@phase("build: the late sources")
+def finish_build(late: LateBuild):
+    late.join()
+    if late.error:
+        raise AssertionError(late.error)
+    for name in late.names:
+        log_build(name)
 
 
 # -- inputs ------------------------------------------------------------------
@@ -1475,13 +1556,14 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def cli_env(basedir: str) -> dict:
+def cli_env(basedir: str, extra: dict | None = None) -> dict:
     """The environment of a ``cli.main`` process on the store under
-    ``basedir``."""
+    ``basedir``, with ``extra`` (``PIO_STORAGE_*`` sources) on top."""
     env = {k: v for k, v in os.environ.items() if not k.startswith("PIO_STORAGE_")}
     env.update(PIO_FS_BASEDIR=basedir, PIO_RUN_DIR=os.path.join(basedir, "run"),
                PYTHONPATH=os.pathsep.join(
                    p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    env.update(extra or {})
     return env
 
 
@@ -1502,8 +1584,7 @@ class DeployProcess:
         ``basedir/NAME.log``; returns once ``/readyz`` answers 200."""
         self.port = free_port()
         self.log_path = os.path.join(basedir, f"{name}.log")
-        env = cli_env(basedir)
-        env.update(env_extra or {})
+        env = cli_env(basedir, env_extra)
         cmd = [sys.executable, "-m", "predictionio_tpu_torch.cli.main", *args,
                "--ip", "127.0.0.1", "--port", str(self.port)]
         self._log = open(self.log_path, "w")
@@ -2019,9 +2100,9 @@ def plain_iteration(torch, data, params, device):
 
 
 @contextlib.contextmanager
-def storage_env(basedir: str):
-    """The PIO_* environment of a store under ``basedir``, as the CLI
-    reads it, restored afterwards."""
+def storage_env(basedir: str, extra: dict | None = None):
+    """The PIO_* environment of a store under ``basedir`` (with ``extra``
+    sources), as the CLI reads it, restored afterwards."""
     from predictionio_tpu_torch.data import storage as st
 
     saved = {k: v for k, v in os.environ.items()
@@ -2029,12 +2110,15 @@ def storage_env(basedir: str):
     for k in saved:
         del os.environ[k]
     os.environ["PIO_FS_BASEDIR"] = basedir
+    os.environ.update(extra or {})
     st.set_storage(None)
     try:
         yield
     finally:
         st.get_storage().close()
         st.set_storage(None)
+        for k in [k for k in os.environ if k.startswith("PIO_STORAGE_")]:
+            del os.environ[k]
         os.environ.pop("PIO_FS_BASEDIR", None)
         os.environ.update(saved)
 
@@ -2137,6 +2221,10 @@ INGEST_SINGLE = 1_000  # POST /events.json, one event a request
 INGEST_BATCHES = 100  # POST /batch/events.json of INGEST_BATCH events
 INGEST_BATCH = 50
 INGEST_HTTP = 20_000  # events through import --http (/batch/events.bin)
+#: the ML-1M file's first events go into sqlite: a Python row an event,
+#: the whole file (with the filelog phase's imports beside it) outlasts
+#: the build and the first checks by up to 90 s
+INGEST_SQLITE = 500_000
 INGEST_RANK = 20
 INGEST_ITERATIONS = 10
 INGEST_TIME = "2020-01-01T00:00:00.000Z"
@@ -2151,13 +2239,15 @@ def rate_lines(rows, cols, vals) -> str:
         for r, c, v in zip(rows.tolist(), cols.tolist(), vals.tolist()))
 
 
-def cli_run(basedir: str, *args, timeout: float = 900) -> tuple[str, float]:
+def cli_run(basedir: str, *args, timeout: float = 900,
+            env: dict | None = None) -> tuple[str, float]:
     """``python -m predictionio_tpu_torch.cli.main ARGS`` in a process of
-    its own: (stdout, wall seconds, interpreter start included)."""
+    its own (``env``: extra storage sources): (stdout, wall seconds,
+    interpreter start included)."""
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "predictionio_tpu_torch.cli.main", *args],
-        cwd=ROOT, env=cli_env(basedir), capture_output=True, text=True,
+        cwd=ROOT, env=cli_env(basedir, env), capture_output=True, text=True,
         timeout=timeout)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
@@ -2168,21 +2258,26 @@ def cli_run(basedir: str, *args, timeout: float = 900) -> tuple[str, float]:
 
 #: phases that may run while IngestPrep imports: checks against the plain
 #: versions, whose times (where they print any) are device times
-BESIDE_PREP = ("k2", "k1", "k1i", "k1route", "k2s", "k2route", "k4", "k5", "k6", "k2cos")
+BESIDE_PREP = EARLY_STEPS + ("k4", "k5", "times", "retimes")
 
 
 class IngestPrep(threading.Thread):
     """The ingest phase's host-only start, run beside the kernels' build
     and the checks of BESIDE_PREP (it touches no device; the first other
     phase waits for it): the ML-1M-shaped ratings as a JSON-lines
-    file, then ``cli.main`` processes on a fresh sqlite store -- ``app
-    new ML1M`` (the access key from stdout), ``import`` with ``version``
+    file (kept for the filelog phase), then ``cli.main`` processes on a
+    fresh sqlite store -- ``app new ML1M`` (the access key from stdout),
+    ``import`` of the file's first INGEST_SQLITE events with ``version``
     and ``status`` (which event codec runs) beside it, then ``export``
     with the imported ratings read back by ``find_ratings`` beside it."""
 
     def __init__(self):
         super().__init__(name="ingest-prep", daemon=True)
         self.basedir = tempfile.mkdtemp(prefix="pio_chip_smoke_ingest_")
+        # the ML-1M file, kept for the filelog phase; main() removes it
+        self.datadir = tempfile.mkdtemp(prefix="pio_chip_smoke_ml1m_")
+        self.data_path = os.path.join(self.datadir, "ml1m.jsonl")
+        self.file_written = threading.Event()  # set once data_path is whole
         self.out: dict = {}
         self.error: str | None = None
         self.started = self.done = 0.0
@@ -2193,6 +2288,7 @@ class IngestPrep(threading.Thread):
             self.out = self.prep()
         except Exception:
             self.error = traceback.format_exc()
+        self.file_written.set()  # also on failure: no waiter hangs
         self.done = time.perf_counter()
 
     def prep(self) -> dict:
@@ -2200,13 +2296,21 @@ class IngestPrep(threading.Thread):
         from predictionio_tpu_torch.data.storage import Storage
 
         rows, cols, vals, nu, ni = make_ml_shaped("1m")
-        path = os.path.join(self.basedir, "ml1m.jsonl")
+        path = self.data_path
         t0 = time.perf_counter()
         with open(path, "w") as f:
             for lo in range(0, len(vals), 100_000):
                 f.write(rate_lines(rows[lo:lo + 100_000], cols[lo:lo + 100_000],
                                    vals[lo:lo + 100_000]))
         write_s = time.perf_counter() - t0
+        self.out = {"rows": rows, "cols": cols, "vals": vals, "num_users": nu,
+                    "num_items": ni}
+        self.file_written.set()
+        n = min(INGEST_SQLITE, len(vals))
+        rows, cols, vals = rows[:n], cols[:n], vals[:n]
+        path = os.path.join(self.basedir, "ml1m_head.jsonl")
+        with open(self.data_path) as src, open(path, "w") as dst:
+            dst.writelines(line for _, line in zip(range(n), src))
         out, _ = cli_run(self.basedir, "app", "new", "ML1M")
         key = next(ln.split(":", 1)[1].strip() for ln in out.splitlines()
                    if ln.startswith("Access Key:"))
@@ -2241,8 +2345,7 @@ class IngestPrep(threading.Thread):
             exported = sum(1 for _ in f)
         os.unlink(export)
         os.unlink(path)
-        return {"rows": rows, "cols": cols, "vals": vals, "num_users": nu,
-                "num_items": ni, "key": key, "codec": codec,
+        return {**self.out, "imported": n, "key": key, "codec": codec,
                 "version": version.strip(), "write_s": write_s, "import_s": import_s,
                 "export_s": export_s, "exported": exported,
                 "export_printed": out.strip(), "imported_equal": imported_equal}
@@ -2259,8 +2362,8 @@ class EventServerProcess(DeployProcess):
     """``cli.main eventserver --stats`` on the store under ``basedir``, in
     a process of its own, ready once ``/readyz`` answers 200."""
 
-    def __init__(self, basedir: str):
-        self._spawn(basedir, ["eventserver", "--stats"], "eventserver")
+    def __init__(self, basedir: str, env_extra: dict | None = None):
+        self._spawn(basedir, ["eventserver", "--stats"], "eventserver", env_extra)
 
 
 def http_json(conn, method: str, path: str, body=None, ctype="application/json"):
@@ -2319,9 +2422,10 @@ def event_server_drive(es, key: str, rng, nu: int, ni: int) -> dict:
     n = INGEST_BATCHES * INGEST_BATCH
     out["batch_json"] = {"events": n, "requests": INGEST_BATCHES, "wall_s": wall,
                          "events_per_s": n / wall}
+    framed = events(INGEST_HTTP)
     path = os.path.join(tempfile.mkdtemp(prefix="pio_chip_smoke_bin_"), "http.jsonl")
     with open(path, "w") as f:
-        f.writelines(json.dumps(e) + "\n" for e in events(INGEST_HTTP))
+        f.writelines(json.dumps(e) + "\n" for e in framed)
     printed = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(printed):
@@ -2376,6 +2480,9 @@ def event_server_drive(es, key: str, rng, nu: int, ni: int) -> dict:
         raise AssertionError(f"the event server initialised CUDA: {st['device']}")
     out["stats"] = {"eventCount": counts, "frames_total": st["ingest"]["frames_total"]}
     out["stored_rates"] = rates - 1  # one deleted
+    # the users of the stored ratings (the deleted one, singles[0], aside)
+    out["users"] = {int(e["entityId"][1:]) for e in singles[1:] + framed
+                    + [e for b in batches for e in b]}
     return out
 
 
@@ -2383,8 +2490,9 @@ def event_server_drive(es, key: str, rng, nu: int, ni: int) -> dict:
        "undeploy (ML-1M shape, CLI, sqlite)")
 def ingest(torch, device, stats, prep: IngestPrep):
     """The quickstart through the port's CLI on a sqlite store: ``app
-    new``, ``import`` and ``export`` of the ML-1M-shaped ratings (run
-    beside the build by IngestPrep; the native codec must have loaded;
+    new``, ``import`` and ``export`` of the first INGEST_SQLITE
+    ML-1M-shaped ratings (run beside the build by IngestPrep; the native
+    codec must have loaded;
     the imported ratings, read back by ``find_ratings``, equal to the
     generated ones as multisets);
     then ``eventserver --stats`` in a process of its own, driven by
@@ -2392,7 +2500,8 @@ def ingest(torch, device, stats, prep: IngestPrep):
     delete, its /stats.json counts checked; then ``train`` (rank 20, 10
     iterations) and ``deploy`` in this process with K1's and K2's counts
     reset before and read after, queries against K2's plain version, and
-    ``undeploy``, which must stop the server."""
+    ``undeploy``, which must stop the server. The model must hold every
+    user with a stored rating."""
     from predictionio_tpu_torch import native
     from predictionio_tpu_torch.cli import main as cli
     from predictionio_tpu_torch.data import store
@@ -2411,7 +2520,7 @@ def ingest(torch, device, stats, prep: IngestPrep):
                              f"{p['codec']}, this process {lib}")
     if not str(lib).startswith(os.path.join(ROOT, "predictionio_tpu_torch", "_build")):
         raise AssertionError(f"the native codec loaded from {lib}")
-    n = len(p["vals"])
+    n = p["imported"]
     if not p["imported_equal"]:
         raise AssertionError("the imported ratings differ from the generated ones")
     if p["exported"] != n or p["export_printed"] != (
@@ -2448,8 +2557,10 @@ def ingest(torch, device, stats, prep: IngestPrep):
             server.warmup()
             port = server.start(background=True)
             model = server.models[0]
-            if len(model.user_index) != p["num_users"]:
-                raise AssertionError(f"{len(model.user_index)} users trained")
+            users = set(p["rows"][:n].tolist()) | drive["users"]
+            if len(model.user_index) != len(users):
+                raise AssertionError(f"{len(model.user_index)} users trained, "
+                                     f"{len(users)} rated")
             conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
             queries = [{"user": "u0", "num": 4}, {"user": "u17", "num": 10},
                        {"user": "u6039", "num": 1}, {"user": "nobody", "num": 4}]
@@ -2496,6 +2607,546 @@ def ingest(torch, device, stats, prep: IngestPrep):
         "k1_launches": k1, "k2_launches": k2, "k2_kernel_launches": k2_kernels,
     }
     log(json.dumps({"ingest": "ml1m sqlite", **stats["ingest"]}))
+
+
+# -- phase: the file-log stores -------------------------------------------------------
+
+FILELOG_PARTITIONS = 8  # the partitioned store's default
+FILELOG_SEGMENT = 4 << 20  # so that every partition seals segments at import
+FILELOG_SPLICE_LINES = 10_000  # the in-process splice-route check
+FILELOG_SETS = 100  # $set lines among the new events: the object parser's
+FILELOG_RETRAIN_ITERATIONS = 2
+
+
+def filelog_env(basedir: str, kind: str) -> dict:
+    """``PIO_STORAGE_*`` of a store under ``basedir`` whose events live in
+    a ``kind`` (jsonl or partitioned) source, apps in sqlite and models in
+    localfs (the repositories bind to them by capability)."""
+    env = {"PIO_STORAGE_SOURCES_DB_TYPE": "sqlite",
+           "PIO_STORAGE_SOURCES_DB_PATH": os.path.join(basedir, "pio.db"),
+           "PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
+           "PIO_STORAGE_SOURCES_FS_PATH": os.path.join(basedir, "models"),
+           "PIO_STORAGE_SOURCES_LOG_TYPE": kind,
+           "PIO_STORAGE_SOURCES_LOG_PATH": os.path.join(basedir, kind)}
+    if kind == "partitioned":
+        env["PIO_STORAGE_SOURCES_LOG_PARTITIONS"] = str(FILELOG_PARTITIONS)
+        env["PIO_STORAGE_SOURCES_LOG_SEGMENT_BYTES"] = str(FILELOG_SEGMENT)
+    return env
+
+
+def ratings_equal(user_ids, item_ids, r, c, v, rows, cols, vals) -> bool:
+    """Dense-indexed ratings of ``u<n>`` / ``i<n>`` ids against the
+    generated triples, as multisets."""
+    users = np.asarray([int(u[1:]) for u in user_ids])[r]
+    items = np.asarray([int(i[1:]) for i in item_ids])[c]
+    return np.array_equal(ingest_triples(users, items, v),
+                          ingest_triples(rows, cols, vals))
+
+
+def sealed_segments(basedir: str) -> dict:
+    """Sealed ``seg_*.jsonl`` files per partition directory under
+    ``basedir``."""
+    out: dict = {}
+    for d, _, files in os.walk(basedir):
+        if re.fullmatch(r"p[0-9a-f]{2}", os.path.basename(d)):
+            out[d] = sum(1 for f in files if f.startswith("seg_") and f.endswith(".jsonl"))
+    return out
+
+
+def splice_route_check(kind: str, path: str) -> dict:
+    """``cli/commands.py import_events`` of the file's first
+    FILELOG_SPLICE_LINES lines into a fresh ``kind`` store, in this
+    process: the store's ``append_jsonl`` takes every line, and
+    ``insert`` / ``batch_insert`` are never called."""
+    from predictionio_tpu_torch.cli import commands
+    from predictionio_tpu_torch.data.storage import App, Storage
+
+    basedir = tempfile.mkdtemp(prefix="pio_chip_smoke_splice_")
+    small = os.path.join(basedir, "head.jsonl")
+    with open(path) as src, open(small, "w") as dst:
+        for _, line in zip(range(FILELOG_SPLICE_LINES), src):
+            dst.write(line)
+    storage = Storage(env=filelog_env(basedir, kind))
+    cls = type(storage.get_events())
+    splice = cls.append_jsonl
+    calls = {"append_jsonl": 0, "lines": 0}
+
+    def counted(self, blob, *a, **kw):
+        calls["append_jsonl"] += 1
+        calls["lines"] += blob.count(b"\n")
+        return splice(self, blob, *a, **kw)
+
+    def refused(self, *a, **kw):
+        raise AssertionError(f"{kind}: import took the Event path")
+
+    saved = {name: cls.__dict__[name] for name in ("append_jsonl", "insert", "batch_insert")}
+    try:
+        storage.get_metadata_apps().insert(App(0, "Head"))
+        cls.append_jsonl, cls.insert, cls.batch_insert = counted, refused, refused
+        n = commands.import_events("Head", small, storage=storage)
+    finally:
+        for name, fn in saved.items():
+            setattr(cls, name, fn)
+        storage.close()
+        shutil.rmtree(basedir, ignore_errors=True)
+    if n != FILELOG_SPLICE_LINES or calls["lines"] != n or not calls["append_jsonl"]:
+        raise AssertionError(f"{kind}: splice check {n} imported, {calls}")
+    return calls
+
+
+def filelog_new_events(rng, nu: int, ni: int, known: list) -> list:
+    """The fold's events as event-server dicts: RT_NEW_USERS new users x
+    RT_NEW_RATINGS ratings, 5 for each of ``known``, 2 x RT_COLD of
+    unseen items, and FILELOG_SETS ``$set`` lines (the object parser's)."""
+    out = []
+
+    def rate(u, i, v):
+        out.append({"event": "rate", "entityType": "user", "entityId": u,
+                    "targetEntityType": "item", "targetEntityId": i,
+                    "properties": {"rating": float(v)}})
+
+    for j in range(RT_NEW_USERS):
+        for i in rng.choice(ni, size=RT_NEW_RATINGS, replace=False):
+            rate(f"new{j}", f"i{int(i)}", rng.integers(1, 6))
+    for u in known:
+        for i in rng.choice(ni, size=5, replace=False):
+            rate(f"u{u}", f"i{int(i)}", rng.integers(1, 6))
+    for c in range(RT_COLD):
+        rate(f"new{c}", f"cold{c}", 5)
+        rate(f"u{known[c]}", f"cold{c}", 4)
+    for j in range(FILELOG_SETS):
+        out.append({"event": "$set", "entityType": "item", "entityId": f"i{j}",
+                    "properties": {"genre": f"g{j % 7}", "year": 1990 + j % 30}})
+    return out
+
+
+def post_frames(es, key: str, events: list) -> None:
+    """``events`` as PIF1 frames on the event server's
+    ``/batch/events.bin`` (the splice route on a file-log store)."""
+    from predictionio_tpu_torch.data.storage import frame
+
+    status, raw = es.request("POST", f"/batch/events.bin?accessKey={key}",
+                             frame.encode_body(events))
+    if status != 200 or json.loads(raw)["accepted"] != len(events):
+        raise AssertionError(f"/batch/events.bin answered {status}: {raw[:300]!r}")
+
+
+class FindOnce:
+    """An Events DAO whose ``find`` answers each distinct call once: the
+    phase's in-process folds re-read the same unchanged store, and a
+    partitioned store replays every partition for each read."""
+
+    def __init__(self, events):
+        self._events = events
+        self._found: dict = {}
+
+    def __getattr__(self, name):
+        return getattr(self._events, name)
+
+    def find(self, *args, **kwargs):
+        key = repr((args, sorted(kwargs.items())))
+        if key not in self._found:
+            self._found[key] = self._events.find(*args, **kwargs)
+        return list(self._found[key])
+
+
+def columnar_vs_object(torch, device, events, app_id: int, model, t_col, t_obj) -> dict:
+    """The tailed batch two ways, on the card: ``fold_in_columnar`` on the
+    columnar tailer's poll and ``fold`` on the object tailer's Event
+    objects of the same lines give bit-identical patched user tables (and
+    int8 scales), for f32 and int8 storage. Returns (the summary, the
+    Event objects)."""
+    from predictionio_tpu_torch.models import recommendation as rec
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.realtime import ALSFoldIn, FoldInConfig
+
+    batch = t_col.poll_columnar(limit=10**6)
+    objs = t_obj.poll(limit=10**6)
+    arrays = sum(s.n_rows for s in batch.segments if not isinstance(s, list))
+    if not arrays or batch.n_events != len(objs):
+        raise AssertionError(f"columnar poll: {arrays} array rows of {batch.n_events}, "
+                             f"object poll {len(objs)} events")
+    uids = list(model.user_index.keys())  # dense: index = position
+    iids = list(model.item_index.keys())
+    q_u, s_u = als.quantize_rows(torch.from_numpy(np.array(model.user_factors)))
+    q_v, s_v = als.quantize_rows(torch.from_numpy(np.array(model.item_factors)))
+    forms = {"float32": model, "int8": rec.model_from_numpy(
+        uids, iids, q_u.numpy(), q_v.numpy(), s_u.numpy(), s_v.numpy())}
+    cfg = FoldInConfig(override_ratings={"buy": 4.0}, reg=TRAIN_REG)
+    out = {"array_rows": arrays, "events": len(objs)}
+    for name, m in forms.items():
+        a, sa = ALSFoldIn(events, app_id, config=cfg, device=device).fold_in_columnar(m, batch)
+        b, sb = ALSFoldIn(events, app_id, config=cfg, device=device).fold(m, objs)
+        if a is None or b is None or a.user_index != b.user_index:
+            raise AssertionError(f"{name}: the two folds patched different users")
+        for attr in ("user_factors", "user_scales"):
+            x, y = getattr(a, attr), getattr(b, attr)
+            if (x is None) != (y is None) or (x is not None and not np.array_equal(
+                    np.asarray(x).view(np.uint8), np.asarray(y).view(np.uint8))):
+                raise AssertionError(f"{name}: {attr} of the columnar fold differs "
+                                     "from the object fold's")
+        if (sa.users_touched, sa.users_added, sa.rating_events) != (
+                sb.users_touched, sb.users_added, sb.rating_events):
+            raise AssertionError(f"{name}: fold stats {sa} vs {sb}")
+        out[name] = {"users_touched": sa.users_touched, "users_added": sa.users_added,
+                     "bit_identical": True}
+    return out, objs
+
+
+class FilelogPrep(threading.Thread):
+    """The filelog phase's host-only start, beside the build like
+    IngestPrep (it touches no device; the first phase that times host
+    work waits for it): once IngestPrep's ML-1M file is written, per
+    store (partitioned, then jsonl) ``app new`` (the access key from
+    stdout), ``import`` (``--warm-cache`` on the partitioned store) and
+    ``export`` as ``cli.main`` processes of their own, and the splice-route
+    check in this process."""
+
+    def __init__(self, ingest: IngestPrep):
+        super().__init__(name="filelog-prep", daemon=True)
+        self.ingest = ingest
+        self.dirs = {kind: tempfile.mkdtemp(prefix=f"pio_chip_smoke_{kind}_")
+                     for kind in ("partitioned", "jsonl")}
+        self.out: dict = {}
+        self.error: str | None = None
+        self.started = self.done = 0.0
+
+    def run(self):
+        self.started = time.perf_counter()
+        try:
+            self.out = self.prep()
+        except Exception:
+            self.error = traceback.format_exc()
+        self.done = time.perf_counter()
+
+    def prep(self) -> dict:
+        self.ingest.file_written.wait()
+        if "vals" not in self.ingest.out:
+            raise AssertionError(f"no ML-1M file: {self.ingest.error}")
+        n, path = len(self.ingest.out["vals"]), self.ingest.data_path
+        out: dict = {"keys": {}}
+        for kind, basedir in self.dirs.items():
+            env = filelog_env(basedir, kind)
+            o, _ = cli_run(basedir, "app", "new", "ML1M", env=env)
+            out["keys"][kind] = next(ln.split(":", 1)[1].strip() for ln in o.splitlines()
+                                     if ln.startswith("Access Key:"))
+            flags = ["--warm-cache"] if kind == "partitioned" else []
+            o, import_s = cli_run(basedir, "import", "--appid-or-name", "ML1M",
+                                  "--input", path, *flags, env=env)
+            if f"Imported {n} events." not in o or (
+                    flags and f"Columnar cache warmed ({n} rating rows)." not in o):
+                raise AssertionError(f"{kind} import printed {o!r}")
+            export = os.path.join(basedir, "export.jsonl")
+            o, export_s = cli_run(basedir, "export", "--appid-or-name", "ML1M",
+                                  "--output", export, env=env)
+            with open(export, "rb") as f:
+                exported = sum(1 for _ in f)
+            os.unlink(export)
+            if exported != n:
+                raise AssertionError(f"{kind} export wrote {exported} lines: {o!r}")
+            out[kind] = {"import_s": import_s, "import_events_per_s": n / import_s,
+                         "export_s": export_s, "export_events_per_s": n / export_s,
+                         "splice": splice_route_check(kind, path)}
+        return out
+
+
+@phase("filelog: import --warm-cache -> export -> train -> deploy --realtime -> "
+       "columnar fold on K1 -> retrain-on-deploy (ML-1M shape, partitioned + jsonl)")
+def filelog(torch, device, stats, prep: IngestPrep, fprep: FilelogPrep):
+    """The file-log stores on IngestPrep's ML-1M file. (1) FilelogPrep's
+    ``app new``, ``import`` into a partitioned store (8 partitions, 4 MiB
+    segments, ``--warm-cache``) and into a jsonl store, both on the splice
+    route (checked in process on the file's first 10,000 lines), and
+    ``export`` from both, beside the build; here every partition must have
+    sealed segments, the ratings read back by ``find_ratings`` and by
+    ``read_training`` must equal the generated ones as multisets, and
+    ``read_training`` is timed cold (no columnar cache) and warm. (2)
+    ``train`` (rank 20, 10 iterations) on the partitioned store with K1's
+    count reset before and read after (10 x the buckets), ``deploy
+    --realtime 0.5`` in a subprocess (files mode), 50 known users' answers
+    against K2's plain version. (3) The deploy stops (its cursor flushed);
+    an event server in its own process takes the new events as PIF1
+    frames on ``/batch/events.bin`` (the splice route); the deploy starts
+    again on the same cursor, so its first poll tails every new line and
+    folds once (a partition that sealed meanwhile is fresh lineage, whose
+    re-read may take more polls, a fold each): every posted line tailed
+    once, the fold's K1 launches, columnar and fallback line counts and
+    fold seconds from its ``/metrics``, every new and touched user's
+    answer against K1's fold plus the plain top-k; meanwhile, in this
+    process, ``fold_in_columnar`` against ``fold`` on the same lines, bit
+    for bit, f32 and int8. (4) ``run_train`` with an algorithm that persists no
+    model (a ``retrain`` entry), then the engine server, whose deploy
+    trains (K1 2 x the buckets), answering against the plain version."""
+    from predictionio_tpu_torch import native
+    from predictionio_tpu_torch.cli import main as cli
+    from predictionio_tpu_torch.core.context import WorkflowContext
+    from predictionio_tpu_torch.core.workflow import prepare_deploy, run_train
+    from predictionio_tpu_torch.data import store
+    from predictionio_tpu_torch.data import storage as st
+    from predictionio_tpu_torch.data.storage import colspans
+    from predictionio_tpu_torch.models import recommendation as rec
+    from predictionio_tpu_torch.ops import als, topk
+    from predictionio_tpu_torch.realtime import EventTailer, FoldInConfig
+    from predictionio_tpu_torch.realtime import foldin as foldin_mod
+    from predictionio_tpu_torch.server.engine_server import EngineServer
+
+    if not native.native_available():
+        raise AssertionError("the native event codec did not load")
+    fprep.join(timeout=900)
+    if fprep.is_alive() or fprep.error:
+        raise AssertionError(f"filelog preparation: {fprep.error or 'not finished'}")
+    rows, cols, vals = prep.out["rows"], prep.out["cols"], prep.out["vals"]
+    nu, ni, n = prep.out["num_users"], prep.out["num_items"], len(prep.out["vals"])
+    out: dict = {"card": stats.get("smi"), "events": n,
+                 "prep_s": fprep.done - fprep.started,
+                 "prep_done_after_build_s": fprep.done - stats.get("build_done", fprep.done)}
+    dirs, keys = fprep.dirs, fprep.out["keys"]
+    part, part_env = dirs["partitioned"], filelog_env(dirs["partitioned"], "partitioned")
+    server = es = None
+    try:
+        # (1) the stores, built by FilelogPrep
+        for kind, basedir in dirs.items():
+            env = filelog_env(basedir, kind)
+            warmed = kind == "partitioned"  # import --warm-cache built its cache
+            out[kind] = dict(fprep.out[kind])
+            with storage_env(basedir, env):
+                ds = rec.RecommendationDataSource(rec.DataSourceParams(app_name="ML1M"))
+                # cold: the row logs (train --no-columnar-cache); warm: the
+                # column blocks, which import --warm-cache built on the
+                # partitioned store and the first cached read ("first", a
+                # miss) builds on the jsonl one; the file cache is warm
+                reads = ("cold", "warm") if warmed else ("cold", "first", "warm")
+                for cache in reads:
+                    os.environ["PIO_COLUMNAR_CACHE"] = "0" if cache == "cold" else "1"
+                    t0 = time.perf_counter()
+                    td = ds.read_training(None)
+                    out[kind][f"read_training_{cache}_s"] = time.perf_counter() - t0
+                    b = store.find_ratings("ML1M", event_names=["rate"])
+                    if not (ratings_equal(b.entity_ids, b.target_ids, b.rows, b.cols, b.vals,
+                                          rows, cols, vals)
+                            and ratings_equal(td.user_ids, td.item_ids, td.rows, td.cols,
+                                              td.ratings, rows, cols, vals)):
+                        raise AssertionError(f"{kind} ({cache}): ratings read back differ")
+                os.environ.pop("PIO_COLUMNAR_CACHE")
+        segs = sealed_segments(part)
+        if len(segs) != FILELOG_PARTITIONS or min(segs.values()) < 1:
+            raise AssertionError(f"sealed segments per partition: {segs}")
+        out["partitioned"]["sealed_segments"] = sum(segs.values())
+
+        # (2) train and deploy on the partitioned store
+        variant = os.path.join(part, "engine.json")
+        with open(variant, "w") as f:
+            json.dump({"id": "chip-smoke-filelog", "engineFactory": REC_FACTORY,
+                       "datasource": {"params": {"appName": "ML1M"}},
+                       "algorithms": [{"name": "als", "params": {
+                           "rank": INGEST_RANK, "numIterations": INGEST_ITERATIONS,
+                           "lambda": TRAIN_REG, "seed": 3}}]}, f)
+        per_iter = k1_launches_per_iteration(
+            als.build_ratings_data(rows, cols, vals, nu, ni), INGEST_RANK)
+        with storage_env(part, part_env):
+            als.solve_bucket.launches.reset()  # the main path starts here
+            t0 = time.perf_counter()
+            if cli.main(["train", "--variant", variant]) != 0:
+                raise AssertionError("cli train failed")
+            out["train_s"] = time.perf_counter() - t0
+            out["train_k1_launches"] = als.solve_bucket.launches.value
+            if out["train_k1_launches"] != INGEST_ITERATIONS * per_iter:
+                raise AssertionError(f"train: K1 launched {out['train_k1_launches']}, "
+                                     f"expected {INGEST_ITERATIONS} x {per_iter}")
+            storage = st.get_storage()
+            inst = storage.get_metadata_engine_instances().get_latest_completed(
+                "chip-smoke-filelog", "0", "engine.json")
+            model = prepare_deploy(rec.engine(), inst, storage,
+                                   WorkflowContext(device=device))[2][0]
+            app_id = store.app_name_to_id("ML1M", None, storage)[0]
+            events = storage.get_events()
+            cursor = os.path.join(part, "cursor.json")
+            flags = ["--realtime", str(RT_INTERVAL), "--realtime-cursor", cursor]
+            # one $set line a partition, by an id that embeds it, before the
+            # deploy attaches: a log that did not exist at attach is fresh
+            # lineage to the tailer (the object path, as the JAX tailer does
+            # after a seal), so every partition gets an active log first; a
+            # line that seals its partition leaves none, and a second one
+            # starts the partition's next active log
+            es = EventServerProcess(part, part_env)
+
+            def without_active():
+                have = {os.path.basename(str(f.parent)) for f in events.tail_files(app_id)
+                        if f.name == "active.jsonl" and f.exists()}
+                return [pp for pp in range(FILELOG_PARTITIONS) if f"p{pp:02x}" not in have]
+
+            for attempt in range(3):
+                missing = without_active()
+                if not missing:
+                    break
+                post_frames(es, keys["partitioned"], [
+                    {"event": "$set", "entityType": "item", "entityId": f"i{pp}",
+                     "eventId": f"{pp:02x}-filelog-attach{attempt}",
+                     "properties": {"attach": True}} for pp in missing])
+            if without_active():
+                raise AssertionError(f"partitions {without_active()} have no active log "
+                                     "before the deploy")
+            server = DeployProcess(part, inst.id, device.type, flags, "filelog", part_env)
+            rt = rt_stats(server)["realtime"]
+            if rt["mode"] != "files":
+                raise AssertionError(f"the speed layer tails in mode {rt['mode']}")
+            rng = np.random.default_rng(SEED + 17)
+            deg = np.bincount(rows, minlength=nu)
+            known = [int(np.argmax(deg))] + [
+                int(u) for u in rng.choice(np.flatnonzero((deg > 0) & (deg != deg.max())),
+                                           size=RT_KNOWN - 1, replace=False)]
+            queries = [{"user": f"u{u}", "num": 10} for u in known]
+            conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=60)
+            for q, (exp_items, exp_scores) in zip(
+                    queries, expected_items(torch, model, device, queries)):
+                got = post(conn, q)["itemScores"]
+                check_answer([x["item"] for x in got], [x["score"] for x in got],
+                             exp_items, exp_scores, model, f"filelog {q}")
+            conn.close()
+            out["deploy_k2_calls"] = k2_tile_calls(server.metrics())
+            if out["deploy_k2_calls"] < len(queries):
+                raise AssertionError(f"the deploy made {out['deploy_k2_calls']} K2 calls "
+                                     f"for {len(queries)} queries")
+            if server.stop() != 0:
+                raise AssertionError("deploy did not exit 0:\n" + server.log_tail())
+            server = None
+            with open(cursor) as f:
+                if json.load(f)["mode"] != "files":
+                    raise AssertionError("the deploy's cursor is not a files cursor")
+
+            # (3) the new events through the event server, the columnar fold
+            decode = colspans.DecodeConfig(event_names=("rate", "buy"),
+                                           override_ratings={"buy": 4.0})
+            t_col = EventTailer(events, app_id, columnar_config=decode)
+            t_obj = EventTailer(events, app_id)
+            sealed_before = sum(sealed_segments(part).values())
+            new = filelog_new_events(rng, nu, ni, known)
+            post_frames(es, keys["partitioned"], new)
+            if es.stop() != 0:
+                raise AssertionError("eventserver did not exit 0:\n" + es.log_tail())
+            es = None
+            # a partition that sealed while they arrived moved its active
+            # log, new lines and all, to a segment the tailer never saw:
+            # fresh lineage, which the tailer re-reads on the object path
+            sealed_while_posting = sum(sealed_segments(part).values()) - sealed_before
+            # the deploy starts again on its cursor, and folds, while this
+            # process holds the two in-process folds against each other
+            with ThreadPoolExecutor(1) as spawn:
+                starting = spawn.submit(DeployProcess, part, inst.id, device.type, flags,
+                                        "filelog2", part_env)
+                try:
+                    found = FindOnce(events)  # the store no longer changes here
+                    out["columnar_vs_object"], objs = columnar_vs_object(
+                        torch, device, found, app_id, model, t_col, t_obj)
+                    fold = foldin_mod.ALSFoldIn(found, app_id,
+                                                config=FoldInConfig(reg=TRAIN_REG),
+                                                device=device)
+                    fstats = foldin_mod.FoldInStats()
+                    touched: list = []
+                    fold._collect_events(model, objs, fstats, touched, set())
+                    users, pairs = fold.touched_pairs(model, touched, fstats)
+                finally:
+                    server = starting.result()
+            rt1 = wait_folded(server, 0, "the new events", timeout=300,
+                              folded=fstats.rating_events)
+            m1 = server.metrics()
+            V = model.device_factors(device)[1]
+            k1 = fold_k1_checks(torch, als, foldin_mod, V, pairs, TRAIN_REG, stats)
+            col = int(metric_delta(m1, {}, "pio_tailer_columnar_lines_total"))
+            fb = int(metric_delta(m1, {}, "pio_tailer_columnar_fallback_lines_total"))
+            tailed = int(metric_delta(m1, {}, "pio_tailer_events_total"))
+            k1_main = int(metric_delta(m1, {}, "pio_k1_kernel_launches"))
+            # every posted line once, and no line of the history
+            if tailed != len(new) or rt1["events_folded"] != fstats.rating_events:
+                raise AssertionError(f"{tailed} events tailed of {len(new)} posted, "
+                                     f"{rt1['events_folded']} rating events folded of "
+                                     f"{fstats.rating_events}")
+            if not sealed_while_posting:
+                if col <= 0 or col + fb != len(new):
+                    raise AssertionError(f"columnar {col} + fallback {fb} lines, "
+                                         f"{len(new)} posted")
+                if rt1["foldin_epoch"] != 1 or k1_main != k1["launches_per_fold"]:
+                    raise AssertionError(f"{rt1['foldin_epoch']} folds, {k1_main} K1 "
+                                         f"launches, expected 1 fold of "
+                                         f"{k1['launches_per_fold']}")
+            # a sealed partition's segment is fresh lineage: its new lines
+            # take the object path, counted by neither counter, and the
+            # re-read of the segment's history can take more than one poll
+            # (a fold each), which launches K1 at least as often as one
+            elif (col <= 0 or col + fb >= len(new)
+                  or k1_main < k1["launches_per_fold"]):
+                raise AssertionError(f"after a seal: columnar {col} + fallback {fb} lines "
+                                     f"of {len(new)}, {k1_main} K1 launches in "
+                                     f"{rt1['foldin_epoch']} folds, one fold "
+                                     f"{k1['launches_per_fold']}")
+            if rt1["users_added"] != RT_NEW_USERS or rt1["cold_start_items"] != RT_COLD:
+                raise AssertionError(f"fold stats {rt1}")
+            check_folded_answers(torch, model, V, users, pairs, server.port, device)
+            fold_n = metric_delta(m1, {}, "pio_foldin_solve_seconds_count")
+            out["fold"] = {
+                "events": len(new), "columnar_lines": col, "fallback_lines": fb,
+                "tailed_events": tailed, "sealed_while_posting": sealed_while_posting,
+                "users_folded": len(users), "folds": rt1["foldin_epoch"],
+                "k1_launches_main_path": k1_main,
+                "fold_s": metric_delta(m1, {}, "pio_foldin_solve_seconds_sum") / fold_n,
+                "seconds_behind": rt1["seconds_behind"], "k1": k1}
+            if server.stop() != 0:
+                raise AssertionError("deploy did not exit 0:\n" + server.log_tail())
+            server = None
+
+            # (4) retrain-on-deploy
+            class Transient(rec.ALSAlgorithm):
+                def make_persistent_model(self, model):
+                    return None
+
+            engine = rec.engine()
+            engine.algorithm_classes = {"als": Transient}
+            ep = engine.params_from_variant({
+                "datasource": {"params": {"appName": "ML1M"}},
+                "algorithms": [{"name": "als", "params": {
+                    "rank": INGEST_RANK, "numIterations": FILELOG_RETRAIN_ITERATIONS,
+                    "lambda": TRAIN_REG, "seed": 3}}]})
+            iid = run_train(engine, ep, engine_id="chip-smoke-retrain", storage=storage,
+                            ctx=WorkflowContext(device=device))
+            batch = store.find_ratings("ML1M", event_names=["rate", "buy"])
+            per_iter2 = k1_launches_per_iteration(als.build_ratings_data(
+                batch.rows, batch.cols, batch.vals, len(batch.entity_ids),
+                len(batch.target_ids)), INGEST_RANK)
+            als.solve_bucket.launches.reset()
+            topk.gather_top_k_batch.launches.reset()
+            t0 = time.perf_counter()
+            server = EngineServer(engine, storage.get_metadata_engine_instances().get(iid),
+                                  storage=storage, host="127.0.0.1", port=0, device=device)
+            retrain_s = time.perf_counter() - t0
+            k1_retrain = als.solve_bucket.launches.value
+            if k1_retrain != FILELOG_RETRAIN_ITERATIONS * per_iter2:
+                raise AssertionError(f"retrain-on-deploy: K1 launched {k1_retrain}, expected "
+                                     f"{FILELOG_RETRAIN_ITERATIONS} x {per_iter2}")
+            port = server.start(background=True)
+            retrained = server.models[0]
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            qs = queries[:10] + [{"user": "new0", "num": 10}]
+            for q, (exp_items, exp_scores) in zip(
+                    qs, expected_items(torch, retrained, device, qs)):
+                got = post(conn, q)["itemScores"]
+                check_answer([x["item"] for x in got], [x["score"] for x in got],
+                             exp_items, exp_scores, retrained, f"retrained {q}")
+            conn.close()
+            k2_retrained = topk.gather_top_k_batch.launches.value
+            if k2_retrained <= 0:
+                raise AssertionError("the retrained deploy launched no K2")
+            server.stop()
+            server = None
+            out["retrain_on_deploy"] = {"deploy_s": retrain_s, "k1_launches": k1_retrain,
+                                        "k2_calls": k2_retrained, "ratings": len(batch.vals)}
+    finally:
+        for proc in (server, es):
+            if proc is not None:
+                proc.stop()
+        for basedir in dirs.values():
+            shutil.rmtree(basedir, ignore_errors=True)
+    stats["filelog"] = out
+    log(json.dumps({"filelog": "ml1m partitioned + jsonl", **out}))
 
 
 # -- phase: full width -------------------------------------------------------------
@@ -2719,13 +3370,17 @@ def rt_stats(server) -> dict:
     return json.loads(body)
 
 
-def wait_folded(server, epoch: int, what: str, timeout: float = 120.0) -> dict:
-    """/stats.json until the fold-in epoch passed ``epoch`` and nothing is
-    behind."""
+def wait_folded(server, epoch: int, what: str, timeout: float = 120.0,
+                folded: int = 0) -> dict:
+    """/stats.json until the fold-in epoch passed ``epoch``, nothing is
+    behind and at least ``folded`` rating events were folded (when the
+    lines take more than one fold, the last poll leaves nothing behind
+    before its fold lands)."""
     deadline = time.perf_counter() + timeout
     while True:
         rt = rt_stats(server)["realtime"]
-        if rt["foldin_epoch"] > epoch and rt["events_behind"] == 0:
+        if (rt["foldin_epoch"] > epoch and rt["events_behind"] == 0
+                and rt["events_folded"] >= folded):
             return rt
         if time.perf_counter() > deadline:
             raise AssertionError(f"{what}: not folded in {timeout} s: {rt}\n"
@@ -2807,6 +3462,32 @@ def fold_k1_checks(torch, als, foldin_mod, V, pairs, reg: float, stats) -> dict:
         "bound_by": "bytes" if nbytes / mem_rate >= flops / fp32_rate else "operations",
         "heavy_ms": per_group[-1]["ms"], "heavy_K": per_group[-1]["K"],
     }
+
+
+def check_folded_answers(torch, model, V, users, pairs, port: int, device) -> None:
+    """Every folded user's ``POST /queries.json`` answer (num 10) against
+    K1's fold of the user (its rows solved here, on the fold's grouped
+    layout) plus the plain top-k."""
+    from predictionio_tpu_torch.ops import als, topk
+    from predictionio_tpu_torch.realtime import foldin as foldin_mod
+
+    x = torch.empty((len(pairs), als.table_dim(V)), dtype=torch.float32, device=device)
+    for rws, c, r, m in foldin_mod.grouped_buckets(pairs):
+        x[torch.from_numpy(rws).to(device)] = als.solve_bucket_explicit(
+            V, c, r, m, TRAIN_REG)
+    s_exp, i_exp = topk.gather_top_k_batch_reference(
+        torch.arange(len(users), device=device), x, V, 16)
+    s_exp, i_exp = host(s_exp)[:, :10], host(i_exp)[:, :10]
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    inv = model.item_index.inverse
+    try:
+        for j, u in enumerate(users):
+            got = post(conn, {"user": u, "num": 10})["itemScores"]
+            check_answer([g["item"] for g in got], [g["score"] for g in got],
+                         [inv[int(i)] for i in i_exp[j]], s_exp[j], model,
+                         f"folded user {u}")
+    finally:
+        conn.close()
 
 
 @phase("realtime: deploy --realtime on sqlite, fold-in on K1 (ML-20M shape)")
@@ -2918,24 +3599,7 @@ def realtime_serving(torch, device, stats):
         if folds != 1 or k1_main != k1["launches_per_fold"]:
             raise AssertionError(f"{folds} folds, {k1_main} K1 launches on the main path, "
                                  f"expected 1 fold of {k1['launches_per_fold']}")
-        # every new and touched user's answer: K1's fold + the plain top-k
-        x = torch.empty((len(pairs), 20), dtype=torch.float32, device=device)
-        for rws, c, r, m in foldin_mod.grouped_buckets(pairs):
-            x[torch.from_numpy(rws).to(device)] = als.solve_bucket_explicit(
-                V, c, r, m, TRAIN_REG)
-        s_exp, i_exp = topk.gather_top_k_batch_reference(
-            torch.arange(len(users), device=device), x, V, 16)
-        s_exp, i_exp = host(s_exp)[:, :10], host(i_exp)[:, :10]
-        conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=60)
-        inv = model.item_index.inverse
-        try:
-            for j, u in enumerate(users):
-                got = post(conn, {"user": u, "num": 10})["itemScores"]
-                check_answer([g["item"] for g in got], [g["score"] for g in got],
-                             [inv[int(i)] for i in i_exp[j]], s_exp[j], model,
-                             f"folded user {u}")
-        finally:
-            conn.close()
+        check_folded_answers(torch, model, V, users, pairs, server.port, device)
 
         # HTTP p50 with the layer folding a trickle of new users' events
         stop = threading.Event()
@@ -5626,6 +6290,11 @@ def k4_bound(mem_rate, fp32_rate, rows: int, B: int, kp: int, mode: str) -> dict
             "bound_ms": max(t_b, t_o) * 1e3, "bound_by": "bytes" if t_b >= t_o else "operations"}
 
 
+#: profiler and CUDA-event repetitions a reading in the retimes phase, whose
+#: kernels (K4, K5, the fused call) have had their redesign
+RETIME_RUNS = 10
+
+
 def k4_route_times(torch, retrieval, cat, q, rows: int, kp: int, mode: str, bound: dict) -> dict:
     """K4's routes on the same inputs: the warp route (``coarse_topk``,
     k' <= 128), the stream route (``_coarse_topk_stream``) and the pair it
@@ -5647,14 +6316,15 @@ def k4_route_times(torch, retrieval, cat, q, rows: int, kp: int, mode: str, boun
     order = list(calls)
     t = {name: [] for name in order}
     for name in order + order[::-1]:
-        t[name].append(_total(device_ms(torch, calls[name], runs=20)))
+        t[name].append(_total(device_ms(torch, calls[name], runs=RETIME_RUNS)))
     # the mean of the readings whose trace held device events (a trace now
     # and then comes back without any); at least one a route
     if not all(any(x is not None for x in v) for v in t.values()):
         raise AssertionError(f"K4 {mode} k'={kp}: no profiler reading for a route: {t}")
     out = {f"{name}_ms": statistics.mean(x for x in v if x is not None)
            for name, v in t.items()}
-    out.update({f"{name}_event_ms": cuda_median_ms(torch, calls[name], runs=20, warmup=5)
+    out.update({f"{name}_event_ms": cuda_median_ms(torch, calls[name], runs=RETIME_RUNS,
+                                                   warmup=5)
                 for name in order})
     out["pair_over_stream"] = out["pair_ms"] / out["stream_ms"]
     if "warp" in out:
@@ -5841,19 +6511,20 @@ def path_times(torch, retrieval, topk, cat, q, uixs, U, table, rows: int, kp: in
     split = retrieval.take_stage_split()
     t = {"fused": [], "old": []}
     for which in ("old", "fused", "fused", "old"):
-        t[which].append(cuda_median_ms(torch, fused if which == "fused" else old, runs=20,
-                                       warmup=5))
+        t[which].append(cuda_median_ms(torch, fused if which == "fused" else old,
+                                       runs=RETIME_RUNS, warmup=5))
     bound = fused_bound(mem_rate, fp32_rate, rows, len(q), kp, k, cat.mode,
                         4 if name == "float32" else 1)
     return {"fused_ms": statistics.mean(t["fused"]), "old_ms": statistics.mean(t["old"]),
             "fused_runs_ms": t["fused"], "old_runs_ms": t["old"],
-            "fused_device_ms": _total(device_ms(torch, fused, runs=20)),
-            "fused_kernel_device_ms": _total(device_ms(torch, fused, runs=20), "coarse_"),
-            "old_device_ms": _total(device_ms(torch, old, runs=20)),
-            "k4_k5_ms": cuda_median_ms(torch, k4_k5, runs=20, warmup=5),
-            "k4_k5_device_ms": _total(device_ms(torch, k4_k5, runs=20)),
-            "exact_k2_ms": cuda_median_ms(torch, exact, runs=20, warmup=5),
-            "exact_k2_device_ms": _total(device_ms(torch, exact, runs=20)),
+            "fused_device_ms": _total(device_ms(torch, fused, runs=RETIME_RUNS)),
+            "fused_kernel_device_ms": _total(device_ms(torch, fused, runs=RETIME_RUNS),
+                                             "coarse_"),
+            "old_device_ms": _total(device_ms(torch, old, runs=RETIME_RUNS)),
+            "k4_k5_ms": cuda_median_ms(torch, k4_k5, runs=RETIME_RUNS, warmup=5),
+            "k4_k5_device_ms": _total(device_ms(torch, k4_k5, runs=RETIME_RUNS)),
+            "exact_k2_ms": cuda_median_ms(torch, exact, runs=RETIME_RUNS, warmup=5),
+            "exact_k2_device_ms": _total(device_ms(torch, exact, runs=RETIME_RUNS)),
             "exact_library_device_ms": _total(device_ms(torch, exact_lib, runs=5)),
             "plain_ms": cuda_median_ms(torch, plain, runs=3, warmup=1),
             "route": retrieval.k4_route(kp), "stage_split_s": split, **bound}
@@ -7335,6 +8006,31 @@ def k1_summary(stats) -> dict:
     }
 
 
+def filelog_k1_summary(stats) -> dict:
+    """K1 on the columnar fold of the filelog phase (the partitioned
+    store, ML-1M): one fold's grouped buckets on the queued-events clock;
+    ``launches`` the deploy's count over its one fold (its /metrics);
+    ``train_launches`` and ``retrain_launches`` the phase's ``train`` and
+    retrain-on-deploy."""
+    fl = stats["filelog"]
+    k1 = fl["fold"]["k1"]
+    return {
+        "name": "solve_bucket_explicit (columnar fold-in, partitioned store)",
+        "route": "cuda",
+        "source": "predictionio_tpu_torch/csrc/als_solve.cu",
+        "replaces": "predictionio_tpu/ops/als.py:424",
+        "launches": fl["fold"]["k1_launches_main_path"],
+        "max_abs_err": k1["max_abs_err"],
+        "ms": k1["ms"],
+        "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"],
+        "library_ms": k1["library_ms"],
+        "train_launches": fl["train_k1_launches"],
+        "retrain_launches": fl["retrain_on_deploy"]["k1_launches"],
+    }
+
+
 def foldin_k1_summary(stats) -> dict:
     """K1 on the fold-in path (the realtime phase): one fold's grouped
     buckets at the ML-20M shape, on the queued-events clock; ``launches``
@@ -7385,14 +8081,17 @@ def main() -> int:
         "k1route": lambda: k1_route_vs_block(torch, device, stats),
         "k2s": lambda: k2_sum_rows_vs_plain(torch, device, stats),
         "k2route": lambda: k2_route_vs_select(torch, device, stats),
-        "k4": lambda: k4_vs_plain(torch, device, stats),
-        "k5": lambda: k5_vs_plain(torch, device, stats),
         "k6": lambda: k6_vs_plain(torch, device, stats),
         "k2cos": lambda: k2_cosine_vs_plain(torch, device, stats),
+        "k4": lambda: k4_vs_plain(torch, device, stats),
+        "k5": lambda: k5_vs_plain(torch, device, stats),
+        "times": lambda: timings(torch, device, stats),
+        "retimes": lambda: retrieval_timings(torch, device, stats),
         "serve": lambda: the_slice(torch, device, stats),
         "batchserve": lambda: batch_serve(torch, device, stats),
         "lifecycle": lambda: lifecycle(torch, device, stats),
         "ingest": lambda: ingest(torch, device, stats, prep),
+        "filelog": lambda: filelog(torch, device, stats, prep, fprep),
         "simlife": lambda: similar_lifecycle(torch, device, stats),
         "templife": lambda: templates_lifecycle(torch, device, stats),
         "train": lambda: full_width(torch, device, stats),
@@ -7402,10 +8101,8 @@ def main() -> int:
         "templates": lambda: templates_full_width(torch, device, stats),
         "eval": lambda: eval_phase(torch, device, stats),
         "retrieval": lambda: retrieval_serving(torch, device, stats),
-        "times": lambda: timings(torch, device, stats),
         "k1times": lambda: k1_timings(torch, device, stats),
         "simtimes": lambda: similar_timings(torch, device, stats),
-        "retimes": lambda: retrieval_timings(torch, device, stats),
     }
     args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     args.add_argument(
@@ -7422,25 +8119,41 @@ def main() -> int:
     stats["smi"] = smi
     # the ingest phase's host-only start (files, import, export) runs
     # beside the build and the kernel checks: it touches no device
-    prep = IngestPrep() if "ingest" in chosen else None
-    if prep is not None:
-        prep.start()
-    build()
+    prep = IngestPrep() if {"ingest", "filelog"} & set(chosen) else None
+    fprep = FilelogPrep(prep) if "filelog" in chosen else None
+    preps = [p for p in (prep, fprep) if p is not None]
+    for p in preps:
+        p.start()
+    late = LateBuild()
+    build(late)
     stats["build_done"] = time.perf_counter()
+    late_joined = False
     for name in steps:
         if name in chosen and not failures:
-            if prep is not None and name not in BESIDE_PREP and prep.is_alive():
+            if name not in EARLY_STEPS and not late_joined:
+                late_joined = True
+                finish_build(late)
+                if failures:
+                    break
+            if name not in BESIDE_PREP and any(p.is_alive() for p in preps):
                 # the phases from here on time host work: none of them
-                # shares the CPU with the ingest phase's import
+                # shares the CPU with the preparations' imports
                 t1 = time.perf_counter()
-                prep.join(timeout=900)
-                log(f"waited {time.perf_counter() - t1:.1f}s for the ingest preparation")
+                for p in preps:
+                    p.join(timeout=900)
+                log(f"waited {time.perf_counter() - t1:.1f}s for the ingest preparations")
             steps[name]()
+    if not late_joined:  # a partial run: the late sources still build
+        finish_build(late)
+    # when a phase failed before ingest or filelog, their import and export
+    # processes still end, and their stores go, before the script does
+    for p in preps:
+        p.join()
     if prep is not None:
-        # when a phase failed before ingest, its import and export
-        # processes still end, and its store goes, before the script does
-        prep.join()
         shutil.rmtree(prep.basedir, ignore_errors=True)
+        shutil.rmtree(prep.datadir, ignore_errors=True)
+    for basedir in (fprep.dirs.values() if fprep is not None else ()):
+        shutil.rmtree(basedir, ignore_errors=True)
     log(f"total {time.perf_counter() - t0:.1f}s")
     if failures:
         log(f"chip_smoke FAILED phases: {failures}")
@@ -7470,10 +8183,12 @@ def main() -> int:
         "kernel_launches": stats["k2_kernel_launches"],
         "baseline_ms": rep["baseline_device_ms"] if dev else rep["baseline_ms"],
         "batch_sizes": stats["batchserve"][f"window_{BATCH_WINDOW_MS:g}ms"][64]["batch_sizes"],
+        "filelog_calls": (stats["filelog"]["deploy_k2_calls"]
+                          + stats["filelog"]["retrain_on_deploy"]["k2_calls"]),
     }, k1_summary(stats), k1i_summary(stats), k2s_summary(stats),
         k1s_summary(stats), topk_items_summary(stats), k3_summary(stats),
         *k4_summary(stats), k5_summary(stats), k6_summary(stats), k6_dense_summary(stats),
-        k2cos_summary(stats), foldin_k1_summary(stats)]}))
+        k2cos_summary(stats), foldin_k1_summary(stats), filelog_k1_summary(stats)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

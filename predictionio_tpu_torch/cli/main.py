@@ -11,7 +11,7 @@
     python -m predictionio_tpu_torch.cli.main eventserver \\
         [--ip 0.0.0.0] [--port 7070] [--stats] [--reuse-port]
     python -m predictionio_tpu_torch.cli.main import --appid-or-name APP \\
-        --input FILE [--channel C] [--jobs N] \\
+        --input FILE [--channel C] [--jobs N] [--warm-cache] \\
         [--http URL --access-key KEY]
     python -m predictionio_tpu_torch.cli.main export --appid-or-name APP \\
         --output FILE [--channel C]
@@ -19,7 +19,7 @@
         [--engine-id ID] [--engine-version V] [--batch LABEL] \\
         [--skip-sanity-check] [--stop-after-read] [--stop-after-prepare] \\
         [--warm-start] [--tol T] [--checkpoint-every N] [--resume] \\
-        [--checkpoint-dir DIR] [--device cuda|cpu]
+        [--checkpoint-dir DIR] [--no-columnar-cache] [--device cuda|cpu]
     python -m predictionio_tpu_torch.cli.main deploy \\
         [--engine-instance-id ID | --variant engine.json] \\
         [--ip 0.0.0.0] [--port 8000] [--device cuda|cpu] \\
@@ -55,15 +55,18 @@ it. ``--checkpoint-every N``, ``--resume`` and ``--checkpoint-dir DIR``
 set ``PIO_CHECKPOINT_EVERY``, ``PIO_RESUME`` and ``PIO_CHECKPOINT_DIR``
 as the JAX CLI does (``core/checkpoint.py``; the files are the JAX
 package's, so either package resumes the other's). The JAX CLI's mesh,
-multi-host, profiler and prep-cache flags belong to later slices and are
-not accepted. ``deploy --realtime SECONDS`` runs the speed layer
+multi-host and profiler flags belong to later slices and are not
+accepted. ``deploy --realtime SECONDS`` runs the speed layer
 (``realtime/``), one per mounted variant, folding tailed rating events
 into the served model every SECONDS; its cursor is
 ``--realtime-cursor`` or ``~/.pio_tpu/realtime/cursor_<engine>_<port>
 .json``. Flags that need a later slice are accepted and raise
 ``NotImplementedError`` naming it (``_check_later_slices``), never
 ignored: ``deploy --workers N`` and ``eventserver --workers N`` (N > 1),
-``import --warm-cache`` and ``status --json``. The engine factory
+``train --no-prep-cache`` / ``--prep-cache-dir`` and ``status --json``. ``import --warm-cache`` builds the columnar
+segment cache of a jsonl or partitioned store after the import, and
+``train --no-columnar-cache`` reads the row logs instead
+(``PIO_COLUMNAR_CACHE=0``). The engine factory
 comes from the variant's ``engineFactory`` (for ``deploy``, else from
 the instance's recorded ``engine_factory``), else the port's
 recommendation template; a JAX-package factory name maps to the port
@@ -266,6 +269,16 @@ def cmd_import(args) -> int:
         print(str(e), file=sys.stderr)
         return 1
     print(f"Imported {n} events.")
+    if args.warm_cache:
+        from predictionio_tpu_torch.data import store
+
+        storage = get_storage()
+        rows = store.warm_columnar_cache(
+            commands._resolve_app_name(args.appid_or_name, storage),
+            channel_name=args.channel,
+            storage=storage,
+        )
+        print(f"Columnar cache warmed ({rows} rating rows).")
     return 0
 
 
@@ -286,6 +299,7 @@ def _engine_identity(args, variant: dict) -> tuple[str, str, str]:
 
 def cmd_train(args) -> int:
     """Train the variant's engine and record a COMPLETED instance."""
+    _check_later_slices(args)
     # the checkpoint flags reach als_train through the environment, as in
     # the JAX CLI
     if args.checkpoint_every:
@@ -294,6 +308,8 @@ def cmd_train(args) -> int:
         os.environ["PIO_RESUME"] = "1"
     if args.checkpoint_dir:
         os.environ["PIO_CHECKPOINT_DIR"] = args.checkpoint_dir
+    if args.no_columnar_cache:
+        os.environ["PIO_COLUMNAR_CACHE"] = "0"
     variant = load_variant(args.variant) if args.variant else {}
     factory = variant.get("engineFactory") or DEFAULT_ENGINE_FACTORY
     engine = resolve_engine_factory(factory)
@@ -389,11 +405,11 @@ def _check_later_slices(args) -> None:
             "CUDA context and a model copy of its own, and forking after "
             "CUDA has started is unsafe (ROADMAP.md queue 1)"
         )
-    if getattr(args, "warm_cache", False):
+    if getattr(args, "no_prep_cache", False) or getattr(args, "prep_cache_dir", None):
         raise NotImplementedError(
-            "import --warm-cache (the columnar segment cache) is a later "
-            "slice of the PyTorch port: it comes with the jsonl and "
-            "partitioned stores (ROADMAP.md queue 1, item 5b)"
+            "train --no-prep-cache / --prep-cache-dir (the packed-prep cache "
+            "of K1's bucket layout) is a later slice of the PyTorch port "
+            "(ROADMAP.md queue 1, item 5c)"
         )
     if getattr(args, "command", None) == "status" and getattr(args, "json", False):
         raise NotImplementedError(
@@ -608,8 +624,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     im.add_argument(
         "--warm-cache", action="store_true",
-        help="build the columnar segment cache after the import: a later "
-        "slice of the port (raises)",
+        help="build the columnar segment cache after the import, so the "
+        "first training read maps column blocks (jsonl, partitioned)",
     )
     im.add_argument(
         "--http", metavar="URL", default=None,
@@ -649,6 +665,20 @@ def build_parser() -> argparse.ArgumentParser:
         "--tol", type=float, metavar="T",
         help="stop iterating when the per-iteration train RMSE improves "
         "by less than T",
+    )
+    t.add_argument(
+        "--no-prep-cache", action="store_true",
+        help="skip the packed-prep cache: a later slice of the port (raises)",
+    )
+    t.add_argument(
+        "--prep-cache-dir", metavar="DIR",
+        help="where packed-prep cache entries live: a later slice of the "
+        "port (raises)",
+    )
+    t.add_argument(
+        "--no-columnar-cache", action="store_true",
+        help="read training events from the row logs instead of the "
+        "columnar segment cache (sets PIO_COLUMNAR_CACHE=0 for this run)",
     )
     t.add_argument(
         "--checkpoint-every", type=int, metavar="N",

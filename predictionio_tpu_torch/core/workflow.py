@@ -248,7 +248,9 @@ def prepare_deploy(
 
     Returns (engine_params, algorithms, models, serving); every algorithm
     scores on ``ctx.device`` (CUDA unless the context says otherwise).
-    Retrain-on-deploy models are a later slice and raise."""
+    Models persisted as the ``RETRAIN`` sentinel (an algorithm whose
+    ``make_persistent_model`` returned None) are trained here, on the
+    same algorithm instances and ``ctx``."""
     storage = storage or get_storage()
     ctx = ctx or WorkflowContext(mode="Serving", batch=instance.batch)
     engine_params = engine_params_from_instance(engine, instance)
@@ -264,10 +266,12 @@ def prepare_deploy(
             "was it trained with save_model=False?"
         )
     if any(m is persistence.RETRAIN for m in models):
-        raise NotImplementedError(
-            f"instance {instance.id} has retrain-on-deploy models; "
-            "retrain-on-deploy is a later slice of the PyTorch port"
-        )
+        logger.info("instance %s has retrain-on-deploy models; training", instance.id)
+        retrained = engine.train(ctx, engine_params, algorithms=algorithms)
+        models = [
+            retrained[i] if m is persistence.RETRAIN else m
+            for i, m in enumerate(models)
+        ]
     return engine_params, algorithms, models, serving
 
 

@@ -12,9 +12,10 @@ find the same database and model directory:
   ``PIO_FS_BASEDIR`` (default ``~/.pio_tpu``).
 
 The port's backends so far: sqlite and memory (apps, access keys,
-channels, engine and evaluation instances, models, events) and localfs
-(models). Other backend types --
-jsonl, partitioned, postgres, http, search, hdfs, s3 -- parse (their
+channels, engine and evaluation instances, models, events), localfs
+(models), and the file-log event stores jsonl and partitioned (events;
+``jsonl.py``, ``partitioned.py``, byte-compatible with the JAX package's).
+Other backend types -- postgres, http, search, hdfs, s3 -- parse (their
 capabilities steer the default bindings exactly as in the JAX package)
 but raise :class:`StorageError`, naming the type, when a DAO is asked of
 them: an EVENTDATA repository bound to one of them cannot be read by the
@@ -112,10 +113,30 @@ def _localfs_backend() -> _Backend:
     )
 
 
+def _jsonl_backend() -> _Backend:
+    from predictionio_tpu_torch.data.storage import jsonl as jl
+
+    return _Backend(
+        client_factory=lambda cfg: jl.JSONLStorageClient(cfg),
+        daos={"Events": jl.JSONLEvents},
+    )
+
+
+def _partitioned_backend() -> _Backend:
+    from predictionio_tpu_torch.data.storage import partitioned as pt
+
+    return _Backend(
+        client_factory=lambda cfg: pt.PartitionedStorageClient(cfg),
+        daos={"Events": pt.PartitionedEvents},
+    )
+
+
 _BACKEND_TYPES: dict[str, Callable[[], _Backend]] = {
     "sqlite": _sqlite_backend,
     "memory": _memory_backend,
     "localfs": _localfs_backend,
+    "jsonl": _jsonl_backend,
+    "partitioned": _partitioned_backend,
 }
 
 # which repositories each backend type can serve -- the JAX package's

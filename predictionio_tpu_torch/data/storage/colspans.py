@@ -23,8 +23,8 @@ ids, unresolvable ratings — is routed to the existing object path by
 line number, not dropped.
 
 Port of ``predictionio_tpu/data/storage/colspans.py``, copied whole:
-``import`` decodes through :func:`parse_events` here, and the columnar
-tail of a later slice will use :func:`decode_tail`.
+``import`` decodes through :func:`parse_events`, and the tailer's
+columnar poll through :func:`decode_tail`.
 """
 
 from __future__ import annotations

@@ -361,24 +361,43 @@ class MemoryEvents(base.Events):
         limit: int | None = None,
         reversed_order: bool = False,
     ) -> list[Event]:
-        """Filter, then a stable sort by event time (LEvents.futureFind)."""
         with self._c.lock:
             events = list(self._c.events.get((app_id, channel_id), {}).values())
+        return query_events(
+            events, start_time, until_time, entity_type, entity_id, event_names,
+            target_entity_type, target_entity_id, limit, reversed_order,
+        )
 
-        def keep(e: Event) -> bool:
-            return (
-                (start_time is None or e.event_time >= start_time)
-                and (until_time is None or e.event_time < until_time)
-                and (entity_type is None or e.entity_type == entity_type)
-                and (entity_id is None or e.entity_id == entity_id)
-                and (event_names is None or e.event in event_names)
-                and (target_entity_type is ...
-                     or e.target_entity_type == target_entity_type)
-                and (target_entity_id is ... or e.target_entity_id == target_entity_id)
-            )
 
-        out = sorted(filter(keep, events), key=lambda e: e.event_time,
-                     reverse=reversed_order)
-        if limit is not None and limit >= 0:
-            out = out[:limit]
-        return out
+def query_events(
+    events: list[Event],
+    start_time=None,
+    until_time=None,
+    entity_type=None,
+    entity_id=None,
+    event_names=None,
+    target_entity_type=...,
+    target_entity_id=...,
+    limit=None,
+    reversed_order=False,
+) -> list[Event]:
+    """Filter, then a stable sort by event time (LEvents.futureFind): the
+    memory, jsonl and partitioned backends' shared query."""
+
+    def keep(e: Event) -> bool:
+        return (
+            (start_time is None or e.event_time >= start_time)
+            and (until_time is None or e.event_time < until_time)
+            and (entity_type is None or e.entity_type == entity_type)
+            and (entity_id is None or e.entity_id == entity_id)
+            and (event_names is None or e.event in event_names)
+            and (target_entity_type is ...
+                 or e.target_entity_type == target_entity_type)
+            and (target_entity_id is ... or e.target_entity_id == target_entity_id)
+        )
+
+    out = sorted(filter(keep, events), key=lambda e: e.event_time,
+                 reverse=reversed_order)
+    if limit is not None and limit >= 0:
+        out = out[:limit]
+    return out

@@ -145,6 +145,25 @@ def find_ratings(
     )
 
 
+def warm_columnar_cache(
+    app_name: str,
+    channel_name: str | None = None,
+    rating_key: str | None = "rating",
+    storage: Storage | None = None,
+) -> int:
+    """Pre-build the columnar segment cache for an app's events so the
+    first training read is already the mmap path (``import --warm-cache``).
+    A full ``scan_ratings`` proves the logs replay-clean and publishes the
+    column blocks as a side effect; backends without the cache just scan.
+    Returns the number of rating rows scanned."""
+    storage = storage or get_storage()
+    app_id, channel_id = app_name_to_id(app_name, channel_name, storage)
+    batch = storage.get_events().scan_ratings(
+        app_id, channel_id, rating_key=rating_key
+    )
+    return len(batch.vals)
+
+
 def aggregate_properties(
     app_name: str,
     entity_type: str,

@@ -229,15 +229,24 @@ class ALSFoldIn:
     def fold_in_columnar(
         self, model: ALSModel, batch
     ) -> tuple[ALSModel | None, FoldInStats]:
-        """Fold one :class:`~realtime.tailer.TailedBatch`, segment by
-        segment in delivery order. The port's tailer delivers Event
-        segments only (the JAX package's array segments come with its
-        files mode), so this is :meth:`fold` over the batch's events."""
+        """Fold one :class:`~realtime.tailer.TailedBatch` -- columnar
+        array segments and object-path Event segments, in delivery order
+        -- without constructing an Event for any columnar row.
+
+        The columnar rows were already shape-classified by the decoder
+        (``colspans.decode_tail`` keeps exactly what :meth:`_rating_of`
+        would accept), so collection reduces to touched-user and
+        cold-item accumulation over arrays; the solve and patch are the
+        same K1 path :meth:`fold` takes, hence bit-identical rows for
+        every storage dtype."""
         stats = FoldInStats(events=batch.n_events)
         touched: list[str] = []
         touched_set: set[str] = set()
         for seg in batch.segments:
-            self._collect_events(model, seg, stats, touched, touched_set)
+            if isinstance(seg, list):
+                self._collect_events(model, seg, stats, touched, touched_set)
+            else:
+                self._collect_columnar(model, seg, stats, touched, touched_set)
         if not touched:
             return None, stats
         return self._fold_touched(model, touched, stats)
@@ -258,6 +267,32 @@ class ALSFoldIn:
             if e.entity_id not in touched_set:
                 touched_set.add(e.entity_id)
                 touched.append(e.entity_id)
+
+    def _collect_columnar(
+        self, model, tail, stats, touched, touched_set
+    ) -> None:
+        n = tail.n_rows
+        if n == 0:
+            return
+        stats.rating_events += n
+        # cold-item accumulation per distinct item: the per-event loop's
+        # counts and sums, from bincounts
+        counts = np.bincount(tail.item_idx, minlength=len(tail.item_ids))
+        sums = np.bincount(
+            tail.item_idx, weights=tail.ratings,
+            minlength=len(tail.item_ids),
+        )
+        for j, iid in enumerate(tail.item_ids):
+            if iid in model.item_index:
+                continue
+            acc = self.cold_items.setdefault(iid, [0, 0.0])
+            acc[0] += int(counts[j])
+            acc[1] += float(sums[j])
+            stats.cold_item_events += int(counts[j])
+        for uid in tail.user_ids:  # first-appearance order, like events
+            if uid not in touched_set:
+                touched_set.add(uid)
+                touched.append(uid)
 
     def touched_pairs(
         self, model: ALSModel, touched: list[str], stats: FoldInStats

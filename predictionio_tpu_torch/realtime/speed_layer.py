@@ -25,6 +25,7 @@ epoch fence. The invariants (docs/realtime.md):
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 
@@ -98,15 +99,32 @@ class SpeedLayer:
             ds_params.app_name, None, server.storage
         )
         events = server.storage.get_events()
-        # PIO_TAIL_COLUMNAR (the JAX package's columnar tail preference)
-        # is read nowhere: on the port's seq and generic stores the JAX
-        # tailer delivers Event objects too
+        # columnar tail preference: on a file-log store rate-shaped chunks
+        # decode straight to arrays; the tailer routes anything else to
+        # the object parser per chunk or per line. PIO_TAIL_COLUMNAR=0
+        # pins the object path.
+        columnar_config = None
+        if os.environ.get("PIO_TAIL_COLUMNAR", "1").strip().lower() not in (
+            "0", "false", "no", "off"
+        ):
+            from predictionio_tpu_torch.data.storage import colspans
+
+            cfg = self._config
+            columnar_config = colspans.DecodeConfig(
+                event_names=cfg.event_names,
+                rating_key=cfg.rating_key,
+                default_ratings=cfg.default_ratings,
+                override_ratings=cfg.override_ratings,
+                entity_type=cfg.entity_type,
+                target_entity_type=cfg.target_entity_type,
+            )
         self.tailer = EventTailer(
             events,
             app_id,
             channel_id,
             cursor_path=cursor_path,
             batch_limit=batch_limit,
+            columnar_config=columnar_config,
         )
         # the fold runs K1 on the server's device, on a stream of its own
         self.foldin = ALSFoldIn(events, app_id, channel_id, config=self._config,

@@ -224,6 +224,75 @@ class TestPortFaultPoints:
         assert [e.entity_id for e in events.find(1)] == ["u0"]
         client.close()
 
+    @staticmethod
+    def _file_log(kind, tmp_path, **cfg):
+        from predictionio_tpu_torch.data.storage import jsonl, partitioned
+
+        if kind == "jsonl":
+            return jsonl.JSONLEvents(jsonl.JSONLStorageClient(
+                {"path": str(tmp_path / "ev"), **cfg}))
+        return partitioned.PartitionedEvents(partitioned.PartitionedStorageClient(
+            {"path": str(tmp_path / "pev"), "partitions": 2, **cfg}))
+
+    @staticmethod
+    def _rate(user):
+        from predictionio_tpu_torch.data.event import Event
+
+        return Event(event="rate", entity_type="user", entity_id=user,
+                     target_entity_type="item", target_entity_id="i",
+                     properties={"rating": 1.0})
+
+    @pytest.mark.parametrize("kind", ["jsonl", "partitioned"])
+    def test_file_log_write_fault_rolls_the_append_back(self, tmp_path, kind):
+        events = self._file_log(kind, tmp_path)
+        events.insert(self._rate("u0"), 1)
+        with faults.injected("storage.write:nth=1") as plan:
+            with pytest.raises(faults.FaultError):
+                events.insert(self._rate("u1"), 1)
+        assert plan.fire_count("storage.write") == 1
+        events.insert(self._rate("u2"), 1)
+        assert sorted(e.entity_id for e in events.find(1)) == ["u0", "u2"]
+
+    @pytest.mark.parametrize("kind", ["jsonl", "partitioned"])
+    def test_file_log_fsync_fault_fails_the_ack(self, tmp_path, kind):
+        """An always-fsync append whose covering fsync fails is not acked
+        (the insert raises); the next append's fsync covers it."""
+        events = self._file_log(kind, tmp_path)
+        with faults.injected("storage.fsync:nth=1") as plan:
+            with pytest.raises(faults.FaultError):
+                events.insert(self._rate("u1"), 1)
+        assert plan.fire_count("storage.fsync") == 1
+        events.insert(self._rate("u2"), 1)
+        assert "u2" in {e.entity_id for e in events.find(1)}
+
+    @pytest.mark.parametrize("kind", ["jsonl", "partitioned"])
+    def test_file_log_rename_fault_keeps_the_log(self, tmp_path, kind):
+        """A failed rename (jsonl's compaction, partitioned's seal) leaves
+        every acked event readable."""
+        events = self._file_log(kind, tmp_path, segment_bytes=200)
+        with faults.injected("storage.rename:nth=1") as plan:
+            with pytest.raises(faults.FaultError):
+                events.insert(self._rate("u0"), 1)
+                events.insert(self._rate("u0"), 1)  # partitioned: seals here
+                events.compact(1)  # jsonl: renames here
+        assert plan.fire_count("storage.rename") == 1
+        events.insert(self._rate("u1"), 1)
+        assert {"u0", "u1"} <= {e.entity_id for e in events.find(1)}
+
+    def test_tail_decode_fault_takes_the_object_path(self, tmp_path):
+        from predictionio_tpu_torch.data.storage import colspans
+        from predictionio_tpu_torch.realtime import EventTailer
+
+        events = self._file_log("jsonl", tmp_path)
+        events.insert(self._rate("pre"), 1)
+        t = EventTailer(events, 1, columnar_config=colspans.DecodeConfig())
+        events.insert(self._rate("u1"), 1)
+        with faults.injected("tail.decode:nth=1") as plan:
+            batch = t.poll_columnar()
+        assert plan.fire_count("tail.decode") == 1
+        assert [s for s in batch.segments if not isinstance(s, list)] == []
+        assert [e.entity_id for s in batch.segments for e in s] == ["u1"]
+
     @pytest.mark.parametrize("tol,nth,fires", [(0.0, 1, 1), (0.0, 2, 0), (1e-12, 3, 1)])
     def test_device_dispatch_fires_in_als_train(self, tol, nth, fires):
         """Once a training (the JAX package's one fused dispatch), or once

@@ -4,11 +4,10 @@
 and ``TestBackpressure`` restated for ``predictionio_tpu_torch``'s
 ``data/storage/frame.py`` and event server, with ``encode_body`` giving
 the same bytes in both packages and each decoded frame rendering the
-JAX package's events; and the sqlite and memory rows of
-``test_differential_bin_vs_json``, where the port's stored events are
-also the JAX server's on the same body. The jsonl and partitioned rows
-(and the kill-9 splice matrix) wait for the slice that ports those
-stores.
+JAX package's events; every row of ``test_differential_bin_vs_json``
+(sqlite, memory, jsonl, partitioned), where the port's stored events are
+also the JAX server's on the same body; and the kill -9 splice matrix on
+the jsonl and partitioned stores.
 """
 
 from __future__ import annotations
@@ -300,6 +299,12 @@ def _env_for(backend: str, tmp_path) -> dict:
     if backend == "memory":
         env.update({"PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
                     "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "MEM"})
+    if backend in ("jsonl", "partitioned"):
+        env.update({"PIO_STORAGE_SOURCES_LOG_TYPE": backend,
+                    "PIO_STORAGE_SOURCES_LOG_PATH": str(tmp_path / "eventlog"),
+                    "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "LOG"})
+    if backend == "partitioned":
+        env["PIO_STORAGE_SOURCES_LOG_PARTITIONS"] = "4"
     return env
 
 
@@ -332,7 +337,7 @@ def _ingest_both_ways(server_cls, storage, cmds, evs) -> tuple[list[str], list[s
     return canon(app_json["id"]), canon(app_bin["id"])
 
 
-@pytest.mark.parametrize("backend", ["sqlite", "memory"])
+@pytest.mark.parametrize("backend", ["sqlite", "memory", "jsonl", "partitioned"])
 def test_differential_bin_vs_json(backend, tmp_path):
     """The same 5k-event mixed batch through ``/batch/events.bin`` and
     ``/batch/events.json`` leaves byte-identical stored events on the
@@ -351,3 +356,77 @@ def test_differential_bin_vs_json(backend, tmp_path):
     finally:
         jstorage.close()
     assert (got_json, got_bin) == (want_json, want_bin)
+
+
+# -- kill -9 durability on the splice path -------------------------------------
+
+_SPLICE_CHILD = """
+import io, json, sys
+cfg = json.load(open(sys.argv[1]))
+from predictionio_tpu_torch.data.storage import Storage, frame
+storage = Storage(env=cfg["env"])
+dao = storage.get_events()
+dao.init(cfg["app_id"])
+events = [
+    {"event": "rate", "entityType": "user", "entityId": "ku%d" % (j % 13),
+     "targetEntityType": "item", "targetEntityId": "ki%d" % (j % 7),
+     "properties": {"rating": float(j % 5 + 1)},
+     "eventTime": "2024-02-02T00:00:00.000Z",
+     "creationTime": "2024-02-02T00:00:01.000Z",
+     "eventId": "kev%04d" % j}
+    for j in range(cfg["n_events"])
+]
+body = frame.encode_body(events, frame_events=cfg["frame_events"])
+for payload in frame.read_frames(io.BytesIO(body)):
+    batch = frame.decode_frame(payload)
+    blob, ids, _ = batch.render_jsonl(None, "2024-02-02T00:00:00.000000Z")
+    dao.append_jsonl(blob, cfg["app_id"], None)
+    print("ACK " + " ".join(ids), flush=True)
+print("DONE", flush=True)
+"""
+
+
+@pytest.mark.parametrize("backend,spec", [
+    ("jsonl", "storage.fsync:nth=3:kill"),
+    # partitioned spreads each 50-event frame over 4 partition writes:
+    # nth=10 lands mid-frame-3 with two frames acked
+    ("partitioned", "storage.write:nth=10:kill"),
+])
+def test_kill9_splice_zero_acked_loss(backend, spec, tmp_path):
+    """SIGKILL mid-splice through the port's store: every frame acked
+    before the kill is fully present after reopening the store
+    (``tests/test_frame_ingest.py``'s matrix)."""
+    import os
+    import subprocess
+    import sys
+
+    env_dict = _env_for(backend, tmp_path)
+    env_dict["PIO_STORAGE_SOURCES_LOG_SYNC"] = "always"
+    storage = Storage(env=env_dict)
+    try:
+        info = commands.app_new("KillApp", storage=storage)
+    finally:
+        storage.close()
+    cfg_path = tmp_path / "splice_cfg.json"
+    cfg_path.write_text(json.dumps({"env": env_dict, "app_id": info["id"],
+                                    "n_events": 200, "frame_events": 50}))
+    child_env = dict(os.environ, PIO_FAULTS=spec)
+    child_env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    os.environ.get("PYTHONPATH")) if p)
+    proc = subprocess.run([sys.executable, "-c", _SPLICE_CHILD, str(cfg_path)],
+                          capture_output=True, text=True, env=child_env, timeout=120)
+    assert proc.returncode == -9, (proc.returncode, proc.stderr)
+    acked: list[str] = []
+    for line in proc.stdout.splitlines():
+        if line.startswith("ACK "):
+            acked.extend(line.split()[1:])
+    assert acked, proc.stdout
+    assert "DONE" not in proc.stdout
+    storage = Storage(env=env_dict)
+    try:
+        stored = {e.event_id for e in storage.get_events().find(info["id"])}
+    finally:
+        storage.close()
+    lost = set(acked) - stored
+    assert not lost, f"acked events lost after kill: {sorted(lost)[:5]}"

@@ -56,7 +56,8 @@ def test_port_imports_without_jax_or_the_jax_package():
     walked = set(proc.stdout.split())
     assert len(walked) >= 60  # every module was walked
     # the training, similar-product, serving-stack, evaluation, two-stage
-    # retrieval, other-ALS-template and speed-layer slices' modules among them
+    # retrieval, other-ALS-template, speed-layer, ingest and file-log slices'
+    # modules among them
     assert {f"predictionio_tpu_torch.{m}" for m in (
         "data.datamap", "data.event", "data.store", "data.storage.base",
         "data.storage.sqlite", "data.storage.memory", "ops.als",
@@ -77,6 +78,9 @@ def test_port_imports_without_jax_or_the_jax_package():
         "data.storage.frame", "server.stats", "server.webhooks",
         "server.webhooks.mailchimp", "server.webhooks.segmentio",
         "server.event_server", "cli.commands",
+        "data.storage.groupcommit", "data.storage.columnar_cache",
+        "data.storage.jsonl", "data.storage.partitioned", "data.view",
+        "core.self_cleaning",
     )} <= walked
 
 

@@ -5,8 +5,8 @@ on its own (built into ``predictionio_tpu_torch/_build/``). The cases of
 ``tests/test_native.py`` are restated here for the port's binding, in
 both codec modes -- the C++ library and the pure-Python path -- and every
 output is held equal to the JAX binding's on the same buffer in the same
-mode. The cases that need the jsonl store (``prove_clean`` and the
-jsonl ``scan_ratings``) wait for the slice that ports that store.
+mode, with the jsonl store's ``prove_clean`` and chunked
+``scan_ratings`` held to the JAX package's.
 """
 
 from __future__ import annotations
@@ -519,6 +519,46 @@ class TestChunkedScan:
         buf = self._log(10)
         a = native.load_ratings_jsonl_chunked(buf, chunk_bytes=1 << 20)
         _same_arrays(a, native.load_ratings_jsonl(buf))
+
+    def test_prove_clean_chunked_matches_whole(self):
+        from predictionio_tpu.data.storage import jsonl as jjsonl
+        from predictionio_tpu_torch.data.storage.jsonl import (
+            prove_clean,
+            prove_clean_chunked,
+        )
+
+        clean = self._log(400)
+        # a cross-chunk duplicate id: the last line repeats the first's
+        dirty = clean.replace(b'"eventId":"e399"}', b'"eventId":"e0"}')
+        marked = clean + b'{"$delete": "e1"}\n'
+        for buf, want in ((clean, False), (dirty, True), (marked, True)):
+            assert prove_clean(buf)[0] is want
+            assert prove_clean_chunked(buf, chunk_bytes=2048)[0] is want
+            assert jjsonl.prove_clean_chunked(buf, chunk_bytes=2048)[0] is want
+
+    def test_jsonl_scan_ratings_chunked_path(self, tmp_path, monkeypatch):
+        """The big-buffer path through the jsonl store equals the normal
+        path, and the JAX store's chunked read of the same log."""
+        from predictionio_tpu.data.storage import jsonl as jjsonl
+        from predictionio_tpu_torch.data.storage import jsonl as jmod
+
+        dao = jmod.JSONLEvents(jmod.JSONLStorageClient({"path": str(tmp_path)}))
+        dao.append_jsonl(self._log(600), 1)
+        normal = dao.scan_ratings(1, event_names=["rate"])
+        monkeypatch.setattr(jmod, "SCAN_CHUNK_BYTES", 4096)
+        monkeypatch.setattr(jjsonl, "SCAN_CHUNK_BYTES", 4096)
+        dao._c.clean_stat.clear()
+        chunked = dao.scan_ratings(1, event_names=["rate"])
+        jdao = jjsonl.JSONLEvents(jjsonl.JSONLStorageClient(
+            {"path": str(tmp_path), "columnar_cache": "0"}))
+        want = jdao.scan_ratings(1, event_names=["rate"])
+
+        def triples(b):
+            return sorted((b.entity_ids[r], b.target_ids[c], float(v))
+                          for r, c, v in zip(b.rows, b.cols, b.vals))
+
+        assert triples(normal) == triples(chunked) == triples(want)
+        assert len(chunked) == 600
 
 
 class TestSpliceLines:

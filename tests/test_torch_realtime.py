@@ -8,10 +8,9 @@ and ``TestSeqBackendTails`` (seq mode), the fold-in cases
 (the port's ``EngineServer`` on a real socket; events written to the
 store, the port having no event server yet), ``TestQueryCacheEpochFence``,
 ``TestCursorCorruptionRecovery`` and ``TestFoldInCircuitBreaker``; and
-the two speed-layer cases of ``tests/test_slo.py``. The files-mode and
-columnar classes (``TestTailerFileLineage``, ``TestColumnarTail``) wait
-for the port's jsonl and partitioned stores (``ROADMAP.md`` queue 1,
-item 5).
+the two speed-layer cases of ``tests/test_slo.py``. The files mode and
+the columnar tail and fold on the jsonl and partitioned stores are in
+``tests/test_torch_realtime_files.py``.
 
 Against the JAX package: one model (``model_from_numpy``) and the same
 events in both packages' stores give the same fold -- user order,
@@ -282,16 +281,25 @@ class TestSeqBackendTails:
         assert t.poll() == [] and t.events_behind() == 0
 
     def test_a_file_log_store_is_a_later_slice(self, tmp_path):
+        """A store with ``tail_files`` (the file-log stores, ported since)
+        is tailed in files mode, by byte offsets, as in the JAX package."""
         events = _memory_events(tmp_path)
+        log = tmp_path / "log.jsonl"
+        log.write_bytes(b"")
 
         class FileLog:
-            tail_files = staticmethod(lambda app_id, channel_id=None: [])
+            tail_files = staticmethod(lambda app_id, channel_id=None: [log])
 
             def __getattr__(self, name):
                 return getattr(events, name)
 
-        with pytest.raises(NotImplementedError, match="item 5"):
-            EventTailer(FileLog(), self.APP)
+        t = EventTailer(FileLog(), self.APP)
+        assert t.mode == "files"
+        with open(log, "a") as f:
+            f.write(_rate("u1", "i1", 5).to_json() + "\n")
+        assert t.events_behind() == 1
+        assert [e.entity_id for e in t.poll()] == ["u1"]
+        assert t.poll() == [] and t.events_behind() == 0
 
 
 # ---------------------------------------------------------------------------

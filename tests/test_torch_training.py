@@ -248,7 +248,7 @@ def test_sqlite_schema_is_the_jax_packages(tmp_path):
 
 
 def test_event_backends_the_port_lacks_raise_a_named_error(tmp_path):
-    for kind in ("jsonl", "postgres", "http"):
+    for kind in ("search", "postgres", "http"):
         s = tstorage.Storage(env={
             "PIO_STORAGE_SOURCES_EV_TYPE": kind,
             "PIO_STORAGE_SOURCES_META_TYPE": "sqlite",
