@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--phases k2,k1,k1i,k1route,k2s,k2route,k6,k2cos,k4,k5,
                                     times,retimes,serve,batchserve,lifecycle,ingest,
-                                    filelog,simlife,templife,train,ckpt,realtime,
+                                    filelog,prepcache,simlife,templife,train,ckpt,
+                                    realtime,
                                     simtrain,templates,eval,retrieval,k1times,simtimes]
 
 Run from the root of a checkout, on a machine with a CUDA card, ``nvcc``
@@ -346,8 +347,10 @@ The file-log slice adds (filelog after ingest, on IngestPrep's file):
 
 - filelog: beside the build (``FilelogPrep``, once IngestPrep's file is
   written; the first phase that times host work waits for it) ``app
-  new``, then ``import`` of the ML-1M file into a partitioned store (8
-  partitions, 4 MiB segments, ``--warm-cache``) and into a jsonl store,
+  new``, then ``import`` of the ML-1M file's first 500,000 events into a
+  partitioned store (8 partitions, 4 MiB segments, ``--warm-cache``;
+  a fold there replays the whole store) and of all of it into a jsonl
+  store,
   both on the splice route (``import_events`` calls ``append_jsonl`` and
   never ``insert``/``batch_insert``, checked in process on the first
   10,000 lines), and ``export`` from both. In the phase: the ratings
@@ -373,6 +376,27 @@ The file-log slice adds (filelog after ingest, on IngestPrep's file):
   answers against the plain version (K2 counted). It prints import and export
   events/s, ``read_training`` seconds, the fold's seconds, K1 ms and
   ``secondsBehind`` beside the card's name and power limit.
+
+The prep-cache slice adds (prepcache after filelog, on its stores; every
+train of the script runs with ``PIO_PREP_CACHE_DIR`` under a temporary
+directory of its own):
+
+- prepcache: ``cli.main train`` (rank 20, 5 iterations) on the filelog
+  phase's jsonl store into a fresh cache directory (``--prep-cache-dir``):
+  a miss that publishes an entry, then a hit (no scan), then, after
+  ``import`` of 5,000 rating events (200 new users, 50 new items, known
+  users), a splice; each with K1's count reset before and read after
+  (the iterations x the buckets). The hit's and the splice's batch and
+  both bucket lists, as ``als_train`` received them, bit-equal to a
+  ``PIO_PREP_CACHE=0`` read and ``build_padded_buckets`` of the same
+  log; the splice-fed train's factors bit-equal to a ``train
+  --no-prep-cache`` from the same seed (both on K1). On the partitioned
+  store, the entry its filelog ``train`` published, then a seal (an
+  append through a client with small segments): the probe rebuilds,
+  counted with reason ``changed``. Then ``cache list --json``, ``cache
+  evict`` and ``cache prune --max-mb``. It prints each train's status,
+  ``read_training`` and layout seconds, train wall and K1 launches beside
+  the card's name and power limit.
 
 Every phase prints its results and seconds; any failure makes the exit
 code 1 and suppresses the result lines. Without CUDA, or without the
@@ -1574,35 +1598,49 @@ class DeployProcess:
     with SIGTERM: the front end drains, then the command exits."""
 
     def __init__(self, basedir: str, iid: str, device: str, flags: list[str],
-                 name: str, env_extra: dict | None = None):
+                 name: str, env_extra: dict | None = None, wait: bool = True):
         self._spawn(basedir, ["deploy", "--engine-instance-id", iid, "--device", device,
-                              *flags], f"deploy-{name}", env_extra)
+                              *flags], f"deploy-{name}", env_extra, wait)
 
     def _spawn(self, basedir: str, args: list[str], name: str,
-               env_extra: dict | None = None) -> None:
+               env_extra: dict | None = None, wait: bool = True) -> None:
         """``cli.main ARGS --ip 127.0.0.1 --port P``, logged to
-        ``basedir/NAME.log``; returns once ``/readyz`` answers 200."""
+        ``basedir/NAME.log``; returns once ``/readyz`` answers 200, or at
+        once with ``wait=False`` (then :meth:`wait_ready`)."""
+        self.name = name
         self.port = free_port()
         self.log_path = os.path.join(basedir, f"{name}.log")
         env = cli_env(basedir, env_extra)
         cmd = [sys.executable, "-m", "predictionio_tpu_torch.cli.main", *args,
                "--ip", "127.0.0.1", "--port", str(self.port)]
         self._log = open(self.log_path, "w")
+        self.spawned = time.perf_counter()
         self.proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=self._log,
                                      stderr=subprocess.STDOUT)
-        deadline = time.perf_counter() + 180
+        # /readyz polled from the spawn on, so the ready time is the
+        # server's whenever the caller asks for it
+        self._ready = ThreadPoolExecutor(1).submit(self._poll_ready)
+        if wait:
+            self.wait_ready()
+
+    def _poll_ready(self) -> float:
+        deadline = self.spawned + 180
         while True:
             if self.proc.poll() is not None:
-                raise AssertionError(f"{name} exited {self.proc.returncode}:\n"
+                raise AssertionError(f"{self.name} exited {self.proc.returncode}:\n"
                                      + self.log_tail())
             try:
                 if self.get("/readyz")[0] == 200:
-                    break
+                    return time.perf_counter() - self.spawned
             except OSError:
                 pass
             if time.perf_counter() > deadline:
-                raise AssertionError(f"{name} not ready in 180 s:\n" + self.log_tail())
+                raise AssertionError(f"{self.name} not ready in 180 s:\n" + self.log_tail())
             time.sleep(0.2)
+
+    def wait_ready(self) -> float:
+        """Seconds from the spawn until ``/readyz`` answered 200."""
+        return self._ready.result()
 
     def log_tail(self, n: int = 40) -> str:
         self._log.flush()
@@ -1805,7 +1843,8 @@ def batch_serve(torch, device, stats, users: int = U_ROWS, items: int = I_ROWS,
     events give the device's busy share of the window; ``POST /reload`` onto a
     newer instance bumps the epoch and the next answer is the new
     model's; SIGTERM drains with queries in flight (every answer 200,
-    exit 0)."""
+    exit 0). The three servers start together and are measured one at a
+    time, the others idle (``ready_s``: the start-ups share the host)."""
     from predictionio_tpu_torch.core.workflow import save_instance
     from predictionio_tpu_torch.data import storage as st
     from predictionio_tpu_torch.models import recommendation as rec
@@ -1839,12 +1878,18 @@ def batch_serve(torch, device, stats, users: int = U_ROWS, items: int = I_ROWS,
     servers = []
     result = {}
     try:
+        # the three servers start together and are measured one at a time,
+        # the others idle: two windows, then the cache / reload / drain one
+        started = {window: DeployProcess(basedir, iid, dev, ["--batch-window-ms", str(window)],
+                                         f"w{window:g}", wait=False)
+                   for window in (BATCH_WINDOW_MS, 0.0)}
+        started["cache"] = DeployProcess(basedir, iid, dev, [
+            "--batch-window-ms", str(BATCH_WINDOW_MS), "--query-cache-mb", "64"], "cache",
+            wait=False)
+        servers += started.values()
         for window in (BATCH_WINDOW_MS, 0.0):
-            t0 = time.perf_counter()
-            server = DeployProcess(basedir, iid, dev,
-                                   ["--batch-window-ms", str(window)], f"w{window:g}")
-            servers.append(server)
-            ready_s = time.perf_counter() - t0
+            server = started[window]
+            ready_s = server.wait_ready()
             closed_loop(server.port, warm, 8)
             levels_out = sweep(server, levels)
             check_k2_calls(levels_out, window, n)
@@ -1879,9 +1924,8 @@ def batch_serve(torch, device, stats, users: int = U_ROWS, items: int = I_ROWS,
                          exp_items, exp_scores, model, f"batchserve {q}")
 
         # cache, metrics, profile, reload and drain on one more deploy
-        server = DeployProcess(basedir, iid, dev, [
-            "--batch-window-ms", str(BATCH_WINDOW_MS), "--query-cache-mb", "64"], "cache")
-        servers.append(server)
+        server = started["cache"]
+        server.wait_ready()
         q0 = json.dumps({"user": "u17", "num": 4}).encode()
         k_miss = k2_tile_calls(server.metrics())
         s1, b1 = server.request("POST", "/queries.json", q0)
@@ -2616,6 +2660,10 @@ FILELOG_SEGMENT = 4 << 20  # so that every partition seals segments at import
 FILELOG_SPLICE_LINES = 10_000  # the in-process splice-route check
 FILELOG_SETS = 100  # $set lines among the new events: the object parser's
 FILELOG_RETRAIN_ITERATIONS = 2
+#: the partitioned store holds the file's first FILELOG_PARTITIONED
+#: events: a fold there replays its whole history (no entity index), so
+#: the store's size sets the fold's seconds; the jsonl store holds all
+FILELOG_PARTITIONED = 500_000
 
 
 def filelog_env(basedir: str, kind: str) -> dict:
@@ -2823,9 +2871,13 @@ class FilelogPrep(threading.Thread):
         self.ingest.file_written.wait()
         if "vals" not in self.ingest.out:
             raise AssertionError(f"no ML-1M file: {self.ingest.error}")
-        n, path = len(self.ingest.out["vals"]), self.ingest.data_path
-        out: dict = {"keys": {}}
+        full, out = self.ingest.data_path, {"keys": {}}
+        head = os.path.join(self.dirs["partitioned"], "ml1m_head.jsonl")
+        with open(full) as src, open(head, "w") as dst:
+            dst.writelines(line for _, line in zip(range(FILELOG_PARTITIONED), src))
         for kind, basedir in self.dirs.items():
+            path = head if kind == "partitioned" else full
+            n = self.events(kind)
             env = filelog_env(basedir, kind)
             o, _ = cli_run(basedir, "app", "new", "ML1M", env=env)
             out["keys"][kind] = next(ln.split(":", 1)[1].strip() for ln in o.splitlines()
@@ -2847,15 +2899,23 @@ class FilelogPrep(threading.Thread):
             out[kind] = {"import_s": import_s, "import_events_per_s": n / import_s,
                          "export_s": export_s, "export_events_per_s": n / export_s,
                          "splice": splice_route_check(kind, path)}
+        os.unlink(head)
         return out
+
+    def events(self, kind: str) -> int:
+        """Rating events imported into the ``kind`` store: the file's
+        first ones (its lines are the generated triples in order)."""
+        n = len(self.ingest.out["vals"])
+        return min(n, FILELOG_PARTITIONED) if kind == "partitioned" else n
 
 
 @phase("filelog: import --warm-cache -> export -> train -> deploy --realtime -> "
        "columnar fold on K1 -> retrain-on-deploy (ML-1M shape, partitioned + jsonl)")
 def filelog(torch, device, stats, prep: IngestPrep, fprep: FilelogPrep):
     """The file-log stores on IngestPrep's ML-1M file. (1) FilelogPrep's
-    ``app new``, ``import`` into a partitioned store (8 partitions, 4 MiB
-    segments, ``--warm-cache``) and into a jsonl store, both on the splice
+    ``app new``, ``import`` of its first FILELOG_PARTITIONED events into a
+    partitioned store (8 partitions, 4 MiB segments, ``--warm-cache``) and
+    of all of it into a jsonl store, both on the splice
     route (checked in process on the file's first 10,000 lines), and
     ``export`` from both, beside the build; here every partition must have
     sealed segments, the ratings read back by ``find_ratings`` and by
@@ -2895,8 +2955,8 @@ def filelog(torch, device, stats, prep: IngestPrep, fprep: FilelogPrep):
     fprep.join(timeout=900)
     if fprep.is_alive() or fprep.error:
         raise AssertionError(f"filelog preparation: {fprep.error or 'not finished'}")
-    rows, cols, vals = prep.out["rows"], prep.out["cols"], prep.out["vals"]
-    nu, ni, n = prep.out["num_users"], prep.out["num_items"], len(prep.out["vals"])
+    nu, ni = prep.out["num_users"], prep.out["num_items"]
+    n = {kind: fprep.events(kind) for kind in fprep.dirs}
     out: dict = {"card": stats.get("smi"), "events": n,
                  "prep_s": fprep.done - fprep.started,
                  "prep_done_after_build_s": fprep.done - stats.get("build_done", fprep.done)}
@@ -2908,6 +2968,7 @@ def filelog(torch, device, stats, prep: IngestPrep, fprep: FilelogPrep):
         for kind, basedir in dirs.items():
             env = filelog_env(basedir, kind)
             warmed = kind == "partitioned"  # import --warm-cache built its cache
+            rows, cols, vals = (prep.out[k][:n[kind]] for k in ("rows", "cols", "vals"))
             out[kind] = dict(fprep.out[kind])
             with storage_env(basedir, env):
                 ds = rec.RecommendationDataSource(rec.DataSourceParams(app_name="ML1M"))
@@ -2933,7 +2994,8 @@ def filelog(torch, device, stats, prep: IngestPrep, fprep: FilelogPrep):
             raise AssertionError(f"sealed segments per partition: {segs}")
         out["partitioned"]["sealed_segments"] = sum(segs.values())
 
-        # (2) train and deploy on the partitioned store
+        # (2) train and deploy on the partitioned store (its triples)
+        rows, cols, vals = (prep.out[k][:n["partitioned"]] for k in ("rows", "cols", "vals"))
         variant = os.path.join(part, "engine.json")
         with open(variant, "w") as f:
             json.dump({"id": "chip-smoke-filelog", "engineFactory": REC_FACTORY,
@@ -3106,8 +3168,15 @@ def filelog(torch, device, stats, prep: IngestPrep, fprep: FilelogPrep):
                 "algorithms": [{"name": "als", "params": {
                     "rank": INGEST_RANK, "numIterations": FILELOG_RETRAIN_ITERATIONS,
                     "lambda": TRAIN_REG, "seed": 3}}]})
-            iid = run_train(engine, ep, engine_id="chip-smoke-retrain", storage=storage,
-                            ctx=WorkflowContext(device=device))
+            # its own cache directory: the prepcache phase probes the
+            # entry the train above published, from before the new events
+            prep_dir = os.environ["PIO_PREP_CACHE_DIR"]
+            os.environ["PIO_PREP_CACHE_DIR"] = os.path.join(prep_dir, "retrain")
+            try:
+                iid = run_train(engine, ep, engine_id="chip-smoke-retrain", storage=storage,
+                                ctx=WorkflowContext(device=device))
+            finally:
+                os.environ["PIO_PREP_CACHE_DIR"] = prep_dir
             batch = store.find_ratings("ML1M", event_names=["rate", "buy"])
             per_iter2 = k1_launches_per_iteration(als.build_ratings_data(
                 batch.rows, batch.cols, batch.vals, len(batch.entity_ids),
@@ -3115,8 +3184,13 @@ def filelog(torch, device, stats, prep: IngestPrep, fprep: FilelogPrep):
             als.solve_bucket.launches.reset()
             topk.gather_top_k_batch.launches.reset()
             t0 = time.perf_counter()
-            server = EngineServer(engine, storage.get_metadata_engine_instances().get(iid),
-                                  storage=storage, host="127.0.0.1", port=0, device=device)
+            os.environ["PIO_PREP_CACHE_DIR"] = os.path.join(prep_dir, "retrain")
+            try:
+                server = EngineServer(engine, storage.get_metadata_engine_instances().get(iid),
+                                      storage=storage, host="127.0.0.1", port=0,
+                                      device=device)
+            finally:
+                os.environ["PIO_PREP_CACHE_DIR"] = prep_dir
             retrain_s = time.perf_counter() - t0
             k1_retrain = als.solve_bucket.launches.value
             if k1_retrain != FILELOG_RETRAIN_ITERATIONS * per_iter2:
@@ -3140,13 +3214,304 @@ def filelog(torch, device, stats, prep: IngestPrep, fprep: FilelogPrep):
             out["retrain_on_deploy"] = {"deploy_s": retrain_s, "k1_launches": k1_retrain,
                                         "k2_calls": k2_retrained, "ratings": len(batch.vals)}
     finally:
+        # the stores stay for the prepcache phase; main() removes them
         for proc in (server, es):
             if proc is not None:
                 proc.stop()
-        for basedir in dirs.values():
-            shutil.rmtree(basedir, ignore_errors=True)
     stats["filelog"] = out
     log(json.dumps({"filelog": "ml1m partitioned + jsonl", **out}))
+
+
+# -- phase: the packed-prep cache ------------------------------------------------
+
+PREP_ITERATIONS = 5
+PREP_NEW_USERS, PREP_NEW_ITEMS = 200, 50  # in the appended tail
+PREP_APPEND = 5_000  # rating events appended through import
+PREP_SEAL_SEGMENT = 4 << 10  # the sealing client's segment size
+
+
+class TrainCapture:
+    """What one ``cli.main train`` hands K1, captured in process:
+    ``read_training``'s TrainingData and seconds, the seconds of the
+    bucket layout (built or from the prep cache), and ``als_train``'s
+    RatingsData and factors."""
+
+    def __init__(self, rec, als, prep_cache):
+        self.rec, self.als, self.prep_cache = rec, als, prep_cache
+        self.out: dict = {}
+
+    def __enter__(self):
+        rec, als, handle = self.rec, self.als, self.prep_cache.PrepHandle
+        self.saved = (rec.RecommendationDataSource.read_training, als.build_ratings_data,
+                      handle.packed_buckets, als.als_train)
+        read, build, packed, train = self.saved
+        out = self.out
+
+        def timed(key, fn):
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                result = fn(*a, **kw)
+                out[key] = out.get(key, 0.0) + time.perf_counter() - t0
+                return result
+            return call
+
+        def read_training(ds, ctx):
+            out["td"] = td = timed("read_training_s", read)(ds, ctx)
+            return td
+
+        def packed_buckets(h, *a, **kw):
+            result = timed("layout_s", packed)(h, *a, **kw)
+            out["from_cache"] = result is not None
+            return result
+
+        def als_train(data, *a, **kw):
+            out["data"] = data
+            out["factors"] = timed("als_train_s", train)(data, *a, **kw)
+            return out["factors"]
+
+        rec.RecommendationDataSource.read_training = read_training
+        als.build_ratings_data = timed("layout_s", build)
+        handle.packed_buckets = packed_buckets
+        als.als_train = als_train
+        return self
+
+    def __exit__(self, *exc):
+        (self.rec.RecommendationDataSource.read_training, self.als.build_ratings_data,
+         self.prep_cache.PrepHandle.packed_buckets, self.als.als_train) = self.saved
+
+
+def same_batch(td, ref) -> bool:
+    """Two TrainingData bit for bit: ids, and rows / cols / ratings with
+    their dtypes."""
+    return (list(td.user_ids) == list(ref.user_ids)
+            and list(td.item_ids) == list(ref.item_ids)
+            and all(a.dtype == b.dtype and np.array_equal(a, b)
+                    for a, b in ((td.rows, ref.rows), (td.cols, ref.cols),
+                                 (td.ratings, ref.ratings))))
+
+
+def same_buckets(got, want) -> bool:
+    """Two PaddedBucket lists bit for bit, ``seg_row`` included."""
+    return len(got) == len(want) and all(
+        all(getattr(a, f).dtype == getattr(b, f).dtype
+            and np.array_equal(getattr(a, f), getattr(b, f))
+            for f in ("row_ids", "col_ids", "ratings", "mask"))
+        and (a.seg_row is None) == (b.seg_row is None)
+        and (a.seg_row is None or np.array_equal(a.seg_row, b.seg_row))
+        for a, b in zip(got, want))
+
+
+def prep_tail_lines(rng, nu: int, ni: int) -> str:
+    """PREP_APPEND rating events: PREP_NEW_USERS new users (``tail<j>``),
+    PREP_NEW_ITEMS new items (``tailitem<c>``), the rest known users and
+    items."""
+    users = [f"tail{j}" for j in range(PREP_NEW_USERS)]
+    items = [f"tailitem{c}" for c in range(PREP_NEW_ITEMS)]
+    lines = []
+    for k in range(PREP_APPEND):
+        u = users[k % len(users)] if k % 3 == 0 else f"u{int(rng.integers(0, nu))}"
+        i = items[k % len(items)] if k % 7 == 0 else f"i{int(rng.integers(0, ni))}"
+        lines.append('{"event":"rate","entityType":"user","entityId":"%s",'
+                     '"targetEntityType":"item","targetEntityId":"%s",'
+                     '"properties":{"rating":%.1f},"eventTime":"%s"}\n'
+                     % (u, i, float(rng.integers(1, 6)), INGEST_TIME))
+    return "".join(lines)
+
+
+@phase("prepcache: train miss -> hit -> import a tail -> splice, each held to a fresh "
+       "scan and layout; a seal on the partitioned store; the cache verb (ML-1M shape)")
+def prep_cache_phase(torch, device, stats, prep: IngestPrep, fprep: FilelogPrep):
+    """The packed-prep cache on the filelog phase's stores (see the module
+    docstring): three ``train`` runs on the jsonl store (miss, hit, splice)
+    and a ``--no-prep-cache`` one, each holding what K1 received to a
+    fresh read and layout; a seal's rebuild on the partitioned store; the
+    ``cache`` verb."""
+    from predictionio_tpu_torch.cli import main as cli
+    from predictionio_tpu_torch.core import prep_cache
+    from predictionio_tpu_torch.data import storage as st
+    from predictionio_tpu_torch.data import store
+    from predictionio_tpu_torch.models import recommendation as rec
+    from predictionio_tpu_torch.obs import metrics as obs_metrics
+    from predictionio_tpu_torch.ops import als
+
+    jl, part = fprep.dirs["jsonl"], fprep.dirs["partitioned"]
+    jl_env, part_env = filelog_env(jl, "jsonl"), filelog_env(part, "partitioned")
+    nu, ni = prep.out["num_users"], prep.out["num_items"]
+    global_dir = os.environ["PIO_PREP_CACHE_DIR"]
+    cache_dir = os.path.join(global_dir, "prepcache")
+    variant = os.path.join(jl, "engine.json")
+    with open(variant, "w") as f:
+        json.dump({"id": "chip-smoke-prepcache", "engineFactory": REC_FACTORY,
+                   "datasource": {"params": {"appName": "ML1M"}},
+                   "algorithms": [{"name": "als", "params": {
+                       "rank": INGEST_RANK, "numIterations": PREP_ITERATIONS,
+                       "lambda": TRAIN_REG, "seed": 3}}]}, f)
+    out: dict = {"card": stats.get("smi"), "iterations": PREP_ITERATIONS}
+    knobs = ("PIO_PREP_CACHE", "PIO_PREP_CACHE_DIR")
+    saved = {k: os.environ.get(k) for k in knobs}
+
+    def restore_knobs():
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    def train(what: str, *flags) -> tuple[dict, dict]:
+        """One ``cli.main train`` with K1's count reset before and read
+        after; the K1 launches must be the iterations x the buckets."""
+        with TrainCapture(rec, als, prep_cache) as cap:
+            als.solve_bucket.launches.reset()  # this path starts here
+            t0 = time.perf_counter()
+            try:
+                rc = cli.main(["train", "--variant", variant, *flags])
+            finally:
+                restore_knobs()  # cmd_train sets the knobs it is given
+            wall = time.perf_counter() - t0
+            k1 = als.solve_bucket.launches.value
+        if rc != 0:
+            raise AssertionError(f"{what}: cli train exited {rc}")
+        got = cap.out
+        td, data = got["td"], got["data"]
+        expect = PREP_ITERATIONS * k1_launches_per_iteration(data, INGEST_RANK)
+        if k1 != expect:
+            raise AssertionError(f"{what}: K1 launched {k1}, expected {expect}")
+        status = td.prep.status if td.prep is not None else "off"
+        row = {"status": status, "ratings": len(td.ratings),
+               "read_training_s": got["read_training_s"], "layout_s": got["layout_s"],
+               "layout_from_cache": bool(got.get("from_cache")),
+               "als_train_s": got["als_train_s"], "train_s": wall, "k1_launches": k1}
+        log(json.dumps({"prepcache": what, **row}))
+        return row, got
+
+    def held_to_fresh(what: str, got: dict) -> None:
+        """The batch and both bucket lists K1 received, bit-equal to a
+        PIO_PREP_CACHE=0 read and build_padded_buckets of the same log."""
+        os.environ["PIO_PREP_CACHE"] = "0"
+        try:
+            ref = rec.RecommendationDataSource(
+                rec.DataSourceParams(app_name="ML1M")).read_training(None)
+        finally:
+            restore_knobs()
+        data = got["data"]
+        if not same_batch(got["td"], ref):
+            raise AssertionError(f"{what}: the batch differs from a fresh read")
+        widths = rec.ALSAlgorithmParams().bucket_widths
+        if not (same_buckets(data.row_buckets, als.build_padded_buckets(
+                    ref.rows, ref.cols, ref.ratings, widths))
+                and same_buckets(data.col_buckets, als.build_padded_buckets(
+                    ref.cols, ref.rows, ref.ratings, widths))):
+            raise AssertionError(f"{what}: the buckets differ from a fresh layout")
+
+    def rebuilds(reason: str) -> float:
+        return obs_metrics.counter("pio_prep_cache_rebuilds_total", reason=reason).value()
+
+    def cache_cli(*argv) -> tuple[int, str]:
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main(["cache", *argv])
+        return rc, printed.getvalue()
+
+    try:
+        with storage_env(jl, jl_env):
+            flags = ["--prep-cache-dir", cache_dir]
+            miss, _ = train("miss", *flags)
+            entries = [n for n in os.listdir(cache_dir) if n.endswith(".prep")]
+            if miss["status"] != "miss" or len(entries) != 1:
+                raise AssertionError(f"the first train: {miss}, entries "
+                                     f"{os.listdir(cache_dir)}")
+            hit, got = train("hit", *flags)
+            if hit["status"] != "hit" or not hit["layout_from_cache"]:
+                raise AssertionError(f"the second train: {hit}")
+            held_to_fresh("hit", got)
+            tail = os.path.join(jl, "tail.jsonl")
+            with open(tail, "w") as f:
+                f.write(prep_tail_lines(np.random.default_rng(SEED + 19), nu, ni))
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                rc = cli.main(["import", "--appid-or-name", "ML1M", "--input", tail])
+            if rc != 0 or f"Imported {PREP_APPEND} events." not in printed.getvalue():
+                raise AssertionError(f"import of the tail: {rc} {printed.getvalue()!r}")
+            splice, got = train("splice", *flags)
+            if splice["status"] != "splice" or not splice["layout_from_cache"]:
+                raise AssertionError(f"the train after the append: {splice}")
+            if splice["ratings"] != hit["ratings"] + PREP_APPEND:
+                raise AssertionError(f"the splice read {splice['ratings']} ratings, "
+                                     f"expected {hit['ratings']} + {PREP_APPEND}")
+            held_to_fresh("splice", got)
+            cold, cold_got = train("cold", "--no-prep-cache", *flags)
+            if cold["status"] != "off" or cold["layout_from_cache"]:
+                raise AssertionError(f"train --no-prep-cache: {cold}")
+            (U, V), (U0, V0) = got["factors"], cold_got["factors"]
+            if not (same_bits(torch, U, U0) and same_bits(torch, V, V0)):
+                raise AssertionError("the splice-fed train's factors differ from a "
+                                     "--no-prep-cache train's from the same seed")
+            out.update(miss=miss, hit=hit, splice=splice, cold=cold)
+
+            # the cache verb on the phase's directory
+            os.environ["PIO_PREP_CACHE_DIR"] = cache_dir
+            rc, text = cache_cli("list", "--json")
+            listing = json.loads(text)
+            names = [e["name"] for e in listing["entries"]]
+            if (rc != 0 or len(names) != 1 or listing["entries"][0]["n"] != splice["ratings"]
+                    or not listing["entries"][0]["single_pack"]):
+                raise AssertionError(f"cache list --json: {rc} {listing}")
+            rc, text = cache_cli("evict", names[0])
+            if rc != 0 or prep_cache.cache_entries():
+                raise AssertionError(f"cache evict: {rc} {text!r}")
+            restore_knobs()
+
+        # the partitioned store: the entry the filelog phase's train
+        # published, then a seal
+        with storage_env(part, part_env):
+            storage = st.get_storage()
+            app_id = store.app_name_to_id("ML1M", None, storage)[0]
+            probe = dict(entity_type="user", event_names=["rate", "buy"],
+                         target_entity_type="item", rating_key="rating",
+                         default_ratings=None, override_ratings={"buy": 4.0})
+            [entry] = [e for e in prep_cache.cache_entries(detail=True)]
+            if not entry["spliceable"]:
+                raise AssertionError(f"the filelog train's entry is not spliceable: {entry}")
+            sealed0 = sum(sealed_segments(part).values())
+        with storage_env(part, part_env | {
+                "PIO_STORAGE_SOURCES_LOG_SEGMENT_BYTES": str(PREP_SEAL_SEGMENT)}):
+            from predictionio_tpu_torch.data.event import Event
+
+            st.get_storage().get_events().batch_insert([
+                Event(event="rate", entity_type="user", entity_id=f"u{u}",
+                      target_entity_type="item", target_entity_id="i1",
+                      properties={"rating": 3.0}) for u in range(4 * FILELOG_PARTITIONS)],
+                app_id)
+        sealed = sum(sealed_segments(part).values()) - sealed0
+        if sealed <= 0:
+            raise AssertionError("the append through a small-segment client sealed nothing")
+        with storage_env(part, part_env):
+            changed0 = rebuilds("changed")
+            t0 = time.perf_counter()
+            handle = prep_cache.probe("ML1M", **probe)
+            probe_s = time.perf_counter() - t0
+            if handle.status != "miss" or rebuilds("changed") != changed0 + 1:
+                raise AssertionError(f"after a seal: status {handle.status}, "
+                                     f"changed rebuilds {rebuilds('changed') - changed0}")
+        out["partitioned_seal"] = {"sealed_segments": sealed, "status": handle.status,
+                                   "reason": "changed", "probe_s": probe_s}
+        # cache prune --max-mb on the script's own directory
+        husk = os.path.join(global_dir, "x.prep.tmp.1")
+        with open(husk, "wb") as f:
+            f.write(b"partial")
+        os.utime(husk, (time.time() - 1e4, time.time() - 1e4))
+        before = [e["name"] for e in prep_cache.cache_entries()]
+        rc, text = cache_cli("prune", "--max-mb", "0.000001", "--json")
+        pruned = json.loads(text)
+        if (rc != 0 or pruned["husks"] != ["x.prep.tmp.1"]
+                or sorted(pruned["evicted"]) != sorted(before) or not before
+                or prep_cache.cache_entries()):
+            raise AssertionError(f"cache prune: {rc} {pruned}, entries before {before}")
+        out["cache_verb"] = {"listed": names, "evicted": names, "pruned": pruned}
+    finally:
+        restore_knobs()
+    stats["prepcache"] = out
+    log(json.dumps({"prepcache": "ml1m jsonl + partitioned", **out}))
 
 
 # -- phase: full width -------------------------------------------------------------
@@ -4981,14 +5346,20 @@ def k1s_new_vs_old(torch, device, stats):
 
 
 def per_query_sums(chunk) -> tuple:
-    """Sums of core/ranking.py's per-query P@K, AP@K and NDCG@K over
-    (predicted ids, actual, k) triples, and the count of scored points
-    (a worker of the eval phase's parity check)."""
+    """Sums of core/ranking.py's per-query P@K, AP@K and NDCG@K over a
+    chunk ``(key, pred, actual, k)`` of queries, and the count of scored
+    points (a worker of the eval phase's parity check). Items are coded
+    as their index in the generated item ids: ``pred [n, K]`` (-1 pads),
+    ``actual [n]`` the held-out item of each query, passed to the
+    functions as the ``{"item": ...}`` record the folds hold."""
     sys.path.insert(0, ROOT)
     from predictionio_tpu_torch.core import ranking
 
+    key, preds, actuals, k = chunk
     sums, n = [0.0, 0.0, 0.0], 0
-    for pred, actual, k in chunk:
+    for row, item in zip(preds.tolist(), actuals.tolist()):
+        pred = [x for x in row if x >= 0]
+        actual = {"item": item}
         vals = (ranking.precision_at_k(pred, actual, k),
                 ranking.average_precision_at_k(pred, actual, k),
                 ranking.ndcg_at_k(pred, actual, k))
@@ -4997,7 +5368,7 @@ def per_query_sums(chunk) -> tuple:
         n += 1
         for j in range(3):
             sums[j] += vals[j]
-    return sums, n
+    return key, sums, n
 
 
 @phase("eval: the shipped recommendation sweep at the ML-1M shape (run_evaluation)")
@@ -5096,27 +5467,41 @@ def eval_sweep(torch, device, stats):
     queries = sum(len(qa) for _, _, qa in folds)
 
     # parity: the per-query functions on the same top-k matrices
-    by_fold = {id(qa[0][0]): qa for _, _, qa in folds}
-    triples: dict[str, list] = {}
-    for params, _, qs, answer in answers:
-        qa = by_fold[id(qs[0])]
-        inv = answer.index.inverse
-        ids = host(answer.ids)
-        key = json.dumps(params.to_dict(), sort_keys=True)
-        triples.setdefault(key, []).extend(
-            ([inv[int(i)] for i in row if i >= 0], actual, rec_eval.K)
-            for row, (_, actual) in zip(ids, qa))
+    # (item ids coded as their index in td.item_ids, a bijection, so the
+    # functions see the same membership and order), in a pool beside the
+    # K1s and K2 holds below
+    code = {item: j for j, item in enumerate(td.item_ids)}
+    by_fold = {id(qa[0][0]): np.fromiter((code[a["item"]] for _, a in qa), np.int64, len(qa))
+               for _, _, qa in folds}
     workers = min(8, os.cpu_count() or 1)
+    chunks = []
+    for params, _, qs, answer in answers:
+        actual = by_fold[id(qs[0])]
+        inv = answer.index.inverse
+        to_code = np.fromiter((code[inv[m]] for m in range(len(inv))), np.int64, len(inv))
+        ids = host(answer.ids).astype(np.int64)
+        pred = np.where(ids >= 0, to_code[np.clip(ids, 0, None)], -1)
+        key = json.dumps(params.to_dict(), sort_keys=True)
+        step = -(-len(actual) // workers)
+        chunks += [(key, pred[i:i + step], actual[i:i + step], rec_eval.K)
+                   for i in range(0, len(actual), step)]
     import multiprocessing
 
+    pool = multiprocessing.get_context("spawn").Pool(workers)
+    try:
+        pending = pool.map_async(per_query_sums, chunks)
+        k1s_err = eval_k1s_holds(torch, device, rec, sweeps, k1s, stats)
+        stats["k1s_max_abs_err"] = max(stats.get("k1s_max_abs_err", 0.0), k1s_err)
+        stats["topk_items_max_abs_err"] = max(stats.get("topk_items_max_abs_err", 0.0),
+                                              eval_topk_holds(torch, device, topk, answers))
+        parts = pending.get()
+    finally:
+        pool.terminate()
     per_query = {}
-    with multiprocessing.get_context("spawn").Pool(workers) as pool:
-        for key, items in triples.items():
-            step = -(-len(items) // workers)
-            parts = pool.map(per_query_sums, [items[i:i + step]
-                                              for i in range(0, len(items), step)])
-            n = sum(p[1] for p in parts)
-            per_query[key] = [sum(p[0][j] for p in parts) / n for j in range(3)]
+    for key in {p[0] for p in parts}:
+        mine = [p for p in parts if p[0] == key]
+        n = sum(p[2] for p in mine)
+        per_query[key] = [sum(p[1][j] for p in mine) / n for j in range(3)]
     diff = 0.0
     for ep, ms in result.engine_params_scores:
         key = json.dumps(ep.algorithms[0][1].to_dict(), sort_keys=True)
@@ -5125,10 +5510,6 @@ def eval_sweep(torch, device, stats):
     if not diff <= 1e-6:
         raise AssertionError(f"fast-path scores differ from the per-query functions by {diff}")
 
-    k1s_err = eval_k1s_holds(torch, device, rec, sweeps, k1s, stats)
-    stats["k1s_max_abs_err"] = max(stats.get("k1s_max_abs_err", 0.0), k1s_err)
-    stats["topk_items_max_abs_err"] = max(stats.get("topk_items_max_abs_err", 0.0),
-                                          eval_topk_holds(torch, device, topk, answers))
     phases = result.phase_seconds
     scoring_s = phases.get("predict", 0.0) + phases.get("metric", 0.0)
     stats["eval_launches"] = {"k1s": k1s, "k2_eval_calls": k2_calls,
@@ -6003,6 +6384,7 @@ def rec_retrieval(torch, device, storage, basedir, stats, servers) -> dict:
     queries = [{"user": u, "num": RET_NUM} for u in users]
     engine = rec.engine()
     out = {}
+    started = []
     for dtype, probe in (("float32", 0), ("int8", 1)):
         if dtype == "int8":
             (uq, us), (vq, vs) = (quantize_rows_host(torch, a, device) for a in (uf, vf))
@@ -6013,16 +6395,19 @@ def rec_retrieval(torch, device, storage, basedir, stats, servers) -> dict:
             "rank": RET_D, "storage_dtype": dtype}}]})
         iid = save_instance(engine, ep, [model], engine_id=f"chip-smoke-ret-{dtype}",
                             engine_variant="ret", engine_factory=REC_FACTORY, storage=storage)
+        server = DeployProcess(basedir, iid, device.type, ["--batch-window-ms", str(BATCH_WINDOW_MS)],
+                               f"ret-{dtype}", {"PIO_RETRIEVAL_PROBE_EVERY": str(probe)},
+                               wait=False)
+        servers.append(server)
+        started.append((dtype, probe, model, server))
+    yield  # every server of the phase starts before the first is measured
+    for dtype, probe, model, server in started:
         mode = "int8" if dtype == "int8" else "bf16"
         kernels = {"k4": K4_CALLS % mode, "k5": K5_CALLS % "gather", **K4_ROUTES,
                    "k4_kernels": "pio_k4_kernel_launches", "k5_kernels": "pio_k5_kernel_launches",
                    "k2": 'pio_k2_calls{kernel="gather_top_k_batch",route="tile"}',
                    "probes": "pio_retrieval_probes_total"}
-        t0 = time.perf_counter()
-        server = DeployProcess(basedir, iid, device.type, ["--batch-window-ms", str(BATCH_WINDOW_MS)],
-                               f"ret-{dtype}", {"PIO_RETRIEVAL_PROBE_EVERY": str(probe)})
-        servers.append(server)
-        ready_s = time.perf_counter() - t0
+        ready_s = server.wait_ready()
         check_warm_k4(server.metrics(), mode, dtype)
         # first, while the server's ring of slowest traces has room
         spans = check_traced(server, queries[0], f"c0ffee00000000{len(out):02d}")
@@ -6049,7 +6434,6 @@ def rec_retrieval(torch, device, storage, basedir, stats, servers) -> dict:
                          for c, lv in levels.items()}}
         server.stop()
         log(json.dumps({"retrieval": f"recommendation {dtype}", **out[dtype]}))
-        del model
     return out
 
 
@@ -6122,11 +6506,11 @@ def sim_retrieval(torch, device, storage, basedir, stats, servers) -> dict:
     kernels = {"k4": K4_CALLS % "bf16", "k5": K5_CALLS % "sum_rows", **K4_ROUTES,
                "k4_kernels": "pio_k4_kernel_launches", "k5_kernels": "pio_k5_kernel_launches",
                "k2s": 'pio_k2_calls{kernel="sum_rows_top_k_batch",route="tile"}'}
-    t0 = time.perf_counter()
     server = DeployProcess(basedir, iid, device.type, ["--batch-window-ms", str(BATCH_WINDOW_MS)],
-                           "ret-sim", {"PIO_RETRIEVAL_PROBE_EVERY": "0"})
+                           "ret-sim", {"PIO_RETRIEVAL_PROBE_EVERY": "0"}, wait=False)
     servers.append(server)
-    ready_s = time.perf_counter() - t0
+    yield  # every server of the phase starts before the first is measured
+    ready_s = server.wait_ready()
     spans = check_traced(server, simple[0], "c0ffee0000000099")
     levels = {}
     for c in RET_LEVELS:
@@ -6213,9 +6597,12 @@ def retrieval_serving(torch, device, stats):
     with the micro-batcher on (``--batch-window-ms 2``): the
     recommendation template (U = 138,493, I = 1,000,000, rank 32; f32 and
     int8; 500 distinct users at num = 10, at concurrency 1 and 8) and
-    the similar-product template (I = 1,000,000, rank 10). Per server:
-    ready_s (process start to /readyz, the coarse build at warmup
-    included: K4 ran before the first query), every answer against the
+    the similar-product template (I = 1,000,000, rank 10). The five
+    servers start together, once their models are saved, and are
+    measured one at a time while the others idle. Per server: ready_s
+    (process start to /readyz, the coarse build at warmup included: K4
+    ran before the first query; the five start-ups share the host),
+    every answer against the
     plain two-stage version, recall@num >= 0.999 against exact K2/K2s,
     answers whose shortlist holds the exact top num equal to K2's with
     scores bit for bit, batched answers equal to solo ones, K4 / K5 / K2
@@ -6231,11 +6618,21 @@ def retrieval_serving(torch, device, stats):
     servers: list = []
     topk.top_k_similar.launches.reset()  # the main path's K2 cosine calls, read below
     try:
-        out = {"recommendation": rec_retrieval(torch, device, storage, basedir, stats, servers),
-               "similar": sim_retrieval(torch, device, storage, basedir, stats, servers),
-               "recommended_user": ru_retrieval(torch, device, storage, basedir, stats,
-                                                servers),
-               "ecommerce": ec_retrieval(torch, device, storage, basedir, stats, servers)}
+        # each part builds and saves its models and starts its servers (the
+        # e-commerce part first: it writes events into the store), then
+        # each is measured in turn, the other servers idle
+        parts = {name: fn(torch, device, storage, basedir, stats, servers) for name, fn in (
+            ("ecommerce", ec_retrieval), ("recommendation", rec_retrieval),
+            ("similar", sim_retrieval), ("recommended_user", ru_retrieval))}
+        for part in parts.values():
+            next(part)
+        out = {}
+        for name in ("recommendation", "similar", "recommended_user", "ecommerce"):
+            try:
+                next(parts[name])
+                raise AssertionError(f"retrieval {name}: a second start")
+            except StopIteration as done:
+                out[name] = done.value
     except BaseException:
         for s in servers:
             if s.proc.poll() is None:
@@ -7540,11 +7937,11 @@ def ru_retrieval(torch, device, storage, basedir, stats, servers) -> dict:
     kernels = {"k4": K4_CALLS % "bf16", "k5": K5_CALLS % "sum_rows", **K4_ROUTES,
                "k4_kernels": "pio_k4_kernel_launches", "k5_kernels": "pio_k5_kernel_launches",
                "k2s": 'pio_k2_calls{kernel="sum_rows_top_k_batch",route="tile"}'}
-    t0 = time.perf_counter()
     server = DeployProcess(basedir, iid, device.type, ["--batch-window-ms", str(BATCH_WINDOW_MS)],
-                           "ret-ru", {"PIO_RETRIEVAL_PROBE_EVERY": "0"})
+                           "ret-ru", {"PIO_RETRIEVAL_PROBE_EVERY": "0"}, wait=False)
     servers.append(server)
-    ready_s = time.perf_counter() - t0
+    yield  # every server of the phase starts before the first is measured
+    ready_s = server.wait_ready()
     check_warm_k4(server.metrics(), "bf16", "recommended-user")
     spans = check_traced(server, queries[0], "c0ffee00000000a1")
     levels = {}
@@ -7647,11 +8044,11 @@ def ec_retrieval(torch, device, storage, basedir, stats, servers) -> dict:
     kernels = {"k4": K4_CALLS % "bf16", "k5": K5_CALLS % "vectors", **K4_ROUTES,
                "k4_kernels": "pio_k4_kernel_launches", "k5_kernels": "pio_k5_kernel_launches",
                "k2": 'pio_k2_calls{kernel="gather_top_k_batch",route="tile"}'}
-    t0 = time.perf_counter()
     server = DeployProcess(basedir, iid, device.type, ["--batch-window-ms", str(BATCH_WINDOW_MS)],
-                           "ret-ec", {"PIO_RETRIEVAL_PROBE_EVERY": "0"})
+                           "ret-ec", {"PIO_RETRIEVAL_PROBE_EVERY": "0"}, wait=False)
     servers.append(server)
-    ready_s = time.perf_counter() - t0
+    yield  # every server of the phase starts before the first is measured
+    ready_s = server.wait_ready()
     check_warm_k4(server.metrics(), "bf16", "e-commerce")
     spans = check_traced(server, queries[0], "c0ffee00000000e1")
     levels = {}
@@ -8011,7 +8408,8 @@ def filelog_k1_summary(stats) -> dict:
     store, ML-1M): one fold's grouped buckets on the queued-events clock;
     ``launches`` the deploy's count over its one fold (its /metrics);
     ``train_launches`` and ``retrain_launches`` the phase's ``train`` and
-    retrain-on-deploy."""
+    retrain-on-deploy; ``prepcache_launches`` the prepcache phase's four
+    trains (miss, hit, splice, and the cold one)."""
     fl = stats["filelog"]
     k1 = fl["fold"]["k1"]
     return {
@@ -8028,6 +8426,8 @@ def filelog_k1_summary(stats) -> dict:
         "library_ms": k1["library_ms"],
         "train_launches": fl["train_k1_launches"],
         "retrain_launches": fl["retrain_on_deploy"]["k1_launches"],
+        "prepcache_launches": {k: stats["prepcache"][k]["k1_launches"]
+                               for k in ("miss", "hit", "splice", "cold")},
     }
 
 
@@ -8092,6 +8492,7 @@ def main() -> int:
         "lifecycle": lambda: lifecycle(torch, device, stats),
         "ingest": lambda: ingest(torch, device, stats, prep),
         "filelog": lambda: filelog(torch, device, stats, prep, fprep),
+        "prepcache": lambda: prep_cache_phase(torch, device, stats, prep, fprep),
         "simlife": lambda: similar_lifecycle(torch, device, stats),
         "templife": lambda: templates_lifecycle(torch, device, stats),
         "train": lambda: full_width(torch, device, stats),
@@ -8119,8 +8520,12 @@ def main() -> int:
     stats["smi"] = smi
     # the ingest phase's host-only start (files, import, export) runs
     # beside the build and the kernel checks: it touches no device
-    prep = IngestPrep() if {"ingest", "filelog"} & set(chosen) else None
-    fprep = FilelogPrep(prep) if "filelog" in chosen else None
+    prep = IngestPrep() if {"ingest", "filelog", "prepcache"} & set(chosen) else None
+    fprep = FilelogPrep(prep) if {"filelog", "prepcache"} & set(chosen) else None
+    # every train of the run keeps its packed-prep cache entries here, so
+    # no entry of an earlier run gives a false hit
+    prep_dir = tempfile.mkdtemp(prefix="pio_chip_smoke_prep_")
+    os.environ["PIO_PREP_CACHE_DIR"] = prep_dir
     preps = [p for p in (prep, fprep) if p is not None]
     for p in preps:
         p.start()
@@ -8154,6 +8559,7 @@ def main() -> int:
         shutil.rmtree(prep.datadir, ignore_errors=True)
     for basedir in (fprep.dirs.values() if fprep is not None else ()):
         shutil.rmtree(basedir, ignore_errors=True)
+    shutil.rmtree(prep_dir, ignore_errors=True)
     log(f"total {time.perf_counter() - t0:.1f}s")
     if failures:
         log(f"chip_smoke FAILED phases: {failures}")

@@ -19,7 +19,8 @@
         [--engine-id ID] [--engine-version V] [--batch LABEL] \\
         [--skip-sanity-check] [--stop-after-read] [--stop-after-prepare] \\
         [--warm-start] [--tol T] [--checkpoint-every N] [--resume] \\
-        [--checkpoint-dir DIR] [--no-columnar-cache] [--device cuda|cpu]
+        [--checkpoint-dir DIR] [--no-columnar-cache] [--no-prep-cache] \\
+        [--prep-cache-dir DIR] [--device cuda|cpu]
     python -m predictionio_tpu_torch.cli.main deploy \\
         [--engine-instance-id ID | --variant engine.json] \\
         [--ip 0.0.0.0] [--port 8000] [--device cuda|cpu] \\
@@ -31,12 +32,15 @@
     python -m predictionio_tpu_torch.cli.main undeploy [--ip IP] [--port P]
     python -m predictionio_tpu_torch.cli.main eval EVALUATION \\
         [ENGINE_PARAMS_GENERATOR] [--batch LABEL] [--device cuda|cpu]
+    python -m predictionio_tpu_torch.cli.main cache \\
+        {list [--json] | evict ENTRY | prune [--max-mb MB] [--json]}
 
 Port of ``predictionio_tpu/cli/main.py`` ``cmd_version`` (:106),
 ``cmd_status`` (:111), ``cmd_app`` (:755), ``cmd_accesskey`` (:799),
 ``cmd_train`` (:843-894), ``cmd_eval`` (:900-934), ``cmd_deploy``
 (:1053-1207), ``cmd_undeploy`` (:1210), ``cmd_eventserver`` (:1223),
-``cmd_export`` (:1308) and ``cmd_import`` (:1323), with the JAX verbs'
+``cmd_export`` (:1308), ``cmd_import`` (:1323) and ``cmd_cache``
+(:1381), with the JAX verbs'
 flags and printed lines. The app, access-key, import, export and
 event-server verbs are host code (``cli/commands.py``,
 ``server/event_server.py``) and start no device; they write records and
@@ -54,7 +58,11 @@ latest COMPLETED instance of that identity, whichever package trained
 it. ``--checkpoint-every N``, ``--resume`` and ``--checkpoint-dir DIR``
 set ``PIO_CHECKPOINT_EVERY``, ``PIO_RESUME`` and ``PIO_CHECKPOINT_DIR``
 as the JAX CLI does (``core/checkpoint.py``; the files are the JAX
-package's, so either package resumes the other's). The JAX CLI's mesh,
+package's, so either package resumes the other's). ``--no-prep-cache``
+and ``--prep-cache-dir DIR`` set ``PIO_PREP_CACHE=0`` and
+``PIO_PREP_CACHE_DIR`` (``core/prep_cache.py``; either package hits the
+other's entries), and ``cache list|evict|prune`` keeps that directory.
+The JAX CLI's mesh,
 multi-host and profiler flags belong to later slices and are not
 accepted. ``deploy --realtime SECONDS`` runs the speed layer
 (``realtime/``), one per mounted variant, folding tailed rating events
@@ -62,8 +70,8 @@ into the served model every SECONDS; its cursor is
 ``--realtime-cursor`` or ``~/.pio_tpu/realtime/cursor_<engine>_<port>
 .json``. Flags that need a later slice are accepted and raise
 ``NotImplementedError`` naming it (``_check_later_slices``), never
-ignored: ``deploy --workers N`` and ``eventserver --workers N`` (N > 1),
-``train --no-prep-cache`` / ``--prep-cache-dir`` and ``status --json``. ``import --warm-cache`` builds the columnar
+ignored: ``deploy --workers N`` and ``eventserver --workers N`` (N > 1)
+and ``status --json``. ``import --warm-cache`` builds the columnar
 segment cache of a jsonl or partitioned store after the import, and
 ``train --no-columnar-cache`` reads the row logs instead
 (``PIO_COLUMNAR_CACHE=0``). The engine factory
@@ -84,6 +92,7 @@ import json
 import logging
 import os
 import sys
+import time
 
 from predictionio_tpu_torch import __version__
 from predictionio_tpu_torch.common import load_server_config
@@ -310,6 +319,10 @@ def cmd_train(args) -> int:
         os.environ["PIO_CHECKPOINT_DIR"] = args.checkpoint_dir
     if args.no_columnar_cache:
         os.environ["PIO_COLUMNAR_CACHE"] = "0"
+    if args.no_prep_cache:
+        os.environ["PIO_PREP_CACHE"] = "0"
+    if args.prep_cache_dir:
+        os.environ["PIO_PREP_CACHE_DIR"] = args.prep_cache_dir
     variant = load_variant(args.variant) if args.variant else {}
     factory = variant.get("engineFactory") or DEFAULT_ENGINE_FACTORY
     engine = resolve_engine_factory(factory)
@@ -377,6 +390,58 @@ def cmd_eval(args) -> int:
     return 0
 
 
+def cmd_cache(args) -> int:
+    """``cache list|evict|prune``: the packed-prep cache's lifecycle
+    (``core/prep_cache.py``). Entries are derived data: evicting one only
+    costs the next train a full scan and layout."""
+    from predictionio_tpu_torch.core import prep_cache
+
+    verb = args.cache_verb or "list"
+    if verb == "list":
+        entries = prep_cache.cache_entries(detail=True)
+        total = sum(e["bytes"] for e in entries)
+        cap = prep_cache.max_bytes()
+        if args.json:
+            print(json.dumps({
+                "dir": str(prep_cache.cache_dir()),
+                "total_bytes": total,
+                "max_bytes": cap,
+                "entries": entries,
+            }, indent=2))
+            return 0
+        print(f"Prep cache: {prep_cache.cache_dir()}")
+        if not entries:
+            print("  (empty)")
+            return 0
+        for e in entries:
+            packs = [k for k, key in (("single", "single_pack"), ("sharded", "sharded_pack"))
+                     if e.get(key)]
+            age = time.time() - e["atime"]
+            print(
+                f"  {e['name']}: {e['bytes'] / 1e6:.1f} MB, "
+                f"{e.get('n', 0):,} events, "
+                f"packs [{', '.join(packs) or 'none'}], "
+                f"last used {age:.0f}s ago"
+            )
+        cap_s = f" / cap {cap / 1e6:.1f} MB" if cap else ""
+        print(f"  total {total / 1e6:.1f} MB{cap_s}")
+        return 0
+    if verb == "evict":
+        if prep_cache.evict(args.entry):
+            print(f"evicted {args.entry}")
+            return 0
+        print(f"cache: no such entry {args.entry!r}", file=sys.stderr)
+        return 1
+    limit = None if args.max_mb is None else int(float(args.max_mb) * 1024 * 1024)
+    out = prep_cache.prune(limit=limit)
+    if args.json:
+        print(json.dumps(out, indent=2))
+    else:
+        print(f"pruned: {len(out['husks'])} husk(s), "
+              f"{len(out['evicted'])} entry(ies) evicted")
+    return 0
+
+
 def _load_server_config(args):
     """server.conf for key auth / SSL: --server-config flag, else the
     PIO_SERVER_CONF env var, else conf/server.conf when present."""
@@ -404,12 +469,6 @@ def _check_later_slices(args) -> None:
             "slice of the PyTorch port: each process on one card needs a "
             "CUDA context and a model copy of its own, and forking after "
             "CUDA has started is unsafe (ROADMAP.md queue 1)"
-        )
-    if getattr(args, "no_prep_cache", False) or getattr(args, "prep_cache_dir", None):
-        raise NotImplementedError(
-            "train --no-prep-cache / --prep-cache-dir (the packed-prep cache "
-            "of K1's bucket layout) is a later slice of the PyTorch port "
-            "(ROADMAP.md queue 1, item 5c)"
         )
     if getattr(args, "command", None) == "status" and getattr(args, "json", False):
         raise NotImplementedError(
@@ -668,12 +727,13 @@ def build_parser() -> argparse.ArgumentParser:
     )
     t.add_argument(
         "--no-prep-cache", action="store_true",
-        help="skip the packed-prep cache: a later slice of the port (raises)",
+        help="skip the packed-prep cache and rebuild the training batch "
+        "and bucket layout from the event log (sets PIO_PREP_CACHE=0)",
     )
     t.add_argument(
         "--prep-cache-dir", metavar="DIR",
-        help="where packed-prep cache entries live: a later slice of the "
-        "port (raises)",
+        help="where packed-prep cache entries live (sets "
+        "PIO_PREP_CACHE_DIR; default ~/.pio_tpu/prep_cache)",
     )
     t.add_argument(
         "--no-columnar-cache", action="store_true",
@@ -782,6 +842,22 @@ def build_parser() -> argparse.ArgumentParser:
         "basename minus .json) or the X-PIO-Variant header",
     )
     d.set_defaults(fn=cmd_deploy)
+
+    ca = sub.add_parser(
+        "cache", help="packed-prep cache lifecycle (list / evict / prune)"
+    )
+    casub = ca.add_subparsers(dest="cache_verb")
+    cl = casub.add_parser("list", help="entries, LRU order, sizes")
+    cl.add_argument("--json", action="store_true")
+    ce = casub.add_parser("evict", help="drop one entry by name")
+    ce.add_argument("entry", help="entry name from `cache list`")
+    cp = casub.add_parser("prune", help="sweep tmp husks + enforce the size budget")
+    cp.add_argument(
+        "--max-mb", type=float, default=None,
+        help="override PIO_PREP_CACHE_MAX_MB for this prune",
+    )
+    cp.add_argument("--json", action="store_true")
+    ca.set_defaults(fn=cmd_cache, json=False, max_mb=None)
     return p
 
 

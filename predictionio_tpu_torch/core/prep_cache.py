@@ -1,0 +1,1110 @@
+"""Persistent packed-prep cache: the training-ready form of an app's
+event log as a reusable file, for a retrain over a log that has mostly
+not changed.
+
+Port of ``predictionio_tpu/core/prep_cache.py``. One entry holds
+everything between the log bytes and K1's launches:
+
+- the decoded **ratings batch**: dense ``(rows, cols, vals)`` and both
+  id lists (what ``store.find_ratings`` gives from a full scan);
+- the **single-card pack**: the degree-bucketed :class:`PaddedBucket`
+  lists of ``ops/als.py``, which ``als_train`` uploads to the card.
+
+The file is the JAX package's, byte for byte in its layout, so an entry
+that either package published is a hit (or a splice) for the other:
+magic ``PIOPREP1``, an 8-byte little-endian header length, a JSON
+header, then 64-byte-aligned little-endian blocks. It is published
+atomically (tmp + fsync + rename; fault points ``train.prep_cache``,
+``storage.fsync``, ``storage.rename``) and loaded with ``mmap`` +
+``np.frombuffer``, so a warm probe costs page faults, not a parse. Any
+corruption (bad magic, truncation, a malformed header, a block out of
+bounds) makes :func:`load` return ``None``, and the caller rebuilds from
+the log: never wrong packed data. The mapped blocks are read-only;
+``ops/als.py host_tensor`` copies them to the card without writing into
+them or keeping a tensor that aliases the mapping.
+
+Keying is two-level:
+
+- a **scan fingerprint** in the file name: blake2b over the filter set
+  (app/channel, event names, entity types, rating key, default and
+  override ratings), so different DataSource configs never share an
+  entry;
+- the backend's **change token** and per-segment ``(ino, mtime_ns,
+  size)`` records in the header: an exact token match is a *hit* (no
+  scan, no layout); a pure append to growable segments is a *splice*
+  (only the tail bytes are decoded, through ``colspans``, and only the
+  width classes the new entries touch are rebuilt,
+  ``ops.als.splice_padded_buckets``); anything else is a *rebuild*.
+
+Splice safety: the header stores a sorted uint64 hash of every cached
+record's event id. A tail record whose id hash is already there (a
+replayed event, whose replacement a splice cannot reproduce), a tail
+line the span classifier cannot take (``$set`` / ``$delete`` / fallback
+syntax) or a missing event id forces a full rebuild. The contract, held
+by ``tests/test_torch_prep_cache.py``: a spliced batch and pack are
+bit-identical to a fresh scan and ``build_padded_buckets`` of the same
+log.
+
+The sharded half of the JAX module (the sharded pack, its splice and
+``PIO_LAYOUT_REUSE_FRAC``) comes with the port's multi-GPU slice:
+:meth:`PrepHandle.sharded_pack` raises, the port publishes no sharded
+pack, and a JAX-written entry that holds one is read for its batch and
+its single pack.
+
+Knobs: ``PIO_PREP_CACHE=0`` disables the cache; ``PIO_PREP_CACHE_DIR``
+overrides the default ``~/.pio_tpu/prep_cache`` (the JAX package's);
+``PIO_PREP_CACHE_MAX_MB`` caps its size (LRU by atime). Counters:
+``pio_prep_cache_hits_total``, ``pio_prep_cache_splices_total``,
+``pio_prep_cache_rebuilds_total{reason}``,
+``pio_prep_cache_evictions_total``; gauge ``pio_prep_cache_bytes``;
+histogram ``pio_prep_cache_seconds{stage}`` with the spans
+``train.prep.<stage>``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+import logging
+import mmap
+import os
+import time
+from pathlib import Path
+
+import numpy as np
+
+from predictionio_tpu_torch import faults
+from predictionio_tpu_torch.data.storage import base as storage_base
+from predictionio_tpu_torch.data.storage import colspans
+from predictionio_tpu_torch.data.storage.columnar_cache import _encode_ids
+from predictionio_tpu_torch.obs import metrics as obs_metrics
+from predictionio_tpu_torch.obs import trace as obs_trace
+from predictionio_tpu_torch.ops import als as als_ops
+
+logger = logging.getLogger(__name__)
+
+MAGIC = b"PIOPREP1"
+SUFFIX = ".prep"
+_ALIGN = 64
+_FALSEY = ("0", "false", "no", "off")
+
+# single mutable cell so tests can monkeypatch cleanly
+_DEFAULT_DIR = Path.home() / ".pio_tpu" / "prep_cache"
+
+
+def enabled() -> bool:
+    """``PIO_PREP_CACHE`` kill switch (default: on)."""
+    env = os.environ.get("PIO_PREP_CACHE")
+    return not (env is not None and env.strip().lower() in _FALSEY)
+
+
+def cache_dir() -> Path:
+    d = os.environ.get("PIO_PREP_CACHE_DIR", "").strip()
+    return Path(d) if d else _DEFAULT_DIR
+
+
+def max_bytes() -> int | None:
+    """``PIO_PREP_CACHE_MAX_MB`` size cap in bytes, or None (unbounded)."""
+    raw = os.environ.get("PIO_PREP_CACHE_MAX_MB", "").strip()
+    if not raw:
+        return None
+    try:
+        mb = float(raw)
+    except ValueError:
+        return None
+    return int(mb * 1024 * 1024) if mb > 0 else None
+
+
+def _counter(name: str, help_: str, **labels):
+    return obs_metrics.counter(name, help_, **labels)
+
+
+def _observe_stage(stage: str, seconds: float) -> None:
+    obs_metrics.histogram(
+        "pio_prep_cache_seconds", "Packed-prep cache stage time",
+        stage=stage,
+    ).observe(seconds)
+    tr = obs_trace.current_trace()
+    if tr is not None:
+        now = time.perf_counter()
+        tr.add_span(f"train.prep.{stage}", now - seconds, now)
+
+
+def _rebuild(reason: str) -> None:
+    _counter(
+        "pio_prep_cache_rebuilds_total",
+        "Prep-cache probes that fell back to a full scan+pack",
+        reason=reason,
+    ).inc()
+
+
+def _canon(obj):
+    """Canonical (JSON round-trip) form of a change token: tuples become
+    lists so a freshly computed token compares equal to one read back
+    from the header."""
+    try:
+        return json.loads(json.dumps(obj))
+    except (TypeError, ValueError):
+        return None
+
+
+def spec_fingerprint(
+    app_id: int,
+    channel_id: int | None,
+    filters: dict,
+) -> str:
+    """Iteration-independent scan fingerprint: blake2b over the filter
+    set, in the spirit of ``core/checkpoint.py data_fingerprint``."""
+    h = hashlib.blake2b(digest_size=12)
+    h.update(b"prep1:")
+    h.update(
+        json.dumps(
+            {"app": app_id, "channel": channel_id, **filters},
+            sort_keys=True, default=str,
+        ).encode()
+    )
+    return h.hexdigest()
+
+
+def _pack_key(*parts) -> str:
+    h = hashlib.blake2b(digest_size=12)
+    h.update(repr(parts).encode())
+    return h.hexdigest()
+
+
+def single_pack_key(bucket_widths, segment: bool = True) -> str:
+    return _pack_key("single", tuple(int(w) for w in bucket_widths), segment)
+
+
+# ---------------------------------------------------------------------------
+# event-id hashing (splice duplicate detection)
+# ---------------------------------------------------------------------------
+
+
+def hash_event_ids(ids: list) -> np.ndarray | None:
+    """Vectorized 64-bit polynomial hash of event-id strings; ``None``
+    when any id is missing/empty (those entries can't be dedupe-checked,
+    so the entry becomes exact-hit-only). Identical ids always hash
+    equal — a true duplicate is never missed; distinct ids colliding
+    only forces a spurious (safe) rebuild."""
+    if any(s is None for s in ids):
+        return None
+    if not ids:
+        return np.zeros(0, dtype=np.uint64)
+    enc = [s.encode("utf-8") for s in ids]
+    lens = np.fromiter((len(b) for b in enc), np.int64, len(enc))
+    if (lens == 0).any():
+        return None
+    starts = np.zeros(len(enc) + 1, dtype=np.int64)
+    np.cumsum(lens, out=starts[1:])
+    blob = np.frombuffer(b"".join(enc), dtype=np.uint8).astype(np.uint64)
+    j = np.arange(len(blob), dtype=np.int64) - np.repeat(starts[:-1], lens)
+    with np.errstate(over="ignore"):  # u64 wraparound IS the hash ring
+        prime = np.uint64(1099511628211)
+        pows = np.empty(int(lens.max()), dtype=np.uint64)
+        pows[0] = np.uint64(1)
+        for k in range(1, len(pows)):  # max id length, not corpus size
+            pows[k] = pows[k - 1] * prime
+        terms = (blob + np.uint64(1)) * pows[j]
+        h = np.add.reduceat(terms, starts[:-1])
+        h = h * np.uint64(0x9E3779B97F4A7C15) + lens.astype(np.uint64)
+        h ^= h >> np.uint64(29)
+        h *= np.uint64(0xBF58476D1CE4E5B9)
+        h ^= h >> np.uint64(32)
+    return h
+
+
+# ---------------------------------------------------------------------------
+# dataclass <-> block serialization (PaddedBucket)
+# ---------------------------------------------------------------------------
+
+
+def _obj_blocks(prefix: str, obj) -> tuple[dict, dict]:
+    """Split a flat dataclass into (meta, {block_name: array})."""
+    meta: dict = {"arrays": [], "scalars": {}}
+    arrays: dict = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, np.ndarray):
+            meta["arrays"].append(f.name)
+            arrays[f"{prefix}.{f.name}"] = v
+        else:
+            meta["scalars"][f.name] = v
+    return meta, arrays
+
+
+def _obj_restore(cls, prefix: str, meta: dict, get_arr):
+    kwargs = dict(meta["scalars"])
+    for name in meta["arrays"]:
+        kwargs[name] = get_arr(f"{prefix}.{name}")
+    return cls(**kwargs)
+
+
+# ---------------------------------------------------------------------------
+# file format
+# ---------------------------------------------------------------------------
+
+
+def _aligned(off: int) -> int:
+    return (off + _ALIGN - 1) // _ALIGN * _ALIGN
+
+
+def store(path: Path, header: dict, arrays: dict) -> bool:
+    """Atomic publish of one prep entry (columnar_cache.store idiom):
+    write ``tmp.<pid>``, fsync, rename. Returns False (entry skipped,
+    training unaffected) on any OSError — including the injected ones
+    from the ``train.prep_cache`` fault point."""
+    header = dict(header)
+    header["blocks"] = {}
+    offset = 0
+    layout: list[tuple[str, np.ndarray, int]] = []
+    for name, arr in arrays.items():
+        arr = np.ascontiguousarray(arr)
+        offset = _aligned(offset)
+        layout.append((name, arr, offset))
+        offset += arr.nbytes
+    for name, arr, off in layout:
+        header["blocks"][name] = {
+            "dtype": arr.dtype.str,
+            "count": int(arr.size),
+            "shape": list(arr.shape),
+            "offset": off,  # relative; absolute = payload_base + offset
+        }
+    hdr = json.dumps(header, separators=(",", ":")).encode()
+    payload_base = _aligned(len(MAGIC) + 8 + len(hdr))
+
+    tmp = path.with_name(path.name + f".tmp.{os.getpid()}")
+    try:
+        faults.fault_point("train.prep_cache")
+        path.parent.mkdir(parents=True, exist_ok=True)
+        with open(tmp, "wb") as f:
+            f.write(MAGIC)
+            f.write(len(hdr).to_bytes(8, "little"))
+            f.write(hdr)
+            f.write(b"\0" * (payload_base - (len(MAGIC) + 8 + len(hdr))))
+            pos = payload_base
+            for name, arr, off in layout:
+                f.write(b"\0" * (payload_base + off - pos))
+                f.write(arr.tobytes())
+                pos = payload_base + off + arr.nbytes
+            f.flush()
+            faults.fault_point("storage.fsync")
+            os.fsync(f.fileno())
+        faults.fault_point("storage.rename")
+        tmp.replace(path)
+        return True
+    except OSError as e:
+        logger.warning("prep cache publish skipped (%s): %s", path.name, e)
+        try:
+            tmp.unlink(missing_ok=True)
+        except OSError:
+            pass
+        return False
+
+
+class PrepEntry:
+    """A loaded (mmap'd) prep entry; block reads are zero-copy
+    ``np.frombuffer`` views into the mapping."""
+
+    def __init__(self, header: dict, mm, payload_base: int):
+        self.header = header
+        self._mm = mm
+        self._base = payload_base
+
+    # -- raw blocks -------------------------------------------------------
+    def arr(self, name: str) -> np.ndarray:
+        b = self.header["blocks"][name]
+        a = np.frombuffer(
+            self._mm, dtype=np.dtype(b["dtype"]), count=b["count"],
+            offset=self._base + b["offset"],
+        )
+        return a.reshape(b["shape"]) if len(b["shape"]) != 1 else a
+
+    def has(self, name: str) -> bool:
+        return name in self.header["blocks"]
+
+    # -- header views -----------------------------------------------------
+    @property
+    def token(self):
+        return self.header["token"]
+
+    @property
+    def files(self) -> list[dict]:
+        return self.header["files"]
+
+    @property
+    def spliceable(self) -> bool:
+        return bool(self.header.get("spliceable"))
+
+    @property
+    def n(self) -> int:
+        return int(self.header["n"])
+
+    def ids(self, prefix: str) -> list[str]:
+        blob = self.arr(f"{prefix}_blob").tobytes()
+        offs = self.arr(f"{prefix}_off").tolist()
+        return [
+            blob[offs[i]: offs[i + 1]].decode("utf-8")
+            for i in range(len(offs) - 1)
+        ]
+
+    def batch(self):
+        return storage_base.RatingsBatch(
+            entity_ids=self.ids("uid"),
+            target_ids=self.ids("iid"),
+            rows=self.arr("rows"),
+            cols=self.arr("cols"),
+            vals=self.arr("vals"),
+        )
+
+    def eid_hash(self) -> np.ndarray | None:
+        return self.arr("eid") if self.has("eid") else None
+
+    def single_buckets(self, side: str) -> list | None:
+        """Decode one side's PaddedBucket list (side: "row"|"col")."""
+        pack = self.header.get("single_pack")
+        if pack is None:
+            return None
+        out = []
+        for i, meta in enumerate(pack[f"{side}_buckets"]):
+            out.append(
+                _obj_restore(
+                    als_ops.PaddedBucket, f"{side[0]}b{i}", meta, self.arr
+                )
+            )
+        return out
+
+
+def load(path: Path) -> PrepEntry | None:
+    """mmap + validate one entry; ``None`` on ANY problem (missing file,
+    bad magic, malformed/truncated header, out-of-bounds blocks) — the
+    caller rebuilds from the log, which is always correct."""
+    try:
+        with open(path, "rb") as f:
+            mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+    except (OSError, ValueError):
+        return None
+    try:
+        if len(mm) < len(MAGIC) + 8 or mm[: len(MAGIC)] != MAGIC:
+            raise ValueError("bad magic")
+        hlen = int.from_bytes(mm[len(MAGIC): len(MAGIC) + 8], "little")
+        if hlen <= 0 or len(MAGIC) + 8 + hlen > len(mm):
+            raise ValueError("bad header length")
+        header = json.loads(mm[len(MAGIC) + 8: len(MAGIC) + 8 + hlen])
+        if header.get("version") != 1:
+            raise ValueError("bad version")
+        payload_base = _aligned(len(MAGIC) + 8 + hlen)
+        for name, b in header["blocks"].items():
+            end = payload_base + b["offset"] + (
+                int(b["count"]) * np.dtype(b["dtype"]).itemsize
+            )
+            if end > len(mm):
+                raise ValueError(f"block {name} out of bounds")
+        return PrepEntry(header, mm, payload_base)
+    except Exception as e:
+        logger.warning("prep cache entry %s unreadable: %s", path.name, e)
+        try:
+            mm.close()
+        except Exception:
+            pass
+        return None
+
+
+# ---------------------------------------------------------------------------
+# probe / splice / publish
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _Splice:
+    """Result of a successful tail splice (not yet published)."""
+
+    batch: object
+    surgical: bool          # id codes stable -> bucket-level splice valid
+    delta_rows: np.ndarray  # row codes of just the delta entries
+    delta_cols: np.ndarray
+    files: list[dict]       # updated segment records
+    token: object
+    eid_hash: np.ndarray
+
+
+@dataclasses.dataclass
+class PrepHandle:
+    """What the DataSource hands the training layer: the probe outcome,
+    the decoded batch on hit/splice, and the publish capture."""
+
+    status: str = "off"  # off | miss | hit | splice
+    batch: object = None
+    entry: PrepEntry | None = None
+    splice: _Splice | None = None
+    path: Path | None = None
+    token: object = None
+    _events: object = None
+    _app_id: int | None = None
+    _channel_id: int | None = None
+    _filters: dict | None = None
+    _files0: list | None = None  # tail-file stats at probe time (miss path)
+
+    @property
+    def active(self) -> bool:
+        return self.status != "off"
+
+    def packed_buckets(self, bucket_widths, segment: bool = True):
+        """The cached/spliced single-card pack for these widths, as
+        ``(row_buckets, col_buckets)``, or None (caller packs fresh)."""
+        entry = self.entry
+        if entry is None or not segment:
+            return None
+        pack = entry.header.get("single_pack")
+        if pack is None or pack["key"] != single_pack_key(
+            bucket_widths, segment
+        ):
+            return None
+        try:
+            rb = entry.single_buckets("row")
+            cb = entry.single_buckets("col")
+        except Exception as e:  # corrupt payload: pack fresh
+            logger.warning("prep cache pack unreadable: %s", e)
+            return None
+        if self.status == "hit":
+            return rb, cb
+        if self.status == "splice" and self.splice.surgical:
+            sp = self.splice
+            b = sp.batch
+            return (
+                als_ops.splice_padded_buckets(
+                    rb, b.rows, b.cols, b.vals, sp.delta_rows, bucket_widths
+                ),
+                als_ops.splice_padded_buckets(
+                    cb, b.cols, b.rows, b.vals, sp.delta_cols, bucket_widths
+                ),
+            )
+        return None
+
+    def sharded_pack(self, params, shards: int, mode: str):
+        """The cached sharded pack: the port's multi-GPU slice."""
+        raise NotImplementedError(
+            "the prep cache's sharded pack (sharded_pack, its splice and "
+            "PIO_LAYOUT_REUSE_FRAC) is the multi-GPU slice of the PyTorch "
+            "port (ROADMAP.md queue 1, item 12)"
+        )
+
+    # -- publish ----------------------------------------------------------
+
+    def publish(self, batch, data=None, bucket_widths=None) -> bool:
+        """Persist the current prep for the next train. ``batch`` is the
+        authoritative RatingsBatch just trained on; ``data`` optionally
+        carries the single-card pack (RatingsData with buckets built,
+        keyed by the configured ``bucket_widths`` — buckets only
+        materialize non-empty classes, so the widths can't be recovered
+        from them). Re-verifies the change token around the side decode
+        so an entry is only ever published against bytes the scan
+        actually served."""
+        if not self.active or self.path is None or len(batch.vals) == 0:
+            return False
+        if self.status == "hit":
+            return False  # nothing newer than what's on disk
+        t0 = time.perf_counter()
+        ok = self._publish(batch, data, bucket_widths)
+        _observe_stage("publish", time.perf_counter() - t0)
+        return ok
+
+    def _capture_files(self):
+        """(token, files) for the CURRENT backend state, or None when the
+        state is racing a writer (token changed while statting)."""
+        ev = self._events
+        tok1 = ev.change_token(self._app_id, self._channel_id)
+        if tok1 is None:
+            return None
+        files = []
+        try:
+            paths = ev.tail_files(self._app_id, self._channel_id)
+            for p in paths:
+                try:
+                    st = os.stat(p)
+                except FileNotFoundError:
+                    files.append({
+                        "path": str(p), "ino": 0, "mtime_ns": 0,
+                        "size": 0, "n": 0,
+                        "grow": p.name == "active.jsonl" or len(paths) == 1,
+                    })
+                    continue
+                files.append({
+                    "path": str(p),
+                    "ino": int(st.st_ino),
+                    "mtime_ns": int(st.st_mtime_ns),
+                    "size": int(st.st_size),
+                    "n": 0,
+                    "grow": p.name == "active.jsonl" or len(paths) == 1,
+                })
+        except OSError:
+            return None
+        tok2 = ev.change_token(self._app_id, self._channel_id)
+        if _canon(tok1) != _canon(tok2):
+            return None
+        return tok1, files
+
+    def _publish(self, batch, data, bucket_widths) -> bool:
+        if self.status == "splice":
+            sp = self.splice
+            token, files, eid = sp.token, sp.files, sp.eid_hash
+            spliceable = eid is not None
+            # when the tail files are still exactly the probe-time ones,
+            # publish under the CURRENT token: benign non-tail churn the
+            # training read itself caused (partitioned's columnar-cache
+            # writes bump partition-dir mtimes inside the token) folds
+            # into the entry, so the next probe is an exact hit instead
+            # of a no-op splice. If the files really changed, keep the
+            # probe-time token — the entry accurately describes the
+            # probe-time bytes and the next probe splices from it.
+            cap = self._capture_files()
+            if cap is not None:
+                now_key = [(f["path"], f["ino"], f["mtime_ns"], f["size"])
+                           for f in cap[1]]
+                sp_key = [(f["path"], f["ino"], f["mtime_ns"], f["size"])
+                          for f in files]
+                if now_key == sp_key:
+                    token = cap[0]
+        else:
+            # miss path: the batch came from a full scan after the probe;
+            # only publish if the event files themselves are unchanged
+            # since the probe (the full change token is too strict here —
+            # on partitioned it covers partition-dir mtimes, which the
+            # scan's own columnar-cache writes legitimately bump)
+            cap = self._capture_files()
+            if cap is None:
+                _rebuild("racy")
+                return False
+            token, files = cap
+            key = [(f["path"], f["ino"], f["mtime_ns"], f["size"])
+                   for f in files]
+            key0 = [(f["path"], f["ino"], f["mtime_ns"], f["size"])
+                    for f in (self._files0 or [])]
+            if key != key0:
+                logger.info(
+                    "prep cache: event log changed during training scan; "
+                    "skipping publish"
+                )
+                return False
+            # decode event ids per segment for the splice dedupe array
+            # (also yields the per-segment record counts splices need)
+            eid = self._decode_eids(files)
+            spliceable = eid is not None and sum(
+                f["n"] for f in files
+            ) == len(batch.vals) and self._filters_spliceable()
+            if not spliceable:
+                eid = None
+
+        header = {
+            "version": 1,
+            "token": _canon(token),
+            "files": files,
+            "spliceable": bool(spliceable),
+            "n": int(len(batch.vals)),
+            "created_s": time.time(),
+        }
+        ub, uo = _encode_ids(batch.entity_ids)
+        ib, io_ = _encode_ids(batch.target_ids)
+        arrays = {
+            "rows": np.asarray(batch.rows, np.int32),
+            "cols": np.asarray(batch.cols, np.int32),
+            "vals": np.asarray(batch.vals, np.float32),
+            "uid_blob": ub, "uid_off": uo,
+            "iid_blob": ib, "iid_off": io_,
+        }
+        if spliceable:
+            arrays["eid"] = np.sort(eid)
+
+        if (data is not None and bucket_widths is not None
+                and (data.row_buckets or data.col_buckets)):
+            pack_meta = {
+                "key": single_pack_key(bucket_widths),
+                "row_buckets": [], "col_buckets": [],
+            }
+            for side, buckets in (
+                ("row", data.row_buckets), ("col", data.col_buckets)
+            ):
+                for i, b in enumerate(buckets):
+                    meta, arrs = _obj_blocks(f"{side[0]}b{i}", b)
+                    pack_meta[f"{side}_buckets"].append(meta)
+                    arrays.update(arrs)
+            header["single_pack"] = pack_meta
+
+        ok = store(self.path, header, arrays)
+        if ok:
+            try:
+                enforce_budget()
+            except Exception:
+                logger.warning("prep cache budget sweep failed", exc_info=True)
+        return ok
+
+    def _filters_spliceable(self) -> bool:
+        """Tail splices re-apply the scan filters through the colspans
+        classifier, whose DecodeConfig needs every filter explicit; a
+        scan with open filters (no event-name list, no entity types)
+        caches fine but is exact-hit-only."""
+        f = self._filters or {}
+        return (
+            f.get("event_names") is not None
+            and f.get("entity_type") is not None
+            and f.get("target_entity_type") is not None
+        )
+
+    def _decode_cfg(self):
+        f = self._filters
+        return colspans.DecodeConfig(
+            event_names=tuple(f["event_names"]),
+            rating_key=f.get("rating_key"),
+            default_ratings=f.get("default_ratings"),
+            override_ratings=f.get("override_ratings"),
+            entity_type=f["entity_type"],
+            target_entity_type=f["target_entity_type"],
+        )
+
+    def _decode_eids(self, files: list[dict]) -> np.ndarray | None:
+        """Decode every segment's kept-record event ids (filling each
+        file record's ``n``); None -> entry is exact-hit-only."""
+        if not self._filters_spliceable():
+            return None
+        cfg = self._decode_cfg()
+        hashes = []
+        for f in files:
+            if f["size"] == 0:
+                continue
+            try:
+                with open(f["path"], "rb") as fh:
+                    buf = fh.read(f["size"])
+            except OSError:
+                return None
+            if len(buf) != f["size"]:
+                return None
+            try:
+                tail = colspans.decode_tail(buf, cfg)
+            except Exception:
+                return None
+            if len(tail.fallback_lines):
+                return None
+            h = hash_event_ids(tail.event_ids)
+            if h is None:
+                return None
+            f["n"] = int(tail.n_rows)
+            hashes.append(h)
+        if not hashes:
+            return np.zeros(0, dtype=np.uint64)
+        return np.concatenate(hashes)
+
+
+def probe(
+    app_name: str,
+    channel_name: str | None = None,
+    *,
+    event_names=None,
+    entity_type: str | None = None,
+    target_entity_type: str | None = None,
+    rating_key: str | None = "rating",
+    default_ratings: dict | None = None,
+    override_ratings: dict | None = None,
+    storage=None,
+) -> PrepHandle:
+    """One probe per training read: hit / splice / miss. On hit and
+    splice ``handle.batch`` replaces the full scan; on miss the caller
+    scans normally and calls ``handle.publish`` afterwards."""
+    off = PrepHandle(status="off")
+    if not enabled():
+        return off
+    t0 = time.perf_counter()
+    try:
+        from predictionio_tpu_torch.data import store as data_store
+
+        storage = storage or data_store.get_storage()
+        app_id, channel_id = data_store.app_name_to_id(
+            app_name, channel_name, storage
+        )
+        ev = storage.get_events()
+    except Exception as e:
+        logger.warning("prep cache probe skipped: %s", e)
+        return off
+    if not (hasattr(ev, "tail_files") and hasattr(ev, "change_token")):
+        return off
+    token = ev.change_token(app_id, channel_id)
+    if token is None:
+        return off
+    filters = {
+        "event_names": (
+            sorted(event_names) if event_names is not None else None
+        ),
+        "entity_type": entity_type,
+        "target_entity_type": target_entity_type,
+        "rating_key": rating_key,
+        "default_ratings": default_ratings,
+        "override_ratings": override_ratings,
+    }
+    # canonical filter values for decode (sorted() above is only for the
+    # fingerprint; DecodeConfig wants the original tuple semantics)
+    live_filters = dict(filters)
+    live_filters["event_names"] = (
+        tuple(event_names) if event_names is not None else None
+    )
+    path = cache_dir() / (
+        f"app{app_id}_c{channel_id if channel_id is not None else 0}_"
+        f"{spec_fingerprint(app_id, channel_id, filters)}{SUFFIX}"
+    )
+    handle = PrepHandle(
+        status="miss", path=path, token=token,
+        _events=ev, _app_id=app_id, _channel_id=channel_id,
+        _filters=live_filters,
+    )
+    cap0 = handle._capture_files()
+    handle._files0 = cap0[1] if cap0 is not None else None
+    entry = load(path)
+    if entry is None:
+        _rebuild("corrupt" if path.exists() else "miss")
+        _observe_stage("probe", time.perf_counter() - t0)
+        return handle
+    if _canon(token) == entry.token:
+        _counter(
+            "pio_prep_cache_hits_total",
+            "Prep-cache probes served without scanning the log",
+        ).inc()
+        handle.status = "hit"
+        handle.entry = entry
+        handle.batch = entry.batch()
+        _touch(path)
+        _observe_stage("probe", time.perf_counter() - t0)
+        return handle
+    sp, reason = _try_splice(handle, entry)
+    if sp is None:
+        _rebuild(reason)
+        _observe_stage("probe", time.perf_counter() - t0)
+        return handle
+    _counter(
+        "pio_prep_cache_splices_total",
+        "Prep-cache probes served by decoding only appended tail bytes",
+    ).inc()
+    handle.status = "splice"
+    handle.entry = entry
+    handle.splice = sp
+    handle.batch = sp.batch
+    handle.token = sp.token
+    _touch(path)
+    _observe_stage("probe", time.perf_counter() - t0)
+    return handle
+
+
+def _try_splice(handle: PrepHandle, entry: PrepEntry):
+    """Attempt the append-only delta path; returns (``_Splice`` | None,
+    rebuild reason)."""
+    if not entry.spliceable:
+        return None, "not_spliceable"
+    ev = handle._events
+    tok1 = ev.change_token(handle._app_id, handle._channel_id)
+    old_files = entry.files
+    new_files: list[dict] = []
+    tails: list[tuple[int, bytes]] = []  # (file index, appended bytes)
+    try:
+        for i, f in enumerate(old_files):
+            try:
+                st = os.stat(f["path"])
+            except FileNotFoundError:
+                return None, "changed"
+            if f["size"] and st.st_ino != f["ino"]:
+                return None, "changed"  # compaction/seal rewrote the file
+            if not f["grow"]:
+                if (st.st_size != f["size"]
+                        or st.st_mtime_ns != f["mtime_ns"]):
+                    return None, "changed"
+            elif st.st_size < f["size"]:
+                return None, "changed"  # shrink: seal moved bytes out
+            nf = dict(f)
+            nf.update(
+                ino=int(st.st_ino), mtime_ns=int(st.st_mtime_ns),
+                size=int(st.st_size),
+            )
+            new_files.append(nf)
+            if f["grow"] and st.st_size > f["size"]:
+                with open(f["path"], "rb") as fh:
+                    fh.seek(f["size"])
+                    chunk = fh.read(st.st_size - f["size"])
+                if len(chunk) != st.st_size - f["size"] or not chunk.endswith(
+                    b"\n"
+                ):
+                    return None, "changed"
+                tails.append((i, chunk))
+        # any new file (a partition's fresh segment) invalidates replay order
+        now_paths = [str(p) for p in ev.tail_files(
+            handle._app_id, handle._channel_id
+        )]
+        if now_paths != [f["path"] for f in old_files]:
+            return None, "changed"
+    except OSError:
+        return None, "changed"
+    tok2 = ev.change_token(handle._app_id, handle._channel_id)
+    if _canon(tok1) != _canon(tok2):
+        return None, "racy"
+    if not tails:
+        # token changed but no bytes were appended (e.g. a touch, or a
+        # mtime-only stat drift): hit-grade — reuse the entry as-is and
+        # let publish refresh the stored token
+        return _Splice(
+            batch=entry.batch(), surgical=True,
+            delta_rows=np.zeros(0, np.int32),
+            delta_cols=np.zeros(0, np.int32),
+            files=new_files, token=tok1, eid_hash=entry.eid_hash(),
+        ), ""
+
+    cfg = handle._decode_cfg()
+    decoded = []
+    for i, chunk in tails:
+        try:
+            tail = colspans.decode_tail(chunk, cfg)
+        except Exception:
+            return None, "fallback"
+        if len(tail.fallback_lines):
+            return None, "fallback"  # $set/$delete/unparseable in tail
+        h = hash_event_ids(tail.event_ids)
+        if h is None:
+            return None, "fallback"
+        decoded.append((i, tail, h))
+
+    old_eids = entry.eid_hash()
+    all_tail_h = np.concatenate([h for _, _, h in decoded])
+    if len(np.unique(all_tail_h)) != len(all_tail_h):
+        return None, "duplicate"
+    pos = np.searchsorted(old_eids, all_tail_h)
+    pos = np.clip(pos, 0, len(old_eids) - 1) if len(old_eids) else pos
+    if len(old_eids) and (old_eids[pos] == all_tail_h).any():
+        return None, "duplicate"  # replayed event id: splice can't replace
+
+    # ---- id mapping ------------------------------------------------------
+    old_users = entry.ids("uid")
+    old_items = entry.ids("iid")
+    umap = {u: i for i, u in enumerate(old_users)}
+    imap = {t: i for i, t in enumerate(old_items)}
+    new_users: list[str] = []
+    new_items: list[str] = []
+    tail_codes = {}
+    for i, tail, _h in decoded:
+        ulut = np.fromiter(
+            (umap.setdefault(u, len(umap)) for u in tail.user_ids),
+            np.int64, len(tail.user_ids),
+        )
+        ilut = np.fromiter(
+            (imap.setdefault(t, len(imap)) for t in tail.item_ids),
+            np.int64, len(tail.item_ids),
+        )
+        tail_codes[i] = (ulut[tail.user_idx], ilut[tail.item_idx])
+    new_users = [u for u, i in umap.items() if i >= len(old_users)]
+    new_items = [t for t, i in imap.items() if i >= len(old_items)]
+
+    # ---- stream splice ---------------------------------------------------
+    old_rows = entry.arr("rows")
+    old_cols = entry.arr("cols")
+    old_vals = entry.arr("vals")
+    bounds = np.zeros(len(old_files) + 1, np.int64)
+    np.cumsum([f["n"] for f in old_files], out=bounds[1:])
+    if int(bounds[-1]) != len(old_rows):
+        return None, "corrupt"
+    tail_by_file = {i: (tail, h) for i, tail, h in decoded}
+    chunks_r, chunks_c, chunks_v = [], [], []
+    for i in range(len(old_files)):
+        s, e = int(bounds[i]), int(bounds[i + 1])
+        if e > s:
+            chunks_r.append(old_rows[s:e].astype(np.int64))
+            chunks_c.append(old_cols[s:e].astype(np.int64))
+            chunks_v.append(old_vals[s:e])
+        if i in tail_by_file:
+            tr, tc = tail_codes[i]
+            tail = tail_by_file[i][0]
+            chunks_r.append(tr)
+            chunks_c.append(tc)
+            chunks_v.append(tail.ratings.astype(np.float32))
+            new_files[i]["n"] = old_files[i]["n"] + int(tail.n_rows)
+    rows = np.concatenate(chunks_r)
+    cols = np.concatenate(chunks_c)
+    vals = np.concatenate(chunks_v)
+
+    # id codes are stable (old codes unchanged, new ids past the old max)
+    # when the log is one append-only stream, or when a multi-segment
+    # delta introduces no new entities; otherwise first-appearance order
+    # interleaves and everything renumbers (full repack, but still no
+    # byte scan)
+    surgical = len(old_files) == 1 or (not new_users and not new_items)
+    if surgical:
+        users = old_users + new_users
+        items = old_items + new_items
+    else:
+        rows, users = _first_appearance(rows, old_users + new_users)
+        cols, items = _first_appearance(cols, old_items + new_items)
+
+    delta_rows = np.concatenate(
+        [tail_codes[i][0] for i, _, _ in decoded]
+    ).astype(np.int32) if surgical else np.zeros(0, np.int32)
+    delta_cols = np.concatenate(
+        [tail_codes[i][1] for i, _, _ in decoded]
+    ).astype(np.int32) if surgical else np.zeros(0, np.int32)
+
+    batch = storage_base.RatingsBatch(
+        entity_ids=users,
+        target_ids=items,
+        rows=np.asarray(rows, np.int32),
+        cols=np.asarray(cols, np.int32),
+        vals=np.asarray(vals, np.float32),
+    )
+    eid = np.sort(np.concatenate([old_eids, all_tail_h]))
+    return _Splice(
+        batch=batch, surgical=surgical,
+        delta_rows=delta_rows, delta_cols=delta_cols,
+        files=new_files, token=tok1, eid_hash=eid,
+    ), ""
+
+
+def _first_appearance(codes: np.ndarray, ids: list[str]):
+    """Renumber provisional dense codes to first-appearance order over
+    the record stream (the order a fresh full scan's DenseMerge would
+    assign), reordering the id list to match."""
+    uniq, first = np.unique(codes, return_index=True)
+    order = np.argsort(first, kind="stable")
+    rank = np.empty(len(uniq), np.int64)
+    rank[uniq[order]] = np.arange(len(uniq))
+    return rank[codes].astype(np.int32), [ids[c] for c in uniq[order]]
+
+
+# ---------------------------------------------------------------------------
+# lifecycle: list / evict / prune (entries are derived data — always safe
+# to drop; a dropped entry just costs the next train one full scan+pack)
+# ---------------------------------------------------------------------------
+
+
+def _touch(path: Path) -> None:
+    """Explicitly bump atime on a hit/splice (relatime would otherwise
+    defer it up to a day, starving the LRU ordering of signal)."""
+    try:
+        st = os.stat(path)
+        os.utime(path, (time.time(), st.st_mtime))
+    except OSError:
+        pass
+
+
+def _read_header(path: Path) -> dict | None:
+    """Header-only read (no mmap, no block validation) for listings."""
+    try:
+        with open(path, "rb") as f:
+            magic = f.read(len(MAGIC) + 8)
+            if magic[: len(MAGIC)] != MAGIC:
+                return None
+            hlen = int.from_bytes(magic[len(MAGIC):], "little")
+            if hlen <= 0 or hlen > 64 * 1024 * 1024:
+                return None
+            return json.loads(f.read(hlen))
+    except (OSError, ValueError):
+        return None
+
+
+def cache_entries(detail: bool = False) -> list[dict]:
+    """Every entry in :func:`cache_dir`, oldest-atime first (LRU order).
+    ``detail`` adds header-derived fields (n, spliceable, packs)."""
+    out = []
+    try:
+        paths = sorted(cache_dir().glob(f"*{SUFFIX}"))
+    except OSError:
+        return out
+    for p in paths:
+        try:
+            st = os.stat(p)
+        except OSError:
+            continue
+        rec = {
+            "name": p.name,
+            "path": str(p),
+            "bytes": int(st.st_size),
+            "atime": float(st.st_atime),
+            "mtime": float(st.st_mtime),
+        }
+        if detail:
+            h = _read_header(p) or {}
+            rec.update(
+                n=int(h.get("n", 0)),
+                spliceable=bool(h.get("spliceable")),
+                created_s=h.get("created_s"),
+                single_pack="single_pack" in h,
+                sharded_pack="sharded_pack" in h,
+            )
+        out.append(rec)
+    out.sort(key=lambda r: r["atime"])
+    return out
+
+
+def _update_bytes_gauge(total: int) -> None:
+    try:
+        obs_metrics.gauge(
+            "pio_prep_cache_bytes", "Total bytes of prep-cache entries"
+        ).set(float(total))
+    except Exception:
+        pass
+
+
+def evict(name: str) -> bool:
+    """Unlink one entry by name (or path). Concurrent readers holding
+    the mmap keep working — the mapping outlives the directory entry —
+    and the next probe rebuilds with ``reason=miss``."""
+    p = Path(name)
+    if p.parent == Path("."):
+        p = cache_dir() / name
+    if p.suffix != SUFFIX:
+        return False
+    try:
+        p.unlink()
+    except OSError:
+        return False
+    _counter(
+        "pio_prep_cache_evictions_total",
+        "Prep-cache entries dropped by eviction/prune",
+    ).inc()
+    _update_bytes_gauge(sum(e["bytes"] for e in cache_entries()))
+    return True
+
+
+def enforce_budget(limit: int | None = None) -> list[str]:
+    """Drop oldest-atime entries until the cache fits ``limit`` bytes
+    (default :func:`max_bytes`); returns the evicted names. No-op when
+    unbounded."""
+    limit = max_bytes() if limit is None else limit
+    entries = cache_entries()
+    total = sum(e["bytes"] for e in entries)
+    evicted: list[str] = []
+    if limit is not None:
+        for e in entries:
+            if total <= limit:
+                break
+            try:
+                os.unlink(e["path"])
+            except OSError:
+                continue
+            total -= e["bytes"]
+            evicted.append(e["name"])
+            _counter(
+                "pio_prep_cache_evictions_total",
+                "Prep-cache entries dropped by eviction/prune",
+            ).inc()
+    _update_bytes_gauge(total)
+    return evicted
+
+
+def prune(max_age_s: float = 600.0, limit: int | None = None) -> dict:
+    """Sweep abandoned ``*.tmp.<pid>`` husks (older than ``max_age_s`` —
+    left by a writer killed between tmp-write and rename) then enforce
+    the size budget. Returns {"husks": [...], "evicted": [...]}."""
+    husks: list[str] = []
+    now = time.time()
+    try:
+        for p in cache_dir().glob("*.tmp.*"):
+            try:
+                if now - os.stat(p).st_mtime >= max_age_s:
+                    p.unlink()
+                    husks.append(p.name)
+            except OSError:
+                continue
+    except OSError:
+        pass
+    return {"husks": husks, "evicted": enforce_budget(limit)}

@@ -24,9 +24,15 @@ Port of ``predictionio_tpu/models/recommendation.py`` (reference
 Queries/results use the reference template's JSON shape:
 ``{"user": "1", "num": 4}`` -> ``{"itemScores": [{"item": ..., "score": ...}]}``.
 
+On a store with tail files (``jsonl``, ``partitioned``) ``read_training``
+probes the packed-prep cache (``core/prep_cache.py``): a hit maps the
+previous batch and buckets, a splice decodes only the appended tail and
+rebuilds the width classes it touches, and ``train`` publishes the new
+entry after K1 has trained on it.
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
 answered another way: ``sharded_train`` / ``sharded_serving`` (several
-cards), and the packed-prep cache (``TrainingData.prep`` stays None).
+cards).
 """
 
 from __future__ import annotations
@@ -52,8 +58,10 @@ from predictionio_tpu_torch.core import (
     SanityCheck,
     WorkflowContext,
 )
+from predictionio_tpu_torch.core import prep_cache
 from predictionio_tpu_torch.data import store
 from predictionio_tpu_torch.data.bimap import BiMap
+from predictionio_tpu_torch.data.storage import RatingsBatch
 from predictionio_tpu_torch.models.modelfile import (
     BFLOAT16,
     host_array,
@@ -106,8 +114,10 @@ class DataSourceParams(Params):
 class TrainingData(SanityCheck):
     """Columnar ratings: dense-indexed COO triples plus id lists.
     ``user_ids[rows[i]]`` rated ``item_ids[cols[i]]`` with ``ratings[i]``.
-    ``prep`` is the JAX package's packed-prep cache handle; the port has
-    no prep cache yet, so it is always None here."""
+    ``prep`` is the packed-prep cache handle of the read
+    (``core/prep_cache.py PrepHandle``): ``train`` takes its cached or
+    spliced buckets and publishes the new entry. None for synthetic
+    TrainingData (eval folds, tests)."""
 
     user_ids: list[str] = field(default_factory=list)
     item_ids: list[str] = field(default_factory=list)
@@ -129,24 +139,43 @@ class RecommendationDataSource(DataSource):
 
     def read_training(self, ctx: WorkflowContext) -> TrainingData:
         # buy is FORCED to buy_rating, beating any rating property (the
-        # reference ignores properties for buy events, DataSource.scala:55)
+        # reference ignores properties for buy events, DataSource.scala:55).
+        # The probe takes the JAX package's filter set, so both packages
+        # key the same entry
         t0 = time.perf_counter()
-        batch = store.find_ratings(
-            app_name=self.params.app_name,
+        handle = prep_cache.probe(
+            self.params.app_name,
             entity_type="user",
             event_names=list(self.params.event_names),
             target_entity_type="item",
             rating_key="rating",
+            default_ratings=None,
             override_ratings={"buy": self.params.buy_rating},
         )
-        logger.info("read_training: %d rating rows in %.3fs",
-                    len(batch.vals), time.perf_counter() - t0)
+        if handle.status in ("hit", "splice"):
+            # a hit maps the previous batch; a splice decoded only the
+            # appended tail bytes
+            batch = handle.batch
+        else:
+            batch = store.find_ratings(
+                app_name=self.params.app_name,
+                entity_type="user",
+                event_names=list(self.params.event_names),
+                target_entity_type="item",
+                rating_key="rating",
+                override_ratings={"buy": self.params.buy_rating},
+            )
+        logger.info(
+            "read_training: %d rating rows in %.3fs (prep cache: %s)",
+            len(batch.vals), time.perf_counter() - t0, handle.status,
+        )
         return TrainingData(
             user_ids=batch.entity_ids,
             item_ids=batch.target_ids,
             rows=batch.rows,
             cols=batch.cols,
             ratings=batch.vals,
+            prep=handle,
         )
 
     def read_eval(self, ctx: WorkflowContext):
@@ -342,10 +371,22 @@ class ALSAlgorithm(Algorithm):
         item_index = BiMap.from_dense(td.item_ids)
         rows, cols = td.rows, td.cols
         vals = np.asarray(td.ratings, dtype=np.float32)
-        data = als_ops.build_ratings_data(
-            rows, cols, vals, len(user_index), len(item_index),
-            bucket_widths=tuple(self.params.bucket_widths),
-        )
+        prep = td.prep
+        widths = tuple(self.params.bucket_widths)
+        packed = prep.packed_buckets(widths) if prep is not None and prep.active else None
+        if packed is not None:
+            # buckets from the prep cache: mapped on a hit, spliced after an
+            # appended tail; bit-identical to a fresh build by contract
+            data = als_ops.RatingsData(
+                rows=np.asarray(rows, np.int32), cols=np.asarray(cols, np.int32),
+                vals=vals, num_rows=len(user_index), num_cols=len(item_index),
+                row_buckets=packed[0], col_buckets=packed[1],
+            )
+        else:
+            data = als_ops.build_ratings_data(
+                rows, cols, vals, len(user_index), len(item_index),
+                bucket_widths=widths,
+            )
         params = als_ops.ALSParams(
             rank=self.params.rank,
             iterations=self.params.num_iterations,
@@ -362,7 +403,19 @@ class ALSAlgorithm(Algorithm):
             ) or 0.0)
         except ValueError:
             tol = 0.0
-        U, V = als_ops.als_train(data, params, warm_start=warm, tol=tol, device=device)
+        U, V = als_ops.als_train(
+            data, params, warm_start=warm, tol=tol, device=device,
+            progress_extra={"prep_cache": prep.status} if prep is not None else None,
+        )
+        if prep is not None and prep.active and prep.status != "hit":
+            prep.publish(
+                RatingsBatch(
+                    entity_ids=td.user_ids, target_ids=td.item_ids,
+                    rows=data.rows, cols=data.cols, vals=data.vals,
+                ),
+                data=data,
+                bucket_widths=widths,
+            )
         logger.info(
             "ALS trained: %d users x %d items, rank %d, train RMSE %.4f",
             len(user_index), len(item_index), self.params.rank,

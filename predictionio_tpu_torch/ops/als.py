@@ -34,8 +34,10 @@ Port of ``predictionio_tpu/ops/als.py`` (single card):
 
 The random init cannot reproduce ``jax.random``'s bits: parity runs feed
 both packages the same initial factors through ``warm_start`` (or, for a
-sweep, to its device loop ``_train_sweep``). The prep cache's
-``splice_padded_buckets`` and checkpointing are later slices.
+sweep, to its device loop ``_train_sweep``). The prep cache
+(``core/prep_cache.py``) hands :func:`als_train` buckets read from a
+mapped file, or rebuilt by :func:`splice_padded_buckets` after an
+appended tail; they are uploaded without being written or aliased.
 
 An indefinite system (implicit feedback with negative ratings, e.g. the
 similar-product template's dislikes) solves to an all-NaN row, as the
@@ -48,6 +50,7 @@ from __future__ import annotations
 import ctypes
 import logging
 import time
+import warnings
 from dataclasses import dataclass, field, replace
 from typing import Sequence
 
@@ -238,6 +241,89 @@ def _fill_bucket_class(
         mask=mask,
         seg_row=seg_row,
     )
+
+
+def splice_padded_buckets(
+    old_buckets: Sequence[PaddedBucket],
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    delta_rows: np.ndarray,
+    bucket_widths: Sequence[int] = DEFAULT_BUCKETS,
+) -> list[PaddedBucket]:
+    """Rebuild padded buckets after a splice, only where it changed them.
+
+    ``rows``/``cols``/``vals`` are the full post-splice COO arrays (old
+    entries in their stream order with the delta entries spliced in);
+    ``delta_rows`` are the row indices of just the delta entries;
+    ``old_buckets`` is the pack of the pre-splice arrays at the same
+    ``bucket_widths``. The width classes that could have changed -- the
+    current and previous class of every row the delta touches -- are
+    rebuilt from the full arrays, restricted to their member rows,
+    through :func:`_fill_bucket_class`, the fill of a fresh build; the
+    other classes reuse the old bucket arrays as they are. A class's
+    arrays depend only on its member rows' entry sequences, which the
+    splice leaves alone for an untouched row, so the result is
+    bit-identical to :func:`build_padded_buckets` of the full arrays.
+    Delta entries may reference existing rows or new rows past the old
+    maximum only (the prep cache's appended-ids invariant).
+    ``segment=True`` only."""
+    if len(rows) == 0:
+        return []
+    if len(delta_rows) == 0 and old_buckets:
+        return list(old_buckets)
+    widths = sorted(set(int(w) for w in bucket_widths))
+    n_w = len(widths)
+    warr = np.asarray(widths)
+    bc = np.bincount(rows)
+    uniq_all = np.flatnonzero(bc)
+    counts_all = bc[uniq_all]
+    # width class of every present row: the first width >= its count,
+    # clamped to the (segmenting) last class -- the (lo, width] selection
+    # of the full build
+    cls = np.minimum(np.searchsorted(warr, counts_all, side="left"), n_w - 1)
+
+    touched = np.unique(delta_rows)
+    pos_t = np.searchsorted(uniq_all, touched)
+    affected = set(int(c) for c in cls[pos_t])
+    old_counts_t = counts_all[pos_t] - np.bincount(
+        delta_rows, minlength=int(bc.shape[0])
+    )[touched]
+    existed = old_counts_t > 0
+    if existed.any():
+        affected |= set(
+            int(c) for c in np.minimum(
+                np.searchsorted(warr, old_counts_t[existed], side="left"), n_w - 1
+            )
+        )
+
+    old_by_width = {b.width: b for b in old_buckets}
+    out: list[PaddedBucket] = []
+    for wi, width in enumerate(widths):
+        sel = cls == wi
+        if not sel.any():
+            continue
+        if wi not in affected and width in old_by_width:
+            out.append(old_by_width[width])
+            continue
+        member = np.zeros(bc.shape[0], dtype=bool)
+        member[uniq_all[sel]] = True
+        m_ent = member[rows]
+        sub_rows = rows[m_ent]
+        order = np.argsort(sub_rows, kind="stable")
+        rows_s = sub_rows[order]
+        cols_s = cols[m_ent][order]
+        vals_s = vals[m_ent][order]
+        uniq, starts, counts = np.unique(rows_s, return_index=True, return_counts=True)
+        rank = np.arange(len(rows_s)) - np.repeat(starts, counts)
+        inv = np.repeat(np.arange(len(uniq)), counts)
+        out.append(
+            _fill_bucket_class(
+                width, wi == n_w - 1, counts, uniq, np.arange(len(uniq)),
+                rank, inv, cols_s, vals_s,
+            )
+        )
+    return out
 
 
 def build_ratings_data(
@@ -1234,10 +1320,26 @@ def device_buckets(buckets: Sequence[PaddedBucket],
     for b in buckets:
         seg_start = segment_offsets(b.seg_row, len(b.row_ids), b.col_ids.shape[0])
         out.append(DeviceBucket(*(
-            torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            host_tensor(a, device)
             for a in (b.row_ids, b.col_ids, b.ratings, b.mask, seg_start)
         )))
     return out
+
+
+def host_tensor(a, device: torch.device) -> torch.Tensor:
+    """A numpy array as a tensor on ``device``. A read-only array (a
+    prep cache entry's mapped block) is copied, never written through or
+    kept aliased: the copy to the card drops the host view at once, and
+    on the CPU the tensor owns a copy, so evicting the entry cannot pull
+    the mapping from under a training."""
+    a = np.ascontiguousarray(a)
+    if a.flags.writeable:
+        return torch.from_numpy(a).to(device)
+    if device.type == "cpu":
+        return torch.from_numpy(a.copy())
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*not writable.*")
+        return torch.from_numpy(a).to(device)
 
 
 def _half_step(target, other, buckets: Sequence[DeviceBucket], params: ALSParams,
@@ -1530,8 +1632,8 @@ def predict_pairs(U, V, rows, cols) -> torch.Tensor:
     """Scores for explicit (row, col) pairs: ``sum(U[r] * V[c], -1)`` in
     float32 (int8 tables dequantize at the gather)."""
     device = (U[0] if isinstance(U, tuple) else U).device
-    r = torch.as_tensor(np.asarray(rows), device=device).to(torch.int64)
-    c = torch.as_tensor(np.asarray(cols), device=device).to(torch.int64)
+    r = host_tensor(rows, device).to(torch.int64)
+    c = host_tensor(cols, device).to(torch.int64)
     u = _read_rows(U, r, torch.float32)
     v = _read_rows(V, c, torch.float32)
     return (u * v).sum(dim=-1)
@@ -1545,6 +1647,6 @@ def rmse(U, V, rows, cols, vals, chunk: int = 4_000_000) -> float:
     for lo in range(0, n, chunk):
         hi = min(lo + chunk, n)
         pred = predict_pairs(U, V, rows[lo:hi], cols[lo:hi])
-        want = torch.as_tensor(np.asarray(vals[lo:hi], np.float32), device=device)
+        want = host_tensor(np.asarray(vals[lo:hi], np.float32), device)
         total += float(((pred - want) ** 2).sum())
     return float(np.sqrt(total / n))

@@ -378,7 +378,7 @@ def test_status_names_the_event_codec(monkeypatch, caplog):
 
 @pytest.mark.parametrize("argv", [
     ["eventserver", "--workers", "2", "--port", "7070"],
-    ["train", "--variant", "engine.json", "--no-prep-cache"],
+    ["deploy", "--workers", "2", "--variant", "engine.json"],
     ["status", "--json"],
 ])
 def test_later_slice_flags_raise(argv):
