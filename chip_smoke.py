@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases k2,k1,k1i,k1route,k2s,k2route,k6,k2cos,k4,k5,
                                     times,retimes,serve,batchserve,lifecycle,ingest,
-                                    filelog,prepcache,simlife,templife,train,ckpt,
+                                    filelog,prepcache,fleet,simlife,templife,train,ckpt,
                                     realtime,
                                     simtrain,templates,eval,retrieval,k1times,simtimes]
 
@@ -397,6 +397,40 @@ directory of its own):
   evict`` and ``cache prune --max-mb``. It prints each train's status,
   ``read_training`` and layout seconds, train wall and K1 launches beside
   the card's name and power limit.
+
+The daemon and supervisor slice adds (fleet after prepcache, on the
+filelog phase's jsonl store; every child loads the kernels the build
+phase built into the package's ``_build/`` and shares the prepcache
+phase's cache directory):
+
+- fleet: ``train`` of an ML-1M variant (rank 20, 5 iterations), which
+  publishes the prep-cache entry; ``cli.main supervise --no-dashboard
+  --no-adminserver`` in a process of its own with the event server and
+  the engine (deployed on the card, K2) as its children, a run dir of
+  its own and ``--retrain-every`` FLEET_RETRAIN_EVERY: 50 known users'
+  answers; 3,000 rating events (100 new users) posted as PIF1 frames
+  through the supervised event server before the first retrain falls
+  due (the cadence counts from the supervisor's start); kill -9 of the
+  engine child (its pid file), the seconds to a new instance id on
+  ``/healthz`` and to the first 200 on ``/queries.json``, the answers
+  byte-identical (the same instance: no retrain has finished),
+  ``restarts 1`` in ``supervisor.json`` and
+  ``pio_supervisor_restarts_total`` on the supervisor's ``/metrics``;
+  then the one scheduled warm retrain (K1; its launches the retrain
+  child's own count in its progress file, held against its iterations x
+  the buckets), a prep-cache splice of every posted event
+  (the retrain's log), and its ``/reload``: the engine serves the new
+  instance, its answers (new users too) against that instance's model
+  loaded here and scored by K2's plain version; ``status`` and ``status
+  --json``; SIGTERM to the supervisor stops the engine, then the event
+  server, leaving no pid file, no fleet process and no fleet memory on
+  the card (``nvidia-smi --query-compute-apps``, the card's free
+  memory). Then ``start-all`` with the same flags, ``rolling-restart
+  engine`` under a keep-alive query loop (no non-200, byte-identical
+  answers, a new instance id; the overlap's extra device memory), and
+  ``stop-all`` (ports closed, nothing left on the card). It prints every
+  child's spawn-to-healthy and spawn-to-ready seconds, the retrain's wall
+  time and prep-cache status, and K2's calls on each engine.
 
 Every phase prints its results and seconds; any failure makes the exit
 code 1 and suppresses the result lines. Without CUDA, or without the
@@ -3512,6 +3546,565 @@ def prep_cache_phase(torch, device, stats, prep: IngestPrep, fprep: FilelogPrep)
         restore_knobs()
     stats["prepcache"] = out
     log(json.dumps({"prepcache": "ml1m jsonl + partitioned", **out}))
+
+
+# -- phase: the supervised fleet ---------------------------------------------------
+
+#: the scheduler's cadence: the first retrain falls due this long after the
+#: supervisor starts (not after the bring-up), so the events are posted
+#: right after the bring-up, and the kill -9's checks must end before the
+#: retrain does (the restarted engine would load its instance): on the
+#: card the bring-up takes ~16 s and the kill -9 ~10 s, which leaves 20 s
+#: a few seconds of margin, so 30 s
+FLEET_RETRAIN_EVERY = "30s"
+FLEET_USERS = 50  # known users queried across the kill, the retrain and the roll
+FLEET_NEW_USERS = 100  # new users among the posted events
+FLEET_EVENTS = 3_000  # rating events posted through the supervised event server
+FLEET_VARIANT_ID = "chip-smoke-fleet"
+
+
+def proc_start_wall(pid: int) -> float | None:
+    """Wall-clock start of process ``pid`` (``/proc``: its start in clock
+    ticks after boot, against ``/proc/uptime`` read now), or None."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/uptime") as f:
+            uptime = float(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return None
+    return time.time() - (uptime - ticks / os.sysconf("SC_CLK_TCK"))
+
+
+class BootWatch(threading.Thread):
+    """Polls ``/healthz`` and ``/readyz`` of the fleet's ports every 50 ms.
+    For each instance id (one boot of one child): its pid, its process's
+    start (``proc_start_wall``) and when it first answered healthy and
+    ready, so every child's spawn-to-healthy and spawn-to-ready seconds."""
+
+    def __init__(self, ports: dict):
+        super().__init__(name="boot-watch", daemon=True)
+        self.ports = ports
+        self.boots: dict = {}
+        self.done = threading.Event()
+
+    def run(self):
+        from predictionio_tpu_torch.cli import daemon
+
+        while not self.done.is_set():
+            for service, port in self.ports.items():
+                doc = daemon.probe_health("127.0.0.1", port, timeout=0.5)
+                if doc is None:
+                    continue
+                boot = self.boots.get(doc["instance"])
+                if boot is None:
+                    boot = self.boots[doc["instance"]] = {
+                        "service": service, "pid": doc["pid"], "healthy": time.time(),
+                        "started": proc_start_wall(doc["pid"])}
+                if "ready" not in boot:
+                    ready = daemon.probe_ready("127.0.0.1", port, timeout=0.5)
+                    if ready and ready.get("ready") and ready["instance"] == doc["instance"]:
+                        boot["ready"] = time.time()
+            self.done.wait(0.05)
+
+    def stop(self) -> list:
+        """The boots seen, in order, each with its seconds from spawn."""
+        self.done.set()
+        self.join(timeout=10)
+        out = []
+        for instance, b in sorted(self.boots.items(), key=lambda kv: kv[1]["healthy"]):
+            row = {"service": b["service"], "instance": instance, "pid": b["pid"]}
+            if b["started"] is not None:
+                row["spawn_to_healthy_s"] = b["healthy"] - b["started"]
+                if "ready" in b:
+                    row["spawn_to_ready_s"] = b["ready"] - b["started"]
+            out.append(row)
+        return out
+
+
+def http_call(port: int, method: str, path: str, body: bytes | None = None,
+              conn=None, timeout: float = 30):
+    """(status, body bytes) of one request, on ``conn`` when given."""
+    own = conn is None
+    conn = conn or http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        headers = {"Content-Type": "application/json"} if body is not None else {}
+        conn.request(method, path, body, headers)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        if own:
+            conn.close()
+
+
+def ask_all(port: int, queries: list) -> list:
+    """Each query's raw answer bytes, on one keep-alive connection; all 200."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        out = []
+        for q in queries:
+            status, raw = http_call(port, "POST", "/queries.json", json.dumps(q).encode(), conn)
+            if status != 200:
+                raise AssertionError(f"{q}: HTTP {status} {raw[:300]!r}")
+            out.append(raw)
+        return out
+    finally:
+        conn.close()
+
+
+def fleet_state(run: str) -> dict:
+    try:
+        with open(os.path.join(run, "supervisor.json")) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return {}
+
+
+def wait_for(what: str, cond, timeout: float, proc=None, log_path=None):
+    """Poll ``cond`` every 50 ms until it gives something true; fails on
+    the timeout or when ``proc`` exits."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        got = cond()
+        if got:
+            return got
+        if proc is not None and proc.poll() is not None:
+            tail = open(log_path).read()[-3000:] if log_path else ""
+            raise AssertionError(f"{what}: the process exited {proc.returncode}\n{tail}")
+        if time.perf_counter() > deadline:
+            tail = open(log_path).read()[-3000:] if log_path else ""
+            raise AssertionError(f"timed out ({timeout:.0f}s) waiting for {what}\n{tail}")
+        time.sleep(0.05)
+
+
+def card_pids() -> set:
+    """Pids ``nvidia-smi`` lists as compute processes on the card."""
+    proc = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=30)
+    if proc.returncode != 0:
+        raise AssertionError(f"nvidia-smi --query-compute-apps: {proc.stderr}")
+    return {int(x) for x in proc.stdout.split() if x.strip().isdigit()}
+
+
+def free_card_bytes(torch, device) -> int | None:
+    """Free device memory as CUDA reports it (every process's
+    contexts and allocations count), or None off the card."""
+    if device.type != "cuda":
+        return None
+    torch.cuda.empty_cache()
+    return torch.cuda.mem_get_info(device)[0]
+
+
+class MemoryLow(threading.Thread):
+    """The least free device memory seen while it runs (every 20 ms)."""
+
+    def __init__(self, torch, device):
+        super().__init__(name="memory-low", daemon=True)
+        self.torch, self.device = torch, device
+        self.low: int | None = None
+        self.done = threading.Event()
+
+    def run(self):
+        while not self.done.is_set():
+            free = self.torch.cuda.mem_get_info(self.device)[0]
+            self.low = free if self.low is None else min(self.low, free)
+            self.done.wait(0.02)
+
+    def stop(self) -> int | None:
+        self.done.set()
+        self.join(timeout=10)
+        return self.low
+
+
+class KeepAlive(threading.Thread):
+    """Queries in a loop on one keep-alive connection (a new one after
+    the server closes it, counted): every answer's status and bytes."""
+
+    def __init__(self, port: int, queries: list):
+        super().__init__(name="keep-alive", daemon=True)
+        self.port, self.queries = port, queries
+        self.answers: list = []  # (query index, status, bytes)
+        self.errors: list = []
+        self.reconnects = 0
+        self.done = threading.Event()
+
+    def run(self):
+        conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=60)
+        i = 0
+        while not self.done.is_set():
+            j = i % len(self.queries)
+            body = json.dumps(self.queries[j]).encode()
+            for attempt in (0, 1):
+                try:
+                    status, raw = http_call(self.port, "POST", "/queries.json", body, conn)
+                    self.answers.append((j, status, raw))
+                    break
+                except (OSError, http.client.HTTPException) as e:
+                    # the draining instance closed the connection between
+                    # requests: reconnect (to whichever instance accepts)
+                    conn.close()
+                    conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=60)
+                    self.reconnects += 1
+                    if attempt:
+                        self.errors.append(repr(e))
+            i += 1
+        conn.close()
+
+    def stop(self):
+        self.done.set()
+        self.join(timeout=70)
+
+
+@phase("fleet: supervise (event server + engine) -> events -> kill -9 -> a scheduled retrain -> "
+       "status --json -> SIGTERM; start-all -> rolling-restart -> stop-all (ML-1M, jsonl)")
+def fleet(torch, device, stats, prep: IngestPrep, fprep: FilelogPrep):
+    """The supervised fleet on the filelog phase's jsonl store (see the
+    module docstring): ``supervise`` with the engine deployed on the card,
+    events posted through its event server, a kill -9 of the engine child,
+    one scheduled warm retrain (a prep-cache splice of the events) and its
+    ``/reload``, ``status`` and ``status --json``, SIGTERM to the
+    supervisor; then ``start-all`` and ``rolling-restart engine`` under a
+    keep-alive query loop, and ``stop-all``."""
+    from predictionio_tpu_torch.cli import daemon
+    from predictionio_tpu_torch.cli import main as cli
+    from predictionio_tpu_torch.core.context import WorkflowContext
+    from predictionio_tpu_torch.core.workflow import prepare_deploy
+    from predictionio_tpu_torch.data import storage as st
+    from predictionio_tpu_torch.data.storage import frame
+    from predictionio_tpu_torch.models import recommendation as rec
+    from predictionio_tpu_torch.obs.metrics import parse_prometheus
+    from predictionio_tpu_torch.ops import als
+
+    jl = fprep.dirs["jsonl"]
+    jl_env = filelog_env(jl, "jsonl")
+    key = fprep.out["keys"]["jsonl"]
+    nu, ni = prep.out["num_users"], prep.out["num_items"]
+    run = tempfile.mkdtemp(prefix="pio_chip_smoke_fleet_")
+    cache_dir = os.path.join(os.environ["PIO_PREP_CACHE_DIR"], "prepcache")
+    # the children load the kernels this run built (the package's
+    # _build/); the retrain shares the prepcache phase's cache directory
+    env = jl_env | {"PIO_RUN_DIR": run, "PIO_PREP_CACHE_DIR": cache_dir}
+    variant = os.path.join(jl, "fleet.json")
+    with open(variant, "w") as f:
+        json.dump({"id": FLEET_VARIANT_ID, "engineFactory": REC_FACTORY,
+                   "datasource": {"params": {"appName": "ML1M"}},
+                   "algorithms": [{"name": "als", "params": {
+                       "rank": INGEST_RANK, "numIterations": PREP_ITERATIONS,
+                       "lambda": TRAIN_REG, "seed": 3}}]}, f)
+    ev, eng, sp = free_port(), free_port(), free_port()
+    # on the card every child runs on its default device; elsewhere the
+    # device is named
+    device_flags = [] if device.type == "cuda" else ["--device", device.type]
+    flags = ["--ip", "127.0.0.1", "--no-dashboard", "--no-adminserver", "--variant", variant,
+             "--event-port", str(ev), "--engine-port", str(eng), *device_flags]
+    rng = np.random.default_rng(SEED + 21)
+    deg = np.bincount(prep.out["rows"], minlength=nu)
+    known = rng.choice(np.flatnonzero(deg > 0), size=FLEET_USERS, replace=False)
+    queries = [{"user": f"u{u}", "num": 10} for u in known.tolist()]
+    new_users = [f"fleet{j}" for j in range(FLEET_NEW_USERS)]
+    out: dict = {"card": stats.get("smi"), "retrain_every": FLEET_RETRAIN_EVERY}
+    pids: set = set()
+    watch = BootWatch({"eventserver": ev, "engine": eng})
+    sup = log_f = None
+    saved = os.environ.get("PIO_PREP_CACHE_DIR")
+    finished = False
+    try:
+        # the engine's first instance, and the prep-cache entry the
+        # scheduled retrain splices onto
+        with storage_env(jl, jl_env):
+            t0 = time.perf_counter()
+            try:
+                if cli.main(["train", "--variant", variant, "--prep-cache-dir", cache_dir,
+                             *device_flags]) != 0:
+                    raise AssertionError("the fleet's first train failed")
+                out["first_train_s"] = time.perf_counter() - t0
+                os.environ["PIO_PREP_CACHE_DIR"] = cache_dir
+                td0 = rec.RecommendationDataSource(
+                    rec.DataSourceParams(app_name="ML1M")).read_training(None)
+            finally:
+                os.environ["PIO_PREP_CACHE_DIR"] = saved
+            if td0.prep is None or td0.prep.status != "hit":
+                raise AssertionError("the first train published no prep-cache entry")
+            first = st.get_storage().get_metadata_engine_instances().get_latest_completed(
+                FLEET_VARIANT_ID, "0", "fleet.json").id
+        free0 = free_card_bytes(torch, device)
+
+        # (1) the supervised bring-up
+        watch.start()
+        log_path = os.path.join(run, "supervise.out")
+        log_f = open(log_path, "w")
+        t_spawn = time.perf_counter()
+        sup = subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch.cli.main", "supervise", *flags,
+             "--supervise-port", str(sp), "--retrain-every", FLEET_RETRAIN_EVERY],
+            cwd=ROOT, env=cli_env(jl, env), stdout=log_f, stderr=subprocess.STDOUT)
+        pids.add(sup.pid)
+        wait_for("the supervised fleet up", lambda: all(
+            fleet_state(run).get("services", {}).get(n, {}).get("state") == "up"
+            for n in ("eventserver", "engine")), 180, sup, log_path)
+        out["supervised_up_s"] = time.perf_counter() - t_spawn
+        if daemon.wait_ready("127.0.0.1", eng, timeout=60) is None:
+            raise AssertionError("the engine is up but not ready")
+        before = ask_all(eng, queries)
+        status, raw = http_call(eng, "GET", "/metrics")
+        k2_first = k2_tile_calls(parse_prometheus(raw))
+
+        # (2) events through the supervised event server, before the
+        # first retrain falls due: it splices them
+        state = fleet_state(run)
+        if state["retrain"]["runs"] or state["retrain"]["state"] != "idle":
+            raise AssertionError(f"the retrain cadence fired before the events were posted: "
+                                 f"{state['retrain']} (FLEET_RETRAIN_EVERY too short)")
+        users = [new_users[k % FLEET_NEW_USERS] if k % 3 == 0 else f"u{int(rng.integers(0, nu))}"
+                 for k in range(FLEET_EVENTS)]
+        events = [{"event": "rate", "entityType": "user", "entityId": u,
+                   "targetEntityType": "item", "targetEntityId": f"i{int(rng.integers(0, ni))}",
+                   "properties": {"rating": float(rng.integers(1, 6))}, "eventTime": INGEST_TIME}
+                  for u in users]
+        for lo in range(0, FLEET_EVENTS, 1_000):
+            status, raw = http_call(ev, "POST", f"/batch/events.bin?accessKey={key}",
+                                    frame.encode_body(events[lo:lo + 1_000]))
+            if status != 200 or json.loads(raw)["accepted"] != len(events[lo:lo + 1_000]):
+                raise AssertionError(f"/batch/events.bin answered {status}: {raw[:300]!r}")
+        out["posted_after_spawn_s"] = time.perf_counter() - t_spawn
+        out["next_retrain_in_s_after_post"] = fleet_state(run)["retrain"]["next_in_s"]
+
+        # (3) kill -9 of the engine child: its restart serves the same
+        # instance (no retrain has finished yet) with the same bytes
+        with open(os.path.join(run, "engine.pid")) as f:
+            victim = int(f.read())
+        old = json.loads(http_call(eng, "GET", "/healthz")[1])["instance"]
+        t_kill = time.perf_counter()
+        os.kill(victim, signal.SIGKILL)
+        if daemon.wait_healthy("127.0.0.1", eng, timeout=120, not_instance=old) is None:
+            raise AssertionError("no new engine instance in 120 s\n" + open(log_path).read()[-3000:])
+        out["kill_to_healthy_s"] = time.perf_counter() - t_kill
+
+        def first_answer():
+            try:
+                return http_call(eng, "POST", "/queries.json",
+                                 json.dumps(queries[0]).encode(), timeout=5)[0] == 200
+            except (OSError, http.client.HTTPException):
+                return False
+
+        wait_for("the restarted engine's first answer", first_answer, 120, sup, log_path)
+        out["kill_to_first_answer_s"] = time.perf_counter() - t_kill
+        after = ask_all(eng, queries)
+        served = json.loads(http_call(eng, "GET", "/")[1])["engineInstanceId"]
+        if fleet_state(run)["retrain"]["runs"] or served != first:
+            raise AssertionError(f"a retrain finished before the kill -9 checks (serving "
+                                 f"{served}, first {first})")
+        if after != before:
+            raise AssertionError("the restarted engine's answers differ from the first ones")
+        out["kill_checks_done_after_spawn_s"] = time.perf_counter() - t_spawn
+        state = wait_for("the engine up with one restart", lambda: (s := fleet_state(run))
+                         and s["services"]["engine"]["state"] == "up"
+                         and s["services"]["engine"]["restarts"] == 1 and s, 60, sup, log_path)
+        if "signal 9" not in (state["services"]["engine"]["last_exit"] or ""):
+            raise AssertionError(f"the engine's last exit: {state['services']['engine']}")
+        status, raw = http_call(sp, "GET", "/metrics")
+        restarts = parse_prometheus(raw).get('pio_supervisor_restarts_total{service="engine"}')
+        if status != 200 or restarts != 1:
+            raise AssertionError(f"the supervisor's /metrics: {status}, restarts {restarts}")
+        out["restarts_metric"] = restarts
+
+        # (4) the scheduled retrain: a splice of the posted events, and a
+        # /reload
+        t_wait = time.perf_counter()
+        rt = wait_for("one scheduled retrain", lambda: (s := fleet_state(run))
+                      and s.get("retrain", {}).get("runs", 0) + s.get("retrain", {}).get(
+                          "failures", 0) >= 1 and s["retrain"], 240, sup, log_path)
+        last = rt["last_run"]
+        if not (rt["runs"] == 1 and rt["failures"] == 0 and last["ok"]
+                and last["exit"] == "exit code 0" and last["reloaded"] == 1):
+            raise AssertionError(f"the scheduled retrain: {rt}\n"
+                                 + open(os.path.join(run, "retrain.log")).read()[-3000:])
+        with open(os.path.join(run, "train_progress.json")) as f:
+            progress = json.load(f)
+        pids.add(progress["pid"])
+        with storage_env(jl, jl_env):
+            # the entry the retrain published: a hit on the same log
+            os.environ["PIO_PREP_CACHE_DIR"] = cache_dir
+            try:
+                td = rec.RecommendationDataSource(
+                    rec.DataSourceParams(app_name="ML1M")).read_training(None)
+            finally:
+                os.environ["PIO_PREP_CACHE_DIR"] = saved
+            data = als.build_ratings_data(td.rows, td.cols, td.ratings, len(td.user_ids),
+                                          len(td.item_ids),
+                                          bucket_widths=rec.ALSAlgorithmParams().bucket_widths)
+            per_iter = k1_launches_per_iteration(data, INGEST_RANK)
+            storage = st.get_storage()
+            if td.prep is None or td.prep.status != "hit":
+                raise AssertionError("the retrain published no prep-cache entry")
+            served = json.loads(http_call(eng, "GET", "/")[1])["engineInstanceId"]
+            latest = storage.get_metadata_engine_instances().get_latest_completed(
+                FLEET_VARIANT_ID, "0", "fleet.json")
+            if served == first or served != latest.id:
+                raise AssertionError(f"the engine serves {served}: first {first}, "
+                                     f"latest {latest.id}")
+            model = prepare_deploy(rec.engine(), latest, storage,
+                                   WorkflowContext(device=device))[2][0]
+        # what the retrain child read, from its log: every posted event,
+        # spliced onto the first train's prep-cache entry
+        with open(os.path.join(run, "retrain.log")) as f:
+            reads = re.findall(r"read_training: (\d+) rating rows in [0-9.]+s "
+                               r"\(prep cache: (\w+)\)", f.read())
+        expect = len(td0.ratings) + FLEET_EVENTS
+        # K1's launches as the retrain child's own counter saw them (its
+        # progress file), held against its iterations x the buckets
+        k1 = progress.get("k1_launches")
+        k1_expect = progress["iteration"] * per_iter if device.type == "cuda" else 0
+        if k1 != k1_expect:
+            raise AssertionError(f"the scheduled retrain launched K1 {k1} times, expected "
+                                 f"{k1_expect}: {progress}")
+        if (len(reads) != 1 or reads[0] != (str(expect), "splice")
+                or progress.get("prep_cache") != "splice" or progress.get("warm_start") is not True
+                or len(td.ratings) != expect):
+            raise AssertionError(f"the scheduled train read {reads} (expected {expect}, "
+                                 f"splice; the store holds {len(td.ratings)}): {progress}")
+        out["retrain"] = {
+            "wall_s": last["wall_s"], "waited_after_kill_checks_s": time.perf_counter() - t_wait,
+            "prep_cache": progress["prep_cache"], "iterations": progress["iteration"],
+            "ratings": len(td.ratings), "k1_launches": k1,
+            "k1_launches_per_iteration": per_iter, "reloaded": last["reloaded"]}
+        held = queries + [{"user": u, "num": 10} for u in new_users[:10]]
+        conn = http.client.HTTPConnection("127.0.0.1", eng, timeout=60)
+        for q, (exp_items, exp_scores) in zip(held, expected_items(torch, model, device, held)):
+            got = post(conn, q)["itemScores"]
+            if not exp_items:
+                raise AssertionError(f"{q['user']} is not in the retrained model")
+            check_answer([x["item"] for x in got], [x["score"] for x in got],
+                         exp_items, exp_scores, model, f"fleet after the reload {q}")
+        conn.close()
+        status, raw = http_call(eng, "GET", "/metrics")
+        k2_second = k2_tile_calls(parse_prometheus(raw))
+
+        # (4) status and status --json of the supervised fleet
+        with ThreadPoolExecutor(2) as side:
+            plain = side.submit(cli_run, jl, "status", env=env)
+            summary = side.submit(cli_run, jl, "status", "--json", env=env)
+            plain, summary = plain.result()[0], summary.result()[0]
+        if "supervisor[engine]: up (restarts 1," not in plain:
+            raise AssertionError(f"status: {plain[-2000:]}")
+        lines = summary.strip().splitlines()
+        doc = json.loads(lines[-1])
+        if (len(lines) != 1 or set(doc["services"]) != {"eventserver", "engine"}
+                or not all(doc["services"][n].get("metrics") for n in doc["services"])
+                or doc["supervisor"]["retrain"]["runs"] < 1
+                or doc["supervisor"]["services"]["engine"]["restarts"] != 1):
+            raise AssertionError(f"status --json: {summary[:3000]}")
+        out["status_json_bytes"] = len(lines[0])
+
+        # (5) SIGTERM to the supervisor: the fleet stops in reverse order
+        t0 = time.perf_counter()
+        sup.send_signal(signal.SIGTERM)
+        rc = sup.wait(timeout=120)
+        out["supervisor_stop_s"] = time.perf_counter() - t0
+        log_f.close()
+        text = open(log_path).read()
+        stopped = [ln for ln in text.splitlines() if "-> stopped" in ln]
+        order = [name for ln in stopped for name in ("engine", "eventserver")
+                 if f"supervisor: {name} " in ln]
+        if rc != 0 or order != ["engine", "eventserver"]:
+            raise AssertionError(f"the supervisor exited {rc}, stop order {order}:\n"
+                                 + text[-3000:])
+        out["supervised_boots"] = watch.stop()
+        pids |= {b["pid"] for b in out["supervised_boots"]}
+        check_fleet_gone(torch, device, run, pids, free0, "after SIGTERM to the supervisor")
+        out["after_supervisor_free_delta_bytes"] = (
+            None if free0 is None else free0 - free_card_bytes(torch, device))
+
+        # (6) the daemonized fleet and a rolling restart under a keep-alive
+        # query loop
+        watch = BootWatch({"eventserver": ev, "engine": eng})
+        watch.start()
+        printed, out["start_all_s"] = cli_run(jl, "start-all", *flags, env=env)
+        if "engine: up on port" not in printed:
+            raise AssertionError(f"start-all printed {printed!r}")
+        answers = ask_all(eng, queries)
+        old = json.loads(http_call(eng, "GET", "/healthz")[1])["instance"]
+        status, raw = http_call(eng, "GET", "/metrics")
+        k2_daemon = k2_tile_calls(parse_prometheus(raw))
+        loop = KeepAlive(eng, queries)
+        low = MemoryLow(torch, device) if device.type == "cuda" else None
+        free_before_roll = free_card_bytes(torch, device)
+        loop.start()
+        if low is not None:
+            low.start()
+        try:
+            printed, out["rolling_restart_s"] = cli_run(jl, "rolling-restart", "engine", env=env)
+            time.sleep(1.0)  # the loop goes on against the new instance alone
+        finally:
+            loop.stop()
+            lowest = low.stop() if low is not None else None
+        new = json.loads(http_call(eng, "GET", "/healthz")[1])["instance"]
+        non_200 = sum(1 for _, s, _ in loop.answers if s != 200) + len(loop.errors)
+        differ = sum(1 for j, s, raw in loop.answers if s == 200 and raw != answers[j])
+        if non_200 or differ or new == old or "engine: rolled pid" not in printed:
+            raise AssertionError(f"rolling-restart: {non_200} non-200 ({loop.errors[:3]}), "
+                                 f"{differ} answers differ, instance {old} -> {new}: "
+                                 f"{printed!r}")
+        status, raw = http_call(eng, "GET", "/metrics")
+        k2_rolled = k2_tile_calls(parse_prometheus(raw))
+        out["rolling_restart"] = {
+            "queries": len(loop.answers), "non_200": non_200, "reconnects": loop.reconnects,
+            "answers_differ": differ, "old_instance": old, "new_instance": new,
+            "overlap_extra_device_bytes": (None if lowest is None
+                                           else free_before_roll - lowest)}
+        printed, out["stop_all_s"] = cli_run(jl, "stop-all", env=env)
+        if "engine: stopped" not in printed or "eventserver: stopped" not in printed:
+            raise AssertionError(f"stop-all printed {printed!r}")
+        out["daemon_boots"] = watch.stop()
+        pids |= {b["pid"] for b in out["daemon_boots"]}
+        for port in (ev, eng):
+            try:
+                with socket.create_connection(("127.0.0.1", port), timeout=0.5):
+                    raise AssertionError(f"port {port} still open after stop-all")
+            except OSError:
+                pass
+        check_fleet_gone(torch, device, run, pids, free0, "after stop-all")
+        out["k2_calls"] = {"supervised_first": k2_first, "supervised_after_reload": k2_second,
+                           "daemonized_old": k2_daemon, "daemonized_rolled": k2_rolled}
+        # (the CPU's plain version counts no K2 call)
+        if device.type == "cuda" and (min(k2_first, k2_daemon) < len(queries)
+                                      or k2_second < len(held) + len(queries) + 1):
+            raise AssertionError(f"K2 calls on the fleet's engines: {out['k2_calls']}")
+        finished = True
+    finally:
+        watch.done.set()
+        if sup is not None and sup.poll() is None:
+            sup.kill()
+            sup.wait()
+        if log_f is not None:
+            log_f.close()
+        if not finished:  # a fleet left running by a failed check goes too
+            subprocess.run([sys.executable, "-m", "predictionio_tpu_torch.cli.main",
+                            "stop-all"], cwd=ROOT, env=cli_env(jl, env),
+                           capture_output=True, timeout=120)
+        shutil.rmtree(run, ignore_errors=True)
+    stats["fleet"] = out
+    log(json.dumps({"fleet": "ml1m jsonl", **out}))
+
+
+def check_fleet_gone(torch, device, run: str, pids: set, free0, what: str) -> None:
+    """No pid file left, no fleet process alive or on the card, and the
+    card's free memory back to what it was before the fleet started."""
+    from predictionio_tpu_torch.cli import daemon
+
+    left = [n for n in os.listdir(run) if n.endswith(".pid")]
+    alive = sorted(p for p in pids if daemon._alive(p))
+    if left or alive:
+        raise AssertionError(f"{what}: pid files {left}, live fleet pids {alive}")
+    if device.type != "cuda":
+        return
+    on_card = card_pids() & pids
+    # a CUDA context alone takes hundreds of MB: a fleet process that kept
+    # one would show here
+    gap = free0 - free_card_bytes(torch, device)
+    if on_card or gap > 256 << 20:
+        raise AssertionError(f"{what}: fleet pids on the card {sorted(on_card)}, "
+                             f"{gap} bytes of the card still taken")
 
 
 # -- phase: full width -------------------------------------------------------------
@@ -8409,7 +9002,9 @@ def filelog_k1_summary(stats) -> dict:
     ``launches`` the deploy's count over its one fold (its /metrics);
     ``train_launches`` and ``retrain_launches`` the phase's ``train`` and
     retrain-on-deploy; ``prepcache_launches`` the prepcache phase's four
-    trains (miss, hit, splice, and the cold one)."""
+    trains (miss, hit, splice, and the cold one); ``fleet_retrain_launches``
+    the fleet phase's scheduled retrain (the retrain child's own count,
+    from its progress file)."""
     fl = stats["filelog"]
     k1 = fl["fold"]["k1"]
     return {
@@ -8428,6 +9023,7 @@ def filelog_k1_summary(stats) -> dict:
         "retrain_launches": fl["retrain_on_deploy"]["k1_launches"],
         "prepcache_launches": {k: stats["prepcache"][k]["k1_launches"]
                                for k in ("miss", "hit", "splice", "cold")},
+        "fleet_retrain_launches": stats["fleet"]["retrain"]["k1_launches"],
     }
 
 
@@ -8493,6 +9089,7 @@ def main() -> int:
         "ingest": lambda: ingest(torch, device, stats, prep),
         "filelog": lambda: filelog(torch, device, stats, prep, fprep),
         "prepcache": lambda: prep_cache_phase(torch, device, stats, prep, fprep),
+        "fleet": lambda: fleet(torch, device, stats, prep, fprep),
         "simlife": lambda: similar_lifecycle(torch, device, stats),
         "templife": lambda: templates_lifecycle(torch, device, stats),
         "train": lambda: full_width(torch, device, stats),
@@ -8520,8 +9117,8 @@ def main() -> int:
     stats["smi"] = smi
     # the ingest phase's host-only start (files, import, export) runs
     # beside the build and the kernel checks: it touches no device
-    prep = IngestPrep() if {"ingest", "filelog", "prepcache"} & set(chosen) else None
-    fprep = FilelogPrep(prep) if {"filelog", "prepcache"} & set(chosen) else None
+    prep = IngestPrep() if {"ingest", "filelog", "prepcache", "fleet"} & set(chosen) else None
+    fprep = FilelogPrep(prep) if {"filelog", "prepcache", "fleet"} & set(chosen) else None
     # every train of the run keeps its packed-prep cache entries here, so
     # no entry of an earlier run gives a false hit
     prep_dir = tempfile.mkdtemp(prefix="pio_chip_smoke_prep_")
@@ -8591,6 +9188,7 @@ def main() -> int:
         "batch_sizes": stats["batchserve"][f"window_{BATCH_WINDOW_MS:g}ms"][64]["batch_sizes"],
         "filelog_calls": (stats["filelog"]["deploy_k2_calls"]
                           + stats["filelog"]["retrain_on_deploy"]["k2_calls"]),
+        "fleet_calls": stats["fleet"]["k2_calls"],
     }, k1_summary(stats), k1i_summary(stats), k2s_summary(stats),
         k1s_summary(stats), topk_items_summary(stats), k3_summary(stats),
         *k4_summary(stats), k5_summary(stats), k6_summary(stats), k6_dense_summary(stats),

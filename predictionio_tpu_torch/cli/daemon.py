@@ -1,0 +1,442 @@
+"""One-shot bring-up / teardown of the pio service fleet.
+
+Port of ``predictionio_tpu/cli/daemon.py``. Parity with the reference's
+ops scripts (bin/pio-start-all, bin/pio-stop-all, bin/pio-daemon):
+``start-all`` launches the event server (and a deployed engine) as
+detached OS processes with pid files and per-service logs under a run
+directory; ``stop-all`` terminates whatever the pid files point at.
+The reference's scripts additionally start HBase/Elasticsearch — external
+JVM services with no analog here; storage backends in this framework are
+in-process (sqlite/jsonl/localfs) or already-running remote services.
+
+Pid files live in ``$PIO_RUN_DIR`` (default ``~/.pio_tpu/run``); each
+service writes ``<name>.pid`` and logs to ``<name>.log``. Stale pid
+files (process already gone) are cleaned up on both verbs. The run dir's
+layout and files (``<name>.pid``, the ``<name>.json`` service record,
+``supervisor.json``) are the JAX package's, so ``stop-all`` and
+``status`` of either package see a fleet that the other started.
+
+Every service is a fresh interpreter running the port's CLI
+(``python -m predictionio_tpu_torch.cli.main``), started by
+``subprocess.Popen`` and never forked from a process that has started
+CUDA, so each child that scores on the card makes its own CUDA context.
+This module imports no ``torch``: the parent only spawns, probes and
+reaps.
+"""
+
+from __future__ import annotations
+
+import http.client
+import json
+import os
+import signal
+import socket
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+# service name -> default port (matching the reference's defaults:
+# event server :7070, dashboard :9000, admin :7071; engine :8000; the
+# router tier fronts engine replicas on :8100)
+DEFAULT_PORTS = {
+    "eventserver": 7070,
+    "dashboard": 9000,
+    "adminserver": 7071,
+    "engine": 8000,
+    "router": 8100,
+}
+
+
+#: the module every service runs: the port's CLI, never the JAX package's
+CLI_MODULE = "predictionio_tpu_torch.cli.main"
+
+
+def service_port(name: str) -> int:
+    """The port a named service actually listens on: its service record
+    (written at start) wins — replica-set members (``engine-0``,
+    ``engine-1``, ...) have no DEFAULT_PORTS entry — falling back to the
+    static default, then 0 for the unknown."""
+    rec = read_service_record(name)
+    if rec is not None:
+        try:
+            return int(rec.get("port") or 0)
+        except (TypeError, ValueError):
+            pass
+    return DEFAULT_PORTS.get(name, 0)
+
+
+def run_dir() -> Path:
+    d = Path(os.environ.get("PIO_RUN_DIR", "~/.pio_tpu/run")).expanduser()
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+def service_env() -> dict[str, str]:
+    """Environment for spawned services: the operator's env plus the
+    resolved ``PIO_PREP_CACHE_DIR``, so supervisor-scheduled warm
+    retrains hit the same packed-prep entries the deploy-time train
+    published. An explicit env var (even empty, to disable) wins.
+
+    Unlike the JAX package, no ``PIO_COMPILATION_CACHE_DIR`` default is
+    set: on the port it names the CUDA kernel build directory
+    (``kernels/_build.py``), and its own default, the package's
+    ``_build/``, is already persistent and shared by every process of
+    the checkout, so children load the builds there unless the operator
+    names another directory."""
+    env = dict(os.environ)
+    if "PIO_PREP_CACHE_DIR" not in env:
+        from predictionio_tpu_torch.core import prep_cache
+
+        env["PIO_PREP_CACHE_DIR"] = str(prep_cache.cache_dir())
+    return env
+
+
+def _pid_file(name: str) -> Path:
+    return run_dir() / f"{name}.pid"
+
+
+def _alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+        return True
+    except (ProcessLookupError, PermissionError):
+        return False
+
+
+def read_pid(name: str) -> int | None:
+    """Pid from the pid file, or None; drops the file if the pid is dead."""
+    pf = _pid_file(name)
+    if not pf.exists():
+        return None
+    try:
+        pid = int(pf.read_text().strip())
+    except ValueError:
+        pf.unlink(missing_ok=True)
+        return None
+    if not _alive(pid):
+        pf.unlink(missing_ok=True)
+        return None
+    return pid
+
+
+def wait_port(host: str, port: int, timeout: float = 30.0) -> bool:
+    """Poll until something accepts TCP connections on (host, port)."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        try:
+            with socket.create_connection((host, port), timeout=1.0):
+                return True
+        except OSError:
+            time.sleep(0.1)
+    return False
+
+
+def _http_get_json(host: str, port: int, path: str,
+                   timeout: float = 2.0) -> dict | None:
+    """One GET returning the parsed JSON body (any status), or None when
+    nothing answers / the answer isn't JSON (foreign listener)."""
+    try:
+        conn = http.client.HTTPConnection(host, port, timeout=timeout)
+        try:
+            conn.request("GET", path)
+            resp = conn.getresponse()
+            body = resp.read()
+        finally:
+            conn.close()
+        doc = json.loads(body)
+        return doc if isinstance(doc, dict) else None
+    except Exception:
+        return None
+
+
+def probe_health(host: str, port: int, timeout: float = 2.0) -> dict | None:
+    """``GET /healthz`` — the liveness doc (with the per-boot instance
+    id) when one of OUR servers answers, else None."""
+    doc = _http_get_json(host, port, "/healthz", timeout=timeout)
+    if doc is not None and "instance" in doc:
+        return doc
+    return None
+
+
+def probe_ready(host: str, port: int, timeout: float = 2.0) -> dict | None:
+    """``GET /readyz`` doc (ready or not), or None when unreachable."""
+    doc = _http_get_json(host, port, "/readyz", timeout=timeout)
+    if doc is not None and "instance" in doc:
+        return doc
+    return None
+
+
+def wait_healthy(
+    host: str,
+    port: int,
+    timeout: float = 30.0,
+    proc: subprocess.Popen | None = None,
+    not_instance: str | None = None,
+) -> dict | None:
+    """Poll ``/healthz`` until a live instance answers (optionally one
+    whose instance id differs from ``not_instance``). Fails fast when
+    ``proc`` exits. Returns the health doc, or None on timeout."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if proc is not None and proc.poll() is not None:
+            return None
+        doc = probe_health(host, port, timeout=1.0)
+        if doc is not None and doc.get("instance") != not_instance:
+            return doc
+        time.sleep(0.1)
+    return None
+
+
+def wait_ready(
+    host: str,
+    port: int,
+    timeout: float = 60.0,
+    proc: subprocess.Popen | None = None,
+    not_instance: str | None = None,
+) -> dict | None:
+    """Poll ``/readyz`` until a ready instance answers (optionally one
+    whose instance id differs from ``not_instance`` — the
+    rolling-restart handoff condition, where two same-port listeners
+    share accepts and probes land on either). Returns the ready doc, or
+    None on timeout / ``proc`` death."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if proc is not None and proc.poll() is not None:
+            return None
+        doc = probe_ready(host, port, timeout=1.0)
+        if (
+            doc is not None
+            and doc.get("ready")
+            and doc.get("instance") != not_instance
+        ):
+            return doc
+        time.sleep(0.1)
+    return None
+
+
+def _record_file(name: str) -> Path:
+    return run_dir() / f"{name}.json"
+
+
+def write_service_record(name: str, argv: list[str], host: str, port: int,
+                         instance: str | None = None) -> None:
+    """Persist how a service was started (argv/host/port/instance) so
+    ``pio rolling-restart`` and the supervisor can respawn it verbatim."""
+    tmp = _record_file(name).with_suffix(".json.tmp")
+    tmp.write_text(json.dumps({
+        "name": name, "argv": list(argv), "host": host, "port": port,
+        "instance": instance,
+    }))
+    tmp.replace(_record_file(name))
+
+
+def read_service_record(name: str) -> dict | None:
+    rf = _record_file(name)
+    if not rf.exists():
+        return None
+    try:
+        doc = json.loads(rf.read_text())
+        return doc if isinstance(doc, dict) else None
+    except (ValueError, OSError):
+        return None
+
+
+def spawn_service(name: str, argv: list[str]) -> subprocess.Popen:
+    """Spawn one pio verb as a detached child logging to the run dir.
+    The caller owns health-waiting and pid-file bookkeeping (the
+    supervisor keeps the Popen handle so crashes are reaped with an exit
+    status instead of lingering as zombies)."""
+    log = open(run_dir() / f"{name}.log", "a")
+    try:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", CLI_MODULE, *argv],
+            stdout=log,
+            stderr=subprocess.STDOUT,
+            stdin=subprocess.DEVNULL,
+            start_new_session=True,  # survives the CLI process and its tty
+            env=service_env(),
+        )
+    finally:
+        log.close()
+    return proc
+
+
+def start_service(name: str, argv: list[str], host: str, port: int) -> int:
+    """Spawn one pio verb as a detached daemon; returns its pid.
+
+    Comes up via ``/healthz`` rather than a raw TCP connect: probing the
+    port BEFORE the spawn detects a foreign/leftover listener up front
+    (the old TOCTOU — a reachable port was counted as success no matter
+    who owned it), and the health doc's instance id is recorded so later
+    probes can tell this boot from any other.
+
+    Raises RuntimeError if a live pid file already exists, the port is
+    already owned, or the service does not come up healthy.
+    """
+    existing = read_pid(name)
+    if existing is not None:
+        raise RuntimeError(
+            f"{name} already running (pid {existing}); `stop-all` first"
+        )
+    pre = probe_health(host, port, timeout=1.0)
+    if pre is not None:
+        raise RuntimeError(
+            f"{name}: {host}:{port} already serving (instance "
+            f"{pre.get('instance')}, pid {pre.get('pid')}); "
+            "`stop-all` first"
+        )
+    try:
+        with socket.create_connection((host, port), timeout=1.0):
+            pass
+        raise RuntimeError(
+            f"{name}: a foreign (non-pio) listener owns {host}:{port}"
+        )
+    except OSError:
+        pass  # nothing listening — the expected case
+    proc = spawn_service(name, argv)
+    doc = wait_healthy(host, port, timeout=30.0, proc=proc)
+    if doc is None:
+        if proc.poll() is not None:
+            raise RuntimeError(
+                f"{name} exited with rc={proc.returncode} before serving "
+                f"(see {run_dir() / f'{name}.log'})"
+            )
+        # same escalation as stop_service: a child mid-startup may defer
+        # SIGTERM, finish binding later, and become unstoppable (no pid
+        # file) unless we make sure it is gone now
+        proc.terminate()
+        try:
+            proc.wait(timeout=10.0)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        raise RuntimeError(
+            f"{name} did not answer /healthz on {host}:{port} within 30s "
+            f"(see {run_dir() / f'{name}.log'})"
+        )
+    _pid_file(name).write_text(str(proc.pid))
+    write_service_record(name, argv, host, port,
+                         instance=doc.get("instance"))
+    return proc.pid
+
+
+def drain_grace() -> float:
+    """How long a SIGTERM'd server may take to drain before escalation:
+    its drain window plus settle headroom."""
+    try:
+        drain_s = float(os.environ.get("PIO_DRAIN_TIMEOUT_S", "") or 10.0)
+    except ValueError:
+        drain_s = 10.0
+    return drain_s + 5.0
+
+
+def stop_service(name: str, grace: float | None = None) -> bool:
+    """SIGTERM the service's recorded pid (SIGKILL after ``grace``,
+    default the drain window + headroom — SIGTERM now triggers a
+    graceful drain, not an immediate exit).
+
+    Returns True if something was stopped.
+    """
+    pid = read_pid(name)
+    if pid is None:
+        _record_file(name).unlink(missing_ok=True)
+        return False
+    if grace is None:
+        grace = drain_grace()
+    os.kill(pid, signal.SIGTERM)
+    deadline = time.monotonic() + grace
+    while time.monotonic() < deadline:
+        if not _alive(pid):
+            break
+        time.sleep(0.1)
+    else:
+        os.kill(pid, signal.SIGKILL)
+        # SIGKILL is not instantaneous: wait for the process to actually
+        # leave the table, or the caller may rebind the port / reuse the
+        # name while the old process is still exiting
+        deadline = time.monotonic() + 10.0
+        while time.monotonic() < deadline:
+            if not _alive(pid):
+                break
+            time.sleep(0.05)
+    _pid_file(name).unlink(missing_ok=True)
+    _record_file(name).unlink(missing_ok=True)
+    return True
+
+
+def rolling_restart(name: str, wait: float = 90.0) -> dict:
+    """Zero-downtime restart: spawn a NEW instance of ``name`` on the
+    same port (``SO_REUSEPORT`` — the service must have been started
+    with ``--reuse-port``, as ``start-all`` does), wait until the
+    new instance answers ``/readyz``, then SIGTERM the old one so it
+    drains and exits. In-flight requests finish on the old instance;
+    drained keep-alive connections reconnect onto the new one.
+    """
+    rec = read_service_record(name)
+    if rec is None:
+        raise RuntimeError(
+            f"no service record for {name} under {run_dir()} — was it "
+            "started with `start-all` (or a recent start_service)?"
+        )
+    old_pid = read_pid(name)
+    if old_pid is None:
+        raise RuntimeError(
+            f"{name} is not running; use `start-all` instead"
+        )
+    host, port = rec["host"], int(rec["port"])
+    old_doc = probe_health(host, port, timeout=2.0)
+    old_instance = (old_doc or {}).get("instance") or rec.get("instance")
+    proc = spawn_service(name, rec["argv"])
+    ready = wait_ready(
+        host, port, timeout=wait, proc=proc, not_instance=old_instance
+    )
+    if ready is None:
+        detail = (
+            f"new {name} exited with rc={proc.returncode} (did the old "
+            "instance bind without --reuse-port?)"
+            if proc.poll() is not None
+            else f"new {name} not ready within {wait}s"
+        )
+        if proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=drain_grace())
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        raise RuntimeError(
+            f"rolling restart aborted, old instance untouched: {detail} "
+            f"(see {run_dir() / f'{name}.log'})"
+        )
+    # the new instance owns accepts from here; drain the old one
+    os.kill(old_pid, signal.SIGTERM)
+    deadline = time.monotonic() + drain_grace()
+    while time.monotonic() < deadline:
+        if not _alive(old_pid):
+            break
+        time.sleep(0.1)
+    else:
+        os.kill(old_pid, signal.SIGKILL)
+        while _alive(old_pid):
+            time.sleep(0.05)
+    _pid_file(name).write_text(str(proc.pid))
+    write_service_record(name, rec["argv"], host, port,
+                         instance=ready.get("instance"))
+    return {
+        "service": name,
+        "old_pid": old_pid,
+        "new_pid": proc.pid,
+        "old_instance": old_instance,
+        "instance": ready.get("instance"),
+        "port": port,
+    }
+
+
+def known_services() -> list[str]:
+    """Service names with live pid files, bring-up order."""
+    order = list(DEFAULT_PORTS)
+    present = [p.stem for p in run_dir().glob("*.pid")]
+    return [n for n in order if n in present] + [
+        n for n in sorted(present) if n not in order
+    ]

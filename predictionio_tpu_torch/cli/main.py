@@ -34,22 +34,47 @@
         [ENGINE_PARAMS_GENERATOR] [--batch LABEL] [--device cuda|cpu]
     python -m predictionio_tpu_torch.cli.main cache \\
         {list [--json] | evict ENTRY | prune [--max-mb MB] [--json]}
+    python -m predictionio_tpu_torch.cli.main {start-all [--supervise] | supervise} \\
+        --no-dashboard --no-adminserver [--ip 0.0.0.0] [--event-port 7070] \\
+        [--engine-port 8000] [--stats] [--variant engine.json] \\
+        [--variants A.json,B.json] [--device cuda|cpu] [--supervise-port P] \\
+        [--retrain-every DUR [--retrain-slo] [--retrain-floor DUR] \\
+         [--retrain-tol T]]
+    python -m predictionio_tpu_torch.cli.main rolling-restart SERVICE [--wait S]
+    python -m predictionio_tpu_torch.cli.main stop-all
 
 Port of ``predictionio_tpu/cli/main.py`` ``cmd_version`` (:106),
 ``cmd_status`` (:111), ``cmd_app`` (:755), ``cmd_accesskey`` (:799),
 ``cmd_train`` (:843-894), ``cmd_eval`` (:900-934), ``cmd_deploy``
 (:1053-1207), ``cmd_undeploy`` (:1210), ``cmd_eventserver`` (:1223),
-``cmd_export`` (:1308), ``cmd_import`` (:1323) and ``cmd_cache``
-(:1381), with the JAX verbs'
-flags and printed lines. The app, access-key, import, export and
-event-server verbs are host code (``cli/commands.py``,
-``server/event_server.py``) and start no device; they write records and
-events that the JAX package reads, and the reverse. ``status`` prints
+``cmd_export`` (:1308), ``cmd_import`` (:1323), ``cmd_cache``
+(:1381), ``cmd_start_all`` (:1443), ``cmd_rolling_restart`` (:1654) and
+``cmd_stop_all`` (:1694), with the JAX verbs' flags and printed lines.
+The app, access-key, import, export and event-server verbs are host
+code (``cli/commands.py``, ``server/event_server.py``) and start no
+device; they write records and events that the JAX package reads, and
+the reverse. ``status`` prints
 the storage bindings, the torch devices, which event codec runs (the
-native library or the pure-Python one) and a live training's progress
-line; the JAX verb's daemon, SLO, variant and replica lines need the
-daemon pid files of a later slice. ``undeploy`` POSTs ``/stop`` to a
-deployed engine server.
+native library or the pure-Python one), a live training's progress
+line, and the JAX verb's supervisor, SLO and variant lines from the run
+dir (``cli/daemon.py``) and the live daemons; ``status --json`` prints
+one compact line merging every live daemon's ``/metrics``,
+``/stats.json`` and ``/slo.json`` with ``supervisor.json``. The replica
+lines wait for the router (ROADMAP.md queue 1, item 10b). ``undeploy``
+POSTs ``/stop`` to a deployed engine server.
+
+``start-all`` brings the fleet up as detached daemons (the event server,
+and with ``--variant`` a deployed engine, both with ``--reuse-port``);
+``supervise`` (or ``start-all --supervise``) runs it under the
+self-healing supervisor in the foreground (``server/supervisor.py``),
+with ``--retrain-every DUR`` a cadenced warm ``train`` and ``/reload``;
+``rolling-restart`` replaces one recorded daemon without downtime and
+``stop-all`` stops them all. ``--device`` goes on to the engine's
+``deploy`` and to the scheduled ``train``, so with no flag every child
+scores and trains on the card. A plan that needs a later slice fails
+before anything is spawned: the dashboard and the admin server (item
+10c; pass ``--no-dashboard --no-adminserver``), ``--replicas`` (10b),
+``--engine-factory`` and ``--engine-dir`` (10d).
 
 ``train`` records an engine instance under
 the variant's (id, version, file-name label), as the JAX CLI does, so
@@ -71,7 +96,7 @@ into the served model every SECONDS; its cursor is
 .json``. Flags that need a later slice are accepted and raise
 ``NotImplementedError`` naming it (``_check_later_slices``), never
 ignored: ``deploy --workers N`` and ``eventserver --workers N`` (N > 1)
-and ``status --json``. ``import --warm-cache`` builds the columnar
+and the fleet plans above. ``import --warm-cache`` builds the columnar
 segment cache of a jsonl or partitioned store after the import, and
 ``train --no-columnar-cache`` reads the row logs instead
 (``PIO_COLUMNAR_CACHE=0``). The engine factory
@@ -93,19 +118,15 @@ import logging
 import os
 import sys
 import time
+from typing import TYPE_CHECKING
 
 from predictionio_tpu_torch import __version__
-from predictionio_tpu_torch.common import load_server_config
-from predictionio_tpu_torch.core.context import WorkflowContext
-from predictionio_tpu_torch.core.engine import (
-    DEFAULT_ENGINE_FACTORY,
-    WorkflowParams,
-    resolve_engine_factory,
-)
-from predictionio_tpu_torch.core.workflow import load_variant, run_train
-from predictionio_tpu_torch.core.workflow_eval import run_evaluation
-from predictionio_tpu_torch.data.storage import get_storage
-from predictionio_tpu_torch.server.engine_server import EngineServer
+
+# each verb imports what it runs: torch and the engine stack only where it
+# trains, evaluates or serves, so the event server, the supervisor and the
+# fleet verbs start without them
+if TYPE_CHECKING:
+    from predictionio_tpu_torch.server.engine_server import EngineServer
 
 
 def cmd_version(args) -> int:
@@ -113,13 +134,20 @@ def cmd_version(args) -> int:
     return 0
 
 
-def _training_line() -> str | None:
-    """Human one-liner for ``status`` when a checkpointed ``train`` is
-    publishing its progress: "training: iter 7/20, ETA 41s"."""
+def _training_progress() -> dict | None:
+    """The live-training progress doc (obs/progress.py), or None when
+    no checkpointed ``train`` is currently publishing."""
     from predictionio_tpu_torch.obs import progress as obs_progress
 
     doc = obs_progress.read_progress()
-    if not obs_progress.is_live(doc):
+    return doc if obs_progress.is_live(doc) else None
+
+
+def _training_line() -> str | None:
+    """Human one-liner for ``status`` when a checkpointed ``train`` is
+    publishing its progress: "training: iter 7/20, ETA 41s"."""
+    doc = _training_progress()
+    if doc is None:
         return None
     # under --tol the iteration count is an upper bound
     bound = "<=" if doc.get("eta_is_bound") else ""
@@ -137,13 +165,215 @@ def _training_line() -> str | None:
 def cmd_status(args) -> int:
     from predictionio_tpu_torch.cli import commands
 
-    _check_later_slices(args)
+    if getattr(args, "json", False):
+        return _status_json()
     info = commands.status()
     print(json.dumps(info, indent=2))
     print("(sanity check) All storage repositories verified.")
     line = _training_line()
     if line:
         print(line)
+    for line in _supervisor_lines():
+        print(line)
+    for line in _slo_lines():
+        print(line)
+    for line in _variant_lines():
+        print(line)
+    return 0
+
+
+def _live_daemon_json(path: str) -> dict[str, dict]:
+    """``GET path`` of every live daemon (pid file + answering port) as
+    parsed JSON; silent on daemons that are down or refuse."""
+    import urllib.request
+
+    from predictionio_tpu_torch.cli import daemon
+
+    docs: dict[str, dict] = {}
+    for name in daemon.known_services():
+        if daemon.read_pid(name) is None:
+            continue
+        port = daemon.service_port(name)
+        try:
+            with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}{path}", timeout=2.0
+            ) as r:
+                doc = json.loads(r.read())
+        except Exception:
+            continue
+        if isinstance(doc, dict):
+            docs[name] = doc
+    return docs
+
+
+def _variant_lines() -> list[str]:
+    """Human per-tenant lines for ``status`` when a live engine daemon
+    mounts more than one variant: one row per mount off its /stats.json
+    ``variants`` block, e.g.
+    ``variant[engine/b]: 124 reqs, p99 3.1ms, epoch 2``."""
+    lines: list[str] = []
+    for name, stats in _live_daemon_json("/stats.json").items():
+        variants = stats.get("variants") or {}
+        if len(variants) <= 1:
+            continue
+        for vname, v in variants.items():
+            parts = [f"{v.get('requestCount', 0)} reqs"]
+            if v.get("p99Ms") is not None:
+                parts.append(f"p99 {v['p99Ms']}ms")
+            parts.append(f"epoch {v.get('epoch', '?')}")
+            if v.get("secondsBehind") is not None:
+                parts.append(f"{v['secondsBehind']}s behind")
+            if v.get("modelAgeSec") is not None:
+                parts.append(f"model age {v['modelAgeSec']}s")
+            lines.append(f"variant[{name}/{vname}]: {', '.join(parts)}")
+    return lines
+
+
+def _supervisor_lines() -> list[str]:
+    """Human supervisor lines for ``status``, one per supervised
+    service: ``supervisor[engine]: up (restarts 1)`` — with the last
+    exit reason and next-retry ETA when it is mid-backoff or broken."""
+    from predictionio_tpu_torch.server import supervisor as sup_mod
+
+    doc = sup_mod.read_state()
+    if doc is None:
+        return []
+    lines: list[str] = []
+    stale = "" if doc.get("live") else " [supervisor not running]"
+    for name, s in (doc.get("services") or {}).items():
+        parts = [f"restarts {s.get('restarts', 0)}"]
+        if s.get("pid"):
+            parts.append(f"pid {s['pid']}")
+        if s.get("last_exit") and s.get("state") != "up":
+            parts.append(f"last exit: {s['last_exit']}")
+        if s.get("next_retry_in_s") is not None:
+            parts.append(f"retry in {s['next_retry_in_s']}s")
+        lines.append(
+            f"supervisor[{name}]: {s.get('state', '?')} "
+            f"({', '.join(parts)}){stale}"
+        )
+    rt = doc.get("retrain")
+    if isinstance(rt, dict):
+        parts = [
+            f"every {rt.get('interval_s')}s"
+            + (" (slo)" if rt.get("slo_driven") else ""),
+            f"runs {rt.get('runs', 0)}",
+            f"skips {rt.get('skips', 0)}",
+            f"failures {rt.get('failures', 0)}",
+        ]
+        last = rt.get("last_run") or {}
+        if last:
+            parts.append(
+                "last ok" if last.get("ok") else
+                f"last failed ({last.get('exit')})"
+            )
+        if rt.get("next_in_s") is not None:
+            parts.append(f"next in {rt['next_in_s']}s")
+        lines.append(
+            f"supervisor[retrain]: {rt.get('state', '?')} "
+            f"({', '.join(parts)}){stale}"
+        )
+    return lines
+
+
+def _slo_lines() -> list[str]:
+    """Human SLO lines for ``status``: one per objective, e.g.
+    ``slo[engine] engine.latency: OK (burn 0.2/0.1)``; violated and
+    burning objectives lead with their state upper-cased. Follows with
+    the newest state transitions off each daemon's alert ring."""
+    lines: list[str] = []
+    alerts: list[tuple[float, str]] = []
+    for service, doc in _live_daemon_json("/slo.json").items():
+        for s in doc.get("slos", []):
+            state = str(s.get("state", "?"))
+            mark = state.upper() if state != "ok" else "OK"
+            burn = ""
+            if s.get("burn_fast") is not None:
+                burn = f" (burn {s['burn_fast']}/{s.get('burn_slow')})"
+            cur = ""
+            if s.get("current") is not None:
+                cur = f", current {s['current']}"
+            lines.append(
+                f"slo[{service}] {s.get('name')}: {mark}{burn}{cur}"
+            )
+        for a in doc.get("alerts", []):
+            t = float(a.get("t") or 0.0)
+            alerts.append(
+                (
+                    t,
+                    f"alert[{service}] {a.get('slo')}: "
+                    f"{a.get('from')} -> {a.get('to')} "
+                    f"(burn {a.get('burn_fast')}/{a.get('burn_slow')}, "
+                    f"t={a.get('t')})",
+                )
+            )
+    lines.extend(line for _, line in sorted(alerts)[-5:])
+    return lines
+
+
+def _status_json() -> int:
+    """``status --json``: one compact JSON line merging ``/metrics`` +
+    ``/stats.json`` + ``/slo.json`` from every running daemon (live pid
+    files) with the supervisor's state, the SLO alerts, the incident
+    bundles and a live training's progress. Endpoints that refuse (the
+    event server's /stats.json wants an access key) are skipped, not
+    fatal."""
+    import urllib.request
+
+    from predictionio_tpu_torch.cli import daemon
+    from predictionio_tpu_torch.obs import incident as obs_incident
+    from predictionio_tpu_torch.obs import metrics as obs_metrics
+    from predictionio_tpu_torch.server import supervisor as sup_mod
+
+    def fetch(url: str):
+        try:
+            with urllib.request.urlopen(url, timeout=2.0) as r:
+                return r.read()
+        except Exception:
+            return None
+
+    services: dict = {}
+    for name in daemon.known_services():
+        pid = daemon.read_pid(name)
+        if pid is None:
+            continue
+        port = daemon.service_port(name)
+        entry: dict = {"pid": pid, "port": port}
+        base = f"http://127.0.0.1:{port}"
+        raw = fetch(f"{base}/metrics")
+        if raw is not None:
+            entry["metrics"] = obs_metrics.parse_prometheus(raw)
+        for key in ("stats", "slo"):
+            raw = fetch(f"{base}/{key}.json")
+            if raw is not None:
+                try:
+                    entry[key] = json.loads(raw)
+                except ValueError:
+                    pass
+        services[name] = entry
+    summary: dict = {"services": services}
+    sup_doc = sup_mod.read_state()
+    if sup_doc is not None:
+        summary["supervisor"] = sup_doc
+    # the SLO alert ring across services, oldest -> newest, each record
+    # tagged with the daemon it came from
+    alerts = [
+        {"service": name, **a}
+        for name, entry in services.items()
+        for a in (entry.get("slo") or {}).get("alerts", [])
+    ]
+    alerts.sort(key=lambda a: float(a.get("t") or 0.0))
+    summary["alerts"] = alerts[-10:]
+    bundles = obs_incident.list_incidents()
+    summary["incidents"] = {
+        "count": len(bundles),
+        "latest": bundles[0]["name"] if bundles else None,
+        "dir": str(obs_incident.incidents_dir()),
+    }
+    progress = _training_progress()
+    if progress is not None:
+        summary["training"] = progress
+    print(json.dumps(summary, separators=(",", ":")))
     return 0
 
 
@@ -229,9 +459,13 @@ def cmd_undeploy(args) -> int:
 
 def cmd_eventserver(args) -> int:
     """Serve the event API in the foreground; no device is touched."""
+    from predictionio_tpu_torch.obs import device as obs_device
     from predictionio_tpu_torch.server.event_server import EventServer
 
     _check_later_slices(args)
+    # the device gauges of /metrics import torch: register them before
+    # the port binds, so that no scrape (status --json waits 2 s) pays it
+    obs_device.ensure_device_gauges()
     server = EventServer(
         host=args.ip, port=args.port, stats=args.stats,
         reuse_port=args.reuse_port,
@@ -280,6 +514,7 @@ def cmd_import(args) -> int:
     print(f"Imported {n} events.")
     if args.warm_cache:
         from predictionio_tpu_torch.data import store
+        from predictionio_tpu_torch.data.storage import get_storage
 
         storage = get_storage()
         rows = store.warm_columnar_cache(
@@ -308,6 +543,14 @@ def _engine_identity(args, variant: dict) -> tuple[str, str, str]:
 
 def cmd_train(args) -> int:
     """Train the variant's engine and record a COMPLETED instance."""
+    from predictionio_tpu_torch.core.context import WorkflowContext
+    from predictionio_tpu_torch.core.engine import (
+        DEFAULT_ENGINE_FACTORY,
+        WorkflowParams,
+        resolve_engine_factory,
+    )
+    from predictionio_tpu_torch.core.workflow import load_variant, run_train
+
     _check_later_slices(args)
     # the checkpoint flags reach als_train through the environment, as in
     # the JAX CLI
@@ -357,6 +600,9 @@ def cmd_train(args) -> int:
 
 def cmd_eval(args) -> int:
     """Run an evaluation sweep and record an EvaluationInstance."""
+    from predictionio_tpu_torch.core.context import WorkflowContext
+    from predictionio_tpu_torch.core.workflow_eval import run_evaluation
+
     ctx = WorkflowContext(mode="Evaluation", batch=args.batch or "", device=args.device)
     instance_id, result = run_evaluation(
         evaluation_class=args.evaluation_class,
@@ -445,6 +691,8 @@ def cmd_cache(args) -> int:
 def _load_server_config(args):
     """server.conf for key auth / SSL: --server-config flag, else the
     PIO_SERVER_CONF env var, else conf/server.conf when present."""
+    from predictionio_tpu_torch.common import load_server_config
+
     path = (
         getattr(args, "server_config", None)
         or os.environ.get("PIO_SERVER_CONF")
@@ -470,12 +718,26 @@ def _check_later_slices(args) -> None:
             "CUDA context and a model copy of its own, and forking after "
             "CUDA has started is unsafe (ROADMAP.md queue 1)"
         )
-    if getattr(args, "command", None) == "status" and getattr(args, "json", False):
-        raise NotImplementedError(
-            "status --json (merging /metrics and /stats.json of the running "
-            "daemons found by their pid files) is a later slice of the "
-            "PyTorch port (ROADMAP.md queue 1, item 10: cli/daemon.py)"
-        )
+    if getattr(args, "command", None) in ("start-all", "supervise"):
+        if not (args.no_dashboard and args.no_adminserver):
+            raise NotImplementedError(
+                f"{args.command} starts the dashboard and the admin server "
+                "unless given --no-dashboard --no-adminserver; both are a "
+                "later slice of the PyTorch port (ROADMAP.md queue 1, item "
+                "10c: the dashboard and the admin server)"
+            )
+        if args.replicas > 0:
+            raise NotImplementedError(
+                "--replicas N (engine replicas behind the router tier) is a "
+                "later slice of the PyTorch port (ROADMAP.md queue 1, item "
+                "10b: worker processes and the router)"
+            )
+        if args.engine_factory or args.engine_dir:
+            raise NotImplementedError(
+                "--engine-factory and --engine-dir are a later slice of the "
+                "PyTorch port (ROADMAP.md queue 1, item 10d: the remaining "
+                "verbs and flags); name the engine by --variant"
+            )
 
 
 def start_speed_layers(server: EngineServer, args) -> list:
@@ -515,6 +777,12 @@ def _resolve_extra_variants(args, instances) -> list:
     file's basename minus ``.json`` -- the path prefix queries route on
     (``/<name>/queries.json``). Raises LookupError for a variant with no
     completed instance."""
+    from predictionio_tpu_torch.core.engine import (
+        DEFAULT_ENGINE_FACTORY,
+        resolve_engine_factory,
+    )
+    from predictionio_tpu_torch.core.workflow import load_variant
+
     spec = getattr(args, "variants", None) or ""
     paths = [p.strip() for p in spec.split(",") if p.strip()]
     extra = []
@@ -541,6 +809,14 @@ def deploy_server(args) -> EngineServer:
     """Resolve the engine and instance from ``args`` and build the
     server (models loaded to the device, not yet warmed or bound).
     Raises LookupError when no instance matches."""
+    from predictionio_tpu_torch.core.engine import (
+        DEFAULT_ENGINE_FACTORY,
+        resolve_engine_factory,
+    )
+    from predictionio_tpu_torch.core.workflow import load_variant
+    from predictionio_tpu_torch.data.storage import get_storage
+    from predictionio_tpu_torch.server.engine_server import EngineServer
+
     _check_later_slices(args)
     variant = load_variant(args.variant) if args.variant else {}
     storage = get_storage()
@@ -609,6 +885,234 @@ def cmd_deploy(args) -> int:
     return 0
 
 
+def cmd_start_all(args) -> int:
+    """Bring up the service fleet as detached daemons (reference
+    bin/pio-start-all; see cli/daemon.py for the process model).
+    With ``--supervise`` the fleet runs under a foreground supervisor
+    (server/supervisor.py) that restarts crashed children with backoff.
+    A plan that needs a later slice raises before anything is spawned."""
+    from predictionio_tpu_torch.cli import daemon
+
+    _check_later_slices(args)
+    # --reuse-port on the HTTP services so `rolling-restart` can overlap
+    # a replacement instance on the same port later
+    plan: list[tuple[str, list[str], int]] = [
+        (
+            "eventserver",
+            ["eventserver", "--ip", args.ip, "--port", str(args.event_port),
+             "--reuse-port"]
+            + (["--stats"] if args.stats else []),
+            args.event_port,
+        )
+    ]
+    if args.variant:
+        # beyond the reference's script: also deploy the latest trained
+        # engine so one verb yields a fully queryable stack. Paths go
+        # absolute — the daemon child's cwd is not this shell's.
+        deploy = ["deploy", "--ip", args.ip, "--reuse-port",
+                  "--variant", os.path.abspath(args.variant)]
+        deploy += _device_flag(args)
+        if args.variants:
+            deploy += [
+                "--variants",
+                ",".join(
+                    os.path.abspath(p.strip())
+                    for p in args.variants.split(",")
+                    if p.strip()
+                ),
+            ]
+        plan.append(
+            ("engine", deploy + ["--port", str(args.engine_port)],
+             args.engine_port)
+        )
+
+    if getattr(args, "supervise", False):
+        return _run_supervised(args, plan)
+
+    started: list[str] = []
+    for name, argv, port in plan:
+        host = args.ip if args.ip != "0.0.0.0" else "127.0.0.1"
+        try:
+            pid = daemon.start_service(name, argv, host, port)
+        except RuntimeError as e:
+            print(f"start-all: {e}", file=sys.stderr)
+            for prev in reversed(started):  # roll back partial bring-up
+                daemon.stop_service(prev)
+            return 1
+        started.append(name)
+        print(f"{name}: up on port {port} (pid {pid})")
+    print(f"Run dir: {daemon.run_dir()}")
+    return 0
+
+
+def _device_flag(args) -> list[str]:
+    """``--device D`` for the fleet's engine and scheduled train, or
+    nothing: then they run on the card."""
+    return ["--device", args.device] if args.device else []
+
+
+def _parse_duration(value: str) -> float:
+    """``300`` / ``300s`` / ``15m`` / ``1h`` -> seconds."""
+    s = str(value).strip().lower()
+    mult = 1.0
+    if s.endswith(("s", "m", "h")):
+        mult = {"s": 1.0, "m": 60.0, "h": 3600.0}[s[-1]]
+        s = s[:-1]
+    try:
+        out = float(s) * mult
+    except ValueError:
+        raise ValueError(f"bad duration {value!r} (want e.g. 300s, 15m, 1h)")
+    if out <= 0:
+        raise ValueError(f"duration must be positive, got {value!r}")
+    return out
+
+
+def _retrain_scheduler(args, plan, host):
+    """Build the RetrainScheduler for ``--retrain-every``, or None."""
+    from predictionio_tpu_torch.server import supervisor as sup_mod
+
+    raw = getattr(args, "retrain_every", None)
+    if not raw:
+        return None
+    interval = _parse_duration(raw)
+    engine_ports = [
+        port for name, _argv, port in plan
+        if name == "engine" or name.startswith("engine-")
+    ]
+    if not engine_ports:
+        raise ValueError("--retrain-every needs a deployed engine (--variant)")
+    train_argv = ["train", "--warm-start",
+                  "--variant", os.path.abspath(args.variant)]
+    train_argv += _device_flag(args)
+    if getattr(args, "retrain_tol", None):
+        train_argv += ["--tol", str(args.retrain_tol)]
+    floor = getattr(args, "retrain_floor", None)
+    return sup_mod.RetrainScheduler(
+        interval,
+        train_argv=train_argv,
+        engine_ports=engine_ports,
+        host=host,
+        slo_driven=bool(getattr(args, "retrain_slo", False)),
+        floor_s=_parse_duration(floor) if floor else None,
+    )
+
+
+def _run_supervised(args, plan) -> int:
+    """``start-all --supervise`` / ``supervise``: run the fleet under
+    the self-healing supervisor in the FOREGROUND (the supervisor is the
+    thing an init system or terminal owns; its children are the detached
+    daemons). SIGTERM/SIGINT request an orderly reverse-order stop —
+    each child gets a drain-grace SIGTERM first."""
+    import signal
+
+    from predictionio_tpu_torch.cli import daemon
+    from predictionio_tpu_torch.server import supervisor as sup_mod
+
+    host = args.ip if args.ip != "0.0.0.0" else "127.0.0.1"
+    specs = [
+        sup_mod.ServiceSpec(name=name, argv=argv, host=host, port=port)
+        for name, argv, port in plan
+    ]
+    try:
+        retrain = _retrain_scheduler(args, plan, host)
+    except ValueError as e:
+        print(f"supervise: {e}", file=sys.stderr)
+        return 1
+    sup = sup_mod.Supervisor(specs, retrain=retrain)
+
+    def _request_stop(signum, _frame):
+        sup.request_stop()
+
+    signal.signal(signal.SIGTERM, _request_stop)
+    signal.signal(signal.SIGINT, _request_stop)
+
+    stats = None
+    stats_port = getattr(args, "supervise_port", 0) or 0
+    if stats_port:
+        stats = sup_mod.stats_app(sup, host=host, port=stats_port)
+        stats.start(background=True)
+        print(f"supervisor: stats on http://{host}:{stats_port}/stats.json")
+    try:
+        sup.start_all()
+    except Exception as e:
+        print(f"supervise: {e}", file=sys.stderr)
+        sup.stop()
+        if stats is not None:
+            stats.stop()
+        return 1
+    for name, doc in sup.services().items():
+        print(
+            f"{name}: {doc['state']} on port {doc['port']} (pid {doc['pid']})"
+        )
+    if retrain is not None:
+        mode = "SLO-adaptive" if retrain.slo_driven else "fixed"
+        print(
+            f"retrain: every {retrain.base_interval_s:.0f}s ({mode}) -> "
+            f"{len(retrain.engine_ports)} engine(s)"
+        )
+    print(f"Run dir: {daemon.run_dir()} (supervised; ^C or SIGTERM to stop)",
+          flush=True)
+    try:
+        sup.run()
+    finally:
+        if stats is not None:
+            stats.stop()
+    return 0
+
+
+def cmd_rolling_restart(args) -> int:
+    """``rolling-restart <service>``: zero-downtime replacement of a
+    recorded daemon — new instance overlaps on the same port via
+    SO_REUSEPORT, must pass /readyz, then the old one drains out.
+
+    ``rolling-restart engineserver`` walks the whole engine replica set
+    (``engine`` and every ``engine-<i>``) ONE replica at a time."""
+    import re
+
+    from predictionio_tpu_torch.cli import daemon
+
+    if args.service in ("engineserver", "engines"):
+        names = [
+            n for n in daemon.known_services()
+            if n == "engine" or re.fullmatch(r"engine-\d+", n)
+        ]
+        if not names:
+            print(
+                "rolling-restart: no running engine replicas recorded",
+                file=sys.stderr,
+            )
+            return 1
+    else:
+        names = [args.service]
+    for name in names:
+        try:
+            info = daemon.rolling_restart(name, wait=args.wait)
+        except RuntimeError as e:
+            print(f"rolling-restart: {e}", file=sys.stderr)
+            return 1
+        print(
+            f"{info['service']}: rolled pid {info['old_pid']} -> "
+            f"{info['new_pid']} on port {info['port']} "
+            f"(instance {info['instance']})"
+        )
+    return 0
+
+
+def cmd_stop_all(args) -> int:
+    """Tear down everything start-all recorded (reference bin/pio-stop-all)."""
+    from predictionio_tpu_torch.cli import daemon
+
+    stopped = 0
+    # reverse bring-up order: engine first, event server last
+    for name in reversed(daemon.known_services()):
+        if daemon.stop_service(name):
+            print(f"{name}: stopped")
+            stopped += 1
+    if not stopped:
+        print("Nothing to stop.")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m predictionio_tpu_torch.cli.main",
@@ -616,11 +1120,12 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = p.add_subparsers(dest="command", required=True)
     sub.add_parser("version", help="print the package version").set_defaults(fn=cmd_version)
-    st = sub.add_parser("status", help="storage, devices and the event codec")
+    st = sub.add_parser("status", help="storage, devices, the event codec "
+                        "and the daemons")
     st.add_argument(
         "--json", action="store_true",
-        help="one compact JSON line merging /metrics + /stats.json from "
-        "running daemons: a later slice of the port (raises)",
+        help="one compact JSON line merging /metrics + /stats.json + "
+        "/slo.json from the running daemons with supervisor.json",
     )
     st.set_defaults(fn=cmd_status)
 
@@ -858,6 +1363,101 @@ def build_parser() -> argparse.ArgumentParser:
     )
     cp.add_argument("--json", action="store_true")
     ca.set_defaults(fn=cmd_cache, json=False, max_mb=None)
+
+    def _fleet_args(parser) -> None:
+        parser.add_argument("--ip", default="0.0.0.0")
+        parser.add_argument("--event-port", type=int, default=7070)
+        parser.add_argument("--engine-port", type=int, default=8000)
+        parser.add_argument("--stats", action="store_true")
+        parser.add_argument(
+            "--no-dashboard", action="store_true",
+            help="required: the dashboard is a later slice of the port",
+        )
+        parser.add_argument(
+            "--no-adminserver", action="store_true",
+            help="required: the admin server is a later slice of the port",
+        )
+        parser.add_argument("--variant", help="also deploy this engine variant")
+        parser.add_argument(
+            "--engine-factory",
+            help="also deploy this engine factory: a later slice of the "
+            "port (raises)",
+        )
+        parser.add_argument(
+            "--engine-dir",
+            help="also deploy the engine in this dir: a later slice of the "
+            "port (raises)",
+        )
+        parser.add_argument(
+            "--variants", metavar="A.JSON,B.JSON",
+            help="co-mount these trained engine variants in the "
+            "deployed engine process (see deploy --variants)",
+        )
+        parser.add_argument(
+            "--device", default=None,
+            help="torch device of the deployed engine and the scheduled "
+            "train (default: cuda; cpu runs the kernels' plain versions)",
+        )
+        parser.add_argument(
+            "--supervise-port", type=int, default=0,
+            help="with --supervise: serve supervisor /stats.json and "
+            "/metrics on this port",
+        )
+        parser.add_argument(
+            "--replicas", type=int, default=0, metavar="N",
+            help="engine replicas behind the router tier: a later slice "
+            "of the port (N > 0 raises)",
+        )
+        parser.add_argument(
+            "--retrain-every", metavar="DUR", default=None,
+            help="with --supervise: run a warm `train` + engine /reload "
+            "on this cadence (e.g. 300s, 15m, 1h)",
+        )
+        parser.add_argument(
+            "--retrain-slo", action="store_true",
+            help="adapt the retrain cadence to the serving.freshness "
+            "SLO burn rate (halve while burning, decay back when ok)",
+        )
+        parser.add_argument(
+            "--retrain-floor", metavar="DUR", default=None,
+            help="shortest adaptive retrain interval "
+            "(default: --retrain-every / 8)",
+        )
+        parser.add_argument(
+            "--retrain-tol", type=float, default=None, metavar="T",
+            help="pass --tol T to the scheduled warm trains "
+            "(early-stop on an RMSE plateau)",
+        )
+
+    sa = sub.add_parser("start-all", help="bring the service fleet up")
+    _fleet_args(sa)
+    sa.add_argument(
+        "--supervise", action="store_true",
+        help="stay in the foreground and restart crashed services "
+        "with backoff",
+    )
+    sa.set_defaults(fn=cmd_start_all)
+
+    sv = sub.add_parser(
+        "supervise", help="start-all under the self-healing supervisor"
+    )
+    _fleet_args(sv)
+    sv.set_defaults(fn=cmd_start_all, supervise=True)
+
+    rr = sub.add_parser(
+        "rolling-restart",
+        help="zero-downtime replacement of one recorded service",
+    )
+    rr.add_argument("service", help="a service name from `status`")
+    rr.add_argument(
+        "--wait", type=float, default=90.0,
+        help="seconds to wait for the replacement's /readyz (default 90)",
+    )
+    rr.set_defaults(fn=cmd_rolling_restart)
+
+    sub.add_parser(
+        "stop-all", help="stop every daemon the run dir records"
+    ).set_defaults(fn=cmd_stop_all)
     return p
 
 

@@ -4,9 +4,14 @@ Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface and loaded with
 ``ctypes`` -- no PyTorch headers, so a build takes seconds. The build
 runs at first use, from the sources in the package, into ``_build/``
-beside them (listed in ``.gitignore``). The library's name carries a
-hash of its source and of the shared headers (``csrc/*.cuh``), so an
-edited kernel is rebuilt and a stale one is never loaded. A failed build
+beside them (listed in ``.gitignore``), or into
+``$PIO_COMPILATION_CACHE_DIR`` when that is set (read at each
+``load``): the fleet's services share one build directory there
+(``cli/daemon.py service_env``), and pointing it at a directory that
+already holds the builds spares every child the ``nvcc`` runs. The
+library's name carries a hash of its source and of the shared headers
+(``csrc/*.cuh``), so an edited kernel is rebuilt and a stale one is
+never loaded. A failed build
 raises; there is no fallback. Each build is counted in ``obs/device.py``
 (``pio_jit_compiles_total{fn}``).
 
@@ -81,8 +86,16 @@ def nvcc_path() -> str:
     )
 
 
+def build_dir() -> Path:
+    """Where the libraries are built and loaded from:
+    ``$PIO_COMPILATION_CACHE_DIR`` when set and not empty, else
+    ``BUILD_DIR``."""
+    env = os.environ.get("PIO_COMPILATION_CACHE_DIR", "").strip()
+    return Path(env).expanduser() if env else BUILD_DIR
+
+
 def _compile(src: Path, out: Path) -> dict:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}.{threading.get_ident()}")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
@@ -122,7 +135,7 @@ def load(name: str) -> ctypes.CDLL:
             return lib
         src = CSRC / f"{name}.cu"
         digest = _digest(src)
-        out = BUILD_DIR / f"lib{name}-{digest}.so"
+        out = build_dir() / f"lib{name}-{digest}.so"
         if out.exists():
             info = {"seconds": 0.0, "log": "", "cached": True}
         else:

@@ -135,12 +135,15 @@ class ProgressPublisher:
             logger.debug("progress publish failed", exc_info=True)
 
     def done(
-        self, iteration: int | None = None, early_stopped: bool = False
+        self, iteration: int | None = None, early_stopped: bool = False,
+        **final,
     ) -> None:
         """Terminal publish. ``early_stopped`` (a --tol plateau) pins
         ``total_iterations`` to the iteration actually reached, so the
         final document reports the true count instead of the stale
-        configured one."""
+        configured one. ``final`` adds keys known only at the end (the
+        run's kernel launches) to the terminal document."""
+        self._static.update(final)
         if early_stopped and iteration is not None:
             self.early_stopped = True
             self.total_iterations = int(iteration)

@@ -1444,6 +1444,7 @@ def als_train(
         warm_start=warm_start is not None, **(progress_extra or {}),
     )
     t0 = time.perf_counter()
+    k1_before = solve_bucket.launches.value
     final_rmse = None
     ckpt_every = cfg.every if (cfg is not None and cfg.every > 0) else 0
     prog.publish(start_iter)
@@ -1491,7 +1492,9 @@ def als_train(
                 prev_rmse = final_rmse
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    prog.done(it, early_stopped=it < params.iterations)
+    # K1's launches in this run, as its counter saw them (0 on the CPU)
+    k1_launches = solve_bucket.launches.value - k1_before
+    prog.done(it, early_stopped=it < params.iterations, k1_launches=k1_launches)
     LAST_TRAIN_INFO.clear()
     LAST_TRAIN_INFO.update(
         iterations_run=it - start_iter,

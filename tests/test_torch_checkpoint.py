@@ -257,6 +257,34 @@ def test_progress_file_follows_the_segments(tmp_path, monkeypatch):
     assert doc["trainer"] == "single" and doc["mesh"] == "single"
 
 
+def test_progress_file_counts_the_runs_k1_launches(tmp_path, monkeypatch):
+    """The terminal progress document carries the K1 launches of this run
+    alone, as ``solve_bucket.launches`` saw them: 0 on the CPU (the plain
+    version launches nothing), and what a counted half-step adds
+    otherwise, whatever the counter held before the run."""
+    import json
+
+    path = tmp_path / "progress.json"
+    monkeypatch.setenv("PIO_PROGRESS_FILE", str(path))
+    data = _data()
+    _train(data, _params(iterations=2))
+    doc = json.loads(path.read_text())
+    assert doc["state"] == "done" and doc["k1_launches"] == 0
+
+    half_step = als._half_step
+
+    def counted(target, other, buckets, params, *a, **kw):
+        als.solve_bucket.launches.add(len(buckets))
+        return half_step(target, other, buckets, params, *a, **kw)
+
+    monkeypatch.setattr(als, "_half_step", counted)
+    als.solve_bucket.launches.add(7)  # launches of an earlier run
+    _train(data, _params(iterations=3))
+    doc = json.loads(path.read_text())
+    per_iter = len(data.row_buckets) + len(data.col_buckets)
+    assert doc["iteration"] == 3 and doc["k1_launches"] == 3 * per_iter
+
+
 def test_train_histograms_observe_each_run():
     from predictionio_tpu_torch.obs import metrics as obs_metrics
 
@@ -273,11 +301,13 @@ def test_train_histograms_observe_each_run():
 class TestTrainCLIPlumbing:
     def test_train_flags_set_env(self, monkeypatch, tmp_path):
         from predictionio_tpu_torch.cli import main as cli_main
+        from predictionio_tpu_torch.core import workflow
 
         def stop(*a, **k):
             raise SystemExit(0)  # stop before real training
 
-        monkeypatch.setattr(cli_main, "run_train", stop)
+        # cmd_train imports run_train when it runs
+        monkeypatch.setattr(workflow, "run_train", stop)
         args = cli_main.build_parser().parse_args([
             "train", "--checkpoint-every", "5", "--resume",
             "--checkpoint-dir", str(tmp_path), "--device", "cpu",
@@ -294,8 +324,9 @@ class TestTrainCLIPlumbing:
 
     def test_no_flag_sets_nothing(self, monkeypatch):
         from predictionio_tpu_torch.cli import main as cli_main
+        from predictionio_tpu_torch.core import workflow
 
-        monkeypatch.setattr(cli_main, "run_train",
+        monkeypatch.setattr(workflow, "run_train",
                             lambda *a, **k: (_ for _ in ()).throw(SystemExit(0)))
         args = cli_main.build_parser().parse_args(["train", "--device", "cpu"])
         with pytest.raises(SystemExit):

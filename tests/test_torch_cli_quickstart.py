@@ -379,7 +379,7 @@ def test_status_names_the_event_codec(monkeypatch, caplog):
 @pytest.mark.parametrize("argv", [
     ["eventserver", "--workers", "2", "--port", "7070"],
     ["deploy", "--workers", "2", "--variant", "engine.json"],
-    ["status", "--json"],
+    ["start-all", "--no-dashboard", "--no-adminserver", "--replicas", "2"],
 ])
 def test_later_slice_flags_raise(argv):
     with pytest.raises(NotImplementedError, match="later slice"):

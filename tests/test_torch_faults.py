@@ -1,16 +1,22 @@
 """The port's fault-injection framework (``predictionio_tpu_torch/
 faults/``), on the CPU: rule grammar, triggers, wildcard matching, env
-activation, and the injected() test API.
+activation, the injected() test API, and the circuit breaker
+(``common/breaker.py``) whose backoff the fleet supervisor's restarts
+and the speed layer's retries draw.
 
-The port's copy of ``tests/test_faults.py``. Its circuit-breaker cases
-test ``common/breaker.py``, which serves the JAX package's router and
-storage client, slices the port has not reached."""
+The port's copy of ``tests/test_faults.py``."""
 
 from __future__ import annotations
 
 import pytest
 
 from predictionio_tpu_torch import faults
+from predictionio_tpu_torch.common.breaker import (
+    CLOSED,
+    HALF_OPEN,
+    OPEN,
+    CircuitBreaker,
+)
 
 
 @pytest.fixture(autouse=True)
@@ -336,3 +342,114 @@ class TestPortFaultPoints:
             else:
                 als.als_train(data, params, tol=tol, device="cpu")
         assert plan.fire_count("device.dispatch") == fires
+
+
+class FakeClock:
+    def __init__(self):
+        self.t = 1000.0
+
+    def __call__(self):
+        return self.t
+
+
+class TestCircuitBreaker:
+    def _breaker(self, **kw):
+        clock = FakeClock()
+        kw.setdefault("failure_threshold", 3)
+        kw.setdefault("base_backoff_s", 2.0)
+        kw.setdefault("jitter", 0.0)
+        return CircuitBreaker("test", clock=clock, **kw), clock
+
+    def test_trips_after_threshold_consecutive_failures(self):
+        b, _ = self._breaker()
+        for _ in range(2):
+            b.record_failure()
+        assert b.state == CLOSED and b.allow()
+        b.record_failure()
+        assert b.state == OPEN and not b.allow()
+
+    def test_success_resets_consecutive_count(self):
+        b, _ = self._breaker()
+        b.record_failure()
+        b.record_failure()
+        b.record_success()
+        b.record_failure()
+        b.record_failure()
+        assert b.state == CLOSED
+
+    def test_half_open_then_close_on_success(self):
+        b, clock = self._breaker()
+        for _ in range(3):
+            b.record_failure()
+        assert not b.allow()
+        clock.t += 2.0  # past base backoff (jitter=0)
+        assert b.allow()
+        assert b.state == HALF_OPEN
+        b.record_success()
+        assert b.state == CLOSED and b.allow()
+
+    def test_half_open_failure_doubles_backoff(self):
+        b, clock = self._breaker()
+        for _ in range(3):
+            b.record_failure()
+        clock.t += 2.0
+        assert b.allow()  # half-open trial
+        b.record_failure()  # trial failed: re-open with doubled backoff
+        assert b.state == OPEN
+        clock.t += 2.0
+        assert not b.allow()  # 2s is no longer enough
+        clock.t += 2.0  # 4s total: 2 * base
+        assert b.allow()
+
+    def test_backoff_capped(self):
+        b, clock = self._breaker(max_backoff_s=5.0)
+        for _ in range(3):
+            b.record_failure()
+        for _ in range(6):  # many re-opens: backoff would be 2*2^6 uncapped
+            clock.t += 5.0
+            assert b.allow()
+            b.record_failure()
+        assert b.snapshot()["retry_in_s"] <= 5.0
+
+    def test_jitter_is_seeded_and_bounded(self):
+        vals = set()
+        for _ in range(2):
+            b = CircuitBreaker(
+                "j", base_backoff_s=10.0, jitter=0.2, seed=3,
+                clock=FakeClock(),
+            )
+            vals.add(round(b.backoff_s(), 9))
+        assert len(vals) == 1  # same seed, same jitter
+        assert 8.0 <= vals.pop() <= 12.0
+
+    def test_snapshot_shape(self):
+        b, _ = self._breaker()
+        snap = b.snapshot()
+        assert snap == {
+            "state": CLOSED,
+            "consecutive_failures": 0,
+            "failures_total": 0,
+            "trips_total": 0,
+            "retry_in_s": 0.0,
+        }
+
+    def test_same_policy_as_the_jax_breaker(self):
+        """One seed, one failure sequence: the port's breaker and
+        ``backoff_interval`` give the JAX package's numbers."""
+        import random
+
+        from predictionio_tpu.common import breaker as jbreaker
+        from predictionio_tpu_torch.common import breaker
+
+        for attempt in range(1, 9):
+            a, b = random.Random(5), random.Random(5)
+            assert breaker.backoff_interval(attempt, base_s=0.5, max_s=30.0, jitter=0.2,
+                                            rng=a) == jbreaker.backoff_interval(
+                attempt, base_s=0.5, max_s=30.0, jitter=0.2, rng=b)
+        ours = CircuitBreaker("p", base_backoff_s=2.0, jitter=0.3, seed=9, clock=FakeClock())
+        theirs = jbreaker.CircuitBreaker("p", base_backoff_s=2.0, jitter=0.3, seed=9,
+                                         clock=FakeClock())
+        for _ in range(5):
+            ours.record_failure()
+            theirs.record_failure()
+            assert ours.snapshot() == theirs.snapshot()
