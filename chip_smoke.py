@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--phases k2,k1,k1i,k1route,k2s,k2route,k6,k2cos,k4,k5,
                                     times,retimes,serve,batchserve,lifecycle,ingest,
-                                    filelog,prepcache,fleet,simlife,templife,train,ckpt,
+                                    filelog,prepcache,fleet,workers,simlife,templife,train,
+                                    ckpt,
                                     realtime,
                                     simtrain,templates,eval,retrieval,k1times,simtimes]
 
@@ -431,6 +432,41 @@ phase's cache directory):
   ``stop-all`` (ports closed, nothing left on the card). It prints every
   child's spawn-to-healthy and spawn-to-ready seconds, the retrain's wall
   time and prep-cache status, and K2's calls on each engine.
+
+The worker-process and router slice adds (workers after fleet, on the
+fleet phase's jsonl store and its newest instance, rank 20; needs fleet):
+
+- workers: ``cli.main deploy --workers 2`` of that instance on the card
+  beside a single-process ``deploy`` of it, started together: fresh
+  connections to ``/healthz`` until two worker pids answered; the
+  parent maps neither torch nor the CUDA driver (``/proc/<pid>/maps``),
+  each worker maps the driver and holds the model in its own CUDA
+  allocator (its ``/stats.json`` ``device`` block), and the card's free
+  memory shows what the two workers hold once the single deploy stops
+  (``nvidia-smi --query-compute-apps`` is printed as it lists them: on
+  a container's card one entry, not the processes);
+  WORKERS_IDENTITY distinct users over fresh connections byte-identical
+  to the single process, a sample against the model loaded here and
+  scored by K2's plain version; closed-loop q/s at concurrency 8 and 64
+  (WORKERS_LOAD distinct users a level) of the single process and of
+  the workers, every answer byte-identical; each worker's K2 tile-route
+  calls from its own ``/metrics`` (``/healthz`` then ``/metrics`` on
+  one keep-alive connection), each some and all of them the queries sent
+  plus one warmup a worker; kill -9 of one worker: the parent exits
+  nonzero, the other worker goes, nothing is left on the card. Then
+  ``cli.main supervise --no-dashboard --no-adminserver --replicas 2``
+  (the event server, ``engine-0``, ``engine-1`` and ``router``): routed
+  answers and answers straight from each replica byte-identical to the
+  single process's, q/s through the router at 8 and 64, both replicas
+  with routed requests, a repeated query kept on its replica, each
+  replica's K2 calls equal to the router's attempts on it plus the
+  straight queries plus its warmup; a keep-alive loop through the router
+  across a kill -9 of ``engine-0`` (no non-200, byte-identical, retries
+  or ejections, the supervisor's restart and the router's admission of
+  the new instance, with their seconds); ``status`` (replica lines) and
+  ``status --json``; the router and the event server still without
+  torch; SIGTERM to the supervisor leaves no pid file, no process and no
+  memory of the replica set on the card.
 
 Every phase prints its results and seconds; any failure makes the exit
 code 1 and suppresses the result lines. Without CUDA, or without the
@@ -3679,11 +3715,7 @@ def wait_for(what: str, cond, timeout: float, proc=None, log_path=None):
 
 def card_pids() -> set:
     """Pids ``nvidia-smi`` lists as compute processes on the card."""
-    proc = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=30)
-    if proc.returncode != 0:
-        raise AssertionError(f"nvidia-smi --query-compute-apps: {proc.stderr}")
-    return {int(x) for x in proc.stdout.split() if x.strip().isdigit()}
+    return set(card_apps())
 
 
 def free_card_bytes(torch, device) -> int | None:
@@ -4084,6 +4116,8 @@ def fleet(torch, device, stats, prep: IngestPrep, fprep: FilelogPrep):
                            capture_output=True, timeout=120)
         shutil.rmtree(run, ignore_errors=True)
     stats["fleet"] = out
+    # the workers phase deploys this store's newest instance
+    stats["fleet_store"] = {"dir": jl, "env": jl_env, "variant": variant}
     log(json.dumps({"fleet": "ml1m jsonl", **out}))
 
 
@@ -4105,6 +4139,453 @@ def check_fleet_gone(torch, device, run: str, pids: set, free0, what: str) -> No
     if on_card or gap > 256 << 20:
         raise AssertionError(f"{what}: fleet pids on the card {sorted(on_card)}, "
                              f"{gap} bytes of the card still taken")
+
+
+# -- phase: worker processes and the router tier ------------------------------------
+
+WORKERS_IDENTITY = 200  # distinct users held byte for byte to one process
+WORKERS_LOAD = 1_000  # distinct users a concurrency level of the q/s sweeps
+WORKERS_LEVELS = (8, 64)
+WORKERS_SAMPLE = 20  # answers held to K2's plain version in this process
+
+
+def card_apps() -> dict:
+    """{pid: MiB} of the compute processes ``nvidia-smi`` lists on the card
+    (inside a container it may list them under pids of another
+    namespace, or as one entry)."""
+    proc = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                           "--format=csv,noheader,nounits"],
+                          capture_output=True, text=True, timeout=30)
+    if proc.returncode != 0:
+        raise AssertionError(f"nvidia-smi --query-compute-apps: {proc.stderr}")
+    out = {}
+    for line in proc.stdout.splitlines():
+        parts = [x.strip() for x in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            out[int(parts[0])] = float(parts[1]) if parts[1].replace(".", "").isdigit() else None
+    return out
+
+
+def worker_pids(port: int, n: int, proc, log_path: str, timeout: float = 180) -> set:
+    """Fresh connections to ``/healthz`` until ``n`` distinct pids
+    answered (the kernel spreads new connections over the port's
+    SO_REUSEPORT sockets; a worker binds after its warmup)."""
+    from predictionio_tpu_torch.cli import daemon
+
+    pids: set = set()
+
+    def seen():
+        doc = daemon.probe_health("127.0.0.1", port, timeout=2.0)
+        if doc is not None:
+            pids.add(doc["pid"])
+        return len(pids) >= n
+
+    wait_for(f"{n} workers on port {port}", seen, timeout, proc, log_path)
+    return pids
+
+
+def per_worker(port: int, pids: set, path: str) -> dict:
+    """{pid: raw ``GET path``} of each worker: ``/healthz`` then ``path``
+    on one keep-alive connection reach the same worker."""
+    out: dict = {}
+
+    def read_one():
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        try:
+            status, raw = http_call(port, "GET", "/healthz", conn=conn)
+            pid = json.loads(raw)["pid"]
+            status, raw = http_call(port, "GET", path, conn=conn)
+            if status == 200:
+                out[pid] = raw
+        finally:
+            conn.close()
+        return set(out) >= pids
+
+    wait_for(f"every worker's {path}", read_one, 60)
+    return out
+
+
+def maps_lib(pid: int, lib: str) -> bool:
+    """Whether process ``pid`` has mapped a shared library named ``lib``
+    (``libcuda``: the CUDA driver, loaded when the process starts CUDA;
+    ``libtorch``)."""
+    with open(f"/proc/{pid}/maps") as f:
+        return f"/{lib}" in f.read()
+
+
+def fresh_answers(port: int, queries: list) -> list:
+    """Each query's raw answer, each on a fresh connection; all 200."""
+    out = []
+    for q in queries:
+        status, raw = http_call(port, "POST", "/queries.json", json.dumps(q).encode())
+        if status != 200:
+            raise AssertionError(f"{q} on port {port}: HTTP {status} {raw[:300]!r}")
+        out.append(raw)
+    return out
+
+
+def qps_level(port: int, queries: list, concurrency: int, want: dict) -> dict:
+    """Closed-loop q/s, p50 and p99 on distinct users, every answer held
+    byte for byte to ``want`` ({user: bytes}, one process's answers)."""
+    run = closed_loop(port, queries, concurrency)
+    differ = [u for u, raw in run["answers"].items() if raw != want[u]]
+    if differ:
+        raise AssertionError(f"{len(differ)} answers on port {port} at concurrency "
+                             f"{concurrency} differ from one process's, first {differ[0]}")
+    lat = sorted(run["lat"])
+    return {"qps": len(queries) / run["wall_s"], "p50_ms": lat[len(lat) // 2] * 1e3,
+            "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))] * 1e3}
+
+
+def port_free(port: int) -> bool:
+    with socket.socket() as s:
+        try:
+            s.bind(("127.0.0.1", port))
+            return True
+        except OSError:
+            return False
+
+
+def listen_ports(n: int) -> list:
+    """``n`` consecutive free ports below the kernel's ephemeral range: a
+    server that binds seconds after the choice (a worker after its
+    warmup, the second replica after the first's boot) cannot lose its
+    port meanwhile to the local end of a client connection."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    rng = np.random.default_rng()
+    for _ in range(1000):
+        start = int(rng.integers(10_000, low - n))
+        if all(port_free(start + i) for i in range(n)):
+            return list(range(start, start + n))
+    raise AssertionError(f"no {n} consecutive free ports below {low}")
+
+
+def replica_k2_calls(ports: dict) -> dict:
+    """{replica: K2 tile-route calls} from each replica's own /metrics."""
+    from predictionio_tpu_torch.obs.metrics import parse_prometheus
+
+    out = {}
+    for name, port in ports.items():
+        status, raw = http_call(port, "GET", "/metrics")
+        if status != 200:
+            raise AssertionError(f"{name}'s /metrics answered {status}")
+        out[name] = k2_tile_calls(parse_prometheus(raw))
+    return out
+
+
+def router_stats(port: int) -> dict:
+    status, raw = http_call(port, "GET", "/stats.json")
+    if status != 200:
+        raise AssertionError(f"the router's /stats.json answered {status}")
+    return json.loads(raw)
+
+
+@phase("workers: deploy --workers 2 on the card (pids, byte identity, K2 in each worker, q/s, "
+       "kill -9); supervise --replicas 2 behind the router (kill -9 of a replica, status)")
+def workers(torch, device, stats):
+    """Worker processes and the router tier on the fleet phase's ML-1M
+    jsonl store and its newest instance (see the module docstring)."""
+    from predictionio_tpu_torch.cli import daemon
+    from predictionio_tpu_torch.core.context import WorkflowContext
+    from predictionio_tpu_torch.core.workflow import prepare_deploy
+    from predictionio_tpu_torch.data import storage as st
+    from predictionio_tpu_torch.models import recommendation as rec
+    from predictionio_tpu_torch.obs.metrics import parse_prometheus
+
+    if "fleet_store" not in stats:
+        raise AssertionError("the workers phase needs the fleet phase's store")
+    jl, jl_env, variant = (stats["fleet_store"][k] for k in ("dir", "env", "variant"))
+    cuda = device.type == "cuda"
+    with storage_env(jl, jl_env):
+        storage = st.get_storage()
+        inst = storage.get_metadata_engine_instances().get_latest_completed(
+            FLEET_VARIANT_ID, "0", "fleet.json")
+        model = prepare_deploy(rec.engine(), inst, storage, WorkflowContext(device=device))[2][0]
+    rng = np.random.default_rng(SEED + 22)
+    users = sorted(model.user_index.keys())
+    picked = rng.choice(len(users), size=WORKERS_IDENTITY + len(WORKERS_LEVELS) * WORKERS_LOAD,
+                        replace=False)
+    queries = [{"user": users[int(j)], "num": 10} for j in picked]
+    ident, load = queries[:WORKERS_IDENTITY], queries[WORKERS_IDENTITY:]
+    load = {c: load[i * WORKERS_LOAD:(i + 1) * WORKERS_LOAD]
+            for i, c in enumerate(WORKERS_LEVELS)}
+    out: dict = {"card": stats.get("smi"), "instance": inst.id}
+    run = tempfile.mkdtemp(prefix="pio_chip_smoke_workers_")
+    env = jl_env | {"PIO_RUN_DIR": run}
+    free0 = free_card_bytes(torch, device)
+    single = parent = sup = log_f = sup_log = watch = None
+    pids: set = set()
+    finished = False
+    try:
+        # (a) one process and a set of two workers of the same instance,
+        # started together
+        port, = listen_ports(1)
+        log_path = os.path.join(run, "workers.log")
+        log_f = open(log_path, "w")
+        t_spawn = time.perf_counter()
+        single = DeployProcess(jl, inst.id, device.type, [], "single", env_extra=jl_env,
+                               wait=False)
+        parent = subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch.cli.main", "deploy",
+             "--engine-instance-id", inst.id, "--device", device.type, "--ip", "127.0.0.1",
+             "--port", str(port), "--workers", "2"],
+            cwd=ROOT, env=cli_env(jl, jl_env), stdout=log_f, stderr=subprocess.STDOUT)
+        pids |= {parent.pid, single.proc.pid}
+        wpids = worker_pids(port, 2, parent, log_path)
+        out["workers_up_s"] = time.perf_counter() - t_spawn
+        out["single_ready_s"] = single.wait_ready()
+        pids |= wpids
+        if parent.pid in wpids:
+            raise AssertionError(f"the parent {parent.pid} answered as a worker")
+        out["worker_pids"], out["parent_pid"] = sorted(wpids), parent.pid
+        # the parent holds neither torch nor a CUDA context; each worker
+        # has started CUDA and holds the model in its own allocator
+        if maps_lib(parent.pid, "libtorch") or maps_lib(parent.pid, "libcuda"):
+            raise AssertionError(f"the worker set's parent {parent.pid} loaded torch or CUDA")
+        docs = {p: json.loads(raw)["device"]
+                for p, raw in per_worker(port, wpids, "/stats.json").items()}
+        out["workers_device_in_use"] = {}
+        for p, doc in docs.items():
+            mem = doc["devices"][0]["memory"]
+            if cuda and (not maps_lib(p, "libcuda") or not mem or mem["in_use"] <= 0):
+                raise AssertionError(f"worker {p} holds no CUDA context or model: {doc}")
+            out["workers_device_in_use"][str(p)] = mem["in_use"] if mem else None
+        if cuda:
+            # what nvidia-smi lists, as it lists it
+            out["nvidia_smi_compute_apps_mib"] = {str(k): v for k, v in card_apps().items()}
+
+        # byte identity over fresh connections, and a sample against K2's
+        # plain version here
+        want = dict(zip((q["user"] for q in ident), fresh_answers(single.port, ident)))
+        got = fresh_answers(port, ident)
+        differ = [q["user"] for q, raw in zip(ident, got) if raw != want[q["user"]]]
+        if differ:
+            raise AssertionError(f"{len(differ)} of {len(ident)} worker answers differ from one "
+                                 f"process's, first {differ[0]}")
+        sample = ident[:WORKERS_SAMPLE]
+        for q, raw, (exp_items, exp_scores) in zip(
+                sample, got, expected_items(torch, model, device, sample)):
+            items = json.loads(raw)["itemScores"]
+            check_answer([x["item"] for x in items], [x["score"] for x in items],
+                         exp_items, exp_scores, model, f"worker answer {q}")
+        out["identity_queries"] = len(ident)
+
+        # q/s of one process and of the two workers, on the same users
+        for qs in load.values():
+            want.update(zip((q["user"] for q in qs), ask_all(single.port, qs)))
+        out["qps"] = {
+            "single": {c: qps_level(single.port, qs, c, want) for c, qs in load.items()},
+            "workers": {c: qps_level(port, qs, c, want) for c, qs in load.items()}}
+
+        # K2 in each worker, read from the worker's own /metrics
+        sent = len(ident) + sum(len(qs) for qs in load.values())
+        k2 = {pid: k2_tile_calls(parse_prometheus(raw))
+              for pid, raw in per_worker(port, wpids, "/metrics").items()}
+        out["workers_k2_calls"] = [k2[p] for p in sorted(wpids)]
+        out["workers_queries"] = sent
+        # one warmup call a worker; the CPU's plain version counts none
+        if cuda and (min(k2.values()) < 1 or sum(k2.values()) != sent + len(wpids)):
+            raise AssertionError(f"K2 calls by worker {k2}: expected {sent} queries + "
+                                 f"{len(wpids)} warmups, each worker some")
+        out["single_stop_rc"] = single.stop()
+        if cuda:
+            # the card's memory the two workers' contexts and models take
+            held = free0 - free_card_bytes(torch, device)
+            out["workers_card_bytes"] = held
+            if held < 2 * (256 << 20):
+                raise AssertionError(f"the two workers hold {held} bytes of the card: "
+                                     "less than two CUDA contexts")
+
+        # kill -9 of one worker: the parent exits nonzero and stops the other
+        victim, other = sorted(wpids)
+        t_kill = time.perf_counter()
+        os.kill(victim, signal.SIGKILL)
+        rc = parent.wait(timeout=60)
+        out["kill"] = {"parent_rc": rc, "parent_exit_s": time.perf_counter() - t_kill}
+        if rc == 0:
+            raise AssertionError("the worker set's parent exited 0 after a worker's kill -9")
+        wait_for("the other worker gone", lambda: not daemon._alive(other), 30)
+        log_f.close()
+        log_f = None
+        check_fleet_gone(torch, device, run, pids, free0, "after the worker set ended")
+
+        # (b) the replica set behind the router, supervised
+        ev, eng, _, rp = listen_ports(4)  # engine-0 and engine-1 on eng, eng + 1
+        device_flags = [] if cuda else ["--device", device.type]
+        sup_path = os.path.join(run, "supervise.out")
+        sup_log = open(sup_path, "w")
+        watch = BootWatch({"eventserver": ev, "engine-0": eng, "engine-1": eng + 1,
+                           "router": rp})
+        watch.start()
+        t_spawn = time.perf_counter()
+        sup = subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch.cli.main", "supervise", "--ip",
+             "127.0.0.1", "--no-dashboard", "--no-adminserver", "--variant", variant,
+             "--event-port", str(ev), "--engine-port", str(eng), "--router-port", str(rp),
+             "--replicas", "2", *device_flags],
+            cwd=ROOT, env=cli_env(jl, env), stdout=sup_log, stderr=subprocess.STDOUT)
+        pids.add(sup.pid)
+        names = ("eventserver", "engine-0", "engine-1", "router")
+        wait_for("the replica set up", lambda: all(
+            fleet_state(run).get("services", {}).get(n, {}).get("state") == "up"
+            for n in names), 240, sup, sup_path)
+        wait_for("both replicas admitted", lambda: all(
+            r["state"] == "ready" for r in router_stats(rp)["replicas"].values()), 60,
+            sup, sup_path)
+        out["replica_set_up_s"] = time.perf_counter() - t_spawn
+        via = fresh_answers(rp, ident)
+        direct = {0: [], 1: []}
+        for i, q in enumerate(ident):
+            direct[i % 2].append(q)
+        straight = {r: ask_all(eng + r, qs) for r, qs in direct.items()}
+        for r, qs in direct.items():
+            for q, raw in zip(qs, straight[r]):
+                if raw != want[q["user"]]:
+                    raise AssertionError(f"engine-{r}'s answer to {q} differs from one process's")
+        differ = [q["user"] for q, raw in zip(ident, via) if raw != want[q["user"]]]
+        if differ:
+            raise AssertionError(f"{len(differ)} routed answers differ, first {differ[0]}")
+        out["qps"]["router"] = {c: qps_level(rp, qs, c, want) for c, qs in load.items()}
+        reps = router_stats(rp)["replicas"]
+        if not all(r["requests"] > 0 for r in reps.values()):
+            raise AssertionError(f"a replica took no routed query: {reps}")
+        before = {n: r["requests"] for n, r in reps.items()}
+        for _ in range(10):
+            status, raw = http_call(rp, "POST", "/queries.json", json.dumps(ident[0]).encode())
+            if status != 200 or raw != want[ident[0]["user"]]:
+                raise AssertionError(f"a repeated routed query: HTTP {status} {raw[:300]!r}")
+        moved = {n: r["requests"] - before[n] for n, r in router_stats(rp)["replicas"].items()}
+        if 10 not in moved.values():
+            raise AssertionError(f"a repeated query moved between replicas: {moved}")
+        out["affinity_repeat"] = moved
+        # K2 in each replica: its own /metrics against the router's attempts
+        # on it, the straight queries and its warmup
+        time.sleep(0.5)  # an abandoned hedge attempt finishes on its replica
+        reps = router_stats(rp)["replicas"]
+        replica_ports = {"engine-0": eng, "engine-1": eng + 1}
+        k2_before = replica_k2_calls(replica_ports)
+        expect = {f"engine-{r}": reps[f"engine-{r}"]["requests"] + len(direct[r]) + 1
+                  for r in (0, 1)}
+        if cuda and k2_before != expect:
+            raise AssertionError(f"K2 calls by replica {k2_before}, expected {expect} "
+                                 "(the router's attempts, the straight queries, a warmup)")
+
+        # kill -9 of engine-0 under a keep-alive loop through the router
+        loop_qs = ident[:50]
+        loop = KeepAlive(rp, loop_qs)
+        loop.start()
+        time.sleep(0.5)
+        with open(os.path.join(run, "engine-0.pid")) as f:
+            victim = int(f.read())
+        old = json.loads(http_call(eng, "GET", "/healthz")[1])["instance"]
+        t_kill = time.perf_counter()
+        os.kill(victim, signal.SIGKILL)
+        new = wait_for("a new engine-0", lambda: (d := daemon.probe_health(
+            "127.0.0.1", eng, timeout=0.5)) and d["instance"] != old and d, 180, sup, sup_path)
+        t_healthy = time.perf_counter() - t_kill
+        admitted = wait_for("the router admitting the new engine-0", lambda: (
+            r := router_stats(rp)["replicas"]["engine-0"])["state"] == "ready"
+            and r["instance"] == new["instance"] and r, 60, sup, sup_path)
+        t_admit = time.perf_counter() - t_kill
+        time.sleep(1.0)  # the loop goes on against the re-admitted replica
+        loop.stop()
+        pids.add(new["pid"])
+        non_200 = sum(1 for _, s, _ in loop.answers if s != 200) + len(loop.errors)
+        differ = sum(1 for j, s, raw in loop.answers
+                     if s == 200 and raw != want[loop_qs[j]["user"]])
+        doc = router_stats(rp)
+        retried = doc["routing"]["retries"] + doc["replicas"]["engine-0"]["ejections"]
+        out["replica_kill"] = {
+            "queries": len(loop.answers), "non_200": non_200, "answers_differ": differ,
+            "reconnects": loop.reconnects, "kill_to_healthy_s": t_healthy,
+            "kill_to_readmitted_s": t_admit, "retries": doc["routing"]["retries"],
+            "ejections": doc["replicas"]["engine-0"]["ejections"],
+            "hedges": doc["routing"]["hedges"], "old_instance": old,
+            "new_instance": admitted["instance"]}
+        if non_200 or differ or retried < 1:
+            raise AssertionError(f"the router across engine-0's kill -9: {out['replica_kill']}, "
+                                 f"errors {loop.errors[:3]}")
+        state = fleet_state(run)["services"]["engine-0"]
+        if state["restarts"] != 1 or "signal 9" not in (state["last_exit"] or ""):
+            raise AssertionError(f"the supervisor's engine-0: {state}")
+        # the restarted replica's K2 (the loop's queries since it was
+        # admitted) and the survivor's
+        k2_after = replica_k2_calls(replica_ports)
+        out["replica_k2_calls"] = {"before_kill": k2_before, "after_readmission": k2_after}
+        if cuda and (min(k2_after.values()) < 1
+                     or k2_after["engine-1"] <= k2_before["engine-1"]):
+            raise AssertionError(f"K2 calls by replica: {out['replica_k2_calls']}")
+
+        # status and status --json of the replica set
+        with ThreadPoolExecutor(2) as side:
+            plain = side.submit(cli_run, jl, "status", env=env)
+            summary = side.submit(cli_run, jl, "status", "--json", env=env)
+            plain, summary = plain.result()[0], summary.result()[0]
+        for line in ("replica[router/engine-0]: ready", "replica[router/engine-1]: ready",
+                     "supervisor[engine-0]: up (restarts 1,", "supervisor[router]: up"):
+            if line not in plain:
+                raise AssertionError(f"status lacks {line!r}: {plain[-3000:]}")
+        lines = summary.strip().splitlines()
+        sdoc = json.loads(lines[-1])
+        if (len(lines) != 1 or set(sdoc["services"]) != set(names)
+                or set(sdoc["services"]["router"]["stats"]["replicas"]) != {"engine-0", "engine-1"}
+                or sdoc["supervisor"]["services"]["engine-0"]["restarts"] != 1):
+            raise AssertionError(f"status --json: {summary[:3000]}")
+        out["status_json_bytes"] = len(lines[0])
+        # host-only children: scraped by status --json, still without torch
+        for name in ("router", "eventserver"):
+            with open(os.path.join(run, f"{name}.pid")) as f:
+                if maps_lib(int(f.read()), "libtorch"):
+                    raise AssertionError(f"the {name} child loaded torch")
+
+        # SIGTERM to the supervisor: nothing of the replica set is left
+        t0 = time.perf_counter()
+        sup.send_signal(signal.SIGTERM)
+        rc = sup.wait(timeout=120)
+        out["supervisor_stop_s"] = time.perf_counter() - t0
+        out["boots"] = watch.stop()
+        pids |= {b["pid"] for b in out["boots"]}
+        if rc != 0:
+            raise AssertionError(f"the supervisor exited {rc}:\n" + open(sup_path).read()[-3000:])
+        check_fleet_gone(torch, device, run, pids, free0, "after SIGTERM to the supervisor")
+        finished = True
+    finally:
+        if watch is not None:
+            watch.done.set()
+        for f in (log_f, sup_log):
+            if f is not None:
+                f.close()
+        if parent is not None and parent.poll() is None:
+            parent.terminate()  # the parent forwards it to its workers
+            try:
+                parent.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                parent.kill()
+                parent.wait()
+        if sup is not None and sup.poll() is None:
+            sup.kill()
+            sup.wait()
+        if single is not None and single.proc.poll() is None:
+            single.stop()
+        if not finished:  # children a failed check left behind go too
+            if sup is not None:  # the supervisor's daemons outlive its kill
+                subprocess.run([sys.executable, "-m", "predictionio_tpu_torch.cli.main",
+                                "stop-all"], cwd=ROOT, env=cli_env(jl, env),
+                               capture_output=True, timeout=120)
+            for pid in pids:
+                with contextlib.suppress(OSError):
+                    os.kill(pid, signal.SIGKILL)
+            for name in sorted(os.listdir(run)):
+                if name.endswith(".log"):
+                    with open(os.path.join(run, name)) as f:
+                        log(f"-- {name}, its end:\n{f.read()[-2000:]}")
+        shutil.rmtree(run, ignore_errors=True)
+    stats["workers"] = out
+    log(json.dumps({"workers": "ml1m jsonl", **out}))
 
 
 # -- phase: full width -------------------------------------------------------------
@@ -9090,6 +9571,7 @@ def main() -> int:
         "filelog": lambda: filelog(torch, device, stats, prep, fprep),
         "prepcache": lambda: prep_cache_phase(torch, device, stats, prep, fprep),
         "fleet": lambda: fleet(torch, device, stats, prep, fprep),
+        "workers": lambda: workers(torch, device, stats),
         "simlife": lambda: similar_lifecycle(torch, device, stats),
         "templife": lambda: templates_lifecycle(torch, device, stats),
         "train": lambda: full_width(torch, device, stats),
@@ -9117,8 +9599,10 @@ def main() -> int:
     stats["smi"] = smi
     # the ingest phase's host-only start (files, import, export) runs
     # beside the build and the kernel checks: it touches no device
-    prep = IngestPrep() if {"ingest", "filelog", "prepcache", "fleet"} & set(chosen) else None
-    fprep = FilelogPrep(prep) if {"filelog", "prepcache", "fleet"} & set(chosen) else None
+    prep = (IngestPrep() if {"ingest", "filelog", "prepcache", "fleet", "workers"} & set(chosen)
+            else None)
+    fprep = (FilelogPrep(prep) if {"filelog", "prepcache", "fleet", "workers"} & set(chosen)
+             else None)
     # every train of the run keeps its packed-prep cache entries here, so
     # no entry of an earlier run gives a false hit
     prep_dir = tempfile.mkdtemp(prefix="pio_chip_smoke_prep_")
@@ -9189,6 +9673,8 @@ def main() -> int:
         "filelog_calls": (stats["filelog"]["deploy_k2_calls"]
                           + stats["filelog"]["retrain_on_deploy"]["k2_calls"]),
         "fleet_calls": stats["fleet"]["k2_calls"],
+        "workers_calls": stats["workers"]["workers_k2_calls"],
+        "replicas_calls": stats["workers"]["replica_k2_calls"],
     }, k1_summary(stats), k1i_summary(stats), k2s_summary(stats),
         k1s_summary(stats), topk_items_summary(stats), k3_summary(stats),
         *k4_summary(stats), k5_summary(stats), k6_summary(stats), k6_dense_summary(stats),

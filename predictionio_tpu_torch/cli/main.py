@@ -9,7 +9,7 @@
     python -m predictionio_tpu_torch.cli.main accesskey \\
         {new APP [--event E ...] | list [APP] | delete KEY}
     python -m predictionio_tpu_torch.cli.main eventserver \\
-        [--ip 0.0.0.0] [--port 7070] [--stats] [--reuse-port]
+        [--ip 0.0.0.0] [--port 7070] [--stats] [--reuse-port] [--workers N]
     python -m predictionio_tpu_torch.cli.main import --appid-or-name APP \\
         --input FILE [--channel C] [--jobs N] [--warm-cache] \\
         [--http URL --access-key KEY]
@@ -28,7 +28,12 @@
          --accesskey KEY] [--server-config server.conf] \\
         [--log-url URL] [--log-prefix P] [--batch-window-ms MS] \\
         [--reuse-port] [--query-cache-mb MB] [--variants A.json,B.json] \\
-        [--no-warmup] [--realtime SECONDS [--realtime-cursor PATH]]
+        [--no-warmup] [--realtime SECONDS [--realtime-cursor PATH]] \\
+        [--workers N]
+    python -m predictionio_tpu_torch.cli.main route \\
+        {--replica [NAME=]HOST:PORT ... | --replicas N [--engine-host H] \\
+         [--engine-port 8000]} [--ip 0.0.0.0] [--port 8100] \\
+        [--probe-interval S] [--no-hedge] [--reuse-port]
     python -m predictionio_tpu_torch.cli.main undeploy [--ip IP] [--port P]
     python -m predictionio_tpu_torch.cli.main eval EVALUATION \\
         [ENGINE_PARAMS_GENERATOR] [--batch LABEL] [--device cuda|cpu]
@@ -38,6 +43,7 @@
         --no-dashboard --no-adminserver [--ip 0.0.0.0] [--event-port 7070] \\
         [--engine-port 8000] [--stats] [--variant engine.json] \\
         [--variants A.json,B.json] [--device cuda|cpu] [--supervise-port P] \\
+        [--replicas N [--router-port 8100]] \\
         [--retrain-every DUR [--retrain-slo] [--retrain-floor DUR] \\
          [--retrain-tol T]]
     python -m predictionio_tpu_torch.cli.main rolling-restart SERVICE [--wait S]
@@ -48,8 +54,9 @@ Port of ``predictionio_tpu/cli/main.py`` ``cmd_version`` (:106),
 ``cmd_train`` (:843-894), ``cmd_eval`` (:900-934), ``cmd_deploy``
 (:1053-1207), ``cmd_undeploy`` (:1210), ``cmd_eventserver`` (:1223),
 ``cmd_export`` (:1308), ``cmd_import`` (:1323), ``cmd_cache``
-(:1381), ``cmd_start_all`` (:1443), ``cmd_rolling_restart`` (:1654) and
-``cmd_stop_all`` (:1694), with the JAX verbs' flags and printed lines.
+(:1381), ``cmd_start_all`` (:1443), ``cmd_rolling_restart`` (:1654),
+``cmd_stop_all`` (:1694), ``cmd_route`` (:1269) and ``_run_workers``
+(:951-1026), with the JAX verbs' flags and printed lines.
 The app, access-key, import, export and event-server verbs are host
 code (``cli/commands.py``, ``server/event_server.py``) and start no
 device; they write records and events that the JAX package reads, and
@@ -57,14 +64,26 @@ the reverse. ``status`` prints
 the storage bindings, the torch devices, which event codec runs (the
 native library or the pure-Python one), a live training's progress
 line, and the JAX verb's supervisor, SLO and variant lines from the run
-dir (``cli/daemon.py``) and the live daemons; ``status --json`` prints
-one compact line merging every live daemon's ``/metrics``,
-``/stats.json`` and ``/slo.json`` with ``supervisor.json``. The replica
-lines wait for the router (ROADMAP.md queue 1, item 10b). ``undeploy``
-POSTs ``/stop`` to a deployed engine server.
+dir (``cli/daemon.py``) and the live daemons, and a live router's
+replica lines; ``status --json`` prints one compact line merging every
+live daemon's ``/metrics``, ``/stats.json`` (the router's with its
+``replicas`` and ``routing`` blocks) and ``/slo.json`` with
+``supervisor.json``. ``undeploy`` POSTs ``/stop`` to a deployed engine
+server.
+
+``deploy --workers N`` and ``eventserver --workers N`` run N copies of
+the same command line (without ``--workers``, with ``--reuse-port``)
+sharing one port by ``SO_REUSEPORT``; the parent only spawns, forwards
+SIGTERM / SIGINT and exits nonzero when any worker dies. It imports no
+``torch``; each worker is a fresh interpreter of this CLI, never a fork,
+so each has its own CUDA context and model copy on the card. ``route``
+is the router tier (``server/router.py``), host code only.
 
 ``start-all`` brings the fleet up as detached daemons (the event server,
-and with ``--variant`` a deployed engine, both with ``--reuse-port``);
+and with ``--variant`` a deployed engine, both with ``--reuse-port``; with
+``--replicas N`` the engine as ``engine-0`` .. ``engine-<N-1>`` on
+consecutive ports from ``--engine-port`` behind a ``router`` on
+``--router-port``);
 ``supervise`` (or ``start-all --supervise``) runs it under the
 self-healing supervisor in the foreground (``server/supervisor.py``),
 with ``--retrain-every DUR`` a cadenced warm ``train`` and ``/reload``;
@@ -73,8 +92,8 @@ with ``--retrain-every DUR`` a cadenced warm ``train`` and ``/reload``;
 ``deploy`` and to the scheduled ``train``, so with no flag every child
 scores and trains on the card. A plan that needs a later slice fails
 before anything is spawned: the dashboard and the admin server (item
-10c; pass ``--no-dashboard --no-adminserver``), ``--replicas`` (10b),
-``--engine-factory`` and ``--engine-dir`` (10d).
+10c; pass ``--no-dashboard --no-adminserver``), ``--engine-factory`` and
+``--engine-dir`` (10d).
 
 ``train`` records an engine instance under
 the variant's (id, version, file-name label), as the JAX CLI does, so
@@ -95,8 +114,7 @@ into the served model every SECONDS; its cursor is
 ``--realtime-cursor`` or ``~/.pio_tpu/realtime/cursor_<engine>_<port>
 .json``. Flags that need a later slice are accepted and raise
 ``NotImplementedError`` naming it (``_check_later_slices``), never
-ignored: ``deploy --workers N`` and ``eventserver --workers N`` (N > 1)
-and the fleet plans above. ``import --warm-cache`` builds the columnar
+ignored: the fleet plans above. ``import --warm-cache`` builds the columnar
 segment cache of a jsonl or partitioned store after the import, and
 ``train --no-columnar-cache`` reads the row logs instead
 (``PIO_COLUMNAR_CACHE=0``). The engine factory
@@ -179,6 +197,8 @@ def cmd_status(args) -> int:
         print(line)
     for line in _variant_lines():
         print(line)
+    for line in _replica_lines():
+        print(line)
     return 0
 
 
@@ -226,6 +246,29 @@ def _variant_lines() -> list[str]:
             if v.get("modelAgeSec") is not None:
                 parts.append(f"model age {v['modelAgeSec']}s")
             lines.append(f"variant[{name}/{vname}]: {', '.join(parts)}")
+    return lines
+
+
+def _replica_lines() -> list[str]:
+    """Human per-replica lines for ``status`` when a router tier is
+    up: one row per pool member off its /stats.json ``replicas`` block,
+    e.g. ``replica[router/engine-0]: ready, 2 inflight, p99 31.0ms,
+    124 reqs`` — ejected members lead with their state upper-cased."""
+    lines: list[str] = []
+    for name, stats in _live_daemon_json("/stats.json").items():
+        for rname, rr in (stats.get("replicas") or {}).items():
+            state = str(rr.get("state", "?"))
+            mark = state if state == "ready" else state.upper()
+            parts = [
+                f"{rr.get('inflight', 0)} inflight",
+                f"p99 {rr.get('p99Ms', 0)}ms",
+                f"{rr.get('requests', 0)} reqs",
+            ]
+            if rr.get("ejections"):
+                parts.append(f"{rr['ejections']} ejections")
+            lines.append(
+                f"replica[{name}/{rname}]: {mark}, {', '.join(parts)}"
+            )
     return lines
 
 
@@ -459,16 +502,55 @@ def cmd_undeploy(args) -> int:
 
 def cmd_eventserver(args) -> int:
     """Serve the event API in the foreground; no device is touched."""
-    from predictionio_tpu_torch.obs import device as obs_device
+    rc = _maybe_run_workers(args)
+    if rc is not None:
+        return rc
     from predictionio_tpu_torch.server.event_server import EventServer
 
-    _check_later_slices(args)
-    # the device gauges of /metrics import torch: register them before
-    # the port binds, so that no scrape (status --json waits 2 s) pays it
-    obs_device.ensure_device_gauges()
     server = EventServer(
         host=args.ip, port=args.port, stats=args.stats,
         reuse_port=args.reuse_port,
+    )
+    server.start(background=False)
+    return 0
+
+
+def cmd_route(args) -> int:
+    """``route``: the scale-out router tier — one front port spreading
+    /queries.json across a replica set of engine servers with
+    consistent-hash affinity, health-aware ejection, and hedged
+    requests (server/router.py). Host code: no device, no torch."""
+    from predictionio_tpu_torch.server.router import (
+        RouterServer,
+        parse_replica_spec,
+    )
+
+    replicas: list[tuple[str, str, int]] = []
+    for i, spec in enumerate(args.replica or []):
+        try:
+            replicas.append(parse_replica_spec(spec, i))
+        except ValueError as e:
+            print(f"route: {e}", file=sys.stderr)
+            return 1
+    if args.replicas:
+        host = args.engine_host
+        base = args.engine_port
+        replicas.extend(
+            (f"engine-{i}", host, base + i) for i in range(args.replicas)
+        )
+    if not replicas:
+        print(
+            "route: name at least one backend (--replica HOST:PORT or "
+            "--replicas N)", file=sys.stderr,
+        )
+        return 1
+    server = RouterServer(
+        replicas,
+        host=args.ip,
+        port=args.port,
+        reuse_port=args.reuse_port,
+        probe_interval_s=args.probe_interval or None,
+        hedge=False if args.no_hedge else None,
     )
     server.start(background=False)
     return 0
@@ -493,7 +575,6 @@ def cmd_import(args) -> int:
     from predictionio_tpu_torch.cli import commands
     from predictionio_tpu_torch.data.store import EventStoreError
 
-    _check_later_slices(args)
     try:
         if args.http:
             if not args.access_key:
@@ -551,7 +632,6 @@ def cmd_train(args) -> int:
     )
     from predictionio_tpu_torch.core.workflow import load_variant, run_train
 
-    _check_later_slices(args)
     # the checkpoint flags reach als_train through the environment, as in
     # the JAX CLI
     if args.checkpoint_every:
@@ -701,23 +781,87 @@ def _load_server_config(args):
     return load_server_config(path=path)
 
 
+def _maybe_run_workers(args) -> int | None:
+    """The ``--workers N`` dispatch shared by deploy/eventserver: None
+    means "continue single-process"."""
+    if getattr(args, "workers", 1) <= 1:
+        return None
+    if args.port == 0:
+        print("--workers needs an explicit --port", file=sys.stderr)
+        return 1
+    return _run_workers(args)
+
+
+def _run_workers(args) -> int:
+    """Spawn N copies of this exact CLI invocation (each binding the
+    same port with SO_REUSEPORT) and supervise them: forward SIGTERM/
+    SIGINT, exit nonzero if ANY worker dies (an external supervisor
+    restarts the set). CPython serving is GIL-bound, so the scale-out
+    unit is the PROCESS. Each child is a fresh interpreter of the port's
+    CLI (``daemon.CLI_MODULE``), never a fork: on the card each makes its
+    own CUDA context and model copy. This process imports no torch."""
+    import signal
+    import subprocess
+
+    from predictionio_tpu_torch.cli.daemon import CLI_MODULE
+
+    # strip every --workers spelling (separate token, --workers=N, and
+    # argparse prefix abbreviations): a surviving flag would make each
+    # child spawn its own workers — a fork bomb
+    argv = []
+    tokens = iter(args.argv)
+    for tok in tokens:
+        if tok.startswith("--w") and "--workers".startswith(
+            tok.split("=", 1)[0]
+        ):
+            if "=" not in tok:
+                next(tokens, None)  # drop the value token too
+            continue
+        argv.append(tok)
+    if "--reuse-port" not in argv:
+        argv.append("--reuse-port")
+
+    procs: list = []
+
+    # install the forwarders BEFORE spawning: a SIGTERM landing in the
+    # spawn window must still reach (and not orphan) early workers
+    def forward(signum, _frame):
+        for pr in procs:
+            pr.send_signal(signum)
+
+    signal.signal(signal.SIGTERM, forward)
+    signal.signal(signal.SIGINT, forward)
+    for _ in range(args.workers):
+        procs.append(
+            subprocess.Popen([sys.executable, "-m", CLI_MODULE] + argv)
+        )
+    rc = 0
+    try:
+        # poll ALL workers: the death of any one must surface (waiting
+        # on one pid would let the set run degraded indefinitely)
+        while procs and rc == 0:
+            time.sleep(0.5)
+            for pr in list(procs):
+                code = pr.poll()
+                if code is None:
+                    continue
+                procs.remove(pr)
+                if code not in (0, -signal.SIGTERM, -signal.SIGINT):
+                    rc = code or 1
+    finally:
+        for pr in procs:
+            pr.terminate()
+        for pr in procs:
+            try:
+                pr.wait(timeout=10)
+            except Exception:
+                pr.kill()
+    return rc
+
+
 def _check_later_slices(args) -> None:
     """Flags that belong to a later slice of the port raise, naming it,
     instead of being ignored."""
-    if getattr(args, "workers", 1) > 1:
-        if getattr(args, "command", None) == "eventserver":
-            raise NotImplementedError(
-                "eventserver --workers N (ingest processes sharing the port "
-                "by SO_REUSEPORT, supervised by the daemon tooling) is a "
-                "later slice of the PyTorch port (ROADMAP.md queue 1, item "
-                "10: the CLI and the remaining host servers)"
-            )
-        raise NotImplementedError(
-            "--workers N (server processes sharing the port) is a later "
-            "slice of the PyTorch port: each process on one card needs a "
-            "CUDA context and a model copy of its own, and forking after "
-            "CUDA has started is unsafe (ROADMAP.md queue 1)"
-        )
     if getattr(args, "command", None) in ("start-all", "supervise"):
         if not (args.no_dashboard and args.no_adminserver):
             raise NotImplementedError(
@@ -725,12 +869,6 @@ def _check_later_slices(args) -> None:
                 "unless given --no-dashboard --no-adminserver; both are a "
                 "later slice of the PyTorch port (ROADMAP.md queue 1, item "
                 "10c: the dashboard and the admin server)"
-            )
-        if args.replicas > 0:
-            raise NotImplementedError(
-                "--replicas N (engine replicas behind the router tier) is a "
-                "later slice of the PyTorch port (ROADMAP.md queue 1, item "
-                "10b: worker processes and the router)"
             )
         if args.engine_factory or args.engine_dir:
             raise NotImplementedError(
@@ -808,7 +946,8 @@ def _resolve_extra_variants(args, instances) -> list:
 def deploy_server(args) -> EngineServer:
     """Resolve the engine and instance from ``args`` and build the
     server (models loaded to the device, not yet warmed or bound).
-    Raises LookupError when no instance matches."""
+    Raises LookupError when no instance matches. One process: ``--workers``
+    is ``cmd_deploy``'s, each worker builds its own server here."""
     from predictionio_tpu_torch.core.engine import (
         DEFAULT_ENGINE_FACTORY,
         resolve_engine_factory,
@@ -817,7 +956,6 @@ def deploy_server(args) -> EngineServer:
     from predictionio_tpu_torch.data.storage import get_storage
     from predictionio_tpu_torch.server.engine_server import EngineServer
 
-    _check_later_slices(args)
     variant = load_variant(args.variant) if args.variant else {}
     storage = get_storage()
     instances = storage.get_metadata_engine_instances()
@@ -864,6 +1002,11 @@ def deploy_server(args) -> EngineServer:
 
 
 def cmd_deploy(args) -> int:
+    # the worker set's parent spawns and supervises only: it builds no
+    # server, imports no torch and holds no CUDA context
+    rc = _maybe_run_workers(args)
+    if rc is not None:
+        return rc
     try:
         server = deploy_server(args)
     except LookupError as e:
@@ -921,10 +1064,28 @@ def cmd_start_all(args) -> int:
                     if p.strip()
                 ),
             ]
-        plan.append(
-            ("engine", deploy + ["--port", str(args.engine_port)],
-             args.engine_port)
-        )
+        replicas = int(getattr(args, "replicas", 0) or 0)
+        if replicas > 0:
+            # scale-out: N engine replicas on consecutive ports, each a
+            # first-class supervised service (engine-0..engine-N-1),
+            # fronted by the router tier on --router-port
+            router_host = args.ip if args.ip != "0.0.0.0" else "127.0.0.1"
+            route = ["route", "--ip", args.ip,
+                     "--port", str(args.router_port), "--reuse-port"]
+            for i in range(replicas):
+                port = args.engine_port + i
+                plan.append((
+                    f"engine-{i}",
+                    deploy + ["--port", str(port)],
+                    port,
+                ))
+                route += ["--replica", f"engine-{i}={router_host}:{port}"]
+            plan.append(("router", route, args.router_port))
+        else:
+            plan.append(
+                ("engine", deploy + ["--port", str(args.engine_port)],
+                 args.engine_port)
+            )
 
     if getattr(args, "supervise", False):
         return _run_supervised(args, plan)
@@ -1165,11 +1326,41 @@ def build_parser() -> argparse.ArgumentParser:
                     help="serve /stats.json (ingest counts per app)")
     es.add_argument(
         "--workers", type=int, default=1,
-        help="ingest processes sharing the port: a later slice of the "
-        "port (N > 1 raises)",
+        help="ingest processes sharing the port via SO_REUSEPORT "
+        "(storage appends are cross-process locked)",
     )
     es.add_argument("--reuse-port", action="store_true")
     es.set_defaults(fn=cmd_eventserver)
+
+    rt = sub.add_parser(
+        "route",
+        help="scale-out router tier over a set of engine replicas",
+    )
+    rt.add_argument("--ip", default="0.0.0.0")
+    rt.add_argument("--port", type=int, default=8100)
+    rt.add_argument(
+        "--replica", action="append", metavar="[NAME=]HOST:PORT",
+        help="one backend engine replica (repeatable)",
+    )
+    rt.add_argument(
+        "--replicas", type=int, default=0, metavar="N",
+        help="route to N replicas on consecutive ports starting at "
+        "--engine-port (names engine-0..engine-N-1, matching what "
+        "`start-all --replicas N` spawns)",
+    )
+    rt.add_argument("--engine-host", default="127.0.0.1")
+    rt.add_argument("--engine-port", type=int, default=8000)
+    rt.add_argument(
+        "--probe-interval", type=float, default=0.0, metavar="SECONDS",
+        help="replica /readyz probe interval (default "
+        "PIO_ROUTER_PROBE_INTERVAL_S or 1.0)",
+    )
+    rt.add_argument(
+        "--no-hedge", action="store_true",
+        help="disable hedged requests (equivalent to PIO_ROUTER_HEDGE=0)",
+    )
+    rt.add_argument("--reuse-port", action="store_true")
+    rt.set_defaults(fn=cmd_route)
 
     ex = sub.add_parser("export", help="write an app's events as JSON lines")
     ex.add_argument("--appid-or-name", required=True)
@@ -1315,8 +1506,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     d.add_argument(
         "--workers", type=int, default=1,
-        help="server processes sharing the port: a later slice of the "
-        "port (N > 1 raises)",
+        help="server processes sharing the port via SO_REUSEPORT, each a "
+        "fresh interpreter with its own CUDA context and model copy "
+        "(needs an explicit --port)",
     )
     d.add_argument(
         "--reuse-port", action="store_true",
@@ -1405,8 +1597,13 @@ def build_parser() -> argparse.ArgumentParser:
         )
         parser.add_argument(
             "--replicas", type=int, default=0, metavar="N",
-            help="engine replicas behind the router tier: a later slice "
-            "of the port (N > 0 raises)",
+            help="deploy the engine as N replicas on consecutive ports "
+            "starting at --engine-port, fronted by the `route` router "
+            "tier on --router-port",
+        )
+        parser.add_argument(
+            "--router-port", type=int, default=8100,
+            help="router-tier port used with --replicas",
         )
         parser.add_argument(
             "--retrain-every", metavar="DUR", default=None,
@@ -1467,6 +1664,8 @@ def main(argv: list[str] | None = None) -> int:
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
     )
     args = build_parser().parse_args(argv)
+    # the command line as given: what `--workers N` re-runs in each worker
+    args.argv = list(sys.argv[1:] if argv is None else argv)
     return args.fn(args)
 
 

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import logging
 import os
+import sys
 import threading
 import time
 
@@ -215,10 +216,18 @@ def ensure_device_gauges() -> bool:
     The gauges read ``torch.cuda.memory_stats`` at scrape time, and only
     when CUDA is already initialised: before that (and on a machine
     without a card, labelled ``cpu:0``) they export zeros with
-    ``pio_device_memory_stats_supported = 0``. Returns True."""
+    ``pio_device_memory_stats_supported = 0``.
+
+    A no-op until ``torch`` is already imported, as the JAX package's is
+    until ``jax`` is: the /metrics route calls this on every scrape, and
+    a torch-free server (the event server, the router, the supervisor's
+    stats) never pays a torch import for a scrape. Returns True when the
+    gauges are live."""
     global _gauges_registered
     if _gauges_registered:
         return True
+    if sys.modules.get("torch") is None:
+        return False
     with _lock:
         if _gauges_registered:
             return True

@@ -381,9 +381,37 @@ def test_status_names_the_event_codec(monkeypatch, caplog):
     ["deploy", "--workers", "2", "--variant", "engine.json"],
     ["start-all", "--no-dashboard", "--no-adminserver", "--replicas", "2"],
 ])
-def test_later_slice_flags_raise(argv):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        cli.main(argv)
+def test_later_slice_flags_raise(argv, monkeypatch, tmp_path):
+    """The flags of ROADMAP.md queue 1 item 10b run: ``--workers 2``
+    spawns two workers of the port's CLI with the flag stripped and
+    ``--reuse-port`` added; ``start-all --replicas 2`` without an engine
+    to deploy starts the event server alone, as the JAX package's does. Nothing is started for real: ``subprocess.Popen`` and
+    ``daemon.start_service`` are recorders."""
+    from predictionio_tpu_torch.cli import daemon
+
+    monkeypatch.setenv("PIO_RUN_DIR", str(tmp_path / "run"))
+    spawned, started = [], []
+
+    class Worker:
+        def __init__(self, cmd, *a, **kw):
+            spawned.append(cmd)
+
+        def poll(self):
+            return 0
+
+    monkeypatch.setattr(subprocess, "Popen", Worker)
+    monkeypatch.setattr("signal.signal", lambda *a: None)
+    monkeypatch.setattr(cli.time, "sleep", lambda s: None)
+    monkeypatch.setattr(daemon, "start_service",
+                        lambda name, av, host, port: started.append((name, port)) or 1)
+    assert cli.main(argv) == 0
+    if argv[0] == "start-all":
+        assert started == [("eventserver", 7070)] and not spawned
+        return
+    rest = [t for t in argv if t not in ("--workers", "2")]
+    assert spawned == [[sys.executable, "-m", "predictionio_tpu_torch.cli.main",
+                        *rest, "--reuse-port"]] * 2
+    assert not started
 
 
 def test_undeploy_without_a_server_fails(capsys):

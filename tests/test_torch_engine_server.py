@@ -1551,7 +1551,9 @@ class TestTwoStageServing:
 
 def test_deploy_flags_reach_the_server(store, serve_iid, monkeypatch, tmp_path):
     """``deploy``'s serving flags build the server they name; --workers
-    raises, naming its later slice; --realtime is ported (the speed
+    is the worker set's parent's (``cmd_deploy``), so ``deploy_server``
+    builds the one process's server whatever it says, and ``cmd_deploy``
+    refuses it without a port of its own; --realtime is ported (the speed
     layer, started by ``cmd_deploy``) and builds the server as well."""
     from predictionio_tpu_torch.cli import main as tcli
 
@@ -1574,8 +1576,13 @@ def test_deploy_flags_reach_the_server(store, serve_iid, monkeypatch, tmp_path):
             assert server.device.type == "cpu"
         finally:
             server.stop()
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tcli.deploy_server(tcli.build_parser().parse_args(base + ["--workers", "2"]))
+        args = tcli.build_parser().parse_args(base + ["--workers", "2"])
+        server = tcli.deploy_server(args)
+        try:
+            assert server.device.type == "cpu" and server.batcher is None
+        finally:
+            server.stop()
+        assert tcli.cmd_deploy(args) == 1  # --port 0: a worker set needs a port
         server = tcli.deploy_server(tcli.build_parser().parse_args(
             base + ["--realtime", "1"]))
         server.stop()

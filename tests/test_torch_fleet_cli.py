@@ -122,7 +122,7 @@ class TestLaterSlicePlans:
     @pytest.mark.parametrize("argv,item", [
         (["supervise", "--no-adminserver"], "10c"),
         (["start-all", "--no-dashboard"], "10c"),
-        (["start-all", *FLEET, "--replicas", "2", "--variant", "v.json"], "10b"),
+        (["start-all", *FLEET, "--replicas", "2", "--engine-factory", "m.engine"], "10d"),
         (["supervise", *FLEET, "--engine-factory", "m.engine"], "10d"),
         (["start-all", *FLEET, "--engine-dir", "."], "10d"),
     ])
@@ -137,9 +137,30 @@ class TestLaterSlicePlans:
         with pytest.raises(NotImplementedError, match=f"later slice.*{item}"):
             cli.main(argv)
 
-    def test_workers_still_raise(self):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            cli.main(["deploy", "--workers", "2", "--variant", "engine.json"])
+    def test_workers_still_raise(self, monkeypatch, tmp_path, capsys):
+        """``--workers`` and ``--replicas`` are no longer later slices:
+        ``deploy --workers 2`` without a port of its own is refused as the
+        JAX package refuses it (exit 1, nothing spawned), and a
+        ``supervise --replicas 2`` plan runs engine-0, engine-1 and the
+        router under the supervisor."""
+        monkeypatch.setenv("PIO_RUN_DIR", str(tmp_path / "run"))
+
+        def spawned(*a, **kw):
+            raise AssertionError("a service was spawned")
+
+        monkeypatch.setattr(daemon, "spawn_service", spawned)
+        monkeypatch.setattr(subprocess, "Popen", spawned)
+        assert cli.main(["deploy", "--workers", "2", "--port", "0",
+                         "--variant", "engine.json"]) == 1
+        assert "--workers needs an explicit --port" in capsys.readouterr().err
+        plans = []
+        monkeypatch.setattr(cli, "_run_supervised",
+                            lambda args, plan: plans.append(plan) or 0)
+        assert cli.main(["supervise", *FLEET, "--replicas", "2", "--variant",
+                         "engine.json", "--engine-port", "8500"]) == 0
+        assert [(n, p) for n, _, p in plans[0]] == [
+            ("eventserver", 7070), ("engine-0", 8500), ("engine-1", 8501),
+            ("router", 8100)]
 
 
 def test_status_json_of_a_live_daemon(cli_env, monkeypatch, capsys):

@@ -80,7 +80,7 @@ def test_port_imports_without_jax_or_the_jax_package():
         "server.event_server", "cli.commands",
         "data.storage.groupcommit", "data.storage.columnar_cache",
         "data.storage.jsonl", "data.storage.partitioned", "data.view",
-        "core.self_cleaning",
+        "core.self_cleaning", "cli.daemon", "server.supervisor", "server.router",
     )} <= walked
 
 

@@ -860,12 +860,20 @@ class TestDeployCLI:
         off = cli.build_parser().parse_args(["deploy", "--device", "cpu"])
         assert cli.start_speed_layers(server, off) == []
 
-    def test_workers_still_raise(self):
+    def test_workers_still_raise(self, monkeypatch, capsys):
+        """``deploy --workers 2 --realtime 1`` is the worker set's: its
+        parent builds no server (each worker runs its own speed layer),
+        and without a port of its own it is refused with exit 1."""
         from predictionio_tpu_torch.cli import main as cli
 
-        args = cli.build_parser().parse_args(["deploy", "--workers", "2", "--realtime", "1"])
-        with pytest.raises(NotImplementedError, match="--workers"):
-            cli.deploy_server(args)
+        def built(args):
+            raise AssertionError("the worker set's parent built a server")
+
+        monkeypatch.setattr(cli, "deploy_server", built)
+        args = cli.build_parser().parse_args(
+            ["deploy", "--workers", "2", "--realtime", "1", "--port", "0"])
+        assert cli.cmd_deploy(args) == 1
+        assert "--workers needs an explicit --port" in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------
